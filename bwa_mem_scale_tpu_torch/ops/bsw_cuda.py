@@ -8,7 +8,8 @@ to the plain version.
 
 The kernel is compiled with nvcc into a shared library with a plain C
 interface at first use (``build/torch_kernels/libbsw_cuda.so``, rebuilt
-when the source's hash changes) and bound with ctypes. The wrapper
+when the source's hash changes; ``ops/nvcc_build.py``) and bound with
+ctypes. The wrapper
 clamps base codes to [0, 4], sorts pairs by effective target length (a
 warp runs as long as its longest lane), transposes every array to
 [row, pair] for coalesced access, allocates outputs and DP scratch,
@@ -18,43 +19,19 @@ launches on the current stream, and undoes the permutation.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 
 import torch
 
+from . import nvcc_build
 from .bsw import BswBatchResult, band_per_pair, banded_swa_batch, scoring
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_REPO, "csrc", "bsw.cu")
-BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
-LIB_PATH = os.path.join(BUILD_DIR, "libbsw_cuda.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(nvcc_build.REPO, "csrc", "bsw.cu")
+LIB_PATH = nvcc_build.lib_path("bsw_cuda")
 BLOCK = 32          # threads per block: one warp, spread over the SMs
 
 _lib = None
 build_seconds = None   # wall time of the last build in this process
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin",
-                              "nvcc"),
-                 shutil.which("nvcc") or "",
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the BSW kernel "
-                       "is built on the machine with the GPU")
-
-
-def _source_hash() -> str:
-    with open(SOURCE, "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()
 
 
 def build(force: bool = False, verbose: bool = False) -> str:
@@ -62,28 +39,10 @@ def build(force: bool = False, verbose: bool = False) -> str:
     exists. Returns the library path; sets ``build_seconds`` when it
     compiled. verbose prints ptxas's register / spill report."""
     global build_seconds
-    digest = _source_hash()
-    stamp = LIB_PATH + ".sha256"
-    if not force and os.path.exists(LIB_PATH) and os.path.exists(stamp):
-        with open(stamp) as f:
-            if f.read().strip() == digest:
-                return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, LIB_PATH)
-    with open(stamp, "w") as f:
-        f.write(digest)
-    build_seconds = time.perf_counter() - t0
-    return LIB_PATH
+    path, seconds = nvcc_build.build(SOURCE, "bsw_cuda", force, verbose)
+    if seconds is not None:
+        build_seconds = seconds
+    return path
 
 
 def _load():

@@ -5,7 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
   1. card:    CUDA present; prints nvidia-smi's name and power limit.
-  2. build:   compiles csrc/bsw.cu (the banded-SW kernel) from source.
+  2. build:   compiles csrc/bsw.cu (the banded-SW kernel) and
+              csrc/probes.cu (the probe kernels) from source, one nvcc
+              each, both at once; prints ptxas's register report.
   3. kernel:  the CUDA kernel against the plain PyTorch BSW on the card
               at main-path shapes (4096 pairs, query 101, target 309,
               band 100 and 200), all six outputs bit-equal; both timed.
@@ -20,23 +22,32 @@ Phases, in order; any failure exits non-zero:
               `mem -v 4` run with synchronised stage timers.
   5. slice:   seed_chain_extend on one batch of phase 4 with the kernel
               and with the plain BSW: packed and meta equal.
+  6. probes:  the probe path through its entry points, `probe_cuda` and
+              `probe_cuda_rates ABCDEF` on the card (every probe OK,
+              every probe kernel launched, the rate lines printed); then
+              each of the eight probe kernels against its plain PyTorch
+              version at the path's shapes, equal arrays, both timed in
+              turns.
 
-Prints the kernel JSON line, then as its last line
+Prints the kernel JSON line (all nine kernels), then as its last line
 {"ok": true, "device": {"platform": "gpu", ...}}.
 Imports nothing of JAX.
 """
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
+
+from bwa_mem_scale_tpu_torch.tools.timing import (  # noqa: E402
+    card_line, device_ms, time_ms)
 
 GENOME_BP = 4_600_000
 N_READS = 10_000
@@ -47,13 +58,6 @@ P, QL, TL = 4096, 101, 309       # main-path BSW shapes (w = 100)
 
 def log(msg=""):
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def bsw_pairs(rng, n, ql, tl):
@@ -81,20 +85,6 @@ def bsw_pairs(rng, n, ql, tl):
     return qs, q_lens, ts, t_lens, h0
 
 
-def time_ms(fn, reps):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_kernel(dev, card):
     import torch
     from bwa_mem_scale_tpu_torch._shared.config import MemOptions
@@ -120,9 +110,9 @@ def phase_kernel(dev, card):
     # time in turns (w, 2w, 2w, w) so clock ramps do not favour one
     for w in bands + bands[::-1]:
         res[w]["ms"].append(
-            time_ms(lambda: banded_swa_batch_cuda(*arrs, w, *pen), 10))
+            time_ms(lambda: banded_swa_batch_cuda(*arrs, w, *pen), 10, dev))
         res[w]["plain_ms"].append(
-            time_ms(lambda: banded_swa_batch(*arrs, w, *pen), 2))
+            time_ms(lambda: banded_swa_batch(*arrs, w, *pen), 2, dev))
     for w in bands:
         r = res[w]
         r["ms"] = sum(r["ms"]) / 2
@@ -257,33 +247,94 @@ def phase_slice(dev, card, al, codes, lens):
         f"  [{card}]")
 
 
+def phase_probes(dev, card):
+    """The probe path through its entry points, then each probe kernel
+    against its plain version at the path's shapes."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import probe_kernels as pk
+    from bwa_mem_scale_tpu_torch.tools import probe_cuda, probe_cuda_rates
+    t0 = time.perf_counter()
+    pk.reset_launches()                         # probe path starts here
+    rcs = (probe_cuda.main(["--device", "cuda"]),
+           probe_cuda_rates.main(["ABCDEF", "--device", "cuda"]))
+    torch.cuda.synchronize()
+    launches = pk.launch_counts()               # probe path ends here
+    if any(rcs):
+        raise SystemExit(f"probes: entry points exited {rcs}")
+    idle = [n for n, c in launches.items() if c <= 0]
+    if idle:
+        raise SystemExit(f"probes: kernels never launched: {idle}")
+    log(f"[probes] probe_cuda and probe_cuda_rates ABCDEF: all OK in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+
+    res = {}
+    cases = probe_cuda_rates.kernel_cases(dev)
+    for name, kernel, plain in cases:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise SystemExit(f"probes: {name} kernel != plain version")
+        res[name] = dict(err=int((got.long() - want.long()).abs().max()),
+                         ms=[], plain_ms=[])
+    # device time (a spin kernel holds the stream while the calls are
+    # queued) in turns (kernel, plain, plain, kernel) so clock ramps do
+    # not favour one; the wall time of back-to-back calls beside it
+    for turn in range(2):
+        for name, kernel, plain in cases:
+            for which in (("ms", "plain_ms") if turn == 0
+                          else ("plain_ms", "ms")):
+                fn = kernel if which == "ms" else plain
+                res[name][which].append(device_ms(fn, 20, dev))
+    for name, kernel, plain in cases:
+        r = res[name]
+        r["ms"] = sum(r["ms"]) / 2
+        r["plain_ms"] = sum(r["plain_ms"]) / 2
+        log(f"[probes] {name}: equal to plain (max_abs_err {r['err']}); "
+            f"device time kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms (mean of 2 turns); back to back a call"
+            f" kernel {time_ms(kernel, 20, dev):.4f} ms, plain "
+            f"{time_ms(plain, 20, dev):.4f} ms  [{card}]")
+    log(f"[probes] phase 6 took {time.perf_counter() - t0:.1f} s")
+    return [{"name": name, "route": "cuda", "source": "csrc/probes.cu",
+             "replaces": pk.REPLACES[name], "launches": launches[name],
+             "max_abs_err": r["err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"]} for name, r in res.items()]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     dev = torch.device("cuda:0")
     name = torch.cuda.get_device_name(0)
-    card = card_line()
+    card = card_line(dev)
     log(card)
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{name} x{torch.cuda.device_count()}")
 
-    from bwa_mem_scale_tpu_torch.ops import bsw_cuda
-    bsw_cuda.build(force=True, verbose=True)
+    from bwa_mem_scale_tpu_torch.ops import bsw_cuda, probe_kernels
+    with ThreadPoolExecutor(2) as ex:           # one nvcc a source, at once
+        builds = [ex.submit(bsw_cuda.build, force=True, verbose=True),
+                  ex.submit(probe_kernels.build, force=True, verbose=True)]
+        probes_seconds = builds[1].result()[1]
+        builds[0].result()
     log(f"[build] csrc/bsw.cu -> {os.path.relpath(bsw_cuda.LIB_PATH, REPO)}"
-        f" in {bsw_cuda.build_seconds:.2f} s")
+        f" in {bsw_cuda.build_seconds:.2f} s; csrc/probes.cu -> "
+        f"{os.path.relpath(probe_kernels.LIB_PATH, REPO)} in "
+        f"{probes_seconds:.2f} s (in parallel)")
 
     k = phase_kernel(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches, al, codes, lens = phase_mem(dev, card, tmp)
         phase_slice(dev, card, al, codes, lens)
+    probes = phase_probes(dev, card)
 
     log(json.dumps({"kernels": [{
         "name": "banded_swa_batch", "route": "cuda",
         "source": "csrc/bsw.cu",
         "replaces": "bwa_mem_scale_tpu/ops/bsw_pallas.py:56",
         "launches": launches, "max_abs_err": k["err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}))
+        "ms": k["ms"], "plain_ms": k["plain_ms"]}] + probes}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

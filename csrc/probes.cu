@@ -1,0 +1,457 @@
+// Hopper (sm_90a) counterparts of the eight Pallas TPU design probes.
+//
+// Replaces tools/probe_pallas.py::probe1/probe2/probe3 and
+// tools/probe_pallas_rates.py::probe_A..probe_E. Each kernel computes
+// what its TPU kernel computes, on the layout that suits this card, and
+// measures the primitive that the TPU probe measured: the cost of a
+// launch, dependent row loads from shared memory, L2 and HBM, the row
+// copy rate at a given number of copies in flight, and a lane gather.
+// Those are the numbers the SMEM seeding kernel's design rests on; the
+// fused occ checkpoint row of the port is [8] int32 (32 bytes,
+// bwa_mem_scale_tpu_torch/ops/occ.py), so every table probe also takes
+// W = 8 beside the TPU's W = 128.
+//
+// Every launch function has a plain C interface (bound with ctypes by
+// bwa_mem_scale_tpu_torch/ops/probe_kernels.py), launches on the stream
+// it is given, allocates nothing, and returns cudaGetLastError() after
+// its launch, so a refused launch (too much shared memory, too many
+// threads) is reported and cleared. Integer sums and products wrap like
+// JAX's int32: they are taken in uint32_t (signed overflow is undefined
+// in C++), and the floored modulo of JAX and PyTorch is written out
+// because C's % truncates. Row indices are clamped into the table, as a
+// JAX gather clamps them, so no input reads out of bounds.
+//
+// What bounds each on an H100, and what the design does about it:
+// - probe1, C, D are a few microseconds of device work: the launch
+//   bounds them (and the host, which enqueues slower than the card runs).
+// - probe2 is bound by staging the table into shared memory: 16-byte
+//   loads by 1024 threads, column slices across blocks.
+// - probe3 waits one row latency a step: the next row's copy is issued
+//   before the current one is summed.
+// - probe B is one dependent load latency per tick plus the index
+//   arithmetic (a modulo by a runtime NB): lanes are independent, so no
+//   grid barrier; tables that fit are staged in shared memory.
+// - probe E is bound by each warp's issue loop (kRowsPerGroup + D - 1
+//   steps a tick), not by memory: the row indices are staged in shared
+//   memory once, and D is a template parameter.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+// rows one row group of probe E copies per tick (the largest TPU depth)
+constexpr int kRowsPerGroup = 64;
+
+__device__ __forceinline__ int clamp_row(int v, int n) {
+  return v < 0 ? 0 : (v >= n ? n - 1 : v);
+}
+
+__device__ __forceinline__ int floor_mod(int32_t v, int n) {
+  const int r = v % n;
+  return r < 0 ? r + n : r;
+}
+
+__device__ __forceinline__ uint32_t sum4(int4 v) {
+  return (uint32_t)v.x + (uint32_t)v.y + (uint32_t)v.z + (uint32_t)v.w;
+}
+
+// next lane index of probe B: (sum of the row's first 8 words) *
+// 1103515245, wrapped to int32, floored modulo the table's rows
+__device__ __forceinline__ int next_index(uint32_t s, int nb) {
+  return floor_mod((int32_t)(s * 1103515245u), nb);
+}
+
+// a 16-byte global load the compiler may not drop: at W = 128 only the
+// first 8 words of a row feed the chain, yet the probe has to move the
+// whole row, as the TPU kernel did
+__device__ __forceinline__ int4 ld_global_keep(const int4* p) {
+  int4 v;
+  asm volatile("ld.global.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// cp.async.wait_group takes an immediate, hence the template
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void store4(int32_t* out, int4 v) {
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+// ---- probe1: out = x * 2 + 1, one thread per element --------------------
+__global__ void affine_kernel(const int32_t* __restrict__ x,
+                              int32_t* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = (int32_t)((uint32_t)x[i] * 2u + 1u);
+}
+
+// ---- probe2: out[c] = sum_i tab[idx[i], c], table in shared memory -----
+// Block b stages the column slice [c0, c0 + cw) of all R rows, 16 bytes
+// a thread (W and cw are multiples of 4); each output column is
+// independent, so the slices need no cross-block sum.
+__global__ void smem_sum_kernel(const int32_t* __restrict__ tab,
+                                const int32_t* __restrict__ idx,
+                                int32_t* __restrict__ out, int R, int W,
+                                int N, int cw) {
+  extern __shared__ int32_t slice[];            // [R, cw]
+  const int c0 = blockIdx.x * cw, q = cw >> 2, wq = W >> 2;
+  const int4* g = reinterpret_cast<const int4*>(tab) + (c0 >> 2);
+  int4* s = reinterpret_cast<int4*>(slice);
+  for (int e = threadIdx.x; e < R * q; e += blockDim.x)
+    s[e] = g[(size_t)(e / q) * wq + e % q];
+  __syncthreads();
+  const int c = threadIdx.x;
+  if (c >= cw) return;
+  uint32_t acc = 0;
+  for (int i = 0; i < N; ++i)
+    acc += (uint32_t)slice[clamp_row(idx[i], R) * cw + c];
+  out[c0 + c] = (int32_t)acc;
+}
+
+// ---- probe3: the same sum, rows copied from HBM through a 2-slot ring --
+// One block of W/4 <= 32 threads; thread t copies and sums the 16 bytes
+// at words [4t, 4t + 4) of each row, so it reads only what it copied.
+// Row i + 1's copy is in flight while row i is summed.
+__global__ void hbm_sum_kernel(const int32_t* __restrict__ idx,
+                               const int32_t* __restrict__ tab,
+                               int32_t* __restrict__ out, int R, int W,
+                               int N) {
+  extern __shared__ int4 ring[];                // [2, W/4]
+  const int q = W >> 2, t = threadIdx.x;
+  const unsigned live = q >= 32 ? kFull : (1u << q) - 1u;
+  const int4* rows = reinterpret_cast<const int4*>(tab);
+  uint32_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+  if (N > 0) cp_async16(&ring[t], rows + (size_t)clamp_row(idx[0], R) * q + t);
+  cp_async_commit();
+  for (int i = 0; i < N; ++i) {
+    if (i + 1 < N)
+      cp_async16(&ring[((i + 1) & 1) * q + t],
+                 rows + (size_t)clamp_row(idx[i + 1], R) * q + t);
+    cp_async_commit();                          // empty on the last row
+    cp_async_wait<1>();                         // row i has landed
+    const int4 v = ring[(i & 1) * q + t];
+    a0 += (uint32_t)v.x;
+    a1 += (uint32_t)v.y;
+    a2 += (uint32_t)v.z;
+    a3 += (uint32_t)v.w;
+    __syncwarp(live);                           // read before the refill
+  }
+  store4(out + 4 * t, make_int4((int32_t)a0, (int32_t)a1, (int32_t)a2,
+                                (int32_t)a3));
+}
+
+// ---- probe A: a dynamic shared-memory scratch of n_rows x W words ------
+// The TPU kernel read row n-1 without writing it. Here rows 0 and n-1
+// both receive x, so the output is the defined 2 * x.
+__global__ void smem_capacity_kernel(const int32_t* __restrict__ x,
+                                     int32_t* __restrict__ out, int n_rows,
+                                     int W) {
+  extern __shared__ int32_t scratch[];          // [n_rows, W]
+  int32_t* last = scratch + (size_t)(n_rows - 1) * W;
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    scratch[j] = x[j];
+    last[j] = x[j];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < W; j += blockDim.x)
+    out[j] = (int32_t)((uint32_t)last[j] + (uint32_t)scratch[j]);
+}
+
+// ---- probe B: NT chained ticks over T lanes ----------------------------
+// Each lane's chain is independent of every other lane's, so one launch
+// runs all NT ticks with no grid-wide barrier.
+// W = 8 (the port's occ row): one thread per lane, the row as two int4.
+// With SMEM, every block first stages the whole table in shared memory.
+template <bool SMEM>
+__global__ void chain8_kernel(const int32_t* __restrict__ tab,
+                              const int32_t* __restrict__ idx0,
+                              int32_t* __restrict__ out, int NB, int T,
+                              int NT) {
+  extern __shared__ int4 stab[];                // [NB, 2] when SMEM
+  const int4* g = reinterpret_cast<const int4*>(tab);
+  if (SMEM) {
+    for (int e = threadIdx.x; e < 2 * NB; e += blockDim.x) stab[e] = g[e];
+    __syncthreads();
+  }
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= T) return;
+  const int4* src = SMEM ? stab : g;
+  int ix = clamp_row(idx0[lane], NB);
+  int4 r0 = make_int4(0, 0, 0, 0), r1 = r0;
+  for (int t = 0; t < NT; ++t) {
+    r0 = src[2 * (size_t)ix];
+    r1 = src[2 * (size_t)ix + 1];
+    ix = next_index(sum4(r0) + sum4(r1), NB);
+  }
+  if (lane == 0) {
+    store4(out, r0);
+    store4(out + 4, r1);
+  }
+}
+
+// W = 128 (the TPU's row): one warp per lane, 16 bytes a thread; words
+// 0-7 sit in threads 0 and 1, whose sum every thread receives by shuffle.
+__global__ void chain128_kernel(const int32_t* __restrict__ tab,
+                                const int32_t* __restrict__ idx0,
+                                int32_t* __restrict__ out, int NB, int T,
+                                int NT) {
+  const int lane = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int l = threadIdx.x & 31;
+  if (lane >= T) return;                        // whole warps only
+  const int4* g = reinterpret_cast<const int4*>(tab);
+  int ix = clamp_row(idx0[lane], NB);
+  int4 v = make_int4(0, 0, 0, 0);
+  for (int t = 0; t < NT; ++t) {
+    v = ld_global_keep(g + (size_t)ix * 32 + l);
+    uint32_t s = l < 2 ? sum4(v) : 0u;
+    s += __shfl_xor_sync(kFull, s, 1);
+    s = __shfl_sync(kFull, s, 0);
+    ix = next_index(s, NB);
+  }
+  if (lane == 0) store4(out + 4 * l, v);
+}
+
+// ---- probe C: out[t, j] = x[t, idx[t, j]] ------------------------------
+// A row of W words spans W/4 threads (4 words each); the gather is four
+// shuffles within that segment and a select of the word.
+__global__ void lane_gather_kernel(const int32_t* __restrict__ x,
+                                   const int32_t* __restrict__ idx,
+                                   int32_t* __restrict__ out, int T,
+                                   int W) {
+  const int q = W >> 2;
+  const long g = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = g < (long)T * q;            // every lane shuffles
+  const int4 zero = make_int4(0, 0, 0, 0);
+  const int4 xv = live ? reinterpret_cast<const int4*>(x)[g] : zero;
+  const int4 iv = live ? reinterpret_cast<const int4*>(idx)[g] : zero;
+  const int src[4] = {iv.x, iv.y, iv.z, iv.w};
+  int res[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int s = clamp_row(src[k], W);
+    const int from = s >> 2, word = s & 3;
+    const int a = __shfl_sync(kFull, xv.x, from, q);
+    const int b = __shfl_sync(kFull, xv.y, from, q);
+    const int c = __shfl_sync(kFull, xv.z, from, q);
+    const int d = __shfl_sync(kFull, xv.w, from, q);
+    res[k] = word == 0 ? a : (word == 1 ? b : (word == 2 ? c : d));
+  }
+  if (live)
+    reinterpret_cast<int4*>(out)[g] = make_int4(res[0], res[1], res[2],
+                                                res[3]);
+}
+
+// ---- probe D: an address vector handed to one thread -------------------
+// The vector goes from global to shared memory, a barrier, then one
+// thread reads element k (the TPU's VMEM -> SMEM copy and scalar read).
+__global__ void handoff_kernel(const int32_t* __restrict__ v,
+                               int32_t* __restrict__ out, int T, int k) {
+  extern __shared__ int32_t vec[];              // [T]
+  for (int i = threadIdx.x; i < T; i += blockDim.x) vec[i] = v[i];
+  __syncthreads();
+  if (threadIdx.x == 0) out[0] = vec[k];
+}
+
+// ---- probe E: row copies with D in flight, NT ticks of T rows ----------
+// A row group is the W/4 threads that copy one row, 16 bytes each; it
+// owns kRowsPerGroup consecutive rows of every tick and a ring of D row
+// slots in shared memory, and keeps D copies in flight. Every step
+// commits one group (empty past the last row), so wait_group D-1 always
+// means "the row issued D-1 steps ago has landed". Each thread reads
+// only the bytes it copied. The warp's row indices are staged in shared
+// memory first, as the TPU kernel held them in its scalar memory. All
+// ticks copy the same rows, as the TPU kernel did; the out row is
+// tab[idx[0]] as it landed in the last tick. One warp a block.
+template <int D>
+__global__ void row_copy_kernel(const int32_t* __restrict__ idx,
+                                const int32_t* __restrict__ tab,
+                                int32_t* __restrict__ out, int NB, int W,
+                                int T, int NT) {
+  extern __shared__ int4 ring[];                // [D, 32], then indices
+  const int q = W >> 2, groups = 32 / q;
+  const int l = threadIdx.x;
+  const int part = l % q;
+  const int first = (blockIdx.x * groups + l / q) * kRowsPerGroup;
+  int4* slot0 = ring + l;
+  int* rix = reinterpret_cast<int*>(ring + D * 32);   // [groups, rows]
+  const int warp_first = blockIdx.x * groups * kRowsPerGroup;
+  for (int e = l; e < groups * kRowsPerGroup; e += 32)
+    rix[e] = warp_first + e < T ? clamp_row(idx[warp_first + e], NB) : 0;
+  __syncwarp();
+  const int* my_rix = rix + (l / q) * kRowsPerGroup;
+  const int4* rows = reinterpret_cast<const int4*>(tab);
+  for (int t = 0; t < NT; ++t) {
+    for (int k = 0; k < kRowsPerGroup + D - 1; ++k) {
+      if (k < kRowsPerGroup && first + k < T)
+        cp_async16(slot0 + (k % D) * 32,
+                   rows + (size_t)my_rix[k] * q + part);
+      cp_async_commit();
+      if (k >= D - 1) {
+        cp_async_wait<D - 1>();
+        const int j = k - (D - 1);
+        if (t == NT - 1 && first + j == 0)
+          store4(out + 4 * part, slot0[(j % D) * 32]);
+      }
+    }
+  }
+}
+
+cudaError_t allow_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+int smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return bytes;
+}
+
+template <int D>
+int launch_row_copy(const int32_t* idx, const int32_t* tab, int32_t* out,
+                    int NB, int W, int T, int NT, cudaStream_t s) {
+  const int groups = (T + kRowsPerGroup - 1) / kRowsPerGroup;
+  const int per_warp = 32 / (W >> 2);
+  const int warps = (groups + per_warp - 1) / per_warp;
+  const size_t bytes = (size_t)D * 32 * sizeof(int4) +
+                       (size_t)per_warp * kRowsPerGroup * sizeof(int);
+  const cudaError_t e = allow_smem((const void*)row_copy_kernel<D>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  row_copy_kernel<D><<<warps, 32, bytes, s>>>(idx, tab, out, NB, W, T, NT);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// cudaDevAttrMaxSharedMemoryPerBlockOptin of the current device, bytes
+int probe_smem_optin() { return smem_optin(); }
+
+int probe1_launch(const int32_t* x, int32_t* out, int n, void* stream) {
+  const int block = 256;
+  affine_kernel<<<(n + block - 1) / block, block, 0,
+                  (cudaStream_t)stream>>>(x, out, n);
+  return (int)cudaGetLastError();
+}
+
+// k, the number of column slices, is the least divisor of W whose slice
+// of R rows fits the opt-in shared memory of one block
+int probe2_launch(const int32_t* tab, const int32_t* idx, int32_t* out,
+                  int R, int W, int N, void* stream) {
+  const size_t optin = (size_t)smem_optin();
+  int k = 1;
+  while (k <= W && (W % k != 0 || (W / k) % 4 != 0 ||
+                    (size_t)R * (W / k) * 4 > optin))
+    ++k;
+  if (k > W || W / k > 1024) return (int)cudaErrorInvalidValue;
+  const int cw = W / k;
+  const size_t bytes = (size_t)R * cw * 4;
+  const cudaError_t e = allow_smem((const void*)smem_sum_kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  smem_sum_kernel<<<k, 1024, bytes, (cudaStream_t)stream>>>(tab, idx, out,
+                                                            R, W, N, cw);
+  return (int)cudaGetLastError();
+}
+
+int probe3_launch(const int32_t* idx, const int32_t* tab, int32_t* out,
+                  int R, int W, int N, void* stream) {
+  const int q = W >> 2;
+  hbm_sum_kernel<<<1, q, 2 * q * sizeof(int4), (cudaStream_t)stream>>>(
+      idx, tab, out, R, W, N);
+  return (int)cudaGetLastError();
+}
+
+// The attribute is asked for n_rows * W * 4 bytes; past the opt-in
+// limit the request fails, the attribute keeps its last value and the
+// launch itself is refused. Both errors are cleared here.
+int probe_a_launch(const int32_t* x, int32_t* out, int n_rows, int W,
+                   void* stream) {
+  const size_t bytes = (size_t)n_rows * W * 4;
+  cudaFuncSetAttribute((const void*)smem_capacity_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)bytes);
+  (void)cudaGetLastError();
+  smem_capacity_kernel<<<1, 128, bytes, (cudaStream_t)stream>>>(x, out,
+                                                                n_rows, W);
+  return (int)cudaGetLastError();
+}
+
+// W = 8 stages the table in shared memory whenever it fits one block's
+// opt-in limit; W = 128 reads it from global memory (L2 or HBM)
+int probe_b_launch(const int32_t* tab, const int32_t* idx0, int32_t* out,
+                   int NB, int W, int T, int NT, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (W == 128) {
+    const int warps_per_block = 8;
+    chain128_kernel<<<(T + warps_per_block - 1) / warps_per_block,
+                      32 * warps_per_block, 0, s>>>(tab, idx0, out, NB, T,
+                                                    NT);
+    return (int)cudaGetLastError();
+  }
+  if (W != 8) return (int)cudaErrorInvalidValue;
+  const int block = 128, grid = (T + block - 1) / block;
+  const size_t bytes = (size_t)NB * 8 * 4;
+  if (bytes <= (size_t)smem_optin()) {
+    const cudaError_t e = allow_smem((const void*)chain8_kernel<true>, bytes);
+    if (e != cudaSuccess) return (int)e;
+    chain8_kernel<true><<<grid, block, bytes, s>>>(tab, idx0, out, NB, T,
+                                                   NT);
+  } else {
+    chain8_kernel<false><<<grid, block, 0, s>>>(tab, idx0, out, NB, T, NT);
+  }
+  return (int)cudaGetLastError();
+}
+
+int probe_c_launch(const int32_t* x, const int32_t* idx, int32_t* out,
+                   int T, int W, void* stream) {
+  const long threads = (long)T * (W >> 2);
+  const int block = 256;
+  lane_gather_kernel<<<(int)((threads + block - 1) / block), block, 0,
+                       (cudaStream_t)stream>>>(x, idx, out, T, W);
+  return (int)cudaGetLastError();
+}
+
+int probe_d_launch(const int32_t* v, int32_t* out, int T, int k,
+                   void* stream) {
+  const size_t bytes = (size_t)T * 4;
+  const cudaError_t e = allow_smem((const void*)handoff_kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  handoff_kernel<<<1, 1024, bytes, (cudaStream_t)stream>>>(v, out, T, k);
+  return (int)cudaGetLastError();
+}
+
+int probe_e_launch(const int32_t* idx, const int32_t* tab, int32_t* out,
+                   int NB, int W, int T, int NT, int D, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 4: return launch_row_copy<4>(idx, tab, out, NB, W, T, NT, s);
+    case 16: return launch_row_copy<16>(idx, tab, out, NB, W, T, NT, s);
+    case 64: return launch_row_copy<64>(idx, tab, out, NB, W, T, NT, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

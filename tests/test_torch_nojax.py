@@ -1,6 +1,7 @@
 """The port runs without JAX: `index`, `perfect-index` and
-`mem --device cpu` in a fresh interpreter in which importing `jax`,
-`jaxlib` or the JAX package `bwa_mem_scale_tpu` raises."""
+`mem --device cpu`, and the import of the probe entry points, in a fresh
+interpreter in which importing `jax`, `jaxlib` or the JAX package
+`bwa_mem_scale_tpu` raises."""
 
 import os
 import subprocess
@@ -31,6 +32,8 @@ RUNNER = textwrap.dedent("""
                  ["mem", "g", "r.fq", "-o", "out.sam", "--device", "cpu",
                   "--batch-reads", "16"]):
         assert main(argv) == 0, argv
+    import bwa_mem_scale_tpu_torch.tools.probe_cuda
+    import bwa_mem_scale_tpu_torch.tools.probe_cuda_rates
     leaked = [m for m in sys.modules
               if m.split(".")[0] in Block.BLOCKED]
     assert not leaked, leaked

@@ -1,0 +1,246 @@
+"""The eight TPU design probes and their port (ops/probe_kernels.py).
+
+Each JAX probe of tools/probe_pallas.py and tools/probe_pallas_rates.py
+runs as it is, imported by file path, with ``pl.pallas_call`` patched to
+run in interpret mode and to record every call's inputs and output. The
+port's plain version then runs on the recorded inputs and must give the
+same arrays. Two exceptions, each stated where it is tested:
+
+- probe_A's TPU kernel reads scratch row n-1 without writing it, so only
+  row 0 is compared: the JAX output minus its output on a zero input (the
+  unwritten row's term cancels) must be x, the port's row 0. The port
+  writes x to row n-1 too and must return 2 * x.
+- probe_E runs on a table of zeros, which checks nothing, so its kernel
+  is also run on a non-zero table against a numpy transcription.
+
+probe_B and probe_E time their kernel over several calls; here the
+tool's timing helper makes one call per configuration.
+
+On a GPU, ``test_cuda_kernels_equal_plain`` holds every CUDA kernel
+against its plain version (it imports no JAX):
+    PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_probes.py
+"""
+
+import dataclasses
+import importlib.util
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from bwa_mem_scale_tpu_torch.ops import probe_kernels as pk
+
+TOOLS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools")
+B_TICKS, E_TICKS = 32, 8       # NT of the TPU's probe_B and probe_E
+BIG = 64 << 20                 # bytes above which an all-zero input is
+                               # recorded by shape only
+
+
+@dataclasses.dataclass
+class Call:
+    fn: object                 # the interpret-mode pallas_call callable
+    args: list
+    out: np.ndarray
+    zero_out: np.ndarray = None
+
+
+def _keep(a):
+    a = np.asarray(a)
+    if a.nbytes > BIG and not a.any():
+        return ("zeros", a.shape, a.dtype)
+    return a.copy()          # writable, so torch may share it
+
+
+def _array(a):
+    if isinstance(a, tuple):
+        return np.zeros(a[1], a[2])
+    return a
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    calls = []
+    orig = pl.pallas_call
+    opts = {"rerun_zeros": False}
+
+    def pallas_call(kernel, out_shape, **kw):
+        kw["interpret"] = True
+        f = orig(kernel, out_shape, **kw)
+
+        def call(*args):
+            out = f(*args)
+            if isinstance(out, jax.core.Tracer):     # under jax.jit
+                jax.debug.callback(
+                    lambda *v: calls.append(Call(f, [_keep(a) for a in v[:-1]],
+                                                 _keep(v[-1]))), *args, out)
+                return out
+            rec = Call(f, [_keep(a) for a in args], _keep(out))
+            if opts["rerun_zeros"]:
+                rec.zero_out = np.asarray(f(*[jnp.zeros_like(a)
+                                              for a in args]))
+            calls.append(rec)
+            return out
+        return call
+
+    monkeypatch.setattr(pl, "pallas_call", pallas_call)
+    monkeypatch.setattr(sys, "argv", ["probe"])   # the rates tool reads it
+
+    def run(tool, name, rerun_zeros=False):
+        spec = importlib.util.spec_from_file_location(
+            f"_tpu_{tool}", os.path.join(TOOLS, tool))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        if hasattr(mod, "bench"):
+            monkeypatch.setattr(mod, "bench", lambda fn, variants, reps=3: (
+                mod._sync(fn(*variants[0])), 1.0)[1])
+        opts["rerun_zeros"] = rerun_zeros
+        calls.clear()
+        getattr(mod, name)()
+        jax.effects_barrier()
+        assert calls, f"{name} reached no pallas_call"
+        return list(calls)
+    return run
+
+
+def _t(a):
+    return torch.as_tensor(_array(a))
+
+
+PLAIN_ON_RECORDED = {
+    "probe1": ("probe_pallas.py", lambda a: pk.probe1_plain(_t(a[0]))),
+    "probe2": ("probe_pallas.py",
+               lambda a: pk.probe2_plain(_t(a[0]), _t(a[1]))),
+    "probe3": ("probe_pallas.py",
+               lambda a: pk.probe3_plain(_t(a[0]), _t(a[1]))),
+    "probe_B": ("probe_pallas_rates.py",
+                lambda a: pk.probe_b_plain(_t(a[0]), _t(a[1]), B_TICKS)),
+    "probe_C": ("probe_pallas_rates.py",
+                lambda a: pk.probe_c_plain(_t(a[0]), _t(a[1]))),
+    "probe_D": ("probe_pallas_rates.py", lambda a: pk.probe_d_plain(_t(a[0]))),
+    "probe_E": ("probe_pallas_rates.py",
+                lambda a: pk.probe_e_plain(_t(a[0]), _t(a[1]), E_TICKS)),
+}
+
+
+@pytest.mark.parametrize("name", ["probe1", "probe2", "probe3", "probe_A",
+                                  "probe_B", "probe_C", "probe_D",
+                                  "probe_E"])
+def test_plain_equals_jax_probe(recorder, name):
+    if name == "probe_A":
+        calls = recorder("probe_pallas_rates.py", name, rerun_zeros=True)
+        mbs = (1, 4, 8, 16, 24, 32, 48, 64, 96, 112, 128)   # the tool's
+        assert len(calls) == len(mbs)
+        for c, mb in zip(calls, mbs):
+            x = c.args[0]
+            n_rows = mb * (1 << 20) // 4 // 128
+            jax_row0 = (c.out.astype(np.int64) - c.zero_out).astype(np.int32)
+            port = pk.probe_a_plain(_t(x), n_rows).numpy()
+            # the port's row n-1 holds x, so its row 0 is port - x
+            np.testing.assert_array_equal(jax_row0, port - x)
+            np.testing.assert_array_equal(port, 2 * x)
+        return
+    tool, plain = PLAIN_ON_RECORDED[name]
+    calls = recorder(tool, name)
+    for c in calls:
+        np.testing.assert_array_equal(plain(c.args).numpy(), c.out)
+    if name == "probe_E":
+        # a non-zero table: the JAX kernel of the last call (depth 64),
+        # the port's plain version and numpy must all give tab[idx[0]]
+        idx = c.args[0] % 4096
+        tab = np.random.RandomState(1).randint(
+            -2**31, 2**31, (4096, 128), dtype=np.int64).astype(np.int32)
+        want = tab[idx[:1]]
+        np.testing.assert_array_equal(np.asarray(c.fn(idx, tab)), want)
+        np.testing.assert_array_equal(
+            pk.probe_e_plain(_t(idx), _t(tab), E_TICKS).numpy(), want)
+
+
+def _np_probe_b(tab, idx, n_ticks):
+    """numpy int32 transcription of the TPU probe_B tick loop."""
+    nb = tab.shape[0]
+    with np.errstate(over="ignore"):
+        for _ in range(n_ticks):
+            rows = tab[idx]
+            s = rows[:, :8].sum(1, dtype=np.int32)
+            idx = np.mod(s * np.int32(pk.LCG_MULT), np.int32(nb))
+    return rows[:1]
+
+
+def test_probe_b_plain_wraps_like_int32():
+    """Full-range words overflow the row sum too (the JAX probe's arange
+    table overflows only the product)."""
+    r = np.random.RandomState(7)
+    tab = r.randint(-2**31, 2**31, (1000, 8), dtype=np.int64).astype(np.int32)
+    idx = r.randint(0, 1000, 64).astype(np.int32)
+    np.testing.assert_array_equal(
+        pk.probe_b_plain(_t(tab), _t(idx), 9).numpy(),
+        _np_probe_b(tab, idx, 9))
+
+
+def _small_cases():
+    r = np.random.RandomState(3)
+    tab = torch.as_tensor(r.randint(-50, 50, (300, 8)).astype(np.int32))
+    idx = torch.as_tensor(r.randint(0, 300, (20, 1)).astype(np.int32))
+    x = torch.as_tensor(r.randint(-9, 9, (16, 8)).astype(np.int32))
+    ix = torch.as_tensor(r.randint(0, 8, (16, 8)).astype(np.int32))
+    lanes = idx[:, 0].contiguous()
+    return {
+        "probe1": ((x,), (x,)),
+        "probe2": ((tab, idx), (tab, idx)),
+        "probe3": ((idx, tab), (idx, tab)),
+        "probe_a": ((x[:1], 5), (x[:1], 5)),
+        "probe_b": ((tab, lanes, 3), (tab, lanes, 3)),
+        "probe_c": ((x, ix), (x, ix)),
+        "probe_d": ((lanes,), (lanes,)),
+        "probe_e": ((lanes, tab, 2, 4), (lanes, tab, 2)),
+    }
+
+
+@pytest.mark.parametrize("name", [w.__name__ for w in pk.WRAPPERS])
+def test_wrapper_on_cpu_tensors_runs_plain(name):
+    """On CPU tensors each wrapper is its plain version (no launch)."""
+    wrapper = getattr(pk, name)
+    args, plain_args = _small_cases()[name]
+    before = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == before
+    assert got.dtype == torch.int32
+    assert torch.equal(got, getattr(pk, name + "_plain")(*plain_args))
+
+
+def test_probe_cuda_entry_point_on_cpu(capsys):
+    from bwa_mem_scale_tpu_torch.tools import probe_cuda
+    assert probe_cuda.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out.split()
+    assert out == ["PROBE_1_OK", "PROBE_2_OK", "PROBE_3_OK"]
+
+
+def test_probe_cuda_rates_entry_point_on_cpu(capsys):
+    from bwa_mem_scale_tpu_torch.tools import probe_cuda_rates
+    assert probe_cuda_rates.main(["ABCDEF", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "FAIL" not in out and "WRONG" not in out
+    for head in ("--- A", "--- B", "--- C", "--- D", "--- E"):
+        assert head in out
+    assert out.rstrip().endswith("RATES_OK")
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_equal_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from bwa_mem_scale_tpu_torch.tools.probe_cuda_rates import kernel_cases
+    for name, kernel, plain in kernel_cases(torch.device("cuda")):
+        wrapper = getattr(pk, name)
+        before = wrapper.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, name
+        assert torch.equal(got, plain()), name
