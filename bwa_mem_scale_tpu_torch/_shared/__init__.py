@@ -8,9 +8,12 @@ package; its relative imports resolve inside ``_shared`` too.
 
 Import through here only modules that contain no JAX: ``index/*``,
 ``io/*``, ``ref/*``, ``config``, ``utils/profiling``, ``utils/npzmap``,
-``pipeline/native_finalize``, ``pipeline/native_kswg`` and the option
+``pipeline/native_finalize``, ``pipeline/native_kswg``, ``pipeline/pe``
+for its ``PeStat`` only (its ``run_rescue_jobs`` reaches ``ops.kswa``,
+which is JAX, when the native kswa library is missing) and the option
 parsers of ``cli`` (``_add_mem_opts``, ``_opts_from_args``). Never
-``ops/*``, ``models/*``, ``store`` or the other ``pipeline`` modules:
+``ops/*``, ``models/*``, ``store`` or the other ``pipeline`` modules
+(``pipeline/pe_batch`` imports ``pipeline/finalize``, which is JAX):
 those depend on JAX.
 """
 

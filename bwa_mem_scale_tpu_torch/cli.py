@@ -4,11 +4,14 @@
     python -m bwa_mem_scale_tpu_torch.cli perfect-index g -l 101
     python -m bwa_mem_scale_tpu_torch.cli mem g reads.fq -o out.sam \\
         --device cuda
+    python -m bwa_mem_scale_tpu_torch.cli mem g r1.fq r2.fq -o out.sam
+    python -m bwa_mem_scale_tpu_torch.cli mem g interleaved.fq -p
 
 The ``mem`` options are the JAX CLI's own (its ``_add_mem_opts`` and
 ``_opts_from_args``), plus ``--device`` (default ``cuda``; the CPU runs
-only when named). What the port does not run yet is refused with a
-"not ported yet" error: paired-end input, several devices or hosts,
+only when named). Two FASTQ files, or ``-p`` with one, run paired-end;
+``-I`` fixes the insert-size statistics. What the port does not run yet
+is refused with a "not ported yet" error: several devices or hosts,
 other seeding engines, ERT/FMA/k-step tables and int64-position
 genomes.
 """
@@ -82,6 +85,21 @@ def _not_ported(what: str):
     raise SystemExit(f"mem: {what} is not ported yet")
 
 
+def _fixed_pes(spec: str):
+    """The four orientations' insert-size stats for ``-I mean[,std[,max
+    [,min]]]``: FR fixed, the others failed (the JAX CLI's rule)."""
+    from ._shared.pipeline.pe import PeStat
+    parts = [float(x) for x in spec.split(",")]
+    mean = parts[0]
+    std = parts[1] if len(parts) > 1 else mean * 0.1
+    hi = parts[2] if len(parts) > 2 else int(mean + 4 * std + 0.499)
+    lo = parts[3] if len(parts) > 3 else int(mean - 4 * std + 0.499)
+    pes = [PeStat() for _ in range(4)]
+    pes[1] = PeStat(low=max(int(lo), 1), high=int(hi), avg=mean, std=std,
+                    failed=False)
+    return pes
+
+
 def mem(argv):
     """Run ``mem`` with command-line arguments; returns the GpuAligner
     (its counters: emf_hits, overflow_retried, stats, prof)."""
@@ -96,8 +114,6 @@ def mem(argv):
                    help="cuda, cuda:N or cpu (the CPU only when named)")
     _add_mem_opts(p)
     args = p.parse_args(argv)
-    if len(args.fastq) == 2 or args.smart_pairing:
-        _not_ported("paired-end input")
     if len(args.fastq) > 2:
         raise SystemExit("mem: at most two FASTQ files")
     if args.devices > 1:
@@ -162,10 +178,17 @@ def mem(argv):
         if not resuming:
             out.write(sam_header(idx.bns, args.rg_line,
                                  pg_cl=" ".join(sys.argv)))
+        if args.insert_spec:
+            aligner.pes = _fixed_pes(args.insert_spec)
+            fr = aligner.pes[1]
+            print(f"* fixed FR insert size: mean {fr.avg} std {fr.std} "
+                  f"proper [{fr.low}, {fr.high}]", file=sys.stderr)
         n_reads = run_alignment(
             aligner, args.fastq, out, batch_reads=args.batch_reads,
-            chunk_bp=args.chunk_bp, rg_id=rg_id, skip_reads=skip_reads,
-            checkpoint_path=args.checkpoint, verbosity=args.verbosity)
+            chunk_bp=args.chunk_bp, rg_id=rg_id,
+            paired=args.smart_pairing or len(args.fastq) == 2,
+            skip_reads=skip_reads, checkpoint_path=args.checkpoint,
+            verbosity=args.verbosity)
     finally:
         if out is not sys.stdout:
             out.close()

@@ -14,6 +14,7 @@ wrapper        computes                                    replaces
 ``probe_b``    NT chained ticks of row loads over T lanes  ``probe_B``
 ``probe_c``    ``out[t, j] = x[t, idx[t, j]]``             ``probe_C``
 ``probe_d``    an address vector handed to one thread      ``probe_D``
+               (one TMA bulk copy completing on an mbarrier)
 ``probe_e``    NT ticks of T row copies, D in flight       ``probe_E``
 =============  ==========================================  ==============
 
@@ -308,8 +309,12 @@ def probe_d_plain(v: torch.Tensor) -> torch.Tensor:
 
 
 def probe_d(v: torch.Tensor) -> torch.Tensor:
-    """[1, 1] = v[17], read by one thread after the whole vector went
-    through shared memory and a barrier."""
+    """[1, 1] = v[17], read by one thread after one TMA bulk copy of the
+    whole vector into shared memory completed on an mbarrier (the TPU
+    kernel's async copy and DMA semaphore). The copy needs a contiguous,
+    16-byte-aligned source: a view such as ``v[1:]`` raises. T is bounded
+    by the opt-in shared memory of one block (about 58,100 lanes on an
+    H100); past it the launch is refused and ProbeLaunchError raised."""
     _need("probe_d", v.dim() == 1 and v.shape[0] > HANDOFF_INDEX,
           f"v [T] with T > {HANDOFF_INDEX}")
     if not _on_cuda("probe_d", v):

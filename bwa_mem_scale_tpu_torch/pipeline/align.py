@@ -1,4 +1,5 @@
-"""Single-end alignment pipeline on one GPU (or the CPU when named).
+"""Single-end and paired-end alignment pipeline on one GPU (or the CPU
+when named).
 
 Counterpart of ``bwa_mem_scale_tpu/pipeline/align.py``. Per batch:
 
@@ -7,11 +8,14 @@ Counterpart of ``bwa_mem_scale_tpu/pipeline/align.py``. Per batch:
           (``seed_chain_extend``, eager PyTorch; BSW in the CUDA kernel)
   host:   the native finalizer (dedup/patch, primary marking, CIGAR,
           SAM text; ``native/finalize.cpp``), shared with the JAX
-          package.
+          package; for pairs, its one-call PE stage (insert-size
+          stats, mate rescue, pairing, records: ``finalize_pe_rows``).
 
-``GpuAligner`` carries the single-end surface that ``SeStream`` and the
-driver call. JAX's jitted programs become cached configurations: the
-retry tiers are ``seed_chain_extend`` bound to larger capacities.
+``GpuAligner`` carries the surface that ``SeStream`` and the driver
+call: ``dispatch_batch`` / ``fetch_extend`` / ``finalize_stage_*`` for
+single reads, ``dispatch_pairs`` / ``fetch_pairs`` / ``pe_post`` for
+pairs. JAX's jitted programs become cached configurations: the retry
+tiers are ``seed_chain_extend`` bound to larger capacities.
 ``fetch_extend`` is the device sync point (``.cpu()`` of ``packed``
 and ``meta``).
 """
@@ -31,6 +35,7 @@ import torch
 
 from .._shared.config import MemOptions, MEM_F_PRIMARY5, needs_seed_sw_filter
 from .._shared.index.artifacts import FMIndex
+from .._shared.index.perfect import emf_lookup_host
 from .._shared.pipeline import native_finalize
 from .._shared.ref.extend import AlnReg
 from .._shared.ref.finalize import (sort_dedup_patch, mark_primary,
@@ -41,11 +46,13 @@ from ..ops.bsw import banded_swa_batch
 from ..ops.bsw_cuda import banded_swa_batch_cuda
 from ..ops.chain import (DeviceBns, chain_seeds_device, chain_filter_device,
                          frac_rep_device)
+from ..ops.emf import FW_MATCHED, RC_MATCHED
 from ..ops.occ import DeviceFMIndex
 from ..ops.sal import expand_and_lookup
 from ..ops.smem import compact_indices
 from ..ops.smem_oh import collect_smems_oh
 from ..ops.window import take_windows, ref_windows
+from .perfect import perfect_regs
 
 
 def _cal_max_gap(qlen, a, o_del, e_del, o_ins, e_ins, w):
@@ -374,6 +381,7 @@ class GpuAligner:
         self.emf_hits = 0
         self.emf_checked = 0
         self.emf_hist = collections.Counter()
+        self.pes = None              # fixed insert-size stats (-I)
         self.overflow_retried = 0
         self.overflow_oracle = 0
         self.batches = 0
@@ -720,3 +728,128 @@ class GpuAligner:
                     if r is not None else None
                     for i, r in enumerate(recs)]
         return stage[1]
+
+    # -- paired-end ------------------------------------------------------
+    def dispatch_pairs(self, codes: np.ndarray, lens: np.ndarray):
+        """PE stage 1: the host EMF probe, then the device stages.
+        codes [2N, L] with mates interleaved (2i, 2i+1). Unlike SE, EMF
+        hits stay in the device batch, with length 0; their regions
+        come from the table (perfect_regs)."""
+        opt, bns, ref = self.opt, self.idx.bns, self.idx.ref_string
+        if codes.shape[0] % 2:
+            raise ValueError(f"a paired batch holds mates in turn, got "
+                             f"{codes.shape[0]} reads")
+        pm_regs = {}
+        lens_eff = np.asarray(lens)
+        if self.emf is not None and codes.shape[1] >= self.emf.seed_len:
+            with PROFILER.phase("emf_probe_host"):
+                pm = emf_lookup_host(self.emf, ref, codes, lens)
+            is_pm = (pm["code"] == FW_MATCHED) | (pm["code"] == RC_MATCHED)
+            self.emf_checked += len(lens)
+            self.emf_hits += int(is_pm.sum())
+            self._emf_count(pm["code"])
+            if is_pm.any():
+                lens_eff = np.where(is_pm, 0, lens_eff).astype(np.int32)
+                for i in np.flatnonzero(is_pm):
+                    pm_regs[int(i)] = perfect_regs(
+                        opt, bns, self.emf, ref,
+                        codes[i, : lens[i]].astype(np.uint8),
+                        int(pm["code"][i]), int(pm["slot"][i]),
+                        loc0=int(pm["loc"][i]))
+        with PROFILER.phase("dispatch_extend"):
+            handle = self.dispatch_batch(
+                codes, np.asarray(lens_eff, dtype=np.int32), skip_emf=True)
+        return (codes, lens, pm_regs, handle)
+
+    def fetch_pairs(self, ph):
+        """PE stage 2: packed and meta to the host (the device sync
+        point); overflowed reads rerun the retry ladder here, at once.
+        Returns the raw form pe_post takes."""
+        codes, lens, pm_regs, handle = ph
+        with PROFILER.phase("fetch_pack"):
+            pf = self.fetch_extend(handle)[4]["slot"]
+        pk, meta = pf["packed"], pf["meta"]
+        overflow = meta[:, 1] > 0.5
+        ov_regs = {}
+        if overflow.any():
+            with PROFILER.phase("overflow_retry"):
+                tmp = self._apply_overflow_retry(
+                    [[] for _ in range(codes.shape[0])], overflow, codes,
+                    lens)
+            ov_regs = {i: tmp[i] for i in np.flatnonzero(overflow).tolist()}
+        return ("raw", codes, lens, pm_regs, pk, meta, ov_regs)
+
+    def pe_post(self, fetched, id_offset: int = 0, sam_ctx=None):
+        """PE stage 3 (host): insert-size stats (or ``self.pes``), mate
+        rescue, pairing and records in one native call. With sam_ctx
+        (names/quals/rg_id), finished SAM bytes per read and no mates;
+        without, Aln records per read and each read's mate record.
+        Raises when the native stage declines the batch."""
+        _, codes, lens, pm_regs, pk, meta, ov_regs = fetched
+        B = codes.shape[0]
+        with PROFILER.phase("pe_rows"):
+            # a writable copy: the overflowed reads' values are set below
+            frac_rep = np.array(meta[:, 0], dtype=np.float32)
+            overflow = meta[:, 1] > 0.5
+            (valid, read, qb_a, qe_a, score_a, truesc_a, w_a, seedcov_a,
+             rid_a, seedlen0_a, rb_lo, rb_hi, re_lo, re_hi) = pk.T
+            bad = overflow.copy()
+            for i in pm_regs:
+                bad[i] = True
+            keep = (valid & (qe_a > qb_a)).astype(bool) & ~bad[read]
+            rows = dict(
+                read=read[keep],
+                rb=(rb_hi[keep].astype(np.int64) << 31) | rb_lo[keep],
+                re=(re_hi[keep].astype(np.int64) << 31) | re_lo[keep],
+                qb=qb_a[keep], qe=qe_a[keep], rid=rid_a[keep],
+                score=score_a[keep], truesc=truesc_a[keep], w=w_a[keep],
+                seedcov=seedcov_a[keep], seedlen0=seedlen0_a[keep])
+            # regions from the EMF table and the retry ladder, merged in
+            # read order after each read's device rows
+            extra = []
+            for src in (pm_regs, ov_regs):
+                for i, regs in src.items():
+                    extra += [(i, r.rb, r.re, r.qb, r.qe, r.rid, r.score,
+                               r.truesc, r.w, r.seedcov, r.seedlen0)
+                              for r in regs]
+                    if src is ov_regs and regs:
+                        frac_rep[i] = regs[0].frac_rep
+            if extra:
+                ex = np.asarray(extra, dtype=np.int64)
+                allc = {k: np.concatenate([np.asarray(rows[k], np.int64),
+                                           ex[:, j]])
+                        for j, k in enumerate(rows)}
+                order = np.argsort(allc["read"], kind="stable")
+                rows = {k: v[order] for k, v in allc.items()}
+            skip_dedup = np.zeros(B, dtype=np.uint8)
+            for i in pm_regs:
+                skip_dedup[i] = 1
+            read_ids = id_offset + np.arange(B, dtype=np.int64)
+        res = native_finalize.finalize_pe_rows(
+            self.opt, self.idx, rows, B // 2, frac_rep, read_ids,
+            skip_dedup, codes, lens, pes_in=self.pes,
+            want="raw" if sam_ctx is not None else "aln")
+        if res is None:
+            raise RuntimeError(
+                "the native PE stage declined the batch: its record "
+                "capacity, its CIGAR stride or its MD/XA arena "
+                "(native_finalize.finalize_pe_rows) is too small")
+        if sam_ctx is None:
+            recs_by_read, mates, _pes = res
+            return [recs_by_read.get(i, []) for i in range(B)], mates
+        raw, mate_arrs, _pes = res
+        sam_by_read = native_finalize.compose_sam_raw(
+            raw, self.opt, self.idx.bns, codes, lens, sam_ctx.get("names"),
+            sam_ctx.get("quals"), sam_ctx.get("rg_id"), mate=mate_arrs)
+        if sam_by_read is None:
+            raise RuntimeError("the native SAM composer declined the PE "
+                               "batch: its SAM text arena is too small")
+        return [sam_by_read.get(i, b"") for i in range(B)], [None] * B
+
+    def align_pairs_and_finalize(self, codes: np.ndarray, lens: np.ndarray,
+                                 id_offset: int = 0):
+        """Synchronous PE path: dispatch, fetch and host post in one call
+        (the driver pipelines the three stages instead)."""
+        return self.pe_post(self.fetch_pairs(self.dispatch_pairs(codes,
+                                                                 lens)),
+                            id_offset)

@@ -1,7 +1,7 @@
-"""EMF host side: location resolution, dedup, and SE record composition.
+"""EMF host side: location resolution, dedup, and record composition.
 
-Counterpart of ``bwa_mem_scale_tpu/pipeline/perfect.py`` for the
-single-end path (the PE ``perfect_regs`` waits for the PE port).
+Counterpart of ``bwa_mem_scale_tpu/pipeline/perfect.py``: SE records
+(``perfect_sam_records``) and PE regions (``perfect_regs``).
 
 Implements get_perfect_locations (src/perfect_map.cpp:698-775),
 perfect_dedup_patch (src/bwamem.cpp:2276 region), mem_perfect2sam's
@@ -22,6 +22,7 @@ import numpy as np
 
 from .._shared.config import MemOptions, MEM_F_ALL
 from .._shared.index.perfect import PerfectTable
+from .._shared.ref.extend import AlnReg
 from .._shared.ref.finalize import Aln
 from ..ops.emf import RC_MATCHED
 
@@ -138,3 +139,27 @@ def perfect_sam_records(opt: MemOptions, bns, pt: PerfectTable,
             if not (opt.flag & MEM_F_ALL):
                 break
     return records
+
+
+def perfect_regs(opt: MemOptions, bns, pt: PerfectTable,
+                 ref: np.ndarray, read: np.ndarray,
+                 code: int, slot: int, loc0=None) -> List[AlnReg]:
+    """PE path: perfect hits as alignment regions (mem_perfect2reg)."""
+    l_seq = len(read)
+    hits = perfect_dedup(
+        opt, perfect_locations(pt, ref, read, code, slot, loc0),
+        l_seq, pt.seed_len, bns)
+    regs = []
+    for loc, is_rev, rid, _pos in hits:
+        start = _fw_start(loc, is_rev, l_seq, pt.seed_len)
+        if not is_rev:
+            rb, re = start, start + l_seq
+        else:
+            rb = 2 * pt.l_pac - (start + l_seq)
+            re = 2 * pt.l_pac - start
+        regs.append(AlnReg(
+            rb=rb, re=re, qb=0, qe=l_seq, rid=rid,
+            score=l_seq * opt.a, truesc=l_seq * opt.a, w=opt.w,
+            seedcov=0, seedlen0=l_seq, frac_rep=0.0,
+            is_alt=bool(bns.is_alt[rid])))
+    return regs

@@ -14,7 +14,9 @@ design. The counterpart of ``tools/probe_pallas_rates.py``:
      one more tick (the dependent-load latency with T lanes in flight),
      and beside it the plain version's ns/row.
   C. Lane gather within a row, [1024, 128] and [4096, 8].
-  D. The handoff of an address vector to one thread, T = 4096 and 1024.
+  D. The handoff of an address vector to one thread, one TMA bulk copy
+     into shared memory: T = 1,024, 4,096 and 57,344 lanes (224 KB),
+     vectors made from a seed.
   E. Row copies with D in flight (D = 4, 16, 64), NT = 8 ticks of T rows,
      from the same tables as B past shared memory (non-zero, made from a
      seed), with the first tick alone beside it.
@@ -49,6 +51,7 @@ B_TABLES = ((128, 1 << 13), (OCC_W, SMEM_OCC_ROWS), (OCC_W, L2_OCC_ROWS),
             (OCC_W, CHR21_OCC_ROWS), (OCC_W, 1 << 24))
 E_TABLES = ((128, 1 << 20),) + B_TABLES[2:]
 LANES = (1024, 4096)
+D_LANES = (1024, 4096, 57344)    # 57,344 lanes = 224 KB of shared memory
 B_TICKS, B_EXTRA_TICKS, E_TICKS = 32, 256, 8
 A_ROWS = (2, 8, 16, 32, 64, 96, 128, 192, 256, 320, 384, 448)   # x 512 B
 
@@ -219,19 +222,25 @@ def probe_c(run: Run, **_) -> bool:
     return True
 
 
+def handoff_vector(run: Run, T: int, seed: int) -> torch.Tensor:
+    """[T] int32 over the whole range from a seed, so the element read
+    back is one the copy had to deliver."""
+    return random_table(run, 1, T, seed)[0]
+
+
 def probe_d(run: Run, **_) -> bool:
-    print("--- D: address vector handed to one thread ---", flush=True)
-    for T0 in (4096, 1024):
+    print("--- D: address vector handed to one thread (TMA bulk copy) ---",
+          flush=True)
+    for T0 in D_LANES:
         T = run.lanes(T0)
-        v = torch.arange(T, dtype=torch.int32, device=run.dev)
-        got = pk.probe_d(v)
-        if int(got[0, 0]) != pk.HANDOFF_INDEX:
-            raise AssertionError(f"D T={T}: read {int(got[0, 0])}")
+        v = handoff_vector(run, T, seed=T)
+        require_equal(f"D T={T}", pk.probe_d(v), pk.probe_d_plain(v))
         dev_ms, wall = timed(run, lambda: pk.probe_d(v), 200)
         p_dev, p_wall = timed(run, lambda: pk.probe_d_plain(v), 200)
-        run.say(f"  T={T}: kernel {dev_ms * 1e3:.2f} us {run.on}, "
-                f"{wall * 1e3:.2f} us a call; plain {p_dev * 1e3:.2f} us "
-                f"{run.on}, {p_wall * 1e3:.2f} us a call")
+        run.say(f"  T={T:5d} ({T * 4} B): kernel {dev_ms * 1e3:.2f} us "
+                f"{run.on}, {wall * 1e3:.2f} us a call; plain "
+                f"{p_dev * 1e3:.2f} us {run.on}, {p_wall * 1e3:.2f} us a "
+                f"call")
     return True
 
 
@@ -291,7 +300,7 @@ def kernel_cases(dev: torch.device):
     idx_b = index_variants(run, 4096, L2_OCC_ROWS, 9973, 131, 1)[0]
     xc = t(np.arange(1024 * 128).reshape(1024, 128))
     ic = t(np.arange(1024 * 128).reshape(1024, 128) * 7 % 128)
-    vd = t(np.arange(4096))
+    vd = handoff_vector(run, 4096, seed=4096)
     tab_e = random_table(run, CHR21_OCC_ROWS, OCC_W, seed=6)
     idx_e = index_variants(run, 1024, CHR21_OCC_ROWS, 999983, 771, 1)[0]
     return [

@@ -28,6 +28,15 @@ Phases, in order; any failure exits non-zero:
               each of the eight probe kernels against its plain PyTorch
               version at the path's shapes, equal arrays, both timed in
               turns.
+  7. pe:      paired-end `mem --device cuda` on phase 4's genome and
+              index: 5,000 simulated FR pairs of 101 bp (insert 300 +-
+              30, 1% substitutions, read 2 reverse-complemented) in two
+              FASTQ files; every read emitted once in input order (read
+              1 then read 2), the BSW kernel launched, >= 95% of non-EMF
+              primaries within 5 bp of the true position and strand,
+              >= 90% of pairs with both mates mapped flagged proper, the
+              median |TLEN| of proper pairs within 5% of 300; reads/s and
+              the host PE stage's seconds beside the device stages'.
 
 Prints the kernel JSON line (all nine kernels), then as its last line
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -53,6 +62,8 @@ GENOME_BP = 4_600_000
 N_READS = 10_000
 READ_LEN = 101
 BATCH = 512
+N_PAIRS = 5_000
+INSERT, INSERT_SD = 300, 30
 P, QL, TL = 4096, 101, 309       # main-path BSW shapes (w = 100)
 
 
@@ -247,6 +258,117 @@ def phase_slice(dev, card, al, codes, lens):
         f"  [{card}]")
 
 
+def write_pairs(tmp, bns):
+    """FR pairs as tests/test_pe.py simulates them: read 1 forward at the
+    fragment's start, read 2 the reverse complement of its end. Writes
+    r1.fq and r2.fq (mates named p<i>); returns the interleaved codes
+    [2N, L], lens, true leftmost positions and strands."""
+    from bwa_mem_scale_tpu_torch._shared.index.bntseq import decode_bases
+    rng = np.random.RandomState(9)
+    comp = np.array([3, 2, 1, 0, 4], np.uint8)
+    frag = np.maximum(rng.normal(INSERT, INSERT_SD, N_PAIRS).astype(np.int64),
+                      READ_LEN + 10)
+    start = (rng.rand(N_PAIRS) * (bns.l_pac - frag)).astype(np.int64)
+    pos = np.stack([start, start + frag - READ_LEN], 1).reshape(-1)
+    codes = bns.seq[pos[:, None] + np.arange(READ_LEN)].astype(np.int32)
+    codes[1::2] = comp[codes[1::2, ::-1]]
+    sub = rng.rand(*codes.shape) < 0.01
+    codes[sub] = (codes[sub] + rng.randint(1, 4, int(sub.sum()))) % 4
+    is_rev = np.tile([False, True], N_PAIRS)
+    qual = "I" * READ_LEN
+    for mate in (0, 1):
+        with open(os.path.join(tmp, f"r{mate + 1}.fq"), "w") as f:
+            for i in range(mate, 2 * N_PAIRS, 2):
+                f.write(f"@p{i // 2}\n{decode_bases(codes[i])}\n+\n{qual}\n")
+    return codes, np.full(2 * N_PAIRS, READ_LEN, np.int32), pos, is_rev
+
+
+def check_pe_sam(path, emf_hit, pos, is_rev):
+    """Order and mate flags, placement of non-EMF primaries, proper-pair
+    share and the median insert of proper pairs."""
+    prim = []
+    with open(path) as f:
+        for ln in f:
+            if ln.startswith("@"):
+                continue
+            t = ln.split("\t", 9)
+            if not int(t[1]) & 0x900:
+                prim.append((t[0], int(t[1]), int(t[3]), int(t[8])))
+    if [p[0] for p in prim] != [f"p{i // 2}" for i in range(2 * N_PAIRS)] \
+            or not all(p[1] & (0x40 if i % 2 == 0 else 0x80)
+                       for i, p in enumerate(prim)):
+        raise SystemExit("pe: reads not emitted once each in input order "
+                         "(read 1, then read 2)")
+    flag = np.array([p[1] for p in prim])
+    placed = ((flag & 0x4) == 0) & (np.abs(np.array([p[2] for p in prim])
+                                           - 1 - pos) <= 5) \
+        & (((flag & 0x10) != 0) == is_rev)
+    frac = placed[~emf_hit].mean()
+    log(f"[pe] {int(placed[~emf_hit].sum())}/{int((~emf_hit).sum())} "
+        f"non-EMF primaries within 5 bp of the true position and strand "
+        f"({100 * frac:.2f}%)")
+    both = ((flag[0::2] | flag[1::2]) & 0x4) == 0
+    proper = both & ((flag[0::2] & 0x2) != 0)
+    share = proper.sum() / max(both.sum(), 1)
+    tlen = np.median(np.abs([p[3] for p in prim[0::2]])[proper])
+    log(f"[pe] {int(proper.sum())}/{int(both.sum())} pairs with both mates "
+        f"mapped are proper ({100 * share:.2f}%); median |TLEN| of proper "
+        f"pairs {tlen:.1f} (insert {INSERT} +- {INSERT_SD})")
+    if frac < 0.95:
+        raise SystemExit("pe: fewer than 95% of primaries placed")
+    if share < 0.90:
+        raise SystemExit("pe: fewer than 90% of mapped pairs proper")
+    if abs(tlen - INSERT) > 0.05 * INSERT:
+        raise SystemExit(f"pe: median |TLEN| {tlen} not within 5% of "
+                         f"{INSERT}")
+
+
+def phase_pe(dev, card, tmp):
+    import torch
+    from bwa_mem_scale_tpu_torch import cli
+    from bwa_mem_scale_tpu_torch._shared.index.artifacts import load_index
+    from bwa_mem_scale_tpu_torch._shared.index.perfect import (
+        emf_lookup_host, load_perfect_table)
+    from bwa_mem_scale_tpu_torch._shared.utils.profiling import PROFILER
+    from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
+    from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
+    g, sam = os.path.join(tmp, "g"), os.path.join(tmp, "pe.sam")
+    idx = load_index(g)
+    codes, lens, pos, is_rev = write_pairs(tmp, idx.bns)
+    PROFILER.totals.clear()
+    PROFILER.counts.clear()
+
+    banded_swa_batch_cuda.launches = 0          # PE path starts here
+    t0 = time.perf_counter()
+    al = cli.mem([g, os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq"),
+                  "-o", sam, "--device", "cuda", "--batch-reads", str(BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = banded_swa_batch_cuda.launches   # PE path ends here
+
+    pt = load_perfect_table(g + ".emf101.npz")
+    code = emf_lookup_host(pt, idx.ref_string, codes, lens)["code"]
+    check_pe_sam(sam, (code == FW_MATCHED) | (code == RC_MATCHED), pos,
+                 is_rev)
+    if launches <= 0:
+        raise SystemExit("pe: the BSW kernel was never launched")
+    n = 2 * N_PAIRS
+    sec = PROFILER.totals
+    log(f"[pe] {n} reads ({N_PAIRS} pairs) in {wall:.2f} s = "
+        f"{n / wall:.1f} reads/s end to end (mem call incl. index load)  "
+        f"[{card}]")
+    log(f"[pe] bsw kernel launches {launches}; EMF hits {al.emf_hits}/"
+        f"{al.emf_checked}; overflow-retried reads {al.overflow_retried}; "
+        f"device batches {al.batches}")
+    log(f"[pe] seconds: device stages (dispatch_extend, host clock) "
+        f"{sec['dispatch_extend']:.3f}, fetch {sec['fetch_pack']:.3f}, "
+        f"host PE stage native_pe_c {sec['native_pe_c']:.3f} (pe_rows "
+        f"{sec['pe_rows']:.3f}), EMF probe {sec['emf_probe_host']:.3f}, "
+        f"SAM write {sec['sam_write']:.3f}, index load "
+        f"{sec['index_load']:.3f}  [{card}]")
+    return launches
+
+
 def phase_probes(dev, card):
     """The probe path through its entry points, then each probe kernel
     against its plain version at the path's shapes."""
@@ -327,7 +449,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches, al, codes, lens = phase_mem(dev, card, tmp)
         phase_slice(dev, card, al, codes, lens)
-    probes = phase_probes(dev, card)
+        probes = phase_probes(dev, card)
+        phase_pe(dev, card, tmp)
 
     log(json.dumps({"kernels": [{
         "name": "banded_swa_batch", "route": "cuda",

@@ -24,6 +24,9 @@
 // What bounds each on an H100, and what the design does about it:
 // - probe1, C, D are a few microseconds of device work: the launch
 //   bounds them (and the host, which enqueues slower than the card runs).
+//   D is one warp and one TMA bulk copy that completes on an mbarrier,
+//   the counterpart of the TPU's async copy and DMA semaphore, so its
+//   cost is the launch plus one copy, not a loop of loads and a barrier.
 // - probe2 is bound by staging the table into shared memory: 16-byte
 //   loads by 1024 threads, column slices across blocks.
 // - probe3 waits one row latency a step: the next row's copy is issued
@@ -261,14 +264,57 @@ __global__ void lane_gather_kernel(const int32_t* __restrict__ x,
 }
 
 // ---- probe D: an address vector handed to one thread -------------------
-// The vector goes from global to shared memory, a barrier, then one
-// thread reads element k (the TPU's VMEM -> SMEM copy and scalar read).
+// The TPU kernel starts one async copy of the vector into scalar memory,
+// waits on its DMA semaphore and reads one scalar. Here: one warp; thread
+// 0 sets up an mbarrier, arms it for the copy's bytes and issues one TMA
+// bulk copy (global -> shared) that completes on it; the warp waits on
+// the barrier's phase, then thread 0 reads element k. A bulk copy moves a
+// multiple of 16 bytes from and to 16-byte-aligned addresses (the wrapper
+// checks the source), so the last T % 4 words, if any, are loaded by
+// plain loads of lanes 1-3 beside it.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
 __global__ void handoff_kernel(const int32_t* __restrict__ v,
                                int32_t* __restrict__ out, int T, int k) {
-  extern __shared__ int32_t vec[];              // [T]
-  for (int i = threadIdx.x; i < T; i += blockDim.x) vec[i] = v[i];
-  __syncthreads();
-  if (threadIdx.x == 0) out[0] = vec[k];
+  extern __shared__ __align__(16) int32_t vec[];    // [T]
+  __shared__ __align__(8) uint64_t bar;
+  const uint32_t b = smem_addr(&bar);
+  const int bulk_words = T & ~3;
+  const uint32_t bulk_bytes = (uint32_t)bulk_words * 4u;
+  const int l = threadIdx.x;
+  if (l == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(b)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncwarp();
+  if (l == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(b), "r"(bulk_bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_addr(vec)), "l"(reinterpret_cast<uint64_t>(v)),
+           "r"(bulk_bytes), "r"(b)
+        : "memory");
+  } else if (bulk_words + l - 1 < T) {
+    vec[bulk_words + l - 1] = v[bulk_words + l - 1];
+  }
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}"
+        : "=r"(done) : "r"(b) : "memory");
+  }
+  __syncwarp();                                 // the tail's plain stores
+  if (l == 0) out[0] = vec[k];
 }
 
 // ---- probe E: row copies with D in flight, NT ticks of T rows ----------
@@ -436,10 +482,12 @@ int probe_c_launch(const int32_t* x, const int32_t* idx, int32_t* out,
 
 int probe_d_launch(const int32_t* v, int32_t* out, int T, int k,
                    void* stream) {
+  // the bulk copy needs at least 16 bytes; the tail loads need lanes 1-3
+  if (T < 4 || k < 0 || k >= T) return (int)cudaErrorInvalidValue;
   const size_t bytes = (size_t)T * 4;
   const cudaError_t e = allow_smem((const void*)handoff_kernel, bytes);
   if (e != cudaSuccess) return (int)e;
-  handoff_kernel<<<1, 1024, bytes, (cudaStream_t)stream>>>(v, out, T, k);
+  handoff_kernel<<<1, 32, bytes, (cudaStream_t)stream>>>(v, out, T, k);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,14 @@
-"""The port runs without JAX: `index`, `perfect-index` and
-`mem --device cpu`, and the import of the probe entry points, in a fresh
-interpreter in which importing `jax`, `jaxlib` or the JAX package
-`bwa_mem_scale_tpu` raises."""
+"""The port runs without JAX: `index`, `perfect-index`, single-end and
+paired-end `mem --device cpu` (pairs with `-I`), and the import of the
+probe entry points, in a fresh interpreter in which importing `jax`,
+`jaxlib` or the JAX package `bwa_mem_scale_tpu` raises."""
 
 import os
 import subprocess
 import sys
 import textwrap
+
+import numpy as np
 
 from bwa_mem_scale_tpu.index.bntseq import decode_bases
 
@@ -30,7 +32,9 @@ RUNNER = textwrap.dedent("""
     for argv in (["index", "g.fa", "-p", "g"],
                  ["perfect-index", "g", "-l", "60"],
                  ["mem", "g", "r.fq", "-o", "out.sam", "--device", "cpu",
-                  "--batch-reads", "16"]):
+                  "--batch-reads", "16"],
+                 ["mem", "g", "r1.fq", "r2.fq", "-o", "pe.sam", "--device",
+                  "cpu", "--batch-reads", "16", "-I", "200,20"]):
         assert main(argv) == 0, argv
     import bwa_mem_scale_tpu_torch.tools.probe_cuda
     import bwa_mem_scale_tpu_torch.tools.probe_cuda_rates
@@ -39,6 +43,30 @@ RUNNER = textwrap.dedent("""
     assert not leaked, leaked
     print("NOJAX-OK")
 """)
+
+
+def _write_pairs(bns, tmp_path, n_pairs, L=60):
+    """FR pairs, insert 200 +- 20, read 2 reverse-complemented, 1%
+    substitutions: r1.fq and r2.fq, mates named p<i>."""
+    rng = np.random.RandomState(4)
+    comp = np.array([3, 2, 1, 0, 4], np.uint8)
+    with open(tmp_path / "r1.fq", "w") as f1, \
+            open(tmp_path / "r2.fq", "w") as f2:
+        for p in range(n_pairs):
+            a = bns.anns[p % len(bns.anns)]
+            frag = int(rng.normal(200, 20))
+            pos = a.offset + rng.randint(0, a.length - frag)
+            r1 = bns.seq[pos: pos + L].copy()
+            r2 = comp[bns.seq[pos + frag - L: pos + frag][::-1]]
+            for f, r in ((f1, r1), (f2, r2)):
+                m = rng.rand(L) < 0.01
+                r[m] = (r[m] + 1) % 4
+                f.write(f"@p{p}\n{decode_bases(r)}\n+\n{'I' * L}\n")
+
+
+def _primaries(path):
+    return [ln.split("\t") for ln in open(path)
+            if not ln.startswith("@") and not int(ln.split("\t")[1]) & 0x900]
 
 
 def test_port_cli_runs_with_jax_blocked(tmp_path):
@@ -52,15 +80,19 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     with open(tmp_path / "r.fq", "w") as f:
         for i, (c, _, _) in enumerate(reads):
             f.write(f"@r{i}\n{decode_bases(c)}\n+\n{'I' * len(c)}\n")
+    _write_pairs(bns, tmp_path, 24)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", RUNNER], cwd=tmp_path,
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NOJAX-OK" in proc.stdout
-    body = [ln for ln in open(tmp_path / "out.sam") if not ln.startswith("@")]
-    names = [ln.split("\t", 1)[0] for ln in body
-             if not int(ln.split("\t")[1]) & 0x900]
-    assert names == [f"r{i}" for i in range(40)]
-    mapped = sum(1 for ln in body if not int(ln.split("\t")[1]) & 0x4)
-    assert mapped >= 36
+    prim = _primaries(tmp_path / "out.sam")
+    assert [t[0] for t in prim] == [f"r{i}" for i in range(40)]
+    assert sum(1 for t in prim if not int(t[1]) & 0x4) >= 36
+    # paired-end: mates in input order, read 1 then read 2, mostly mapped
+    prim = _primaries(tmp_path / "pe.sam")
+    assert [t[0] for t in prim] == [f"p{i // 2}" for i in range(48)]
+    assert all(int(t[1]) & (0x40 if i % 2 == 0 else 0x80)
+               for i, t in enumerate(prim))
+    assert sum(1 for t in prim if not int(t[1]) & 0x4) >= 44

@@ -17,7 +17,8 @@ probe_B and probe_E time their kernel over several calls; here the
 tool's timing helper makes one call per configuration.
 
 On a GPU, ``test_cuda_kernels_equal_plain`` holds every CUDA kernel
-against its plain version (it imports no JAX):
+against its plain version, and ``test_cuda_probe_d_bulk_copy_equals_plain``
+probe_D's bulk copy over its sweep of T (they import no JAX):
     PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_probes.py
 """
 
@@ -244,3 +245,24 @@ def test_cuda_kernels_equal_plain():
         torch.cuda.synchronize()
         assert wrapper.launches == before + 1, name
         assert torch.equal(got, plain()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1024, 4096, 57344])
+def test_cuda_probe_d_bulk_copy_equals_plain(lanes):
+    """probe_D's TMA bulk copy on seeded vectors up to 224 KB of shared
+    memory, and a tail of fewer than 16 bytes; a misaligned view raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(lanes)
+    v = torch.as_tensor(rng.randint(-2**31, 2**31, lanes + 4, np.int64)
+                        .astype(np.int32), device=dev)
+    for t in (lanes, lanes + 3):             # whole 16-byte units, a tail
+        before = pk.probe_d.launches
+        got = pk.probe_d(v[:t])
+        torch.cuda.synchronize()
+        assert pk.probe_d.launches == before + 1
+        assert torch.equal(got, pk.probe_d_plain(v[:t]))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pk.probe_d(v[1:])
