@@ -34,7 +34,9 @@ from .config import (MemOptions, MEM_F_ALL, MEM_F_SOFTCLIP,
 
 def _add_mem_opts(p: argparse.ArgumentParser):
     p.add_argument("-t", type=int, default=1, dest="n_threads",
-                   help="host worker threads (IO/finalize)")
+                   help="accepted for bwa-mem command-line compatibility; "
+                        "has no effect (the JAX package reads it nowhere "
+                        "either)")
     p.add_argument("-k", type=int, default=19, dest="min_seed_len")
     p.add_argument("-w", type=int, default=100, dest="band_width")
     p.add_argument("-d", type=int, default=100, dest="zdrop")

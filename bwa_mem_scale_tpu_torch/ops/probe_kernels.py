@@ -12,10 +12,14 @@ wrapper        computes                                    replaces
 ``probe3``     the same sum, rows copied from HBM, 2 slots ``probe3``
 ``probe_a``    a shared-memory scratch of ``n_rows`` rows  ``probe_A``
 ``probe_b``    NT chained ticks of row loads over T lanes  ``probe_B``
+               (the modulo a multiply, Lemire's fastmod)
 ``probe_c``    ``out[t, j] = x[t, idx[t, j]]``             ``probe_C``
 ``probe_d``    an address vector handed to one thread      ``probe_D``
                (one TMA bulk copy completing on an mbarrier)
-``probe_e``    NT ticks of T row copies, D in flight       ``probe_E``
+``probe_e``    NT ticks of T row copies, D in flight per   ``probe_E``
+               block (an mbarrier ring filled by cp.async or
+               TMA bulk copies, the rows spread over the
+               card)
 =============  ==========================================  ==============
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors
@@ -60,10 +64,10 @@ REPLACES = {
 }
 HANDOFF_INDEX = 17            # the element probe_D reads back
 LCG_MULT = 1103515245         # probe_B's next-index multiplier
-# cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100; the CPU sweep of
-# probe_A stops there, having no card to ask
+# cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100; off the card the
+# probe_A sweep stops there, having no card to ask
 H100_SMEM_OPTIN = 232_448
-DEPTHS = (4, 16, 64)          # probe_e's depths (the TPU probe's)
+DEPTHS = (4, 16, 64)          # probe_e's copies in flight per block
 LANE_WIDTHS = (4, 8, 16, 32, 64, 128)  # a row spans W/4 <= 32 threads
 
 # launch function -> argument kinds: p = tensor pointer, i = int
@@ -106,6 +110,8 @@ def _load():
             f.argtypes = [kinds[k] for k in sig] + [ctypes.c_void_p]
             f.restype = ctypes.c_int
         lib.probe_smem_optin.restype = ctypes.c_int
+        lib.probe_e_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.probe_e_plan.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -164,6 +170,18 @@ def probe_b_uses_smem(nb: int, w: int, dev: torch.device) -> bool:
     """Whether probe_b stages an [nb, w] table in shared memory (the rule
     of probe_b_launch in csrc/probes.cu)."""
     return w == 8 and nb * w * 4 <= smem_optin(dev)
+
+
+def probe_e_plan(T: int, depth: int, sms: int) -> tuple[int, int, int]:
+    """probe_e's grid for T rows on a card of `sms` SMs, from the rule
+    its launch uses (csrc/probes.cu's probe_e_plan, so the library is
+    built): (blocks, rows of the largest block, copies in flight across
+    the card)."""
+    out = (ctypes.c_int * 3)()
+    rc = _load().probe_e_plan(T, depth, sms, out)
+    if rc != 0:
+        raise ValueError(f"probe_e_plan: T={T}, depth={depth}, sms={sms}")
+    return tuple(out)
 
 
 # ---- probe1 -------------------------------------------------------------
@@ -267,8 +285,13 @@ def probe_b(tab: torch.Tensor, idx0: torch.Tensor, n_ticks: int
     row tab[idx], then idx = (sum of the row's first 8 words) *
     1103515245 mod NB. Returns lane 0's last row, [1, W].
 
-    W = 8 runs one thread per lane, the table staged in shared memory
-    when it fits one block; W = 128 runs one warp per lane."""
+    Replaces tools/probe_pallas_rates.py::probe_B. A tick is bound by one
+    dependent load's latency: the floored modulo is a multiply (Lemire's
+    fastmod of the wrapped product, constants computed once on the
+    host), not a division on the chain. W = 8 runs one thread per lane,
+    the table staged in shared memory when it fits one block, else read
+    from 32-thread blocks spread over the SMs; W = 128 runs one warp per
+    lane."""
     _need("probe_b", tab.dim() == 2 and tab.shape[1] in (8, 128)
           and idx0.dim() == 1 and n_ticks >= 1,
           "tab [NB, 8 or 128], idx0 [T] and n_ticks >= 1")
@@ -337,8 +360,20 @@ def probe_e_plain(idx: torch.Tensor, tab: torch.Tensor, n_ticks: int
 def probe_e(idx: torch.Tensor, tab: torch.Tensor, n_ticks: int,
             depth: int) -> torch.Tensor:
     """n_ticks ticks, each copying the T = len(idx) rows tab[idx] into
-    shared memory with `depth` copies in flight per row group (cp.async
-    ring). Returns row 0 as it landed in the last tick, [1, W]."""
+    shared memory with `depth` copies in flight per block. Returns row 0
+    as it landed in the last tick, [1, W].
+
+    Replaces tools/probe_pallas_rates.py::probe_E (one core, `depth` row
+    DMAs in flight on a semaphore array). Here the rows spread over the
+    card (``probe_e_plan``: a contiguous run of about T / SMs rows a
+    block), and a block keeps min(depth, its rows) row copies in flight,
+    issued and waited on by up to 32 lanes side by side, each slot of
+    its ring completing on its own mbarrier; a tick drains before the
+    next. A row of up to 32 bytes is copied by the lane's 16-byte
+    cp.async copies, a longer one by one TMA bulk copy (the launch picks
+    the kernel built for one engine by W): each measured the faster at
+    its size on an H100. What bounds it is the copies'
+    latency, one row's round trip per `depth` rows of a block."""
     _need("probe_e", idx.dim() == 1 and tab.dim() == 2
           and tab.shape[1] in LANE_WIDTHS and depth in DEPTHS
           and n_ticks >= 1,

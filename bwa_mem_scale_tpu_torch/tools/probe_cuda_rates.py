@@ -11,15 +11,23 @@ design. The counterpart of ``tools/probe_pallas_rates.py``:
      row at 7,168 rows (shared memory), 287,501 (a 4.6 Mbp genome, in
      L2), 2,875,001 (a 46 Mbp, chr21-sized genome, beyond L2) and 2^24
      rows (512 MB). Prints ns/row over NT = 32 ticks, the marginal cost of
-     one more tick (the dependent-load latency with T lanes in flight),
-     and beside it the plain version's ns/row.
+     one more tick (the dependent-load latency with T lanes in flight,
+     plus the tick's sum, multiply and fastmod, which is what a seeding
+     tick pays beyond its load), and beside it the plain version's
+     ns/row.
   C. Lane gather within a row, [1024, 128] and [4096, 8].
   D. The handoff of an address vector to one thread, one TMA bulk copy
      into shared memory: T = 1,024, 4,096 and 57,344 lanes (224 KB),
      vectors made from a seed.
-  E. Row copies with D in flight (D = 4, 16, 64), NT = 8 ticks of T rows,
-     from the same tables as B past shared memory (non-zero, made from a
-     seed), with the first tick alone beside it.
+  E. Row copies, NT = 8 ticks of T rows, from the same tables as B past
+     shared memory (non-zero, made from a seed), the rows spread over
+     the card's SMs, each block keeping D (4, 16, 64) row copies in
+     flight (cp.async for the 32-byte occ row, one TMA bulk copy for a
+     512-byte row); each line prints the copies in flight across the
+     card (the sum over blocks of min(D, the block's rows), so D caps at
+     a block's rows; from the launch's own rule, ``pk.probe_e_plan``),
+     ns/row over the 8 ticks, and the first tick (from
+     HBM or a cold L2) apart from the later ones (the same rows again).
   F. B's plain version alone: ``tab[idx]`` in a torch loop, the port's
      current primitive (the TPU's probe_F timed the XLA gather).
 
@@ -245,8 +253,11 @@ def probe_d(run: Run, **_) -> bool:
 
 
 def probe_e(run: Run, **_) -> bool:
-    print("--- E: row copies, D in flight per row group ---", flush=True)
+    print("--- E: row copies, D in flight per block ---", flush=True)
     nt = run.ticks(E_TICKS)
+    on_card = run.dev.type == "cuda"
+    sms = torch.cuda.get_device_properties(run.dev).multi_processor_count \
+        if on_card else 0
     for w, nb0 in E_TABLES:
         nb = run.rows(nb0)
         tab = random_table(run, nb, w, seed=nb + 1)
@@ -257,6 +268,11 @@ def probe_e(run: Run, **_) -> bool:
             p_dev, p_wall = timed(run, cycled(
                 lambda v: pk.probe_e_plain(v, tab, nt), var), 3)
             for D in pk.DEPTHS:
+                plan = ""
+                if on_card:
+                    blocks, most, flight = pk.probe_e_plan(T, D, sms)
+                    plan = (f" ({flight} copies in flight on {blocks} blocks"
+                            f" of <= {most} rows)")
                 require_equal(f"{line} D={D}", pk.probe_e(var[0], tab, nt, D),
                               pk.probe_e_plain(var[0], tab, nt))
                 dev_ms, wall = timed(run, cycled(
@@ -264,7 +280,7 @@ def probe_e(run: Run, **_) -> bool:
                 first = device_ms(cycled(lambda v: pk.probe_e(v, tab, 1, D),
                                          var), run.reps(20), run.dev)
                 later = (dev_ms - first) / (nt - 1)
-                run.say(f"{line} D={D:2d}: kernel "
+                run.say(f"{line} D={D:2d}{plan}: kernel "
                         f"{dev_ms * 1e6 / (nt * T):.3f} ns/row over {nt} "
                         f"ticks {run.on} ({wall:.4f} ms a call back to "
                         f"back); first tick "
@@ -296,6 +312,20 @@ class KernelCase:
     library: object = None
 
 
+def b_inputs(run: Run) -> tuple[torch.Tensor, torch.Tensor]:
+    """probe_b's table and lanes on the path: the 4.6 Mbp occ table
+    [287,501, 8] (in L2) and 4,096 lanes."""
+    return (random_table(run, L2_OCC_ROWS, OCC_W, seed=4),
+            index_variants(run, 4096, L2_OCC_ROWS, 9973, 131, 1)[0])
+
+
+def e_inputs(run: Run) -> tuple[torch.Tensor, torch.Tensor]:
+    """probe_e's table and rows on the path: the chr21-sized occ table
+    [2,875,001, 8] and 1,024 rows."""
+    return (random_table(run, CHR21_OCC_ROWS, OCC_W, seed=6),
+            index_variants(run, 1024, CHR21_OCC_ROWS, 999983, 771, 1)[0])
+
+
 def kernel_work(dev: torch.device) -> list[KernelCase]:
     """Each probe kernel at the shapes this slice's path gives it: the
     port's occ row where the probe has one, the TPU probe's shapes
@@ -318,17 +348,15 @@ def kernel_work(dev: torch.device) -> list[KernelCase]:
     one = torch.ones(1, dtype=torch.int32, device=dev)
     tab2 = random_table(run, SMEM_OCC_ROWS, OCC_W, seed=2)
     idx2 = t(g.randint(0, SMEM_OCC_ROWS, (64, 1)))
-    tab3 = random_table(run, L2_OCC_ROWS, OCC_W, seed=4)
+    tab3, idx_b = b_inputs(run)
     idx3 = t(g.randint(0, L2_OCC_ROWS, (32, 1)))
     xa = torch.ones((1, 128), dtype=torch.int32, device=dev)
     rows_a = pk.smem_optin(dev) // (128 * 4)
-    idx_b = index_variants(run, 4096, L2_OCC_ROWS, 9973, 131, 1)[0]
     xc = t(np.arange(1024 * 128).reshape(1024, 128))
     ic = t(np.arange(1024 * 128).reshape(1024, 128) * 7 % 128)
     ic64 = ic.long()
     vd = handoff_vector(run, 4096, seed=4096)
-    tab_e = random_table(run, CHR21_OCC_ROWS, OCC_W, seed=6)
-    idx_e = index_variants(run, 1024, CHR21_OCC_ROWS, 999983, 771, 1)[0]
+    tab_e, idx_e = e_inputs(run)
     idx_e64 = idx_e.long()
     row = 4 * OCC_W                                  # bytes of one output
 

@@ -18,12 +18,15 @@
 // threads) is reported and cleared. Integer sums and products wrap like
 // JAX's int32: they are taken in uint32_t (signed overflow is undefined
 // in C++), and the floored modulo of JAX and PyTorch is written out
-// because C's % truncates. Row indices are clamped into the table, as a
-// JAX gather clamps them, so no input reads out of bounds.
+// (C's % truncates, and probe B's is a multiply, below). Row indices are
+// clamped into the table, as a JAX gather clamps them, so no input reads
+// out of bounds.
 //
 // What bounds each on an H100, and what the design does about it:
 // - probe1, C, D are a few microseconds of device work: the launch
 //   bounds them (and the host, which enqueues slower than the card runs).
+//   probe1's time is that launch floor, the number it exists to measure,
+//   so no design of its body can lower it.
 //   D is one warp and one TMA bulk copy that completes on an mbarrier,
 //   the counterpart of the TPU's async copy and DMA semaphore, so its
 //   cost is the launch plus one copy, not a loop of loads and a barrier.
@@ -31,12 +34,21 @@
 //   loads by 1024 threads, column slices across blocks.
 // - probe3 waits one row latency a step: the next row's copy is issued
 //   before the current one is summed.
-// - probe B is one dependent load latency per tick plus the index
-//   arithmetic (a modulo by a runtime NB): lanes are independent, so no
-//   grid barrier; tables that fit are staged in shared memory.
-// - probe E is bound by each warp's issue loop (kRowsPerGroup + D - 1
-//   steps a tick), not by memory: the row indices are staged in shared
-//   memory once, and D is a template parameter.
+// - probe B (replaces probe_pallas_rates.py::probe_B) is one dependent
+//   load latency per tick plus the index arithmetic: lanes are
+//   independent, so no grid barrier; tables that fit are staged in
+//   shared memory, others are read through the read-only path, one lane
+//   a thread in 32-thread blocks so the lanes spread over the SMs. The
+//   floored modulo by NB is a multiply (Lemire's fastmod, constants
+//   computed once on the host), not a runtime division on the chain.
+// - probe E (replaces probe_pallas_rates.py::probe_E) is bound by the
+//   copies' latency: each block owns a contiguous run of rows and keeps
+//   D of them in flight, issued and waited on by up to 32 lanes side by
+//   side, each slot of the ring completing on its own mbarrier (the TPU
+//   kernel's async copies and DMA semaphore array), and the grid fills
+//   the card. A row of up to 32 bytes goes by cp.async, a longer one by
+//   one TMA bulk copy, whichever measured faster; the launch picks the
+//   kernel built for its engine by W. D is copies in flight per block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,34 +56,58 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-// rows one row group of probe E copies per tick (the largest TPU depth)
-constexpr int kRowsPerGroup = 64;
+// the most rows a probe E block owns (its row indices sit in shared
+// memory); T above the card's SMs times this takes more blocks than SMs
+constexpr int kMaxBlockRows = 2048;
 
 __device__ __forceinline__ int clamp_row(int v, int n) {
   return v < 0 ? 0 : (v >= n ? n - 1 : v);
-}
-
-__device__ __forceinline__ int floor_mod(int32_t v, int n) {
-  const int r = v % n;
-  return r < 0 ? r + n : r;
 }
 
 __device__ __forceinline__ uint32_t sum4(int4 v) {
   return (uint32_t)v.x + (uint32_t)v.y + (uint32_t)v.z + (uint32_t)v.w;
 }
 
-// next lane index of probe B: (sum of the row's first 8 words) *
-// 1103515245, wrapped to int32, floored modulo the table's rows
-__device__ __forceinline__ int next_index(uint32_t s, int nb) {
-  return floor_mod((int32_t)(s * 1103515245u), nb);
+// The floored modulo of an int32 by nb in [1, 2^31 - 1] without a
+// division. u = v + 2^31 (as uint32) ranks v over the whole int32 range;
+// u mod nb is Lemire's fastmod, the high word of (m * u) * nb with m =
+// ceil(2^64 / nb), exact for every 32-bit u and divisor; then v mod nb =
+// (u mod nb - 2^31 mod nb) mod nb. At nb = 1, m wraps to 0 and the
+// formula gives 0, which is u mod 1.
+struct FastMod {
+  uint64_t m;                                   // ceil(2^64 / nb)
+  uint32_t nb;
+  uint32_t c;                                   // 2^31 mod nb
+};
+
+FastMod fastmod_of(int nb) {
+  FastMod f;
+  f.nb = (uint32_t)nb;
+  f.m = nb == 1 ? 0 : UINT64_MAX / f.nb + 1;
+  f.c = (1u << 31) % f.nb;
+  return f;
 }
 
-// a 16-byte global load the compiler may not drop: at W = 128 only the
-// first 8 words of a row feed the chain, yet the probe has to move the
-// whole row, as the TPU kernel did
-__device__ __forceinline__ int4 ld_global_keep(const int4* p) {
+__device__ __forceinline__ int floor_mod(int32_t v, FastMod f) {
+  const uint32_t u = (uint32_t)v ^ 0x80000000u;
+  const int r = (int)__umul64hi(f.m * u, f.nb) - (int)f.c;
+  return r < 0 ? r + (int)f.nb : r;
+}
+
+// next lane index of probe B: (sum of the row's first 8 words) *
+// 1103515245, wrapped to int32, floored modulo the table's rows
+__device__ __forceinline__ int next_index(uint32_t s, FastMod f) {
+  return floor_mod((int32_t)(s * 1103515245u), f);
+}
+
+// a 16-byte read-only load of a table row the compiler may not drop (at
+// W = 128 only the first 8 words of a row feed the chain, yet the probe
+// has to move the whole row, as the TPU kernel did). An L2 evict_last
+// policy on it bought nothing on an H100: the tables stay in L2 unhinted
+// while nothing else runs.
+__device__ __forceinline__ int4 ld_row(const int4* p) {
   int4 v;
-  asm volatile("ld.global.v4.s32 {%0, %1, %2, %3}, [%4];"
+  asm volatile("ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4];"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p));
   return v;
@@ -181,15 +217,18 @@ __global__ void smem_capacity_kernel(const int32_t* __restrict__ x,
 
 // ---- probe B: NT chained ticks over T lanes ----------------------------
 // Each lane's chain is independent of every other lane's, so one launch
-// runs all NT ticks with no grid-wide barrier.
+// runs all NT ticks with no grid-wide barrier. A tick is one dependent
+// row load, a sum, a multiply and the fastmod above.
 // W = 8 (the port's occ row): one thread per lane, the row as two int4.
-// With SMEM, every block first stages the whole table in shared memory.
+// With SMEM, every block first stages the whole table in shared memory;
+// without, the rows come through the read-only path (ld_row).
 template <bool SMEM>
 __global__ void chain8_kernel(const int32_t* __restrict__ tab,
                               const int32_t* __restrict__ idx0,
-                              int32_t* __restrict__ out, int NB, int T,
+                              int32_t* __restrict__ out, FastMod f, int T,
                               int NT) {
   extern __shared__ int4 stab[];                // [NB, 2] when SMEM
+  const int NB = (int)f.nb;
   const int4* g = reinterpret_cast<const int4*>(tab);
   if (SMEM) {
     for (int e = threadIdx.x; e < 2 * NB; e += blockDim.x) stab[e] = g[e];
@@ -197,13 +236,17 @@ __global__ void chain8_kernel(const int32_t* __restrict__ tab,
   }
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= T) return;
-  const int4* src = SMEM ? stab : g;
   int ix = clamp_row(idx0[lane], NB);
   int4 r0 = make_int4(0, 0, 0, 0), r1 = r0;
   for (int t = 0; t < NT; ++t) {
-    r0 = src[2 * (size_t)ix];
-    r1 = src[2 * (size_t)ix + 1];
-    ix = next_index(sum4(r0) + sum4(r1), NB);
+    if (SMEM) {
+      r0 = stab[2 * ix];
+      r1 = stab[2 * ix + 1];
+    } else {
+      r0 = ld_row(g + 2 * (size_t)ix);
+      r1 = ld_row(g + 2 * (size_t)ix + 1);
+    }
+    ix = next_index(sum4(r0) + sum4(r1), f);
   }
   if (lane == 0) {
     store4(out, r0);
@@ -215,20 +258,20 @@ __global__ void chain8_kernel(const int32_t* __restrict__ tab,
 // 0-7 sit in threads 0 and 1, whose sum every thread receives by shuffle.
 __global__ void chain128_kernel(const int32_t* __restrict__ tab,
                                 const int32_t* __restrict__ idx0,
-                                int32_t* __restrict__ out, int NB, int T,
+                                int32_t* __restrict__ out, FastMod f, int T,
                                 int NT) {
   const int lane = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int l = threadIdx.x & 31;
   if (lane >= T) return;                        // whole warps only
   const int4* g = reinterpret_cast<const int4*>(tab);
-  int ix = clamp_row(idx0[lane], NB);
+  int ix = clamp_row(idx0[lane], (int)f.nb);
   int4 v = make_int4(0, 0, 0, 0);
   for (int t = 0; t < NT; ++t) {
-    v = ld_global_keep(g + (size_t)ix * 32 + l);
+    v = ld_row(g + (size_t)ix * 32 + l);
     uint32_t s = l < 2 ? sum4(v) : 0u;
     s += __shfl_xor_sync(kFull, s, 1);
     s = __shfl_sync(kFull, s, 0);
-    ix = next_index(s, NB);
+    ix = next_index(s, f);
   }
   if (lane == 0) store4(out + 4 * l, v);
 }
@@ -276,88 +319,172 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
+// mbarriers and TMA bulk copies (probes D and E). A barrier initialised
+// with one arrival completes its phase when that arrival has come and
+// the bytes it was armed with have landed.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar)
+               : "memory");
+}
+
+// after the inits: make them visible to the async proxy (the TMA unit)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// arm `bar` for `bytes` and copy them from global `src` to shared `dst`
+// (16-byte aligned, a multiple of 16 bytes); the copy completes on `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
+      : "memory");
+}
+
+// The same copy as 16-byte cp.async copies of the calling thread, whose
+// completion is the arrival on `bar` (noinc: the barrier's one expected
+// arrival).
+__device__ __forceinline__ void lsu_copy(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  const char* g = reinterpret_cast<const char*>(src);
+  for (uint32_t o = 0; o < bytes; o += 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(dst + o), "l"(g + o) : "memory");
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(bar) : "memory");
+}
+
+// Probe E copies a row of at most this many bytes with the lane's
+// cp.async copies, a longer one with one TMA bulk copy: on an H100 the
+// cp.async ring was the faster at 32-byte rows (the occ row), the TMA
+// ring at 512-byte rows. The launch picks the engine by W, at compile
+// time (row_copy_kernel's BULK).
+constexpr uint32_t kLsuRowBytes = 32;
+
+template <bool BULK>
+__device__ __forceinline__ void row_copy(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  if (BULK)
+    bulk_copy(dst, src, bytes, bar);
+  else
+    lsu_copy(dst, src, bytes, bar);
+}
+
+// spin until the phase of `bar` with parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
 __global__ void handoff_kernel(const int32_t* __restrict__ v,
                                int32_t* __restrict__ out, int T, int k) {
   extern __shared__ __align__(16) int32_t vec[];    // [T]
   __shared__ __align__(8) uint64_t bar;
   const uint32_t b = smem_addr(&bar);
   const int bulk_words = T & ~3;
-  const uint32_t bulk_bytes = (uint32_t)bulk_words * 4u;
   const int l = threadIdx.x;
   if (l == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(b)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_init(b);
+    mbar_init_fence();
   }
   __syncwarp();
   if (l == 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(b), "r"(bulk_bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1], %2, [%3];"
-        :: "r"(smem_addr(vec)), "l"(reinterpret_cast<uint64_t>(v)),
-           "r"(bulk_bytes), "r"(b)
-        : "memory");
+    bulk_copy(smem_addr(vec), v, (uint32_t)bulk_words * 4u, b);
   } else if (bulk_words + l - 1 < T) {
     vec[bulk_words + l - 1] = v[bulk_words + l - 1];
   }
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}"
-        : "=r"(done) : "r"(b) : "memory");
-  }
+  mbar_wait(b, 0);
   __syncwarp();                                 // the tail's plain stores
   if (l == 0) out[0] = vec[k];
 }
 
 // ---- probe E: row copies with D in flight, NT ticks of T rows ----------
-// A row group is the W/4 threads that copy one row, 16 bytes each; it
-// owns kRowsPerGroup consecutive rows of every tick and a ring of D row
-// slots in shared memory, and keeps D copies in flight. Every step
-// commits one group (empty past the last row), so wait_group D-1 always
-// means "the row issued D-1 steps ago has landed". Each thread reads
-// only the bytes it copied. The warp's row indices are staged in shared
-// memory first, as the TPU kernel held them in its scalar memory. All
-// ticks copy the same rows, as the TPU kernel did; the out row is
-// tab[idx[0]] as it landed in the last tick. One warp a block.
-template <int D>
+// Block b of G owns rows [b * T / G, (b + 1) * T / G) of every tick (G
+// <= T, so every block owns at least one row; block_rows) and a ring of
+// D row slots in shared memory, each with its own mbarrier. Each row (W *
+// 4 bytes: 32 at W = 8, 512 at W = 128) is copied by row_copy<BULK>, the
+// lane's 16-byte cp.async copies or one TMA bulk copy, into slot k % D,
+// where k counts the block's copies over rows and ticks, so slot s's
+// n-th use is copy s + n * D and completes its barrier's phase of
+// parity n & 1.
+// Lane l of the block's one warp owns slots l and l + 32 (those below
+// D): it issues its slots' first rows of a tick, then waits on each of
+// its rows in turn and refills the slot with the row D further on. So
+// min(D, 32) lanes issue and wait side by side (one issuing thread took
+// ~115 ns a row on an H100, whatever D), a slot is refilled only by the
+// lane that waited on it, and the warp meets at the end of a tick, which
+// drains before the next starts, as the TPU kernel's did. The block's row
+// indices are staged in shared memory first, as the TPU kernel held them
+// in scalar memory. All ticks copy the same rows; the lane that waits on
+// row 0 in the last tick writes it out, then fences the async proxy
+// before that slot's next copy.
+__host__ __device__ __forceinline__ int2 block_rows(int b, int G, int T) {
+  const int first = (int)((int64_t)b * T / G);
+  return make_int2(first, (int)((int64_t)(b + 1) * T / G) - first);
+}
+
+template <int D, bool BULK>
 __global__ void row_copy_kernel(const int32_t* __restrict__ idx,
                                 const int32_t* __restrict__ tab,
                                 int32_t* __restrict__ out, int NB, int W,
                                 int T, int NT) {
-  extern __shared__ int4 ring[];                // [D, 32], then indices
-  const int q = W >> 2, groups = 32 / q;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t row_bytes = (uint32_t)W * 4u;
+  unsigned char* ring = smem;                         // [D, W] words
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + D * row_bytes);
+  int* rix = reinterpret_cast<int*>(bars + D);        // [rows]
   const int l = threadIdx.x;
-  const int part = l % q;
-  const int first = (blockIdx.x * groups + l / q) * kRowsPerGroup;
-  int4* slot0 = ring + l;
-  int* rix = reinterpret_cast<int*>(ring + D * 32);   // [groups, rows]
-  const int warp_first = blockIdx.x * groups * kRowsPerGroup;
-  for (int e = l; e < groups * kRowsPerGroup; e += 32)
-    rix[e] = warp_first + e < T ? clamp_row(idx[warp_first + e], NB) : 0;
+  const int2 own = block_rows(blockIdx.x, gridDim.x, T);
+  const int first = own.x, rows = own.y;
+  for (int e = l; e < rows; e += 32) rix[e] = clamp_row(idx[first + e], NB);
+  for (int s = l; s < D; s += 32) mbar_init(smem_addr(bars + s));
+  mbar_init_fence();
   __syncwarp();
-  const int* my_rix = rix + (l / q) * kRowsPerGroup;
-  const int4* rows = reinterpret_cast<const int4*>(tab);
-  for (int t = 0; t < NT; ++t) {
-    for (int k = 0; k < kRowsPerGroup + D - 1; ++k) {
-      if (k < kRowsPerGroup && first + k < T)
-        cp_async16(slot0 + (k % D) * 32,
-                   rows + (size_t)my_rix[k] * q + part);
-      cp_async_commit();
-      if (k >= D - 1) {
-        cp_async_wait<D - 1>();
-        const int j = k - (D - 1);
-        if (t == NT - 1 && first + j == 0)
-          store4(out + 4 * part, slot0[(j % D) * 32]);
+  if (l >= D) return;
+  const unsigned live = D >= 32 ? kFull : (1u << (D % 32)) - 1u;
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(tab);
+  const uint32_t ring0 = smem_addr(ring), bar0 = smem_addr(bars);
+  uint32_t k0 = 0;                              // copies of earlier ticks
+  for (int t = 0; t < NT; ++t, k0 += rows) {
+    const int shift = (int)(k0 % D);            // row j sits in slot
+    for (int s = l; s < D; s += 32) {           // (shift + j) % D
+      const int j = (s - shift + D) % D;
+      if (j < rows)
+        row_copy<BULK>(ring0 + s * row_bytes,
+                       src + (size_t)rix[j] * row_bytes, row_bytes,
+                       bar0 + 8 * s);
+    }
+    for (int s = l; s < D; s += 32) {
+      for (int j = (s - shift + D) % D; j < rows; j += D) {
+        const uint32_t k = k0 + j;
+        mbar_wait(bar0 + 8 * s, (k / D) & 1u);
+        if (t == NT - 1 && first + j == 0) {
+          const int4* row =
+              reinterpret_cast<const int4*>(ring + s * row_bytes);
+          for (int q = 0; q < W / 4; ++q) store4(out + 4 * q, row[q]);
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        }
+        if (j + D < rows)
+          row_copy<BULK>(ring0 + s * row_bytes,
+                         src + (size_t)rix[j + D] * row_bytes, row_bytes,
+                         bar0 + 8 * s);
       }
     }
+    __syncwarp(live);                           // the tick has drained
   }
 }
 
@@ -375,18 +502,51 @@ int smem_optin() {
   return bytes;
 }
 
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// probe E's grid for T >= 1 rows on `sms` SMs: one block a SM where T
+// allows (min(T, SMs)), more where a block would own more than
+// kMaxBlockRows rows; block b owns block_rows(b, blocks, T), floor or
+// ceil of T / blocks rows, so the largest owns `most`
+struct RowPlan {
+  int blocks, most;
+};
+
+RowPlan plan_rows(int T, int sms) {
+  RowPlan p;
+  p.blocks = T < sms ? T : sms;
+  const int need = (T + kMaxBlockRows - 1) / kMaxBlockRows;
+  if (p.blocks < need) p.blocks = need;
+  p.most = (T + p.blocks - 1) / p.blocks;
+  return p;
+}
+
+template <int D, bool BULK>
+int launch_ring(const int32_t* idx, const int32_t* tab, int32_t* out,
+                int NB, int W, int T, int NT, cudaStream_t s) {
+  const RowPlan p = plan_rows(T, sm_count());
+  const size_t bytes = (size_t)D * W * 4 + (size_t)D * sizeof(uint64_t) +
+                       (size_t)p.most * sizeof(int);
+  const void* fn = (const void*)row_copy_kernel<D, BULK>;
+  const cudaError_t e = allow_smem(fn, bytes);
+  if (e != cudaSuccess) return (int)e;
+  row_copy_kernel<D, BULK><<<p.blocks, 32, bytes, s>>>(idx, tab, out, NB, W,
+                                                       T, NT);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_row_copy(const int32_t* idx, const int32_t* tab, int32_t* out,
                     int NB, int W, int T, int NT, cudaStream_t s) {
-  const int groups = (T + kRowsPerGroup - 1) / kRowsPerGroup;
-  const int per_warp = 32 / (W >> 2);
-  const int warps = (groups + per_warp - 1) / per_warp;
-  const size_t bytes = (size_t)D * 32 * sizeof(int4) +
-                       (size_t)per_warp * kRowsPerGroup * sizeof(int);
-  const cudaError_t e = allow_smem((const void*)row_copy_kernel<D>, bytes);
-  if (e != cudaSuccess) return (int)e;
-  row_copy_kernel<D><<<warps, 32, bytes, s>>>(idx, tab, out, NB, W, T, NT);
-  return (int)cudaGetLastError();
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  if ((uint32_t)W * 4u > kLsuRowBytes)
+    return launch_ring<D, true>(idx, tab, out, NB, W, T, NT, s);
+  return launch_ring<D, false>(idx, tab, out, NB, W, T, NT, s);
 }
 
 }  // namespace
@@ -446,27 +606,32 @@ int probe_a_launch(const int32_t* x, int32_t* out, int n_rows, int W,
 }
 
 // W = 8 stages the table in shared memory whenever it fits one block's
-// opt-in limit; W = 128 reads it from global memory (L2 or HBM)
+// opt-in limit (128 threads a block share the staging); otherwise, and
+// at W = 128, it reads the table from global memory (L2 or HBM), one
+// warp a block at W = 8 so the lanes spread over the SMs
 int probe_b_launch(const int32_t* tab, const int32_t* idx0, int32_t* out,
                    int NB, int W, int T, int NT, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (NB < 1) return (int)cudaErrorInvalidValue;
+  const FastMod f = fastmod_of(NB);
   if (W == 128) {
     const int warps_per_block = 8;
     chain128_kernel<<<(T + warps_per_block - 1) / warps_per_block,
-                      32 * warps_per_block, 0, s>>>(tab, idx0, out, NB, T,
+                      32 * warps_per_block, 0, s>>>(tab, idx0, out, f, T,
                                                     NT);
     return (int)cudaGetLastError();
   }
   if (W != 8) return (int)cudaErrorInvalidValue;
-  const int block = 128, grid = (T + block - 1) / block;
   const size_t bytes = (size_t)NB * 8 * 4;
   if (bytes <= (size_t)smem_optin()) {
+    const int block = 128;
     const cudaError_t e = allow_smem((const void*)chain8_kernel<true>, bytes);
     if (e != cudaSuccess) return (int)e;
-    chain8_kernel<true><<<grid, block, bytes, s>>>(tab, idx0, out, NB, T,
-                                                   NT);
+    chain8_kernel<true><<<(T + block - 1) / block, block, bytes, s>>>(
+        tab, idx0, out, f, T, NT);
   } else {
-    chain8_kernel<false><<<grid, block, 0, s>>>(tab, idx0, out, NB, T, NT);
+    chain8_kernel<false><<<(T + 31) / 32, 32, 0, s>>>(tab, idx0, out, f, T,
+                                                      NT);
   }
   return (int)cudaGetLastError();
 }
@@ -500,6 +665,23 @@ int probe_e_launch(const int32_t* idx, const int32_t* tab, int32_t* out,
     case 64: return launch_row_copy<64>(idx, tab, out, NB, W, T, NT, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// probe_e_launch's grid for T rows on a card of `sms` SMs: out[0] =
+// blocks, out[1] = rows of the largest block, out[2] = copies in flight
+// across the card at depth D (the sum over blocks of min(D, its rows))
+int probe_e_plan(int T, int D, int sms, int* out) {
+  if (T < 1 || D < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  const RowPlan p = plan_rows(T, sms);
+  long flight = 0;
+  for (int b = 0; b < p.blocks; ++b) {
+    const int rows = block_rows(b, p.blocks, T).y;
+    flight += rows < D ? rows : D;
+  }
+  out[0] = p.blocks;
+  out[1] = p.most;
+  out[2] = (int)flight;
+  return 0;
 }
 
 }  // extern "C"

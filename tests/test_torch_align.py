@@ -145,15 +145,19 @@ def test_mem_sam_equal_to_jax(small_index, jax_side, caps):
 def test_mem_cli_sam_equal_to_jax(jax_side, tmp_path):
     """The port's CLI `mem --device cpu`, at its default capacities, on
     the index and EMF table the JAX package saved, writes the JAX
-    package's SAM body byte for byte."""
+    package's SAM body byte for byte. `-t 4` still parses and, having no
+    effect, gives the default run's SAM bytes."""
     from bwa_mem_scale_tpu_torch import cli
-    out = tmp_path / "out.sam"
-    al = cli.mem([jax_side["prefix"], jax_side["fq"], "-o", str(out),
-                  "--device", "cpu", "--batch-reads", str(B)])
+    argv = [jax_side["prefix"], jax_side["fq"], "--device", "cpu",
+            "--batch-reads", str(B)]
+    out, out_t4 = tmp_path / "out.sam", tmp_path / "t4.sam"
+    al = cli.mem(argv + ["-o", str(out)])
     with open(out) as f:
         body = "".join(ln for ln in f if not ln.startswith("@"))
     assert body == jax_side["sam"]
     assert al.emf_hits > 0 and al.batches > 0
+    cli.mem(argv + ["-o", str(out_t4), "-t", "4"])
+    assert out_t4.read_bytes() == out.read_bytes()
 
 
 def test_demo_data_equal_to_jax():

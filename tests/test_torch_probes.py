@@ -16,9 +16,16 @@ same arrays. Two exceptions, each stated where it is tested:
 probe_B and probe_E time their kernel over several calls; here the
 tool's timing helper makes one call per configuration.
 
+What of the kernels the CPU can reach is held here too: a numpy twin of
+probe_B's fastmod index arithmetic against ``np.mod``, and probe_E's
+refusal of what no kernel was built for.
+
 On a GPU, ``test_cuda_kernels_equal_plain`` holds every CUDA kernel
-against its plain version, and ``test_cuda_probe_d_bulk_copy_equals_plain``
-probe_D's bulk copy over its sweep of T (they import no JAX):
+against its plain version, ``test_cuda_probe_d_bulk_copy_equals_plain``
+probe_D's bulk copy over its sweep of T, and ``test_cuda_probe_e_*`` /
+``test_cuda_probe_b_*`` probe_E's TMA ring and probe_B's chain over
+their edges, and ``test_probe_e_plan_owns_every_row_once`` probe_E's
+grid from the library's own rule (they import no JAX):
     PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_probes.py
 """
 
@@ -185,6 +192,66 @@ def test_probe_b_plain_wraps_like_int32():
         _np_probe_b(tab, idx, 9))
 
 
+def _fastmod_floor_mod(v, nb):
+    """numpy twin of csrc/probes.cu's floor_mod(v, fastmod_of(nb)): u =
+    v + 2^31 as uint32, u mod nb as the high word of (m * u mod 2^64) *
+    nb with m = ceil(2^64 / nb) (0 at nb = 1, where 2^64 wraps), then
+    less 2^31 mod nb, plus nb where that went negative."""
+    u = (np.asarray(v, np.int32).view(np.uint32)
+         ^ np.uint32(0x80000000)).astype(np.uint64)
+    m = np.uint64(0 if nb == 1 else (2**64 - 1) // nb + 1)
+    low = m * u                                  # wraps mod 2^64
+    d = np.uint64(nb)
+    # high 64 bits of low * nb, a 64 x 32-bit product, in 32-bit halves
+    r = (((low >> np.uint64(32)) * d
+          + (((low & np.uint64(0xFFFFFFFF)) * d) >> np.uint64(32)))
+         >> np.uint64(32)).astype(np.int64) - (1 << 31) % nb
+    return np.where(r < 0, r + nb, r).astype(np.int32)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 7, 7168, 287_501, 2_875_001,
+                                1 << 24, 2**31 - 1])
+def test_fastmod_floor_mod_equals_np_mod(nb):
+    """The kernel's modulo-free index arithmetic of probe_B, on every
+    edge of the int32 range and on seeded wrapped products, equals numpy's
+    floored modulo."""
+    lo, hi = -2**31, 2**31 - 1
+    k = np.arange(-4, 5, dtype=np.int64)
+    k = np.concatenate([k, k + hi // nb, k - hi // nb])
+    near = (k[:, None] * nb + np.array([-1, 0, 1])).ravel()
+    r = np.random.RandomState(nb % 1000)
+    sums = r.randint(0, 2**32, 10_000, dtype=np.int64)
+    products = (sums * pk.LCG_MULT) % 2**32        # the wrapped product
+    v = np.concatenate([[lo, hi, 0, 1, -1, lo + 1, hi - 1],
+                        near[(near >= lo) & (near <= hi)],
+                        r.randint(lo, hi + 1, 10_000, dtype=np.int64),
+                        np.where(products > hi, products - 2**32, products)]
+                       ).astype(np.int32)
+    np.testing.assert_array_equal(_fastmod_floor_mod(v, nb),
+                                  np.mod(v.astype(np.int64), nb))
+
+
+@pytest.mark.parametrize("bad", [
+    {"depth": 8},                 # no ring built for D = 8
+    {"depth": 0},
+    {"w": 12},                    # a row spans W / 4 <= 32 lanes
+    {"n_ticks": 0},
+    {"idx_shape": (4, 1)},        # idx [T], not [T, 1]
+])
+def test_probe_e_rejects_bad_arguments(bad):
+    """probe_e takes only what its kernels were built for: D in DEPTHS
+    (one ring per D), W in LANE_WIDTHS, n_ticks >= 1 and a 1-D idx. It
+    refuses the rest before choosing kernel or plain version, and takes
+    the same call with the one argument put right."""
+    def call(idx_shape=(4,), w=8, n_ticks=2, depth=4):
+        idx = torch.zeros(idx_shape, dtype=torch.int32)
+        return pk.probe_e(idx, torch.zeros((10, w), dtype=torch.int32),
+                          n_ticks, depth)
+    assert call().shape == (1, 8)
+    with pytest.raises(ValueError, match="depth in"):
+        call(**bad)
+
+
 def _small_cases():
     r = np.random.RandomState(3)
     tab = torch.as_tensor(r.randint(-50, 50, (300, 8)).astype(np.int32))
@@ -266,3 +333,86 @@ def test_cuda_probe_d_bulk_copy_equals_plain(lanes):
         assert torch.equal(got, pk.probe_d_plain(v[:t]))
     with pytest.raises(ValueError, match="16-byte aligned"):
         pk.probe_d(v[1:])
+
+
+def _seeded_table(rows, w, seed):
+    return np.random.RandomState(seed).randint(
+        -2**31, 2**31, (rows, w), dtype=np.int64).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 128])
+@pytest.mark.parametrize("lanes", [1, 31, 1024, 4097])
+def test_cuda_probe_e_ring_equals_plain(w, lanes):
+    """probe_E's TMA ring at every depth, 1 and 3 ticks (slots reused
+    across ticks, a partial ring at the end), blocks of one row (T below
+    the SM count) and uneven blocks; indices out of range are clamped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    nb = 5000
+    tab = torch.as_tensor(_seeded_table(nb, w, w + lanes), device=dev)
+    r = np.random.RandomState(lanes)
+    idx = r.randint(-50, nb + 50, lanes).astype(np.int32)
+    idx[0] = r.randint(0, nb)
+    idx = torch.as_tensor(idx, device=dev)
+    for depth in pk.DEPTHS:
+        for n_ticks in (1, 3):
+            before = pk.probe_e.launches
+            got = pk.probe_e(idx, tab, n_ticks, depth)
+            torch.cuda.synchronize()
+            assert pk.probe_e.launches == before + 1
+            assert torch.equal(got, pk.probe_e_plain(idx, tab, n_ticks)), \
+                (depth, n_ticks)
+    # every row lands: row r of the last tick through lane 0's output
+    for row in (0, lanes // 2, lanes - 1):
+        one = idx[row:row + 1].clone()           # a 16-byte aligned copy
+        assert torch.equal(pk.probe_e(one, tab, 2, 4),
+                           pk.probe_e_plain(one, tab, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,nb", [(8, 1), (8, 7), (8, 287_501),
+                                  (128, 1), (128, 7), (128, 287_501)])
+def test_cuda_probe_b_fastmod_equals_plain(w, nb):
+    """probe_B's chain with the fastmod index on full-range tables (row
+    sums and products of both signs): in shared memory (W = 8, NB 1 and
+    7), from global memory (W = 8 at 287,501 rows, and W = 128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    tab = torch.as_tensor(_seeded_table(nb, w, nb), device=dev)
+    assert pk.probe_b_uses_smem(nb, w, dev) == (w == 8 and nb < 1000)
+    idx0 = torch.as_tensor(np.random.RandomState(w).randint(
+        -9, nb + 9, 4097).astype(np.int32), device=dev)
+    for n_ticks in (1, 32):
+        before = pk.probe_b.launches
+        got = pk.probe_b(tab, idx0, n_ticks)
+        torch.cuda.synchronize()
+        assert pk.probe_b.launches == before + 1
+        assert torch.equal(got, pk.probe_b_plain(tab, idx0, n_ticks)), n_ticks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 31, 1024, 4096, 4097])
+def test_probe_e_plan_owns_every_row_once(T):
+    """probe_e's grid on 132 SMs, from the rule its launch uses
+    (csrc/probes.cu's probe_e_plan): as many blocks as SMs where T
+    allows, every row owned once (at a depth past any block's rows the
+    copies in flight are T), no block empty (at depth 1 they are the
+    blocks), the largest block ceil(T / blocks) rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the plan is the CUDA library's")
+    sms = 132
+    blocks, most, _ = pk.probe_e_plan(T, 4, sms)
+    assert blocks == min(T, sms)
+    assert most == -(-T // blocks)
+    assert pk.probe_e_plan(T, T, sms)[2] == T
+    assert pk.probe_e_plan(T, 1, sms)[2] == blocks
+    for depth in pk.DEPTHS:
+        assert pk.probe_e_plan(T, depth, sms)[:2] == (blocks, most)
+        assert pk.probe_e_plan(T, depth, sms)[2] <= min(T, depth * blocks)
+    assert pk.probe_e_plan(1024, 16, sms)[2] == 1024     # 7-8 rows a block
+    big = 132 * 2048 + 1                  # past a block's 2,048-row cap
+    blocks, most, flight = pk.probe_e_plan(big, big, sms)
+    assert blocks == 133 and most <= 2048 and flight == big
