@@ -243,11 +243,29 @@ def cmd_perfect_index(argv):
                                      "perfect-index")
     p.add_argument("prefix")
     p.add_argument("-l", dest="seed_len", type=int, default=151)
+    p.add_argument("-g", dest="budget_gb", type=float, default=None,
+                   help="table memory budget in GB (MEMSCALE partial "
+                        "EMF: only the earliest-position seeds get "
+                        "entries; misses take the normal path)")
+    p.add_argument("--chunked", action="store_true",
+                   help="force the streaming chunked builder (auto "
+                        "for genomes over 256 Mbp or with -g)")
     args = p.parse_args(argv)
     from .index.artifacts import load_index
     from .index.perfect import (build_perfect_table,
-                                        save_perfect_table)
-    table = build_perfect_table(load_index(args.prefix), args.seed_len)
+                                build_perfect_table_chunked,
+                                save_perfect_table)
+    idx = load_index(args.prefix)
+    chunked = (args.chunked or args.budget_gb is not None
+               or idx.bns.l_pac > (256 << 20))
+    if chunked:
+        budget = (int(args.budget_gb * (1 << 30))
+                  if args.budget_gb else None)
+        table = build_perfect_table_chunked(
+            idx, args.seed_len, budget_bytes=budget,
+            log=lambda m: print(m, file=sys.stderr))
+    else:
+        table = build_perfect_table(idx, args.seed_len)
     print(f"* wrote {save_perfect_table(table, args.prefix)}",
           file=sys.stderr)
     return 0
@@ -257,7 +275,11 @@ def find_emf(prefix: str):
     """The EMF perfect-match table next to the index, if built."""
     from .index.perfect import load_perfect_table
     for path in sorted(glob.glob(f"{prefix}.emf*.npz"), reverse=True):
-        return load_perfect_table(path)
+        try:
+            return load_perfect_table(path)
+        except Exception as e:
+            print(f"* WARNING: ignoring unreadable EMF table {path}: "
+                  f"{e}", file=sys.stderr)
     return None
 
 

@@ -9,9 +9,11 @@ to the plain version.
 The kernel runs one warp per pair; lane l holds K = ceil((QL + 1) / 32)
 columns of the DP row. It is instantiated for the K of ``K_VALUES``, in
 registers up to K = 8 (queries up to 255 columns) and in shared memory
-above, so a query of up to ``MAX_QL`` = 767 columns runs (reads up to
-about 740 bp at default options, where ``needs_seed_sw_filter`` turns
-true); a wider one raises ValueError.
+up to K = 24 (``MAX_QL`` = 767 columns). A wider query, which reaches
+BSW once ``-W`` > 0 lifts the seed-SW threshold (22 W: 880 columns
+under ``-x pacbio``, unbounded in W), takes the ``TILED`` instantiation:
+the row walked in tiles of ``TILE`` columns, held in a per-pair scratch
+of device memory that the wrapper allocates. Every width runs.
 
 The kernel is compiled with nvcc into a shared library with a plain C
 interface at first use (``build/torch_kernels/libbsw_cuda.so``, rebuilt
@@ -39,6 +41,8 @@ LIB_PATH = nvcc_build.lib_path("bsw_cuda")
 # columns a lane: the instantiations of csrc/bsw.cu's bsw_launch
 K_VALUES = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 24)
 MAX_QL = 32 * K_VALUES[-1] - 1
+TILED = 0            # bsw_launch's k of the column-tiled instantiation
+TILE = 256           # its columns a tile (32 lanes x 8)
 
 _lib = None
 build_seconds = None   # wall time of the last build in this process
@@ -60,21 +64,20 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.bsw_launch.argtypes = [vp] * 6 + [ci] * 15 + [vp]
+        lib.bsw_launch.argtypes = [vp] * 6 + [ci] * 15 + [vp, vp]
         lib.bsw_launch.restype = ci
         _lib = lib
     return _lib
 
 
 def lane_columns(QL: int) -> int:
-    """The instantiated K (columns a lane) for a query of QL columns."""
+    """The instantiated K (columns a lane) for a query of QL columns;
+    ``TILED`` past ``MAX_QL``."""
     need = -(-(QL + 1) // 32)
     for k in K_VALUES:
         if k >= need:
             return k
-    raise ValueError(f"banded_swa_batch_cuda: query width {QL} exceeds the "
-                     f"kernel's limit of {MAX_QL} columns ({K_VALUES[-1]} "
-                     f"columns a lane)")
+    return TILED
 
 
 def _check(name, t, ndim, device):
@@ -95,6 +98,10 @@ def launch(qs, q_lens, ts, t_lens, h0, w: int, o_del: int, e_del: int,
     sc = scoring(mat)
     dev = qs.device
     out = torch.empty((6, P), dtype=torch.int32, device=dev)
+    scratch = None
+    if k == TILED:
+        scratch = torch.empty((P, 2, -(-(QL + 1) // TILE) * TILE),
+                              dtype=torch.int32, device=dev)
     if P:
         lib = _load()
         with torch.cuda.device(dev):
@@ -104,7 +111,9 @@ def launch(qs, q_lens, ts, t_lens, h0, w: int, o_del: int, e_del: int,
                                 h0.data_ptr(), out.data_ptr(), P, QL,
                                 ts.shape[1], k, w, o_del, e_del, o_ins,
                                 e_ins, zdrop, sc["sc_match"], sc["sc_mis"],
-                                sc["sc_n"], sc["mx"], end_bonus, stream)
+                                sc["sc_n"], sc["mx"], end_bonus,
+                                None if scratch is None
+                                else scratch.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"bsw_launch failed: CUDA error {rc}")
         banded_swa_batch_cuda.launches += 1
@@ -132,7 +141,6 @@ def banded_swa_batch_cuda(qs, q_lens, ts, t_lens, h0, w: int, o_del: int,
     if ts.shape[0] != P or any(t.shape[0] != P
                                for t in (q_lens, t_lens, h0)):
         raise ValueError("banded_swa_batch_cuda: pair counts differ")
-    lane_columns(QL)                    # a too-wide query raises here
     if bool(((q_lens > QL) | (t_lens > ts.shape[1])).any()):
         raise ValueError("banded_swa_batch_cuda: a length exceeds its "
                          "row count")

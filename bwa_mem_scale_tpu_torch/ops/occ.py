@@ -51,6 +51,7 @@ class DeviceFMIndex:
     sa_compx: int
     l_pac: int
     seq_len: int
+    count_host: list          # the C array as host ints (kernel arguments)
 
     @property
     def device(self) -> torch.device:
@@ -79,6 +80,7 @@ class DeviceFMIndex:
             sa_compx=int(idx.sa_compx),
             l_pac=int(idx.bns.l_pac),
             seq_len=int(idx.seq_len),
+            count_host=[int(v) for v in np.asarray(idx.count)],
         )
 
 

@@ -18,6 +18,11 @@ it to the retry ladder.
 
 A lane that reaches DONE is a strict no-op, so the loops test their
 exit condition (a host sync on a GPU) once every ``CHECK_EVERY`` ticks.
+
+``collect_smems_oh`` runs passes 1 and 2 through
+``smem_cuda.one_pos_machine_cuda``: one launch of ``csrc/smem.cu`` a
+pass on CUDA tensors, ``one_pos_machine`` here on CPU tensors. Pass 3
+(``seed_strategy_machine``) is still a lockstep loop.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from .occ import DeviceFMIndex, backward_ext_all4
 from .smem import SmemBuf, concat_smems, compact_indices, _emit_compact
+from .smem_cuda import one_pos_machine_cuda
 
 P_INIT = 0
 P_FWD = 1
@@ -335,6 +341,28 @@ def seed_strategy_machine(fmi: DeviceFMIndex, codes, lens, max_intv: int,
     return out.result()
 
 
+def reseed_tasks(p1: SmemBuf, T: int, split_len: int, split_width: int):
+    """Pass 2's tasks from pass 1's SMEMs: the midpoint of each SMEM of
+    at least split_len bases with at most split_width occurrences, at a
+    minimum interval of its occurrences + 1, the first T in read order.
+    Returns (t_read, t_x, t_mi, t_valid) [T] and the reads whose
+    candidates overflowed the budget T [B]."""
+    B, Me = p1.m.shape
+    valid = torch.arange(Me, device=p1.m.device)[None, :] < p1.cnt[:, None]
+    cand = (valid & ((p1.n + 1 - p1.m) >= split_len)
+            & (p1.s <= split_width))
+    flat = cand.reshape(B * Me)
+    # reseed lane budget: candidates past T force the retry ladder
+    order, t_valid = compact_indices(flat, T)
+    rank = torch.cumsum(flat.to(torch.int32), 0) - 1
+    reseed_of = (flat & (rank >= T)).reshape(B, Me).any(1)
+    t_read = (order // Me).long()
+    t_slot = (order % Me).long()
+    t_x = (p1.n[t_read, t_slot] + 1 + p1.m[t_read, t_slot]) >> 1
+    t_mi = torch.where(t_valid, p1.s[t_read, t_slot] + 1, 1)
+    return t_read, t_x, t_mi, t_valid, reseed_of
+
+
 def collect_smems_oh(fmi: DeviceFMIndex, codes, lens, *,
                      min_seed_len: int, split_len: int,
                      split_width: int, max_mem_intv: int,
@@ -355,26 +383,15 @@ def collect_smems_oh(fmi: DeviceFMIndex, codes, lens, *,
     bidx = torch.arange(B, dtype=torch.int32, device=dev)
     zi = torch.zeros((B,), dtype=torch.int32, device=dev)
 
-    p1 = one_pos_machine(fmi, codes, lens, bidx, zi, zi + 1, lens > 0,
-                         True, min_seed_len, Me, stack_depth, stats,
-                         "seed_ticks_p1")
+    p1 = one_pos_machine_cuda(fmi, codes, lens, bidx, zi, zi + 1, lens > 0,
+                              True, min_seed_len, Me, stack_depth, stats,
+                              "seed_ticks_p1")
     p1_of = p1.cnt >= Me
-
-    valid = torch.arange(Me, device=dev)[None, :] < p1.cnt[:, None]
-    cand = (valid & ((p1.n + 1 - p1.m) >= split_len)
-            & (p1.s <= split_width))
-    flat = cand.reshape(B * Me)
-    # reseed lane budget: candidates past T force the retry ladder
-    order, t_valid = compact_indices(flat, T)
-    rank = torch.cumsum(flat.to(torch.int32), 0) - 1
-    reseed_of = (flat & (rank >= T)).reshape(B, Me).any(1)
-    t_read = (order // Me).long()
-    t_slot = (order % Me).long()
-    t_x = (p1.n[t_read, t_slot] + 1 + p1.m[t_read, t_slot]) >> 1
-    t_mi = torch.where(t_valid, p1.s[t_read, t_slot] + 1, 1)
-    p2t = one_pos_machine(fmi, codes, lens, t_read, t_x, t_mi, t_valid,
-                          False, min_seed_len, Me, stack_depth, stats,
-                          "seed_ticks_p2")
+    t_read, t_x, t_mi, t_valid, reseed_of = reseed_tasks(
+        p1, T, split_len, split_width)
+    p2t = one_pos_machine_cuda(fmi, codes, lens, t_read, t_x, t_mi,
+                               t_valid, False, min_seed_len, Me,
+                               stack_depth, stats, "seed_ticks_p2")
     p2_of = torch.zeros((B + 1,), dtype=torch.int32, device=dev)
     p2_of = p2_of.scatter_reduce(
         0, torch.where(t_valid, t_read, B),

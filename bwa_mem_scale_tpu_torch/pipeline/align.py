@@ -9,7 +9,9 @@ Counterpart of ``bwa_mem_scale_tpu/pipeline/align.py``. Per batch:
   host:   the native finalizer (dedup/patch, primary marking, CIGAR,
           SAM text; ``native/finalize.cpp``), shared with the JAX
           package; for pairs, its one-call PE stage (insert-size
-          stats, mate rescue, pairing, records: ``finalize_pe_rows``).
+          stats, mate rescue, pairing, records: ``finalize_pe_rows``),
+          or the Python PE path (``pipeline/pe.py``) for a batch the
+          native stage declines.
 
 ``GpuAligner`` carries the surface that ``SeStream`` and the driver
 call: ``dispatch_batch`` / ``fetch_extend`` / ``finalize_stage_*`` for
@@ -781,10 +783,38 @@ class GpuAligner:
 
     def pe_post(self, fetched, id_offset: int = 0, sam_ctx=None):
         """PE stage 3 (host): insert-size stats (or ``self.pes``), mate
-        rescue, pairing and records in one native call. With sam_ctx
-        (names/quals/rg_id), finished SAM bytes per read and no mates;
-        without, Aln records per read and each read's mate record.
-        Raises when the native stage declines the batch."""
+        rescue, pairing and records, in one native call. With sam_ctx
+        (names/quals/rg_id), finished SAM bytes per read; without, Aln
+        records per read and each read's mate record. A batch the
+        native stage declines (its record capacity, CIGAR stride or
+        MD/XA/SAM arena too small) takes the Python PE path, as in the
+        JAX package."""
+        out = self._pe_post_native(fetched, id_offset, sam_ctx)
+        if out is not None:
+            return out
+        records, mates = self._pe_post_python(
+            self._raw_to_python_fetch(fetched), id_offset)
+        if sam_ctx is not None:
+            from ..io.sam import compose_sam_python
+            codes, lens = fetched[1], fetched[2]
+            records = [compose_sam_python(
+                self.opt, self.idx.bns, codes[i, : lens[i]], r,
+                sam_ctx, i, mate=mates[i]) if r is not None else None
+                for i, r in enumerate(records)]
+        return records, mates
+
+    def _raw_to_python_fetch(self, fetched):
+        """The Python path's (codes, lens, pm_regs, all_regs) from a raw
+        fetch tuple."""
+        _, codes, lens, pm_regs, pk, meta, ov_regs = fetched
+        all_regs, _of = self._regs_from_device(
+            None, codes, prefetched={"packed": pk, "meta": meta})
+        for i, regs in ov_regs.items():
+            all_regs[i] = regs
+        return (codes, lens, pm_regs, all_regs)
+
+    def _pe_post_native(self, fetched, id_offset: int, sam_ctx=None):
+        """The one-call native PE stage; None when it declines."""
         _, codes, lens, pm_regs, pk, meta, ov_regs = fetched
         B = codes.shape[0]
         with PROFILER.phase("pe_rows"):
@@ -830,10 +860,7 @@ class GpuAligner:
             skip_dedup, codes, lens, pes_in=self.pes,
             want="raw" if sam_ctx is not None else "aln")
         if res is None:
-            raise RuntimeError(
-                "the native PE stage declined the batch: its record "
-                "capacity, its CIGAR stride or its MD/XA arena "
-                "(native_finalize.finalize_pe_rows) is too small")
+            return None
         if sam_ctx is None:
             recs_by_read, mates, _pes = res
             return [recs_by_read.get(i, []) for i in range(B)], mates
@@ -842,9 +869,58 @@ class GpuAligner:
             raw, self.opt, self.idx.bns, codes, lens, sam_ctx.get("names"),
             sam_ctx.get("quals"), sam_ctx.get("rg_id"), mate=mate_arrs)
         if sam_by_read is None:
-            raise RuntimeError("the native SAM composer declined the PE "
-                               "batch: its SAM text arena is too small")
+            return None
         return [sam_by_read.get(i, b"") for i in range(B)], [None] * B
+
+    def _pe_post_python(self, fetched, id_offset: int = 0):
+        """The Python PE path (worker_sam's PE flow,
+        src/bwamem.cpp:1668-1830): dedup, pestat, rescue in native
+        kswa, pairing and records, CIGARs in one native call."""
+        from .pe import (mem_pestat, build_rescue_jobs, run_rescue_jobs,
+                         apply_rescues, sam_pe_records)
+        from .pe_batch import AlnBatcher
+        opt = self.opt
+        bns = self.idx.bns
+        ref = self.idx.ref_string
+        codes, lens, pm_regs, all_regs = fetched
+        B = codes.shape[0]
+        queries = [codes[i, : lens[i]].astype(np.uint8) for i in range(B)]
+        with PROFILER.phase("pe_dedup"):
+            for i in range(B):
+                if i in pm_regs:
+                    all_regs[i] = pm_regs[i]
+                else:
+                    all_regs[i] = sort_dedup_patch(
+                        opt, bns, ref, queries[i], all_regs[i])
+        pair_regs = [(all_regs[2 * p], all_regs[2 * p + 1])
+                     for p in range(B // 2)]
+        pair_seqs = [(queries[2 * p], queries[2 * p + 1])
+                     for p in range(B // 2)]
+        with PROFILER.phase("pe_pestat"):
+            pes = self.pes if self.pes is not None else mem_pestat(
+                opt, bns.l_pac, pair_regs,
+                log=lambda m: print(m, file=sys.stderr))
+        with PROFILER.phase("pe_rescue_plan"):
+            jobs = build_rescue_jobs(opt, bns, ref, pes, pair_regs,
+                                     pair_seqs)
+        with PROFILER.phase("pe_rescue_run"):
+            results = run_rescue_jobs(opt, jobs)
+            apply_rescues(opt, bns.l_pac, jobs, results, pair_regs)
+        batcher = AlnBatcher(opt, self.idx, queries)
+        records: List[list] = [None] * B
+        mates: List[object] = [None] * B
+        with PROFILER.phase("pe_records"):
+            for p in range(B // 2):
+                regs2 = [list(pair_regs[p][0]), list(pair_regs[p][1])]
+                q2 = [queries[2 * p], queries[2 * p + 1]]
+                recs2, m2 = sam_pe_records(
+                    opt, bns, ref, pes, (id_offset >> 1) + p, q2,
+                    regs2, batcher=batcher, qidx=(2 * p, 2 * p + 1))
+                records[2 * p], records[2 * p + 1] = recs2
+                mates[2 * p], mates[2 * p + 1] = m2
+        with PROFILER.phase("pe_cigar_resolve"):
+            batcher.resolve()
+        return records, mates
 
     def align_pairs_and_finalize(self, codes: np.ndarray, lens: np.ndarray,
                                  id_offset: int = 0):

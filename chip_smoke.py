@@ -5,11 +5,12 @@
 
 Phases, in order; any failure exits non-zero:
   1. card:    CUDA present; prints nvidia-smi's name and power limit.
-  2. build:   compiles csrc/bsw.cu (the banded-SW kernel) and
-              csrc/probes.cu (the probe kernels) from source, one nvcc
-              each, both at once; prints ptxas's register report (for
-              the BSW kernel one line an instantiation, failing on a
-              spill at K = 4 or 5 columns a lane).
+  2. build:   compiles csrc/bsw.cu (the banded-SW kernel),
+              csrc/probes.cu (the probe kernels) and csrc/smem.cu (SMEM
+              seeding passes 1 and 2) from source, one nvcc each, all at
+              once; prints ptxas's register report (for the BSW kernel
+              one line an instantiation, failing on a spill at K = 4 or
+              5 columns a lane).
   3. kernel:  the CUDA kernel against the plain PyTorch BSW on the card
               at main-path shapes (4096 pairs, query 101, target 309,
               band 100 and 200), all six outputs bit-equal; the live
@@ -23,13 +24,20 @@ Phases, in order; any failure exits non-zero:
               every read emitted once in input order, >= 95% of the
               primaries of reads the EMF table did not resolve within
               5 bp of the true position and strand, the BSW kernel
-              launched; reads/s, and per-stage seconds from a second
+              launched, the SMEM kernel launched at least twice a device
+              batch; reads/s, and per-stage seconds from a second
               `mem -v 4` run with synchronised stage timers.
   5. slice:   seed_chain_extend on one batch of phase 4 with the kernel
-              and with the plain BSW: packed and meta equal; the four
-              BSW calls of the batch captured, each with its live pairs,
+              and with the plain BSW, and with the kernel and with the
+              plain SMEM passes 1 and 2: packed and meta equal;
+              collect_smems_oh with each at the three retry-tier depths
+              (24, 48, the read length): SmemBuf equal; the four BSW
+              calls of the batch captured, each with its live pairs,
               rows, cells, bound, the kernel's device time and the
-              wrapper's wall time.
+              wrapper's wall time; the two SMEM launches of the batch,
+              each equal to the plain machine, with its steps, bound,
+              latency floor (the longest lane's steps x 0.224 us), the
+              kernel's device time and the plain version's.
   6. probes:  the probe path through its entry points, `probe_cuda` and
               `probe_cuda_rates ABCDEF` on the card (every probe OK,
               every probe kernel launched, the rate lines printed); then
@@ -40,13 +48,14 @@ Phases, in order; any failure exits non-zero:
               index: 5,000 simulated FR pairs of 101 bp (insert 300 +-
               30, 1% substitutions, read 2 reverse-complemented) in two
               FASTQ files; every read emitted once in input order (read
-              1 then read 2), the BSW kernel launched, >= 95% of non-EMF
+              1 then read 2), the BSW and SMEM kernels launched, >= 95%
+              of non-EMF
               primaries within 5 bp of the true position and strand,
               >= 90% of pairs with both mates mapped flagged proper, the
               median |TLEN| of proper pairs within 5% of 300; reads/s and
               the host PE stage's seconds beside the device stages'.
 
-Prints the kernel JSON line (all nine kernels, each with its bound: the
+Prints the kernel JSON line (all ten kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -84,6 +93,15 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # integer operations a band cell of the BSW recurrence: score 4 (N test,
 # match test, two selects), M 2, H 2, row max 2, E 4, F 4, band test 2
 BSW_OPS_PER_CELL = 20
+# an SMEM step: two 32-byte checkpoint rows; the occ of 4 bases at both
+# ends (shift, mask, 4 AND, 4 popcount, 4 add each: 2 x 14), the four
+# sizes 4, the sentinel test 3, the base's k, l and s 6, the interval
+# tests 4
+SMEM_BYTES_PER_STEP = 64
+SMEM_OPS_PER_STEP = 45
+# the dependent checkpoint-row load on the 4.6 Mbp table (probe B, L2;
+# PERF.md section 6), the latency floor of a lane's step
+STEP_US = 0.224
 
 
 def log(msg=""):
@@ -124,20 +142,19 @@ def bsw_launch_only(args):
     return lambda: bsw_cuda.launch(*tensors, *args[5:12])
 
 
-def ptxas_summary(report):
-    """{(K, shared): (registers, spill bytes)} of the BSW instantiations
-    in ptxas's -v report."""
+def ptxas_kernels(report):
+    """{kernel's mangled name: (registers, spill bytes)} from ptxas's -v
+    report."""
     out, fn = {}, None
     for ln in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", ln)
         if m:
             fn = m.group(1)
-        k = re.search(r"bsw_warp_kernelILi(\d+)ELb([01])E", fn or "")
-        if not k:
+            out.setdefault(fn, (None, 0))
+        if fn is None:
             continue
-        key = (int(k.group(1)), k.group(2) == "1")
-        regs, spill = out.get(key, (None, 0))
+        regs, spill = out[fn]
         s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if s:
@@ -145,7 +162,7 @@ def ptxas_summary(report):
         r = re.search(r"Used (\d+) registers", ln)
         if r:
             regs = int(r.group(1))
-        out[key] = (regs, spill)
+        out[fn] = (regs, spill)
     return out
 
 
@@ -280,6 +297,7 @@ def phase_mem(dev, card, tmp):
     from bwa_mem_scale_tpu_torch.index.artifacts import load_index
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import one_pos_machine_cuda
     codes, lens, pos, is_rev = write_inputs(tmp)
     g, fq = os.path.join(tmp, "g"), os.path.join(tmp, "r.fq")
     t0 = time.perf_counter()
@@ -293,26 +311,35 @@ def phase_mem(dev, card, tmp):
                 "--device", "cuda", "--batch-reads", str(BATCH)]
 
     banded_swa_batch_cuda.launches = 0          # main path starts here
+    one_pos_machine_cuda.launches = 0
     t0 = time.perf_counter()
     al = cli.mem(mem_argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = banded_swa_batch_cuda.launches   # main path ends here
+    launches = {"banded_swa_batch": banded_swa_batch_cuda.launches,
+                "one_pos_machine": one_pos_machine_cuda.launches}
+    # main path ends here
 
     pt = load_perfect_table(g + ".emf101.npz")
     idx = load_index(g)
     code = emf_lookup_host(pt, idx.ref_string, codes, lens)["code"]
     emf_hit = (code == FW_MATCHED) | (code == RC_MATCHED)
     check_sam(os.path.join(tmp, "out.sam"), emf_hit, pos, is_rev)
-    if launches <= 0:
+    if launches["banded_swa_batch"] <= 0:
         raise SystemExit("mem: the BSW kernel was never launched")
+    if launches["one_pos_machine"] < 2 * al.batches:
+        raise SystemExit(f"mem: the SMEM kernel launched "
+                         f"{launches['one_pos_machine']} times over "
+                         f"{al.batches} device batches, fewer than two a "
+                         f"batch")
     log(f"[mem] {N_READS} reads in {wall:.2f} s = {N_READS / wall:.1f} "
         f"reads/s end to end (mem call incl. index load)  [{card}]")
-    log(f"[mem] bsw kernel launches {launches}; EMF hits {al.emf_hits}/"
+    log(f"[mem] kernel launches {launches}; EMF hits {al.emf_hits}/"
         f"{al.emf_checked}; overflow-retried reads {al.overflow_retried} "
         f"({al.overflow_oracle} to oracle); device batches {al.batches}")
-    per = {k: v / al.batches for k, v in sorted(al.stats.items())}
-    log("[mem] loop ticks per batch: "
+    per = {k: float(v) / al.batches for k, v in sorted(al.stats.items())}
+    log("[mem] loop ticks (lockstep) and longest lane's steps (SMEM "
+        "kernel) per batch: "
         + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
 
     al4 = cli.mem(mem_argv + ["-v", "4"])
@@ -327,19 +354,29 @@ def phase_mem(dev, card, tmp):
 def phase_slice(dev, card, al, codes, lens):
     import dataclasses
     import torch
+    from bwa_mem_scale_tpu_torch.ops import smem_oh
     from bwa_mem_scale_tpu_torch.pipeline import align
     c = torch.as_tensor(codes, device=dev)
     ln = torch.as_tensor(lens, device=dev)
     real, calls = align.banded_swa_batch_cuda, []
+    real_smem, smem_calls = smem_oh.one_pos_machine_cuda, []
 
     def record(*args, **kw):           # the batch's BSW calls, as made
         calls.append(args)
         return real(*args, **kw)
 
+    def record_smem(*args, **kw):      # the batch's SMEM launches
+        smem_calls.append(args)
+        return real_smem(*args, **kw)
+
     outs = {}
-    for eng in ("auto", "plain"):
-        cfg = dataclasses.replace(al.cfg, bsw_engine=eng)
-        align.banded_swa_batch_cuda = record
+    for run, bsw_eng, seeding in (("auto", "auto", record_smem),
+                                  ("plain", "plain", real_smem),
+                                  ("plain_seed", "auto",
+                                   smem_oh.one_pos_machine)):
+        cfg = dataclasses.replace(al.cfg, bsw_engine=bsw_eng)
+        align.banded_swa_batch_cuda = record if run == "auto" else real
+        smem_oh.one_pos_machine_cuda = seeding
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -348,15 +385,21 @@ def phase_slice(dev, card, al, codes, lens):
             torch.cuda.synchronize()
         finally:
             align.banded_swa_batch_cuda = real
-        outs[eng] = (out, time.perf_counter() - t0)
-    for key in ("packed", "meta"):
-        if not torch.equal(outs["auto"][0][key], outs["plain"][0][key]):
-            raise SystemExit(f"slice: {key} differs kernel vs plain BSW")
+            smem_oh.one_pos_machine_cuda = real_smem
+        outs[run] = (out, time.perf_counter() - t0)
+    for run, what in (("plain", "BSW"), ("plain_seed", "SMEM passes 1-2")):
+        for key in ("packed", "meta"):
+            if not torch.equal(outs["auto"][0][key], outs[run][0][key]):
+                raise SystemExit(f"slice: {key} differs kernel vs plain "
+                                 f"{what}")
     n_valid = int(outs["auto"][0]["valid"].sum())
     log(f"[slice] seed_chain_extend on {len(codes)} reads ({n_valid} "
-        f"pairs): packed and meta equal; whole call {outs['auto'][1]:.3f} s "
-        f"with the kernel BSW, {outs['plain'][1]:.3f} s with the plain BSW"
-        f"  [{card}]")
+        f"pairs): packed and meta equal with the kernel BSW and the plain "
+        f"one, and with the kernel SMEM passes 1-2 and the plain ones; "
+        f"whole call {outs['auto'][1]:.3f} s with both kernels, "
+        f"{outs['plain'][1]:.3f} s with the plain BSW, "
+        f"{outs['plain_seed'][1]:.3f} s with the plain SMEM passes  "
+        f"[{card}]")
     if len(calls) != 4:
         raise SystemExit(f"slice: {len(calls)} BSW calls, expected 4")
     path = []
@@ -372,7 +415,93 @@ def phase_slice(dev, card, al, codes, lens):
             f"{wk['bound'][0]:.5f} ms by {wk['bound'][1]}; kernel device "
             f"time {ms:.5f} ms, wrapper call back to back {wall:.5f} ms"
             f"  [{card}]")
-    return path
+    if len(smem_calls) != 2:
+        raise SystemExit(f"slice: {len(smem_calls)} SMEM launches, "
+                         f"expected 2")
+    smem = [smem_launch(dev, card, n, args)
+            for n, args in enumerate(smem_calls)]
+    smem_tiers(dev, card, al, c, ln)
+    return path, smem
+
+
+def smem_launch(dev, card, n, args):
+    """One SMEM launch of the batch: the kernel against the plain machine
+    (every field and cnt), its steps and bounds, its device time and the
+    plain version's."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import one_pos_machine_cuda
+    from bwa_mem_scale_tpu_torch.ops.smem_oh import one_pos_machine
+    args = args[:11]                           # without stats
+    got = one_pos_machine_cuda(*args)
+    steps = one_pos_machine_cuda.last_steps.long()
+    want = one_pos_machine(*args)
+    torch.cuda.synchronize()
+    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+              for a, b in zip(got, want))
+    if err:
+        bad = [f for f, a, b in zip(got._fields, got, want)
+               if not torch.equal(a, b)]
+        raise SystemExit(f"slice: SMEM launch {n + 1} != plain: {bad}")
+    codes, T, M = args[1], args[3].shape[0], args[9]
+    total, longest = int(steps.sum()), int(steps.max())
+    nbytes = (4 * (codes.numel() + codes.shape[0] + 3 * T) + T
+              + SMEM_BYTES_PER_STEP * total + 4 * (5 * T * M + 2 * T))
+    b = bound(nbytes, SMEM_OPS_PER_STEP * total)
+    floor = longest * STEP_US * 1e-3
+    ms = [device_ms(lambda: one_pos_machine_cuda(*args), 20, dev)]
+    plain = time_ms(lambda: one_pos_machine(*args), 1, dev)
+    ms.append(device_ms(lambda: one_pos_machine_cuda(*args), 20, dev))
+    r = dict(err=err, ms=sum(ms) / 2, plain_ms=plain, bound=b, floor=floor,
+             steps=total, longest=longest, T=T,
+             valid=int(args[6].sum()))
+    log(f"[slice] smem launch {n + 1}/2 (pass {n + 1}: T={T}, "
+        f"{r['valid']} valid tasks, B={codes.shape[0]}, L="
+        f"{codes.shape[1]}, max_out={M}, stack depth {args[10]}): equal "
+        f"to the plain machine (max_abs_err {err}); {total} steps, the "
+        f"longest lane {longest}; bound {b[0]:.6f} ms by {b[1]}, latency "
+        f"floor {floor:.5f} ms ({longest} x {STEP_US} us); kernel device "
+        f"time {r['ms']:.5f} ms (mean of 2), plain {plain:.1f} ms  "
+        f"[{card}]")
+    return r
+
+
+def smem_tiers(dev, card, al, c, ln):
+    """collect_smems_oh at the retry tiers' depths with the kernel and
+    with the plain passes 1-2 swapped in: SmemBuf equal. Then the seeding
+    of the batch split: the whole collection (synchronised), its two
+    kernel launches and pass 3 alone."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import smem_oh
+    opt = al.opt
+    kw = dict(min_seed_len=opt.min_seed_len, split_len=opt.split_len,
+              split_width=opt.split_width, max_mem_intv=opt.max_mem_intv)
+    real = smem_oh.one_pos_machine_cuda
+    for depth, rf in ((24, 2), (48, 8), (None, 256)):
+        tier = dict(kw, emit_depth=depth, stack_depth=depth,
+                    reseed_factor=rf)
+        got = smem_oh.collect_smems_oh(al.fmi, c, ln, **tier)
+        smem_oh.one_pos_machine_cuda = smem_oh.one_pos_machine
+        try:
+            want = smem_oh.collect_smems_oh(al.fmi, c, ln, **tier)
+        finally:
+            smem_oh.one_pos_machine_cuda = real
+        torch.cuda.synchronize()
+        bad = [f for f, a, b in zip(got._fields, got, want)
+               if not torch.equal(a, b)]
+        if bad:
+            raise SystemExit(f"slice: collect_smems_oh at depth {depth} "
+                             f"differs kernel vs plain: {bad}")
+        log(f"[slice] collect_smems_oh at depth {depth}, reseed factor "
+            f"{rf}: SmemBuf equal kernel vs plain passes 1-2 "
+            f"({int(got.cnt.clamp(max=got.m.shape[1]).sum())} SMEMs)")
+    tier = dict(kw, emit_depth=24, stack_depth=24, reseed_factor=2)
+    whole = time_ms(lambda: smem_oh.collect_smems_oh(al.fmi, c, ln, **tier),
+                    2, dev)
+    p3 = time_ms(lambda: smem_oh.seed_strategy_machine(
+        al.fmi, c, ln, opt.max_mem_intv, opt.min_seed_len + 1, 24), 2, dev)
+    log(f"[slice] seeding one batch: collect_smems_oh {whole:.2f} ms, of "
+        f"which pass 3 (seed_strategy_machine, lockstep) alone "
+        f"{p3:.2f} ms  [{card}]")
 
 
 def write_pairs(tmp, bns):
@@ -449,6 +578,7 @@ def phase_pe(dev, card, tmp):
     from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import one_pos_machine_cuda
     g, sam = os.path.join(tmp, "g"), os.path.join(tmp, "pe.sam")
     idx = load_index(g)
     codes, lens, pos, is_rev = write_pairs(tmp, idx.bns)
@@ -456,12 +586,14 @@ def phase_pe(dev, card, tmp):
     PROFILER.counts.clear()
 
     banded_swa_batch_cuda.launches = 0          # PE path starts here
+    one_pos_machine_cuda.launches = 0
     t0 = time.perf_counter()
     al = cli.mem([g, os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq"),
                   "-o", sam, "--device", "cuda", "--batch-reads", str(BATCH)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = banded_swa_batch_cuda.launches   # PE path ends here
+    launches = banded_swa_batch_cuda.launches
+    smem_launches = one_pos_machine_cuda.launches  # PE path ends here
 
     pt = load_perfect_table(g + ".emf101.npz")
     code = emf_lookup_host(pt, idx.ref_string, codes, lens)["code"]
@@ -469,12 +601,15 @@ def phase_pe(dev, card, tmp):
                  is_rev)
     if launches <= 0:
         raise SystemExit("pe: the BSW kernel was never launched")
+    if smem_launches <= 0:
+        raise SystemExit("pe: the SMEM kernel was never launched")
     n = 2 * N_PAIRS
     sec = PROFILER.totals
     log(f"[pe] {n} reads ({N_PAIRS} pairs) in {wall:.2f} s = "
         f"{n / wall:.1f} reads/s end to end (mem call incl. index load)  "
         f"[{card}]")
-    log(f"[pe] bsw kernel launches {launches}; EMF hits {al.emf_hits}/"
+    log(f"[pe] kernel launches: bsw {launches}, smem {smem_launches}; "
+        f"EMF hits {al.emf_hits}/"
         f"{al.emf_checked}; overflow-retried reads {al.overflow_retried}; "
         f"device batches {al.batches}")
     log(f"[pe] seconds: device stages (dispatch_extend, host clock) "
@@ -567,17 +702,30 @@ def main():
         f"{name} x{torch.cuda.device_count()}")
 
     from bwa_mem_scale_tpu_torch.ops import bsw_cuda, nvcc_build
-    from bwa_mem_scale_tpu_torch.ops import probe_kernels
-    with ThreadPoolExecutor(2) as ex:           # one nvcc a source, at once
+    from bwa_mem_scale_tpu_torch.ops import probe_kernels, smem_cuda
+    with ThreadPoolExecutor(3) as ex:           # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
-                  ex.submit(probe_kernels.build, force=True, verbose=True)]
+                  ex.submit(probe_kernels.build, force=True, verbose=True),
+                  ex.submit(smem_cuda.build, force=True)]
         probes_seconds = builds[1].result()[1]
         builds[0].result()
+        builds[2].result()
     log(f"[build] csrc/bsw.cu -> {os.path.relpath(bsw_cuda.LIB_PATH, REPO)}"
         f" in {bsw_cuda.build_seconds:.2f} s; csrc/probes.cu -> "
         f"{os.path.relpath(probe_kernels.LIB_PATH, REPO)} in "
-        f"{probes_seconds:.2f} s (in parallel)")
-    regs = ptxas_summary(nvcc_build.REPORTS["bsw_cuda"])
+        f"{probes_seconds:.2f} s; csrc/smem.cu -> "
+        f"{os.path.relpath(smem_cuda.LIB_PATH, REPO)} in "
+        f"{smem_cuda.build_seconds:.2f} s (in parallel)")
+    kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
+               for lib in ("smem_cuda", "bsw_cuda")}
+    for lib, kernel in (("smem_cuda", "one_pos_kernel"),
+                        ("bsw_cuda", "bsw_tiled_kernel")):
+        (r, s), = [v for fn, v in kernels[lib].items() if kernel in fn]
+        log(f"[build] {kernel}: {r} registers, {s} bytes spilled")
+    # the BSW instantiations, {(K, shared): (registers, spill bytes)}
+    regs = {(int(k.group(1)), k.group(2) == "1"): v
+            for fn, v in kernels["bsw_cuda"].items()
+            if (k := re.search(r"bsw_warp_kernelILi(\d+)ELb([01])E", fn))}
     if len(regs) != len(bsw_cuda.K_VALUES):
         raise SystemExit(f"build: ptxas reported {sorted(regs)}, expected "
                          f"K = {bsw_cuda.K_VALUES}")
@@ -590,7 +738,7 @@ def main():
     k = phase_kernel(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches, al, codes, lens = phase_mem(dev, card, tmp)
-        phase_slice(dev, card, al, codes, lens)
+        _, smem = phase_slice(dev, card, al, codes, lens)
         probes = phase_probes(dev, card)
         phase_pe(dev, card, tmp)
 
@@ -598,10 +746,18 @@ def main():
         "name": "banded_swa_batch", "route": "cuda",
         "source": "csrc/bsw.cu",
         "replaces": "bwa_mem_scale_tpu/ops/bsw_pallas.py:56",
-        "launches": launches, "max_abs_err": k["err"],
+        "launches": launches["banded_swa_batch"], "max_abs_err": k["err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
-        "library_ms": None}] + probes}))
+        "library_ms": None}] + probes + [{
+        "name": "one_pos_machine", "route": "cuda",
+        "source": "csrc/smem.cu",
+        "replaces": "bwa_mem_scale_tpu/ops/smem_oh.py:174",
+        "launches": launches["one_pos_machine"],
+        "max_abs_err": max(r["err"] for r in smem),
+        "ms": smem[0]["ms"], "plain_ms": smem[0]["plain_ms"],
+        "bound_ms": smem[0]["bound"][0], "bound_by": smem[0]["bound"][1],
+        "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,10 @@
   which routes reads through the deferred overflow-retry ladder;
 - the port with tiny capacities equal to the port with roomy ones on a
   repeat-dense genome (the retry ladder as tests/test_overflow.py drives
-  it in the JAX package).
+  it in the JAX package);
+- the CLIs: an unreadable EMF table is skipped with the JAX package's
+  warning; `perfect-index --chunked` and `-g` save the JAX CLI's table;
+  `mem` under five option sets writes the JAX CLI's SAM body.
 
 Each side gets its inputs from its own package: the port loads the index
 the JAX package saved with its own ``load_index``, builds its own EMF
@@ -16,6 +19,7 @@ table and takes its own ``MemOptions``.
 """
 
 import io
+import os
 
 import numpy as np
 import pytest
@@ -38,6 +42,10 @@ from bwa_mem_scale_tpu_torch.index.bntseq import BntSeq, Annotation
 from bwa_mem_scale_tpu_torch.index.build import build_index as t_build
 from bwa_mem_scale_tpu_torch.index.perfect import (
     build_perfect_table as t_build_perfect)
+
+# one intra-op thread a process: the suite runs several test workers on
+# the CPU at once, and a thread a core each oversubscribes the cores
+torch.set_num_threads(1)
 
 B, L = 32, 101
 CAPS = dict(max_coords=64, max_chains=8, max_seeds_per_chain=8,
@@ -223,3 +231,121 @@ def test_overflow_retry_ladder_lossless(repeat_index, tmp_path):
     assert tiny.overflow_retried > 0
     assert roomy.overflow_retried == 0
     assert got == want
+
+
+def _body(path):
+    with open(path) as f:
+        return "".join(ln for ln in f if not ln.startswith("@"))
+
+
+def test_mem_cli_skips_unreadable_emf(jax_side, tmp_path, capsys):
+    """A truncated EMF table is skipped with the JAX CLI's warning, and
+    `mem` writes the SAM body of a run with no table."""
+    import shutil
+    from bwa_mem_scale_tpu_torch import cli
+    src = jax_side["prefix"]
+    for sub in ("none", "bad"):
+        (tmp_path / sub).mkdir()
+        shutil.copy(src + ".tpuidx.npz", tmp_path / sub / "g.tpuidx.npz")
+    emf = f"{src}.emf{L}.npz"
+    with open(emf, "rb") as f:
+        head = f.read(os.path.getsize(emf) // 2)
+    bad = tmp_path / "bad" / f"g.emf{L}.npz"
+    bad.write_bytes(head)
+    out = {}
+    for sub in ("none", "bad"):
+        out[sub] = tmp_path / f"{sub}.sam"
+        cli.mem([str(tmp_path / sub / "g"), jax_side["fq"], "-o",
+                 str(out[sub]), "--device", "cpu", "--batch-reads", str(B)])
+    err = capsys.readouterr().err
+    assert f"* WARNING: ignoring unreadable EMF table {bad}: " in err
+    assert _body(out["bad"]) == _body(out["none"])
+
+
+@pytest.mark.parametrize("flags", [["--chunked"], ["-g", "0.00001"]])
+def test_perfect_index_cli_equal_to_jax(jax_side, tmp_path, flags):
+    """`perfect-index --chunked` and `-g GB` (the streaming builder, a
+    budget that drops entries) save the JAX CLI's arrays."""
+    import shutil
+    from bwa_mem_scale_tpu import cli as jcli
+    from bwa_mem_scale_tpu_torch import cli
+    tables = {}
+    for side, main in (("jax", jcli.cmd_perfect_index),
+                       ("port", lambda a: cli.main(["perfect-index", *a]))):
+        (tmp_path / side).mkdir()
+        prefix = str(tmp_path / side / "g")
+        shutil.copy(jax_side["prefix"] + ".tpuidx.npz", prefix + ".tpuidx.npz")
+        assert main([prefix, "-l", "60", *flags]) == 0
+        tables[side] = np.load(f"{prefix}.emf60.npz")
+    j, t = tables["jax"], tables["port"]
+    assert sorted(j.files) == sorted(t.files)
+    for k in j.files:
+        np.testing.assert_array_equal(j[k], t[k], k)
+    full = t_build_perfect(jax_side["tidx"], seed_len=60)
+    n_full = int((full.loc >= 0).sum())
+    if flags[0] == "-g":
+        assert int((t["loc"] >= 0).sum()) < n_full
+    else:
+        assert int((t["loc"] >= 0).sum()) == n_full
+
+
+@pytest.fixture(scope="module")
+def cli_genome(tmp_path_factory):
+    """30 kbp in 3 contigs, indexed and with an EMF table (seed 100) by
+    the JAX package, and 96 reads of 60-149 bp: substitutions, a few
+    indels and N bases, half reverse-complemented, some exact (EMF
+    hits), names with FASTQ comments."""
+    from bwa_mem_scale_tpu.index.build import build_index
+    from conftest import make_genome
+    tmp = tmp_path_factory.mktemp("cli")
+    bns = make_genome(30000, seed=31, n_contigs=3)
+    idx = build_index(bns)
+    prefix = str(tmp / "g")
+    save_index(idx, prefix)
+    save_perfect_table(build_perfect_table(idx, seed_len=100), prefix)
+    rng = np.random.RandomState(12)
+    comp = np.array([3, 2, 1, 0, 4], np.uint8)
+    with open(tmp / "r.fq", "w") as f:
+        for i in range(96):
+            n = rng.randint(60, 150)
+            a = bns.anns[i % 3]
+            p = a.offset + rng.randint(0, a.length - n - 5)
+            s = bns.seq[p: p + n].copy()
+            if i % 4:
+                m = rng.rand(n) < 0.02
+                s[m] = (s[m] + rng.randint(1, 4, m.sum())) % 4
+            if i % 9 == 2:
+                s = np.delete(s, rng.randint(10, n - 10))
+            if i % 9 == 5:
+                s = np.insert(s, rng.randint(10, n - 10), rng.randint(4))
+            if i % 13 == 3:
+                s[rng.randint(0, len(s), 2)] = 4
+            if i % 2:
+                s = comp[s[::-1]]
+            f.write(f"@c{i} BC:Z:{'ACGT'[i % 4] * 4}\n{decode_bases(s)}\n"
+                    f"+\n{chr(35 + i % 40) * len(s)}\n")
+    return prefix, str(tmp / "r.fq")
+
+
+@pytest.mark.parametrize("opts", [
+    ["-C", "-R", "@RG\\tID:g1\\tSM:s1"],
+    ["-M", "-a", "-5", "-q"],
+    ["-K", "3000"],
+    ["-x", "pacbio"],
+    ["-A", "2"],
+], ids=["C-R", "M-a-5-q", "K3000", "x-pacbio", "A2"])
+def test_mem_cli_options_equal_to_jax(cli_genome, tmp_path, opts):
+    """The port's CLI against the JAX CLI, SAM bodies byte-equal, under
+    option sets that change the output path (FASTQ comments and read
+    groups, secondary and supplementary marking, chunked batching, a
+    preset, another scoring matrix)."""
+    from bwa_mem_scale_tpu import cli as jcli
+    from bwa_mem_scale_tpu_torch import cli
+    prefix, fq = cli_genome
+    args = [prefix, fq, "--batch-reads", "32", *opts]
+    jout, tout = tmp_path / "jax.sam", tmp_path / "port.sam"
+    assert jcli.cmd_mem(args + ["-o", str(jout)]) == 0
+    cli.mem(args + ["-o", str(tout), "--device", "cpu"])
+    body = _body(jout)
+    assert body.count("\n") >= 96
+    assert _body(tout) == body

@@ -1,5 +1,6 @@
 """The port runs without JAX: `index`, `perfect-index`, single-end and
-paired-end `mem --device cpu` (pairs with `-I`), the import of the
+paired-end `mem --device cpu` (pairs with `-I`, through the native PE
+stage and through the Python PE path, with equal SAM), the import of the
 probe entry points and `chip_smoke.py`'s input helpers, in a fresh
 interpreter in which importing `jax`, `jaxlib` or the JAX package
 `bwa_mem_scale_tpu` raises. No module loaded there comes from a file
@@ -40,6 +41,13 @@ RUNNER = textwrap.dedent("""
                  ["mem", "g", "r1.fq", "r2.fq", "-o", "pe.sam", "--device",
                   "cpu", "--batch-reads", "16", "-I", "200,20"]):
         assert main(argv) == 0, argv
+    # the Python PE path, as taken when the native PE stage declines
+    from bwa_mem_scale_tpu_torch.pipeline import native_finalize
+    native_finalize.finalize_pe_rows = lambda *a, **k: None
+    assert main(["mem", "g", "r1.fq", "r2.fq", "-o", "pe_py.sam",
+                 "--device", "cpu", "--batch-reads", "16", "-I",
+                 "200,20"]) == 0
+    import bwa_mem_scale_tpu_torch.ops.smem_cuda
     import bwa_mem_scale_tpu_torch.tools.probe_cuda
     import bwa_mem_scale_tpu_torch.tools.probe_cuda_rates
     import os
@@ -98,7 +106,8 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
         for i, (c, _, _) in enumerate(reads):
             f.write(f"@r{i}\n{decode_bases(c)}\n+\n{'I' * len(c)}\n")
     _write_pairs(bns, tmp_path, 24)
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one intra-op thread: the suite runs several test workers at once
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", RUNNER, REPO],
                           cwd=tmp_path, env=env, capture_output=True,
                           text=True, timeout=600)
@@ -113,3 +122,6 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     assert all(int(t[1]) & (0x40 if i % 2 == 0 else 0x80)
                for i, t in enumerate(prim))
     assert sum(1 for t in prim if not int(t[1]) & 0x4) >= 44
+    body = [[ln for ln in open(tmp_path / f) if not ln.startswith("@PG")]
+            for f in ("pe.sam", "pe_py.sam")]
+    assert body[0] == body[1]

@@ -12,6 +12,10 @@ import torch
 from bwa_mem_scale_tpu.ops import occ as jocc
 from bwa_mem_scale_tpu_torch.ops import occ as tocc
 
+# one intra-op thread a process: the suite runs several test workers on
+# the CPU at once, and a thread a core each oversubscribes the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def both(small_index):

@@ -9,31 +9,29 @@
 - the port's CLI with two files, with ``-p`` on one interleaved file and
   with ``-I 300,30``, each byte-equal to the JAX ``run_alignment``;
 - the port at tiny capacities byte-equal to the port at roomy ones, with
-  overflow retries (PE under overflow, held without the JAX PE path).
+  overflow retries (PE under overflow, held without the JAX PE path);
+- with the native PE stage declining every batch on both sides, the
+  Python PE path's SAM body byte-equal to the JAX package's, with the
+  native SAM text (``sam_ctx``) and without it (``-C``).
 
 One JAX aligner, compiled once at [B, L], serves every JAX run. The port
 loads the index and EMF table the JAX package saved with its own loaders
-and takes its own ``MemOptions``.
+and takes its own ``MemOptions``. On a GPU, PE `mem --device cuda`
+(through the BSW and SMEM kernels) writes the CPU run's SAM bytes.
+
+The JAX side is imported inside the fixture and tests that use it, so the
+CUDA case also runs on a machine without JAX:
+    PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_pe.py
 """
 
 import io
 
 import numpy as np
 import pytest
+import torch
 
-from conftest import make_genome
-
-from bwa_mem_scale_tpu.config import MemOptions
-from bwa_mem_scale_tpu.index.artifacts import save_index
-from bwa_mem_scale_tpu.index.bntseq import decode_bases
-from bwa_mem_scale_tpu.index.build import build_index
-from bwa_mem_scale_tpu.index.perfect import (build_perfect_table,
-                                             save_perfect_table)
-from bwa_mem_scale_tpu.pipeline.align import (TpuAligner,
-                                              PipelineConfig as JCfg)
-from bwa_mem_scale_tpu.pipeline.driver import run_alignment as j_run
-from bwa_mem_scale_tpu.pipeline.pe import PeStat
 from bwa_mem_scale_tpu_torch import cli
+from bwa_mem_scale_tpu_torch.index.bntseq import decode_bases
 from bwa_mem_scale_tpu_torch.config import MemOptions as TOpt
 from bwa_mem_scale_tpu_torch.index.artifacts import load_index as t_load
 from bwa_mem_scale_tpu_torch.index.perfect import (
@@ -41,6 +39,10 @@ from bwa_mem_scale_tpu_torch.index.perfect import (
 from bwa_mem_scale_tpu_torch.pipeline.align import (GpuAligner,
                                                     PipelineConfig as TCfg)
 from bwa_mem_scale_tpu_torch.pipeline.driver import run_alignment as t_run
+
+# one intra-op thread a process: the suite runs several test workers on
+# the CPU at once, and a thread a core each oversubscribes the cores
+torch.set_num_threads(1)
 
 B, L = 32, 101                 # 16 pairs a batch
 N_PAIRS = 48
@@ -98,6 +100,7 @@ def _write_fastq(path, codes, ids):
 
 def _pes_300_30():
     """-I 300,30 as the JAX CLI builds it."""
+    from bwa_mem_scale_tpu.pipeline.pe import PeStat
     pes = [PeStat() for _ in range(4)]
     pes[1] = PeStat(low=180, high=420, avg=300.0, std=30.0, failed=False)
     return pes
@@ -107,6 +110,15 @@ def _pes_300_30():
 def pe(tmp_path_factory):
     """Genome, index, EMF table, FASTQ files, and the JAX aligner's SAM
     bodies (without and with -I)."""
+    from conftest import make_genome
+    from bwa_mem_scale_tpu.config import MemOptions
+    from bwa_mem_scale_tpu.index.artifacts import save_index
+    from bwa_mem_scale_tpu.index.build import build_index
+    from bwa_mem_scale_tpu.index.perfect import (build_perfect_table,
+                                                 save_perfect_table)
+    from bwa_mem_scale_tpu.pipeline.align import (TpuAligner,
+                                                  PipelineConfig as JCfg)
+    from bwa_mem_scale_tpu.pipeline.driver import run_alignment as j_run
     tmp = tmp_path_factory.mktemp("pe")
     idx = build_index(make_genome(30000, seed=23, n_contigs=3))
     emf = build_perfect_table(idx, seed_len=L)
@@ -216,3 +228,78 @@ def test_pe_overflow_retry_lossless(pe):
     assert tiny.overflow_retried > 0
     assert roomy.overflow_retried == 0
     assert got == want
+
+
+@pytest.mark.parametrize("sam_ctx", [True, False], ids=["sam_ctx", "records"])
+def test_pe_python_path_equal_to_jax(pe, monkeypatch, sam_ctx):
+    """The native PE stage declines every batch on both sides
+    (``finalize_pe_rows`` returns None): the port takes the Python PE
+    path as the JAX package does, with the same SAM bytes. Without
+    ``sam_ctx`` (``-C``) the records go through the Python SAM writer."""
+    from bwa_mem_scale_tpu.pipeline import native_finalize as j_nf
+    from bwa_mem_scale_tpu.pipeline.driver import run_alignment as j_run
+    from bwa_mem_scale_tpu_torch.pipeline import native_finalize as t_nf
+    from bwa_mem_scale_tpu_torch.pipeline import pe as t_pe
+    declined = []
+
+    def decline(*a, **k):
+        declined.append(1)
+        return None
+
+    monkeypatch.setattr(j_nf, "finalize_pe_rows", decline)
+    monkeypatch.setattr(t_nf, "finalize_pe_rows", decline)
+    rescued = []
+    run_rescue = t_pe.run_rescue_jobs
+    monkeypatch.setattr(t_pe, "run_rescue_jobs",
+                        lambda opt, jobs: rescued.append(len(jobs))
+                        or run_rescue(opt, jobs))
+    jal = pe["jal"]
+    monkeypatch.setattr(jal.opt, "copy_comment", not sam_ctx)
+    want = io.StringIO()
+    j_run(jal, [pe["fq1"], pe["fq2"]], want, batch_reads=B, paired=True)
+    n_jax = len(declined)
+    tal = _port(pe, CAPS)
+    tal.opt.copy_comment = not sam_ctx
+    got = io.StringIO()
+    n = t_run(tal, [pe["fq1"], pe["fq2"]], got, batch_reads=B, paired=True)
+    assert n == 2 * N_PAIRS
+    assert n_jax == 3 and len(declined) == 6
+    assert sum(rescued) > 0
+    assert got.getvalue() == want.getvalue()
+    assert got.getvalue() == pe["sam"]
+
+
+@pytest.mark.cuda
+def test_pe_mem_on_card_equals_cpu(tmp_path):
+    """PE `mem --device cuda` (the BSW and SMEM kernels; EMF hits keep
+    their rows at length 0) writes the `--device cpu` run's SAM bytes,
+    on a genome, index and EMF table the port builds itself."""
+    from bwa_mem_scale_tpu_torch.models.aligner import demo_genome
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import one_pos_machine_cuda
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    bns = demo_genome(30000, seed=23, n_contigs=3)
+    with open(tmp_path / "g.fa", "w") as f:
+        for a in bns.anns:
+            f.write(f">{a.name}\n"
+                    f"{decode_bases(bns.seq[a.offset:a.offset + a.length])}"
+                    "\n")
+    codes = _pairs(bns, N_PAIRS, seed=6)
+    ids = range(2 * N_PAIRS)
+    fqs = [_write_fastq(tmp_path / f"r{m + 1}.fq", codes, ids[m::2])
+           for m in (0, 1)]
+    g = str(tmp_path / "g")
+    assert cli.main(["index", g + ".fa", "-p", g]) == 0
+    assert cli.main(["perfect-index", g, "-l", str(L)]) == 0
+    body = {}
+    for device in ("cpu", "cuda"):
+        before = one_pos_machine_cuda.launches
+        al = cli.mem([g, *fqs, "-o", str(tmp_path / f"{device}.sam"),
+                      "--device", device, "--batch-reads", str(B)])
+        assert (one_pos_machine_cuda.launches > before) == (device == "cuda")
+        assert al.emf_hits > 0
+        body[device] = [ln for ln in open(tmp_path / f"{device}.sam")
+                        if not ln.startswith("@PG")]
+    assert body["cuda"] == body["cpu"]
+    assert sum(1 for ln in body["cpu"] if not ln.startswith("@")) \
+        == 2 * N_PAIRS

@@ -40,6 +40,10 @@ import torch
 
 from bwa_mem_scale_tpu_torch.ops import probe_kernels as pk
 
+# one intra-op thread a process: the suite runs several test workers on
+# the CPU at once, and a thread a core each oversubscribes the cores
+torch.set_num_threads(1)
+
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools")
 B_TICKS, E_TICKS = 32, 8       # NT of the TPU's probe_B and probe_E

@@ -21,6 +21,10 @@ from bwa_mem_scale_tpu_torch.ops.smem import SmemBuf
 
 from conftest import sample_reads
 
+# one intra-op thread a process: the suite runs several test workers on
+# the CPU at once, and a thread a core each oversubscribes the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module", params=[3, 0], ids=["compx3", "compx0"])
 def setup(request, small_genome, small_index):
