@@ -2,10 +2,15 @@
 
 Counterpart of ``bwa_mem_scale_tpu/ops/sal.py``: every SMEM's SA
 interval is sampled into at most max_occ coordinates, and rows that
-are not sampled are resolved by a lockstep LF walk to the nearest
-sampled row (get_sa_entry_compressed, src/FMI_search.cpp:2107-2379).
-The walk runs over a flat compacted list of the valid coordinates;
-reads whose coordinates fall past that list are flagged as overflow.
+are not sampled are resolved by an LF walk to the nearest sampled row
+(get_sa_entry_compressed, src/FMI_search.cpp:2107-2379). The walk runs
+over a flat compacted list of the valid coordinates; reads whose
+coordinates fall past that list are flagged as overflow.
+
+``sa_lookup`` runs the walk through ``smem_cuda.sa_walk_cuda``, which
+launches ``csrc/smem.cu``'s ``sa_walk_kernel`` on CUDA tensors (and
+counts the launches) and runs ``sa_lookup_plain``, a lockstep loop over
+the lanes, on CPU tensors.
 """
 
 from __future__ import annotations
@@ -14,13 +19,30 @@ import torch
 
 from .occ import DeviceFMIndex, occ_b_and_base, sa_sample_at, take
 from .smem import SmemBuf
+from .smem_cuda import sa_walk_cuda
 
 CHECK_EVERY = 4
 
 
 def sa_lookup(fmi: DeviceFMIndex, pos: torch.Tensor, valid: torch.Tensor,
               stats: dict = None) -> torch.Tensor:
-    """Resolve SA[pos] for a batch of BWT row indices.
+    """Resolve SA[pos] for a batch of BWT row indices: pos [...], valid
+    [...] bool (invalid lanes return 0). With the full SA resident
+    (sa_compx 0: a single gather, no walk) the plain version; else
+    ``sa_walk_cuda``: on CUDA tensors one launch of the walk's kernel, or
+    an exception, on CPU tensors the plain version. `stats` gets the
+    kernel's longest lane's walk under ``sal_steps`` (a device tensor),
+    or the lockstep's ``sal_ticks``."""
+    if fmi.sa_compx == 0:
+        return sa_lookup_plain(fmi, pos, valid, stats)
+    return sa_walk_cuda(fmi, pos, valid, stats)
+
+
+def sa_lookup_plain(fmi: DeviceFMIndex, pos: torch.Tensor,
+                    valid: torch.Tensor, stats: dict = None
+                    ) -> torch.Tensor:
+    """Resolve SA[pos] for a batch of BWT row indices (``sa_lookup``'s
+    plain version, on any device).
 
     pos [...], valid [...] bool (invalid lanes return 0). A retired
     lane is a strict no-op, so the exit test runs every CHECK_EVERY

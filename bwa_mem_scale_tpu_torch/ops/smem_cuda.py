@@ -1,24 +1,36 @@
-"""SMEM seeding passes 1 and 2 through the hand-written CUDA kernel.
+"""The FM-index walks through the hand-written CUDA kernels of csrc/smem.cu.
 
-``one_pos_machine_cuda`` has the signature of the plain
-``ops/smem_oh.py::one_pos_machine`` and replaces the JAX package's
-``one_pos_machine_oh`` (a ``jax.lax.while_loop``). On CUDA tensors it
-launches ``csrc/smem.cu`` once (one thread a task, the whole walk in the
-launch) or raises; on CPU tensors it runs the plain version. There is no
-fallback from the kernel to the plain version.
+Three wrappers, each with the signature of its plain version and each
+replacing a ``jax.lax.while_loop`` of the JAX package:
+- ``one_pos_machine_cuda``: SMEM passes 1 and 2 (plain
+  ``ops/smem_oh.py::one_pos_machine``; JAX ``one_pos_machine_oh``);
+- ``seed_strategy_machine_cuda``: SMEM pass 3 (plain
+  ``ops/smem_oh.py::seed_strategy_machine``; JAX
+  ``seed_strategy_machine_oh``);
+- ``sa_walk_cuda``: the SA lookup's LF walk, which
+  ``ops/sal.py::sa_lookup`` calls (plain ``sa_lookup_plain``; JAX
+  ``sa_lookup``).
+On CUDA tensors each launches its kernel once (one thread a lane, the
+whole walk in the launch) or raises; on CPU tensors each runs its plain
+version (imported at the call: the plain versions' modules import this
+one). There is no fallback from a kernel to its plain version. Each
+keeps a ``launches`` count and the last call's per-lane ``last_steps``.
 
-The kernel returns the plain version's ``SmemBuf`` array for array,
-lanes that overflowed their stacks or their emission depth included. It
-is compiled with nvcc into ``build/torch_kernels/libsmem_cuda.so`` at
-first use (``ops/nvcc_build.py``) and bound with ctypes. The wrapper
-allocates the zeroed outputs, the interval-stack scratch
-``[2][4][SD + 1][T]`` int32 and the per-lane step counts, and launches on
-the current stream with no host synchronisation. With ``stats`` it adds
+Each kernel returns its plain version's arrays exactly, lanes that
+overflowed their stacks or their emission depth included. The source is
+compiled with nvcc into ``build/torch_kernels/libsmem_cuda.so`` at first
+use (``ops/nvcc_build.py``) and bound with ctypes. The wrappers allocate
+the zeroed outputs, any scratch (passes 1-2: the interval stacks
+``[2][4][SD + 1][T]`` int32) and the per-lane step counts, and launch on
+the current stream with no host synchronisation. With ``stats`` they add
 the longest lane's steps (dependent occ steps) under ``seed_steps_p1`` /
-``seed_steps_p2`` as a device tensor, read once by ``tick_report``.
+``seed_steps_p2`` / ``seed_steps_p3`` (``sal_steps`` in ``sa_lookup``)
+as a device tensor, read once by ``tick_report``.
 
-``one_pos_twin`` is the kernel's loop in plain Python on numpy arrays, a
-test of the kernel's control flow on the CPU at small sizes.
+``one_pos_twin``, ``seed_strategy_twin`` and ``sa_walk_twin`` are the
+kernels' loops in plain Python on numpy arrays, tests of the kernels'
+control flow on the CPU at small sizes; each counts the steps its kernel
+counts.
 """
 
 from __future__ import annotations
@@ -59,8 +71,49 @@ def _load():
         lib.one_pos_launch.argtypes = ([vp] + [ci] * 7 + [vp, vp, ci, ci]
                                        + [vp] * 4 + [ci] * 5 + [vp] * 5)
         lib.one_pos_launch.restype = ci
+        lib.seed_strategy_launch.argtypes = ([vp] + [ci] * 7 + [vp, vp]
+                                             + [ci] * 5 + [vp] * 4)
+        lib.seed_strategy_launch.restype = ci
+        lib.sa_walk_launch.argtypes = ([vp] + [ci] * 7 + [vp, ci, ci, vp,
+                                                          vp, ci]
+                                       + [vp] * 3)
+        lib.sa_walk_launch.restype = ci
         _lib = lib
     return _lib
+
+
+def _fmi_args(fmi: DeviceFMIndex) -> list:
+    """The launch arguments every kernel takes first: the checkpoint
+    table and its rows, the C array and the sentinel row."""
+    return [fmi.cp_fused.data_ptr(), fmi.cp_fused.shape[0],
+            *fmi.count_host, fmi.sentinel_index]
+
+
+def _launch(dev: torch.device, name: str, *args) -> None:
+    """lib.<name>(*args, stream) on dev's current stream; raises on the
+    CUDA error it returns. No synchronisation."""
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, name)(*args,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+
+
+def _check(what: str, fmi: DeviceFMIndex, *tensors) -> torch.device:
+    """The device of tensors[0]: CUDA, shared by every tensor and fmi's
+    table, or ValueError."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if any(t.device != dev for t in (*tensors, fmi.cp_fused)):
+        raise ValueError(f"{what}: tensors on different devices")
+    return dev
+
+
+def _codes_int32(what: str, codes, lens) -> None:
+    if codes.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise ValueError(f"{what}: codes and lens must be int32")
 
 
 def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
@@ -73,24 +126,17 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
     on fmi's device. `stats` gets the lockstep's tick count from the
     plain version (CPU tensors) and the kernel's longest lane's steps
     under ``stats_key`` with "ticks" read as "steps" (CUDA tensors)."""
-    dev = codes.device
-    if dev.type == "cpu":
+    if codes.device.type == "cpu":
         from .smem_oh import one_pos_machine
         return one_pos_machine(fmi, codes, lens, t_read, t_x, t_mi, t_valid,
                                chain_restarts, min_seed_len, max_out,
                                stack_depth, stats, stats_key)
-    if dev.type != "cuda":
-        raise ValueError(f"one_pos_machine_cuda: unsupported device {dev}")
+    dev = _check("one_pos_machine_cuda", fmi, codes, lens, t_read, t_x,
+                 t_mi, t_valid)
+    _codes_int32("one_pos_machine_cuda", codes, lens)
     B, L = codes.shape
     T = t_read.shape[0]
     SD = stack_depth or L
-    if codes.dtype != torch.int32 or lens.dtype != torch.int32:
-        raise ValueError("one_pos_machine_cuda: codes and lens must be "
-                         "int32")
-    if any(t.device != dev for t in (lens, t_read, t_x, t_mi, t_valid,
-                                     fmi.cp_fused)):
-        raise ValueError("one_pos_machine_cuda: tensors on different "
-                         "devices")
     if lens.shape != (B,) or any(t.shape != (T,)
                                  for t in (t_x, t_mi, t_valid)):
         raise ValueError("one_pos_machine_cuda: task or read counts differ")
@@ -104,19 +150,11 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
                 t_mi.to(i32).contiguous(),
                 t_valid.to(torch.bool).contiguous()]
         stk = torch.empty((2, 4, SD + 1, T), dtype=i32, device=dev)
-        lib = _load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.one_pos_launch(
-                fmi.cp_fused.data_ptr(), fmi.cp_fused.shape[0],
-                *fmi.count_host,
-                fmi.sentinel_index, args[0].data_ptr(), args[1].data_ptr(),
-                B, L, *(a.data_ptr() for a in args[2:]), T,
-                int(chain_restarts), min_seed_len, max_out, SD,
-                stk.data_ptr(), out.data_ptr(), cnt.data_ptr(),
-                steps.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"one_pos_launch failed: CUDA error {rc}")
+        _launch(dev, "one_pos_launch", *_fmi_args(fmi), args[0].data_ptr(),
+                args[1].data_ptr(), B, L,
+                *(a.data_ptr() for a in args[2:]), T, int(chain_restarts),
+                min_seed_len, max_out, SD, stk.data_ptr(), out.data_ptr(),
+                cnt.data_ptr(), steps.data_ptr())
         one_pos_machine_cuda.launches += 1
         if stats is not None:
             key = stats_key.replace("ticks", "steps")
@@ -131,15 +169,123 @@ one_pos_machine_cuda.launches = 0
 one_pos_machine_cuda.last_steps = None
 
 
+def seed_strategy_machine_cuda(fmi: DeviceFMIndex, codes, lens,
+                               max_intv: int, min_seed_len: int,
+                               max_out: int, stats: dict = None) -> SmemBuf:
+    """Drop-in for ``seed_strategy_machine`` (equal arrays), one lane a
+    read. codes [B, L] and lens [B] int32 on fmi's device. `stats` gets
+    the lockstep's ``seed_ticks_p3`` from the plain version (CPU tensors)
+    or the kernel's longest lane's steps under ``seed_steps_p3`` (CUDA
+    tensors)."""
+    if codes.device.type == "cpu":
+        from .smem_oh import seed_strategy_machine
+        return seed_strategy_machine(fmi, codes, lens, max_intv,
+                                     min_seed_len, max_out, stats)
+    dev = _check("seed_strategy_machine_cuda", fmi, codes, lens)
+    _codes_int32("seed_strategy_machine_cuda", codes, lens)
+    B, L = codes.shape
+    if lens.shape != (B,):
+        raise ValueError("seed_strategy_machine_cuda: read counts differ")
+    i32 = torch.int32
+    out = torch.zeros((5, B, max_out), dtype=i32, device=dev)
+    cnt = torch.empty((B,), dtype=i32, device=dev)
+    steps = torch.empty((B,), dtype=i32, device=dev)
+    if B:
+        c, ln = codes.contiguous(), lens.contiguous()
+        _launch(dev, "seed_strategy_launch", *_fmi_args(fmi), c.data_ptr(),
+                ln.data_ptr(), B, L, int(max_intv), min_seed_len, max_out,
+                out.data_ptr(), cnt.data_ptr(), steps.data_ptr())
+        seed_strategy_machine_cuda.launches += 1
+        if stats is not None:
+            stats["seed_steps_p3"] = (stats.get("seed_steps_p3", 0)
+                                      + steps.max())
+    seed_strategy_machine_cuda.last_steps = steps
+    return SmemBuf(*out.unbind(0), cnt)
+
+
+seed_strategy_machine_cuda.launches = 0
+seed_strategy_machine_cuda.last_steps = None     # [B] int32, on its device
+
+
+def sa_walk_cuda(fmi: DeviceFMIndex, pos: torch.Tensor,
+                 valid: torch.Tensor, stats: dict = None) -> torch.Tensor:
+    """Drop-in for ``sa_lookup_plain`` (equal values): SA[pos] for BWT
+    rows pos [...] where valid [...] (0 elsewhere). On CPU tensors the
+    plain version, with the lockstep's ``sal_ticks`` in `stats`. On CUDA
+    tensors, with fmi.sa_compx in [1, 30], one launch of sa_walk_kernel:
+    keeps ``last_steps`` (each lane's walk iterations, one dependent row
+    or sample load each) and adds the longest under ``sal_steps`` in
+    `stats` (a device tensor). No synchronisation."""
+    if pos.device.type == "cpu":
+        from .sal import sa_lookup_plain
+        return sa_lookup_plain(fmi, pos, valid, stats)
+    dev = _check("sa_walk_cuda", fmi, pos, valid, fmi.sa_samples)
+    if not 1 <= fmi.sa_compx <= 30:
+        raise ValueError(f"sa_walk_cuda: sa_compx {fmi.sa_compx} has no "
+                         f"walk (0 is a single gather)")
+    if valid.shape != pos.shape or fmi.sa_samples.dtype != torch.int32:
+        raise ValueError("sa_walk_cuda: valid's shape differs from pos's, "
+                         "or the SA samples are not int32")
+    p = pos.reshape(-1).to(torch.int32).contiguous()
+    v = valid.reshape(-1).to(torch.bool).contiguous()
+    samples = fmi.sa_samples.contiguous()
+    N = p.shape[0]
+    out = torch.empty((N,), dtype=torch.int32, device=dev)
+    steps = torch.empty((N,), dtype=torch.int32, device=dev)
+    if N:
+        _launch(dev, "sa_walk_launch", *_fmi_args(fmi), samples.data_ptr(),
+                samples.shape[0], fmi.sa_compx, p.data_ptr(), v.data_ptr(),
+                N, out.data_ptr(), steps.data_ptr())
+        sa_walk_cuda.launches += 1
+        if stats is not None:
+            stats["sal_steps"] = stats.get("sal_steps", 0) + steps.max()
+    sa_walk_cuda.last_steps = steps
+    return out.reshape(pos.shape)
+
+
+sa_walk_cuda.launches = 0
+sa_walk_cuda.last_steps = None                   # [N] int32, on its device
+
+
+class _TwinFmi:
+    """The kernels' checkpoint-occ step on numpy arrays (csrc/smem.cu's
+    cp_row, occ4 and ext, with their clamps), for the twins."""
+
+    def __init__(self, count, cp_fused, sentinel_index: int):
+        self.count = [int(v) for v in count]
+        self.cp = np.asarray(cp_fused, np.int64)
+        self.sentinel = int(sentinel_index)
+
+    def row(self, pp: int):
+        """(counts, masks as unsigned ints, y) of position pp's row."""
+        r = self.cp[min(max(pp >> 5, 0), self.cp.shape[0] - 1)]
+        return ([int(v) for v in r[:4]],
+                [int(v) & 0xFFFFFFFF for v in r[4:]], pp & 31)
+
+    @staticmethod
+    def top_bits(y: int) -> int:
+        return 0 if y == 0 else (0xFFFFFFFF << (32 - y)) & 0xFFFFFFFF
+
+    def occ4(self, pp: int):
+        cnt, msk, y = self.row(pp)
+        top = self.top_bits(y)
+        return [c + bin(m & top).count("1") for c, m in zip(cnt, msk)]
+
+    def ext(self, k: int, l: int, s: int, c: int):
+        a, b = self.occ4(k), self.occ4(k + s)
+        s4 = [b[i] - a[i] for i in range(4)]
+        sent = int(k <= self.sentinel < k + s)
+        return self.count[c] + a[c], l + sent + sum(s4[c + 1:]), s4[c]
+
+
 def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
                  t_x, t_mi, t_valid, chain_restarts: bool,
                  min_seed_len: int, max_out: int, stack_depth: int = None):
     """csrc/smem.cu's one_pos_kernel in plain Python on numpy arrays: the
     same nested loops, clamps and stack scratch, one task after another.
     Returns (m, n, k, l, s, cnt, steps) as numpy arrays."""
-    count = [int(v) for v in count]
-    cp = np.asarray(cp_fused, np.int64)
-    nb = cp.shape[0]
+    fm = _TwinFmi(count, cp_fused, sentinel_index)
+    count, ext = fm.count, fm.ext
     codes = np.asarray(codes)
     B, L = codes.shape
     T = len(t_read)
@@ -149,20 +295,6 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
     cnt_out = np.zeros(T, np.int32)
     steps_out = np.zeros(T, np.int32)
     stk = np.zeros((2, 4, SD + 1), np.int64)    # one task's stacks
-
-    def occ4(pp):
-        r = min(max(pp >> 5, 0), nb - 1)
-        y = pp & 31
-        top = 0 if y == 0 else (0xFFFFFFFF << (32 - y)) & 0xFFFFFFFF
-        return [int(cp[r, c]) + bin(int(cp[r, 4 + c]) & 0xFFFFFFFF
-                                     & top).count("1")
-                for c in range(4)]
-
-    def ext(k, l, s, c):
-        a, b = occ4(k), occ4(k + s)
-        s4 = [b[i] - a[i] for i in range(4)]
-        sent = int(k <= sentinel_index < k + s)
-        return count[c] + a[c], l + sent + sum(s4[c + 1:]), s4[c]
 
     for t in range(T):
         rd = min(max(int(t_read[t]), 0), B - 1)
@@ -253,3 +385,80 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
         cnt_out[t] = M + 1 if of else cnt
         steps_out[t] = steps
     return (*out, cnt_out, steps_out)
+
+
+def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
+                       max_intv: int, min_seed_len: int, max_out: int):
+    """csrc/smem.cu's seed_strategy_kernel in plain Python on numpy
+    arrays: the same loop and clamps, one read after another. Returns
+    (m, n, k, l, s, cnt, steps) as numpy arrays."""
+    fm = _TwinFmi(count, cp_fused, sentinel_index)
+    C = fm.count
+    codes = np.asarray(codes)
+    B, L = codes.shape
+    M = max_out
+    out = np.zeros((5, B, M), np.int32)
+    cnt_out = np.zeros(B, np.int32)
+    steps_out = np.zeros(B, np.int32)
+    for t in range(B):
+        q, n_len = codes[t], int(lens[t])
+        cnt = steps = 0
+        x = 0
+        while x < n_len:                             # start positions
+            xa = int(q[min(max(x, 0), L - 1)])
+            if xa >= 4:
+                x += 1
+                continue
+            ck, cl, cs = C[xa], C[3 - xa], C[xa + 1] - C[xa]
+            j = x + 1
+            while j < n_len:                         # forward from x
+                a = int(q[min(j, L - 1)])
+                j += 1
+                if a >= 4:
+                    break
+                nl, nk, ns = fm.ext(cl, ck, cs, 3 - a)
+                steps += 1
+                if ns < max_intv and j - x >= min_seed_len:
+                    if ns > 0:
+                        if cnt < M:
+                            out[:, t, cnt] = (x, j - 1, nk, nl, ns)
+                        cnt += 1
+                    break
+                ck, cl, cs = nk, nl, ns
+            x = j
+        cnt_out[t] = cnt
+        steps_out[t] = steps
+    return (*out, cnt_out, steps_out)
+
+
+def sa_walk_twin(count, cp_fused, sentinel_index: int, sa_samples,
+                 sa_compx: int, pos, valid):
+    """csrc/smem.cu's sa_walk_kernel in plain Python on numpy arrays: the
+    same walk and clamps, one lane after another, over pos [...] and
+    valid [...]. Returns (values [...] int32, steps [N] int32)."""
+    fm = _TwinFmi(count, cp_fused, sentinel_index)
+    samples = np.asarray(sa_samples)
+    mask = (1 << sa_compx) - 1
+    pos = np.asarray(pos)
+    flat_pos = pos.reshape(-1).astype(np.int32)
+    flat_valid = np.asarray(valid).reshape(-1)
+    out = np.zeros(flat_pos.shape, np.int32)
+    steps_out = np.zeros(flat_pos.shape, np.int32)
+    for t in np.flatnonzero(flat_valid):
+        sp, offset, steps = int(flat_pos[t]), 0, 0
+        while True:
+            steps += 1
+            if sp & mask == 0:                       # a sampled row
+                i = min(max(sp >> sa_compx, 0), samples.shape[0] - 1)
+                out[t] = int(samples[i]) + offset
+                break
+            cnt, msk, y = fm.row(sp)
+            b = next((c for c in range(4) if msk[c] >> (31 - y) & 1), 4)
+            if b == 4:                               # the sentinel row
+                out[t] = offset
+                break
+            sp = (fm.count[b] + cnt[b]
+                  + bin(msk[b] & fm.top_bits(y)).count("1"))
+            offset += 1
+        steps_out[t] = steps
+    return out.reshape(pos.shape), steps_out

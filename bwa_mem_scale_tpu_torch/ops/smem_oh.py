@@ -20,9 +20,10 @@ A lane that reaches DONE is a strict no-op, so the loops test their
 exit condition (a host sync on a GPU) once every ``CHECK_EVERY`` ticks.
 
 ``collect_smems_oh`` runs passes 1 and 2 through
-``smem_cuda.one_pos_machine_cuda``: one launch of ``csrc/smem.cu`` a
-pass on CUDA tensors, ``one_pos_machine`` here on CPU tensors. Pass 3
-(``seed_strategy_machine``) is still a lockstep loop.
+``smem_cuda.one_pos_machine_cuda`` and pass 3 through
+``smem_cuda.seed_strategy_machine_cuda``: one launch of a
+``csrc/smem.cu`` kernel a pass on CUDA tensors, the lockstep machines
+here (``one_pos_machine``, ``seed_strategy_machine``) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ import torch
 
 from .occ import DeviceFMIndex, backward_ext_all4
 from .smem import SmemBuf, concat_smems, compact_indices, _emit_compact
-from .smem_cuda import one_pos_machine_cuda
+from .smem_cuda import (one_pos_machine_cuda,
+                        seed_strategy_machine_cuda)
 
 P_INIT = 0
 P_FWD = 1
@@ -404,8 +406,8 @@ def collect_smems_oh(fmi: DeviceFMIndex, codes, lens, *,
     parts = [p1, p2]
     pass_of = p1_of | p2_of | reseed_of
     if max_mem_intv > 0:
-        p3 = seed_strategy_machine(fmi, codes, lens, max_mem_intv,
-                                   min_seed_len + 1, Me, stats)
+        p3 = seed_strategy_machine_cuda(fmi, codes, lens, max_mem_intv,
+                                        min_seed_len + 1, Me, stats)
         parts.append(p3)
         pass_of = pass_of | (p3.cnt >= Me)
     comb = concat_smems(*parts)

@@ -6,11 +6,12 @@
 Phases, in order; any failure exits non-zero:
   1. card:    CUDA present; prints nvidia-smi's name and power limit.
   2. build:   compiles csrc/bsw.cu (the banded-SW kernel),
-              csrc/probes.cu (the probe kernels) and csrc/smem.cu (SMEM
-              seeding passes 1 and 2) from source, one nvcc each, all at
-              once; prints ptxas's register report (for the BSW kernel
-              one line an instantiation, failing on a spill at K = 4 or
-              5 columns a lane).
+              csrc/probes.cu (the probe kernels) and csrc/smem.cu (the
+              FM walks: SMEM passes 1-2, pass 3 and the SA walk) from
+              source, one nvcc each, all at once; prints ptxas's
+              registers and spills for each FM walk and BSW kernel (for
+              the BSW kernel one line an instantiation, failing on a
+              spill at K = 4 or 5 columns a lane).
   3. kernel:  the CUDA kernel against the plain PyTorch BSW on the card
               at main-path shapes (4096 pairs, query 101, target 309,
               band 100 and 200), all six outputs bit-equal; the live
@@ -24,20 +25,23 @@ Phases, in order; any failure exits non-zero:
               every read emitted once in input order, >= 95% of the
               primaries of reads the EMF table did not resolve within
               5 bp of the true position and strand, the BSW kernel
-              launched, the SMEM kernel launched at least twice a device
-              batch; reads/s, and per-stage seconds from a second
+              launched, the SMEM passes 1-2 kernel at least twice a
+              device batch and the pass-3 and SA-walk kernels at least
+              once a batch; reads/s, and per-stage seconds from a second
               `mem -v 4` run with synchronised stage timers.
-  5. slice:   seed_chain_extend on one batch of phase 4 with the kernel
-              and with the plain BSW, and with the kernel and with the
-              plain SMEM passes 1 and 2: packed and meta equal;
-              collect_smems_oh with each at the three retry-tier depths
-              (24, 48, the read length): SmemBuf equal; the four BSW
-              calls of the batch captured, each with its live pairs,
-              rows, cells, bound, the kernel's device time and the
-              wrapper's wall time; the two SMEM launches of the batch,
-              each equal to the plain machine, with its steps, bound,
-              latency floor (the longest lane's steps x 0.224 us), the
-              kernel's device time and the plain version's.
+  5. slice:   seed_chain_extend on one batch of phase 4 with the kernels
+              and with the plain BSW, with the plain SMEM passes 1 and
+              2, and with the plain pass 3 and SA walk: packed and meta
+              equal; collect_smems_oh with the kernels and with the
+              plain passes at the three retry-tier depths (24, 48, the
+              read length): SmemBuf equal; the four BSW calls of the
+              batch captured, each with its live pairs, rows, cells,
+              bound, the kernel's device time and the wrapper's wall
+              time; the batch's two SMEM passes 1-2 launches, its pass-3
+              launch and its SA-walk launch, as made, each equal to its
+              plain version, with its steps, bound, latency floor (the
+              longest lane's steps x 0.224 us), the kernel's device time
+              and the plain version's.
   6. probes:  the probe path through its entry points, `probe_cuda` and
               `probe_cuda_rates ABCDEF` on the card (every probe OK,
               every probe kernel launched, the rate lines printed); then
@@ -48,14 +52,16 @@ Phases, in order; any failure exits non-zero:
               index: 5,000 simulated FR pairs of 101 bp (insert 300 +-
               30, 1% substitutions, read 2 reverse-complemented) in two
               FASTQ files; every read emitted once in input order (read
-              1 then read 2), the BSW and SMEM kernels launched, >= 95%
+              1 then read 2), the BSW kernel launched, the SMEM
+              passes 1-2, pass-3 and SA-walk kernels at least once a
+              device batch, >= 95%
               of non-EMF
               primaries within 5 bp of the true position and strand,
               >= 90% of pairs with both mates mapped flagged proper, the
               median |TLEN| of proper pairs within 5% of 300; reads/s and
               the host PE stage's seconds beside the device stages'.
 
-Prints the kernel JSON line (all ten kernels, each with its bound: the
+Prints the kernel JSON line (all twelve kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -99,6 +105,13 @@ BSW_OPS_PER_CELL = 20
 # tests 4
 SMEM_BYTES_PER_STEP = 64
 SMEM_OPS_PER_STEP = 45
+# an SA-walk iteration: one 32-byte checkpoint row, or the 4-byte sample
+# that ends the walk; the sample test 2, the row index and its clamp 3, y
+# and the bit 3, the base 8 (4 AND, 4 selects), the sentinel test 1, the
+# top mask 3, the count word, mask and C selects 3, AND, popcount and the
+# two adds 4
+SAL_ROW_BYTES = 32
+SAL_OPS_PER_STEP = 27
 # the dependent checkpoint-row load on the 4.6 Mbp table (probe B, L2;
 # PERF.md section 6), the latency floor of a lane's step
 STEP_US = 0.224
@@ -297,7 +310,8 @@ def phase_mem(dev, card, tmp):
     from bwa_mem_scale_tpu_torch.index.artifacts import load_index
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
-    from bwa_mem_scale_tpu_torch.ops.smem_cuda import one_pos_machine_cuda
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
+        one_pos_machine_cuda, sa_walk_cuda, seed_strategy_machine_cuda)
     codes, lens, pos, is_rev = write_inputs(tmp)
     g, fq = os.path.join(tmp, "g"), os.path.join(tmp, "r.fq")
     t0 = time.perf_counter()
@@ -312,12 +326,16 @@ def phase_mem(dev, card, tmp):
 
     banded_swa_batch_cuda.launches = 0          # main path starts here
     one_pos_machine_cuda.launches = 0
+    seed_strategy_machine_cuda.launches = 0
+    sa_walk_cuda.launches = 0
     t0 = time.perf_counter()
     al = cli.mem(mem_argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"banded_swa_batch": banded_swa_batch_cuda.launches,
-                "one_pos_machine": one_pos_machine_cuda.launches}
+                "one_pos_machine": one_pos_machine_cuda.launches,
+                "seed_strategy_machine": seed_strategy_machine_cuda.launches,
+                "sa_walk": sa_walk_cuda.launches}
     # main path ends here
 
     pt = load_perfect_table(g + ".emf101.npz")
@@ -332,14 +350,19 @@ def phase_mem(dev, card, tmp):
                          f"{launches['one_pos_machine']} times over "
                          f"{al.batches} device batches, fewer than two a "
                          f"batch")
+    for name in ("seed_strategy_machine", "sa_walk"):
+        if launches[name] < al.batches:
+            raise SystemExit(f"mem: the {name} kernel launched "
+                             f"{launches[name]} times over {al.batches} "
+                             f"device batches, fewer than one a batch")
     log(f"[mem] {N_READS} reads in {wall:.2f} s = {N_READS / wall:.1f} "
         f"reads/s end to end (mem call incl. index load)  [{card}]")
     log(f"[mem] kernel launches {launches}; EMF hits {al.emf_hits}/"
         f"{al.emf_checked}; overflow-retried reads {al.overflow_retried} "
         f"({al.overflow_oracle} to oracle); device batches {al.batches}")
     per = {k: float(v) / al.batches for k, v in sorted(al.stats.items())}
-    log("[mem] loop ticks (lockstep) and longest lane's steps (SMEM "
-        "kernel) per batch: "
+    log("[mem] loop ticks (lockstep) and longest lane's steps (FM-walk "
+        "kernels) per batch: "
         + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
 
     al4 = cli.mem(mem_argv + ["-v", "4"])
@@ -354,29 +377,36 @@ def phase_mem(dev, card, tmp):
 def phase_slice(dev, card, al, codes, lens):
     import dataclasses
     import torch
-    from bwa_mem_scale_tpu_torch.ops import smem_oh
+    from bwa_mem_scale_tpu_torch.ops import sal, smem_oh
     from bwa_mem_scale_tpu_torch.pipeline import align
     c = torch.as_tensor(codes, device=dev)
     ln = torch.as_tensor(lens, device=dev)
-    real, calls = align.banded_swa_batch_cuda, []
-    real_smem, smem_calls = smem_oh.one_pos_machine_cuda, []
+    # the wrappers of the path, by the module attribute the path calls
+    real = {(align, "banded_swa_batch_cuda"): align.banded_swa_batch_cuda,
+            (smem_oh, "one_pos_machine_cuda"): smem_oh.one_pos_machine_cuda,
+            (smem_oh, "seed_strategy_machine_cuda"):
+                smem_oh.seed_strategy_machine_cuda,
+            (sal, "sa_walk_cuda"): sal.sa_walk_cuda}
+    calls = {name: [] for _, name in real}
 
-    def record(*args, **kw):           # the batch's BSW calls, as made
-        calls.append(args)
-        return real(*args, **kw)
+    def recorder(name, fn):            # the batch's calls, as made
+        def record(*args, **kw):
+            calls[name].append(args)
+            return fn(*args, **kw)
+        return record
 
-    def record_smem(*args, **kw):      # the batch's SMEM launches
-        smem_calls.append(args)
-        return real_smem(*args, **kw)
-
+    _, k12, k3, kwalk = real                  # its keys, in order
+    runs = (("auto", "auto", {k: recorder(k[1], fn)
+                              for k, fn in real.items()}),
+            ("plain", "plain", {}),
+            ("plain_seed", "auto", {k12: smem_oh.one_pos_machine}),
+            ("plain_walks", "auto", {k3: smem_oh.seed_strategy_machine,
+                                     kwalk: sal.sa_lookup_plain}))
     outs = {}
-    for run, bsw_eng, seeding in (("auto", "auto", record_smem),
-                                  ("plain", "plain", real_smem),
-                                  ("plain_seed", "auto",
-                                   smem_oh.one_pos_machine)):
+    for run, bsw_eng, swaps in runs:
         cfg = dataclasses.replace(al.cfg, bsw_engine=bsw_eng)
-        align.banded_swa_batch_cuda = record if run == "auto" else real
-        smem_oh.one_pos_machine_cuda = seeding
+        for (mod, name), fn in swaps.items():
+            setattr(mod, name, fn)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -384,29 +414,33 @@ def phase_slice(dev, card, al, codes, lens):
                                           opt=al.opt, cfg=cfg)
             torch.cuda.synchronize()
         finally:
-            align.banded_swa_batch_cuda = real
-            smem_oh.one_pos_machine_cuda = real_smem
+            for (mod, name), fn in real.items():
+                setattr(mod, name, fn)
         outs[run] = (out, time.perf_counter() - t0)
-    for run, what in (("plain", "BSW"), ("plain_seed", "SMEM passes 1-2")):
+    for run, what in (("plain", "BSW"), ("plain_seed", "SMEM passes 1-2"),
+                      ("plain_walks", "pass 3 and SA walk")):
         for key in ("packed", "meta"):
             if not torch.equal(outs["auto"][0][key], outs[run][0][key]):
                 raise SystemExit(f"slice: {key} differs kernel vs plain "
                                  f"{what}")
     n_valid = int(outs["auto"][0]["valid"].sum())
     log(f"[slice] seed_chain_extend on {len(codes)} reads ({n_valid} "
-        f"pairs): packed and meta equal with the kernel BSW and the plain "
-        f"one, and with the kernel SMEM passes 1-2 and the plain ones; "
-        f"whole call {outs['auto'][1]:.3f} s with both kernels, "
+        f"pairs): packed and meta equal with the kernels and with the "
+        f"plain BSW, the plain SMEM passes 1-2, and the plain pass 3 and "
+        f"SA walk; whole call {outs['auto'][1]:.3f} s with the kernels, "
         f"{outs['plain'][1]:.3f} s with the plain BSW, "
-        f"{outs['plain_seed'][1]:.3f} s with the plain SMEM passes  "
-        f"[{card}]")
-    if len(calls) != 4:
-        raise SystemExit(f"slice: {len(calls)} BSW calls, expected 4")
+        f"{outs['plain_seed'][1]:.3f} s with the plain SMEM passes 1-2, "
+        f"{outs['plain_walks'][1]:.3f} s with the plain pass 3 and SA "
+        f"walk  [{card}]")
+    bsw_calls = calls["banded_swa_batch_cuda"]
+    if len(bsw_calls) != 4:
+        raise SystemExit(f"slice: {len(bsw_calls)} BSW calls, expected 4")
     path = []
-    for n, args in enumerate(calls):
+    bsw = real[(align, "banded_swa_batch_cuda")]
+    for n, args in enumerate(bsw_calls):
         wk = bsw_work(args)
         ms = device_ms(bsw_launch_only(args), 20, dev)
-        wall = time_ms(lambda: real(*args), 20, dev)
+        wall = time_ms(lambda: bsw(*args), 20, dev)
         path.append(dict(wk, ms=ms, wall_ms=wall))
         log(f"[slice] bsw call {n + 1}/4 (P={args[0].shape[0]}, QL="
             f"{args[0].shape[1]}, TL={args[2].shape[1]}, w={args[5]}): "
@@ -415,93 +449,154 @@ def phase_slice(dev, card, al, codes, lens):
             f"{wk['bound'][0]:.5f} ms by {wk['bound'][1]}; kernel device "
             f"time {ms:.5f} ms, wrapper call back to back {wall:.5f} ms"
             f"  [{card}]")
-    if len(smem_calls) != 2:
-        raise SystemExit(f"slice: {len(smem_calls)} SMEM launches, "
-                         f"expected 2")
+    for name, want in (("one_pos_machine_cuda", 2),
+                       ("seed_strategy_machine_cuda", 1),
+                       ("sa_walk_cuda", 1)):
+        if len(calls[name]) != want:
+            raise SystemExit(f"slice: {len(calls[name])} {name} launches, "
+                             f"expected {want}")
     smem = [smem_launch(dev, card, n, args)
-            for n, args in enumerate(smem_calls)]
+            for n, args in enumerate(calls["one_pos_machine_cuda"])]
+    p3 = seed_strategy_launch(dev, card,
+                              calls["seed_strategy_machine_cuda"][0])
+    walk = sal_launch(dev, card, calls["sa_walk_cuda"][0])
     smem_tiers(dev, card, al, c, ln)
-    return path, smem
+    return path, smem, p3, walk
+
+
+def walk_launch(dev, what, kernel, plain, args, plain_reps):
+    """One FM-walk launch of the batch, as made: the kernel against its
+    plain version on every output, its per-lane steps, their latency
+    floor (the longest lane's steps x STEP_US), the kernel's device time
+    (mean of 2, around the plain version's time). Returns (the kernel's
+    output, the numbers)."""
+    import torch
+    got = kernel(*args)
+    steps = kernel.last_steps.long()
+    want = plain(*args)
+    torch.cuda.synchronize()
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+              for a, b in pairs)
+    if err:
+        raise SystemExit(f"slice: {what} != plain (max_abs_err {err})")
+    ms = [device_ms(lambda: kernel(*args), 20, dev)]
+    plain_ms = time_ms(lambda: plain(*args), plain_reps, dev)
+    ms.append(device_ms(lambda: kernel(*args), 20, dev))
+    longest = int(steps.max())
+    return got, dict(err=err, ms=sum(ms) / 2, plain_ms=plain_ms,
+                     steps=int(steps.sum()), longest=longest,
+                     floor=longest * STEP_US * 1e-3)
+
+
+def log_walk(card, what, r, detail):
+    log(f"[slice] {what}: equal to the plain version (max_abs_err "
+        f"{r['err']}); {detail}, the longest lane {r['longest']}; bound "
+        f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, latency floor "
+        f"{r['floor']:.5f} ms ({r['longest']} x {STEP_US} us); kernel "
+        f"device time {r['ms']:.5f} ms (mean of 2), plain "
+        f"{r['plain_ms']:.2f} ms  [{card}]")
 
 
 def smem_launch(dev, card, n, args):
-    """One SMEM launch of the batch: the kernel against the plain machine
-    (every field and cnt), its steps and bounds, its device time and the
-    plain version's."""
-    import torch
+    """One SMEM passes 1-2 launch of the batch against the plain machine,
+    with its bound: the inputs, 64 bytes and 45 operations a step, the
+    outputs (not the per-lane steps, which only instrument the run)."""
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import one_pos_machine_cuda
     from bwa_mem_scale_tpu_torch.ops.smem_oh import one_pos_machine
     args = args[:11]                           # without stats
-    got = one_pos_machine_cuda(*args)
-    steps = one_pos_machine_cuda.last_steps.long()
-    want = one_pos_machine(*args)
-    torch.cuda.synchronize()
-    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
-              for a, b in zip(got, want))
-    if err:
-        bad = [f for f, a, b in zip(got._fields, got, want)
-               if not torch.equal(a, b)]
-        raise SystemExit(f"slice: SMEM launch {n + 1} != plain: {bad}")
+    what = f"smem launch {n + 1}/2"
+    _, r = walk_launch(dev, what, one_pos_machine_cuda, one_pos_machine,
+                       args, 1)
     codes, T, M = args[1], args[3].shape[0], args[9]
-    total, longest = int(steps.sum()), int(steps.max())
     nbytes = (4 * (codes.numel() + codes.shape[0] + 3 * T) + T
-              + SMEM_BYTES_PER_STEP * total + 4 * (5 * T * M + 2 * T))
-    b = bound(nbytes, SMEM_OPS_PER_STEP * total)
-    floor = longest * STEP_US * 1e-3
-    ms = [device_ms(lambda: one_pos_machine_cuda(*args), 20, dev)]
-    plain = time_ms(lambda: one_pos_machine(*args), 1, dev)
-    ms.append(device_ms(lambda: one_pos_machine_cuda(*args), 20, dev))
-    r = dict(err=err, ms=sum(ms) / 2, plain_ms=plain, bound=b, floor=floor,
-             steps=total, longest=longest, T=T,
-             valid=int(args[6].sum()))
-    log(f"[slice] smem launch {n + 1}/2 (pass {n + 1}: T={T}, "
-        f"{r['valid']} valid tasks, B={codes.shape[0]}, L="
-        f"{codes.shape[1]}, max_out={M}, stack depth {args[10]}): equal "
-        f"to the plain machine (max_abs_err {err}); {total} steps, the "
-        f"longest lane {longest}; bound {b[0]:.6f} ms by {b[1]}, latency "
-        f"floor {floor:.5f} ms ({longest} x {STEP_US} us); kernel device "
-        f"time {r['ms']:.5f} ms (mean of 2), plain {plain:.1f} ms  "
-        f"[{card}]")
+              + SMEM_BYTES_PER_STEP * r["steps"] + 4 * (5 * T * M + T))
+    r["bound"] = bound(nbytes, SMEM_OPS_PER_STEP * r["steps"])
+    log_walk(card, f"{what} (pass {n + 1}: T={T}, {int(args[6].sum())} "
+             f"valid tasks, B={codes.shape[0]}, L={codes.shape[1]}, "
+             f"max_out={M}, stack depth {args[10]})", r,
+             f"{r['steps']} steps")
+    return r
+
+
+def seed_strategy_launch(dev, card, args):
+    """The batch's pass-3 launch against the plain machine, with its
+    bound: the inputs, 64 bytes and 45 operations a step (the same occ
+    step as passes 1-2), the outputs (not the per-lane steps)."""
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
+        seed_strategy_machine_cuda)
+    from bwa_mem_scale_tpu_torch.ops.smem_oh import seed_strategy_machine
+    args = args[:6]                            # without stats
+    got, r = walk_launch(dev, "pass-3 launch", seed_strategy_machine_cuda,
+                         seed_strategy_machine, args, 1)
+    codes, M = args[1], args[5]
+    B = codes.shape[0]
+    nbytes = (4 * (codes.numel() + B) + SMEM_BYTES_PER_STEP * r["steps"]
+              + 4 * (5 * B * M + B))
+    r["bound"] = bound(nbytes, SMEM_OPS_PER_STEP * r["steps"])
+    log_walk(card, f"pass-3 launch (B={B}, L={codes.shape[1]}, max_intv="
+             f"{args[3]}, min_seed_len={args[4]}, max_out={M})", r,
+             f"{int(got.cnt.sum())} seeds, {r['steps']} steps")
+    return r
+
+
+def sal_launch(dev, card, args):
+    """The batch's SA-walk launch against the plain walk, with its bound:
+    a 32-byte row and 27 operations an iteration, except each valid
+    lane's last, a 4-byte sample (a lane that ends on the sentinel row
+    loads a row instead, which keeps this a lower bound); pos of the
+    valid lanes (a prefix of the flat list), valid and the values once
+    each, not the per-lane steps."""
+    from bwa_mem_scale_tpu_torch.ops.sal import sa_lookup_plain
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import sa_walk_cuda
+    args = args[:3]                            # without stats
+    got, r = walk_launch(dev, "SA-walk launch", sa_walk_cuda,
+                         sa_lookup_plain, args, 2)
+    N, n_valid = got.numel(), int(args[2].sum())
+    nbytes = (SAL_ROW_BYTES * (r["steps"] - n_valid) + 4 * n_valid
+              + 4 * n_valid + (1 + 4) * N)
+    r["bound"] = bound(nbytes, SAL_OPS_PER_STEP * r["steps"])
+    log_walk(card, f"SA-walk launch (N={N} lanes, {n_valid} valid, "
+             f"sa_compx {args[0].sa_compx})", r,
+             f"{r['steps']} iterations")
     return r
 
 
 def smem_tiers(dev, card, al, c, ln):
-    """collect_smems_oh at the retry tiers' depths with the kernel and
-    with the plain passes 1-2 swapped in: SmemBuf equal. Then the seeding
-    of the batch split: the whole collection (synchronised), its two
-    kernel launches and pass 3 alone."""
+    """collect_smems_oh at the retry tiers' depths with the kernels and
+    with the plain passes 1-2 and 3 swapped in: SmemBuf equal. Then the
+    whole collection of the batch timed with the kernels."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import smem_oh
     opt = al.opt
     kw = dict(min_seed_len=opt.min_seed_len, split_len=opt.split_len,
               split_width=opt.split_width, max_mem_intv=opt.max_mem_intv)
-    real = smem_oh.one_pos_machine_cuda
+    real = (smem_oh.one_pos_machine_cuda, smem_oh.seed_strategy_machine_cuda)
     for depth, rf in ((24, 2), (48, 8), (None, 256)):
         tier = dict(kw, emit_depth=depth, stack_depth=depth,
                     reseed_factor=rf)
         got = smem_oh.collect_smems_oh(al.fmi, c, ln, **tier)
         smem_oh.one_pos_machine_cuda = smem_oh.one_pos_machine
+        smem_oh.seed_strategy_machine_cuda = smem_oh.seed_strategy_machine
         try:
             want = smem_oh.collect_smems_oh(al.fmi, c, ln, **tier)
         finally:
-            smem_oh.one_pos_machine_cuda = real
+            (smem_oh.one_pos_machine_cuda,
+             smem_oh.seed_strategy_machine_cuda) = real
         torch.cuda.synchronize()
         bad = [f for f, a, b in zip(got._fields, got, want)
                if not torch.equal(a, b)]
         if bad:
             raise SystemExit(f"slice: collect_smems_oh at depth {depth} "
-                             f"differs kernel vs plain: {bad}")
+                             f"differs kernels vs plain: {bad}")
         log(f"[slice] collect_smems_oh at depth {depth}, reseed factor "
-            f"{rf}: SmemBuf equal kernel vs plain passes 1-2 "
+            f"{rf}: SmemBuf equal kernels vs plain passes 1-2 and 3 "
             f"({int(got.cnt.clamp(max=got.m.shape[1]).sum())} SMEMs)")
     tier = dict(kw, emit_depth=24, stack_depth=24, reseed_factor=2)
     whole = time_ms(lambda: smem_oh.collect_smems_oh(al.fmi, c, ln, **tier),
                     2, dev)
-    p3 = time_ms(lambda: smem_oh.seed_strategy_machine(
-        al.fmi, c, ln, opt.max_mem_intv, opt.min_seed_len + 1, 24), 2, dev)
-    log(f"[slice] seeding one batch: collect_smems_oh {whole:.2f} ms, of "
-        f"which pass 3 (seed_strategy_machine, lockstep) alone "
-        f"{p3:.2f} ms  [{card}]")
+    log(f"[slice] seeding one batch: collect_smems_oh {whole:.2f} ms with "
+        f"the kernels (host clock, synchronised)  [{card}]")
 
 
 def write_pairs(tmp, bns):
@@ -578,7 +673,8 @@ def phase_pe(dev, card, tmp):
     from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
-    from bwa_mem_scale_tpu_torch.ops.smem_cuda import one_pos_machine_cuda
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
+        one_pos_machine_cuda, sa_walk_cuda, seed_strategy_machine_cuda)
     g, sam = os.path.join(tmp, "g"), os.path.join(tmp, "pe.sam")
     idx = load_index(g)
     codes, lens, pos, is_rev = write_pairs(tmp, idx.bns)
@@ -587,29 +683,35 @@ def phase_pe(dev, card, tmp):
 
     banded_swa_batch_cuda.launches = 0          # PE path starts here
     one_pos_machine_cuda.launches = 0
+    seed_strategy_machine_cuda.launches = 0
+    sa_walk_cuda.launches = 0
     t0 = time.perf_counter()
     al = cli.mem([g, os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq"),
                   "-o", sam, "--device", "cuda", "--batch-reads", str(BATCH)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = banded_swa_batch_cuda.launches
-    smem_launches = one_pos_machine_cuda.launches  # PE path ends here
+    launches = {"banded_swa_batch": banded_swa_batch_cuda.launches,
+                "one_pos_machine": one_pos_machine_cuda.launches,
+                "seed_strategy_machine": seed_strategy_machine_cuda.launches,
+                "sa_walk": sa_walk_cuda.launches}  # PE path ends here
 
     pt = load_perfect_table(g + ".emf101.npz")
     code = emf_lookup_host(pt, idx.ref_string, codes, lens)["code"]
     check_pe_sam(sam, (code == FW_MATCHED) | (code == RC_MATCHED), pos,
                  is_rev)
-    if launches <= 0:
+    if launches["banded_swa_batch"] <= 0:
         raise SystemExit("pe: the BSW kernel was never launched")
-    if smem_launches <= 0:
-        raise SystemExit("pe: the SMEM kernel was never launched")
+    for name in ("one_pos_machine", "seed_strategy_machine", "sa_walk"):
+        if launches[name] < al.batches:
+            raise SystemExit(f"pe: the {name} kernel launched "
+                             f"{launches[name]} times over {al.batches} "
+                             f"device batches, fewer than one a batch")
     n = 2 * N_PAIRS
     sec = PROFILER.totals
     log(f"[pe] {n} reads ({N_PAIRS} pairs) in {wall:.2f} s = "
         f"{n / wall:.1f} reads/s end to end (mem call incl. index load)  "
         f"[{card}]")
-    log(f"[pe] kernel launches: bsw {launches}, smem {smem_launches}; "
-        f"EMF hits {al.emf_hits}/"
+    log(f"[pe] kernel launches {launches}; EMF hits {al.emf_hits}/"
         f"{al.emf_checked}; overflow-retried reads {al.overflow_retried}; "
         f"device batches {al.batches}")
     log(f"[pe] seconds: device stages (dispatch_extend, host clock) "
@@ -719,6 +821,8 @@ def main():
     kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
                for lib in ("smem_cuda", "bsw_cuda")}
     for lib, kernel in (("smem_cuda", "one_pos_kernel"),
+                        ("smem_cuda", "seed_strategy_kernel"),
+                        ("smem_cuda", "sa_walk_kernel"),
                         ("bsw_cuda", "bsw_tiled_kernel")):
         (r, s), = [v for fn, v in kernels[lib].items() if kernel in fn]
         log(f"[build] {kernel}: {r} registers, {s} bytes spilled")
@@ -738,7 +842,7 @@ def main():
     k = phase_kernel(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches, al, codes, lens = phase_mem(dev, card, tmp)
-        _, smem = phase_slice(dev, card, al, codes, lens)
+        _, smem, p3, walk = phase_slice(dev, card, al, codes, lens)
         probes = phase_probes(dev, card)
         phase_pe(dev, card, tmp)
 
@@ -757,7 +861,16 @@ def main():
         "max_abs_err": max(r["err"] for r in smem),
         "ms": smem[0]["ms"], "plain_ms": smem[0]["plain_ms"],
         "bound_ms": smem[0]["bound"][0], "bound_by": smem[0]["bound"][1],
-        "library_ms": None}]}))
+        "library_ms": None}] + [{
+        "name": name, "route": "cuda", "source": "csrc/smem.cu",
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "library_ms": None}
+        for name, replaces, r in (
+            ("seed_strategy_machine",
+             "bwa_mem_scale_tpu/ops/smem_oh.py:619", p3),
+            ("sa_walk", "bwa_mem_scale_tpu/ops/sal.py:23", walk))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,25 +1,29 @@
 """Port vs JAX: SA lookup (both the full-SA gather and the compressed
 LF walk, grid and flat-compacted paths) and seed chaining / chain
 filtering, on the same SMEM buffers. Exact equality (integer data; the
-filter's float comparisons run in float64 on both sides)."""
+filter's float comparisons run in float64 on both sides).
 
-import jax.numpy as jnp
+The SA walk's CUDA kernel: its CPU twin (``smem_cuda.sa_walk_twin``, the
+kernel's own loop) and the port's ``sa_lookup`` against the JAX
+package's ``sa_lookup`` (plain and staged narrowing), with lanes that
+reach the sentinel row and invalid lanes; on a GPU the kernel against
+the plain version on a 16,384-lane flat list and through
+``expand_and_lookup``.
+
+The JAX side is imported inside the fixtures and tests that use it, so
+the CUDA cases also run on a machine without JAX:
+    PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_sal_chain.py
+"""
+
 import numpy as np
 import pytest
 import torch
 
-from bwa_mem_scale_tpu.config import MemOptions
-from bwa_mem_scale_tpu.index.build import build_index
-from bwa_mem_scale_tpu.ops import chain as jchain
-from bwa_mem_scale_tpu.ops import sal as jsal
-from bwa_mem_scale_tpu.ops.occ import DeviceFMIndex as JFmi
-from bwa_mem_scale_tpu.ops.smem_oh import collect_smems_oh
 from bwa_mem_scale_tpu_torch.ops import chain as tchain
 from bwa_mem_scale_tpu_torch.ops import sal as tsal
+from bwa_mem_scale_tpu_torch.ops import smem_cuda
 from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex as TFmi
 from bwa_mem_scale_tpu_torch.ops.smem import SmemBuf
-
-from conftest import sample_reads
 
 # one intra-op thread a process: the suite runs several test workers on
 # the CPU at once, and a thread a core each oversubscribes the cores
@@ -28,6 +32,12 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module", params=[3, 0], ids=["compx3", "compx0"])
 def setup(request, small_genome, small_index):
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.config import MemOptions
+    from bwa_mem_scale_tpu.index.build import build_index
+    from bwa_mem_scale_tpu.ops.occ import DeviceFMIndex as JFmi
+    from bwa_mem_scale_tpu.ops.smem_oh import collect_smems_oh
+    from conftest import sample_reads
     idx = (small_index if request.param == 3
            else build_index(small_genome, sa_compx=0))
     assert idx.sa_compx == request.param
@@ -54,6 +64,8 @@ def _eq(a, b, what=""):
 
 
 def test_sa_lookup(setup):
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.ops import sal as jsal
     rng = np.random.RandomState(3)
     pos = rng.randint(0, setup["idx"].seq_len, size=700).astype(np.int32)
     valid = rng.rand(700) < 0.9
@@ -68,6 +80,7 @@ def test_sa_lookup(setup):
     (256, 128),      # flat path with reads past K (overflow flags)
 ])
 def test_expand_and_lookup(setup, max_coords, flat_k):
+    from bwa_mem_scale_tpu.ops import sal as jsal
     opt = setup["opt"]
     want = jsal.expand_and_lookup(setup["jf"], setup["smems"],
                                   opt.max_occ, max_coords, flat_k=flat_k)
@@ -83,6 +96,9 @@ def test_expand_and_lookup(setup, max_coords, flat_k):
 @pytest.mark.parametrize("caps", [(16, 8), (4, 2)],
                          ids=["roomy", "tiny"])
 def test_chain_and_filter(setup, caps):
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.ops import chain as jchain
+    from bwa_mem_scale_tpu.ops import sal as jsal
     opt = setup["opt"]
     C, S = caps
     jx = jsal.expand_and_lookup(setup["jf"], setup["smems"], opt.max_occ,
@@ -112,3 +128,177 @@ def test_chain_and_filter(setup, caps):
                                opt.max_occ),
         tchain.frac_rep_device(setup["t_smems"],
                                torch.as_tensor(setup["lens"]), opt.max_occ))
+
+
+# ---- the SA walk: the CUDA kernel's twin, the plain walk and JAX -------
+
+@pytest.fixture(scope="module", params=[3, 0], ids=["compx3", "compx0"])
+def walk_index(request):
+    """A 20 kbp genome whose sentinel row (the row of SA value 0) is not
+    sampled at sa_compx 3, so that walks from rows of small SA values end
+    on it, indexed at the param's sa_compx; and its full SA."""
+    from bwa_mem_scale_tpu.index.build import build_index
+    from conftest import make_genome
+    genome = make_genome(20000, seed=43)
+    full = build_index(genome, sa_compx=0)
+    idx = full if request.param == 0 else build_index(genome)
+    assert idx.sa_compx == request.param and full.sentinel_index & 7
+    return idx, np.asarray(full.sa_samples, np.int64)
+
+
+def _walk_lanes(sa, n=1000):
+    """BWT rows: those of SA values 0-39 (the sentinel row first), then
+    random rows; every tenth lane invalid, the last one at the sentinel
+    row. Returns (pos, valid, true SA values)."""
+    rng = np.random.RandomState(7)
+    inv = np.empty_like(sa)
+    inv[sa] = np.arange(len(sa))
+    pos = np.concatenate([inv[:40], rng.randint(0, len(sa), n - 40)])
+    valid = np.arange(n) % 10 != 9
+    pos[-1], valid[-1] = inv[0], False
+    return pos.astype(np.int32), valid, sa[pos]
+
+
+def _sentinel_lanes(sa, pos, valid, compx):
+    """Valid lanes whose walk ends on the sentinel row: no row from theirs
+    back to the sentinel row's (SA values v, v - 1, ..., 0) is sampled."""
+    inv = np.empty_like(sa)
+    inv[sa] = np.arange(len(sa))
+    mask = (1 << compx) - 1
+    return [t for t in np.flatnonzero(valid)
+            if all(inv[u] & mask for u in range(sa[pos[t]] + 1))]
+
+
+@pytest.mark.parametrize("stages", ["auto", "512,128,32"],
+                         ids=["jax-unstaged", "jax-staged"])
+def test_sa_walk_twin_and_lookup_equal_to_jax(walk_index, monkeypatch,
+                                              stages):
+    """The kernel's twin and the port's sa_lookup equal the JAX package's
+    sa_lookup (unstaged, and with staged narrowing forced through
+    BWATPU_SAL_STAGES), and the true SA where valid, 0 where not; at
+    sa_compx 3 some lanes end on the sentinel row, and the longest walk
+    stays within the lockstep's ticks."""
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.ops import sal as jsal
+    from bwa_mem_scale_tpu.ops.occ import DeviceFMIndex as JFmi
+    idx, sa = walk_index
+    pos, valid, truth = _walk_lanes(sa)
+    monkeypatch.setenv("BWATPU_SAL_STAGES", stages)
+    want = np.asarray(jsal.sa_lookup(JFmi.from_host(idx), jnp.asarray(pos),
+                                     jnp.asarray(valid)))
+    tf = TFmi.from_host(idx, "cpu")
+    stats = {}
+    got = tsal.sa_lookup(tf, torch.as_tensor(pos), torch.as_tensor(valid),
+                         stats)
+    twin, steps = smem_cuda.sa_walk_twin(
+        tf.count.numpy(), tf.cp_fused.numpy(), tf.sentinel_index,
+        tf.sa_samples.numpy(), tf.sa_compx, pos, valid)
+    np.testing.assert_array_equal(want, got.numpy())
+    np.testing.assert_array_equal(want, twin)
+    np.testing.assert_array_equal(want, np.where(valid, truth, 0))
+    if idx.sa_compx:
+        ends = _sentinel_lanes(sa, pos, valid, idx.sa_compx)
+        assert ends and ends[0] == 0
+        assert 0 < steps.max() <= stats["sal_ticks"]
+    else:
+        assert steps.max() == 1 and "sal_ticks" not in stats
+
+
+def test_sa_lookup_on_cpu_runs_plain(walk_index):
+    """On CPU tensors sa_lookup and its wrapper sa_walk_cuda are the
+    plain version (no launch), with the lockstep's tick count in stats."""
+    idx, sa = walk_index
+    pos, valid, _ = _walk_lanes(sa)
+    tf = TFmi.from_host(idx, "cpu")
+    p, v = torch.as_tensor(pos), torch.as_tensor(valid)
+    before = smem_cuda.sa_walk_cuda.launches
+    st_a, st_b, st_c = {}, {}, {}
+    a = tsal.sa_lookup(tf, p, v, st_a)
+    b = tsal.sa_lookup_plain(tf, p, v, st_b)
+    c = smem_cuda.sa_walk_cuda(tf, p, v, st_c)
+    assert smem_cuda.sa_walk_cuda.launches == before
+    assert st_a == st_b == st_c and torch.equal(a, b) and torch.equal(a, c)
+
+
+# ---- on the card ------------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def card_sal():
+    """A 1 Mbp genome indexed by the port (no JAX on the card) at
+    sa_compx 3 and 0, and a 512-read batch of 101 bp (1% errors)."""
+    _cuda()
+    from bwa_mem_scale_tpu_torch.index.build import build_index
+    from bwa_mem_scale_tpu_torch.models.aligner import (demo_genome,
+                                                       simulate_reads)
+    bns = demo_genome(1_000_000, seed=42, n_contigs=1)
+    return ({3: build_index(bns), 0: build_index(bns, sa_compx=0)},
+            simulate_reads(bns, 512, 101, seed=8, err_rate=0.01))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compx", [3, 0], ids=["compx3", "compx0"])
+def test_sa_walk_kernel_equal_to_plain(card_sal, compx):
+    """sa_lookup on the card against the plain walk on a 16,384-lane flat
+    list (the main path's K), the sentinel row and invalid lanes among
+    them (the sentinel row unsampled at sa_compx 3, so that its lanes
+    take the kernel's sentinel branch): equal values; one launch with
+    per-lane steps equal to the twin's at sa_compx 3, none at sa_compx 0
+    (a single gather)."""
+    dev = _cuda()
+    idx = card_sal[0][compx]
+    assert idx.sentinel_index & ((1 << compx) - 1) or not compx
+    fmi = TFmi.from_host(idx, dev)
+    rng = np.random.RandomState(5)
+    pos = rng.randint(0, idx.seq_len, 16384).astype(np.int32)
+    valid = rng.rand(16384) < 0.9
+    pos[:2], valid[:2] = idx.sentinel_index, True
+    p, v = torch.as_tensor(pos, device=dev), torch.as_tensor(valid,
+                                                             device=dev)
+    before = smem_cuda.sa_walk_cuda.launches
+    stats = {}
+    got = tsal.sa_lookup(fmi, p, v, stats)
+    torch.cuda.synchronize()
+    want = tsal.sa_lookup_plain(fmi, p, v)
+    assert torch.equal(got, want)
+    assert smem_cuda.sa_walk_cuda.launches == before + (compx > 0)
+    if compx:
+        twin, steps = smem_cuda.sa_walk_twin(
+            idx.count, fmi.cp_fused.cpu().numpy(), fmi.sentinel_index,
+            fmi.sa_samples.cpu().numpy(), compx, pos, valid)
+        np.testing.assert_array_equal(twin, got.cpu().numpy())
+        np.testing.assert_array_equal(
+            steps, smem_cuda.sa_walk_cuda.last_steps.cpu().numpy())
+        assert int(stats["sal_steps"]) == steps.max()
+
+
+@pytest.mark.cuda
+def test_expand_and_lookup_kernel_equal_to_plain(card_sal, monkeypatch):
+    """expand_and_lookup on the 512-read batch's SMEMs (main-path
+    capacities: 512 coordinates a read, the flat list) with the kernel
+    and with the plain walk swapped in: every output equal, one launch."""
+    from bwa_mem_scale_tpu_torch.config import MemOptions
+    from bwa_mem_scale_tpu_torch.ops.smem_oh import collect_smems_oh
+    dev = _cuda()
+    fmi = TFmi.from_host(card_sal[0][3], dev)
+    codes, lens = (torch.as_tensor(a, device=dev) for a in card_sal[1])
+    opt = MemOptions()
+    smems = collect_smems_oh(
+        fmi, codes, lens, min_seed_len=opt.min_seed_len,
+        split_len=opt.split_len, split_width=opt.split_width,
+        max_mem_intv=opt.max_mem_intv, emit_depth=24, stack_depth=24)
+    before = smem_cuda.sa_walk_cuda.launches
+    got = tsal.expand_and_lookup(fmi, smems, opt.max_occ, 512)
+    torch.cuda.synchronize()
+    assert smem_cuda.sa_walk_cuda.launches == before + 1
+    monkeypatch.setattr(tsal, "sa_lookup", tsal.sa_lookup_plain)
+    want = tsal.expand_and_lookup(fmi, smems, opt.max_occ, 512)
+    for name, a, b in zip(("rbeg", "seed_idx", "coord_valid", "total",
+                           "overflow"), got, want):
+        assert torch.equal(a, b), name
+    assert int(got[3].sum()) > 0

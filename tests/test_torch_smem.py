@@ -13,6 +13,13 @@ stack, the emission depth and the reseed budget overflowing; on a GPU
 the kernel against the plain version over the same cases and at a
 512-read batch.
 
+Pass 3 (``seed_strategy_machine``): the twin ``smem_cuda.
+seed_strategy_twin`` against the lockstep and the JAX package's
+``seed_strategy_machine_oh`` at emission depths 24, 48 and the read
+length and with the depth overflowing; on a GPU the kernel against the
+plain version over the same cases and at a 512-read batch, and
+``collect_smems_oh`` with all three kernels against the plain machines.
+
 The JAX side is imported inside the tests that use it, so the CUDA cases
 also run on a machine without JAX:
     PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_smem.py
@@ -25,7 +32,8 @@ import torch
 from bwa_mem_scale_tpu_torch.config import MemOptions as TOpt
 from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex as TFmi
 from bwa_mem_scale_tpu_torch.ops.smem_oh import (
-    collect_smems_oh as t_collect, one_pos_machine, reseed_tasks)
+    collect_smems_oh as t_collect, one_pos_machine, reseed_tasks,
+    seed_strategy_machine)
 from bwa_mem_scale_tpu_torch.ops import smem_cuda
 from bwa_mem_scale_tpu_torch.ops.smem import compact_indices
 
@@ -278,6 +286,71 @@ def test_one_pos_cuda_wrapper_on_cpu_runs_plain(planted):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+# ---- pass 3: the CUDA kernel's twin, the lockstep and JAX -------------
+
+# the emission depth max_out of pass 3 (None: the read length); the last
+# overflows it on every read with more than two seeds
+SEED_STRATEGY_CASES = {"d24": 24, "d48": 48, "dL": None,
+                       "emit-overflow": 2}
+
+
+def _seed_strategy_args(codes, case):
+    """(max_intv, min_seed_len, max_out) as collect_smems_oh passes them:
+    max_mem_intv, min_seed_len + 1 and the emission depth."""
+    opt = TOpt()
+    M = SEED_STRATEGY_CASES[case] or codes.shape[1]
+    return opt.max_mem_intv, opt.min_seed_len + 1, M
+
+
+def _seed_twin(fmi, codes, lens, args):
+    out = smem_cuda.seed_strategy_twin(
+        fmi.count.cpu().numpy(), fmi.cp_fused.cpu().numpy(),
+        fmi.sentinel_index, codes.cpu().numpy(), lens.cpu().numpy(), *args)
+    return out[:6], out[6]
+
+
+@pytest.mark.parametrize("case", list(SEED_STRATEGY_CASES))
+def test_seed_strategy_twin_equal_to_lockstep_and_jax(planted, case):
+    """Pass 3: the kernel's twin equals the port's lockstep machine and
+    the JAX package's one-hot machine in every field and cnt (reads with
+    N bases, an empty read, a tandem repeat); its longest lane's steps
+    stay within the lockstep's ticks."""
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.ops.smem_oh import seed_strategy_machine_oh
+    jf, tf, reads = planted
+    codes, lens = (torch.as_tensor(a) for a in reads)
+    args = _seed_strategy_args(codes, case)
+    stats = {}
+    plain = seed_strategy_machine(tf, codes, lens, *args, stats)
+    twin, steps = _seed_twin(tf, codes, lens, args)
+    want = seed_strategy_machine_oh(jf, jnp.asarray(reads[0]),
+                                    jnp.asarray(reads[1]), *args)
+    for f, tw in zip(FIELDS, twin):
+        np.testing.assert_array_equal(getattr(plain, f).numpy(), tw, f)
+        np.testing.assert_array_equal(np.asarray(getattr(want, f)), tw, f)
+    assert 0 < steps.max() <= stats["seed_ticks_p3"]
+    cnt = twin[5]
+    assert (cnt > 0).any() and (codes == 4).any()
+    if case == "emit-overflow":
+        assert (cnt > args[2]).any()
+
+
+def test_seed_strategy_cuda_wrapper_on_cpu_runs_plain(planted):
+    """On CPU tensors the pass-3 wrapper is the plain version (no launch),
+    with the lockstep's tick count in stats."""
+    _, tf, reads = planted
+    codes, lens = (torch.as_tensor(a) for a in reads)
+    args = _seed_strategy_args(codes, "d24")
+    before = smem_cuda.seed_strategy_machine_cuda.launches
+    st_a, st_b = {}, {}
+    a = smem_cuda.seed_strategy_machine_cuda(tf, codes, lens, *args, st_a)
+    b = seed_strategy_machine(tf, codes, lens, *args, st_b)
+    assert smem_cuda.seed_strategy_machine_cuda.launches == before
+    assert st_a == st_b and st_a["seed_ticks_p3"] > 0
+    for f in FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
 # ---- on the card ------------------------------------------------------
 
 def _cuda():
@@ -341,9 +414,10 @@ def test_one_pos_kernel_equal_to_plain(card_genome, case):
                                                  (None, 256)])
 def test_collect_smems_kernel_equal_to_plain(card_genome, monkeypatch,
                                              depth, reseed_factor):
-    """collect_smems_oh with the kernel for passes 1 and 2 against the
-    same function with the plain machine swapped in, at the three tier
-    depths on the 512-read batch: equal SmemBuf, two launches."""
+    """collect_smems_oh with the kernels for passes 1-2 and pass 3 against
+    the same function with the plain machines swapped in, at the three
+    tier depths on the 512-read batch: equal SmemBuf, two launches of
+    the passes 1-2 kernel and one of the pass-3 kernel."""
     from bwa_mem_scale_tpu_torch.ops import smem_oh
     dev = _cuda()
     _, _, idx, big = card_genome
@@ -355,12 +429,46 @@ def test_collect_smems_kernel_equal_to_plain(card_genome, monkeypatch,
               emit_depth=depth, stack_depth=depth,
               reseed_factor=reseed_factor)
     before = smem_cuda.one_pos_machine_cuda.launches
+    before3 = smem_cuda.seed_strategy_machine_cuda.launches
     stats = {}
     got = t_collect(fmi, codes, lens, stats=stats, **kw)
     torch.cuda.synchronize()
     assert smem_cuda.one_pos_machine_cuda.launches == before + 2
+    assert smem_cuda.seed_strategy_machine_cuda.launches == before3 + 1
     assert int(stats["seed_steps_p1"]) > 0
+    assert int(stats["seed_steps_p3"]) > 0
     monkeypatch.setattr(smem_oh, "one_pos_machine_cuda", one_pos_machine)
+    monkeypatch.setattr(smem_oh, "seed_strategy_machine_cuda",
+                        seed_strategy_machine)
     want = t_collect(fmi, codes, lens, **kw)
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SEED_STRATEGY_CASES)
+                         + ["batch-512-d24", "batch-512-d48",
+                            "batch-512-dL"])
+def test_seed_strategy_kernel_equal_to_plain(card_genome, case):
+    """The pass-3 kernel against the plain version on the card, every
+    field and cnt, over the twin's cases and on the 512-read batch at the
+    three tier depths; its per-lane steps equal the twin's."""
+    dev = _cuda()
+    idx, small, big_idx, big = card_genome
+    key = case
+    if case.startswith("batch-512"):
+        idx, small, key = big_idx, big, case.split("-")[-1]
+    fmi = TFmi.from_host(idx, dev)
+    codes, lens = (torch.as_tensor(a, device=dev) for a in small)
+    args = _seed_strategy_args(codes, key)
+    before = smem_cuda.seed_strategy_machine_cuda.launches
+    got = smem_cuda.seed_strategy_machine_cuda(fmi, codes, lens, *args)
+    torch.cuda.synchronize()
+    assert smem_cuda.seed_strategy_machine_cuda.launches == before + 1
+    steps = smem_cuda.seed_strategy_machine_cuda.last_steps.cpu().numpy()
+    want = seed_strategy_machine(fmi, codes, lens, *args)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(got.cnt.max()) > 0
+    _, twin_steps = _seed_twin(fmi, codes, lens, args)
+    np.testing.assert_array_equal(steps, twin_steps)
