@@ -29,45 +29,22 @@ out of bounds, and must raise before the launch.
 from __future__ import annotations
 
 import ctypes
-import os
 
 import torch
 
 from . import nvcc_build
 from .bsw import BswBatchResult, banded_swa_batch, scoring
 
-SOURCE = os.path.join(nvcc_build.REPO, "csrc", "bsw.cu")
-LIB_PATH = nvcc_build.lib_path("bsw_cuda")
 # columns a lane: the instantiations of csrc/bsw.cu's bsw_launch
 K_VALUES = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 24)
 MAX_QL = 32 * K_VALUES[-1] - 1
 TILED = 0            # bsw_launch's k of the column-tiled instantiation
 TILE = 256           # its columns a tile (32 lanes x 8)
 
-_lib = None
-build_seconds = None   # wall time of the last build in this process
-
-
-def build(force: bool = False, verbose: bool = False) -> str:
-    """Compile csrc/bsw.cu unless a library built from the same source
-    exists. Returns the library path; sets ``build_seconds`` when it
-    compiled. verbose prints ptxas's register / spill report."""
-    global build_seconds
-    path, seconds = nvcc_build.build(SOURCE, "bsw_cuda", force, verbose)
-    if seconds is not None:
-        build_seconds = seconds
-    return path
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.bsw_launch.argtypes = [vp] * 6 + [ci] * 15 + [vp, vp]
-        lib.bsw_launch.restype = ci
-        _lib = lib
-    return _lib
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = nvcc_build.Library("bsw.cu", "bsw_cuda",
+                         {"bsw_launch": [_vp] * 6 + [_ci] * 15 + [_vp]})
+build = LIB.build            # compile csrc/bsw.cu; returns the library path
 
 
 def lane_columns(QL: int) -> int:
@@ -103,19 +80,12 @@ def launch(qs, q_lens, ts, t_lens, h0, w: int, o_del: int, e_del: int,
         scratch = torch.empty((P, 2, -(-(QL + 1) // TILE) * TILE),
                               dtype=torch.int32, device=dev)
     if P:
-        lib = _load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.bsw_launch(qs.data_ptr(), ts.data_ptr(),
-                                q_lens.data_ptr(), t_lens.data_ptr(),
-                                h0.data_ptr(), out.data_ptr(), P, QL,
-                                ts.shape[1], k, w, o_del, e_del, o_ins,
-                                e_ins, zdrop, sc["sc_match"], sc["sc_mis"],
-                                sc["sc_n"], sc["mx"], end_bonus,
-                                None if scratch is None
-                                else scratch.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"bsw_launch failed: CUDA error {rc}")
+        LIB.launch(dev, "bsw_launch", qs.data_ptr(), ts.data_ptr(),
+                   q_lens.data_ptr(), t_lens.data_ptr(), h0.data_ptr(),
+                   out.data_ptr(), P, QL, ts.shape[1], k, w, o_del, e_del,
+                   o_ins, e_ins, zdrop, sc["sc_match"], sc["sc_mis"],
+                   sc["sc_n"], sc["mx"], end_bonus,
+                   None if scratch is None else scratch.data_ptr())
         banded_swa_batch_cuda.launches += 1
     return BswBatchResult(*out.unbind(0))
 

@@ -6,6 +6,13 @@ chain anchors (the B-tree lower bound becomes a count of keys <= rbeg)
 and a slot table with the chain data; seeds arrive in SMEM order, then
 interval order, and are appended exactly as the reference inserts
 them. Per-lane reads and writes are direct indexed gathers/scatters.
+
+These are the plain versions of the two chaining kernels of
+csrc/chain.cu (``ops/chain_cuda.py``), which the pipeline calls; the
+lower-bound chain counts only the n live keys, so a seed at or above the
+empty-key marker BIG (2^29 - 1, reached by reverse-strand hits once
+l_pac passes ~268 Mbp) still finds its neighbour, as the reference's
+B-tree does (the JAX package counts all C keys there).
 """
 
 from __future__ import annotations
@@ -15,6 +22,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+# the key of an empty anchor position (int32 max // 4, as the JAX package)
+BIG = np.iinfo(np.int32).max // 4
 
 
 @dataclasses.dataclass
@@ -77,7 +87,6 @@ def chain_seeds_device(bns: DeviceBns, smems, rbeg, seed_idx, coord_valid,
     C, S = max_chains, max_seeds_per_chain
     dev = rbeg.device
     i32 = torch.int32
-    BIG = np.iinfo(np.int32).max // 4
     b = torch.arange(B, device=dev)
     si = seed_idx.long()
     qbeg_all = smems.m.gather(1, si)
@@ -104,8 +113,10 @@ def chain_seeds_device(bns: DeviceBns, smems, rbeg, seed_idx, coord_valid,
         rid = bns.intv2rid(s_rbeg, s_rbeg + s_len)
         valid = valid & (rid >= 0)
 
-        # lower-bound chain: largest key <= rbeg
-        pos = (key <= s_rbeg[:, None]).sum(1, dtype=i32)
+        # lower-bound chain: largest live key <= rbeg (keys past n are
+        # BIG, which a seed's rbeg can reach)
+        pos = ((key <= s_rbeg[:, None]) & (col < n[:, None])).sum(
+            1, dtype=i32)
         li = pos - 1
         has_lower = valid & (li >= 0)
         lslot = slot.gather(1, li.clamp(0, C - 1).long()[:, None])[:, 0]
@@ -289,3 +300,20 @@ def chain_filter_device(ch: Chains, bns: DeviceBns, *,
     over_cap = is12 & (rank12 >= max_chain_extend) & (kept < 3)
     kept = torch.where(over_cap, 0, kept).to(torch.int32)
     return order, kept, w_by_slot
+
+
+def chain_filter_frac_rep(ch: Chains, bns: DeviceBns, smems, lens, *,
+                          min_chain_weight: int, mask_level: float,
+                          max_chain_gap: int, drop_ratio: float,
+                          min_seed_len: int, max_chain_extend: int,
+                          max_occ: int, stats: dict = None):
+    """The plain version of csrc/chain.cu's chain_filter_kernel, which
+    also computes frac_rep in its launch: (order, kept, w_by_slot) of
+    chain_filter_device and frac_rep_device's [B] float32. `stats` keeps
+    the kernel wrapper's signature and gets nothing: the lockstep has no
+    data-dependent loop to count."""
+    return (*chain_filter_device(
+        ch, bns, min_chain_weight=min_chain_weight, mask_level=mask_level,
+        max_chain_gap=max_chain_gap, drop_ratio=drop_ratio,
+        min_seed_len=min_seed_len, max_chain_extend=max_chain_extend),
+        frac_rep_device(smems, lens, max_occ))

@@ -3,11 +3,14 @@
 Every CUDA source of the port (``csrc/*.cu``) is compiled on the machine
 with the GPU at first use into ``build/torch_kernels/lib<name>.so`` and
 rebuilt when the source's SHA-256 differs from the stamp written beside
-the library. Nothing here runs at import time.
+the library. ``Library`` builds one source, loads it and calls its C
+launch functions on a device's current stream. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
@@ -68,3 +71,48 @@ def build(source: str, name: str, force: bool = False,
     with open(stamp, "w") as f:
         f.write(digest)
     return path, time.perf_counter() - t0
+
+
+class Library:
+    """csrc/<source> as lib<name>.so: built at first use, loaded with
+    ctypes, its launch functions (each returning a CUDA error code and
+    taking the stream last) called on a device's current stream.
+    `argtypes` maps each function to its ctypes argument types, the
+    stream left out."""
+
+    def __init__(self, source: str, name: str, argtypes: dict):
+        self.source = os.path.join(REPO, "csrc", source)
+        self.name = name
+        self.path = lib_path(name)
+        self.argtypes = argtypes
+        self.build_seconds = None   # nvcc's wall time, when this process built
+        self._lib = None
+
+    def build(self, force: bool = False, verbose: bool = False) -> str:
+        """Compile unless a library built from the same source exists
+        (``build``). Returns the library path."""
+        path, seconds = build(self.source, self.name, force, verbose)
+        if seconds is not None:
+            self.build_seconds = seconds
+        return path
+
+    def load(self):
+        if self._lib is None:
+            lib = ctypes.CDLL(self.build())
+            for fn, types in self.argtypes.items():
+                f = getattr(lib, fn)
+                f.argtypes = [*types, ctypes.c_void_p]
+                f.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def launch(self, dev, fn: str, *args) -> None:
+        """lib.<fn>(*args, stream) on dev's current stream; raises on the
+        CUDA error it returns. No synchronisation."""
+        import torch
+        lib = self.load()
+        with torch.cuda.device(dev):
+            rc = getattr(lib, fn)(*args,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{fn} failed: CUDA error {rc}")

@@ -36,7 +36,6 @@ counts.
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 import torch
@@ -45,41 +44,15 @@ from . import nvcc_build
 from .occ import DeviceFMIndex
 from .smem import SmemBuf
 
-SOURCE = os.path.join(nvcc_build.REPO, "csrc", "smem.cu")
-LIB_PATH = nvcc_build.lib_path("smem_cuda")
-
-_lib = None
-build_seconds = None   # wall time of the last build in this process
-
-
-def build(force: bool = False, verbose: bool = False) -> str:
-    """Compile csrc/smem.cu unless a library built from the same source
-    exists. Returns the library path; sets ``build_seconds`` when it
-    compiled."""
-    global build_seconds
-    path, seconds = nvcc_build.build(SOURCE, "smem_cuda", force, verbose)
-    if seconds is not None:
-        build_seconds = seconds
-    return path
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.one_pos_launch.argtypes = ([vp] + [ci] * 7 + [vp, vp, ci, ci]
-                                       + [vp] * 4 + [ci] * 5 + [vp] * 5)
-        lib.one_pos_launch.restype = ci
-        lib.seed_strategy_launch.argtypes = ([vp] + [ci] * 7 + [vp, vp]
-                                             + [ci] * 5 + [vp] * 4)
-        lib.seed_strategy_launch.restype = ci
-        lib.sa_walk_launch.argtypes = ([vp] + [ci] * 7 + [vp, ci, ci, vp,
-                                                          vp, ci]
-                                       + [vp] * 3)
-        lib.sa_walk_launch.restype = ci
-        _lib = lib
-    return _lib
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = nvcc_build.Library("smem.cu", "smem_cuda", {
+    "one_pos_launch": ([_vp] + [_ci] * 7 + [_vp, _vp, _ci, _ci] + [_vp] * 4
+                       + [_ci] * 5 + [_vp] * 4),
+    "seed_strategy_launch": ([_vp] + [_ci] * 7 + [_vp, _vp] + [_ci] * 5
+                             + [_vp] * 3),
+    "sa_walk_launch": ([_vp] + [_ci] * 7 + [_vp, _ci, _ci, _vp, _vp, _ci]
+                       + [_vp] * 2)})
+build = LIB.build            # compile csrc/smem.cu; returns the library path
 
 
 def _fmi_args(fmi: DeviceFMIndex) -> list:
@@ -87,17 +60,6 @@ def _fmi_args(fmi: DeviceFMIndex) -> list:
     table and its rows, the C array and the sentinel row."""
     return [fmi.cp_fused.data_ptr(), fmi.cp_fused.shape[0],
             *fmi.count_host, fmi.sentinel_index]
-
-
-def _launch(dev: torch.device, name: str, *args) -> None:
-    """lib.<name>(*args, stream) on dev's current stream; raises on the
-    CUDA error it returns. No synchronisation."""
-    lib = _load()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, name)(*args,
-                                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {rc}")
 
 
 def _check(what: str, fmi: DeviceFMIndex, *tensors) -> torch.device:
@@ -150,7 +112,7 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
                 t_mi.to(i32).contiguous(),
                 t_valid.to(torch.bool).contiguous()]
         stk = torch.empty((2, 4, SD + 1, T), dtype=i32, device=dev)
-        _launch(dev, "one_pos_launch", *_fmi_args(fmi), args[0].data_ptr(),
+        LIB.launch(dev, "one_pos_launch", *_fmi_args(fmi), args[0].data_ptr(),
                 args[1].data_ptr(), B, L,
                 *(a.data_ptr() for a in args[2:]), T, int(chain_restarts),
                 min_seed_len, max_out, SD, stk.data_ptr(), out.data_ptr(),
@@ -192,7 +154,7 @@ def seed_strategy_machine_cuda(fmi: DeviceFMIndex, codes, lens,
     steps = torch.empty((B,), dtype=i32, device=dev)
     if B:
         c, ln = codes.contiguous(), lens.contiguous()
-        _launch(dev, "seed_strategy_launch", *_fmi_args(fmi), c.data_ptr(),
+        LIB.launch(dev, "seed_strategy_launch", *_fmi_args(fmi), c.data_ptr(),
                 ln.data_ptr(), B, L, int(max_intv), min_seed_len, max_out,
                 out.data_ptr(), cnt.data_ptr(), steps.data_ptr())
         seed_strategy_machine_cuda.launches += 1
@@ -233,7 +195,7 @@ def sa_walk_cuda(fmi: DeviceFMIndex, pos: torch.Tensor,
     out = torch.empty((N,), dtype=torch.int32, device=dev)
     steps = torch.empty((N,), dtype=torch.int32, device=dev)
     if N:
-        _launch(dev, "sa_walk_launch", *_fmi_args(fmi), samples.data_ptr(),
+        LIB.launch(dev, "sa_walk_launch", *_fmi_args(fmi), samples.data_ptr(),
                 samples.shape[0], fmi.sa_compx, p.data_ptr(), v.data_ptr(),
                 N, out.data_ptr(), steps.data_ptr())
         sa_walk_cuda.launches += 1

@@ -46,8 +46,8 @@ from ..utils.profiling import PROFILER
 from ..device import synchronize
 from ..ops.bsw import banded_swa_batch
 from ..ops.bsw_cuda import banded_swa_batch_cuda
-from ..ops.chain import (DeviceBns, chain_seeds_device, chain_filter_device,
-                         frac_rep_device)
+from ..ops.chain import DeviceBns
+from ..ops.chain_cuda import chain_filter_cuda, chain_seeds_cuda
 from ..ops.emf import FW_MATCHED, RC_MATCHED
 from ..ops.occ import DeviceFMIndex
 from ..ops.sal import expand_and_lookup
@@ -152,16 +152,18 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     # SMEM buffer at capacity: possible overflow -> retry at larger shape
     smem_of = bufs.cnt >= bufs.m.shape[1]
     with _stage(prof, "chain"):
-        ch = chain_seeds_device(
+        # the kernels on CUDA tensors, the plain versions on CPU ones;
+        # called by this module's names, which a caller may swap
+        ch = chain_seeds_cuda(
             dbns, bufs, rbeg, seed_idx, coord_valid, w=opt.w,
             max_chain_gap=opt.max_chain_gap, max_chains=cfg.max_chains,
             max_seeds_per_chain=cfg.max_seeds_per_chain, stats=stats)
-        order, kept, _ = chain_filter_device(
-            ch, dbns, min_chain_weight=opt.min_chain_weight,
+        order, kept, _, frac_rep = chain_filter_cuda(
+            ch, dbns, bufs, lens, min_chain_weight=opt.min_chain_weight,
             mask_level=opt.mask_level, max_chain_gap=opt.max_chain_gap,
             drop_ratio=opt.drop_ratio, min_seed_len=opt.min_seed_len,
-            max_chain_extend=opt.max_chain_extend)
-        frac_rep = frac_rep_device(bufs, lens, opt.max_occ)
+            max_chain_extend=opt.max_chain_extend, max_occ=opt.max_occ,
+            stats=stats)
 
     C, S, R = cfg.max_chains, cfg.max_seeds_per_chain, cfg.max_regs
     sidx = torch.arange(S, dtype=i32, device=dev)[None, None, :]

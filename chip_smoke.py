@@ -6,12 +6,13 @@
 Phases, in order; any failure exits non-zero:
   1. card:    CUDA present; prints nvidia-smi's name and power limit.
   2. build:   compiles csrc/bsw.cu (the banded-SW kernel),
-              csrc/probes.cu (the probe kernels) and csrc/smem.cu (the
-              FM walks: SMEM passes 1-2, pass 3 and the SA walk) from
-              source, one nvcc each, all at once; prints ptxas's
-              registers and spills for each FM walk and BSW kernel (for
-              the BSW kernel one line an instantiation, failing on a
-              spill at K = 4 or 5 columns a lane).
+              csrc/probes.cu (the probe kernels), csrc/smem.cu (the
+              FM walks: SMEM passes 1-2, pass 3 and the SA walk) and
+              csrc/chain.cu (chaining and the chain filter) from source,
+              one nvcc each, all at once; prints ptxas's registers and
+              spills for each FM walk, chaining and BSW kernel (for the
+              BSW kernel one line an instantiation, failing on a spill
+              at K = 4 or 5 columns a lane).
   3. kernel:  the CUDA kernel against the plain PyTorch BSW on the card
               at main-path shapes (4096 pairs, query 101, target 309,
               band 100 and 200), all six outputs bit-equal; the live
@@ -26,13 +27,15 @@ Phases, in order; any failure exits non-zero:
               primaries of reads the EMF table did not resolve within
               5 bp of the true position and strand, the BSW kernel
               launched, the SMEM passes 1-2 kernel at least twice a
-              device batch and the pass-3 and SA-walk kernels at least
-              once a batch; reads/s, and per-stage seconds from a second
+              device batch and the pass-3, SA-walk and both chaining
+              kernels at least once a batch; reads/s, and per-stage
+              seconds (the chain stage among them) from a second
               `mem -v 4` run with synchronised stage timers.
   5. slice:   seed_chain_extend on one batch of phase 4 with the kernels
               and with the plain BSW, with the plain SMEM passes 1 and
-              2, and with the plain pass 3 and SA walk: packed and meta
-              equal; collect_smems_oh with the kernels and with the
+              2, with the plain pass 3 and SA walk, and with the plain
+              chaining: packed and meta equal; collect_smems_oh with the
+              kernels and with the
               plain passes at the three retry-tier depths (24, 48, the
               read length): SmemBuf equal; the four BSW calls of the
               batch captured, each with its live pairs, rows, cells,
@@ -41,7 +44,17 @@ Phases, in order; any failure exits non-zero:
               launch and its SA-walk launch, as made, each equal to its
               plain version, with its steps, bound, latency floor (the
               longest lane's steps x 0.224 us), the kernel's device time
-              and the plain version's.
+              and the plain version's; its two chaining launches, as
+              made, each equal field by field to its plain version, with
+              its steps, bound, latency floor (the longest read's
+              dependent round trips x 0.224 us), the kernel's device time
+              and the plain version's; then a batch whose reads have
+              many chains (512 reads on a 2 Mbp genome with repeats, at
+              the same shapes): packed and meta equal with the plain
+              chaining, its two chaining launches held and timed the
+              same way, and the filter at non-default options equal to
+              its plain version; the batch must reach the overlap,
+              drop and first paths, a repetitive SMEM and an overflow.
   6. probes:  the probe path through its entry points, `probe_cuda` and
               `probe_cuda_rates ABCDEF` on the card (every probe OK,
               every probe kernel launched, the rate lines printed); then
@@ -53,15 +66,16 @@ Phases, in order; any failure exits non-zero:
               30, 1% substitutions, read 2 reverse-complemented) in two
               FASTQ files; every read emitted once in input order (read
               1 then read 2), the BSW kernel launched, the SMEM
-              passes 1-2, pass-3 and SA-walk kernels at least once a
-              device batch, >= 95%
+              passes 1-2, pass-3, SA-walk and chaining kernels at least
+              once a device batch, >= 95%
               of non-EMF
               primaries within 5 bp of the true position and strand,
               >= 90% of pairs with both mates mapped flagged proper, the
               median |TLEN| of proper pairs within 5% of 300; reads/s and
-              the host PE stage's seconds beside the device stages'.
+              the host PE stage's seconds beside the device stages'; the
+              stage seconds of a second run with `-v 4`.
 
-Prints the kernel JSON line (all twelve kernels, each with its bound: the
+Prints the kernel JSON line (all fourteen kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -115,6 +129,20 @@ SAL_OPS_PER_STEP = 27
 # the dependent checkpoint-row load on the 4.6 Mbp table (probe B, L2;
 # PERF.md section 6), the latency floor of a lane's step
 STEP_US = 0.224
+# chaining (csrc/chain.cu), one thread a read. chain_seeds_kernel: the
+# dependent loads on a coordinate's path (the key search's last probe,
+# the lower chain's slot, its seed count and first seed, its last seed),
+# and its integer operations (the contig search 10, the key search 8,
+# test_and_merge 25, the append or insert 7). chain_filter_kernel: a step
+# is a live chain weighed or an overlap test, each waiting on at least
+# one load; operations: a seed of the weight scans 12, an overlap test
+# 20, an SMEM of the frac_rep scan 2 (its occurrence test and the
+# loop's), and 8 more for one over max_occ (its end, the segment test,
+# the length added or the end's maximum)
+CHAIN_TRIPS_PER_COORD = 4
+CHAIN_OPS_PER_COORD = 50
+FLT_OPS_PER_SEED, FLT_OPS_PER_TEST = 12, 20
+FLT_OPS_PER_SMEM, FLT_OPS_PER_REP = 2, 8
 
 
 def log(msg=""):
@@ -310,6 +338,8 @@ def phase_mem(dev, card, tmp):
     from bwa_mem_scale_tpu_torch.index.artifacts import load_index
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
+    from bwa_mem_scale_tpu_torch.ops.chain_cuda import (chain_filter_cuda,
+                                                        chain_seeds_cuda)
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
         one_pos_machine_cuda, sa_walk_cuda, seed_strategy_machine_cuda)
     codes, lens, pos, is_rev = write_inputs(tmp)
@@ -328,6 +358,8 @@ def phase_mem(dev, card, tmp):
     one_pos_machine_cuda.launches = 0
     seed_strategy_machine_cuda.launches = 0
     sa_walk_cuda.launches = 0
+    chain_seeds_cuda.launches = 0
+    chain_filter_cuda.launches = 0
     t0 = time.perf_counter()
     al = cli.mem(mem_argv)
     torch.cuda.synchronize()
@@ -335,7 +367,9 @@ def phase_mem(dev, card, tmp):
     launches = {"banded_swa_batch": banded_swa_batch_cuda.launches,
                 "one_pos_machine": one_pos_machine_cuda.launches,
                 "seed_strategy_machine": seed_strategy_machine_cuda.launches,
-                "sa_walk": sa_walk_cuda.launches}
+                "sa_walk": sa_walk_cuda.launches,
+                "chain_seeds": chain_seeds_cuda.launches,
+                "chain_filter": chain_filter_cuda.launches}
     # main path ends here
 
     pt = load_perfect_table(g + ".emf101.npz")
@@ -350,7 +384,8 @@ def phase_mem(dev, card, tmp):
                          f"{launches['one_pos_machine']} times over "
                          f"{al.batches} device batches, fewer than two a "
                          f"batch")
-    for name in ("seed_strategy_machine", "sa_walk"):
+    for name in ("seed_strategy_machine", "sa_walk", "chain_seeds",
+                 "chain_filter"):
         if launches[name] < al.batches:
             raise SystemExit(f"mem: the {name} kernel launched "
                              f"{launches[name]} times over {al.batches} "
@@ -362,7 +397,7 @@ def phase_mem(dev, card, tmp):
         f"({al.overflow_oracle} to oracle); device batches {al.batches}")
     per = {k: float(v) / al.batches for k, v in sorted(al.stats.items())}
     log("[mem] loop ticks (lockstep) and longest lane's steps (FM-walk "
-        "kernels) per batch: "
+        "and chaining kernels) per batch: "
         + ", ".join(f"{k} {v:.1f}" for k, v in per.items()))
 
     al4 = cli.mem(mem_argv + ["-v", "4"])
@@ -377,7 +412,7 @@ def phase_mem(dev, card, tmp):
 def phase_slice(dev, card, al, codes, lens):
     import dataclasses
     import torch
-    from bwa_mem_scale_tpu_torch.ops import sal, smem_oh
+    from bwa_mem_scale_tpu_torch.ops import chain, sal, smem_oh
     from bwa_mem_scale_tpu_torch.pipeline import align
     c = torch.as_tensor(codes, device=dev)
     ln = torch.as_tensor(lens, device=dev)
@@ -386,22 +421,26 @@ def phase_slice(dev, card, al, codes, lens):
             (smem_oh, "one_pos_machine_cuda"): smem_oh.one_pos_machine_cuda,
             (smem_oh, "seed_strategy_machine_cuda"):
                 smem_oh.seed_strategy_machine_cuda,
-            (sal, "sa_walk_cuda"): sal.sa_walk_cuda}
+            (sal, "sa_walk_cuda"): sal.sa_walk_cuda,
+            (align, "chain_seeds_cuda"): align.chain_seeds_cuda,
+            (align, "chain_filter_cuda"): align.chain_filter_cuda}
     calls = {name: [] for _, name in real}
 
     def recorder(name, fn):            # the batch's calls, as made
         def record(*args, **kw):
-            calls[name].append(args)
+            calls[name].append((args, kw))
             return fn(*args, **kw)
         return record
 
-    _, k12, k3, kwalk = real                  # its keys, in order
+    _, k12, k3, kwalk, kseeds, kflt = real    # its keys, in order
     runs = (("auto", "auto", {k: recorder(k[1], fn)
                               for k, fn in real.items()}),
             ("plain", "plain", {}),
             ("plain_seed", "auto", {k12: smem_oh.one_pos_machine}),
             ("plain_walks", "auto", {k3: smem_oh.seed_strategy_machine,
-                                     kwalk: sal.sa_lookup_plain}))
+                                     kwalk: sal.sa_lookup_plain}),
+            ("plain_chain", "auto", {kseeds: chain.chain_seeds_device,
+                                     kflt: chain.chain_filter_frac_rep}))
     outs = {}
     for run, bsw_eng, swaps in runs:
         cfg = dataclasses.replace(al.cfg, bsw_engine=bsw_eng)
@@ -418,7 +457,8 @@ def phase_slice(dev, card, al, codes, lens):
                 setattr(mod, name, fn)
         outs[run] = (out, time.perf_counter() - t0)
     for run, what in (("plain", "BSW"), ("plain_seed", "SMEM passes 1-2"),
-                      ("plain_walks", "pass 3 and SA walk")):
+                      ("plain_walks", "pass 3 and SA walk"),
+                      ("plain_chain", "chaining")):
         for key in ("packed", "meta"):
             if not torch.equal(outs["auto"][0][key], outs[run][0][key]):
                 raise SystemExit(f"slice: {key} differs kernel vs plain "
@@ -426,13 +466,14 @@ def phase_slice(dev, card, al, codes, lens):
     n_valid = int(outs["auto"][0]["valid"].sum())
     log(f"[slice] seed_chain_extend on {len(codes)} reads ({n_valid} "
         f"pairs): packed and meta equal with the kernels and with the "
-        f"plain BSW, the plain SMEM passes 1-2, and the plain pass 3 and "
-        f"SA walk; whole call {outs['auto'][1]:.3f} s with the kernels, "
-        f"{outs['plain'][1]:.3f} s with the plain BSW, "
+        f"plain BSW, the plain SMEM passes 1-2, the plain pass 3 and SA "
+        f"walk, and the plain chaining; whole call {outs['auto'][1]:.3f} s"
+        f" with the kernels, {outs['plain'][1]:.3f} s with the plain BSW, "
         f"{outs['plain_seed'][1]:.3f} s with the plain SMEM passes 1-2, "
         f"{outs['plain_walks'][1]:.3f} s with the plain pass 3 and SA "
-        f"walk  [{card}]")
-    bsw_calls = calls["banded_swa_batch_cuda"]
+        f"walk, {outs['plain_chain'][1]:.3f} s with the plain chaining  "
+        f"[{card}]")
+    bsw_calls = [a for a, _ in calls["banded_swa_batch_cuda"]]
     if len(bsw_calls) != 4:
         raise SystemExit(f"slice: {len(bsw_calls)} BSW calls, expected 4")
     path = []
@@ -451,38 +492,45 @@ def phase_slice(dev, card, al, codes, lens):
             f"  [{card}]")
     for name, want in (("one_pos_machine_cuda", 2),
                        ("seed_strategy_machine_cuda", 1),
-                       ("sa_walk_cuda", 1)):
+                       ("sa_walk_cuda", 1), ("chain_seeds_cuda", 1),
+                       ("chain_filter_cuda", 1)):
         if len(calls[name]) != want:
             raise SystemExit(f"slice: {len(calls[name])} {name} launches, "
                              f"expected {want}")
     smem = [smem_launch(dev, card, n, args)
-            for n, args in enumerate(calls["one_pos_machine_cuda"])]
+            for n, (args, _) in enumerate(calls["one_pos_machine_cuda"])]
     p3 = seed_strategy_launch(dev, card,
-                              calls["seed_strategy_machine_cuda"][0])
-    walk = sal_launch(dev, card, calls["sa_walk_cuda"][0])
+                              calls["seed_strategy_machine_cuda"][0][0])
+    walk = sal_launch(dev, card, calls["sa_walk_cuda"][0][0])
+    seeds = chain_seeds_launch(dev, card, *calls["chain_seeds_cuda"][0])
+    flt = chain_filter_launch(dev, card, *calls["chain_filter_cuda"][0])
     smem_tiers(dev, card, al, c, ln)
-    return path, smem, p3, walk
+    repeat_slice(dev, card, al)
+    return path, smem, p3, walk, seeds, flt
 
 
-def walk_launch(dev, what, kernel, plain, args, plain_reps):
-    """One FM-walk launch of the batch, as made: the kernel against its
-    plain version on every output, its per-lane steps, their latency
-    floor (the longest lane's steps x STEP_US), the kernel's device time
-    (mean of 2, around the plain version's time). Returns (the kernel's
-    output, the numbers)."""
+def walk_launch(dev, what, kernel, plain, args, plain_reps, kw=None):
+    """One FM-walk or chaining launch of the batch, as made: the kernel
+    against its plain version on every output (each equal), its per-lane
+    steps, their latency floor (the longest lane's steps x STEP_US), the
+    kernel's device time (mean of 2, around the plain version's time).
+    Returns (the kernel's output, the numbers)."""
     import torch
-    got = kernel(*args)
+    kw = {k: v for k, v in (kw or {}).items() if k != "stats"}
+    got = kernel(*args, **kw)
     steps = kernel.last_steps.long()
-    want = plain(*args)
+    want = plain(*args, **kw)
     torch.cuda.synchronize()
-    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
-              for a, b in pairs)
-    if err:
-        raise SystemExit(f"slice: {what} != plain (max_abs_err {err})")
-    ms = [device_ms(lambda: kernel(*args), 20, dev)]
-    plain_ms = time_ms(lambda: plain(*args), plain_reps, dev)
-    ms.append(device_ms(lambda: kernel(*args), 20, dev))
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    bad = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+    err = max(float((a.double() - b.double()).abs().max()) if a.numel()
+              else 0.0 for a, b in pairs)
+    if bad or err:
+        raise SystemExit(f"slice: {what} != plain in outputs {bad} "
+                         f"(max_abs_err {err})")
+    ms = [device_ms(lambda: kernel(*args, **kw), 20, dev)]
+    plain_ms = time_ms(lambda: plain(*args, **kw), plain_reps, dev)
+    ms.append(device_ms(lambda: kernel(*args, **kw), 20, dev))
     longest = int(steps.max())
     return got, dict(err=err, ms=sum(ms) / 2, plain_ms=plain_ms,
                      steps=int(steps.sum()), longest=longest,
@@ -560,6 +608,211 @@ def sal_launch(dev, card, args):
              f"sa_compx {args[0].sa_compx})", r,
              f"{r['steps']} iterations")
     return r
+
+
+def chain_seeds_launch(dev, card, args, kw, batch="the batch"):
+    """A chain_seeds launch as made, against the lockstep, with its bound:
+    the coordinate prefix (rbeg, seed_idx, and coord_valid up to each
+    read's first invalid entry), the SMEM rows it names (m, n), the
+    contig offsets, and every output, the zeroed [4, B, C, S] seed planes
+    included (not the per-read steps), against CHAIN_OPS_PER_COORD a
+    coordinate; latency floor: the longest read's coordinates x
+    CHAIN_TRIPS_PER_COORD dependent loads x STEP_US."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops.chain import chain_seeds_device
+    from bwa_mem_scale_tpu_torch.ops.chain_cuda import chain_seeds_cuda
+    got, r = walk_launch(dev, "chain_seeds launch", chain_seeds_cuda,
+                         chain_seeds_device, args, 2, kw)
+    bns, smems, rbeg, seed_idx, coord_valid = args
+    (B, NC), M = rbeg.shape, smems.m.shape[1]
+    C, S = got.seed_qbeg.shape[1:]
+    total = coord_valid.sum(1)
+    rows = torch.arange(B, device=dev)[:, None] * M + seed_idx.long()
+    n_rows = int(torch.unique(rows[coord_valid]).numel())
+    n_coord = int(total.sum())
+    n_ended = int((total < NC).sum())     # reads whose walk reads a false
+    nbytes = (9 * n_coord + n_ended + 8 * n_rows + 8 * bns.offsets.numel()
+              + 16 * B * C + 16 * B * C * S + 5 * B)
+    r["bound"] = bound(nbytes, CHAIN_OPS_PER_COORD * n_coord)
+    r["floor"] *= CHAIN_TRIPS_PER_COORD
+    r.update(coords=n_coord, chains=int(got.n.sum()),
+             max_chains=int(got.n.max()), overflowed=int(got.overflow.sum()))
+    log(f"[slice] chain_seeds launch, {batch} (B={B}, NC={NC}, C={C}, "
+        f"S={S}): equal to the plain version, each field (max_abs_err "
+        f"{r['err']}); {n_coord} coordinates, the longest read "
+        f"{r['longest']}, {r['chains']} chains (at most {r['max_chains']} a"
+        f" read), {r['overflowed']} reads overflowed; bound "
+        f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, latency floor "
+        f"{r['floor']:.5f} ms ({r['longest']} x {CHAIN_TRIPS_PER_COORD} x "
+        f"{STEP_US} us); kernel device time {r['ms']:.5f} ms (its seed "
+        f"planes' zero fill included; mean of 2), plain "
+        f"{r['plain_ms']:.2f} ms  [{card}]")
+    return r
+
+
+def chain_filter_launch(dev, card, args, kw, batch="the batch"):
+    """A chain_filter launch as made, against chain_filter_frac_rep, with
+    its bound: the chain count, the live slots' rid and seed count, their
+    seeds (qbeg, rbeg, len), the is_alt entries of their contigs, the
+    frac_rep scan's reads (s of every SMEM, m and n of those over
+    max_occ), cnt, lens, and the outputs (order, kept, w_by_slot,
+    frac_rep); operations FLT_OPS_PER_* a seed, overlap test, SMEM and
+    SMEM over max_occ; latency floor: the longest read's steps x
+    STEP_US."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops.chain import chain_filter_frac_rep
+    from bwa_mem_scale_tpu_torch.ops.chain_cuda import chain_filter_cuda
+    got, r = walk_launch(dev, "chain_filter launch", chain_filter_cuda,
+                         chain_filter_frac_rep, args, 2, kw)
+    ch, bns, smems, lens = args
+    B, C, S = ch.seed_qbeg.shape
+    M = smems.m.shape[1]
+    live = torch.arange(C, device=dev)[None, :] < ch.n.long()[:, None]
+    n_live = int(live.sum())
+    n_seeds = int(ch.n_seeds[live].sum())
+    rids = ch.rid[live]
+    n_alt = int(torch.unique(rids[rids >= 0]).numel())
+    scanned = (torch.arange(M, device=dev)[None, :]
+               < smems.cnt.long()[:, None])
+    n_smem = int(scanned.sum())
+    n_rep = int((scanned & (smems.s > kw["max_occ"])).sum())
+    tests = r["steps"] - n_live
+    nbytes = (4 * B + 8 * n_live + 12 * n_seeds + n_alt + 4 * n_smem
+              + 8 * n_rep + 8 * B + 12 * B * C + 4 * B)
+    r["bound"] = bound(nbytes, FLT_OPS_PER_SEED * n_seeds
+                       + FLT_OPS_PER_TEST * tests + FLT_OPS_PER_SMEM * n_smem
+                       + FLT_OPS_PER_REP * n_rep)
+    kept = got[1]
+    r.update(tests=tests, kept={k: int(((kept == k) & live).sum())
+                                for k in range(4)},
+             rep_reads=int((got[3] > 0).sum()))
+    log(f"[slice] chain_filter launch, {batch} (B={B}, C={C}, S={S}, "
+        f"M={M}): equal to the plain version, each output (max_abs_err "
+        f"{r['err']}); {n_live} live chains of {n_seeds} seeds, {tests} "
+        f"overlap tests, kept 3/2/1/0: {r['kept'][3]}/{r['kept'][2]}/"
+        f"{r['kept'][1]}/{r['kept'][0]}, {n_smem} SMEMs scanned ({n_rep} "
+        f"over max_occ; {r['rep_reads']} reads with frac_rep > 0), the "
+        f"longest read {r['longest']} steps; bound {r['bound'][0]:.6f} ms "
+        f"by {r['bound'][1]}, latency floor {r['floor']:.5f} ms "
+        f"({r['longest']} x {STEP_US} us); kernel device time "
+        f"{r['ms']:.5f} ms (mean of 2), plain {r['plain_ms']:.2f} ms  "
+        f"[{card}]")
+    return r
+
+
+def repeat_genome():
+    """A 2 Mbp genome in three contigs (the last alt): its first 1 kbp
+    copied to 24 places (3 substitutions each), and a 150 bp unit at 1 Mbp
+    copied to 599 more places 1.5 kbp apart (more hits than max_occ); 512
+    reads of 101 bp (1% substitutions), a quarter exact copies from the
+    1 kbp window and 16 from the unit, so that reads have tens of chains
+    that overlap on the query, and some SMEMs are repetitive. Returns
+    (the port's index, codes, lens)."""
+    from bwa_mem_scale_tpu_torch.index.build import build_index
+    from bwa_mem_scale_tpu_torch.models.aligner import (demo_genome,
+                                                       simulate_reads)
+    bns = demo_genome(2_000_000, seed=42, n_contigs=3)
+    bns.anns[-1].is_alt = True
+    rng = np.random.RandomState(3)
+    for k in range(1, 25):
+        at = k * 40_000
+        bns.seq[at:at + 1000] = bns.seq[:1000]
+        bns.seq[at + rng.randint(0, 1000, 3)] = rng.randint(0, 4, 3)
+    unit = 1_000_000
+    for k in range(1, 600):
+        at = unit + 1500 * k
+        bns.seq[at:at + 150] = bns.seq[unit:unit + 150]
+    codes, lens = simulate_reads(bns, BATCH, READ_LEN, seed=8,
+                                 err_rate=0.01)
+    for i in range(0, BATCH, 4):
+        start = rng.randint(0, 900)
+        codes[i] = bns.seq[start:start + READ_LEN]
+    for i in range(2, BATCH, 32):
+        start = unit + rng.randint(0, 150 - READ_LEN)
+        codes[i] = bns.seq[start:start + READ_LEN]
+    return build_index(bns), codes, lens
+
+
+def repeat_slice(dev, card, al):
+    """Phase 5 on a batch whose reads have many chains (repeat_genome):
+    seed_chain_extend at the main path's shapes with the kernels and with
+    the plain chaining, packed and meta equal; its two chaining launches,
+    as made, each equal to its plain version with its steps, bound,
+    latency floor and times; the filter again at options that cut and
+    drop chains (min_chain_weight 20, mask_level 0.3, drop_ratio 0.3,
+    max_chain_extend 2), equal to its plain version. Fails unless the
+    batch reaches the filter's overlap, drop and first paths, a
+    repetitive SMEM and a chain overflow. Returns the two launches'
+    numbers."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import chain
+    from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    from bwa_mem_scale_tpu_torch.pipeline import align
+    t0 = time.perf_counter()
+    idx, codes, lens = repeat_genome()
+    fmi = DeviceFMIndex.from_host(idx, dev)
+    dbns = chain.DeviceBns.from_host(idx.bns, dev)
+    c = torch.as_tensor(codes, device=dev)
+    ln = torch.as_tensor(lens, device=dev)
+    real = {"chain_seeds_cuda": align.chain_seeds_cuda,
+            "chain_filter_cuda": align.chain_filter_cuda}
+    calls = {name: [] for name in real}
+
+    def recorder(name, fn):
+        def record(*args, **kw):
+            calls[name].append((args, kw))
+            return fn(*args, **kw)
+        return record
+
+    outs = []
+    for swaps in ({n: recorder(n, fn) for n, fn in real.items()},
+                  {"chain_seeds_cuda": chain.chain_seeds_device,
+                   "chain_filter_cuda": chain.chain_filter_frac_rep}):
+        for name, fn in swaps.items():
+            setattr(align, name, fn)
+        try:
+            outs.append(align.seed_chain_extend(fmi, dbns, c, ln, READ_LEN,
+                                                opt=al.opt, cfg=al.cfg))
+        finally:
+            for name, fn in real.items():
+                setattr(align, name, fn)
+    for key in ("packed", "meta"):
+        if not torch.equal(outs[0][key], outs[1][key]):
+            raise SystemExit(f"slice: repeat batch {key} differs kernel vs "
+                             f"plain chaining")
+    log(f"[slice] repeat batch ({len(codes)} reads on a 2 Mbp genome with "
+        f"repeats; made, indexed and seeded in "
+        f"{time.perf_counter() - t0:.1f} s): seed_chain_extend packed and "
+        f"meta equal with the kernels and with the plain chaining")
+    if any(len(v) != 1 for v in calls.values()):
+        raise SystemExit(f"slice: repeat batch chaining calls "
+                         f"{ {k: len(v) for k, v in calls.items()} }")
+    seeds = chain_seeds_launch(dev, card, *calls["chain_seeds_cuda"][0],
+                               batch="repeat batch")
+    flt = chain_filter_launch(dev, card, *calls["chain_filter_cuda"][0],
+                              batch="repeat batch")
+    (ch, *rest), kw = calls["chain_filter_cuda"][0]
+    kw = dict(kw, stats=None, min_chain_weight=20, mask_level=0.3,
+              drop_ratio=0.3, max_chain_extend=2)
+    got = real["chain_filter_cuda"](ch, *rest, **kw)
+    want = chain.chain_filter_frac_rep(ch, *rest, **kw)
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not torch.equal(a, b)]
+    if bad:
+        raise SystemExit(f"slice: repeat batch chain_filter at "
+                         f"non-default options != plain in outputs {bad}")
+    kept = got[1]
+    log(f"[slice] chain_filter launch, repeat batch, min_chain_weight 20, "
+        f"mask_level 0.3, drop_ratio 0.3, max_chain_extend 2: equal to the "
+        f"plain version, each output; kept 3/2/1: {int((kept == 3).sum())}/"
+        f"{int((kept == 2).sum())}/{int((kept == 1).sum())}, "
+        f"{int((kept[:, 0] == 0).sum())} reads with none  [{card}]")
+    if not (flt["tests"] > 0 and flt["kept"][0] and flt["kept"][1]
+            and flt["kept"][2] and flt["rep_reads"] and seeds["overflowed"]
+            and seeds["max_chains"] >= 3):
+        raise SystemExit(f"slice: the repeat batch misses a path of the "
+                         f"chaining kernels: {seeds}, {flt}")
+    return seeds, flt
 
 
 def smem_tiers(dev, card, al, c, ln):
@@ -672,6 +925,8 @@ def phase_pe(dev, card, tmp):
         emf_lookup_host, load_perfect_table)
     from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
+    from bwa_mem_scale_tpu_torch.ops.chain_cuda import (chain_filter_cuda,
+                                                        chain_seeds_cuda)
     from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
         one_pos_machine_cuda, sa_walk_cuda, seed_strategy_machine_cuda)
@@ -685,15 +940,21 @@ def phase_pe(dev, card, tmp):
     one_pos_machine_cuda.launches = 0
     seed_strategy_machine_cuda.launches = 0
     sa_walk_cuda.launches = 0
+    chain_seeds_cuda.launches = 0
+    chain_filter_cuda.launches = 0
+    pe_argv = [g, os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq"),
+               "-o", sam, "--device", "cuda", "--batch-reads", str(BATCH)]
     t0 = time.perf_counter()
-    al = cli.mem([g, os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq"),
-                  "-o", sam, "--device", "cuda", "--batch-reads", str(BATCH)])
+    al = cli.mem(pe_argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"banded_swa_batch": banded_swa_batch_cuda.launches,
                 "one_pos_machine": one_pos_machine_cuda.launches,
                 "seed_strategy_machine": seed_strategy_machine_cuda.launches,
-                "sa_walk": sa_walk_cuda.launches}  # PE path ends here
+                "sa_walk": sa_walk_cuda.launches,
+                "chain_seeds": chain_seeds_cuda.launches,
+                "chain_filter": chain_filter_cuda.launches}
+    # PE path ends here
 
     pt = load_perfect_table(g + ".emf101.npz")
     code = emf_lookup_host(pt, idx.ref_string, codes, lens)["code"]
@@ -701,7 +962,8 @@ def phase_pe(dev, card, tmp):
                  is_rev)
     if launches["banded_swa_batch"] <= 0:
         raise SystemExit("pe: the BSW kernel was never launched")
-    for name in ("one_pos_machine", "seed_strategy_machine", "sa_walk"):
+    for name in ("one_pos_machine", "seed_strategy_machine", "sa_walk",
+                 "chain_seeds", "chain_filter"):
         if launches[name] < al.batches:
             raise SystemExit(f"pe: the {name} kernel launched "
                              f"{launches[name]} times over {al.batches} "
@@ -720,6 +982,11 @@ def phase_pe(dev, card, tmp):
         f"{sec['pe_rows']:.3f}), EMF probe {sec['emf_probe_host']:.3f}, "
         f"SAM write {sec['sam_write']:.3f}, index load "
         f"{sec['index_load']:.3f}  [{card}]")
+    al4 = cli.mem(pe_argv + ["-v", "4"])
+    sec = al4.prof.seconds
+    log(f"[pe -v 4] synchronised stage seconds over {al4.batches} batches:"
+        f" seed {sec['seed']:.3f}, sal {sec['sal']:.3f}, chain "
+        f"{sec['chain']:.3f}, bsw {sec['bsw']:.3f}  [{card}]")
     return launches
 
 
@@ -803,26 +1070,31 @@ def main():
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{name} x{torch.cuda.device_count()}")
 
-    from bwa_mem_scale_tpu_torch.ops import bsw_cuda, nvcc_build
+    from bwa_mem_scale_tpu_torch.ops import bsw_cuda, chain_cuda, nvcc_build
     from bwa_mem_scale_tpu_torch.ops import probe_kernels, smem_cuda
-    with ThreadPoolExecutor(3) as ex:           # one nvcc a source, at once
+    with ThreadPoolExecutor(4) as ex:           # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
                   ex.submit(probe_kernels.build, force=True, verbose=True),
-                  ex.submit(smem_cuda.build, force=True)]
+                  ex.submit(smem_cuda.build, force=True),
+                  ex.submit(chain_cuda.build, force=True)]
         probes_seconds = builds[1].result()[1]
-        builds[0].result()
-        builds[2].result()
-    log(f"[build] csrc/bsw.cu -> {os.path.relpath(bsw_cuda.LIB_PATH, REPO)}"
-        f" in {bsw_cuda.build_seconds:.2f} s; csrc/probes.cu -> "
+        for b in builds:
+            b.result()
+    log(f"[build] csrc/bsw.cu -> {os.path.relpath(bsw_cuda.LIB.path, REPO)}"
+        f" in {bsw_cuda.LIB.build_seconds:.2f} s; csrc/probes.cu -> "
         f"{os.path.relpath(probe_kernels.LIB_PATH, REPO)} in "
         f"{probes_seconds:.2f} s; csrc/smem.cu -> "
-        f"{os.path.relpath(smem_cuda.LIB_PATH, REPO)} in "
-        f"{smem_cuda.build_seconds:.2f} s (in parallel)")
+        f"{os.path.relpath(smem_cuda.LIB.path, REPO)} in "
+        f"{smem_cuda.LIB.build_seconds:.2f} s; csrc/chain.cu -> "
+        f"{os.path.relpath(chain_cuda.LIB.path, REPO)} in "
+        f"{chain_cuda.LIB.build_seconds:.2f} s (in parallel)")
     kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
-               for lib in ("smem_cuda", "bsw_cuda")}
+               for lib in ("smem_cuda", "bsw_cuda", "chain_cuda")}
     for lib, kernel in (("smem_cuda", "one_pos_kernel"),
                         ("smem_cuda", "seed_strategy_kernel"),
                         ("smem_cuda", "sa_walk_kernel"),
+                        ("chain_cuda", "chain_seeds_kernel"),
+                        ("chain_cuda", "chain_filter_kernel"),
                         ("bsw_cuda", "bsw_tiled_kernel")):
         (r, s), = [v for fn, v in kernels[lib].items() if kernel in fn]
         log(f"[build] {kernel}: {r} registers, {s} bytes spilled")
@@ -842,7 +1114,8 @@ def main():
     k = phase_kernel(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches, al, codes, lens = phase_mem(dev, card, tmp)
-        _, smem, p3, walk = phase_slice(dev, card, al, codes, lens)
+        _, smem, p3, walk, seeds, flt = phase_slice(dev, card, al, codes,
+                                                    lens)
         probes = phase_probes(dev, card)
         phase_pe(dev, card, tmp)
 
@@ -870,7 +1143,15 @@ def main():
         for name, replaces, r in (
             ("seed_strategy_machine",
              "bwa_mem_scale_tpu/ops/smem_oh.py:619", p3),
-            ("sa_walk", "bwa_mem_scale_tpu/ops/sal.py:23", walk))]}))
+            ("sa_walk", "bwa_mem_scale_tpu/ops/sal.py:23", walk))] + [{
+        "name": name, "route": "cuda", "source": "csrc/chain.cu",
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "library_ms": None}
+        for name, replaces, r in (
+            ("chain_seeds", "bwa_mem_scale_tpu/ops/chain.py:78", seeds),
+            ("chain_filter", "bwa_mem_scale_tpu/ops/chain.py:299", flt))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -130,6 +130,52 @@ def test_chain_and_filter(setup, caps):
                                torch.as_tensor(setup["lens"]), opt.max_occ))
 
 
+@pytest.mark.parametrize("caps", [(16, 8), (4, 2)],
+                         ids=["roomy", "tiny"])
+def test_chain_twins_on_genome_equal_to_jax(setup, caps):
+    """The chaining kernels' CPU twins (``chain_cuda.chain_seeds_twin``
+    and ``chain_filter_twin``) on the genome's SMEMs and coordinates
+    (the repeat read among them): every Chains field, order, kept,
+    w_by_slot and frac_rep equal to the JAX package's, and each read's
+    steps the coordinates it walked."""
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.ops import chain as jchain
+    from bwa_mem_scale_tpu.ops import sal as jsal
+    from bwa_mem_scale_tpu_torch.ops import chain_cuda
+    opt = setup["opt"]
+    C, S = caps
+    jx = jsal.expand_and_lookup(setup["jf"], setup["smems"], opt.max_occ,
+                                64)
+    bns = setup["idx"].bns
+    jb = jchain.DeviceBns.from_host(bns)
+    kw = dict(w=opt.w, max_chain_gap=opt.max_chain_gap, max_chains=C,
+              max_seeds_per_chain=S)
+    jch = jchain.chain_seeds_device(jb, setup["smems"], *jx[:3], **kw)
+    sm = [np.asarray(a) for a in setup["smems"]]
+    total = np.asarray(jx[3])
+    twin, steps = chain_cuda.chain_seeds_twin(
+        np.asarray(bns.offsets, np.int64), bns.l_pac, sm[0], sm[1],
+        np.asarray(jx[0]), np.asarray(jx[1]), np.asarray(jx[2]), **kw)
+    for f in jch._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(jch, f)),
+                                      getattr(twin, f), f)
+    np.testing.assert_array_equal(steps, total)
+    assert total.max() >= 10 and (twin.overflow.any() or C == 16)
+    fkw = dict(min_chain_weight=opt.min_chain_weight,
+               mask_level=opt.mask_level, max_chain_gap=opt.max_chain_gap,
+               drop_ratio=opt.drop_ratio, min_seed_len=opt.min_seed_len,
+               max_chain_extend=opt.max_chain_extend)
+    want = (*jchain.chain_filter_device(jch, jb, **fkw),
+            jchain.frac_rep_device(setup["smems"],
+                                   jnp.asarray(setup["lens"]), opt.max_occ))
+    got = chain_cuda.chain_filter_twin(
+        np.asarray(bns.is_alt, bool), twin, sm[0], sm[1], sm[4], sm[5],
+        setup["lens"], max_occ=opt.max_occ, **fkw)
+    for name, a, b in zip(("order", "kept", "w_slot", "frac_rep"), want,
+                          got):
+        _eq(a, torch.as_tensor(b), name)
+
+
 # ---- the SA walk: the CUDA kernel's twin, the plain walk and JAX -------
 
 @pytest.fixture(scope="module", params=[3, 0], ids=["compx3", "compx0"])
