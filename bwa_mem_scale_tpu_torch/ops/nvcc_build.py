@@ -78,13 +78,16 @@ class Library:
     ctypes, its launch functions (each returning a CUDA error code and
     taking the stream last) called on a device's current stream.
     `argtypes` maps each function to its ctypes argument types, the
-    stream left out."""
+    stream left out; `host_fns` maps the library's host functions (no
+    stream, an int back) the same way, for ``call``."""
 
-    def __init__(self, source: str, name: str, argtypes: dict):
+    def __init__(self, source: str, name: str, argtypes: dict,
+                 host_fns: dict = None):
         self.source = os.path.join(REPO, "csrc", source)
         self.name = name
         self.path = lib_path(name)
         self.argtypes = argtypes
+        self.host_fns = host_fns or {}
         self.build_seconds = None   # nvcc's wall time, when this process built
         self._lib = None
 
@@ -103,8 +106,16 @@ class Library:
                 f = getattr(lib, fn)
                 f.argtypes = [*types, ctypes.c_void_p]
                 f.restype = ctypes.c_int
+            for fn, types in self.host_fns.items():
+                f = getattr(lib, fn)
+                f.argtypes = types
+                f.restype = ctypes.c_int
             self._lib = lib
         return self._lib
+
+    def call(self, fn: str, *args) -> int:
+        """lib.<fn>(*args) for a host function of ``host_fns``."""
+        return getattr(self.load(), fn)(*args)
 
     def launch(self, dev, fn: str, *args) -> None:
         """lib.<fn>(*args, stream) on dev's current stream; raises on the

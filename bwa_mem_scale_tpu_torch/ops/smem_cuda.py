@@ -3,33 +3,39 @@
 Three wrappers, each with the signature of its plain version and each
 replacing a ``jax.lax.while_loop`` of the JAX package:
 - ``one_pos_machine_cuda``: SMEM passes 1 and 2 (plain
-  ``ops/smem_oh.py::one_pos_machine``; JAX ``one_pos_machine_oh``);
+  ``ops/smem_oh.py::one_pos_machine``; JAX ``one_pos_machine_oh``), one
+  warp a task;
 - ``seed_strategy_machine_cuda``: SMEM pass 3 (plain
   ``ops/smem_oh.py::seed_strategy_machine``; JAX
-  ``seed_strategy_machine_oh``);
+  ``seed_strategy_machine_oh``), one thread a read;
 - ``sa_walk_cuda``: the SA lookup's LF walk, which
   ``ops/sal.py::sa_lookup`` calls (plain ``sa_lookup_plain``; JAX
-  ``sa_lookup``).
-On CUDA tensors each launches its kernel once (one thread a lane, the
-whole walk in the launch) or raises; on CPU tensors each runs its plain
-version (imported at the call: the plain versions' modules import this
-one). There is no fallback from a kernel to its plain version. Each
-keeps a ``launches`` count and the last call's per-lane ``last_steps``.
+  ``sa_lookup``), one thread a coordinate.
+On CUDA tensors each launches its kernel once (the whole walk in the
+launch) or raises; on CPU tensors each runs its plain version (imported
+at the call: the plain versions' modules import this one). There is no
+fallback from a kernel to its plain version. Each keeps a ``launches``
+count and the last call's per-lane ``last_steps`` (the ext calls);
+``one_pos_machine_cuda`` also keeps ``last_rounds`` (the dependent occ
+round trips on each task's path).
 
 Each kernel returns its plain version's arrays exactly, lanes that
 overflowed their stacks or their emission depth included. The source is
 compiled with nvcc into ``build/torch_kernels/libsmem_cuda.so`` at first
 use (``ops/nvcc_build.py``) and bound with ctypes. The wrappers allocate
-the zeroed outputs, any scratch (passes 1-2: the interval stacks
-``[2][4][SD + 1][T]`` int32) and the per-lane step counts, and launch on
-the current stream with no host synchronisation. With ``stats`` they add
-the longest lane's steps (dependent occ steps) under ``seed_steps_p1`` /
-``seed_steps_p2`` / ``seed_steps_p3`` (``sal_steps`` in ``sa_lookup``)
-as a device tensor, read once by ``tick_report``.
+the outputs (each kernel writes every slot, zeros past a lane's
+count), any scratch (passes 1-2: the interval stacks
+``[T][2][SD + 1][4]`` int32, only where one warp's shared memory cannot
+hold them) and the per-lane counts, and launch on the current stream
+with no host synchronisation. With ``stats`` they add the longest lane's
+steps under ``seed_steps_p1`` / ``seed_steps_p2`` / ``seed_steps_p3``
+(``sal_steps`` in ``sa_lookup``), and for passes 1-2 the longest task's
+rounds under ``seed_rounds_p1`` / ``seed_rounds_p2``, as device tensors
+read once by ``tick_report``.
 
 ``one_pos_twin``, ``seed_strategy_twin`` and ``sa_walk_twin`` are the
 kernels' loops in plain Python on numpy arrays, tests of the kernels'
-control flow on the CPU at small sizes; each counts the steps its kernel
+control flow on the CPU at small sizes; each counts what its kernel
 counts.
 """
 
@@ -47,11 +53,12 @@ from .smem import SmemBuf
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIB = nvcc_build.Library("smem.cu", "smem_cuda", {
     "one_pos_launch": ([_vp] + [_ci] * 7 + [_vp, _vp, _ci, _ci] + [_vp] * 4
-                       + [_ci] * 5 + [_vp] * 4),
-    "seed_strategy_launch": ([_vp] + [_ci] * 7 + [_vp, _vp] + [_ci] * 5
+                       + [_ci] * 5 + [_vp] * 5),
+    "seed_strategy_launch": ([_vp] + [_ci] * 7 + [_vp, _vp] + [_ci] * 6
                              + [_vp] * 3),
     "sa_walk_launch": ([_vp] + [_ci] * 7 + [_vp, _ci, _ci, _vp, _vp, _ci]
-                       + [_vp] * 2)})
+                       + [_vp] * 2)},
+    host_fns={"one_pos_stacks_in_shared": [_ci, _ci]})
 build = LIB.build            # compile csrc/smem.cu; returns the library path
 
 
@@ -86,8 +93,9 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
     """Drop-in for ``one_pos_machine`` (equal arrays). codes [B, L] and
     lens [B] int32; t_read, t_x, t_mi [T] integer; t_valid [T] bool, all
     on fmi's device. `stats` gets the lockstep's tick count from the
-    plain version (CPU tensors) and the kernel's longest lane's steps
-    under ``stats_key`` with "ticks" read as "steps" (CUDA tensors)."""
+    plain version (CPU tensors), or the kernel's longest task's steps and
+    rounds under ``stats_key`` with "ticks" read as "steps" and "rounds"
+    (CUDA tensors)."""
     if codes.device.type == "cpu":
         from .smem_oh import one_pos_machine
         return one_pos_machine(fmi, codes, lens, t_read, t_x, t_mi, t_valid,
@@ -103,32 +111,40 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
                                  for t in (t_x, t_mi, t_valid)):
         raise ValueError("one_pos_machine_cuda: task or read counts differ")
     i32 = torch.int32
-    out = torch.zeros((5, T, max_out), dtype=i32, device=dev)
+    out = torch.empty((5, T, max_out), dtype=i32, device=dev)
     cnt = torch.empty((T,), dtype=i32, device=dev)
     steps = torch.empty((T,), dtype=i32, device=dev)
+    rounds = torch.empty((T,), dtype=i32, device=dev)
     if T:
         args = [codes.contiguous(), lens.contiguous(),
                 t_read.to(i32).contiguous(), t_x.to(i32).contiguous(),
                 t_mi.to(i32).contiguous(),
                 t_valid.to(torch.bool).contiguous()]
-        stk = torch.empty((2, 4, SD + 1, T), dtype=i32, device=dev)
+        # the stacks in each warp's shared memory, or past 227 KB a scratch
+        stk = (None if LIB.call("one_pos_stacks_in_shared", L, SD) else
+               torch.empty((T, 2, SD + 1, 4), dtype=i32, device=dev))
         LIB.launch(dev, "one_pos_launch", *_fmi_args(fmi), args[0].data_ptr(),
-                args[1].data_ptr(), B, L,
-                *(a.data_ptr() for a in args[2:]), T, int(chain_restarts),
-                min_seed_len, max_out, SD, stk.data_ptr(), out.data_ptr(),
-                cnt.data_ptr(), steps.data_ptr())
+                   args[1].data_ptr(), B, L,
+                   *(a.data_ptr() for a in args[2:]), T, int(chain_restarts),
+                   min_seed_len, max_out, SD,
+                   None if stk is None else stk.data_ptr(), out.data_ptr(),
+                   cnt.data_ptr(), steps.data_ptr(), rounds.data_ptr())
         one_pos_machine_cuda.launches += 1
         if stats is not None:
-            key = stats_key.replace("ticks", "steps")
-            stats[key] = stats.get(key, 0) + steps.max()
+            for what, per_task in (("steps", steps), ("rounds", rounds)):
+                key = stats_key.replace("ticks", what)
+                stats[key] = stats.get(key, 0) + per_task.max()
     one_pos_machine_cuda.last_steps = steps
+    one_pos_machine_cuda.last_rounds = rounds
     return SmemBuf(*out.unbind(0), cnt)
 
 
 # kernel launches since the last reset (main-path proof in chip_smoke.py)
 one_pos_machine_cuda.launches = 0
-# the per-lane step counts of the last call ([T] int32, on its device)
+# the per-task ext calls and dependent occ round trips of the last call
+# ([T] int32 each, on its device)
 one_pos_machine_cuda.last_steps = None
+one_pos_machine_cuda.last_rounds = None
 
 
 def seed_strategy_machine_cuda(fmi: DeviceFMIndex, codes, lens,
@@ -149,14 +165,14 @@ def seed_strategy_machine_cuda(fmi: DeviceFMIndex, codes, lens,
     if lens.shape != (B,):
         raise ValueError("seed_strategy_machine_cuda: read counts differ")
     i32 = torch.int32
-    out = torch.zeros((5, B, max_out), dtype=i32, device=dev)
+    out = torch.empty((5, B, max_out), dtype=i32, device=dev)
     cnt = torch.empty((B,), dtype=i32, device=dev)
     steps = torch.empty((B,), dtype=i32, device=dev)
     if B:
         c, ln = codes.contiguous(), lens.contiguous()
         LIB.launch(dev, "seed_strategy_launch", *_fmi_args(fmi), c.data_ptr(),
-                ln.data_ptr(), B, L, int(max_intv), min_seed_len, max_out,
-                out.data_ptr(), cnt.data_ptr(), steps.data_ptr())
+                   ln.data_ptr(), B, L, int(max_intv), min_seed_len, max_out,
+                   0, out.data_ptr(), cnt.data_ptr(), steps.data_ptr())
         seed_strategy_machine_cuda.launches += 1
         if stats is not None:
             stats["seed_steps_p3"] = (stats.get("seed_steps_p3", 0)
@@ -240,12 +256,19 @@ class _TwinFmi:
         return self.count[c] + a[c], l + sent + sum(s4[c + 1:]), s4[c]
 
 
+WARP = 32                # a warp's lanes: one backward-round chunk
+
+
 def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
                  t_x, t_mi, t_valid, chain_restarts: bool,
                  min_seed_len: int, max_out: int, stack_depth: int = None):
-    """csrc/smem.cu's one_pos_kernel in plain Python on numpy arrays: the
-    same nested loops, clamps and stack scratch, one task after another.
-    Returns (m, n, k, l, s, cnt, steps) as numpy arrays."""
+    """csrc/smem.cu's one_pos_kernel in plain Python on numpy arrays, one
+    task (warp) after another: the serial forward walk, then each
+    backward round in chunks of WARP simulated lanes with the kernel's
+    ballot-form keep/emit rule and stack slots. Raises AssertionError
+    where a round breaks the two orders that rule rests on (along p the
+    new sizes never fall and the entries' ends never rise). Returns
+    (m, n, k, l, s, cnt, steps, rounds) as numpy arrays."""
     fm = _TwinFmi(count, cp_fused, sentinel_index)
     count, ext = fm.count, fm.ext
     codes = np.asarray(codes)
@@ -254,29 +277,28 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
     SD = stack_depth or L
     M = max_out
     out = np.zeros((5, T, M), np.int32)
-    cnt_out = np.zeros(T, np.int32)
-    steps_out = np.zeros(T, np.int32)
-    stk = np.zeros((2, 4, SD + 1), np.int64)    # one task's stacks
+    cnt_out, steps_out, rounds_out = (np.zeros(T, np.int32) for _ in range(3))
+    stk = np.zeros((2, SD + 1, 4), np.int64)     # one warp's stacks
 
     for t in range(T):
         rd = min(max(int(t_read[t]), 0), B - 1)
         q = codes[rd]
         n_len = int(lens[rd]) if t_valid[t] else 0
         mi = int(t_mi[t])
-        cnt = steps = wA = 0
+        cnt = steps = rounds = wA = 0
         of = False
 
         def code(i):
-            return int(q[min(max(i, 0), L - 1)])
+            return min(int(q[min(max(i, 0), L - 1)]), 4)
 
         def push(buf, c, vals):
             nonlocal of
-            stk[buf, :, min(c, SD)] = vals
+            stk[buf, min(c, SD)] = vals
             of |= c + 1 > SD
             return c + 1
 
         def read(buf, i):
-            return [int(v) for v in stk[buf, :, min(max(i, 0), SD - 1)]]
+            return [int(v) for v in stk[buf, min(max(i, 0), SD - 1)]]
 
         def emit(*vals):
             nonlocal cnt
@@ -295,13 +317,14 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
             ck, cl = count[xa], count[3 - xa]
             cs, cn = count[xa + 1] - count[xa], x
             j, nx, cA = x + 1, x + 1, 0
-            while j < n_len:                         # forward
+            while j < n_len:                         # forward, serial
                 nx = j + 1
                 a = code(j)
                 if a >= 4:
                     break
                 nl, nk, ns = ext(cl, ck, cs, 3 - a)
                 steps += 1
+                rounds += 1
                 if ns != cs:
                     cA = push(wA, cA, (ck, cl, cs, cn))
                 if ns < mi:
@@ -320,23 +343,37 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
                         if pn - mA + 1 >= min_seed_len:
                             emit(mA, pn, pk, pl, ps)
                     break
-                cB, curr_s, hit = 0, -1, False
-                for p in range(cA):
-                    pk, pl, ps, pn = read(wA, cA - 1 - p if rev else p)
-                    nk, nl, ns = ext(pk, pl, ps, a)
-                    steps += 1
-                    if hit:
-                        keep = ns >= mi and ns != curr_s
-                    elif ns < mi:
-                        hit = pn - mA + 1 >= min_seed_len
-                        if hit:
+                cB, prev, last = 0, 0, None
+                for c0 in range(0, cA, WARP):        # a chunk: one trip
+                    lanes = []                       # (entry, nk, nl, ns)
+                    for p in range(c0, min(c0 + WARP, cA)):
+                        e = read(wA, cA - 1 - p if rev else p)
+                        lanes.append((e, *ext(*e[:3], a)))
+                        ns, pn = lanes[-1][3], e[3]
+                        if last is not None and (ns < last[0]
+                                                 or pn > last[1]):
+                            raise AssertionError(
+                                f"one_pos_twin: task {t}, round at j={j}, "
+                                f"entry {p}: sizes or ends out of order")
+                        last = (ns, pn)
+                    steps += len(lanes)
+                    rounds += 1
+                    if c0 == 0:                      # only entry 0 emits
+                        (pk, pl, ps, pn), _, _, ns = lanes[0]
+                        if ns < mi and pn - mA + 1 >= min_seed_len:
                             emit(mA, pn, pk, pl, ps)
-                        keep = False
-                    else:
-                        keep = hit = ns != curr_s
-                    if keep:
-                        cB = push(wA ^ 1, cB, (nk, nl, ns, pn))
-                        curr_s = ns
+                    ballot = 0
+                    for lane, (_, _, _, ns) in enumerate(lanes):
+                        up = prev if lane == 0 else lanes[lane - 1][3]
+                        cur = -1 if c0 + lane == 0 or up < mi else up
+                        ballot |= int(ns >= mi and ns != cur) << lane
+                    for lane, (e, nk, nl, ns) in enumerate(lanes):
+                        if ballot >> lane & 1:
+                            i = cB + bin(ballot & ((1 << lane) - 1)).count("1")
+                            stk[wA ^ 1, min(i, SD)] = (nk, nl, ns, e[3])
+                    cB += bin(ballot).count("1")
+                    prev = lanes[-1][3]
+                of |= cB > SD
                 wA ^= 1
                 cA, mA, rev, j = cB, j, False, j - 1
             if not chain_restarts:
@@ -345,14 +382,15 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
             if x >= n_len:
                 break
         cnt_out[t] = M + 1 if of else cnt
-        steps_out[t] = steps
-    return (*out, cnt_out, steps_out)
+        steps_out[t], rounds_out[t] = steps, rounds
+    return (*out, cnt_out, steps_out, rounds_out)
 
 
 def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
                        max_intv: int, min_seed_len: int, max_out: int):
     """csrc/smem.cu's seed_strategy_kernel in plain Python on numpy
-    arrays: the same loop and clamps, one read after another. Returns
+    arrays, one read after another: the same flat loop of one ext an
+    iteration, its `seek` to the next walk and its clamps. Returns
     (m, n, k, l, s, cnt, steps) as numpy arrays."""
     fm = _TwinFmi(count, cp_fused, sentinel_index)
     C = fm.count
@@ -365,29 +403,45 @@ def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
     for t in range(B):
         q, n_len = codes[t], int(lens[t])
         cnt = steps = 0
-        x = 0
-        while x < n_len:                             # start positions
-            xa = int(q[min(max(x, 0), L - 1)])
-            if xa >= 4:
-                x += 1
-                continue
-            ck, cl, cs = C[xa], C[3 - xa], C[xa + 1] - C[xa]
-            j = x + 1
-            while j < n_len:                         # forward from x
-                a = int(q[min(j, L - 1)])
-                j += 1
-                if a >= 4:
+        st = {}                                      # x, j, ck, cl, cs
+
+        def code(i):
+            return min(int(q[min(max(i, 0), L - 1)]), 4)
+
+        def seek(start):
+            """The next walk with an ext to make from `start` (the
+            kernel's seek); False at the read's end."""
+            x = start
+            while True:
+                while x < n_len and code(x) >= 4:
+                    x += 1
+                j = x + 1
+                if j >= n_len:
+                    return False
+                if code(j) < 4:
                     break
-                nl, nk, ns = fm.ext(cl, ck, cs, 3 - a)
-                steps += 1
-                if ns < max_intv and j - x >= min_seed_len:
-                    if ns > 0:
-                        if cnt < M:
-                            out[:, t, cnt] = (x, j - 1, nk, nl, ns)
-                        cnt += 1
-                    break
-                ck, cl, cs = nk, nl, ns
-            x = j
+                x = j + 1
+            xa = code(x)
+            st.update(x=x, j=j, ck=C[xa], cl=C[3 - xa], cs=C[xa + 1] - C[xa])
+            return True
+
+        live = seek(0)
+        while live:                                  # one ext an iteration
+            x, j = st["x"], st["j"]
+            nl, nk, ns = fm.ext(st["cl"], st["ck"], st["cs"], 3 - code(j))
+            steps += 1
+            if ns < max_intv and j + 1 - x >= min_seed_len:
+                if ns > 0:
+                    if cnt < M:
+                        out[:, t, cnt] = (x, j, nk, nl, ns)
+                    cnt += 1
+                live = seek(j + 1)
+            else:
+                st.update(ck=nk, cl=nl, cs=ns, j=j + 1)
+                if j + 1 >= n_len:
+                    live = False
+                elif code(j + 1) >= 4:
+                    live = seek(j + 2)
         cnt_out[t] = cnt
         steps_out[t] = steps
     return (*out, cnt_out, steps_out)

@@ -101,7 +101,8 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
 
     stack_depth (default the read length L, provably enough) bounds
     the interval stacks; a lane that overflows them reports
-    cnt = max_out + 1."""
+    cnt = max_out + 1. Keeps each lane's occ extensions (the kernel's
+    steps) in ``one_pos_machine.last_steps``."""
     dev = codes.device
     T = t_read.shape[0]
     B, L = codes.shape
@@ -123,6 +124,7 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
         cntA=i32(0), cntB=i32(0), mA=i32(0), p=i32(0),
         rev=torch.zeros((T,), dtype=torch.bool, device=dev),
         curr_s=i32(-1),
+        steps=i32(0),
     )
     # interval stacks: [2, T, SD+1] per field (k, l, s, n); the A stack
     # of lane t is buffer wA[t], the B stack the other one; the extra
@@ -226,6 +228,9 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
         cntB = push(1 - wA, [(keep_b, nk, nl, ns, pn)], cntB)
         curr_s = torch.where(keep_b, ns, curr_s)
 
+        st["steps"] = st["steps"] + (f_run | bs_run
+                                     | (is_bt & (p < cntA0))).to(torch.int32)
+
         # stack-overflow latch, before the epilogue resets the counts
         of = st["of"] | (cntA > SD) | (cntB > SD)
 
@@ -279,6 +284,7 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
                   curr_s=curr_s)
 
     _run(body, lambda: st["phase"], stats, stats_key)
+    one_pos_machine.last_steps = st["steps"]
     return out.result(torch.where(st["of"], max_out + 1, out.cnt))
 
 
@@ -286,13 +292,14 @@ def seed_strategy_machine(fmi: DeviceFMIndex, codes, lens, max_intv: int,
                           min_seed_len: int, max_out: int,
                           stats: dict = None) -> SmemBuf:
     """Pass 3 (bwtSeedStrategyAllPosOneThread,
-    src/FMI_search.cpp:1662-1730), one lane per read."""
+    src/FMI_search.cpp:1662-1730), one lane per read. Keeps each lane's
+    occ extensions in ``seed_strategy_machine.last_steps``."""
     dev = codes.device
     B, L = codes.shape
     count = fmi.count
     i32 = lambda v: torch.full((B,), v, dtype=torch.int32, device=dev)
     st = dict(phase=i32(P_INIT), x=i32(0), j=i32(0), ck=i32(0),
-              cl=i32(0), cs=i32(0))
+              cl=i32(0), cs=i32(0), steps=i32(0))
     lens_t = lens.to(torch.int32)
     out = _Emitter(B, max_out, dev)
 
@@ -311,6 +318,7 @@ def seed_strategy_machine(fmi: DeviceFMIndex, codes, lens, max_intv: int,
         sel = 3 - ac
         nk, nl, ns = _sel4(l4, sel), _sel4(k4, sel), _sel4(s4, sel)
         f_run = is_fwd & j_in & a_ok
+        st["steps"] = st["steps"] + f_run.to(torch.int32)
         hit = f_run & (ns < max_intv) & ((j - x + 1) >= min_seed_len)
         out.emit(hit & (ns > 0), x, j, nk, nl, ns)
         f_end = is_fwd & (~j_in | ~a_ok | hit)
@@ -340,6 +348,7 @@ def seed_strategy_machine(fmi: DeviceFMIndex, codes, lens, max_intv: int,
         st["x"] = xb
 
     _run(body, lambda: st["phase"], stats, "seed_ticks_p3")
+    seed_strategy_machine.last_steps = st["steps"]
     return out.result()
 
 

@@ -1,0 +1,56 @@
+"""Seeded read batches for measurements on the card: one batch of the
+4.6 Mbp single-end cell, and one from a genome with repeats."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..index.build import build_index
+from ..models.aligner import (demo_genome, simulate_reads,
+                              simulate_reads_with_truth)
+
+
+def se_batch(n_reads: int = 512, read_len: int = 101):
+    """chip_smoke.py phase 4's genome (4.6 Mbp, seed 7) and reads (seed
+    8, 1% substitutions, half reverse-complemented), its first n_reads
+    reads with a substitution: the reads the EMF table leaves to the
+    device, so phase 5's batch. Returns (the port's index, codes,
+    lens)."""
+    bns = demo_genome(4_600_000, seed=7, n_contigs=1)
+    codes, lens, pos, is_rev = simulate_reads_with_truth(
+        bns, 4 * n_reads, read_len, seed=8, err_rate=0.01)
+    comp = np.array([3, 2, 1, 0, 4], dtype=np.int32)
+    src = np.stack([bns.seq[p: p + read_len] for p in pos]).astype(np.int32)
+    src[is_rev] = comp[src[is_rev][:, ::-1]]
+    pick = np.flatnonzero((codes != src).any(1))[:n_reads]
+    return build_index(bns), codes[pick], lens[pick]
+
+
+def repeat_batch(n_reads: int = 512, read_len: int = 101):
+    """A 2 Mbp genome in three contigs (the last alt): its first 1 kbp
+    copied to 24 places (3 substitutions each), and a 150 bp unit at 1
+    Mbp copied to 599 more places 1.5 kbp apart (more hits than max_occ);
+    n_reads reads (1% substitutions), a quarter exact copies from the 1
+    kbp window and one in 32 from the unit, so that reads have tens of
+    chains that overlap on the query, some SMEMs are repetitive and the
+    interval stacks are deep. Returns (the port's index, codes, lens)."""
+    bns = demo_genome(2_000_000, seed=42, n_contigs=3)
+    bns.anns[-1].is_alt = True
+    rng = np.random.RandomState(3)
+    for k in range(1, 25):
+        at = k * 40_000
+        bns.seq[at:at + 1000] = bns.seq[:1000]
+        bns.seq[at + rng.randint(0, 1000, 3)] = rng.randint(0, 4, 3)
+    unit = 1_000_000
+    for k in range(1, 600):
+        at = unit + 1500 * k
+        bns.seq[at:at + 150] = bns.seq[unit:unit + 150]
+    codes, lens = simulate_reads(bns, n_reads, read_len, seed=8,
+                                 err_rate=0.01)
+    for i in range(0, n_reads, 4):
+        start = rng.randint(0, 900)
+        codes[i] = bns.seq[start:start + read_len]
+    for i in range(2, n_reads, 32):
+        start = unit + rng.randint(0, 150 - read_len)
+        codes[i] = bns.seq[start:start + read_len]
+    return build_index(bns), codes, lens

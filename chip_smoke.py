@@ -42,19 +42,24 @@ Phases, in order; any failure exits non-zero:
               bound, the kernel's device time and the wrapper's wall
               time; the batch's two SMEM passes 1-2 launches, its pass-3
               launch and its SA-walk launch, as made, each equal to its
-              plain version, with its steps, bound, latency floor (the
-              longest lane's steps x 0.224 us), the kernel's device time
+              plain version (per-lane steps too, where the plain version
+              counts them), with its steps, bound (from the steps),
+              rounds (passes 1-2: the dependent occ round trips of each
+              task; a pass-3 or SA-walk step is one), latency floor (the
+              longest task's rounds x 0.224 us), the kernel's device time
               and the plain version's; its two chaining launches, as
               made, each equal field by field to its plain version, with
               its steps, bound, latency floor (the longest read's
               dependent round trips x 0.224 us), the kernel's device time
               and the plain version's; then a batch whose reads have
-              many chains (512 reads on a 2 Mbp genome with repeats, at
-              the same shapes): packed and meta equal with the plain
-              chaining, its two chaining launches held and timed the
-              same way, and the filter at non-default options equal to
-              its plain version; the batch must reach the overlap,
-              drop and first paths, a repetitive SMEM and an overflow.
+              many chains and deep interval stacks (512 reads on a 2 Mbp
+              genome with repeats, at the same shapes): packed and meta
+              equal with the plain chaining, its two SMEM passes 1-2
+              launches, its pass-3 launch and its two chaining launches
+              held and timed the same way, and the filter at non-default
+              options equal to its plain version; the batch must reach
+              the overlap, drop and first paths, a repetitive SMEM and
+              an overflow.
   6. probes:  the probe path through its entry points, `probe_cuda` and
               `probe_cuda_rates ABCDEF` on the card (every probe OK,
               every probe kernel launched, the rate lines printed); then
@@ -511,14 +516,18 @@ def phase_slice(dev, card, al, codes, lens):
 
 def walk_launch(dev, what, kernel, plain, args, plain_reps, kw=None):
     """One FM-walk or chaining launch of the batch, as made: the kernel
-    against its plain version on every output (each equal), its per-lane
-    steps, their latency floor (the longest lane's steps x STEP_US), the
-    kernel's device time (mean of 2, around the plain version's time).
-    Returns (the kernel's output, the numbers)."""
+    against its plain version on every output (each equal) and, where the
+    plain version counts them, on its per-lane steps; its per-lane steps
+    and, where the kernel counts them, its per-task rounds (dependent occ
+    round trips); the latency floor (the longest lane's rounds, else its
+    steps, x STEP_US); the kernel's device time (mean of 2, around the
+    plain version's time). Returns (the kernel's output, the numbers)."""
     import torch
     kw = {k: v for k, v in (kw or {}).items() if k != "stats"}
     got = kernel(*args, **kw)
     steps = kernel.last_steps.long()
+    rounds = getattr(kernel, "last_rounds", None)
+    rounds = steps if rounds is None else rounds.long()
     want = plain(*args, **kw)
     torch.cuda.synchronize()
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -528,32 +537,41 @@ def walk_launch(dev, what, kernel, plain, args, plain_reps, kw=None):
     if bad or err:
         raise SystemExit(f"slice: {what} != plain in outputs {bad} "
                          f"(max_abs_err {err})")
+    plain_steps = getattr(plain, "last_steps", None)
+    if plain_steps is not None and not torch.equal(steps, plain_steps.long()):
+        raise SystemExit(f"slice: {what}: the kernel's per-lane steps differ "
+                         f"from the plain version's")
     ms = [device_ms(lambda: kernel(*args, **kw), 20, dev)]
     plain_ms = time_ms(lambda: plain(*args, **kw), plain_reps, dev)
     ms.append(device_ms(lambda: kernel(*args, **kw), 20, dev))
-    longest = int(steps.max())
+    longest = int(rounds.max())
     return got, dict(err=err, ms=sum(ms) / 2, plain_ms=plain_ms,
-                     steps=int(steps.sum()), longest=longest,
+                     steps=int(steps.sum()), longest=int(steps.max()),
+                     rounds=int(rounds.sum()), longest_rounds=longest,
                      floor=longest * STEP_US * 1e-3)
 
 
 def log_walk(card, what, r, detail):
+    trips = ("" if r["rounds"] == r["steps"] else
+             f", {r['rounds']} rounds, the longest task "
+             f"{r['longest_rounds']}")
     log(f"[slice] {what}: equal to the plain version (max_abs_err "
-        f"{r['err']}); {detail}, the longest lane {r['longest']}; bound "
-        f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, latency floor "
-        f"{r['floor']:.5f} ms ({r['longest']} x {STEP_US} us); kernel "
-        f"device time {r['ms']:.5f} ms (mean of 2), plain "
+        f"{r['err']}); {detail}, the longest lane {r['longest']}{trips}; "
+        f"bound {r['bound'][0]:.6f} ms by {r['bound'][1]}, latency floor "
+        f"{r['floor']:.5f} ms ({r['longest_rounds']} x {STEP_US} us); "
+        f"kernel device time {r['ms']:.5f} ms (mean of 2), plain "
         f"{r['plain_ms']:.2f} ms  [{card}]")
 
 
-def smem_launch(dev, card, n, args):
-    """One SMEM passes 1-2 launch of the batch against the plain machine,
-    with its bound: the inputs, 64 bytes and 45 operations a step, the
-    outputs (not the per-lane steps, which only instrument the run)."""
+def smem_launch(dev, card, n, args, batch="the batch"):
+    """One SMEM passes 1-2 launch against the plain machine, with its
+    bound: the inputs, 64 bytes and 45 operations a step, the outputs
+    (not the per-lane steps and rounds, which only instrument the run);
+    its latency floor from the longest task's rounds."""
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import one_pos_machine_cuda
     from bwa_mem_scale_tpu_torch.ops.smem_oh import one_pos_machine
     args = args[:11]                           # without stats
-    what = f"smem launch {n + 1}/2"
+    what = f"smem launch {n + 1}/2, {batch}"
     _, r = walk_launch(dev, what, one_pos_machine_cuda, one_pos_machine,
                        args, 1)
     codes, T, M = args[1], args[3].shape[0], args[9]
@@ -567,24 +585,26 @@ def smem_launch(dev, card, n, args):
     return r
 
 
-def seed_strategy_launch(dev, card, args):
-    """The batch's pass-3 launch against the plain machine, with its
-    bound: the inputs, 64 bytes and 45 operations a step (the same occ
-    step as passes 1-2), the outputs (not the per-lane steps)."""
+def seed_strategy_launch(dev, card, args, batch="the batch"):
+    """A pass-3 launch against the plain machine, with its bound: the
+    inputs, 64 bytes and 45 operations a step (the same occ step as
+    passes 1-2), the outputs (not the per-lane steps); one ext an
+    iteration, so its rounds are its steps."""
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
         seed_strategy_machine_cuda)
     from bwa_mem_scale_tpu_torch.ops.smem_oh import seed_strategy_machine
     args = args[:6]                            # without stats
-    got, r = walk_launch(dev, "pass-3 launch", seed_strategy_machine_cuda,
+    what = f"pass-3 launch, {batch}"
+    got, r = walk_launch(dev, what, seed_strategy_machine_cuda,
                          seed_strategy_machine, args, 1)
     codes, M = args[1], args[5]
     B = codes.shape[0]
     nbytes = (4 * (codes.numel() + B) + SMEM_BYTES_PER_STEP * r["steps"]
               + 4 * (5 * B * M + B))
     r["bound"] = bound(nbytes, SMEM_OPS_PER_STEP * r["steps"])
-    log_walk(card, f"pass-3 launch (B={B}, L={codes.shape[1]}, max_intv="
+    log_walk(card, f"{what} (B={B}, L={codes.shape[1]}, max_intv="
              f"{args[3]}, min_seed_len={args[4]}, max_out={M})", r,
-             f"{int(got.cnt.sum())} seeds, {r['steps']} steps")
+             f"{int(got.cnt.sum())} seeds, {r['steps']} steps (rounds)")
     return r
 
 
@@ -700,63 +720,36 @@ def chain_filter_launch(dev, card, args, kw, batch="the batch"):
     return r
 
 
-def repeat_genome():
-    """A 2 Mbp genome in three contigs (the last alt): its first 1 kbp
-    copied to 24 places (3 substitutions each), and a 150 bp unit at 1 Mbp
-    copied to 599 more places 1.5 kbp apart (more hits than max_occ); 512
-    reads of 101 bp (1% substitutions), a quarter exact copies from the
-    1 kbp window and 16 from the unit, so that reads have tens of chains
-    that overlap on the query, and some SMEMs are repetitive. Returns
-    (the port's index, codes, lens)."""
-    from bwa_mem_scale_tpu_torch.index.build import build_index
-    from bwa_mem_scale_tpu_torch.models.aligner import (demo_genome,
-                                                       simulate_reads)
-    bns = demo_genome(2_000_000, seed=42, n_contigs=3)
-    bns.anns[-1].is_alt = True
-    rng = np.random.RandomState(3)
-    for k in range(1, 25):
-        at = k * 40_000
-        bns.seq[at:at + 1000] = bns.seq[:1000]
-        bns.seq[at + rng.randint(0, 1000, 3)] = rng.randint(0, 4, 3)
-    unit = 1_000_000
-    for k in range(1, 600):
-        at = unit + 1500 * k
-        bns.seq[at:at + 150] = bns.seq[unit:unit + 150]
-    codes, lens = simulate_reads(bns, BATCH, READ_LEN, seed=8,
-                                 err_rate=0.01)
-    for i in range(0, BATCH, 4):
-        start = rng.randint(0, 900)
-        codes[i] = bns.seq[start:start + READ_LEN]
-    for i in range(2, BATCH, 32):
-        start = unit + rng.randint(0, 150 - READ_LEN)
-        codes[i] = bns.seq[start:start + READ_LEN]
-    return build_index(bns), codes, lens
-
-
 def repeat_slice(dev, card, al):
-    """Phase 5 on a batch whose reads have many chains (repeat_genome):
-    seed_chain_extend at the main path's shapes with the kernels and with
-    the plain chaining, packed and meta equal; its two chaining launches,
-    as made, each equal to its plain version with its steps, bound,
-    latency floor and times; the filter again at options that cut and
-    drop chains (min_chain_weight 20, mask_level 0.3, drop_ratio 0.3,
+    """Phase 5 on a batch whose reads have many chains and deep interval
+    stacks (tools/batches.py::repeat_batch): seed_chain_extend at the
+    main path's shapes with the kernels and with the plain chaining,
+    packed and meta equal; its two SMEM passes 1-2 launches and its
+    pass-3 launch, as made, each equal to its plain version with its
+    steps, rounds, bound, latency floor and times; its two chaining
+    launches the same way; the filter again at options that cut and drop
+    chains (min_chain_weight 20, mask_level 0.3, drop_ratio 0.3,
     max_chain_extend 2), equal to its plain version. Fails unless the
     batch reaches the filter's overlap, drop and first paths, a
-    repetitive SMEM and a chain overflow. Returns the two launches'
+    repetitive SMEM and a chain overflow. Returns the launches'
     numbers."""
     import torch
-    from bwa_mem_scale_tpu_torch.ops import chain
+    from bwa_mem_scale_tpu_torch.ops import chain, smem_oh
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
     from bwa_mem_scale_tpu_torch.pipeline import align
+    from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
     t0 = time.perf_counter()
-    idx, codes, lens = repeat_genome()
+    idx, codes, lens = repeat_batch(BATCH, READ_LEN)
     fmi = DeviceFMIndex.from_host(idx, dev)
     dbns = chain.DeviceBns.from_host(idx.bns, dev)
     c = torch.as_tensor(codes, device=dev)
     ln = torch.as_tensor(lens, device=dev)
-    real = {"chain_seeds_cuda": align.chain_seeds_cuda,
-            "chain_filter_cuda": align.chain_filter_cuda}
-    calls = {name: [] for name in real}
+    real = {(align, "chain_seeds_cuda"): align.chain_seeds_cuda,
+            (align, "chain_filter_cuda"): align.chain_filter_cuda,
+            (smem_oh, "one_pos_machine_cuda"): smem_oh.one_pos_machine_cuda,
+            (smem_oh, "seed_strategy_machine_cuda"):
+                smem_oh.seed_strategy_machine_cuda}
+    calls = {name: [] for _, name in real}
 
     def recorder(name, fn):
         def record(*args, **kw):
@@ -765,17 +758,17 @@ def repeat_slice(dev, card, al):
         return record
 
     outs = []
-    for swaps in ({n: recorder(n, fn) for n, fn in real.items()},
-                  {"chain_seeds_cuda": chain.chain_seeds_device,
-                   "chain_filter_cuda": chain.chain_filter_frac_rep}):
-        for name, fn in swaps.items():
-            setattr(align, name, fn)
+    for swaps in ({k: recorder(k[1], fn) for k, fn in real.items()},
+                  {(align, "chain_seeds_cuda"): chain.chain_seeds_device,
+                   (align, "chain_filter_cuda"): chain.chain_filter_frac_rep}):
+        for (mod, name), fn in swaps.items():
+            setattr(mod, name, fn)
         try:
             outs.append(align.seed_chain_extend(fmi, dbns, c, ln, READ_LEN,
                                                 opt=al.opt, cfg=al.cfg))
         finally:
-            for name, fn in real.items():
-                setattr(align, name, fn)
+            for (mod, name), fn in real.items():
+                setattr(mod, name, fn)
     for key in ("packed", "meta"):
         if not torch.equal(outs[0][key], outs[1][key]):
             raise SystemExit(f"slice: repeat batch {key} differs kernel vs "
@@ -784,9 +777,16 @@ def repeat_slice(dev, card, al):
         f"repeats; made, indexed and seeded in "
         f"{time.perf_counter() - t0:.1f} s): seed_chain_extend packed and "
         f"meta equal with the kernels and with the plain chaining")
-    if any(len(v) != 1 for v in calls.values()):
-        raise SystemExit(f"slice: repeat batch chaining calls "
+    want = {"chain_seeds_cuda": 1, "chain_filter_cuda": 1,
+            "one_pos_machine_cuda": 2, "seed_strategy_machine_cuda": 1}
+    if any(len(calls[k]) != n for k, n in want.items()):
+        raise SystemExit(f"slice: repeat batch calls "
                          f"{ {k: len(v) for k, v in calls.items()} }")
+    smem = [smem_launch(dev, card, n, args, batch="repeat batch")
+            for n, (args, _) in enumerate(calls["one_pos_machine_cuda"])]
+    p3 = seed_strategy_launch(dev, card,
+                              calls["seed_strategy_machine_cuda"][0][0],
+                              batch="repeat batch")
     seeds = chain_seeds_launch(dev, card, *calls["chain_seeds_cuda"][0],
                                batch="repeat batch")
     flt = chain_filter_launch(dev, card, *calls["chain_filter_cuda"][0],
@@ -794,7 +794,7 @@ def repeat_slice(dev, card, al):
     (ch, *rest), kw = calls["chain_filter_cuda"][0]
     kw = dict(kw, stats=None, min_chain_weight=20, mask_level=0.3,
               drop_ratio=0.3, max_chain_extend=2)
-    got = real["chain_filter_cuda"](ch, *rest, **kw)
+    got = real[(align, "chain_filter_cuda")](ch, *rest, **kw)
     want = chain.chain_filter_frac_rep(ch, *rest, **kw)
     bad = [i for i, (a, b) in enumerate(zip(got, want))
            if not torch.equal(a, b)]
@@ -812,7 +812,7 @@ def repeat_slice(dev, card, al):
             and seeds["max_chains"] >= 3):
         raise SystemExit(f"slice: the repeat batch misses a path of the "
                          f"chaining kernels: {seeds}, {flt}")
-    return seeds, flt
+    return smem, p3, seeds, flt
 
 
 def smem_tiers(dev, card, al, c, ln):
@@ -1090,14 +1090,17 @@ def main():
         f"{chain_cuda.LIB.build_seconds:.2f} s (in parallel)")
     kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda")}
-    for lib, kernel in (("smem_cuda", "one_pos_kernel"),
+    for lib, kernel in (("smem_cuda", "one_pos_kernelILb1"),
+                        ("smem_cuda", "one_pos_kernelILb0"),
                         ("smem_cuda", "seed_strategy_kernel"),
                         ("smem_cuda", "sa_walk_kernel"),
                         ("chain_cuda", "chain_seeds_kernel"),
                         ("chain_cuda", "chain_filter_kernel"),
                         ("bsw_cuda", "bsw_tiled_kernel")):
         (r, s), = [v for fn, v in kernels[lib].items() if kernel in fn]
-        log(f"[build] {kernel}: {r} registers, {s} bytes spilled")
+        label = kernel.replace("ILb1", "<stacks in shared memory>").replace(
+            "ILb0", "<stacks in a device scratch>")
+        log(f"[build] {label}: {r} registers, {s} bytes spilled")
     # the BSW instantiations, {(K, shared): (registers, spill bytes)}
     regs = {(int(k.group(1)), k.group(2) == "1"): v
             for fn, v in kernels["bsw_cuda"].items()

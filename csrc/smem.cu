@@ -1,28 +1,39 @@
 // The FM-index walks of the seeding and SA-lookup stages for Hopper
-// (sm_90a): one thread per lane, each walk whole in one launch, no host
-// synchronisation inside. Three kernels share the checkpoint-occ step
-// (`Fmi`, `occ4`, `ext`) and live in this one source, since the build
-// hashes one file:
-// - one_pos_kernel: SMEM passes 1 and 2 (getSMEMsOnePosOneThread);
-// - seed_strategy_kernel: SMEM pass 3 (bwtSeedStrategyAllPosOneThread);
-// - sa_walk_kernel: the SA lookup's LF walk (get_sa_entry_compressed).
+// (sm_90a), each walk whole in one launch with no host synchronisation
+// inside. Three kernels share the checkpoint-occ step (`Fmi`, `occ4`,
+// `ext`) and live in this one source, since the build hashes one file:
+// - one_pos_kernel: SMEM passes 1 and 2 (getSMEMsOnePosOneThread), one
+//   warp a task;
+// - seed_strategy_kernel: SMEM pass 3 (bwtSeedStrategyAllPosOneThread),
+//   one thread a read;
+// - sa_walk_kernel: the SA lookup's LF walk (get_sa_entry_compressed),
+//   one thread a coordinate.
 // Each replaces a jax.lax.while_loop the TPU runs as one program, through
 // the port's lockstep counterpart in ops/ (tens to hundreds of small
 // PyTorch launches a tick and a host synchronisation every 4-8 ticks).
-// Each runs the reference's natural loop, not the lockstep's tick state
-// machine; the lockstep follows the same loop tick for tick, so every
-// output array is the same, and the clamp rules below keep it so for
-// lanes the lockstep steps with junk: every read of a code clamps its
-// column to [0, L - 1], and every checkpoint row index to [0, nb - 1],
-// as the lockstep's gathers do.
+// Every output array equals the lockstep's, lanes the lockstep steps with
+// junk included: every read of a code clamps its column to [0, L - 1],
+// and every checkpoint row index to [0, nb - 1], as the lockstep's
+// gathers do.
 //
 // What bounds them on this card: a chain of dependent loads, not bytes.
-// Each step's checkpoint rows depend on the previous step's interval or
-// row: 0.224 us a step on the 4.6 Mbp table, held in L2 (probe B,
-// PERF.md §6), so the longest lane's steps set a latency floor far above
-// the bytes the batch moves (32 bytes a row). The designs spread the
-// lanes over the SMs in small blocks so that no SM holds more than a few
-// warps of the longest lanes.
+// Each occ step's checkpoint rows depend on the previous step's interval:
+// on an NVIDIA H100 80GB HBM3 at 700 W (every time in this note), 0.224
+// us a dependent row load on the 4.6 Mbp table, held in L2 (probe B,
+// PERF.md section 6). The bytes a batch moves (64 a step) take a few
+// microseconds at 3.35 TB/s; the longest task's chain of round trips
+// takes tens to hundreds. So the designs keep every other load off that
+// chain (the read's codes and the interval stacks live in shared
+// memory), and run side by side the occ steps that do not wait on each
+// other (a backward round's entries). Each step's base is read a step
+// ahead, so no branch on it waits. Each task reports its `steps` (the ext
+// calls: the work, which the bound in chip_smoke.py counts) and, for
+// passes 1-2, its `rounds` (the dependent occ round trips on its path:
+// the latency floor is the longest task's rounds x 0.224 us). An occ step
+// waits on two rows, the later of two L2 trips, so it takes more than
+// probe B's one-row tick; on the 4.6 Mbp batch the kernels take 0.3-0.4
+// us a round (PERF.md section 6). Each kernel zeroes its own outputs past
+// a task's count, so the wrapper launches nothing else.
 //
 // The occ step: backward_ext_all4 (ops/occ.py) for both ends of the
 // interval, two 32-byte checkpoint rows of cp_fused ([nb, 8] int32:
@@ -48,18 +59,45 @@
 //   only once the stack overflowed, and never read) and the count grows;
 // - a stack read clamps its index to [0, SD - 1];
 // - an emission past max_out is dropped and the count still grows;
-// - a lane whose stack count ever exceeded SD returns cnt = max_out + 1,
+// - a task whose stack count ever exceeded SD returns cnt = max_out + 1,
 //   and keeps walking to its end as the lockstep does.
-// Layout: the interval stacks of all tasks live in one scratch that the
-// wrapper allocates, [2 buffers][4 fields (k, l, s, n)][SD + 1][T] int32,
-// lane minor, so a warp's pushes and reads at equal depths coalesce; SD
-// is the read length in the deepest retry tier, which rules out fixed
-// local arrays. A lane's A stack is buffer wA, its B stack the other, and
-// the end of a round flips wA. The outputs m, n, k, l, s are [T, max_out]
-// each, zeroed by the wrapper; cnt and the lane's step count are [T].
-// 32-thread blocks spread a 512-read batch over 16 SMs. Left for later
-// work: a warp per read (the lanes of a read's positions or stack
-// entries side by side), and the stacks in shared memory.
+// Design: one warp a task (a 32-thread block), so a 512-read pass 1 runs
+// 512 warps over the 132 SMs and pass 2's 1,024 tasks 1,024. The warp
+// stages the read's codes into shared memory once (16-byte loads, as
+// bytes), and both interval stacks live in its dynamic shared memory,
+// [2 buffers][SD + 1] entries of int4 (k, l, s, n): 800 B at SD = 24,
+// 3,264 B at SD = 101. The forward walk is a chain of dependent
+// intervals, so it stays serial: every lane runs it (the loads are one
+// broadcast), and lane 0 pushes. A backward round is one round trip:
+// lane p takes entry p of the round (cA - 1 - p in the first round, which
+// reads the stack from its top, p after that), 32 entries a chunk, and
+// all run their ext at once. The serial keep/emit rule then reduces to
+// one broadcast, one __shfl_up_sync and one ballot, because along p the
+// new sizes ns never decrease and the entries' ends pn never increase:
+// the stack holds nested intervals (a longer match has the smaller SA
+// interval, and the same base extends nested intervals into nested
+// ones), the first round reads the smallest first, a later round reads
+// the B stack in the order it was written, and a clamped read past slot
+// SD - 1 repeats that slot, which keeps the order. So the entries that
+// die (ns < mi) come first, and
+// - the round emits at most once, from entry p = 0, when it dies and
+//   pn - mA + 1 >= min_seed_len (a later dying entry has a smaller pn);
+// - entry p is kept iff ns_p >= mi and ns_p != cur, where cur, the
+//   serial rule's curr_s, is -1 for p = 0 or after a dying entry, and
+//   ns_(p-1) otherwise (the survivors are consecutive, and each either
+//   was kept or equals the last kept);
+// - the kept entries go to the other buffer in p order, entry p at slot
+//   min(cB + popc(ballot & lanes below), SD);
+// - ns of a chunk's last lane carries to the next chunk's lane 0.
+// ops/smem_cuda.py::one_pos_twin runs this form and asserts both orders
+// on every test case. Where one warp's codes and stacks pass 227 KB (SD
+// above ~7,000, reachable only with a large -W), the stacks live in a
+// device scratch [T][2][SD + 1] int4 that the wrapper allocates: the
+// same kernel, its STACKS_IN_SHARED template argument false, chosen by
+// shape (one_pos_stacks_in_shared). The earlier design ran one thread
+// a task, 32-thread blocks on 16 SMs, the stacks [2][4][SD + 1][T] in
+// device memory and each code a global load: pass 1 0.3581 ms, pass 2
+// 0.0553 ms on the 4.6 Mbp batch (PERF.md section 6).
 //
 // ---- seed_strategy_kernel (pass 3)
 // Replaces bwa_mem_scale_tpu/ops/smem_oh.py:619 seed_strategy_machine_oh
@@ -73,8 +111,24 @@
 // max_out is dropped and the count still grows (no stacks, so no
 // max_out + 1 latch). Out of scope: the JAX machine's k-step branch
 // (`use2`, two bases a gather over cp2_fused), since the port refuses the
-// k-step table. 32-thread blocks: 16 SMs for a 512-read batch; its lanes
-// walk ~100 steps each, so the longest lane's chain is the floor.
+// k-step table. A warp per read would not cut the floor: a walk ends
+// where the next one starts, so a read's walks are one chain of ~L - 1
+// dependent steps. Design: the block's reads' codes are staged into
+// shared memory in one coalesced copy (bytes: 8 x 101 = 808 B), and the
+// start loop and the walk are one flat loop of exactly one ext an
+// iteration; the restart at a hit or an N (`seek`) is a state update
+// over shared memory inside the iteration, so a warp takes its longest
+// lane's steps, with no reconvergence at each start. One warp a block,
+// 8 reads a warp (P3_READS): a 512-read batch runs 64 warps on 64 SMs.
+// The longest lane sets the kernel's time, so idle lanes cost nothing,
+// while each step's loads go to as many rows as the warp has reads, and
+// the L1 serves a load's distinct rows one after another: 4, 8, 16 and
+// 32 reads a block measured 0.0315, 0.0320, 0.0327 and 0.0358 ms on the
+// 4.6 Mbp batch (PERF.md section 6), and 8 keeps twice 4's lanes busy at
+// larger batches. Reads longer than 29,056 bases take fewer reads a
+// block (227 KB of codes). The earlier design loaded each code from
+// device memory ahead of its step and nested the walk in the start loop:
+// 0.0504 ms on the 4.6 Mbp batch.
 //
 // ---- sa_walk_kernel (SA lookup)
 // Replaces bwa_mem_scale_tpu/ops/sal.py:23 sa_lookup (its LF-walk loops)
@@ -94,7 +148,12 @@
 
 namespace {
 
-constexpr int BLOCK = 32;            // tasks (threads) a block
+constexpr int WARP = 32;
+constexpr unsigned FULL = 0xffffffffu;
+// the shared memory a block can take on Hopper (227 KB, dynamic only
+// past 48 KB, after cudaFuncAttributeMaxDynamicSharedMemorySize)
+constexpr size_t SMEM_MAX = 232448;
+constexpr size_t SMEM_DEFAULT = 49152;
 
 struct Fmi {
   const int4* cp;                    // [nb][2] int4: counts, masks
@@ -155,7 +214,42 @@ __device__ __forceinline__ void ext(const Fmi& f, int k, int l, int s,
   ns = sel4(s0, s1, s2, s3, c);
 }
 
-__global__ void __launch_bounds__(BLOCK)
+// Copy n int32 codes from src (4-byte aligned) into dst as bytes,
+// threads tid of nthr: the 16-byte aligned body of [src, src + n) as
+// int4 loads, the few words before and after it one by one. A code >= 4
+// is an N to every walk, so it is stored as 4.
+__device__ __forceinline__ void stage_codes(const int32_t* src, int n,
+                                            int8_t* dst, int tid,
+                                            int nthr) {
+  const int head = min(n, (int)((16 - ((uintptr_t)src & 15)) & 15) >> 2);
+  const int n4 = (n - head) >> 2;
+  const int4* body = reinterpret_cast<const int4*>(src + head);
+  auto put = [&](int i, int v) { dst[i] = (int8_t)(v < 4 ? v : 4); };
+  for (int i = tid; i < n4; i += nthr) {
+    const int4 v = __ldg(body + i);
+    const int b = head + 4 * i;
+    put(b, v.x);
+    put(b + 1, v.y);
+    put(b + 2, v.z);
+    put(b + 3, v.w);
+  }
+  for (int i = tid; i < head; i += nthr) put(i, __ldg(src + i));
+  for (int i = head + 4 * n4 + tid; i < n; i += nthr) put(i, __ldg(src + i));
+}
+
+// bytes of shared memory for L codes, rounded up to 16 (the stacks
+// follow them)
+__host__ __device__ __forceinline__ size_t codes_bytes(int L) {
+  return ((size_t)L + 15) & ~(size_t)15;
+}
+
+// bytes of one warp's two interval stacks of SD + 1 entries
+__host__ __device__ __forceinline__ size_t stacks_bytes(int SD) {
+  return 2 * ((size_t)SD + 1) * sizeof(int4);
+}
+
+template <bool STACKS_IN_SHARED>
+__global__ void __launch_bounds__(WARP)
 one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
                const int32_t* __restrict__ lens,           // [B]
                int B, int L,
@@ -164,44 +258,42 @@ one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
                const int32_t* __restrict__ t_mi,           // [T]
                const uint8_t* __restrict__ t_valid,        // [T]
                int T, int chain_restarts, int min_seed_len, int M, int SD,
-               int32_t* __restrict__ stk,       // [2][4][SD + 1][T]
+               int4* __restrict__ scratch,      // [T][2][SD + 1] or null
                int32_t* __restrict__ out,       // [5][T][M]: m n k l s
                int32_t* __restrict__ cnt_out,   // [T]
-               int32_t* __restrict__ steps_out) {  // [T]
-  const int t = blockIdx.x * BLOCK + threadIdx.x;
-  if (t >= T) return;
+               int32_t* __restrict__ steps_out,    // [T]
+               int32_t* __restrict__ rounds_out) {  // [T]
+  extern __shared__ int4 smem[];
+  const int t = blockIdx.x;                        // one warp a task
+  const int lane = threadIdx.x;
   int rd = t_read[t];
   rd = rd < 0 ? 0 : (rd >= B ? B - 1 : rd);
-  const int32_t* q = codes + (size_t)rd * L;
   const int len = t_valid[t] ? lens[rd] : 0;
   const int mi = t_mi[t];
-  const size_t plane = (size_t)(SD + 1) * T;      // one field of a buffer
   const size_t tm = (size_t)T * M;                 // one output field
-  auto slot = [&](int buf, int fld, int i) -> int32_t& {
-    return stk[(size_t)(buf * 4 + fld) * plane + (size_t)i * T + t];
-  };
+  // the shared memory: [2][SD + 1] stack entries, then the codes
+  int4* stk = STACKS_IN_SHARED ? smem : scratch + (size_t)t * 2 * (SD + 1);
+  int8_t* q = reinterpret_cast<int8_t*>(
+      STACKS_IN_SHARED ? smem + 2 * (SD + 1) : smem);
+  for (int i = lane; i < M; i += WARP)             // the output rows
+    for (int fld = 0; fld < 5; ++fld) out[fld * tm + (size_t)t * M + i] = 0;
+  if (len > 0) stage_codes(codes + (size_t)rd * L, L, q, lane, WARP);
+  __syncwarp();              // the codes, and the zeros before any emission
   auto code = [&](int i) { return q[i < 0 ? 0 : (i >= L ? L - 1 : i)]; };
   auto C = [&](int c) { return cval(f, c); };
+  auto slot = [&](int buf, int i) -> int4& { return stk[buf * (SD + 1) + i]; };
+  auto rslot = [&](int i) { return i < 0 ? 0 : (i >= SD ? SD - 1 : i); };
 
-  int cnt = 0, steps = 0, wA = 0;
+  // warp-uniform state, every lane alike, but for cnt: lane 0 emits, and
+  // only its count is kept
+  int cnt = 0, steps = 0, rounds = 0, wA = 0;
   bool of = false;
   auto push = [&](int buf, int& c, int k, int l, int s, int n) {
-    const int i = c < SD ? c : SD;
-    slot(buf, 0, i) = k;
-    slot(buf, 1, i) = l;
-    slot(buf, 2, i) = s;
-    slot(buf, 3, i) = n;
+    if (lane == 0) slot(buf, c < SD ? c : SD) = make_int4(k, l, s, n);
     ++c;
     of |= c > SD;
   };
-  auto read = [&](int buf, int i, int& k, int& l, int& s, int& n) {
-    i = i < 0 ? 0 : (i >= SD ? SD - 1 : i);
-    k = slot(buf, 0, i);
-    l = slot(buf, 1, i);
-    s = slot(buf, 2, i);
-    n = slot(buf, 3, i);
-  };
-  auto emit = [&](int m, int n, int k, int l, int s) {
+  auto emit = [&](int m, int n, int k, int l, int s) {       // lane 0
     if (cnt < M) {
       const size_t o = (size_t)t * M + cnt;
       out[o] = m;
@@ -220,16 +312,19 @@ one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
       if (chain_restarts && ++x < len) continue;
       break;
     }
-    // forward extension from x
+    __syncwarp();              // the last position's reads are done
+    // forward extension from x: serial, every lane alike; each step's
+    // base is read a step ahead, so the N test waits on no load
     int ck = C(xa), cl = C(3 - xa), cs = C(xa + 1) - C(xa), cn = x;
-    int j = x + 1, nx = x + 1, cA = 0;
+    int j = x + 1, nx = x + 1, cA = 0, a = code(j);
     while (j < len) {
       nx = j + 1;
-      const int a = code(j);
       if (a >= 4) break;
+      const int an = code(j + 1);
       int nk, nl, ns;
       ext(f, cl, ck, cs, 3 - a, nl, nk, ns);       // the swapped interval
       ++steps;
+      ++rounds;
       if (ns != cs) push(wA, cA, ck, cl, cs, cn);
       if (ns < mi) {
         nx = j;
@@ -240,108 +335,161 @@ one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
       cs = ns;
       cn = j;
       ++j;
+      a = an;
     }
     if (cs >= mi) push(wA, cA, ck, cl, cs, cn);
 
     // backward rounds: the first reads the A stack from its top
     int mA = x;
     bool rev = true;
-    for (j = x - 1;; --j) {
-      const int a = j < 0 ? 4 : code(j);
-      if (a >= 4 || cA == 0) {
+    for (j = x - 1, a = code(j);; --j) {
+      __syncwarp();            // the pushes to the A stack are visible
+      if (j < 0 || a >= 4 || cA == 0) {
         if (cA > 0) {
-          int pk, pl, ps, pn;
-          read(wA, rev ? cA - 1 : 0, pk, pl, ps, pn);
-          if (pn - mA + 1 >= min_seed_len) emit(mA, pn, pk, pl, ps);
+          const int4 e = slot(wA, rslot(rev ? cA - 1 : 0));
+          if (lane == 0 && e.w - mA + 1 >= min_seed_len)
+            emit(mA, e.w, e.x, e.y, e.z);
         }
         break;
       }
-      int cB = 0, curr_s = -1;
-      bool hit = false;
-      for (int p = 0; p < cA; ++p) {
-        int pk, pl, ps, pn, nk, nl, ns;
-        read(wA, rev ? cA - 1 - p : p, pk, pl, ps, pn);
-        ext(f, pk, pl, ps, a, nk, nl, ns);
-        ++steps;
-        bool keep;
-        if (hit) {                                  // the tail
-          keep = ns >= mi && ns != curr_s;
-        } else if (ns < mi) {                       // dies here
-          hit = pn - mA + 1 >= min_seed_len;
-          if (hit) emit(mA, pn, pk, pl, ps);
-          keep = false;
-        } else {
-          keep = hit = ns != curr_s;
+      const int an = code(j - 1);                  // the next round's base
+      int cB = 0, prev = 0;
+      for (int c0 = 0; c0 < cA; c0 += WARP) {      // a chunk: one trip
+        const int p = c0 + lane;
+        const bool act = p < cA;
+        int4 e = make_int4(0, 0, 0, 0);
+        int nk = 0, nl = 0, ns = 0;
+        if (act) {
+          e = slot(wA, rslot(rev ? cA - 1 - p : p));
+          ext(f, e.x, e.y, e.z, a, nk, nl, ns);
         }
+        steps += min(WARP, cA - c0);
+        ++rounds;
+        // only entry 0 can emit: it dies and is long enough
+        if (p == 0 && ns < mi && e.w - mA + 1 >= min_seed_len)
+          emit(mA, e.w, e.x, e.y, e.z);
+        int up = __shfl_up_sync(FULL, ns, 1);
+        if (lane == 0) up = prev;                  // the last chunk's end
+        const int cur = (p == 0 || up < mi) ? -1 : up;
+        const bool keep = act && ns >= mi && ns != cur;
+        const unsigned kept = __ballot_sync(FULL, keep);
         if (keep) {
-          push(wA ^ 1, cB, nk, nl, ns, pn);
-          curr_s = ns;
+          const int i = cB + __popc(kept & ((1u << lane) - 1));
+          slot(wA ^ 1, i < SD ? i : SD) = make_int4(nk, nl, ns, e.w);
         }
+        cB += __popc(kept);
+        if (c0 + WARP < cA) prev = __shfl_sync(FULL, ns, WARP - 1);
       }
+      of |= cB > SD;
       wA ^= 1;
       cA = cB;
       mA = j;
       rev = false;
+      a = an;
     }
     if (!chain_restarts) break;
     x = max(nx, x + 1);
     if (x >= len) break;
   }
-  cnt_out[t] = of ? M + 1 : cnt;
-  steps_out[t] = steps;
+  if (lane == 0) {
+    cnt_out[t] = of ? M + 1 : cnt;
+    steps_out[t] = steps;
+    rounds_out[t] = rounds;
+  }
 }
 
-__global__ void __launch_bounds__(BLOCK)
+constexpr int P3_THREADS = 32;       // one warp a block, a read a lane
+
+__global__ void __launch_bounds__(P3_THREADS)
 seed_strategy_kernel(Fmi f, const int32_t* __restrict__ codes,  // [B, L]
                      const int32_t* __restrict__ lens,          // [B]
-                     int B, int L, int max_intv, int min_seed_len, int M,
+                     int B, int L, int R,       // R reads a block, <= 32
+                     int max_intv, int min_seed_len, int M,
                      int32_t* __restrict__ out,     // [5][B][M]: m n k l s
                      int32_t* __restrict__ cnt_out,     // [B]
                      int32_t* __restrict__ steps_out) {  // [B]
-  const int t = blockIdx.x * BLOCK + threadIdx.x;
-  if (t >= B) return;
-  const int32_t* q = codes + (size_t)t * L;
-  const int len = lens[t];
+  extern __shared__ int4 smem[];
+  int8_t* sq = reinterpret_cast<int8_t*>(smem);   // [R][L] codes
+  const int t0 = blockIdx.x * R;
+  const int nr = min(R, B - t0);
   const size_t tm = (size_t)B * M;                 // one output field
+  for (int fld = 0; fld < 5; ++fld)                // the block's output rows
+    for (int i = threadIdx.x; i < nr * M; i += P3_THREADS)
+      out[fld * tm + (size_t)t0 * M + i] = 0;
+  stage_codes(codes + (size_t)t0 * L, nr * L, sq, threadIdx.x, P3_THREADS);
+  __syncthreads();           // the codes, and the zeros before any emission
+  if ((int)threadIdx.x >= nr) return;
+  const int t = t0 + threadIdx.x;
+  const int8_t* q = sq + (size_t)threadIdx.x * L;
+  const int len = lens[t];
   auto code = [&](int i) { return q[i < 0 ? 0 : (i >= L ? L - 1 : i)]; };
-  int cnt = 0, steps = 0;
-  for (int x = 0; x < len;) {                      // start positions
-    const int xa = code(x);
-    if (xa >= 4) {
-      ++x;
-      continue;
+  int cnt = 0, steps = 0, x = 0, j = 0, ck = 0, cl = 0, cs = 0, a = 4;
+  // The next walk with an ext to make, from start `from`: x the first
+  // base at or past it, j = x + 1 a base inside the read (a its code),
+  // (ck, cl, cs) x's C-array interval. A walk whose first column is an N
+  // makes no ext and goes on past that N. False at the read's end.
+  auto seek = [&](int from) -> bool {
+    for (x = from;; x = j + 1) {
+      while (x < len && code(x) >= 4) ++x;
+      j = x + 1;
+      if (j >= len) return false;
+      a = code(j);
+      if (a < 4) break;
     }
-    int ck = cval(f, xa), cl = cval(f, 3 - xa);
-    int cs = cval(f, xa + 1) - ck;
-    int j = x + 1;
-    while (j < len) {                              // forward from x
-      const int a = code(j++);
-      if (a >= 4) break;                           // go on after the N
-      int nk, nl, ns;
-      ext(f, cl, ck, cs, 3 - a, nl, nk, ns);       // the swapped interval
-      ++steps;
-      if (ns < max_intv && j - x >= min_seed_len) {  // j - 1 - x + 1
-        if (ns > 0) {
-          if (cnt < M) {
-            const size_t o = (size_t)t * M + cnt;
-            out[o] = x;
-            out[tm + o] = j - 1;
-            out[2 * tm + o] = nk;
-            out[3 * tm + o] = nl;
-            out[4 * tm + o] = ns;
-          }
-          ++cnt;
+    const int xa = code(x);
+    ck = cval(f, xa);
+    cl = cval(f, 3 - xa);
+    cs = cval(f, xa + 1) - ck;
+    return true;
+  };
+  bool live = seek(0);
+  while (live) {                                   // one ext an iteration
+    const int an = code(j + 1);                    // read a step ahead
+    int nk, nl, ns;
+    ext(f, cl, ck, cs, 3 - a, nl, nk, ns);         // the swapped interval
+    ++steps;
+    if (ns < max_intv && j + 1 - x >= min_seed_len) {
+      if (ns > 0) {
+        if (cnt < M) {
+          const size_t o = (size_t)t * M + cnt;
+          out[o] = x;
+          out[tm + o] = j;
+          out[2 * tm + o] = nk;
+          out[3 * tm + o] = nl;
+          out[4 * tm + o] = ns;
         }
-        break;                                     // go on after the hit
+        ++cnt;
       }
+      live = seek(j + 1);                          // go on after the hit
+    } else {
       ck = nk;
       cl = nl;
       cs = ns;
+      a = an;
+      if (++j >= len) live = false;                // the read's end
+      else if (a >= 4) live = seek(j + 1);         // go on after the N
     }
-    x = j;                                         // the read's end, or
-  }                                                // past the hit or N
+  }
   cnt_out[t] = cnt;
   steps_out[t] = steps;
+}
+
+// reads a pass-3 block takes by default: P3_READS, fewer where their
+// codes pass 227 KB
+constexpr int P3_READS = 8;
+int p3_reads(int L) {
+  const size_t r = SMEM_MAX / codes_bytes(L);
+  return r >= P3_READS ? P3_READS : (int)r;
+}
+
+// Raise a kernel's dynamic shared memory limit past the 48 KB default
+// when `bytes` needs it.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= SMEM_DEFAULT) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 constexpr int SAL_BLOCK = 128;       // coordinates (threads) a block
@@ -390,11 +538,19 @@ sa_walk_kernel(Fmi f, const int32_t* __restrict__ samples, int n_samples,
 
 }  // namespace
 
-// Launch one_pos_kernel on `stream` over T tasks; returns
-// cudaGetLastError() (0 on success), cudaErrorInvalidValue for a shape
-// it cannot take. The caller allocates every buffer (outputs zeroed, the
-// stack scratch [2][4][SD + 1][T] int32) and checks shapes and types;
-// nothing here synchronises.
+// 1 when one warp's codes (L) and interval stacks (SD) fit its shared
+// memory, so one_pos_launch takes no scratch; 0 when the stacks go to a
+// device scratch [T][2][SD + 1] int4 (the codes stay in shared memory).
+extern "C" int one_pos_stacks_in_shared(int L, int SD) {
+  return codes_bytes(L) + stacks_bytes(SD) <= SMEM_MAX;
+}
+
+// Launch one_pos_kernel on `stream` over T tasks, a one-warp block each;
+// returns cudaGetLastError() (0 on success),
+// cudaErrorInvalidValue for a shape it cannot take. The caller allocates
+// every buffer (the stack scratch [T][2][SD + 1] int4 where
+// one_pos_stacks_in_shared is 0, else null; the kernel writes every
+// output slot) and checks shapes and types; nothing here synchronises.
 extern "C" int one_pos_launch(const void* cp_fused, int nb, int c0, int c1,
                               int c2, int c3, int c4, int sentinel,
                               const void* codes, const void* lens, int B,
@@ -402,35 +558,48 @@ extern "C" int one_pos_launch(const void* cp_fused, int nb, int c0, int c1,
                               const void* t_mi, const void* t_valid, int T,
                               int chain_restarts, int min_seed_len, int M,
                               int SD, void* stk, void* out, void* cnt,
-                              void* steps, void* stream) {
+                              void* steps, void* rounds, void* stream) {
   if (T <= 0) return 0;
-  if (nb <= 0 || B <= 0 || L <= 0 || M < 0 || SD <= 0)
+  const bool shared = one_pos_stacks_in_shared(L, SD);
+  const size_t bytes = codes_bytes(L) + (shared ? stacks_bytes(SD) : 0);
+  if (nb <= 0 || B <= 0 || L <= 0 || M < 0 || SD <= 0 || bytes > SMEM_MAX
+      || (!shared && stk == nullptr))
     return (int)cudaErrorInvalidValue;
   const Fmi f{(const int4*)cp_fused, nb, c0, c1, c2, c3, c4, sentinel};
-  one_pos_kernel<<<(T + BLOCK - 1) / BLOCK, BLOCK, 0,
-                   (cudaStream_t)stream>>>(
+  auto kernel = shared ? one_pos_kernel<true> : one_pos_kernel<false>;
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<T, WARP, bytes, (cudaStream_t)stream>>>(
       f, (const int32_t*)codes, (const int32_t*)lens, B, L,
       (const int32_t*)t_read, (const int32_t*)t_x, (const int32_t*)t_mi,
       (const uint8_t*)t_valid, T, chain_restarts, min_seed_len, M, SD,
-      (int32_t*)stk, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps);
+      (int4*)stk, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps,
+      (int32_t*)rounds);
   return (int)cudaGetLastError();
 }
 
-// Launch seed_strategy_kernel on `stream` over B reads; the return and
-// the caller's duties as one_pos_launch (outputs [5][B][M] zeroed).
+// Launch seed_strategy_kernel on `stream` over B reads, `reads_per_block`
+// a block (0: p3_reads(L)); the return and the caller's duties as
+// one_pos_launch.
 extern "C" int seed_strategy_launch(const void* cp_fused, int nb, int c0,
                                     int c1, int c2, int c3, int c4,
                                     int sentinel, const void* codes,
                                     const void* lens, int B, int L,
                                     int max_intv, int min_seed_len, int M,
-                                    void* out, void* cnt, void* steps,
-                                    void* stream) {
+                                    int reads_per_block, void* out,
+                                    void* cnt, void* steps, void* stream) {
   if (B <= 0) return 0;
-  if (nb <= 0 || L <= 0 || M < 0) return (int)cudaErrorInvalidValue;
+  const int R = reads_per_block > 0 ? reads_per_block : p3_reads(L);
+  if (nb <= 0 || L <= 0 || M < 0 || R < 1 || R > P3_THREADS
+      || R * codes_bytes(L) > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
   const Fmi f{(const int4*)cp_fused, nb, c0, c1, c2, c3, c4, sentinel};
-  seed_strategy_kernel<<<(B + BLOCK - 1) / BLOCK, BLOCK, 0,
+  const size_t bytes = R * codes_bytes(L);
+  const cudaError_t e = allow_smem(seed_strategy_kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  seed_strategy_kernel<<<(B + R - 1) / R, P3_THREADS, bytes,
                          (cudaStream_t)stream>>>(
-      f, (const int32_t*)codes, (const int32_t*)lens, B, L, max_intv,
+      f, (const int32_t*)codes, (const int32_t*)lens, B, L, R, max_intv,
       min_seed_len, M, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps);
   return (int)cudaGetLastError();
 }

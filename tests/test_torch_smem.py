@@ -5,16 +5,21 @@ compared, slots past the count included, so the stable final sort and
 the overflow contract (cnt forced to capacity) are both held.
 
 Passes 1 and 2 (``one_pos_machine``): the CUDA kernel's CPU twin
-(``smem_cuda.one_pos_twin``, the kernel's own nested loops) against the
-port's lockstep ``one_pos_machine`` and the JAX package's
-``one_pos_machine_oh``, every field and ``cnt``, at the tiers' depths
-(24, 48, the read length), with and without chain restarts, and with the
-stack, the emission depth and the reseed budget overflowing; on a GPU
-the kernel against the plain version over the same cases and at a
-512-read batch.
+(``smem_cuda.one_pos_twin``: the kernel's warp a task, its backward
+rounds in chunks of 32 lanes under the ballot-form keep/emit rule)
+against the port's lockstep ``one_pos_machine`` and the JAX package's
+``one_pos_machine_oh``, every field and ``cnt`` and each task's steps,
+at the tiers' depths (24, 48, the read length), with and without chain
+restarts, and with the stack, the emission depth and the reseed budget
+overflowing; then on a genome with 40 planted copies of a read's
+prefixes, where a round takes two chunks (with and without stack
+overflow), and pass-2 tasks mid-read. On a GPU the kernel against the
+plain version over the same cases and at a 512-read batch, its steps and
+rounds equal to the twin's, and with its stacks in a device scratch.
 
 Pass 3 (``seed_strategy_machine``): the twin ``smem_cuda.
-seed_strategy_twin`` against the lockstep and the JAX package's
+seed_strategy_twin`` (the kernel's flat loop) against the lockstep and
+the JAX package's
 ``seed_strategy_machine_oh`` at emission depths 24, 48 and the read
 length and with the depth overflowing; on a GPU the kernel against the
 plain version over the same cases and at a 512-read batch, and
@@ -227,18 +232,20 @@ def planted():
 
 
 def _twin(fmi, codes, lens, tasks, chain, min_seed_len, M, sd):
+    """The twin's (m, n, k, l, s, cnt), steps and rounds."""
     out = smem_cuda.one_pos_twin(
         fmi.count.cpu().numpy(), fmi.cp_fused.cpu().numpy(),
         fmi.sentinel_index, codes.cpu().numpy(), lens.cpu().numpy(),
         *(t.cpu().numpy() for t in tasks), chain, min_seed_len, M, sd)
-    return out[:6], out[6]
+    return out[:6], out[6], out[7]
 
 
 @pytest.mark.parametrize("case", list(ONE_POS_CASES))
 def test_one_pos_twin_equal_to_lockstep_and_jax(planted, case):
     """The kernel's twin equals the port's lockstep machine and the JAX
-    package's one-hot machine in every field and cnt; its longest lane's
-    steps stay within the lockstep's ticks."""
+    package's one-hot machine in every field and cnt; each task's steps
+    equal the lockstep's occ extensions, and its rounds are at most its
+    steps."""
     import jax.numpy as jnp
     from bwa_mem_scale_tpu.ops.smem import SmemBuf as JBuf
     from bwa_mem_scale_tpu.ops.smem_oh import one_pos_machine_oh
@@ -250,7 +257,8 @@ def test_one_pos_twin_equal_to_lockstep_and_jax(planted, case):
     stats = {}
     plain = one_pos_machine(tf, codes, lens, *tasks, chain, msl, M, sd,
                             stats)
-    twin, steps = _twin(tf, codes, lens, tasks, chain, msl, M, sd)
+    plain_steps = one_pos_machine.last_steps.numpy()
+    twin, steps, rounds = _twin(tf, codes, lens, tasks, chain, msl, M, sd)
     T = tasks[0].shape[0]
     want = one_pos_machine_oh(
         jf, jnp.asarray(codes.numpy()), jnp.asarray(lens.numpy()),
@@ -259,7 +267,9 @@ def test_one_pos_twin_equal_to_lockstep_and_jax(planted, case):
     for f, tw in zip(FIELDS, twin):
         np.testing.assert_array_equal(getattr(plain, f).numpy(), tw, f)
         np.testing.assert_array_equal(np.asarray(getattr(want, f)), tw, f)
+    np.testing.assert_array_equal(steps, plain_steps)
     assert 0 < steps.max() <= stats["seed_ticks"]
+    assert (rounds <= steps).all() and (rounds < steps).any()
     cnt = twin[5]
     assert (cnt > 0).any()
     if case == "stack-overflow":
@@ -284,6 +294,131 @@ def test_one_pos_cuda_wrapper_on_cpu_runs_plain(planted):
     assert st_a == st_b and st_a["seed_ticks_p1"] > 0
     for f in FIELDS:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+# ---- passes 1 and 2 on rounds of more than 32 entries -----------------
+
+# (stack_depth, chain_restarts, max_out), None the read length: pass 1
+# over reads whose stacks pass 32 entries, at full depth and overflowing
+# at 24; pass-2 tasks mid-read (with and without a stack overflow)
+CHUNK_CASES = {"chunks-dL": (None, True, None), "chunks-d24": (24, True, 24),
+               "mid-read-dL": (None, False, None),
+               "mid-read-d24": (24, False, 24)}
+
+
+def _prefix_genome(BntSeq, Annotation, n=40000):
+    """A random genome (either package's BntSeq) and a 101 bp read whose
+    first 29 bases come from 1,000 and the rest from 4,999 (neither
+    extends across the seam), with 40 copies of the read's columns
+    [29 - i % 9, 50 + i) planted 750 bp apart from 8,000, each flanked by
+    bases the read does not have. Pass 1 from 0 restarts at 29, whose
+    forward walk changes interval size at each copy's end: a stack of
+    over 32 entries, and backward rounds that keep the copies with
+    enough left context, 9 rounds deep. Returns (bns, read)."""
+    rng = np.random.RandomState(7)
+    seq = rng.randint(0, 4, n).astype(np.uint8)
+    s1, s2 = 1000, 5000
+    seq[s1 + 29] = (seq[s2 - 1] + 1) % 4
+    seq[s2 - 2] = (seq[s1 + 28] + 1) % 4
+    read = np.concatenate([seq[s1:s1 + 29],
+                           seq[s2 - 1:s2 + 71]]).astype(np.int32)
+    for i in range(40):
+        d, end = i % 9, 50 + i
+        dst = 8000 + 750 * i
+        seq[dst: dst + end - 29 + d] = read[29 - d: end]
+        seq[dst + end - 29 + d] = (read[end] + 1) % 4
+        seq[dst - 1] = (read[28 - d] + 1) % 4
+    bns = BntSeq(l_pac=n, anns=[Annotation(name="ctg0", anno="(null)",
+                                           offset=0, length=n, n_ambs=0)],
+                 ambs=[], seq=seq)
+    return bns, read
+
+
+def _prefix_reads(seq, read):
+    """The read, with a substitution at 60, with an N at 75, reverse
+    complemented, four genome reads (1% errors) and an empty read."""
+    rng = np.random.RandomState(12)
+    sub, withn = read.copy(), read.copy()
+    sub[60] = (sub[60] + 1) % 4
+    withn[75] = 4
+    rows = [read, sub, withn, np.array([3, 2, 1, 0], np.int32)[read[::-1]]]
+    for _ in range(4):
+        p = rng.randint(0, len(seq) - 101)
+        r = seq[p: p + 101].astype(np.int32)
+        e = rng.rand(101) < 0.01
+        r[e] = (r[e] + 1) % 4
+        rows.append(r)
+    rows.append(read[:0])
+    codes = np.full((len(rows), 101), 4, dtype=np.int32)
+    for i, c in enumerate(rows):
+        codes[i, : len(c)] = c
+    return codes, np.array([len(c) for c in rows], dtype=np.int32)
+
+
+def _chunk_tasks(lens, case):
+    """Pass 1 (a task a read from 0, minimum interval 1), or pass-2 tasks
+    mid-read: at the seam and inside the planted columns, at the N, at
+    each read's last base, past its end, on the empty read, invalid."""
+    if CHUNK_CASES[case][1]:
+        B = lens.shape[0]
+        zi = torch.zeros((B,), dtype=torch.int32)
+        return torch.arange(B, dtype=torch.int32), zi, zi + 1, lens > 0
+    rd = [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 5, 6, 7, 8, 0]
+    x = [29, 40, 65, 100, 45, 61, 74, 75, 30, 70, 50, 50, 50, 50, 0, 101]
+    mi = [2, 1, 3, 1, 2, 1, 1, 2, 1, 2, 2, 1, 3, 2, 1, 1]
+    valid = [True] * 15 + [False]
+    as_t = lambda v: torch.tensor(v, dtype=torch.int32)
+    return as_t(rd), as_t(x), as_t(mi), torch.tensor(valid)
+
+
+@pytest.fixture(scope="module")
+def prefixes():
+    """The planted-prefix genome indexed by the JAX package, both
+    packages' device indexes on the CPU, and the reads."""
+    from bwa_mem_scale_tpu.index.bntseq import BntSeq, Annotation
+    from bwa_mem_scale_tpu.index.build import build_index
+    from bwa_mem_scale_tpu.ops.occ import DeviceFMIndex as JFmi
+    bns, read = _prefix_genome(BntSeq, Annotation)
+    idx = build_index(bns)
+    return (JFmi.from_host(idx), TFmi.from_host(idx, "cpu"),
+            _prefix_reads(idx.bns.seq, read))
+
+
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_one_pos_twin_chunked_rounds(prefixes, case):
+    """Rounds of more than 32 entries (two chunks: the ballot's count and
+    the size carried across the chunk edge) and pass-2 tasks mid-read:
+    the twin equals the lockstep and the JAX machine in every field and
+    cnt, and each task's steps equal the lockstep's. The read's stack
+    passes 32 entries (it overflows at depth 32), so its rounds fall
+    short of its steps; at depth 24 it overflows."""
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.ops.smem import SmemBuf as JBuf
+    from bwa_mem_scale_tpu.ops.smem_oh import one_pos_machine_oh
+    jf, tf, reads = prefixes
+    codes, lens = (torch.as_tensor(a) for a in reads)
+    msl = TOpt().min_seed_len
+    sd, chain, M = CHUNK_CASES[case]
+    M = M or codes.shape[1]
+    tasks = _chunk_tasks(lens, case)
+    plain = one_pos_machine(tf, codes, lens, *tasks, chain, msl, M, sd)
+    plain_steps = one_pos_machine.last_steps.numpy()
+    twin, steps, rounds = _twin(tf, codes, lens, tasks, chain, msl, M, sd)
+    want = one_pos_machine_oh(
+        jf, jnp.asarray(reads[0]), jnp.asarray(reads[1]),
+        *(jnp.asarray(t.numpy()) for t in tasks), chain, msl, M,
+        JBuf.empty(tasks[0].shape[0], M, jf.pos_dtype), stack_depth=sd)
+    for f, tw in zip(FIELDS, twin):
+        np.testing.assert_array_equal(getattr(plain, f).numpy(), tw, f)
+        np.testing.assert_array_equal(np.asarray(getattr(want, f)), tw, f)
+    np.testing.assert_array_equal(steps, plain_steps)
+    assert (rounds <= steps).all() and rounds[0] < steps[0]
+    cnt = twin[5]
+    assert (cnt[:-1] > 0).any()
+    if chain:
+        deep, _, _ = _twin(tf, codes, lens, tasks, chain, msl, M, 32)
+        assert deep[5][0] == M + 1                   # over 32 entries
+        assert (cnt[0] == M + 1) == (sd == 24)
 
 
 # ---- pass 3: the CUDA kernel's twin, the lockstep and JAX -------------
@@ -313,8 +448,8 @@ def _seed_twin(fmi, codes, lens, args):
 def test_seed_strategy_twin_equal_to_lockstep_and_jax(planted, case):
     """Pass 3: the kernel's twin equals the port's lockstep machine and
     the JAX package's one-hot machine in every field and cnt (reads with
-    N bases, an empty read, a tandem repeat); its longest lane's steps
-    stay within the lockstep's ticks."""
+    N bases, an empty read, a tandem repeat); each read's steps equal the
+    lockstep's occ extensions."""
     import jax.numpy as jnp
     from bwa_mem_scale_tpu.ops.smem_oh import seed_strategy_machine_oh
     jf, tf, reads = planted
@@ -322,12 +457,14 @@ def test_seed_strategy_twin_equal_to_lockstep_and_jax(planted, case):
     args = _seed_strategy_args(codes, case)
     stats = {}
     plain = seed_strategy_machine(tf, codes, lens, *args, stats)
+    plain_steps = seed_strategy_machine.last_steps.numpy()
     twin, steps = _seed_twin(tf, codes, lens, args)
     want = seed_strategy_machine_oh(jf, jnp.asarray(reads[0]),
                                     jnp.asarray(reads[1]), *args)
     for f, tw in zip(FIELDS, twin):
         np.testing.assert_array_equal(getattr(plain, f).numpy(), tw, f)
         np.testing.assert_array_equal(np.asarray(getattr(want, f)), tw, f)
+    np.testing.assert_array_equal(steps, plain_steps)
     assert 0 < steps.max() <= stats["seed_ticks_p3"]
     cnt = twin[5]
     assert (cnt > 0).any() and (codes == 4).any()
@@ -362,8 +499,8 @@ def _cuda():
 @pytest.fixture(scope="module")
 def card_genome():
     """The planted genome indexed by the port (no JAX on the card) with
-    the twin's reads, and a 512-read batch of 101 bp (1% errors) on a
-    1 Mbp genome."""
+    the twin's reads, a 512-read batch of 101 bp (1% errors) on a 1 Mbp
+    genome, and the planted-prefix genome with its reads."""
     _cuda()
     from bwa_mem_scale_tpu_torch.index.bntseq import BntSeq, Annotation
     from bwa_mem_scale_tpu_torch.index.build import build_index
@@ -372,41 +509,91 @@ def card_genome():
     idx = build_index(_planted_genome(BntSeq, Annotation))
     big_bns = demo_genome(1_000_000, seed=42, n_contigs=1)
     big = simulate_reads(big_bns, 512, 101, seed=8, err_rate=0.01)
-    return idx, _one_pos_reads(idx.bns.seq), build_index(big_bns), big
+    pre_bns, read = _prefix_genome(BntSeq, Annotation)
+    pre = build_index(pre_bns)
+    return (idx, _one_pos_reads(idx.bns.seq), build_index(big_bns), big,
+            pre, _prefix_reads(pre.bns.seq, read))
+
+
+def _card_case(card_genome, case, dev):
+    """(fmi on dev, codes, lens, tasks, chain, max_out, stack depth) of a
+    twin case, a chunk case or batch-512 (phase 4's shape: 512 reads of
+    101 bp, pass 1 at depth 24)."""
+    idx, small, big_idx, big, pre_idx, pre = card_genome
+    msl = TOpt().min_seed_len
+    if case in CHUNK_CASES:
+        codes, lens = (torch.as_tensor(a) for a in pre)
+        sd, chain, M = CHUNK_CASES[case]
+        tasks, M = _chunk_tasks(lens, case), M or codes.shape[1]
+        idx = pre_idx
+    else:
+        if case == "batch-512":
+            idx, small, case = big_idx, big, "d24-chain"
+        codes, lens = (torch.as_tensor(a) for a in small)
+        chain = ONE_POS_CASES[case][1]
+        tasks, M, sd = _tasks(TFmi.from_host(idx, "cpu"), codes, lens, case,
+                              msl)
+    return (TFmi.from_host(idx, dev), codes.to(dev), lens.to(dev),
+            [t.to(dev) for t in tasks], chain, M, sd)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(ONE_POS_CASES) + ["batch-512"])
+@pytest.mark.parametrize("case", list(ONE_POS_CASES) + list(CHUNK_CASES)
+                         + ["batch-512"])
 def test_one_pos_kernel_equal_to_plain(card_genome, case):
     """The kernel against the plain version on the card, every field and
-    cnt, over the twin's cases and at phase 4's batch shape (512 reads
-    of 101 bp, pass 1 at depth 24); its per-lane steps equal the twin's
-    on the small cases."""
+    cnt, over the twin's cases, the chunk cases and at phase 4's batch
+    shape; its per-task steps equal the lockstep's, and on the small
+    cases its steps and rounds equal the twin's."""
     dev = _cuda()
-    idx, small, big_idx, big = card_genome
-    if case == "batch-512":
-        idx, small = big_idx, big
-    fmi = TFmi.from_host(idx, dev)
-    codes, lens = (torch.as_tensor(a, device=dev) for a in small)
+    fmi, codes, lens, tasks, chain, M, sd = _card_case(card_genome, case, dev)
     msl = TOpt().min_seed_len
-    key = "d24-chain" if case == "batch-512" else case
-    chain = ONE_POS_CASES[key][1]
-    tasks, M, sd = _tasks(TFmi.from_host(idx, "cpu"), codes.cpu(),
-                          lens.cpu(), key, msl)
-    tasks = [t.to(dev) for t in tasks]
     before = smem_cuda.one_pos_machine_cuda.launches
     got = smem_cuda.one_pos_machine_cuda(fmi, codes, lens, *tasks, chain,
                                          msl, M, sd)
     torch.cuda.synchronize()
     assert smem_cuda.one_pos_machine_cuda.launches == before + 1
     steps = smem_cuda.one_pos_machine_cuda.last_steps.cpu().numpy()
+    rounds = smem_cuda.one_pos_machine_cuda.last_rounds.cpu().numpy()
     want = one_pos_machine(fmi, codes, lens, *tasks, chain, msl, M, sd)
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
-    assert int(got.cnt.max()) > 0
+    np.testing.assert_array_equal(steps,
+                                  one_pos_machine.last_steps.cpu().numpy())
+    assert int(got.cnt.max()) > 0 and (rounds <= steps).all()
     if case != "batch-512":
-        _, twin_steps = _twin(fmi, codes, lens, tasks, chain, msl, M, sd)
+        _, twin_steps, twin_rounds = _twin(fmi, codes, lens, tasks, chain,
+                                           msl, M, sd)
         np.testing.assert_array_equal(steps, twin_steps)
+        np.testing.assert_array_equal(rounds, twin_rounds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d24-chain", "dL-reseed", "chunks-dL"])
+def test_one_pos_kernel_stacks_in_scratch(card_genome, case):
+    """At a stack depth past one warp's shared memory (8,000 entries, 256
+    KB of stacks) the wrapper gives the kernel a device scratch for its
+    stacks: equal to the plain version at that depth, steps and rounds
+    equal to the twin's."""
+    dev = _cuda()
+    fmi, codes, lens, tasks, chain, M, _ = _card_case(card_genome, case, dev)
+    sd = 8000
+    assert not smem_cuda.LIB.call("one_pos_stacks_in_shared",
+                                  codes.shape[1], sd)
+    msl = TOpt().min_seed_len
+    got = smem_cuda.one_pos_machine_cuda(fmi, codes, lens, *tasks, chain,
+                                         msl, M, sd)
+    torch.cuda.synchronize()
+    want = one_pos_machine(fmi, codes, lens, *tasks, chain, msl, M, sd)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    _, twin_steps, twin_rounds = _twin(fmi, codes, lens, tasks, chain, msl,
+                                       M, sd)
+    np.testing.assert_array_equal(
+        smem_cuda.one_pos_machine_cuda.last_steps.cpu().numpy(), twin_steps)
+    np.testing.assert_array_equal(
+        smem_cuda.one_pos_machine_cuda.last_rounds.cpu().numpy(),
+        twin_rounds)
 
 
 @pytest.mark.cuda
@@ -420,7 +607,7 @@ def test_collect_smems_kernel_equal_to_plain(card_genome, monkeypatch,
     the passes 1-2 kernel and one of the pass-3 kernel."""
     from bwa_mem_scale_tpu_torch.ops import smem_oh
     dev = _cuda()
-    _, _, idx, big = card_genome
+    _, _, idx, big, _, _ = card_genome
     fmi = TFmi.from_host(idx, dev)
     codes, lens = (torch.as_tensor(a, device=dev) for a in big)
     opt = TOpt()
@@ -436,6 +623,8 @@ def test_collect_smems_kernel_equal_to_plain(card_genome, monkeypatch,
     assert smem_cuda.one_pos_machine_cuda.launches == before + 2
     assert smem_cuda.seed_strategy_machine_cuda.launches == before3 + 1
     assert int(stats["seed_steps_p1"]) > 0
+    assert 0 < int(stats["seed_rounds_p1"]) <= int(stats["seed_steps_p1"])
+    assert int(stats["seed_rounds_p2"]) <= int(stats["seed_steps_p2"])
     assert int(stats["seed_steps_p3"]) > 0
     monkeypatch.setattr(smem_oh, "one_pos_machine_cuda", one_pos_machine)
     monkeypatch.setattr(smem_oh, "seed_strategy_machine_cuda",
@@ -452,9 +641,10 @@ def test_collect_smems_kernel_equal_to_plain(card_genome, monkeypatch,
 def test_seed_strategy_kernel_equal_to_plain(card_genome, case):
     """The pass-3 kernel against the plain version on the card, every
     field and cnt, over the twin's cases and on the 512-read batch at the
-    three tier depths; its per-lane steps equal the twin's."""
+    three tier depths; its per-lane steps equal the twin's and the
+    lockstep's."""
     dev = _cuda()
-    idx, small, big_idx, big = card_genome
+    idx, small, big_idx, big, _, _ = card_genome
     key = case
     if case.startswith("batch-512"):
         idx, small, key = big_idx, big, case.split("-")[-1]
@@ -470,5 +660,36 @@ def test_seed_strategy_kernel_equal_to_plain(card_genome, case):
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert int(got.cnt.max()) > 0
+    np.testing.assert_array_equal(
+        steps, seed_strategy_machine.last_steps.cpu().numpy())
     _, twin_steps = _seed_twin(fmi, codes, lens, args)
     np.testing.assert_array_equal(steps, twin_steps)
+
+
+@pytest.mark.cuda
+def test_seed_strategy_kernel_long_reads(card_genome):
+    """Reads of 29,100 columns: 8 reads' codes pass 227 KB, so a block
+    takes 7 (16 reads: two full blocks and a partial one); equal to the
+    plain version, steps equal to the lockstep's."""
+    dev = _cuda()
+    idx = card_genome[2]                             # the 1 Mbp genome
+    rng = np.random.RandomState(21)
+    L, B = 29_100, 16
+    seq = idx.bns.seq.astype(np.int32)
+    codes = np.stack([seq[p: p + L] for p in
+                      rng.randint(0, len(seq) - L, B)]).astype(np.int32)
+    codes[rng.rand(B, L) < 0.01] = 4
+    lens = rng.randint(L - 500, L + 1, B).astype(np.int32)
+    fmi = TFmi.from_host(idx, dev)
+    c, ln = torch.as_tensor(codes, device=dev), torch.as_tensor(lens,
+                                                                device=dev)
+    args = _seed_strategy_args(c, "d48")
+    got = smem_cuda.seed_strategy_machine_cuda(fmi, c, ln, *args)
+    torch.cuda.synchronize()
+    want = seed_strategy_machine(fmi, c, ln, *args)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert (got.cnt > 0).all()
+    np.testing.assert_array_equal(
+        smem_cuda.seed_strategy_machine_cuda.last_steps.cpu().numpy(),
+        seed_strategy_machine.last_steps.cpu().numpy())
