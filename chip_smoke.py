@@ -7,12 +7,14 @@ Phases, in order; any failure exits non-zero:
   1. card:    CUDA present; prints nvidia-smi's name and power limit.
   2. build:   compiles csrc/bsw.cu (the banded-SW kernel),
               csrc/probes.cu (the probe kernels), csrc/smem.cu (the
-              FM walks: SMEM passes 1-2, pass 3 and the SA walk) and
-              csrc/chain.cu (chaining and the chain filter) from source,
-              one nvcc each, all at once; prints ptxas's registers and
-              spills for each FM walk, chaining and BSW kernel (for the
-              BSW kernel one line an instantiation, failing on a spill
-              at K = 4 or 5 columns a lane).
+              FM walks: SMEM passes 1-2, pass 3 and the SA walk),
+              csrc/chain.cu (chaining and the chain filter) and
+              csrc/round_probe.cu (a warp's dependent round) from
+              source, one nvcc each, all at once; prints ptxas's
+              registers and spills for each FM walk, chaining and BSW
+              kernel (for the BSW kernel one line an instantiation,
+              failing on a spill at K = 4 or 5 columns a lane) and the
+              measured cost of a round.
   3. kernel:  the CUDA kernel against the plain PyTorch BSW on the card
               at main-path shapes (4096 pairs, query 101, target 309,
               band 100 and 200), all six outputs bit-equal; the live
@@ -49,11 +51,13 @@ Phases, in order; any failure exits non-zero:
               longest task's rounds x 0.224 us), the kernel's device time
               and the plain version's; its two chaining launches, as
               made, each equal field by field to its plain version, with
-              its steps, bound, latency floor (the longest read's
-              dependent round trips x 0.224 us), the kernel's device time
-              and the plain version's; then a batch whose reads have
-              many chains and deep interval stacks (512 reads on a 2 Mbp
-              genome with repeats, at the same shapes): packed and meta
+              its steps, rounds, bound, latency floor (the longest read's
+              rounds, its warp's dependent steps, x the cost of a round
+              that tools/round_cost.py measures in the same run), the
+              kernel's device time and the plain version's; then a
+              batch whose reads have many chains and deep interval
+              stacks (512 reads on a 2 Mbp genome with repeats, at the
+              same shapes): packed and meta
               equal with the plain chaining, its two SMEM passes 1-2
               launches, its pass-3 launch and its two chaining launches
               held and timed the same way, and the filter at non-default
@@ -134,17 +138,17 @@ SAL_OPS_PER_STEP = 27
 # the dependent checkpoint-row load on the 4.6 Mbp table (probe B, L2;
 # PERF.md section 6), the latency floor of a lane's step
 STEP_US = 0.224
-# chaining (csrc/chain.cu), one thread a read. chain_seeds_kernel: the
-# dependent loads on a coordinate's path (the key search's last probe,
-# the lower chain's slot, its seed count and first seed, its last seed),
-# and its integer operations (the contig search 10, the key search 8,
-# test_and_merge 25, the append or insert 7). chain_filter_kernel: a step
-# is a live chain weighed or an overlap test, each waiting on at least
-# one load; operations: a seed of the weight scans 12, an overlap test
-# 20, an SMEM of the frac_rep scan 2 (its occurrence test and the
-# loop's), and 8 more for one over max_occ (its end, the segment test,
-# the length added or the end's maximum)
-CHAIN_TRIPS_PER_COORD = 4
+# chaining (csrc/chain.cu), a warp a read. The latency floor is the
+# longest read's rounds (the warp's dependent steps, each waiting on a
+# shared-memory or global trip; each kernel counts its own) x the cost of
+# a round measured in this run (tools/round_cost.py: a dependent
+# shared-memory load, a shuffle and a ballot of one warp). Integer
+# operations the function needs: a coordinate of chain_seeds 50 (the
+# contig search 10, the lower chain's search 8, test_and_merge 25, the
+# append or insert 7); for chain_filter a seed of the weight scans 12, an
+# overlap test 20, an SMEM of the frac_rep scan 2 (its occurrence test
+# and the loop's), and 8 more for one over max_occ (its end, the segment
+# test, the length added or the end's maximum)
 CHAIN_OPS_PER_COORD = 50
 FLT_OPS_PER_SEED, FLT_OPS_PER_TEST = 12, 20
 FLT_OPS_PER_SMEM, FLT_OPS_PER_REP = 2, 8
@@ -518,10 +522,11 @@ def walk_launch(dev, what, kernel, plain, args, plain_reps, kw=None):
     """One FM-walk or chaining launch of the batch, as made: the kernel
     against its plain version on every output (each equal) and, where the
     plain version counts them, on its per-lane steps; its per-lane steps
-    and, where the kernel counts them, its per-task rounds (dependent occ
+    and, where the kernel counts them, its per-task rounds (dependent
     round trips); the latency floor (the longest lane's rounds, else its
-    steps, x STEP_US); the kernel's device time (mean of 2, around the
-    plain version's time). Returns (the kernel's output, the numbers)."""
+    steps, x STEP_US; the chaining launches restate it); the kernel's
+    device time (mean of 2, around the plain version's time). Returns
+    (the kernel's output, the numbers)."""
     import torch
     kw = {k: v for k, v in (kw or {}).items() if k != "stats"}
     got = kernel(*args, **kw)
@@ -634,13 +639,15 @@ def chain_seeds_launch(dev, card, args, kw, batch="the batch"):
     """A chain_seeds launch as made, against the lockstep, with its bound:
     the coordinate prefix (rbeg, seed_idx, and coord_valid up to each
     read's first invalid entry), the SMEM rows it names (m, n), the
-    contig offsets, and every output, the zeroed [4, B, C, S] seed planes
-    included (not the per-read steps), against CHAIN_OPS_PER_COORD a
-    coordinate; latency floor: the longest read's coordinates x
-    CHAIN_TRIPS_PER_COORD dependent loads x STEP_US."""
+    contig offsets, and every output once, the [4, B, C, S] seed planes
+    included (not the per-read steps and rounds), against
+    CHAIN_OPS_PER_COORD a coordinate; latency floor: the longest read's
+    rounds x the measured cost of a round (tools/round_cost.py)."""
     import torch
     from bwa_mem_scale_tpu_torch.ops.chain import chain_seeds_device
     from bwa_mem_scale_tpu_torch.ops.chain_cuda import chain_seeds_cuda
+    from bwa_mem_scale_tpu_torch.tools.round_cost import round_us
+    per_round = round_us(dev)
     got, r = walk_launch(dev, "chain_seeds launch", chain_seeds_cuda,
                          chain_seeds_device, args, 2, kw)
     bns, smems, rbeg, seed_idx, coord_valid = args
@@ -654,19 +661,20 @@ def chain_seeds_launch(dev, card, args, kw, batch="the batch"):
     nbytes = (9 * n_coord + n_ended + 8 * n_rows + 8 * bns.offsets.numel()
               + 16 * B * C + 16 * B * C * S + 5 * B)
     r["bound"] = bound(nbytes, CHAIN_OPS_PER_COORD * n_coord)
-    r["floor"] *= CHAIN_TRIPS_PER_COORD
+    r["floor"] = r["longest_rounds"] * per_round * 1e-3
     r.update(coords=n_coord, chains=int(got.n.sum()),
              max_chains=int(got.n.max()), overflowed=int(got.overflow.sum()))
     log(f"[slice] chain_seeds launch, {batch} (B={B}, NC={NC}, C={C}, "
         f"S={S}): equal to the plain version, each field (max_abs_err "
         f"{r['err']}); {n_coord} coordinates, the longest read "
-        f"{r['longest']}, {r['chains']} chains (at most {r['max_chains']} a"
-        f" read), {r['overflowed']} reads overflowed; bound "
-        f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, latency floor "
-        f"{r['floor']:.5f} ms ({r['longest']} x {CHAIN_TRIPS_PER_COORD} x "
-        f"{STEP_US} us); kernel device time {r['ms']:.5f} ms (its seed "
-        f"planes' zero fill included; mean of 2), plain "
-        f"{r['plain_ms']:.2f} ms  [{card}]")
+        f"{r['longest']}, {r['rounds']} rounds (the longest read "
+        f"{r['longest_rounds']}), {r['chains']} chains (at most "
+        f"{r['max_chains']} a read), {r['overflowed']} reads overflowed; "
+        f"bound {r['bound'][0]:.6f} ms by {r['bound'][1]}, latency floor "
+        f"{r['floor']:.5f} ms ({r['longest_rounds']} x "
+        f"{per_round:.5f} us); kernel device time {r['ms']:.5f} ms "
+        f"(a wrapper call, its output allocation included; mean of 2), "
+        f"plain {r['plain_ms']:.2f} ms  [{card}]")
     return r
 
 
@@ -677,11 +685,13 @@ def chain_filter_launch(dev, card, args, kw, batch="the batch"):
     frac_rep scan's reads (s of every SMEM, m and n of those over
     max_occ), cnt, lens, and the outputs (order, kept, w_by_slot,
     frac_rep); operations FLT_OPS_PER_* a seed, overlap test, SMEM and
-    SMEM over max_occ; latency floor: the longest read's steps x
-    STEP_US."""
+    SMEM over max_occ; latency floor: the longest read's rounds x
+    the measured cost of a round (tools/round_cost.py)."""
     import torch
     from bwa_mem_scale_tpu_torch.ops.chain import chain_filter_frac_rep
     from bwa_mem_scale_tpu_torch.ops.chain_cuda import chain_filter_cuda
+    from bwa_mem_scale_tpu_torch.tools.round_cost import round_us
+    per_round = round_us(dev)
     got, r = walk_launch(dev, "chain_filter launch", chain_filter_cuda,
                          chain_filter_frac_rep, args, 2, kw)
     ch, bns, smems, lens = args
@@ -703,6 +713,7 @@ def chain_filter_launch(dev, card, args, kw, batch="the batch"):
                        + FLT_OPS_PER_TEST * tests + FLT_OPS_PER_SMEM * n_smem
                        + FLT_OPS_PER_REP * n_rep)
     kept = got[1]
+    r["floor"] = r["longest_rounds"] * per_round * 1e-3
     r.update(tests=tests, kept={k: int(((kept == k) & live).sum())
                                 for k in range(4)},
              rep_reads=int((got[3] > 0).sum()))
@@ -712,10 +723,11 @@ def chain_filter_launch(dev, card, args, kw, batch="the batch"):
         f"overlap tests, kept 3/2/1/0: {r['kept'][3]}/{r['kept'][2]}/"
         f"{r['kept'][1]}/{r['kept'][0]}, {n_smem} SMEMs scanned ({n_rep} "
         f"over max_occ; {r['rep_reads']} reads with frac_rep > 0), the "
-        f"longest read {r['longest']} steps; bound {r['bound'][0]:.6f} ms "
-        f"by {r['bound'][1]}, latency floor {r['floor']:.5f} ms "
-        f"({r['longest']} x {STEP_US} us); kernel device time "
-        f"{r['ms']:.5f} ms (mean of 2), plain {r['plain_ms']:.2f} ms  "
+        f"longest read {r['longest']} steps, {r['rounds']} rounds (the "
+        f"longest read {r['longest_rounds']}); bound {r['bound'][0]:.6f} "
+        f"ms by {r['bound'][1]}, latency floor {r['floor']:.5f} ms "
+        f"({r['longest_rounds']} x {per_round:.5f} us); kernel device "
+        f"time {r['ms']:.5f} ms (mean of 2), plain {r['plain_ms']:.2f} ms  "
         f"[{card}]")
     return r
 
@@ -1072,11 +1084,13 @@ def main():
 
     from bwa_mem_scale_tpu_torch.ops import bsw_cuda, chain_cuda, nvcc_build
     from bwa_mem_scale_tpu_torch.ops import probe_kernels, smem_cuda
-    with ThreadPoolExecutor(4) as ex:           # one nvcc a source, at once
+    from bwa_mem_scale_tpu_torch.tools import round_cost
+    with ThreadPoolExecutor(5) as ex:           # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
                   ex.submit(probe_kernels.build, force=True, verbose=True),
                   ex.submit(smem_cuda.build, force=True),
-                  ex.submit(chain_cuda.build, force=True)]
+                  ex.submit(chain_cuda.build, force=True),
+                  ex.submit(round_cost.build, force=True)]
         probes_seconds = builds[1].result()[1]
         for b in builds:
             b.result()
@@ -1087,7 +1101,13 @@ def main():
         f"{os.path.relpath(smem_cuda.LIB.path, REPO)} in "
         f"{smem_cuda.LIB.build_seconds:.2f} s; csrc/chain.cu -> "
         f"{os.path.relpath(chain_cuda.LIB.path, REPO)} in "
-        f"{chain_cuda.LIB.build_seconds:.2f} s (in parallel)")
+        f"{chain_cuda.LIB.build_seconds:.2f} s; csrc/round_probe.cu -> "
+        f"{os.path.relpath(round_cost.LIB.path, REPO)} in "
+        f"{round_cost.LIB.build_seconds:.2f} s (in parallel)")
+    log(f"[build] one warp's dependent round (tools/round_cost.py: a "
+        f"shared-memory load, a shuffle, a ballot), equal to its plain "
+        f"model: {round_cost.round_us(dev):.5f} us, the chaining floors' "
+        f"cost of a round  [{card}]")
     kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda")}
     for lib, kernel in (("smem_cuda", "one_pos_kernelILb1"),

@@ -1,6 +1,6 @@
-// Seed chaining and the chain filter for Hopper (sm_90a): one thread a
-// read, each read's whole walk in one launch, no host synchronisation
-// inside. Two kernels:
+// Seed chaining and the chain filter for Hopper (sm_90a): one warp a
+// read, the read's chain state in dynamic shared memory, each read's whole
+// walk in one launch, no host synchronisation inside. Two kernels:
 // - chain_seeds_kernel: mem_chain_seeds (src/bwamem.cpp:789-960);
 // - chain_filter_kernel: mem_chain_weight and mem_chain_flt
 //   (src/bwamem.cpp:452-471, 528-646), and in the same launch the
@@ -12,105 +12,200 @@
 // chain_filter_frac_rep), which take ~55 PyTorch launches a coordinate
 // step, one host synchronisation, and ~2,000 launches for the filter's
 // C-wide loops. Each kernel returns its plain version's arrays exactly;
-// the TPU's one-hot selects are not ported (a GPU thread indexes its own
-// rows directly).
+// the TPU's one-hot selects are not ported (a GPU indexes its own rows
+// directly).
 //
-// What bounds them on this card: neither bytes nor operations. A read's
-// work is a few coordinates and chains, each waiting on loads of rows
-// the thread wrote a moment before (the sorted keys, the lower chain's
-// seed count and last seed), so the longest read's chain of dependent
-// round trips sets the time; the bytes are mostly chain_seeds' zeroed
-// [B, C, S] seed planes, written by the wrapper's fill. The design keeps
-// that chain short: the lower bound is a binary search over the n live
-// keys, and the filter touches only the n live slots. Left for later
-// work: a warp a read, the keys in shared memory, ballot-based lower
-// bounds.
+// What bounds them on this card: on the 4.6 Mbp batch, chain_seeds'
+// bytes (its [4, B, C, S] seed planes, 16.8 MB at the main path's
+// shapes, each element written once by the kernel: no fill outside it);
+// on reads from repeats (hundreds of coordinates, tens of chains), the
+// longest read's chain of dependent rounds: every coordinate's
+// test_and_merge waits on the state the one before left, and every
+// overlap test of the filter on the chains kept before it. The design
+// keeps that chain in shared memory and short:
+// - a warp a read, one warp a block (1 to 8 reads a block measured
+//   within 3% of each other on the H100, PERF.md section 6), so a read's
+//   C-wide loops run 32 entries a step and every global row of the read
+//   is read or written coalesced;
+// - the chain state by slot in dynamic shared memory (7 words a chain
+//   for either kernel), so no step waits on an L2 trip for state the
+//   warp itself wrote;
+// - the per-coordinate work that needs no chain state (the SMEM row, the
+//   contig search, the lower chain) done 32 coordinates at once, one a
+//   lane, the next 32 coordinates' loads in flight meanwhile.
+// Each read reports its `steps` (chain_seeds: coordinates walked;
+// chain_filter: live chains weighed plus overlap tests, as the one-thread
+// design counted them) and its `rounds`: the warp's dependent steps, each
+// a shared-memory or global trip the next step waits on (listed below
+// for each kernel). The latency floor is the longest read's rounds x the
+// cost of a round measured on the card (csrc/round_probe.cu: a dependent
+// shared-memory load, a shuffle and a ballot; chip_smoke.py).
 //
 // ---- chain_seeds_kernel
-// One thread a read walks its coordinates in order while coord_valid[b,
-// c] holds (the coordinates come in SMEM order, then interval order, and
+// One warp walks a read's coordinates in order while coord_valid[b, c]
+// holds (the coordinates come in SMEM order, then interval order, and
 // valid ones are a prefix of the row, ops/sal.py::expand_and_lookup, so
-// the walk ends at the first invalid one). For each: the
-// seed's query begin and length from its SMEM; rid by bns_intv2rid (an
-// upper-bound search over the contig offsets, -1 past l_pac or for a
-// span over two contigs, -2 for a span over the strands' junction); a
-// seed with rid < 0 is skipped. The lower-bound chain is the last live
-// key <= rbeg (an upper bound over the n live keys: the keys past n hold
-// BIG = 2^29 - 1, which a reverse-strand rbeg reaches once l_pac passes
-// ~268 Mbp, so they are never counted). test_and_merge
-// (src/bwamem.cpp:379-421) against it: a contained seed merges, a
-// colinear one appends (or sets the overflow flag when the chain holds
-// S seeds); otherwise a new chain starts in slot n (or the overflow flag
-// is set when n = C) and (rbeg, n) is inserted into the sorted keys at
-// the upper bound. The [B, C] rows are written by the kernel (key BIG
-// past n, slot 0, rid -1, n_seeds 0); the [4][B][C][S] seed planes
-// (qbeg, rbeg, len, score = len) are zeroed by the wrapper, and a seed is
-// written to all four. Capacities C and S are launch arguments, so every
-// retry tier (64/32, 256/64, 1024/256) takes the same code.
+// the walk ends at the first invalid one), 32 at a time (a stage): a
+// ballot over coord_valid finds where the prefix ends, and lane l
+// computes its coordinate's seed: the SMEM index clamped to [0, M - 1],
+// the query begin and length from the SMEM, and rid by bns_intv2rid (-1
+// past l_pac or for a span over two contigs, -2 for a span over the
+// strands' junction; a seed with rid < 0 is skipped). The reference
+// keeps the chains in a B-tree by anchor (the first seed's rbeg) and
+// tests a seed against the chain of the last anchor <= rbeg; the
+// one-thread design kept the anchors as a sorted array, each new one
+// after those equal to it. Slots are handed out in that same order of
+// insertion, so that chain is the live slot of the largest (anchor,
+// slot) with anchor <= rbeg: lane l finds its seed's lower chain at the
+// stage's start, a pass over the n live anchors, and only the n live
+// slots count (an anchor is never the empty-key marker BIG = 2^29 - 1,
+// which a reverse-strand rbeg reaches once l_pac passes ~268 Mbp). Then
+// the stage's seeds are tested side by side, each lane its own against
+// the same shared-memory state: test_and_merge (src/bwamem.cpp:379-421),
+// where a contained seed merges, a colinear one appends (or sets the
+// overflow flag when the chain holds S seeds), and any other starts a
+// new chain in slot n (or sets the flag when n = C). The seeds before
+// the first one that appends or starts a chain are final: a merge by
+// containment or an overflow leaves the state as it was, so each saw
+// the state the serial walk would show it. That seed is committed (new
+// chain: every later lane whose rbeg its anchor does not pass, and whose
+// lower anchor it reaches, takes it as its lower chain, the new slot
+// being the largest), and the rest are tested again. The state by slot:
+// rid, the seed count, the first seed (q, r; r is the anchor) and the
+// last seed (q, r, len); the lockstep reads the last seed at index
+// clamp(n_seeds - 1, 0, S - 1), which is n_seeds - 1 for every live slot
+// (a chain starts at one seed and grows only below S), so the last
+// appended seed is that seed. A seed goes to the four [B, C, S] planes
+// (qbeg, rbeg, len, score = len) when it is made, one plane a lane. At
+// the end the warp writes the sorted [B, C] rows, each live slot at its
+// rank (the anchors smaller than its own, plus the equal anchors of
+// earlier slots; keys compared 32 a shuffle round; key BIG and slot 0
+// past n), rid (-1 past n) and n_seeds (0 past n) by slot, and zeroes
+// the plane positions no seed wrote (s >= n_seeds of each slot, all of
+// the slots past n), so each output element is written once. Rounds: 2
+// for the first stage's loads (the coordinates, then the SMEM rows they
+// name; later stages' are loaded one and two stages ahead), 1 a stage
+// for the contig search, ceil(n / 32) a stage for the lower chains, 1 a
+// test of the stage's seeds, and ceil(n / 32)^2 for the ranks.
+// Capacities C and S are launch arguments, so every retry tier (64/32,
+// 256/64, 1024/256) takes the same code.
 //
 // ---- chain_filter_kernel
-// One thread a read. Weights: for each live slot the two int64 coverage
-// scans (query, reference) over its seeds, the smaller clamped to
-// 2^30 - 1; slots at n and past hold no seeds and weigh 0. Order: a
-// stable insertion sort of the live slots by weight descending, slots
-// under min_chain_weight keyed -1 (so last, in slot order), then the
-// empty slots in slot order: the stable argsort over all C positions.
-// The overlap loop over sorted positions i in [1, n_heavy) tests each
-// kept j < i in order: significant when the query spans overlap by at
-// least min_l * mask_level (in double, as the JAX package promotes the
+// One warp a read. Weights: lanes over the live slots, each running its
+// slot's two int64 coverage scans (query, reference) over its seeds, 8
+// seeds' loads at a time, the smaller clamped to 2^30 - 1; slots at n
+// and past hold no seeds and weigh 0. Order: slots under
+// min_chain_weight take key -1, and a live slot's sorted position is
+// #{live slots with a larger key} + #{earlier live slots with the same
+// key} (keys compared 32 a shuffle round); the empty
+// slots follow in slot order. This is the stable argsort over all C
+// positions the plain version takes, since no live key falls below -1 (a
+// weight is a sum of seed lengths). The sorted positions' query span,
+// key, alt flag, first overlap and kept value live in shared memory. The
+// serial overlap loop over sorted positions i in [1, n_heavy) tests the
+// kept j < i in order: j is significant when the query spans overlap by
+// at least min_l * mask_level (in double, as the JAX package promotes the
 // product to float64) with min_l < max_chain_gap and alt_j implying
-// alt_i; a significant j whose first is unset records i; the first
-// significant j with w_i < w_j * drop_ratio (double) and
-// w_j - w_i >= 2 * min_seed_len drops i and ends the loop. Then kept
-// chains pass kept = 1 to the chain named by their first, in index order
-// and in place (a 3 can become a 1), and the kept == 1 or 2 chains past
-// max_chain_extend are cut. The sorted positions' query span, weight,
-// alt flag and first live in a [5][C][B] scratch (lane minor) that the
-// wrapper allocates. frac_rep: the serial scan over the read's sorted
-// SMEMs with more than max_occ hits, their union's length over the read
-// length, in float as the plain version divides.
+// alt_i; dominating when also w_i < w_j * drop_ratio (double) and w_j -
+// w_i >= 2 * min_seed_len; every significant j up to the first
+// dominating one, j*, records i as its first if it has none, and i is
+// dropped at j*. Only "kept" depends on earlier rows, so the loop runs in
+// blocks of 32 rows in two phases. A: lane l takes row i0 + l and builds
+// its 32-bit words of the significant and of the dominating j < i, kept
+// or not (j 32 a shuffle round); the words of the block's rows go to
+// shared memory. B: the rows in order, lane l over words 32 c + l of the
+// row, with the kept and first-set bits of those words in its registers
+// (c < 7: C up to 7,168): j* is the lowest set bit of the first word
+// whose dominating bits, masked by kept, are non-zero (a ballot); the
+// significant kept bits up to j* not yet first-set record i; i's kept
+// bit is set unless j* exists. This is the serial loop's result because
+// kept[j] for j < i is final when i is tested and each first write
+// touches its own j; its steps grow by j* + 1, or by i when nothing
+// dominates (the serial loop's visited j). Then kept chains pass kept = 1
+// to the chain their first names; the serial pass goes in index order,
+// and a chain it revives (0 -> 1) was dropped in the overlap loop, so its
+// first is unset: the pass runs 32 at a time. Last, the kept == 1 or 2
+// chains past max_chain_extend are cut by an inclusive prefix count, 32
+// a ballot. frac_rep: the read's SMEMs staged 32 at a time, a ballot over
+// s > max_occ, and the serial union scan over those (broadcast by
+// shuffles), its length over the read length in float, as the plain
+// version divides. Rounds: 2 a chunk of live slots (their seed counts,
+// then their seeds), a chunk of live slots' ranks 1 a chunk of keys plus
+// 1 for their sorted fields, 1 a block's word of phase A, 1 a row's
+// chunk of words of phase B, 1 a chunk of each of the two kept passes and
+// 1 a chunk of SMEMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BLOCK = 32;                  // reads (threads) a block
+constexpr int WARP = 32;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int BIG = 0x7fffffff / 4;        // the empty key, int32 max // 4
+constexpr unsigned SIGN = 0x80000000u;     // an int32's sign bit
+// shared memory a read takes, in 4-byte words: chain_seeds 7 a chain
+// (rid, n_seeds, first q r, last q r len); chain_filter 7 a chain (key by
+// slot; QB QE W ALT FIRST kept by sorted position) and 64 a 32 chains (a
+// block of 32 rows' two bit masks)
+constexpr int SEEDS_WORDS_A_CHAIN = 7;
+__host__ __device__ constexpr size_t seeds_words(int C) {
+  return (size_t)SEEDS_WORDS_A_CHAIN * C;
+}
+__host__ __device__ constexpr size_t filter_words(int C) {
+  return (size_t)7 * C + (size_t)64 * ((C + 31) / 32);
+}
+// chunks of 32 words of 32 positions that the filter keeps a row's kept
+// and first-set bits in, a word a lane: C up to 7,168
+constexpr int WORD_CHUNKS = 7;
+// the shared memory a block can take on Hopper (227 KB, dynamic only
+// past the 48 KB default)
+constexpr size_t SMEM_MAX = 232448;
+constexpr size_t SMEM_DEFAULT = 49152;
 
 struct Bns {
   const int64_t* offsets;                  // [n_seqs] contig offsets
   const uint8_t* is_alt;                   // [n_seqs]
   int n_seqs;
+  int top;                                 // the largest power of 2 <= n_seqs
   long long l_pac;
 };
+
+Bns make_bns(const void* offsets, const void* is_alt, int n_seqs,
+             long long l_pac) {
+  int top = 1;
+  while (2 * top <= n_seqs) top *= 2;
+  return Bns{(const int64_t*)offsets, (const uint8_t*)is_alt, n_seqs, top,
+             l_pac};
+}
 
 // bns_depos: the forward-strand position of pos
 __device__ __forceinline__ long long depos(const Bns& g, long long pos) {
   return pos >= g.l_pac ? 2 * g.l_pac - 1 - pos : pos;
 }
 
-// bns_pos2rid of a forward position: the last contig whose offset is
-// <= pos_f (an upper bound, minus one), or -1 at and past l_pac
-__device__ int pos2rid(const Bns& g, long long pos_f) {
-  if (pos_f >= g.l_pac) return -1;
-  int lo = 0, hi = g.n_seqs;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (g.offsets[mid] <= pos_f) lo = mid + 1; else hi = mid;
-  }
-  return lo - 1;
-}
-
-// bns_intv2rid of [rb, re)
+// bns_intv2rid of [rb, re): -2 over the strands' junction; else the
+// contig of each end's forward position (bns_pos2rid: the last contig
+// whose offset is <= it, -1 at and past l_pac), -1 when they differ. Both
+// ends' upper-bound searches run side by side in the same fixed steps
+// for every lane (no branch), the offsets on the read-only path (L1).
 __device__ int intv2rid(const Bns& g, int rb, int re) {
-  if (rb < g.l_pac && re > g.l_pac) return -2;   // over the junction
-  const int rid_b = pos2rid(g, depos(g, rb));
-  const int rid_e = pos2rid(g, depos(g, rb < re ? re - 1 : rb));
-  return rid_b == rid_e ? rid_b : -1;
+  const long long pb = depos(g, rb), pe = depos(g, rb < re ? re - 1 : rb);
+  int nb = 0, ne = 0;                      // offsets <= pb, <= pe
+  for (int step = g.top; step > 0; step >>= 1) {
+    const int ib = nb + step, ie = ne + step;
+    const int64_t ob = __ldg(g.offsets + (ib < g.n_seqs ? ib : g.n_seqs) - 1);
+    const int64_t oe = __ldg(g.offsets + (ie < g.n_seqs ? ie : g.n_seqs) - 1);
+    nb += (ib <= g.n_seqs) & (ob <= pb) ? step : 0;
+    ne += (ie <= g.n_seqs) & (oe <= pe) ? step : 0;
+  }
+  const int rid_b = pb >= g.l_pac ? -1 : nb - 1;
+  const int rid_e = pe >= g.l_pac ? -1 : ne - 1;
+  const int rid = rid_b == rid_e ? rid_b : -1;
+  return rb < g.l_pac && re > g.l_pac ? -2 : rid;
 }
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(WARP)
 chain_seeds_kernel(Bns g, const int32_t* __restrict__ rbeg,   // [B, NC]
                    const int32_t* __restrict__ seed_idx,       // [B, NC]
                    const uint8_t* __restrict__ coord_valid,    // [B, NC]
@@ -123,116 +218,261 @@ chain_seeds_kernel(Bns g, const int32_t* __restrict__ rbeg,   // [B, NC]
                    int32_t* __restrict__ n_out,      // [B]
                    int32_t* __restrict__ rid_t,      // [B, C]
                    int32_t* __restrict__ n_seeds,    // [B, C]
-                   int32_t* __restrict__ seeds,      // [4][B][C][S], zeroed
+                   int32_t* __restrict__ seeds,      // [4][B][C][S]
                    uint8_t* __restrict__ overflow,   // [B]
-                   int32_t* __restrict__ steps_out) {  // [B]
-  const int b = blockIdx.x * BLOCK + threadIdx.x;
-  if (b >= B) return;
-  int32_t* ky = key + (size_t)b * C;
-  int32_t* sl = slot + (size_t)b * C;
-  int32_t* rd = rid_t + (size_t)b * C;
-  int32_t* ns = n_seeds + (size_t)b * C;
-  for (int c = 0; c < C; ++c) {
-    ky[c] = BIG;
-    sl[c] = 0;
-    rd[c] = -1;
-    ns[c] = 0;
-  }
+                   int32_t* __restrict__ steps_out,  // [B]
+                   int32_t* __restrict__ rounds_out) {  // [B]
+  extern __shared__ int32_t smem[];
+  const int l = threadIdx.x, b = blockIdx.x;
+  int32_t* RD = smem;                    // by slot: rid
+  int32_t* NS = RD + C;                  // seed count
+  int32_t* FQ = NS + C;                  // first seed (q, r): r is the key
+  int32_t* FR = FQ + C;
+  int32_t* LQ = FR + C;                  // last seed (q, r, len)
+  int32_t* LR = LQ + C;
+  int32_t* LL = LR + C;
   const size_t plane = (size_t)B * C * S;
-  int32_t* sq = seeds + (size_t)b * C * S;        // [C][S] each
-  int32_t* sr = sq + plane;
-  int32_t* sn = sr + plane;
-  int32_t* ss = sn + plane;
+  int32_t* sq = seeds + (size_t)b * C * S;        // [C][S] of plane 0
   const int32_t* m = sm_m + (size_t)b * M;
   const int32_t* e = sm_n + (size_t)b * M;
-  auto put = [&](int at, int q, int r, int len) {
-    sq[at] = q;
-    sr[at] = r;
-    sn[at] = len;
-    ss[at] = len;
-  };
+  const int32_t* rb_row = rbeg + (size_t)b * NC;
+  const int32_t* si_row = seed_idx + (size_t)b * NC;
   const uint8_t* valid = coord_valid + (size_t)b * NC;
-  int n = 0, c = 0;
+  // lane p < 4 writes plane p of a seed: qbeg, rbeg, len, score = len
+  auto put = [&](int at, int q, int r, int len) {
+    if (l < 4) sq[l * plane + at] = l == 0 ? q : (l == 1 ? r : len);
+  };
+  int n = 0, steps = 0, rounds = 0;
   bool of = false;
-  for (; c < NC && valid[c]; ++c) {
-    const int s_rbeg = rbeg[(size_t)b * NC + c];
-    int si = seed_idx[(size_t)b * NC + c];
-    si = si < 0 ? 0 : (si >= M ? M - 1 : si);
-    const int s_qbeg = m[si];
-    const int s_len = e[si] + 1 - s_qbeg;
-    const int rid = intv2rid(g, s_rbeg, s_rbeg + s_len);
-    if (rid < 0) continue;
-    int pos = 0, hi = n;                 // upper bound of rbeg, live keys
-    while (pos < hi) {
-      const int mid = (pos + hi) >> 1;
-      if (ky[mid] <= s_rbeg) pos = mid + 1; else hi = mid;
-    }
-    bool merged = false;
-    if (pos > 0) {                       // test_and_merge with the lower
-      const int ls = sl[pos - 1];
-      const int ln = ns[ls];
-      const int li = ln - 1 < 0 ? 0 : (ln - 1 >= S ? S - 1 : ln - 1);
-      const int at = ls * S;
-      const int last_q = sq[at + li], last_r = sr[at + li];
-      const int last_len = sn[at + li];
-      const int first_q = sq[at], first_r = sr[at];
-      const bool same_rid = rid == rd[ls];
-      const bool contained = same_rid && s_qbeg >= first_q
-                             && s_qbeg + s_len <= last_q + last_len
-                             && s_rbeg >= first_r
-                             && s_rbeg + s_len <= last_r + last_len;
-      const bool diff_strand = (last_r < g.l_pac || first_r < g.l_pac)
-                               && s_rbeg >= g.l_pac;
-      const int x = s_qbeg - last_q, y = s_rbeg - last_r;
-      const bool growable = same_rid && !contained && !diff_strand
-                            && y >= 0 && x - y <= w && y - x <= w
-                            && x - last_len < max_chain_gap
-                            && y - last_len < max_chain_gap;
-      if (growable) {
-        if (ln >= S) {
-          of = true;                     // the chain is full
-        } else {
-          put(at + ln, s_qbeg, s_rbeg, s_len);
-          ns[ls] = ln + 1;
-        }
+  // slot 0's state is read (and its result masked) by seeds with no
+  // lower chain, before any chain starts there: zeros, not junk
+  for (int k = 0; k < SEEDS_WORDS_A_CHAIN; ++k) RD[k * C] = 0;
+  // lane l's coordinate, loaded two chunks ahead, and its SMEM row, one
+  // chunk ahead: the loads only, so nothing waits on them until they are
+  // used (the first chunk's loads wait: 2 rounds)
+  auto coord = [&](int c, int& v, int& r, int& si) {
+    const bool in = c < NC;
+    v = in ? valid[c] : 0;
+    r = in ? rb_row[c] : 0;
+    si = in ? si_row[c] : 0;
+  };
+  auto clamp_m = [&](int si) { return si < 0 ? 0 : (si >= M ? M - 1 : si); };
+  int v0, v1, r0, r1, si0, si1;
+  coord(l, v0, r0, si0);
+  coord(WARP + l, v1, r1, si1);
+  int q0 = m[clamp_m(si0)], e0 = e[clamp_m(si0)];
+  rounds += 2;
+  for (int c0 = 0; c0 < NC; c0 += WARP) {
+    const bool v = v0 != 0;
+    const int my_rbeg = r0;
+    const int my_qbeg = q0, my_len = e0 + 1 - q0;
+    v0 = v1;                             // the next chunk, and the one after
+    r0 = r1;
+    q0 = m[clamp_m(si1)];
+    e0 = e[clamp_m(si1)];
+    coord(c0 + 2 * WARP + l, v1, r1, si1);
+    const int my_rid = v ? intv2rid(g, my_rbeg, my_rbeg + my_len) : -1;
+    const unsigned vm = __ballot_sync(FULL, v);
+    const int cnt = vm == FULL ? WARP : __ffs(~vm) - 1;
+    ++rounds;                            // the contig search
+    // lane l's lower chain: the live slot of the largest (key, slot) with
+    // key <= rbeg, the last of those keys in the sorted order; the keys
+    // 32 a shuffle round, four running maxima of the packed pair (the key
+    // with its sign bit flipped, which keeps the order, then slot + 1;
+    // 0 for none) so that no step waits on the one before
+    unsigned long long best[4] = {0, 0, 0, 0};
+    for (int k0 = 0; k0 < n; k0 += WARP) {
+      const int theirs = k0 + l < n ? FR[k0 + l] : 0;
+#pragma unroll
+      for (int t = 0; t < WARP; ++t) {
+        const int k = __shfl_sync(FULL, theirs, t);
+        const unsigned long long cand =
+            (k <= my_rbeg) & (k0 + t < n)
+                ? (unsigned long long)((unsigned)k ^ SIGN) << 32
+                      | (unsigned)(k0 + t + 1)
+                : 0;
+        best[t & 3] = cand > best[t & 3] ? cand : best[t & 3];
       }
-      merged = contained || growable;
     }
-    if (merged) continue;
-    if (n >= C) {                        // no slot for a new chain
-      of = true;
-      continue;
+    const unsigned long long top =
+        max(max(best[0], best[1]), max(best[2], best[3]));
+    int low = (int)(top & 0xffffffff) - 1;
+    int low_key = (int)((unsigned)(top >> 32) ^ SIGN);
+    rounds += (n + WARP - 1) / WARP;
+    // the chunk's seeds side by side: each seed not yet final is tested
+    // against the current state; those before the first that would change
+    // it (an append, a new chain) are final, since a merge by containment,
+    // a full chain or a missing slot leaves the state as it was; that
+    // seed is committed, and the rest are tested again
+    for (int done = 0; done < cnt;) {
+      // every test evaluated, the lower chain's state read from slot 0
+      // when there is none: no branch
+      const bool tested = (l >= done) & (l < cnt) & (my_rid >= 0);
+      const bool has_low = low >= 0;
+      const int ls = has_low ? low : 0;
+      const int ln = NS[ls];
+      const int last_q = LQ[ls], last_r = LR[ls], last_len = LL[ls];
+      const int first_q = FQ[ls], first_r = FR[ls];
+      const bool same_rid = has_low & (my_rid == RD[ls]);
+      const bool contained = same_rid & (my_qbeg >= first_q)
+                             & (my_qbeg + my_len <= last_q + last_len)
+                             & (my_rbeg >= first_r)
+                             & (my_rbeg + my_len <= last_r + last_len);
+      const bool diff_strand =
+          ((last_r < g.l_pac) | (first_r < g.l_pac)) & (my_rbeg >= g.l_pac);
+      const int x = my_qbeg - last_q, y = my_rbeg - last_r;
+      const bool growable = same_rid & !contained & !diff_strand
+                            & (y >= 0) & (x - y <= w) & (y - x <= w)
+                            & (x - last_len < max_chain_gap)
+                            & (y - last_len < max_chain_gap);
+      const bool fresh = !(contained | growable);  // a new chain, if any
+      // 1 append, 2 new chain; a full chain or no free slot: overflow
+      const int act = !tested ? 0
+                      : growable ? (ln < S ? 1 : 0)
+                                 : (fresh & (n < C) ? 2 : 0);
+      const bool my_of =
+          tested & ((growable & (ln >= S)) | (fresh & (n >= C)));
+      ++rounds;
+      const unsigned changes = __ballot_sync(FULL, act != 0);
+      const int f = changes ? __ffs(changes) - 1 : cnt;
+      if (__ballot_sync(FULL, my_of && l < f)) of = true;
+      if (f >= cnt) break;
+      const int s_rbeg = __shfl_sync(FULL, my_rbeg, f);
+      const int s_qbeg = __shfl_sync(FULL, my_qbeg, f);
+      const int s_len = __shfl_sync(FULL, my_len, f);
+      // every lane stores every state word itself (the same values), so
+      // a lane reads only its own stores, and every lane's test read the
+      // state before the ballot let any lane on: no __syncwarp
+      if (__shfl_sync(FULL, act, f) == 1) {      // seed f appends
+        const int to = __shfl_sync(FULL, low, f);
+        const int f_ln = __shfl_sync(FULL, ln, f);
+        put(to * S + f_ln, s_qbeg, s_rbeg, s_len);
+        NS[to] = f_ln + 1;
+        LQ[to] = s_qbeg;
+        LR[to] = s_rbeg;
+        LL[to] = s_len;
+      } else {                           // seed f starts a chain in slot n
+        put(n * S, s_qbeg, s_rbeg, s_len);
+        RD[n] = __shfl_sync(FULL, my_rid, f);
+        NS[n] = 1;
+        FQ[n] = LQ[n] = s_qbeg;
+        FR[n] = LR[n] = s_rbeg;
+        LL[n] = s_len;
+        // the largest slot yet: the lower chain of every later seed
+        // whose rbeg it does not pass, unless a larger key is
+        if (s_rbeg <= my_rbeg && (low < 0 || s_rbeg >= low_key)) {
+          low = n;
+          low_key = s_rbeg;
+        }
+        ++n;
+      }
+      done = f + 1;
     }
-    put(n * S, s_qbeg, s_rbeg, s_len);
-    ns[n] = 1;
-    rd[n] = rid;
-    for (int k = n; k > pos; --k) {      // the sorted insert
-      ky[k] = ky[k - 1];
-      sl[k] = sl[k - 1];
-    }
-    ky[pos] = s_rbeg;
-    sl[pos] = n;
-    ++n;
+    steps = c0 + cnt;
+    if (cnt < WARP) break;
   }
-  n_out[b] = n;
-  overflow[b] = of;
-  steps_out[b] = c;
+  // the [B, C] rows: slot c at its rank among the live keys (ascending,
+  // equal keys in slot order, which is the order they were inserted in)
+  const size_t row = (size_t)b * C;
+  for (int c0 = 0; c0 < n; c0 += WARP) {
+    const int c = c0 + l;
+    const int mine = c < n ? FR[c] : 0;
+    int r = 0;
+    for (int c1 = 0; c1 < n; c1 += WARP) {
+      const int theirs = c1 + l < n ? FR[c1 + l] : 0;
+      const int t_end = n - c1 < WARP ? n - c1 : WARP;
+      for (int t = 0; t < t_end; ++t) {
+        const int kk = __shfl_sync(FULL, theirs, t);
+        r += kk < mine || (kk == mine && c1 + t < c);
+      }
+      ++rounds;
+    }
+    if (c < n) {
+      key[row + r] = mine;
+      slot[row + r] = c;
+    }
+  }
+  for (int c = l; c < C; c += WARP) {
+    const bool live = c < n;
+    if (!live) {
+      key[row + c] = BIG;
+      slot[row + c] = 0;
+    }
+    rid_t[row + c] = live ? RD[c] : -1;
+    n_seeds[row + c] = live ? NS[c] : 0;
+  }
+  // zero the plane positions no seed wrote; where S is a multiple of 4,
+  // 16 bytes a store (a slot's row then starts 16-byte aligned), the
+  // positions before the first whole 16 bytes past n_seeds one by one
+  auto zero = [&](size_t at) {
+    sq[at] = 0;
+    sq[plane + at] = 0;
+    sq[2 * plane + at] = 0;
+    sq[3 * plane + at] = 0;
+  };
+  if (S % 4 == 0) {
+    const int S4 = S / 4;
+    const int4 z = make_int4(0, 0, 0, 0);
+    for (int e4 = l; e4 < C * S4; e4 += WARP) {
+      const int c = e4 / S4, s0 = 4 * (e4 - c * S4);
+      const int ns = c < n ? NS[c] : 0;
+      const size_t at = (size_t)c * S + s0;
+      if (s0 >= ns) {
+        for (int p = 0; p < 4; ++p)
+          *reinterpret_cast<int4*>(sq + p * plane + at) = z;
+      } else {
+        for (int s = ns; s < s0 + 4; ++s) zero((size_t)c * S + s);
+      }
+    }
+  } else {
+    for (int c = 0; c < C; ++c) {
+      const int ns = c < n ? NS[c] : 0;
+      for (int s = ns + l; s < S; s += WARP) zero((size_t)c * S + s);
+    }
+  }
+  if (l == 0) {
+    n_out[b] = n;
+    overflow[b] = of;
+    steps_out[b] = steps;
+    rounds_out[b] = rounds;
+  }
 }
 
-// the coverage weight of one slot's seeds on one axis (int64 scan)
-__device__ __forceinline__ long long cover(const int32_t* beg,
-                                           const int32_t* len, int k) {
-  long long end = 0, sum = 0;
-  for (int i = 0; i < k; ++i) {
-    const long long bb = beg[i], ll = len[i];
-    sum += bb >= end ? ll : (bb + ll > end ? bb + ll - end : 0);
-    end = bb + ll > end ? bb + ll : end;
-  }
-  return sum;
+// one seed of a coverage scan (int64): the length it adds past `end`
+__device__ __forceinline__ void cover_step(long long& end, long long& sum,
+                                           long long bb, long long ll) {
+  sum += bb >= end ? ll : (bb + ll > end ? bb + ll - end : 0);
+  end = bb + ll > end ? bb + ll : end;
 }
 
-__global__ void __launch_bounds__(BLOCK)
-chain_filter_kernel(Bns g, int B, int C, int S,
+// a slot's two coverage weights over its k seeds (query, reference), the
+// seeds loaded 8 at a time so that their loads wait together
+__device__ __forceinline__ void weigh(const int32_t* qb, const int32_t* rb,
+                                      const int32_t* len, int k,
+                                      long long& wq, long long& wr) {
+  long long eq = 0, er = 0;
+  wq = wr = 0;
+  for (int i0 = 0; i0 < k; i0 += 8) {
+    int q[8], r[8], ln[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const bool in = i0 + t < k;
+      q[t] = in ? qb[i0 + t] : 0;
+      r[t] = in ? rb[i0 + t] : 0;
+      ln[t] = in ? len[i0 + t] : 0;
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (i0 + t < k) {
+        cover_step(eq, wq, q[t], ln[t]);
+        cover_step(er, wr, r[t], ln[t]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WARP)
+chain_filter_kernel(Bns g, int C, int S,
                     const int32_t* __restrict__ n_chains,  // [B]
                     const int32_t* __restrict__ rid_t,     // [B, C]
                     const int32_t* __restrict__ n_seeds,   // [B, C]
@@ -248,14 +488,25 @@ chain_filter_kernel(Bns g, int B, int C, int S,
                     const int32_t* __restrict__ sm_cnt,     // [B]
                     int M, const int32_t* __restrict__ lens,  // [B]
                     int max_occ,
-                    int32_t* __restrict__ scratch,    // [5][C][B]
                     int32_t* __restrict__ order,      // [B, C]
                     int32_t* __restrict__ kept,       // [B, C]
                     int32_t* __restrict__ w_slot,     // [B, C]
                     float* __restrict__ frac_rep,     // [B]
-                    int32_t* __restrict__ steps_out) {  // [B]
-  const int b = blockIdx.x * BLOCK + threadIdx.x;
-  if (b >= B) return;
+                    int32_t* __restrict__ steps_out,  // [B]
+                    int32_t* __restrict__ rounds_out) {  // [B]
+  extern __shared__ int32_t smem[];
+  const int l = threadIdx.x, b = blockIdx.x;
+  const int Q = (C + WARP - 1) / WARP;    // 32-bit words over C positions
+  int32_t* KEY = smem;                   // by slot
+  int32_t* QB = KEY + C;                 // by sorted position
+  int32_t* QE = QB + C;
+  int32_t* W = QE + C;
+  int32_t* ALT = W + C;
+  int32_t* FIRST = ALT + C;
+  int32_t* KP = FIRST + C;
+  // a block of 32 rows' bits of the significant and the dominating j < i
+  unsigned* SIGM = (unsigned*)(KP + C);  // [32][Q]
+  unsigned* DOMM = SIGM + WARP * Q;      // [32][Q]
   int nch = n_chains[b];
   nch = nch < 0 ? 0 : (nch > C ? C : nch);
   const int32_t* ns = n_seeds + (size_t)b * C;
@@ -264,151 +515,302 @@ chain_filter_kernel(Bns g, int B, int C, int S,
   int32_t* ord = order + (size_t)b * C;
   int32_t* kp = kept + (size_t)b * C;
   int32_t* ws = w_slot + (size_t)b * C;
-  // the sorted positions' fields, lane minor: a warp at one position
-  // reads one line
-  const size_t sc = (size_t)C * B;
-  auto at = [&](int f, int j) -> int32_t& {
-    return scratch[f * sc + (size_t)j * B + b];
-  };
-  enum { QB, QE, W, ALT, FIRST };
-  int steps = 0;
+  int steps = nch, rounds = 0;
 
-  // weights by slot, and the stable order by weight descending
+  // weights by slot, a lane a slot; the empty slots keep their place
   int n_heavy = 0;
-  for (int c = 0; c < nch; ++c) {
-    int k = ns[c];
-    k = k < 0 ? 0 : (k > S ? S : k);
-    const size_t o = row + (size_t)c * S;
-    const long long wq = cover(seed_qbeg + o, seed_len + o, k);
-    const long long wr = cover(seed_rbeg + o, seed_len + o, k);
-    const long long wm = wq < wr ? wq : wr;
-    const int wt = wm > (1 << 30) - 1 ? (1 << 30) - 1 : (int)wm;
-    ws[c] = wt;
-    const bool heavy = wt >= min_chain_weight;
-    const int key = heavy ? wt : -1;
-    n_heavy += heavy;
-    int j = c;                           // insertion, ties stay in order
-    while (j > 0 && at(W, j - 1) < key) {
-      ord[j] = ord[j - 1];
-      at(W, j) = at(W, j - 1);
-      --j;
+  for (int c0 = 0; c0 < C; c0 += WARP) {
+    const int c = c0 + l;
+    bool heavy = false;
+    if (c < nch) {
+      int k = ns[c];
+      k = k < 0 ? 0 : (k > S ? S : k);
+      const size_t o = row + (size_t)c * S;
+      long long wq, wr;
+      weigh(seed_qbeg + o, seed_rbeg + o, seed_len + o, k, wq, wr);
+      const long long wm = wq < wr ? wq : wr;
+      const int wt = wm > (1 << 30) - 1 ? (1 << 30) - 1 : (int)wm;
+      ws[c] = wt;
+      heavy = wt >= min_chain_weight;
+      KEY[c] = heavy ? wt : -1;
+    } else if (c < C) {
+      ws[c] = 0;
+      ord[c] = c;
     }
-    ord[j] = c;
-    at(W, j) = key;
-    ++steps;
+    n_heavy += __popc(__ballot_sync(FULL, heavy));
+    if (c0 < nch) rounds += 2;
   }
-  for (int c = nch; c < C; ++c) {
-    ws[c] = 0;
-    ord[c] = c;
-  }
-  for (int j = 0; j < C; ++j) kp[j] = 0;
-  for (int j = 0; j < n_heavy; ++j) {
-    const int s = ord[j];
-    int k = ns[s] - 1;
-    k = k < 0 ? 0 : (k >= S ? S - 1 : k);
-    const size_t o = row + (size_t)s * S;
-    const int rid = rd[s];
-    at(QB, j) = seed_qbeg[o];
-    at(QE, j) = seed_qbeg[o + k] + seed_len[o + k];
-    at(ALT, j) = rid >= 0 && g.is_alt[rid];
-    at(FIRST, j) = -1;
-  }
-
-  // the overlap loop
-  if (n_heavy > 0) kp[0] = 3;
-  for (int i = 1; i < n_heavy; ++i) {
-    const int bi = at(QB, i), ei = at(QE, i), wi = at(W, i);
-    const bool alt_i = at(ALT, i);
-    bool large = false, drop = false;
-    for (int j = 0; j < i; ++j) {
-      ++steps;
-      if (kp[j] <= 0 || (at(ALT, j) && !alt_i)) continue;
-      const int bj = at(QB, j), ej = at(QE, j);
-      const int b_max = bj > bi ? bj : bi, e_min = ej < ei ? ej : ei;
-      const int min_l = ej - bj < ei - bi ? ej - bj : ei - bi;
-      if (e_min <= b_max || min_l >= max_chain_gap
-          || !((double)(e_min - b_max) >= (double)min_l * mask_level))
-        continue;
-      large = true;                      // significant
-      if (at(FIRST, j) < 0) at(FIRST, j) = i;
-      const int wj = at(W, j);
-      if ((double)wi < (double)wj * drop_ratio
-          && wj - wi >= (min_seed_len << 1)) {
-        drop = true;                     // the first dominating j
-        break;
+  __syncwarp();
+  // the stable order by rank, and the sorted positions' fields
+  for (int c0 = 0; c0 < nch; c0 += WARP) {
+    const int c = c0 + l;
+    const int mine = c < nch ? KEY[c] : 0;
+    int r = 0;
+    for (int c1 = 0; c1 < nch; c1 += WARP) {
+      const int theirs = c1 + l < nch ? KEY[c1 + l] : 0;
+      const int t_end = nch - c1 < WARP ? nch - c1 : WARP;
+      for (int t = 0; t < t_end; ++t) {
+        const int kk = __shfl_sync(FULL, theirs, t);
+        r += kk > mine || (kk == mine && c1 + t < c);
+      }
+      ++rounds;
+    }
+    ++rounds;
+    if (c < nch) {
+      ord[r] = c;
+      if (r < n_heavy) {
+        int k = ns[c] - 1;
+        k = k < 0 ? 0 : (k >= S ? S - 1 : k);
+        const size_t o = row + (size_t)c * S;
+        const int rid = rd[c];
+        QB[r] = seed_qbeg[o];
+        QE[r] = seed_qbeg[o + k] + seed_len[o + k];
+        W[r] = mine;
+        ALT[r] = rid >= 0 && g.is_alt[rid];
+        FIRST[r] = -1;
       }
     }
-    kp[i] = drop ? 0 : (large ? 2 : 3);
   }
-  // chains named by a kept chain's first are kept = 1, in index order
-  for (int i = 0; i < n_heavy; ++i) {
-    const int f = at(FIRST, i);
-    if (kp[i] > 0 && f >= 0) kp[f] = 1;
+  // the kept (> 0) and first-set bits of positions 32 q .. 32 q + 31,
+  // word q = 32 c + l in lane l's kw[c] and fs[c]
+  unsigned kw[WORD_CHUNKS], fs[WORD_CHUNKS];
+#pragma unroll
+  for (int c = 0; c < WORD_CHUNKS; ++c) {
+    kw[c] = c == 0 && l == 0 && n_heavy > 0;   // position 0 is kept (3)
+    fs[c] = 0;
   }
-  // cap the kept == 1 or 2 chains
+  if (n_heavy > 0) KP[0] = 3;            // every lane stores the same
+  __syncwarp();
+
+  // the overlap loop, a block of 32 rows (sorted positions) at a time
+  for (int i0 = 0; i0 < n_heavy; i0 += WARP) {
+    const int i_end = i0 + WARP < n_heavy ? i0 + WARP : n_heavy;
+    // lane l's row i0 + l: its bits of the significant j < i (the query
+    // spans overlap by min_l * mask_level, in double, min_l <
+    // max_chain_gap, alt_j implies alt_i) and of the dominating ones
+    // (also w_i < w_j * drop_ratio in double and w_j - w_i >= 2 *
+    // min_seed_len), whether or not j is kept; j 32 a shuffle round
+    {
+      const int i = i0 + l;
+      int bi = 0, ei = 0, wi = 0, ai = 0;
+      if (i < n_heavy) {
+        bi = QB[i];
+        ei = QE[i];
+        wi = W[i];
+        ai = ALT[i];
+      }
+      for (int q = 0; q * WARP < i_end - 1; ++q) {
+        const int jl = q * WARP + l;
+        int bj = 0, ej = 0, wj = 0, aj = 0;
+        if (jl < n_heavy) {
+          bj = QB[jl];
+          ej = QE[jl];
+          wj = W[jl];
+          aj = ALT[jl];
+        }
+        unsigned sig = 0, dom = 0;
+#pragma unroll 4
+        for (int t = 0; t < WARP; ++t) {
+          const int j = q * WARP + t;
+          const int bt = __shfl_sync(FULL, bj, t);
+          const int et = __shfl_sync(FULL, ej, t);
+          const int wt = __shfl_sync(FULL, wj, t);
+          const int at = __shfl_sync(FULL, aj, t);
+          const int b_max = bt > bi ? bt : bi, e_min = et < ei ? et : ei;
+          const int min_l = et - bt < ei - bi ? et - bt : ei - bi;
+          // every test evaluated (& in place of &&): no branch
+          const bool s_ij = (j < i) & !(at & !ai) & (e_min > b_max)
+                            & (min_l < max_chain_gap)
+                            & ((double)(e_min - b_max)
+                               >= (double)min_l * mask_level);
+          const bool d_ij = s_ij & ((double)wi < (double)wt * drop_ratio)
+                            & (wt - wi >= (min_seed_len << 1));
+          sig |= (unsigned)s_ij << t;
+          dom |= (unsigned)d_ij << t;
+        }
+        SIGM[l * Q + q] = sig;
+        DOMM[l * Q + q] = dom;
+        ++rounds;
+      }
+    }
+    __syncwarp();
+    // the block's rows in order, lanes over the words of j < i: j* is the
+    // lowest dominating kept j; the significant kept j <= j* whose first
+    // is unset record i; i is dropped if j* exists. Nothing here waits on
+    // shared memory but the masks, the next row's first chunk of them
+    // loaded while this row is tested
+    const int i_first = i0 > 0 ? i0 : 1;
+    unsigned d_next = 0, s_next = 0;
+    if (i_first < i_end && l < (i_first + WARP - 1) / WARP) {
+      d_next = DOMM[(i_first - i0) * Q + l];
+      s_next = SIGM[(i_first - i0) * Q + l];
+    }
+    for (int i = i_first; i < i_end; ++i) {
+      const int r = i - i0, Qi = (i + WARP - 1) / WARP;
+      const unsigned d0 = d_next, s0 = s_next;
+      d_next = s_next = 0;
+      if (i + 1 < i_end && l < (i + WARP) / WARP) {
+        d_next = DOMM[(r + 1) * Q + l];
+        s_next = SIGM[(r + 1) * Q + l];
+      }
+      int jstar = -1;
+      bool large = false;
+#pragma unroll
+      for (int c = 0; c < WORD_CHUNKS; ++c) {
+        if (c * WARP >= Qi) break;
+        const int q = c * WARP + l;
+        unsigned d = 0, sm = 0;
+        if (c == 0) {
+          d = d0;
+          sm = s0;
+        } else if (q < Qi) {
+          d = DOMM[r * Q + q];
+          sm = SIGM[r * Q + q];
+        }
+        d &= kw[c];
+        sm &= kw[c];
+        const unsigned dq = __ballot_sync(FULL, d != 0);
+        if (dq) {                        // lanes past j* see nothing
+          const int qs = __ffs(dq) - 1;
+          const int bit = __ffs(__shfl_sync(FULL, d, qs)) - 1;
+          jstar = (c * WARP + qs) * WARP + bit;
+          sm = l < qs ? sm : (l == qs ? sm & ((2u << bit) - 1) : 0);
+        }
+        large |= __ballot_sync(FULL, sm != 0) != 0;
+        unsigned fresh = sm & ~fs[c];    // the firsts no row set yet
+        fs[c] |= fresh;
+        for (; fresh; fresh &= fresh - 1)
+          FIRST[q * WARP + __ffs(fresh) - 1] = i;
+        ++rounds;
+        if (dq) break;
+      }
+      const int k = jstar >= 0 ? 0 : (large ? 2 : 3);
+      steps += jstar >= 0 ? jstar + 1 : i;
+      KP[i] = k;                         // every lane stores the same
+      const int wq = i / WARP;           // i's kept bit: word wq
+#pragma unroll
+      for (int c = 0; c < WORD_CHUNKS; ++c)
+        if (k > 0 && c * WARP + l == wq) kw[c] |= 1u << (i % WARP);
+    }
+    __syncwarp();                        // the masks, for the next block
+  }
+  // chains named by a kept chain's first are kept = 1
+  for (int i0 = 0; i0 < n_heavy; i0 += WARP) {
+    const int i = i0 + l;
+    const int f = i < n_heavy && KP[i] > 0 ? FIRST[i] : -1;
+    __syncwarp();
+    if (f >= 0) KP[f] = 1;
+    __syncwarp();
+    ++rounds;
+  }
+  // cap the kept == 1 or 2 chains: an inclusive prefix count
   int r12 = 0;
-  for (int i = 0; i < n_heavy; ++i) {
-    const int k = kp[i];
-    if ((k == 1 || k == 2) && ++r12 >= max_chain_extend) kp[i] = 0;
+  for (int i0 = 0; i0 < n_heavy; i0 += WARP) {
+    const int i = i0 + l;
+    const int k = i < n_heavy ? KP[i] : 0;
+    const bool is12 = k == 1 || k == 2;
+    const unsigned m12 = __ballot_sync(FULL, is12);
+    if (is12 && r12 + __popc(m12 & ((2u << l) - 1)) >= max_chain_extend)
+      KP[i] = 0;
+    r12 += __popc(m12);
+    ++rounds;
   }
+  __syncwarp();
+  for (int j = l; j < C; j += WARP) kp[j] = j < n_heavy ? KP[j] : 0;
 
   // frac_rep over the (m, n)-sorted SMEMs
   int cnt = sm_cnt[b];
   cnt = cnt < 0 ? 0 : (cnt > M ? M : cnt);
   const size_t sm = (size_t)b * M;
   int fb = 0, fe = 0, l_rep = 0;
-  for (int i = 0; i < cnt; ++i) {
-    if (sm_s[sm + i] <= max_occ) continue;
-    const int sb = sm_m[sm + i], se = sm_n[sm + i] + 1;
-    if (sb > fe) {
-      l_rep += fe - fb;
-      fb = sb;
-      fe = se;
-    } else if (se > fe) {
-      fe = se;
+  for (int i0 = 0; i0 < cnt; i0 += WARP) {
+    const int i = i0 + l;
+    int sb = 0, se = 0;
+    const bool over = i < cnt && sm_s[sm + i] > max_occ;
+    if (over) {
+      sb = sm_m[sm + i];
+      se = sm_n[sm + i] + 1;
+    }
+    ++rounds;
+    for (unsigned om = __ballot_sync(FULL, over); om; om &= om - 1) {
+      const int t = __ffs(om) - 1;
+      const int tb = __shfl_sync(FULL, sb, t), te = __shfl_sync(FULL, se, t);
+      if (tb > fe) {
+        l_rep += fe - fb;
+        fb = tb;
+        fe = te;
+      } else if (te > fe) {
+        fe = te;
+      }
     }
   }
   l_rep += fe - fb;
-  const int len = lens[b];
-  frac_rep[b] = (float)l_rep / (float)(len > 1 ? len : 1);
-  steps_out[b] = steps;
+  if (l == 0) {
+    const int len = lens[b];
+    frac_rep[b] = (float)l_rep / (float)(len > 1 ? len : 1);
+    steps_out[b] = steps;
+    rounds_out[b] = rounds;
+  }
+}
+
+// Raise a kernel's dynamic shared memory limit past the 48 KB default
+// when `bytes` needs it.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= SMEM_DEFAULT) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 }  // namespace
 
-// Launch chain_seeds_kernel on `stream` over B reads; returns
-// cudaGetLastError() (0 on success), cudaErrorInvalidValue for a shape
-// it cannot take. The caller allocates every buffer (the seed planes
-// [4][B][C][S] zeroed) and checks devices and types; nothing here
-// synchronises.
+// The most chains a read may hold: one read's state in one block's
+// shared memory (kernel 0 chain_seeds_kernel, 1 chain_filter_kernel).
+extern "C" int chain_max_chains(int kernel) {
+  int C = (int)(SMEM_MAX / (4 * 7));
+  while (4 * (kernel ? filter_words(C) : seeds_words(C)) > SMEM_MAX
+         || (kernel && C > WORD_CHUNKS * WARP * WARP))
+    --C;
+  return C;
+}
+
+// Launch chain_seeds_kernel on `stream` over B reads, a one-warp block a
+// read; returns cudaGetLastError() (0 on success), cudaErrorInvalidValue
+// for a shape it cannot take (C past chain_max_chains(0)). The caller
+// allocates every buffer (the kernel writes every element once) and
+// checks devices and types; nothing here synchronises.
 extern "C" int chain_seeds_launch(const void* offsets, const void* is_alt,
                                   int n_seqs, long long l_pac,
                                   const void* rbeg, const void* seed_idx,
                                   const void* coord_valid, const void* sm_m,
                                   const void* sm_n, int B, int NC, int M,
                                   int w, int max_chain_gap, int C, int S,
-                                  void* key, void* slot, void* n,
-                                  void* rid, void* n_seeds, void* seeds,
-                                  void* overflow, void* steps,
-                                  void* stream) {
+                                  void* key, void* slot,
+                                  void* n, void* rid, void* n_seeds,
+                                  void* seeds, void* overflow, void* steps,
+                                  void* rounds, void* stream) {
   if (B <= 0) return 0;
-  if (n_seqs <= 0 || NC <= 0 || M <= 0 || C <= 0 || S <= 0)
+  const size_t bytes = 4 * seeds_words(C);
+  if (n_seqs <= 0 || NC <= 0 || M <= 0 || C <= 0 || S <= 0
+      || bytes > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  const Bns g{(const int64_t*)offsets, (const uint8_t*)is_alt, n_seqs,
-              l_pac};
-  chain_seeds_kernel<<<(B + BLOCK - 1) / BLOCK, BLOCK, 0,
-                       (cudaStream_t)stream>>>(
+  const Bns g = make_bns(offsets, is_alt, n_seqs, l_pac);
+  const cudaError_t err = allow_smem(chain_seeds_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  chain_seeds_kernel<<<B, WARP, bytes, (cudaStream_t)stream>>>(
       g, (const int32_t*)rbeg, (const int32_t*)seed_idx,
-      (const uint8_t*)coord_valid, (const int32_t*)sm_m, (const int32_t*)sm_n, B,
-      NC, M, w, max_chain_gap, C, S, (int32_t*)key, (int32_t*)slot,
-      (int32_t*)n, (int32_t*)rid, (int32_t*)n_seeds, (int32_t*)seeds,
-      (uint8_t*)overflow, (int32_t*)steps);
+      (const uint8_t*)coord_valid, (const int32_t*)sm_m,
+      (const int32_t*)sm_n, B, NC, M, w, max_chain_gap, C, S, (int32_t*)key,
+      (int32_t*)slot, (int32_t*)n, (int32_t*)rid, (int32_t*)n_seeds,
+      (int32_t*)seeds, (uint8_t*)overflow, (int32_t*)steps,
+      (int32_t*)rounds);
   return (int)cudaGetLastError();
 }
 
-// Launch chain_filter_kernel on `stream` over B reads (the scratch
-// [5][C][B] int32); the return and the caller's duties as
-// chain_seeds_launch.
+// Launch chain_filter_kernel on `stream` over B reads, a one-warp block a
+// read; the return and the caller's duties as chain_seeds_launch (C up to
+// chain_max_chains(1)).
 extern "C" int chain_filter_launch(const void* offsets, const void* is_alt,
                                    int n_seqs, long long l_pac, int B, int C,
                                    int S, const void* n_chains,
@@ -422,23 +824,25 @@ extern "C" int chain_filter_launch(const void* offsets, const void* is_alt,
                                    const void* sm_m, const void* sm_n,
                                    const void* sm_s, const void* sm_cnt,
                                    int M, const void* lens, int max_occ,
-                                   void* scratch, void* order, void* kept,
-                                   void* w_slot, void* frac_rep,
-                                   void* steps, void* stream) {
+                                   void* order, void* kept, void* w_slot,
+                                   void* frac_rep, void* steps, void* rounds,
+                                   void* stream) {
   if (B <= 0) return 0;
-  if (n_seqs <= 0 || C <= 0 || S <= 0 || M <= 0)
+  const size_t bytes = 4 * filter_words(C);
+  if (n_seqs <= 0 || C <= 0 || S <= 0 || M <= 0 || bytes > SMEM_MAX
+      || C > WORD_CHUNKS * WARP * WARP)
     return (int)cudaErrorInvalidValue;
-  const Bns g{(const int64_t*)offsets, (const uint8_t*)is_alt, n_seqs,
-              l_pac};
-  chain_filter_kernel<<<(B + BLOCK - 1) / BLOCK, BLOCK, 0,
-                        (cudaStream_t)stream>>>(
-      g, B, C, S, (const int32_t*)n_chains, (const int32_t*)rid,
+  const Bns g = make_bns(offsets, is_alt, n_seqs, l_pac);
+  const cudaError_t err = allow_smem(chain_filter_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  chain_filter_kernel<<<B, WARP, bytes, (cudaStream_t)stream>>>(
+      g, C, S, (const int32_t*)n_chains, (const int32_t*)rid,
       (const int32_t*)n_seeds, (const int32_t*)seed_qbeg,
       (const int32_t*)seed_rbeg, (const int32_t*)seed_len, min_chain_weight,
       mask_level, max_chain_gap, drop_ratio, min_seed_len,
       max_chain_extend, (const int32_t*)sm_m, (const int32_t*)sm_n,
       (const int32_t*)sm_s, (const int32_t*)sm_cnt, M, (const int32_t*)lens,
-      max_occ, (int32_t*)scratch, (int32_t*)order, (int32_t*)kept,
-      (int32_t*)w_slot, (float*)frac_rep, (int32_t*)steps);
+      max_occ, (int32_t*)order, (int32_t*)kept, (int32_t*)w_slot,
+      (float*)frac_rep, (int32_t*)steps, (int32_t*)rounds);
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,15 @@ The anchor sentinel: a seed at or above 2^29 - 1 (the empty-key marker)
 still finds its lower chain in the port; the JAX package's chains differ
 there and only there.
 
+Planted reads put the warp kernels' chunk boundaries to work: more than
+32 chains, keys equal to a seed's rbeg, a full chain, and (on the overlap
+step alone) a first dominating chain in the second chunk of 32.
+
 On a GPU (``-m cuda``) each kernel against its plain version, with its
-per-read steps equal to its twin's, at the main path's and both retry
-tiers' capacities, and on the sentinel read above and below the marker:
+per-read steps and rounds equal to its twin's, at the main path's and
+both retry tiers' capacities (the last also past 48 KB of shared memory),
+on the planted reads, on chip_smoke.py's repeat batch, and on the
+sentinel read above and below the marker:
     PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_chain.py
 """
 
@@ -150,10 +156,10 @@ def chained(request, batch):
     tch = tchain.chain_seeds_device(
         _bns(), _smems(m, n, s, cnt), torch.as_tensor(rbeg),
         torch.as_tensor(seed_idx), torch.as_tensor(valid), stats=stats, **kw)
-    twin, steps = chain_cuda.chain_seeds_twin(OFFSETS, L_PAC, m, n, rbeg,
-                                              seed_idx, valid, **kw)
+    twin, steps, rounds = chain_cuda.chain_seeds_twin(
+        OFFSETS, L_PAC, m, n, rbeg, seed_idx, valid, **kw)
     return dict(caps=request.param, jax=(jch, jsm, jb), port=tch,
-                twin=twin, steps=steps, stats=stats)
+                twin=twin, steps=steps, rounds=rounds, stats=stats)
 
 
 def test_chain_seeds_twin_equal_to_lockstep_and_jax(batch, chained):
@@ -212,7 +218,7 @@ def test_chain_filter_twin_equal_to_lockstep_and_jax(batch, chained, flt):
                              want, got, twin):
         np.testing.assert_array_equal(np.asarray(a), b.numpy(), name)
         np.testing.assert_array_equal(c, b.numpy(), name)
-    order, kept, w_slot, frac_rep, steps = twin
+    order, kept, w_slot, frac_rep, steps, rounds = twin
     w_sorted = np.take_along_axis(w_slot, order, 1)
     n_ch = chained["twin"].n
     assert any(len(set(w_slot[b, :n_ch[b]])) < n_ch[b]      # equal weights
@@ -274,8 +280,8 @@ def test_chain_anchor_sentinel(shift):
                                     torch.as_tensor(rbeg),
                                     torch.as_tensor(seed_idx),
                                     torch.as_tensor(valid), **kw)
-    twin, _ = chain_cuda.chain_seeds_twin(offsets, l_pac, m, n, rbeg,
-                                          seed_idx, valid, **kw)
+    twin, _, _ = chain_cuda.chain_seeds_twin(offsets, l_pac, m, n, rbeg,
+                                             seed_idx, valid, **kw)
     j = jnp.asarray
     jch = jchain.chain_seeds_device(
         jchain.DeviceBns(offsets=j(offsets), is_alt=j(is_alt), l_pac=l_pac),
@@ -320,6 +326,295 @@ def test_chain_wrappers_on_cpu_run_plain(batch):
             chain_cuda.chain_filter_cuda.launches) == before
 
 
+# ---- planted reads: the warp kernels' chunk boundaries ------------------
+
+PLANTED = ["over-32-chains", "equal-keys", "full-chain",
+           "dominated-in-second-chunk"]
+PLANTED_CAPS = (64, 4)                 # C, S
+EQUAL_KEY = 15_000                     # in contig 3, forward strand
+DOMINATED_STEPS = 703                  # the last case's filter steps
+
+
+def _plain_loci(n, span):
+    """n loci 500 bp apart whose [locus, locus + span) lies in one
+    non-alt contig, forward or reverse."""
+    loci = [100 + 500 * k for k in range(2 * L_PAC // 500)]
+    rid = lambda p: chain_cuda._intv2rid(OFFSETS, L_PAC, p, p + span)
+    return [p for p in loci if rid(p) >= 0 and not IS_ALT[rid(p)]][:n]
+
+
+def planted_batch(NC=96, M=8):
+    """One read a case of PLANTED, at C = 64 and S = 4 (numpy arrays (m,
+    n, s, cnt, lens, rbeg, seed_idx, total)):
+    - over-32-chains: 40 loci 300 bp apart, each two colinear seeds, the
+      first seeds in shuffled order, then the second seeds: 40 chains, so
+      the lower chains are sought among more than 32 anchors and the
+      ranks take two chunks of keys;
+    - equal-keys: 31 chains below EQUAL_KEY, then three seeds at
+      EQUAL_KEY whose query spans forbid a merge, then one at EQUAL_KEY +
+      20 colinear with the third: each new key goes after the equal keys
+      (the 32 keys <= EQUAL_KEY fill the first chunk of ranks), so the
+      last seed's lower chain is the third, and it appends;
+    - full-chain: six colinear seeds at one locus, then one far away: the
+      chain takes four (S) and refuses two appends, and the far seed still
+      starts a chain;
+    - dominated-in-second-chunk: 36 chains of weight 100 (query [0, 100)
+      35 times, [150, 250) once) and one of weight 40 (query [160,
+      200)), each at its own locus: in weight order the light chain's
+      overlap loop meets significant-free chains 0-34 and its first
+      dominating chain at position 35, the second chunk's fourth lane
+      (DOMINATED_STEPS filter steps at the default options)."""
+    rng = np.random.RandomState(1)
+    B = len(PLANTED)
+    m = np.zeros((B, M), np.int32)
+    n = np.zeros((B, M), np.int32)
+    s = np.ones((B, M), np.int32)
+    cnt = np.zeros(B, np.int32)
+    lens = np.zeros(B, np.int32)
+    rbeg = np.zeros((B, NC), np.int32)
+    seed_idx = np.zeros((B, NC), np.int32)
+    total = np.zeros(B, np.int32)
+
+    def read(b, smems, coords, length):
+        for i, (qb, qe) in enumerate(smems):
+            m[b, i], n[b, i] = qb, qe - 1
+        cnt[b], lens[b], total[b] = len(smems), length, len(coords)
+        for c, (si, r) in enumerate(coords):
+            seed_idx[b, c], rbeg[b, c] = si, r
+
+    loci = 100 + 300 * np.arange(40)
+    read(0, [(0, 20), (30, 50)],
+         [(0, int(p)) for p in rng.permutation(loci)]
+         + [(1, int(p) + 30) for p in rng.permutation(loci)], 60)
+    read(1, [(0, 20), (150, 170), (300, 320), (320, 340)],
+         [(0, int(p)) for p in loci[:31]] + [(0, EQUAL_KEY), (1, EQUAL_KEY),
+                                             (2, EQUAL_KEY),
+                                             (3, EQUAL_KEY + 20)], 360)
+    read(2, [(25 * k, 25 * k + 20) for k in range(7)],
+         [(k, 2000 + 25 * k) for k in range(6)] + [(6, 30_000)], 180)
+    s[2, :2] = MAX_OCC + 100                 # two repetitive SMEMs
+    far = _plain_loci(37, 250)
+    read(3, [(0, 100), (150, 250), (160, 200)],
+         [(0, p) for p in far[:35]] + [(1, far[35]), (2, far[36])], 260)
+    return m, n, s, cnt, lens, rbeg, seed_idx, total
+
+
+@pytest.fixture(scope="module")
+def planted():
+    """The planted batch chained and filtered (both option sets) by the
+    JAX package, the port's lockstep and the kernels' twins."""
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.ops import chain as jchain
+    from bwa_mem_scale_tpu.ops import smem as jsmem
+    m, n, s, cnt, lens, rbeg, seed_idx, total = planted_batch()
+    C, S = PLANTED_CAPS
+    valid = _coord_valid(total, rbeg.shape[1])
+    kw = dict(w=W, max_chain_gap=GAP, max_chains=C, max_seeds_per_chain=S)
+    j = jnp.asarray
+    jsm = jsmem.SmemBuf(j(m), j(n), j(np.zeros_like(m)), j(np.zeros_like(m)),
+                        j(s), j(cnt))
+    jb = jchain.DeviceBns(offsets=j(OFFSETS), is_alt=j(IS_ALT), l_pac=L_PAC)
+    jch = jchain.chain_seeds_device(jb, jsm, j(rbeg), j(seed_idx), j(valid),
+                                    **kw)
+    sm = _smems(m, n, s, cnt)
+    tch = tchain.chain_seeds_device(_bns(), sm, torch.as_tensor(rbeg),
+                                    torch.as_tensor(seed_idx),
+                                    torch.as_tensor(valid), **kw)
+    twin, steps, rounds = chain_cuda.chain_seeds_twin(
+        OFFSETS, L_PAC, m, n, rbeg, seed_idx, valid, **kw)
+    flt = {}
+    for name, fkw in FLT.items():
+        flt[name] = (
+            (*jchain.chain_filter_device(jch, jb, **fkw),
+             jchain.frac_rep_device(jsm, j(lens), MAX_OCC)),
+            tchain.chain_filter_frac_rep(tch, _bns(), sm,
+                                         torch.as_tensor(lens),
+                                         max_occ=MAX_OCC, **fkw),
+            chain_cuda.chain_filter_twin(IS_ALT, twin, m, n, s, cnt, lens,
+                                         max_occ=MAX_OCC, **fkw))
+    return dict(jax=jch, port=tch, twin=twin, steps=steps, rounds=rounds,
+                total=total, flt=flt)
+
+
+@pytest.mark.parametrize("case", PLANTED)
+def test_chain_planted_twin_equal_to_lockstep_and_jax(planted, case):
+    """The planted case's read: every Chains field of the twin, the
+    lockstep and the JAX package equal, and order, kept, w_by_slot and
+    frac_rep of the filter's twin, the lockstep and the JAX package
+    equal at both option sets; then what the case plants holds."""
+    b = PLANTED.index(case)
+    jch, tch, twin = planted["jax"], planted["port"], planted["twin"]
+    for f in tchain.Chains._fields:
+        want = getattr(tch, f).numpy()[b]
+        np.testing.assert_array_equal(np.asarray(getattr(jch, f))[b], want, f)
+        np.testing.assert_array_equal(getattr(twin, f)[b], want, f)
+    assert planted["steps"][b] == planted["total"][b]
+    for name, (want, got, tw) in planted["flt"].items():
+        for what, a, p, t in zip(("order", "kept", "w_by_slot", "frac_rep"),
+                                 want, got, tw):
+            np.testing.assert_array_equal(np.asarray(a)[b], p.numpy()[b],
+                                          f"{name} {what}")
+            np.testing.assert_array_equal(t[b], p.numpy()[b],
+                                          f"{name} {what}")
+    nch = int(twin.n[b])
+    if case == "over-32-chains":
+        assert nch == 40 and (twin.n_seeds[b, :40] == 2).all()
+        assert (np.diff(twin.key[b, :40]) > 0).all()
+    elif case == "equal-keys":
+        assert nch == 34
+        np.testing.assert_array_equal(twin.key[b, 31:34], [EQUAL_KEY] * 3)
+        np.testing.assert_array_equal(twin.slot[b, 31:34], [31, 32, 33])
+        np.testing.assert_array_equal(twin.n_seeds[b, 31:34], [1, 1, 2])
+    elif case == "full-chain":
+        assert nch == 2 and twin.overflow[b]
+        np.testing.assert_array_equal(twin.n_seeds[b, :2], [4, 1])
+        assert planted["flt"]["default"][2][3][b] > 0       # frac_rep
+    else:
+        order, kept, w_slot, _, steps, _ = planted["flt"]["default"][2]
+        np.testing.assert_array_equal(
+            w_slot[b, order[b, :37]], [100] * 36 + [40])
+        assert steps[b] == DOMINATED_STEPS
+        assert kept[b, 35] == 3 and kept[b, 36] in (0, 1)
+
+
+WIDE = dict(offsets=np.zeros(1, np.int64), is_alt=np.zeros(1, bool),
+            l_pac=2_000_000, C=1100, S=2)
+WIDE_STEPS = 1071 + 1029 * 1030 // 2 + 1030 + 40 * 1031
+
+
+def wide_read():
+    """One read of 1,071 chains on a 2 Mbp contig, each one seed at its
+    own locus (numpy arrays as planted_batch): 1,030 of query [0, 100),
+    one of [150, 250), all weighing 100, then 40 of [160, 200) weighing
+    40. At C = 1,100 the light chains' rows reach past 1,024 positions,
+    a second chunk of 32 words of j, and their first dominating chain is
+    position 1,030, there; the heavy rows overlap every earlier chain
+    and drop none (WIDE_STEPS filter steps at the default options)."""
+    m = np.array([[0, 150, 160]], np.int32)
+    n = np.array([[99, 249, 199]], np.int32)
+    coords = ([(0, 100 + 500 * k) for k in range(1030)] + [(1, 600_000)]
+              + [(2, 700_000 + 500 * k) for k in range(40)])
+    rbeg = np.array([[r for _, r in coords]], np.int32)
+    seed_idx = np.array([[i for i, _ in coords]], np.int32)
+    return (m, n, np.ones_like(m), np.array([3], np.int32),
+            np.array([250], np.int32), rbeg, seed_idx,
+            np.array([len(coords)], np.int32))
+
+
+def test_chain_over_1024_chains_twin_equal_to_lockstep_and_jax():
+    """The wide read: the twins, the port's lockstep and the JAX package
+    equal on every Chains field and on order, kept, w_by_slot and
+    frac_rep at the default options; the light chains are dropped by
+    position 1,030 (WIDE_STEPS steps)."""
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.ops import chain as jchain
+    from bwa_mem_scale_tpu.ops import smem as jsmem
+    m, n, s, cnt, lens, rbeg, seed_idx, total = wide_read()
+    valid = _coord_valid(total, rbeg.shape[1])
+    kw = dict(w=W, max_chain_gap=GAP, max_chains=WIDE["C"],
+              max_seeds_per_chain=WIDE["S"])
+    fkw = FLT["default"]
+    j = jnp.asarray
+    jsm = jsmem.SmemBuf(j(m), j(n), j(np.zeros_like(m)), j(np.zeros_like(m)),
+                        j(s), j(cnt))
+    jb = jchain.DeviceBns(offsets=j(WIDE["offsets"]),
+                          is_alt=j(WIDE["is_alt"]), l_pac=WIDE["l_pac"])
+    jch = jchain.chain_seeds_device(jb, jsm, j(rbeg), j(seed_idx), j(valid),
+                                    **kw)
+    tb = tchain.DeviceBns(offsets=torch.as_tensor(WIDE["offsets"]),
+                          is_alt=torch.as_tensor(WIDE["is_alt"]),
+                          l_pac=WIDE["l_pac"])
+    sm = _smems(m, n, s, cnt)
+    tch = tchain.chain_seeds_device(tb, sm, torch.as_tensor(rbeg),
+                                    torch.as_tensor(seed_idx),
+                                    torch.as_tensor(valid), **kw)
+    twin, _, _ = chain_cuda.chain_seeds_twin(
+        WIDE["offsets"], WIDE["l_pac"], m, n, rbeg, seed_idx, valid, **kw)
+    for f in tchain.Chains._fields:
+        want = getattr(tch, f).numpy()
+        np.testing.assert_array_equal(np.asarray(getattr(jch, f)), want, f)
+        np.testing.assert_array_equal(getattr(twin, f), want, f)
+    assert int(twin.n[0]) == 1071
+    want = (*jchain.chain_filter_device(jch, jb, **fkw),
+            jchain.frac_rep_device(jsm, j(lens), MAX_OCC))
+    got = tchain.chain_filter_frac_rep(tch, tb, sm, torch.as_tensor(lens),
+                                       max_occ=MAX_OCC, **fkw)
+    tw = chain_cuda.chain_filter_twin(WIDE["is_alt"], twin, m, n, s, cnt,
+                                      lens, max_occ=MAX_OCC, **fkw)
+    for what, a, p, t in zip(("order", "kept", "w_by_slot", "frac_rep"),
+                             want, got, tw):
+        np.testing.assert_array_equal(np.asarray(a), p.numpy(), what)
+        np.testing.assert_array_equal(t, p.numpy(), what)
+    assert tw[4][0] == WIDE_STEPS
+    assert (tw[1][0, 1031:1071] <= 1).all() and tw[1][0, 1030] == 3
+
+
+def _overlap_serial(i, qb, qe, wt, alt, kept, first, *, mask_level,
+                    max_chain_gap, drop_ratio, min_seed_len):
+    """One i of the overlap loop, j after j (the one-thread form): returns
+    (kept[i], the j visited)."""
+    large = drop = False
+    visited = 0
+    for j in range(i):
+        visited += 1
+        if kept[j] <= 0 or (alt[j] and not alt[i]):
+            continue
+        b_max, e_min = max(qb[j], qb[i]), min(qe[j], qe[i])
+        min_l = min(qe[j] - qb[j], qe[i] - qb[i])
+        if (e_min <= b_max or min_l >= max_chain_gap
+                or not float(e_min - b_max) >= min_l * mask_level):
+            continue
+        large = True
+        if first[j] < 0:
+            first[j] = i
+        if (float(wt[i]) < wt[j] * drop_ratio
+                and wt[j] - wt[i] >= (min_seed_len << 1)):
+            drop = True
+            break
+    return (0 if drop else (2 if large else 3)), visited
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_overlap_test_ballot_equal_to_serial(seed):
+    """chain_cuda.overlap_test (the filter kernel's form: bit masks of the
+    significant and dominating j, then the kept ones 32 words a round)
+    against the serial loop, on arbitrary positions that need not be in
+    weight order: kept[i], the visited j and every first equal. The planted i =
+    45 has significant, non-dominating j in the first chunk and its first
+    dominating j at 40, in the second: 41 j visited, first = i for the
+    significant j up to 40 only. (In weight order a dominating j makes
+    every significant j before it dominate too, so a read never sets
+    this up; the bit-mask rule rests on no order.)"""
+    rng = np.random.RandomState(seed)
+    N = 80
+    qb = rng.randint(0, 150, N).tolist()
+    qe = [b + int(rng.randint(10, 120)) for b in qb]
+    wt = rng.randint(20, 200, N).tolist()
+    alt = (rng.rand(N) < 0.2).tolist()
+    kept = rng.choice([0, 2, 3], N).tolist()
+    # the planted i: j < 32 overlap it with weights near its own, j = 40
+    # overlaps it and outweighs it; j in 32-39 do not overlap it
+    i = 45
+    qb[i], qe[i], wt[i], alt[i] = 100, 160, 50, True
+    for j in range(32):
+        qb[j], qe[j], wt[j], kept[j] = 90, 170, 60, 3
+    for j in range(32, 40):
+        qb[j], qe[j] = 0, 50
+    qb[40], qe[40], wt[40], kept[40] = 110, 150, 150, 2
+    flt = dict(FLT["default"])
+    del flt["min_chain_weight"], flt["max_chain_extend"]
+    for k in range(1, N):
+        f_ballot, f_serial = [-1] * N, [-1] * N
+        got = chain_cuda.overlap_test(k, qb, qe, wt, alt, kept, f_ballot,
+                                      **flt)
+        want = _overlap_serial(k, qb, qe, wt, alt, kept, f_serial, **flt)
+        assert got[:2] == want and f_ballot == f_serial, k
+        assert got[2] == 1                  # one round of 32 words
+        if k == i:
+            assert got[:2] == (0, 41)
+            assert f_ballot[:41] == [i] * 32 + [-1] * 8 + [i]
+
+
 # ---- on the card ------------------------------------------------------
 
 def _cuda():
@@ -331,8 +626,8 @@ def _cuda():
 def _kernels_vs_plain(dev, bns_args, smems, rbeg, seed_idx, total, lens, C,
                       S, flt):
     """Both kernels against their plain versions and twins on one batch
-    (device tensors): every array equal, the per-read steps equal to the
-    twins', one launch each, and no host synchronisation in either
+    (device tensors): every array equal, the per-read steps and rounds
+    equal to the twins', one launch each, and no host synchronisation in either
     wrapper (torch's sync debug mode raises on one). Returns the
     kernel's Chains."""
     offsets, is_alt, l_pac = bns_args
@@ -363,12 +658,15 @@ def _kernels_vs_plain(dev, bns_args, smems, rbeg, seed_idx, total, lens, C,
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     cpu = lambda a: a.cpu().numpy()
     sm = [cpu(a) for a in (smems.m, smems.n, smems.s, smems.cnt)]
-    twin, t_steps = chain_cuda.chain_seeds_twin(
+    twin, t_steps, t_rounds = chain_cuda.chain_seeds_twin(
         offsets, l_pac, sm[0], sm[1], cpu(rbeg), cpu(seed_idx), cpu(valid),
         **kw)
     np.testing.assert_array_equal(steps, t_steps)
+    np.testing.assert_array_equal(
+        chain_cuda.chain_seeds_cuda.last_rounds.cpu().numpy(), t_rounds)
     assert int(stats["chain_steps"]) == t_steps.max()
     assert int(stats["chain_flt_steps"]) == f_steps.max()
+    assert int(stats["chain_rounds"]) == t_rounds.max()
     fwant = tchain.chain_filter_frac_rep(want, bns, smems, lens, **fkw)
     for name, a, b in zip(("order", "kept", "w_by_slot", "frac_rep"),
                           fgot, fwant):
@@ -377,6 +675,9 @@ def _kernels_vs_plain(dev, bns_args, smems, rbeg, seed_idx, total, lens, C,
         is_alt, tchain.Chains(*(cpu(a) for a in got)), *sm, cpu(lens),
         **fkw)
     np.testing.assert_array_equal(f_steps, ftwin[4])
+    np.testing.assert_array_equal(
+        chain_cuda.chain_filter_cuda.last_rounds.cpu().numpy(), ftwin[5])
+    assert int(stats["chain_flt_rounds"]) == ftwin[5].max()
     assert (chain_cuda.chain_seeds_cuda.launches,
             chain_cuda.chain_filter_cuda.launches) == (before[0] + 1,
                                                        before[1] + 1)
@@ -445,23 +746,13 @@ def card_batch():
     return build_index(bns), codes, lens
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tier", [(512, 512, 64, 32), (64, 1024, 256, 64),
-                                  (8, 16384, 1024, 256)],
-                         ids=["main", "tier1", "tier2"])
-def test_chain_kernels_equal_to_plain(card_batch, tier):
-    """Seeds of the batch (the port's seeding and SA lookup on the card)
-    chained and filtered by the kernels and by the plain versions at the
-    main path's capacities (512 reads, 512 coordinates, 64 chains of 32
-    seeds) and the retry tiers' (64 reads at 1024 / 256 / 64, 8 reads at
-    16384 / 1024 / 256): every array equal, steps equal to the twins'."""
+def _card_seeds(idx, codes, lens, B, NC, dev):
+    """The first B reads seeded and SA-looked-up on the card at the main
+    path's depth (24): (bns arrays, smems, rbeg, seed_idx, total, lens)."""
     from bwa_mem_scale_tpu_torch.config import MemOptions
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
     from bwa_mem_scale_tpu_torch.ops.sal import expand_and_lookup
     from bwa_mem_scale_tpu_torch.ops.smem_oh import collect_smems_oh
-    dev = _cuda()
-    idx, codes, lens = card_batch
-    B, NC, C, S = tier
     fmi = DeviceFMIndex.from_host(idx, dev)
     c = torch.as_tensor(codes[:B], device=dev)
     ln = torch.as_tensor(lens[:B], device=dev)
@@ -472,8 +763,125 @@ def test_chain_kernels_equal_to_plain(card_batch, tier):
         emit_depth=24, stack_depth=24)
     rbeg, seed_idx, _, total, _ = expand_and_lookup(fmi, smems, opt.max_occ,
                                                     NC)
-    assert int(total.max()) > 20
     bns = idx.bns
-    _kernels_vs_plain(dev, (np.asarray(bns.offsets, np.int64),
-                            np.asarray(bns.is_alt, bool), int(bns.l_pac)),
-                      smems, rbeg, seed_idx, total, ln, C, S, FLT["default"])
+    return ((np.asarray(bns.offsets, np.int64), np.asarray(bns.is_alt, bool),
+             int(bns.l_pac)), smems, rbeg, seed_idx, total, ln)
+
+
+TIERS = {"main": (512, 512, 64, 32), "tier1": (64, 1024, 256, 64),
+         "tier2": (8, 16384, 1024, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", list(TIERS.values()), ids=list(TIERS))
+def test_chain_kernels_equal_to_plain(card_batch, tier):
+    """Seeds of the batch (the port's seeding and SA lookup on the card)
+    chained and filtered by the kernels and by the plain versions at the
+    main path's capacities (512 reads, 512 coordinates, 64 chains of 32
+    seeds) and the retry tiers' (64 reads at 1024 / 256 / 64, 8 reads at
+    16384 / 1024 / 256): every array equal, steps and rounds equal to the
+    twins'."""
+    dev = _cuda()
+    B, NC, C, S = tier
+    bns, smems, rbeg, seed_idx, total, ln = _card_seeds(*card_batch, B, NC,
+                                                        dev)
+    assert int(total.max()) > 20
+    _kernels_vs_plain(dev, bns, smems, rbeg, seed_idx, total, ln, C, S,
+                      FLT["default"])
+
+
+@pytest.mark.cuda
+def test_chain_kernels_large_shared_memory():
+    """The wide read on the card at C = 1,800, whose chain state (7 words
+    a chain in chain_seeds, 50.4 KB; 7 a chain and 64 a 32 chains in the
+    filter, 65.0 KB) takes both kernels past the 48 KB default of dynamic
+    shared memory: equal to the plain versions and twins. A read of more
+    chains than one block's shared memory holds raises."""
+    dev = _cuda()
+    C = 1800
+    assert 4 * 7 * C > 49152
+    m, n, s, cnt, lens, rbeg, seed_idx, total = wide_read()
+    t = lambda a: torch.as_tensor(a, device=dev)
+    bns = (WIDE["offsets"], WIDE["is_alt"], WIDE["l_pac"])
+    smems = _smems(m, n, s, cnt, dev)
+    ch = _kernels_vs_plain(dev, bns, smems, t(rbeg), t(seed_idx), t(total),
+                           t(lens), C, WIDE["S"], FLT["default"])
+    assert int(ch.n[0]) == 1071
+    for kernel in (0, 1):
+        assert chain_cuda.LIB.call("chain_max_chains", kernel) >= C
+    too_many = chain_cuda.LIB.call("chain_max_chains", 0) + 1
+    dbns = tchain.DeviceBns(*(torch.as_tensor(a, device=dev)
+                              for a in bns[:2]), bns[2])
+    valid = (torch.arange(rbeg.shape[1], device=dev)[None, :]
+             < t(total)[:, None])
+    with pytest.raises(ValueError, match="shared memory"):
+        chain_cuda.chain_seeds_cuda(dbns, smems, t(rbeg), t(seed_idx), valid,
+                                    w=W, max_chain_gap=GAP,
+                                    max_chains=too_many,
+                                    max_seeds_per_chain=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flt", list(FLT))
+def test_chain_kernels_planted_equal_to_plain(flt):
+    """The planted reads on the card at C = 64 and S = 4 (40 chains, so
+    two chunks of keys; keys equal to rbeg; a full chain refusing
+    appends; a first dominating chain in the overlap loop's second
+    chunk): both kernels equal to their plain versions and twins."""
+    dev = _cuda()
+    m, n, s, cnt, lens, rbeg, seed_idx, total = planted_batch()
+    t = lambda a: torch.as_tensor(a, device=dev)
+    ch = _kernels_vs_plain(dev, (OFFSETS, IS_ALT, L_PAC),
+                           _smems(m, n, s, cnt, dev), t(rbeg), t(seed_idx),
+                           t(total), t(lens), *PLANTED_CAPS, FLT[flt])
+    assert ch.n.tolist() == [40, 34, 2, 37]
+
+
+@pytest.mark.cuda
+def test_chain_kernels_over_1024_chains_equal_to_plain():
+    """The wide read on the card at C = 1,100 (1,071 chains: the lower
+    chains among 34 chunks of keys, the filter's rows past 32 words):
+    both kernels equal to their plain versions and twins."""
+    dev = _cuda()
+    m, n, s, cnt, lens, rbeg, seed_idx, total = wide_read()
+    t = lambda a: torch.as_tensor(a, device=dev)
+    ch = _kernels_vs_plain(dev, (WIDE["offsets"], WIDE["is_alt"],
+                                 WIDE["l_pac"]),
+                           _smems(m, n, s, cnt, dev), t(rbeg), t(seed_idx),
+                           t(total), t(lens), WIDE["C"], WIDE["S"],
+                           FLT["default"])
+    assert int(ch.n[0]) == 1071
+    assert int(chain_cuda.chain_filter_cuda.last_steps[0]) == WIDE_STEPS
+
+
+@pytest.mark.cuda
+def test_chain_kernels_repeat_batch_equal_to_plain():
+    """chip_smoke.py phase 5's repeat batch (tools/batches.py::
+    repeat_batch: 512 reads on a 2 Mbp genome with a 1 kbp window in 25
+    copies and a 150 bp unit in 600) seeded on the card and chained at
+    the main path's shapes: both kernels equal to their plain versions
+    and twins, at both option sets; the batch has reads of 25 chains and
+    more (the window's copies) and overflows."""
+    from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
+    dev = _cuda()
+    B, NC, C, S = TIERS["main"]
+    args = _card_seeds(*repeat_batch(B, 101), B, NC, dev)
+    for flt in FLT.values():
+        ch = _kernels_vs_plain(dev, *args, C, S, flt)
+    assert int(ch.n.max()) >= 25 and bool(ch.overflow.any())
+
+
+@pytest.mark.cuda
+def test_round_probe_kernel_equal_to_plain():
+    """csrc/round_probe.cu (the chaining floors' yardstick, one warp's
+    dependent rounds) against its numpy model at 0, 1 and 257 rounds,
+    and a positive cost a round."""
+    from bwa_mem_scale_tpu_torch.tools import round_cost
+    dev = _cuda()
+    host = round_cost.table()
+    tab = torch.as_tensor(host, device=dev)
+    for n in (0, 1, 257):
+        np.testing.assert_array_equal(
+            round_cost.round_probe(tab, n).cpu().numpy(),
+            round_cost.round_probe_plain(host, n))
+    assert round_cost.round_us(dev) > 0

@@ -153,7 +153,7 @@ def test_chain_twins_on_genome_equal_to_jax(setup, caps):
     jch = jchain.chain_seeds_device(jb, setup["smems"], *jx[:3], **kw)
     sm = [np.asarray(a) for a in setup["smems"]]
     total = np.asarray(jx[3])
-    twin, steps = chain_cuda.chain_seeds_twin(
+    twin, steps, _ = chain_cuda.chain_seeds_twin(
         np.asarray(bns.offsets, np.int64), bns.l_pac, sm[0], sm[1],
         np.asarray(jx[0]), np.asarray(jx[1]), np.asarray(jx[2]), **kw)
     for f in jch._fields:
