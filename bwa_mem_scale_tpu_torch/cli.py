@@ -12,8 +12,9 @@ The ``mem`` options are the JAX CLI's (``_add_mem_opts`` and
 ``cuda``; the CPU runs only when named). Two FASTQ files, or ``-p`` with
 one, run paired-end; ``-I`` fixes the insert-size statistics. What the
 port does not run yet is refused with a "not ported yet" error: several
-devices or hosts, other seeding engines, ERT/FMA/k-step tables and
-int64-position genomes.
+devices or hosts, other seeding engines and ERT/FMA/k-step tables. An
+index of 2^31 positions or more (hg38) runs on the int64-position layout
+(``ops/occ.py``).
 """
 
 from __future__ import annotations
@@ -342,8 +343,6 @@ def mem(argv):
     device = resolve_device(args.device)
     with PROFILER.phase("index_load"):
         idx = load_index(args.prefix)
-        if not idx.pos_fits_int32:
-            _not_ported("an int64-position genome (seq_len >= 2^31)")
         if args.ignore_alt:
             for a in idx.bns.anns:
                 a.is_alt = False

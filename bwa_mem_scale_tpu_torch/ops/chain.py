@@ -13,6 +13,11 @@ lower-bound chain counts only the n live keys, so a seed at or above the
 empty-key marker BIG (2^29 - 1, reached by reverse-strand hits once
 l_pac passes ~268 Mbp) still finds its neighbour, as the reference's
 B-tree does (the JAX package counts all C keys there).
+
+Reference positions (rbeg, the chain keys and the seeds' rbeg plane) take
+the dtype of the rbeg they are given, int32 or int64 as the index's
+positions, and the empty key is that dtype's maximum // 4 (``big_key``),
+as in the JAX package; every other field stays int32.
 """
 
 from __future__ import annotations
@@ -25,6 +30,11 @@ import torch
 
 # the key of an empty anchor position (int32 max // 4, as the JAX package)
 BIG = np.iinfo(np.int32).max // 4
+
+
+def big_key(dtype: torch.dtype) -> int:
+    """The empty-anchor key of a position dtype: its maximum // 4."""
+    return torch.iinfo(dtype).max // 4
 
 
 @dataclasses.dataclass
@@ -65,13 +75,14 @@ class DeviceBns:
 
 class Chains(NamedTuple):
     """Per-read chain set (slot-ordered data + key-sorted permutation)."""
-    key: torch.Tensor         # [B, C] sorted anchor rbeg (invalid = BIG)
+    key: torch.Tensor         # [B, C] sorted anchor rbeg (invalid =
+                              #   big_key of rbeg's dtype)
     slot: torch.Tensor        # [B, C] data slot per sorted position
     n: torch.Tensor           # [B] number of chains
     rid: torch.Tensor         # [B, C] by slot
     n_seeds: torch.Tensor     # [B, C] by slot
     seed_qbeg: torch.Tensor   # [B, C, S]
-    seed_rbeg: torch.Tensor   # [B, C, S]
+    seed_rbeg: torch.Tensor   # [B, C, S] of rbeg's dtype
     seed_len: torch.Tensor    # [B, C, S]
     seed_score: torch.Tensor  # [B, C, S]
     overflow: torch.Tensor    # [B] any chain/seed capacity overflow
@@ -86,19 +97,19 @@ def chain_seeds_device(bns: DeviceBns, smems, rbeg, seed_idx, coord_valid,
     B, NC = rbeg.shape
     C, S = max_chains, max_seeds_per_chain
     dev = rbeg.device
-    i32 = torch.int32
+    i32, pd = torch.int32, rbeg.dtype
     b = torch.arange(B, device=dev)
     si = seed_idx.long()
     qbeg_all = smems.m.gather(1, si)
     slen_all = smems.n.gather(1, si) + 1 - qbeg_all
 
-    key = torch.full((B, C), BIG, dtype=i32, device=dev)
+    key = torch.full((B, C), big_key(pd), dtype=pd, device=dev)
     slot = torch.zeros((B, C), dtype=i32, device=dev)
     n = torch.zeros((B,), dtype=i32, device=dev)
     rid_t = torch.full((B, C), -1, dtype=i32, device=dev)
     n_seeds = torch.zeros((B, C), dtype=i32, device=dev)
     sq = torch.zeros((B, C, S), dtype=i32, device=dev)
-    sr = torch.zeros((B, C, S), dtype=i32, device=dev)
+    sr = torch.zeros((B, C, S), dtype=pd, device=dev)
     sl = torch.zeros((B, C, S), dtype=i32, device=dev)
     overflow = torch.zeros((B,), dtype=torch.bool, device=dev)
     col = torch.arange(C, device=dev)[None, :]
@@ -114,7 +125,7 @@ def chain_seeds_device(bns: DeviceBns, smems, rbeg, seed_idx, coord_valid,
         valid = valid & (rid >= 0)
 
         # lower-bound chain: largest live key <= rbeg (keys past n are
-        # BIG, which a seed's rbeg can reach)
+        # the empty key, which an int32 seed's rbeg can reach)
         pos = ((key <= s_rbeg[:, None]) & (col < n[:, None])).sum(
             1, dtype=i32)
         li = pos - 1

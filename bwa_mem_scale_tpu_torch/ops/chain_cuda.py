@@ -11,13 +11,18 @@ Two wrappers, each replacing device loops of the JAX package's
   plain version ``ops/chain.py::chain_filter_frac_rep``.
 On CUDA tensors each launches its kernel once (one warp a read, the
 read's chain state in shared memory, its whole walk in the launch) or
-raises; on CPU tensors each runs its plain version. There is no fallback
+raises; on CPU tensors each runs its plain version. Each kernel has two
+forms: reference positions (rbeg, the keys, the seeds' rbeg plane, the
+SMEM sizes the filter reads) int32 (``*_launch``) or int64
+(``*_launch64``, the index's int64 layout), chosen by rbeg's dtype; an
+int64 batch never runs the int32 form. There is no fallback
 from a kernel to its plain version, and no host synchronisation: each
 warp of ``chain_seeds_kernel`` walks its read's prefix of valid
 coordinates, where the lockstep reads the batch-wide maximum back to the
 host. Each wrapper has its plain version's signature and keeps a
 ``launches`` count and the last call's per-read ``last_steps`` and
-``last_rounds`` (the dependent rounds of the read's warp, csrc/chain.cu);
+``last_rounds`` (the dependent rounds of the read's warp, csrc/chain.cu),
+and a ``launches64`` count of the int64 form's launches;
 with ``stats`` they add the longest read's steps and rounds (device
 tensors) under ``chain_steps`` (coordinates walked), ``chain_rounds``,
 ``chain_flt_steps`` (live chains weighed plus overlap tests) and
@@ -25,7 +30,8 @@ tensors) under ``chain_steps`` (coordinates walked), ``chain_rounds``,
 
 Each kernel returns its plain version's arrays exactly and writes every
 element of its outputs once, so the wrappers allocate them with
-``torch.empty`` and nothing else: no fill, no scratch. The source is
+``torch.empty`` and nothing else: no fill, no scratch. At int64 the seed
+planes are three int32 ones (qbeg, len, score) and an int64 rbeg plane. The source is
 compiled with nvcc into ``build/torch_kernels/libchain_cuda.so`` at first
 use (``ops/nvcc_build.py``) and bound with ctypes.
 
@@ -43,43 +49,51 @@ import numpy as np
 import torch
 
 from . import nvcc_build
-from .chain import (BIG, Chains, DeviceBns, chain_filter_frac_rep,
+from .chain import (Chains, DeviceBns, chain_filter_frac_rep,
                     chain_seeds_device)
 
 WARP = 32
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _ll, _cd = ctypes.c_longlong, ctypes.c_double
+_SEEDS = [_vp, _vp, _ci, _ll] + [_vp] * 5 + [_ci] * 7 + [_vp] * 9
+_FILTER = ([_vp, _vp, _ci, _ll] + [_ci] * 3 + [_vp] * 6
+           + [_ci, _cd, _ci, _cd, _ci, _ci] + [_vp] * 4 + [_ci, _vp, _ci]
+           + [_vp] * 6)
 LIB = nvcc_build.Library("chain.cu", "chain_cuda", {
-    "chain_seeds_launch": ([_vp, _vp, _ci, _ll] + [_vp] * 5 + [_ci] * 7
-                           + [_vp] * 9),
-    "chain_filter_launch": ([_vp, _vp, _ci, _ll] + [_ci] * 3 + [_vp] * 6
-                            + [_ci, _cd, _ci, _cd, _ci, _ci] + [_vp] * 4
-                            + [_ci, _vp, _ci] + [_vp] * 6)},
+    "chain_seeds_launch": _SEEDS, "chain_seeds_launch64": _SEEDS + [_vp],
+    "chain_filter_launch": _FILTER, "chain_filter_launch64": _FILTER},
     host_fns={"chain_max_chains": [_ci]})
 build = LIB.build            # compile csrc/chain.cu; returns the library path
+_SUFFIX = {torch.int32: "", torch.int64: "64"}
 
 
-def _check(what: str, bns: DeviceBns, C: int, kernel: int,
-           *tensors) -> torch.device:
-    """The device of tensors[0]: CUDA, shared by every tensor and bns's
-    arrays; int32 integer tensors; C chains within one block's shared
-    memory (`kernel` 0 chain_seeds, 1 chain_filter); or ValueError."""
-    dev = tensors[0].device
+def _check(what: str, bns: DeviceBns, C: int, kernel: int, ints,
+           positions) -> tuple:
+    """(device, position dtype): the device of ints[0], CUDA, shared by
+    every tensor and bns's arrays; `ints` int32; `positions` (reference
+    positions and SMEM sizes) of one dtype, int32 or int64; C chains
+    within one block's shared memory at that dtype (`kernel` 0
+    chain_seeds, 1 chain_filter); or ValueError."""
+    dev = ints[0].device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    if any(t.device != dev for t in (*tensors, bns.offsets, bns.is_alt)):
+    if any(t.device != dev for t in (*ints, *positions, bns.offsets,
+                                     bns.is_alt)):
         raise ValueError(f"{what}: tensors on different devices")
-    if any(t.dtype != torch.int32 for t in tensors):
-        raise ValueError(f"{what}: positions, indices and counts must be "
-                         f"int32 (the int32 genome layout)")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise ValueError(f"{what}: indices and counts must be int32")
+    pd = positions[0].dtype
+    if pd not in _SUFFIX or any(t.dtype != pd for t in positions):
+        raise ValueError(f"{what}: positions must be all int32 or all "
+                         f"int64")
     if bns.offsets.dtype != torch.int64 or bns.is_alt.dtype != torch.bool:
         raise ValueError(f"{what}: bns offsets must be int64, is_alt bool")
-    most = LIB.call("chain_max_chains", kernel)
+    most = LIB.call("chain_max_chains", kernel + 2 * (pd == torch.int64))
     if C > most:
         raise ValueError(f"{what}: {C} chains a read pass the {most} whose "
                          f"state fits one block's shared memory")
-    return dev
+    return dev, pd
 
 
 def _bns_args(bns: DeviceBns) -> list:
@@ -104,8 +118,8 @@ def chain_seeds_cuda(bns: DeviceBns, smems, rbeg, seed_idx, coord_valid, *,
         return chain_seeds_device(bns, smems, rbeg, seed_idx, coord_valid,
                                   stats=stats, **kw)
     C, S = max_chains, max_seeds_per_chain
-    dev = _check("chain_seeds_cuda", bns, C, 0, rbeg, seed_idx, smems.m,
-                 smems.n)
+    dev, pd = _check("chain_seeds_cuda", bns, C, 0,
+                     (seed_idx, smems.m, smems.n), (rbeg,))
     if coord_valid.device != dev or coord_valid.dtype != torch.bool:
         raise ValueError("chain_seeds_cuda: coord_valid must be bool on "
                          "the seeds' device")
@@ -114,39 +128,48 @@ def chain_seeds_cuda(bns: DeviceBns, smems, rbeg, seed_idx, coord_valid, *,
     if seed_idx.shape != (B, NC) or coord_valid.shape != (B, NC) \
             or smems.m.shape[0] != B or smems.n.shape != smems.m.shape:
         raise ValueError("chain_seeds_cuda: read counts differ")
-    i32 = torch.int32
-    key = torch.empty((B, C), dtype=i32, device=dev)
+    i32, wide = torch.int32, pd == torch.int64
+    key = torch.empty((B, C), dtype=pd, device=dev)
     slot = torch.empty((B, C), dtype=i32, device=dev)
     n = torch.empty((B,), dtype=i32, device=dev)
     rid = torch.empty((B, C), dtype=i32, device=dev)
     n_seeds = torch.empty((B, C), dtype=i32, device=dev)
-    seeds = torch.empty((4, B, C, S), dtype=i32, device=dev)
+    # int32: planes qbeg, rbeg, len, score; int64: qbeg, len, score, and
+    # rbeg apart
+    seeds = torch.empty((3 if wide else 4, B, C, S), dtype=i32, device=dev)
+    srb = (torch.empty((B, C, S), dtype=pd, device=dev) if wide
+           else seeds[1])
     overflow = torch.empty((B,), dtype=torch.bool, device=dev)
     steps = torch.empty((B,), dtype=i32, device=dev)
     rounds = torch.empty((B,), dtype=i32, device=dev)
     if B:
         ins = [t.contiguous() for t in (rbeg, seed_idx, coord_valid,
                                         smems.m, smems.n)]
-        LIB.launch(dev, "chain_seeds_launch", *_bns_args(bns),
+        LIB.launch(dev, "chain_seeds_launch" + _SUFFIX[pd], *_bns_args(bns),
                    *(t.data_ptr() for t in ins), B, NC, M, w, max_chain_gap,
                    C, S, key.data_ptr(), slot.data_ptr(),
                    n.data_ptr(), rid.data_ptr(), n_seeds.data_ptr(),
                    seeds.data_ptr(), overflow.data_ptr(), steps.data_ptr(),
-                   rounds.data_ptr())
+                   rounds.data_ptr(), *([srb.data_ptr()] if wide else []))
         chain_seeds_cuda.launches += 1
+        chain_seeds_cuda.launches64 += wide
         if stats is not None:
             for what, per_read in (("chain_steps", steps),
                                    ("chain_rounds", rounds)):
                 stats[what] = stats.get(what, 0) + per_read.max()
     chain_seeds_cuda.last_steps = steps
     chain_seeds_cuda.last_rounds = rounds
+    q, ln, sc = (seeds[0], seeds[1], seeds[2]) if wide else (
+        seeds[0], seeds[2], seeds[3])
     return Chains(key=key, slot=slot, n=n, rid=rid, n_seeds=n_seeds,
-                  seed_qbeg=seeds[0], seed_rbeg=seeds[1], seed_len=seeds[2],
-                  seed_score=seeds[3], overflow=overflow)
+                  seed_qbeg=q, seed_rbeg=srb, seed_len=ln, seed_score=sc,
+                  overflow=overflow)
 
 
-# kernel launches since the last reset (main-path proof in chip_smoke.py)
+# kernel launches since the last reset (main-path proof in chip_smoke.py):
+# all, and the int64 form's
 chain_seeds_cuda.launches = 0
+chain_seeds_cuda.launches64 = 0
 # the per-read step and round counts of the last call ([B] int32, on its
 # device)
 chain_seeds_cuda.last_steps = None
@@ -173,7 +196,8 @@ def chain_filter_cuda(ch: Chains, bns: DeviceBns, smems, lens, *,
     arrs = (ch.n, ch.rid, ch.n_seeds, ch.seed_qbeg, ch.seed_rbeg,
             ch.seed_len, smems.m, smems.n, smems.s, smems.cnt, lens)
     B, C, S = ch.seed_qbeg.shape
-    dev = _check("chain_filter_cuda", bns, C, 1, *arrs)
+    dev, pd = _check("chain_filter_cuda", bns, C, 1,
+                     arrs[:4] + arrs[5:8] + arrs[9:], (arrs[4], arrs[8]))
     M = smems.m.shape[1]
     if any(t.shape != (B, C, S) for t in arrs[4:6]) \
             or any(t.shape != (B, C) for t in arrs[1:3]) \
@@ -189,7 +213,8 @@ def chain_filter_cuda(ch: Chains, bns: DeviceBns, smems, lens, *,
     rounds = torch.empty((B,), dtype=i32, device=dev)
     if B:
         ins = [t.contiguous() for t in arrs]
-        LIB.launch(dev, "chain_filter_launch", *_bns_args(bns), B, C, S,
+        LIB.launch(dev, "chain_filter_launch" + _SUFFIX[pd], *_bns_args(bns),
+                   B, C, S,
                    *(t.data_ptr() for t in ins[:6]),
                    min_chain_weight, float(mask_level), max_chain_gap,
                    float(drop_ratio), min_seed_len,
@@ -199,6 +224,7 @@ def chain_filter_cuda(ch: Chains, bns: DeviceBns, smems, lens, *,
                    w_slot.data_ptr(), frac_rep.data_ptr(), steps.data_ptr(),
                    rounds.data_ptr())
         chain_filter_cuda.launches += 1
+        chain_filter_cuda.launches64 += pd == torch.int64
         if stats is not None:
             for what, per_read in (("chain_flt_steps", steps),
                                    ("chain_flt_rounds", rounds)):
@@ -209,6 +235,7 @@ def chain_filter_cuda(ch: Chains, bns: DeviceBns, smems, lens, *,
 
 
 chain_filter_cuda.launches = 0
+chain_filter_cuda.launches64 = 0
 chain_filter_cuda.last_steps = None              # [B] int32, on its device
 chain_filter_cuda.last_rounds = None
 
@@ -252,8 +279,9 @@ def chain_seeds_twin(offsets, l_pac: int, m, n, rbeg, seed_idx,
     seed's lower chain is its last key <= rbeg whenever the seed is
     tested, and the ranks give that array; a lower chain's seed count
     lies in [1, S] (so the lockstep's clamped last-seed index is the last
-    appended seed); every seed-plane element is written once. Returns
-    (the Chains fields as numpy arrays, steps [B], rounds [B])."""
+    appended seed); every seed-plane element is written once. The form
+    follows rbeg's dtype (int32 or int64: the keys and the rbeg plane).
+    Returns (the Chains fields as numpy arrays, steps [B], rounds [B])."""
     offsets = np.asarray(offsets, np.int64)
     m, n = np.asarray(m), np.asarray(n)
     rbeg, seed_idx = np.asarray(rbeg), np.asarray(seed_idx)
@@ -261,13 +289,15 @@ def chain_seeds_twin(offsets, l_pac: int, m, n, rbeg, seed_idx,
     B, NC = rbeg.shape
     M = m.shape[1]
     C, S = max_chains, max_seeds_per_chain
+    pd = rbeg.dtype
+    big = np.iinfo(pd).max // 4
     chunks = lambda k: -(-k // WARP)
-    key = np.zeros((B, C), np.int32)
+    key = np.zeros((B, C), pd)
     slot = np.zeros((B, C), np.int32)
     n_out = np.zeros(B, np.int32)
     rid_t = np.zeros((B, C), np.int32)
     n_seeds = np.zeros((B, C), np.int32)
-    seeds = np.zeros((4, B, C, S), np.int32)       # qbeg rbeg len score
+    seeds = np.zeros((4, B, C, S), np.int64)       # qbeg rbeg len score
     written = np.zeros((B, C, S), np.int32)
     overflow = np.zeros(B, bool)
     steps = np.zeros(B, np.int32)
@@ -382,16 +412,18 @@ def chain_seeds_twin(offsets, l_pac: int, m, n, rbeg, seed_idx,
         for c in range(C):
             live = c < nch
             if not live:
-                key[b, c], slot[b, c] = BIG, 0
+                key[b, c], slot[b, c] = big, 0
             rid_t[b, c] = RD[c] if live else -1
             n_seeds[b, c] = NS[c] if live else 0
             seeds[:, b, c, n_seeds[b, c]:] = 0     # what no seed wrote
             written[b, c, n_seeds[b, c]:] += 1
         n_out[b], overflow[b], steps[b], rounds[b] = nch, of, st, rnd
     assert (written == 1).all(), "every seed-plane element written once"
+    q, r, ln, sc = (seeds[0].astype(np.int32), seeds[1].astype(pd),
+                    *(p.astype(np.int32) for p in seeds[2:]))
     return (Chains(key=key, slot=slot, n=n_out, rid=rid_t, n_seeds=n_seeds,
-                   seed_qbeg=seeds[0], seed_rbeg=seeds[1], seed_len=seeds[2],
-                   seed_score=seeds[3], overflow=overflow), steps, rounds)
+                   seed_qbeg=q, seed_rbeg=r, seed_len=ln, seed_score=sc,
+                   overflow=overflow), steps, rounds)
 
 
 def _cover(beg, length, k: int) -> int:

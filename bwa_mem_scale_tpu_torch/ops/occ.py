@@ -1,21 +1,39 @@
 """Device FM index: occ counting and backward extension on tensors.
 
-Counterpart of ``bwa_mem_scale_tpu/ops/occ.py``, int32-position layout
-only: the checkpointed BWT is one fused ``[nb, 8]`` int32 table (four
-exclusive base counts, then four one-hot 32-bp block masks stored as
-int32 bit patterns), so occ(p, *) is one row gather plus a masked
-popcount. Mask bits are MSB-first (``CP_SHIFT = 5``).
+Counterpart of ``bwa_mem_scale_tpu/ops/occ.py``. The checkpointed BWT is
+one fused ``[nb, 8]`` int32 table (four exclusive base counts, then four
+one-hot 32-bp block masks stored as int32 bit patterns), so occ(p, *) is
+one row gather plus a masked popcount. Mask bits are MSB-first
+(``CP_SHIFT = 5``).
+
+Two layouts, chosen by ``DeviceFMIndex.from_host``:
+- int32 positions (``seq_len < 2^31``): the row's counts are the counts;
+  the C array and the SA samples are int32.
+- int64 positions (``seq_len >= 2^31``, hg38's 6.2e9 fw+rc positions, or
+  forced): the row keeps its 32 bytes, one sector a dependent FM step,
+  with the low 32 bits of each count. The high word of a count never
+  falls along the BWT, so it is a step function of the block: per base,
+  the sorted blocks where it steps (``cp_hi_steps``, [4, HI_STEPS], at
+  most HI_STEPS steps a base, so a base count below 9 x 2^32). At hg38
+  no base count reaches 2^32 (the most common, A+T over fw+rc, is ~1.8e9)
+  and the list is empty, so a step costs no second load. The C array,
+  the sentinel row and the SA samples are int64 (8 bytes a sample, one
+  load). The reference stays fw+rc bytes. This differs from the JAX
+  package's TPU layout (a [nb, 4] uint8 high-count byte beside each row,
+  a 5-byte SA, a forward-only reference); the arrays the functions
+  return are the same, dtypes included.
 
 Torch has no unsigned 32-bit shift on the CPU and no popcount op, so
 masks are widened to int64 before shifting and counted with a SWAR
-popcount. Every gather clamps its index into range, as a JAX gather
-does, so lanes that carry stale state read in-range junk that callers
-mask.
+popcount. Every gather clamps its index into range at 64 bits, as a JAX
+gather does, so lanes that carry stale state read in-range junk that
+callers mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,6 +41,10 @@ import torch
 from ..index.artifacts import FMIndex, CP_SHIFT, CP_MASK
 
 _M32 = 0xFFFFFFFF
+# the high-word steps a base may have on the int64 layout, and the pad of
+# an unused entry (a block no row reaches)
+HI_STEPS = 8
+NO_STEP = 1 << 62
 
 
 def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -39,41 +61,86 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & _M32) >> 24
 
 
+def hi_steps(cp_count: np.ndarray) -> np.ndarray:
+    """[4, HI_STEPS] int64: for each base, the first block at which the
+    high word (count >> 32) of its checkpoint count reaches 1, 2, ...
+    (NO_STEP past the last). ValueError where the counts fall along the
+    BWT or a base needs more than HI_STEPS steps."""
+    hi = np.asarray(cp_count, np.int64) >> 32
+    out = np.full((4, HI_STEPS), NO_STEP, np.int64)
+    if not hi.size:
+        return out
+    if (hi < 0).any() or (np.diff(hi, axis=0) < 0).any():
+        raise ValueError("checkpoint counts fall along the BWT")
+    for c in range(4):
+        n = int(hi[-1, c])
+        if n > HI_STEPS:
+            raise ValueError(f"base {c}'s count passes {HI_STEPS + 1} x "
+                             f"2^32: more high-word steps than the layout "
+                             f"holds")
+        out[c, :n] = np.searchsorted(hi[:, c], np.arange(1, n + 1))
+    return out
+
+
 @dataclasses.dataclass
 class DeviceFMIndex:
-    """FM-index arrays resident on one device (int32 positions)."""
+    """FM-index arrays resident on one device (module docstring: the two
+    layouts)."""
 
-    count: torch.Tensor       # [5] int32 C-array
-    cp_fused: torch.Tensor    # [nb, 8] int32 (counts | mask bits)
-    sa_samples: torch.Tensor  # [ns] int32
+    count: torch.Tensor       # [5] pos_dtype C-array
+    cp_fused: torch.Tensor    # [nb, 8] int32 (counts or their low words
+                              #   | mask bits)
+    cp_hi_steps: Optional[torch.Tensor]   # int64 layout: [4, HI_STEPS]
+                              #   int64 (hi_steps); None on the int32 one
+    sa_samples: torch.Tensor  # [ns] pos_dtype
     ref: torch.Tensor         # [2*l_pac] uint8 fw+rc reference
     sentinel_index: int
     sa_compx: int
     l_pac: int
     seq_len: int
     count_host: list          # the C array as host ints (kernel arguments)
+    hi_counts: list           # the steps of each base (kernel arguments)
 
     @property
     def device(self) -> torch.device:
         return self.cp_fused.device
 
+    @property
+    def pos_dtype(self) -> torch.dtype:
+        return self.count.dtype
+
+    def nbytes(self) -> int:
+        """Device bytes of the index's arrays."""
+        ts = (self.count, self.cp_fused, self.cp_hi_steps, self.sa_samples,
+              self.ref)
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
     @classmethod
-    def from_host(cls, idx: FMIndex, device) -> "DeviceFMIndex":
-        if not idx.pos_fits_int32:
-            raise NotImplementedError(
-                "int64-position genomes (seq_len >= 2^31) are not ported "
-                "yet: the port has the int32 layout only")
-        fused = np.concatenate(
-            [np.asarray(idx.cp_count).astype(np.int32),
-             np.asarray(idx.cp_mask).view(np.int32).reshape(-1, 4)],
-            axis=1)
+    def from_host(cls, idx: FMIndex, device,
+                  force_int64: bool = False) -> "DeviceFMIndex":
+        """The int64 layout when positions pass int32
+        (``idx.pos_fits_int32`` false) or when forced, else the int32
+        one."""
+        wide = force_int64 or not idx.pos_fits_int32
+        pos = np.int64 if wide else np.int32
+        cnt = np.asarray(idx.cp_count)
+        masks = np.asarray(idx.cp_mask).view(np.int32).reshape(-1, 4)
         dev = torch.device(device)
+        steps = None
+        if wide:
+            cnt = np.asarray(cnt, np.int64)
+            steps = hi_steps(cnt)
+            low = (cnt & _M32).astype(np.uint32).view(np.int32)
+        else:
+            low = cnt.astype(np.int32)
+        fused = np.concatenate([low, masks], axis=1)
         return cls(
-            count=torch.as_tensor(np.asarray(idx.count, np.int32),
-                                  device=dev),
+            count=torch.as_tensor(np.asarray(idx.count, pos), device=dev),
             cp_fused=torch.as_tensor(fused, device=dev),
-            sa_samples=torch.as_tensor(
-                np.asarray(idx.sa_samples, np.int32), device=dev),
+            cp_hi_steps=(None if steps is None
+                         else torch.as_tensor(steps, device=dev)),
+            sa_samples=torch.as_tensor(np.asarray(idx.sa_samples, pos),
+                                       device=dev),
             ref=torch.as_tensor(np.array(idx.ref_string, np.uint8),
                                 device=dev),
             sentinel_index=int(idx.sentinel_index),
@@ -81,14 +148,22 @@ class DeviceFMIndex:
             l_pac=int(idx.bns.l_pac),
             seq_len=int(idx.seq_len),
             count_host=[int(v) for v in np.asarray(idx.count)],
+            hi_counts=([] if steps is None else
+                       [int((s != NO_STEP).sum()) for s in steps]),
         )
 
 
 def _row_at(fmi: DeviceFMIndex, pp: torch.Tensor):
-    """(counts [..., 4] int32, masks [..., 4] int64 in [0, 2^32), y)
-    for the checkpoint rows holding positions pp."""
-    row = take(fmi.cp_fused, pp >> CP_SHIFT)
-    return row[..., :4], row[..., 4:].long() & _M32, (pp & CP_MASK).long()
+    """(counts [..., 4] pos_dtype, masks [..., 4] int64 in [0, 2^32), y)
+    for the checkpoint rows holding positions pp (the block clamped at 64
+    bits)."""
+    blk = (pp.long() >> CP_SHIFT).clamp(0, fmi.cp_fused.shape[0] - 1)
+    row = fmi.cp_fused[blk]
+    counts = row[..., :4]
+    if fmi.cp_hi_steps is not None:
+        hi = (blk[..., None, None] >= fmi.cp_hi_steps).sum(-1)
+        counts = (hi << 32) | (counts.long() & _M32)
+    return counts, row[..., 4:].long() & _M32, (pp & CP_MASK).long()
 
 
 def _top_mask(y: torch.Tensor) -> torch.Tensor:
@@ -107,7 +182,7 @@ def occ_all4(fmi: DeviceFMIndex, pp: torch.Tensor) -> torch.Tensor:
     """occ(pp, c) for all four bases. pp [...], returns [..., 4]."""
     counts, masks, y = _row_at(fmi, pp)
     pc = popcount32(masks & _top_mask(y)[..., None])
-    return counts + pc.to(torch.int32)
+    return counts + pc.to(counts.dtype)
 
 
 def backward_ext_all4(fmi: DeviceFMIndex, k, l, s):
@@ -153,4 +228,4 @@ def occ_b_and_base(fmi: DeviceFMIndex, pos: torch.Tensor):
     bc = b.long().clamp(0, 3)[..., None]
     mask_b = masks.gather(-1, bc)[..., 0]
     pc = popcount32(mask_b & _top_mask(y))
-    return counts.gather(-1, bc)[..., 0] + pc.to(torch.int32), b
+    return counts.gather(-1, bc)[..., 0] + pc.to(counts.dtype), b

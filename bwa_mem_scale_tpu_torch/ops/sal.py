@@ -44,15 +44,15 @@ def sa_lookup_plain(fmi: DeviceFMIndex, pos: torch.Tensor,
     """Resolve SA[pos] for a batch of BWT row indices (``sa_lookup``'s
     plain version, on any device).
 
-    pos [...], valid [...] bool (invalid lanes return 0). A retired
-    lane is a strict no-op, so the exit test runs every CHECK_EVERY
-    LF steps."""
+    pos [...], valid [...] bool (invalid lanes return 0); the walk and
+    its values run at the index's position dtype. A retired lane is a
+    strict no-op, so the exit test runs every CHECK_EVERY LF steps."""
     if fmi.sa_compx == 0:
         # full SA resident: a single gather
         return torch.where(valid, sa_sample_at(fmi, pos), 0)
     compx_mask = (1 << fmi.sa_compx) - 1
     shape = pos.shape
-    sp = pos.reshape(-1).to(torch.int32)
+    sp = pos.reshape(-1).to(fmi.pos_dtype)
     active = valid.reshape(-1).clone()
     offset = torch.zeros_like(sp)
     done_val = torch.zeros_like(sp)
@@ -71,7 +71,7 @@ def sa_lookup_plain(fmi: DeviceFMIndex, pos: torch.Tensor,
             active = active & ~hit_sentinel
             sp = torch.where(active, take(count4, b.clamp(0, 3)) + occ_b,
                              sp)
-            offset = offset + active.to(torch.int32)
+            offset = offset + active.to(sp.dtype)
         ticks += CHECK_EVERY
     if stats is not None:
         stats["sal_ticks"] = stats.get("sal_ticks", 0) + ticks
@@ -83,7 +83,8 @@ def expand_and_lookup(fmi: DeviceFMIndex, smems: SmemBuf, max_occ: int,
                       stats: dict = None):
     """Sample each SMEM interval and resolve coordinates.
 
-    Returns (rbeg [B, C], seed_smem [B, C] (index into smems arrays),
+    Returns (rbeg [B, C] of the index's position dtype, seed_smem [B, C]
+    (index into smems arrays),
     coord_valid [B, C], total [B], overflow [B]) with C = max_coords.
     Within a read, coordinates come in SMEM order, then interval order
     (mem_chain_seeds, src/bwamem.cpp:862-895). The SA walk covers a

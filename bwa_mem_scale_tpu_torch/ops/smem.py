@@ -17,7 +17,8 @@ import torch
 
 
 class SmemBuf(NamedTuple):
-    """Per-read SMEM output buffers ([B, M] each) + counts [B]."""
+    """Per-read SMEM output buffers ([B, M] each) + counts [B]: m, n and
+    cnt int32, k, l and s of the index's position dtype."""
     m: torch.Tensor
     n: torch.Tensor
     k: torch.Tensor
@@ -26,10 +27,12 @@ class SmemBuf(NamedTuple):
     cnt: torch.Tensor
 
     @classmethod
-    def empty(cls, B: int, M: int, device) -> "SmemBuf":
-        z = lambda: torch.zeros((B, M), dtype=torch.int32, device=device)
-        return cls(z(), z(), z(), z(), z(),
-                   torch.zeros((B,), dtype=torch.int32, device=device))
+    def empty(cls, B: int, M: int, device,
+              pos_dtype: torch.dtype = torch.int32) -> "SmemBuf":
+        z = lambda dt: torch.zeros((B, M), dtype=dt, device=device)
+        i32 = torch.int32
+        return cls(z(i32), z(i32), z(pos_dtype), z(pos_dtype), z(pos_dtype),
+                   torch.zeros((B,), dtype=i32, device=device))
 
 
 def compact_indices(flat: torch.Tensor, T: int):

@@ -14,8 +14,12 @@ replacing a ``jax.lax.while_loop`` of the JAX package:
 On CUDA tensors each launches its kernel once (the whole walk in the
 launch) or raises; on CPU tensors each runs its plain version (imported
 at the call: the plain versions' modules import this one). There is no
-fallback from a kernel to its plain version. Each keeps a ``launches``
-count and the last call's per-lane ``last_steps`` (the ext calls);
+fallback from a kernel to its plain version. Each kernel has two forms,
+one for each layout of ``ops/occ.py``: positions int32 (the
+``*_launch`` functions) or int64 (``*_launch64``), chosen by
+``fmi.pos_dtype``; an int64 index never runs the int32 form. Each wrapper
+keeps a ``launches`` count (both forms), a ``launches64`` count (the
+int64 form) and the last call's per-lane ``last_steps`` (the ext calls);
 ``one_pos_machine_cuda`` also keeps ``last_rounds`` (the dependent occ
 round trips on each task's path).
 
@@ -24,9 +28,10 @@ overflowed their stacks or their emission depth included. The source is
 compiled with nvcc into ``build/torch_kernels/libsmem_cuda.so`` at first
 use (``ops/nvcc_build.py``) and bound with ctypes. The wrappers allocate
 the outputs (each kernel writes every slot, zeros past a lane's
-count), any scratch (passes 1-2: the interval stacks
-``[T][2][SD + 1][4]`` int32, only where one warp's shared memory cannot
-hold them) and the per-lane counts, and launch on the current stream
+count; at int64, m and n int32 and k, l and s int64 in one buffer), any
+scratch (passes 1-2: the interval stacks ``[T][2][SD + 1]`` entries of
+16 bytes, 32 at int64, only where one warp's shared memory cannot hold
+them) and the per-lane counts, and launch on the current stream
 with no host synchronisation. With ``stats`` they add the longest lane's
 steps under ``seed_steps_p1`` / ``seed_steps_p2`` / ``seed_steps_p3``
 (``sal_steps`` in ``sa_lookup``), and for passes 1-2 the longest task's
@@ -50,33 +55,74 @@ from . import nvcc_build
 from .occ import DeviceFMIndex
 from .smem import SmemBuf
 
-_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the index arguments of each form (_fmi_args), then each kernel's own
+_FMI = {torch.int32: [_vp] + [_ci] * 7,
+        torch.int64: [_vp] + [_ll] * 7 + [_vp] + [_ci] * 4}
+_ONE_POS = [_vp, _vp, _ci, _ci] + [_vp] * 4 + [_ci] * 5 + [_vp] * 5
+_P3 = [_vp, _vp] + [_ci] * 6 + [_vp] * 3
+_SAL = {torch.int32: [_vp, _ci, _ci, _vp, _vp, _ci] + [_vp] * 2,
+        torch.int64: [_vp, _ll, _ci, _vp, _vp, _ci] + [_vp] * 2}
+_SUFFIX = {torch.int32: "", torch.int64: "64"}
 LIB = nvcc_build.Library("smem.cu", "smem_cuda", {
-    "one_pos_launch": ([_vp] + [_ci] * 7 + [_vp, _vp, _ci, _ci] + [_vp] * 4
-                       + [_ci] * 5 + [_vp] * 5),
-    "seed_strategy_launch": ([_vp] + [_ci] * 7 + [_vp, _vp] + [_ci] * 6
-                             + [_vp] * 3),
-    "sa_walk_launch": ([_vp] + [_ci] * 7 + [_vp, _ci, _ci, _vp, _vp, _ci]
-                       + [_vp] * 2)},
-    host_fns={"one_pos_stacks_in_shared": [_ci, _ci]})
+    f"{fn}{_SUFFIX[pd]}": _FMI[pd] + tail
+    for pd in _FMI
+    for fn, tail in (("one_pos_launch", _ONE_POS),
+                     ("seed_strategy_launch", _P3),
+                     ("sa_walk_launch", _SAL[pd]))},
+    host_fns={"one_pos_stacks_in_shared": [_ci, _ci],
+              "one_pos_stacks_in_shared64": [_ci, _ci]})
 build = LIB.build            # compile csrc/smem.cu; returns the library path
 
 
 def _fmi_args(fmi: DeviceFMIndex) -> list:
     """The launch arguments every kernel takes first: the checkpoint
-    table and its rows, the C array and the sentinel row."""
-    return [fmi.cp_fused.data_ptr(), fmi.cp_fused.shape[0],
+    table and its rows, the C array and the sentinel row; on the int64
+    layout also the high-word step table and each base's step count."""
+    args = [fmi.cp_fused.data_ptr(), fmi.cp_fused.shape[0],
             *fmi.count_host, fmi.sentinel_index]
+    if fmi.pos_dtype == torch.int64:
+        args += [fmi.cp_hi_steps.data_ptr(), *fmi.hi_counts]
+    return args
+
+
+def _form(fn: str, fmi: DeviceFMIndex) -> str:
+    """The launch function of `fn`'s form for fmi's position dtype."""
+    return fn + _SUFFIX[fmi.pos_dtype]
+
+
+def _count(wrapper, fmi: DeviceFMIndex) -> None:
+    """One launch of `wrapper`'s kernel, in its form's counts."""
+    wrapper.launches += 1
+    wrapper.launches64 += fmi.pos_dtype == torch.int64
+
+
+def _smem_out(n: int, M: int, pos_dtype, dev):
+    """(the kernel's output buffer, SmemBuf's m, n, k, l, s) for n lanes
+    of M slots: [5][n][M] int32 at int32 positions; at int64, m and n
+    [2][n][M] int32 then k, l and s [3][n][M] int64, in one buffer."""
+    if pos_dtype == torch.int32:
+        out = torch.empty((5, n, M), dtype=torch.int32, device=dev)
+        return out, out.unbind(0)
+    nm = n * M
+    out = torch.empty((32 * nm,), dtype=torch.uint8, device=dev)
+    mn = out[:8 * nm].view(torch.int32).view(2, n, M)
+    kls = out[8 * nm:].view(torch.int64).view(3, n, M)
+    return out, (*mn.unbind(0), *kls.unbind(0))
 
 
 def _check(what: str, fmi: DeviceFMIndex, *tensors) -> torch.device:
     """The device of tensors[0]: CUDA, shared by every tensor and fmi's
-    table, or ValueError."""
+    tables, or ValueError."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    if any(t.device != dev for t in (*tensors, fmi.cp_fused)):
+    tables = (fmi.cp_fused, fmi.count) + (
+        () if fmi.cp_hi_steps is None else (fmi.cp_hi_steps,))
+    if any(t.device != dev for t in (*tensors, *tables)):
         raise ValueError(f"{what}: tensors on different devices")
+    if fmi.pos_dtype not in _SUFFIX:
+        raise ValueError(f"{what}: positions of {fmi.pos_dtype}")
     return dev
 
 
@@ -111,7 +157,7 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
                                  for t in (t_x, t_mi, t_valid)):
         raise ValueError("one_pos_machine_cuda: task or read counts differ")
     i32 = torch.int32
-    out = torch.empty((5, T, max_out), dtype=i32, device=dev)
+    out, fields = _smem_out(T, max_out, fmi.pos_dtype, dev)
     cnt = torch.empty((T,), dtype=i32, device=dev)
     steps = torch.empty((T,), dtype=i32, device=dev)
     rounds = torch.empty((T,), dtype=i32, device=dev)
@@ -121,26 +167,31 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
                 t_mi.to(i32).contiguous(),
                 t_valid.to(torch.bool).contiguous()]
         # the stacks in each warp's shared memory, or past 227 KB a scratch
-        stk = (None if LIB.call("one_pos_stacks_in_shared", L, SD) else
-               torch.empty((T, 2, SD + 1, 4), dtype=i32, device=dev))
-        LIB.launch(dev, "one_pos_launch", *_fmi_args(fmi), args[0].data_ptr(),
+        # (entries of 16 bytes, 32 at int64)
+        stk = (None if LIB.call(_form("one_pos_stacks_in_shared", fmi), L, SD)
+               else torch.empty((T, 2, SD + 1, 4 * fmi.pos_dtype.itemsize),
+                                dtype=torch.uint8, device=dev))
+        LIB.launch(dev, _form("one_pos_launch", fmi), *_fmi_args(fmi),
+                   args[0].data_ptr(),
                    args[1].data_ptr(), B, L,
                    *(a.data_ptr() for a in args[2:]), T, int(chain_restarts),
                    min_seed_len, max_out, SD,
                    None if stk is None else stk.data_ptr(), out.data_ptr(),
                    cnt.data_ptr(), steps.data_ptr(), rounds.data_ptr())
-        one_pos_machine_cuda.launches += 1
+        _count(one_pos_machine_cuda, fmi)
         if stats is not None:
             for what, per_task in (("steps", steps), ("rounds", rounds)):
                 key = stats_key.replace("ticks", what)
                 stats[key] = stats.get(key, 0) + per_task.max()
     one_pos_machine_cuda.last_steps = steps
     one_pos_machine_cuda.last_rounds = rounds
-    return SmemBuf(*out.unbind(0), cnt)
+    return SmemBuf(*fields, cnt)
 
 
-# kernel launches since the last reset (main-path proof in chip_smoke.py)
+# kernel launches since the last reset (main-path proof in chip_smoke.py):
+# all, and the int64 form's
 one_pos_machine_cuda.launches = 0
+one_pos_machine_cuda.launches64 = 0
 # the per-task ext calls and dependent occ round trips of the last call
 # ([T] int32 each, on its device)
 one_pos_machine_cuda.last_steps = None
@@ -165,30 +216,33 @@ def seed_strategy_machine_cuda(fmi: DeviceFMIndex, codes, lens,
     if lens.shape != (B,):
         raise ValueError("seed_strategy_machine_cuda: read counts differ")
     i32 = torch.int32
-    out = torch.empty((5, B, max_out), dtype=i32, device=dev)
+    out, fields = _smem_out(B, max_out, fmi.pos_dtype, dev)
     cnt = torch.empty((B,), dtype=i32, device=dev)
     steps = torch.empty((B,), dtype=i32, device=dev)
     if B:
         c, ln = codes.contiguous(), lens.contiguous()
-        LIB.launch(dev, "seed_strategy_launch", *_fmi_args(fmi), c.data_ptr(),
-                   ln.data_ptr(), B, L, int(max_intv), min_seed_len, max_out,
-                   0, out.data_ptr(), cnt.data_ptr(), steps.data_ptr())
-        seed_strategy_machine_cuda.launches += 1
+        LIB.launch(dev, _form("seed_strategy_launch", fmi), *_fmi_args(fmi),
+                   c.data_ptr(), ln.data_ptr(), B, L, int(max_intv),
+                   min_seed_len, max_out, 0, out.data_ptr(), cnt.data_ptr(),
+                   steps.data_ptr())
+        _count(seed_strategy_machine_cuda, fmi)
         if stats is not None:
             stats["seed_steps_p3"] = (stats.get("seed_steps_p3", 0)
                                       + steps.max())
     seed_strategy_machine_cuda.last_steps = steps
-    return SmemBuf(*out.unbind(0), cnt)
+    return SmemBuf(*fields, cnt)
 
 
 seed_strategy_machine_cuda.launches = 0
+seed_strategy_machine_cuda.launches64 = 0
 seed_strategy_machine_cuda.last_steps = None     # [B] int32, on its device
 
 
 def sa_walk_cuda(fmi: DeviceFMIndex, pos: torch.Tensor,
                  valid: torch.Tensor, stats: dict = None) -> torch.Tensor:
     """Drop-in for ``sa_lookup_plain`` (equal values): SA[pos] for BWT
-    rows pos [...] where valid [...] (0 elsewhere). On CPU tensors the
+    rows pos [...] where valid [...] (0 elsewhere), values and walk at
+    fmi's position dtype. On CPU tensors the
     plain version, with the lockstep's ``sal_ticks`` in `stats`. On CUDA
     tensors, with fmi.sa_compx in [1, 30], one launch of sa_walk_kernel:
     keeps ``last_steps`` (each lane's walk iterations, one dependent row
@@ -201,20 +255,22 @@ def sa_walk_cuda(fmi: DeviceFMIndex, pos: torch.Tensor,
     if not 1 <= fmi.sa_compx <= 30:
         raise ValueError(f"sa_walk_cuda: sa_compx {fmi.sa_compx} has no "
                          f"walk (0 is a single gather)")
-    if valid.shape != pos.shape or fmi.sa_samples.dtype != torch.int32:
+    pd = fmi.pos_dtype
+    if valid.shape != pos.shape or fmi.sa_samples.dtype != pd:
         raise ValueError("sa_walk_cuda: valid's shape differs from pos's, "
-                         "or the SA samples are not int32")
-    p = pos.reshape(-1).to(torch.int32).contiguous()
+                         "or the SA samples' dtype from the positions'")
+    p = pos.reshape(-1).to(pd).contiguous()
     v = valid.reshape(-1).to(torch.bool).contiguous()
     samples = fmi.sa_samples.contiguous()
     N = p.shape[0]
-    out = torch.empty((N,), dtype=torch.int32, device=dev)
+    out = torch.empty((N,), dtype=pd, device=dev)
     steps = torch.empty((N,), dtype=torch.int32, device=dev)
     if N:
-        LIB.launch(dev, "sa_walk_launch", *_fmi_args(fmi), samples.data_ptr(),
-                samples.shape[0], fmi.sa_compx, p.data_ptr(), v.data_ptr(),
-                N, out.data_ptr(), steps.data_ptr())
-        sa_walk_cuda.launches += 1
+        LIB.launch(dev, _form("sa_walk_launch", fmi), *_fmi_args(fmi),
+                   samples.data_ptr(), samples.shape[0], fmi.sa_compx,
+                   p.data_ptr(), v.data_ptr(), N, out.data_ptr(),
+                   steps.data_ptr())
+        _count(sa_walk_cuda, fmi)
         if stats is not None:
             stats["sal_steps"] = stats.get("sal_steps", 0) + steps.max()
     sa_walk_cuda.last_steps = steps
@@ -222,23 +278,43 @@ def sa_walk_cuda(fmi: DeviceFMIndex, pos: torch.Tensor,
 
 
 sa_walk_cuda.launches = 0
+sa_walk_cuda.launches64 = 0
 sa_walk_cuda.last_steps = None                   # [N] int32, on its device
+
+
+def twin_tables(fmi: DeviceFMIndex) -> tuple:
+    """(count, cp_fused, sentinel_index) of fmi as the twins take them
+    first, then their ``hi_steps`` keyword: the int64 layout's step table,
+    or None."""
+    steps = fmi.cp_hi_steps
+    return (fmi.count.cpu().numpy(), fmi.cp_fused.cpu().numpy(),
+            fmi.sentinel_index,
+            None if steps is None else steps.cpu().numpy())
 
 
 class _TwinFmi:
     """The kernels' checkpoint-occ step on numpy arrays (csrc/smem.cu's
-    cp_row, occ4 and ext, with their clamps), for the twins."""
+    cp_row, occ4 and ext, with their clamps), for the twins; with
+    `hi_steps` (the int64 layout) a row's counts are its low words plus
+    each base's high word from the step table, as the int64 forms decode
+    them."""
 
-    def __init__(self, count, cp_fused, sentinel_index: int):
+    def __init__(self, count, cp_fused, sentinel_index: int, hi_steps=None):
         self.count = [int(v) for v in count]
         self.cp = np.asarray(cp_fused, np.int64)
         self.sentinel = int(sentinel_index)
+        self.hi = (None if hi_steps is None else
+                   [[int(v) for v in row] for row in np.asarray(hi_steps)])
 
     def row(self, pp: int):
         """(counts, masks as unsigned ints, y) of position pp's row."""
-        r = self.cp[min(max(pp >> 5, 0), self.cp.shape[0] - 1)]
-        return ([int(v) for v in r[:4]],
-                [int(v) & 0xFFFFFFFF for v in r[4:]], pp & 31)
+        blk = min(max(pp >> 5, 0), self.cp.shape[0] - 1)
+        r = self.cp[blk]
+        cnt = [int(v) for v in r[:4]]
+        if self.hi is not None:
+            cnt = [(v & 0xFFFFFFFF) | (sum(blk >= b for b in steps) << 32)
+                   for v, steps in zip(cnt, self.hi)]
+        return cnt, [int(v) & 0xFFFFFFFF for v in r[4:]], pp & 31
 
     @staticmethod
     def top_bits(y: int) -> int:
@@ -261,22 +337,25 @@ WARP = 32                # a warp's lanes: one backward-round chunk
 
 def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
                  t_x, t_mi, t_valid, chain_restarts: bool,
-                 min_seed_len: int, max_out: int, stack_depth: int = None):
+                 min_seed_len: int, max_out: int, stack_depth: int = None,
+                 hi_steps=None):
     """csrc/smem.cu's one_pos_kernel in plain Python on numpy arrays, one
     task (warp) after another: the serial forward walk, then each
     backward round in chunks of WARP simulated lanes with the kernel's
     ballot-form keep/emit rule and stack slots. Raises AssertionError
     where a round breaks the two orders that rule rests on (along p the
-    new sizes never fall and the entries' ends never rise). Returns
-    (m, n, k, l, s, cnt, steps, rounds) as numpy arrays."""
-    fm = _TwinFmi(count, cp_fused, sentinel_index)
+    new sizes never fall and the entries' ends never rise). With
+    `hi_steps` (``twin_tables``) it is the int64 form. Returns
+    (m, n, k, l, s, cnt, steps, rounds) as numpy arrays, k, l and s int64
+    for the int64 form."""
+    fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
     count, ext = fm.count, fm.ext
     codes = np.asarray(codes)
     B, L = codes.shape
     T = len(t_read)
     SD = stack_depth or L
     M = max_out
-    out = np.zeros((5, T, M), np.int32)
+    out = np.zeros((5, T, M), np.int64)
     cnt_out, steps_out, rounds_out = (np.zeros(T, np.int32) for _ in range(3))
     stk = np.zeros((2, SD + 1, 4), np.int64)     # one warp's stacks
 
@@ -383,21 +462,31 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
                 break
         cnt_out[t] = M + 1 if of else cnt
         steps_out[t], rounds_out[t] = steps, rounds
-    return (*out, cnt_out, steps_out, rounds_out)
+    return (*_smem_fields(out, hi_steps), cnt_out, steps_out, rounds_out)
+
+
+def _smem_fields(out, hi_steps) -> tuple:
+    """A twin's [5, n, M] output as SmemBuf's m, n (int32) and k, l, s
+    (int64 for the int64 form, else int32)."""
+    pd = np.int32 if hi_steps is None else np.int64
+    return (out[0].astype(np.int32), out[1].astype(np.int32),
+            *(o.astype(pd) for o in out[2:]))
 
 
 def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
-                       max_intv: int, min_seed_len: int, max_out: int):
+                       max_intv: int, min_seed_len: int, max_out: int,
+                       hi_steps=None):
     """csrc/smem.cu's seed_strategy_kernel in plain Python on numpy
     arrays, one read after another: the same flat loop of one ext an
-    iteration, its `seek` to the next walk and its clamps. Returns
-    (m, n, k, l, s, cnt, steps) as numpy arrays."""
-    fm = _TwinFmi(count, cp_fused, sentinel_index)
+    iteration, its `seek` to the next walk and its clamps (the int64 form
+    with `hi_steps`). Returns (m, n, k, l, s, cnt, steps) as numpy
+    arrays."""
+    fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
     C = fm.count
     codes = np.asarray(codes)
     B, L = codes.shape
     M = max_out
-    out = np.zeros((5, B, M), np.int32)
+    out = np.zeros((5, B, M), np.int64)
     cnt_out = np.zeros(B, np.int32)
     steps_out = np.zeros(B, np.int32)
     for t in range(B):
@@ -444,21 +533,22 @@ def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
                     live = seek(j + 2)
         cnt_out[t] = cnt
         steps_out[t] = steps
-    return (*out, cnt_out, steps_out)
+    return (*_smem_fields(out, hi_steps), cnt_out, steps_out)
 
 
 def sa_walk_twin(count, cp_fused, sentinel_index: int, sa_samples,
-                 sa_compx: int, pos, valid):
+                 sa_compx: int, pos, valid, hi_steps=None):
     """csrc/smem.cu's sa_walk_kernel in plain Python on numpy arrays: the
     same walk and clamps, one lane after another, over pos [...] and
-    valid [...]. Returns (values [...] int32, steps [N] int32)."""
-    fm = _TwinFmi(count, cp_fused, sentinel_index)
+    valid [...] (the int64 form with `hi_steps`). Returns (values [...]
+    of the samples' dtype, steps [N] int32)."""
+    fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
     samples = np.asarray(sa_samples)
     mask = (1 << sa_compx) - 1
     pos = np.asarray(pos)
-    flat_pos = pos.reshape(-1).astype(np.int32)
+    flat_pos = pos.reshape(-1).astype(samples.dtype)
     flat_valid = np.asarray(valid).reshape(-1)
-    out = np.zeros(flat_pos.shape, np.int32)
+    out = np.zeros(flat_pos.shape, samples.dtype)
     steps_out = np.zeros(flat_pos.shape, np.int32)
     for t in np.flatnonzero(flat_valid):
         sp, offset, steps = int(flat_pos[t]), 0, 0

@@ -11,6 +11,11 @@ the first-hit break, the distinct-s tail and next_x = j on failure of
 getSMEMsOnePosOneThread, src/FMI_search.cpp:1372-1660), so the output
 ``SmemBuf`` is equal array for array.
 
+The machines run at the index's position dtype (``fmi.pos_dtype``): the
+intervals (k, l, s), the interval stacks and the emitted k, l and s are
+int32 or int64 as the JAX machines' are; read positions and counts stay
+int32.
+
 The contract kept: output order, and ``cnt`` forced to the buffer
 width whenever a read overflowed its emission depth, its interval-stack
 depth or the reseed lane budget, so the caller's capacity check sends
@@ -57,19 +62,21 @@ def _sel4(v4: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 class _Emitter:
     """Per-lane append buffers [T, M] plus one trash column: a write past
     the width lands in the trash column and is dropped, while the lane's
-    count still grows (the overflow signal)."""
+    count still grows (the overflow signal). m and n int32, k, l and s
+    of `pos_dtype`."""
 
-    def __init__(self, T: int, M: int, device):
+    def __init__(self, T: int, M: int, device, pos_dtype):
         self.M = M
-        self.bufs = [torch.zeros((T, M + 1), dtype=torch.int32,
-                                 device=device) for _ in range(5)]
+        self.bufs = [torch.zeros((T, M + 1), dtype=dt, device=device)
+                     for dt in (torch.int32, torch.int32, pos_dtype,
+                                pos_dtype, pos_dtype)]
         self.cnt = torch.zeros((T,), dtype=torch.int32, device=device)
         self.lane = torch.arange(T, device=device)
 
     def emit(self, mask, *vals):
         col = torch.where(mask, self.cnt, self.M).clamp(max=self.M).long()
         for buf, v in zip(self.bufs, vals):
-            buf[self.lane, col] = v.to(torch.int32)
+            buf[self.lane, col] = v.to(buf.dtype)
         self.cnt = self.cnt + mask.to(torch.int32)
 
     def result(self, cnt=None) -> SmemBuf:
@@ -111,7 +118,9 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
     t_read = t_read.long().clamp(0, B - 1)
     panel = codes[t_read]                                 # [T, L]
     count = fmi.count
+    pd = fmi.pos_dtype
     i32 = lambda v: torch.full((T,), v, dtype=torch.int32, device=dev)
+    pos = lambda v: torch.full((T,), v, dtype=pd, device=dev)
 
     st = dict(
         phase=i32(P_INIT),
@@ -119,20 +128,20 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
         mi=t_mi.to(torch.int32),
         x=t_x.to(torch.int32),
         nx=t_x.to(torch.int32) + 1,
-        j=i32(0), ck=i32(0), cl=i32(0), cs=i32(0), cn=i32(0),
+        j=i32(0), ck=pos(0), cl=pos(0), cs=pos(0), cn=i32(0),
         of=torch.zeros((T,), dtype=torch.bool, device=dev),
         cntA=i32(0), cntB=i32(0), mA=i32(0), p=i32(0),
         rev=torch.zeros((T,), dtype=torch.bool, device=dev),
-        curr_s=i32(-1),
+        curr_s=pos(-1),
         steps=i32(0),
     )
-    # interval stacks: [2, T, SD+1] per field (k, l, s, n); the A stack
-    # of lane t is buffer wA[t], the B stack the other one; the extra
-    # column takes dropped pushes
-    stk = [torch.zeros((2, T, SD + 1), dtype=torch.int32, device=dev)
-           for _ in range(4)]
+    # interval stacks: [2, T, SD+1] per field (k, l, s of pd, n int32);
+    # the A stack of lane t is buffer wA[t], the B stack the other one;
+    # the extra column takes dropped pushes
+    stk = [torch.zeros((2, T, SD + 1), dtype=dt, device=dev)
+           for dt in (pd, pd, pd, torch.int32)]
     wA = torch.zeros((T,), dtype=torch.long, device=dev)
-    out = _Emitter(T, max_out, dev)
+    out = _Emitter(T, max_out, dev, pd)
 
     def read_a(i):
         ic = i.long().clamp(0, SD - 1)
@@ -297,11 +306,13 @@ def seed_strategy_machine(fmi: DeviceFMIndex, codes, lens, max_intv: int,
     dev = codes.device
     B, L = codes.shape
     count = fmi.count
+    pd = fmi.pos_dtype
     i32 = lambda v: torch.full((B,), v, dtype=torch.int32, device=dev)
-    st = dict(phase=i32(P_INIT), x=i32(0), j=i32(0), ck=i32(0),
-              cl=i32(0), cs=i32(0), steps=i32(0))
+    pos = lambda v: torch.full((B,), v, dtype=pd, device=dev)
+    st = dict(phase=i32(P_INIT), x=i32(0), j=i32(0), ck=pos(0),
+              cl=pos(0), cs=pos(0), steps=i32(0))
     lens_t = lens.to(torch.int32)
-    out = _Emitter(B, max_out, dev)
+    out = _Emitter(B, max_out, dev, pd)
 
     def body():
         phase, x, j = st["phase"], st["x"], st["j"]
@@ -410,7 +421,7 @@ def collect_smems_oh(fmi: DeviceFMIndex, codes, lens, *,
     tmask = ((torch.arange(Me, device=dev)[None, :] < p2t.cnt[:, None])
              & t_valid[:, None])
     p2 = _emit_compact(tmask, p2t.m, p2t.n, p2t.k, p2t.l, p2t.s,
-                       SmemBuf.empty(B, Me, dev), rows=t_read)
+                       SmemBuf.empty(B, Me, dev, fmi.pos_dtype), rows=t_read)
 
     parts = [p1, p2]
     pass_of = p1_of | p2_of | reseed_of

@@ -82,8 +82,10 @@ class PipelineConfig:
     # version for CPU tensors; "plain": the plain version everywhere
     # (the kernel's reference on the card)
     bsw_engine: str = "auto"
-    # per-lane emission / interval-stack depths: "auto" = 24 (the
-    # port has int32-position genomes only); None = read length
+    # per-lane emission / interval-stack depths (None = read length):
+    # "auto" = 24 for an int32-position index and the read length for an
+    # int64 one, forced or not (hg38-class repeat density overflowed 62%
+    # of reads at depth 24 in the JAX package)
     seed_emit_depth: object = "auto"
     seed_stack_depth: object = "auto"
     reseed_factor: int = 2
@@ -123,7 +125,8 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     codes [B, L] int32 and lens [B] int32 on fmi's device. Returns the
     JAX package's output dict: per-pair fields, ``packed [PX, 14]``
     int32 and ``meta [B, 2]`` float32 for the host, and the per-read
-    overflow flags. `stats` collects loop tick counts."""
+    overflow flags. Reference positions run at fmi's position dtype
+    (int64 on its int64 layout). `stats` collects loop tick counts."""
     if cfg.seed_engine != "onehot":
         raise NotImplementedError(
             f"seed engine {cfg.seed_engine!r} is not ported yet "
@@ -136,6 +139,7 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     dev = codes.device
     i32, i64 = torch.int32, torch.int64
     lens = lens.to(i32)
+    auto = 24 if fmi.pos_dtype == i32 else None
     ed, sd = cfg.seed_emit_depth, cfg.seed_stack_depth
     with _stage(prof, "seed"):
         bufs = collect_smems_oh(
@@ -143,8 +147,8 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
             min_seed_len=opt.min_seed_len, split_len=opt.split_len,
             split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
             max_out=cfg.max_smem_out or L,
-            emit_depth=24 if ed == "auto" else ed,
-            stack_depth=24 if sd == "auto" else sd,
+            emit_depth=auto if ed == "auto" else ed,
+            stack_depth=auto if sd == "auto" else sd,
             reseed_factor=cfg.reseed_factor, stats=stats)
     with _stage(prof, "sal"):
         rbeg, seed_idx, coord_valid, total, coord_of = expand_and_lookup(
@@ -336,13 +340,13 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     inside = (seed_live[p_read, p_slot]
               & (ch_q >= qb[:, None]) & (ch_q + ch_l <= qe_f[:, None])
               & (ch_r >= rb[:, None]) & (ch_r + ch_l <= re_f[:, None]))
-    seedcov = torch.where(inside, ch_l, 0).sum(1, dtype=i32)
+    seedcov = torch.where(inside, ch_l, 0).sum(1, dtype=i64)
 
     # one int32 matrix with every per-pair field the host needs (int64
     # reference positions split into 31-bit halves)
     packed = torch.stack(
         [p_valid.to(i32), p_read.to(i32), qb.to(i32), qe_f.to(i32),
-         score_f.to(i32), truesc.to(i32), a_w.to(i32), seedcov,
+         score_f.to(i32), truesc.to(i32), a_w.to(i32), seedcov.to(i32),
          p_rid.to(i32), p_len.to(i32),
          (rb & 0x7FFFFFFF).to(i32), (rb >> 31).to(i32),
          (re_f & 0x7FFFFFFF).to(i32), (re_f >> 31).to(i32)], dim=1)
@@ -352,7 +356,7 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     meta = torch.stack([frac_rep.to(torch.float32),
                         read_overflow.to(torch.float32)], dim=1)
     return dict(
-        valid=p_valid, read=p_read, qb=qb, qe=qe_f, rb=rb, re=re_f,
+        valid=p_valid, read=p_read.to(i32), qb=qb, qe=qe_f, rb=rb, re=re_f,
         score=score_f, truesc=truesc, w=a_w, seedcov=seedcov, rid=p_rid,
         seedlen0=p_len, frac_rep=frac_rep, packed=packed, meta=meta,
         read_overflow=read_overflow, smem_cnt=bufs.cnt, coord_total=total,
@@ -379,6 +383,12 @@ class GpuAligner:
         self.device = torch.device(device)
         self.opt = opt or MemOptions()
         self.cfg = cfg or PipelineConfig(seed_engine="onehot")
+        if not idx.pos_fits_int32:
+            # hg38-class repeat density overflows ~20% of a batch (the
+            # JAX package's measure): retries are a volume path there,
+            # served in few wide batches
+            self.RETRY_BATCH = 512
+            self.RETRY2_BATCH = 16
         self.fmi = DeviceFMIndex.from_host(idx, self.device)
         self.dbns = DeviceBns.from_host(idx.bns, self.device)
         self.emf = emf               # host EMF table (probed on host)

@@ -83,8 +83,25 @@ Phases, in order; any failure exits non-zero:
               median |TLEN| of proper pairs within 5% of 300; reads/s and
               the host PE stage's seconds beside the device stages'; the
               stage seconds of a second run with `-v 4`.
+  8. int64:   the int64-position layout (ops/occ.py), forced as the tests
+              force it: phase 4's SE `mem` again, its SAM body byte-equal
+              to phase 4's, each FM-walk and chaining kernel's int64 form
+              launched at least once a device batch (passes 1-2 twice)
+              and no int32 form, reads/s and `-v 4` stage seconds beside
+              phase 4's; phase 5's batch and the repeat batch through
+              seed_chain_extend at the int64 layout (packed and meta equal
+              to the int32 layout's at the same depth), each int64 launch
+              as made against its plain version (max_abs_err 0) with its
+              bound and latency floor, and timed beside the int32 form on
+              the same inputs; the SA walk on samples + 2^33, pass 3 on a
+              table whose counts are + 2^32, passes 1-3 and the SA walk
+              with a non-empty high-word step table, chaining on the batch
+              moved to two 3.1 Gbp genomes (positions past 2^31, reverse
+              ones past 2^32, a seed over the strands' junction), each
+              against its plain version; the layout's device bytes and
+              hg38's, reckoned.
 
-Prints the kernel JSON line (all fourteen kernels, each with its bound: the
+Prints the kernel JSON line (all nineteen kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -92,6 +109,7 @@ function where there is one), then as its last line
 Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -415,7 +433,8 @@ def phase_mem(dev, card, tmp):
         f" seed {sec['seed']:.3f}, sal {sec['sal']:.3f}, chain "
         f"{sec['chain']:.3f}, bsw {sec['bsw']:.3f}  [{card}]")
     first = np.flatnonzero(~emf_hit)[:BATCH]
-    return launches, al, codes[first], lens[first]
+    se = dict(argv=mem_argv, wall=wall, batches=al.batches, seconds=dict(sec))
+    return launches, al, codes[first], lens[first], se
 
 
 def phase_slice(dev, card, al, codes, lens):
@@ -570,9 +589,10 @@ def log_walk(card, what, r, detail):
 
 def smem_launch(dev, card, n, args, batch="the batch"):
     """One SMEM passes 1-2 launch against the plain machine, with its
-    bound: the inputs, 64 bytes and 45 operations a step, the outputs
-    (not the per-lane steps and rounds, which only instrument the run);
-    its latency floor from the longest task's rounds."""
+    bound: the inputs, 64 bytes and 45 operations a step, the outputs (m
+    and n 4 bytes, k, l and s the positions' 4 or 8; not the per-lane
+    steps and rounds, which only instrument the run); its latency floor
+    from the longest task's rounds."""
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import one_pos_machine_cuda
     from bwa_mem_scale_tpu_torch.ops.smem_oh import one_pos_machine
     args = args[:11]                           # without stats
@@ -580,8 +600,10 @@ def smem_launch(dev, card, n, args, batch="the batch"):
     _, r = walk_launch(dev, what, one_pos_machine_cuda, one_pos_machine,
                        args, 1)
     codes, T, M = args[1], args[3].shape[0], args[9]
+    pb = args[0].pos_dtype.itemsize
     nbytes = (4 * (codes.numel() + codes.shape[0] + 3 * T) + T
-              + SMEM_BYTES_PER_STEP * r["steps"] + 4 * (5 * T * M + T))
+              + SMEM_BYTES_PER_STEP * r["steps"] + (8 + 3 * pb) * T * M
+              + 4 * T)
     r["bound"] = bound(nbytes, SMEM_OPS_PER_STEP * r["steps"])
     log_walk(card, f"{what} (pass {n + 1}: T={T}, {int(args[6].sum())} "
              f"valid tasks, B={codes.shape[0]}, L={codes.shape[1]}, "
@@ -593,8 +615,9 @@ def smem_launch(dev, card, n, args, batch="the batch"):
 def seed_strategy_launch(dev, card, args, batch="the batch"):
     """A pass-3 launch against the plain machine, with its bound: the
     inputs, 64 bytes and 45 operations a step (the same occ step as
-    passes 1-2), the outputs (not the per-lane steps); one ext an
-    iteration, so its rounds are its steps."""
+    passes 1-2), the outputs (k, l and s at the positions' width; not the
+    per-lane steps); one ext an iteration, so its rounds are its
+    steps."""
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
         seed_strategy_machine_cuda)
     from bwa_mem_scale_tpu_torch.ops.smem_oh import seed_strategy_machine
@@ -604,8 +627,9 @@ def seed_strategy_launch(dev, card, args, batch="the batch"):
                          seed_strategy_machine, args, 1)
     codes, M = args[1], args[5]
     B = codes.shape[0]
+    pb = args[0].pos_dtype.itemsize
     nbytes = (4 * (codes.numel() + B) + SMEM_BYTES_PER_STEP * r["steps"]
-              + 4 * (5 * B * M + B))
+              + (8 + 3 * pb) * B * M + 4 * B)
     r["bound"] = bound(nbytes, SMEM_OPS_PER_STEP * r["steps"])
     log_walk(card, f"{what} (B={B}, L={codes.shape[1]}, max_intv="
              f"{args[3]}, min_seed_len={args[4]}, max_out={M})", r,
@@ -613,25 +637,25 @@ def seed_strategy_launch(dev, card, args, batch="the batch"):
     return r
 
 
-def sal_launch(dev, card, args):
+def sal_launch(dev, card, args, batch="the batch"):
     """The batch's SA-walk launch against the plain walk, with its bound:
     a 32-byte row and 27 operations an iteration, except each valid
-    lane's last, a 4-byte sample (a lane that ends on the sentinel row
-    loads a row instead, which keeps this a lower bound); pos of the
-    valid lanes (a prefix of the flat list), valid and the values once
-    each, not the per-lane steps."""
+    lane's last, a sample of the positions' 4 or 8 bytes (a lane that
+    ends on the sentinel row loads a row instead, which keeps this a
+    lower bound); pos of the valid lanes (a prefix of the flat list),
+    valid and the values once each, not the per-lane steps."""
     from bwa_mem_scale_tpu_torch.ops.sal import sa_lookup_plain
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import sa_walk_cuda
     args = args[:3]                            # without stats
-    got, r = walk_launch(dev, "SA-walk launch", sa_walk_cuda,
-                         sa_lookup_plain, args, 2)
+    what = f"SA-walk launch, {batch}"
+    got, r = walk_launch(dev, what, sa_walk_cuda, sa_lookup_plain, args, 2)
     N, n_valid = got.numel(), int(args[2].sum())
-    nbytes = (SAL_ROW_BYTES * (r["steps"] - n_valid) + 4 * n_valid
-              + 4 * n_valid + (1 + 4) * N)
+    pb = args[0].pos_dtype.itemsize
+    nbytes = (SAL_ROW_BYTES * (r["steps"] - n_valid) + pb * n_valid
+              + pb * n_valid + (1 + pb) * N)
     r["bound"] = bound(nbytes, SAL_OPS_PER_STEP * r["steps"])
-    log_walk(card, f"SA-walk launch (N={N} lanes, {n_valid} valid, "
-             f"sa_compx {args[0].sa_compx})", r,
-             f"{r['steps']} iterations")
+    log_walk(card, f"{what} (N={N} lanes, {n_valid} valid, sa_compx "
+             f"{args[0].sa_compx})", r, f"{r['steps']} iterations")
     return r
 
 
@@ -640,7 +664,8 @@ def chain_seeds_launch(dev, card, args, kw, batch="the batch"):
     the coordinate prefix (rbeg, seed_idx, and coord_valid up to each
     read's first invalid entry), the SMEM rows it names (m, n), the
     contig offsets, and every output once, the [4, B, C, S] seed planes
-    included (not the per-read steps and rounds), against
+    included (rbeg, its plane and the keys at the positions' 4 or 8
+    bytes; not the per-read steps and rounds), against
     CHAIN_OPS_PER_COORD a coordinate; latency floor: the longest read's
     rounds x the measured cost of a round (tools/round_cost.py)."""
     import torch
@@ -658,8 +683,10 @@ def chain_seeds_launch(dev, card, args, kw, batch="the batch"):
     n_rows = int(torch.unique(rows[coord_valid]).numel())
     n_coord = int(total.sum())
     n_ended = int((total < NC).sum())     # reads whose walk reads a false
-    nbytes = (9 * n_coord + n_ended + 8 * n_rows + 8 * bns.offsets.numel()
-              + 16 * B * C + 16 * B * C * S + 5 * B)
+    pb = rbeg.element_size()
+    nbytes = ((5 + pb) * n_coord + n_ended + 8 * n_rows
+              + 8 * bns.offsets.numel() + (12 + pb) * B * C
+              + (12 + pb) * B * C * S + 5 * B)
     r["bound"] = bound(nbytes, CHAIN_OPS_PER_COORD * n_coord)
     r["floor"] = r["longest_rounds"] * per_round * 1e-3
     r.update(coords=n_coord, chains=int(got.n.sum()),
@@ -681,10 +708,10 @@ def chain_seeds_launch(dev, card, args, kw, batch="the batch"):
 def chain_filter_launch(dev, card, args, kw, batch="the batch"):
     """A chain_filter launch as made, against chain_filter_frac_rep, with
     its bound: the chain count, the live slots' rid and seed count, their
-    seeds (qbeg, rbeg, len), the is_alt entries of their contigs, the
-    frac_rep scan's reads (s of every SMEM, m and n of those over
-    max_occ), cnt, lens, and the outputs (order, kept, w_by_slot,
-    frac_rep); operations FLT_OPS_PER_* a seed, overlap test, SMEM and
+    seeds (qbeg, rbeg, len; rbeg at the positions' 4 or 8 bytes), the
+    is_alt entries of their contigs, the frac_rep scan's reads (s of
+    every SMEM at the positions' width, m and n of those over max_occ),
+    cnt, lens, and the outputs (order, kept, w_by_slot, frac_rep); operations FLT_OPS_PER_* a seed, overlap test, SMEM and
     SMEM over max_occ; latency floor: the longest read's rounds x
     the measured cost of a round (tools/round_cost.py)."""
     import torch
@@ -707,7 +734,8 @@ def chain_filter_launch(dev, card, args, kw, batch="the batch"):
     n_smem = int(scanned.sum())
     n_rep = int((scanned & (smems.s > kw["max_occ"])).sum())
     tests = r["steps"] - n_live
-    nbytes = (4 * B + 8 * n_live + 12 * n_seeds + n_alt + 4 * n_smem
+    pb = ch.seed_rbeg.element_size()
+    nbytes = (4 * B + 8 * n_live + (8 + pb) * n_seeds + n_alt + pb * n_smem
               + 8 * n_rep + 8 * B + 12 * B * C + 4 * B)
     r["bound"] = bound(nbytes, FLT_OPS_PER_SEED * n_seeds
                        + FLT_OPS_PER_TEST * tests + FLT_OPS_PER_SMEM * n_smem
@@ -1002,6 +1030,355 @@ def phase_pe(dev, card, tmp):
     return launches
 
 
+# the int64 forms of the FM-walk and chaining kernels (phase 8): name,
+# source, and the JAX loop each replaces at pos_dtype int64
+INT64_FORMS = (
+    ("one_pos_machine", "csrc/smem.cu",
+     "bwa_mem_scale_tpu/ops/smem_oh.py:174"),
+    ("seed_strategy_machine", "csrc/smem.cu",
+     "bwa_mem_scale_tpu/ops/smem_oh.py:619"),
+    ("sa_walk", "csrc/smem.cu", "bwa_mem_scale_tpu/ops/sal.py:23"),
+    ("chain_seeds", "csrc/chain.cu", "bwa_mem_scale_tpu/ops/chain.py:78"),
+    ("chain_filter", "csrc/chain.cu", "bwa_mem_scale_tpu/ops/chain.py:299"))
+# hg38 for the memory reckoning: 3.1e9 forward bases (GRCh38's primary
+# assembly), the index's SA sampled 1 in 2^3 (`index`'s default sa_compx)
+HG38_L_PAC = 3_100_000_000
+HG38_SA_COMPX = 3
+
+
+@contextlib.contextmanager
+def forced_int64():
+    """DeviceFMIndex.from_host takes the int64 layout (force_int64) for
+    every caller, the CLI's GpuAligner included, as the tests force it."""
+    from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    real = DeviceFMIndex.__dict__["from_host"]
+    DeviceFMIndex.from_host = classmethod(
+        lambda cls, idx, device, force_int64=False:
+        real.__func__(cls, idx, device, True))
+    try:
+        yield
+    finally:
+        DeviceFMIndex.from_host = real
+
+
+def int64_wrappers():
+    """{kernel name: wrapper} of the five kernels with an int64 form."""
+    from bwa_mem_scale_tpu_torch.ops import chain_cuda, smem_cuda
+    return {"one_pos_machine": smem_cuda.one_pos_machine_cuda,
+            "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
+            "sa_walk": smem_cuda.sa_walk_cuda,
+            "chain_seeds": chain_cuda.chain_seeds_cuda,
+            "chain_filter": chain_cuda.chain_filter_cuda}
+
+
+def as_int32(v, fmi32):
+    """An int64-form call's argument at int32: the index's int32 layout,
+    SmemBuf's k, l and s, Chains' key and rbeg plane, and any int64 tensor
+    as int32 (the same values: the genome's positions fit int32)."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops.chain import Chains
+    from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    from bwa_mem_scale_tpu_torch.ops.smem import SmemBuf
+    if isinstance(v, DeviceFMIndex):
+        return fmi32
+    if isinstance(v, (SmemBuf, Chains)):
+        return type(v)(*(as_int32(t, fmi32) for t in v))
+    if isinstance(v, torch.Tensor) and v.dtype == torch.int64:
+        return v.to(torch.int32)
+    return v
+
+
+def int64_batch(dev, card, al, fmi64, fmi32, dbns, c, ln, batch):
+    """One batch through seed_chain_extend at the int64 layout, every
+    FM-walk and chaining call recorded: packed and meta equal to the int32
+    layout's at the same seeding depth (the read length, int64's "auto");
+    then each call, as made, against its plain version with its steps,
+    bound and floor (the phase 5 functions), and timed beside the int32
+    form on the same inputs at int32. Returns ({kernel name: the first
+    call's numbers}, the calls)."""
+    import dataclasses
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import sal, smem_oh
+    from bwa_mem_scale_tpu_torch.pipeline import align
+    real = {(smem_oh, "one_pos_machine_cuda"): smem_oh.one_pos_machine_cuda,
+            (smem_oh, "seed_strategy_machine_cuda"):
+                smem_oh.seed_strategy_machine_cuda,
+            (sal, "sa_walk_cuda"): sal.sa_walk_cuda,
+            (align, "chain_seeds_cuda"): align.chain_seeds_cuda,
+            (align, "chain_filter_cuda"): align.chain_filter_cuda}
+    calls = {name: [] for _, name in real}
+
+    def recorder(name, fn):
+        def record(*args, **kw):
+            calls[name].append((args, kw))
+            return fn(*args, **kw)
+        return record
+
+    for (mod, name), fn in real.items():
+        setattr(mod, name, recorder(name, fn))
+    try:
+        out64 = align.seed_chain_extend(fmi64, dbns, c, ln, READ_LEN,
+                                        opt=al.opt, cfg=al.cfg)
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    cfg_l = dataclasses.replace(al.cfg, seed_emit_depth=None,
+                                seed_stack_depth=None)
+    out32 = align.seed_chain_extend(fmi32, dbns, c, ln, READ_LEN,
+                                    opt=al.opt, cfg=cfg_l)
+    torch.cuda.synchronize()
+    for key in ("packed", "meta"):
+        if not torch.equal(out64[key], out32[key]):
+            raise SystemExit(f"int64: {batch}: {key} differs from the int32 "
+                             f"layout's")
+    want = {"one_pos_machine_cuda": 2, "seed_strategy_machine_cuda": 1,
+            "sa_walk_cuda": 1, "chain_seeds_cuda": 1, "chain_filter_cuda": 1}
+    if any(len(calls[k]) != n for k, n in want.items()):
+        raise SystemExit(f"int64: {batch} calls "
+                         f"{ {k: len(v) for k, v in calls.items()} }")
+    label = f"{batch}, int64 form"
+    res = {"one_pos_machine": [smem_launch(dev, card, n, args, batch=label)
+                               for n, (args, _) in
+                               enumerate(calls["one_pos_machine_cuda"])],
+           "seed_strategy_machine": seed_strategy_launch(
+               dev, card, calls["seed_strategy_machine_cuda"][0][0],
+               batch=label),
+           "sa_walk": sal_launch(dev, card, calls["sa_walk_cuda"][0][0],
+                                 batch=label),
+           "chain_seeds": chain_seeds_launch(
+               dev, card, *calls["chain_seeds_cuda"][0], batch=label),
+           "chain_filter": chain_filter_launch(
+               dev, card, *calls["chain_filter_cuda"][0], batch=label)}
+    n_args = {"one_pos_machine": 11, "seed_strategy_machine": 6,
+              "sa_walk": 3}
+    for name, wrapper in int64_wrappers().items():
+        for n, (args, kw) in enumerate(calls[wrapper.__name__]):
+            args = args[:n_args.get(name, len(args))]
+            kw = {k: v for k, v in kw.items() if k != "stats"}
+            a32 = [as_int32(a, fmi32) for a in args]
+            ms32 = device_ms(lambda: wrapper(*a32, **kw), 20, dev)
+            r = (res[name][n] if name == "one_pos_machine" else res[name])
+            r["ms32"] = ms32
+            log(f"[int64] {name} launch {n + 1}, {batch}: int64 form "
+                f"{r['ms']:.5f} ms, int32 form on the same inputs "
+                f"{ms32:.5f} ms ({r['ms'] / ms32:.2f}x); bound "
+                f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, latency floor "
+                f"{r['floor']:.5f} ms  [{card}]")
+    res["one_pos_machine"] = res["one_pos_machine"][0]
+    return res, calls
+
+
+def int64_large_values(dev, card, fmi64, idx, calls):
+    """Phase 8's values past 2^31 and 2^32 on phase 5's batch: the SA walk
+    on samples lifted by 2^33; pass 3 on the lifted table (every count
+    + 2^32: intervals past 2^32, rows read at clamped indices); passes 1-2
+    with a step table whose steps lie past the last row (the decode loop
+    runs, the counts stay true; on the lifted table passes 1-2's warp form
+    is not the lockstep's function, since its keep rule rests on orders
+    only an FM index keeps); chaining on the batch moved to two 3.1 Gbp
+    genomes (MOVES), a seed over the strands' junction added. Each kernel
+    against its plain version, exact."""
+    import dataclasses
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import chain, occ, sal, smem_cuda
+    from bwa_mem_scale_tpu_torch.ops import chain_cuda, smem_oh
+
+    def same(what, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if not torch.equal(a, b)]
+        if bad:
+            raise SystemExit(f"int64: {what}: kernel != plain in {bad}")
+
+    _, pos, valid = calls["sa_walk_cuda"][0][0][:3]
+    up = dataclasses.replace(fmi64, sa_samples=fmi64.sa_samples + (1 << 33))
+    got = smem_cuda.sa_walk_cuda(up, pos, valid)
+    same("SA walk on samples + 2^33", got, sal.sa_lookup_plain(up, pos,
+                                                                valid))
+    base = smem_cuda.sa_walk_cuda(fmi64, pos, valid)
+    lifted = got >= (1 << 33)
+    if not (torch.equal(got[lifted] - (1 << 33), base[lifted])
+            and torch.equal(got[~lifted], base[~lifted])):
+        raise SystemExit("int64: the lifted samples' walk is not the walk's "
+                         "values + 2^33")
+    log(f"[int64] SA walk on samples + 2^33: equal to the plain walk; "
+        f"{int(lifted.sum())} of {int(valid.sum())} valid lanes past 2^33 "
+        f"(max {int(got.max())}), each the int32 walk's value + 2^33")
+
+    cnt = np.asarray(idx.cp_count, np.int64) + (1 << 32)
+    fl = occ.DeviceFMIndex.from_host(dataclasses.replace(idx, cp_count=cnt),
+                                     dev, force_int64=True)
+    args = calls["seed_strategy_machine_cuda"][0][0]
+    a = (fl, *args[1:3], (1 << 31) - 1, 2, READ_LEN)
+    got = smem_cuda.seed_strategy_machine_cuda(*a)
+    same("pass 3 on the lifted table", got, smem_oh.seed_strategy_machine(*a))
+    if not torch.equal(smem_cuda.seed_strategy_machine_cuda.last_steps,
+                       smem_oh.seed_strategy_machine.last_steps):
+        raise SystemExit("int64: pass 3 on the lifted table: steps differ")
+    log(f"[int64] pass 3 on the lifted table (counts + 2^32, max_intv 2^31 - 1, "
+        f"min_seed_len 2): equal to the plain machine, steps too; "
+        f"{int(got.cnt.sum())} seeds, k up to {int(got.k.max())}, l up to "
+        f"{int(got.l.max())}")
+
+    steps = torch.full_like(fmi64.cp_hi_steps, occ.NO_STEP)
+    steps[:, 0] = fmi64.cp_fused.shape[0] + 5
+    fs = dataclasses.replace(fmi64, cp_hi_steps=steps, hi_counts=[1] * 4)
+    for n, (args, _) in enumerate(calls["one_pos_machine_cuda"]):
+        a = (fs, *args[1:11])
+        same(f"pass {n + 1} with a step table",
+             smem_cuda.one_pos_machine_cuda(*a), smem_oh.one_pos_machine(*a))
+    a = (fs, *calls["seed_strategy_machine_cuda"][0][0][1:6])
+    same("pass 3 with a step table", smem_cuda.seed_strategy_machine_cuda(*a),
+         smem_oh.seed_strategy_machine(*a))
+    same("SA walk with a step table", smem_cuda.sa_walk_cuda(fs, pos, valid),
+         sal.sa_lookup_plain(fs, pos, valid))
+    log("[int64] passes 1-3 and the SA walk with a step of every base past "
+        "the last row (the decode loop run, one load a step): equal to the "
+        "plain versions")
+
+    (bns, smems, rbeg, seed_idx, valid_c), kw = calls["chain_seeds_cuda"][0]
+    kw = {k: v for k, v in kw.items() if k != "stats"}
+    (_, _, _, lens), fkw = calls["chain_filter_cuda"][0]
+    fkw = {k: v for k, v in fkw.items() if k != "stats"}
+    l_pac = bns.l_pac
+    for move, (d0, d1) in (("fw", (HG38_L_PAC - l_pac, 0)),
+                           ("rc", (1_000_000_000,
+                                   HG38_L_PAC - 1_000_000_000 - l_pac))):
+        def moved(p):
+            return p + torch.where(p < l_pac, d0, d0 + 2 * d1)
+        lp = l_pac + d0 + d1
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+        off = [zero, bns.offsets + d0] + ([zero + l_pac + d0] if d1 else [])
+        alt = torch.zeros(len(bns.is_alt) + 1 + (1 if d1 else 0),
+                          dtype=torch.bool, device=dev)
+        alt[1:1 + len(bns.is_alt)] = bns.is_alt
+        mb = chain.DeviceBns(offsets=torch.cat(off), is_alt=alt, l_pac=lp)
+        rb = moved(rbeg)
+        rb[0, 0] = lp - 10                     # a seed over the junction
+        valid_c = valid_c.clone()
+        valid_c[0, 0] = True
+        si = int(seed_idx[0, 0])
+        bridges = int(smems.n[0, si] - smems.m[0, si]) + 1 > 10
+        got = chain_cuda.chain_seeds_cuda(mb, smems, rb, seed_idx, valid_c,
+                                          **kw)
+        want = chain.chain_seeds_device(mb, smems, rb, seed_idx, valid_c,
+                                        **kw)
+        same(f"chain_seeds at 3.1 Gbp ({move})", tuple(got), tuple(want))
+        ref = chain_cuda.chain_seeds_cuda(bns, smems, rbeg, seed_idx,
+                                          valid_c, **kw)
+        live = (torch.arange(ref.key.shape[1], device=dev)[None, :]
+                < ref.n[:, None])
+        live[0] = False                        # read 0 took the junction seed
+        if not torch.equal(got.key[live], moved(ref.key[live])):
+            raise SystemExit(f"int64: chains at 3.1 Gbp ({move}) are not the "
+                             f"batch's, moved")
+        same(f"chain_filter at 3.1 Gbp ({move})",
+             chain_cuda.chain_filter_cuda(got, mb, smems, lens, **fkw),
+             chain.chain_filter_frac_rep(got, mb, smems, lens, **fkw))
+        seeded = got.seed_len > 0
+        log(f"[int64] chaining on a 3.1 Gbp genome ({move}: forward "
+            f"positions + {d0}, reverse + {d0 + 2 * d1}; l_pac {lp}): both "
+            f"kernels equal to their plain versions; rbeg "
+            f"{int(rb[valid_c].min())}-{int(rb[valid_c].max())}, the chains "
+            f"the batch's moved; read 0's first seed at l_pac - 10 "
+            f"{'bridges' if bridges else 'does not bridge'} the strands' "
+            f"junction; {int(got.n.sum())} chains, seed rbeg up to "
+            f"{int(got.seed_rbeg[seeded].max())}")
+
+
+def phase_int64(dev, card, tmp, se, al, codes, lens, slice32):
+    """Phase 8: the int64-position layout. Phase 4's SE `mem` with the
+    layout forced (its main path: counts zeroed just before, read just
+    after), its SAM body byte-equal to phase 4's, reads/s and `-v 4`
+    stage seconds beside phase 4's; phase 5's batch and the repeat batch
+    through each int64 form, as made, against the plain versions and
+    beside the int32 forms; the values past 2^31 and 2^32; the layout's
+    device bytes, and hg38's reckoned. Returns {kernel name: numbers} and
+    the forced run's launches."""
+    import torch
+    from bwa_mem_scale_tpu_torch import cli
+    from bwa_mem_scale_tpu_torch.ops import chain
+    from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex, HI_STEPS
+    from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
+    t0 = time.perf_counter()
+    wrappers = int64_wrappers()
+    out = os.path.join(tmp, "out64.sam")
+    argv = [*se["argv"][:2], "-o", out, *se["argv"][4:]]
+    with forced_int64():
+        for w in wrappers.values():             # int64 path starts here
+            w.launches = w.launches64 = 0
+        t1 = time.perf_counter()
+        al64 = cli.mem(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {n: (w.launches, w.launches64)
+                    for n, w in wrappers.items()}
+        # int64 path ends here
+        al4 = cli.mem(argv + ["-v", "4"])
+    if al64.fmi.pos_dtype != torch.int64:
+        raise SystemExit("int64: the forced run did not take the layout")
+
+    def body(path):
+        with open(path) as f:
+            return [ln for ln in f if not ln.startswith("@PG")]
+    if body(out) != body(se["argv"][3]):
+        raise SystemExit("int64: the SE SAM differs from phase 4's")
+    for name, (n, n64) in launches.items():
+        want = (2 if name == "one_pos_machine" else 1) * al64.batches
+        if n64 < want or n != n64:
+            raise SystemExit(f"int64: {name} launched {n} times, {n64} in "
+                             f"its int64 form, over {al64.batches} batches")
+    n_reads = N_READS
+    log(f"[int64] SE mem at the forced layout: SAM body byte-equal to phase "
+        f"4's; {n_reads} reads in {wall:.2f} s = {n_reads / wall:.1f} "
+        f"reads/s (phase 4: {se['wall']:.2f} s = "
+        f"{n_reads / se['wall']:.1f}); int64-form launches "
+        f"{ {k: v[1] for k, v in launches.items()} } over {al64.batches} "
+        f"device batches; overflow-retried reads {al64.overflow_retried}  "
+        f"[{card}]")
+    sec, s32 = al4.prof.seconds, se["seconds"]
+    log("[int64 -v 4] synchronised stage seconds, int64 (phase 4): "
+        + ", ".join(f"{k} {sec[k]:.3f} ({s32[k]:.3f})"
+                    for k in ("seed", "sal", "chain", "bsw"))
+        + f"  [{card}]")
+
+    fmi64 = DeviceFMIndex.from_host(al.idx, dev, force_int64=True)
+    c = torch.as_tensor(codes, device=dev)
+    ln = torch.as_tensor(lens, device=dev)
+    res, calls = int64_batch(dev, card, al, fmi64, al.fmi, al.dbns, c, ln,
+                             "phase 5's batch")
+    for name, r in res.items():
+        log(f"[int64] {name}: int64 form {r['ms']:.5f} ms at the int64 "
+            f"path's shapes (int32 form there {r['ms32']:.5f} ms); the "
+            f"int32 path's launch in phase 5 {slice32[name]['ms']:.5f} ms  "
+            f"[{card}]")
+    idx_r, codes_r, lens_r = repeat_batch(BATCH, READ_LEN)
+    int64_batch(dev, card, al, DeviceFMIndex.from_host(idx_r, dev,
+                                                       force_int64=True),
+                DeviceFMIndex.from_host(idx_r, dev),
+                chain.DeviceBns.from_host(idx_r.bns, dev),
+                torch.as_tensor(codes_r, device=dev),
+                torch.as_tensor(lens_r, device=dev), "repeat batch")
+    int64_large_values(dev, card, fmi64, al.idx, calls)
+
+    seq = 2 * HG38_L_PAC + 1
+    rows, samples = -(-seq // 32), -(-seq // (1 << HG38_SA_COMPX))
+    hg38 = {"checkpoint rows": 32 * rows, "SA samples": 8 * samples,
+            "fw+rc reference": 2 * HG38_L_PAC,
+            "C array and step table": 8 * (5 + 4 * HI_STEPS)}
+    log(f"[int64] device bytes of the index, 4.6 Mbp genome: int64 layout "
+        f"{fmi64.nbytes()}, int32 layout {al.fmi.nbytes()} (measured: the "
+        f"tensors' sizes)")
+    log(f"[int64] hg38 (l_pac {HG38_L_PAC}, seq_len {seq}, sa_compx "
+        f"{HG38_SA_COMPX}), reckoned from the layout, not measured: "
+        + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in hg38.items())
+        + f"; {sum(hg38.values()) / 1e9:.2f} GB of the card's 80 GB")
+    log(f"[int64] phase 8 took {time.perf_counter() - t0:.1f} s")
+    res["launches"] = {k: v[1] for k, v in launches.items()}
+    return res
+
+
 def phase_probes(dev, card):
     """The probe path through its entry points, then each probe kernel
     against its plain version at the path's shapes."""
@@ -1073,6 +1450,7 @@ def phase_probes(dev, card):
 
 def main():
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     dev = torch.device("cuda:0")
@@ -1110,17 +1488,25 @@ def main():
         f"cost of a round  [{card}]")
     kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda")}
-    for lib, kernel in (("smem_cuda", "one_pos_kernelILb1"),
-                        ("smem_cuda", "one_pos_kernelILb0"),
-                        ("smem_cuda", "seed_strategy_kernel"),
-                        ("smem_cuda", "sa_walk_kernel"),
-                        ("chain_cuda", "chain_seeds_kernel"),
-                        ("chain_cuda", "chain_filter_kernel"),
-                        ("bsw_cuda", "bsw_tiled_kernel")):
-        (r, s), = [v for fn, v in kernels[lib].items() if kernel in fn]
-        label = kernel.replace("ILb1", "<stacks in shared memory>").replace(
-            "ILb0", "<stacks in a device scratch>")
-        log(f"[build] {label}: {r} registers, {s} bytes spilled")
+    # each FM-walk and chaining kernel in its int32 (P = int, mangled i)
+    # and int64 (P = long long, x) forms
+    for lib, kernel, label in (
+            ("smem_cuda", "one_pos_kernelILb1E{}", "one_pos_kernel<stacks "
+             "in shared memory, {}>"),
+            ("smem_cuda", "one_pos_kernelILb0E{}", "one_pos_kernel<stacks "
+             "in a device scratch, {}>"),
+            ("smem_cuda", "seed_strategy_kernelI{}", "seed_strategy_kernel<{}>"),
+            ("smem_cuda", "sa_walk_kernelI{}", "sa_walk_kernel<{}>"),
+            ("chain_cuda", "chain_seeds_kernelI{}", "chain_seeds_kernel<{}>"),
+            ("chain_cuda", "chain_filter_kernelI{}", "chain_filter_kernel<{}>"),
+            ("bsw_cuda", "bsw_tiled_kernel", "bsw_tiled_kernel")):
+        for code, pos in (("i", "int32"), ("x", "int64")):
+            (r, s), = [v for fn, v in kernels[lib].items()
+                       if kernel.format(code) in fn]
+            log(f"[build] {label.format(pos)}: {r} registers, {s} bytes "
+                f"spilled")
+            if "{}" not in kernel:
+                break
     # the BSW instantiations, {(K, shared): (registers, spill bytes)}
     regs = {(int(k.group(1)), k.group(2) == "1"): v
             for fn, v in kernels["bsw_cuda"].items()
@@ -1136,11 +1522,17 @@ def main():
 
     k = phase_kernel(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, al, codes, lens = phase_mem(dev, card, tmp)
+        launches, al, codes, lens, se = phase_mem(dev, card, tmp)
         _, smem, p3, walk, seeds, flt = phase_slice(dev, card, al, codes,
                                                     lens)
         probes = phase_probes(dev, card)
         phase_pe(dev, card, tmp)
+        wide = phase_int64(dev, card, tmp, se, al, codes, lens,
+                           {"one_pos_machine": smem[0],
+                            "seed_strategy_machine": p3, "sa_walk": walk,
+                            "chain_seeds": seeds, "chain_filter": flt})
+    log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s, the "
+        f"builds included")
 
     log(json.dumps({"kernels": [{
         "name": "banded_swa_batch", "route": "cuda",
@@ -1174,7 +1566,14 @@ def main():
         "library_ms": None}
         for name, replaces, r in (
             ("chain_seeds", "bwa_mem_scale_tpu/ops/chain.py:78", seeds),
-            ("chain_filter", "bwa_mem_scale_tpu/ops/chain.py:299", flt))]}))
+            ("chain_filter", "bwa_mem_scale_tpu/ops/chain.py:299", flt))] + [{
+        "name": f"{name}_int64", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": wide["launches"][name],
+        "max_abs_err": wide[name]["err"], "ms": wide[name]["ms"],
+        "plain_ms": wide[name]["plain_ms"],
+        "bound_ms": wide[name]["bound"][0],
+        "bound_by": wide[name]["bound"][1], "library_ms": None}
+        for name, source, replaces in INT64_FORMS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

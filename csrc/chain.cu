@@ -134,6 +134,24 @@
 // 1 for their sorted fields, 1 a block's word of phase A, 1 a row's
 // chunk of words of phase B, 1 a chunk of each of the two kept passes and
 // 1 a chunk of SMEMs.
+//
+// ---- the int64 forms
+// Each kernel is a template on its position type P: int (the code above,
+// unchanged) or long long, for an index of 2^31 positions or more (hg38)
+// or one forced to the int64 layout (ops/occ.py); the launch functions
+// ending in 64 launch them, and replace the same JAX loops at pos_dtype
+// int64. What widens: rbeg, the keys, the seeds' rbeg plane (the int32
+// form's [4][B][C][S] planes become qbeg, len and score [3][B][C][S]
+// int32 and rbeg [B][C][S] int64), the first and last seeds' r in the
+// chain state (9 words a chain: FR and LR 64-bit, at the front of shared
+// memory; 64.8 KB at C = 1,800), and the SMEM sizes frac_rep reads; the
+// filter's shared state holds no position and keeps its size. The lower
+// chain's search compares 64-bit keys (a shuffle of a long long is two)
+// with four running maxima of (key, slot) kept as pairs, since a 64-bit
+// key and a slot no longer pack into one word; the slots arrive in
+// increasing order, so a key not below a maximum's replaces it. The empty
+// key is the type's maximum // 4 (2^61 - 1 at int64), which no position
+// reaches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,13 +162,20 @@ constexpr int WARP = 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int BIG = 0x7fffffff / 4;        // the empty key, int32 max // 4
 constexpr unsigned SIGN = 0x80000000u;     // an int32's sign bit
+// the empty key of a position type: its maximum // 4
+template <typename P>
+__host__ __device__ constexpr P big_key() {
+  return sizeof(P) == 4 ? (P)BIG : (P)(0x7fffffffffffffffLL / 4);
+}
 // shared memory a read takes, in 4-byte words: chain_seeds 7 a chain
-// (rid, n_seeds, first q r, last q r len); chain_filter 7 a chain (key by
-// slot; QB QE W ALT FIRST kept by sorted position) and 64 a 32 chains (a
-// block of 32 rows' two bit masks)
+// (rid, n_seeds, first q r, last q r len; 9 at int64, whose r are two
+// words each); chain_filter 7 a chain (key by slot; QB QE W ALT FIRST kept
+// by sorted position) and 64 a 32 chains (a block of 32 rows' two bit
+// masks), at either position type
 constexpr int SEEDS_WORDS_A_CHAIN = 7;
+template <typename P>
 __host__ __device__ constexpr size_t seeds_words(int C) {
-  return (size_t)SEEDS_WORDS_A_CHAIN * C;
+  return (size_t)(SEEDS_WORDS_A_CHAIN + 2 * (sizeof(P) / 4 - 1)) * C;
 }
 __host__ __device__ constexpr size_t filter_words(int C) {
   return (size_t)7 * C + (size_t)64 * ((C + 31) / 32);
@@ -189,7 +214,8 @@ __device__ __forceinline__ long long depos(const Bns& g, long long pos) {
 // whose offset is <= it, -1 at and past l_pac), -1 when they differ. Both
 // ends' upper-bound searches run side by side in the same fixed steps
 // for every lane (no branch), the offsets on the read-only path (L1).
-__device__ int intv2rid(const Bns& g, int rb, int re) {
+template <typename P>
+__device__ int intv2rid(const Bns& g, P rb, P re) {
   const long long pb = depos(g, rb), pe = depos(g, rb < re ? re - 1 : rb);
   int nb = 0, ne = 0;                      // offsets <= pb, <= pe
   for (int step = g.top; step > 0; step >>= 1) {
@@ -205,66 +231,97 @@ __device__ int intv2rid(const Bns& g, int rb, int re) {
   return rb < g.l_pac && re > g.l_pac ? -2 : rid;
 }
 
+template <typename P>
 __global__ void __launch_bounds__(WARP)
-chain_seeds_kernel(Bns g, const int32_t* __restrict__ rbeg,   // [B, NC]
+chain_seeds_kernel(Bns g, const P* __restrict__ rbeg,         // [B, NC]
                    const int32_t* __restrict__ seed_idx,       // [B, NC]
                    const uint8_t* __restrict__ coord_valid,    // [B, NC]
                    const int32_t* __restrict__ sm_m,           // [B, M]
                    const int32_t* __restrict__ sm_n,           // [B, M]
                    int B, int NC, int M, int w, int max_chain_gap, int C,
                    int S,
-                   int32_t* __restrict__ key,        // [B, C]
+                   P* __restrict__ key,              // [B, C]
                    int32_t* __restrict__ slot,       // [B, C]
                    int32_t* __restrict__ n_out,      // [B]
                    int32_t* __restrict__ rid_t,      // [B, C]
                    int32_t* __restrict__ n_seeds,    // [B, C]
-                   int32_t* __restrict__ seeds,      // [4][B][C][S]
+                   int32_t* __restrict__ seeds,      // [4][B][C][S], or
+                                                     // [3][B][C][S] at int64
                    uint8_t* __restrict__ overflow,   // [B]
                    int32_t* __restrict__ steps_out,  // [B]
-                   int32_t* __restrict__ rounds_out) {  // [B]
+                   int32_t* __restrict__ rounds_out,  // [B]
+                   P* __restrict__ seed_rbeg) {      // [B][C][S] at int64
+  constexpr bool W64 = sizeof(P) == 8;
   extern __shared__ int32_t smem[];
   const int l = threadIdx.x, b = blockIdx.x;
-  int32_t* RD = smem;                    // by slot: rid
-  int32_t* NS = RD + C;                  // seed count
-  int32_t* FQ = NS + C;                  // first seed (q, r): r is the key
-  int32_t* FR = FQ + C;
-  int32_t* LQ = FR + C;                  // last seed (q, r, len)
-  int32_t* LR = LQ + C;
-  int32_t* LL = LR + C;
+  // by slot: rid, seed count, first seed (q, r: r is the key), last seed
+  // (q, r, len); at int64 the two r arrays first, 8-byte aligned
+  int32_t *RD, *NS, *FQ, *LQ, *LL;
+  P *FR, *LR;
+  if constexpr (W64) {
+    FR = reinterpret_cast<P*>(smem);
+    LR = FR + C;
+    RD = reinterpret_cast<int32_t*>(LR + C);
+    NS = RD + C;
+    FQ = NS + C;
+    LQ = FQ + C;
+    LL = LQ + C;
+  } else {
+    RD = smem;
+    NS = RD + C;
+    FQ = NS + C;
+    FR = FQ + C;
+    LQ = FR + C;
+    LR = LQ + C;
+    LL = LR + C;
+  }
   const size_t plane = (size_t)B * C * S;
   int32_t* sq = seeds + (size_t)b * C * S;        // [C][S] of plane 0
+  P* sr = W64 ? seed_rbeg + (size_t)b * C * S : nullptr;
   const int32_t* m = sm_m + (size_t)b * M;
   const int32_t* e = sm_n + (size_t)b * M;
-  const int32_t* rb_row = rbeg + (size_t)b * NC;
+  const P* rb_row = rbeg + (size_t)b * NC;
   const int32_t* si_row = seed_idx + (size_t)b * NC;
   const uint8_t* valid = coord_valid + (size_t)b * NC;
-  // lane p < 4 writes plane p of a seed: qbeg, rbeg, len, score = len
-  auto put = [&](int at, int q, int r, int len) {
-    if (l < 4) sq[l * plane + at] = l == 0 ? q : (l == 1 ? r : len);
+  // lane p < 4 writes plane p of a seed: qbeg, rbeg, len, score = len (at
+  // int64 lanes 0-2 the int32 planes qbeg, len, score, lane 3 rbeg)
+  auto put = [&](int at, int q, P r, int len) {
+    if constexpr (W64) {
+      if (l < 3) sq[l * plane + at] = l == 0 ? q : len;
+      else if (l == 3) sr[at] = r;
+    } else {
+      if (l < 4) sq[l * plane + at] = l == 0 ? q : (l == 1 ? r : len);
+    }
   };
   int n = 0, steps = 0, rounds = 0;
   bool of = false;
   // slot 0's state is read (and its result masked) by seeds with no
   // lower chain, before any chain starts there: zeros, not junk
-  for (int k = 0; k < SEEDS_WORDS_A_CHAIN; ++k) RD[k * C] = 0;
+  if constexpr (W64) {
+    FR[0] = LR[0] = 0;
+    RD[0] = NS[0] = FQ[0] = LQ[0] = LL[0] = 0;
+  } else {
+    for (int k = 0; k < SEEDS_WORDS_A_CHAIN; ++k) RD[k * C] = 0;
+  }
   // lane l's coordinate, loaded two chunks ahead, and its SMEM row, one
   // chunk ahead: the loads only, so nothing waits on them until they are
   // used (the first chunk's loads wait: 2 rounds)
-  auto coord = [&](int c, int& v, int& r, int& si) {
+  auto coord = [&](int c, int& v, P& r, int& si) {
     const bool in = c < NC;
     v = in ? valid[c] : 0;
     r = in ? rb_row[c] : 0;
     si = in ? si_row[c] : 0;
   };
   auto clamp_m = [&](int si) { return si < 0 ? 0 : (si >= M ? M - 1 : si); };
-  int v0, v1, r0, r1, si0, si1;
+  int v0, v1, si0, si1;
+  P r0, r1;
   coord(l, v0, r0, si0);
   coord(WARP + l, v1, r1, si1);
   int q0 = m[clamp_m(si0)], e0 = e[clamp_m(si0)];
   rounds += 2;
   for (int c0 = 0; c0 < NC; c0 += WARP) {
     const bool v = v0 != 0;
-    const int my_rbeg = r0;
+    const P my_rbeg = r0;
     const int my_qbeg = q0, my_len = e0 + 1 - q0;
     v0 = v1;                             // the next chunk, and the one after
     r0 = r1;
@@ -279,25 +336,56 @@ chain_seeds_kernel(Bns g, const int32_t* __restrict__ rbeg,   // [B, NC]
     // key <= rbeg, the last of those keys in the sorted order; the keys
     // 32 a shuffle round, four running maxima of the packed pair (the key
     // with its sign bit flipped, which keeps the order, then slot + 1;
-    // 0 for none) so that no step waits on the one before
-    unsigned long long best[4] = {0, 0, 0, 0};
-    for (int k0 = 0; k0 < n; k0 += WARP) {
-      const int theirs = k0 + l < n ? FR[k0 + l] : 0;
+    // 0 for none) so that no step waits on the one before; at int64 the
+    // maxima are (key, slot + 1) pairs
+    int low;
+    P low_key;
+    if constexpr (W64) {
+      P bk[4] = {0, 0, 0, 0};
+      int bs[4] = {0, 0, 0, 0};
+      for (int k0 = 0; k0 < n; k0 += WARP) {
+        const P theirs = k0 + l < n ? FR[k0 + l] : 0;
 #pragma unroll
-      for (int t = 0; t < WARP; ++t) {
-        const int k = __shfl_sync(FULL, theirs, t);
-        const unsigned long long cand =
-            (k <= my_rbeg) & (k0 + t < n)
-                ? (unsigned long long)((unsigned)k ^ SIGN) << 32
-                      | (unsigned)(k0 + t + 1)
-                : 0;
-        best[t & 3] = cand > best[t & 3] ? cand : best[t & 3];
+        for (int t = 0; t < WARP; ++t) {
+          const P k = __shfl_sync(FULL, theirs, t);
+          const bool take = (k <= my_rbeg) & (k0 + t < n)
+                            & ((bs[t & 3] == 0) | (k >= bk[t & 3]));
+          bk[t & 3] = take ? k : bk[t & 3];
+          bs[t & 3] = take ? k0 + t + 1 : bs[t & 3];
+        }
       }
+      P kk = bk[0];
+      int ss = bs[0];
+#pragma unroll
+      for (int i = 1; i < 4; ++i) {
+        const bool more = (bs[i] != 0)
+                          & ((ss == 0) | (bk[i] > kk)
+                             | ((bk[i] == kk) & (bs[i] > ss)));
+        kk = more ? bk[i] : kk;
+        ss = more ? bs[i] : ss;
+      }
+      low = ss - 1;
+      low_key = kk;
+    } else {
+      unsigned long long best[4] = {0, 0, 0, 0};
+      for (int k0 = 0; k0 < n; k0 += WARP) {
+        const int theirs = k0 + l < n ? FR[k0 + l] : 0;
+#pragma unroll
+        for (int t = 0; t < WARP; ++t) {
+          const int k = __shfl_sync(FULL, theirs, t);
+          const unsigned long long cand =
+              (k <= my_rbeg) & (k0 + t < n)
+                  ? (unsigned long long)((unsigned)k ^ SIGN) << 32
+                        | (unsigned)(k0 + t + 1)
+                  : 0;
+          best[t & 3] = cand > best[t & 3] ? cand : best[t & 3];
+        }
+      }
+      const unsigned long long top =
+          max(max(best[0], best[1]), max(best[2], best[3]));
+      low = (int)(top & 0xffffffff) - 1;
+      low_key = (int)((unsigned)(top >> 32) ^ SIGN);
     }
-    const unsigned long long top =
-        max(max(best[0], best[1]), max(best[2], best[3]));
-    int low = (int)(top & 0xffffffff) - 1;
-    int low_key = (int)((unsigned)(top >> 32) ^ SIGN);
     rounds += (n + WARP - 1) / WARP;
     // the chunk's seeds side by side: each seed not yet final is tested
     // against the current state; those before the first that would change
@@ -311,8 +399,8 @@ chain_seeds_kernel(Bns g, const int32_t* __restrict__ rbeg,   // [B, NC]
       const bool has_low = low >= 0;
       const int ls = has_low ? low : 0;
       const int ln = NS[ls];
-      const int last_q = LQ[ls], last_r = LR[ls], last_len = LL[ls];
-      const int first_q = FQ[ls], first_r = FR[ls];
+      const int last_q = LQ[ls], last_len = LL[ls], first_q = FQ[ls];
+      const P last_r = LR[ls], first_r = FR[ls];
       const bool same_rid = has_low & (my_rid == RD[ls]);
       const bool contained = same_rid & (my_qbeg >= first_q)
                              & (my_qbeg + my_len <= last_q + last_len)
@@ -320,7 +408,8 @@ chain_seeds_kernel(Bns g, const int32_t* __restrict__ rbeg,   // [B, NC]
                              & (my_rbeg + my_len <= last_r + last_len);
       const bool diff_strand =
           ((last_r < g.l_pac) | (first_r < g.l_pac)) & (my_rbeg >= g.l_pac);
-      const int x = my_qbeg - last_q, y = my_rbeg - last_r;
+      const int x = my_qbeg - last_q;
+      const P y = my_rbeg - last_r;
       const bool growable = same_rid & !contained & !diff_strand
                             & (y >= 0) & (x - y <= w) & (y - x <= w)
                             & (x - last_len < max_chain_gap)
@@ -337,7 +426,7 @@ chain_seeds_kernel(Bns g, const int32_t* __restrict__ rbeg,   // [B, NC]
       const int f = changes ? __ffs(changes) - 1 : cnt;
       if (__ballot_sync(FULL, my_of && l < f)) of = true;
       if (f >= cnt) break;
-      const int s_rbeg = __shfl_sync(FULL, my_rbeg, f);
+      const P s_rbeg = __shfl_sync(FULL, my_rbeg, f);
       const int s_qbeg = __shfl_sync(FULL, my_qbeg, f);
       const int s_len = __shfl_sync(FULL, my_len, f);
       // every lane stores every state word itself (the same values), so
@@ -376,13 +465,13 @@ chain_seeds_kernel(Bns g, const int32_t* __restrict__ rbeg,   // [B, NC]
   const size_t row = (size_t)b * C;
   for (int c0 = 0; c0 < n; c0 += WARP) {
     const int c = c0 + l;
-    const int mine = c < n ? FR[c] : 0;
+    const P mine = c < n ? FR[c] : 0;
     int r = 0;
     for (int c1 = 0; c1 < n; c1 += WARP) {
-      const int theirs = c1 + l < n ? FR[c1 + l] : 0;
+      const P theirs = c1 + l < n ? FR[c1 + l] : 0;
       const int t_end = n - c1 < WARP ? n - c1 : WARP;
       for (int t = 0; t < t_end; ++t) {
-        const int kk = __shfl_sync(FULL, theirs, t);
+        const P kk = __shfl_sync(FULL, theirs, t);
         r += kk < mine || (kk == mine && c1 + t < c);
       }
       ++rounds;
@@ -395,20 +484,22 @@ chain_seeds_kernel(Bns g, const int32_t* __restrict__ rbeg,   // [B, NC]
   for (int c = l; c < C; c += WARP) {
     const bool live = c < n;
     if (!live) {
-      key[row + c] = BIG;
+      key[row + c] = big_key<P>();
       slot[row + c] = 0;
     }
     rid_t[row + c] = live ? RD[c] : -1;
     n_seeds[row + c] = live ? NS[c] : 0;
   }
   // zero the plane positions no seed wrote; where S is a multiple of 4,
-  // 16 bytes a store (a slot's row then starts 16-byte aligned), the
-  // positions before the first whole 16 bytes past n_seeds one by one
+  // 16 bytes a store (a slot's row then starts 16-byte aligned; at int64
+  // the rbeg plane's 4 positions are 32 bytes, two stores), the positions
+  // before the first whole 16 bytes past n_seeds one by one
   auto zero = [&](size_t at) {
     sq[at] = 0;
     sq[plane + at] = 0;
     sq[2 * plane + at] = 0;
-    sq[3 * plane + at] = 0;
+    if constexpr (W64) sr[at] = 0;
+    else sq[3 * plane + at] = 0;
   };
   if (S % 4 == 0) {
     const int S4 = S / 4;
@@ -418,8 +509,12 @@ chain_seeds_kernel(Bns g, const int32_t* __restrict__ rbeg,   // [B, NC]
       const int ns = c < n ? NS[c] : 0;
       const size_t at = (size_t)c * S + s0;
       if (s0 >= ns) {
-        for (int p = 0; p < 4; ++p)
+        for (int p = 0; p < (W64 ? 3 : 4); ++p)
           *reinterpret_cast<int4*>(sq + p * plane + at) = z;
+        if constexpr (W64) {
+          reinterpret_cast<int4*>(sr + at)[0] = z;
+          reinterpret_cast<int4*>(sr + at)[1] = z;
+        }
       } else {
         for (int s = ns; s < s0 + 4; ++s) zero((size_t)c * S + s);
       }
@@ -447,13 +542,15 @@ __device__ __forceinline__ void cover_step(long long& end, long long& sum,
 
 // a slot's two coverage weights over its k seeds (query, reference), the
 // seeds loaded 8 at a time so that their loads wait together
-__device__ __forceinline__ void weigh(const int32_t* qb, const int32_t* rb,
+template <typename P>
+__device__ __forceinline__ void weigh(const int32_t* qb, const P* rb,
                                       const int32_t* len, int k,
                                       long long& wq, long long& wr) {
   long long eq = 0, er = 0;
   wq = wr = 0;
   for (int i0 = 0; i0 < k; i0 += 8) {
-    int q[8], r[8], ln[8];
+    int q[8], ln[8];
+    P r[8];
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       const bool in = i0 + t < k;
@@ -471,20 +568,21 @@ __device__ __forceinline__ void weigh(const int32_t* qb, const int32_t* rb,
   }
 }
 
+template <typename P>
 __global__ void __launch_bounds__(WARP)
 chain_filter_kernel(Bns g, int C, int S,
                     const int32_t* __restrict__ n_chains,  // [B]
                     const int32_t* __restrict__ rid_t,     // [B, C]
                     const int32_t* __restrict__ n_seeds,   // [B, C]
                     const int32_t* __restrict__ seed_qbeg,  // [B, C, S]
-                    const int32_t* __restrict__ seed_rbeg,  // [B, C, S]
+                    const P* __restrict__ seed_rbeg,        // [B, C, S]
                     const int32_t* __restrict__ seed_len,   // [B, C, S]
                     int min_chain_weight, double mask_level,
                     int max_chain_gap, double drop_ratio, int min_seed_len,
                     int max_chain_extend,
                     const int32_t* __restrict__ sm_m,       // [B, M]
                     const int32_t* __restrict__ sm_n,       // [B, M]
-                    const int32_t* __restrict__ sm_s,       // [B, M]
+                    const P* __restrict__ sm_s,             // [B, M]
                     const int32_t* __restrict__ sm_cnt,     // [B]
                     int M, const int32_t* __restrict__ lens,  // [B]
                     int max_occ,
@@ -763,14 +861,78 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+template <typename P>
+int chain_seeds_launch_t(const Bns& g, const void* rbeg, const void* seed_idx,
+                         const void* coord_valid, const void* sm_m,
+                         const void* sm_n, int B, int NC, int M, int w,
+                         int max_chain_gap, int C, int S, void* key,
+                         void* slot, void* n, void* rid, void* n_seeds,
+                         void* seeds, void* overflow, void* steps,
+                         void* rounds, void* seed_rbeg, void* stream) {
+  if (B <= 0) return 0;
+  const size_t bytes = 4 * seeds_words<P>(C);
+  if (g.n_seqs <= 0 || NC <= 0 || M <= 0 || C <= 0 || S <= 0
+      || bytes > SMEM_MAX || (sizeof(P) == 8 && seed_rbeg == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(chain_seeds_kernel<P>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  chain_seeds_kernel<P><<<B, WARP, bytes, (cudaStream_t)stream>>>(
+      g, (const P*)rbeg, (const int32_t*)seed_idx,
+      (const uint8_t*)coord_valid, (const int32_t*)sm_m,
+      (const int32_t*)sm_n, B, NC, M, w, max_chain_gap, C, S, (P*)key,
+      (int32_t*)slot, (int32_t*)n, (int32_t*)rid, (int32_t*)n_seeds,
+      (int32_t*)seeds, (uint8_t*)overflow, (int32_t*)steps,
+      (int32_t*)rounds, (P*)seed_rbeg);
+  return (int)cudaGetLastError();
+}
+
+template <typename P>
+int chain_filter_launch_t(const Bns& g, int B, int C, int S,
+                          const void* n_chains, const void* rid,
+                          const void* n_seeds, const void* seed_qbeg,
+                          const void* seed_rbeg, const void* seed_len,
+                          int min_chain_weight, double mask_level,
+                          int max_chain_gap, double drop_ratio,
+                          int min_seed_len, int max_chain_extend,
+                          const void* sm_m, const void* sm_n,
+                          const void* sm_s, const void* sm_cnt, int M,
+                          const void* lens, int max_occ, void* order,
+                          void* kept, void* w_slot, void* frac_rep,
+                          void* steps, void* rounds, void* stream) {
+  if (B <= 0) return 0;
+  const size_t bytes = 4 * filter_words(C);
+  if (g.n_seqs <= 0 || C <= 0 || S <= 0 || M <= 0 || bytes > SMEM_MAX
+      || C > WORD_CHUNKS * WARP * WARP)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(chain_filter_kernel<P>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  chain_filter_kernel<P><<<B, WARP, bytes, (cudaStream_t)stream>>>(
+      g, C, S, (const int32_t*)n_chains, (const int32_t*)rid,
+      (const int32_t*)n_seeds, (const int32_t*)seed_qbeg,
+      (const P*)seed_rbeg, (const int32_t*)seed_len, min_chain_weight,
+      mask_level, max_chain_gap, drop_ratio, min_seed_len,
+      max_chain_extend, (const int32_t*)sm_m, (const int32_t*)sm_n,
+      (const P*)sm_s, (const int32_t*)sm_cnt, M, (const int32_t*)lens,
+      max_occ, (int32_t*)order, (int32_t*)kept, (int32_t*)w_slot,
+      (float*)frac_rep, (int32_t*)steps, (int32_t*)rounds);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The most chains a read may hold: one read's state in one block's
-// shared memory (kernel 0 chain_seeds_kernel, 1 chain_filter_kernel).
+// shared memory (kernel 0 chain_seeds_kernel, 1 chain_filter_kernel; 2
+// and 3 their int64 forms).
 extern "C" int chain_max_chains(int kernel) {
+  const bool filter = kernel & 1;
+  auto words = [&](int C) {
+    return filter ? filter_words(C)
+                  : kernel == 2 ? seeds_words<long long>(C)
+                                : seeds_words<int>(C);
+  };
   int C = (int)(SMEM_MAX / (4 * 7));
-  while (4 * (kernel ? filter_words(C) : seeds_words(C)) > SMEM_MAX
-         || (kernel && C > WORD_CHUNKS * WARP * WARP))
+  while (4 * words(C) > SMEM_MAX
+         || (filter && C > WORD_CHUNKS * WARP * WARP))
     --C;
   return C;
 }
@@ -790,22 +952,31 @@ extern "C" int chain_seeds_launch(const void* offsets, const void* is_alt,
                                   void* n, void* rid, void* n_seeds,
                                   void* seeds, void* overflow, void* steps,
                                   void* rounds, void* stream) {
-  if (B <= 0) return 0;
-  const size_t bytes = 4 * seeds_words(C);
-  if (n_seqs <= 0 || NC <= 0 || M <= 0 || C <= 0 || S <= 0
-      || bytes > SMEM_MAX)
-    return (int)cudaErrorInvalidValue;
-  const Bns g = make_bns(offsets, is_alt, n_seqs, l_pac);
-  const cudaError_t err = allow_smem(chain_seeds_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  chain_seeds_kernel<<<B, WARP, bytes, (cudaStream_t)stream>>>(
-      g, (const int32_t*)rbeg, (const int32_t*)seed_idx,
-      (const uint8_t*)coord_valid, (const int32_t*)sm_m,
-      (const int32_t*)sm_n, B, NC, M, w, max_chain_gap, C, S, (int32_t*)key,
-      (int32_t*)slot, (int32_t*)n, (int32_t*)rid, (int32_t*)n_seeds,
-      (int32_t*)seeds, (uint8_t*)overflow, (int32_t*)steps,
-      (int32_t*)rounds);
-  return (int)cudaGetLastError();
+  return chain_seeds_launch_t<int>(
+      make_bns(offsets, is_alt, n_seqs, l_pac), rbeg, seed_idx, coord_valid,
+      sm_m, sm_n, B, NC, M, w, max_chain_gap, C, S, key, slot, n, rid,
+      n_seeds, seeds, overflow, steps, rounds, nullptr, stream);
+}
+
+// chain_seeds_launch's int64 form: rbeg and key int64, seeds the
+// [3][B][C][S] int32 planes qbeg, len and score, seed_rbeg the [B][C][S]
+// int64 plane (C up to chain_max_chains(2)).
+extern "C" int chain_seeds_launch64(const void* offsets, const void* is_alt,
+                                    int n_seqs, long long l_pac,
+                                    const void* rbeg, const void* seed_idx,
+                                    const void* coord_valid,
+                                    const void* sm_m, const void* sm_n,
+                                    int B, int NC, int M, int w,
+                                    int max_chain_gap, int C, int S,
+                                    void* key, void* slot, void* n,
+                                    void* rid, void* n_seeds, void* seeds,
+                                    void* overflow, void* steps,
+                                    void* rounds, void* seed_rbeg,
+                                    void* stream) {
+  return chain_seeds_launch_t<long long>(
+      make_bns(offsets, is_alt, n_seqs, l_pac), rbeg, seed_idx, coord_valid,
+      sm_m, sm_n, B, NC, M, w, max_chain_gap, C, S, key, slot, n, rid,
+      n_seeds, seeds, overflow, steps, rounds, seed_rbeg, stream);
 }
 
 // Launch chain_filter_kernel on `stream` over B reads, a one-warp block a
@@ -827,22 +998,29 @@ extern "C" int chain_filter_launch(const void* offsets, const void* is_alt,
                                    void* order, void* kept, void* w_slot,
                                    void* frac_rep, void* steps, void* rounds,
                                    void* stream) {
-  if (B <= 0) return 0;
-  const size_t bytes = 4 * filter_words(C);
-  if (n_seqs <= 0 || C <= 0 || S <= 0 || M <= 0 || bytes > SMEM_MAX
-      || C > WORD_CHUNKS * WARP * WARP)
-    return (int)cudaErrorInvalidValue;
-  const Bns g = make_bns(offsets, is_alt, n_seqs, l_pac);
-  const cudaError_t err = allow_smem(chain_filter_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  chain_filter_kernel<<<B, WARP, bytes, (cudaStream_t)stream>>>(
-      g, C, S, (const int32_t*)n_chains, (const int32_t*)rid,
-      (const int32_t*)n_seeds, (const int32_t*)seed_qbeg,
-      (const int32_t*)seed_rbeg, (const int32_t*)seed_len, min_chain_weight,
-      mask_level, max_chain_gap, drop_ratio, min_seed_len,
-      max_chain_extend, (const int32_t*)sm_m, (const int32_t*)sm_n,
-      (const int32_t*)sm_s, (const int32_t*)sm_cnt, M, (const int32_t*)lens,
-      max_occ, (int32_t*)order, (int32_t*)kept, (int32_t*)w_slot,
-      (float*)frac_rep, (int32_t*)steps, (int32_t*)rounds);
-  return (int)cudaGetLastError();
+  return chain_filter_launch_t<int>(
+      make_bns(offsets, is_alt, n_seqs, l_pac), B, C, S, n_chains, rid,
+      n_seeds, seed_qbeg, seed_rbeg, seed_len, min_chain_weight, mask_level,
+      max_chain_gap, drop_ratio, min_seed_len, max_chain_extend, sm_m, sm_n,
+      sm_s, sm_cnt, M, lens, max_occ, order, kept, w_slot, frac_rep, steps,
+      rounds, stream);
+}
+
+// chain_filter_launch's int64 form: seed_rbeg and sm_s int64.
+extern "C" int chain_filter_launch64(
+    const void* offsets, const void* is_alt, int n_seqs, long long l_pac,
+    int B, int C, int S, const void* n_chains, const void* rid,
+    const void* n_seeds, const void* seed_qbeg, const void* seed_rbeg,
+    const void* seed_len, int min_chain_weight, double mask_level,
+    int max_chain_gap, double drop_ratio, int min_seed_len,
+    int max_chain_extend, const void* sm_m, const void* sm_n,
+    const void* sm_s, const void* sm_cnt, int M, const void* lens,
+    int max_occ, void* order, void* kept, void* w_slot, void* frac_rep,
+    void* steps, void* rounds, void* stream) {
+  return chain_filter_launch_t<long long>(
+      make_bns(offsets, is_alt, n_seqs, l_pac), B, C, S, n_chains, rid,
+      n_seeds, seed_qbeg, seed_rbeg, seed_len, min_chain_weight, mask_level,
+      max_chain_gap, drop_ratio, min_seed_len, max_chain_extend, sm_m, sm_n,
+      sm_s, sm_cnt, M, lens, max_occ, order, kept, w_slot, frac_rep, steps,
+      rounds, stream);
 }

@@ -142,6 +142,36 @@
 // geometric (a row is sampled with p = 2^-compx), so the longest of 16k
 // lanes walks ~60 rows while the mean walks ~8: 128-thread blocks over
 // the SMs, each thread retiring as it finds its sample.
+//
+// ---- the int64 forms
+// Each kernel is a template on its position type P: int for an index of
+// fewer than 2^31 positions (the code described above, unchanged), long
+// long for the int64 layout of ops/occ.py (hg38's 6.2e9 fw+rc positions,
+// or forced on a small index); the launch functions ending in 64 launch
+// them. They replace the same JAX loops at pos_dtype int64. In the int64
+// forms the intervals (k, l, s), the C array and the sentinel row, the
+// stack entries' k, l and s (32-byte entries: 6.5 KB of stacks a warp at
+// SD = L = 101, 9.7 KB at 151), the SA samples, coordinates and values,
+// and the emitted k, l and s are 64-bit; m, n and every count stay int.
+// A checkpoint row stays 32 bytes, one sector a dependent step: it holds
+// the low 32 bits of each count, and the high word, a step function of
+// the row since counts never fall along the BWT, is the number of the
+// base's steps at or before the row in a device table ([4][HI_STEPS] long
+// long, ops/occ.py::hi_steps) whose per-base lengths are launch
+// arguments. At hg38 no base count reaches 2^32 (A+T over fw+rc is
+// ~1.8e9), every length is 0, and a step loads what the int32 form's
+// does. An occ step issues both rows' loads before it decodes either,
+// and one uniform test of the lengths guards the table's loops: with a
+// loop a base between the loads, the first form took 1.95-2.09x the int32
+// form's time on the 4.6 Mbp batch, 1.77-1.88x with the loads first, and
+// 1.34-1.59x with the guard (the rest is the 64-bit arithmetic of a
+// dependent step; PERF.md section 6). The row index is clamped at 64 bits
+// before it narrows (pp >> 5 passes int32 once pp passes 2^36). An SA sample is 8 bytes, one load at
+// the walk's end (the JAX package's 5-byte samples would be two loads at
+// two addresses; 8 bytes cost hg38 6.2 GB of samples against 3.9 GB, and
+// the index still fits the card's 80 GB with ~60 GB to spare). Outputs
+// [5][T][M] become m and n [2][T][M] int, then k, l and s [3][T][M] long
+// long, in one buffer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -154,15 +184,37 @@ constexpr unsigned FULL = 0xffffffffu;
 // past 48 KB, after cudaFuncAttributeMaxDynamicSharedMemorySize)
 constexpr size_t SMEM_MAX = 232448;
 constexpr size_t SMEM_DEFAULT = 49152;
+// the high-word steps a base may have on the int64 layout (ops/occ.py's
+// HI_STEPS)
+constexpr int HI_STEPS = 8;
 
-struct Fmi {
-  const int4* cp;                    // [nb][2] int4: counts, masks
+// The index as each form takes it: the checkpoint table ([nb][2] int4:
+// counts, masks), the C array and the sentinel row at the form's position
+// type; the int64 form also the high-word step table ([4][HI_STEPS] long
+// long on the device) and each base's number of steps.
+template <typename P>
+struct Fmi;
+
+template <>
+struct Fmi<int> {
+  const int4* cp;
   int nb;
   int c0, c1, c2, c3, c4;            // the C array
   int sentinel;
 };
 
-__device__ __forceinline__ int sel4(int a, int b, int c, int d, int i) {
+template <>
+struct Fmi<long long> {
+  const int4* cp;                    // counts' low 32 bits, masks
+  long long nb;
+  long long c0, c1, c2, c3, c4;
+  long long sentinel;
+  const long long* hi;               // [4][HI_STEPS] rows where it steps
+  int h0, h1, h2, h3;                // steps a base
+};
+
+template <typename T>
+__device__ __forceinline__ T sel4(T a, T b, T c, T d, int i) {
   return i == 0 ? a : (i == 1 ? b : (i == 2 ? c : d));
 }
 
@@ -170,8 +222,18 @@ __device__ __forceinline__ int sel4(const int4& v, int i) {
   return sel4(v.x, v.y, v.z, v.w, i);
 }
 
+// the four occ values of the int64 form
+struct Occ64 {
+  long long x, y, z, w;
+};
+
+__device__ __forceinline__ long long sel4(const Occ64& v, int i) {
+  return sel4(v.x, v.y, v.z, v.w, i);
+}
+
 // C[c] for c in [0, 4]
-__device__ __forceinline__ int cval(const Fmi& f, int c) {
+template <typename P>
+__device__ __forceinline__ P cval(const Fmi<P>& f, int c) {
   return c == 4 ? f.c4 : sel4(f.c0, f.c1, f.c2, f.c3, c);
 }
 
@@ -181,15 +243,56 @@ __device__ __forceinline__ unsigned top_bits(int y) {
   return y == 0 ? 0u : 0xffffffffu << (32 - y);
 }
 
-// the checkpoint row holding position pp, its index clamped to [0, nb)
-__device__ __forceinline__ const int4* cp_row(const Fmi& f, int pp) {
-  int r = pp >> 5;                   // arithmetic, as torch's >> on int32
-  r = r < 0 ? 0 : (r >= f.nb ? f.nb - 1 : r);
-  return f.cp + 2 * (size_t)r;
+// the checkpoint row holding position pp, clamped to [0, nb) at the
+// position type's width
+template <typename P>
+__device__ __forceinline__ P row_of(const Fmi<P>& f, P pp) {
+  P r = pp >> 5;                     // arithmetic, as torch's >>
+  return r < 0 ? 0 : (r >= f.nb ? f.nb - 1 : r);
+}
+
+template <typename P>
+__device__ __forceinline__ const int4* cp_row(const Fmi<P>& f, P pp) {
+  return f.cp + 2 * (size_t)row_of(f, pp);
+}
+
+// the int64 layout's high word of base c's count at row r: its n steps
+// at or before r, times 2^32
+__device__ __forceinline__ long long hi_word(const Fmi<long long>& f, int c,
+                                             int n, long long r) {
+  int h = 0;
+  for (int j = 0; j < n; ++j) h += r >= __ldg(f.hi + c * HI_STEPS + j);
+  return (long long)h << 32;
+}
+
+// whether any base's count passes 2^32 (none at hg38): one uniform test
+// guards the step-table loops, so an empty table costs a step one branch
+__device__ __forceinline__ bool has_steps(const Fmi<long long>& f) {
+  return (f.h0 | f.h1 | f.h2 | f.h3) != 0;
+}
+
+// a count of row r: the stored word (int32), or on the int64 layout the
+// low word with the high word of base c (n steps) above it
+__device__ __forceinline__ int row_count(const Fmi<int>&, int v, int, int,
+                                         int) {
+  return v;
+}
+
+__device__ __forceinline__ long long row_count(const Fmi<long long>& f,
+                                               int v, int c, int n,
+                                               long long r) {
+  return (long long)(unsigned)v + (has_steps(f) ? hi_word(f, c, n, r) : 0);
+}
+
+// base c's steps: none on the int32 layout
+__device__ __forceinline__ int n_steps(const Fmi<int>&, int) { return 0; }
+
+__device__ __forceinline__ int n_steps(const Fmi<long long>& f, int c) {
+  return sel4(f.h0, f.h1, f.h2, f.h3, c);
 }
 
 // occ(pp, base) for all four bases: one checkpoint row, two 16-byte loads
-__device__ __forceinline__ int4 occ4(const Fmi& f, int pp) {
+__device__ __forceinline__ int4 occ4(const Fmi<int>& f, int pp) {
   const int4* row = cp_row(f, pp);
   const int4 cnt = __ldg(row);
   const int4 msk = __ldg(row + 1);
@@ -200,14 +303,81 @@ __device__ __forceinline__ int4 occ4(const Fmi& f, int pp) {
                    cnt.w + __popc((unsigned)msk.w & top));
 }
 
+// The int64 form's occ4 in two halves, so that an occ step issues both
+// of its rows' loads before any step-table loop: a loop is a branch, and
+// the loads after a branch would wait for the rows before it (two L2
+// trips in a row instead of side by side).
+struct Row64 {
+  long long r;
+  int4 cnt, msk;
+  unsigned top;
+};
+
+__device__ __forceinline__ Row64 load_row(const Fmi<long long>& f,
+                                          long long pp) {
+  const long long r = row_of(f, pp);
+  const int4* row = f.cp + 2 * (size_t)r;
+  return Row64{r, __ldg(row), __ldg(row + 1), top_bits((int)(pp & 31))};
+}
+
+// a row's occ from its low count words (the high words apart)
+__device__ __forceinline__ Occ64 occ_low(const Row64& w) {
+  auto one = [&](int v, int m) {
+    return (long long)(unsigned)v + __popc((unsigned)m & w.top);
+  };
+  return Occ64{one(w.cnt.x, w.msk.x), one(w.cnt.y, w.msk.y),
+               one(w.cnt.z, w.msk.z), one(w.cnt.w, w.msk.w)};
+}
+
+// the high words of a row's four counts, added to its occ
+__device__ __forceinline__ void add_hi(const Fmi<long long>& f,
+                                       const Row64& w, Occ64& o) {
+  o.x += hi_word(f, 0, f.h0, w.r);
+  o.y += hi_word(f, 1, f.h1, w.r);
+  o.z += hi_word(f, 2, f.h2, w.r);
+  o.w += hi_word(f, 3, f.h3, w.r);
+}
+
 // The backward extension of (k, l, s) by base c in [0, 3]
 // (ops/occ.py::backward_ext_all4, then the base's column).
-__device__ __forceinline__ void ext(const Fmi& f, int k, int l, int s,
-                                    int c, int& nk, int& nl, int& ns) {
-  const int4 a = occ4(f, k);
-  const int4 b = occ4(f, k + s);
-  const int s0 = b.x - a.x, s1 = b.y - a.y, s2 = b.z - a.z, s3 = b.w - a.w;
-  const int sent = (k <= f.sentinel) & (k + s > f.sentinel);
+// occ4's four values in each form
+template <typename P>
+struct OccOf {
+  using T = int4;
+};
+
+template <>
+struct OccOf<long long> {
+  using T = Occ64;
+};
+
+// the occ of both ends of (k, k + s): int32 rows as loaded; int64 both
+// rows' loads first
+__device__ __forceinline__ void occ_pair(const Fmi<int>& f, int k, int e,
+                                         int4& a, int4& b) {
+  a = occ4(f, k);
+  b = occ4(f, e);
+}
+
+__device__ __forceinline__ void occ_pair(const Fmi<long long>& f,
+                                         long long k, long long e, Occ64& a,
+                                         Occ64& b) {
+  const Row64 ra = load_row(f, k), rb = load_row(f, e);
+  a = occ_low(ra);
+  b = occ_low(rb);
+  if (has_steps(f)) {
+    add_hi(f, ra, a);
+    add_hi(f, rb, b);
+  }
+}
+
+template <typename P>
+__device__ __forceinline__ void ext(const Fmi<P>& f, P k, P l, P s, int c,
+                                    P& nk, P& nl, P& ns) {
+  typename OccOf<P>::T a, b;
+  occ_pair(f, k, k + s, a, b);
+  const P s0 = b.x - a.x, s1 = b.y - a.y, s2 = b.z - a.z, s3 = b.w - a.w;
+  const P sent = (k <= f.sentinel) & (k + s > f.sentinel);
   // l of base c: l + sent + the sizes of the bases above c
   nl = l + sent + (c < 3 ? s3 : 0) + (c < 2 ? s2 : 0) + (c < 1 ? s1 : 0);
   nk = cval(f, c) + sel4(a, c);
@@ -243,14 +413,44 @@ __host__ __device__ __forceinline__ size_t codes_bytes(int L) {
   return ((size_t)L + 15) & ~(size_t)15;
 }
 
-// bytes of one warp's two interval stacks of SD + 1 entries
-__host__ __device__ __forceinline__ size_t stacks_bytes(int SD) {
-  return 2 * ((size_t)SD + 1) * sizeof(int4);
+// An interval-stack entry (k, l, s, n) in x, y, z, w: an int4 in the
+// int32 form, 32 bytes in the int64 form.
+struct __align__(16) Ent64 {
+  long long x, y, z;
+  int w, pad;
+};
+
+template <typename P>
+struct EntOf {
+  using T = int4;
+};
+
+template <>
+struct EntOf<long long> {
+  using T = Ent64;
+};
+
+template <typename P>
+using Ent = typename EntOf<P>::T;
+
+__device__ __forceinline__ int4 make_ent(int k, int l, int s, int n) {
+  return make_int4(k, l, s, n);
 }
 
-template <bool STACKS_IN_SHARED>
+__device__ __forceinline__ Ent64 make_ent(long long k, long long l,
+                                          long long s, int n) {
+  return Ent64{k, l, s, n, 0};
+}
+
+// bytes of one warp's two interval stacks of SD + 1 entries
+template <typename P>
+__host__ __device__ __forceinline__ size_t stacks_bytes(int SD) {
+  return 2 * ((size_t)SD + 1) * sizeof(Ent<P>);
+}
+
+template <bool STACKS_IN_SHARED, typename P>
 __global__ void __launch_bounds__(WARP)
-one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
+one_pos_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
                const int32_t* __restrict__ lens,           // [B]
                int B, int L,
                const int32_t* __restrict__ t_read,         // [T]
@@ -258,8 +458,9 @@ one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
                const int32_t* __restrict__ t_mi,           // [T]
                const uint8_t* __restrict__ t_valid,        // [T]
                int T, int chain_restarts, int min_seed_len, int M, int SD,
-               int4* __restrict__ scratch,      // [T][2][SD + 1] or null
-               int32_t* __restrict__ out,       // [5][T][M]: m n k l s
+               Ent<P>* __restrict__ scratch,    // [T][2][SD + 1] or null
+               int32_t* __restrict__ out,       // [2][T][M] m n, then
+                                                // [3][T][M] P: k l s
                int32_t* __restrict__ cnt_out,   // [T]
                int32_t* __restrict__ steps_out,    // [T]
                int32_t* __restrict__ rounds_out) {  // [T]
@@ -271,36 +472,47 @@ one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
   const int len = t_valid[t] ? lens[rd] : 0;
   const int mi = t_mi[t];
   const size_t tm = (size_t)T * M;                 // one output field
+  P* kls = reinterpret_cast<P*>(out + 2 * tm);
   // the shared memory: [2][SD + 1] stack entries, then the codes
-  int4* stk = STACKS_IN_SHARED ? smem : scratch + (size_t)t * 2 * (SD + 1);
-  int8_t* q = reinterpret_cast<int8_t*>(
-      STACKS_IN_SHARED ? smem + 2 * (SD + 1) : smem);
-  for (int i = lane; i < M; i += WARP)             // the output rows
-    for (int fld = 0; fld < 5; ++fld) out[fld * tm + (size_t)t * M + i] = 0;
+  Ent<P>* stk = STACKS_IN_SHARED ? reinterpret_cast<Ent<P>*>(smem)
+                                 : scratch + (size_t)t * 2 * (SD + 1);
+  int8_t* q = STACKS_IN_SHARED
+                  ? reinterpret_cast<int8_t*>(stk + 2 * (SD + 1))
+                  : reinterpret_cast<int8_t*>(smem);
+  for (int i = lane; i < M; i += WARP) {           // the output rows
+    const size_t o = (size_t)t * M + i;
+    out[o] = 0;
+    out[tm + o] = 0;
+    kls[o] = 0;
+    kls[tm + o] = 0;
+    kls[2 * tm + o] = 0;
+  }
   if (len > 0) stage_codes(codes + (size_t)rd * L, L, q, lane, WARP);
   __syncwarp();              // the codes, and the zeros before any emission
   auto code = [&](int i) { return q[i < 0 ? 0 : (i >= L ? L - 1 : i)]; };
   auto C = [&](int c) { return cval(f, c); };
-  auto slot = [&](int buf, int i) -> int4& { return stk[buf * (SD + 1) + i]; };
+  auto slot = [&](int buf, int i) -> Ent<P>& {
+    return stk[buf * (SD + 1) + i];
+  };
   auto rslot = [&](int i) { return i < 0 ? 0 : (i >= SD ? SD - 1 : i); };
 
   // warp-uniform state, every lane alike, but for cnt: lane 0 emits, and
   // only its count is kept
   int cnt = 0, steps = 0, rounds = 0, wA = 0;
   bool of = false;
-  auto push = [&](int buf, int& c, int k, int l, int s, int n) {
-    if (lane == 0) slot(buf, c < SD ? c : SD) = make_int4(k, l, s, n);
+  auto push = [&](int buf, int& c, P k, P l, P s, int n) {
+    if (lane == 0) slot(buf, c < SD ? c : SD) = make_ent(k, l, s, n);
     ++c;
     of |= c > SD;
   };
-  auto emit = [&](int m, int n, int k, int l, int s) {       // lane 0
+  auto emit = [&](int m, int n, P k, P l, P s) {             // lane 0
     if (cnt < M) {
       const size_t o = (size_t)t * M + cnt;
       out[o] = m;
       out[tm + o] = n;
-      out[2 * tm + o] = k;
-      out[3 * tm + o] = l;
-      out[4 * tm + o] = s;
+      kls[o] = k;
+      kls[tm + o] = l;
+      kls[2 * tm + o] = s;
     }
     ++cnt;
   };
@@ -315,13 +527,14 @@ one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
     __syncwarp();              // the last position's reads are done
     // forward extension from x: serial, every lane alike; each step's
     // base is read a step ahead, so the N test waits on no load
-    int ck = C(xa), cl = C(3 - xa), cs = C(xa + 1) - C(xa), cn = x;
+    P ck = C(xa), cl = C(3 - xa), cs = C(xa + 1) - C(xa);
+    int cn = x;
     int j = x + 1, nx = x + 1, cA = 0, a = code(j);
     while (j < len) {
       nx = j + 1;
       if (a >= 4) break;
       const int an = code(j + 1);
-      int nk, nl, ns;
+      P nk, nl, ns;
       ext(f, cl, ck, cs, 3 - a, nl, nk, ns);       // the swapped interval
       ++steps;
       ++rounds;
@@ -346,19 +559,20 @@ one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
       __syncwarp();            // the pushes to the A stack are visible
       if (j < 0 || a >= 4 || cA == 0) {
         if (cA > 0) {
-          const int4 e = slot(wA, rslot(rev ? cA - 1 : 0));
+          const Ent<P> e = slot(wA, rslot(rev ? cA - 1 : 0));
           if (lane == 0 && e.w - mA + 1 >= min_seed_len)
             emit(mA, e.w, e.x, e.y, e.z);
         }
         break;
       }
       const int an = code(j - 1);                  // the next round's base
-      int cB = 0, prev = 0;
+      int cB = 0;
+      P prev = 0;
       for (int c0 = 0; c0 < cA; c0 += WARP) {      // a chunk: one trip
         const int p = c0 + lane;
         const bool act = p < cA;
-        int4 e = make_int4(0, 0, 0, 0);
-        int nk = 0, nl = 0, ns = 0;
+        Ent<P> e = make_ent((P)0, (P)0, (P)0, 0);
+        P nk = 0, nl = 0, ns = 0;
         if (act) {
           e = slot(wA, rslot(rev ? cA - 1 - p : p));
           ext(f, e.x, e.y, e.z, a, nk, nl, ns);
@@ -368,14 +582,14 @@ one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
         // only entry 0 can emit: it dies and is long enough
         if (p == 0 && ns < mi && e.w - mA + 1 >= min_seed_len)
           emit(mA, e.w, e.x, e.y, e.z);
-        int up = __shfl_up_sync(FULL, ns, 1);
+        P up = __shfl_up_sync(FULL, ns, 1);
         if (lane == 0) up = prev;                  // the last chunk's end
-        const int cur = (p == 0 || up < mi) ? -1 : up;
+        const P cur = (p == 0 || up < mi) ? (P)-1 : up;
         const bool keep = act && ns >= mi && ns != cur;
         const unsigned kept = __ballot_sync(FULL, keep);
         if (keep) {
           const int i = cB + __popc(kept & ((1u << lane) - 1));
-          slot(wA ^ 1, i < SD ? i : SD) = make_int4(nk, nl, ns, e.w);
+          slot(wA ^ 1, i < SD ? i : SD) = make_ent(nk, nl, ns, e.w);
         }
         cB += __popc(kept);
         if (c0 + WARP < cA) prev = __shfl_sync(FULL, ns, WARP - 1);
@@ -400,12 +614,14 @@ one_pos_kernel(Fmi f, const int32_t* __restrict__ codes,   // [B, L]
 
 constexpr int P3_THREADS = 32;       // one warp a block, a read a lane
 
+template <typename P>
 __global__ void __launch_bounds__(P3_THREADS)
-seed_strategy_kernel(Fmi f, const int32_t* __restrict__ codes,  // [B, L]
+seed_strategy_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
                      const int32_t* __restrict__ lens,          // [B]
                      int B, int L, int R,       // R reads a block, <= 32
                      int max_intv, int min_seed_len, int M,
-                     int32_t* __restrict__ out,     // [5][B][M]: m n k l s
+                     int32_t* __restrict__ out,     // [2][B][M] m n, then
+                                                    // [3][B][M] P: k l s
                      int32_t* __restrict__ cnt_out,     // [B]
                      int32_t* __restrict__ steps_out) {  // [B]
   extern __shared__ int4 smem[];
@@ -413,9 +629,17 @@ seed_strategy_kernel(Fmi f, const int32_t* __restrict__ codes,  // [B, L]
   const int t0 = blockIdx.x * R;
   const int nr = min(R, B - t0);
   const size_t tm = (size_t)B * M;                 // one output field
+  P* kls = reinterpret_cast<P*>(out + 2 * tm);
   for (int fld = 0; fld < 5; ++fld)                // the block's output rows
-    for (int i = threadIdx.x; i < nr * M; i += P3_THREADS)
-      out[fld * tm + (size_t)t0 * M + i] = 0;
+    for (int i = threadIdx.x; i < nr * M; i += P3_THREADS) {
+      if constexpr (sizeof(P) == 4) {
+        out[fld * tm + (size_t)t0 * M + i] = 0;
+      } else {
+        const size_t o = (size_t)t0 * M + i;
+        if (fld < 2) out[fld * tm + o] = 0;
+        else kls[(fld - 2) * tm + o] = 0;
+      }
+    }
   stage_codes(codes + (size_t)t0 * L, nr * L, sq, threadIdx.x, P3_THREADS);
   __syncthreads();           // the codes, and the zeros before any emission
   if ((int)threadIdx.x >= nr) return;
@@ -423,7 +647,8 @@ seed_strategy_kernel(Fmi f, const int32_t* __restrict__ codes,  // [B, L]
   const int8_t* q = sq + (size_t)threadIdx.x * L;
   const int len = lens[t];
   auto code = [&](int i) { return q[i < 0 ? 0 : (i >= L ? L - 1 : i)]; };
-  int cnt = 0, steps = 0, x = 0, j = 0, ck = 0, cl = 0, cs = 0, a = 4;
+  int cnt = 0, steps = 0, x = 0, j = 0, a = 4;
+  P ck = 0, cl = 0, cs = 0;
   // The next walk with an ext to make, from start `from`: x the first
   // base at or past it, j = x + 1 a base inside the read (a its code),
   // (ck, cl, cs) x's C-array interval. A walk whose first column is an N
@@ -445,7 +670,7 @@ seed_strategy_kernel(Fmi f, const int32_t* __restrict__ codes,  // [B, L]
   bool live = seek(0);
   while (live) {                                   // one ext an iteration
     const int an = code(j + 1);                    // read a step ahead
-    int nk, nl, ns;
+    P nk, nl, ns;
     ext(f, cl, ck, cs, 3 - a, nl, nk, ns);         // the swapped interval
     ++steps;
     if (ns < max_intv && j + 1 - x >= min_seed_len) {
@@ -454,9 +679,9 @@ seed_strategy_kernel(Fmi f, const int32_t* __restrict__ codes,  // [B, L]
           const size_t o = (size_t)t * M + cnt;
           out[o] = x;
           out[tm + o] = j;
-          out[2 * tm + o] = nk;
-          out[3 * tm + o] = nl;
-          out[4 * tm + o] = ns;
+          kls[o] = nk;
+          kls[tm + o] = nl;
+          kls[2 * tm + o] = ns;
         }
         ++cnt;
       }
@@ -494,30 +719,34 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 constexpr int SAL_BLOCK = 128;       // coordinates (threads) a block
 
+template <typename P>
 __global__ void __launch_bounds__(SAL_BLOCK)
-sa_walk_kernel(Fmi f, const int32_t* __restrict__ samples, int n_samples,
-               int compx, const int32_t* __restrict__ pos,   // [N]
+sa_walk_kernel(Fmi<P> f, const P* __restrict__ samples, P n_samples,
+               int compx, const P* __restrict__ pos,          // [N]
                const uint8_t* __restrict__ valid,             // [N]
-               int N, int32_t* __restrict__ out,               // [N]
-               int32_t* __restrict__ steps_out) {              // [N]
+               int N, P* __restrict__ out,                    // [N]
+               int32_t* __restrict__ steps_out) {             // [N]
   const int t = blockIdx.x * SAL_BLOCK + threadIdx.x;
   if (t >= N) return;
-  int res = 0, steps = 0;
+  P res = 0;
+  int steps = 0;
   if (valid[t]) {
-    const int mask = (1 << compx) - 1;
-    int sp = pos[t], offset = 0;
+    const P mask = ((P)1 << compx) - 1;
+    P sp = pos[t];
+    int offset = 0;
     for (;;) {
       ++steps;
       if ((sp & mask) == 0) {                      // a sampled row
-        int i = sp >> compx;
+        P i = sp >> compx;
         i = i < 0 ? 0 : (i >= n_samples ? n_samples - 1 : i);
         res = __ldg(samples + i) + offset;
         break;
       }
-      const int4* row = cp_row(f, sp);             // occ_b_and_base
+      const P r = row_of(f, sp);                   // occ_b_and_base
+      const int4* row = f.cp + 2 * (size_t)r;
       const int4 cnt = __ldg(row);
       const int4 msk = __ldg(row + 1);
-      const int y = sp & 31;
+      const int y = (int)(sp & 31);
       const unsigned bit = 1u << (31 - y);
       const int b = ((unsigned)msk.x & bit) ? 0
                     : ((unsigned)msk.y & bit) ? 1
@@ -527,7 +756,7 @@ sa_walk_kernel(Fmi f, const int32_t* __restrict__ samples, int n_samples,
         res = offset;
         break;
       }
-      sp = cval(f, b) + sel4(cnt, b)
+      sp = cval(f, b) + row_count(f, sel4(cnt, b), b, n_steps(f, b), r)
            + __popc((unsigned)sel4(msk, b) & top_bits(y));
       ++offset;
     }
@@ -536,13 +765,106 @@ sa_walk_kernel(Fmi f, const int32_t* __restrict__ samples, int n_samples,
   steps_out[t] = steps;
 }
 
+// The form's index from its launch arguments.
+Fmi<int> make_fmi(const void* cp, int nb, int c0, int c1, int c2, int c3,
+                  int c4, int sentinel) {
+  return Fmi<int>{(const int4*)cp, nb, c0, c1, c2, c3, c4, sentinel};
+}
+
+Fmi<long long> make_fmi(const void* cp, long long nb, long long c0,
+                        long long c1, long long c2, long long c3,
+                        long long c4, long long sentinel, const void* hi,
+                        int h0, int h1, int h2, int h3) {
+  return Fmi<long long>{(const int4*)cp, nb, c0, c1, c2, c3, c4, sentinel,
+                        (const long long*)hi, h0, h1, h2, h3};
+}
+
+// the index a launch can take: rows, and on the int64 layout a step
+// table with 0 to HI_STEPS steps a base
+bool fmi_ok(const Fmi<int>& f) { return f.nb > 0; }
+
+bool fmi_ok(const Fmi<long long>& f) {
+  auto ok = [](int h) { return h >= 0 && h <= HI_STEPS; };
+  return f.nb > 0 && f.hi != nullptr && ok(f.h0) && ok(f.h1) && ok(f.h2)
+         && ok(f.h3);
+}
+
+template <typename P>
+bool stacks_in_shared(int L, int SD) {
+  return codes_bytes(L) + stacks_bytes<P>(SD) <= SMEM_MAX;
+}
+
+template <typename P>
+int one_pos_launch_t(const Fmi<P>& f, const void* codes, const void* lens,
+                     int B, int L, const void* t_read, const void* t_x,
+                     const void* t_mi, const void* t_valid, int T,
+                     int chain_restarts, int min_seed_len, int M, int SD,
+                     void* stk, void* out, void* cnt, void* steps,
+                     void* rounds, void* stream) {
+  if (T <= 0) return 0;
+  const bool shared = stacks_in_shared<P>(L, SD);
+  const size_t bytes = codes_bytes(L) + (shared ? stacks_bytes<P>(SD) : 0);
+  if (!fmi_ok(f) || B <= 0 || L <= 0 || M < 0 || SD <= 0
+      || bytes > SMEM_MAX || (!shared && stk == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = shared ? one_pos_kernel<true, P> : one_pos_kernel<false, P>;
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<T, WARP, bytes, (cudaStream_t)stream>>>(
+      f, (const int32_t*)codes, (const int32_t*)lens, B, L,
+      (const int32_t*)t_read, (const int32_t*)t_x, (const int32_t*)t_mi,
+      (const uint8_t*)t_valid, T, chain_restarts, min_seed_len, M, SD,
+      (Ent<P>*)stk, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps,
+      (int32_t*)rounds);
+  return (int)cudaGetLastError();
+}
+
+template <typename P>
+int seed_strategy_launch_t(const Fmi<P>& f, const void* codes,
+                           const void* lens, int B, int L, int max_intv,
+                           int min_seed_len, int M, int reads_per_block,
+                           void* out, void* cnt, void* steps, void* stream) {
+  if (B <= 0) return 0;
+  const int R = reads_per_block > 0 ? reads_per_block : p3_reads(L);
+  if (!fmi_ok(f) || L <= 0 || M < 0 || R < 1 || R > P3_THREADS
+      || R * codes_bytes(L) > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = R * codes_bytes(L);
+  const cudaError_t e = allow_smem(seed_strategy_kernel<P>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  seed_strategy_kernel<P><<<(B + R - 1) / R, P3_THREADS, bytes,
+                            (cudaStream_t)stream>>>(
+      f, (const int32_t*)codes, (const int32_t*)lens, B, L, R, max_intv,
+      min_seed_len, M, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps);
+  return (int)cudaGetLastError();
+}
+
+template <typename P>
+int sa_walk_launch_t(const Fmi<P>& f, const void* samples, P n_samples,
+                     int compx, const void* pos, const void* valid, int N,
+                     void* out, void* steps, void* stream) {
+  if (N <= 0) return 0;
+  if (!fmi_ok(f) || n_samples <= 0 || compx < 1 || compx > 30)
+    return (int)cudaErrorInvalidValue;
+  sa_walk_kernel<P><<<(N + SAL_BLOCK - 1) / SAL_BLOCK, SAL_BLOCK, 0,
+                      (cudaStream_t)stream>>>(
+      f, (const P*)samples, n_samples, compx, (const P*)pos,
+      (const uint8_t*)valid, N, (P*)out, (int32_t*)steps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // 1 when one warp's codes (L) and interval stacks (SD) fit its shared
 // memory, so one_pos_launch takes no scratch; 0 when the stacks go to a
 // device scratch [T][2][SD + 1] int4 (the codes stay in shared memory).
 extern "C" int one_pos_stacks_in_shared(int L, int SD) {
-  return codes_bytes(L) + stacks_bytes(SD) <= SMEM_MAX;
+  return stacks_in_shared<int>(L, SD);
+}
+
+// The same for one_pos_launch64 (32-byte entries).
+extern "C" int one_pos_stacks_in_shared64(int L, int SD) {
+  return stacks_in_shared<long long>(L, SD);
 }
 
 // Launch one_pos_kernel on `stream` over T tasks, a one-warp block each;
@@ -559,23 +881,33 @@ extern "C" int one_pos_launch(const void* cp_fused, int nb, int c0, int c1,
                               int chain_restarts, int min_seed_len, int M,
                               int SD, void* stk, void* out, void* cnt,
                               void* steps, void* rounds, void* stream) {
-  if (T <= 0) return 0;
-  const bool shared = one_pos_stacks_in_shared(L, SD);
-  const size_t bytes = codes_bytes(L) + (shared ? stacks_bytes(SD) : 0);
-  if (nb <= 0 || B <= 0 || L <= 0 || M < 0 || SD <= 0 || bytes > SMEM_MAX
-      || (!shared && stk == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const Fmi f{(const int4*)cp_fused, nb, c0, c1, c2, c3, c4, sentinel};
-  auto kernel = shared ? one_pos_kernel<true> : one_pos_kernel<false>;
-  const cudaError_t e = allow_smem(kernel, bytes);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<T, WARP, bytes, (cudaStream_t)stream>>>(
-      f, (const int32_t*)codes, (const int32_t*)lens, B, L,
-      (const int32_t*)t_read, (const int32_t*)t_x, (const int32_t*)t_mi,
-      (const uint8_t*)t_valid, T, chain_restarts, min_seed_len, M, SD,
-      (int4*)stk, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps,
-      (int32_t*)rounds);
-  return (int)cudaGetLastError();
+  return one_pos_launch_t(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), codes, lens, B,
+      L, t_read, t_x, t_mi, t_valid, T, chain_restarts, min_seed_len, M, SD,
+      stk, out, cnt, steps, rounds, stream);
+}
+
+// one_pos_launch's int64 form: the index at 64 bits with its high-word
+// step table `hi` ([4][HI_STEPS] long long on the device) and steps
+// h0-h3 a base; the stack scratch (one_pos_stacks_in_shared64 0)
+// [T][2][SD + 1] entries of 32 bytes; out [2][T][M] int32 then
+// [3][T][M] int64.
+extern "C" int one_pos_launch64(const void* cp_fused, long long nb,
+                                long long c0, long long c1, long long c2,
+                                long long c3, long long c4,
+                                long long sentinel, const void* hi, int h0,
+                                int h1, int h2, int h3, const void* codes,
+                                const void* lens, int B, int L,
+                                const void* t_read, const void* t_x,
+                                const void* t_mi, const void* t_valid, int T,
+                                int chain_restarts, int min_seed_len, int M,
+                                int SD, void* stk, void* out, void* cnt,
+                                void* steps, void* rounds, void* stream) {
+  return one_pos_launch_t(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel, hi, h0, h1, h2,
+               h3),
+      codes, lens, B, L, t_read, t_x, t_mi, t_valid, T, chain_restarts,
+      min_seed_len, M, SD, stk, out, cnt, steps, rounds, stream);
 }
 
 // Launch seed_strategy_kernel on `stream` over B reads, `reads_per_block`
@@ -588,20 +920,25 @@ extern "C" int seed_strategy_launch(const void* cp_fused, int nb, int c0,
                                     int max_intv, int min_seed_len, int M,
                                     int reads_per_block, void* out,
                                     void* cnt, void* steps, void* stream) {
-  if (B <= 0) return 0;
-  const int R = reads_per_block > 0 ? reads_per_block : p3_reads(L);
-  if (nb <= 0 || L <= 0 || M < 0 || R < 1 || R > P3_THREADS
-      || R * codes_bytes(L) > SMEM_MAX)
-    return (int)cudaErrorInvalidValue;
-  const Fmi f{(const int4*)cp_fused, nb, c0, c1, c2, c3, c4, sentinel};
-  const size_t bytes = R * codes_bytes(L);
-  const cudaError_t e = allow_smem(seed_strategy_kernel, bytes);
-  if (e != cudaSuccess) return (int)e;
-  seed_strategy_kernel<<<(B + R - 1) / R, P3_THREADS, bytes,
-                         (cudaStream_t)stream>>>(
-      f, (const int32_t*)codes, (const int32_t*)lens, B, L, R, max_intv,
-      min_seed_len, M, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps);
-  return (int)cudaGetLastError();
+  return seed_strategy_launch_t(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), codes, lens, B,
+      L, max_intv, min_seed_len, M, reads_per_block, out, cnt, steps,
+      stream);
+}
+
+// seed_strategy_launch's int64 form (the index as one_pos_launch64's;
+// out [2][B][M] int32 then [3][B][M] int64).
+extern "C" int seed_strategy_launch64(
+    const void* cp_fused, long long nb, long long c0, long long c1,
+    long long c2, long long c3, long long c4, long long sentinel,
+    const void* hi, int h0, int h1, int h2, int h3, const void* codes,
+    const void* lens, int B, int L, int max_intv, int min_seed_len, int M,
+    int reads_per_block, void* out, void* cnt, void* steps, void* stream) {
+  return seed_strategy_launch_t(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel, hi, h0, h1, h2,
+               h3),
+      codes, lens, B, L, max_intv, min_seed_len, M, reads_per_block, out,
+      cnt, steps, stream);
 }
 
 // Launch sa_walk_kernel on `stream` over N coordinates (1 <= compx <= 30;
@@ -612,13 +949,22 @@ extern "C" int sa_walk_launch(const void* cp_fused, int nb, int c0, int c1,
                               const void* samples, int n_samples, int compx,
                               const void* pos, const void* valid, int N,
                               void* out, void* steps, void* stream) {
-  if (N <= 0) return 0;
-  if (nb <= 0 || n_samples <= 0 || compx < 1 || compx > 30)
-    return (int)cudaErrorInvalidValue;
-  const Fmi f{(const int4*)cp_fused, nb, c0, c1, c2, c3, c4, sentinel};
-  sa_walk_kernel<<<(N + SAL_BLOCK - 1) / SAL_BLOCK, SAL_BLOCK, 0,
-                   (cudaStream_t)stream>>>(
-      f, (const int32_t*)samples, n_samples, compx, (const int32_t*)pos,
-      (const uint8_t*)valid, N, (int32_t*)out, (int32_t*)steps);
-  return (int)cudaGetLastError();
+  return sa_walk_launch_t(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), samples,
+      n_samples, compx, pos, valid, N, out, steps, stream);
+}
+
+// sa_walk_launch's int64 form: int64 samples, coordinates and values.
+extern "C" int sa_walk_launch64(const void* cp_fused, long long nb,
+                                long long c0, long long c1, long long c2,
+                                long long c3, long long c4,
+                                long long sentinel, const void* hi, int h0,
+                                int h1, int h2, int h3, const void* samples,
+                                long long n_samples, int compx,
+                                const void* pos, const void* valid, int N,
+                                void* out, void* steps, void* stream) {
+  return sa_walk_launch_t(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel, hi, h0, h1, h2,
+               h3),
+      samples, n_samples, compx, pos, valid, N, out, steps, stream);
 }

@@ -45,9 +45,15 @@ def test_from_host_layout(small_index, both):
 
 
 def test_from_host_rejects_int64_layout(small_index):
+    """An index of 2^31 positions is no longer refused: it takes the int64
+    layout, whose C array and SA samples equal the JAX package's at
+    int64 (the JAX package picks its int64 layout there too)."""
     big = dataclasses.replace(small_index, seq_len=1 << 31)
-    with pytest.raises(NotImplementedError):
-        tocc.DeviceFMIndex.from_host(big, "cpu")
+    t = tocc.DeviceFMIndex.from_host(big, "cpu")
+    j = jocc.DeviceFMIndex.from_host(big)
+    assert t.pos_dtype == torch.int64 and j.pos_dtype == np.int64
+    _eq(j.count, t.count)
+    _eq(jocc.sa_sample_at(j, jnp.arange(j.sa_ls.shape[0])), t.sa_samples)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
