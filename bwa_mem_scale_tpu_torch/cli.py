@@ -2,19 +2,25 @@
 
     python -m bwa_mem_scale_tpu_torch.cli index g.fa -p g
     python -m bwa_mem_scale_tpu_torch.cli perfect-index g -l 101
+    python -m bwa_mem_scale_tpu_torch.cli smem-table g -k 11
     python -m bwa_mem_scale_tpu_torch.cli mem g reads.fq -o out.sam \\
         --device cuda
     python -m bwa_mem_scale_tpu_torch.cli mem g r1.fq r2.fq -o out.sam
     python -m bwa_mem_scale_tpu_torch.cli mem g interleaved.fq -p
+    python -m bwa_mem_scale_tpu_torch.cli mem g reads.fq --seed-engine sweep
 
 The ``mem`` options are the JAX CLI's (``_add_mem_opts`` and
 ``_opts_from_args`` are copies of its own), plus ``--device`` (default
 ``cuda``; the CPU runs only when named). Two FASTQ files, or ``-p`` with
-one, run paired-end; ``-I`` fixes the insert-size statistics. What the
-port does not run yet is refused with a "not ported yet" error: several
-devices or hosts, other seeding engines and ERT/FMA/k-step tables. An
-index of 2^31 positions or more (hg38) runs on the int64-position layout
-(``ops/occ.py``).
+one, run paired-end; ``-I`` fixes the insert-size statistics. Seeding
+runs the one-hot machine (``ops/smem_oh.py``) unless ``--seed-engine
+sweep`` names the position-parallel sweep (``ops/smem.py``), which takes
+the FMA ladder table that ``smem-table`` writes next to the index
+(``{prefix}.fma{K}.npz``; the one-hot machine ignores it, with the JAX
+CLI's note). What the port does not run yet is refused with a "not
+ported yet" error: several devices or hosts, the readlane engine and
+the ERT and k-step tables. An index of 2^31 positions or more (hg38)
+runs on the int64-position layout (``ops/occ.py``).
 """
 
 from __future__ import annotations
@@ -93,9 +99,10 @@ def _add_mem_opts(p: argparse.ArgumentParser):
                         "per chip; batch-reads must divide evenly)")
     p.add_argument("--seed-engine", choices=("sweep", "readlane"),
                    default=None,
-                   help="SMEM seeding kernel: read-per-lane machine "
-                        "(default; the bench engine) or "
-                        "position-parallel sweep (identical output)")
+                   help="SMEM seeding engine: the one-hot read-per-task "
+                        "machine (default) or the position-parallel "
+                        "sweep, which takes the FMA table (identical "
+                        "output)")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="sidecar file tracking emitted reads; rerun "
                         "with the same arguments resumes and appends")
@@ -272,6 +279,43 @@ def cmd_perfect_index(argv):
     return 0
 
 
+def cmd_smem_table(argv):
+    p = argparse.ArgumentParser(prog="bwa_mem_scale_tpu_torch smem-table")
+    p.add_argument("prefix")
+    p.add_argument("-k", dest="kmer", type=int, default=None,
+                   help="ladder k-mer length (default 11, the "
+                        "reference's ALL_SMEM_MAX_BP)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu (the CPU only when named)")
+    args = p.parse_args(argv)
+    from .device import resolve_device
+    from .index.artifacts import load_index
+    from .ops.occ import DeviceFMIndex
+    from .ops.fma import build_fma_table, save_fma, DEFAULT_FMA_K
+    device = resolve_device(args.device)
+    idx = load_index(args.prefix)
+    fmi = DeviceFMIndex.from_host(idx, device)
+    t0 = time.time()
+    fma = build_fma_table(fmi, K=args.kmer or DEFAULT_FMA_K)
+    path = save_fma(fma, args.prefix)
+    print(f"* wrote {path} in {time.time() - t0:.1f}s", file=sys.stderr)
+    return 0
+
+
+def find_fma(prefix: str):
+    """The FMA ladder table next to the index, if built (the reference
+    auto-loads .all_smem.* when SMEM_ACCEL is on,
+    src/FMI_search.cpp:394-411)."""
+    from .ops.fma import load_fma
+    for path in sorted(glob.glob(f"{prefix}.fma*.npz"), reverse=True):
+        try:
+            return load_fma(path)
+        except Exception as e:
+            print(f"* WARNING: ignoring unreadable FMA table {path}: "
+                  f"{e}", file=sys.stderr)
+    return None
+
+
 def find_emf(prefix: str):
     """The EMF perfect-match table next to the index, if built."""
     from .index.perfect import load_perfect_table
@@ -323,11 +367,10 @@ def mem(argv):
         _not_ported("--devices > 1")
     if args.num_hosts > 1:
         _not_ported("--num-hosts > 1")
-    if args.seed_engine is not None:
-        _not_ported(f"--seed-engine {args.seed_engine} (the port seeds "
-                    f"with the one-hot machine)")
+    if args.seed_engine == "readlane":
+        _not_ported("--seed-engine readlane (the port seeds with the "
+                    "one-hot machine or the sweep)")
     for pattern, what in ((".ert*.npz", "the ERT index"),
-                          (".fma*.npz", "the FMA table"),
                           (".cp[23].npz", "the k-step table")):
         if glob.glob(args.prefix + pattern):
             _not_ported(f"{what} ({args.prefix}{pattern})")
@@ -343,15 +386,24 @@ def mem(argv):
     device = resolve_device(args.device)
     with PROFILER.phase("index_load"):
         idx = load_index(args.prefix)
+        fma = find_fma(args.prefix)
+        emf = find_emf(args.prefix)
         if args.ignore_alt:
             for a in idx.bns.anns:
                 a.is_alt = False
-        emf = find_emf(args.prefix)
+        if fma is not None:
+            print(f"* FMA ladder table loaded (K={fma.K})", file=sys.stderr)
         if emf is not None:
             print(f"* EMF perfect-match table loaded "
                   f"(seed_len={emf.seed_len})", file=sys.stderr)
+        engine = args.seed_engine or "onehot"
+        if engine == "onehot" and fma is not None:
+            print(f"* note: {engine} seeding ignores the FMA table",
+                  file=sys.stderr)
+            fma = None
         aligner = GpuAligner(idx, device, opt,
-                             PipelineConfig(seed_engine="onehot"), emf=emf)
+                             PipelineConfig(seed_engine=engine), emf=emf,
+                             fma=fma)
     if args.verbosity >= 4:
         # synchronised per-stage device seconds (the -v 4 stage table)
         aligner.prof = StageProfile(device)
@@ -408,10 +460,12 @@ def cmd_mem(argv):
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     cmds = {"index": cmd_index, "mem": cmd_mem,
-            "perfect-index": cmd_perfect_index}
+            "perfect-index": cmd_perfect_index,
+            "smem-table": cmd_smem_table}
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: bwa_mem_scale_tpu_torch "
-              "{index,perfect-index,mem,version} ...", file=sys.stderr)
+              "{index,perfect-index,smem-table,mem,version} ...",
+              file=sys.stderr)
         return 1
     cmd, rest = argv[0], argv[1:]
     if cmd == "version":

@@ -2,10 +2,10 @@
 
 Every CUDA source of the port (``csrc/*.cu``) is compiled on the machine
 with the GPU at first use into ``build/torch_kernels/lib<name>.so`` and
-rebuilt when the source's SHA-256 differs from the stamp written beside
-the library. ``Library`` builds one source, loads it and calls its C
-launch functions on a device's current stream. Nothing here runs at
-import time.
+rebuilt when the SHA-256 of the source and the ``csrc`` headers it
+includes differs from the stamp written beside the library. ``Library``
+builds one source, loads it and calls its C launch functions on a
+device's current stream. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,6 +42,26 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def source_digest(source: str) -> str:
+    """SHA-256 over `source` and, depth first, each header it includes
+    with ``#include "..."`` (paths relative to the including file)."""
+    h = hashlib.sha256()
+    seen = set()
+
+    def add(path):
+        seen.add(path)
+        with open(path, "rb") as f:
+            data = f.read()
+        h.update(data)
+        for inc in re.findall(rb'^\s*#include\s+"([^"]+)"', data, re.M):
+            dep = os.path.join(os.path.dirname(path), inc.decode())
+            if dep not in seen:
+                add(dep)
+
+    add(os.path.abspath(source))
+    return h.hexdigest()
+
+
 def build(source: str, name: str, force: bool = False,
           verbose: bool = False) -> tuple[str, float | None]:
     """Compile `source` into lib<name>.so unless a library built from the
@@ -48,8 +69,7 @@ def build(source: str, name: str, force: bool = False,
     when the existing library was kept). ptxas's register / spill report
     goes to ``REPORTS[name]``; verbose prints it too."""
     path = lib_path(name)
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()
+    digest = source_digest(source)
     stamp = path + ".sha256"
     if not force and os.path.exists(path) and os.path.exists(stamp):
         with open(stamp) as f:

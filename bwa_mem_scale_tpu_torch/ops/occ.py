@@ -229,3 +229,13 @@ def occ_b_and_base(fmi: DeviceFMIndex, pos: torch.Tensor):
     mask_b = masks.gather(-1, bc)[..., 0]
     pc = popcount32(mask_b & _top_mask(y))
     return counts.gather(-1, bc)[..., 0] + pc.to(counts.dtype), b
+
+
+def forward_ext(fmi: DeviceFMIndex, k, l, s, a):
+    """Forward extension of (k, l, s) by base a [...] (values 0..3): the
+    backward extension of the swapped interval (l, k, s) by the
+    complement 3 - a, swapped back (FMI_search.cpp:1477-1484)."""
+    k4, l4, s4 = backward_ext_all4(fmi, l, k, s)
+    c = (3 - a).long().clamp(0, 3)[..., None]
+    pick = lambda v: v.gather(-1, c)[..., 0]
+    return pick(l4), pick(k4), pick(s4)

@@ -1,8 +1,21 @@
-"""SMEM buffers and the compaction helpers the seeding machines share.
+"""SMEM buffers, the compaction helpers the seeding engines share, and
+the position-parallel sweep engine.
 
-Counterpart of the buffer half of ``bwa_mem_scale_tpu/ops/smem.py``
-(``SmemBuf``, ``compact_indices``, ``concat_smems``, ``_emit_compact``);
-the position-parallel sweep engine there is not ported.
+Counterpart of ``bwa_mem_scale_tpu/ops/smem.py``. The sweep
+(``collect_smems_device``) finds every SMEM from the longest valid match
+E(p) of each start column p: pass 1 and pass 3's failure records come
+from one forward extension of every (read, start) lane
+(``extend_all_positions``, optionally started from the FMA ladder table
+of ``ops/fma.py``), pass 2 runs the same extension over the compacted
+reseed tasks, and pass 3 replays its restart chain from the records
+(``smems_seed_strategy_merged``). The two per-lane loops run as the
+kernels of ``csrc/sweep.cu`` through ``ops/sweep_cuda.py`` on CUDA
+tensors; the lockstep versions here (``extend_all_positions``,
+``strategy_chase``) are their plain versions and the CPU path. The glue
+is torch ops in the JAX package's order, so every array equals its. Out
+of scope: the k-step body (the port refuses the k-step table) and the
+non-merged ``smems_all_pos`` / ``smems_seed_strategy``, which no path of
+the JAX package reaches.
 
 Scatters that JAX writes as ``.at[...].set(..., mode="drop")`` land here
 in a buffer one slot wider than needed: dropped writes go to the extra
@@ -13,7 +26,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from .occ import DeviceFMIndex, forward_ext
 
 
 class SmemBuf(NamedTuple):
@@ -54,17 +70,17 @@ def concat_smems(*bufs: SmemBuf) -> SmemBuf:
                    sum(b.cnt for b in bufs))
 
 
-def _emit_compact(mask, cols_m, cols_n, k, l, s, out: SmemBuf, rows):
+def _emit_compact(mask, cols_m, cols_n, k, l, s, out: SmemBuf, rows=None):
     """Scatter every masked task record into its read's slots at once.
 
-    mask/values [T, L], rows [T] = task -> read (tasks sorted by read).
-    Slot = the read's running count + the emissions of its earlier
-    tasks + the within-task rank, in column order; slots past the
-    buffer width drop (the count still grows)."""
+    mask/values [T, L], rows [T] = task -> read (tasks sorted by read;
+    None: task t is read t). Slot = the read's running count + the
+    emissions of its earlier tasks + the within-task rank, in column
+    order; slots past the buffer width drop (the count still grows)."""
     B, M = out.m.shape
     T, L = mask.shape
     dev = mask.device
-    rows = rows.long()
+    rows = (torch.arange(T, device=dev) if rows is None else rows.long())
     rank = torch.cumsum(mask.to(torch.int32), 1) - 1
     counts_t = mask.sum(1, dtype=torch.int32)
     csum_ex = torch.cumsum(counts_t, 0, dtype=torch.int32) - counts_t
@@ -83,3 +99,350 @@ def _emit_compact(mask, cols_m, cols_n, k, l, s, out: SmemBuf, rows):
 
     return SmemBuf(put(out.m, cols_m), put(out.n, cols_n), put(out.k, k),
                    put(out.l, l), put(out.s, s), out.cnt + counts_add)
+
+
+def reseed_tasks(p1: SmemBuf, T: int, split_len: int, split_width: int):
+    """Pass 2's tasks from pass 1's SMEMs: the midpoint of each SMEM of
+    at least split_len bases with at most split_width occurrences, at a
+    minimum interval of its occurrences + 1, the first T in read order.
+    Returns (t_read, t_x, t_mi, t_valid) [T] and the reads whose
+    candidates overflowed the budget T [B]."""
+    B, Me = p1.m.shape
+    valid = torch.arange(Me, device=p1.m.device)[None, :] < p1.cnt[:, None]
+    cand = (valid & ((p1.n + 1 - p1.m) >= split_len)
+            & (p1.s <= split_width))
+    flat = cand.reshape(B * Me)
+    # reseed lane budget: candidates past T force the retry ladder
+    order, t_valid = compact_indices(flat, T)
+    rank = torch.cumsum(flat.to(torch.int32), 0) - 1
+    reseed_of = (flat & (rank >= T)).reshape(B, Me).any(1)
+    t_read = (order // Me).long()
+    t_slot = (order % Me).long()
+    t_x = (p1.n[t_read, t_slot] + 1 + p1.m[t_read, t_slot]) >> 1
+    t_mi = torch.where(t_valid, p1.s[t_read, t_slot] + 1, 1)
+    return t_read, t_x, t_mi, t_valid, reseed_of
+
+
+# ---- the position-parallel sweep ------------------------------------------
+
+# the lockstep machines (here and in ops/smem_oh.py) test their exit (a
+# host sync on a GPU) once every CHECK_EVERY ticks; a retired lane is a
+# strict no-op
+CHECK_EVERY = 8
+
+
+def sweep_window(fma, stop_min_len: int, p3_max_intv: int, p3_stop: int):
+    """(merge_p3, K_eff): whether the sweep records pass 3's failures, and
+    the steps its lanes take from the FMA ladder (0: none). K_eff stays
+    below any stop length, so no stop or pass-3 failure falls inside the
+    window; below 2 the table is not used."""
+    merge_p3 = p3_max_intv > 0 and p3_stop > 0
+    K_eff = 0
+    if fma is not None:
+        K_eff = fma.K if stop_min_len <= 0 else min(fma.K, stop_min_len - 1)
+        if merge_p3:
+            K_eff = min(K_eff, p3_stop - 1)
+    return merge_p3, (K_eff if K_eff >= 2 else 0)
+
+
+def sweep_keys(want_fail: bool, merge_p3: bool) -> list:
+    """The keys of extend_all_positions' dict, in the JAX package's
+    order."""
+    keys = ["E", "k", "l", "s"]
+    if want_fail:
+        keys += ["fail_s", "fail_k", "fail_l", "fail_ss"]
+    if merge_p3:
+        keys += ["f3_s", "f3_E", "f3_k", "f3_l", "f3_ss", "died_s"]
+    return keys + ["valid"]
+
+
+def run_lockstep(body, pending, stats, key):
+    """Run `body` until no lane is pending (`pending()`, a bool tensor),
+    testing every CHECK_EVERY ticks; count the ticks into stats[key]."""
+    ticks = 0
+    while bool(pending().any()):
+        for _ in range(CHECK_EVERY):
+            body()
+        ticks += CHECK_EVERY
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + ticks
+
+
+def extend_all_positions(fmi: DeviceFMIndex, codes, lens, min_intv,
+                         check_initial: bool, want_fail: bool,
+                         stop_min_len: int = 0, fma=None,
+                         p3_max_intv: int = 0, p3_stop: int = 0,
+                         n_pos: int = 0, stats: dict = None,
+                         stats_key: str = "sweep_ticks"):
+    """Forward-extend from every start column p < n_pos (default L) of
+    every read at once, lockstep over lanes (the plain version of
+    ``csrc/sweep.cu``'s sweep_extend_kernel).
+
+    codes [B, L] int32, lens [B], min_intv [B] (per read or task).
+    check_initial: the 1-bp interval itself needs >= min_intv
+    occurrences (passes 1-2); pass 3 starts unconditionally. Returns a
+    dict of [B, P] arrays: E (exclusive end of the longest valid match
+    from p), k/l/s (its bi-interval), valid; with want_fail fail_s /
+    fail_k / fail_l / fail_ss (the lane retired on an interval-size
+    failure, and that interval); with p3_max_intv/p3_stop (pass 1 with
+    min_intv 1) pass 3's merged records f3_s / f3_E / f3_k / f3_l /
+    f3_ss (the first step of length >= p3_stop whose size drops below
+    p3_max_intv) and died_s. With `fma` (``ops/fma.DeviceFmaTable``) the
+    first K_eff steps come from the ladder (``sweep_window``). Keeps each
+    lane's forward steps (occ extensions) in ``last_steps``; `stats` gets
+    the lockstep's ticks under `stats_key`."""
+    from .fma import fast_forward
+    B, L = codes.shape
+    P = n_pos or L
+    dev = codes.device
+    pd = fmi.pos_dtype
+    count = fmi.count
+    lens = lens.to(torch.int32)
+    pcol = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
+    mi = min_intv.to(pd)[:, None]
+    base_ok = (pcol < lens[:, None]) & (codes[:, :P] < 4)
+    merge_p3, K_eff = sweep_window(fma, stop_min_len, p3_max_intv, p3_stop)
+    zb = lambda: torch.zeros((B, P), dtype=torch.bool, device=dev)
+    zp = lambda: torch.zeros((B, P), dtype=pd, device=dev)
+    died_s = zb()
+    if K_eff:
+        E, k, l, s, act, ff_died = fast_forward(fmi, fma, codes, lens, mi,
+                                                check_initial, K_eff, P)
+        if merge_p3:
+            died_s = ff_died
+        off = K_eff - 1
+    else:
+        off = 0
+        a0c = codes[:, :P].clamp(0, 3).long()
+        k, l = count[a0c], count[3 - a0c]
+        s = count[a0c + 1] - k
+        act = base_ok & (s >= mi) if check_initial else base_ok
+        E = torch.where(act, pcol + 1, pcol)
+        k, l, s = (torch.where(act, v, 0) for v in (k, l, s))
+    st = dict(E=E, k=k, l=l, s=s, fail_s=zb(), fail_k=zp(), fail_l=zp(),
+              fail_ss=zp(), died_s=died_s, f3_s=zb(),
+              f3_E=torch.zeros((B, P), dtype=torch.int32, device=dev),
+              f3_k=zp(), f3_l=zp(), f3_ss=zp(),
+              act=act, t=1,
+              steps=torch.zeros((B, P), dtype=torch.int32, device=dev))
+    # every lane takes the same relative offset a tick: one slice of a
+    # padded copy (clamped once every lane has retired)
+    codes_pad = torch.cat([codes, torch.full((B, L + 2), 4,
+                                             dtype=codes.dtype, device=dev)],
+                          1)
+
+    def body():
+        t = st["t"]
+        j = pcol + off + t
+        a = codes_pad[:, min(off + t, codes_pad.shape[1] - P):][:, :P]
+        do = st["act"] & (j < lens[:, None]) & (a < 4)
+        nk, nl, ns = forward_ext(fmi, st["k"], st["l"], st["s"],
+                                 a.clamp(0, 3))
+        sfail = do & (ns < mi)
+        if stop_min_len > 0:
+            # pass-3 rule: stop only once the seed is long enough
+            sfail = sfail & ((j - pcol + 1) >= stop_min_len)
+        keep = do & ~sfail
+        st["E"] = torch.where(keep, j + 1, st["E"])
+        for f, v in (("k", nk), ("l", nl), ("s", ns)):
+            st[f] = torch.where(keep, v, st[f])
+        if want_fail:
+            st["fail_s"] = st["fail_s"] | sfail
+            for f, v in (("fail_k", nk), ("fail_l", nl), ("fail_ss", ns)):
+                st[f] = torch.where(sfail, v, st[f])
+        if merge_p3:
+            st["died_s"] = st["died_s"] | sfail
+            fire = (do & ~st["f3_s"] & (ns < p3_max_intv)
+                    & ((off + t + 1) >= p3_stop))
+            st["f3_s"] = st["f3_s"] | fire
+            st["f3_E"] = torch.where(fire, j, st["f3_E"])
+            for f, v in (("f3_k", nk), ("f3_l", nl), ("f3_ss", ns)):
+                st[f] = torch.where(fire, v, st[f])
+        st["steps"] = st["steps"] + do.to(torch.int32)
+        st["act"] = keep
+        st["t"] = t + 1
+
+    run_lockstep(body, lambda: st["act"], stats, stats_key)
+    extend_all_positions.last_steps = st["steps"]
+    st["valid"] = base_ok
+    return {f: st[f] for f in sweep_keys(want_fail, merge_p3)}
+
+
+extend_all_positions.last_steps = None       # [B, P] int32, on its device
+
+
+def strategy_chase(emit, E3, nxt, f3_k, f3_l, f3_ss, lens, max_out: int,
+                   stats: dict = None) -> SmemBuf:
+    """Pass 3's restart chain, lockstep over reads (the plain version of
+    ``csrc/sweep.cu``'s strategy_chase_kernel): from column 0 each read
+    emits (pos, E3, f3_k, f3_l, f3_ss) where `emit` holds and moves to
+    nxt[pos], while pos is inside the read and below P. All [B, P]; the
+    emission past max_out is dropped while the count grows. Keeps each
+    read's chase steps in ``last_steps``; `stats` gets the ticks under
+    ``chase_ticks``."""
+    B, P = emit.shape
+    dev = emit.device
+    M = max_out
+    lens = lens.to(torch.int32)
+    bidx = torch.arange(B, device=dev)
+    bufs = [torch.zeros((B, M + 1), dtype=dt, device=dev)
+            for dt in (torch.int32, torch.int32, f3_k.dtype, f3_k.dtype,
+                       f3_k.dtype)]
+    st = dict(pos=torch.zeros((B,), dtype=torch.int32, device=dev),
+              cnt=torch.zeros((B,), dtype=torch.int32, device=dev),
+              steps=torch.zeros((B,), dtype=torch.int32, device=dev))
+
+    def pending():
+        return (st["pos"] < lens) & (st["pos"] < P)
+
+    def body():
+        pos = st["pos"]
+        act = pending()
+        pc = pos.clamp(max=P - 1).long()
+        em = act & emit[bidx, pc]
+        col = torch.where(em, st["cnt"], M).clamp(max=M).long()
+        for buf, v in zip(bufs, (pos, E3[bidx, pc], f3_k[bidx, pc],
+                                 f3_l[bidx, pc], f3_ss[bidx, pc])):
+            buf[bidx, col] = v.to(buf.dtype)
+        st["cnt"] = st["cnt"] + em.to(torch.int32)
+        st["steps"] = st["steps"] + act.to(torch.int32)
+        st["pos"] = torch.where(act, nxt[bidx, pc], pos)
+
+    run_lockstep(body, pending, stats, "chase_ticks")
+    strategy_chase.last_steps = st["steps"]
+    return SmemBuf(*(b[:, :M] for b in bufs), st["cnt"])
+
+
+strategy_chase.last_steps = None             # [B] int32, on its device
+
+
+def _left_max_mask(E, P: int, min_seed_len: int):
+    """The columns whose match is left-maximal and long enough: E(p-1) <
+    E(p) (or p = 0) and E(p) - p >= min_seed_len."""
+    pcol = torch.arange(P, dtype=torch.int32, device=E.device)[None, :]
+    E_prev = torch.cat([torch.zeros_like(E[:, :1]), E[:, :-1]], 1)
+    return pcol, ((pcol == 0) | (E_prev < E)) & ((E - pcol) >= min_seed_len)
+
+
+def smems_reseed(fmi: DeviceFMIndex, codes, lens, pass1: SmemBuf,
+                 split_len: int, split_width: int, min_seed_len: int,
+                 max_out: int, max_tasks: int = 0, fma=None,
+                 n_pos: int = 0, stats: dict = None):
+    """Pass 2: the re-seed at the midpoints of long low-occurrence pass-1
+    SMEMs. Each becomes a (read, x, min_intv = s + 1) task; the first
+    max_tasks (default 2B) run through the sweep, which emits the
+    valid-maximal matches covering x. Returns (SmemBuf, the reads that
+    lost a task to the budget)."""
+    from . import sweep_cuda
+    B, L = codes.shape
+    # ~1.5 reseed candidates a read is typical at 1-3% error; 2 a read
+    # keeps drops (and the overflow retries they cause) rare
+    T = max_tasks or 2 * B
+    t_read, t_x, t_mi, t_valid, overflow = reseed_tasks(
+        pass1, T, split_len, split_width)
+    codes_t = torch.where(t_valid[:, None], codes[t_read], 4)
+    lens_t = torch.where(t_valid, lens[t_read], 0)
+    P = n_pos or L
+    ext = sweep_cuda.extend_all_positions_cuda(
+        fmi, codes_t.to(torch.int32), lens_t.to(torch.int32),
+        t_mi.to(torch.int32), check_initial=True, want_fail=False, fma=fma,
+        n_pos=P, stats=stats, stats_key="sweep_ticks_p2")
+    E = ext["E"]
+    pcol, mask = _left_max_mask(E, P, min_seed_len)
+    mask = (mask & t_valid[:, None] & (pcol <= t_x[:, None])
+            & (E > t_x[:, None]))
+    out = _emit_compact(mask, pcol.expand(T, P), E - 1, ext["k"], ext["l"],
+                        ext["s"], SmemBuf.empty(B, max_out, codes.device,
+                                                fmi.pos_dtype), rows=t_read)
+    return out, overflow
+
+
+def smems_seed_strategy_merged(fmi: DeviceFMIndex, codes, lens, ext,
+                               max_intv: int, stop_min_len: int,
+                               max_out: int, n_pos: int = 0,
+                               stats: dict = None) -> SmemBuf:
+    """Pass 3 from the pass-1 sweep's merged records (``ext``). A lane
+    whose walk died at s = 0 before stop_min_len walks on with an empty
+    interval until the stop length, an N or the read's end, none of
+    which emits: its end is reckoned here, not walked. Then the restart
+    chain (``sweep_cuda.strategy_chase_cuda``)."""
+    from . import sweep_cuda
+    B, L = codes.shape
+    P = n_pos or L
+    dev = codes.device
+    pcol = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
+    base_ok = (pcol < lens[:, None]) & (codes[:, :P] < 4)
+    # the first invalid column at or after p, over the whole read
+    iota = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    inv = (codes >= 4) | (iota >= lens[:, None])
+    first_inv = torch.where(inv, iota, L).flip(1).cummin(1).values.flip(1)
+    limit = first_inv[:, :P] - pcol
+    a0c = codes[:, :P].clamp(0, 3).long()
+    s1 = fmi.count[a0c + 1] - fmi.count[a0c]
+    died = ext["died_s"] | (base_ok & (s1 == 0))
+    f3 = ext["f3_s"]
+    zombie = base_ok & died & ~f3
+    zfail = zombie & (stop_min_len <= limit)
+    E3 = torch.where(f3, ext["f3_E"],
+                     torch.where(zfail, pcol + stop_min_len - 1,
+                                 torch.where(zombie, pcol + limit,
+                                             ext["E"])))
+    emit_col = base_ok & f3 & (ext["f3_ss"] > 0)
+    fail3 = f3 | zfail
+    hit_n = base_ok & ~fail3 & (E3 < lens[:, None])
+    nxt = torch.where(base_ok & (fail3 | hit_n), E3 + 1,
+                      torch.where(base_ok, lens[:, None], pcol + 1))
+    nxt = torch.maximum(nxt, pcol + 1)
+    return sweep_cuda.strategy_chase_cuda(
+        emit_col, E3.to(torch.int32), nxt.to(torch.int32), ext["f3_k"],
+        ext["f3_l"], ext["f3_ss"], lens, max_out, stats=stats)
+
+
+def collect_smems_device(fmi: DeviceFMIndex, codes, lens, *,
+                         min_seed_len: int, split_len: int,
+                         split_width: int, max_mem_intv: int,
+                         max_out: int = None, fma=None,
+                         stats: dict = None) -> SmemBuf:
+    """The sweep engine's three passes and the final per-read (m, n) sort
+    (mem_collect_smem, src/bwamem.cpp:648-795). Pass 1 and pass 3 share
+    one sweep (merged records); the reseed pass runs its own over the
+    compacted task list. A read that lost a reseed task to the budget
+    gets its count saturated to the buffer width (the retry ladder's
+    signal). codes [B, L] int32, lens [B] int32, both on fmi's device;
+    `fma` a DeviceFmaTable at fmi's position dtype, or None."""
+    from . import sweep_cuda
+    B, L = codes.shape
+    dev = codes.device
+    M = max_out or L
+    # no SMEM can start past L - min_seed_len: skip those sweep lanes
+    P = int(np.clip(L - min_seed_len + 1, 1, L))
+    lens = lens.to(torch.int32)
+    ones = torch.ones((B,), dtype=torch.int32, device=dev)
+    merge = max_mem_intv > 0
+    ext = sweep_cuda.extend_all_positions_cuda(
+        fmi, codes, lens, ones, check_initial=True, want_fail=False,
+        fma=fma, p3_max_intv=max_mem_intv if merge else 0,
+        p3_stop=(min_seed_len + 1) if merge else 0, n_pos=P, stats=stats,
+        stats_key="sweep_ticks_p1")
+    E = ext["E"]
+    pcol, mask = _left_max_mask(E, P, min_seed_len)
+    p1 = _emit_compact(mask, pcol.expand(B, P), E - 1, ext["k"], ext["l"],
+                       ext["s"], SmemBuf.empty(B, M, dev, fmi.pos_dtype))
+    p2, reseed_of = smems_reseed(fmi, codes, lens, p1, split_len,
+                                 split_width, min_seed_len, M, fma=fma,
+                                 n_pos=P, stats=stats)
+    parts = [p1, p2]
+    if merge:
+        parts.append(smems_seed_strategy_merged(
+            fmi, codes, lens, ext, max_mem_intv, min_seed_len + 1, M,
+            n_pos=P, stats=stats))
+    comb = concat_smems(*parts)
+    valid = torch.cat([torch.arange(b.m.shape[1], device=dev)[None, :]
+                       < b.cnt[:, None] for b in parts], dim=1)
+    # m, n < 2^15 for any supported read length
+    key = torch.where(valid, (comb.m << 16) | comb.n, 1 << 30)
+    _, perm = torch.sort(key, dim=1, stable=True)
+    g = lambda a: a.gather(1, perm)
+    cnt = torch.where(reseed_of, comb.m.shape[1], comb.cnt)
+    return SmemBuf(g(comb.m), g(comb.n), g(comb.k), g(comb.l), g(comb.s),
+                   cnt.to(torch.int32))

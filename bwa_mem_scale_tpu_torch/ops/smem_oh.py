@@ -22,7 +22,8 @@ depth or the reseed lane budget, so the caller's capacity check sends
 it to the retry ladder.
 
 A lane that reaches DONE is a strict no-op, so the loops test their
-exit condition (a host sync on a GPU) once every ``CHECK_EVERY`` ticks.
+exit condition (a host sync on a GPU) once every ``smem.CHECK_EVERY``
+ticks (``smem.run_lockstep``).
 
 ``collect_smems_oh`` runs passes 1 and 2 through
 ``smem_cuda.one_pos_machine_cuda`` and pass 3 through
@@ -36,7 +37,8 @@ from __future__ import annotations
 import torch
 
 from .occ import DeviceFMIndex, backward_ext_all4
-from .smem import SmemBuf, concat_smems, compact_indices, _emit_compact
+from .smem import (SmemBuf, concat_smems, _emit_compact, reseed_tasks,
+                   run_lockstep)
 from .smem_cuda import (one_pos_machine_cuda,
                         seed_strategy_machine_cuda)
 
@@ -45,8 +47,6 @@ P_FWD = 1
 P_BSCAN = 2
 P_BTAIL = 3
 P_DONE = 4
-
-CHECK_EVERY = 8
 
 
 def _col(arr: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -82,18 +82,6 @@ class _Emitter:
     def result(self, cnt=None) -> SmemBuf:
         m, n, k, l, s = (b[:, :self.M] for b in self.bufs)
         return SmemBuf(m, n, k, l, s, self.cnt if cnt is None else cnt)
-
-
-def _run(body, phase_ref, stats, key):
-    """Run `body` until every lane is DONE, testing every CHECK_EVERY
-    ticks; count ticks into stats[key]."""
-    ticks = 0
-    while bool((phase_ref() != P_DONE).any()):
-        for _ in range(CHECK_EVERY):
-            body()
-        ticks += CHECK_EVERY
-    if stats is not None:
-        stats[key] = stats.get(key, 0) + ticks
 
 
 def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
@@ -292,7 +280,7 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
         st.update(x=x2, of=of, cntB=cntB, mA=mA, p=p2, rev=rev,
                   curr_s=curr_s)
 
-    _run(body, lambda: st["phase"], stats, stats_key)
+    run_lockstep(body, lambda: st["phase"] != P_DONE, stats, stats_key)
     one_pos_machine.last_steps = st["steps"]
     return out.result(torch.where(st["of"], max_out + 1, out.cnt))
 
@@ -358,31 +346,10 @@ def seed_strategy_machine(fmi: DeviceFMIndex, codes, lens, max_intv: int,
         st["phase"] = torch.where(fin, P_DONE, phase2)
         st["x"] = xb
 
-    _run(body, lambda: st["phase"], stats, "seed_ticks_p3")
+    run_lockstep(body, lambda: st["phase"] != P_DONE, stats,
+                 "seed_ticks_p3")
     seed_strategy_machine.last_steps = st["steps"]
     return out.result()
-
-
-def reseed_tasks(p1: SmemBuf, T: int, split_len: int, split_width: int):
-    """Pass 2's tasks from pass 1's SMEMs: the midpoint of each SMEM of
-    at least split_len bases with at most split_width occurrences, at a
-    minimum interval of its occurrences + 1, the first T in read order.
-    Returns (t_read, t_x, t_mi, t_valid) [T] and the reads whose
-    candidates overflowed the budget T [B]."""
-    B, Me = p1.m.shape
-    valid = torch.arange(Me, device=p1.m.device)[None, :] < p1.cnt[:, None]
-    cand = (valid & ((p1.n + 1 - p1.m) >= split_len)
-            & (p1.s <= split_width))
-    flat = cand.reshape(B * Me)
-    # reseed lane budget: candidates past T force the retry ladder
-    order, t_valid = compact_indices(flat, T)
-    rank = torch.cumsum(flat.to(torch.int32), 0) - 1
-    reseed_of = (flat & (rank >= T)).reshape(B, Me).any(1)
-    t_read = (order // Me).long()
-    t_slot = (order % Me).long()
-    t_x = (p1.n[t_read, t_slot] + 1 + p1.m[t_read, t_slot]) >> 1
-    t_mi = torch.where(t_valid, p1.s[t_read, t_slot] + 1, 1)
-    return t_read, t_x, t_mi, t_valid, reseed_of
 
 
 def collect_smems_oh(fmi: DeviceFMIndex, codes, lens, *,

@@ -51,7 +51,7 @@ from ..ops.chain_cuda import chain_filter_cuda, chain_seeds_cuda
 from ..ops.emf import FW_MATCHED, RC_MATCHED
 from ..ops.occ import DeviceFMIndex
 from ..ops.sal import expand_and_lookup
-from ..ops.smem import compact_indices
+from ..ops.smem import collect_smems_device, compact_indices
 from ..ops.smem_oh import collect_smems_oh
 from ..ops.window import take_windows, ref_windows
 from .perfect import perfect_regs
@@ -75,7 +75,8 @@ class PipelineConfig:
     max_regs: int = 64                   # extension candidates per read
     max_pairs: int = 4096                # extension pairs per batch
     target_pad: int = 8
-    # only "onehot" is ported; the CLI always selects it
+    # "sweep" (ops/smem.py, the FMA table's engine) or "onehot"
+    # (ops/smem_oh.py, the CLI's default); "readlane" is not ported
     seed_engine: str = "sweep"
     seed_lanes: Optional[int] = None
     # "auto": the CUDA kernel for CUDA tensors, the plain PyTorch
@@ -118,7 +119,7 @@ def _stage(prof: Optional[StageProfile], name: str):
 
 def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
                       L: int, *, opt: MemOptions, cfg: PipelineConfig,
-                      prof: Optional[StageProfile] = None,
+                      fma=None, prof: Optional[StageProfile] = None,
                       stats: Optional[dict] = None) -> dict:
     """Seeding -> chaining -> extension for one batch.
 
@@ -126,11 +127,14 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     JAX package's output dict: per-pair fields, ``packed [PX, 14]``
     int32 and ``meta [B, 2]`` float32 for the host, and the per-read
     overflow flags. Reference positions run at fmi's position dtype
-    (int64 on its int64 layout). `stats` collects loop tick counts."""
-    if cfg.seed_engine != "onehot":
+    (int64 on its int64 layout). Seeding takes cfg.seed_engine: "sweep"
+    (with `fma`, a DeviceFmaTable at fmi's position dtype, as each lane's
+    start) or "onehot" (which ignores `fma`). `stats` collects loop tick
+    counts."""
+    if cfg.seed_engine not in ("onehot", "sweep"):
         raise NotImplementedError(
             f"seed engine {cfg.seed_engine!r} is not ported yet "
-            f"(use seed_engine='onehot')")
+            f"(use seed_engine='sweep' or 'onehot')")
     if needs_seed_sw_filter(opt, L):
         raise NotImplementedError(
             f"reads of length {L} need the long-read seed-SW filter, "
@@ -142,14 +146,21 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     auto = 24 if fmi.pos_dtype == i32 else None
     ed, sd = cfg.seed_emit_depth, cfg.seed_stack_depth
     with _stage(prof, "seed"):
-        bufs = collect_smems_oh(
-            fmi, codes, lens,
-            min_seed_len=opt.min_seed_len, split_len=opt.split_len,
-            split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
-            max_out=cfg.max_smem_out or L,
-            emit_depth=auto if ed == "auto" else ed,
-            stack_depth=auto if sd == "auto" else sd,
-            reseed_factor=cfg.reseed_factor, stats=stats)
+        if cfg.seed_engine == "sweep":
+            bufs = collect_smems_device(
+                fmi, codes, lens,
+                min_seed_len=opt.min_seed_len, split_len=opt.split_len,
+                split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
+                max_out=cfg.max_smem_out or L, fma=fma, stats=stats)
+        else:
+            bufs = collect_smems_oh(
+                fmi, codes, lens,
+                min_seed_len=opt.min_seed_len, split_len=opt.split_len,
+                split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
+                max_out=cfg.max_smem_out or L,
+                emit_depth=auto if ed == "auto" else ed,
+                stack_depth=auto if sd == "auto" else sd,
+                reseed_factor=cfg.reseed_factor, stats=stats)
     with _stage(prof, "sal"):
         rbeg, seed_idx, coord_valid, total, coord_of = expand_and_lookup(
             fmi, bufs, opt.max_occ, cfg.max_coords, stats=stats)
@@ -374,7 +385,7 @@ class GpuAligner:
     RETRY2_BATCH = 8
 
     def __init__(self, idx: FMIndex, device, opt: MemOptions = None,
-                 cfg: PipelineConfig = None, emf=None):
+                 cfg: PipelineConfig = None, emf=None, fma=None):
         if not native_finalize.available():
             raise RuntimeError(
                 "the native finalizer (native/libfinalize.so) is required: "
@@ -391,6 +402,10 @@ class GpuAligner:
             self.RETRY2_BATCH = 16
         self.fmi = DeviceFMIndex.from_host(idx, self.device)
         self.dbns = DeviceBns.from_host(idx.bns, self.device)
+        # the FMA ladder table (ops/fma.py) at the index's position dtype,
+        # each sweep lane's start; every tier takes it
+        self.dfma = (fma.to_device(self.fmi.pos_dtype, self.device)
+                     if fma is not None else None)
         self.emf = emf               # host EMF table (probed on host)
         self.emf_hits = 0
         self.emf_checked = 0
@@ -459,8 +474,8 @@ class GpuAligner:
         lens = np.ascontiguousarray(lens, dtype=np.int32)
         c_dev, l_dev = self._to_device(codes, lens)
         out = self._extend(self.fmi, self.dbns, c_dev, l_dev,
-                           L=int(codes.shape[1]), prof=self.prof,
-                           stats=self.stats)
+                           L=int(codes.shape[1]), fma=self.dfma,
+                           prof=self.prof, stats=self.stats)
         self.batches += 1
         return (codes, lens, None, out)
 
@@ -476,7 +491,7 @@ class GpuAligner:
 
     def _run_device(self, fn, codes, lens, L):
         c_dev, l_dev = self._to_device(codes, lens)
-        out = fn(self.fmi, self.dbns, c_dev, l_dev, L=L)
+        out = fn(self.fmi, self.dbns, c_dev, l_dev, L=L, fma=self.dfma)
         return out, {"packed": out["packed"].cpu().numpy(),
                      "meta": out["meta"].cpu().numpy()}
 

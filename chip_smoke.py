@@ -8,10 +8,11 @@ Phases, in order; any failure exits non-zero:
   2. build:   compiles csrc/bsw.cu (the banded-SW kernel),
               csrc/probes.cu (the probe kernels), csrc/smem.cu (the
               FM walks: SMEM passes 1-2, pass 3 and the SA walk),
-              csrc/chain.cu (chaining and the chain filter) and
+              csrc/chain.cu (chaining and the chain filter),
+              csrc/sweep.cu (the sweep engine) and
               csrc/round_probe.cu (a warp's dependent round) from
               source, one nvcc each, all at once; prints ptxas's
-              registers and spills for each FM walk, chaining and BSW
+              registers and spills for each FM walk, sweep, chaining and BSW
               kernel (for the BSW kernel one line an instantiation,
               failing on a spill at K = 4 or 5 columns a lane) and the
               measured cost of a round.
@@ -100,8 +101,26 @@ Phases, in order; any failure exits non-zero:
               ones past 2^32, a seed over the strands' junction), each
               against its plain version; the layout's device bytes and
               hg38's, reckoned.
+  9. sweep:   the position-parallel sweep engine with the FMA ladder
+              table (csrc/sweep.cu): `smem-table` (K = 11) through the
+              CLI on the card, its seconds and the table's device bytes,
+              build_fma_table alone with its bound; SE `mem --seed-engine
+              sweep` on phase 4's reads, its SAM body byte-equal to phase
+              4's, both sweep kernels launched every device batch (the
+              sweep twice) and no one-hot seeding kernel, reads/s and `-v
+              4` stage seconds beside phase 4's; the same at the forced
+              int64 layout (int64 forms only); PE `mem --seed-engine
+              sweep` byte-equal to phase 7's; phase 5's batch and the
+              repeat batch through collect_smems_device with and without
+              the table, at both layouts: SmemBuf equal to the plain
+              versions', each launch as made (two sweeps, one chase)
+              against its plain version (records and SmemBuf, max_abs_err
+              0, per-lane steps), with its total and longest-lane steps,
+              bound (64 bytes and 45 operations an FM step), latency floor
+              (the longest lane's steps x 0.224 us), device and plain
+              times; the engines' seeding kernels side by side.
 
-Prints the kernel JSON line (all nineteen kernels, each with its bound: the
+Prints the kernel JSON line (all twenty-three kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -360,6 +379,7 @@ def check_sam(path, emf_hit, pos, is_rev):
 def phase_mem(dev, card, tmp):
     import torch
     from bwa_mem_scale_tpu_torch import cli
+    from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
     from bwa_mem_scale_tpu_torch.index.perfect import (
         emf_lookup_host, load_perfect_table)
     from bwa_mem_scale_tpu_torch.index.artifacts import load_index
@@ -387,10 +407,12 @@ def phase_mem(dev, card, tmp):
     sa_walk_cuda.launches = 0
     chain_seeds_cuda.launches = 0
     chain_filter_cuda.launches = 0
+    PROFILER.totals.clear()
     t0 = time.perf_counter()
     al = cli.mem(mem_argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    index_load = PROFILER.totals["index_load"]
     launches = {"banded_swa_batch": banded_swa_batch_cuda.launches,
                 "one_pos_machine": one_pos_machine_cuda.launches,
                 "seed_strategy_machine": seed_strategy_machine_cuda.launches,
@@ -433,7 +455,8 @@ def phase_mem(dev, card, tmp):
         f" seed {sec['seed']:.3f}, sal {sec['sal']:.3f}, chain "
         f"{sec['chain']:.3f}, bsw {sec['bsw']:.3f}  [{card}]")
     first = np.flatnonzero(~emf_hit)[:BATCH]
-    se = dict(argv=mem_argv, wall=wall, batches=al.batches, seconds=dict(sec))
+    se = dict(argv=mem_argv, wall=wall, batches=al.batches, seconds=dict(sec),
+              index_load=index_load)
     return launches, al, codes[first], lens[first], se
 
 
@@ -554,7 +577,14 @@ def walk_launch(dev, what, kernel, plain, args, plain_reps, kw=None):
     rounds = steps if rounds is None else rounds.long()
     want = plain(*args, **kw)
     torch.cuda.synchronize()
-    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    if isinstance(got, dict):                # the sweep's records
+        if set(got) != set(want):
+            raise SystemExit(f"slice: {what}: keys {sorted(got)} != "
+                             f"{sorted(want)}")
+        pairs = [(got[k], want[k]) for k in want]
+    else:
+        pairs = (list(zip(got, want)) if isinstance(got, tuple)
+                 else [(got, want)])
     bad = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
     err = max(float((a.double() - b.double()).abs().max()) if a.numel()
               else 0.0 for a, b in pairs)
@@ -575,11 +605,11 @@ def walk_launch(dev, what, kernel, plain, args, plain_reps, kw=None):
                      floor=longest * STEP_US * 1e-3)
 
 
-def log_walk(card, what, r, detail):
+def log_walk(card, what, r, detail, tag="slice"):
     trips = ("" if r["rounds"] == r["steps"] else
              f", {r['rounds']} rounds, the longest task "
              f"{r['longest_rounds']}")
-    log(f"[slice] {what}: equal to the plain version (max_abs_err "
+    log(f"[{tag}] {what}: equal to the plain version (max_abs_err "
         f"{r['err']}); {detail}, the longest lane {r['longest']}{trips}; "
         f"bound {r['bound'][0]:.6f} ms by {r['bound'][1]}, latency floor "
         f"{r['floor']:.5f} ms ({r['longest_rounds']} x {STEP_US} us); "
@@ -1027,7 +1057,7 @@ def phase_pe(dev, card, tmp):
     log(f"[pe -v 4] synchronised stage seconds over {al4.batches} batches:"
         f" seed {sec['seed']:.3f}, sal {sec['sal']:.3f}, chain "
         f"{sec['chain']:.3f}, bsw {sec['bsw']:.3f}  [{card}]")
-    return launches
+    return launches, dict(argv=pe_argv, wall=wall)
 
 
 # the int64 forms of the FM-walk and chaining kernels (phase 8): name,
@@ -1448,6 +1478,301 @@ def phase_probes(dev, card):
             for name, r in res.items()]
 
 
+# the sweep engine's kernels (phase 9, csrc/sweep.cu): name, wrapper
+# attribute of ops/sweep_cuda.py, and the JAX loop each replaces
+SWEEP_KERNELS = (
+    ("sweep_extend", "extend_all_positions_cuda",
+     "bwa_mem_scale_tpu/ops/smem.py:109"),
+    ("strategy_chase", "strategy_chase_cuda",
+     "bwa_mem_scale_tpu/ops/smem.py:468"))
+# a chase step: emit's byte and nxt's word (and at an emission the
+# record: E3 and k, l, s); the bounds tests 2, the emit test 1, the width
+# test 1, the next position's load, compare and select 3, the counts 2
+CHASE_OPS_PER_STEP = 9
+
+
+def sweep_wrappers():
+    """{kernel name: wrapper} of the sweep engine's two kernels."""
+    from bwa_mem_scale_tpu_torch.ops import sweep_cuda
+    return {name: getattr(sweep_cuda, attr)
+            for name, attr, _ in SWEEP_KERNELS}
+
+
+def sweep_kernel_launch(dev, card, what, kernel, plain, args, kw, nbytes,
+                        ops_per_step):
+    """One sweep-engine launch as made, through walk_launch (each output
+    and each lane's steps equal to the plain version's, the latency floor
+    from the longest lane's steps); its bound from nbytes(total steps,
+    the output) and ops_per_step a step."""
+    kw = {k: v for k, v in kw.items() if k != "stats"}
+    got, r = walk_launch(dev, what, kernel, plain, args, 1, kw)
+    r["bound"] = bound(nbytes(r["steps"], got), ops_per_step * r["steps"])
+    lanes = int((kernel.last_steps > 0).sum())
+    log_walk(card, what, r, f"{r['steps']} steps over {lanes} lanes",
+             tag="sweep")
+    return r
+
+
+def sweep_batch(dev, card, fmi, table, c, ln, batch):
+    """collect_smems_device on one batch with the kernels, every launch
+    recorded, equal to the whole call with the plain versions swapped in;
+    then each launch as made (two sweeps, one chase) against its plain
+    version with its steps, bound, floor and times. Returns the three
+    launches' numbers."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import smem, sweep_cuda
+    kw = dict(min_seed_len=19, split_len=28, split_width=10,
+              max_mem_intv=20)
+    real = {attr: getattr(sweep_cuda, attr) for _, attr, _ in SWEEP_KERNELS}
+    plain = {"extend_all_positions_cuda": smem.extend_all_positions,
+             "strategy_chase_cuda": smem.strategy_chase}
+    calls = {attr: [] for attr in real}
+
+    def recorder(attr, fn):
+        def record(*args, **k):
+            calls[attr].append((args, k))
+            return fn(*args, **k)
+        return record
+
+    outs = []
+    for swaps in ({a: recorder(a, fn) for a, fn in real.items()}, plain):
+        for attr, fn in swaps.items():
+            setattr(sweep_cuda, attr, fn)
+        try:
+            outs.append(smem.collect_smems_device(fmi, c, ln, fma=table,
+                                                  **kw))
+        finally:
+            for attr, fn in real.items():
+                setattr(sweep_cuda, attr, fn)
+    torch.cuda.synchronize()
+    bad = [f for f, a, b in zip(outs[0]._fields, *outs)
+           if not torch.equal(a, b)]
+    if bad:
+        raise SystemExit(f"sweep: {batch}: collect_smems_device differs "
+                         f"kernels vs plain: {bad}")
+    if [len(v) for v in calls.values()] != [2, 1]:
+        raise SystemExit(f"sweep: {batch}: calls "
+                         f"{ {k: len(v) for k, v in calls.items()} }")
+    got = outs[0]
+    log(f"[sweep] {batch}: collect_smems_device SmemBuf equal with the "
+        f"kernels and with the plain versions ({int(got.cnt.sum())} SMEMs, "
+        f"{int((got.cnt == got.m.shape[1]).sum())} reads saturated)")
+    pb = fmi.pos_dtype.itemsize
+    K_eff = 0 if table is None else min(table.K, kw["min_seed_len"])
+    res = []
+    for n, (args, k) in enumerate(calls["extend_all_positions_cuda"]):
+        codes, B, P = args[1], args[1].shape[0], k["n_pos"]
+        merged = k.get("p3_max_intv", 0) > 0
+        # inputs (codes, lens, min_intv; the ladder entries a lane reads:
+        # its row's sizes and k, l), 64 bytes a step, the returned planes
+        # (E, k, l, s, valid; merged: f3_s, f3_E, f3_k/l/ss, died_s)
+        lane_out = 5 + 3 * pb + (6 + 3 * pb if merged else 0)
+
+        def nbytes(steps, _, B=B, P=P, codes=codes, lane_out=lane_out):
+            return (4 * (codes.numel() + 2 * B) + (K_eff + 2) * pb * B * P
+                    + SMEM_BYTES_PER_STEP * steps + lane_out * B * P)
+        what = (f"{batch}, sweep launch {n + 1}/2 (pass {n + 1}: B={B}, "
+                f"L={codes.shape[1]}, P={P}, FMA K_eff {K_eff})")
+        res.append(sweep_kernel_launch(
+            dev, card, what, real["extend_all_positions_cuda"],
+            smem.extend_all_positions, args, k, nbytes, SMEM_OPS_PER_STEP))
+    args, k = calls["strategy_chase_cuda"][0]
+    B, P, M = args[0].shape[0], args[0].shape[1], args[7]
+
+    def nbytes(steps, got):
+        # lens; emit's byte and nxt's word a step, the record (E3, k, l, s)
+        # an emission kept; the SmemBuf rows and counts written
+        kept = int(got.cnt.clamp(max=M).sum())
+        return (4 * B + 5 * steps + (4 + 3 * pb) * kept
+                + (8 + 3 * pb) * B * M + 4 * B)
+    res.append(sweep_kernel_launch(
+        dev, card, f"{batch}, chase launch (B={B}, P={P}, max_out={M})",
+        real["strategy_chase_cuda"], smem.strategy_chase, args, k, nbytes,
+        CHASE_OPS_PER_STEP))
+    return res
+
+
+def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
+    """Phase 9: the sweep engine with the FMA table. `smem-table` through
+    the CLI; SE `mem --seed-engine sweep` (its main path: counts zeroed
+    just before, read just after) with its SAM body byte-equal to phase
+    4's, and again at the forced int64 layout; PE byte-equal to phase 7's;
+    phase 5's batch and the repeat batch through collect_smems_device with
+    and without the table, each launch against its plain version, at both
+    layouts; the engines side by side. Returns {kernel name: numbers}."""
+    import torch
+    from bwa_mem_scale_tpu_torch import cli
+    from bwa_mem_scale_tpu_torch.ops import chain_cuda, smem_cuda
+    from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
+    from bwa_mem_scale_tpu_torch.ops.fma import build_fma_table
+    from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
+    from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
+    t0 = time.perf_counter()
+    g = se["argv"][0]
+    t1 = time.perf_counter()
+    if cli.main(["smem-table", g, "--device", "cuda"]) != 0:
+        raise SystemExit("sweep: smem-table failed")
+    cli_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    fma = cli.find_fma(g)
+    path = f"{g}.fma{fma.K}.npz"
+    dev_table = fma.to_device(torch.int32, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    build_fma_table(al.fmi, K=fma.K)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    # K - 1 forward steps for each of the 4^K K-mers, their ladders out
+    steps = (4 ** fma.K) * (fma.K - 1)
+    bld = bound(SMEM_BYTES_PER_STEP * steps + dev_table.nbytes(),
+                SMEM_OPS_PER_STEP * steps)
+    log(f"[sweep] smem-table (K={fma.K}) through the CLI on the card in "
+        f"{cli_s:.2f} s (build, copy to the host and the "
+        f"{os.path.getsize(path)}-byte file); build_fma_table alone {build_s * 1e3:.1f} ms (torch "
+        f"ops, host clock, synchronised; {steps} FM steps: bound "
+        f"{bld[0]:.4f} ms by {bld[1]}, latency floor "
+        f"{(fma.K - 1) * STEP_US * 1e-3:.5f} ms); the table on the card "
+        f"{dev_table.nbytes()} bytes at int32, "
+        f"{2 * dev_table.nbytes()} at int64; loading it (the file mapped, "
+        f"narrowed to int32, copied to the card) {load_s:.3f} s, which "
+        f"each sweep `mem` below pays in its index load  [{card}]")
+    del dev_table
+
+    def body(p):
+        with open(p) as f:
+            return [ln for ln in f if not ln.startswith("@PG")]
+    sw = sweep_wrappers()
+    others = {"one_pos_machine": smem_cuda.one_pos_machine_cuda,
+              "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
+              "sa_walk": smem_cuda.sa_walk_cuda,
+              "chain_seeds": chain_cuda.chain_seeds_cuda,
+              "chain_filter": chain_cuda.chain_filter_cuda,
+              "banded_swa_batch": banded_swa_batch_cuda}
+    counted = {**sw, **others}
+
+    def run(argv, wide=False):
+        """One `mem` run, its main path's counts: zeroed just before, read
+        just after."""
+        ctx = forced_int64() if wide else contextlib.nullcontext()
+        with ctx:
+            for w in counted.values():           # sweep path starts here
+                w.launches = w.launches64 = 0
+            PROFILER.totals.clear()
+            t1 = time.perf_counter()
+            a = cli.mem(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            n = {k: (w.launches, w.launches64) for k, w in counted.items()}
+            # sweep path ends here
+        a.index_load = PROFILER.totals["index_load"]
+        if a.cfg.seed_engine != "sweep" or a.dfma is None:
+            raise SystemExit("sweep: mem did not take the sweep with the "
+                             "table")
+        for name in sw:
+            want = (2 if name == "sweep_extend" else 1) * a.batches
+            got = n[name][1] if wide else n[name][0]
+            if got < want or (wide and n[name][0] != n[name][1]):
+                raise SystemExit(f"sweep: {name} launched {n[name]} times "
+                                 f"(all, int64) over {a.batches} batches")
+        for name in ("one_pos_machine", "seed_strategy_machine"):
+            if n[name][0]:
+                raise SystemExit(f"sweep: the one-hot {name} kernel ran "
+                                 f"{n[name][0]} times on the sweep path")
+        for name in ("sa_walk", "chain_seeds", "chain_filter",
+                     "banded_swa_batch"):
+            if n[name][0] < a.batches:
+                raise SystemExit(f"sweep: {name} launched {n[name][0]} "
+                                 f"times over {a.batches} batches")
+        return a, wall, {k: v[1] if wide else v[0] for k, v in n.items()}
+
+    argv = [g, se["argv"][1], "-o", os.path.join(tmp, "sweep.sam"),
+            *se["argv"][4:], "--seed-engine", "sweep"]
+    al_s, wall, launches = run(argv)
+    if body(argv[3]) != body(se["argv"][3]):
+        raise SystemExit("sweep: the SE SAM differs from phase 4's")
+    per = {k: float(v) / al_s.batches for k, v in sorted(al_s.stats.items())
+           if k.startswith(("sweep", "chase"))}
+    log(f"[sweep] SE mem --seed-engine sweep with the table: SAM body "
+        f"byte-equal to phase 4's; {N_READS} reads in {wall:.2f} s = "
+        f"{N_READS / wall:.1f} reads/s (phase 4, one-hot: {se['wall']:.2f} "
+        f"s = {N_READS / se['wall']:.1f}); launches {launches} over "
+        f"{al_s.batches} device batches; overflow-retried reads "
+        f"{al_s.overflow_retried}; index load (the table's included) "
+        f"{al_s.index_load:.3f} s (phase 4: {se['index_load']:.3f})  "
+        f"[{card}]")
+    log("[sweep] per batch: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in per.items()))
+    al4 = cli.mem(argv + ["-v", "4"])
+    sec, s1 = al4.prof.seconds, se["seconds"]
+    log("[sweep -v 4] synchronised stage seconds, sweep (phase 4, one-hot): "
+        + ", ".join(f"{k} {sec[k]:.3f} ({s1[k]:.3f})"
+                    for k in ("seed", "sal", "chain", "bsw")) + f"  [{card}]")
+    argv64 = [g, se["argv"][1], "-o", os.path.join(tmp, "sweep64.sam"),
+              *se["argv"][4:], "--seed-engine", "sweep"]
+    al64, wall64, launches64 = run(argv64, wide=True)
+    if al64.fmi.pos_dtype != torch.int64 or body(argv64[3]) != body(
+            se["argv"][3]):
+        raise SystemExit("sweep: the forced int64 SE SAM differs from phase "
+                         "4's")
+    log(f"[sweep] SE sweep at the forced int64 layout: SAM body byte-equal "
+        f"to phase 4's; {wall64:.2f} s = {N_READS / wall64:.1f} reads/s; "
+        f"int64-form launches {launches64}  [{card}]")
+    pe_sam = os.path.join(tmp, "pe_sweep.sam")
+    pe_argv = [*pe["argv"][:3], "-o", pe_sam, *pe["argv"][5:],
+               "--seed-engine", "sweep"]
+    al_p, wall_p, launches_p = run(pe_argv)
+    if body(pe_sam) != body(pe["argv"][4]):
+        raise SystemExit("sweep: the PE SAM differs from phase 7's")
+    log(f"[sweep] PE mem --seed-engine sweep: SAM body byte-equal to phase "
+        f"7's; {2 * N_PAIRS} reads in {wall_p:.2f} s = "
+        f"{2 * N_PAIRS / wall_p:.1f} reads/s (phase 7: {pe['wall']:.2f} s); "
+        f"launches {launches_p} over {al_p.batches} batches; index load "
+        f"{al_p.index_load:.3f} s  [{card}]")
+
+    c = torch.as_tensor(codes, device=dev)
+    ln = torch.as_tensor(lens, device=dev)
+    idx_r, codes_r, lens_r = repeat_batch(BATCH, READ_LEN)
+    fmi_r = {w: DeviceFMIndex.from_host(idx_r, dev, force_int64=w)
+             for w in (False, True)}
+    fma_r = build_fma_table(fmi_r[False], K=fma.K)
+    fmi_4 = {False: al.fmi,
+             True: DeviceFMIndex.from_host(al.idx, dev, force_int64=True)}
+    res = {}
+    for wide in (False, True):
+        pd = torch.int64 if wide else torch.int32
+        for batch, fmi, table, cc, ll in (
+                ("phase 5's batch", fmi_4[wide], fma, c, ln),
+                ("repeat batch", fmi_r[wide], fma_r,
+                 torch.as_tensor(codes_r, device=dev),
+                 torch.as_tensor(lens_r, device=dev))):
+            for use in (True, False):
+                label = (f"{batch}, {'with' if use else 'without'} the "
+                         f"table{', int64 form' if wide else ''}")
+                r = sweep_batch(dev, card, fmi, table.to_device(pd, dev)
+                                if use else None, cc, ll, label)
+                res[wide, batch, use] = r
+                torch.cuda.empty_cache()
+    p5 = "phase 5's batch"
+    one, bare = res[False, p5, True], res[False, p5, False]
+    oh = [*slice32["one_pos_machine"], slice32["seed_strategy_machine"]]
+    log(f"[sweep] engines on phase 5's batch, seeding kernels' device ms: "
+        f"sweep with the table {one[0]['ms']:.5f} + {one[1]['ms']:.5f} + "
+        f"chase {one[2]['ms']:.5f} = "
+        f"{sum(r['ms'] for r in one):.5f} ({sum(r['steps'] for r in one)} "
+        f"steps); without the table {sum(r['ms'] for r in bare):.5f} "
+        f"({sum(r['steps'] for r in bare)} steps); one-hot passes 1-3 "
+        f"{oh[0]['ms']:.5f} + {oh[1]['ms']:.5f} + "
+        f"{oh[2]['ms']:.5f} = {sum(r['ms'] for r in oh):.5f} "
+        f"({sum(r['steps'] for r in oh)} steps)  [{card}]")
+    log(f"[sweep] phase 9 took {time.perf_counter() - t0:.1f} s")
+    wide = res[True, p5, True]
+    return {"launches": launches, "launches64": launches64,
+            "sweep_extend": one[0], "strategy_chase": one[2],
+            "sweep_extend_int64": wide[0], "strategy_chase_int64": wide[2]}
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -1462,13 +1787,15 @@ def main():
 
     from bwa_mem_scale_tpu_torch.ops import bsw_cuda, chain_cuda, nvcc_build
     from bwa_mem_scale_tpu_torch.ops import probe_kernels, smem_cuda
+    from bwa_mem_scale_tpu_torch.ops import sweep_cuda
     from bwa_mem_scale_tpu_torch.tools import round_cost
-    with ThreadPoolExecutor(5) as ex:           # one nvcc a source, at once
+    with ThreadPoolExecutor(6) as ex:           # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
                   ex.submit(probe_kernels.build, force=True, verbose=True),
                   ex.submit(smem_cuda.build, force=True),
                   ex.submit(chain_cuda.build, force=True),
-                  ex.submit(round_cost.build, force=True)]
+                  ex.submit(round_cost.build, force=True),
+                  ex.submit(sweep_cuda.build, force=True)]
         probes_seconds = builds[1].result()[1]
         for b in builds:
             b.result()
@@ -1481,13 +1808,16 @@ def main():
         f"{os.path.relpath(chain_cuda.LIB.path, REPO)} in "
         f"{chain_cuda.LIB.build_seconds:.2f} s; csrc/round_probe.cu -> "
         f"{os.path.relpath(round_cost.LIB.path, REPO)} in "
-        f"{round_cost.LIB.build_seconds:.2f} s (in parallel)")
+        f"{round_cost.LIB.build_seconds:.2f} s; csrc/sweep.cu -> "
+        f"{os.path.relpath(sweep_cuda.LIB.path, REPO)} in "
+        f"{sweep_cuda.LIB.build_seconds:.2f} s (in parallel)")
     log(f"[build] one warp's dependent round (tools/round_cost.py: a "
         f"shared-memory load, a shuffle, a ballot), equal to its plain "
         f"model: {round_cost.round_us(dev):.5f} us, the chaining floors' "
         f"cost of a round  [{card}]")
     kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
-               for lib in ("smem_cuda", "bsw_cuda", "chain_cuda")}
+               for lib in ("smem_cuda", "bsw_cuda", "chain_cuda",
+                           "sweep_cuda")}
     # each FM-walk and chaining kernel in its int32 (P = int, mangled i)
     # and int64 (P = long long, x) forms
     for lib, kernel, label in (
@@ -1499,6 +1829,9 @@ def main():
             ("smem_cuda", "sa_walk_kernelI{}", "sa_walk_kernel<{}>"),
             ("chain_cuda", "chain_seeds_kernelI{}", "chain_seeds_kernel<{}>"),
             ("chain_cuda", "chain_filter_kernelI{}", "chain_filter_kernel<{}>"),
+            ("sweep_cuda", "sweep_extend_kernelI{}", "sweep_extend_kernel<{}>"),
+            ("sweep_cuda", "strategy_chase_kernelI{}",
+             "strategy_chase_kernel<{}>"),
             ("bsw_cuda", "bsw_tiled_kernel", "bsw_tiled_kernel")):
         for code, pos in (("i", "int32"), ("x", "int64")):
             (r, s), = [v for fn, v in kernels[lib].items()
@@ -1526,11 +1859,14 @@ def main():
         _, smem, p3, walk, seeds, flt = phase_slice(dev, card, al, codes,
                                                     lens)
         probes = phase_probes(dev, card)
-        phase_pe(dev, card, tmp)
+        _, pe = phase_pe(dev, card, tmp)
         wide = phase_int64(dev, card, tmp, se, al, codes, lens,
                            {"one_pos_machine": smem[0],
                             "seed_strategy_machine": p3, "sa_walk": walk,
                             "chain_seeds": seeds, "chain_filter": flt})
+        sweep = phase_sweep(dev, card, tmp, se, pe, al, codes, lens,
+                            {"one_pos_machine": smem,
+                             "seed_strategy_machine": p3})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"builds included")
 
@@ -1573,7 +1909,16 @@ def main():
         "plain_ms": wide[name]["plain_ms"],
         "bound_ms": wide[name]["bound"][0],
         "bound_by": wide[name]["bound"][1], "library_ms": None}
-        for name, source, replaces in INT64_FORMS]}))
+        for name, source, replaces in INT64_FORMS] + [{
+        "name": f"{name}{sfx}", "route": "cuda", "source": "csrc/sweep.cu",
+        "replaces": replaces,
+        "launches": sweep["launches64" if sfx else "launches"][name],
+        "max_abs_err": sweep[name + sfx]["err"],
+        "ms": sweep[name + sfx]["ms"],
+        "plain_ms": sweep[name + sfx]["plain_ms"],
+        "bound_ms": sweep[name + sfx]["bound"][0],
+        "bound_by": sweep[name + sfx]["bound"][1], "library_ms": None}
+        for sfx in ("", "_int64") for name, _, replaces in SWEEP_KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,8 @@
 """The port runs without JAX: `index`, `perfect-index`, single-end and
 paired-end `mem --device cpu` (pairs with `-I`, through the native PE
-stage and through the Python PE path, with equal SAM), the import of the
+stage and through the Python PE path, with equal SAM), `smem-table` and
+SE and PE `mem --seed-engine sweep` with its table (SAM equal to the
+one-hot engine's), the import of the
 probe entry points and `chip_smoke.py`'s input helpers, in a fresh
 interpreter in which importing `jax`, `jaxlib` or the JAX package
 `bwa_mem_scale_tpu` raises. No module loaded there comes from a file
@@ -39,7 +41,13 @@ RUNNER = textwrap.dedent("""
                  ["mem", "g", "r.fq", "-o", "out.sam", "--device", "cpu",
                   "--batch-reads", "16"],
                  ["mem", "g", "r1.fq", "r2.fq", "-o", "pe.sam", "--device",
-                  "cpu", "--batch-reads", "16", "-I", "200,20"]):
+                  "cpu", "--batch-reads", "16", "-I", "200,20"],
+                 ["smem-table", "g", "-k", "5", "--device", "cpu"],
+                 ["mem", "g", "r.fq", "-o", "sweep.sam", "--device", "cpu",
+                  "--batch-reads", "16", "--seed-engine", "sweep"],
+                 ["mem", "g", "r1.fq", "r2.fq", "-o", "pe_sweep.sam",
+                  "--device", "cpu", "--batch-reads", "16", "-I", "200,20",
+                  "--seed-engine", "sweep"]):
         assert main(argv) == 0, argv
     # the Python PE path, as taken when the native PE stage declines
     from bwa_mem_scale_tpu_torch.pipeline import native_finalize
@@ -48,6 +56,7 @@ RUNNER = textwrap.dedent("""
                  "--device", "cpu", "--batch-reads", "16", "-I",
                  "200,20"]) == 0
     import bwa_mem_scale_tpu_torch.ops.smem_cuda
+    import bwa_mem_scale_tpu_torch.ops.sweep_cuda
     import bwa_mem_scale_tpu_torch.tools.probe_cuda
     import bwa_mem_scale_tpu_torch.tools.probe_cuda_rates
     import os
@@ -122,6 +131,9 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     assert all(int(t[1]) & (0x40 if i % 2 == 0 else 0x80)
                for i, t in enumerate(prim))
     assert sum(1 for t in prim if not int(t[1]) & 0x4) >= 44
-    body = [[ln for ln in open(tmp_path / f) if not ln.startswith("@PG")]
-            for f in ("pe.sam", "pe_py.sam")]
-    assert body[0] == body[1]
+    body = {f: [ln for ln in open(tmp_path / f) if not ln.startswith("@PG")]
+            for f in ("out.sam", "sweep.sam", "pe.sam", "pe_py.sam",
+                      "pe_sweep.sam")}
+    assert body["pe.sam"] == body["pe_py.sam"] == body["pe_sweep.sam"]
+    assert body["out.sam"] == body["sweep.sam"]
+    assert (tmp_path / "g.fma5.npz").exists()
