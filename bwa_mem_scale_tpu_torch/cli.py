@@ -8,6 +8,8 @@
     python -m bwa_mem_scale_tpu_torch.cli mem g r1.fq r2.fq -o out.sam
     python -m bwa_mem_scale_tpu_torch.cli mem g interleaved.fq -p
     python -m bwa_mem_scale_tpu_torch.cli mem g reads.fq --seed-engine sweep
+    python -m bwa_mem_scale_tpu_torch.cli load-shm g [-g GB]
+    python -m bwa_mem_scale_tpu_torch.cli remove-shm g
 
 The ``mem`` options are the JAX CLI's (``_add_mem_opts`` and
 ``_opts_from_args`` are copies of its own), plus ``--device`` (default
@@ -17,10 +19,13 @@ runs the one-hot machine (``ops/smem_oh.py``) unless ``--seed-engine
 sweep`` names the position-parallel sweep (``ops/smem.py``), which takes
 the FMA ladder table that ``smem-table`` writes next to the index
 (``{prefix}.fma{K}.npz``; the one-hot machine ignores it, with the JAX
-CLI's note). What the port does not run yet is refused with a "not
-ported yet" error: several devices or hosts, the readlane engine and
-the ERT and k-step tables. An index of 2^31 positions or more (hg38)
-runs on the int64-position layout (``ops/occ.py``).
+CLI's note). ``load-shm`` stages the index and its tables into the
+in-memory store (``store.py``, the JAX package's layout, under a -g
+budget), ``remove-shm`` drops it, and ``mem`` attaches to a staged store
+before it reads any file. What the port does not run yet is refused
+with a "not ported yet" error: several devices or hosts, the readlane
+engine and the ERT and k-step tables. An index of 2^31 positions or more
+(hg38) runs on the int64-position layout (``ops/occ.py``).
 """
 
 from __future__ import annotations
@@ -385,9 +390,20 @@ def mem(argv):
 
     device = resolve_device(args.device)
     with PROFILER.phase("index_load"):
-        idx = load_index(args.prefix)
-        fma = find_fma(args.prefix)
-        emf = find_emf(args.prefix)
+        from . import store as _store
+        att = _store.attach(args.prefix)
+        if att is not None:
+            print(f"* attached in-memory index store at {att.root}",
+                  file=sys.stderr)
+            idx = _store.index_from_store(att.pieces["index"])
+            fma = (_store.fma_from_store(att.pieces["fma"])
+                   if att.has("fma") else None)
+            emf = (_store.emf_from_store(att.pieces["emf"])
+                   if att.has("emf") else None)
+        else:
+            idx = load_index(args.prefix)
+            fma = find_fma(args.prefix)
+            emf = find_emf(args.prefix)
         if args.ignore_alt:
             for a in idx.bns.anns:
                 a.is_alt = False
@@ -457,14 +473,38 @@ def cmd_mem(argv):
     return 0
 
 
+def cmd_load_shm(argv):
+    p = argparse.ArgumentParser(prog="bwa_mem_scale_tpu_torch load-shm")
+    p.add_argument("prefix")
+    p.add_argument("-g", dest="budget_gb", type=float, default=None,
+                   help="memory budget in GB (MEMSCALE policy)")
+    a = p.parse_args(argv)
+    from . import store as _store
+    root = _store.stage(a.prefix, a.budget_gb,
+                        log=lambda m: print(m, file=sys.stderr))
+    print(f"* index store ready at {root}", file=sys.stderr)
+    return 0
+
+
+def cmd_remove_shm(argv):
+    p = argparse.ArgumentParser(prog="bwa_mem_scale_tpu_torch remove-shm")
+    p.add_argument("prefix")
+    a = p.parse_args(argv)
+    from . import store as _store
+    ok = _store.remove(a.prefix)
+    print("* removed" if ok else "* no store found", file=sys.stderr)
+    return 0
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     cmds = {"index": cmd_index, "mem": cmd_mem,
             "perfect-index": cmd_perfect_index,
-            "smem-table": cmd_smem_table}
+            "smem-table": cmd_smem_table, "load-shm": cmd_load_shm,
+            "remove-shm": cmd_remove_shm}
     if not argv or argv[0] in ("-h", "--help"):
-        print("usage: bwa_mem_scale_tpu_torch "
-              "{index,perfect-index,smem-table,mem,version} ...",
+        print("usage: bwa_mem_scale_tpu_torch {index,perfect-index,"
+              "smem-table,mem,load-shm,remove-shm,version} ...",
               file=sys.stderr)
         return 1
     cmd, rest = argv[0], argv[1:]

@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .occ import DeviceFMIndex, forward_ext
+from .occ import DeviceFMIndex, forward_ext, host_tensor
 
 DEFAULT_FMA_K = 11  # reference ALL_SMEM_MAX_BP (src/FMI_search.h:106)
 
@@ -57,14 +57,8 @@ class FmaTable:
     def to_device(self, pos_dtype: torch.dtype, device="cpu"
                   ) -> DeviceFmaTable:
         npd = np.int64 if pos_dtype == torch.int64 else np.int32
-
-        def put(a):
-            a = np.asarray(a, npd)          # a copy unless already npd
-            if not a.flags.writeable:       # a read-only map of the file
-                a = a.copy()
-            return torch.as_tensor(a, device=torch.device(device))
-        return DeviceFmaTable(put(self.ladder_k), put(self.ladder_l),
-                              put(self.ladder_s), self.K)
+        return DeviceFmaTable(*(host_tensor(a, npd, device) for a in (
+            self.ladder_k, self.ladder_l, self.ladder_s)), self.K)
 
 
 def build_fma_table(fmi: DeviceFMIndex, K: int = DEFAULT_FMA_K,

@@ -33,6 +33,7 @@ callers mask.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -45,6 +46,23 @@ _M32 = 0xFFFFFFFF
 # an unused entry (a block no row reaches)
 HI_STEPS = 8
 NO_STEP = 1 << 62
+
+
+def host_tensor(a, dtype, device) -> torch.Tensor:
+    """The host array `a` as a tensor of numpy `dtype` on `device`. A
+    read-only array (a map of an index file or of a staged store) goes to
+    a card straight from the mapping, with no second host copy; on the CPU
+    it is copied, so that the tensor owns writable memory."""
+    a = np.asarray(a, dtype)
+    dev = torch.device(device)
+    if a.flags.writeable:
+        return torch.as_tensor(a, device=dev)
+    if dev.type == "cpu":
+        return torch.from_numpy(a.copy())
+    with warnings.catch_warnings():
+        # torch warns of a read-only buffer; .to() only reads it
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(a).to(dev)
 
 
 def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -135,14 +153,12 @@ class DeviceFMIndex:
             low = cnt.astype(np.int32)
         fused = np.concatenate([low, masks], axis=1)
         return cls(
-            count=torch.as_tensor(np.asarray(idx.count, pos), device=dev),
+            count=host_tensor(idx.count, pos, dev),
             cp_fused=torch.as_tensor(fused, device=dev),
             cp_hi_steps=(None if steps is None
                          else torch.as_tensor(steps, device=dev)),
-            sa_samples=torch.as_tensor(np.asarray(idx.sa_samples, pos),
-                                       device=dev),
-            ref=torch.as_tensor(np.array(idx.ref_string, np.uint8),
-                                device=dev),
+            sa_samples=host_tensor(idx.sa_samples, pos, dev),
+            ref=host_tensor(idx.ref_string, np.uint8, dev),
             sentinel_index=int(idx.sentinel_index),
             sa_compx=int(idx.sa_compx),
             l_pac=int(idx.bns.l_pac),

@@ -18,10 +18,15 @@ Counterpart of ``bwa_mem_scale_tpu/pipeline/align.py``. Per batch:
 ``GpuAligner`` carries the surface that ``SeStream`` and the driver
 call: ``dispatch_batch`` / ``fetch_extend`` / ``finalize_stage_*`` for
 single reads, ``dispatch_pairs`` / ``fetch_pairs`` / ``pe_post`` for
-pairs. JAX's jitted programs become cached configurations: the retry
-tiers are ``seed_chain_extend`` bound to larger capacities.
-``fetch_extend`` is the device sync point (``.cpu()`` of ``packed``
-and ``meta``).
+pairs, and the JAX package's in-process single-end API: ``emf_filter``,
+``align_batch``, ``finalize_batch``, ``align_and_finalize`` and
+``align_reads_to_sam``. Those probe the EMF table on the device
+(``ops/emf_cuda.py``, the kernel of ``csrc/emf.cu``) when the table
+passes the residency gate (``EMF_DEVICE_BYTES``); the SE stream and the
+PE path probe it on the host. JAX's jitted programs become cached
+configurations: the retry tiers are ``seed_chain_extend`` bound to
+larger capacities. ``fetch_extend`` is the device sync point (``.cpu()``
+of ``packed``, ``meta`` and the probe's outputs).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import os
 import sys
 import time
 from functools import partial
@@ -40,6 +46,7 @@ import torch
 from ..config import MemOptions, MEM_F_PRIMARY5, needs_seed_sw_filter
 from ..index.artifacts import FMIndex
 from ..index.perfect import emf_lookup_host
+from ..io.sam import aln_to_sam_line
 from ..pipeline import native_finalize
 from ..ref.extend import AlnReg
 from ..ref.finalize import (sort_dedup_patch, mark_primary,
@@ -50,14 +57,15 @@ from ..ops.bsw import banded_swa_batch
 from ..ops.bsw_cuda import banded_swa_batch_cuda
 from ..ops.chain import DeviceBns
 from ..ops.chain_cuda import chain_filter_cuda, chain_seeds_cuda
-from ..ops.emf import FW_MATCHED, RC_MATCHED
+from ..ops.emf import DeviceEmf, FW_MATCHED, RC_MATCHED
+from ..ops.emf_cuda import emf_lookup_cuda
 from ..ops.occ import DeviceFMIndex
 from ..ops.sal import expand_and_lookup
 from ..ops.seedsw import seed_sw_filter
 from ..ops.smem import collect_smems_device, compact_indices
 from ..ops.smem_oh import collect_smems_oh
 from ..ops.window import take_windows, ref_windows
-from .perfect import perfect_regs
+from .perfect import perfect_regs, perfect_sam_records
 
 
 def _cal_max_gap(qlen, a, o_del, e_del, o_ins, e_ins, w):
@@ -416,7 +424,25 @@ class GpuAligner:
         # each sweep lane's start; every tier takes it
         self.dfma = (fma.to_device(self.fmi.pos_dtype, self.device)
                      if fma is not None else None)
-        self.emf = emf               # host EMF table (probed on host)
+        self.emf = emf               # host EMF table
+        # its device copy, made at the first device probe (mem's stream
+        # probes on the host and never reads it); None past the gate
+        self.demf: Optional[DeviceEmf] = None
+        self.emf_resident = False
+        if emf is not None:
+            # the JAX package's residency gate, its variable and default
+            # (4 GB, set for a TPU's HBM): a genome-scale table (hg38 at
+            # 2^30 slots is ~22 GB) stays on the host, where the stream
+            # probes it anyway
+            emf_bytes = (emf.loc.nbytes + emf.fp.nbytes + emf.cnt.nbytes
+                         + emf.fwless.nbytes)
+            if emf_bytes <= int(os.environ.get("EMF_DEVICE_BYTES",
+                                               4 << 30)):
+                self.emf_resident = True
+            else:
+                print(f"* EMF table ({emf_bytes / 1e9:.1f} GB) stays "
+                      f"host-resident (HBM budget); the streaming driver "
+                      f"probes it on host", file=sys.stderr)
         self.emf_hits = 0
         self.emf_checked = 0
         self.emf_hist = collections.Counter()
@@ -474,30 +500,61 @@ class GpuAligner:
                 torch.as_tensor(np.ascontiguousarray(lens, np.int32),
                                 device=self.device))
 
+    def _device_emf(self) -> DeviceEmf:
+        """The EMF table on the device, uploaded at the first call."""
+        if self.demf is None:
+            self.demf = DeviceEmf.from_host(self.emf, self.device)
+        return self.demf
+
+    def _probes_on_device(self, L: int) -> bool:
+        return self.emf_resident and L >= self.emf.seed_len
+
+    def emf_filter(self, codes: np.ndarray, lens: np.ndarray):
+        """The perfect-match prefilter (mem_kernel1_core's EMF pass,
+        src/bwamem.cpp:1085-1130) on the device: code, slot, loc and
+        n_loc as numpy arrays, or None without a device table or for
+        reads narrower than the seed."""
+        if not self._probes_on_device(int(codes.shape[1])):
+            return None
+        c_dev, l_dev = self._to_device(codes, lens)
+        out = emf_lookup_cuda(self._device_emf(), self.fmi.ref, c_dev,
+                              l_dev)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
     def dispatch_batch(self, codes: np.ndarray, lens: np.ndarray,
                        skip_emf: bool = False):
-        """Run the device stages of one batch. The EMF probe happens on
-        the host in the stream, so callers pass skip_emf=True."""
-        if not skip_emf and self.emf is not None:
-            raise NotImplementedError("the device EMF probe is not ported "
-                                      "yet; probe on the host (SeStream)")
+        """Run the device stages of one batch: the EMF probe (unless
+        skip_emf, or without a device table), the hit reads' lengths
+        zeroed on the device, then seeding to extension. Returns the
+        handle fetch_extend and finalize_stage_a take."""
         codes = np.ascontiguousarray(codes, dtype=np.int32)
         lens = np.ascontiguousarray(lens, dtype=np.int32)
         c_dev, l_dev = self._to_device(codes, lens)
+        pm = None
+        if not skip_emf and self._probes_on_device(int(codes.shape[1])):
+            pm = emf_lookup_cuda(self._device_emf(), self.fmi.ref, c_dev,
+                                 l_dev)
+            hit = (pm["code"] == FW_MATCHED) | (pm["code"] == RC_MATCHED)
+            l_dev = torch.where(hit, 0, l_dev)
         out = self._extend(self.fmi, self.dbns, c_dev, l_dev,
                            L=int(codes.shape[1]), fma=self.dfma,
                            prof=self.prof, stats=self.stats)
         self.batches += 1
-        return (codes, lens, None, out)
+        return (codes, lens, pm, out)
 
     def fetch_extend(self, handle):
-        """Copy packed and meta to the host (the device sync point).
+        """Copy packed, meta and the probe's code, slot and loc (one
+        stacked [B, 3] int64 copy) to the host: the device sync point.
         Returns the 5-tuple handle form finalize_stage_a consumes."""
         if len(handle) == 5:
             return handle
         codes, lens, pm, out = handle
         slot = {"packed": out["packed"].cpu().numpy(),
                 "meta": out["meta"].cpu().numpy()}
+        if pm is not None:
+            slot["pm_cs"] = torch.stack(
+                [pm["code"].long(), pm["slot"].long(), pm["loc"]],
+                dim=1).cpu().numpy()
         return (codes, lens, pm, out, {"slot": slot})
 
     def _run_device(self, fn, codes, lens, L):
@@ -648,8 +705,9 @@ class GpuAligner:
         SAM text; stage_b then returns bytes per read."""
         codes, lens, _, out, pf = self.fetch_extend(handle)
         pf = pf["slot"]
+        pm_records = self._perfect_records(pf, codes, lens)
         nat = self._finalize_native(pf, codes, lens, id_offset, read_ids,
-                                    sam_ctx=sam_ctx)
+                                    pm_records, sam_ctx=sam_ctx)
         if nat is not None:
             return nat
         # the native arena declined this batch: Python record path on
@@ -665,17 +723,37 @@ class GpuAligner:
                 else id_offset + np.arange(codes.shape[0], dtype=np.int64))
         recs = self._records_from_regs(
             codes, lens, np.ones(codes.shape[0], bool), all_regs, rids)
+        recs.update(pm_records)
         records = [recs[i] for i in range(codes.shape[0])]
         if sam_ctx is not None:
             return ("pysam", records, sam_ctx, codes, lens)
-        return ("native", records)
+        return ("native", records, {})
+
+    def _perfect_records(self, pf, codes, lens) -> dict:
+        """The device probe's hits as records (mem_perfect2sam), counted
+        in the EMF histogram: {batch index: [Aln, ...]}; {} when the
+        batch was not probed on the device."""
+        if "pm_cs" not in pf:
+            return {}
+        cs = pf["pm_cs"]
+        code, slot, loc = cs[:, 0], cs[:, 1], cs[:, 2]
+        hit = (code == FW_MATCHED) | (code == RC_MATCHED)
+        self.emf_checked += len(lens)
+        self.emf_hits += int(hit.sum())
+        self._emf_count(code)
+        opt, bns, ref = self.opt, self.idx.bns, self.idx.ref_string
+        return {int(i): perfect_sam_records(
+            opt, bns, self.emf, ref, codes[i, : lens[i]].astype(np.uint8),
+            int(code[i]), int(slot[i]), loc0=int(loc[i]))
+            for i in np.flatnonzero(hit)}
 
     def _finalize_native(self, pf, codes, lens, id_offset, read_ids,
-                         sam_ctx=None):
+                         pm_records, sam_ctx=None):
         """Native stage a: ('sam', bytes per read) or ('native', records
-        per read), or None when the native arena declined. Overflow
-        reads come back None in defer_overflow sam mode (the stream
-        retries them as a backlog), else via the Python retry path."""
+        per read, pm_records), or None when the native arena declined.
+        Overflow reads come back None in defer_overflow sam mode (the
+        stream retries them as a backlog), else via the Python retry
+        path. The EMF hits' records (pm_records) replace theirs."""
         from ..io.sam import compose_sam_python
         opt, bns = self.opt, self.idx.bns
         pk, meta = pf["packed"], pf["meta"]
@@ -719,6 +797,9 @@ class GpuAligner:
                 for i, recs in by_idx.items():
                     out_lines[i] = compose_sam_python(
                         opt, bns, codes[i, : lens[i]], recs, sam_ctx, i)
+            for i, recs in pm_records.items():
+                out_lines[i] = compose_sam_python(
+                    opt, bns, codes[i, : lens[i]], recs, sam_ctx, i)
             return ("sam", out_lines)
         out_records = [None] * B
         for i in proc.tolist():
@@ -728,7 +809,7 @@ class GpuAligner:
                 codes, lens, overflow, rids_arr)
             for i, recs in out_records_ov.items():
                 out_records[i] = recs
-        return ("native", out_records)
+        return ("native", out_records, pm_records)
 
     def _python_finalize_records(self, codes, lens, overflow, rids_arr):
         """Overflow reads' records via the retry ladder and the Python
@@ -768,7 +849,50 @@ class GpuAligner:
                                        codes[i, : lens[i]], r, sam_ctx, i)
                     if r is not None else None
                     for i, r in enumerate(recs)]
-        return stage[1]
+        _, out_records, pm_records = stage
+        for i, recs in pm_records.items():
+            out_records[i] = recs
+        return out_records
+
+    # -- the in-process single-end API ------------------------------------
+    def align_batch(self, codes: np.ndarray, lens: np.ndarray):
+        """codes [B, L] (nt4), lens [B]: each read's raw AlnReg list, the
+        overflowed reads rerun through the retry ladder (no EMF probe)."""
+        codes = np.ascontiguousarray(codes, dtype=np.int32)
+        lens = np.ascontiguousarray(lens, dtype=np.int32)
+        out, pf = self._run_device(self._extend, codes, lens,
+                                   int(codes.shape[1]))
+        all_regs, overflow = self._regs_from_device(out, codes,
+                                                    prefetched=pf)
+        return self._apply_overflow_retry(all_regs, overflow, codes, lens)
+
+    def finalize_batch(self, handle, id_offset: int = 0, read_ids=None):
+        """The host half of align_and_finalize for a dispatched batch.
+        read_ids, when given, are the reads' global ids (the hash_64
+        tiebreaks of a compacted backlog)."""
+        return self.finalize_stage_b(
+            self.finalize_stage_a(handle, id_offset, read_ids))
+
+    def align_and_finalize(self, codes: np.ndarray, lens: np.ndarray,
+                           id_offset: int = 0):
+        """The SE path to each read's SAM records: the device EMF probe,
+        seeding to extension, then the host records; a hit's records come
+        from the table (mem_perfect2sam)."""
+        return self.finalize_batch(self.dispatch_batch(codes, lens),
+                                   id_offset)
+
+    def align_reads_to_sam(self, batch, id_offset: int = 0) -> List[str]:
+        """SAM lines of a ReadBatch (each ending in a newline), in read
+        order."""
+        codes, lens = batch.padded_codes()
+        records_per_read = self.align_and_finalize(
+            codes.astype(np.int32), lens, id_offset)
+        lines = []
+        for read, records in zip(batch.reads, records_per_read):
+            for which in range(len(records)):
+                lines.append(aln_to_sam_line(self.opt, self.idx.bns, read,
+                                             len(records), records, which))
+        return lines
 
     # -- paired-end ------------------------------------------------------
     def dispatch_pairs(self, codes: np.ndarray, lens: np.ndarray):

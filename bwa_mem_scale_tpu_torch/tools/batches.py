@@ -1,5 +1,6 @@
 """Seeded read batches for measurements on the card: one batch of the
-4.6 Mbp single-end cell, and one from a genome with repeats."""
+4.6 Mbp single-end cell, one from a genome with repeats, and one whose
+reads reach the EMF probe's multi-location rescue."""
 
 from __future__ import annotations
 
@@ -54,3 +55,32 @@ def repeat_batch(n_reads: int = 512, read_len: int = 101):
         start = unit + rng.randint(0, 150 - read_len)
         codes[i] = bns.seq[start:start + read_len]
     return build_index(bns), codes, lens
+
+
+def rescue_batch(seed_len: int = 51, n_units: int = 64, copies: int = 4,
+                 read_len: int = 101):
+    """A 1 Mbp genome with n_units units of seed_len + 9 bp, each copied
+    to `copies` places 3 kbp apart, so that the copies share a prefix
+    longer than the seed and then differ; one exact read_len read a copy
+    and strand, each starting with the unit's first seed_len bases (the
+    reverse strand's as their reverse complement). An EMF table at
+    seed_len holds one entry a unit whose location is one copy's, so the
+    reads of the other copies reach the multi-location rescue. Returns
+    (the port's index, codes, lens, each read's copy position)."""
+    bns = demo_genome(1_000_000, seed=43, n_contigs=1)
+    rng = np.random.RandomState(44)
+    comp = np.array([3, 2, 1, 0, 4], dtype=np.uint8)
+    reads, where = [], []
+    for k in range(n_units):
+        unit = rng.randint(0, 4, seed_len + 9).astype(np.uint8)
+        for j in range(copies):
+            p = 2000 + (k * copies + j) * 3000
+            bns.seq[p:p + len(unit)] = unit
+            where.append(p)
+    for p in where:
+        reads.append(bns.seq[p:p + read_len])
+        q = p + seed_len - read_len
+        reads.append(comp[bns.seq[q:q + read_len][::-1]])
+    codes = np.stack(reads).astype(np.int32)
+    lens = np.full(len(reads), read_len, np.int32)
+    return build_index(bns), codes, lens, np.repeat(where, 2)

@@ -138,8 +138,31 @@ Phases, in order; any failure exits non-zero:
               job alone), device and plain times; the batch's peak
               device memory and its four BSW calls (past 767 columns,
               the tiled instantiation) equal to the plain BSW.
+ 11. emf:     the device EMF probe (csrc/emf.cu) behind the in-process
+              single-end API, and the in-memory index store: (a) phase
+              4's 10,000 reads through GpuAligner(..., emf=table)
+              .align_and_finalize in batches of 512 on phase 4's index
+              and table; every batch's EMF launch, as made, equal to its
+              plain version (max_abs_err 0), its codes equal to the host
+              probe's, the hits equal to phase 4's EMF count, every read's
+              primary equal to phase 4's SAM, the EMF kernel launched
+              once a batch and the SE kernels at least once; the API's
+              reads/s, one batch's kernel device ms, plain ms, the host
+              probe's ms, bound, latency floor (the longest read's
+              dependent trips x one dependent HBM trip, probe B on a 512
+              MiB table in this run) and the table's device bytes; (b) a
+              1 Mbp genome whose 64 units (60 bp, 4 copies each) share a
+              prefix longer than the seed (a table at -l 51): 512 exact
+              reads, each kernel output equal to the plain version's,
+              every read placed on its own copy, >= 100 of them through
+              the rescue; (c) the store staged into a temporary directory
+              under a -g budget (index and EMF table, not the FMA table),
+              attached, an aligner on the card from its read-only pieces,
+              run_alignment's SE SAM body byte-equal to phase 4's; the
+              load from the store beside the load from files (host
+              clock), and /dev/shm's size.
 
-Prints the kernel JSON line (all twenty-four kernels, each with its bound: the
+Prints the kernel JSON line (all twenty-five kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -475,7 +498,8 @@ def phase_mem(dev, card, tmp):
         f"{sec['chain']:.3f}, bsw {sec['bsw']:.3f}  [{card}]")
     first = np.flatnonzero(~emf_hit)[:BATCH]
     se = dict(argv=mem_argv, wall=wall, batches=al.batches, seconds=dict(sec),
-              index_load=index_load)
+              index_load=index_load, emf_hits=al.emf_hits, codes=codes,
+              lens=lens)
     return launches, al, codes[first], lens[first], se
 
 
@@ -2023,6 +2047,314 @@ def phase_longread(dev, card, tmp):
     return r
 
 
+# phase 11, the device EMF probe: the rescue batch's seed length; probe
+# B's table for one dependent trip past the 50 MB L2 (2^24 rows of 32
+# bytes, 512 MiB), and the ticks of its two runs
+RESCUE_SEED = 51
+HBM_ROWS, HBM_TICKS = 1 << 24, (64, 320)
+# integer operations of the probe (csrc/emf.cu): a 32-base word's packing
+# and hash 20, a probed slot's index, tests and ballots 8, a checked
+# window column's load, compare and clamp 6
+EMF_OPS_PER_WORD, EMF_OPS_PER_SLOT, EMF_OPS_PER_COL = 20, 8, 6
+
+
+def hbm_trip_us(dev):
+    """One dependent load's latency on a table past the L2: probe B
+    (csrc/probes.cu chain8_kernel, one lane) over HBM_ROWS random rows,
+    each call from another start row so that no chain is cached, the
+    marginal time of the extra ticks."""
+    import itertools
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import probe_kernels as pk
+    g = torch.Generator(device=dev).manual_seed(5)
+    tab = torch.randint(-2 ** 31, 2 ** 31 - 1, (HBM_ROWS, 8),
+                        dtype=torch.int32, device=dev, generator=g)
+    starts = itertools.cycle([s.clone() for s in torch.randint(
+        0, HBM_ROWS, (512, 1), dtype=torch.int32, device=dev,
+        generator=g)])              # each its own (aligned) allocation
+    t = [device_ms(lambda: pk.probe_b(tab, next(starts), n), 10, dev)
+         for n in HBM_TICKS]
+    del tab
+    return (t[1] - t[0]) * 1e3 / (HBM_TICKS[1] - HBM_TICKS[0])
+
+
+def emf_against_plain(args, got, what):
+    """max_abs_err of one EMF launch's four arrays against the plain
+    version on the same inputs (dtypes equal too); the plain version's
+    outputs and per-read work."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops.emf import emf_lookup
+    st = {}
+    want = emf_lookup(*args, stats=st)
+    torch.cuda.synchronize()
+    bad = [k for k in want if got[k].dtype != want[k].dtype]
+    if bad:
+        raise SystemExit(f"emf: {what}: the kernel's {bad} dtypes differ "
+                         f"from the plain version's")
+    err = max(int((got[k].long() - want[k].long()).abs().max())
+              for k in want) if len(got["code"]) else 0
+    if err:
+        raise SystemExit(f"emf: {what}: the kernel != plain (max_abs_err "
+                         f"{err})")
+    return err, want, st
+
+
+def emf_launch(dev, card, args, want, st, trip_us, what):
+    """One EMF launch's work, bound and latency floor from the plain
+    version's counts, and its times: the kernel's device ms (mean of 2,
+    around the plain version's) and the plain version's."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import emf_cuda
+    from bwa_mem_scale_tpu_torch.ops.emf import emf_lookup
+    demf, ref, c, ln = args
+    B, L = c.shape
+    n = ln.long().clamp(0, L)
+    cand = want["n_loc"] > 0
+    rescued = st["cands"] > 0
+    slots = int(st["slots"].sum())
+    ref_bytes = int(st["ref_bytes"].sum())
+    cands = int(st["cands"].sum())
+    # each read's columns and length, 12 bytes a probed slot, cnt, fwless
+    # and mlidx of a candidate, the windows to their first mismatch, a
+    # rescue's offsets and nfw and its list entries, the four outputs
+    nbytes = (4 * int(n.sum()) + 4 * B + 12 * slots + 9 * int(cand.sum())
+              + ref_bytes + 20 * int(rescued.sum()) + 8 * cands + 20 * B)
+    words = (demf.seed_len + 31) // 32
+    ops = (EMF_OPS_PER_WORD * words * B + EMF_OPS_PER_SLOT * slots
+           + EMF_OPS_PER_COL * ref_bytes)
+    trips = int(st["trips"].max())
+    r = dict(bound=bound(nbytes, ops), trips=trips,
+             floor=trips * trip_us * 1e-3, slots=slots, cands=cands,
+             rescued=int(rescued.sum()), ref_bytes=ref_bytes, B=B, L=L,
+             max_slots=int(st["slots"].max()))
+    cont = [c.contiguous(), ln.contiguous()]
+    ms = [device_ms(lambda: emf_cuda.launch(demf, ref, *cont), 20, dev)]
+    r["plain_ms"] = time_ms(lambda: emf_lookup(*args), 3, dev)
+    ms.append(device_ms(lambda: emf_cuda.launch(demf, ref, *cont), 20, dev))
+    r["ms"] = sum(ms) / 2
+    log(f"[emf] {what} (B={B}, L={L}): {slots} slots probed (longest "
+        f"{r['max_slots']}), {int(cand.sum())} candidates, {ref_bytes} "
+        f"reference bytes checked, {r['rescued']} reads through the rescue "
+        f"({cands} list entries); bound {r['bound'][0]:.6f} ms by "
+        f"{r['bound'][1]}; latency floor {r['floor']:.5f} ms (the longest "
+        f"read's {trips} dependent trips x {trip_us:.4f} us); kernel device "
+        f"time {r['ms']:.5f} ms (mean of 2), plain {r['plain_ms']:.3f} ms  "
+        f"[{card}]")
+    return r
+
+
+def primary_of(lines, out):
+    """Add each primary SAM line's (rname, pos, strand), or ("*",) when
+    unmapped, to `out` by read name."""
+    for ln in lines:
+        if ln.startswith("@"):
+            continue
+        t = ln.split("\t", 5)
+        flag = int(t[1])
+        if not flag & 0x900:
+            out[t[0]] = (("*",) if flag & 0x4
+                         else (t[2], int(t[3]), bool(flag & 0x10)))
+    return out
+
+
+def phase_emf(dev, card, tmp, se):
+    """Phase 11: (a) phase 4's reads through the in-process SE API with
+    the EMF table probed on the card, (b) the rescue batch, (c) the
+    in-memory index store (module docstring)."""
+    import shutil
+    import torch
+    from bwa_mem_scale_tpu_torch import store
+    from bwa_mem_scale_tpu_torch.config import MemOptions
+    from bwa_mem_scale_tpu_torch.index.artifacts import load_index
+    from bwa_mem_scale_tpu_torch.index.perfect import (
+        build_perfect_table, emf_lookup_host, load_perfect_table)
+    from bwa_mem_scale_tpu_torch.io.fastq import Read
+    from bwa_mem_scale_tpu_torch.io.sam import aln_to_sam_line
+    from bwa_mem_scale_tpu_torch.ops import emf_cuda
+    from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
+    from bwa_mem_scale_tpu_torch.ops.chain_cuda import (chain_filter_cuda,
+                                                        chain_seeds_cuda)
+    from bwa_mem_scale_tpu_torch.ops.emf import (DeviceEmf, FW_MATCHED,
+                                                 RC_MATCHED)
+    from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
+        one_pos_machine_cuda, sa_walk_cuda, seed_strategy_machine_cuda)
+    from bwa_mem_scale_tpu_torch.pipeline import align
+    from bwa_mem_scale_tpu_torch.pipeline.driver import run_alignment
+    from bwa_mem_scale_tpu_torch.tools.batches import rescue_batch
+    t_phase = time.perf_counter()
+    g, fq, sam4 = se["argv"][0], se["argv"][1], se["argv"][3]
+    codes, lens = se["codes"], se["lens"]
+    emf_path = f"{g}.emf{READ_LEN}.npz"
+    trip_us = hbm_trip_us(dev)
+    log(f"[emf] one dependent HBM trip (probe B, one lane over "
+        f"{HBM_ROWS} rows of 32 bytes, {HBM_TICKS[1] - HBM_TICKS[0]} "
+        f"extra ticks): {trip_us:.4f} us  [{card}]")
+
+    # (a) the in-process API on phase 4's reads
+    idx = load_index(g)
+    pt = load_perfect_table(emf_path)
+    opt = MemOptions()
+    al = align.GpuAligner(idx, dev, opt,
+                          align.PipelineConfig(seed_engine="onehot"), emf=pt)
+    real = align.emf_lookup_cuda
+    calls = []
+
+    def record(*args):                   # each batch's launch, as made
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    counted = (emf_cuda.emf_lookup_cuda, banded_swa_batch_cuda,
+               one_pos_machine_cuda, seed_strategy_machine_cuda,
+               sa_walk_cuda, chain_seeds_cuda, chain_filter_cuda)
+    align.emf_lookup_cuda = record
+    try:
+        for fn in counted:                   # the main path starts here
+            fn.launches = 0
+        t0 = time.perf_counter()
+        recs = []
+        for b0 in range(0, N_READS, BATCH):
+            recs += al.align_and_finalize(codes[b0:b0 + BATCH],
+                                          lens[b0:b0 + BATCH], id_offset=b0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+    finally:                                 # the main path ends here
+        align.emf_lookup_cuda = real
+    n_batches = -(-N_READS // BATCH)
+    if len(calls) != n_batches or launches["emf_lookup_cuda"] != n_batches:
+        raise SystemExit(f"emf: {len(calls)} EMF calls and "
+                         f"{launches['emf_lookup_cuda']} kernel launches "
+                         f"over {n_batches} batches, expected one a batch")
+    for name, n in launches.items():
+        if n < n_batches:
+            raise SystemExit(f"emf: the {name} kernel launched {n} times "
+                             f"over {n_batches} batches, fewer than one a "
+                             f"batch")
+    err_a, hits, host_ms = 0, 0, None
+    for i, (args, out) in enumerate(calls):
+        e, want, st = emf_against_plain(args, out, f"batch {i}")
+        err_a = max(err_a, e)
+        b0 = i * BATCH
+        cb, lb = codes[b0:b0 + BATCH], lens[b0:b0 + BATCH]
+        host = emf_lookup_host(pt, idx.ref_string, cb, lb)
+        if not np.array_equal(host["code"], out["code"].cpu().numpy()):
+            raise SystemExit(f"emf: batch {i}: the kernel's codes differ "
+                             f"from the host probe's")
+        hits += int(((host["code"] == FW_MATCHED)
+                     | (host["code"] == RC_MATCHED)).sum())
+        if i == 0:
+            first = (args, want, st)
+            host_ms = time_ms(lambda: emf_lookup_host(pt, idx.ref_string,
+                                                      cb, lb), 5,
+                              torch.device("cpu"))
+    if not hits == al.emf_hits == se["emf_hits"]:
+        raise SystemExit(f"emf: {al.emf_hits} hits through the API, "
+                         f"{hits} by the host probe, {se['emf_hits']} in "
+                         f"phase 4's mem")
+    with open(sam4) as f:
+        want4 = primary_of(f, {})
+    got = {}
+    for i, rr in enumerate(recs):
+        rr = rr or []
+        read = Read(f"r{i}", codes[i, :lens[i]].astype(np.uint8), None)
+        primary_of((aln_to_sam_line(opt, idx.bns, read, len(rr), rr, w)
+                    for w in range(len(rr))), got)
+    if got != want4:
+        bad = [k for k in want4 if got.get(k) != want4[k]]
+        raise SystemExit(f"emf: {len(bad)} primaries differ from phase 4's "
+                         f"SAM (first {bad[:3]}) or are missing")
+    demf = al.demf
+    log(f"[emf] the API (align_and_finalize, {n_batches} batches of "
+        f"{BATCH}): {N_READS} reads in {wall:.2f} s = {N_READS / wall:.1f} "
+        f"reads/s (host records included); every batch's EMF launch equal "
+        f"to its plain version (max_abs_err {err_a}) and its codes to the "
+        f"host probe's; {hits} hits, as phase 4's mem; every primary equal "
+        f"to phase 4's; launches {launches}; the table on the card "
+        f"{demf.nbytes() / 2 ** 20:.1f} MiB (ncap {demf.ncap}, max_probe "
+        f"{demf.max_probe})  [{card}]")
+    ra = emf_launch(dev, card, *first, trip_us, "batch 0's launch")
+    ra.update(err=err_a, launches=launches["emf_lookup_cuda"],
+              host_ms=host_ms)
+    log(f"[emf] the host probe (emf_lookup_host) on the same batch: "
+        f"{host_ms:.3f} ms (host clock)")
+
+    # (b) the multi-location rescue
+    ridx, rc, rl, where = rescue_batch(RESCUE_SEED)
+    rpt = build_perfect_table(ridx, seed_len=RESCUE_SEED)
+    rargs = (DeviceEmf.from_host(rpt, dev),
+             DeviceFMIndex.from_host(ridx, dev).ref,
+             torch.as_tensor(rc, device=dev), torch.as_tensor(rl, device=dev))
+    out = emf_cuda.emf_lookup_cuda(*rargs)
+    err_b, want, st = emf_against_plain(rargs, out, "the rescue batch")
+    code, loc = out["code"].cpu().numpy(), out["loc"].cpu().numpy()
+    if not (np.isin(code, (FW_MATCHED, RC_MATCHED)).all()
+            and (loc == where).all()):
+        raise SystemExit("emf: a rescue-batch read is not placed on its "
+                         "own copy")
+    rb = emf_launch(dev, card, rargs, want, st, trip_us,
+                    f"the rescue batch (-l {RESCUE_SEED}, max_probe "
+                    f"{rpt.max_probe})")
+    if rb["rescued"] < 100:
+        raise SystemExit(f"emf: {rb['rescued']} reads reached the rescue, "
+                         f"fewer than 100")
+    log(f"[emf] rescue batch: every read placed on its own copy (code 3 or "
+        f"4), {rb['rescued']} through the rescue, the kernel equal to its "
+        f"plain version (max_abs_err {err_b})")
+
+    # (c) the in-memory index store, staged into a temporary directory
+    sdir = os.path.join(tmp, "store")
+    arts = store.discover_artifacts(g)
+    budget = (os.stat(arts["index"]).st_size + os.stat(arts["emf"]).st_size
+              + (1 << 20)) / (1 << 30)
+    t0 = time.perf_counter()
+    root = store.stage(g, budget, store_dir=sdir, log=lambda m: None)
+    stage_s = time.perf_counter() - t0
+    cfg = align.PipelineConfig(seed_engine="onehot")
+
+    def from_files():
+        return align.GpuAligner(load_index(g), dev, opt, cfg,
+                                emf=load_perfect_table(emf_path))
+
+    def from_store():
+        att = store.attach(g, store_dir=sdir)
+        if att is None or sorted(att.pieces) != ["emf", "index"]:
+            raise SystemExit(f"emf: the store at {root} did not attach with "
+                             f"its index and EMF pieces")
+        return align.GpuAligner(store.index_from_store(att.pieces["index"]),
+                                dev, opt, cfg,
+                                emf=store.emf_from_store(att.pieces["emf"]))
+
+    loads, als = {}, {}
+    for how, fn in (("files", from_files), ("store", from_store),
+                    ("store", from_store), ("files", from_files)):
+        t0 = time.perf_counter()
+        als[how] = fn()
+        torch.cuda.synchronize()
+        loads.setdefault(how, []).append(time.perf_counter() - t0)
+    out_sam = os.path.join(tmp, "store.sam")
+    with open(out_sam, "w") as f:
+        n = run_alignment(als["store"], [fq], f, batch_reads=BATCH,
+                          verbosity=3)
+    body = lambda p: [ln for ln in open(p) if not ln.startswith("@")]
+    if n != N_READS or body(out_sam) != body(sam4):
+        raise SystemExit("emf: the SE SAM from the attached store differs "
+                         "from phase 4's")
+    shm = (f"{shutil.disk_usage('/dev/shm').total / 2 ** 20:.0f} MiB"
+           if os.path.isdir("/dev/shm") else "absent")
+    log(f"[emf] store: staged index + EMF table (budget {budget:.3f} GB, "
+        f"the FMA table left out) in {stage_s:.2f} s at {root}; index load "
+        f"with the aligner on the card, files {loads['files']} s, store "
+        f"{loads['store']} s (host clock; phase 4's mem index_load "
+        f"{se['index_load']:.3f} s); run_alignment SE from the store: SAM "
+        f"body byte-equal to phase 4's; /dev/shm {shm}  [{card}]")
+    store.remove(g, store_dir=sdir)
+    log(f"[emf] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    ra["err"] = max(err_a, err_b)
+    return ra
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -2037,16 +2369,17 @@ def main():
 
     from bwa_mem_scale_tpu_torch.ops import bsw_cuda, chain_cuda, nvcc_build
     from bwa_mem_scale_tpu_torch.ops import probe_kernels, smem_cuda
-    from bwa_mem_scale_tpu_torch.ops import seedsw_cuda, sweep_cuda
+    from bwa_mem_scale_tpu_torch.ops import emf_cuda, seedsw_cuda, sweep_cuda
     from bwa_mem_scale_tpu_torch.tools import round_cost
-    with ThreadPoolExecutor(7) as ex:           # one nvcc a source, at once
+    with ThreadPoolExecutor(8) as ex:           # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
                   ex.submit(probe_kernels.build, force=True, verbose=True),
                   ex.submit(smem_cuda.build, force=True),
                   ex.submit(chain_cuda.build, force=True),
                   ex.submit(round_cost.build, force=True),
                   ex.submit(sweep_cuda.build, force=True),
-                  ex.submit(seedsw_cuda.build, force=True)]
+                  ex.submit(seedsw_cuda.build, force=True),
+                  ex.submit(emf_cuda.build, force=True)]
         probes_seconds = builds[1].result()[1]
         for b in builds:
             b.result()
@@ -2063,14 +2396,16 @@ def main():
         f"{os.path.relpath(sweep_cuda.LIB.path, REPO)} in "
         f"{sweep_cuda.LIB.build_seconds:.2f} s; csrc/seedsw.cu -> "
         f"{os.path.relpath(seedsw_cuda.LIB.path, REPO)} in "
-        f"{seedsw_cuda.LIB.build_seconds:.2f} s (in parallel)")
+        f"{seedsw_cuda.LIB.build_seconds:.2f} s; csrc/emf.cu -> "
+        f"{os.path.relpath(emf_cuda.LIB.path, REPO)} in "
+        f"{emf_cuda.LIB.build_seconds:.2f} s (in parallel)")
     log(f"[build] one warp's dependent round (tools/round_cost.py: a "
         f"shared-memory load, a shuffle, a ballot), equal to its plain "
         f"model: {round_cost.round_us(dev):.5f} us, the chaining floors' "
         f"cost of a round  [{card}]")
     kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda",
-                           "sweep_cuda", "seedsw_cuda")}
+                           "sweep_cuda", "seedsw_cuda", "emf_cuda")}
     # each FM-walk and chaining kernel in its int32 (P = int, mangled i)
     # and int64 (P = long long, x) forms
     for lib, kernel, label in (
@@ -2086,7 +2421,8 @@ def main():
             ("sweep_cuda", "strategy_chase_kernelI{}",
              "strategy_chase_kernel<{}>"),
             ("bsw_cuda", "bsw_tiled_kernel", "bsw_tiled_kernel"),
-            ("seedsw_cuda", "local_sw_kernel", "local_sw_kernel")):
+            ("seedsw_cuda", "local_sw_kernel", "local_sw_kernel"),
+            ("emf_cuda", "emf_lookup_kernel", "emf_lookup_kernel")):
         for code, pos in (("i", "int32"), ("x", "int64")):
             (r, s), = [v for fn, v in kernels[lib].items()
                        if kernel.format(code) in fn]
@@ -2122,6 +2458,7 @@ def main():
                             {"one_pos_machine": smem,
                              "seed_strategy_machine": p3})
         sw = phase_longread(dev, card, tmp)
+        emf = phase_emf(dev, card, tmp, se)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"builds included")
 
@@ -2178,7 +2515,13 @@ def main():
         "replaces": "bwa_mem_scale_tpu/ops/seedsw.py:28",
         "launches": sw["launches"], "max_abs_err": sw["err"], "ms": sw["ms"],
         "plain_ms": sw["plain_ms"], "bound_ms": sw["bound"][0],
-        "bound_by": sw["bound"][1], "library_ms": None}]}))
+        "bound_by": sw["bound"][1], "library_ms": None}, {
+        "name": "emf_lookup", "route": "cuda", "source": "csrc/emf.cu",
+        "replaces": "bwa_mem_scale_tpu/ops/emf.py:89",
+        "launches": emf["launches"], "max_abs_err": emf["err"],
+        "ms": emf["ms"], "plain_ms": emf["plain_ms"],
+        "bound_ms": emf["bound"][0], "bound_by": emf["bound"][1],
+        "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,10 @@ stage and through the Python PE path, with equal SAM), single-end and
 paired-end `mem -W 10` on 250-300 bp reads (the long-read seed-SW
 filter, ops/seedsw.py), `smem-table` and
 SE and PE `mem --seed-engine sweep` with its table (SAM equal to the
-one-hot engine's), the import of the
+one-hot engine's), the in-process SE API (`align_reads_to_sam`, the EMF
+table probed on the device, here the CPU), `load-shm`, a `mem` that
+attaches to the staged store (SAM equal to `mem` from the files) and
+`remove-shm`, the import of the
 probe entry points and `chip_smoke.py`'s input helpers, in a fresh
 interpreter in which importing `jax`, `jaxlib` or the JAX package
 `bwa_mem_scale_tpu` raises. No module loaded there comes from a file
@@ -35,6 +38,7 @@ RUNNER = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Block())
+    import os
     REPO = sys.argv[1]
     sys.path.insert(0, REPO)
     from bwa_mem_scale_tpu_torch.cli import main
@@ -61,12 +65,32 @@ RUNNER = textwrap.dedent("""
     assert main(["mem", "g", "r1.fq", "r2.fq", "-o", "pe_py.sam",
                  "--device", "cpu", "--batch-reads", "16", "-I",
                  "200,20"]) == 0
+    # the in-process SE API with the device EMF probe
+    from bwa_mem_scale_tpu_torch.index.artifacts import load_index
+    from bwa_mem_scale_tpu_torch.index.perfect import load_perfect_table
+    from bwa_mem_scale_tpu_torch.io.fastq import read_fastq
+    from bwa_mem_scale_tpu_torch.pipeline.align import GpuAligner
+    al = GpuAligner(load_index("g"), "cpu",
+                    emf=load_perfect_table("g.emf60.npz"))
+    lines = al.align_reads_to_sam(next(read_fastq("r.fq")))
+    assert al.emf_hits > 0 and al.demf is not None, al.emf_hits
+    with open("api.sam", "w") as f:
+        f.writelines(lines)
+    # the in-memory index store, in a directory of the test's own
+    from bwa_mem_scale_tpu_torch import store
+    store.DEFAULT_STORE_DIR = os.path.abspath("shm")
+    for argv in (["load-shm", "g"],
+                 ["mem", "g", "r.fq", "-o", "shm.sam", "--device", "cpu",
+                  "--batch-reads", "16"],
+                 ["remove-shm", "g"]):
+        assert main(argv) == 0, argv
+    assert not os.listdir("shm")
+    import bwa_mem_scale_tpu_torch.ops.emf_cuda
     import bwa_mem_scale_tpu_torch.ops.seedsw_cuda
     import bwa_mem_scale_tpu_torch.ops.smem_cuda
     import bwa_mem_scale_tpu_torch.ops.sweep_cuda
     import bwa_mem_scale_tpu_torch.tools.probe_cuda
     import bwa_mem_scale_tpu_torch.tools.probe_cuda_rates
-    import os
     import numpy as np
     import chip_smoke
     chip_smoke.GENOME_BP, chip_smoke.N_READS = 20000, 8
@@ -146,9 +170,12 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     assert sum(1 for t in prim if not int(t[1]) & 0x4) >= 44
     body = {f: [ln for ln in open(tmp_path / f) if not ln.startswith("@PG")]
             for f in ("out.sam", "sweep.sam", "pe.sam", "pe_py.sam",
-                      "pe_sweep.sam")}
+                      "pe_sweep.sam", "shm.sam")}
     assert body["pe.sam"] == body["pe_py.sam"] == body["pe_sweep.sam"]
-    assert body["out.sam"] == body["sweep.sam"]
+    assert body["out.sam"] == body["sweep.sam"] == body["shm.sam"]
+    api = open(tmp_path / "api.sam").read().splitlines()
+    assert api == [ln.rstrip("\n") for ln in body["out.sam"]
+                   if not ln.startswith("@")]
     prim = _primaries(tmp_path / "long.sam")
     assert [t[0] for t in prim] == [f"l{i}" for i in range(8)]
     assert sum(1 for t in prim if not int(t[1]) & 0x4) >= 7
