@@ -3,6 +3,7 @@
     python -m bwa_mem_scale_tpu_torch.cli index g.fa -p g
     python -m bwa_mem_scale_tpu_torch.cli perfect-index g -l 101
     python -m bwa_mem_scale_tpu_torch.cli smem-table g -k 11
+    python -m bwa_mem_scale_tpu_torch.cli ert-index g [-k 12] [--max-depth 320]
     python -m bwa_mem_scale_tpu_torch.cli mem g reads.fq -o out.sam \\
         --device cuda
     python -m bwa_mem_scale_tpu_torch.cli mem g r1.fq r2.fq -o out.sam
@@ -19,13 +20,19 @@ runs the one-hot machine (``ops/smem_oh.py``) unless ``--seed-engine
 sweep`` names the position-parallel sweep (``ops/smem.py``), which takes
 the FMA ladder table that ``smem-table`` writes next to the index
 (``{prefix}.fma{K}.npz``; the one-hot machine ignores it, with the JAX
-CLI's note). ``load-shm`` stages the index and its tables into the
-in-memory store (``store.py``, the JAX package's layout, under a -g
-budget), ``remove-shm`` drops it, and ``mem`` attaches to a staged store
-before it reads any file. What the port does not run yet is refused
-with a "not ported yet" error: several devices or hosts, the readlane
-engine and the ERT and k-step tables. An index of 2^31 positions or more
-(hg38) runs on the int64-position layout (``ops/occ.py``).
+CLI's note). ``ert-index`` builds the ERT suffix trie
+(``{prefix}.ert{K}.npz``, ``index/ert.py``); ``mem`` loads it next to a
+full-SA index (``index -s 0``) and seeds with its descent
+(``ops/ert.py``) on every path, as the JAX CLI does (with no engine named
+the run reports the sweep engine); next to a sampled index the file is
+ignored with the JAX CLI's warning. ``load-shm`` stages the index and
+its tables into the in-memory store (``store.py``, the JAX package's
+layout, under a -g budget), ``remove-shm`` drops it, and ``mem``
+attaches to a staged store before it reads any file. What the port does
+not run yet is refused with a "not ported yet" error: several devices or
+hosts, the readlane engine and the k-step table. An index of 2^31
+positions or more (hg38) runs on the int64-position layout
+(``ops/occ.py``).
 """
 
 from __future__ import annotations
@@ -321,6 +328,44 @@ def find_fma(prefix: str):
     return None
 
 
+def cmd_ert_index(argv):
+    p = argparse.ArgumentParser(prog="bwa_mem_scale_tpu_torch ert-index")
+    p.add_argument("prefix")
+    p.add_argument("-k", dest="kmer", type=int, default=None)
+    p.add_argument("--max-depth", type=int, default=None)
+    args = p.parse_args(argv)
+    from .index.artifacts import load_index
+    from .index.ert import (build_ert_from_index, save_ert, DEFAULT_ERT_K,
+                            DEFAULT_MAX_DEPTH)
+    idx = load_index(args.prefix)
+    t0 = time.time()
+    ert = build_ert_from_index(idx, K=args.kmer or DEFAULT_ERT_K,
+                               max_depth=args.max_depth or DEFAULT_MAX_DEPTH)
+    path = save_ert(ert, args.prefix)
+    print(f"* wrote {path} ({ert.n_nodes} nodes) in "
+          f"{time.time() - t0:.1f}s", file=sys.stderr)
+    return 0
+
+
+def find_ert(prefix: str, idx):
+    """The ERT trie next to the index, if built (it needs a full-SA index,
+    the reference's ERT memory class)."""
+    from .index.ert import load_ert
+    for path in sorted(glob.glob(f"{prefix}.ert*.npz"), reverse=True):
+        try:
+            ert = load_ert(path)
+            if idx.sa_compx != 0:
+                print(f"* WARNING: {path} needs a full-SA index "
+                      f"(rebuild with index -s 0); ignoring",
+                      file=sys.stderr)
+                return None
+            return ert
+        except Exception as e:
+            print(f"* WARNING: ignoring unreadable ERT index {path}: "
+                  f"{e}", file=sys.stderr)
+    return None
+
+
 def find_emf(prefix: str):
     """The EMF perfect-match table next to the index, if built."""
     from .index.perfect import load_perfect_table
@@ -375,10 +420,8 @@ def mem(argv):
     if args.seed_engine == "readlane":
         _not_ported("--seed-engine readlane (the port seeds with the "
                     "one-hot machine or the sweep)")
-    for pattern, what in ((".ert*.npz", "the ERT index"),
-                          (".cp[23].npz", "the k-step table")):
-        if glob.glob(args.prefix + pattern):
-            _not_ported(f"{what} ({args.prefix}{pattern})")
+    if glob.glob(args.prefix + ".cp[23].npz"):
+        _not_ported(f"the k-step table ({args.prefix}.cp[23].npz)")
     opt = _opts_from_args(args)
 
     from .index.artifacts import load_index
@@ -400,10 +443,13 @@ def mem(argv):
                    if att.has("fma") else None)
             emf = (_store.emf_from_store(att.pieces["emf"])
                    if att.has("emf") else None)
+            ert = (_store.ert_from_store(att.pieces["ert"])
+                   if att.has("ert") else None)
         else:
             idx = load_index(args.prefix)
             fma = find_fma(args.prefix)
             emf = find_emf(args.prefix)
+            ert = find_ert(args.prefix, idx)
         if args.ignore_alt:
             for a in idx.bns.anns:
                 a.is_alt = False
@@ -412,14 +458,23 @@ def mem(argv):
         if emf is not None:
             print(f"* EMF perfect-match table loaded "
                   f"(seed_len={emf.seed_len})", file=sys.stderr)
-        engine = args.seed_engine or "onehot"
+        if ert is not None and idx.sa_compx == 0:
+            print(f"* ERT index loaded (K={ert.K}, {ert.n_nodes} nodes)",
+                  file=sys.stderr)
+        elif ert is not None:
+            ert = None
+        # the JAX CLI's rule: an auto-loaded ERT seeds, and with no engine
+        # named the run reports the sweep engine (the readlane engine,
+        # which would drop the trie, is refused above)
+        engine = args.seed_engine or ("sweep" if ert is not None
+                                      else "onehot")
         if engine == "onehot" and fma is not None:
             print(f"* note: {engine} seeding ignores the FMA table",
                   file=sys.stderr)
             fma = None
         aligner = GpuAligner(idx, device, opt,
                              PipelineConfig(seed_engine=engine), emf=emf,
-                             fma=fma)
+                             fma=fma, ert=ert)
     if args.verbosity >= 4:
         # synchronised per-stage device seconds (the -v 4 stage table)
         aligner.prof = StageProfile(device)
@@ -500,11 +555,11 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     cmds = {"index": cmd_index, "mem": cmd_mem,
             "perfect-index": cmd_perfect_index,
-            "smem-table": cmd_smem_table, "load-shm": cmd_load_shm,
-            "remove-shm": cmd_remove_shm}
+            "smem-table": cmd_smem_table, "ert-index": cmd_ert_index,
+            "load-shm": cmd_load_shm, "remove-shm": cmd_remove_shm}
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: bwa_mem_scale_tpu_torch {index,perfect-index,"
-              "smem-table,mem,load-shm,remove-shm,version} ...",
+              "smem-table,ert-index,mem,load-shm,remove-shm,version} ...",
               file=sys.stderr)
         return 1
     cmd, rest = argv[0], argv[1:]

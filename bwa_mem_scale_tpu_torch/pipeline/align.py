@@ -59,6 +59,7 @@ from ..ops.chain import DeviceBns
 from ..ops.chain_cuda import chain_filter_cuda, chain_seeds_cuda
 from ..ops.emf import DeviceEmf, FW_MATCHED, RC_MATCHED
 from ..ops.emf_cuda import emf_lookup_cuda
+from ..ops.ert import DeviceErt, collect_smems_ert
 from ..ops.occ import DeviceFMIndex
 from ..ops.sal import expand_and_lookup
 from ..ops.seedsw import seed_sw_filter
@@ -130,7 +131,7 @@ def _stage(prof: Optional[StageProfile], name: str):
 
 def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
                       L: int, *, opt: MemOptions, cfg: PipelineConfig,
-                      fma=None, prof: Optional[StageProfile] = None,
+                      fma=None, ert=None, prof: Optional[StageProfile] = None,
                       stats: Optional[dict] = None) -> dict:
     """Seeding -> chaining -> extension for one batch.
 
@@ -140,7 +141,9 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     overflow flags. Reference positions run at fmi's position dtype
     (int64 on its int64 layout). Seeding takes cfg.seed_engine: "sweep"
     (with `fma`, a DeviceFmaTable at fmi's position dtype, as each lane's
-    start) or "onehot" (which ignores `fma`). `stats` collects loop tick
+    start) or "onehot" (which ignores `fma`); with `ert` (an
+    ``ops/ert.DeviceErt`` of the same text) the ERT descent seeds instead,
+    whatever the engine, as in the JAX package. `stats` collects loop tick
     counts."""
     if cfg.seed_engine not in ("onehot", "sweep"):
         raise NotImplementedError(
@@ -153,7 +156,14 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     auto = 24 if fmi.pos_dtype == i32 else None
     ed, sd = cfg.seed_emit_depth, cfg.seed_stack_depth
     with _stage(prof, "seed"):
-        if cfg.seed_engine == "sweep":
+        if ert is not None:
+            bufs = collect_smems_ert(
+                ert, fmi.ref, codes, lens,
+                min_seed_len=opt.min_seed_len, split_len=opt.split_len,
+                split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
+                max_out=cfg.max_smem_out or L, pos_dtype=fmi.pos_dtype,
+                seq_len=2 * fmi.l_pac, stats=stats)
+        elif cfg.seed_engine == "sweep":
             bufs = collect_smems_device(
                 fmi, codes, lens,
                 min_seed_len=opt.min_seed_len, split_len=opt.split_len,
@@ -403,7 +413,7 @@ class GpuAligner:
     RETRY2_BATCH = 8
 
     def __init__(self, idx: FMIndex, device, opt: MemOptions = None,
-                 cfg: PipelineConfig = None, emf=None, fma=None):
+                 cfg: PipelineConfig = None, emf=None, fma=None, ert=None):
         if not native_finalize.available():
             raise RuntimeError(
                 "the native finalizer (native/libfinalize.so) is required: "
@@ -424,6 +434,15 @@ class GpuAligner:
         # each sweep lane's start; every tier takes it
         self.dfma = (fma.to_device(self.fmi.pos_dtype, self.device)
                      if fma is not None else None)
+        # the ERT (index/ert.py) on the device; when present it seeds every
+        # tier, whatever the engine. Its leaves resolve through the full SA
+        self.dert: Optional[DeviceErt] = None
+        if ert is not None:
+            if idx.sa_compx != 0:
+                raise ValueError("ERT mode needs a full-SA index "
+                                 "(build with sa_compx=0)")
+            self.dert = DeviceErt.from_host(ert, self.fmi.sa_samples,
+                                            idx.count, self.device)
         self.emf = emf               # host EMF table
         # its device copy, made at the first device probe (mem's stream
         # probes on the host and never reads it); None past the gate
@@ -538,6 +557,7 @@ class GpuAligner:
             l_dev = torch.where(hit, 0, l_dev)
         out = self._extend(self.fmi, self.dbns, c_dev, l_dev,
                            L=int(codes.shape[1]), fma=self.dfma,
+                           ert=self.dert,
                            prof=self.prof, stats=self.stats)
         self.batches += 1
         return (codes, lens, pm, out)
@@ -559,7 +579,8 @@ class GpuAligner:
 
     def _run_device(self, fn, codes, lens, L):
         c_dev, l_dev = self._to_device(codes, lens)
-        out = fn(self.fmi, self.dbns, c_dev, l_dev, L=L, fma=self.dfma)
+        out = fn(self.fmi, self.dbns, c_dev, l_dev, L=L, fma=self.dfma,
+                 ert=self.dert)
         return out, {"packed": out["packed"].cpu().numpy(),
                      "meta": out["meta"].cpu().numpy()}
 

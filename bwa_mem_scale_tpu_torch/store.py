@@ -5,9 +5,9 @@ same store directory, store names, manifest and piece layout, so that a
 store either package staged attaches in the other. ``stage``,
 ``attach`` and ``remove`` take ``store_dir=None`` for the module's
 ``DEFAULT_STORE_DIR`` as it is at the call (a test points the CLI
-elsewhere by setting that one name). The ERT piece's rebuilder waits
-for the port's ERT index (``mem`` refuses an ERT table before it
-attaches).
+elsewhere by setting that one name). Each piece has its rebuilder, the
+ERT's (``ert_from_store``) among them, so ``mem`` attached to a store
+seeds with a staged ERT as it does with the file.
 
 The reference keeps every index piece in named POSIX shared-memory
 segments so that (a) repeated runs skip deserialization and (b) many
@@ -223,3 +223,12 @@ def emf_from_store(arrs):
         mlidx=arrs["mlidx"], ml_off=arrs["ml_off"],
         ml_nfw=arrs["ml_nfw"], ml_locs=arrs["ml_locs"])
 
+
+def ert_from_store(arrs):
+    from .index.ert import ErtIndex
+    return ErtIndex(K=int(arrs["K"]), max_depth=int(arrs["max_depth"]),
+                    kmer_lo=arrs["kmer_lo"], kmer_cnt=arrs["kmer_cnt"],
+                    kmer_ptr=arrs["kmer_ptr"], node_lo=arrs["node_lo"],
+                    node_cnt=arrs["node_cnt"],
+                    child_ptr=arrs["child_ptr"],
+                    root_children=arrs["root_children"])

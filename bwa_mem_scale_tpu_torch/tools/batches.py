@@ -1,6 +1,7 @@
 """Seeded read batches for measurements on the card: one batch of the
-4.6 Mbp single-end cell, one from a genome with repeats, and one whose
-reads reach the EMF probe's multi-location rescue."""
+4.6 Mbp single-end cell, one from a genome with repeats, one of long
+exact reads from its repeats (the ERT's depth cap), and one whose reads
+reach the EMF probe's multi-location rescue."""
 
 from __future__ import annotations
 
@@ -27,14 +28,14 @@ def se_batch(n_reads: int = 512, read_len: int = 101):
     return build_index(bns), codes[pick], lens[pick]
 
 
-def repeat_batch(n_reads: int = 512, read_len: int = 101):
+REPEAT_UNIT = 1_000_000        # where repeat_genome's 150 bp unit starts
+
+
+def repeat_genome():
     """A 2 Mbp genome in three contigs (the last alt): its first 1 kbp
-    copied to 24 places (3 substitutions each), and a 150 bp unit at 1
-    Mbp copied to 599 more places 1.5 kbp apart (more hits than max_occ);
-    n_reads reads (1% substitutions), a quarter exact copies from the 1
-    kbp window and one in 32 from the unit, so that reads have tens of
-    chains that overlap on the query, some SMEMs are repetitive and the
-    interval stacks are deep. Returns (the port's index, codes, lens)."""
+    copied to 24 places (3 substitutions each), and a 150 bp unit at
+    REPEAT_UNIT copied to 599 more places 1.5 kbp apart (more hits than
+    max_occ). Returns (the BntSeq, the RandomState after the copies)."""
     bns = demo_genome(2_000_000, seed=42, n_contigs=3)
     bns.anns[-1].is_alt = True
     rng = np.random.RandomState(3)
@@ -42,10 +43,21 @@ def repeat_batch(n_reads: int = 512, read_len: int = 101):
         at = k * 40_000
         bns.seq[at:at + 1000] = bns.seq[:1000]
         bns.seq[at + rng.randint(0, 1000, 3)] = rng.randint(0, 4, 3)
-    unit = 1_000_000
+    unit = REPEAT_UNIT
     for k in range(1, 600):
         at = unit + 1500 * k
         bns.seq[at:at + 150] = bns.seq[unit:unit + 150]
+    return bns, rng
+
+
+def repeat_batch(n_reads: int = 512, read_len: int = 101):
+    """repeat_genome's genome and n_reads reads (1% substitutions), a
+    quarter exact copies from the 1 kbp window and one in 32 from the
+    unit, so that reads have tens of chains that overlap on the query,
+    some SMEMs are repetitive and the interval stacks are deep. Returns
+    (the port's index, codes, lens)."""
+    bns, rng = repeat_genome()
+    unit = REPEAT_UNIT
     codes, lens = simulate_reads(bns, n_reads, read_len, seed=8,
                                  err_rate=0.01)
     for i in range(0, n_reads, 4):
@@ -55,6 +67,24 @@ def repeat_batch(n_reads: int = 512, read_len: int = 101):
         start = unit + rng.randint(0, 150 - read_len)
         codes[i] = bns.seq[start:start + read_len]
     return build_index(bns), codes, lens
+
+
+def depth_cap_batch(n_reads: int = 512, read_len: int = 400):
+    """repeat_genome's genome indexed with the full SA (sa_compx 0, as the
+    ERT needs) and n_reads exact reads of read_len bp from its 1 kbp
+    window (copied to 24 places, 3 substitutions each), every second one
+    reverse-complemented: stretches of several hundred bases occur more
+    than once, so that ERT walks on trie nodes reach the depth cap (320)
+    and the reads are longer than the cap. Returns (the port's index,
+    codes, lens)."""
+    bns, _ = repeat_genome()
+    rng = np.random.RandomState(12)
+    comp = np.array([3, 2, 1, 0, 4], dtype=np.int32)
+    start = rng.randint(0, 1000 - read_len + 1, n_reads)
+    codes = bns.seq[start[:, None] + np.arange(read_len)].astype(np.int32)
+    codes[1::2] = comp[codes[1::2, ::-1]]
+    lens = np.full(n_reads, read_len, np.int32)
+    return build_index(bns, sa_compx=0), codes, lens
 
 
 def rescue_batch(seed_len: int = 51, n_units: int = 64, copies: int = 4,

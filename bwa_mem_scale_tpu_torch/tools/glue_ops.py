@@ -2,9 +2,10 @@
 
     python -m bwa_mem_scale_tpu_torch.tools.glue_ops [--device cpu]
 
-Runs ``collect_smems_oh`` (the one-hot engine) and
-``collect_smems_device`` (the sweep, with an FMA table of K = 11) once on
-512 simulated reads of 101 bp from a 1 Mbp genome with every seeding
+Runs ``collect_smems_oh`` (the one-hot engine), ``collect_smems_device``
+(the sweep, with an FMA table of K = 11) and ``collect_smems_ert`` (the
+ERT descent, K = 12, on the same genome's full-SA index) once on 512
+simulated reads of 101 bp from a 1 Mbp genome with every seeding
 kernel's call replaced by the output it gave on the same inputs, under
 ``torch.profiler``, and prints the outermost aten operations each
 engine's glue issues a batch: each is one launch (or more) and a host
@@ -19,40 +20,34 @@ import argparse
 import torch
 
 
-def _replayed(mod, names, fn):
-    """Run fn() once with mod's `names` recording their outputs, then
-    return a thunk that runs fn() with each name replaying them."""
-    real = {n: getattr(mod, n) for n in names}
-    seen = {n: [] for n in names}
+def _replayed(targets, fn):
+    """Run fn() once with each (module, name) of `targets` recording its
+    outputs, then return a thunk that runs fn() with each replaying them."""
+    real = {t: getattr(*t) for t in targets}
+    seen = {t: [] for t in targets}
 
-    def record(n):
+    def record(t):
         def call(*a, **k):
-            out = real[n](*a, **k)
-            seen[n].append(out)
+            out = real[t](*a, **k)
+            seen[t].append(out)
             return out
         return call
 
-    def replay(n):
-        it = iter(seen[n])
+    def replay(t):
+        it = iter(seen[t])
         return lambda *a, **k: next(it)
 
-    for n in names:
-        setattr(mod, n, record(n))
-    try:
-        fn()
-    finally:
-        for n in names:
-            setattr(mod, n, real[n])
-
-    def run():
-        for n in names:
-            setattr(mod, n, replay(n))
+    def with_swaps(swap):
+        for t in targets:
+            setattr(*t, swap(t))
         try:
             fn()
         finally:
-            for n in names:
-                setattr(mod, n, real[n])
-    return run
+            for t in targets:
+                setattr(*t, real[t])
+
+    with_swaps(record)
+    return lambda: with_swaps(replay)
 
 
 def outer_ops(run) -> int:
@@ -73,11 +68,13 @@ def main(argv=None) -> int:
     from ..device import resolve_device
     from ..index.build import build_index
     from ..models.aligner import demo_genome, simulate_reads
-    from ..ops import smem, smem_oh, sweep_cuda
+    from ..index.ert import build_ert
+    from ..ops import ert, ert_cuda, smem, smem_oh, sweep_cuda
     from ..ops.fma import build_fma_table
     from ..ops.occ import DeviceFMIndex
     dev = resolve_device(args.device)
-    idx = build_index(demo_genome(1_000_000, seed=42, n_contigs=1))
+    bns = demo_genome(1_000_000, seed=42, n_contigs=1)
+    idx = build_index(bns)
     codes, lens = simulate_reads(idx.bns, 512, 101, seed=8, err_rate=0.01)
     fmi = DeviceFMIndex.from_host(idx, dev)
     c, ln = torch.as_tensor(codes, device=dev), torch.as_tensor(lens,
@@ -85,16 +82,28 @@ def main(argv=None) -> int:
     table = build_fma_table(fmi, K=11).to_device(fmi.pos_dtype, dev)
     kw = dict(min_seed_len=19, split_len=28, split_width=10,
               max_mem_intv=20)
+    full = build_index(bns, sa_compx=0)
+    dert = ert.DeviceErt.from_host(build_ert(full.ref_string,
+                                             full.sa_samples),
+                                   full.sa_samples, full.count, dev)
     onehot = _replayed(
-        smem_oh, ["one_pos_machine_cuda", "seed_strategy_machine_cuda"],
+        [(smem_oh, "one_pos_machine_cuda"),
+         (smem_oh, "seed_strategy_machine_cuda")],
         lambda: smem_oh.collect_smems_oh(fmi, c, ln, emit_depth=24,
                                          stack_depth=24, **kw))
     sweep = _replayed(
-        sweep_cuda, ["extend_all_positions_cuda", "strategy_chase_cuda"],
+        [(sweep_cuda, "extend_all_positions_cuda"),
+         (sweep_cuda, "strategy_chase_cuda")],
         lambda: smem.collect_smems_device(fmi, c, ln, fma=table, **kw))
+    trie = _replayed(
+        [(ert_cuda, "ert_extend_all_positions_cuda"),
+         (sweep_cuda, "strategy_chase_cuda")],
+        lambda: ert.collect_smems_ert(dert, fmi.ref, c, ln,
+                                      pos_dtype=fmi.pos_dtype,
+                                      seq_len=2 * fmi.l_pac, **kw))
     print(f"glue operations a batch (B=512, L=101, outermost aten ops, the "
           f"kernels' calls replayed): one-hot {outer_ops(onehot)}, sweep "
-          f"{outer_ops(sweep)}")
+          f"{outer_ops(sweep)}, ERT {outer_ops(trie)}")
     return 0
 
 

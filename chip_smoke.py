@@ -10,10 +10,11 @@ Phases, in order; any failure exits non-zero:
               FM walks: SMEM passes 1-2, pass 3 and the SA walk),
               csrc/chain.cu (chaining and the chain filter),
               csrc/sweep.cu (the sweep engine), csrc/seedsw.cu (the
-              seed-SW scorer) and
+              seed-SW scorer), csrc/emf.cu (the EMF probe), csrc/ert.cu
+              (the ERT descent) and
               csrc/round_probe.cu (a warp's dependent round) from
               source, one nvcc each, all at once; prints ptxas's
-              registers and spills for each FM walk, sweep, chaining,
+              registers and spills for each FM walk, sweep, ERT, chaining,
               seed-SW and BSW kernel (for the BSW kernel one line an instantiation,
               failing on a spill at K = 4 or 5 columns a lane) and the
               measured cost of a round.
@@ -161,8 +162,31 @@ Phases, in order; any failure exits non-zero:
               run_alignment's SE SAM body byte-equal to phase 4's; the
               load from the store beside the load from files (host
               clock), and /dev/shm's size.
+ 12. ert:     ERT seeding (ops/ert.py, csrc/ert.cu): phase 4's genome
+              indexed by the CLI's `index -s 0`, `perfect-index -l 101`
+              and `ert-index` (K = 12, depth 320; nodes, build seconds,
+              the device record's MiB); SE `mem --device cuda` with the
+              trie auto-loaded: phase 4's checks, the descent kernel
+              launched twice a device batch and the chase once, no other
+              seeding kernel, the SAM body equal to `mem --seed-engine
+              sweep` on the same index and EMF table without the trie
+              (a differing read only with its cause: the depth cap, the
+              24-bit count's saturation, a retry tier), the same at the
+              forced int64 layout (the int64 form, SAM equal); `-v 4`
+              stage seconds of both engines; PE with phase 7's checks and
+              the same rule; the descent against its plain version on
+              (a) phase 5's batch, (b) 512 exact 400 bp reads from the
+              repeat genome's 1 kbp window (`tools/batches.py::
+              depth_cap_batch`, a lane reaching the depth cap) and (c)
+              (a) at the forced int64 layout, each launch with its node
+              and leaf steps, bound, latency floor (the longest lane's
+              node steps x one dependent trip in the L2, measured by
+              probe B in the run), device and plain times, the sweep's
+              beside (a); `load-shm` staging the trie's piece, `mem`
+              attached to it (SAM equal to the file-loaded run) and
+              `remove-shm`.
 
-Prints the kernel JSON line (all twenty-five kernels, each with its bound: the
+Prints the kernel JSON line (all twenty-seven kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -499,7 +523,7 @@ def phase_mem(dev, card, tmp):
     first = np.flatnonzero(~emf_hit)[:BATCH]
     se = dict(argv=mem_argv, wall=wall, batches=al.batches, seconds=dict(sec),
               index_load=index_load, emf_hits=al.emf_hits, codes=codes,
-              lens=lens)
+              lens=lens, pos=pos, is_rev=is_rev, emf_hit=emf_hit)
     return launches, al, codes[first], lens[first], se
 
 
@@ -1071,8 +1095,8 @@ def phase_pe(dev, card, tmp):
 
     pt = load_perfect_table(g + ".emf101.npz")
     code = emf_lookup_host(pt, idx.ref_string, codes, lens)["code"]
-    check_pe_sam(sam, (code == FW_MATCHED) | (code == RC_MATCHED), pos,
-                 is_rev)
+    emf_hit = (code == FW_MATCHED) | (code == RC_MATCHED)
+    check_pe_sam(sam, emf_hit, pos, is_rev)
     if launches["banded_swa_batch"] <= 0:
         raise SystemExit("pe: the BSW kernel was never launched")
     for name in ("one_pos_machine", "seed_strategy_machine", "sa_walk",
@@ -1100,7 +1124,8 @@ def phase_pe(dev, card, tmp):
     log(f"[pe -v 4] synchronised stage seconds over {al4.batches} batches:"
         f" seed {sec['seed']:.3f}, sal {sec['sal']:.3f}, chain "
         f"{sec['chain']:.3f}, bsw {sec['bsw']:.3f}  [{card}]")
-    return launches, dict(argv=pe_argv, wall=wall)
+    return launches, dict(argv=pe_argv, wall=wall, emf_hit=emf_hit, pos=pos,
+                          is_rev=is_rev, codes=codes, lens=lens)
 
 
 # the int64 forms of the FM-walk and chaining kernels (phase 8): name,
@@ -2058,19 +2083,20 @@ HBM_ROWS, HBM_TICKS = 1 << 24, (64, 320)
 EMF_OPS_PER_WORD, EMF_OPS_PER_SLOT, EMF_OPS_PER_COL = 20, 8, 6
 
 
-def hbm_trip_us(dev):
-    """One dependent load's latency on a table past the L2: probe B
-    (csrc/probes.cu chain8_kernel, one lane) over HBM_ROWS random rows,
-    each call from another start row so that no chain is cached, the
-    marginal time of the extra ticks."""
+def dependent_trip_us(dev, rows):
+    """One dependent load's latency on a table of `rows` rows of 32 bytes
+    (HBM_ROWS: past the L2; L2_ROWS: in it): probe B (csrc/probes.cu
+    chain8_kernel, one lane) over random rows, each call from another
+    start row so that no chain is cached, the marginal time of the extra
+    ticks."""
     import itertools
     import torch
     from bwa_mem_scale_tpu_torch.ops import probe_kernels as pk
     g = torch.Generator(device=dev).manual_seed(5)
-    tab = torch.randint(-2 ** 31, 2 ** 31 - 1, (HBM_ROWS, 8),
+    tab = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, 8),
                         dtype=torch.int32, device=dev, generator=g)
     starts = itertools.cycle([s.clone() for s in torch.randint(
-        0, HBM_ROWS, (512, 1), dtype=torch.int32, device=dev,
+        0, rows, (512, 1), dtype=torch.int32, device=dev,
         generator=g)])              # each its own (aligned) allocation
     t = [device_ms(lambda: pk.probe_b(tab, next(starts), n), 10, dev)
          for n in HBM_TICKS]
@@ -2186,7 +2212,7 @@ def phase_emf(dev, card, tmp, se):
     g, fq, sam4 = se["argv"][0], se["argv"][1], se["argv"][3]
     codes, lens = se["codes"], se["lens"]
     emf_path = f"{g}.emf{READ_LEN}.npz"
-    trip_us = hbm_trip_us(dev)
+    trip_us = dependent_trip_us(dev, HBM_ROWS)
     log(f"[emf] one dependent HBM trip (probe B, one lane over "
         f"{HBM_ROWS} rows of 32 bytes, {HBM_TICKS[1] - HBM_TICKS[0]} "
         f"extra ticks): {trip_us:.4f} us  [{card}]")
@@ -2355,6 +2381,404 @@ def phase_emf(dev, card, tmp, se):
     return ra
 
 
+# phase 12, ERT seeding (csrc/ert.cu): the trie's k-mer length and depth
+# (ert-index's defaults); probe B's table for one dependent trip in the L2
+# (287,501 rows of 32 bytes, 9.2 MB, the 4.6 Mbp checkpoint table's size)
+ERT_K, ERT_DEPTH = 12, 320
+L2_ROWS = 287_501
+# a descent step (csrc/ert.cu's loop): the column, its code and the two
+# exit tests 5, the clip 2, the node test 1; on a node the pair's address
+# 2, the count and k fields 3, the leaf test and the offset 3, the next
+# node's select 2; the merged record's four tests 4, the size test 1, the
+# lane's five updates and the step counts 5
+ERT_OPS_PER_STEP = 28
+
+
+def reads_of(run):
+    """Each read of a phase 4 or phase 7 run (its codes and lengths) as an
+    int32 array, in input order."""
+    return [np.asarray(c[:n], np.int32) for c, n in zip(run["codes"],
+                                                         run["lens"])]
+
+
+def ert_wrappers():
+    """{kernel name: wrapper} of the ERT engine's kernels: the descent and
+    the chase it shares with the sweep."""
+    from bwa_mem_scale_tpu_torch.ops import ert_cuda, sweep_cuda
+    return {"ert_extend": ert_cuda.ert_extend_all_positions_cuda,
+            "strategy_chase": sweep_cuda.strategy_chase_cuda}
+
+
+def ert_launch(dev, card, what, args, kw, trips):
+    """One descent launch as made, through walk_launch (each output and
+    each lane's node and leaf steps equal to the plain version's); its
+    bound (16 bytes a node step, 1 a leaf step, the root's four pairs, the
+    codes, lengths and minimum intervals read once, the dict's planes
+    written once; ERT_OPS_PER_STEP a step) and latency floor (the longest
+    lane's node steps x one dependent trip in the L2, and for reference x
+    one past it, both measured in this run). Returns the numbers."""
+    from bwa_mem_scale_tpu_torch.ops import ert as ops_ert, ert_cuda
+    kernel = ert_cuda.ert_extend_all_positions_cuda
+    got, r = walk_launch(dev, what, kernel, ops_ert.ert_extend_all_positions,
+                         args, 1, kw)
+    steps = kernel.last_steps.long()
+    node, leaf = int(steps[0].sum()), int(steps[1].sum())
+    lane = steps.sum(0)
+    codes = args[2]
+    B, L = codes.shape
+    pb = got["k"].element_size()
+    lane_out = sum(v.element_size() for v in got.values())
+    nbytes = (16 * node + leaf + 64 + 4 * codes.numel() + 8 * B
+              + lane_out * B * L)
+    r.update(node=node, leaf=leaf, longest=int(lane.max()),
+             longest_node=int(steps[0].max()),
+             bound=bound(nbytes, ERT_OPS_PER_STEP * (node + leaf)),
+             floor=int(steps[0].max()) * trips[0] * 1e-3,
+             floor_hbm=int(steps[0].max()) * trips[1] * 1e-3, pb=pb)
+    log(f"[ert] {what}: equal to the plain version (max_abs_err "
+        f"{r['err']}), node and leaf steps too; {node} node steps + {leaf} "
+        f"leaf steps over {int((lane > 0).sum())} lanes, the longest lane "
+        f"{r['longest']} ({r['longest_node']} node steps); bound "
+        f"{r['bound'][0]:.6f} ms by {r['bound'][1]}; latency floor "
+        f"{r['floor']:.5f} ms ({r['longest_node']} x {trips[0]:.4f} us, an "
+        f"L2 trip; x {trips[1]:.4f} us, an HBM trip: "
+        f"{r['floor_hbm']:.5f} ms); kernel device time {r['ms']:.5f} ms "
+        f"(one wrapper call with its allocation, mean of 2), plain "
+        f"{r['plain_ms']:.2f} ms  [{card}]")
+    return r
+
+
+def ert_batch(dev, card, dert, fmi, c, ln, batch, trips):
+    """collect_smems_ert on one batch with the kernels, every descent
+    launch recorded, equal to the whole call with the plain versions
+    swapped in; then each descent launch as made (passes 1 and 2) against
+    its plain version. Returns the two launches' numbers."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import ert as ops_ert, ert_cuda
+    from bwa_mem_scale_tpu_torch.ops import smem, sweep_cuda
+    kw = dict(min_seed_len=19, split_len=28, split_width=10,
+              max_mem_intv=20, pos_dtype=fmi.pos_dtype,
+              seq_len=2 * fmi.l_pac)
+    name = "ert_extend_all_positions_cuda"
+    real = ert_cuda.ert_extend_all_positions_cuda
+    calls = []
+
+    def record(*args, **k):
+        calls.append((args, k))
+        return real(*args, **k)
+
+    outs = []
+    for ext, chase in ((record, sweep_cuda.strategy_chase_cuda),
+                       (ops_ert.ert_extend_all_positions,
+                        smem.strategy_chase)):
+        real_chase = sweep_cuda.strategy_chase_cuda
+        setattr(ert_cuda, name, ext)
+        sweep_cuda.strategy_chase_cuda = chase
+        try:
+            outs.append(ops_ert.collect_smems_ert(dert, fmi.ref, c, ln, **kw))
+        finally:
+            setattr(ert_cuda, name, real)
+            sweep_cuda.strategy_chase_cuda = real_chase
+    torch.cuda.synchronize()
+    bad = [f for f, a, b in zip(outs[0]._fields, *outs)
+           if not torch.equal(a, b)]
+    if bad or len(calls) != 2:
+        raise SystemExit(f"ert: {batch}: collect_smems_ert differs kernels "
+                         f"vs plain in {bad} or made {len(calls)} descent "
+                         f"calls")
+    got = outs[0]
+    log(f"[ert] {batch}: collect_smems_ert SmemBuf equal with the kernels "
+        f"and with the plain versions ({int(got.cnt.sum())} SMEMs, "
+        f"{int((got.cnt == got.m.shape[1]).sum())} reads saturated)")
+    res = []
+    for n, (args, k) in enumerate(calls):
+        B, L = args[2].shape
+        form = "int64" if fmi.pos_dtype == torch.int64 else "int32"
+        what = (f"{batch}, descent launch {n + 1}/2 (pass {n + 1}: B={B}, "
+                f"L={L}, {form} form)")
+        res.append(ert_launch(dev, card, what, args, k, trips))
+    return res
+
+
+def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
+    """Phase 12: ERT seeding. Phase 4's genome indexed with the full SA
+    (`index -s 0`), `perfect-index -l 101` and `ert-index` (K = 12, depth
+    320) through the CLI; SE `mem` with the trie auto-loaded (its main
+    path: counts zeroed just before, read just after): phase 4's checks,
+    the descent launched twice a device batch and the chase once, its SAM
+    body equal to `mem --seed-engine sweep` on the same index and EMF table
+    without the trie (differing reads only with a cause: the depth cap,
+    the count's saturation, a retry tier), and the same at the forced
+    int64 layout (the int64 form's main path); PE likewise against the
+    sweep; `-v 4` stage seconds of both engines; the descent against its
+    plain version on phase 5's batch, a depth-cap batch and phase 5's batch
+    at int64; the store with the trie's piece. Returns {kernel name:
+    numbers}."""
+    import torch
+    from bwa_mem_scale_tpu_torch import cli, store
+    from bwa_mem_scale_tpu_torch.index.artifacts import load_index
+    from bwa_mem_scale_tpu_torch.index.ert import build_ert
+    from bwa_mem_scale_tpu_torch.ops import ert as ops_ert
+    from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    from bwa_mem_scale_tpu_torch.pipeline import align
+    from bwa_mem_scale_tpu_torch.tools.batches import depth_cap_batch
+    from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
+    t_phase = time.perf_counter()
+    g = se["argv"][0]
+    e, w = os.path.join(tmp, "e"), os.path.join(tmp, "w")
+    secs = {}
+    for what, argv in (("index -s 0", ["index", g + ".fa", "-p", e, "-s",
+                                       "0"]),
+                       ("perfect-index", ["perfect-index", e, "-l",
+                                          str(READ_LEN)]),
+                       ("ert-index", ["ert-index", e])):
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise SystemExit(f"ert: cli {argv[0]} failed")
+        secs[what] = time.perf_counter() - t0
+    idx = load_index(e)
+    trie = cli.find_ert(e, idx)
+    if trie is None or (trie.K, trie.max_depth) != (ERT_K, ERT_DEPTH):
+        raise SystemExit("ert: ert-index wrote no readable trie at the "
+                         "defaults")
+    for ext in (".tpuidx.npz", f".emf{READ_LEN}.npz"):
+        os.symlink(e + ext, w + ext)
+    log(f"[ert] index -s 0 {secs['index -s 0']:.1f} s, perfect-index "
+        f"{secs['perfect-index']:.1f} s, ert-index (K={trie.K}, depth "
+        f"{trie.max_depth}) {secs['ert-index']:.1f} s (host); "
+        f"{trie.n_nodes} trie nodes, the device record "
+        f"{(trie.n_nodes + 1) * 64 / 2 ** 20:.1f} MiB; the file "
+        f"{os.path.getsize(f'{e}.ert{ERT_K}.npz') / 2 ** 20:.1f} MiB")
+
+    counted = {**ert_wrappers(), **sweep_wrappers(), **int64_wrappers(),
+               "banded_swa_batch": align.banded_swa_batch_cuda}
+    retried = set()
+    real_run = align.GpuAligner._run_device
+
+    def run_device(self, fn, codes, lens, L):   # a retry tier's reads
+        for i in range(codes.shape[0]):
+            retried.add(np.asarray(codes[i, :lens[i]], np.int32).tobytes())
+        return real_run(self, fn, codes, lens, L)
+
+    def body(p):
+        with open(p) as f:
+            return [ln for ln in f if not ln.startswith("@PG")]
+
+    def run(argv, trie_on, wide=False):
+        """One `mem` run, its main path's counts: zeroed just before, read
+        just after."""
+        ctx = forced_int64() if wide else contextlib.nullcontext()
+        align.GpuAligner._run_device = run_device
+        try:
+            with ctx:
+                for fn in counted.values():          # ERT path starts here
+                    fn.launches = 0
+                    if hasattr(fn, "launches64"):
+                        fn.launches64 = 0
+                PROFILER.totals.clear()
+                t0 = time.perf_counter()
+                a = cli.mem(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n = {k: fn.launches for k, fn in counted.items()}
+                n64 = {k: getattr(fn, "launches64", 0)
+                       for k, fn in counted.items()}
+                # ERT path ends here
+        finally:
+            align.GpuAligner._run_device = real_run
+        a.index_load = PROFILER.totals["index_load"]
+        if (a.dert is not None) != trie_on or a.cfg.seed_engine != "sweep":
+            raise SystemExit(f"ert: {argv[0]}: the trie {'not ' * trie_on}"
+                             f"loaded, or the engine {a.cfg.seed_engine}")
+        # (the full SA makes the SA lookup one gather: no SA walk)
+        want = {"ert_extend": 2, "strategy_chase": 1, "chain_seeds": 1,
+                "chain_filter": 1, "banded_swa_batch": 1}
+        if not trie_on:
+            want.update(ert_extend=0, sweep_extend=2)
+        for k, per in want.items():
+            if n[k] < per * a.batches:
+                raise SystemExit(f"ert: {k} launched {n[k]} times over "
+                                 f"{a.batches} batches ({argv[0]})")
+        if trie_on and (n["sweep_extend"] or n["one_pos_machine"]
+                        or n["seed_strategy_machine"]
+                        or n64["ert_extend"] != (n["ert_extend"] if wide
+                                                 else 0)):
+            raise SystemExit(f"ert: other seeding kernels or forms ran on "
+                             f"the ERT path: {n} (int64 forms {n64})")
+        return a, wall, n64 if wide else n
+
+    def compare(a_ert, a_sw, p_ert, p_sw, reads, tag):
+        """The reads whose SAM lines differ between the engines, each with
+        its cause; a read with none fails. reads: each read's codes, in
+        input order (r<i> is read i, p<i> reads 2i and 2i + 1)."""
+        def by_read(p):
+            out = {}
+            for ln in body(p):
+                if not ln.startswith("@"):
+                    out.setdefault(ln.split("\t", 1)[0], []).append(ln)
+            return out
+        x, y = by_read(p_ert), by_read(p_sw)
+        diff = sorted(k for k in set(x) | set(y) if x.get(k) != y.get(k))
+        head = [ln for ln in body(p_ert) if ln.startswith("@")]
+        if head != [ln for ln in body(p_sw) if ln.startswith("@")]:
+            raise SystemExit(f"ert: {tag}: the SAM headers differ")
+        causes = []
+        for name in diff:
+            i = int(name[1:])
+            seqs = [reads[j] for j in
+                    ((2 * i, 2 * i + 1) if tag == "PE" else (i,))]
+            why = []
+            if max(len(s) for s in seqs) > trie.max_depth:
+                why.append("depth cap")
+            if 2 * idx.bns.l_pac + 1 > ops_ert.CNT_MASK:
+                why.append("count saturation possible")
+            if any(s.tobytes() in retried for s in seqs):
+                why.append("retry tier")
+            causes.append((name, why))
+            log(f"[ert] {tag}: {name} differs between the ERT and the "
+                f"sweep: {', '.join(why) or 'no cause'}")
+        if any(not why for _, why in causes):
+            raise SystemExit(f"ert: {tag}: reads differ for no cause")
+        log(f"[ert] {tag} mem with the ERT: SAM body equal to the sweep's "
+            f"on the same index and EMF table but for {len(diff)} reads, "
+            f"each with its cause; overflow-retried reads ERT "
+            f"{a_ert.overflow_retried}, sweep {a_sw.overflow_retried}")
+
+    fq = se["argv"][1]
+    common = ["--device", "cuda", "--batch-reads", str(BATCH)]
+    ert_sam, sw_sam = os.path.join(tmp, "ert.sam"), os.path.join(tmp,
+                                                                  "esw.sam")
+    retried.clear()
+    al_e, wall_e, n_e = run([e, fq, "-o", ert_sam, *common], True)
+    check_sam(ert_sam, se["emf_hit"], se["pos"], se["is_rev"])
+    al_s, wall_s, n_s = run([w, fq, "-o", sw_sam, *common, "--seed-engine",
+                             "sweep"], False)
+    compare(al_e, al_s, ert_sam, sw_sam, reads_of(se), "SE")
+    per = {k: float(v) / al_e.batches for k, v in sorted(al_e.stats.items())
+           if k.startswith(("ert", "chase"))}
+    log(f"[ert] SE mem with the ERT: {N_READS} reads in {wall_e:.2f} s = "
+        f"{N_READS / wall_e:.1f} reads/s (the sweep on the same index "
+        f"{wall_s:.2f} s = {N_READS / wall_s:.1f}; phase 4, one-hot, "
+        f"{se['wall']:.2f} s); index load (the trie's upload and packing "
+        f"included) {al_e.index_load:.3f} s (the sweep's "
+        f"{al_s.index_load:.3f} s); launches {n_e} over {al_e.batches} "
+        f"device batches; per batch: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in per.items()) + f"  [{card}]")
+    sec = {}
+    for tag, argv in (("ERT", [e, fq, "-o", os.path.join(tmp, "e4.sam"),
+                               *common]),
+                      ("sweep", [w, fq, "-o", os.path.join(tmp, "w4.sam"),
+                                 *common, "--seed-engine", "sweep"])):
+        sec[tag] = cli.mem(argv + ["-v", "4"]).prof.seconds
+    log("[ert -v 4] synchronised stage seconds, ERT (sweep, same index; "
+        "phase 4 one-hot): " + ", ".join(
+            f"{k} {sec['ERT'][k]:.3f} ({sec['sweep'][k]:.3f}; "
+            f"{se['seconds'][k]:.3f})" for k in ("seed", "sal", "chain",
+                                                 "bsw")) + f"  [{card}]")
+    ert64_sam = os.path.join(tmp, "ert64.sam")
+    al64, wall64, n64 = run([e, fq, "-o", ert64_sam, *common], True,
+                            wide=True)
+    if al64.fmi.pos_dtype != torch.int64 or body(ert64_sam) != body(ert_sam):
+        raise SystemExit("ert: the forced int64 SE SAM differs from the "
+                         "int32 ERT run's")
+    log(f"[ert] SE mem with the ERT at the forced int64 layout: SAM body "
+        f"equal to the int32 run's; {wall64:.2f} s = "
+        f"{N_READS / wall64:.1f} reads/s; int64-form launches {n64}  "
+        f"[{card}]")
+
+    pe_e, pe_w = os.path.join(tmp, "pe_ert.sam"), os.path.join(tmp,
+                                                               "pe_esw.sam")
+    pe_fq = pe["argv"][1:3]
+    retried.clear()
+    ap_e, wp_e, np_e = run([e, *pe_fq, "-o", pe_e, *common], True)
+    check_pe_sam(pe_e, pe["emf_hit"], pe["pos"], pe["is_rev"])
+    ap_s, wp_s, _ = run([w, *pe_fq, "-o", pe_w, *common, "--seed-engine",
+                         "sweep"], False)
+    compare(ap_e, ap_s, pe_e, pe_w, reads_of(pe), "PE")
+    log(f"[ert] PE mem with the ERT: {2 * N_PAIRS} reads in {wp_e:.2f} s = "
+        f"{2 * N_PAIRS / wp_e:.1f} reads/s (the sweep {wp_s:.2f} s; phase "
+        f"7 {pe['wall']:.2f} s); launches {np_e} over {ap_e.batches} "
+        f"batches  [{card}]")
+
+    # the descent against its plain version: (a) phase 5's batch, (b) the
+    # depth-cap batch, (c) (a) at the forced int64 layout
+    trips = (dependent_trip_us(dev, L2_ROWS),
+             dependent_trip_us(dev, HBM_ROWS))
+    log(f"[ert] one dependent trip (probe B, chain8_kernel, one lane): "
+        f"{trips[0]:.4f} us over {L2_ROWS} rows of 32 bytes (in the L2), "
+        f"{trips[1]:.4f} us over {HBM_ROWS} (past it)  [{card}]")
+    fmi_e = DeviceFMIndex.from_host(idx, dev)
+    dert = ops_ert.DeviceErt.from_host(trie, fmi_e.sa_samples, idx.count,
+                                       dev)
+    c = torch.as_tensor(codes, device=dev)
+    ln = torch.as_tensor(lens, device=dev)
+    res_a = ert_batch(dev, card, dert, fmi_e, c, ln, "(a) phase 5's batch",
+                      trips)
+    t0 = time.perf_counter()
+    idx_b, codes_b, lens_b = depth_cap_batch(BATCH, 400)
+    trie_b = build_ert(idx_b.ref_string, idx_b.sa_samples, K=ERT_K,
+                       max_depth=ERT_DEPTH)
+    fmi_b = DeviceFMIndex.from_host(idx_b, dev)
+    dert_b = ops_ert.DeviceErt.from_host(trie_b, fmi_b.sa_samples,
+                                         idx_b.count, dev)
+    log(f"[ert] depth-cap batch: 2 Mbp repeat genome at sa_compx 0, its trie "
+        f"{trie_b.n_nodes} nodes, built in {time.perf_counter() - t0:.1f} s "
+        f"(host)")
+    res_b = ert_batch(dev, card, dert_b, fmi_b,
+                      torch.as_tensor(codes_b, device=dev),
+                      torch.as_tensor(lens_b, device=dev),
+                      "(b) depth-cap batch (512 x 400 bp)", trips)
+    if res_b[0]["longest_node"] < ERT_DEPTH - 1:
+        raise SystemExit(f"ert: no lane of the depth-cap batch took "
+                         f"{ERT_DEPTH - 1} node steps (longest "
+                         f"{res_b[0]['longest_node']})")
+    del dert_b, fmi_b
+    fmi_64 = DeviceFMIndex.from_host(idx, dev, force_int64=True)
+    res_c = ert_batch(dev, card, dert, fmi_64, c, ln,
+                      "(c) phase 5's batch, int64", trips)
+    sw = sweep["sweep_extend"], sweep["strategy_chase"]
+    log(f"[ert] engines on phase 5's batch, seeding kernels' device ms: ERT "
+        f"{res_a[0]['ms']:.5f} + {res_a[1]['ms']:.5f} (+ the chase) "
+        f"({res_a[0]['node'] + res_a[1]['node']} node, "
+        f"{res_a[0]['leaf'] + res_a[1]['leaf']} leaf steps); the sweep with "
+        f"the K=11 table (phase 9) {sw[0]['ms']:.5f} (pass 1) + chase "
+        f"{sw[1]['ms']:.5f}; int64 ERT {res_c[0]['ms']:.5f} + "
+        f"{res_c[1]['ms']:.5f}  [{card}]")
+
+    # the store: load-shm stages the trie's piece, mem attaches
+    sdir = os.path.join(tmp, "store12")
+    real_dir = store.DEFAULT_STORE_DIR
+    store.DEFAULT_STORE_DIR = sdir
+    try:
+        t0 = time.perf_counter()
+        if cli.main(["load-shm", e]) != 0:
+            raise SystemExit("ert: load-shm failed")
+        stage_s = time.perf_counter() - t0
+        att = store.attach(e)
+        if att is None or not att.has("ert"):
+            raise SystemExit("ert: the store has no ert piece")
+        st_sam = os.path.join(tmp, "ert_store.sam")
+        retried.clear()
+        al_st, wall_st, _ = run([e, fq, "-o", st_sam, *common], True)
+        if body(st_sam) != body(ert_sam):
+            raise SystemExit("ert: mem attached to the store differs from "
+                             "the file-loaded ERT run")
+        if cli.main(["remove-shm", e]) != 0 or store.attach(e) is not None:
+            raise SystemExit("ert: remove-shm left the store")
+    finally:
+        store.DEFAULT_STORE_DIR = real_dir
+    log(f"[ert] store: load-shm staged {sorted(att.pieces)} in "
+        f"{stage_s:.2f} s; mem attached to it: SAM body equal to the "
+        f"file-loaded ERT run's, {wall_st:.2f} s; remove-shm left no store  "
+        f"[{card}]")
+    log(f"[ert] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    err = max(r["err"] for r in (*res_a, *res_b))
+    return {"launches": n_e["ert_extend"], "launches64": n64["ert_extend"],
+            "ert_extend": dict(res_a[0], err=err),
+            "ert_extend_int64": dict(res_c[0],
+                                     err=max(r["err"] for r in res_c))}
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -2370,8 +2794,9 @@ def main():
     from bwa_mem_scale_tpu_torch.ops import bsw_cuda, chain_cuda, nvcc_build
     from bwa_mem_scale_tpu_torch.ops import probe_kernels, smem_cuda
     from bwa_mem_scale_tpu_torch.ops import emf_cuda, seedsw_cuda, sweep_cuda
+    from bwa_mem_scale_tpu_torch.ops import ert_cuda
     from bwa_mem_scale_tpu_torch.tools import round_cost
-    with ThreadPoolExecutor(8) as ex:           # one nvcc a source, at once
+    with ThreadPoolExecutor(9) as ex:           # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
                   ex.submit(probe_kernels.build, force=True, verbose=True),
                   ex.submit(smem_cuda.build, force=True),
@@ -2379,7 +2804,8 @@ def main():
                   ex.submit(round_cost.build, force=True),
                   ex.submit(sweep_cuda.build, force=True),
                   ex.submit(seedsw_cuda.build, force=True),
-                  ex.submit(emf_cuda.build, force=True)]
+                  ex.submit(emf_cuda.build, force=True),
+                  ex.submit(ert_cuda.build, force=True)]
         probes_seconds = builds[1].result()[1]
         for b in builds:
             b.result()
@@ -2398,14 +2824,17 @@ def main():
         f"{os.path.relpath(seedsw_cuda.LIB.path, REPO)} in "
         f"{seedsw_cuda.LIB.build_seconds:.2f} s; csrc/emf.cu -> "
         f"{os.path.relpath(emf_cuda.LIB.path, REPO)} in "
-        f"{emf_cuda.LIB.build_seconds:.2f} s (in parallel)")
+        f"{emf_cuda.LIB.build_seconds:.2f} s; csrc/ert.cu -> "
+        f"{os.path.relpath(ert_cuda.LIB.path, REPO)} in "
+        f"{ert_cuda.LIB.build_seconds:.2f} s (in parallel)")
     log(f"[build] one warp's dependent round (tools/round_cost.py: a "
         f"shared-memory load, a shuffle, a ballot), equal to its plain "
         f"model: {round_cost.round_us(dev):.5f} us, the chaining floors' "
         f"cost of a round  [{card}]")
     kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda",
-                           "sweep_cuda", "seedsw_cuda", "emf_cuda")}
+                           "sweep_cuda", "seedsw_cuda", "emf_cuda",
+                           "ert_cuda")}
     # each FM-walk and chaining kernel in its int32 (P = int, mangled i)
     # and int64 (P = long long, x) forms
     for lib, kernel, label in (
@@ -2420,6 +2849,7 @@ def main():
             ("sweep_cuda", "sweep_extend_kernelI{}", "sweep_extend_kernel<{}>"),
             ("sweep_cuda", "strategy_chase_kernelI{}",
              "strategy_chase_kernel<{}>"),
+            ("ert_cuda", "ert_extend_kernelI{}", "ert_extend_kernel<{}>"),
             ("bsw_cuda", "bsw_tiled_kernel", "bsw_tiled_kernel"),
             ("seedsw_cuda", "local_sw_kernel", "local_sw_kernel"),
             ("emf_cuda", "emf_lookup_kernel", "emf_lookup_kernel")):
@@ -2459,6 +2889,7 @@ def main():
                              "seed_strategy_machine": p3})
         sw = phase_longread(dev, card, tmp)
         emf = phase_emf(dev, card, tmp, se)
+        ert = phase_ert(dev, card, tmp, se, pe, sweep, codes, lens)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"builds included")
 
@@ -2521,7 +2952,15 @@ def main():
         "launches": emf["launches"], "max_abs_err": emf["err"],
         "ms": emf["ms"], "plain_ms": emf["plain_ms"],
         "bound_ms": emf["bound"][0], "bound_by": emf["bound"][1],
-        "library_ms": None}]}))
+        "library_ms": None}] + [{
+        "name": name, "route": "cuda", "source": "csrc/ert.cu",
+        "replaces": "bwa_mem_scale_tpu/ops/ert.py:107",
+        "launches": ert["launches64" if name.endswith("int64")
+                       else "launches"],
+        "max_abs_err": ert[name]["err"], "ms": ert[name]["ms"],
+        "plain_ms": ert[name]["plain_ms"], "bound_ms": ert[name]["bound"][0],
+        "bound_by": ert[name]["bound"][1], "library_ms": None}
+        for name in ("ert_extend", "ert_extend_int64")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

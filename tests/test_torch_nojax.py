@@ -4,7 +4,8 @@ stage and through the Python PE path, with equal SAM), single-end and
 paired-end `mem -W 10` on 250-300 bp reads (the long-read seed-SW
 filter, ops/seedsw.py), `smem-table` and
 SE and PE `mem --seed-engine sweep` with its table (SAM equal to the
-one-hot engine's), the in-process SE API (`align_reads_to_sam`, the EMF
+one-hot engine's), `ert-index` on a full-SA index and SE and PE `mem`
+seeding with the ERT (SAM equal to the one-hot engine's), the in-process SE API (`align_reads_to_sam`, the EMF
 table probed on the device, here the CPU), `load-shm`, a `mem` that
 attaches to the staged store (SAM equal to `mem` from the files) and
 `remove-shm`, the import of the
@@ -57,7 +58,16 @@ RUNNER = textwrap.dedent("""
                  ["mem", "g", "rl.fq", "-o", "long.sam", "--device", "cpu",
                   "--batch-reads", "8", "-W", "10"],
                  ["mem", "g", "rl_1.fq", "rl_2.fq", "-o", "long_pe.sam",
-                  "--device", "cpu", "--batch-reads", "8", "-W", "10"]):
+                  "--device", "cpu", "--batch-reads", "8", "-W", "10"],
+                 # the ERT on a full-SA index of the same genome
+                 ["index", "g.fa", "-p", "e", "-s", "0"],
+                 ["perfect-index", "e", "-l", "60"],
+                 ["ert-index", "e", "-k", "6"],
+                 ["mem", "e", "r.fq", "-o", "ert.sam", "--device", "cpu",
+                  "--batch-reads", "16"],
+                 ["mem", "e", "r1.fq", "r2.fq", "-o", "pe_ert.sam",
+                  "--device", "cpu", "--batch-reads", "16", "-I",
+                  "200,20"]):
         assert main(argv) == 0, argv
     # the Python PE path, as taken when the native PE stage declines
     from bwa_mem_scale_tpu_torch.pipeline import native_finalize
@@ -86,6 +96,7 @@ RUNNER = textwrap.dedent("""
         assert main(argv) == 0, argv
     assert not os.listdir("shm")
     import bwa_mem_scale_tpu_torch.ops.emf_cuda
+    import bwa_mem_scale_tpu_torch.ops.ert_cuda
     import bwa_mem_scale_tpu_torch.ops.seedsw_cuda
     import bwa_mem_scale_tpu_torch.ops.smem_cuda
     import bwa_mem_scale_tpu_torch.ops.sweep_cuda
@@ -170,9 +181,11 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     assert sum(1 for t in prim if not int(t[1]) & 0x4) >= 44
     body = {f: [ln for ln in open(tmp_path / f) if not ln.startswith("@PG")]
             for f in ("out.sam", "sweep.sam", "pe.sam", "pe_py.sam",
-                      "pe_sweep.sam", "shm.sam")}
-    assert body["pe.sam"] == body["pe_py.sam"] == body["pe_sweep.sam"]
-    assert body["out.sam"] == body["sweep.sam"] == body["shm.sam"]
+                      "pe_sweep.sam", "shm.sam", "ert.sam", "pe_ert.sam")}
+    assert (body["pe.sam"] == body["pe_py.sam"] == body["pe_sweep.sam"]
+            == body["pe_ert.sam"])
+    assert (body["out.sam"] == body["sweep.sam"] == body["shm.sam"]
+            == body["ert.sam"])
     api = open(tmp_path / "api.sam").read().splitlines()
     assert api == [ln.rstrip("\n") for ln in body["out.sam"]
                    if not ln.startswith("@")]
@@ -183,3 +196,4 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     assert [t[0] for t in prim] == [f"p{i // 2}" for i in range(8)]
     assert sum(1 for t in prim if not int(t[1]) & 0x4) >= 7
     assert (tmp_path / "g.fma5.npz").exists()
+    assert (tmp_path / "e.ert6.npz").exists()

@@ -10,7 +10,11 @@ the reference's src/bwa_shm.cpp) on the CPU:
 - ``load-shm`` -> ``mem --device cpu`` -> ``remove-shm`` through the
   port's CLI into a temporary store directory: ``mem`` attaches, its SAM
   body is byte-equal to ``mem`` from the files, and ``remove-shm``
-  leaves no store.
+  leaves no store;
+- a full-SA index with its ERT, staged by either package: the ``ert``
+  piece attaches in the other with equal arrays, and the port's ``mem``
+  attached to it seeds with the trie and writes the SAM body of ``mem``
+  from the files.
 """
 
 import os
@@ -184,3 +188,44 @@ def test_load_shm_mem_remove_shm(tmp_path, monkeypatch, capfd):
     assert not os.path.exists(root)
     assert cli.main(["remove-shm", g]) == 0
     assert "* no store found" in capfd.readouterr().err
+
+
+@pytest.mark.parametrize("stager", ["jax", "port"])
+def test_store_with_ert_attaches_across_packages(tmp_path, monkeypatch,
+                                                  capfd, stager):
+    from bwa_mem_scale_tpu.index.ert import build_ert, save_ert
+    bns = make_genome(12000, seed=9, n_contigs=2)
+    g = str(tmp_path / "g")
+    jidx = build_index(bns, sa_compx=0)
+    save_index(jidx, g)
+    save_ert(build_ert(jidx.ref_string, jidx.sa_samples, K=6), g)
+    fq = str(tmp_path / "r.fq")
+    with open(fq, "w") as f:
+        for i, (c, _, _) in enumerate(sample_reads(bns, 40, 60, seed=2,
+                                                   err_rate=0.02)):
+            f.write(f"@r{i}\n{decode_bases(c)}\n+\n{'I' * len(c)}\n")
+    sdir = str(tmp_path / "shm")
+    src = jstore if stager == "jax" else store
+    src.stage(g, None, store_dir=sdir, log=lambda m: None)
+    a = store.attach(g, store_dir=sdir)
+    b = jstore.attach(g, store_dir=sdir)
+    assert set(a.pieces) == set(b.pieces) == {"index", "ert"}
+    e1 = store.ert_from_store(a.pieces["ert"])
+    e2 = jstore.ert_from_store(b.pieces["ert"])
+    assert (e1.K, e1.max_depth, e1.n_nodes) == (e2.K, e2.max_depth,
+                                                 e2.n_nodes)
+    for f in ("kmer_lo", "kmer_cnt", "kmer_ptr", "node_lo", "node_cnt",
+              "child_ptr", "root_children"):
+        np.testing.assert_array_equal(getattr(e1, f), getattr(e2, f))
+    mem = ["mem", g, fq, "--device", "cpu", "--batch-reads", "16"]
+    assert cli.main(mem + ["-o", str(tmp_path / "files.sam")]) == 0
+    err = capfd.readouterr().err
+    assert "attached" not in err and "* ERT index loaded (K=6, " in err
+    monkeypatch.setattr(store, "DEFAULT_STORE_DIR", sdir)
+    assert cli.main(mem + ["-o", str(tmp_path / "shm.sam")]) == 0
+    err = capfd.readouterr().err
+    assert "* attached in-memory index store at " in err
+    assert "* ERT index loaded (K=6, " in err
+    assert _body(tmp_path / "shm.sam") == _body(tmp_path / "files.sam")
+    assert len(_body(tmp_path / "shm.sam")) >= 40
+    assert store.remove(g, store_dir=sdir)
