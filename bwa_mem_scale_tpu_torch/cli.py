@@ -3,6 +3,7 @@
     python -m bwa_mem_scale_tpu_torch.cli index g.fa -p g
     python -m bwa_mem_scale_tpu_torch.cli perfect-index g -l 101
     python -m bwa_mem_scale_tpu_torch.cli smem-table g -k 11
+    python -m bwa_mem_scale_tpu_torch.cli kstep-table g [-k 2|3]
     python -m bwa_mem_scale_tpu_torch.cli ert-index g [-k 12] [--max-depth 320]
     python -m bwa_mem_scale_tpu_torch.cli mem g reads.fq -o out.sam \\
         --device cuda
@@ -25,14 +26,19 @@ CLI's note). ``ert-index`` builds the ERT suffix trie
 full-SA index (``index -s 0``) and seeds with its descent
 (``ops/ert.py``) on every path, as the JAX CLI does (with no engine named
 the run reports the sweep engine); next to a sampled index the file is
-ignored with the JAX CLI's warning. ``load-shm`` stages the index and
-its tables into the in-memory store (``store.py``, the JAX package's
-layout, under a -g budget), ``remove-shm`` drops it, and ``mem``
-attaches to a staged store before it reads any file. What the port does
-not run yet is refused with a "not ported yet" error: several devices or
-hosts, the readlane engine and the k-step table. An index of 2^31
-positions or more (hg38) runs on the int64-position layout
-(``ops/occ.py``).
+ignored with the JAX CLI's warning. ``kstep-table`` writes the bigram
+(``-k 2``) or trigram (``-k 3``) checkpoint table (``{prefix}.cp{K}.npz``,
+``index/kstep.py``); ``mem`` loads it after the index (the trigram table
+first, an unreadable file skipped with the JAX CLI's warning), even when
+attached to a store, and every engine and tier extends K bases a row
+fetch with it (int32-position indexes only, as in JAX). ``load-shm``
+stages the index and its tables into the in-memory store (``store.py``,
+the JAX package's layout, under a -g budget), ``remove-shm`` drops it,
+and ``mem`` attaches to a staged store before it reads any file. What the
+port does not run yet is refused with a "not ported yet" error: several
+devices or hosts and the readlane engine. An index of 2^31 positions or
+more (hg38) runs on the int64-position layout (``ops/occ.py``), without
+the k-step table.
 """
 
 from __future__ import annotations
@@ -328,6 +334,40 @@ def find_fma(prefix: str):
     return None
 
 
+def cmd_kstep_table(argv):
+    p = argparse.ArgumentParser(prog="bwa_mem_scale_tpu_torch kstep-table")
+    p.add_argument("prefix")
+    p.add_argument("-k", type=int, default=2, choices=(2, 3),
+                   help="gram size: 2 (bigram, 5 B/position) or 3 "
+                        "(trigram, 21 B/position, FWD walks consume "
+                        "three bases per gather)")
+    args = p.parse_args(argv)
+    from .index.artifacts import load_index
+    from .index.kstep import build_cp2, save_cp2
+    idx = load_index(args.prefix)
+    t0 = time.time()
+    cp2 = build_cp2(idx, K=args.k)
+    path = save_cp2(cp2, args.prefix)
+    print(f"* wrote {path} ({cp2.nbytes() / 1e6:.0f} MB) in "
+          f"{time.time() - t0:.1f}s", file=sys.stderr)
+    return 0
+
+
+def find_cp2(prefix: str):
+    """The k-step checkpoint table next to the index, if built
+    (``kstep-table``; the trigram table preferred)."""
+    from .index.kstep import load_cp2
+    for k in (3, 2):
+        path = f"{prefix}.cp{k}.npz"
+        if os.path.exists(path):
+            try:
+                return load_cp2(path)
+            except Exception as e:
+                print(f"* WARNING: ignoring unreadable k-step table "
+                      f"{path}: {e}", file=sys.stderr)
+    return None
+
+
 def cmd_ert_index(argv):
     p = argparse.ArgumentParser(prog="bwa_mem_scale_tpu_torch ert-index")
     p.add_argument("prefix")
@@ -420,8 +460,6 @@ def mem(argv):
     if args.seed_engine == "readlane":
         _not_ported("--seed-engine readlane (the port seeds with the "
                     "one-hot machine or the sweep)")
-    if glob.glob(args.prefix + ".cp[23].npz"):
-        _not_ported(f"the k-step table ({args.prefix}.cp[23].npz)")
     opt = _opts_from_args(args)
 
     from .index.artifacts import load_index
@@ -450,6 +488,8 @@ def mem(argv):
             fma = find_fma(args.prefix)
             emf = find_emf(args.prefix)
             ert = find_ert(args.prefix, idx)
+        # from its file even when attached to a store, as the JAX CLI
+        cp2 = find_cp2(args.prefix)
         if args.ignore_alt:
             for a in idx.bns.anns:
                 a.is_alt = False
@@ -458,6 +498,9 @@ def mem(argv):
         if emf is not None:
             print(f"* EMF perfect-match table loaded "
                   f"(seed_len={emf.seed_len})", file=sys.stderr)
+        if cp2 is not None:
+            print(f"* {cp2.K}-step ({'tri' if cp2.K == 3 else 'bi'}"
+                  f"gram) checkpoint table loaded", file=sys.stderr)
         if ert is not None and idx.sa_compx == 0:
             print(f"* ERT index loaded (K={ert.K}, {ert.n_nodes} nodes)",
                   file=sys.stderr)
@@ -474,7 +517,7 @@ def mem(argv):
             fma = None
         aligner = GpuAligner(idx, device, opt,
                              PipelineConfig(seed_engine=engine), emf=emf,
-                             fma=fma, ert=ert)
+                             fma=fma, ert=ert, cp2=cp2)
     if args.verbosity >= 4:
         # synchronised per-stage device seconds (the -v 4 stage table)
         aligner.prof = StageProfile(device)
@@ -555,11 +598,13 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     cmds = {"index": cmd_index, "mem": cmd_mem,
             "perfect-index": cmd_perfect_index,
-            "smem-table": cmd_smem_table, "ert-index": cmd_ert_index,
+            "smem-table": cmd_smem_table, "kstep-table": cmd_kstep_table,
+            "ert-index": cmd_ert_index,
             "load-shm": cmd_load_shm, "remove-shm": cmd_remove_shm}
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: bwa_mem_scale_tpu_torch {index,perfect-index,"
-              "smem-table,ert-index,mem,load-shm,remove-shm,version} ...",
+              "smem-table,kstep-table,ert-index,mem,load-shm,remove-shm,"
+              "version} ...",
               file=sys.stderr)
         return 1
     cmd, rest = argv[0], argv[1:]

@@ -23,6 +23,14 @@ Two layouts, chosen by ``DeviceFMIndex.from_host``:
   a 5-byte SA, a forward-only reference); the arrays the functions
   return are the same, dtypes included.
 
+With a k-gram checkpoint table (``index/kstep.py``, int32 layout only),
+``cp_kstep`` holds it in the device layout ``kstep_rows`` makes: one
+pair of row fetches extends an interval by two or three bases
+(``backward_ext2``, ``backward_ext3``, ``forward_ext2``,
+``forward_ext3``, ``backward_ext_steps_and_1``; the JAX package's
+primitives of the same names). The plain versions here read the same
+tensor as the kernels.
+
 Torch has no unsigned 32-bit shift on the CPU and no popcount op, so
 masks are widened to int64 before shifting and counted with a SWAR
 popcount. Every gather clamps its index into range at 64 bits, as a JAX
@@ -118,6 +126,12 @@ class DeviceFMIndex:
     seq_len: int
     count_host: list          # the C array as host ints (kernel arguments)
     hi_counts: list           # the steps of each base (kernel arguments)
+    # the k-gram checkpoint table (int32 layout only): [nb, 40 | 168]
+    # int32 in kstep_rows' layout, and its C2 [16] and C3 [64] (K = 3)
+    # int32 tables, which the kernels read from the device
+    cp_kstep: Optional[torch.Tensor] = None
+    count2: Optional[torch.Tensor] = None
+    count3: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -127,19 +141,31 @@ class DeviceFMIndex:
     def pos_dtype(self) -> torch.dtype:
         return self.count.dtype
 
+    @property
+    def kstep(self) -> int:
+        """Bases a k-gram row fetch extends by: 3 (trigram table), 2
+        (bigram) or 1 (no table)."""
+        if self.cp_kstep is None:
+            return 1
+        return 3 if self.count3 is not None else 2
+
     def nbytes(self) -> int:
-        """Device bytes of the index's arrays."""
+        """Device bytes of the index's arrays, the k-gram table's
+        included."""
         ts = (self.count, self.cp_fused, self.cp_hi_steps, self.sa_samples,
-              self.ref)
+              self.ref, self.cp_kstep, self.count2, self.count3)
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
     @classmethod
-    def from_host(cls, idx: FMIndex, device,
-                  force_int64: bool = False) -> "DeviceFMIndex":
+    def from_host(cls, idx: FMIndex, device, force_int64: bool = False,
+                  cp2=None) -> "DeviceFMIndex":
         """The int64 layout when positions pass int32
         (``idx.pos_fits_int32`` false) or when forced, else the int32
-        one."""
+        one. `cp2` (``index/kstep.Cp2Table``) uploads the k-gram table;
+        the int64 layout refuses it, as the JAX package does."""
         wide = force_int64 or not idx.pos_fits_int32
+        if cp2 is not None and wide:
+            raise ValueError("k-step table is int32-path only")
         pos = np.int64 if wide else np.int32
         cnt = np.asarray(idx.cp_count)
         masks = np.asarray(idx.cp_mask).view(np.int32).reshape(-1, 4)
@@ -152,6 +178,13 @@ class DeviceFMIndex:
         else:
             low = cnt.astype(np.int32)
         fused = np.concatenate([low, masks], axis=1)
+        kstep = {}
+        if cp2 is not None:
+            kstep = dict(
+                cp_kstep=torch.as_tensor(kstep_rows(cp2.fused), device=dev),
+                count2=host_tensor(cp2.c2, np.int32, dev),
+                count3=(None if cp2.c3 is None
+                        else host_tensor(cp2.c3, np.int32, dev)))
         return cls(
             count=host_tensor(idx.count, pos, dev),
             cp_fused=torch.as_tensor(fused, device=dev),
@@ -166,7 +199,36 @@ class DeviceFMIndex:
             count_host=[int(v) for v in np.asarray(idx.count)],
             hi_counts=([] if steps is None else
                        [int((s != NO_STEP).sum()) for s in steps]),
+            **kstep,
         )
+
+
+def kstep_rows(fused: np.ndarray) -> np.ndarray:
+    """The device layout of a k-gram table: the file's row
+    (``index/kstep.py``: counts2[16] | masks2[16] | counts1[4] |
+    masks1[4], K = 3 prefixed by counts3[64] | masks3[64]) regrouped so
+    that what one step reads is one 32-byte group: the 1-step row
+    (counts1 | masks1), then for each first base c1 the group
+    counts2[4 c1 .. 4 c1 + 3] | masks2[4 c1 .. 4 c1 + 3], then (K = 3) for
+    each pair p = 4 c1 + c2 the group counts3[4 p ..] | masks3[4 p ..].
+    A 2-step reads two groups an end (the 1-step row and its c1 group), a
+    3-step three; the bytes stay 160 or 672 a block. [nb, 40 | 168]
+    int32."""
+    f = np.asarray(fused, np.int32)
+    nb, w = f.shape
+    if w not in (40, 168):
+        raise ValueError(f"a k-gram row has 40 or 168 words, not {w}")
+    off = w - 40
+
+    def groups(lo, n):
+        cnt = f[:, lo:lo + 4 * n].reshape(nb, n, 1, 4)
+        msk = f[:, lo + 4 * n:lo + 8 * n].reshape(nb, n, 1, 4)
+        return np.concatenate([cnt, msk], axis=2).reshape(nb, 8 * n)
+
+    parts = [f[:, off + 32:off + 40], groups(off, 4)]
+    if off:
+        parts.append(groups(0, 16))
+    return np.ascontiguousarray(np.concatenate(parts, axis=1))
 
 
 def _row_at(fmi: DeviceFMIndex, pp: torch.Tensor):
@@ -255,3 +317,137 @@ def forward_ext(fmi: DeviceFMIndex, k, l, s, a):
     c = (3 - a).long().clamp(0, 3)[..., None]
     pick = lambda v: v.gather(-1, c)[..., 0]
     return pick(l4), pick(k4), pick(s4)
+
+
+# ---- the k-gram (k-step) extensions ---------------------------------------
+
+def _pick(v: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """v[..., i] for a per-lane index i (the JAX package's _take_c)."""
+    return v.gather(-1, i.long()[..., None])[..., 0]
+
+
+def _suffix_sum(v: torch.Tensor) -> torch.Tensor:
+    """suf[..., c] = sum over d > c of v[..., d]."""
+    return torch.flip(torch.cumsum(torch.flip(v, [-1]), -1, dtype=v.dtype),
+                      [-1]) - v
+
+
+def _occ12_at(fmi: DeviceFMIndex, pp: torch.Tensor, want3: bool = False):
+    """(occ1 [..., 4], occ2 [..., 16][, occ3 [..., 64] or None]) at
+    positions pp from one k-gram row each (``kstep_rows``' layout; the
+    row clamped into range)."""
+    t = fmi.cp_kstep
+    blk = (pp.long() >> CP_SHIFT).clamp(0, t.shape[0] - 1)
+    row = t[blk]                                     # [..., 40 | 168]
+    top = _top_mask((pp & CP_MASK).long())[..., None]
+    sh = pp.shape
+
+    def occ(g, n):
+        g = g.reshape(*sh, n, 2, 4)
+        pc = popcount32(g[..., 1, :].long() & _M32 & top[..., None])
+        return (g[..., 0, :] + pc.to(g.dtype)).reshape(*sh, 4 * n)
+
+    occ1 = occ(row[..., :8], 1)
+    occ2 = occ(row[..., 8:40], 4)
+    if not want3:
+        return occ1, occ2
+    return occ1, occ2, (occ(row[..., 40:], 16) if t.shape[1] > 40 else None)
+
+
+def _sent(fmi: DeviceFMIndex, k, s):
+    return ((k <= fmi.sentinel_index)
+            & (k + s > fmi.sentinel_index)).to(k.dtype)
+
+
+def _two_steps(fmi, occ1_k, occ1_e, occ2_k, occ2_e, k, l, s, c1, c2,
+               occ3_k=None, occ3_e=None, c3=None):
+    """The 2- (or 3-)step interval update from the occ values at k and
+    k + s (see backward_ext2): each deeper step the same recipe one
+    k-gram level up, with its own sentinel correction on the interval
+    before it."""
+    c1, c2 = c1.long(), c2.long()
+    s1_4 = occ1_e - occ1_k
+    k1 = fmi.count[c1] + _pick(occ1_k, c1)
+    s1 = _pick(s1_4, c1)
+    l1 = l + _sent(fmi, k, s) + _pick(_suffix_sum(s1_4), c1)
+
+    pair = c1 * 4 + c2
+    s2_16 = occ2_e - occ2_k
+    k2 = fmi.count2[pair] + _pick(occ2_k, pair)
+    s2 = _pick(s2_16, pair)
+    grp = c1[..., None] * 4 + torch.arange(4, device=c1.device)
+    s2_grp = s2_16.gather(-1, grp)                   # s''(c) of (c1 -> c)
+    l2 = l1 + _sent(fmi, k1, s1) + _pick(_suffix_sum(s2_grp), c2)
+    if c3 is None:
+        return (k1, l1, s1), (k2, l2, s2)
+
+    c3 = c3.long()
+    tri = pair * 4 + c3
+    s3_64 = occ3_e - occ3_k
+    k3 = fmi.count3[tri] + _pick(occ3_k, tri)
+    s3 = _pick(s3_64, tri)
+    grp3 = pair[..., None] * 4 + torch.arange(4, device=c1.device)
+    s3_grp = s3_64.gather(-1, grp3)
+    l3 = l2 + _sent(fmi, k2, s2) + _pick(_suffix_sum(s3_grp), c3)
+    return (k1, l1, s1), (k2, l2, s2), (k3, l3, s3)
+
+
+def backward_ext2(fmi: DeviceFMIndex, k, l, s, c1, c2):
+    """Backward extension by per-lane bases c1 then c2 from one k-gram row
+    at k and one at k + s. Returns ((k1, l1, s1), (k2, l2, s2)): the
+    single-step result, which callers need where a walk ends mid-stride,
+    and the 2-step one; equal to two chained backward extensions."""
+    o1, o2 = _occ12_at(fmi, torch.stack([k, k + s]))
+    return _two_steps(fmi, o1[0], o1[1], o2[0], o2[1], k, l, s, c1, c2)
+
+
+def backward_ext3(fmi: DeviceFMIndex, k, l, s, c1, c2, c3):
+    """Three backward extensions from one trigram row at each end; equal
+    to three chained backward extensions."""
+    o1, o2, o3 = _occ12_at(fmi, torch.stack([k, k + s]), want3=True)
+    return _two_steps(fmi, o1[0], o1[1], o2[0], o2[1], k, l, s, c1, c2,
+                      occ3_k=o3[0], occ3_e=o3[1], c3=c3)
+
+
+def backward_ext_steps_and_1(fmi: DeviceFMIndex, k, l, s, chars,
+                             kB, lB, sB, cB, sides=()):
+    """The K-step backward extension of (k, l, s) by chars[0..K-1] (K = 2
+    or 3, 3 with the trigram table) and the single-step extensions of
+    (kB, lB, sB) by cB and of each (kX, lX, sX, cX) in `sides`, all from
+    one k-gram row fetch over every position. Returns (the K step
+    tuples..., B's tuple, each side's tuple)."""
+    want3 = len(chars) == 3
+    parts = [k, k + s, kB, kB + sB]
+    for kX, _, sX, _ in sides:
+        parts += [kX, kX + sX]
+    occ = _occ12_at(fmi, torch.stack(parts), want3=want3)
+    o1, o2 = occ[0], occ[1]
+    kw = {}
+    if want3:
+        kw = dict(occ3_k=occ[2][0], occ3_e=occ[2][1], c3=chars[2])
+    steps = _two_steps(fmi, o1[0], o1[1], o2[0], o2[1], k, l, s, chars[0],
+                       chars[1], **kw)
+
+    def one_step(i, kX, lX, sX, cX):
+        s1_4 = o1[i + 1] - o1[i]
+        cX = cX.long()
+        return (fmi.count[cX] + _pick(o1[i], cX), lX + _sent(fmi, kX, sX)
+                + _pick(_suffix_sum(s1_4), cX), _pick(s1_4, cX))
+
+    out = steps + (one_step(2, kB, lB, sB, cB),)
+    for si, (kX, lX, sX, cX) in enumerate(sides):
+        out = out + (one_step(4 + 2 * si, kX, lX, sX, cX),)
+    return out
+
+
+def forward_ext2(fmi: DeviceFMIndex, k, l, s, a, b):
+    """Two forward extensions (append a, then b): backward_ext2 on the
+    swapped interval by the complements, swapped back."""
+    (k1, l1, s1), (k2, l2, s2) = backward_ext2(fmi, l, k, s, 3 - a, 3 - b)
+    return (l1, k1, s1), (l2, k2, s2)
+
+
+def forward_ext3(fmi: DeviceFMIndex, k, l, s, a, b, c):
+    """Three forward extensions through the swap and complement."""
+    t = backward_ext3(fmi, l, k, s, 3 - a, 3 - b, 3 - c)
+    return tuple((v[1], v[0], v[2]) for v in t)

@@ -12,10 +12,11 @@ reseed tasks, and pass 3 replays its restart chain from the records
 kernels of ``csrc/sweep.cu`` through ``ops/sweep_cuda.py`` on CUDA
 tensors; the lockstep versions here (``extend_all_positions``,
 ``strategy_chase``) are their plain versions and the CPU path. The glue
-is torch ops in the JAX package's order, so every array equals its. Out
-of scope: the k-step body (the port refuses the k-step table) and the
-non-merged ``smems_all_pos`` / ``smems_seed_strategy``, which no path of
-the JAX package reaches.
+is torch ops in the JAX package's order, so every array equals its. With
+a k-gram checkpoint table on the index the extension takes the JAX
+loop's 2-step body (``body2``: two bases a tick, a trigram table's
+bigram part). Out of scope: the non-merged ``smems_all_pos`` /
+``smems_seed_strategy``, which no path of the JAX package reaches.
 
 Scatters that JAX writes as ``.at[...].set(..., mode="drop")`` land here
 in a buffer one slot wider than needed: dropped writes go to the extra
@@ -29,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .occ import DeviceFMIndex, forward_ext
+from .occ import DeviceFMIndex, forward_ext, forward_ext2
 
 
 class SmemBuf(NamedTuple):
@@ -188,9 +189,12 @@ def extend_all_positions(fmi: DeviceFMIndex, codes, lens, min_intv,
     min_intv 1) pass 3's merged records f3_s / f3_E / f3_k / f3_l /
     f3_ss (the first step of length >= p3_stop whose size drops below
     p3_max_intv) and died_s. With `fma` (``ops/fma.DeviceFmaTable``) the
-    first K_eff steps come from the ladder (``sweep_window``). Keeps each
-    lane's forward steps (occ extensions) in ``last_steps``; `stats` gets
-    the lockstep's ticks under `stats_key`."""
+    first K_eff steps come from the ladder (``sweep_window``). With a
+    k-gram table (``fmi.kstep`` > 1) a tick extends every lane by two bases
+    from one row fetch (the JAX loop's ``body2``), every record evaluated
+    at both depths. Keeps each lane's single-base forward steps (occ
+    extensions, the same at every K) in ``last_steps``; `stats` gets the
+    lockstep's ticks under `stats_key`."""
     from .fma import fast_forward
     B, L = codes.shape
     P = n_pos or L
@@ -262,7 +266,53 @@ def extend_all_positions(fmi: DeviceFMIndex, codes, lens, min_intv,
         st["act"] = keep
         st["t"] = t + 1
 
-    run_lockstep(body, lambda: st["act"], stats, stats_key)
+    def body2():
+        # two bases a tick: a lane whose walk ends after the first takes
+        # the single-step result, every record evaluated at both depths
+        t = st["t"]
+        j = pcol + off + t
+        c0 = min(off + t, codes_pad.shape[1] - P - 1)
+        a = codes_pad[:, c0:][:, :P]
+        b = codes_pad[:, c0 + 1:][:, :P]
+        do1 = st["act"] & (j < lens[:, None]) & (a < 4)
+        (k1, l1, s1), (k2, l2, s2) = forward_ext2(
+            fmi, st["k"], st["l"], st["s"], a.clamp(0, 3), b.clamp(0, 3))
+        sfail1 = do1 & (s1 < mi)
+        if stop_min_len > 0:
+            sfail1 = sfail1 & ((j - pcol + 1) >= stop_min_len)
+        keep1 = do1 & ~sfail1
+        do2 = keep1 & ((j + 1) < lens[:, None]) & (b < 4)
+        sfail2 = do2 & (s2 < mi)
+        if stop_min_len > 0:
+            sfail2 = sfail2 & ((j - pcol + 2) >= stop_min_len)
+        keep2 = do2 & ~sfail2
+        pick = lambda c2, v2, c1, v1, v: torch.where(
+            c2, v2, torch.where(c1, v1, v))
+        st["E"] = pick(keep2, j + 2, keep1, j + 1, st["E"])
+        for f, v1, v2 in (("k", k1, k2), ("l", l1, l2), ("s", s1, s2)):
+            st[f] = pick(keep2, v2, keep1, v1, st[f])
+        if want_fail:
+            st["fail_s"] = st["fail_s"] | sfail1 | sfail2
+            for f, v1, v2 in (("fail_k", k1, k2), ("fail_l", l1, l2),
+                              ("fail_ss", s1, s2)):
+                st[f] = pick(sfail1, v1, sfail2, v2, st[f])
+        if merge_p3:
+            st["died_s"] = st["died_s"] | sfail1 | sfail2
+            fire1 = (do1 & ~st["f3_s"] & (s1 < p3_max_intv)
+                     & ((off + t + 1) >= p3_stop))
+            fire2 = (do2 & ~(st["f3_s"] | fire1) & (s2 < p3_max_intv)
+                     & ((off + t + 2) >= p3_stop))
+            st["f3_s"] = st["f3_s"] | fire1 | fire2
+            st["f3_E"] = pick(fire1, j, fire2, j + 1, st["f3_E"])
+            for f, v1, v2 in (("f3_k", k1, k2), ("f3_l", l1, l2),
+                              ("f3_ss", s1, s2)):
+                st[f] = pick(fire1, v1, fire2, v2, st[f])
+        st["steps"] = st["steps"] + do1.to(torch.int32) + do2.to(torch.int32)
+        st["act"] = keep2
+        st["t"] = t + 2
+
+    run_lockstep(body2 if fmi.kstep > 1 else body, lambda: st["act"], stats,
+                 stats_key)
     extend_all_positions.last_steps = st["steps"]
     st["valid"] = base_ok
     return {f: st[f] for f in sweep_keys(want_fail, merge_p3)}

@@ -20,8 +20,15 @@ one for each layout of ``ops/occ.py``: positions int32 (the
 ``fmi.pos_dtype``; an int64 index never runs the int32 form. Each wrapper
 keeps a ``launches`` count (both forms), a ``launches64`` count (the
 int64 form) and the last call's per-lane ``last_steps`` (the ext calls);
-``one_pos_machine_cuda`` also keeps ``last_rounds`` (the dependent occ
-round trips on each task's path).
+``one_pos_machine_cuda`` and ``seed_strategy_machine_cuda`` also keep
+``last_rounds`` (the dependent occ round trips on each task's path).
+
+With a k-gram checkpoint table on the index (``fmi.kstep`` 2 or 3, int32
+layout only) the wrappers launch the k-step forms (``one_pos_launch_k``:
+the forward walk K bases a row fetch; ``seed_strategy_launch_k``: two
+bases a fetch, a trigram table's bigram part) and count them in
+``launches_k`` as well; steps still count single bases, rounds the row
+fetches.
 
 Each kernel returns its plain version's arrays exactly, lanes that
 overflowed their stacks or their emission depth included. The source is
@@ -65,11 +72,17 @@ _SAL = {torch.int32: [_vp, _ci, _ci, _vp, _vp, _ci] + [_vp] * 2,
         torch.int64: [_vp, _ll, _ci, _vp, _vp, _ci] + [_vp] * 2}
 _SUFFIX = {torch.int32: "", torch.int64: "64"}
 LIB = nvcc_build.Library("smem.cu", "smem_cuda", {
-    f"{fn}{_SUFFIX[pd]}": _FMI[pd] + tail
-    for pd in _FMI
-    for fn, tail in (("one_pos_launch", _ONE_POS),
-                     ("seed_strategy_launch", _P3),
-                     ("sa_walk_launch", _SAL[pd]))},
+    **{f"{fn}{_SUFFIX[pd]}": _FMI[pd] + tail
+       for pd in _FMI
+       for fn, tail in (("one_pos_launch", _ONE_POS),
+                        ("seed_strategy_launch", _P3),
+                        ("sa_walk_launch", _SAL[pd]))},
+    # the k-step forms: the int32 index, then the k-gram table, its row
+    # width in int4s and its C2 (and C3) tables (and K for passes 1-2)
+    **{"one_pos_launch_k": _FMI[torch.int32] + [_vp, _ci, _vp, _vp, _ci]
+       + _ONE_POS,
+       "seed_strategy_launch_k": _FMI[torch.int32] + [_vp, _ci, _vp] + _P3
+       + [_vp]}},
     host_fns={"one_pos_stacks_in_shared": [_ci, _ci],
               "one_pos_stacks_in_shared64": [_ci, _ci]})
 build = LIB.build            # compile csrc/smem.cu; returns the library path
@@ -86,15 +99,27 @@ def _fmi_args(fmi: DeviceFMIndex) -> list:
     return args
 
 
+def _kstep_args(fmi: DeviceFMIndex, ks: int) -> list:
+    """The k-step forms' table arguments, after _fmi_args: the k-gram
+    rows, their width in int4s and the C2 table, then at ks = 3 the C3
+    table (null at 2) and ks (passes 1-2 only, ks None)."""
+    t = fmi.cp_kstep
+    args = [t.data_ptr(), t.shape[1] // 4, fmi.count2.data_ptr()]
+    if ks is not None:
+        args += [fmi.count3.data_ptr() if ks == 3 else None, ks]
+    return args
+
+
 def _form(fn: str, fmi: DeviceFMIndex) -> str:
     """The launch function of `fn`'s form for fmi's position dtype."""
     return fn + _SUFFIX[fmi.pos_dtype]
 
 
-def _count(wrapper, fmi: DeviceFMIndex) -> None:
+def _count(wrapper, fmi: DeviceFMIndex, kstep: bool = False) -> None:
     """One launch of `wrapper`'s kernel, in its form's counts."""
     wrapper.launches += 1
     wrapper.launches64 += fmi.pos_dtype == torch.int64
+    wrapper.launches_k += kstep
 
 
 def _smem_out(n: int, M: int, pos_dtype, dev):
@@ -118,7 +143,8 @@ def _check(what: str, fmi: DeviceFMIndex, *tensors) -> torch.device:
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     tables = (fmi.cp_fused, fmi.count) + (
-        () if fmi.cp_hi_steps is None else (fmi.cp_hi_steps,))
+        () if fmi.cp_hi_steps is None else (fmi.cp_hi_steps,)) + tuple(
+        t for t in (fmi.cp_kstep, fmi.count2, fmi.count3) if t is not None)
     if any(t.device != dev for t in (*tensors, *tables)):
         raise ValueError(f"{what}: tensors on different devices")
     if fmi.pos_dtype not in _SUFFIX:
@@ -171,14 +197,15 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
         stk = (None if LIB.call(_form("one_pos_stacks_in_shared", fmi), L, SD)
                else torch.empty((T, 2, SD + 1, 4 * fmi.pos_dtype.itemsize),
                                 dtype=torch.uint8, device=dev))
-        LIB.launch(dev, _form("one_pos_launch", fmi), *_fmi_args(fmi),
-                   args[0].data_ptr(),
-                   args[1].data_ptr(), B, L,
+        ks = fmi.kstep
+        form = (["one_pos_launch_k", *_fmi_args(fmi), *_kstep_args(fmi, ks)]
+                if ks > 1 else [_form("one_pos_launch", fmi), *_fmi_args(fmi)])
+        LIB.launch(dev, *form, args[0].data_ptr(), args[1].data_ptr(), B, L,
                    *(a.data_ptr() for a in args[2:]), T, int(chain_restarts),
                    min_seed_len, max_out, SD,
                    None if stk is None else stk.data_ptr(), out.data_ptr(),
                    cnt.data_ptr(), steps.data_ptr(), rounds.data_ptr())
-        _count(one_pos_machine_cuda, fmi)
+        _count(one_pos_machine_cuda, fmi, ks > 1)
         if stats is not None:
             for what, per_task in (("steps", steps), ("rounds", rounds)):
                 key = stats_key.replace("ticks", what)
@@ -189,9 +216,10 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
 
 
 # kernel launches since the last reset (main-path proof in chip_smoke.py):
-# all, and the int64 form's
+# all, the int64 form's and the k-step forms'
 one_pos_machine_cuda.launches = 0
 one_pos_machine_cuda.launches64 = 0
+one_pos_machine_cuda.launches_k = 0
 # the per-task ext calls and dependent occ round trips of the last call
 # ([T] int32 each, on its device)
 one_pos_machine_cuda.last_steps = None
@@ -204,8 +232,8 @@ def seed_strategy_machine_cuda(fmi: DeviceFMIndex, codes, lens,
     """Drop-in for ``seed_strategy_machine`` (equal arrays), one lane a
     read. codes [B, L] and lens [B] int32 on fmi's device. `stats` gets
     the lockstep's ``seed_ticks_p3`` from the plain version (CPU tensors)
-    or the kernel's longest lane's steps under ``seed_steps_p3`` (CUDA
-    tensors)."""
+    or the kernel's longest lane's steps and rounds under
+    ``seed_steps_p3`` and ``seed_rounds_p3`` (CUDA tensors)."""
     if codes.device.type == "cpu":
         from .smem_oh import seed_strategy_machine
         return seed_strategy_machine(fmi, codes, lens, max_intv,
@@ -219,23 +247,33 @@ def seed_strategy_machine_cuda(fmi: DeviceFMIndex, codes, lens,
     out, fields = _smem_out(B, max_out, fmi.pos_dtype, dev)
     cnt = torch.empty((B,), dtype=i32, device=dev)
     steps = torch.empty((B,), dtype=i32, device=dev)
+    kstep = fmi.kstep > 1
+    # a row fetch a step at K = 1
+    rounds = torch.empty((B,), dtype=i32, device=dev) if kstep else steps
     if B:
         c, ln = codes.contiguous(), lens.contiguous()
-        LIB.launch(dev, _form("seed_strategy_launch", fmi), *_fmi_args(fmi),
-                   c.data_ptr(), ln.data_ptr(), B, L, int(max_intv),
-                   min_seed_len, max_out, 0, out.data_ptr(), cnt.data_ptr(),
-                   steps.data_ptr())
-        _count(seed_strategy_machine_cuda, fmi)
+        form = (["seed_strategy_launch_k", *_fmi_args(fmi),
+                 *_kstep_args(fmi, None)] if kstep else
+                [_form("seed_strategy_launch", fmi), *_fmi_args(fmi)])
+        LIB.launch(dev, *form, c.data_ptr(), ln.data_ptr(), B, L,
+                   int(max_intv), min_seed_len, max_out, 0, out.data_ptr(),
+                   cnt.data_ptr(), steps.data_ptr(),
+                   *([rounds.data_ptr()] if kstep else []))
+        _count(seed_strategy_machine_cuda, fmi, kstep)
         if stats is not None:
-            stats["seed_steps_p3"] = (stats.get("seed_steps_p3", 0)
-                                      + steps.max())
+            for what, per_read in (("steps", steps), ("rounds", rounds)):
+                key = f"seed_{what}_p3"
+                stats[key] = stats.get(key, 0) + per_read.max()
     seed_strategy_machine_cuda.last_steps = steps
+    seed_strategy_machine_cuda.last_rounds = rounds
     return SmemBuf(*fields, cnt)
 
 
 seed_strategy_machine_cuda.launches = 0
 seed_strategy_machine_cuda.launches64 = 0
+seed_strategy_machine_cuda.launches_k = 0
 seed_strategy_machine_cuda.last_steps = None     # [B] int32, on its device
+seed_strategy_machine_cuda.last_rounds = None    # [B] int32, on its device
 
 
 def sa_walk_cuda(fmi: DeviceFMIndex, pos: torch.Tensor,
@@ -279,6 +317,7 @@ def sa_walk_cuda(fmi: DeviceFMIndex, pos: torch.Tensor,
 
 sa_walk_cuda.launches = 0
 sa_walk_cuda.launches64 = 0
+sa_walk_cuda.launches_k = 0
 sa_walk_cuda.last_steps = None                   # [N] int32, on its device
 
 
@@ -332,15 +371,62 @@ class _TwinFmi:
         return self.count[c] + a[c], l + sent + sum(s4[c + 1:]), s4[c]
 
 
+def kstep_tables(fmi: DeviceFMIndex):
+    """The twins' ``kstep`` keyword for fmi: (k-gram rows, C2, C3 or None)
+    as numpy arrays, or None without a table."""
+    if fmi.cp_kstep is None:
+        return None
+    return (fmi.cp_kstep.cpu().numpy(), fmi.count2.cpu().numpy(),
+            None if fmi.count3 is None else fmi.count3.cpu().numpy())
+
+
+class _TwinK:
+    """csrc/fmi_step.cuh's ext_k on numpy arrays: KS = len(c) bases from
+    the 32-byte groups of one k-gram row at each end (the 1-step row, the
+    first base's bigram group, the pair's trigram group)."""
+
+    def __init__(self, fm: _TwinFmi, cp_kstep, count2, count3=None):
+        self.fm = fm
+        self.cp = np.asarray(cp_kstep, np.int64)
+        self.c2 = [int(v) for v in count2]
+        self.c3 = None if count3 is None else [int(v) for v in count3]
+
+    def occ(self, pp: int, g: int):
+        blk = min(max(pp >> 5, 0), self.cp.shape[0] - 1)
+        row = self.cp[blk, 8 * g: 8 * g + 8]
+        top = _TwinFmi.top_bits(pp & 31)
+        return [int(row[i]) + bin(int(row[4 + i]) & 0xFFFFFFFF & top
+                                  ).count("1") for i in range(4)]
+
+    def ext_k(self, k: int, l: int, s: int, c: list) -> list:
+        grp = [0, 1 + c[0], 5 + 4 * c[0] + c[1]][:len(c)]
+        base = [self.fm.count[c[0]]]
+        if len(c) > 1:
+            base.append(self.c2[4 * c[0] + c[1]])
+        if len(c) > 2:
+            base.append(self.c3[16 * c[0] + 4 * c[1] + c[2]])
+        ends = (k, k + s)                    # every group at these two
+        out = []
+        for d, cd in enumerate(c):
+            a, b = (self.occ(pp, grp[d]) for pp in ends)
+            s4 = [b[i] - a[i] for i in range(4)]
+            sent = int(k <= self.fm.sentinel < k + s)
+            k, l, s = base[d] + a[cd], l + sent + sum(s4[cd + 1:]), s4[cd]
+            out.append((k, l, s))
+        return out
+
+
 WARP = 32                # a warp's lanes: one backward-round chunk
 
 
 def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
                  t_x, t_mi, t_valid, chain_restarts: bool,
                  min_seed_len: int, max_out: int, stack_depth: int = None,
-                 hi_steps=None):
+                 hi_steps=None, kstep=None):
     """csrc/smem.cu's one_pos_kernel in plain Python on numpy arrays, one
-    task (warp) after another: the serial forward walk, then each
+    task (warp) after another: the serial forward walk (with `kstep`,
+    ``kstep_tables``' k-gram table, the k-step form's: K bases a row
+    fetch, 3 with a C3 table, else 2), then each
     backward round in chunks of WARP simulated lanes with the kernel's
     ballot-form keep/emit rule and stack slots. Raises AssertionError
     where a round breaks the two orders that rule rests on (along p the
@@ -350,6 +436,8 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
     for the int64 form."""
     fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
     count, ext = fm.count, fm.ext
+    kt = None if kstep is None else _TwinK(fm, *kstep)
+    ks = 1 if kt is None else (3 if kt.c3 is not None else 2)
     codes = np.asarray(codes)
     B, L = codes.shape
     T = len(t_read)
@@ -396,21 +484,35 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
             ck, cl = count[xa], count[3 - xa]
             cs, cn = count[xa + 1] - count[xa], x
             j, nx, cA = x + 1, x + 1, 0
-            while j < n_len:                         # forward, serial
+            go = True
+            while go and j < n_len:                  # forward, serial
                 nx = j + 1
-                a = code(j)
-                if a >= 4:
+                cc = [code(j + d) for d in range(ks)]
+                if cc[0] >= 4:
                     break
-                nl, nk, ns = ext(cl, ck, cs, 3 - a)
-                steps += 1
+                if kt is None:
+                    res = [ext(cl, ck, cs, 3 - cc[0])]
+                else:                                # KS bases a fetch
+                    res = kt.ext_k(cl, ck, cs, [3 - min(c, 3) for c in cc])
                 rounds += 1
-                if ns != cs:
-                    cA = push(wA, cA, (ck, cl, cs, cn))
-                if ns < mi:
-                    nx = j
-                    break
-                ck, cl, cs, cn = nk, nl, ns, j
-                j += 1
+                for d, (nl, nk, ns) in enumerate(res):
+                    if d:                            # mid-stride ends
+                        if j >= n_len:
+                            go = False
+                            break
+                        nx = j + 1
+                        if cc[d] >= 4:
+                            go = False
+                            break
+                    steps += 1
+                    if ns != cs:
+                        cA = push(wA, cA, (ck, cl, cs, cn))
+                    if ns < mi:
+                        nx = j
+                        go = False
+                        break
+                    ck, cl, cs, cn = nk, nl, ns, j
+                    j += 1
             if cs >= mi:
                 cA = push(wA, cA, (ck, cl, cs, cn))
             mA, rev, j = x, True, x - 1
@@ -475,23 +577,25 @@ def _smem_fields(out, hi_steps) -> tuple:
 
 def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
                        max_intv: int, min_seed_len: int, max_out: int,
-                       hi_steps=None):
+                       hi_steps=None, kstep=None):
     """csrc/smem.cu's seed_strategy_kernel in plain Python on numpy
-    arrays, one read after another: the same flat loop of one ext an
-    iteration, its `seek` to the next walk and its clamps (the int64 form
-    with `hi_steps`). Returns (m, n, k, l, s, cnt, steps) as numpy
-    arrays."""
+    arrays, one read after another: the same flat loop of one row fetch
+    an iteration (one base, or with `kstep`, ``kstep_tables``' k-gram
+    table, two), its `seek` to the next walk and its clamps (the int64
+    form with `hi_steps`). Returns (m, n, k, l, s, cnt, steps, rounds) as
+    numpy arrays."""
     fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
+    kt = None if kstep is None else _TwinK(fm, *kstep)
     C = fm.count
     codes = np.asarray(codes)
     B, L = codes.shape
     M = max_out
     out = np.zeros((5, B, M), np.int64)
-    cnt_out = np.zeros(B, np.int32)
-    steps_out = np.zeros(B, np.int32)
+    cnt_out, steps_out, rounds_out = (np.zeros(B, np.int32)
+                                      for _ in range(3))
     for t in range(B):
         q, n_len = codes[t], int(lens[t])
-        cnt = steps = 0
+        cnt = steps = rounds = 0
         st = {}                                      # x, j, ck, cl, cs
 
         def code(i):
@@ -514,26 +618,44 @@ def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
             st.update(x=x, j=j, ck=C[xa], cl=C[3 - xa], cs=C[xa + 1] - C[xa])
             return True
 
-        live = seek(0)
-        while live:                                  # one ext an iteration
+        def take(nk, nl, ns):
+            """One base with its extension made (the kernel's take):
+            True while the walk goes on, else the next walk sought."""
+            nonlocal cnt, steps
             x, j = st["x"], st["j"]
-            nl, nk, ns = fm.ext(st["cl"], st["ck"], st["cs"], 3 - code(j))
             steps += 1
             if ns < max_intv and j + 1 - x >= min_seed_len:
                 if ns > 0:
                     if cnt < M:
                         out[:, t, cnt] = (x, j, nk, nl, ns)
                     cnt += 1
-                live = seek(j + 1)
+                return False, seek(j + 1)
+            st.update(ck=nk, cl=nl, cs=ns, j=j + 1)
+            if j + 1 >= n_len:
+                return False, False
+            if code(j + 1) >= 4:
+                return False, seek(j + 2)
+            return True, True
+
+        live = seek(0)
+        while live:                          # one row fetch an iteration
+            j = st["j"]
+            rounds += 1
+            if kt is None:
+                nl, nk, ns = fm.ext(st["cl"], st["ck"], st["cs"],
+                                    3 - code(j))
+                _, live = take(nk, nl, ns)
             else:
-                st.update(ck=nk, cl=nl, cs=ns, j=j + 1)
-                if j + 1 >= n_len:
-                    live = False
-                elif code(j + 1) >= 4:
-                    live = seek(j + 2)
+                res = kt.ext_k(st["cl"], st["ck"], st["cs"],
+                               [3 - code(j), 3 - min(code(j + 1), 3)])
+                for nl, nk, ns in res:
+                    go, live = take(nk, nl, ns)
+                    if not go:
+                        break
         cnt_out[t] = cnt
         steps_out[t] = steps
-    return (*_smem_fields(out, hi_steps), cnt_out, steps_out)
+        rounds_out[t] = rounds
+    return (*_smem_fields(out, hi_steps), cnt_out, steps_out, rounds_out)
 
 
 def sa_walk_twin(count, cp_fused, sentinel_index: int, sa_samples,

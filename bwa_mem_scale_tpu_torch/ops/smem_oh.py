@@ -25,6 +25,15 @@ A lane that reaches DONE is a strict no-op, so the loops test their
 exit condition (a host sync on a GPU) once every ``smem.CHECK_EVERY``
 ticks (``smem.run_lockstep``).
 
+With a k-gram checkpoint table on the index (``fmi.kstep`` 2 or 3,
+``index/kstep.py``) the machines take the JAX machines' k-step branches
+(``use2``) tick for tick: passes 1-2 extend the forward walk K bases a
+tick, pushing at each depth where the size changes, and a backward tick
+takes the round's next entry (and, in the tail at K = 3, the one after)
+beside it from the same row fetch; pass 3 extends two bases a tick (a
+trigram table's bigram part). The output is the 1-step machines'; each
+lane's ``last_steps`` still counts single-base extensions.
+
 ``collect_smems_oh`` runs passes 1 and 2 through
 ``smem_cuda.one_pos_machine_cuda`` and pass 3 through
 ``smem_cuda.seed_strategy_machine_cuda``: one launch of a
@@ -36,7 +45,8 @@ from __future__ import annotations
 
 import torch
 
-from .occ import DeviceFMIndex, backward_ext_all4
+from .occ import (DeviceFMIndex, backward_ext_all4,
+                  backward_ext_steps_and_1, forward_ext2)
 from .smem import (SmemBuf, concat_smems, _emit_compact, reseed_tasks,
                    run_lockstep)
 from .smem_cuda import (one_pos_machine_cuda,
@@ -96,8 +106,11 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
 
     stack_depth (default the read length L, provably enough) bounds
     the interval stacks; a lane that overflows them reports
-    cnt = max_out + 1. Keeps each lane's occ extensions (the kernel's
-    steps) in ``one_pos_machine.last_steps``."""
+    cnt = max_out + 1. With a k-gram table (``fmi.kstep`` K > 1) a FWD
+    tick extends K bases and a backward tick takes a side entry (two in
+    the tail at K = 3), as the JAX machine's ``use2`` branch. Keeps each
+    lane's single-base occ extensions (the kernel's steps, the same at
+    every K) in ``one_pos_machine.last_steps``."""
     dev = codes.device
     T = t_read.shape[0]
     B, L = codes.shape
@@ -107,6 +120,8 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
     panel = codes[t_read]                                 # [T, L]
     count = fmi.count
     pd = fmi.pos_dtype
+    ks = fmi.kstep
+    use2, tail3 = ks > 1, ks > 2
     i32 = lambda v: torch.full((T,), v, dtype=torch.int32, device=dev)
     pos = lambda v: torch.full((T,), v, dtype=pd, device=dev)
 
@@ -174,30 +189,81 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
         sel1 = torch.where(is_fwd, 3 - ac, ac)
         kk = torch.where(is_fwd, ext_l, ext_k)
         ll = torch.where(is_fwd, ext_k, ext_l)
-        k4, l4, s4 = backward_ext_all4(fmi, kk, ll, ext_s)
-        ka, la = _sel4(k4, sel1), _sel4(l4, sel1)
+        if use2:
+            # the next entries of the round (one, and at K = 3 in the tail
+            # two), extended by the same base from the same row fetch
+            step_cs = [_col(panel, j + d) for d in range(1, ks)]
+            nxt = lambda d: read_a(torch.where(st["rev"], cntA0 - 1 - d - p,
+                                               p + d))
+            pk2, pl2, ps2, pn2 = nxt(1)
+            sides = []
+            if tail3:
+                pk3, pl3, ps3, pn3 = nxt(2)
+                sides = [(pk3, pl3, ps3, ac)]
+            sels = [sel1] + [torch.where(is_fwd, 3 - cd.clamp(0, 3), 0)
+                             for cd in step_cs]
+            res = backward_ext_steps_and_1(fmi, kk, ll, ext_s, tuple(sels),
+                                           pk2, pl2, ps2, ac, sides=sides)
+            if tail3:
+                nkC, nlC, nsC = res[-1]
+                res = res[:-1]
+            fsteps, (nkB, nlB, nsB) = res[:-1], res[-1]
+            ka, la, ns = fsteps[0]
+            fw_steps = [(t[1], t[0], t[2]) for t in fsteps]
+        else:
+            k4, l4, s4 = backward_ext_all4(fmi, kk, ll, ext_s)
+            ka, la, ns = _sel4(k4, sel1), _sel4(l4, sel1), _sel4(s4, sel1)
         nk = torch.where(is_fwd, la, ka)
         nl = torch.where(is_fwd, ka, la)
-        ns = _sel4(s4, sel1)
 
         # ---- FWD
         j_in = j < lens_t
         a_ok = a_j < 4
         f_run = is_fwd & j_in & a_ok
-        s_changed = f_run & (ns != cs)
-        s_fail = f_run & (ns < mi)
-        f_cont = f_run & ~s_fail
-        f_end = is_fwd & (~j_in | ~a_ok | s_fail)
-        cntA = push(wA, [(s_changed, ck, cl, cs, cn),
-                         (f_end & (cs >= mi), ck, cl, cs, cn)], cntA0)
+        if use2:
+            # K bases a tick: a push at each depth where the size changes,
+            # the walk ending at the first depth that stops
+            prev = (ck, cl, cs, cn)
+            ek, el, es, en = prev
+            entries, nx, gate, f_steps = [], st["nx"], is_fwd, 0
+            for d in range(ks):
+                jd = j + d
+                cd = a_j if d == 0 else step_cs[d - 1]
+                run_d = gate & (jd < lens_t) & (cd < 4)
+                sk, sl, ss = fw_steps[d]
+                fail_d = run_d & (ss < mi)
+                cont_d = run_d & ~fail_d
+                entries.append((run_d & (ss != prev[2]),) + prev)
+                nx = torch.where(gate & (jd < lens_t), jd + 1, nx)
+                nx = torch.where(fail_d, jd, nx)
+                ek = torch.where(cont_d, sk, ek)
+                el = torch.where(cont_d, sl, el)
+                es = torch.where(cont_d, ss, es)
+                en = torch.where(cont_d, jd, en)
+                prev = (sk, sl, ss, jd)
+                gate = cont_d
+                f_steps = f_steps + run_d.to(torch.int32)
+            f_end = is_fwd & ~cont_d
+            entries.append((f_end & (es >= mi), ek, el, es, en))
+            cntA = push(wA, entries, cntA0)
+            ck2, cl2, cs2, cn2 = ek, el, es, en
+            j2 = torch.where(cont_d, j + ks, j)
+        else:
+            s_changed = f_run & (ns != cs)
+            s_fail = f_run & (ns < mi)
+            f_cont = f_run & ~s_fail
+            f_end = is_fwd & (~j_in | ~a_ok | s_fail)
+            cntA = push(wA, [(s_changed, ck, cl, cs, cn),
+                             (f_end & (cs >= mi), ck, cl, cs, cn)], cntA0)
+            nx = torch.where(is_fwd & j_in, j + 1, st["nx"])
+            nx = torch.where(s_fail, j, nx)
+            ck2 = torch.where(f_cont, nk, ck)
+            cl2 = torch.where(f_cont, nl, cl)
+            cs2 = torch.where(f_cont, ns, cs)
+            cn2 = torch.where(f_cont, j, cn)
+            j2 = torch.where(f_cont, j + 1, j)
+            f_steps = f_run.to(torch.int32)
         mA = torch.where(f_end, x, st["mA"])
-        nx = torch.where(is_fwd & j_in, j + 1, st["nx"])
-        nx = torch.where(s_fail, j, nx)
-        ck2 = torch.where(f_cont, nk, ck)
-        cl2 = torch.where(f_cont, nl, cl)
-        cs2 = torch.where(f_cont, ns, cs)
-        cn2 = torch.where(f_cont, j, cn)
-        j2 = torch.where(f_cont, j + 1, j)
 
         phase2 = torch.where(f_end, P_BSCAN, phase)
         j2 = torch.where(f_end, x - 1, j2)
@@ -216,25 +282,69 @@ def one_pos_machine(fmi: DeviceFMIndex, codes, lens, t_read, t_x, t_mi,
         emit_sc = die & long_enough
         keep_sc = bs_run & ~die & (ns != st["curr_s"])
         hit = emit_sc | keep_sc
-        out.emit(emit0 | emit_sc, pm, pn, pk, pl, ps)
+        b_steps = bs_run.to(torch.int32) + (is_bt & (p < cntA0)).to(
+            torch.int32)
+        if use2:
+            # the round's next entry, tested in the same tick
+            nb_ok = (p + 1) < cntA0
+            cont_scan = bs_run & ~hit & nb_ok
+            die2 = cont_scan & (nsB < mi)
+            emit_sc2 = die2 & ((pn2 - pm + 1) >= min_seed_len)
+            keep_sc2 = cont_scan & ~die2 & (nsB != st["curr_s"])
+            hit2 = emit_sc2 | keep_sc2
+            cs_mid_s = torch.where(keep_sc, ns, st["curr_s"])
+            keep_tl2s = (bs_run & hit & nb_ok & (nsB >= mi)
+                         & (nsB != cs_mid_s))
+            e2 = emit_sc2
+            out.emit(emit0 | emit_sc | e2, pm, torch.where(e2, pn2, pn),
+                     torch.where(e2, pk2, pk), torch.where(e2, pl2, pl),
+                     torch.where(e2, ps2, ps))
+            hit = hit | hit2
+            b_steps = b_steps + ((bs_run & nb_ok)
+                                 | (is_bt & (p + 1 < cntA0))).to(torch.int32)
+            if tail3:
+                b_steps = b_steps + (is_bt & (p + 2 < cntA0)).to(torch.int32)
+        else:
+            out.emit(emit0 | emit_sc, pm, pn, pk, pl, ps)
         phase2 = torch.where(hit, P_BTAIL, phase2)
 
         # ---- BTAIL
         keep_tl = is_bt & (p < cntA0) & (ns >= mi) & (ns != st["curr_s"])
         keep_b = keep_sc | keep_tl
-        cntB = push(1 - wA, [(keep_b, nk, nl, ns, pn)], cntB)
-        curr_s = torch.where(keep_b, ns, curr_s)
+        if use2:
+            cs_mid = torch.where(keep_b, ns, curr_s)
+            keep_tl2 = (is_bt & (p + 1 < cntA0) & (nsB >= mi)
+                        & (nsB != cs_mid))
+            keep2 = keep_tl2 | keep_sc2 | keep_tl2s
+            entries_b = [(keep_b, nk, nl, ns, pn),
+                         (keep2, nkB, nlB, nsB, pn2)]
+            curr_s2 = torch.where(keep2, nsB, cs_mid)
+            if tail3:
+                keep_tl3 = (is_bt & (p + 2 < cntA0) & (nsC >= mi)
+                            & (nsC != curr_s2))
+                entries_b.append((keep_tl3, nkC, nlC, nsC, pn3))
+                curr_s2 = torch.where(keep_tl3, nsC, curr_s2)
+            cntB = push(1 - wA, entries_b, cntB)
+            curr_s = curr_s2
+        else:
+            cntB = push(1 - wA, [(keep_b, nk, nl, ns, pn)], cntB)
+            curr_s = torch.where(keep_b, ns, curr_s)
 
-        st["steps"] = st["steps"] + (f_run | bs_run
-                                     | (is_bt & (p < cntA0))).to(torch.int32)
+        st["steps"] = st["steps"] + f_steps + b_steps
 
         # stack-overflow latch, before the epilogue resets the counts
         of = st["of"] | (cntA > SD) | (cntB > SD)
 
         b_any = bs_run | is_bt
-        p2 = torch.where(b_any, p + 1, p2)
-        scan_out = bs_run & ~hit & (p + 1 >= cntA0)
-        tail_out = is_bt & (p + 1 >= cntA0)
+        if use2:
+            badv = torch.where(is_bt, 3 if tail3 else 2,
+                               torch.where(bs_run & nb_ok, 2, 1))
+        else:
+            badv = 1
+        p2 = torch.where(b_any, p + badv, p2)
+        scan_out = bs_run & ~hit & (p + badv >= cntA0)
+        tail_out = (is_bt | (bs_run & hit)) & (p + badv >= cntA0) if use2 \
+            else is_bt & (p + 1 >= cntA0)
         round_over = scan_out | tail_out
 
         # round epilogue: prev <- curr by flipping the buffer bit
@@ -289,12 +399,15 @@ def seed_strategy_machine(fmi: DeviceFMIndex, codes, lens, max_intv: int,
                           min_seed_len: int, max_out: int,
                           stats: dict = None) -> SmemBuf:
     """Pass 3 (bwtSeedStrategyAllPosOneThread,
-    src/FMI_search.cpp:1662-1730), one lane per read. Keeps each lane's
-    occ extensions in ``seed_strategy_machine.last_steps``."""
+    src/FMI_search.cpp:1662-1730), one lane per read; two bases a tick
+    with a k-gram table (the JAX machine's ``use2`` branch). Keeps each
+    lane's single-base occ extensions in
+    ``seed_strategy_machine.last_steps``."""
     dev = codes.device
     B, L = codes.shape
     count = fmi.count
     pd = fmi.pos_dtype
+    use2 = fmi.kstep > 1
     i32 = lambda v: torch.full((B,), v, dtype=torch.int32, device=dev)
     pos = lambda v: torch.full((B,), v, dtype=pd, device=dev)
     st = dict(phase=i32(P_INIT), x=i32(0), j=i32(0), ck=pos(0),
@@ -313,20 +426,48 @@ def seed_strategy_machine(fmi: DeviceFMIndex, codes, lens, max_intv: int,
         ac = a_j.clamp(0, 3)
         j_in = j < lens_t
         a_ok = a_j < 4
-        k4, l4, s4 = backward_ext_all4(fmi, st["cl"], st["ck"], st["cs"])
-        sel = 3 - ac
-        nk, nl, ns = _sel4(l4, sel), _sel4(k4, sel), _sel4(s4, sel)
-        f_run = is_fwd & j_in & a_ok
-        st["steps"] = st["steps"] + f_run.to(torch.int32)
-        hit = f_run & (ns < max_intv) & ((j - x + 1) >= min_seed_len)
-        out.emit(hit & (ns > 0), x, j, nk, nl, ns)
-        f_end = is_fwd & (~j_in | ~a_ok | hit)
-        f_cont = f_run & ~hit
-        ck = torch.where(f_cont, nk, st["ck"])
-        cl = torch.where(f_cont, nl, st["cl"])
-        cs = torch.where(f_cont, ns, st["cs"])
-        j2 = torch.where(f_cont, j + 1, j)
-        nx = torch.where(j_in, j + 1, j)
+        msl_at = lambda col: (col - x + 1) >= min_seed_len
+        if use2:
+            # two bases a tick (a trigram table's bigram part): the walk
+            # stops at the first of the two that hits or ends
+            b_j = _col(codes, j + 1)
+            (nk, nl, ns), (nk2, nl2, ns2) = forward_ext2(
+                fmi, st["ck"], st["cl"], st["cs"], ac, b_j.clamp(0, 3))
+            r1 = is_fwd & j_in & a_ok
+            hit1 = r1 & (ns < max_intv) & msl_at(j)
+            cont1 = r1 & ~hit1
+            j2_in = (j + 1) < lens_t
+            r2 = cont1 & j2_in & (b_j < 4)
+            hit2 = r2 & (ns2 < max_intv) & msl_at(j + 1)
+            cont2 = r2 & ~hit2
+            st["steps"] = st["steps"] + r1.to(torch.int32) + r2.to(
+                torch.int32)
+            out.emit((hit1 & (ns > 0)) | (hit2 & (ns2 > 0)), x,
+                     torch.where(hit1, j, j + 1), torch.where(hit1, nk, nk2),
+                     torch.where(hit1, nl, nl2), torch.where(hit1, ns, ns2))
+            f_end = is_fwd & ~cont2
+            ck = torch.where(cont2, nk2, st["ck"])
+            cl = torch.where(cont2, nl2, st["cl"])
+            cs = torch.where(cont2, ns2, st["cs"])
+            j2 = torch.where(cont2, j + 2, j)
+            nx = torch.where(cont1, torch.where(j2_in, j + 2, j + 1),
+                             torch.where(j_in, j + 1, j))
+        else:
+            k4, l4, s4 = backward_ext_all4(fmi, st["cl"], st["ck"],
+                                           st["cs"])
+            sel = 3 - ac
+            nk, nl, ns = _sel4(l4, sel), _sel4(k4, sel), _sel4(s4, sel)
+            f_run = is_fwd & j_in & a_ok
+            st["steps"] = st["steps"] + f_run.to(torch.int32)
+            hit = f_run & (ns < max_intv) & msl_at(j)
+            out.emit(hit & (ns > 0), x, j, nk, nl, ns)
+            f_end = is_fwd & (~j_in | ~a_ok | hit)
+            f_cont = f_run & ~hit
+            ck = torch.where(f_cont, nk, st["ck"])
+            cl = torch.where(f_cont, nl, st["cl"])
+            cs = torch.where(f_cont, ns, st["cs"])
+            j2 = torch.where(f_cont, j + 1, j)
+            nx = torch.where(j_in, j + 1, j)
         nx = torch.where(is_init, x + 1, nx)
         x2 = torch.where(f_end, nx, x)
         fin_f = f_end & (x2 >= lens_t)

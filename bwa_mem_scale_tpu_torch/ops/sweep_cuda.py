@@ -22,7 +22,11 @@ wrappers share. Each keeps a ``launches`` count (both forms), a
 chase). With ``stats`` they add the longest lane's steps
 (``sweep_steps_p1`` / ``sweep_steps_p2`` / ``chase_steps``) and the total
 (``sweep_total_p1`` / ``sweep_total_p2`` / ``chase_total``) as device
-tensors.
+tensors, and for the sweep the longest lane's row fetches
+(``sweep_rounds_p1`` / ``sweep_rounds_p2``, ``last_rounds``). With a
+k-gram checkpoint table on the index (``fmi.kstep`` > 1, int32 layout)
+the sweep launches its k-step form (``sweep_extend_launch_k``: two bases
+a row fetch, after the FMA start), counted in ``launches_k`` as well.
 
 ``sweep_extend_twin`` and ``strategy_chase_twin`` are the kernels' loops
 in plain Python on numpy arrays, tests of the kernels' control flow on
@@ -40,8 +44,9 @@ import torch
 
 from . import nvcc_build
 from .occ import DeviceFMIndex
-from .smem_cuda import (_FMI, _SUFFIX, _TwinFmi, _check, _codes_int32,
-                        _count, _fmi_args, _form, _smem_out)
+from .smem_cuda import (_FMI, _SUFFIX, _TwinFmi, _TwinK, _check,
+                        _codes_int32, _count, _fmi_args, _form, _kstep_args,
+                        _smem_out)
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _SWEEP = [_vp] * 3 + [_ci] * 7 + [_vp] * 3 + [_ci] * 2 + [_vp] * 3
@@ -49,23 +54,30 @@ _CHASE = [_vp] * 7 + [_ci] * 3 + [_vp] * 3
 LIB = nvcc_build.Library("sweep.cu", "sweep_cuda", {
     **{f"sweep_extend_launch{_SUFFIX[pd]}": _FMI[pd] + _SWEEP
        for pd in _FMI},
+    "sweep_extend_launch_k": _FMI[torch.int32] + [_vp, _ci, _vp] + _SWEEP,
     **{f"strategy_chase_launch{_SUFFIX[pd]}": _CHASE for pd in _FMI}})
 build = LIB.build            # compile csrc/sweep.cu; returns the library path
 
-# the sweep's outputs: its [3][B][P] int32, [9][B][P] position and
-# [4][B][P] byte planes, in order
-_I_PLANES = ("E", "f3_E", "steps")
+# the sweep's outputs: its [3][B][P] int32 ([4] in the k-step form, with
+# each lane's row fetches), [9][B][P] position and [4][B][P] byte planes,
+# in order
+_I_PLANES = ("E", "f3_E", "steps", "rounds")
 _P_PLANES = ("k", "l", "s", "fail_k", "fail_l", "fail_ss", "f3_k", "f3_l",
              "f3_ss")
 _B_PLANES = ("fail_s", "f3_s", "died_s", "valid")
 
 
-def _add_stats(stats, key: str, steps: torch.Tensor) -> None:
-    """The longest lane's steps under key ("ticks" read as "steps") and
-    the total under key ("ticks" read as "total")."""
+def _add_stats(stats, key: str, steps: torch.Tensor,
+               rounds: torch.Tensor = None) -> None:
+    """The longest lane's steps under key ("ticks" read as "steps"), the
+    total under key ("ticks" read as "total") and, with `rounds`, the
+    longest lane's row fetches ("ticks" read as "rounds")."""
     if stats is None:
         return
-    for what, v in (("steps", steps.max()), ("total", steps.sum())):
+    vals = [("steps", steps.max()), ("total", steps.sum())]
+    if rounds is not None:
+        vals.append(("rounds", rounds.max()))
+    for what, v in vals:
         k = key.replace("ticks", what)
         stats[k] = stats.get(k, 0) + v
 
@@ -103,23 +115,31 @@ def extend_all_positions_cuda(fmi: DeviceFMIndex, codes, lens, min_intv,
     if lens.shape != (B,) or min_intv.shape != (B,) or not 0 < P <= L:
         raise ValueError(f"{what}: read counts differ or n_pos {P} is "
                          f"outside [1, {L}]")
-    out_i = torch.empty((3, B, P), dtype=torch.int32, device=dev)
+    kstep = fmi.kstep > 1
+    out_i = torch.empty((4 if kstep else 3, B, P), dtype=torch.int32,
+                        device=dev)
     out_p = torch.empty((9, B, P), dtype=fmi.pos_dtype, device=dev)
     out_b = torch.empty((4, B, P), dtype=torch.uint8, device=dev)
     if B:
         c, ln = codes.contiguous(), lens.contiguous()
         mi = min_intv.to(torch.int32).contiguous()
         ptrs = [t.data_ptr() for t in lad] or [None] * 3
-        LIB.launch(dev, _form("sweep_extend_launch", fmi), *_fmi_args(fmi),
-                   c.data_ptr(), ln.data_ptr(), mi.data_ptr(), B, L, P,
-                   int(check_initial), stop_min_len, p3_max_intv, p3_stop,
-                   *ptrs, fma.K if K_eff else 0, K_eff, out_i.data_ptr(),
-                   out_p.data_ptr(), out_b.data_ptr())
-        _count(_EXTEND_FN, fmi)
-        _add_stats(stats, stats_key, out_i[2])
+        form = (["sweep_extend_launch_k", *_fmi_args(fmi),
+                 *_kstep_args(fmi, None)] if kstep else
+                [_form("sweep_extend_launch", fmi), *_fmi_args(fmi)])
+        LIB.launch(dev, *form, c.data_ptr(), ln.data_ptr(), mi.data_ptr(), B,
+                   L, P, int(check_initial), stop_min_len, p3_max_intv,
+                   p3_stop, *ptrs, fma.K if K_eff else 0, K_eff,
+                   out_i.data_ptr(), out_p.data_ptr(), out_b.data_ptr())
+        _count(_EXTEND_FN, fmi, kstep)
     planes = {**dict(zip(_I_PLANES, out_i)), **dict(zip(_P_PLANES, out_p)),
               **{f: v.view(torch.bool) for f, v in zip(_B_PLANES, out_b)}}
+    # a row fetch a step at K = 1
+    planes.setdefault("rounds", planes["steps"])
+    if B:
+        _add_stats(stats, stats_key, planes["steps"], planes["rounds"])
     _EXTEND_FN.last_steps = planes["steps"]
+    _EXTEND_FN.last_rounds = planes["rounds"]
     return {f: planes[f] for f in sweep_keys(want_fail, merge_p3)}
 
 
@@ -127,7 +147,9 @@ def extend_all_positions_cuda(fmi: DeviceFMIndex, codes, lens, min_intv,
 # all, and the int64 form's; the per-lane forward steps of the last call
 extend_all_positions_cuda.launches = 0
 extend_all_positions_cuda.launches64 = 0
+extend_all_positions_cuda.launches_k = 0
 extend_all_positions_cuda.last_steps = None      # [B, P] int32
+extend_all_positions_cuda.last_rounds = None     # [B, P] int32
 # the wrapper itself, for its counts: a caller may swap the module's name
 _EXTEND_FN = extend_all_positions_cuda
 
@@ -180,14 +202,18 @@ _CHASE_FN = strategy_chase_cuda
 def sweep_extend_twin(count, cp_fused, sentinel_index: int, codes, lens,
                       min_intv, check_initial: bool, stop_min_len: int = 0,
                       p3_max_intv: int = 0, p3_stop: int = 0, n_pos: int = 0,
-                      ladders=None, K_eff: int = 0, hi_steps=None) -> dict:
+                      ladders=None, K_eff: int = 0, hi_steps=None,
+                      kstep=None) -> dict:
     """csrc/sweep.cu's sweep_extend_kernel in plain Python on numpy
     arrays, one lane after another: the FMA start from the lane's ladder
     row (`ladders` = (k, l, s) [4^K, K] with K_eff >= 2, else none), then
-    one forward step a column until an N, the read's end or a size
-    failure. With `hi_steps` (``smem_cuda.twin_tables``) the int64 form.
-    Returns every output plane of the kernel by name, steps included."""
+    one forward step a column (two a row fetch with `kstep`,
+    ``smem_cuda.kstep_tables``' k-gram table) until an N, the read's end
+    or a size failure. With `hi_steps` (``smem_cuda.twin_tables``) the
+    int64 form. Returns every output plane of the kernel by name, steps
+    and rounds (row fetches) included."""
     fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
+    kt = None if kstep is None else _TwinK(fm, *kstep)
     C = fm.count
     codes = np.asarray(codes)
     B, L = codes.shape
@@ -240,25 +266,35 @@ def sweep_extend_twin(count, cp_fused, sentinel_index: int, codes, lens,
                     k = l = s = 0
                 E = p + 1 if act else p
                 off = 0
-            t = 1
-            while act:                           # one step a column
+            t, rounds = 1, 0
+            while act:                   # one row fetch: one or two steps
                 j = p + off + t
                 a = code(j)
                 if j >= n_len or a >= 4:
                     break
-                nl, nk, ns = fm.ext(l, k, s, 3 - clip(a))
-                steps += 1
-                if (merge and not f3s and ns < p3_max_intv
-                        and off + t + 1 >= p3_stop):
-                    f3s, f3E, f3k, f3l, f3ss = True, j, nk, nl, ns
-                if ns < mi and (stop_min_len <= 0
-                                or j - p + 1 >= stop_min_len):
-                    fs, fk, fl, fss = True, nk, nl, ns
-                    died = died or merge
-                    break
-                E, k, l, s = j + 1, nk, nl, ns
-                t += 1
+                rounds += 1
+                if kt is None:
+                    res = [fm.ext(l, k, s, 3 - clip(a))]
+                else:
+                    res = kt.ext_k(l, k, s, [3 - a, 3 - clip(code(j + 1))])
+                for d, (nl, nk, ns) in enumerate(res):
+                    if d and (j + 1 >= n_len or code(j + 1) >= 4):
+                        act = False              # the walk ends mid-stride
+                        break
+                    steps += 1
+                    if (merge and not f3s and ns < p3_max_intv
+                            and off + t + 1 >= p3_stop):
+                        f3s, f3E, f3k, f3l, f3ss = True, j + d, nk, nl, ns
+                    if ns < mi and (stop_min_len <= 0
+                                    or j + d - p + 1 >= stop_min_len):
+                        fs, fk, fl, fss = True, nk, nl, ns
+                        died = died or merge
+                        act = False
+                        break
+                    E, k, l, s = j + d + 1, nk, nl, ns
+                    t += 1
             for f, v in (("E", E), ("f3_E", f3E), ("steps", steps),
+                         ("rounds", rounds),
                          ("k", k), ("l", l), ("s", s), ("fail_k", fk),
                          ("fail_l", fl), ("fail_ss", fss), ("f3_k", f3k),
                          ("f3_l", f3l), ("f3_ss", f3ss), ("fail_s", fs),

@@ -413,7 +413,8 @@ class GpuAligner:
     RETRY2_BATCH = 8
 
     def __init__(self, idx: FMIndex, device, opt: MemOptions = None,
-                 cfg: PipelineConfig = None, emf=None, fma=None, ert=None):
+                 cfg: PipelineConfig = None, emf=None, fma=None, ert=None,
+                 cp2=None):
         if not native_finalize.available():
             raise RuntimeError(
                 "the native finalizer (native/libfinalize.so) is required: "
@@ -428,7 +429,9 @@ class GpuAligner:
             # served in few wide batches
             self.RETRY_BATCH = 512
             self.RETRY2_BATCH = 16
-        self.fmi = DeviceFMIndex.from_host(idx, self.device)
+        # with the k-gram checkpoint table (index/kstep.py), every FM walk of
+        # every tier extends K bases a row fetch
+        self.fmi = DeviceFMIndex.from_host(idx, self.device, cp2=cp2)
         self.dbns = DeviceBns.from_host(idx.bns, self.device)
         # the FMA ladder table (ops/fma.py) at the index's position dtype,
         # each sweep lane's start; every tier takes it

@@ -186,7 +186,26 @@ Phases, in order; any failure exits non-zero:
               attached to it (SAM equal to the file-loaded run) and
               `remove-shm`.
 
-Prints the kernel JSON line (all twenty-seven kernels, each with its bound: the
+ 13. kstep:   the k-step fold (index/kstep.py, csrc/fmi_step.cuh ext_k):
+              `kstep-table -k 2` and `-k 3` through the CLI on phase 4's
+              index (seconds, the tables' device bytes against nb x 160
+              and nb x 672 reckoned); SE `mem` with each table (SAM body
+              byte-equal to phase 4's, every passes 1-2 and pass-3 launch
+              a k-step form, none a 1-step one, reads/s and `-v 4` stage
+              seconds beside phase 4's), PE (byte-equal to phase 7's) and
+              SE `--seed-engine sweep` with the K=11 FMA table
+              (byte-equal to phase 9's, every sweep launch a k-step
+              form); phase 5's batch and the repeat batch through each
+              k-step launch as made (passes 1-2 and pass 3 one-hot, the
+              sweep's two extensions with the FMA table) at both tables,
+              each equal to its plain version (max_abs_err 0, steps too)
+              and to the K = 1 form on the same inputs, with its rounds
+              beside K = 1's, bound (64 bytes a base step), latency floor
+              (the longest lane's rounds x probe B's L2 trip for the
+              bigram table, its HBM trip for the trigram one, both
+              measured in the run) and device ms beside the K = 1 form's.
+
+Prints the kernel JSON line (all thirty-one kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -1151,8 +1170,8 @@ def forced_int64():
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
     real = DeviceFMIndex.__dict__["from_host"]
     DeviceFMIndex.from_host = classmethod(
-        lambda cls, idx, device, force_int64=False:
-        real.__func__(cls, idx, device, True))
+        lambda cls, idx, device, force_int64=False, cp2=None:
+        real.__func__(cls, idx, device, True, cp2))
     try:
         yield
     finally:
@@ -2779,6 +2798,325 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
                                      err=max(r["err"] for r in res_c))}
 
 
+# phase 13, the k-step fold (csrc/fmi_step.cuh ext_k): its forms, each
+# (kernel name in the JSON line, wrapper name, K, source, the TPU loop)
+KSTEP_FORMS = (
+    ("one_pos_machine_k2", "one_pos_machine", 2, "csrc/smem.cu",
+     "bwa_mem_scale_tpu/ops/smem_oh.py:174"),
+    ("one_pos_machine_k3", "one_pos_machine", 3, "csrc/smem.cu",
+     "bwa_mem_scale_tpu/ops/smem_oh.py:174"),
+    ("seed_strategy_machine_k2", "seed_strategy_machine", 2, "csrc/smem.cu",
+     "bwa_mem_scale_tpu/ops/smem_oh.py:619"),
+    ("sweep_extend_k2", "sweep_extend", 2, "csrc/sweep.cu",
+     "bwa_mem_scale_tpu/ops/smem.py:109"))
+# a block's k-gram row in bytes (index/kstep.py: 40 or 168 int32)
+KSTEP_ROW_BYTES = {2: 160, 3: 672}
+
+
+def kstep_wrappers():
+    """{name: wrapper} of the seeding kernels that take a k-step form."""
+    from bwa_mem_scale_tpu_torch.ops import smem_cuda, sweep_cuda
+    return {"one_pos_machine": smem_cuda.one_pos_machine_cuda,
+            "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
+            "sweep_extend": sweep_cuda.extend_all_positions_cuda}
+
+
+def kstep_calls(fmi, dbns, c, ln, opt, cfg, fma):
+    """The seeding launches of one batch through seed_chain_extend on fmi
+    (one-hot: two passes 1-2 and a pass 3; with `fma`, the sweep: two
+    extensions), each as made: {wrapper name: [(args, kwargs)]}."""
+    import dataclasses
+    from bwa_mem_scale_tpu_torch.ops import smem_oh, sweep_cuda
+    from bwa_mem_scale_tpu_torch.pipeline import align
+    mods = {"one_pos_machine": (smem_oh, "one_pos_machine_cuda"),
+            "seed_strategy_machine": (smem_oh,
+                                      "seed_strategy_machine_cuda"),
+            "sweep_extend": (sweep_cuda, "extend_all_positions_cuda")}
+    calls = {name: [] for name in mods}
+    real = {name: getattr(mod, attr) for name, (mod, attr) in mods.items()}
+
+    def recorder(name):
+        def record(*args, **kw):
+            calls[name].append((args, kw))
+            return real[name](*args, **kw)
+        return record
+    for name, (mod, attr) in mods.items():
+        setattr(mod, attr, recorder(name))
+    try:
+        engine = "sweep" if fma is not None else "onehot"
+        align.seed_chain_extend(
+            fmi, dbns, c, ln, READ_LEN, opt=opt,
+            cfg=dataclasses.replace(cfg, seed_engine=engine), fma=fma)
+    finally:
+        for name, (mod, attr) in mods.items():
+            setattr(mod, attr, real[name])
+    return calls
+
+
+def kstep_launch(dev, card, what, name, args, kw, fmi1, trip):
+    """One k-step launch as made, through walk_launch (every output and
+    each lane's steps equal to the plain version's on the same table);
+    then the K = 1 form on the same inputs (fmi1): equal outputs and
+    steps, its rounds and device time beside. Bound: the inputs, 64 bytes
+    a base step (two 32-byte groups an end; a walk that ends mid-stride
+    loads a group more) and 45 operations a step, the outputs; floor: the
+    longest lane's rounds x `trip` (us). Returns the numbers."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import smem, smem_oh
+    kernel = kstep_wrappers()[name]
+    plain = {"one_pos_machine": smem_oh.one_pos_machine,
+             "seed_strategy_machine": smem_oh.seed_strategy_machine,
+             "sweep_extend": smem.extend_all_positions}[name]
+    n_args = {"one_pos_machine": 11, "seed_strategy_machine": 6,
+              "sweep_extend": 4}[name]
+    args = args[:n_args]
+    kw = {k: v for k, v in kw.items() if k != "stats"}
+    before = kernel.launches_k
+    got, r = walk_launch(dev, what, kernel, plain, args, 1, kw)
+    if kernel.launches_k == before:
+        raise SystemExit(f"kstep: {what}: no k-step form launched")
+    args1 = (fmi1, *args[1:])
+    one = kernel(*args1, **kw)
+    steps1 = kernel.last_steps.long()
+    rounds1 = kernel.last_rounds.long()
+    torch.cuda.synchronize()
+    pairs = ([(got[k], one[k]) for k in got] if isinstance(got, dict)
+             else list(zip(got, one)))
+    if not all(torch.equal(a, b) for a, b in pairs) or r["steps"] != int(
+            steps1.sum()):
+        raise SystemExit(f"kstep: {what}: differs from the K = 1 form")
+    r["ms1"] = device_ms(lambda: kernel(*args1, **kw), 20, dev)
+    r.update(rounds1=int(rounds1.sum()), longest_rounds1=int(rounds1.max()),
+             floor=r["longest_rounds"] * trip * 1e-3)
+    codes = args[1]
+    B = codes.shape[0]
+    pb = args[0].pos_dtype.itemsize
+    if name == "one_pos_machine":
+        T, M = args[3].shape[0], args[9]
+        nbytes = (4 * (codes.numel() + B + 3 * T) + T + (8 + 3 * pb) * T * M
+                  + 4 * T)
+    elif name == "seed_strategy_machine":
+        nbytes = 4 * (codes.numel() + B) + (8 + 3 * pb) * B * args[5] + 4 * B
+    else:
+        P = kw.get("n_pos") or codes.shape[1]
+        table = kw.get("fma")
+        K_eff = smem.sweep_window(table, kw.get("stop_min_len", 0),
+                                  kw.get("p3_max_intv", 0),
+                                  kw.get("p3_stop", 0))[1]
+        merged = kw.get("p3_max_intv", 0) > 0
+        nbytes = (4 * (codes.numel() + 2 * B) + (K_eff + 2) * pb * B * P
+                  + (5 + 3 * pb + (6 + 3 * pb if merged else 0)) * B * P)
+    r["bound"] = bound(nbytes + SMEM_BYTES_PER_STEP * r["steps"],
+                       SMEM_OPS_PER_STEP * r["steps"])
+    log(f"[kstep] {what}: equal to the plain version (max_abs_err "
+        f"{r['err']}) and to the K = 1 form, steps too; {r['steps']} steps "
+        f"(the longest lane {r['longest']}) in {r['rounds']} rounds (the "
+        f"longest {r['longest_rounds']}) against K = 1's {r['rounds1']} "
+        f"({r['longest_rounds1']}); bound {r['bound'][0]:.6f} ms by "
+        f"{r['bound'][1]}, latency floor {r['floor']:.5f} ms "
+        f"({r['longest_rounds']} x {trip:.4f} us); kernel device time "
+        f"{r['ms']:.5f} ms (mean of 2) against the K = 1 form's "
+        f"{r['ms1']:.5f}, plain {r['plain_ms']:.2f} ms  [{card}]")
+    return r
+
+
+def phase_kstep(dev, card, tmp, se, pe, al):
+    """Phase 13: the k-step fold. `kstep-table -k 2` and `-k 3` through the
+    CLI on phase 4's index (two prefixes linked to its index, EMF and FMA
+    tables); SE `mem` with each table (its main path: counts zeroed just
+    before, read just after): SAM body byte-equal to phase 4's, every
+    passes 1-2 and pass-3 launch a k-step form; PE byte-equal to phase
+    7's; SE `--seed-engine sweep` byte-equal to phase 9's, every sweep
+    launch a k-step form; `-v 4` stage seconds; then phase 5's batch and
+    the repeat batch through each k-step launch as made, at both tables,
+    against its plain version and the K = 1 form. Returns {form: numbers,
+    "launches": {form: main-path launches}}."""
+    import torch
+    from bwa_mem_scale_tpu_torch import cli
+    from bwa_mem_scale_tpu_torch.index.kstep import build_cp2
+    from bwa_mem_scale_tpu_torch.ops import (chain, chain_cuda, smem_cuda,
+                                             sweep_cuda)
+    from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
+    from bwa_mem_scale_tpu_torch.ops.fma import build_fma_table
+    from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
+    from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
+    t_phase = time.perf_counter()
+    g = se["argv"][0]
+    nb = al.fmi.cp_fused.shape[0]
+    prefixes = {}
+    for K in (2, 3):
+        p = os.path.join(tmp, f"k{K}")
+        for ext in (".tpuidx.npz", f".emf{READ_LEN}.npz", ".fma11.npz"):
+            os.symlink(g + ext, p + ext)
+        t0 = time.perf_counter()
+        if cli.main(["kstep-table", p, "-k", str(K)]) != 0:
+            raise SystemExit(f"kstep: kstep-table -k {K} failed")
+        secs = time.perf_counter() - t0
+        fmi_k = DeviceFMIndex.from_host(al.idx, dev, cp2=cli.find_cp2(p))
+        dbytes = fmi_k.cp_kstep.numel() * 4
+        if fmi_k.kstep != K or dbytes != nb * KSTEP_ROW_BYTES[K]:
+            raise SystemExit(f"kstep: the K={K} table on the card is "
+                             f"{dbytes} bytes, K {fmi_k.kstep}")
+        log(f"[kstep] kstep-table -k {K} through the CLI: {secs:.2f} s "
+            f"(host: build and write, {os.path.getsize(p + f'.cp{K}.npz')} "
+            f"bytes); on the card {dbytes} bytes ({dbytes / 1e6:.1f} MB; "
+            f"reckoned {nb} blocks x {KSTEP_ROW_BYTES[K]} B = "
+            f"{nb * KSTEP_ROW_BYTES[K] / 1e6:.1f} MB) beside the 1-step "
+            f"table's {al.fmi.cp_fused.numel() * 4} bytes  [{card}]")
+        prefixes[K] = p
+        del fmi_k
+
+    def body(path):
+        with open(path) as f:
+            return [ln for ln in f if not ln.startswith("@PG")]
+    ks = kstep_wrappers()
+    counted = {**ks, "sa_walk": smem_cuda.sa_walk_cuda,
+               "strategy_chase": sweep_cuda.strategy_chase_cuda,
+               "chain_seeds": chain_cuda.chain_seeds_cuda,
+               "chain_filter": chain_cuda.chain_filter_cuda,
+               "banded_swa_batch": banded_swa_batch_cuda}
+
+    def run(argv, K, sweep):
+        """One `mem` run with the K table: its main path's counts (all,
+        k-step forms), zeroed just before, read just after; every launch
+        of the engine's FM walks a k-step form."""
+        for w in counted.values():               # k-step path starts here
+            w.launches = w.launches64 = 0
+            if hasattr(w, "launches_k"):
+                w.launches_k = 0
+        PROFILER.totals.clear()
+        t1 = time.perf_counter()
+        a = cli.mem(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n = {k: (w.launches, getattr(w, "launches_k", 0))
+             for k, w in counted.items()}
+        # k-step path ends here
+        if a.fmi.kstep != K:
+            raise SystemExit(f"kstep: mem did not load the K={K} table")
+        walks = ({"sweep_extend": 2, "strategy_chase": 1} if sweep else
+                 {"one_pos_machine": 2, "seed_strategy_machine": 1})
+        for name, per in walks.items():
+            all_, kform = n[name]
+            if all_ < per * a.batches or (name in ks and kform != all_):
+                raise SystemExit(f"kstep: {name} launched {n[name]} times "
+                                 f"(all, k-step form) over {a.batches} "
+                                 f"batches")
+        idle = ("one_pos_machine", "seed_strategy_machine") if sweep else (
+            "sweep_extend",)
+        if any(n[name][0] for name in idle):
+            raise SystemExit(f"kstep: the other engine's kernels ran: {n}")
+        for name in ("sa_walk", "chain_seeds", "chain_filter",
+                     "banded_swa_batch"):
+            if n[name][0] < a.batches:
+                raise SystemExit(f"kstep: {name} launched {n[name][0]} "
+                                 f"times over {a.batches} batches")
+        return a, wall, {k: v[0] for k, v in n.items()}
+
+    launches, s1 = {}, se["seconds"]
+    sweep_sam = os.path.join(tmp, "sweep.sam")
+    for K in (2, 3):
+        p = prefixes[K]
+        argv = [p, se["argv"][1], "-o", os.path.join(tmp, f"k{K}.sam"),
+                *se["argv"][4:]]
+        a, wall, n = run(argv, K, False)
+        if body(argv[3]) != body(se["argv"][3]):
+            raise SystemExit(f"kstep: the K={K} SE SAM differs from phase "
+                             f"4's")
+        launches[f"one_pos_machine_k{K}"] = n["one_pos_machine"]
+        if K == 2:
+            launches["seed_strategy_machine_k2"] = n["seed_strategy_machine"]
+        per = {k: float(v) / a.batches for k, v in sorted(a.stats.items())
+               if k.startswith("seed_")}
+        log(f"[kstep] SE mem with the K={K} table: SAM body byte-equal to "
+            f"phase 4's; {N_READS} reads in {wall:.2f} s = "
+            f"{N_READS / wall:.1f} reads/s (phase 4: "
+            f"{N_READS / se['wall']:.1f}); launches {n} over {a.batches} "
+            f"device batches, every FM-walk launch a k-step form; index load "
+            f"{PROFILER.totals['index_load']:.3f} s (phase 4: "
+            f"{se['index_load']:.3f}); per batch "
+            + ", ".join(f"{k} {v:.1f}" for k, v in per.items())
+            + f"  [{card}]")
+        a4 = cli.mem(argv + ["-v", "4"])
+        sec = a4.prof.seconds
+        log(f"[kstep -v 4] K={K}, synchronised stage seconds (phase 4): "
+            + ", ".join(f"{k} {sec[k]:.3f} ({s1[k]:.3f})"
+                        for k in ("seed", "sal", "chain", "bsw"))
+            + f"  [{card}]")
+        pe_sam = os.path.join(tmp, f"k{K}_pe.sam")
+        pe_argv = [p, *pe["argv"][1:3], "-o", pe_sam, *pe["argv"][5:]]
+        a, wall, n = run(pe_argv, K, False)
+        if body(pe_sam) != body(pe["argv"][4]):
+            raise SystemExit(f"kstep: the K={K} PE SAM differs from phase "
+                             f"7's")
+        log(f"[kstep] PE mem with the K={K} table: SAM body byte-equal to "
+            f"phase 7's; {2 * N_PAIRS} reads in {wall:.2f} s = "
+            f"{2 * N_PAIRS / wall:.1f} reads/s (phase 7: "
+            f"{2 * N_PAIRS / pe['wall']:.1f}); launches {n}  [{card}]")
+        sw_argv = [p, se["argv"][1], "-o", os.path.join(tmp, f"k{K}_sw.sam"),
+                   *se["argv"][4:], "--seed-engine", "sweep"]
+        a, wall, n = run(sw_argv, K, True)
+        if a.dfma is None or body(sw_argv[3]) != body(sweep_sam):
+            raise SystemExit(f"kstep: the K={K} sweep SAM differs from "
+                             f"phase 9's (or ran without the FMA table)")
+        if K == 2:
+            launches["sweep_extend_k2"] = n["sweep_extend"]
+        log(f"[kstep] SE mem --seed-engine sweep with the K={K} table and "
+            f"the K=11 FMA table: SAM body byte-equal to phase 9's; "
+            f"{N_READS / wall:.1f} reads/s; launches {n}  [{card}]")
+
+    # each k-step launch of phase 5's batch and the repeat batch, as made,
+    # at both tables, beside the K = 1 form on the same inputs
+    trips = (dependent_trip_us(dev, L2_ROWS),
+             dependent_trip_us(dev, HBM_ROWS))
+    log(f"[kstep] one dependent trip (probe B, one lane): {trips[0]:.4f} us "
+        f"over {L2_ROWS} rows of 32 bytes (in the L2), {trips[1]:.4f} us "
+        f"over {HBM_ROWS} (past it)  [{card}]")
+    first = np.flatnonzero(~se["emf_hit"])[:BATCH]
+    idx_r, codes_r, lens_r = repeat_batch(BATCH, READ_LEN)
+    fma = cli.find_fma(g)
+    batches = (("phase 5's batch", al.idx, al.dbns, se["codes"][first],
+                se["lens"][first], fma),
+               ("repeat batch", idx_r,
+                chain.DeviceBns.from_host(idx_r.bns, dev), codes_r, lens_r,
+                None))
+    res = {}
+    for batch, idx, dbns, cc, ll, table in batches:
+        c = torch.as_tensor(cc, device=dev)
+        ln = torch.as_tensor(ll, device=dev)
+        fmi1 = DeviceFMIndex.from_host(idx, dev)
+        if table is None:
+            table = build_fma_table(fmi1, K=11)
+        dtab = table.to_device(torch.int32, dev)
+        for K in (2, 3):
+            fmi = DeviceFMIndex.from_host(idx, dev, cp2=build_cp2(idx, K))
+            trip = trips[0] if K == 2 else trips[1]
+            for fma_k in (None, dtab):
+                calls = kstep_calls(fmi, dbns, c, ln, al.opt, al.cfg,
+                                    fma_k)
+                for name, made in calls.items():
+                    for n, (args, kw) in enumerate(made):
+                        what = (f"{batch}, K={K} table, {name} launch "
+                                f"{n + 1}/{len(made)}"
+                                + (", FMA K=11" if fma_k is not None
+                                   else ""))
+                        r = kstep_launch(dev, card, what, name, args, kw,
+                                         fmi1, trip)
+                        res.setdefault((batch, K, name, fma_k is not None),
+                                       []).append(r)
+            del fmi
+            torch.cuda.empty_cache()
+    p5 = "phase 5's batch"
+    out = {"launches": launches}
+    for form, name, K, _, _ in KSTEP_FORMS:
+        rs = res[p5, K, name, name == "sweep_extend"]
+        out[form] = dict(rs[0], err=max(r["err"] for key, v in res.items()
+                                        for r in v if key[2] == name))
+    log(f"[kstep] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -2836,17 +3174,30 @@ def main():
                            "sweep_cuda", "seedsw_cuda", "emf_cuda",
                            "ert_cuda")}
     # each FM-walk and chaining kernel in its int32 (P = int, mangled i)
-    # and int64 (P = long long, x) forms
+    # and int64 (P = long long, x) forms; the FM walks' 1-step forms (KS =
+    # 1, mangled Li1E) and their k-step forms (int32 only)
     for lib, kernel, label in (
-            ("smem_cuda", "one_pos_kernelILb1E{}", "one_pos_kernel<stacks "
-             "in shared memory, {}>"),
-            ("smem_cuda", "one_pos_kernelILb0E{}", "one_pos_kernel<stacks "
-             "in a device scratch, {}>"),
-            ("smem_cuda", "seed_strategy_kernelI{}", "seed_strategy_kernel<{}>"),
+            ("smem_cuda", "one_pos_kernelILb1ELi1E{}", "one_pos_kernel<"
+             "stacks in shared memory, {}>"),
+            ("smem_cuda", "one_pos_kernelILb0ELi1E{}", "one_pos_kernel<"
+             "stacks in a device scratch, {}>"),
+            ("smem_cuda", "one_pos_kernelILb1ELi2Ei", "one_pos_kernel<"
+             "stacks in shared memory, K = 2, int32>"),
+            ("smem_cuda", "one_pos_kernelILb1ELi3Ei", "one_pos_kernel<"
+             "stacks in shared memory, K = 3, int32>"),
+            ("smem_cuda", "one_pos_kernelILb0ELi3Ei", "one_pos_kernel<"
+             "stacks in a device scratch, K = 3, int32>"),
+            ("smem_cuda", "seed_strategy_kernelILi1E{}",
+             "seed_strategy_kernel<{}>"),
+            ("smem_cuda", "seed_strategy_kernelILi2Ei",
+             "seed_strategy_kernel<K = 2, int32>"),
             ("smem_cuda", "sa_walk_kernelI{}", "sa_walk_kernel<{}>"),
             ("chain_cuda", "chain_seeds_kernelI{}", "chain_seeds_kernel<{}>"),
             ("chain_cuda", "chain_filter_kernelI{}", "chain_filter_kernel<{}>"),
-            ("sweep_cuda", "sweep_extend_kernelI{}", "sweep_extend_kernel<{}>"),
+            ("sweep_cuda", "sweep_extend_kernelILi1E{}",
+             "sweep_extend_kernel<{}>"),
+            ("sweep_cuda", "sweep_extend_kernelILi2Ei",
+             "sweep_extend_kernel<K = 2, int32>"),
             ("sweep_cuda", "strategy_chase_kernelI{}",
              "strategy_chase_kernel<{}>"),
             ("ert_cuda", "ert_extend_kernelI{}", "ert_extend_kernel<{}>"),
@@ -2890,6 +3241,7 @@ def main():
         sw = phase_longread(dev, card, tmp)
         emf = phase_emf(dev, card, tmp, se)
         ert = phase_ert(dev, card, tmp, se, pe, sweep, codes, lens)
+        kst = phase_kstep(dev, card, tmp, se, pe, al)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"builds included")
 
@@ -2960,7 +3312,13 @@ def main():
         "max_abs_err": ert[name]["err"], "ms": ert[name]["ms"],
         "plain_ms": ert[name]["plain_ms"], "bound_ms": ert[name]["bound"][0],
         "bound_by": ert[name]["bound"][1], "library_ms": None}
-        for name in ("ert_extend", "ert_extend_int64")]}))
+        for name in ("ert_extend", "ert_extend_int64")] + [{
+        "name": form, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": kst["launches"][form],
+        "max_abs_err": kst[form]["err"], "ms": kst[form]["ms"],
+        "plain_ms": kst[form]["plain_ms"], "bound_ms": kst[form]["bound"][0],
+        "bound_by": kst[form]["bound"][1], "library_ms": None}
+        for form, _, _, source, replaces in KSTEP_FORMS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

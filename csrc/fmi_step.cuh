@@ -14,6 +14,23 @@
 // note, "the int64 forms"). The C array (count[5]) and sentinel_index are
 // launch arguments. Each row index is clamped to [0, nb - 1], as the
 // lockstep's gathers clamp theirs.
+//
+// The k-step (ext_k, int32 layout only): with a k-gram checkpoint table
+// (index/kstep.py; ops/occ.py::kstep_rows lays it out on the device) one
+// pair of row fetches extends an interval by KS = 2 or 3 bases
+// (ops/occ.py::_two_steps). A row of the table is 32-byte groups: the
+// 1-step row (counts1 | masks1, cp_fused's), then for each first base c1
+// the bigram counts and masks of (c1, 0..3), then at KS = 3 for each pair
+// p = 4 c1 + c2 the trigram counts and masks of (p, 0..3). Each step reads
+// one group an end, two 16-byte read-only loads, all issued before any is
+// used: 4 loads an end at KS = 2, 6 at KS = 3, the bases being the read's
+// and known before the fetch. Step d takes its C value (C, then C2[c1 c2],
+// then C3[c1 c2 c3], device tables of 16 and 64 ints, loaded beside the
+// rows), its group's occ at the interval's start, the group's sizes for
+// the l update above its base, and its own sentinel correction on the
+// interval before it (the second on (k1, s1), not on (k, s)): pairs whose
+// second step crosses the text start belong to no bigram class, and the
+// embedded 1-step counts keep those walks exact.
 
 #pragma once
 
@@ -228,6 +245,73 @@ __device__ __forceinline__ void ext(const Fmi<P>& f, P k, P l, P s, int c,
   ns = sel4(s0, s1, s2, s3, c);
 }
 
+// The k-gram table as the k-step forms take it.
+struct Kfmi {
+  const int4* cp;                    // [nb][w4] int4 (kstep_rows' layout)
+  int nb, w4;                        // rows; int4s a row (10 or 42)
+  const int* c2;                     // C2 [16], on the device
+  const int* c3;                     // C3 [64] (KS = 3), or null
+};
+
+// the four occ values of 32-byte group g of a k-gram row: counts plus the
+// popcounts of the masks under the top-y-bits mask
+__device__ __forceinline__ int4 occ_group(const int4& cnt, const int4& msk,
+                                          unsigned top) {
+  return make_int4(cnt.x + __popc((unsigned)msk.x & top),
+                   cnt.y + __popc((unsigned)msk.y & top),
+                   cnt.z + __popc((unsigned)msk.z & top),
+                   cnt.w + __popc((unsigned)msk.w & top));
+}
+
+// The backward extension of (k, l, s) by bases c[0], ..., c[KS - 1] (each
+// in [0, 3]) from one k-gram row at k and one at k + s: (nk, nl, ns)[d]
+// is the interval after d + 1 bases, equal to d + 1 chained ext calls.
+template <int KS>
+__device__ __forceinline__ void ext_k(const Fmi<int>& f, const Kfmi& g,
+                                      int k, int l, int s,
+                                      const int (&c)[KS], int (&nk)[KS],
+                                      int (&nl)[KS], int (&ns)[KS]) {
+  auto row = [&](int pp) {
+    const int r = pp >> 5;
+    return g.cp + (size_t)(r < 0 ? 0 : (r >= g.nb ? g.nb - 1 : r)) * g.w4;
+  };
+  const int4* ra = row(k);
+  const int4* rb = row(k + s);
+  // the groups each step reads: the 1-step row, c1's, the pair's
+  int grp[KS];
+  grp[0] = 0;
+  if constexpr (KS > 1) grp[1] = 1 + c[0];
+  if constexpr (KS > 2) grp[KS - 1] = 5 + 4 * c[0] + c[1];
+  int4 ac[KS], am[KS], bc[KS], bm[KS];
+#pragma unroll
+  for (int d = 0; d < KS; ++d) {     // every load before any use
+    ac[d] = __ldg(ra + 2 * grp[d]);
+    am[d] = __ldg(ra + 2 * grp[d] + 1);
+    bc[d] = __ldg(rb + 2 * grp[d]);
+    bm[d] = __ldg(rb + 2 * grp[d] + 1);
+  }
+  int base[KS];
+  base[0] = cval(f, c[0]);
+  if constexpr (KS > 1) base[1] = __ldg(g.c2 + 4 * c[0] + c[1]);
+  if constexpr (KS > 2)
+    base[KS - 1] = __ldg(g.c3 + 16 * c[0] + 4 * c[1] + c[2]);
+  const unsigned ta = top_bits(k & 31), tb = top_bits((k + s) & 31);
+#pragma unroll
+  for (int d = 0; d < KS; ++d) {
+    const int4 a = occ_group(ac[d], am[d], ta);
+    const int4 b = occ_group(bc[d], bm[d], tb);
+    const int s0 = b.x - a.x, s1 = b.y - a.y, s2 = b.z - a.z, s3 = b.w - a.w;
+    const int e = c[d];
+    const int sent = (k <= f.sentinel) & (k + s > f.sentinel);
+    nl[d] = l + sent + (e < 3 ? s3 : 0) + (e < 2 ? s2 : 0) + (e < 1 ? s1 : 0);
+    nk[d] = base[d] + sel4(a, e);
+    ns[d] = sel4(s0, s1, s2, s3, e);
+    k = nk[d];
+    l = nl[d];
+    s = ns[d];
+  }
+}
+
 // Copy n int32 codes from src (4-byte aligned) into dst as bytes,
 // threads tid of nthr: the 16-byte aligned body of [src, src + n) as
 // int4 loads, the few words before and after it one by one. A code >= 4
@@ -279,6 +363,18 @@ Fmi<long long> make_fmi(const void* cp, long long nb, long long c0,
                         int h0, int h1, int h2, int h3) {
   return Fmi<long long>{(const int4*)cp, nb, c0, c1, c2, c3, c4, sentinel,
                         (const long long*)hi, h0, h1, h2, h3};
+}
+
+// the k-gram table of a launch at KS bases a fetch
+Kfmi make_kfmi(const void* cp, int nb, int w4, const void* c2,
+               const void* c3) {
+  return Kfmi{(const int4*)cp, nb, w4, (const int*)c2, (const int*)c3};
+}
+
+bool kfmi_ok(const Kfmi& g, int ks) {
+  return g.cp != nullptr && g.nb > 0 && g.c2 != nullptr
+         && ((ks == 2 && g.w4 >= 10) || (ks == 3 && g.w4 == 42
+                                         && g.c3 != nullptr));
 }
 
 // the index a launch can take: rows, and on the int64 layout a step

@@ -105,9 +105,7 @@
 // min_seed_len bases, emitting (x, j, k, l, s) when s > 0, or at an N or
 // the read's end; go on from j + 1 after a hit or an N. An emission past
 // max_out is dropped and the count still grows (no stacks, so no
-// max_out + 1 latch). Out of scope: the JAX machine's k-step branch
-// (`use2`, two bases a gather over cp2_fused), since the port refuses the
-// k-step table. A warp per read would not cut the floor: a walk ends
+// max_out + 1 latch). A warp per read would not cut the floor: a walk ends
 // where the next one starts, so a read's walks are one chain of ~L - 1
 // dependent steps. Design: the block's reads' codes are staged into
 // shared memory in one coalesced copy (bytes: 8 x 101 = 808 B), and the
@@ -138,6 +136,29 @@
 // geometric (a row is sampled with p = 2^-compx), so the longest of 16k
 // lanes walks ~60 rows while the mean walks ~8: 128-thread blocks over
 // the SMs, each thread retiring as it finds its sample.
+//
+// ---- the k-step forms (KS = 2, 3; int32 layout only)
+// Replace the JAX machines' `use2` branches (bwa_mem_scale_tpu/ops/
+// smem_oh.py:200-203, :262-306, :328-377 in one_pos_machine_oh; :664-692
+// in seed_strategy_machine_oh) through the same plain versions. With a
+// k-gram checkpoint table (index/kstep.py, csrc/fmi_step.cuh ext_k) one
+// pair of row fetches takes KS bases. one_pos_kernel<.., KS, int> takes
+// KS bases a round in its forward walk only: the bases are the read's,
+// known before the fetch, so the K groups of each end load side by side
+// (4 16-byte loads an end at KS = 2, 6 at 3), and the steps of the round
+// then run one after another exactly as the 1-step walk's (a push where
+// the size changes, nx, the last interval), stopping where it stops when
+// the walk ends mid-stride (an N, the read's end, a size below mi). The
+// backward rounds keep their 1-step form: a round's entries already run
+// side by side, one a lane (the JAX machine's side steps exist because it
+// runs one lane a task). seed_strategy_kernel<2, int> takes two bases a
+// row fetch (a trigram table's bigram groups), the second only where the
+// first neither hits nor ends the walk. Steps count single bases, the
+// same at every KS; rounds count row fetches (pass 3 reports them in
+// its k-step form). What bounds them is unchanged: the chain of dependent
+// fetches, which they shorten; a round waits on K groups an end instead
+// of one row, and the trigram table (21 B a position) is past the L2 on
+// the 4.6 Mbp genome (PERF.md section 6, PR 17).
 //
 // ---- the int64 forms
 // Each kernel is a template on its position type P: int for an index of
@@ -208,9 +229,9 @@ __host__ __device__ __forceinline__ size_t stacks_bytes(int SD) {
   return 2 * ((size_t)SD + 1) * sizeof(Ent<P>);
 }
 
-template <bool STACKS_IN_SHARED, typename P>
+template <bool STACKS_IN_SHARED, int KS, typename P>
 __global__ void __launch_bounds__(WARP)
-one_pos_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
+one_pos_kernel(Fmi<P> f, Kfmi g, const int32_t* __restrict__ codes,  // [B, L]
                const int32_t* __restrict__ lens,           // [B]
                int B, int L,
                const int32_t* __restrict__ t_read,         // [T]
@@ -290,25 +311,71 @@ one_pos_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
     P ck = C(xa), cl = C(3 - xa), cs = C(xa + 1) - C(xa);
     int cn = x;
     int j = x + 1, nx = x + 1, cA = 0, a = code(j);
-    while (j < len) {
-      nx = j + 1;
-      if (a >= 4) break;
-      const int an = code(j + 1);
-      P nk, nl, ns;
-      ext(f, cl, ck, cs, 3 - a, nl, nk, ns);       // the swapped interval
+    // one base of the walk, its extension (nk, nl, ns) made: push the
+    // interval where the size changes; false where the size falls below
+    // mi (nx = j) and the walk ends
+    auto take = [&](P nk, P nl, P ns) {
       ++steps;
-      ++rounds;
       if (ns != cs) push(wA, cA, ck, cl, cs, cn);
       if (ns < mi) {
         nx = j;
-        break;
+        return false;
       }
       ck = nk;
       cl = nl;
       cs = ns;
       cn = j;
       ++j;
-      a = an;
+      return true;
+    };
+    if constexpr (KS == 1) {
+      while (j < len) {
+        nx = j + 1;
+        if (a >= 4) break;
+        const int an = code(j + 1);
+        P nk, nl, ns;
+        ext(f, cl, ck, cs, 3 - a, nl, nk, ns);     // the swapped interval
+        ++rounds;
+        if (!take(nk, nl, ns)) break;
+        a = an;
+      }
+    } else {
+      // KS bases a row fetch; a walk that ends mid-stride (an N, the
+      // read's end, a size below mi) stops where the 1-step walk stops,
+      // with the same pushes, nx and last interval
+      bool go = true;
+      while (go && j < len) {
+        nx = j + 1;
+        if (a >= 4) break;
+        int cc[KS], ch[KS], bk[KS], bl[KS], bs[KS];
+#pragma unroll
+        for (int d = 0; d < KS; ++d) {
+          cc[d] = d ? code(j + d) : a;
+          ch[d] = 3 - (cc[d] < 4 ? cc[d] : 3);
+        }
+        const int an = code(j + KS);
+        ext_k<KS>(f, g, cl, ck, cs, ch, bk, bl, bs);  // the swapped one
+        ++rounds;
+#pragma unroll
+        for (int d = 0; d < KS; ++d) {
+          if (d) {
+            if (j >= len) {
+              go = false;
+              break;
+            }
+            nx = j + 1;
+            if (cc[d] >= 4) {
+              go = false;
+              break;
+            }
+          }
+          if (!take(bl[d], bk[d], bs[d])) {
+            go = false;
+            break;
+          }
+        }
+        a = an;
+      }
     }
     if (cs >= mi) push(wA, cA, ck, cl, cs, cn);
 
@@ -374,16 +441,18 @@ one_pos_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
 
 constexpr int P3_THREADS = 32;       // one warp a block, a read a lane
 
-template <typename P>
+template <int KS, typename P>
 __global__ void __launch_bounds__(P3_THREADS)
-seed_strategy_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
+seed_strategy_kernel(Fmi<P> f, Kfmi g,
+                     const int32_t* __restrict__ codes,         // [B, L]
                      const int32_t* __restrict__ lens,          // [B]
                      int B, int L, int R,       // R reads a block, <= 32
                      int max_intv, int min_seed_len, int M,
                      int32_t* __restrict__ out,     // [2][B][M] m n, then
                                                     // [3][B][M] P: k l s
                      int32_t* __restrict__ cnt_out,     // [B]
-                     int32_t* __restrict__ steps_out) {  // [B]
+                     int32_t* __restrict__ steps_out,   // [B]
+                     int32_t* __restrict__ rounds_out) {  // [B] (KS > 1)
   extern __shared__ int4 smem[];
   int8_t* sq = reinterpret_cast<int8_t*>(smem);   // [R][L] codes
   const int t0 = blockIdx.x * R;
@@ -428,10 +497,10 @@ seed_strategy_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
     return true;
   };
   bool live = seek(0);
-  while (live) {                                   // one ext an iteration
-    const int an = code(j + 1);                    // read a step ahead
-    P nk, nl, ns;
-    ext(f, cl, ck, cs, 3 - a, nl, nk, ns);         // the swapped interval
+  // one base of the walk, its extension (nk, nl, ns) made and the next
+  // base an read: at a hit emit when s > 0 and seek on after it; at the
+  // read's end or an N stop or seek; true while the walk goes on
+  auto take = [&](P nk, P nl, P ns, int an) {
     ++steps;
     if (ns < max_intv && j + 1 - x >= min_seed_len) {
       if (ns > 0) {
@@ -446,15 +515,38 @@ seed_strategy_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
         ++cnt;
       }
       live = seek(j + 1);                          // go on after the hit
+      return false;
+    }
+    ck = nk;
+    cl = nl;
+    cs = ns;
+    a = an;
+    if (++j >= len) {                              // the read's end
+      live = false;
+      return false;
+    }
+    if (a >= 4) {                                  // go on after the N
+      live = seek(j + 1);
+      return false;
+    }
+    return true;
+  };
+  int rounds = 0;
+  while (live) {                  // one row fetch (KS bases) an iteration
+    const int an = code(j + 1);                    // read a step ahead
+    ++rounds;
+    if constexpr (KS == 1) {
+      P nk, nl, ns;
+      ext(f, cl, ck, cs, 3 - a, nl, nk, ns);       // the swapped interval
+      take(nk, nl, ns, an);
     } else {
-      ck = nk;
-      cl = nl;
-      cs = ns;
-      a = an;
-      if (++j >= len) live = false;                // the read's end
-      else if (a >= 4) live = seek(j + 1);         // go on after the N
+      int ch[2] = {3 - a, 3 - (an < 4 ? an : 3)}, bk[2], bl[2], bs[2];
+      ext_k<2>(f, g, cl, ck, cs, ch, bk, bl, bs);  // the swapped interval
+      if (take(bl[0], bk[0], bs[0], an)) take(bl[1], bk[1], bs[1],
+                                              code(j + 1));
     }
   }
+  if constexpr (KS > 1) rounds_out[t] = rounds;
   cnt_out[t] = cnt;
   steps_out[t] = steps;
 }
@@ -521,24 +613,25 @@ bool stacks_in_shared(int L, int SD) {
   return codes_bytes(L) + stacks_bytes<P>(SD) <= SMEM_MAX;
 }
 
-template <typename P>
-int one_pos_launch_t(const Fmi<P>& f, const void* codes, const void* lens,
-                     int B, int L, const void* t_read, const void* t_x,
-                     const void* t_mi, const void* t_valid, int T,
-                     int chain_restarts, int min_seed_len, int M, int SD,
-                     void* stk, void* out, void* cnt, void* steps,
+template <int KS, typename P>
+int one_pos_launch_t(const Fmi<P>& f, const Kfmi& g, const void* codes,
+                     const void* lens, int B, int L, const void* t_read,
+                     const void* t_x, const void* t_mi, const void* t_valid,
+                     int T, int chain_restarts, int min_seed_len, int M,
+                     int SD, void* stk, void* out, void* cnt, void* steps,
                      void* rounds, void* stream) {
   if (T <= 0) return 0;
   const bool shared = stacks_in_shared<P>(L, SD);
   const size_t bytes = codes_bytes(L) + (shared ? stacks_bytes<P>(SD) : 0);
-  if (!fmi_ok(f) || B <= 0 || L <= 0 || M < 0 || SD <= 0
-      || bytes > SMEM_MAX || (!shared && stk == nullptr))
+  if (!fmi_ok(f) || (KS > 1 && !kfmi_ok(g, KS)) || B <= 0 || L <= 0
+      || M < 0 || SD <= 0 || bytes > SMEM_MAX || (!shared && stk == nullptr))
     return (int)cudaErrorInvalidValue;
-  auto kernel = shared ? one_pos_kernel<true, P> : one_pos_kernel<false, P>;
+  auto kernel = shared ? one_pos_kernel<true, KS, P>
+                       : one_pos_kernel<false, KS, P>;
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
   kernel<<<T, WARP, bytes, (cudaStream_t)stream>>>(
-      f, (const int32_t*)codes, (const int32_t*)lens, B, L,
+      f, g, (const int32_t*)codes, (const int32_t*)lens, B, L,
       (const int32_t*)t_read, (const int32_t*)t_x, (const int32_t*)t_mi,
       (const uint8_t*)t_valid, T, chain_restarts, min_seed_len, M, SD,
       (Ent<P>*)stk, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps,
@@ -546,23 +639,26 @@ int one_pos_launch_t(const Fmi<P>& f, const void* codes, const void* lens,
   return (int)cudaGetLastError();
 }
 
-template <typename P>
-int seed_strategy_launch_t(const Fmi<P>& f, const void* codes,
+template <int KS, typename P>
+int seed_strategy_launch_t(const Fmi<P>& f, const Kfmi& g, const void* codes,
                            const void* lens, int B, int L, int max_intv,
                            int min_seed_len, int M, int reads_per_block,
-                           void* out, void* cnt, void* steps, void* stream) {
+                           void* out, void* cnt, void* steps, void* rounds,
+                           void* stream) {
   if (B <= 0) return 0;
   const int R = reads_per_block > 0 ? reads_per_block : p3_reads(L);
-  if (!fmi_ok(f) || L <= 0 || M < 0 || R < 1 || R > P3_THREADS
+  if (!fmi_ok(f) || (KS > 1 && (!kfmi_ok(g, KS) || rounds == nullptr))
+      || L <= 0 || M < 0 || R < 1 || R > P3_THREADS
       || R * codes_bytes(L) > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   const size_t bytes = R * codes_bytes(L);
-  const cudaError_t e = allow_smem(seed_strategy_kernel<P>, bytes);
+  const cudaError_t e = allow_smem(seed_strategy_kernel<KS, P>, bytes);
   if (e != cudaSuccess) return (int)e;
-  seed_strategy_kernel<P><<<(B + R - 1) / R, P3_THREADS, bytes,
-                            (cudaStream_t)stream>>>(
-      f, (const int32_t*)codes, (const int32_t*)lens, B, L, R, max_intv,
-      min_seed_len, M, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps);
+  seed_strategy_kernel<KS, P><<<(B + R - 1) / R, P3_THREADS, bytes,
+                                (cudaStream_t)stream>>>(
+      f, g, (const int32_t*)codes, (const int32_t*)lens, B, L, R, max_intv,
+      min_seed_len, M, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps,
+      (int32_t*)rounds);
   return (int)cudaGetLastError();
 }
 
@@ -608,10 +704,10 @@ extern "C" int one_pos_launch(const void* cp_fused, int nb, int c0, int c1,
                               int chain_restarts, int min_seed_len, int M,
                               int SD, void* stk, void* out, void* cnt,
                               void* steps, void* rounds, void* stream) {
-  return one_pos_launch_t(
-      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), codes, lens, B,
-      L, t_read, t_x, t_mi, t_valid, T, chain_restarts, min_seed_len, M, SD,
-      stk, out, cnt, steps, rounds, stream);
+  return one_pos_launch_t<1>(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), Kfmi{}, codes,
+      lens, B, L, t_read, t_x, t_mi, t_valid, T, chain_restarts,
+      min_seed_len, M, SD, stk, out, cnt, steps, rounds, stream);
 }
 
 // one_pos_launch's int64 form: the index at 64 bits with its high-word
@@ -630,11 +726,12 @@ extern "C" int one_pos_launch64(const void* cp_fused, long long nb,
                                 int chain_restarts, int min_seed_len, int M,
                                 int SD, void* stk, void* out, void* cnt,
                                 void* steps, void* rounds, void* stream) {
-  return one_pos_launch_t(
+  return one_pos_launch_t<1>(
       make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel, hi, h0, h1, h2,
                h3),
-      codes, lens, B, L, t_read, t_x, t_mi, t_valid, T, chain_restarts,
-      min_seed_len, M, SD, stk, out, cnt, steps, rounds, stream);
+      Kfmi{}, codes, lens, B, L, t_read, t_x, t_mi, t_valid, T,
+      chain_restarts, min_seed_len, M, SD, stk, out, cnt, steps, rounds,
+      stream);
 }
 
 // Launch seed_strategy_kernel on `stream` over B reads, `reads_per_block`
@@ -647,10 +744,10 @@ extern "C" int seed_strategy_launch(const void* cp_fused, int nb, int c0,
                                     int max_intv, int min_seed_len, int M,
                                     int reads_per_block, void* out,
                                     void* cnt, void* steps, void* stream) {
-  return seed_strategy_launch_t(
-      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), codes, lens, B,
-      L, max_intv, min_seed_len, M, reads_per_block, out, cnt, steps,
-      stream);
+  return seed_strategy_launch_t<1>(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), Kfmi{}, codes,
+      lens, B, L, max_intv, min_seed_len, M, reads_per_block, out, cnt,
+      steps, nullptr, stream);
 }
 
 // seed_strategy_launch's int64 form (the index as one_pos_launch64's;
@@ -661,11 +758,54 @@ extern "C" int seed_strategy_launch64(
     const void* hi, int h0, int h1, int h2, int h3, const void* codes,
     const void* lens, int B, int L, int max_intv, int min_seed_len, int M,
     int reads_per_block, void* out, void* cnt, void* steps, void* stream) {
-  return seed_strategy_launch_t(
+  return seed_strategy_launch_t<1>(
       make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel, hi, h0, h1, h2,
                h3),
-      codes, lens, B, L, max_intv, min_seed_len, M, reads_per_block, out,
-      cnt, steps, stream);
+      Kfmi{}, codes, lens, B, L, max_intv, min_seed_len, M, reads_per_block,
+      out, cnt, steps, nullptr, stream);
+}
+
+// one_pos_launch's k-step forms (int32 layout only): the k-gram table
+// `cpk` ([nb][w4] int4 in ops/occ.py::kstep_rows' layout, w4 = 10 or 42)
+// with its C2 [16] and C3 [64] tables on the device (`c3k` null at
+// ks = 2), the forward walk ks = 2 or 3 bases a row fetch; the rest as
+// one_pos_launch.
+extern "C" int one_pos_launch_k(const void* cp_fused, int nb, int c0, int c1,
+                                int c2, int c3, int c4, int sentinel,
+                                const void* cpk, int w4, const void* c2k,
+                                const void* c3k, int ks, const void* codes,
+                                const void* lens, int B, int L,
+                                const void* t_read, const void* t_x,
+                                const void* t_mi, const void* t_valid, int T,
+                                int chain_restarts, int min_seed_len, int M,
+                                int SD, void* stk, void* out, void* cnt,
+                                void* steps, void* rounds, void* stream) {
+  const Fmi<int> f = make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel);
+  const Kfmi g = make_kfmi(cpk, nb, w4, c2k, c3k);
+  if (ks == 2)
+    return one_pos_launch_t<2>(f, g, codes, lens, B, L, t_read, t_x, t_mi,
+                               t_valid, T, chain_restarts, min_seed_len, M,
+                               SD, stk, out, cnt, steps, rounds, stream);
+  if (ks == 3)
+    return one_pos_launch_t<3>(f, g, codes, lens, B, L, t_read, t_x, t_mi,
+                               t_valid, T, chain_restarts, min_seed_len, M,
+                               SD, stk, out, cnt, steps, rounds, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// seed_strategy_launch's k-step form (int32 layout only): two bases a row
+// fetch from the k-gram table (one_pos_launch_k's arguments; a trigram
+// table's bigram groups); `rounds` [B] gets each read's row fetches.
+extern "C" int seed_strategy_launch_k(
+    const void* cp_fused, int nb, int c0, int c1, int c2, int c3, int c4,
+    int sentinel, const void* cpk, int w4, const void* c2k,
+    const void* codes, const void* lens, int B, int L, int max_intv,
+    int min_seed_len, int M, int reads_per_block, void* out, void* cnt,
+    void* steps, void* rounds, void* stream) {
+  return seed_strategy_launch_t<2>(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel),
+      make_kfmi(cpk, nb, w4, c2k, nullptr), codes, lens, B, L, max_intv,
+      min_seed_len, M, reads_per_block, out, cnt, steps, rounds, stream);
 }
 
 // Launch sa_walk_kernel on `stream` over N coordinates (1 <= compx <= 30;

@@ -43,9 +43,12 @@
 // p3_stop whose size falls below p3_max_intv is recorded (f3_*), whether
 // the lane goes on or not. The lockstep advances every lane by one shared
 // t; here each lane runs its own t, which gives each lane the same j and
-// the same records, since no lane's state reads another's. Out of scope:
-// the JAX loop's k-step body (`body2`, two bases a gather), since the port
-// refuses the k-step table.
+// the same records, since no lane's state reads another's. The k-step
+// form (KS = 2, int32 layout only; the JAX loop's `body2`, :236-290, with
+// a k-gram table, csrc/fmi_step.cuh ext_k) takes two columns a row fetch
+// after the FMA start: the second only where the first keeps the lane,
+// every record (fail, f3, died, E) evaluated at the depth where it falls;
+// a fourth int plane holds each lane's row fetches.
 // Design: one block a read (row), its codes staged into dynamic shared
 // memory as bytes (stage_codes), one thread a start column, min(256,
 // NP rounded up to 32) threads a block striding over the columns. A
@@ -72,9 +75,10 @@
 // pos would still move on by one, so no input can hang the kernel.
 //
 // ---- the int64 forms
-// Each kernel is a template on its position type P (int, long long), as
-// in csrc/smem.cu; the launch functions ending in 64 launch the long long
-// forms on the int64 layout of ops/occ.py (the ladders at int64 too).
+// Each kernel is a template on its position type P (int, long long), and
+// the sweep also on its bases a fetch KS, as in csrc/smem.cu; the launch
+// functions ending in 64 launch the long long forms on the int64 layout
+// of ops/occ.py (the ladders at int64 too).
 
 #include "fmi_step.cuh"
 
@@ -83,9 +87,10 @@ namespace {
 constexpr int SWEEP_BLOCK = 256;     // the most threads a sweep block takes
 constexpr int CHASE_BLOCK = 32;      // reads (threads) a chase block
 
-template <typename P>
+template <int KS, typename P>
 __global__ void __launch_bounds__(SWEEP_BLOCK)
-sweep_extend_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
+sweep_extend_kernel(Fmi<P> f, Kfmi g,
+                    const int32_t* __restrict__ codes,         // [B, L]
                     const int32_t* __restrict__ lens,           // [B]
                     const int32_t* __restrict__ mis,            // [B]
                     int B, int L, int NP, int check_initial,
@@ -93,7 +98,7 @@ sweep_extend_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
                     const P* __restrict__ lad_k,   // [4^K, K] or null
                     const P* __restrict__ lad_l,
                     const P* __restrict__ lad_s, int K, int K_eff,
-                    int32_t* __restrict__ out_i,   // [3][B][NP]
+                    int32_t* __restrict__ out_i,   // [3 | 4][B][NP]
                     P* __restrict__ out_p,         // [9][B][NP]
                     uint8_t* __restrict__ out_b) {  // [4][B][NP]
   extern __shared__ int4 smem[];
@@ -152,13 +157,11 @@ sweep_extend_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
     }
     bool fs = false, f3s = false;
     P fk = 0, fl = 0, fss = 0, f3k = 0, f3l = 0, f3ss = 0;
-    int f3E = 0;
-    for (int t = 1; act; ++t) {      // one forward step a column
-      const int j = p + off + t;
-      const int a = code(j);
-      if (j >= len || a >= 4) break;           // an N or the read's end
-      P nk, nl, ns;
-      ext(f, l, k, s, 3 - clip(a), nl, nk, ns);  // the swapped interval
+    int f3E = 0, t = 1, rounds = 0;
+    // the step at column j (the lane's t-th), its extension (nk, nl, ns)
+    // made: the pass-3 record, then a size failure (false: the lane
+    // retires) or the match grown to j + 1
+    auto take = [&](int j, P nk, P nl, P ns) {
       ++steps;
       if (merge && !f3s && ns < (P)p3_max_intv && off + t + 1 >= p3_stop) {
         f3s = true;
@@ -173,17 +176,38 @@ sweep_extend_kernel(Fmi<P> f, const int32_t* __restrict__ codes,  // [B, L]
         fl = nl;
         fss = ns;
         died = died || merge;
-        break;
+        return false;
       }
       E = j + 1;
       k = nk;
       l = nl;
       s = ns;
+      ++t;
+      return true;
+    };
+    while (act) {                    // KS forward steps a row fetch
+      const int j = p + off + t;
+      const int a = code(j);
+      if (j >= len || a >= 4) break;           // an N or the read's end
+      ++rounds;
+      if constexpr (KS == 1) {
+        P nk, nl, ns;
+        ext(f, l, k, s, 3 - clip(a), nl, nk, ns);  // the swapped interval
+        act = take(j, nk, nl, ns);
+      } else {
+        // a walk that ends after the first base keeps its records
+        const int b2 = code(j + 1);
+        int ch[2] = {3 - a, 3 - clip(b2)}, bk[2], bl[2], bs[2];
+        ext_k<2>(f, g, l, k, s, ch, bk, bl, bs);   // the swapped interval
+        act = take(j, bl[0], bk[0], bs[0]) && j + 1 < len && b2 < 4
+              && take(j + 1, bl[1], bk[1], bs[1]);
+      }
     }
     const size_t o = (size_t)b * NP + p;
     out_i[o] = E;
     out_i[plane + o] = f3E;
     out_i[2 * plane + o] = steps;
+    if constexpr (KS > 1) out_i[3 * plane + o] = rounds;
     const P vals[9] = {k, l, s, fk, fl, fss, f3k, f3l, f3ss};
 #pragma unroll
     for (int i = 0; i < 9; ++i) out_p[i * plane + o] = vals[i];
@@ -251,8 +275,8 @@ int sweep_threads(int NP) {
   return t < SWEEP_BLOCK ? t : SWEEP_BLOCK;
 }
 
-template <typename P>
-int sweep_extend_launch_t(const Fmi<P>& f, const void* codes,
+template <int KS, typename P>
+int sweep_extend_launch_t(const Fmi<P>& f, const Kfmi& g, const void* codes,
                           const void* lens, const void* mis, int B, int L,
                           int NP, int check_initial, int stop_min_len,
                           int p3_max_intv, int p3_stop, const void* lad_k,
@@ -263,13 +287,14 @@ int sweep_extend_launch_t(const Fmi<P>& f, const void* codes,
   const size_t bytes = codes_bytes(L);
   const bool fma_ok = K_eff == 0
       || (K_eff >= 2 && K_eff <= K && K <= 15 && lad_k && lad_l && lad_s);
-  if (!fmi_ok(f) || L <= 0 || NP > L || bytes > SMEM_MAX || !fma_ok)
+  if (!fmi_ok(f) || (KS > 1 && !kfmi_ok(g, KS)) || L <= 0 || NP > L
+      || bytes > SMEM_MAX || !fma_ok)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(sweep_extend_kernel<P>, bytes);
+  const cudaError_t e = allow_smem(sweep_extend_kernel<KS, P>, bytes);
   if (e != cudaSuccess) return (int)e;
-  sweep_extend_kernel<P><<<B, sweep_threads(NP), bytes,
-                           (cudaStream_t)stream>>>(
-      f, (const int32_t*)codes, (const int32_t*)lens, (const int32_t*)mis,
+  sweep_extend_kernel<KS, P><<<B, sweep_threads(NP), bytes,
+                               (cudaStream_t)stream>>>(
+      f, g, (const int32_t*)codes, (const int32_t*)lens, (const int32_t*)mis,
       B, L, NP, check_initial, stop_min_len, p3_max_intv, p3_stop,
       (const P*)lad_k, (const P*)lad_l, (const P*)lad_s, K, K_eff,
       (int32_t*)out_i, (P*)out_p, (uint8_t*)out_b);
@@ -312,10 +337,29 @@ extern "C" int sweep_extend_launch(const void* cp_fused, int nb, int c0,
                                    const void* lad_l, const void* lad_s,
                                    int K, int K_eff, void* out_i,
                                    void* out_p, void* out_b, void* stream) {
-  return sweep_extend_launch_t(
-      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), codes, lens, mis,
-      B, L, NP, check_initial, stop_min_len, p3_max_intv, p3_stop, lad_k,
-      lad_l, lad_s, K, K_eff, out_i, out_p, out_b, stream);
+  return sweep_extend_launch_t<1>(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), Kfmi{}, codes,
+      lens, mis, B, L, NP, check_initial, stop_min_len, p3_max_intv, p3_stop,
+      lad_k, lad_l, lad_s, K, K_eff, out_i, out_p, out_b, stream);
+}
+
+// sweep_extend_launch's k-step form (int32 layout only): two bases a row
+// fetch from the k-gram table `cpk` ([nb][w4] int4, ops/occ.py::
+// kstep_rows; a trigram table's bigram groups) with its C2 [16] table on
+// the device, after the FMA start where K_eff > 0; out_i [4][B][NP] (E,
+// f3_E, steps, and each lane's row fetches).
+extern "C" int sweep_extend_launch_k(
+    const void* cp_fused, int nb, int c0, int c1, int c2, int c3, int c4,
+    int sentinel, const void* cpk, int w4, const void* c2k,
+    const void* codes, const void* lens, const void* mis, int B, int L,
+    int NP, int check_initial, int stop_min_len, int p3_max_intv,
+    int p3_stop, const void* lad_k, const void* lad_l, const void* lad_s,
+    int K, int K_eff, void* out_i, void* out_p, void* out_b, void* stream) {
+  return sweep_extend_launch_t<2>(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel),
+      make_kfmi(cpk, nb, w4, c2k, nullptr), codes, lens, mis, B, L, NP,
+      check_initial, stop_min_len, p3_max_intv, p3_stop, lad_k, lad_l, lad_s,
+      K, K_eff, out_i, out_p, out_b, stream);
 }
 
 // sweep_extend_launch's int64 form: the index at 64 bits with its
@@ -329,11 +373,12 @@ extern "C" int sweep_extend_launch64(
     int check_initial, int stop_min_len, int p3_max_intv, int p3_stop,
     const void* lad_k, const void* lad_l, const void* lad_s, int K,
     int K_eff, void* out_i, void* out_p, void* out_b, void* stream) {
-  return sweep_extend_launch_t(
+  return sweep_extend_launch_t<1>(
       make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel, hi, h0, h1, h2,
                h3),
-      codes, lens, mis, B, L, NP, check_initial, stop_min_len, p3_max_intv,
-      p3_stop, lad_k, lad_l, lad_s, K, K_eff, out_i, out_p, out_b, stream);
+      Kfmi{}, codes, lens, mis, B, L, NP, check_initial, stop_min_len,
+      p3_max_intv, p3_stop, lad_k, lad_l, lad_s, K, K_eff, out_i, out_p,
+      out_b, stream);
 }
 
 // Launch strategy_chase_kernel on `stream` over B reads; out [2][B][M]

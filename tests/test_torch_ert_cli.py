@@ -13,7 +13,9 @@ two contigs indexed with the full SA (``index -s 0``) by the JAX CLI, its
   drop the trie with the JAX CLI's warning, and the body stays the JAX
   CLI's (every engine gives the same SMEMs); a named sweep engine keeps
   the trie.
-- The k-step table is still refused.
+- An unreadable k-step table (`.cp2.npz`) is skipped with the JAX CLI's
+  warning, and the trie's body stays (the test keeps its name from when
+  the port refused the table).
 """
 
 import contextlib
@@ -216,9 +218,21 @@ def test_mem_named_sweep_keeps_ert(cli_side, tmp_path):
 
 
 def test_mem_cli_still_refuses_kstep(cli_side, tmp_path):
+    """An empty `.cp2.npz` next to the ERT index: the port's `mem` no longer
+    refuses the k-step table; as the JAX CLI, it skips the unreadable file
+    with its warning, and the SAM body equals the trie run's."""
+    from bwa_mem_scale_tpu import cli as jcli
     tmp, prefix = cli_side["tmp"], cli_side["prefix"]
     mine = str(tmp_path / "g")
     _link(prefix, mine, [".tpuidx.npz", ".ert6.npz"])
     open(mine + ".cp2.npz", "wb").close()
-    with pytest.raises(SystemExit, match="k-step table .* not ported yet"):
-        cli.mem([mine, str(tmp / "r.fq"), "--device", "cpu"])
+    _, jerr = _stderr_of(jcli.find_cp2, mine)
+    want = _notes(jerr)
+    assert len(want) == 1 and want[0].startswith(
+        f"* WARNING: ignoring unreadable k-step table {mine}.cp2.npz")
+    out = tmp_path / "port.sam"
+    al, err = _stderr_of(cli.mem, [mine, str(tmp / "r.fq"), "--batch-reads",
+                                   "16", "-o", str(out), "--device", "cpu"])
+    assert [n for n in _notes(err) if n.startswith("* WARNING")] == want
+    assert al.fmi.kstep == 1 and al.dert is not None
+    assert _body(out) == _body(cli_side["sam"]["se"])

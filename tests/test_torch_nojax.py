@@ -5,7 +5,9 @@ paired-end `mem -W 10` on 250-300 bp reads (the long-read seed-SW
 filter, ops/seedsw.py), `smem-table` and
 SE and PE `mem --seed-engine sweep` with its table (SAM equal to the
 one-hot engine's), `ert-index` on a full-SA index and SE and PE `mem`
-seeding with the ERT (SAM equal to the one-hot engine's), the in-process SE API (`align_reads_to_sam`, the EMF
+seeding with the ERT (SAM equal to the one-hot engine's), `kstep-table -k 3`
+and SE and PE `mem` with the trigram table (SAM equal to the run without
+it), the in-process SE API (`align_reads_to_sam`, the EMF
 table probed on the device, here the CPU), `load-shm`, a `mem` that
 attaches to the staged store (SAM equal to `mem` from the files) and
 `remove-shm`, the import of the
@@ -67,7 +69,16 @@ RUNNER = textwrap.dedent("""
                   "--batch-reads", "16"],
                  ["mem", "e", "r1.fq", "r2.fq", "-o", "pe_ert.sam",
                   "--device", "cpu", "--batch-reads", "16", "-I",
+                  "200,20"],
+                 # the k-step table under a prefix linked to g's index
+                 ["kstep-table", "k", "-k", "3"],
+                 ["mem", "k", "r.fq", "-o", "kstep.sam", "--device", "cpu",
+                  "--batch-reads", "16"],
+                 ["mem", "k", "r1.fq", "r2.fq", "-o", "pe_kstep.sam",
+                  "--device", "cpu", "--batch-reads", "16", "-I",
                   "200,20"]):
+        if argv[:2] == ["kstep-table", "k"]:
+            os.symlink("g.tpuidx.npz", "k.tpuidx.npz")
         assert main(argv) == 0, argv
     # the Python PE path, as taken when the native PE stage declines
     from bwa_mem_scale_tpu_torch.pipeline import native_finalize
@@ -181,11 +192,12 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     assert sum(1 for t in prim if not int(t[1]) & 0x4) >= 44
     body = {f: [ln for ln in open(tmp_path / f) if not ln.startswith("@PG")]
             for f in ("out.sam", "sweep.sam", "pe.sam", "pe_py.sam",
-                      "pe_sweep.sam", "shm.sam", "ert.sam", "pe_ert.sam")}
+                      "pe_sweep.sam", "shm.sam", "ert.sam", "pe_ert.sam",
+                      "kstep.sam", "pe_kstep.sam")}
     assert (body["pe.sam"] == body["pe_py.sam"] == body["pe_sweep.sam"]
-            == body["pe_ert.sam"])
+            == body["pe_ert.sam"] == body["pe_kstep.sam"])
     assert (body["out.sam"] == body["sweep.sam"] == body["shm.sam"]
-            == body["ert.sam"])
+            == body["ert.sam"] == body["kstep.sam"])
     api = open(tmp_path / "api.sam").read().splitlines()
     assert api == [ln.rstrip("\n") for ln in body["out.sam"]
                    if not ln.startswith("@")]
@@ -197,3 +209,4 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     assert sum(1 for t in prim if not int(t[1]) & 0x4) >= 7
     assert (tmp_path / "g.fma5.npz").exists()
     assert (tmp_path / "e.ert6.npz").exists()
+    assert (tmp_path / "k.cp3.npz").exists()
