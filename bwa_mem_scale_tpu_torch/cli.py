@@ -10,6 +10,7 @@
     python -m bwa_mem_scale_tpu_torch.cli mem g r1.fq r2.fq -o out.sam
     python -m bwa_mem_scale_tpu_torch.cli mem g interleaved.fq -p
     python -m bwa_mem_scale_tpu_torch.cli mem g reads.fq --seed-engine sweep
+    python -m bwa_mem_scale_tpu_torch.cli mem g reads.fq --seed-engine readlane
     python -m bwa_mem_scale_tpu_torch.cli load-shm g [-g GB]
     python -m bwa_mem_scale_tpu_torch.cli remove-shm g
 
@@ -17,16 +18,21 @@ The ``mem`` options are the JAX CLI's (``_add_mem_opts`` and
 ``_opts_from_args`` are copies of its own), plus ``--device`` (default
 ``cuda``; the CPU runs only when named). Two FASTQ files, or ``-p`` with
 one, run paired-end; ``-I`` fixes the insert-size statistics. Seeding
-runs the one-hot machine (``ops/smem_oh.py``) unless ``--seed-engine
-sweep`` names the position-parallel sweep (``ops/smem.py``), which takes
-the FMA ladder table that ``smem-table`` writes next to the index
-(``{prefix}.fma{K}.npz``; the one-hot machine ignores it, with the JAX
-CLI's note). ``ert-index`` builds the ERT suffix trie
-(``{prefix}.ert{K}.npz``, ``index/ert.py``); ``mem`` loads it next to a
-full-SA index (``index -s 0``) and seeds with its descent
-(``ops/ert.py``) on every path, as the JAX CLI does (with no engine named
-the run reports the sweep engine); next to a sampled index the file is
-ignored with the JAX CLI's warning. ``kstep-table`` writes the bigram
+runs the one-hot machine (``ops/smem_oh.py``) unless ``--seed-engine``
+names the position-parallel sweep (``sweep``, ``ops/smem.py``), which
+takes the FMA ladder table that ``smem-table`` writes next to the index
+(``{prefix}.fma{K}.npz``), or the read-per-lane machines (``readlane``,
+``ops/smem_rl.py``, on ``PipelineConfig.seed_lanes`` worker lanes);
+the one-hot and readlane engines ignore the table, with the JAX CLI's
+note. ``ert-index`` builds the ERT suffix trie (``{prefix}.ert{K}.npz``,
+``index/ert.py``); ``mem`` loads it next to a full-SA index (``index -s
+0``) and seeds with its descent (``ops/ert.py``) on every path, as the
+JAX CLI does (with no engine named the run reports the sweep engine; a
+named readlane engine drops the trie, with the JAX CLI's note); next to a
+sampled index the file is ignored with the JAX CLI's warning. ``-v 4``
+prints the JAX CLI's device stage table of the first batch
+(``pipeline/stageprof.py``) and, at the end, the port's synchronised
+stage seconds over every batch. ``kstep-table`` writes the bigram
 (``-k 2``) or trigram (``-k 3``) checkpoint table (``{prefix}.cp{K}.npz``,
 ``index/kstep.py``); ``mem`` loads it after the index (the trigram table
 first, an unreadable file skipped with the JAX CLI's warning), even when
@@ -36,7 +42,7 @@ stages the index and its tables into the in-memory store (``store.py``,
 the JAX package's layout, under a -g budget), ``remove-shm`` drops it,
 and ``mem`` attaches to a staged store before it reads any file. What the
 port does not run yet is refused with a "not ported yet" error: several
-devices or hosts and the readlane engine. An index of 2^31 positions or
+devices or hosts. An index of 2^31 positions or
 more (hg38) runs on the int64-position layout (``ops/occ.py``), without
 the k-step table.
 """
@@ -457,9 +463,6 @@ def mem(argv):
         _not_ported("--devices > 1")
     if args.num_hosts > 1:
         _not_ported("--num-hosts > 1")
-    if args.seed_engine == "readlane":
-        _not_ported("--seed-engine readlane (the port seeds with the "
-                    "one-hot machine or the sweep)")
     opt = _opts_from_args(args)
 
     from .index.artifacts import load_index
@@ -506,12 +509,19 @@ def mem(argv):
                   file=sys.stderr)
         elif ert is not None:
             ert = None
-        # the JAX CLI's rule: an auto-loaded ERT seeds, and with no engine
-        # named the run reports the sweep engine (the readlane engine,
-        # which would drop the trie, is refused above)
-        engine = args.seed_engine or ("sweep" if ert is not None
-                                      else "onehot")
-        if engine == "onehot" and fma is not None:
+        # the JAX CLI's rules: an auto-loaded ERT seeds, and with no engine
+        # named the run reports the sweep engine; a named readlane engine
+        # drops the trie; the one-hot and readlane engines ignore the FMA
+        # table
+        engine = args.seed_engine or "onehot"
+        if engine in ("readlane", "onehot") and ert is not None:
+            if args.seed_engine is None:
+                engine = "sweep"
+            else:
+                print("* note: readlane seeding selected; ignoring "
+                      "auto-loaded ERT index", file=sys.stderr)
+                ert = None
+        if engine in ("readlane", "onehot") and fma is not None:
             print(f"* note: {engine} seeding ignores the FMA table",
                   file=sys.stderr)
             fma = None
@@ -519,7 +529,9 @@ def mem(argv):
                              PipelineConfig(seed_engine=engine), emf=emf,
                              fma=fma, ert=ert, cp2=cp2)
     if args.verbosity >= 4:
-        # synchronised per-stage device seconds (the -v 4 stage table)
+        # the JAX CLI's one-shot device stage table on the first batch,
+        # and synchronised per-stage device seconds over every batch
+        aligner.stage_profile_pending = True
         aligner.prof = StageProfile(device)
 
     skip_reads = 0

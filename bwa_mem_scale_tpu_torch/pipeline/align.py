@@ -63,8 +63,9 @@ from ..ops.ert import DeviceErt, collect_smems_ert
 from ..ops.occ import DeviceFMIndex
 from ..ops.sal import expand_and_lookup
 from ..ops.seedsw import seed_sw_filter
-from ..ops.smem import collect_smems_device, compact_indices
+from ..ops.smem import SmemBuf, collect_smems_device, compact_indices
 from ..ops.smem_oh import collect_smems_oh
+from ..ops.smem_rl import collect_smems_rl
 from ..ops.window import take_windows, ref_windows
 from .perfect import perfect_regs, perfect_sam_records
 
@@ -87,9 +88,13 @@ class PipelineConfig:
     max_regs: int = 64                   # extension candidates per read
     max_pairs: int = 4096                # extension pairs per batch
     target_pad: int = 8
-    # "sweep" (ops/smem.py, the FMA table's engine) or "onehot"
-    # (ops/smem_oh.py, the CLI's default); "readlane" is not ported
+    # "sweep" (ops/smem.py, the FMA table's engine), "onehot"
+    # (ops/smem_oh.py, the CLI's default) or "readlane" (ops/smem_rl.py,
+    # read-per-lane machines at full depth; ignores the FMA table); all
+    # three give identical output
     seed_engine: str = "sweep"
+    # readlane worker lanes: a lane pulls the next task of the backlog as
+    # it finishes one (kt_for's dynamic scheduling); None = one a task
     seed_lanes: Optional[int] = None
     # "auto": the CUDA kernel for CUDA tensors, the plain PyTorch
     # version for CPU tensors; "plain": the plain version everywhere
@@ -129,6 +134,54 @@ def _stage(prof: Optional[StageProfile], name: str):
     return prof.stage(name) if prof is not None else contextlib.nullcontext()
 
 
+def collect_seeds(fmi: DeviceFMIndex, codes, lens, L: int, *,
+                  opt: MemOptions, cfg: PipelineConfig, fma=None, ert=None,
+                  full_depth: bool = False,
+                  stats: Optional[dict] = None) -> SmemBuf:
+    """The batch's SMEMs from the engine seed_chain_extend takes (see
+    there): the ERT descent when `ert` is given, else cfg.seed_engine.
+    full_depth runs the one-hot engine at the read length, as the JAX
+    package's stage table does, in place of its "auto" depths."""
+    kw = dict(min_seed_len=opt.min_seed_len, split_len=opt.split_len,
+              split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
+              max_out=cfg.max_smem_out or L, stats=stats)
+    if ert is not None:
+        return collect_smems_ert(ert, fmi.ref, codes, lens,
+                                 pos_dtype=fmi.pos_dtype,
+                                 seq_len=2 * fmi.l_pac, **kw)
+    if cfg.seed_engine == "readlane":
+        return collect_smems_rl(fmi, codes, lens, lanes=cfg.seed_lanes, **kw)
+    if cfg.seed_engine == "onehot":
+        auto = 24 if fmi.pos_dtype == torch.int32 else None
+        ed, sd = cfg.seed_emit_depth, cfg.seed_stack_depth
+        if full_depth:
+            ed = sd = None
+        return collect_smems_oh(
+            fmi, codes, lens, emit_depth=auto if ed == "auto" else ed,
+            stack_depth=auto if sd == "auto" else sd,
+            reseed_factor=cfg.reseed_factor, **kw)
+    return collect_smems_device(fmi, codes, lens, fma=fma, **kw)
+
+
+def chain_and_filter(dbns: DeviceBns, bufs: SmemBuf, rbeg, seed_idx,
+                     coord_valid, lens, *, opt: MemOptions,
+                     cfg: PipelineConfig, stats: Optional[dict] = None):
+    """Chaining and the chain filter of one batch: (the chains, the
+    filter's (order, kept, its third output, frac_rep))."""
+    # the kernels on CUDA tensors, the plain versions on CPU ones; called
+    # by this module's names, which a caller may swap
+    ch = chain_seeds_cuda(
+        dbns, bufs, rbeg, seed_idx, coord_valid, w=opt.w,
+        max_chain_gap=opt.max_chain_gap, max_chains=cfg.max_chains,
+        max_seeds_per_chain=cfg.max_seeds_per_chain, stats=stats)
+    return ch, chain_filter_cuda(
+        ch, dbns, bufs, lens, min_chain_weight=opt.min_chain_weight,
+        mask_level=opt.mask_level, max_chain_gap=opt.max_chain_gap,
+        drop_ratio=opt.drop_ratio, min_seed_len=opt.min_seed_len,
+        max_chain_extend=opt.max_chain_extend, max_occ=opt.max_occ,
+        stats=stats)
+
+
 def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
                       L: int, *, opt: MemOptions, cfg: PipelineConfig,
                       fma=None, ert=None, prof: Optional[StageProfile] = None,
@@ -141,60 +194,26 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     overflow flags. Reference positions run at fmi's position dtype
     (int64 on its int64 layout). Seeding takes cfg.seed_engine: "sweep"
     (with `fma`, a DeviceFmaTable at fmi's position dtype, as each lane's
-    start) or "onehot" (which ignores `fma`); with `ert` (an
+    start), "onehot" or "readlane" (on cfg.seed_lanes worker lanes, at full
+    depth), the last two ignoring `fma`; with `ert` (an
     ``ops/ert.DeviceErt`` of the same text) the ERT descent seeds instead,
     whatever the engine, as in the JAX package. `stats` collects loop tick
     counts."""
-    if cfg.seed_engine not in ("onehot", "sweep"):
-        raise NotImplementedError(
-            f"seed engine {cfg.seed_engine!r} is not ported yet "
-            f"(use seed_engine='sweep' or 'onehot')")
     B = codes.shape[0]
     dev = codes.device
     i32, i64 = torch.int32, torch.int64
     lens = lens.to(i32)
-    auto = 24 if fmi.pos_dtype == i32 else None
-    ed, sd = cfg.seed_emit_depth, cfg.seed_stack_depth
     with _stage(prof, "seed"):
-        if ert is not None:
-            bufs = collect_smems_ert(
-                ert, fmi.ref, codes, lens,
-                min_seed_len=opt.min_seed_len, split_len=opt.split_len,
-                split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
-                max_out=cfg.max_smem_out or L, pos_dtype=fmi.pos_dtype,
-                seq_len=2 * fmi.l_pac, stats=stats)
-        elif cfg.seed_engine == "sweep":
-            bufs = collect_smems_device(
-                fmi, codes, lens,
-                min_seed_len=opt.min_seed_len, split_len=opt.split_len,
-                split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
-                max_out=cfg.max_smem_out or L, fma=fma, stats=stats)
-        else:
-            bufs = collect_smems_oh(
-                fmi, codes, lens,
-                min_seed_len=opt.min_seed_len, split_len=opt.split_len,
-                split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
-                max_out=cfg.max_smem_out or L,
-                emit_depth=auto if ed == "auto" else ed,
-                stack_depth=auto if sd == "auto" else sd,
-                reseed_factor=cfg.reseed_factor, stats=stats)
+        bufs = collect_seeds(fmi, codes, lens, L, opt=opt, cfg=cfg, fma=fma,
+                             ert=ert, stats=stats)
     with _stage(prof, "sal"):
         rbeg, seed_idx, coord_valid, total, coord_of = expand_and_lookup(
             fmi, bufs, opt.max_occ, cfg.max_coords, stats=stats)
     # SMEM buffer at capacity: possible overflow -> retry at larger shape
     smem_of = bufs.cnt >= bufs.m.shape[1]
     with _stage(prof, "chain"):
-        # the kernels on CUDA tensors, the plain versions on CPU ones;
-        # called by this module's names, which a caller may swap
-        ch = chain_seeds_cuda(
-            dbns, bufs, rbeg, seed_idx, coord_valid, w=opt.w,
-            max_chain_gap=opt.max_chain_gap, max_chains=cfg.max_chains,
-            max_seeds_per_chain=cfg.max_seeds_per_chain, stats=stats)
-        order, kept, _, frac_rep = chain_filter_cuda(
-            ch, dbns, bufs, lens, min_chain_weight=opt.min_chain_weight,
-            mask_level=opt.mask_level, max_chain_gap=opt.max_chain_gap,
-            drop_ratio=opt.drop_ratio, min_seed_len=opt.min_seed_len,
-            max_chain_extend=opt.max_chain_extend, max_occ=opt.max_occ,
+        ch, (order, kept, _, frac_rep) = chain_and_filter(
+            dbns, bufs, rbeg, seed_idx, coord_valid, lens, opt=opt, cfg=cfg,
             stats=stats)
 
     C, S, R = cfg.max_chains, cfg.max_seeds_per_chain, cfg.max_regs
@@ -475,6 +494,9 @@ class GpuAligner:
         self.batches = 0
         self.stats = {}              # loop ticks summed over batches
         self.prof: Optional[StageProfile] = None   # set for mem -v 4
+        # mem -v 4: the one-shot device stage table (pipeline/stageprof.py)
+        # on the first batch dispatched
+        self.stage_profile_pending = False
         self._extend = partial(seed_chain_extend, opt=self.opt, cfg=self.cfg)
         self._retry_fn = self._retry2_fn = None
 
@@ -551,6 +573,10 @@ class GpuAligner:
         handle fetch_extend and finalize_stage_a take."""
         codes = np.ascontiguousarray(codes, dtype=np.int32)
         lens = np.ascontiguousarray(lens, dtype=np.int32)
+        if self.stage_profile_pending:
+            self.stage_profile_pending = False
+            from .stageprof import device_stage_profile
+            device_stage_profile(self, codes, lens)
         c_dev, l_dev = self._to_device(codes, lens)
         pm = None
         if not skip_emf and self._probes_on_device(int(codes.shape[1])):

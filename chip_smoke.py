@@ -123,14 +123,15 @@ Phases, in order; any failure exits non-zero:
               times; the engines' seeding kernels side by side.
  10. longread: the long-read regime (the seed-SW filter of
               mem_flt_chained_seeds, ops/seedsw.py, csrc/seedsw.cu) on
-              phase 4's genome, index and EMF table: SE `mem --device cuda
-              -v 4` on (a) 2,000 reads of 800-2,500 bp at default options
+              phase 4's genome, index and EMF table: SE `mem --device cuda`
+              on (a) 2,000 reads of 800-2,500 bp at default options
               and (b) 300 reads of 3,000-6,000 bp under -x pacbio (1%
               substitutions, every second read reverse-complemented);
               each run: every read once in input order, >= 95% of
               primaries within 5 bp of the true position and strand, the
-              seed-SW kernel launched at least once a device batch,
-              reads/s, the stage seconds (seedsw among them), the
+              seed-SW kernel launched exactly once a call of the filter
+              (each device batch and each retry call), reads/s, the stage
+              seconds of a second run with `-v 4` (seedsw among them), the
               overflow tiers' reads (tier 1, tier 2, oracle) and the
               ladder's seconds; then the first 512 reads of (a) through
               seed_chain_extend with the seed-SW launch captured, held
@@ -1969,7 +1970,8 @@ def seedsw_launch(dev, card, args):
 
 def phase_longread(dev, card, tmp):
     """Phase 10: SE `mem --device cuda` on long reads of phase 4's genome,
-    index and EMF table, (a) at default options and (b) under -x pacbio;
+    index and EMF table, (a) at default options and (b) under -x pacbio,
+    each run a second time with `-v 4` for its stage seconds;
     then one batch of (a) through seed_chain_extend with the seed-SW
     launch captured and held against its plain version, and its BSW calls
     (the tiled instantiation) too."""
@@ -1991,36 +1993,48 @@ def phase_longread(dev, card, tmp):
         fq, sam = (os.path.join(tmp, f"long_{tag}.{x}") for x in ("fq", "sam"))
         pos, is_rev, reads = write_long_reads(fq, fwd, n, lo, hi, seed)
         argv = [g, fq, "-o", sam, "--device", "cuda", "--batch-reads",
-                str(BATCH), "-v", "4", *opts]
+                str(BATCH), *opts]
         PROFILER.totals.clear()
         torch.cuda.reset_peak_memory_stats()
-        seedsw_cuda.local_sw_score_cuda.launches = 0   # path starts here
-        banded_swa_batch_cuda.launches = 0
-        t1 = time.perf_counter()
-        al = cli.mem(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        launches = seedsw_cuda.local_sw_score_cuda.launches
-        bsw = banded_swa_batch_cuda.launches            # path ends here
+        real_filter, filters = align.seed_sw_filter, []
+
+        def count_filter(*args, **kw):
+            filters.append(1)
+            return real_filter(*args, **kw)
+        align.seed_sw_filter = count_filter
+        try:
+            seedsw_cuda.local_sw_score_cuda.launches = 0  # path starts here
+            banded_swa_batch_cuda.launches = 0
+            t1 = time.perf_counter()
+            al = cli.mem(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = seedsw_cuda.local_sw_score_cuda.launches
+            bsw = banded_swa_batch_cuda.launches           # path ends here
+        finally:
+            align.seed_sw_filter = real_filter
         check_long_sam(sam, n, pos, is_rev, tag)
-        if launches < al.batches:
+        if len(filters) < al.batches or launches != len(filters):
             raise SystemExit(f"longread ({tag}): the seed-SW kernel launched "
-                             f"{launches} times over {al.batches} device "
-                             f"batches, fewer than one a batch")
-        sec = al.prof.seconds
+                             f"{launches} times over {len(filters)} calls "
+                             f"of the filter ({al.batches} device batches "
+                             f"and the retry tiers' calls); expected one a "
+                             f"call and a call a batch")
         log(f"[longread {tag}] {n} reads of {lo}-{hi} bp "
             f"({' '.join(opts) or 'default options'}) in {wall:.2f} s = "
-            f"{n / wall:.1f} reads/s end to end (mem -v 4, synchronised "
-            f"stage timers, index load included)  [{card}]")
+            f"{n / wall:.1f} reads/s end to end (index load included)  "
+            f"[{card}]")
         log(f"[longread {tag}] device batches {al.batches}; seed-SW launches "
-            f"{launches}, BSW launches {bsw}; overflow tiers: tier 1 "
+            f"{launches} (one a filter call, the retry tiers' included), BSW "
+            f"launches {bsw}; overflow tiers: tier 1 "
             f"{al.overflow_retried} reads, tier 2 {al.overflow_tier2}, oracle "
             f"{al.overflow_oracle}; the retry ladder "
             f"{PROFILER.totals['overflow_retry']:.3f} s (host clock); peak "
             f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
             f" GiB")
+        sec = cli.mem(argv + ["-v", "4"]).prof.seconds
         log(f"[longread {tag} -v 4] synchronised stage seconds of the main "
-            f"batches: " + ", ".join(f"{k} {sec[k]:.3f}"
+            f"batches (a second run): " + ", ".join(f"{k} {sec[k]:.3f}"
                                      for k in align.StageProfile.STAGES)
             + f"  [{card}]")
         log(f"[longread {tag}] run took {time.perf_counter() - t0:.1f} s")
@@ -2930,7 +2944,8 @@ def phase_kstep(dev, card, tmp, se, pe, al):
     launch a k-step form; `-v 4` stage seconds; then phase 5's batch and
     the repeat batch through each k-step launch as made, at both tables,
     against its plain version and the K = 1 form. Returns {form: numbers,
-    "launches": {form: main-path launches}}."""
+    "launches": {form: main-path launches}, "batches": the two batches,
+    "cp2": {(batch, K): k-gram table}, "trips": (L2 trip, HBM trip)}."""
     import torch
     from bwa_mem_scale_tpu_torch import cli
     from bwa_mem_scale_tpu_torch.index.kstep import build_cp2
@@ -3081,7 +3096,7 @@ def phase_kstep(dev, card, tmp, se, pe, al):
                ("repeat batch", idx_r,
                 chain.DeviceBns.from_host(idx_r.bns, dev), codes_r, lens_r,
                 None))
-    res = {}
+    res, cp2s = {}, {}
     for batch, idx, dbns, cc, ll, table in batches:
         c = torch.as_tensor(cc, device=dev)
         ln = torch.as_tensor(ll, device=dev)
@@ -3090,7 +3105,8 @@ def phase_kstep(dev, card, tmp, se, pe, al):
             table = build_fma_table(fmi1, K=11)
         dtab = table.to_device(torch.int32, dev)
         for K in (2, 3):
-            fmi = DeviceFMIndex.from_host(idx, dev, cp2=build_cp2(idx, K))
+            cp2s[batch, K] = build_cp2(idx, K)
+            fmi = DeviceFMIndex.from_host(idx, dev, cp2=cp2s[batch, K])
             trip = trips[0] if K == 2 else trips[1]
             for fma_k in (None, dtab):
                 calls = kstep_calls(fmi, dbns, c, ln, al.opt, al.cfg,
@@ -3108,12 +3124,329 @@ def phase_kstep(dev, card, tmp, se, pe, al):
             del fmi
             torch.cuda.empty_cache()
     p5 = "phase 5's batch"
-    out = {"launches": launches}
+    # the batches, their k-gram tables and the trips, for phase 14
+    out = {"launches": launches, "batches": batches, "cp2": cp2s,
+           "trips": trips}
     for form, name, K, _, _ in KSTEP_FORMS:
         rs = res[p5, K, name, name == "sweep_extend"]
         out[form] = dict(rs[0], err=max(r["err"] for key, v in res.items()
                                         for r in v if key[2] == name))
     log(f"[kstep] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# phase 14, the readlane engine (csrc/readlane.cu): its forms, each (kernel
+# name in the JSON line, wrapper, configuration, the JAX loop it replaces)
+READLANE_FORMS = (
+    ("readlane_one_pos", "one_pos", "k1",
+     "bwa_mem_scale_tpu/ops/smem_rl.py:55"),
+    ("readlane_one_pos_int64", "one_pos", "int64",
+     "bwa_mem_scale_tpu/ops/smem_rl.py:55"),
+    ("readlane_one_pos_k2", "one_pos", "k2",
+     "bwa_mem_scale_tpu/ops/smem_rl.py:55"),
+    ("readlane_one_pos_k3", "one_pos", "k3",
+     "bwa_mem_scale_tpu/ops/smem_rl.py:55"),
+    ("readlane_strategy", "strategy", "k1",
+     "bwa_mem_scale_tpu/ops/smem_rl.py:603"),
+    ("readlane_strategy_int64", "strategy", "int64",
+     "bwa_mem_scale_tpu/ops/smem_rl.py:603"),
+    ("readlane_strategy_k2", "strategy", "k2",
+     "bwa_mem_scale_tpu/ops/smem_rl.py:603"))
+# the worker-lane pools held (None: one lane a task)
+READLANE_LANES = (None, 256, 64)
+
+
+def readlane_calls(fmi, c, ln, opt, lanes):
+    """collect_smems_rl on one batch with `lanes` worker lanes, its three
+    readlane launches recorded as made: (its SmemBuf, [(wrapper name,
+    args, kwargs without stats, output, per-lane steps, per-lane
+    ticks)])."""
+    from bwa_mem_scale_tpu_torch.ops import smem_rl
+    real = {"one_pos": smem_rl.readlane_one_pos_cuda,
+            "strategy": smem_rl.readlane_strategy_cuda}
+    calls = []
+
+    def recorder(name):
+        def record(*args, **kw):
+            w = real[name]
+            out = w(*args, **kw)
+            calls.append((name, args,
+                          {k: v for k, v in kw.items()
+                           if k not in ("stats", "stats_key")},
+                          out, w.last_steps, w.last_ticks))
+            return out
+        return record
+    smem_rl.readlane_one_pos_cuda = recorder("one_pos")
+    smem_rl.readlane_strategy_cuda = recorder("strategy")
+    try:
+        bufs = smem_rl.collect_smems_rl(
+            fmi, c, ln, min_seed_len=opt.min_seed_len,
+            split_len=opt.split_len, split_width=opt.split_width,
+            max_mem_intv=opt.max_mem_intv, lanes=lanes)
+    finally:
+        smem_rl.readlane_one_pos_cuda = real["one_pos"]
+        smem_rl.readlane_strategy_cuda = real["strategy"]
+    return bufs, calls
+
+
+def readlane_batch(dev, card, batch, cfg, fmi, c, ln, opt, trip):
+    """Phase 5's batch or the repeat batch through collect_smems_rl on
+    `fmi` (a configuration: K = 1, int64, K = 2 or 3) at each pool of
+    READLANE_LANES: the SmemBuf equal to collect_smems_oh at full depth;
+    each of the three launches as made equal to its plain machine on the
+    same inputs (max_abs_err 0; the plain machine's arrays do not depend
+    on the pool, tests/test_torch_smem_rl.py, so it runs once, on one lane
+    a task) with equal total steps, and at K = 1 total ticks equal to the
+    lockstep's lane-ticks; its bound (the inputs, 64 bytes and 45
+    operations a step, the outputs), latency floor (the longest lane's
+    steps over the bases a fetch, x `trip` us) and device ms (mean of 2).
+    Returns {(lanes, pass): numbers}."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import smem_rl, smem_rl_cuda
+    from bwa_mem_scale_tpu_torch.ops.smem_oh import collect_smems_oh
+    fields = ("m", "n", "k", "l", "s", "cnt")
+    oh = collect_smems_oh(fmi, c, ln, min_seed_len=opt.min_seed_len,
+                          split_len=opt.split_len,
+                          split_width=opt.split_width,
+                          max_mem_intv=opt.max_mem_intv)
+    wrappers = {"one_pos": smem_rl_cuda.readlane_one_pos_cuda,
+                "strategy": smem_rl_cuda.readlane_strategy_cuda}
+    plains = {"one_pos": smem_rl.one_pos_machine,
+              "strategy": smem_rl.seed_strategy_machine}
+    pb = fmi.pos_dtype.itemsize
+    B, L = c.shape
+    plain, res = {}, {}
+    for lanes in READLANE_LANES:
+        bufs, calls = readlane_calls(fmi, c, ln, opt, lanes)
+        torch.cuda.synchronize()
+        if not all(torch.equal(getattr(bufs, f), getattr(oh, f))
+                   for f in fields):
+            raise SystemExit(f"readlane: {batch}, {cfg}, lanes {lanes}: "
+                             f"collect_smems_rl differs from "
+                             f"collect_smems_oh at full depth")
+        if [name for name, *_ in calls] != ["one_pos", "one_pos",
+                                            "strategy"]:
+            raise SystemExit(f"readlane: {batch}: launches {calls}")
+        for p, (name, args, kw, got, steps, ticks) in zip(("p1", "p2", "p3"),
+                                                          calls):
+            what = f"{batch}, {cfg}, lanes {lanes}, pass {p[1]}"
+            if p not in plain:
+                one = {k: v for k, v in kw.items() if k != "lanes"}
+                fn = plains[name]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = fn(*args, **one, **(
+                    {"with_ticks": True} if name == "one_pos" else {}))
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                want, lane_ticks = want if name == "one_pos" else (want,
+                                                                   None)
+                plain[p] = (args, want, int(fn.last_steps.sum()),
+                            None if lane_ticks is None
+                            else int(lane_ticks[1].sum()), plain_ms)
+            args0, want, want_steps, want_ticks, plain_ms = plain[p]
+            if not all(a is b or not isinstance(a, torch.Tensor)
+                       or torch.equal(a, b) for a, b in zip(args, args0)):
+                raise SystemExit(f"readlane: {what}: inputs differ from "
+                                 f"the one-lane-a-task run's")
+            err = max(float((getattr(got, f).double()
+                             - getattr(want, f).double()).abs().max())
+                      if getattr(got, f).numel() else 0.0 for f in fields)
+            if err or not all(torch.equal(getattr(got, f), getattr(want, f))
+                              for f in fields):
+                raise SystemExit(f"readlane: {what} != plain (max_abs_err "
+                                 f"{err})")
+            if int(steps.sum()) != want_steps or (
+                    fmi.kstep == 1 and want_ticks is not None
+                    and int(ticks.sum()) != want_ticks):
+                raise SystemExit(f"readlane: {what}: total steps or ticks "
+                                 f"differ from the plain machine's")
+            w = wrappers[name]
+            ms = [device_ms(lambda: w(*args, **kw), 20, dev)
+                  for _ in range(2)]
+            if name == "one_pos":
+                n_tasks, M = args[3].shape[0], args[9]
+                R = kw.get("n_rows") or (B if kw.get("out_rows") is None
+                                         else n_tasks)
+                nbytes = (4 * (c.numel() + B + 4 * n_tasks) + n_tasks
+                          + (8 + 3 * pb) * R * M + 4 * R)
+                per_fetch = fmi.kstep
+            else:
+                n_tasks, M = B, args[5]
+                nbytes = 4 * (c.numel() + B) + (8 + 3 * pb) * B * M + 4 * B
+                per_fetch = 2 if fmi.kstep > 1 else 1
+            total = int(steps.sum())
+            longest = int(steps.max())
+            r = dict(err=err, ms=sum(ms) / 2, plain_ms=plain_ms,
+                     steps=total, longest=longest,
+                     ticks=int(ticks.sum()), longest_ticks=int(ticks.max()),
+                     lanes=lanes or n_tasks, tasks=n_tasks,
+                     bound=bound(nbytes + SMEM_BYTES_PER_STEP * total,
+                                 SMEM_OPS_PER_STEP * total),
+                     floor=-(-longest // per_fetch) * trip * 1e-3)
+            res[lanes, p] = r
+            log(f"[readlane] {what} ({r['tasks']} tasks on {r['lanes']} "
+                f"lanes): equal to the plain machine (max_abs_err {err}), "
+                f"steps {total} (the longest lane {longest}), ticks "
+                f"{r['ticks']} (longest {r['longest_ticks']}); bound "
+                f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, latency floor "
+                f"{r['floor']:.5f} ms (ceil({longest} / {per_fetch}) x "
+                f"{trip:.4f} us); kernel device time {r['ms']:.5f} ms (mean "
+                f"of 2), plain {plain_ms:.2f} ms  [{card}]")
+    return res
+
+
+def phase_readlane(dev, card, tmp, se, pe, al, kst):
+    """Phase 14: the readlane engine. SE `mem --seed-engine readlane` on
+    phase 4's reads (its main path: counts zeroed just before, read just
+    after) with the SAM body byte-equal to phase 4's (the one-hot
+    engine's), both readlane kernels launched every device batch (passes
+    1-2 twice), no one-hot seeding kernel; `-v 4` (the stage table of the
+    first batch and the stage seconds); PE byte-equal to phase 7's; SE at
+    the forced int64 layout and with phase 13's K = 2 and K = 3 tables,
+    each byte-equal to phase 4's and every readlane launch its form's;
+    then phase 5's batch and the repeat batch through every form at each
+    pool (readlane_batch). Returns {form: numbers, "launches": {form:
+    main-path launches}}."""
+    import io
+    import torch
+    from bwa_mem_scale_tpu_torch import cli
+    from bwa_mem_scale_tpu_torch.ops import (chain_cuda, smem_cuda,
+                                             smem_rl_cuda)
+    from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
+    from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
+    t_phase = time.perf_counter()
+    rl = {"one_pos": smem_rl_cuda.readlane_one_pos_cuda,
+          "strategy": smem_rl_cuda.readlane_strategy_cuda}
+    counted = {**rl, "one_pos_machine": smem_cuda.one_pos_machine_cuda,
+               "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
+               "sa_walk": smem_cuda.sa_walk_cuda,
+               "chain_seeds": chain_cuda.chain_seeds_cuda,
+               "chain_filter": chain_cuda.chain_filter_cuda,
+               "banded_swa_batch": banded_swa_batch_cuda}
+
+    def body(path):
+        with open(path) as f:
+            return [ln for ln in f if not ln.startswith("@PG")]
+
+    def run(argv, form, want_sam):
+        """One `mem --seed-engine readlane` run, its main path's counts
+        (all, int64 form, k-step forms) zeroed just before and read just
+        after; every readlane launch the form's."""
+        for w in counted.values():          # readlane path starts here
+            w.launches = w.launches64 = 0
+            if hasattr(w, "launches_k"):
+                w.launches_k = 0
+        PROFILER.totals.clear()
+        t1 = time.perf_counter()
+        a = cli.mem(argv + ["--seed-engine", "readlane"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n = {k: (w.launches, w.launches64, getattr(w, "launches_k", 0))
+             for k, w in counted.items()}
+        # readlane path ends here
+        if body(argv[argv.index("-o") + 1]) != body(want_sam):
+            raise SystemExit(f"readlane: the {form} SAM differs from the "
+                             f"one-hot engine's")
+        for name, per in (("one_pos", 2), ("strategy", 1)):
+            all_, wide, kform = n[name]
+            if all_ < per * a.batches or (
+                    (wide, kform) != {"int64": (all_, 0), "k2": (0, all_),
+                                      "k3": (0, all_)}.get(form, (0, 0))):
+                raise SystemExit(f"readlane: {form}: {name} launched "
+                                 f"{n[name]} times (all, int64, k-step) "
+                                 f"over {a.batches} batches")
+        if n["one_pos_machine"][0] or n["seed_strategy_machine"][0]:
+            raise SystemExit(f"readlane: the one-hot kernels ran: {n}")
+        for name in ("sa_walk", "chain_seeds", "chain_filter",
+                     "banded_swa_batch"):
+            if n[name][0] < a.batches:
+                raise SystemExit(f"readlane: {name} launched {n[name][0]} "
+                                 f"times over {a.batches} batches")
+        return a, wall, {k: v[0] for k, v in n.items()}
+
+    g = se["argv"][0]
+    se_argv = [g, se["argv"][1], "-o", os.path.join(tmp, "rl.sam"),
+               *se["argv"][4:]]
+    a, wall, n = run(se_argv, "k1", se["argv"][3])
+    launches = {"readlane_one_pos": n["one_pos"],
+                "readlane_strategy": n["strategy"]}
+    per = {k: float(v) / a.batches for k, v in sorted(a.stats.items())
+           if k.startswith("rl_")}
+    log(f"[readlane] SE mem --seed-engine readlane: SAM body byte-equal to "
+        f"phase 4's (one-hot); {N_READS} reads in {wall:.2f} s = "
+        f"{N_READS / wall:.1f} reads/s (phase 4: {N_READS / se['wall']:.1f}); "
+        f"launches {n} over {a.batches} device batches; index load "
+        f"{PROFILER.totals['index_load']:.3f} s; per batch, the longest "
+        f"lane's "
+        + ", ".join(f"{k} {v:.1f}" for k, v in per.items()) + f"  [{card}]")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        a4 = cli.mem(se_argv + ["--seed-engine", "readlane", "-v", "4"])
+    table = err.getvalue().split("\nDevice stage profile")
+    if len(table) != 2:
+        raise SystemExit("readlane: -v 4 printed no stage table")
+    for ln in ("Device stage profile" + table[1]).splitlines()[:5]:
+        log(f"[readlane -v 4] {ln}")
+    sec = a4.prof.seconds
+    log("[readlane -v 4] synchronised stage seconds, readlane (phase 4, "
+        "one-hot): " + ", ".join(f"{k} {sec[k]:.3f} ({se['seconds'][k]:.3f})"
+                                 for k in ("seed", "sal", "chain", "bsw"))
+        + f"  [{card}]")
+    pe_argv = [g, *pe["argv"][1:3], "-o", os.path.join(tmp, "rl_pe.sam"),
+               *pe["argv"][5:]]
+    a, wall, n = run(pe_argv, "k1", pe["argv"][4])
+    log(f"[readlane] PE mem --seed-engine readlane: SAM body byte-equal to "
+        f"phase 7's; {2 * N_PAIRS} reads in {wall:.2f} s = "
+        f"{2 * N_PAIRS / wall:.1f} reads/s (phase 7: "
+        f"{2 * N_PAIRS / pe['wall']:.1f}); launches {n}  [{card}]")
+    with forced_int64():
+        a, wall, n = run(se_argv, "int64", se["argv"][3])
+    launches["readlane_one_pos_int64"] = n["one_pos"]
+    launches["readlane_strategy_int64"] = n["strategy"]
+    log(f"[readlane] SE at the forced int64 layout: SAM body byte-equal to "
+        f"phase 4's; {N_READS / wall:.1f} reads/s; launches {n}  [{card}]")
+    for K in (2, 3):
+        argv = [os.path.join(tmp, f"k{K}"), *se_argv[1:]]
+        a, wall, n = run(argv, f"k{K}", se["argv"][3])
+        launches[f"readlane_one_pos_k{K}"] = n["one_pos"]
+        if K == 2:
+            launches["readlane_strategy_k2"] = n["strategy"]
+        log(f"[readlane] SE with the K={K} table: SAM body byte-equal to "
+            f"phase 4's; {N_READS / wall:.1f} reads/s; launches {n}  "
+            f"[{card}]")
+
+    res = {}
+    for batch, idx, _, cc, ll, _ in kst["batches"]:
+        c = torch.as_tensor(cc, device=dev)
+        ln = torch.as_tensor(ll, device=dev)
+        fmis = {"k1": DeviceFMIndex.from_host(idx, dev),
+                "int64": DeviceFMIndex.from_host(idx, dev, force_int64=True),
+                **{f"k{K}": DeviceFMIndex.from_host(
+                    idx, dev, cp2=kst["cp2"][batch, K]) for K in (2, 3)}}
+        for cfg, fmi in fmis.items():
+            trip = kst["trips"][1 if cfg == "k3" else 0]
+            res[batch, cfg] = readlane_batch(dev, card, batch, cfg, fmi, c,
+                                             ln, al.opt, trip)
+        del fmis
+        torch.cuda.empty_cache()
+    p5 = "phase 5's batch"
+    out = {"launches": launches}
+    for form, name, cfg, _ in READLANE_FORMS:
+        passes = ("p1", "p2") if name == "one_pos" else ("p3",)
+        r = res[p5, cfg][None, passes[0]]
+        out[form] = dict(r, err=max(v["err"] for (b, c_), rs in res.items()
+                                    if c_ == cfg for (_, p), v in rs.items()
+                                    if p in passes))
+        pools = ", ".join(
+            f"lanes {lanes}: {res[p5, cfg][lanes, passes[0]]['ms']:.5f} ms"
+            for lanes in READLANE_LANES)
+        log(f"[readlane] {form} on phase 5's batch, pass "
+            f"{passes[0][1]}: {pools}; the repeat batch at one lane a task "
+            f"{res['repeat batch', cfg][None, passes[0]]['ms']:.5f} ms  "
+            f"[{card}]")
+    log(f"[readlane] phase 14 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3132,9 +3465,9 @@ def main():
     from bwa_mem_scale_tpu_torch.ops import bsw_cuda, chain_cuda, nvcc_build
     from bwa_mem_scale_tpu_torch.ops import probe_kernels, smem_cuda
     from bwa_mem_scale_tpu_torch.ops import emf_cuda, seedsw_cuda, sweep_cuda
-    from bwa_mem_scale_tpu_torch.ops import ert_cuda
+    from bwa_mem_scale_tpu_torch.ops import ert_cuda, smem_rl_cuda
     from bwa_mem_scale_tpu_torch.tools import round_cost
-    with ThreadPoolExecutor(9) as ex:           # one nvcc a source, at once
+    with ThreadPoolExecutor(10) as ex:          # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
                   ex.submit(probe_kernels.build, force=True, verbose=True),
                   ex.submit(smem_cuda.build, force=True),
@@ -3143,7 +3476,8 @@ def main():
                   ex.submit(sweep_cuda.build, force=True),
                   ex.submit(seedsw_cuda.build, force=True),
                   ex.submit(emf_cuda.build, force=True),
-                  ex.submit(ert_cuda.build, force=True)]
+                  ex.submit(ert_cuda.build, force=True),
+                  ex.submit(smem_rl_cuda.build, force=True)]
         probes_seconds = builds[1].result()[1]
         for b in builds:
             b.result()
@@ -3164,7 +3498,9 @@ def main():
         f"{os.path.relpath(emf_cuda.LIB.path, REPO)} in "
         f"{emf_cuda.LIB.build_seconds:.2f} s; csrc/ert.cu -> "
         f"{os.path.relpath(ert_cuda.LIB.path, REPO)} in "
-        f"{ert_cuda.LIB.build_seconds:.2f} s (in parallel)")
+        f"{ert_cuda.LIB.build_seconds:.2f} s; csrc/readlane.cu -> "
+        f"{os.path.relpath(smem_rl_cuda.LIB.path, REPO)} in "
+        f"{smem_rl_cuda.LIB.build_seconds:.2f} s (in parallel)")
     log(f"[build] one warp's dependent round (tools/round_cost.py: a "
         f"shared-memory load, a shuffle, a ballot), equal to its plain "
         f"model: {round_cost.round_us(dev):.5f} us, the chaining floors' "
@@ -3172,7 +3508,7 @@ def main():
     kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda",
                            "sweep_cuda", "seedsw_cuda", "emf_cuda",
-                           "ert_cuda")}
+                           "ert_cuda", "readlane_cuda")}
     # each FM-walk and chaining kernel in its int32 (P = int, mangled i)
     # and int64 (P = long long, x) forms; the FM walks' 1-step forms (KS =
     # 1, mangled Li1E) and their k-step forms (int32 only)
@@ -3201,6 +3537,16 @@ def main():
             ("sweep_cuda", "strategy_chase_kernelI{}",
              "strategy_chase_kernel<{}>"),
             ("ert_cuda", "ert_extend_kernelI{}", "ert_extend_kernel<{}>"),
+            ("readlane_cuda", "readlane_one_pos_kernelILi1E{}",
+             "readlane_one_pos_kernel<{}>"),
+            ("readlane_cuda", "readlane_one_pos_kernelILi2Ei",
+             "readlane_one_pos_kernel<K = 2, int32>"),
+            ("readlane_cuda", "readlane_one_pos_kernelILi3Ei",
+             "readlane_one_pos_kernel<K = 3, int32>"),
+            ("readlane_cuda", "readlane_strategy_kernelILi1E{}",
+             "readlane_strategy_kernel<{}>"),
+            ("readlane_cuda", "readlane_strategy_kernelILi2Ei",
+             "readlane_strategy_kernel<K = 2, int32>"),
             ("bsw_cuda", "bsw_tiled_kernel", "bsw_tiled_kernel"),
             ("seedsw_cuda", "local_sw_kernel", "local_sw_kernel"),
             ("emf_cuda", "emf_lookup_kernel", "emf_lookup_kernel")):
@@ -3242,6 +3588,7 @@ def main():
         emf = phase_emf(dev, card, tmp, se)
         ert = phase_ert(dev, card, tmp, se, pe, sweep, codes, lens)
         kst = phase_kstep(dev, card, tmp, se, pe, al)
+        rl = phase_readlane(dev, card, tmp, se, pe, al, kst)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"builds included")
 
@@ -3318,7 +3665,13 @@ def main():
         "max_abs_err": kst[form]["err"], "ms": kst[form]["ms"],
         "plain_ms": kst[form]["plain_ms"], "bound_ms": kst[form]["bound"][0],
         "bound_by": kst[form]["bound"][1], "library_ms": None}
-        for form, _, _, source, replaces in KSTEP_FORMS]}))
+        for form, _, _, source, replaces in KSTEP_FORMS] + [{
+        "name": form, "route": "cuda", "source": "csrc/readlane.cu",
+        "replaces": replaces, "launches": rl["launches"][form],
+        "max_abs_err": rl[form]["err"], "ms": rl[form]["ms"],
+        "plain_ms": rl[form]["plain_ms"], "bound_ms": rl[form]["bound"][0],
+        "bound_by": rl[form]["bound"][1], "library_ms": None}
+        for form, _, _, replaces in READLANE_FORMS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

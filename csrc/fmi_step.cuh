@@ -266,11 +266,15 @@ __device__ __forceinline__ int4 occ_group(const int4& cnt, const int4& msk,
 // The backward extension of (k, l, s) by bases c[0], ..., c[KS - 1] (each
 // in [0, 3]) from one k-gram row at k and one at k + s: (nk, nl, ns)[d]
 // is the interval after d + 1 bases, equal to d + 1 chained ext calls.
+// Only the first `live` steps' groups are fetched (1 <= live <= KS): a
+// caller that takes fewer bases (a backward step, a read's last bases)
+// says how many, and reads no result past them.
 template <int KS>
 __device__ __forceinline__ void ext_k(const Fmi<int>& f, const Kfmi& g,
                                       int k, int l, int s,
                                       const int (&c)[KS], int (&nk)[KS],
-                                      int (&nl)[KS], int (&ns)[KS]) {
+                                      int (&nl)[KS], int (&ns)[KS],
+                                      int live = KS) {
   auto row = [&](int pp) {
     const int r = pp >> 5;
     return g.cp + (size_t)(r < 0 ? 0 : (r >= g.nb ? g.nb - 1 : r)) * g.w4;
@@ -285,16 +289,19 @@ __device__ __forceinline__ void ext_k(const Fmi<int>& f, const Kfmi& g,
   int4 ac[KS], am[KS], bc[KS], bm[KS];
 #pragma unroll
   for (int d = 0; d < KS; ++d) {     // every load before any use
-    ac[d] = __ldg(ra + 2 * grp[d]);
-    am[d] = __ldg(ra + 2 * grp[d] + 1);
-    bc[d] = __ldg(rb + 2 * grp[d]);
-    bm[d] = __ldg(rb + 2 * grp[d] + 1);
+    const int4 z = make_int4(0, 0, 0, 0);
+    const bool on = d < live;
+    ac[d] = on ? __ldg(ra + 2 * grp[d]) : z;
+    am[d] = on ? __ldg(ra + 2 * grp[d] + 1) : z;
+    bc[d] = on ? __ldg(rb + 2 * grp[d]) : z;
+    bm[d] = on ? __ldg(rb + 2 * grp[d] + 1) : z;
   }
   int base[KS];
   base[0] = cval(f, c[0]);
-  if constexpr (KS > 1) base[1] = __ldg(g.c2 + 4 * c[0] + c[1]);
+  if constexpr (KS > 1)
+    base[1] = live > 1 ? __ldg(g.c2 + 4 * c[0] + c[1]) : 0;
   if constexpr (KS > 2)
-    base[KS - 1] = __ldg(g.c3 + 16 * c[0] + 4 * c[1] + c[2]);
+    base[KS - 1] = live > 2 ? __ldg(g.c3 + 16 * c[0] + 4 * c[1] + c[2]) : 0;
   const unsigned ta = top_bits(k & 31), tb = top_bits((k + s) & 31);
 #pragma unroll
   for (int d = 0; d < KS; ++d) {

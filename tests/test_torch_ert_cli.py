@@ -13,6 +13,8 @@ two contigs indexed with the full SA (``index -s 0``) by the JAX CLI, its
   drop the trie with the JAX CLI's warning, and the body stays the JAX
   CLI's (every engine gives the same SMEMs); a named sweep engine keeps
   the trie.
+- A named readlane engine drops the auto-loaded trie with the JAX CLI's
+  note, and its body is the JAX CLI's `mem --seed-engine readlane`.
 - An unreadable k-step table (`.cp2.npz`) is skipped with the JAX CLI's
   warning, and the trie's body stays (the test keeps its name from when
   the port refused the table).
@@ -236,3 +238,25 @@ def test_mem_cli_still_refuses_kstep(cli_side, tmp_path):
     assert [n for n in _notes(err) if n.startswith("* WARNING")] == want
     assert al.fmi.kstep == 1 and al.dert is not None
     assert _body(out) == _body(cli_side["sam"]["se"])
+
+
+def test_mem_readlane_drops_ert_with_jax_note(cli_side, tmp_path):
+    """`mem --seed-engine readlane` with the ERT next to the index: the
+    JAX CLI's notes (the trie loaded, then dropped for the named engine),
+    no trie on the aligner, the readlane engine seeding every batch, and
+    the JAX CLI's SAM body (equal to the trie's: every engine gives the
+    same SMEMs)."""
+    from bwa_mem_scale_tpu import cli as jcli
+    tmp, prefix = cli_side["tmp"], cli_side["prefix"]
+    args = [prefix, str(tmp / "r.fq"), "--batch-reads", "16",
+            "--seed-engine", "readlane"]
+    jout, tout = tmp_path / "jax.sam", tmp_path / "port.sam"
+    rc, jerr = _stderr_of(jcli.main, ["mem", *args, "-o", str(jout)])
+    assert rc == 0
+    al, terr = _stderr_of(cli.mem, args + ["-o", str(tout), "--device",
+                                           "cpu"])
+    note = "* note: readlane seeding selected; ignoring auto-loaded ERT index"
+    assert note in _notes(jerr) and _notes(terr) == _notes(jerr)
+    assert al.dert is None and al.cfg.seed_engine == "readlane"
+    assert al.stats["rl_ticks_p1"] > 0
+    assert _body(tout) == _body(jout) == _body(cli_side["sam"]["se"])

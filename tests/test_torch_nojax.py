@@ -3,8 +3,8 @@ paired-end `mem --device cpu` (pairs with `-I`, through the native PE
 stage and through the Python PE path, with equal SAM), single-end and
 paired-end `mem -W 10` on 250-300 bp reads (the long-read seed-SW
 filter, ops/seedsw.py), `smem-table` and
-SE and PE `mem --seed-engine sweep` with its table (SAM equal to the
-one-hot engine's), `ert-index` on a full-SA index and SE and PE `mem`
+SE and PE `mem --seed-engine sweep` with its table and SE and PE `mem
+--seed-engine readlane` (SAM equal to the one-hot engine's), `ert-index` on a full-SA index and SE and PE `mem`
 seeding with the ERT (SAM equal to the one-hot engine's), `kstep-table -k 3`
 and SE and PE `mem` with the trigram table (SAM equal to the run without
 it), the in-process SE API (`align_reads_to_sam`, the EMF
@@ -57,6 +57,11 @@ RUNNER = textwrap.dedent("""
                  ["mem", "g", "r1.fq", "r2.fq", "-o", "pe_sweep.sam",
                   "--device", "cpu", "--batch-reads", "16", "-I", "200,20",
                   "--seed-engine", "sweep"],
+                 ["mem", "g", "r.fq", "-o", "readlane.sam", "--device",
+                  "cpu", "--batch-reads", "16", "--seed-engine", "readlane"],
+                 ["mem", "g", "r1.fq", "r2.fq", "-o", "pe_readlane.sam",
+                  "--device", "cpu", "--batch-reads", "16", "-I", "200,20",
+                  "--seed-engine", "readlane"],
                  ["mem", "g", "rl.fq", "-o", "long.sam", "--device", "cpu",
                   "--batch-reads", "8", "-W", "10"],
                  ["mem", "g", "rl_1.fq", "rl_2.fq", "-o", "long_pe.sam",
@@ -110,6 +115,7 @@ RUNNER = textwrap.dedent("""
     import bwa_mem_scale_tpu_torch.ops.ert_cuda
     import bwa_mem_scale_tpu_torch.ops.seedsw_cuda
     import bwa_mem_scale_tpu_torch.ops.smem_cuda
+    import bwa_mem_scale_tpu_torch.ops.smem_rl_cuda
     import bwa_mem_scale_tpu_torch.ops.sweep_cuda
     import bwa_mem_scale_tpu_torch.tools.probe_cuda
     import bwa_mem_scale_tpu_torch.tools.probe_cuda_rates
@@ -193,11 +199,13 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     body = {f: [ln for ln in open(tmp_path / f) if not ln.startswith("@PG")]
             for f in ("out.sam", "sweep.sam", "pe.sam", "pe_py.sam",
                       "pe_sweep.sam", "shm.sam", "ert.sam", "pe_ert.sam",
-                      "kstep.sam", "pe_kstep.sam")}
+                      "kstep.sam", "pe_kstep.sam", "readlane.sam",
+                      "pe_readlane.sam")}
     assert (body["pe.sam"] == body["pe_py.sam"] == body["pe_sweep.sam"]
-            == body["pe_ert.sam"] == body["pe_kstep.sam"])
+            == body["pe_ert.sam"] == body["pe_kstep.sam"]
+            == body["pe_readlane.sam"])
     assert (body["out.sam"] == body["sweep.sam"] == body["shm.sam"]
-            == body["ert.sam"] == body["kstep.sam"])
+            == body["ert.sam"] == body["kstep.sam"] == body["readlane.sam"])
     api = open(tmp_path / "api.sam").read().splitlines()
     assert api == [ln.rstrip("\n") for ln in body["out.sam"]
                    if not ln.startswith("@")]

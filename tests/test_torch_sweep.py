@@ -320,8 +320,8 @@ def test_wrappers_on_cpu_run_plain(side):
 def test_seed_chain_extend_sweep_runs_default_config(side, small_index):
     """PipelineConfig() is the sweep, as in the JAX package: the dict of
     seed_chain_extend equal to the one-hot engine's on the same batch
-    (the engines give identical output), with and without the table;
-    "readlane" still raises."""
+    (the engines give identical output), with and without the table; the
+    readlane engine gives it too, on one lane a task and on 5 lanes."""
     import dataclasses
     from bwa_mem_scale_tpu_torch.config import MemOptions
     from bwa_mem_scale_tpu_torch.ops.chain import DeviceBns
@@ -345,10 +345,15 @@ def test_seed_chain_extend_sweep_runs_default_config(side, small_index):
         assert st["sweep_ticks_p1"] > 0
         for k in ("packed", "meta", "smem_cnt"):
             assert torch.equal(got[k], onehot[k]), k
-    with pytest.raises(NotImplementedError):
-        seed_chain_extend(fmi, dbns, codes, lens, L, opt=opt,
-                          cfg=dataclasses.replace(cfg,
-                                                  seed_engine="readlane"))
+    for lanes in (None, 5):
+        st = {}
+        got = seed_chain_extend(fmi, dbns, codes, lens, L, opt=opt,
+                                cfg=dataclasses.replace(
+                                    cfg, seed_engine="readlane",
+                                    seed_lanes=lanes), stats=st)
+        assert st["rl_ticks_p1"] > 0 and st["rl_ticks_p3"] > 0
+        for k in ("packed", "meta", "smem_cnt"):
+            assert torch.equal(got[k], onehot[k]), (k, lanes)
 
 
 # ---- the CLIs against the JAX CLI ------------------------------------------
@@ -503,12 +508,29 @@ def test_mem_cli_with_table_default_engine_equal_to_jax(cli_side, tmp_path):
     assert _body(tout) == _body(jout)
 
 
-def test_mem_cli_still_refuses_readlane(cli_side):
+def test_mem_cli_still_refuses_readlane(cli_side, tmp_path):
+    """`mem --seed-engine readlane` runs (the port refused it before the
+    engine was ported): SE and PE (two files) with the FMA table next to
+    the index, the SAM body equal to the JAX CLI's `mem --seed-engine
+    readlane`, and the JAX CLI's note that the engine ignores the table."""
+    from bwa_mem_scale_tpu import cli as jcli
     from bwa_mem_scale_tpu_torch import cli
     tmp, prefix = cli_side
-    with pytest.raises(SystemExit, match="readlane .* not ported yet"):
-        cli.mem([prefix, str(tmp / "r.fq"), "--device", "cpu",
-                 "--seed-engine", "readlane"])
+    note = "* note: readlane seeding ignores the FMA table"
+    for mode, fqs in FASTQS.items():
+        args = [prefix, *(str(tmp / f) for f in fqs), "--batch-reads", "16",
+                "--seed-engine", "readlane"]
+        jout, tout = tmp_path / f"jax_{mode}.sam", tmp_path / f"{mode}.sam"
+        rc, jerr = _stderr_of(jcli.main, ["mem", *args, "-o", str(jout)])
+        assert rc == 0
+        al, terr = _stderr_of(cli.mem, args + ["-o", str(tout), "--device",
+                                               "cpu"])
+        assert note in jerr and note in terr
+        assert al.cfg.seed_engine == "readlane" and al.dfma is None
+        assert al.stats["rl_ticks_p1"] > 0
+        body = _body(jout)
+        assert body.count("\n") >= 40
+        assert _body(tout) == body, mode
 
 
 # ---- on the card -----------------------------------------------------------
