@@ -40,11 +40,15 @@ attached to a store, and every engine and tier extends K bases a row
 fetch with it (int32-position indexes only, as in JAX). ``load-shm``
 stages the index and its tables into the in-memory store (``store.py``,
 the JAX package's layout, under a -g budget), ``remove-shm`` drops it,
-and ``mem`` attaches to a staged store before it reads any file. What the
-port does not run yet is refused with a "not ported yet" error: several
-devices or hosts. An index of 2^31 positions or
-more (hg38) runs on the int64-position layout (``ops/occ.py``), without
-the k-step table.
+and ``mem`` attaches to a staged store before it reads any file.
+``--devices N`` runs every device stage read-sharded over N devices
+(``parallel/mesh.py``: the first N cards with ``--device cuda``, N CPU
+shards with ``--device cpu``); ``--num-hosts`` / ``--host-id`` align every
+Nth batch into a SAM part of this host's, and ``--coordinator host:port``
+joins the hosts in a ``torch.distributed`` gloo group, as the JAX CLI
+joins them with ``jax.distributed``. An index of 2^31 positions or more
+(hg38) runs on the int64-position layout (``ops/occ.py``), without the
+k-step table.
 """
 
 from __future__ import annotations
@@ -139,9 +143,9 @@ def _add_mem_opts(p: argparse.ArgumentParser):
     p.add_argument("--host-id", type=int, default=0,
                    help="this host's rank in [0, num-hosts)")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="host:port for jax.distributed.initialize "
-                        "(optional; omit when each host runs its own "
-                        "local devices without cross-host collectives)")
+                   help="host:port of the torch.distributed group of "
+                        "the hosts (optional; no collective runs on the "
+                        "data path)")
 
 
 def _opts_from_args(args) -> MemOptions:
@@ -424,10 +428,6 @@ def find_emf(prefix: str):
     return None
 
 
-def _not_ported(what: str):
-    raise SystemExit(f"mem: {what} is not ported yet")
-
-
 def _fixed_pes(spec: str):
     """The four orientations' insert-size stats for ``-I mean[,std[,max
     [,min]]]``: FR fixed, the others failed (the JAX CLI's rule)."""
@@ -459,15 +459,12 @@ def mem(argv):
     args = p.parse_args(argv)
     if len(args.fastq) > 2:
         raise SystemExit("mem: at most two FASTQ files")
-    if args.devices > 1:
-        _not_ported("--devices > 1")
-    if args.num_hosts > 1:
-        _not_ported("--num-hosts > 1")
     opt = _opts_from_args(args)
 
     from .index.artifacts import load_index
     from .io.sam import sam_header
     from .utils.profiling import PROFILER
+    import torch
     from .device import resolve_device
     from .pipeline.align import GpuAligner, PipelineConfig, StageProfile
     from .pipeline.driver import run_alignment
@@ -525,14 +522,56 @@ def mem(argv):
             print(f"* note: {engine} seeding ignores the FMA table",
                   file=sys.stderr)
             fma = None
+        mesh = None
+        if args.devices > 1:
+            from .parallel.mesh import Mesh
+            # the first N cards, or N CPU shards (the JAX CLI's virtual
+            # CPU devices)
+            n_avail = (torch.cuda.device_count() if device.type == "cuda"
+                       else args.devices)
+            if args.devices > n_avail:
+                raise SystemExit(f"--devices {args.devices} but only "
+                                 f"{n_avail} available")
+            if args.batch_reads % args.devices:
+                raise SystemExit("--batch-reads must be divisible by "
+                                 "--devices")
+            mesh = Mesh([f"cuda:{i}" for i in range(args.devices)]
+                        if device.type == "cuda" else ["cpu"] * args.devices)
+            print(f"* device mesh: {args.devices}x read-sharded",
+                  file=sys.stderr)
         aligner = GpuAligner(idx, device, opt,
                              PipelineConfig(seed_engine=engine), emf=emf,
-                             fma=fma, ert=ert, cp2=cp2)
+                             fma=fma, ert=ert, cp2=cp2, mesh=mesh)
     if args.verbosity >= 4:
         # the JAX CLI's one-shot device stage table on the first batch,
         # and synchronised per-stage device seconds over every batch
         aligner.stage_profile_pending = True
         aligner.prof = StageProfile(device)
+
+    host_shard = None
+    group = False
+    if args.num_hosts > 1:
+        if not (0 <= args.host_id < args.num_hosts):
+            raise SystemExit("--host-id must be in [0, num-hosts)")
+        if args.checkpoint:
+            raise SystemExit("--checkpoint is per-host-stream; not "
+                             "supported with --num-hosts")
+        if args.coordinator:
+            # the hosts' process group, in place of the JAX CLI's
+            # jax.distributed.initialize. gloo, not NCCL: nothing on the
+            # card is exchanged, and no collective runs on the data path
+            # (per-host FASTQ sharding needs none); a barrier at the end
+            import torch.distributed as dist
+            dist.init_process_group(
+                "gloo", init_method=f"tcp://{args.coordinator}",
+                world_size=args.num_hosts, rank=args.host_id)
+            group = True
+            print(f"* torch.distributed: host {args.host_id}/"
+                  f"{args.num_hosts} via {args.coordinator}",
+                  file=sys.stderr)
+        host_shard = (args.num_hosts, args.host_id)
+        print(f"* multi-host shard: batches {args.host_id} mod "
+              f"{args.num_hosts}", file=sys.stderr)
 
     skip_reads = 0
     if args.checkpoint and args.output != "-" \
@@ -567,10 +606,14 @@ def mem(argv):
             chunk_bp=args.chunk_bp, rg_id=rg_id,
             paired=args.smart_pairing or len(args.fastq) == 2,
             skip_reads=skip_reads, checkpoint_path=args.checkpoint,
-            verbosity=args.verbosity)
+            host_shard=host_shard, verbosity=args.verbosity)
     finally:
         if out is not sys.stdout:
             out.close()
+    if group:
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
     PROFILER.report()
     aligner.emf_report()
     aligner.tick_report()

@@ -16,6 +16,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -110,6 +111,9 @@ class Library:
         self.host_fns = host_fns or {}
         self.build_seconds = None   # nvcc's wall time, when this process built
         self._lib = None
+        # the shards of a device mesh launch from threads of their own:
+        # one of them builds and loads, the others wait
+        self._lock = threading.Lock()
 
     def build(self, force: bool = False, verbose: bool = False) -> str:
         """Compile unless a library built from the same source exists
@@ -120,7 +124,11 @@ class Library:
         return path
 
     def load(self):
-        if self._lib is None:
+        if self._lib is not None:
+            return self._lib
+        with self._lock:
+            if self._lib is not None:
+                return self._lib
             lib = ctypes.CDLL(self.build())
             for fn, types in self.argtypes.items():
                 f = getattr(lib, fn)

@@ -26,7 +26,11 @@ passes the residency gate (``EMF_DEVICE_BYTES``); the SE stream and the
 PE path probe it on the host. JAX's jitted programs become cached
 configurations: the retry tiers are ``seed_chain_extend`` bound to
 larger capacities. ``fetch_extend`` is the device sync point (``.cpu()``
-of ``packed``, ``meta`` and the probe's outputs).
+of ``packed``, ``meta`` and the probe's outputs). With ``mesh=``
+(``parallel/mesh.py``) every device stage of a batch (the EMF probe,
+seeding to extension, the retry tiers) runs read-sharded over the mesh's
+devices, each holding a replica of the index and its tables; the host
+stages see global read ids, as in the JAX package's ``TpuAligner(mesh=)``.
 """
 
 from __future__ import annotations
@@ -67,6 +71,9 @@ from ..ops.smem import SmemBuf, collect_smems_device, compact_indices
 from ..ops.smem_oh import collect_smems_oh
 from ..ops.smem_rl import collect_smems_rl
 from ..ops.window import take_windows, ref_windows
+from ..parallel.mesh import (Mesh, concat as mesh_concat,
+                             globalize as mesh_globalize, pad_to_multiple,
+                             sharded_emf_fn, split_rows)
 from .perfect import perfect_regs, perfect_sam_records
 
 
@@ -433,13 +440,16 @@ class GpuAligner:
 
     def __init__(self, idx: FMIndex, device, opt: MemOptions = None,
                  cfg: PipelineConfig = None, emf=None, fma=None, ert=None,
-                 cp2=None):
+                 cp2=None, mesh: Optional[Mesh] = None):
         if not native_finalize.available():
             raise RuntimeError(
                 "the native finalizer (native/libfinalize.so) is required: "
                 "build it with `make -C native`")
         self.idx = idx
-        self.device = torch.device(device)
+        # with a mesh (parallel/mesh.py) every device stage of a batch runs
+        # read-sharded over it; the aligner's own device is its first
+        self.mesh = mesh
+        self.device = mesh[0] if mesh is not None else torch.device(device)
         self.opt = opt or MemOptions()
         self.cfg = cfg or PipelineConfig(seed_engine="onehot")
         if not idx.pos_fits_int32:
@@ -465,10 +475,23 @@ class GpuAligner:
                                  "(build with sa_compx=0)")
             self.dert = DeviceErt.from_host(ert, self.fmi.sa_samples,
                                             idx.count, self.device)
+        # one replica of the index and its tables on each other distinct
+        # device of the mesh (a repeated device shares one)
+        self._replicas = {}
+        for dev in (mesh.distinct()[1:] if mesh is not None else ()):
+            fmi_d = DeviceFMIndex.from_host(idx, dev, cp2=cp2)
+            self._replicas[dev] = (
+                fmi_d, DeviceBns.from_host(idx.bns, dev),
+                fma.to_device(fmi_d.pos_dtype, dev) if fma is not None
+                else None,
+                DeviceErt.from_host(ert, fmi_d.sa_samples, idx.count, dev)
+                if ert is not None else None)
         self.emf = emf               # host EMF table
         # its device copy, made at the first device probe (mem's stream
-        # probes on the host and never reads it); None past the gate
+        # probes on the host and never reads it); None past the gate; the
+        # copies on the mesh's other devices in _demfs
         self.demf: Optional[DeviceEmf] = None
+        self._demfs = {}
         self.emf_resident = False
         if emf is not None:
             # the JAX package's residency gate, its variable and default
@@ -538,56 +561,132 @@ class GpuAligner:
                               for k in StageProfile.STAGES), file=file)
 
     # -- device stage ----------------------------------------------------
-    def _to_device(self, codes, lens):
+    def _to_device(self, codes, lens, device=None):
+        dev = self.device if device is None else device
         return (torch.as_tensor(np.ascontiguousarray(codes, np.int32),
-                                device=self.device),
+                                device=dev),
                 torch.as_tensor(np.ascontiguousarray(lens, np.int32),
-                                device=self.device))
+                                device=dev))
 
-    def _device_emf(self) -> DeviceEmf:
-        """The EMF table on the device, uploaded at the first call."""
-        if self.demf is None:
-            self.demf = DeviceEmf.from_host(self.emf, self.device)
-        return self.demf
+    def _replica(self, dev):
+        """(fmi, dbns, dfma, dert) on `dev`: this aligner's own on its
+        device, else the mesh replica's."""
+        if dev == self.device:
+            return self.fmi, self.dbns, self.dfma, self.dert
+        return self._replicas[dev]
+
+    def _device_emf(self, dev=None) -> DeviceEmf:
+        """The EMF table on `dev` (default the aligner's device), uploaded
+        at the first call."""
+        if dev is None or dev == self.device:
+            if self.demf is None:
+                self.demf = DeviceEmf.from_host(self.emf, self.device)
+            return self.demf
+        if dev not in self._demfs:
+            self._demfs[dev] = DeviceEmf.from_host(self.emf, dev)
+        return self._demfs[dev]
 
     def _probes_on_device(self, L: int) -> bool:
         return self.emf_resident and L >= self.emf.seed_len
 
+    def _step_on(self, dev, fn, c_dev, l_dev, L, probe, prof=None,
+                 stats=None):
+        """(probe outputs or None, fn's output) for reads on `dev`: the EMF
+        probe (with probe; hits' lengths zeroed on the device), then fn,
+        seed_chain_extend bound to a tier's capacities."""
+        fmi, dbns, dfma, dert = self._replica(dev)
+        pm = None
+        if probe:
+            pm = emf_lookup_cuda(self._device_emf(dev), fmi.ref, c_dev,
+                                 l_dev)
+            hit = (pm["code"] == FW_MATCHED) | (pm["code"] == RC_MATCHED)
+            l_dev = torch.where(hit, 0, l_dev)
+        out = fn(fmi, dbns, c_dev, l_dev, L=L, fma=dfma, ert=dert, prof=prof,
+                 stats=stats)
+        return pm, out
+
+    def _device_step(self, fn, codes, lens, L, probe=False, prof=None,
+                     stats=None):
+        """One batch's device stages on the aligner's device, or
+        read-sharded over the mesh: each shard on its device against its
+        replica, the batch padded with empty reads to a multiple of the
+        mesh (the retry tiers' batches too), read ids global, the shards'
+        outputs joined on the aligner's device, per-read rows past the
+        batch dropped. Returns (probe outputs or None, output)."""
+        if self.mesh is None:
+            c_dev, l_dev = self._to_device(codes, lens)
+            return self._step_on(self.device, fn, c_dev, l_dev, L, probe,
+                                 prof, stats)
+        n = self.mesh.size
+        B = codes.shape[0]
+        codes_p, lens_p, _ = pad_to_multiple(codes, lens, n)
+        if probe:            # each device's table, before the shards run
+            for dev in self.mesh.distinct():
+                self._device_emf(dev)
+        n_local = codes_p.shape[0] // n
+
+        def shard(s, dev, c, ln):
+            st = {} if stats is not None else None
+            c_dev, l_dev = self._to_device(c, ln, dev)
+            pm, out = self._step_on(dev, fn, c_dev, l_dev, L, probe,
+                                    stats=st)
+            return pm, mesh_globalize(out, s, n_local), st
+
+        res = self.mesh.run(shard, split_rows(codes_p, n),
+                            split_rows(lens_p, n))
+        for _, _, st in res:        # summed on the aligner's device
+            for k, v in (st or {}).items():
+                if isinstance(v, torch.Tensor):
+                    v = v.to(self.device)
+                stats[k] = stats.get(k, 0) + v
+        out = mesh_concat([r[1] for r in res], self.device)
+        out["meta"] = out["meta"][:B]
+        pm = None
+        if probe:
+            pm = {k: v[:B] for k, v in
+                  mesh_concat([r[0] for r in res], self.device).items()}
+        return pm, out
+
     def emf_filter(self, codes: np.ndarray, lens: np.ndarray):
         """The perfect-match prefilter (mem_kernel1_core's EMF pass,
-        src/bwamem.cpp:1085-1130) on the device: code, slot, loc and
-        n_loc as numpy arrays, or None without a device table or for
-        reads narrower than the seed."""
+        src/bwamem.cpp:1085-1130) on the device, read-sharded over a
+        mesh: code, slot, loc and n_loc as numpy arrays, or None without
+        a device table or for reads narrower than the seed."""
         if not self._probes_on_device(int(codes.shape[1])):
             return None
-        c_dev, l_dev = self._to_device(codes, lens)
-        out = emf_lookup_cuda(self._device_emf(), self.fmi.ref, c_dev,
-                              l_dev)
+        if self.mesh is None:
+            c_dev, l_dev = self._to_device(codes, lens)
+            out = emf_lookup_cuda(self._device_emf(), self.fmi.ref, c_dev,
+                                  l_dev)
+        else:
+            B = codes.shape[0]
+            codes_p, lens_p, _ = pad_to_multiple(
+                np.ascontiguousarray(codes, np.int32),
+                np.ascontiguousarray(lens, np.int32), self.mesh.size)
+            emfs = {d: self._device_emf(d) for d in self.mesh.distinct()}
+            refs = {d: self._replica(d)[0].ref for d in self.mesh.distinct()}
+            out = {k: v[:B] for k, v in sharded_emf_fn(self.mesh)(
+                emfs, refs, codes_p, lens_p).items()}
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def dispatch_batch(self, codes: np.ndarray, lens: np.ndarray,
                        skip_emf: bool = False):
         """Run the device stages of one batch: the EMF probe (unless
         skip_emf, or without a device table), the hit reads' lengths
-        zeroed on the device, then seeding to extension. Returns the
-        handle fetch_extend and finalize_stage_a take."""
+        zeroed on the device, then seeding to extension, read-sharded
+        over a mesh. Returns the handle fetch_extend and finalize_stage_a
+        take."""
         codes = np.ascontiguousarray(codes, dtype=np.int32)
         lens = np.ascontiguousarray(lens, dtype=np.int32)
         if self.stage_profile_pending:
             self.stage_profile_pending = False
             from .stageprof import device_stage_profile
             device_stage_profile(self, codes, lens)
-        c_dev, l_dev = self._to_device(codes, lens)
-        pm = None
-        if not skip_emf and self._probes_on_device(int(codes.shape[1])):
-            pm = emf_lookup_cuda(self._device_emf(), self.fmi.ref, c_dev,
-                                 l_dev)
-            hit = (pm["code"] == FW_MATCHED) | (pm["code"] == RC_MATCHED)
-            l_dev = torch.where(hit, 0, l_dev)
-        out = self._extend(self.fmi, self.dbns, c_dev, l_dev,
-                           L=int(codes.shape[1]), fma=self.dfma,
-                           ert=self.dert,
-                           prof=self.prof, stats=self.stats)
+        probe = not skip_emf and self._probes_on_device(int(codes.shape[1]))
+        # StageProfile synchronises one device: a mesh's shards run without
+        pm, out = self._device_step(
+            self._extend, codes, lens, int(codes.shape[1]), probe=probe,
+            prof=self.prof if self.mesh is None else None, stats=self.stats)
         self.batches += 1
         return (codes, lens, pm, out)
 
@@ -607,9 +706,7 @@ class GpuAligner:
         return (codes, lens, pm, out, {"slot": slot})
 
     def _run_device(self, fn, codes, lens, L):
-        c_dev, l_dev = self._to_device(codes, lens)
-        out = fn(self.fmi, self.dbns, c_dev, l_dev, L=L, fma=self.dfma,
-                 ert=self.dert)
+        _, out = self._device_step(fn, codes, lens, L)
         return out, {"packed": out["packed"].cpu().numpy(),
                      "meta": out["meta"].cpu().numpy()}
 
@@ -885,8 +982,8 @@ class GpuAligner:
             if opt.flag & MEM_F_PRIMARY5:
                 reorder_primary5(opt.T, regs)
             finalized.append(regs)
-        recs = BatchFinalizer(opt, self.idx).records_for_batch(queries,
-                                                               finalized)
+        recs = BatchFinalizer(opt, self.idx, self.device).records_for_batch(
+            queries, finalized)
         return {i: recs[j] for j, i in enumerate(ov)}
 
     def finalize_stage_b(self, stage):
@@ -1002,7 +1099,10 @@ class GpuAligner:
         native stage declines (its record capacity, CIGAR stride or
         MD/XA/SAM arena too small) takes the Python PE path, as in the
         JAX package."""
-        out = self._pe_post_native(fetched, id_offset, sam_ctx)
+        # BWA_TPU_NO_NATIVE_PE sends every batch down the Python PE path,
+        # the JAX package's switch
+        out = (None if os.environ.get("BWA_TPU_NO_NATIVE_PE")
+               else self._pe_post_native(fetched, id_offset, sam_ctx))
         if out is not None:
             return out
         records, mates = self._pe_post_python(
@@ -1087,8 +1187,10 @@ class GpuAligner:
 
     def _pe_post_python(self, fetched, id_offset: int = 0):
         """The Python PE path (worker_sam's PE flow,
-        src/bwamem.cpp:1668-1830): dedup, pestat, rescue in native
-        kswa, pairing and records, CIGARs in one native call."""
+        src/bwamem.cpp:1668-1830): dedup, pestat, rescue in native kswa
+        (on this aligner's device under BWA_TPU_NO_NATIVE_KSWA), pairing
+        and records, CIGARs in one native call (the device DP under
+        BWA_TPU_NO_NATIVE_KSWG)."""
         from .pe import (mem_pestat, build_rescue_jobs, run_rescue_jobs,
                          apply_rescues, sam_pe_records)
         from .pe_batch import AlnBatcher
@@ -1117,9 +1219,9 @@ class GpuAligner:
             jobs = build_rescue_jobs(opt, bns, ref, pes, pair_regs,
                                      pair_seqs)
         with PROFILER.phase("pe_rescue_run"):
-            results = run_rescue_jobs(opt, jobs)
+            results = run_rescue_jobs(opt, jobs, self.device)
             apply_rescues(opt, bns.l_pac, jobs, results, pair_regs)
-        batcher = AlnBatcher(opt, self.idx, queries)
+        batcher = AlnBatcher(opt, self.idx, queries, self.device)
         records: List[list] = [None] * B
         mates: List[object] = [None] * B
         with PROFILER.phase("pe_records"):

@@ -7,7 +7,8 @@ re-batches the misses for the device and re-emits records in input
 order. Paired-end (mates interleaved, from two files or one): one
 device batch in flight; the in-flight batch is fetched, the next one
 dispatched, and the fetched one's host PE stage runs under it.
-Multi-host sharding is not ported yet.
+Multi-host sharding (``host_shard``): every host reads the whole stream
+and aligns only its batches, keeping global read ordinals.
 """
 
 from __future__ import annotations
@@ -82,12 +83,35 @@ def run_alignment(aligner, fastq_paths: List[str], out,
                   rg_id: Optional[str] = None, paired: bool = False,
                   skip_reads: int = 0,
                   checkpoint_path: Optional[str] = None,
+                  host_shard: Optional[tuple] = None,
                   verbosity: int = 2) -> int:
     """Stream-align FASTQ to SAM; returns the read count. paired: mates
     interleaved from two files, or in turn in one (-p). With
     checkpoint_path, a sidecar JSON records how many input reads have
     been emitted (written atomically after each write), and a rerun
-    resumes by skipping that many reads."""
+    resumes by skipping that many reads.
+
+    host_shard=(num_hosts, host_id) is the multi-host FASTQ-sharding mode
+    of the JAX package (SURVEY section 5.8): every host parses the full
+    stream but aligns only batches with index % num_hosts == host_id,
+    writing its own SAM part. Global read ordinals are kept (the hash_64
+    MAPQ tiebreaks see a single-host run's ids, so each part byte-matches
+    the single-host run's records of its batches); the reference's
+    analogue is several processes against one shm index store
+    (src/bwa_shm.cpp), one output each. It needs a fixed batch_reads
+    (chunk_bp batching would make batch boundaries host-dependent)."""
+    if host_shard is not None:
+        n_hosts, host_id = host_shard
+        if chunk_bp is not None:
+            raise ValueError("host_shard requires fixed batch_reads, "
+                             "not chunk_bp batching")
+        if checkpoint_path is not None:
+            raise ValueError("checkpoint/resume is per-host-stream; "
+                             "not supported with host_shard")
+        if not (0 <= host_id < n_hosts):
+            raise ValueError(f"host_id {host_id} out of range")
+    else:
+        n_hosts, host_id = 1, 0
     t_start = time.time()
     q: "queue.Queue" = queue.Queue(maxsize=4)
     t = threading.Thread(target=_reader,
@@ -101,6 +125,7 @@ def run_alignment(aligner, fastq_paths: List[str], out,
     bns = aligner.idx.bns
     stream = None
     reads_by_id = {}
+    holes = []   # skipped [lo, hi) id ranges (other hosts' batches)
 
     def write_checkpoint():
         if checkpoint_path is None:
@@ -114,18 +139,26 @@ def run_alignment(aligner, fastq_paths: List[str], out,
     def emit_ready():
         nonlocal n_emitted
         wrote = False
-        for rid, records in stream.ready():
-            with PROFILER.phase("sam_write"):
-                if isinstance(records, bytes):   # native SAM text
-                    out.write(records.decode("ascii"))
-                else:
-                    read = reads_by_id.pop(rid)
-                    for which in range(len(records)):
-                        out.write(aln_to_sam_line(
-                            opt, bns, read, len(records), records, which,
-                            rg_id=rg_id))
-            n_emitted += 1
-            wrote = True
+        while True:
+            drained = True
+            for rid, records in stream.ready():
+                with PROFILER.phase("sam_write"):
+                    if isinstance(records, bytes):   # native SAM text
+                        out.write(records.decode("ascii"))
+                    else:
+                        read = reads_by_id.pop(rid)
+                        for which in range(len(records)):
+                            out.write(aln_to_sam_line(
+                                opt, bns, read, len(records), records,
+                                which, rg_id=rg_id))
+                n_emitted += 1
+                wrote = True
+            # jump the emit cursor over another host's batch
+            if holes and stream.next_emit >= holes[0][0]:
+                stream.next_emit = max(stream.next_emit, holes.pop(0)[1])
+                drained = False
+            if drained:
+                break
         if wrote:
             out.flush()
             write_checkpoint()
@@ -156,6 +189,7 @@ def run_alignment(aligner, fastq_paths: List[str], out,
                     rg_id=rg_id)
 
     pe_pending = None   # (batch, dispatched pairs, id_offset)
+    batch_idx = -1
     while True:
         item = q.get()
         if item is None:
@@ -163,6 +197,12 @@ def run_alignment(aligner, fastq_paths: List[str], out,
         if isinstance(item, BaseException):
             raise item
         batch = item
+        batch_idx += 1
+        if batch_idx % n_hosts != host_id:   # another host's batch
+            holes.append((id_offset, id_offset + len(batch)))
+            n_reads += len(batch)
+            id_offset += len(batch)
+            continue
         codes, lens = batch.padded_codes()
         if paired:
             # one batch in flight: fetch it (the sync point), dispatch

@@ -1,26 +1,36 @@
-"""Batched finalization: regions -> SAM records, CIGARs on the host.
+"""Batched finalization: regions -> SAM records with their CIGARs.
 
-Counterpart of ``bwa_mem_scale_tpu/pipeline/finalize.py`` on the native
-CIGAR library only (``native/kswg.cpp`` through the shared
-``pipeline/native_kswg``): the bwa_gen_cigar2 + mem_reg2aln retry loop
-and NM/MD for every job in one C call. The JAX package's device DP
-fallback is not ported; a missing native library is an error.
-Selection, XA strings and record assembly follow the JAX module line
-for line (mem_reg2sam, src/bwamem.cpp:2092-2130; mem_gen_alt,
+Counterpart of ``bwa_mem_scale_tpu/pipeline/finalize.py``: every selected
+output region and XA sub-hit of a read batch becomes one "CIGAR job". The
+jobs resolve in the native CIGAR library (``native/kswg.cpp`` through the
+shared ``pipeline/native_kswg``: the bwa_gen_cigar2 + mem_reg2aln retry
+loop and NM/MD in one C call), or, with ``BWA_TPU_NO_NATIVE_KSWG`` set, as
+the JAX package does then, in the batched banded global DP on the
+aligner's device (``ops/kswg_cuda.py``: the kernel of csrc/kswg.cu on a
+GPU, the plain ``ops/kswg.py`` on the CPU) under the same w2-doubling
+retry loop, NM/MD on the host. Unlike the JAX package, a native library
+that fails to load is an error, not a silent switch to the device.
+Selection, XA strings and record assembly follow the JAX module line for
+line (mem_reg2sam, src/bwamem.cpp:2092-2130; mem_gen_alt,
 src/bwamem_extra.cpp:130-183).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..config import MemOptions, MEM_F_ALL, MEM_F_NO_MULTI
+from ..ops import kswg_cuda
+from ..ops.kswg import rle_cigar
 from ..pipeline import native_kswg
 from ..ref.extend import AlnReg
 from ..ref.finalize import Aln, approx_mapq, _infer_bw
+from ..ref.ksw import compute_nm_md
 from ..utils.profiling import PROFILER
 
 
@@ -38,23 +48,116 @@ class _Job:
     # results
     cigar: Optional[list] = None
     score: int = 0
-    nm: int = -1
+    nm: int = -1           # filled by the native path
     md: str = ""
 
 
 class BatchFinalizer:
-    def __init__(self, opt: MemOptions, idx):
-        if not native_kswg.available():
-            raise RuntimeError("the native CIGAR library "
-                               "(native/libkswg.so) is required")
+    def __init__(self, opt: MemOptions, idx, device="cpu"):
         self.opt = opt
         self.idx = idx
+        self.device = torch.device(device)   # the device DP's
+        self.native = native_kswg.available()
+        if not self.native and not os.environ.get("BWA_TPU_NO_NATIVE_KSWG"):
+            raise RuntimeError("the native CIGAR library "
+                               "(native/libkswg.so) is required")
 
+    # -- core: batched gen_cigar with the reg2aln retry loop --------------
     def _resolve_jobs(self, jobs: List[_Job]) -> None:
-        """Scores, CIGARs and NM/MD for every job, in place."""
-        if jobs:
+        """Scores and CIGARs for every job, in place (NM/MD too on the
+        native path)."""
+        if not jobs:
+            return
+        if self.native:
             with PROFILER.phase("kswg_native"):
                 native_kswg.finalize_batch(jobs, self.opt)
+            return
+        opt = self.opt
+        for j in jobs:
+            j.w2 = min(j.w2, opt.w << 2)
+        self._gen_cigar(jobs)
+        # the (rare) band-widening retries (mem_reg2aln's w2 loop)
+        last_sc = {id(j): -(1 << 30) for j in jobs}
+        active = list(jobs)
+        rounds = 0
+        while True:
+            nxt = []
+            for j in active:
+                if j.score == last_sc[id(j)] or j.w2 == opt.w << 2:
+                    continue
+                last_sc[id(j)] = j.score
+                j.w2 <<= 1
+                if j.score < j.truesc - opt.a:
+                    nxt.append(j)
+            rounds += 1
+            # the i < 3 bound: after 3 widenings stop regardless
+            if not nxt or rounds >= 4:
+                break
+            for j in nxt:
+                j.w2 = min(j.w2, opt.w << 2)
+            self._gen_cigar(nxt)
+            active = nxt
+
+    def _gen_cigar(self, jobs: List[_Job]) -> None:
+        """One gen_cigar round over a job list (bwa_gen_cigar2's band
+        selection, then the batched global DP on the device)."""
+        opt = self.opt
+        mat00 = int(opt.mat[0, 0])
+        dp_jobs, dp_ws = [], []
+        for j in jobs:
+            l_query = len(j.query)
+            rlen = len(j.rseq)
+            if l_query == rlen and j.w2 == 0:
+                # gap-free: direct score (src/bwa.cpp:404-414)
+                j.cigar = [(l_query, 0)]
+                j.score = int(opt.mat[j.rseq, j.query].astype(np.int64)
+                              .sum())
+                continue
+            max_ins = int((((l_query + 1) >> 1) * mat00 - opt.o_ins)
+                          / opt.e_ins + 1.0)
+            max_del = int((((l_query + 1) >> 1) * mat00 - opt.o_del)
+                          / opt.e_del + 1.0)
+            max_gap = max(max(max_ins, max_del), 1)
+            w = (max_gap + abs(rlen - l_query) + 1) >> 1
+            w = min(w, j.w2)
+            w = max(w, abs(rlen - l_query) + 3)
+            dp_jobs.append(j)
+            dp_ws.append(w)
+        if not dp_jobs:
+            return
+
+        def rup(x, m):
+            return ((x + m - 1) // m) * m
+
+        # the JAX package's shape buckets
+        QL = rup(max(len(j.query) for j in dp_jobs), 32)
+        TL = rup(max(len(j.rseq) for j in dp_jobs), 64)
+        P = max(1 << int(np.ceil(np.log2(len(dp_jobs)))), 16)
+        qs = np.zeros((P, QL), np.int32)
+        ts = np.zeros((P, TL), np.int32)
+        qlens = np.zeros(P, np.int32)
+        tlens = np.zeros(P, np.int32)
+        ws = np.ones(P, np.int32)
+        ws[: len(dp_ws)] = np.asarray(dp_ws, np.int32)
+        for i, j in enumerate(dp_jobs):
+            qs[i, : len(j.query)] = j.query
+            ts[i, : len(j.rseq)] = j.rseq
+            qlens[i] = len(j.query)
+            tlens[i] = len(j.rseq)
+        dev = self.device
+        with PROFILER.phase("kswg_device"):
+            res = kswg_cuda.ksw_global_batch_cuda(
+                *(torch.as_tensor(x, device=dev)
+                  for x in (qs, qlens, ts, tlens, ws)),
+                opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.mat)
+            meta = torch.stack([res.score, res.n_ops, res.tail_del,
+                                res.tail_ins], dim=1).cpu().numpy()
+            ops = res.ops.cpu().numpy()
+        PROFILER.counts["kswg_jobs"] += len(dp_jobs)
+        for i, j in enumerate(dp_jobs):
+            score, n_ops, tdel, tins = (int(x) for x in meta[i])
+            j.score = score
+            j.cigar = rle_cigar(ops[i], n_ops, tdel, tins)
 
     # -- reg -> Aln (reg2aln with deferred cigars) ------------------------
     def make_job(self, read_idx: int, query: np.ndarray, ar: AlnReg
@@ -90,8 +193,11 @@ class BatchFinalizer:
             a.flag |= 0x100
         cigar = job.cigar
         is_fw = job.rb < bns.l_pac
-        a.NM = job.nm          # computed by the native library
-        a.MD = job.md
+        if job.nm >= 0:        # the native path computed NM/MD
+            a.NM = job.nm
+            a.MD = job.md
+        else:
+            a.NM, a.MD = compute_nm_md(cigar, job.query, job.rseq, is_fw)
         pos, a.is_rev = bns.depos1(job.rb if is_fw else job.re - 1)
         if cigar:
             if cigar[0][1] == 2:

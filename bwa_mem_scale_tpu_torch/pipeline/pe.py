@@ -3,10 +3,13 @@ pair scoring, and PE SAM record composition.
 
 The port's copy of the JAX package's ``pipeline/pe.py``. It is the
 Python PE path that ``GpuAligner.pe_post`` takes when the native PE
-stage (``native_finalize.finalize_pe_rows``) declines a batch. Mate
-rescue runs in the native ``libkswa`` (``pipeline/native_kswa.py``),
-which is required: the JAX package's device and pure-Python rescue SW
-are not ported.
+stage (``native_finalize.finalize_pe_rows``) declines a batch, or for
+every batch under ``BWA_TPU_NO_NATIVE_PE``. Mate rescue runs in the
+native ``libkswa`` (``pipeline/native_kswa.py``), which is required
+unless ``BWA_TPU_NO_NATIVE_KSWA`` sends it to the device
+(``ops/kswa_cuda.py``), as in the JAX package; the JAX package's
+pure-Python rescue SW, reached only when both are unavailable, is not
+ported.
 
 Ports (behavior contracts):
 - mem_pestat                src/bwamem_pair.cpp:89-156
@@ -23,9 +26,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..config import (MemOptions, MEM_F_ALL, MEM_F_NOPAIRING,
                       MEM_F_NO_RESCUE)
@@ -212,16 +217,46 @@ def build_rescue_jobs(opt: MemOptions, bns, ref_string,
     return jobs
 
 
-def run_rescue_jobs(opt: MemOptions, jobs: List[_RescueJob]):
-    """Run all rescue alignments in the native kswa library (raises
-    when it cannot load); returns list of KswResult-like tuples
-    (score, te, qe, score2, tb, qb)."""
+def run_rescue_jobs(opt: MemOptions, jobs: List[_RescueJob], device=None):
+    """Run all rescue alignments; returns list of KswResult-like tuples
+    (score, te, qe, score2, tb, qb). In the native kswa library (raises
+    when it cannot load), or, with ``BWA_TPU_NO_NATIVE_KSWA`` set, as the
+    JAX package does then, in the batched local SW on `device`
+    (``ops/kswa_cuda.py``: the kernel of csrc/kswa.cu on a GPU, the plain
+    ``ops/kswa.py`` on the CPU, the default)."""
     minsc = opt.min_seed_len * opt.a
     if not jobs:
         return []
     from . import native_kswa
-    return native_kswa.align_batch(
-        [j.seq for j in jobs], [j.target for j in jobs], opt, minsc)
+    if not os.environ.get("BWA_TPU_NO_NATIVE_KSWA"):
+        return native_kswa.align_batch(
+            [j.seq for j in jobs], [j.target for j in jobs], opt, minsc)
+    from ..ops import kswa_cuda
+    dev = torch.device(device if device is not None else "cpu")
+    J = len(jobs)
+
+    def rup(x, m):
+        return ((x + m - 1) // m) * m
+
+    # the JAX package's shapes
+    L = rup(max(len(j.seq) for j in jobs), 32)
+    T = rup(max(len(j.target) for j in jobs), 128)
+    q = np.full((J, L), 4, dtype=np.int32)
+    t = np.full((J, T), 4, dtype=np.int32)
+    qlens = np.zeros(J, dtype=np.int32)
+    tlens = np.zeros(J, dtype=np.int32)
+    for k, j in enumerate(jobs):
+        q[k, : len(j.seq)] = j.seq
+        t[k, : len(j.target)] = j.target
+        qlens[k], tlens[k] = len(j.seq), len(j.target)
+    res = kswa_cuda.ksw_align_batch_cuda(
+        *(torch.as_tensor(x, device=dev) for x in (q, qlens, t, tlens)),
+        opt.mat, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, minsc,
+        int(opt.mat.max()))
+    # one stacked fetch
+    m = torch.stack([res.score, res.te, res.qe, res.score2, res.tb, res.qb],
+                    dim=1).cpu().numpy()
+    return [tuple(int(x) for x in row) for row in m]
 
 
 def apply_rescues(opt: MemOptions, l_pac: int, jobs, results,

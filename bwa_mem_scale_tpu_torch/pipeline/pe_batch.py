@@ -5,7 +5,8 @@ was a per-record Python loop. AlnBatcher replaces those calls with
 lazy Aln objects: the cigar-independent fields (mapq, score, sub,
 flags) are filled immediately so all pairing logic works unchanged,
 while the CIGAR/NM/MD/pos fields are produced afterwards by ONE
-native call over every requested record in the batch — the PE
+call over every requested record in the batch (native, or the device
+DP under BWA_TPU_NO_NATIVE_KSWG) — the PE
 equivalent of the SE path's BatchFinalizer (and of the reference
 doing worker_sam's per-record ksw_global2 calls from a thread pool).
 The port's copy of the JAX package's module.
@@ -20,17 +21,20 @@ import numpy as np
 from ..config import MemOptions
 from ..ref.extend import AlnReg
 from ..ref.finalize import Aln, approx_mapq
+from ..ref.ksw import compute_nm_md
 from .finalize import BatchFinalizer
 
 
 class AlnBatcher:
-    """Collects reg->Aln conversions; resolves them in one native call."""
+    """Collects reg->Aln conversions; resolves them in one call of the
+    finalizer (native, or the device DP on `device`)."""
 
-    def __init__(self, opt: MemOptions, idx, queries: List[np.ndarray]):
+    def __init__(self, opt: MemOptions, idx, queries: List[np.ndarray],
+                 device="cpu"):
         self.opt = opt
         self.idx = idx
         self.queries = queries
-        self.fin = BatchFinalizer(opt, idx)
+        self.fin = BatchFinalizer(opt, idx, device)
         self._jobs = []       # (job, aln, l_query)
         self._xa = []         # (job, parts list, slot, aln-ref)
 
@@ -163,8 +167,11 @@ def _fill_from_job(opt, bns, job, a: Aln, l_query: int) -> None:
     """CIGAR-dependent half of reg2aln (src/bwamem.cpp:2570-2624)."""
     ar = job.reg
     is_fw = job.rb < bns.l_pac
-    a.NM = job.nm          # computed by the native library
-    a.MD = job.md
+    if job.nm >= 0:        # the native path computed NM/MD
+        a.NM = job.nm
+        a.MD = job.md
+    else:
+        a.NM, a.MD = compute_nm_md(job.cigar, job.query, job.rseq, is_fw)
     pos, a.is_rev = bns.depos1(job.rb if is_fw else job.re - 1)
     cigar = job.cigar
     if cigar:

@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
               csrc/chain.cu (chaining and the chain filter),
               csrc/sweep.cu (the sweep engine), csrc/seedsw.cu (the
               seed-SW scorer), csrc/emf.cu (the EMF probe), csrc/ert.cu
-              (the ERT descent) and
+              (the ERT descent), csrc/readlane.cu (the readlane
+              engine), csrc/kswg.cu (the CIGAR DP), csrc/kswa.cu (the
+              rescue SW) and
               csrc/round_probe.cu (a warp's dependent round) from
               source, one nvcc each, all at once; prints ptxas's
               registers and spills for each FM walk, sweep, ERT, chaining,
@@ -205,8 +207,36 @@ Phases, in order; any failure exits non-zero:
               (the longest lane's rounds x probe B's L2 trip for the
               bigram table, its HBM trip for the trigram one, both
               measured in the run) and device ms beside the K = 1 form's.
+ 14. readlane: the readlane engine (csrc/readlane.cu): SE `mem
+              --seed-engine readlane` (SAM byte-equal to phase 4's), its
+              `-v 4` table, PE, the forced int64 layout and the k-step
+              tables, then each form against the plain machines.
+ 15. mesh:    several devices and hosts, and the device DP loops: (a)
+              2,048 of phase 4's reads through align_and_finalize (the
+              device EMF probe sharded), 512 of phase 7's pairs through
+              align_pairs_and_finalize and 1,536 reads through SeStream,
+              on a mesh of the first two cards (or cuda:0 twice on one
+              card) and on one device: records equal, each main-path
+              kernel and the EMF probe launched on every shard (counts by
+              shard printed), wall times printed (host clock, no scaling
+              claimed); (b) SE `mem --num-hosts 2 --host-id 0/1
+              --coordinator localhost:<port>` as two processes: the parts'
+              union byte-equal to phase 4's SAM body; `mem --devices 2`
+              failing with the JAX CLI's message on one card (byte-equal
+              to phase 4's on two); (d) PE `mem` under
+              BWA_TPU_NO_NATIVE_PE, _KSWG and _KSWA (the Python PE path,
+              the CIGAR DP and the rescue SW on the card): phase 7's
+              gate, the SAM lines that differ from phase 7's, reads/s;
+              (c) the CIGAR DP kernel (csrc/kswg.cu) on the largest call
+              that run made and on the CIGAR jobs of 16 long reads
+              (800-2,500 bp), the rescue SW kernel (csrc/kswa.cu) on its
+              largest rescue call, each against its plain version
+              (max_abs_err 0) with its jobs, DP cells, bound, latency
+              floor (the longest job's rows x a row step measured in the
+              run), kernel and plain times; (e) tools/multichip.py on the
+              mesh.
 
-Prints the kernel JSON line (all thirty-one kernels, each with its bound: the
+Prints the kernel JSON line (all forty kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -3450,6 +3480,438 @@ def phase_readlane(dev, card, tmp, se, pe, al, kst):
     return out
 
 
+# phase 15, several devices and hosts, and the device DP loops of the CIGAR
+# DP (csrc/kswg.cu) and mate rescue (csrc/kswa.cu): phase 4's reads and
+# phase 7's pairs on the mesh (SE batches, PE batches, stream feeds), the
+# long reads of the CIGAR jobs
+MESH_SE, MESH_PE, MESH_STREAM = 2048, 512, 1536
+RESCUE_PAIRS = 512
+LONG_JOBS = (16, 800, 2500)
+# integer operations a band cell of the CIGAR DP (csrc/kswg.cu): the
+# profile 4, M / pre / direction 6, the F key and the scan's share 4, F 3,
+# H / E / the bits 8
+KSWG_OPS_PER_CELL = 25
+# a DP cell of the rescue SW (csrc/kswa.cu): the score lookup 2, M 1, H'
+# 3, the F key 2, the scans' share 2, F 2, H 3, E 4, the row maximum 1
+KSWA_OPS_PER_CELL = 20
+# the switches that send PE mem down the Python PE path, the device CIGAR
+# DP and the device rescue SW (the JAX package's)
+SWITCHES = ("BWA_TPU_NO_NATIVE_PE", "BWA_TPU_NO_NATIVE_KSWG",
+            "BWA_TPU_NO_NATIVE_KSWA")
+
+
+def write_rescue_pairs(tmp, bns):
+    """RESCUE_PAIRS FR pairs as write_pairs makes them (r1.fq, r2.fq in
+    `tmp`), every fourth read 2 with every tenth base changed: no 19-mer
+    seed, so only mate rescue places it."""
+    from bwa_mem_scale_tpu_torch.index.bntseq import decode_bases
+    rng = np.random.RandomState(19)
+    comp = np.array([3, 2, 1, 0, 4], np.uint8)
+    frag = np.maximum(rng.normal(INSERT, INSERT_SD, RESCUE_PAIRS)
+                      .astype(np.int64), READ_LEN + 10)
+    start = (rng.rand(RESCUE_PAIRS) * (bns.l_pac - frag)).astype(np.int64)
+    pos = np.stack([start, start + frag - READ_LEN], 1).reshape(-1)
+    codes = bns.seq[pos[:, None] + np.arange(READ_LEN)].astype(np.int32)
+    codes[1::2] = comp[codes[1::2, ::-1]]
+    codes[1::8, 5::10] = (codes[1::8, 5::10] + 1) % 4
+    for mate in (0, 1):
+        with open(os.path.join(tmp, f"r{mate + 1}.fq"), "w") as f:
+            for i in range(mate, 2 * RESCUE_PAIRS, 2):
+                f.write(f"@p{i // 2}\n{decode_bases(codes[i])}\n+\n"
+                        f"{'I' * READ_LEN}\n")
+
+
+def mesh_sites():
+    """The main path's kernel call sites a mesh shard goes through:
+    {(module, attribute): kernel name}."""
+    from bwa_mem_scale_tpu_torch.ops import sal, smem_oh
+    from bwa_mem_scale_tpu_torch.pipeline import align
+    return {(align, "banded_swa_batch_cuda"): "banded_swa_batch",
+            (smem_oh, "one_pos_machine_cuda"): "one_pos_machine",
+            (smem_oh, "seed_strategy_machine_cuda"): "seed_strategy_machine",
+            (sal, "sa_walk_cuda"): "sa_walk",
+            (align, "chain_seeds_cuda"): "chain_seeds",
+            (align, "chain_filter_cuda"): "chain_filter",
+            (align, "emf_lookup_cuda"): "emf_lookup"}
+
+
+@contextlib.contextmanager
+def shard_counts():
+    """Counts each main-path kernel's calls by the mesh shard that makes
+    them ({(kernel, shard): calls}; shard None outside a mesh worker)."""
+    import collections
+    import threading
+    from bwa_mem_scale_tpu_torch.parallel.mesh import current_shard
+    counts, lock = collections.Counter(), threading.Lock()
+    real = {site: getattr(*site) for site in mesh_sites()}
+
+    def recorder(name, fn):
+        def record(*args, **kw):
+            with lock:
+                counts[name, current_shard()] += 1
+            return fn(*args, **kw)
+        return record
+
+    for (mod, attr), name in mesh_sites().items():
+        setattr(mod, attr, recorder(name, real[mod, attr]))
+    try:
+        yield counts
+    finally:
+        for (mod, attr), fn in real.items():
+            setattr(mod, attr, fn)
+
+
+def rec_key(recs):
+    return [[(r.rid, r.pos, r.flag, r.mapq, tuple(r.cigar or ()), r.NM, r.MD)
+             for r in rr] for rr in recs]
+
+
+@contextlib.contextmanager
+def recording(mod, attr, calls):
+    """mod.attr records each call's arguments in `calls`."""
+    real = getattr(mod, attr)
+
+    def record(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    setattr(mod, attr, record)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, real)
+
+
+def row_step_us(dev, kind):
+    """One row step of a pair alone, from two lengths (1,024 and 2,048
+    rows) of one synthetic job: the difference of the device times over
+    the difference of the rows. kswg: a band of 31 columns (one pass a
+    row) and its traceback; kswa: a 128-column query (its score below
+    minsc: the forward scan alone)."""
+    import torch
+    from bwa_mem_scale_tpu_torch.config import MemOptions
+    from bwa_mem_scale_tpu_torch.ops import kswa_cuda, kswg_cuda
+    opt = MemOptions()
+    rng = np.random.RandomState(5)
+    t = {}
+    for n in (1024, 2048):
+        s = rng.randint(0, 4, n).astype(np.int32)
+        if kind == "kswg":
+            args = [torch.as_tensor(x, device=dev) for x in (
+                s[None], np.array([n], np.int32), s[None],
+                np.array([n], np.int32), np.array([15], np.int32))]
+            t[n] = device_ms(lambda: kswg_cuda.launch(
+                *args, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.mat,
+                15), 20, dev)
+        else:
+            q = s[:128][None].copy()
+            args = [torch.as_tensor(x, device=dev) for x in (
+                q, np.array([128], np.int32), s[None],
+                np.array([n], np.int32))]
+            t[n] = device_ms(lambda: kswa_cuda.launch(
+                *args, opt.mat, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+                opt.min_seed_len * opt.a, int(opt.mat.max())), 20, dev)
+    return (t[2048] - t[1024]) * 1e3 / 1024
+
+
+def kswg_launch(dev, card, args, what):
+    """One captured CIGAR-DP call against its plain version, with its
+    jobs, DP cells, bound, latency floor and times."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import kswg_cuda
+    from bwa_mem_scale_tpu_torch.ops.kswg import ksw_global_batch
+    got = kswg_cuda.ksw_global_batch_cuda(*args)
+    t0 = time.perf_counter()
+    want = ksw_global_batch(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+              for x, y in zip(got, want))
+    if err:
+        raise SystemExit(f"kswg: {what}: the kernel != plain (max_abs_err "
+                         f"{err})")
+    qs, ql, ts, tl, wp = (x.cpu().numpy() for x in args[:5])
+    cells = kswg_cuda.band_cells(ql, tl, wp)
+    live = int(((ql > 0) & (tl > 0)).sum())
+    nbytes = sum(x.numel() * x.element_size() for x in args[:5]) + sum(
+        x.numel() * x.element_size() for x in got)
+    b = bound(nbytes, int(cells.sum()) * KSWG_OPS_PER_CELL)
+    w_max = int(wp.max())
+    ms = device_ms(lambda: kswg_cuda.launch(*args[:5], *args[5:], w_max),
+                   10, dev)
+    step = row_step_us(dev, "kswg")
+    floor_ms = int(tl.max()) * step / 1e3
+    log(f"[kswg] {what}: {live} jobs (P={qs.shape[0]}, QL={qs.shape[1]}, "
+        f"TL={ts.shape[1]}), {int(cells.sum())} band cells, bound "
+        f"{b[0]:.5f} ms ({b[1]}); latency floor {floor_ms:.5f} ms (the "
+        f"longest pair's {int(tl.max())} rows x a row step of {step:.4f} "
+        f"us, one 32-column pass and its traceback step, measured); kernel "
+        f"{ms:.5f} ms, plain {plain_ms:.1f} ms; max_abs_err {err}  [{card}]")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b, floor=floor_ms)
+
+
+def kswa_launch(dev, card, args, what):
+    """One captured rescue-SW call against its plain version, with its
+    jobs, DP cells, bound, latency floor and times."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import kswa_cuda
+    from bwa_mem_scale_tpu_torch.ops.kswa import ksw_align_batch
+    got = kswa_cuda.ksw_align_batch_cuda(*args)
+    t0 = time.perf_counter()
+    want = ksw_align_batch(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+              for x, y in zip(got, want))
+    if err:
+        raise SystemExit(f"kswa: {what}: the kernel != plain (max_abs_err "
+                         f"{err})")
+    q, ql, t, tl = (x.cpu().numpy() for x in args[:4])
+    r = {f: getattr(want, f).cpu().numpy() for f in want._fields}
+    # the forward scan's cells, and the reverse scan's rows (to the row
+    # that reaches the score) over its qe + 1 columns
+    ok = (r["score"] > 0) & (r["score"] >= args[9])
+    rev_rows = np.where(ok & (r["tb"] >= 0), r["te"] - r["tb"] + 1,
+                        np.where(ok, r["te"] + 1, 0))
+    cells = (ql.astype(np.int64) * tl + rev_rows * (r["qe"] + 1)).sum()
+    nbytes = sum(x.numel() * x.element_size() for x in args[:4]) + 7 * 4 * \
+        q.shape[0]
+    b = bound(nbytes, int(cells) * KSWA_OPS_PER_CELL)
+    ms = device_ms(lambda: kswa_cuda.launch(*args), 10, dev)
+    rows = tl + rev_rows
+    step = row_step_us(dev, "kswa")
+    floor_ms = int(rows.max()) * step / 1e3
+    log(f"[kswa] {what}: {q.shape[0]} jobs (L={q.shape[1]}, T={t.shape[1]}),"
+        f" {int(cells)} DP cells, bound {b[0]:.5f} ms ({b[1]}); latency "
+        f"floor {floor_ms:.5f} ms (the longest job's {int(rows.max())} rows,"
+        f" both scans, x a row step of {step:.4f} us, measured); kernel "
+        f"{ms:.5f} ms, plain {plain_ms:.1f} ms; max_abs_err {err}  [{card}]")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b, floor=floor_ms)
+
+
+def phase_mesh(dev, card, tmp, se, pe):
+    """Phase 15: (a) phase 4's reads and phase 7's pairs on a mesh of two
+    devices (two cards, or the one card twice), records equal to one
+    device's, each main-path kernel and the sharded EMF probe launched on
+    every shard; (b) `mem` on two hosts joined by --coordinator, and
+    `mem --devices 2`; (c) the CIGAR DP and rescue SW kernels against
+    their plain versions on jobs the path made; (d) PE `mem` under the
+    JAX package's switches; (e) tools/multichip.py on the mesh."""
+    import socket
+    import subprocess
+    import torch
+    from bwa_mem_scale_tpu_torch import cli
+    from bwa_mem_scale_tpu_torch.config import MemOptions
+    from bwa_mem_scale_tpu_torch.index.artifacts import load_index
+    from bwa_mem_scale_tpu_torch.index.perfect import load_perfect_table
+    from bwa_mem_scale_tpu_torch.ops import kswa_cuda, kswg_cuda
+    from bwa_mem_scale_tpu_torch.parallel.mesh import Mesh
+    from bwa_mem_scale_tpu_torch.pipeline.align import (GpuAligner,
+                                                        PipelineConfig)
+    from bwa_mem_scale_tpu_torch.pipeline.stream import SeStream
+    from bwa_mem_scale_tpu_torch.tools.multichip import dryrun_multichip
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    mesh = Mesh(["cuda:0", "cuda:1"] if n_cards >= 2 else ["cuda:0"] * 2)
+    g = os.path.join(tmp, "g")
+    idx = load_index(g)
+    emf = load_perfect_table(g + ".emf101.npz")
+    cfg = PipelineConfig(seed_engine="onehot")
+
+    # (a) the mesh against one device
+    se_c, se_l = se["codes"][:MESH_SE], se["lens"][:MESH_SE]
+    pe_c, pe_l = pe["codes"][:2 * MESH_PE], pe["lens"][:2 * MESH_PE]
+    st_c, st_l = se["codes"][-MESH_STREAM:], se["lens"][-MESH_STREAM:]
+    outs, walls = {}, {}
+    for key, m in (("one", None), ("mesh", mesh)):
+        al = GpuAligner(idx, dev, MemOptions(), cfg, emf=emf, mesh=m)
+        with shard_counts() as counts:        # the mesh's path starts here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs = []
+            for b in range(0, MESH_SE, BATCH):
+                recs += al.align_and_finalize(se_c[b: b + BATCH],
+                                              se_l[b: b + BATCH], b)
+            pe_recs, mates = [], []
+            for b in range(0, 2 * MESH_PE, BATCH):
+                r, mt = al.align_pairs_and_finalize(pe_c[b: b + BATCH],
+                                                    pe_l[b: b + BATCH], b)
+                pe_recs += r
+                mates += [None if x is None else (x.rid, x.pos, x.is_rev)
+                          for x in mt]
+            st = SeStream(al, BATCH, READ_LEN)
+            for b in range(0, MESH_STREAM, BATCH):
+                st.feed(st_c[b: b + BATCH], st_l[b: b + BATCH], b)
+            st.flush()
+            got = dict(st.ready())
+            torch.cuda.synchronize()
+            walls[key] = time.perf_counter() - t0
+            shard_calls = dict(counts)       # the mesh's path ends here
+        outs[key] = (rec_key(recs), rec_key(pe_recs), mates,
+                     rec_key([got[i] for i in range(MESH_STREAM)]))
+    for i, what in enumerate(("SE align_and_finalize", "PE "
+                              "align_pairs_and_finalize", "PE mates",
+                              "SeStream")):
+        if outs["mesh"][i] != outs["one"][i]:
+            raise SystemExit(f"mesh: {what} records differ from one "
+                             f"device's")
+    names = sorted(set(mesh_sites().values()))
+    missing = [(n, s) for n in names for s in range(mesh.size)
+               if not shard_calls.get((n, s))]
+    if missing:
+        raise SystemExit(f"mesh: kernels not launched on every shard: "
+                         f"{missing}")
+    for s, d in enumerate(mesh):
+        log(f"[mesh] shard {s} on {d}: launches "
+            + ", ".join(f"{n} {shard_calls[n, s]}" for n in names))
+    log(f"[mesh] {MESH_SE} SE reads (align_and_finalize, the device EMF "
+        f"probe sharded), {MESH_PE} pairs and {MESH_STREAM} streamed reads "
+        f"on {mesh}: records equal to one device's; wall {walls['mesh']:.2f}"
+        f" s on the mesh, {walls['one']:.2f} s on one device (host clock; "
+        f"no scaling claimed)  [{card}]")
+
+    # (b) two hosts, and --devices 2
+    with open(se["argv"][3]) as f:
+        body4 = [ln for ln in f if not ln.startswith("@")]
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "bwa_mem_scale_tpu_torch.cli", "mem",
+         *se["argv"][:2], "-o", os.path.join(tmp, f"host{i}.sam"),
+         *se["argv"][4:], "--num-hosts", "2", "--host-id", str(i),
+         "--coordinator", f"localhost:{port}"], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for i, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0 or f"* torch.distributed: host {i}/2" not in err:
+            raise SystemExit(f"hosts: host {i} failed ({p.returncode}):\n"
+                             f"{err[-2000:]}")
+    parts = []
+    for i in range(2):
+        with open(os.path.join(tmp, f"host{i}.sam")) as f:
+            parts.append([ln for ln in f if not ln.startswith("@")])
+    if sorted(parts[0] + parts[1]) != sorted(body4):
+        raise SystemExit("hosts: the two parts' union != phase 4's SAM body")
+    log(f"[hosts] mem --num-hosts 2 --coordinator localhost:{port}, two "
+        f"processes on the card: parts of {len(parts[0])} and "
+        f"{len(parts[1])} lines, their union byte-equal to phase 4's SAM "
+        f"body; {time.perf_counter() - t0:.1f} s")
+    dev_argv = [*se["argv"][:2], "-o", os.path.join(tmp, "devices.sam"),
+                *se["argv"][4:], "--devices", "2"]
+    if n_cards < 2:
+        try:
+            cli.mem(dev_argv)
+        except SystemExit as e:
+            if str(e) != f"--devices 2 but only {n_cards} available":
+                raise
+            log(f"[hosts] mem --devices 2 on one card fails with the JAX "
+                f"CLI's message: {e}")
+        else:
+            raise SystemExit("hosts: mem --devices 2 ran on one card")
+    else:
+        cli.mem(dev_argv)
+        with open(os.path.join(tmp, "devices.sam")) as f:
+            if [ln for ln in f if not ln.startswith("@")] != body4:
+                raise SystemExit("hosts: mem --devices 2 SAM body != phase "
+                                 "4's")
+        log("[hosts] mem --devices 2: SAM body byte-equal to phase 4's")
+
+    # (d) PE mem under the switches, the CIGAR and rescue calls recorded:
+    # phase 7's pairs, then RESCUE_PAIRS whose read 2 has no seed in every
+    # fourth pair (few of phase 7's mates need rescue)
+    cigar_calls, rescue_calls = [], []
+    sw_sam = os.path.join(tmp, "pe_sw.sam")
+    rs_dir = os.path.join(tmp, "rescue")
+    os.mkdir(rs_dir)
+    write_rescue_pairs(rs_dir, idx.bns)
+    runs = ([*pe["argv"][:4], sw_sam, *pe["argv"][5:]],
+            [g, os.path.join(rs_dir, "r1.fq"), os.path.join(rs_dir, "r2.fq"),
+             "-o", os.path.join(rs_dir, "pe_sw.sam"), *pe["argv"][5:]])
+    os.environ.update({k: "1" for k in SWITCHES})
+    kswg_cuda.ksw_global_batch_cuda.launches = 0    # the path starts here
+    kswa_cuda.ksw_align_batch_cuda.launches = 0
+    try:
+        with recording(kswg_cuda, "ksw_global_batch_cuda", cigar_calls), \
+                recording(kswa_cuda, "ksw_align_batch_cuda", rescue_calls):
+            walls = []
+            for argv in runs:
+                t0 = time.perf_counter()
+                cli.mem(argv)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if argv is runs[0]:
+                    n7 = (len(cigar_calls), len(rescue_calls))
+    finally:
+        for k in SWITCHES:
+            del os.environ[k]
+    launches = {"kswg": kswg_cuda.ksw_global_batch_cuda.launches,
+                "kswa": kswa_cuda.ksw_align_batch_cuda.launches}
+    # the path ends here
+    check_pe_sam(sw_sam, pe["emf_hit"], pe["pos"], pe["is_rev"])
+    if not launches["kswg"] or not launches["kswa"]:
+        raise SystemExit(f"switches: a device DP kernel was never launched "
+                         f"({launches})")
+    with open(pe["argv"][4]) as f1, open(sw_sam) as f2:
+        a7 = [ln for ln in f1 if not ln.startswith("@")]
+        b7 = [ln for ln in f2 if not ln.startswith("@")]
+    n_diff = sum(x != y for x, y in zip(a7, b7)) + abs(len(a7) - len(b7))
+    log(f"[switches] PE mem with {', '.join(SWITCHES)} on phase 7's pairs: "
+        f"the phase 7 gate passed; {n_diff} of {len(a7)} SAM lines differ "
+        f"from phase 7's; {2 * N_PAIRS / walls[0]:.1f} reads/s; "
+        f"{n7[0]} CIGAR DP and {n7[1]} rescue calls; on {RESCUE_PAIRS} "
+        f"pairs with seedless mates {2 * RESCUE_PAIRS / walls[1]:.1f} "
+        f"reads/s, {len(cigar_calls) - n7[0]} CIGAR DP and "
+        f"{len(rescue_calls) - n7[1]} rescue calls; launches {launches}  "
+        f"[{card}]")
+
+    # (c) the two kernels against their plain versions on the path's jobs
+    rl_fq = os.path.join(tmp, "cigar_long.fq")
+    fwd = np.asarray(idx.ref_string[: idx.bns.l_pac], np.uint8)
+    _, _, reads = write_long_reads(rl_fq, fwd, *LONG_JOBS, seed=33)
+    L = max(len(r) for r in reads)
+    c = np.full((len(reads), L), 4, np.int32)
+    for i, r in enumerate(reads):
+        c[i, : len(r)] = r
+    ln = np.array([len(r) for r in reads], np.int32)
+    al = GpuAligner(idx, dev, MemOptions(), cfg)
+    regs = al.align_batch(c, ln)
+    long_calls = []
+    os.environ["BWA_TPU_NO_NATIVE_KSWG"] = "1"
+    try:
+        with recording(kswg_cuda, "ksw_global_batch_cuda", long_calls):
+            al._records_from_regs(c, ln, np.ones(len(reads), bool), regs,
+                                  np.arange(len(reads)))
+    finally:
+        del os.environ["BWA_TPU_NO_NATIVE_KSWG"]
+    g_pe = kswg_launch(dev, card, max(cigar_calls, key=lambda a: a[0].shape[0]),
+                       "phase 7's Python PE path, its largest call")
+    g_long = kswg_launch(dev, card, long_calls[0],
+                         f"{LONG_JOBS[0]} long reads of phase 10's kind "
+                         f"({LONG_JOBS[1]}-{LONG_JOBS[2]} bp)")
+    biggest = max(range(len(rescue_calls)),
+                  key=lambda i: rescue_calls[i][0].shape[0])
+    a_pe = kswa_launch(dev, card, rescue_calls[biggest],
+                       "the largest rescue batch, of "
+                       + ("phase 7's pairs" if biggest < n7[1] else
+                          "the pairs with seedless mates"))
+
+    # (e) the multichip twin on the mesh
+    log(f"[multichip] {dryrun_multichip(mesh)}")
+    log(f"[mesh] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches,
+                kswg=dict(g_pe, err=max(g_pe["err"], g_long["err"])),
+                kswa=a_pe)
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -3466,8 +3928,9 @@ def main():
     from bwa_mem_scale_tpu_torch.ops import probe_kernels, smem_cuda
     from bwa_mem_scale_tpu_torch.ops import emf_cuda, seedsw_cuda, sweep_cuda
     from bwa_mem_scale_tpu_torch.ops import ert_cuda, smem_rl_cuda
+    from bwa_mem_scale_tpu_torch.ops import kswa_cuda, kswg_cuda
     from bwa_mem_scale_tpu_torch.tools import round_cost
-    with ThreadPoolExecutor(10) as ex:          # one nvcc a source, at once
+    with ThreadPoolExecutor(12) as ex:          # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
                   ex.submit(probe_kernels.build, force=True, verbose=True),
                   ex.submit(smem_cuda.build, force=True),
@@ -3477,7 +3940,9 @@ def main():
                   ex.submit(seedsw_cuda.build, force=True),
                   ex.submit(emf_cuda.build, force=True),
                   ex.submit(ert_cuda.build, force=True),
-                  ex.submit(smem_rl_cuda.build, force=True)]
+                  ex.submit(smem_rl_cuda.build, force=True),
+                  ex.submit(kswg_cuda.build, force=True),
+                  ex.submit(kswa_cuda.build, force=True)]
         probes_seconds = builds[1].result()[1]
         for b in builds:
             b.result()
@@ -3500,7 +3965,11 @@ def main():
         f"{os.path.relpath(ert_cuda.LIB.path, REPO)} in "
         f"{ert_cuda.LIB.build_seconds:.2f} s; csrc/readlane.cu -> "
         f"{os.path.relpath(smem_rl_cuda.LIB.path, REPO)} in "
-        f"{smem_rl_cuda.LIB.build_seconds:.2f} s (in parallel)")
+        f"{smem_rl_cuda.LIB.build_seconds:.2f} s; csrc/kswg.cu -> "
+        f"{os.path.relpath(kswg_cuda.LIB.path, REPO)} in "
+        f"{kswg_cuda.LIB.build_seconds:.2f} s; csrc/kswa.cu -> "
+        f"{os.path.relpath(kswa_cuda.LIB.path, REPO)} in "
+        f"{kswa_cuda.LIB.build_seconds:.2f} s (in parallel)")
     log(f"[build] one warp's dependent round (tools/round_cost.py: a "
         f"shared-memory load, a shuffle, a ballot), equal to its plain "
         f"model: {round_cost.round_us(dev):.5f} us, the chaining floors' "
@@ -3508,7 +3977,8 @@ def main():
     kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda",
                            "sweep_cuda", "seedsw_cuda", "emf_cuda",
-                           "ert_cuda", "readlane_cuda")}
+                           "ert_cuda", "readlane_cuda", "kswg_cuda",
+                           "kswa_cuda")}
     # each FM-walk and chaining kernel in its int32 (P = int, mangled i)
     # and int64 (P = long long, x) forms; the FM walks' 1-step forms (KS =
     # 1, mangled Li1E) and their k-step forms (int32 only)
@@ -3549,7 +4019,8 @@ def main():
              "readlane_strategy_kernel<K = 2, int32>"),
             ("bsw_cuda", "bsw_tiled_kernel", "bsw_tiled_kernel"),
             ("seedsw_cuda", "local_sw_kernel", "local_sw_kernel"),
-            ("emf_cuda", "emf_lookup_kernel", "emf_lookup_kernel")):
+            ("emf_cuda", "emf_lookup_kernel", "emf_lookup_kernel"),
+            ("kswg_cuda", "kswg_kernel", "kswg_kernel")):
         for code, pos in (("i", "int32"), ("x", "int64")):
             (r, s), = [v for fn, v in kernels[lib].items()
                        if kernel.format(code) in fn]
@@ -3569,6 +4040,15 @@ def main():
         f"bytes spilled" for (k, sh), (r, s) in sorted(regs.items())))
     if any(s for (k, _), (_, s) in regs.items() if k in (4, 5)):
         raise SystemExit("build: the BSW kernel spills at K = 4 or 5")
+    kswa_regs = {int(k.group(1)): v
+                 for fn, v in kernels["kswa_cuda"].items()
+                 if (k := re.search(r"kswa_kernelILi(\d+)E", fn))}
+    if sorted(kswa_regs) != sorted(kswa_cuda.K_VALUES):
+        raise SystemExit(f"build: ptxas reported kswa_kernel<K> for "
+                         f"{sorted(kswa_regs)}, expected {kswa_cuda.K_VALUES}")
+    log("[build] kswa_kernel<K columns a lane>: " + "; ".join(
+        f"K={k} {r} registers, {s} bytes spilled"
+        for k, (r, s) in sorted(kswa_regs.items())))
 
     k = phase_kernel(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3589,6 +4069,7 @@ def main():
         ert = phase_ert(dev, card, tmp, se, pe, sweep, codes, lens)
         kst = phase_kstep(dev, card, tmp, se, pe, al)
         rl = phase_readlane(dev, card, tmp, se, pe, al, kst)
+        dp = phase_mesh(dev, card, tmp, se, pe)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"builds included")
 
@@ -3671,7 +4152,16 @@ def main():
         "max_abs_err": rl[form]["err"], "ms": rl[form]["ms"],
         "plain_ms": rl[form]["plain_ms"], "bound_ms": rl[form]["bound"][0],
         "bound_by": rl[form]["bound"][1], "library_ms": None}
-        for form, _, _, replaces in READLANE_FORMS]}))
+        for form, _, _, replaces in READLANE_FORMS] + [{
+        "name": name, "route": "cuda", "source": f"csrc/{key}.cu",
+        "replaces": replaces, "launches": dp["launches"][key],
+        "max_abs_err": dp[key]["err"], "ms": dp[key]["ms"],
+        "plain_ms": dp[key]["plain_ms"], "bound_ms": dp[key]["bound"][0],
+        "bound_by": dp[key]["bound"][1], "library_ms": None}
+        for name, key, replaces in (
+            ("ksw_global_batch", "kswg", "bwa_mem_scale_tpu/ops/kswg.py:33"),
+            ("ksw_align_batch", "kswa",
+             "bwa_mem_scale_tpu/ops/kswa.py:81"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

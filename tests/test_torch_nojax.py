@@ -8,7 +8,12 @@ SE and PE `mem --seed-engine sweep` with its table and SE and PE `mem
 seeding with the ERT (SAM equal to the one-hot engine's), `kstep-table -k 3`
 and SE and PE `mem` with the trigram table (SAM equal to the run without
 it), the in-process SE API (`align_reads_to_sam`, the EMF
-table probed on the device, here the CPU), `load-shm`, a `mem` that
+table probed on the device, here the CPU), SE and PE `mem --devices`
+on a CPU mesh and SE `mem --num-hosts 2` (SAM and parts equal to the
+one-device, one-host run), PE `mem` under `BWA_TPU_NO_NATIVE_PE`,
+`BWA_TPU_NO_NATIVE_KSWG` and `BWA_TPU_NO_NATIVE_KSWA` (the device DP
+loops' plain versions; records placed as without them), `load-shm`, a
+`mem` that
 attaches to the staged store (SAM equal to `mem` from the files) and
 `remove-shm`, the import of the
 probe entry points and `chip_smoke.py`'s input helpers, in a fresh
@@ -85,6 +90,29 @@ RUNNER = textwrap.dedent("""
         if argv[:2] == ["kstep-table", "k"]:
             os.symlink("g.tpuidx.npz", "k.tpuidx.npz")
         assert main(argv) == 0, argv
+    # several devices (a CPU mesh) and several hosts (two parts)
+    for argv in (["mem", "g", "r.fq", "-o", "mesh.sam", "--device", "cpu",
+                  "--batch-reads", "16", "--devices", "4"],
+                 ["mem", "g", "r1.fq", "r2.fq", "-o", "pe_mesh.sam",
+                  "--device", "cpu", "--batch-reads", "16", "-I", "200,20",
+                  "--devices", "2"],
+                 ["mem", "g", "r.fq", "-o", "host0.sam", "--device", "cpu",
+                  "--batch-reads", "16", "--num-hosts", "2", "--host-id",
+                  "0"],
+                 ["mem", "g", "r.fq", "-o", "host1.sam", "--device", "cpu",
+                  "--batch-reads", "16", "--num-hosts", "2", "--host-id",
+                  "1"]):
+        assert main(argv) == 0, argv
+    # the JAX package's switches: the Python PE path, the device CIGAR DP
+    # and the device rescue SW
+    SW = ("BWA_TPU_NO_NATIVE_PE", "BWA_TPU_NO_NATIVE_KSWG",
+          "BWA_TPU_NO_NATIVE_KSWA")
+    os.environ.update({k: "1" for k in SW})
+    assert main(["mem", "g", "r1.fq", "r2.fq", "-o", "pe_sw.sam",
+                 "--device", "cpu", "--batch-reads", "16", "-I",
+                 "200,20"]) == 0
+    for k in SW:
+        del os.environ[k]
     # the Python PE path, as taken when the native PE stage declines
     from bwa_mem_scale_tpu_torch.pipeline import native_finalize
     native_finalize.finalize_pe_rows = lambda *a, **k: None
@@ -113,6 +141,9 @@ RUNNER = textwrap.dedent("""
     assert not os.listdir("shm")
     import bwa_mem_scale_tpu_torch.ops.emf_cuda
     import bwa_mem_scale_tpu_torch.ops.ert_cuda
+    import bwa_mem_scale_tpu_torch.ops.kswa_cuda
+    import bwa_mem_scale_tpu_torch.ops.kswg_cuda
+    import bwa_mem_scale_tpu_torch.tools.multichip
     import bwa_mem_scale_tpu_torch.ops.seedsw_cuda
     import bwa_mem_scale_tpu_torch.ops.smem_cuda
     import bwa_mem_scale_tpu_torch.ops.smem_rl_cuda
@@ -200,12 +231,25 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
             for f in ("out.sam", "sweep.sam", "pe.sam", "pe_py.sam",
                       "pe_sweep.sam", "shm.sam", "ert.sam", "pe_ert.sam",
                       "kstep.sam", "pe_kstep.sam", "readlane.sam",
-                      "pe_readlane.sam")}
+                      "pe_readlane.sam", "mesh.sam", "pe_mesh.sam",
+                      "pe_sw.sam", "host0.sam", "host1.sam")}
     assert (body["pe.sam"] == body["pe_py.sam"] == body["pe_sweep.sam"]
             == body["pe_ert.sam"] == body["pe_kstep.sam"]
-            == body["pe_readlane.sam"])
+            == body["pe_readlane.sam"] == body["pe_mesh.sam"])
     assert (body["out.sam"] == body["sweep.sam"] == body["shm.sam"]
-            == body["ert.sam"] == body["kstep.sam"] == body["readlane.sam"])
+            == body["ert.sam"] == body["kstep.sam"] == body["readlane.sam"]
+            == body["mesh.sam"])
+    # the two hosts' parts: batch 0 (r0-r15) and batch 2 on host 0
+    parts = [[ln for ln in body[f"host{i}.sam"] if not ln.startswith("@")]
+             for i in (0, 1)]
+    assert sorted(parts[0] + parts[1]) == sorted(
+        ln for ln in body["out.sam"] if not ln.startswith("@"))
+    assert all(int(ln.split("\t")[0][1:]) // 16 % 2 == i
+               for i in (0, 1) for ln in parts[i])
+    # under the switches, every record's placement as without them (the
+    # device rescue's score2 may move an XS tag)
+    assert ([ln.split("\t")[:9] for ln in body["pe_sw.sam"]]
+            == [ln.split("\t")[:9] for ln in body["pe.sam"]])
     api = open(tmp_path / "api.sam").read().splitlines()
     assert api == [ln.rstrip("\n") for ln in body["out.sam"]
                    if not ln.startswith("@")]

@@ -251,8 +251,8 @@ def test_pe_python_path_equal_to_jax(pe, monkeypatch, sam_ctx):
     rescued = []
     run_rescue = t_pe.run_rescue_jobs
     monkeypatch.setattr(t_pe, "run_rescue_jobs",
-                        lambda opt, jobs: rescued.append(len(jobs))
-                        or run_rescue(opt, jobs))
+                        lambda opt, jobs, device: rescued.append(len(jobs))
+                        or run_rescue(opt, jobs, device))
     jal = pe["jal"]
     monkeypatch.setattr(jal.opt, "copy_comment", not sam_ctx)
     want = io.StringIO()
