@@ -7,10 +7,15 @@ are not sampled are resolved by an LF walk to the nearest sampled row
 over a flat compacted list of the valid coordinates; reads whose
 coordinates fall past that list are flagged as overflow.
 
-``sa_lookup`` runs the walk through ``smem_cuda.sa_walk_cuda``, which
-launches ``csrc/smem.cu``'s ``sa_walk_kernel`` on CUDA tensors (and
-counts the launches) and runs ``sa_lookup_plain``, a lockstep loop over
-the lanes, on CPU tensors.
+``expand_and_lookup``, the stage the pipeline runs, goes through
+``sal_cuda.expand_and_lookup_cuda``: on CUDA tensors the two kernels of
+``csrc/sal.cu`` (the counts, the coordinates and the walk, with no tensor
+operation between them), on CPU tensors ``expand_and_lookup_plain``, the
+same function as tensor code around ``sa_lookup_plain``, a lockstep loop
+over the lanes. ``sa_lookup``, the bare walk of a batch of rows, runs
+through ``smem_cuda.sa_walk_cuda``, which launches ``csrc/smem.cu``'s
+``sa_walk_kernel`` on CUDA tensors (and counts the launches) and runs
+``sa_lookup_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from .occ import DeviceFMIndex, occ_b_and_base, sa_sample_at, take
+from .sal_cuda import expand_and_lookup_cuda, flat_size
 from .smem import SmemBuf
 from .smem_cuda import sa_walk_cuda
 
@@ -81,7 +87,21 @@ def sa_lookup_plain(fmi: DeviceFMIndex, pos: torch.Tensor,
 def expand_and_lookup(fmi: DeviceFMIndex, smems: SmemBuf, max_occ: int,
                       max_coords: int, flat_k: int = None,
                       stats: dict = None):
-    """Sample each SMEM interval and resolve coordinates.
+    """Sample each SMEM interval and resolve coordinates: on CUDA tensors
+    one call of ``expand_and_lookup_cuda`` (two kernel launches, or an
+    exception), on CPU tensors ``expand_and_lookup_plain``; the outputs
+    are the plain version's. `stats` gets the kernels' longest lane's
+    walk under ``sal_steps`` (a device tensor), or the lockstep's
+    ``sal_ticks``."""
+    return expand_and_lookup_cuda(fmi, smems, max_occ, max_coords,
+                                  flat_k=flat_k, stats=stats)
+
+
+def expand_and_lookup_plain(fmi: DeviceFMIndex, smems: SmemBuf,
+                            max_occ: int, max_coords: int,
+                            flat_k: int = None, stats: dict = None):
+    """Sample each SMEM interval and resolve coordinates
+    (``expand_and_lookup``'s plain version, on any device).
 
     Returns (rbeg [B, C] of the index's position dtype, seed_smem [B, C]
     (index into smems arrays),
@@ -122,9 +142,9 @@ def expand_and_lookup(fmi: DeviceFMIndex, smems: SmemBuf, max_occ: int,
     step_c = step.gather(1, si)
     pos = k_c + (slot - starts_c) * step_c                # [B, C]
 
-    K = flat_k or max(4096, (B * C // 16 + 1023) // 1024 * 1024)
+    K = flat_size(B, C, flat_k)
     if B * C <= K:
-        rbeg = sa_lookup(fmi, pos, coord_valid, stats)
+        rbeg = sa_lookup_plain(fmi, pos, coord_valid, stats)
         return rbeg, seed_idx, coord_valid, total, overflow
     tot_c = torch.cumsum(total, 0, dtype=torch.int32)
     grand = tot_c[-1]
@@ -138,7 +158,7 @@ def expand_and_lookup(fmi: DeviceFMIndex, smems: SmemBuf, max_occ: int,
     fcc = fc.clamp(0, C - 1)
     flat_idx = fbc.long() * C + fcc.long()
     pos_f = pos.reshape(B * C)[flat_idx]
-    rbeg_f = sa_lookup(fmi, pos_f, f_valid, stats)
+    rbeg_f = sa_lookup_plain(fmi, pos_f, f_valid, stats)
     rbeg = torch.zeros((B * C + 1,), dtype=rbeg_f.dtype, device=dev)
     rbeg[torch.where(f_valid, flat_idx, B * C)] = rbeg_f
     return (rbeg[:B * C].reshape(B, C), seed_idx, coord_valid, total,

@@ -10,7 +10,8 @@ replacing a ``jax.lax.while_loop`` of the JAX package:
   ``seed_strategy_machine_oh``), one thread a read;
 - ``sa_walk_cuda``: the SA lookup's LF walk, which
   ``ops/sal.py::sa_lookup`` calls (plain ``sa_lookup_plain``; JAX
-  ``sa_lookup``), one thread a coordinate.
+  ``sa_lookup``), one thread a coordinate; the pipeline's
+  ``expand_and_lookup`` runs ``ops/sal_cuda.py`` (csrc/sal.cu) instead.
 On CUDA tensors each launches its kernel once (the whole walk in the
 launch) or raises; on CPU tensors each runs its plain version (imported
 at the call: the plain versions' modules import this one). There is no
@@ -658,6 +659,23 @@ def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
     return (*_smem_fields(out, hi_steps), cnt_out, steps_out, rounds_out)
 
 
+def _twin_walk(fm: _TwinFmi, samples, sa_compx: int, sp: int) -> tuple:
+    """csrc/sal_walk.cuh's walk from BWT row sp, with its clamps: (the SA
+    value, the rows and samples loaded)."""
+    mask, offset, steps = (1 << sa_compx) - 1, 0, 0
+    while True:
+        steps += 1
+        if sp & mask == 0:                           # a sampled row
+            i = min(max(sp >> sa_compx, 0), samples.shape[0] - 1)
+            return int(samples[i]) + offset, steps
+        cnt, msk, y = fm.row(sp)
+        b = next((c for c in range(4) if msk[c] >> (31 - y) & 1), 4)
+        if b == 4:                                   # the sentinel row
+            return offset, steps
+        sp = fm.count[b] + cnt[b] + bin(msk[b] & fm.top_bits(y)).count("1")
+        offset += 1
+
+
 def sa_walk_twin(count, cp_fused, sentinel_index: int, sa_samples,
                  sa_compx: int, pos, valid, hi_steps=None):
     """csrc/smem.cu's sa_walk_kernel in plain Python on numpy arrays: the
@@ -666,27 +684,12 @@ def sa_walk_twin(count, cp_fused, sentinel_index: int, sa_samples,
     of the samples' dtype, steps [N] int32)."""
     fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
     samples = np.asarray(sa_samples)
-    mask = (1 << sa_compx) - 1
     pos = np.asarray(pos)
     flat_pos = pos.reshape(-1).astype(samples.dtype)
     flat_valid = np.asarray(valid).reshape(-1)
     out = np.zeros(flat_pos.shape, samples.dtype)
     steps_out = np.zeros(flat_pos.shape, np.int32)
     for t in np.flatnonzero(flat_valid):
-        sp, offset, steps = int(flat_pos[t]), 0, 0
-        while True:
-            steps += 1
-            if sp & mask == 0:                       # a sampled row
-                i = min(max(sp >> sa_compx, 0), samples.shape[0] - 1)
-                out[t] = int(samples[i]) + offset
-                break
-            cnt, msk, y = fm.row(sp)
-            b = next((c for c in range(4) if msk[c] >> (31 - y) & 1), 4)
-            if b == 4:                               # the sentinel row
-                out[t] = offset
-                break
-            sp = (fm.count[b] + cnt[b]
-                  + bin(msk[b] & fm.top_bits(y)).count("1"))
-            offset += 1
-        steps_out[t] = steps
+        out[t], steps_out[t] = _twin_walk(fm, samples, sa_compx,
+                                          int(flat_pos[t]))
     return out.reshape(pos.shape), steps_out

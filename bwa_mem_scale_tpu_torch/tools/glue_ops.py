@@ -11,6 +11,14 @@ kernel's call replaced by the output it gave on the same inputs, under
 engine's glue issues a batch: each is one launch (or more) and a host
 dispatch on the card, so the count is what the glue costs the host. A
 count, not a time: it is the same on the CPU and on the card.
+
+Then the SA lookup stage on the one-hot engine's SMEMs of the same batch
+(512 coordinates a read): the earlier stage's glue
+(``expand_and_lookup_plain`` with its walk replayed, the port's stage
+before csrc/sal.cu) and ``expand_and_lookup`` as the main path calls it:
+on the card the two kernels of csrc/sal.cu (the outputs' allocations;
+the launches are ctypes calls, no aten operation), on the CPU the plain
+version with its walk.
 """
 
 from __future__ import annotations
@@ -69,7 +77,7 @@ def main(argv=None) -> int:
     from ..index.build import build_index
     from ..models.aligner import demo_genome, simulate_reads
     from ..index.ert import build_ert
-    from ..ops import ert, ert_cuda, smem, smem_oh, sweep_cuda
+    from ..ops import ert, ert_cuda, sal, smem, smem_oh, sweep_cuda
     from ..ops.fma import build_fma_table
     from ..ops.occ import DeviceFMIndex
     dev = resolve_device(args.device)
@@ -104,6 +112,18 @@ def main(argv=None) -> int:
     print(f"glue operations a batch (B=512, L=101, outermost aten ops, the "
           f"kernels' calls replayed): one-hot {outer_ops(onehot)}, sweep "
           f"{outer_ops(sweep)}, ERT {outer_ops(trie)}")
+    smems = smem_oh.collect_smems_oh(fmi, c, ln, emit_depth=24,
+                                     stack_depth=24, **kw)
+    earlier = _replayed([(sal, "sa_lookup_plain")],
+                        lambda: sal.expand_and_lookup_plain(fmi, smems, 500,
+                                                            512))
+    stage = outer_ops(lambda: sal.expand_and_lookup(fmi, smems, 500, 512))
+    how = ("the kernels of csrc/sal.cu" if dev.type == "cuda" else
+           "the plain version, its walk included, on the CPU")
+    print(f"SA lookup stage operations a batch (B=512, C=512, outermost "
+          f"aten ops): the earlier stage's glue (expand_and_lookup_plain, "
+          f"its walk replayed) {outer_ops(earlier)}; expand_and_lookup "
+          f"{stage} ({how})")
     return 0
 
 

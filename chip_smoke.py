@@ -13,7 +13,7 @@ Phases, in order; any failure exits non-zero:
               seed-SW scorer), csrc/emf.cu (the EMF probe), csrc/ert.cu
               (the ERT descent), csrc/readlane.cu (the readlane
               engine), csrc/kswg.cu (the CIGAR DP), csrc/kswa.cu (the
-              rescue SW) and
+              rescue SW), csrc/sal.cu (the SA lookup stage) and
               csrc/round_probe.cu (a warp's dependent round) from
               source, one nvcc each, all at once; prints ptxas's
               registers and spills for each FM walk, sweep, ERT, chaining,
@@ -34,13 +34,16 @@ Phases, in order; any failure exits non-zero:
               primaries of reads the EMF table did not resolve within
               5 bp of the true position and strand, the BSW kernel
               launched, the SMEM passes 1-2 kernel at least twice a
-              device batch and the pass-3, SA-walk and both chaining
-              kernels at least once a batch; reads/s, and per-stage
+              device batch and the pass-3, SA lookup stage (csrc/sal.cu)
+              and both chaining kernels at least once a batch, the bare
+              SA walk (sa_walk_kernel) never; reads/s, and per-stage
               seconds (the chain stage among them) from a second
-              `mem -v 4` run with synchronised stage timers.
+              `mem -v 4` run with synchronised stage timers, and the sal
+              stage's from a third through the earlier stage (the tensor
+              glue around the bare walk).
   5. slice:   seed_chain_extend on one batch of phase 4 with the kernels
               and with the plain BSW, with the plain SMEM passes 1 and
-              2, with the plain pass 3 and SA walk, and with the plain
+              2, with the plain pass 3 and SA lookup, and with the plain
               chaining: packed and meta equal; collect_smems_oh with the
               kernels and with the
               plain passes at the three retry-tier depths (24, 48, the
@@ -48,11 +51,16 @@ Phases, in order; any failure exits non-zero:
               batch captured, each with its live pairs, rows, cells,
               bound, the kernel's device time and the wrapper's wall
               time; the batch's two SMEM passes 1-2 launches, its pass-3
-              launch and its SA-walk launch, as made, each equal to its
+              launch and its SA lookup stage call, as made, each equal to
+              its
               plain version (per-lane steps too, where the plain version
               counts them), with its steps, bound (from the steps),
               rounds (passes 1-2: the dependent occ round trips of each
-              task; a pass-3 or SA-walk step is one), latency floor (the
+              task; a pass-3 or SA-walk step is one; the stage's five
+              arrays, every slot, and its steps equal to the bare walk's
+              on the plain version's rows, the bare walk held and timed
+              there too, and at each retry tier's coordinate capacity and
+              on the repeat batch), latency floor (the
               longest task's rounds x 0.224 us), the kernel's device time
               and the plain version's; its two chaining launches, as
               made, each equal field by field to its plain version, with
@@ -80,8 +88,9 @@ Phases, in order; any failure exits non-zero:
               30, 1% substitutions, read 2 reverse-complemented) in two
               FASTQ files; every read emitted once in input order (read
               1 then read 2), the BSW kernel launched, the SMEM
-              passes 1-2, pass-3, SA-walk and chaining kernels at least
-              once a device batch, >= 95%
+              passes 1-2, pass-3, SA lookup stage and chaining kernels
+              at least once a device batch (the bare SA walk never),
+              >= 95%
               of non-EMF
               primaries within 5 bp of the true position and strand,
               >= 90% of pairs with both mates mapped flagged proper, the
@@ -98,9 +107,10 @@ Phases, in order; any failure exits non-zero:
               to the int32 layout's at the same depth), each int64 launch
               as made against its plain version (max_abs_err 0) with its
               bound and latency floor, and timed beside the int32 form on
-              the same inputs; the SA walk on samples + 2^33, pass 3 on a
-              table whose counts are + 2^32, passes 1-3 and the SA walk
-              with a non-empty high-word step table, chaining on the batch
+              the same inputs; the SA lookup stage on samples + 2^33,
+              pass 3 on a table whose counts are + 2^32, passes 1-3 and
+              the SA lookup stage with a non-empty high-word step table,
+              chaining on the batch
               moved to two 3.1 Gbp genomes (positions past 2^31, reverse
               ones past 2^32, a seed over the strands' junction), each
               against its plain version; the layout's device bytes and
@@ -170,8 +180,9 @@ Phases, in order; any failure exits non-zero:
               and `ert-index` (K = 12, depth 320; nodes, build seconds,
               the device record's MiB); SE `mem --device cuda` with the
               trie auto-loaded: phase 4's checks, the descent kernel
-              launched twice a device batch and the chase once, no other
-              seeding kernel, the SAM body equal to `mem --seed-engine
+              launched twice a device batch and the chase and the SA
+              lookup stage (its walk a gather of the full SA) once, no
+              other seeding kernel, the SAM body equal to `mem --seed-engine
               sweep` on the same index and EMF table without the trie
               (a differing read only with its cause: the depth cap, the
               24-bit count's saturation, a retry tier), the same at the
@@ -288,6 +299,12 @@ SMEM_OPS_PER_STEP = 45
 # two adds 4
 SAL_ROW_BYTES = 32
 SAL_OPS_PER_STEP = 27
+# the SA lookup stage around the walk (csrc/sal.cu): a slot's owner test,
+# seed_idx select and three stores 5 (a walked slot's binary search and
+# row arithmetic are small beside its walk); an SMEM's count (compare,
+# divide, two clamps) and its share of the warp's scan 8
+SAL_OPS_PER_SLOT = 5
+SAL_OPS_PER_SMEM = 8
 # the dependent checkpoint-row load on the 4.6 Mbp table (probe B, L2;
 # PERF.md section 6), the latency floor of a lane's step
 STEP_US = 0.224
@@ -503,6 +520,7 @@ def phase_mem(dev, card, tmp):
     from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
     from bwa_mem_scale_tpu_torch.ops.chain_cuda import (chain_filter_cuda,
                                                         chain_seeds_cuda)
+    from bwa_mem_scale_tpu_torch.ops.sal_cuda import expand_and_lookup_cuda
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
         one_pos_machine_cuda, sa_walk_cuda, seed_strategy_machine_cuda)
     codes, lens, pos, is_rev = write_inputs(tmp)
@@ -520,6 +538,7 @@ def phase_mem(dev, card, tmp):
     banded_swa_batch_cuda.launches = 0          # main path starts here
     one_pos_machine_cuda.launches = 0
     seed_strategy_machine_cuda.launches = 0
+    expand_and_lookup_cuda.launches = 0
     sa_walk_cuda.launches = 0
     chain_seeds_cuda.launches = 0
     chain_filter_cuda.launches = 0
@@ -532,6 +551,7 @@ def phase_mem(dev, card, tmp):
     launches = {"banded_swa_batch": banded_swa_batch_cuda.launches,
                 "one_pos_machine": one_pos_machine_cuda.launches,
                 "seed_strategy_machine": seed_strategy_machine_cuda.launches,
+                "expand_and_lookup": expand_and_lookup_cuda.launches,
                 "sa_walk": sa_walk_cuda.launches,
                 "chain_seeds": chain_seeds_cuda.launches,
                 "chain_filter": chain_filter_cuda.launches}
@@ -549,12 +569,15 @@ def phase_mem(dev, card, tmp):
                          f"{launches['one_pos_machine']} times over "
                          f"{al.batches} device batches, fewer than two a "
                          f"batch")
-    for name in ("seed_strategy_machine", "sa_walk", "chain_seeds",
-                 "chain_filter"):
+    for name in ("seed_strategy_machine", "expand_and_lookup",
+                 "chain_seeds", "chain_filter"):
         if launches[name] < al.batches:
             raise SystemExit(f"mem: the {name} kernel launched "
                              f"{launches[name]} times over {al.batches} "
                              f"device batches, fewer than one a batch")
+    if launches["sa_walk"]:
+        raise SystemExit(f"mem: the bare SA walk launched "
+                         f"{launches['sa_walk']} times on the mem path")
     log(f"[mem] {N_READS} reads in {wall:.2f} s = {N_READS / wall:.1f} "
         f"reads/s end to end (mem call incl. index load)  [{card}]")
     log(f"[mem] kernel launches {launches}; EMF hits {al.emf_hits}/"
@@ -570,8 +593,17 @@ def phase_mem(dev, card, tmp):
     log(f"[mem -v 4] synchronised stage seconds over {al4.batches} batches:"
         f" seed {sec['seed']:.3f}, sal {sec['sal']:.3f}, chain "
         f"{sec['chain']:.3f}, bsw {sec['bsw']:.3f}  [{card}]")
+    with earlier_sal_stage():
+        sec0 = cli.mem(mem_argv + ["-v", "4"]).prof.seconds
+    log(f"[mem -v 4] the sal stage over {al4.batches} batches: "
+        f"{sec['sal']:.4f} s through csrc/sal.cu's kernels, "
+        f"{sec0['sal']:.4f} s through the earlier stage (the tensor glue "
+        f"around the bare walk, sa_walk_kernel); seed {sec0['seed']:.3f}, "
+        f"chain {sec0['chain']:.3f}, bsw {sec0['bsw']:.3f} in that run  "
+        f"[{card}]")
     first = np.flatnonzero(~emf_hit)[:BATCH]
     se = dict(argv=mem_argv, wall=wall, batches=al.batches, seconds=dict(sec),
+              sal_before=sec0["sal"],
               index_load=index_load, emf_hits=al.emf_hits, codes=codes,
               lens=lens, pos=pos, is_rev=is_rev, emf_hit=emf_hit)
     return launches, al, codes[first], lens[first], se
@@ -589,7 +621,7 @@ def phase_slice(dev, card, al, codes, lens):
             (smem_oh, "one_pos_machine_cuda"): smem_oh.one_pos_machine_cuda,
             (smem_oh, "seed_strategy_machine_cuda"):
                 smem_oh.seed_strategy_machine_cuda,
-            (sal, "sa_walk_cuda"): sal.sa_walk_cuda,
+            (sal, "expand_and_lookup_cuda"): sal.expand_and_lookup_cuda,
             (align, "chain_seeds_cuda"): align.chain_seeds_cuda,
             (align, "chain_filter_cuda"): align.chain_filter_cuda}
     calls = {name: [] for _, name in real}
@@ -606,7 +638,7 @@ def phase_slice(dev, card, al, codes, lens):
             ("plain", "plain", {}),
             ("plain_seed", "auto", {k12: smem_oh.one_pos_machine}),
             ("plain_walks", "auto", {k3: smem_oh.seed_strategy_machine,
-                                     kwalk: sal.sa_lookup_plain}),
+                                     kwalk: sal.expand_and_lookup_plain}),
             ("plain_chain", "auto", {kseeds: chain.chain_seeds_device,
                                      kflt: chain.chain_filter_frac_rep}))
     outs = {}
@@ -625,7 +657,7 @@ def phase_slice(dev, card, al, codes, lens):
                 setattr(mod, name, fn)
         outs[run] = (out, time.perf_counter() - t0)
     for run, what in (("plain", "BSW"), ("plain_seed", "SMEM passes 1-2"),
-                      ("plain_walks", "pass 3 and SA walk"),
+                      ("plain_walks", "pass 3 and SA lookup"),
                       ("plain_chain", "chaining")):
         for key in ("packed", "meta"):
             if not torch.equal(outs["auto"][0][key], outs[run][0][key]):
@@ -635,11 +667,12 @@ def phase_slice(dev, card, al, codes, lens):
     log(f"[slice] seed_chain_extend on {len(codes)} reads ({n_valid} "
         f"pairs): packed and meta equal with the kernels and with the "
         f"plain BSW, the plain SMEM passes 1-2, the plain pass 3 and SA "
-        f"walk, and the plain chaining; whole call {outs['auto'][1]:.3f} s"
+        f"lookup, and the plain chaining; whole call "
+        f"{outs['auto'][1]:.3f} s"
         f" with the kernels, {outs['plain'][1]:.3f} s with the plain BSW, "
         f"{outs['plain_seed'][1]:.3f} s with the plain SMEM passes 1-2, "
         f"{outs['plain_walks'][1]:.3f} s with the plain pass 3 and SA "
-        f"walk, {outs['plain_chain'][1]:.3f} s with the plain chaining  "
+        f"lookup, {outs['plain_chain'][1]:.3f} s with the plain chaining  "
         f"[{card}]")
     bsw_calls = [a for a, _ in calls["banded_swa_batch_cuda"]]
     if len(bsw_calls) != 4:
@@ -660,7 +693,8 @@ def phase_slice(dev, card, al, codes, lens):
             f"  [{card}]")
     for name, want in (("one_pos_machine_cuda", 2),
                        ("seed_strategy_machine_cuda", 1),
-                       ("sa_walk_cuda", 1), ("chain_seeds_cuda", 1),
+                       ("expand_and_lookup_cuda", 1),
+                       ("chain_seeds_cuda", 1),
                        ("chain_filter_cuda", 1)):
         if len(calls[name]) != want:
             raise SystemExit(f"slice: {len(calls[name])} {name} launches, "
@@ -669,7 +703,7 @@ def phase_slice(dev, card, al, codes, lens):
             for n, (args, _) in enumerate(calls["one_pos_machine_cuda"])]
     p3 = seed_strategy_launch(dev, card,
                               calls["seed_strategy_machine_cuda"][0][0])
-    walk = sal_launch(dev, card, calls["sa_walk_cuda"][0][0])
+    walk = sal_stage_launch(dev, card, *calls["expand_and_lookup_cuda"][0])
     seeds = chain_seeds_launch(dev, card, *calls["chain_seeds_cuda"][0])
     flt = chain_filter_launch(dev, card, *calls["chain_filter_cuda"][0])
     smem_tiers(dev, card, al, c, ln)
@@ -806,6 +840,103 @@ def sal_launch(dev, card, args, batch="the batch"):
     return r
 
 
+@contextlib.contextmanager
+def earlier_sal_stage():
+    """expand_and_lookup runs the port's earlier SA lookup stage: the
+    plain version's tensor glue around the bare walk (sa_lookup: one
+    sa_walk_kernel launch), as before csrc/sal.cu."""
+    from bwa_mem_scale_tpu_torch.ops import sal
+    real = (sal.expand_and_lookup_cuda, sal.sa_lookup_plain)
+
+    def walk(fmi, pos, valid, stats=None):     # the earlier sa_lookup
+        return (sal.sa_walk_cuda(fmi, pos, valid, stats) if fmi.sa_compx
+                else real[1](fmi, pos, valid, stats))
+
+    sal.expand_and_lookup_cuda = sal.expand_and_lookup_plain
+    sal.sa_lookup_plain = walk
+    try:
+        yield
+    finally:
+        sal.expand_and_lookup_cuda, sal.sa_lookup_plain = real
+
+
+def sal_stage_launch(dev, card, args, kw, batch="the batch"):
+    """A call of the SA lookup stage's kernel pair (csrc/sal.cu), as made,
+    against expand_and_lookup_plain on all five outputs, every slot; the
+    bare walk (sal_launch) on the plain version's own list of walked rows
+    (the flat list, or the [B, C] grid), its per-lane steps equal to the
+    pair's; the bound: the SMEM records read once (cnt, s of every SMEM
+    below its read's count, and k of every SMEM that owns a walked slot:
+    a valid slot, on the flat path one among the list's first K), the
+    five outputs written once (rbeg at the positions' 4 or 8 bytes, seed_idx 4 and
+    coord_valid 1 a slot, total 4 and overflow 1 a read), a 32-byte row
+    and SAL_OPS_PER_STEP operations a walk iteration but each walked
+    slot's last, a sample (a lane that ends on the sentinel row loads a
+    row instead, which keeps this a lower bound), SAL_OPS_PER_SLOT
+    operations a slot and SAL_OPS_PER_SMEM an SMEM; the latency floor
+    from the longest lane's rows; the pair's device time, the host wall of
+    one synchronised call, and the plain version's. Returns the numbers,
+    the bare walk's under "walk"."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import sal
+    from bwa_mem_scale_tpu_torch.ops.sal_cuda import (expand_and_lookup_cuda,
+                                                      flat_size)
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import sa_walk_cuda
+    what = f"SA lookup stage (csrc/sal.cu), {batch}"
+    got, r = walk_launch(dev, what, expand_and_lookup_cuda,
+                         sal.expand_and_lookup_plain, args, 1, kw)
+    steps = expand_and_lookup_cuda.last_steps.clone()
+    walked = []
+    real = sal.sa_lookup_plain
+    sal.sa_lookup_plain = lambda *a, **k: walked.append(a[:3]) or real(*a,
+                                                                       **k)
+    try:
+        sal.expand_and_lookup_plain(*args, **{k: v for k, v in kw.items()
+                                              if k != "stats"})
+    finally:
+        sal.sa_lookup_plain = real
+    fmi, pos, valid = walked[0]
+    if fmi.sa_compx:
+        r["walk"] = sal_launch(dev, card, (fmi, pos, valid), batch)
+        if not torch.equal(sa_walk_cuda.last_steps, steps):
+            raise SystemExit(f"slice: {what}: per-lane steps differ from the "
+                             f"bare walk's on the same rows")
+    r["wall_ms"] = time_ms(lambda: expand_and_lookup_cuda(
+        *args, **{k: v for k, v in kw.items() if k != "stats"}), 20, dev)
+    smems, C = args[1], args[3]
+    rbeg, seed_idx, coord_valid, total, overflow = got
+    B, M = smems.m.shape
+    pb = rbeg.element_size()
+    n_smem = int(smems.cnt.clamp(0, M).sum())
+    n_walked = int(valid.sum())
+    flat_k = args[4] if len(args) > 4 else kw.get("flat_k")
+    K = flat_size(B, C, flat_k)
+    walked_slots = coord_valid.clone()
+    if B * C > K:                    # the flat list's first K entries
+        first = total.long().cumsum(0) - total.long()
+        walked_slots &= (first[:, None]
+                         + torch.arange(C, device=dev)[None, :]) < K
+    if int(walked_slots.sum()) != n_walked:
+        raise SystemExit(f"slice: {what}: {int(walked_slots.sum())} walked "
+                         f"slots by the flat list's rule, {n_walked} rows "
+                         f"walked by the plain version")
+    rows = torch.arange(B, device=dev)[:, None] * M + seed_idx.long()
+    n_ksmem = int(torch.unique(rows[walked_slots]).numel())
+    nbytes = (pb * n_smem + 4 * B + pb * n_ksmem
+              + (pb + 5) * B * C + 5 * B
+              + SAL_ROW_BYTES * (r["steps"] - n_walked) + pb * n_walked)
+    r["bound"] = bound(nbytes, SAL_OPS_PER_STEP * r["steps"]
+                       + SAL_OPS_PER_SLOT * B * C + SAL_OPS_PER_SMEM * n_smem)
+    r.update(coords=int(total.sum()), walked=n_walked,
+             lanes=int(steps.numel()), overflowed=int(overflow.sum()))
+    log_walk(card, f"{what} (B={B}, M={M}, C={C}, {r['lanes']} lanes, "
+             f"{n_walked} walked, {r['coords']} coordinates, "
+             f"{r['overflowed']} reads overflowed, sa_compx {fmi.sa_compx}, "
+             f"{rbeg.dtype}; a synchronised call's host wall "
+             f"{r['wall_ms']:.5f} ms)", r, f"{r['steps']} iterations")
+    return r
+
+
 def chain_seeds_launch(dev, card, args, kw, batch="the batch"):
     """A chain_seeds launch as made, against the lockstep, with its bound:
     the coordinate prefix (rbeg, seed_idx, and coord_valid up to each
@@ -913,15 +1044,15 @@ def repeat_slice(dev, card, al):
     main path's shapes with the kernels and with the plain chaining,
     packed and meta equal; its two SMEM passes 1-2 launches and its
     pass-3 launch, as made, each equal to its plain version with its
-    steps, rounds, bound, latency floor and times; its two chaining
-    launches the same way; the filter again at options that cut and drop
+    steps, rounds, bound, latency floor and times; its SA lookup stage
+    call (sal_stage_launch) and its two chaining launches the same way; the filter again at options that cut and drop
     chains (min_chain_weight 20, mask_level 0.3, drop_ratio 0.3,
     max_chain_extend 2), equal to its plain version. Fails unless the
     batch reaches the filter's overlap, drop and first paths, a
     repetitive SMEM and a chain overflow. Returns the launches'
     numbers."""
     import torch
-    from bwa_mem_scale_tpu_torch.ops import chain, smem_oh
+    from bwa_mem_scale_tpu_torch.ops import chain, sal, smem_oh
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
     from bwa_mem_scale_tpu_torch.pipeline import align
     from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
@@ -935,7 +1066,8 @@ def repeat_slice(dev, card, al):
             (align, "chain_filter_cuda"): align.chain_filter_cuda,
             (smem_oh, "one_pos_machine_cuda"): smem_oh.one_pos_machine_cuda,
             (smem_oh, "seed_strategy_machine_cuda"):
-                smem_oh.seed_strategy_machine_cuda}
+                smem_oh.seed_strategy_machine_cuda,
+            (sal, "expand_and_lookup_cuda"): sal.expand_and_lookup_cuda}
     calls = {name: [] for _, name in real}
 
     def recorder(name, fn):
@@ -965,7 +1097,8 @@ def repeat_slice(dev, card, al):
         f"{time.perf_counter() - t0:.1f} s): seed_chain_extend packed and "
         f"meta equal with the kernels and with the plain chaining")
     want = {"chain_seeds_cuda": 1, "chain_filter_cuda": 1,
-            "one_pos_machine_cuda": 2, "seed_strategy_machine_cuda": 1}
+            "one_pos_machine_cuda": 2, "seed_strategy_machine_cuda": 1,
+            "expand_and_lookup_cuda": 1}
     if any(len(calls[k]) != n for k, n in want.items()):
         raise SystemExit(f"slice: repeat batch calls "
                          f"{ {k: len(v) for k, v in calls.items()} }")
@@ -974,6 +1107,8 @@ def repeat_slice(dev, card, al):
     p3 = seed_strategy_launch(dev, card,
                               calls["seed_strategy_machine_cuda"][0][0],
                               batch="repeat batch")
+    sal_stage_launch(dev, card, *calls["expand_and_lookup_cuda"][0],
+                     batch="repeat batch")
     seeds = chain_seeds_launch(dev, card, *calls["chain_seeds_cuda"][0],
                                batch="repeat batch")
     flt = chain_filter_launch(dev, card, *calls["chain_filter_cuda"][0],
@@ -1004,15 +1139,18 @@ def repeat_slice(dev, card, al):
 
 def smem_tiers(dev, card, al, c, ln):
     """collect_smems_oh at the retry tiers' depths with the kernels and
-    with the plain passes 1-2 and 3 swapped in: SmemBuf equal. Then the
-    whole collection of the batch timed with the kernels."""
+    with the plain passes 1-2 and 3 swapped in: SmemBuf equal; on each
+    tier's SMEMs the SA lookup stage at the tier's coordinate capacity
+    (512, 1,024, 16,384) against its plain version (sal_stage_launch).
+    Then the whole collection of the batch timed with the kernels."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import smem_oh
     opt = al.opt
     kw = dict(min_seed_len=opt.min_seed_len, split_len=opt.split_len,
               split_width=opt.split_width, max_mem_intv=opt.max_mem_intv)
     real = (smem_oh.one_pos_machine_cuda, smem_oh.seed_strategy_machine_cuda)
-    for depth, rf in ((24, 2), (48, 8), (None, 256)):
+    for depth, rf, coords in ((24, 2, 512), (48, 8, 1024),
+                              (None, 256, 16384)):
         tier = dict(kw, emit_depth=depth, stack_depth=depth,
                     reseed_factor=rf)
         got = smem_oh.collect_smems_oh(al.fmi, c, ln, **tier)
@@ -1032,6 +1170,8 @@ def smem_tiers(dev, card, al, c, ln):
         log(f"[slice] collect_smems_oh at depth {depth}, reseed factor "
             f"{rf}: SmemBuf equal kernels vs plain passes 1-2 and 3 "
             f"({int(got.cnt.clamp(max=got.m.shape[1]).sum())} SMEMs)")
+        sal_stage_launch(dev, card, (al.fmi, got, opt.max_occ, coords), {},
+                         batch=f"the batch at the tier of depth {depth}")
     tier = dict(kw, emit_depth=24, stack_depth=24, reseed_factor=2)
     whole = time_ms(lambda: smem_oh.collect_smems_oh(al.fmi, c, ln, **tier),
                     2, dev)
@@ -1115,6 +1255,7 @@ def phase_pe(dev, card, tmp):
     from bwa_mem_scale_tpu_torch.ops.chain_cuda import (chain_filter_cuda,
                                                         chain_seeds_cuda)
     from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
+    from bwa_mem_scale_tpu_torch.ops.sal_cuda import expand_and_lookup_cuda
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
         one_pos_machine_cuda, sa_walk_cuda, seed_strategy_machine_cuda)
     g, sam = os.path.join(tmp, "g"), os.path.join(tmp, "pe.sam")
@@ -1126,6 +1267,7 @@ def phase_pe(dev, card, tmp):
     banded_swa_batch_cuda.launches = 0          # PE path starts here
     one_pos_machine_cuda.launches = 0
     seed_strategy_machine_cuda.launches = 0
+    expand_and_lookup_cuda.launches = 0
     sa_walk_cuda.launches = 0
     chain_seeds_cuda.launches = 0
     chain_filter_cuda.launches = 0
@@ -1138,6 +1280,7 @@ def phase_pe(dev, card, tmp):
     launches = {"banded_swa_batch": banded_swa_batch_cuda.launches,
                 "one_pos_machine": one_pos_machine_cuda.launches,
                 "seed_strategy_machine": seed_strategy_machine_cuda.launches,
+                "expand_and_lookup": expand_and_lookup_cuda.launches,
                 "sa_walk": sa_walk_cuda.launches,
                 "chain_seeds": chain_seeds_cuda.launches,
                 "chain_filter": chain_filter_cuda.launches}
@@ -1149,12 +1292,15 @@ def phase_pe(dev, card, tmp):
     check_pe_sam(sam, emf_hit, pos, is_rev)
     if launches["banded_swa_batch"] <= 0:
         raise SystemExit("pe: the BSW kernel was never launched")
-    for name in ("one_pos_machine", "seed_strategy_machine", "sa_walk",
-                 "chain_seeds", "chain_filter"):
+    for name in ("one_pos_machine", "seed_strategy_machine",
+                 "expand_and_lookup", "chain_seeds", "chain_filter"):
         if launches[name] < al.batches:
             raise SystemExit(f"pe: the {name} kernel launched "
                              f"{launches[name]} times over {al.batches} "
                              f"device batches, fewer than one a batch")
+    if launches["sa_walk"]:
+        raise SystemExit(f"pe: the bare SA walk launched "
+                         f"{launches['sa_walk']} times on the PE path")
     n = 2 * N_PAIRS
     sec = PROFILER.totals
     log(f"[pe] {n} reads ({N_PAIRS} pairs) in {wall:.2f} s = "
@@ -1185,7 +1331,7 @@ INT64_FORMS = (
      "bwa_mem_scale_tpu/ops/smem_oh.py:174"),
     ("seed_strategy_machine", "csrc/smem.cu",
      "bwa_mem_scale_tpu/ops/smem_oh.py:619"),
-    ("sa_walk", "csrc/smem.cu", "bwa_mem_scale_tpu/ops/sal.py:23"),
+    ("expand_and_lookup", "csrc/sal.cu", "bwa_mem_scale_tpu/ops/sal.py:23"),
     ("chain_seeds", "csrc/chain.cu", "bwa_mem_scale_tpu/ops/chain.py:78"),
     ("chain_filter", "csrc/chain.cu", "bwa_mem_scale_tpu/ops/chain.py:299"))
 # hg38 for the memory reckoning: 3.1e9 forward bases (GRCh38's primary
@@ -1210,11 +1356,12 @@ def forced_int64():
 
 
 def int64_wrappers():
-    """{kernel name: wrapper} of the five kernels with an int64 form."""
-    from bwa_mem_scale_tpu_torch.ops import chain_cuda, smem_cuda
+    """{kernel name: wrapper} of the five main-path kernels with an int64
+    form."""
+    from bwa_mem_scale_tpu_torch.ops import chain_cuda, sal_cuda, smem_cuda
     return {"one_pos_machine": smem_cuda.one_pos_machine_cuda,
             "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
-            "sa_walk": smem_cuda.sa_walk_cuda,
+            "expand_and_lookup": sal_cuda.expand_and_lookup_cuda,
             "chain_seeds": chain_cuda.chain_seeds_cuda,
             "chain_filter": chain_cuda.chain_filter_cuda}
 
@@ -1251,7 +1398,7 @@ def int64_batch(dev, card, al, fmi64, fmi32, dbns, c, ln, batch):
     real = {(smem_oh, "one_pos_machine_cuda"): smem_oh.one_pos_machine_cuda,
             (smem_oh, "seed_strategy_machine_cuda"):
                 smem_oh.seed_strategy_machine_cuda,
-            (sal, "sa_walk_cuda"): sal.sa_walk_cuda,
+            (sal, "expand_and_lookup_cuda"): sal.expand_and_lookup_cuda,
             (align, "chain_seeds_cuda"): align.chain_seeds_cuda,
             (align, "chain_filter_cuda"): align.chain_filter_cuda}
     calls = {name: [] for _, name in real}
@@ -1280,7 +1427,8 @@ def int64_batch(dev, card, al, fmi64, fmi32, dbns, c, ln, batch):
             raise SystemExit(f"int64: {batch}: {key} differs from the int32 "
                              f"layout's")
     want = {"one_pos_machine_cuda": 2, "seed_strategy_machine_cuda": 1,
-            "sa_walk_cuda": 1, "chain_seeds_cuda": 1, "chain_filter_cuda": 1}
+            "expand_and_lookup_cuda": 1, "chain_seeds_cuda": 1,
+            "chain_filter_cuda": 1}
     if any(len(calls[k]) != n for k, n in want.items()):
         raise SystemExit(f"int64: {batch} calls "
                          f"{ {k: len(v) for k, v in calls.items()} }")
@@ -1291,14 +1439,13 @@ def int64_batch(dev, card, al, fmi64, fmi32, dbns, c, ln, batch):
            "seed_strategy_machine": seed_strategy_launch(
                dev, card, calls["seed_strategy_machine_cuda"][0][0],
                batch=label),
-           "sa_walk": sal_launch(dev, card, calls["sa_walk_cuda"][0][0],
-                                 batch=label),
+           "expand_and_lookup": sal_stage_launch(
+               dev, card, *calls["expand_and_lookup_cuda"][0], batch=label),
            "chain_seeds": chain_seeds_launch(
                dev, card, *calls["chain_seeds_cuda"][0], batch=label),
            "chain_filter": chain_filter_launch(
                dev, card, *calls["chain_filter_cuda"][0], batch=label)}
-    n_args = {"one_pos_machine": 11, "seed_strategy_machine": 6,
-              "sa_walk": 3}
+    n_args = {"one_pos_machine": 11, "seed_strategy_machine": 6}
     for name, wrapper in int64_wrappers().items():
         for n, (args, kw) in enumerate(calls[wrapper.__name__]):
             args = args[:n_args.get(name, len(args))]
@@ -1317,8 +1464,8 @@ def int64_batch(dev, card, al, fmi64, fmi32, dbns, c, ln, batch):
 
 
 def int64_large_values(dev, card, fmi64, idx, calls):
-    """Phase 8's values past 2^31 and 2^32 on phase 5's batch: the SA walk
-    on samples lifted by 2^33; pass 3 on the lifted table (every count
+    """Phase 8's values past 2^31 and 2^32 on phase 5's batch: the SA
+    lookup stage (csrc/sal.cu) on samples lifted by 2^33; pass 3 on the lifted table (every count
     + 2^32: intervals past 2^32, rows read at clamped indices); passes 1-2
     with a step table whose steps lie past the last row (the decode loop
     runs, the counts stay true; on the lifted table passes 1-2's warp form
@@ -1329,7 +1476,7 @@ def int64_large_values(dev, card, fmi64, idx, calls):
     import dataclasses
     import torch
     from bwa_mem_scale_tpu_torch.ops import chain, occ, sal, smem_cuda
-    from bwa_mem_scale_tpu_torch.ops import chain_cuda, smem_oh
+    from bwa_mem_scale_tpu_torch.ops import chain_cuda, sal_cuda, smem_oh
 
     def same(what, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -1339,20 +1486,23 @@ def int64_large_values(dev, card, fmi64, idx, calls):
         if bad:
             raise SystemExit(f"int64: {what}: kernel != plain in {bad}")
 
-    _, pos, valid = calls["sa_walk_cuda"][0][0][:3]
+    (_, smems, *stage), stage_kw = calls["expand_and_lookup_cuda"][0]
+    stage_kw = {k: v for k, v in stage_kw.items() if k != "stats"}
     up = dataclasses.replace(fmi64, sa_samples=fmi64.sa_samples + (1 << 33))
-    got = smem_cuda.sa_walk_cuda(up, pos, valid)
-    same("SA walk on samples + 2^33", got, sal.sa_lookup_plain(up, pos,
-                                                                valid))
-    base = smem_cuda.sa_walk_cuda(fmi64, pos, valid)
+    got = sal_cuda.expand_and_lookup_cuda(up, smems, *stage, **stage_kw)
+    same("SA lookup on samples + 2^33", got,
+         sal.expand_and_lookup_plain(up, smems, *stage, **stage_kw))
+    base = sal_cuda.expand_and_lookup_cuda(fmi64, smems, *stage, **stage_kw)
+    got, base, valid = got[0], base[0], got[2]
     lifted = got >= (1 << 33)
     if not (torch.equal(got[lifted] - (1 << 33), base[lifted])
             and torch.equal(got[~lifted], base[~lifted])):
-        raise SystemExit("int64: the lifted samples' walk is not the walk's "
-                         "values + 2^33")
-    log(f"[int64] SA walk on samples + 2^33: equal to the plain walk; "
-        f"{int(lifted.sum())} of {int(valid.sum())} valid lanes past 2^33 "
-        f"(max {int(got.max())}), each the int32 walk's value + 2^33")
+        raise SystemExit("int64: the lifted samples' lookup is not the "
+                         "lookup's values + 2^33")
+    log(f"[int64] SA lookup stage on samples + 2^33: equal to the plain "
+        f"version; {int(lifted.sum())} of {int(valid.sum())} coordinates "
+        f"past 2^33 (max {int(got.max())}), each the int32 layout's value "
+        f"+ 2^33")
 
     cnt = np.asarray(idx.cp_count, np.int64) + (1 << 32)
     fl = occ.DeviceFMIndex.from_host(dataclasses.replace(idx, cp_count=cnt),
@@ -1379,11 +1529,12 @@ def int64_large_values(dev, card, fmi64, idx, calls):
     a = (fs, *calls["seed_strategy_machine_cuda"][0][0][1:6])
     same("pass 3 with a step table", smem_cuda.seed_strategy_machine_cuda(*a),
          smem_oh.seed_strategy_machine(*a))
-    same("SA walk with a step table", smem_cuda.sa_walk_cuda(fs, pos, valid),
-         sal.sa_lookup_plain(fs, pos, valid))
-    log("[int64] passes 1-3 and the SA walk with a step of every base past "
-        "the last row (the decode loop run, one load a step): equal to the "
-        "plain versions")
+    same("SA lookup with a step table",
+         sal_cuda.expand_and_lookup_cuda(fs, smems, *stage, **stage_kw),
+         sal.expand_and_lookup_plain(fs, smems, *stage, **stage_kw))
+    log("[int64] passes 1-3 and the SA lookup stage with a step of every "
+        "base past the last row (the decode loop run, one load a step): "
+        "equal to the plain versions")
 
     (bns, smems, rbeg, seed_idx, valid_c), kw = calls["chain_seeds_cuda"][0]
     kw = {k: v for k, v in kw.items() if k != "stats"}
@@ -1720,7 +1871,7 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
     layouts; the engines side by side. Returns {kernel name: numbers}."""
     import torch
     from bwa_mem_scale_tpu_torch import cli
-    from bwa_mem_scale_tpu_torch.ops import chain_cuda, smem_cuda
+    from bwa_mem_scale_tpu_torch.ops import chain_cuda, sal_cuda, smem_cuda
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.fma import build_fma_table
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
@@ -1764,7 +1915,7 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
     sw = sweep_wrappers()
     others = {"one_pos_machine": smem_cuda.one_pos_machine_cuda,
               "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
-              "sa_walk": smem_cuda.sa_walk_cuda,
+              "expand_and_lookup": sal_cuda.expand_and_lookup_cuda,
               "chain_seeds": chain_cuda.chain_seeds_cuda,
               "chain_filter": chain_cuda.chain_filter_cuda,
               "banded_swa_batch": banded_swa_batch_cuda}
@@ -1798,7 +1949,7 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
             if n[name][0]:
                 raise SystemExit(f"sweep: the one-hot {name} kernel ran "
                                  f"{n[name][0]} times on the sweep path")
-        for name in ("sa_walk", "chain_seeds", "chain_filter",
+        for name in ("expand_and_lookup", "chain_seeds", "chain_filter",
                      "banded_swa_batch"):
             if n[name][0] < a.batches:
                 raise SystemExit(f"sweep: {name} launched {n[name][0]} "
@@ -2266,8 +2417,9 @@ def phase_emf(dev, card, tmp, se):
     from bwa_mem_scale_tpu_torch.ops.emf import (DeviceEmf, FW_MATCHED,
                                                  RC_MATCHED)
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    from bwa_mem_scale_tpu_torch.ops.sal_cuda import expand_and_lookup_cuda
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
-        one_pos_machine_cuda, sa_walk_cuda, seed_strategy_machine_cuda)
+        one_pos_machine_cuda, seed_strategy_machine_cuda)
     from bwa_mem_scale_tpu_torch.pipeline import align
     from bwa_mem_scale_tpu_torch.pipeline.driver import run_alignment
     from bwa_mem_scale_tpu_torch.tools.batches import rescue_batch
@@ -2296,7 +2448,7 @@ def phase_emf(dev, card, tmp, se):
 
     counted = (emf_cuda.emf_lookup_cuda, banded_swa_batch_cuda,
                one_pos_machine_cuda, seed_strategy_machine_cuda,
-               sa_walk_cuda, chain_seeds_cuda, chain_filter_cuda)
+               expand_and_lookup_cuda, chain_seeds_cuda, chain_filter_cuda)
     align.emf_lookup_cuda = record
     try:
         for fn in counted:                   # the main path starts here
@@ -2653,9 +2805,9 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
         if (a.dert is not None) != trie_on or a.cfg.seed_engine != "sweep":
             raise SystemExit(f"ert: {argv[0]}: the trie {'not ' * trie_on}"
                              f"loaded, or the engine {a.cfg.seed_engine}")
-        # (the full SA makes the SA lookup one gather: no SA walk)
-        want = {"ert_extend": 2, "strategy_chase": 1, "chain_seeds": 1,
-                "chain_filter": 1, "banded_swa_batch": 1}
+        # (the full SA makes the SA lookup stage's walk one gather)
+        want = {"ert_extend": 2, "strategy_chase": 1, "expand_and_lookup": 1,
+                "chain_seeds": 1, "chain_filter": 1, "banded_swa_batch": 1}
         if not trie_on:
             want.update(ert_extend=0, sweep_extend=2)
         for k, per in want.items():
@@ -2979,8 +3131,8 @@ def phase_kstep(dev, card, tmp, se, pe, al):
     import torch
     from bwa_mem_scale_tpu_torch import cli
     from bwa_mem_scale_tpu_torch.index.kstep import build_cp2
-    from bwa_mem_scale_tpu_torch.ops import (chain, chain_cuda, smem_cuda,
-                                             sweep_cuda)
+    from bwa_mem_scale_tpu_torch.ops import (chain, chain_cuda, sal_cuda,
+                                             smem_cuda, sweep_cuda)
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.fma import build_fma_table
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
@@ -3016,7 +3168,7 @@ def phase_kstep(dev, card, tmp, se, pe, al):
         with open(path) as f:
             return [ln for ln in f if not ln.startswith("@PG")]
     ks = kstep_wrappers()
-    counted = {**ks, "sa_walk": smem_cuda.sa_walk_cuda,
+    counted = {**ks, "expand_and_lookup": sal_cuda.expand_and_lookup_cuda,
                "strategy_chase": sweep_cuda.strategy_chase_cuda,
                "chain_seeds": chain_cuda.chain_seeds_cuda,
                "chain_filter": chain_cuda.chain_filter_cuda,
@@ -3052,7 +3204,7 @@ def phase_kstep(dev, card, tmp, se, pe, al):
             "sweep_extend",)
         if any(n[name][0] for name in idle):
             raise SystemExit(f"kstep: the other engine's kernels ran: {n}")
-        for name in ("sa_walk", "chain_seeds", "chain_filter",
+        for name in ("expand_and_lookup", "chain_seeds", "chain_filter",
                      "banded_swa_batch"):
             if n[name][0] < a.batches:
                 raise SystemExit(f"kstep: {name} launched {n[name][0]} "
@@ -3341,7 +3493,7 @@ def phase_readlane(dev, card, tmp, se, pe, al, kst):
     import io
     import torch
     from bwa_mem_scale_tpu_torch import cli
-    from bwa_mem_scale_tpu_torch.ops import (chain_cuda, smem_cuda,
+    from bwa_mem_scale_tpu_torch.ops import (chain_cuda, sal_cuda, smem_cuda,
                                              smem_rl_cuda)
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
@@ -3351,7 +3503,7 @@ def phase_readlane(dev, card, tmp, se, pe, al, kst):
           "strategy": smem_rl_cuda.readlane_strategy_cuda}
     counted = {**rl, "one_pos_machine": smem_cuda.one_pos_machine_cuda,
                "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
-               "sa_walk": smem_cuda.sa_walk_cuda,
+               "expand_and_lookup": sal_cuda.expand_and_lookup_cuda,
                "chain_seeds": chain_cuda.chain_seeds_cuda,
                "chain_filter": chain_cuda.chain_filter_cuda,
                "banded_swa_batch": banded_swa_batch_cuda}
@@ -3389,7 +3541,7 @@ def phase_readlane(dev, card, tmp, se, pe, al, kst):
                                  f"over {a.batches} batches")
         if n["one_pos_machine"][0] or n["seed_strategy_machine"][0]:
             raise SystemExit(f"readlane: the one-hot kernels ran: {n}")
-        for name in ("sa_walk", "chain_seeds", "chain_filter",
+        for name in ("expand_and_lookup", "chain_seeds", "chain_filter",
                      "banded_swa_batch"):
             if n[name][0] < a.batches:
                 raise SystemExit(f"readlane: {name} launched {n[name][0]} "
@@ -3529,7 +3681,7 @@ def mesh_sites():
     return {(align, "banded_swa_batch_cuda"): "banded_swa_batch",
             (smem_oh, "one_pos_machine_cuda"): "one_pos_machine",
             (smem_oh, "seed_strategy_machine_cuda"): "seed_strategy_machine",
-            (sal, "sa_walk_cuda"): "sa_walk",
+            (sal, "expand_and_lookup_cuda"): "expand_and_lookup",
             (align, "chain_seeds_cuda"): "chain_seeds",
             (align, "chain_filter_cuda"): "chain_filter",
             (align, "emf_lookup_cuda"): "emf_lookup"}
@@ -3928,9 +4080,9 @@ def main():
     from bwa_mem_scale_tpu_torch.ops import probe_kernels, smem_cuda
     from bwa_mem_scale_tpu_torch.ops import emf_cuda, seedsw_cuda, sweep_cuda
     from bwa_mem_scale_tpu_torch.ops import ert_cuda, smem_rl_cuda
-    from bwa_mem_scale_tpu_torch.ops import kswa_cuda, kswg_cuda
+    from bwa_mem_scale_tpu_torch.ops import kswa_cuda, kswg_cuda, sal_cuda
     from bwa_mem_scale_tpu_torch.tools import round_cost
-    with ThreadPoolExecutor(12) as ex:          # one nvcc a source, at once
+    with ThreadPoolExecutor(13) as ex:          # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
                   ex.submit(probe_kernels.build, force=True, verbose=True),
                   ex.submit(smem_cuda.build, force=True),
@@ -3942,7 +4094,8 @@ def main():
                   ex.submit(ert_cuda.build, force=True),
                   ex.submit(smem_rl_cuda.build, force=True),
                   ex.submit(kswg_cuda.build, force=True),
-                  ex.submit(kswa_cuda.build, force=True)]
+                  ex.submit(kswa_cuda.build, force=True),
+                  ex.submit(sal_cuda.build, force=True)]
         probes_seconds = builds[1].result()[1]
         for b in builds:
             b.result()
@@ -3969,7 +4122,9 @@ def main():
         f"{os.path.relpath(kswg_cuda.LIB.path, REPO)} in "
         f"{kswg_cuda.LIB.build_seconds:.2f} s; csrc/kswa.cu -> "
         f"{os.path.relpath(kswa_cuda.LIB.path, REPO)} in "
-        f"{kswa_cuda.LIB.build_seconds:.2f} s (in parallel)")
+        f"{kswa_cuda.LIB.build_seconds:.2f} s; csrc/sal.cu -> "
+        f"{os.path.relpath(sal_cuda.LIB.path, REPO)} in "
+        f"{sal_cuda.LIB.build_seconds:.2f} s (in parallel)")
     log(f"[build] one warp's dependent round (tools/round_cost.py: a "
         f"shared-memory load, a shuffle, a ballot), equal to its plain "
         f"model: {round_cost.round_us(dev):.5f} us, the chaining floors' "
@@ -3978,7 +4133,7 @@ def main():
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda",
                            "sweep_cuda", "seedsw_cuda", "emf_cuda",
                            "ert_cuda", "readlane_cuda", "kswg_cuda",
-                           "kswa_cuda")}
+                           "kswa_cuda", "sal_cuda")}
     # each FM-walk and chaining kernel in its int32 (P = int, mangled i)
     # and int64 (P = long long, x) forms; the FM walks' 1-step forms (KS =
     # 1, mangled Li1E) and their k-step forms (int32 only)
@@ -3998,6 +4153,8 @@ def main():
             ("smem_cuda", "seed_strategy_kernelILi2Ei",
              "seed_strategy_kernel<K = 2, int32>"),
             ("smem_cuda", "sa_walk_kernelI{}", "sa_walk_kernel<{}>"),
+            ("sal_cuda", "sal_count_kernelI{}", "sal_count_kernel<{}>"),
+            ("sal_cuda", "sal_walk_kernelI{}", "sal_walk_kernel<{}>"),
             ("chain_cuda", "chain_seeds_kernelI{}", "chain_seeds_kernel<{}>"),
             ("chain_cuda", "chain_filter_kernelI{}", "chain_filter_kernel<{}>"),
             ("sweep_cuda", "sweep_extend_kernelILi1E{}",
@@ -4059,7 +4216,8 @@ def main():
         _, pe = phase_pe(dev, card, tmp)
         wide = phase_int64(dev, card, tmp, se, al, codes, lens,
                            {"one_pos_machine": smem[0],
-                            "seed_strategy_machine": p3, "sa_walk": walk,
+                            "seed_strategy_machine": p3,
+                            "expand_and_lookup": walk,
                             "chain_seeds": seeds, "chain_filter": flt})
         sweep = phase_sweep(dev, card, tmp, se, pe, al, codes, lens,
                             {"one_pos_machine": smem,
@@ -4089,15 +4247,16 @@ def main():
         "ms": smem[0]["ms"], "plain_ms": smem[0]["plain_ms"],
         "bound_ms": smem[0]["bound"][0], "bound_by": smem[0]["bound"][1],
         "library_ms": None}] + [{
-        "name": name, "route": "cuda", "source": "csrc/smem.cu",
+        "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
         "library_ms": None}
-        for name, replaces, r in (
-            ("seed_strategy_machine",
+        for name, source, replaces, r in (
+            ("seed_strategy_machine", "csrc/smem.cu",
              "bwa_mem_scale_tpu/ops/smem_oh.py:619", p3),
-            ("sa_walk", "bwa_mem_scale_tpu/ops/sal.py:23", walk))] + [{
+            ("expand_and_lookup", "csrc/sal.cu",
+             "bwa_mem_scale_tpu/ops/sal.py:23", walk))] + [{
         "name": name, "route": "cuda", "source": "csrc/chain.cu",
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

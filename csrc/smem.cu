@@ -8,7 +8,7 @@
 // - seed_strategy_kernel: SMEM pass 3 (bwtSeedStrategyAllPosOneThread),
 //   one thread a read;
 // - sa_walk_kernel: the SA lookup's LF walk (get_sa_entry_compressed),
-//   one thread a coordinate.
+//   one thread a coordinate (the walk itself is csrc/sal_walk.cuh's).
 // Each replaces a jax.lax.while_loop the TPU runs as one program, through
 // the port's lockstep counterpart in ops/ (tens to hundreds of small
 // PyTorch launches a tick and a host synchronisation every 4-8 ticks).
@@ -126,16 +126,13 @@
 //
 // ---- sa_walk_kernel (SA lookup)
 // Replaces bwa_mem_scale_tpu/ops/sal.py:23 sa_lookup (its LF-walk loops)
-// through ops/sal.py::sa_lookup_plain. One thread a coordinate walks
-// from BWT row sp: a sampled row (sp & mask == 0) gives
-// sa_samples[sp >> compx] + offset; otherwise one checkpoint row gives
-// the base b = BWT[sp] (the mask whose bit 31 - y is set, MSB first, or
-// 4 at the sentinel row, which gives offset) and occ(sp, b), and the
-// walk moves to count[b] + occ with offset + 1. The sample index is
-// clamped to [0, n_samples - 1]; an invalid lane returns 0. The walk is
-// geometric (a row is sampled with p = 2^-compx), so the longest of 16k
-// lanes walks ~60 rows while the mean walks ~8: 128-thread blocks over
-// the SMs, each thread retiring as it finds its sample.
+// through ops/sal.py::sa_lookup_plain. One thread a coordinate walks from
+// its BWT row (csrc/sal_walk.cuh's sa_walk, which csrc/sal.cu's fused SA
+// lookup stage shares); an invalid lane returns 0. The walk is geometric
+// (a row is sampled with p = 2^-compx), so the longest of 16k lanes walks
+// ~60 rows while the mean walks ~8: 128-thread blocks over the SMs, each
+// thread retiring as it finds its sample. This bare walk stays behind
+// sa_lookup; the main path's expand_and_lookup runs csrc/sal.cu instead.
 //
 // ---- the k-step forms (KS = 2, 3; int32 layout only)
 // Replace the JAX machines' `use2` branches (bwa_mem_scale_tpu/ops/
@@ -191,6 +188,7 @@
 // long, in one buffer.
 
 #include "fmi_step.cuh"
+#include "sal_walk.cuh"
 
 namespace {
 
@@ -573,37 +571,7 @@ sa_walk_kernel(Fmi<P> f, const P* __restrict__ samples, P n_samples,
   if (t >= N) return;
   P res = 0;
   int steps = 0;
-  if (valid[t]) {
-    const P mask = ((P)1 << compx) - 1;
-    P sp = pos[t];
-    int offset = 0;
-    for (;;) {
-      ++steps;
-      if ((sp & mask) == 0) {                      // a sampled row
-        P i = sp >> compx;
-        i = i < 0 ? 0 : (i >= n_samples ? n_samples - 1 : i);
-        res = __ldg(samples + i) + offset;
-        break;
-      }
-      const P r = row_of(f, sp);                   // occ_b_and_base
-      const int4* row = f.cp + 2 * (size_t)r;
-      const int4 cnt = __ldg(row);
-      const int4 msk = __ldg(row + 1);
-      const int y = (int)(sp & 31);
-      const unsigned bit = 1u << (31 - y);
-      const int b = ((unsigned)msk.x & bit) ? 0
-                    : ((unsigned)msk.y & bit) ? 1
-                    : ((unsigned)msk.z & bit) ? 2
-                    : ((unsigned)msk.w & bit) ? 3 : 4;
-      if (b == 4) {                                // the sentinel row
-        res = offset;
-        break;
-      }
-      sp = cval(f, b) + row_count(f, sel4(cnt, b), b, n_steps(f, b), r)
-           + __popc((unsigned)sel4(msk, b) & top_bits(y));
-      ++offset;
-    }
-  }
+  if (valid[t]) res = sa_walk(f, samples, n_samples, compx, pos[t], steps);
   out[t] = res;
   steps_out[t] = steps;
 }

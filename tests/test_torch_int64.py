@@ -961,8 +961,9 @@ def test_seed_chain_extend_int64_on_card_equal_to_int32(card):
     from bwa_mem_scale_tpu_torch.pipeline.align import (GpuAligner,
                                                         seed_chain_extend)
     al = GpuAligner(card["idx"], card["dev"], TOpt())
+    from bwa_mem_scale_tpu_torch.ops.sal_cuda import expand_and_lookup_cuda
     wrappers = (smem_cuda.one_pos_machine_cuda,
-                smem_cuda.seed_strategy_machine_cuda, smem_cuda.sa_walk_cuda,
+                smem_cuda.seed_strategy_machine_cuda, expand_and_lookup_cuda,
                 chain_cuda.chain_seeds_cuda, chain_cuda.chain_filter_cuda)
     outs = []
     for fmi in (card["f32"], card["f64"]):

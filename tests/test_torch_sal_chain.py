@@ -7,8 +7,9 @@ The SA walk's CUDA kernel: its CPU twin (``smem_cuda.sa_walk_twin``, the
 kernel's own loop) and the port's ``sa_lookup`` against the JAX
 package's ``sa_lookup`` (plain and staged narrowing), with lanes that
 reach the sentinel row and invalid lanes; on a GPU the kernel against
-the plain version on a 16,384-lane flat list and through
-``expand_and_lookup``.
+the plain version on a 16,384-lane flat list, and ``expand_and_lookup``
+(csrc/sal.cu's kernels, which the main path runs instead of the bare
+walk) against its plain version.
 
 The JAX side is imported inside the fixtures and tests that use it, so
 the CUDA cases also run on a machine without JAX:
@@ -324,11 +325,13 @@ def test_sa_walk_kernel_equal_to_plain(card_sal, compx):
 
 
 @pytest.mark.cuda
-def test_expand_and_lookup_kernel_equal_to_plain(card_sal, monkeypatch):
+def test_expand_and_lookup_kernel_equal_to_plain(card_sal):
     """expand_and_lookup on the 512-read batch's SMEMs (main-path
-    capacities: 512 coordinates a read, the flat list) with the kernel
-    and with the plain walk swapped in: every output equal, one launch."""
+    capacities: 512 coordinates a read, the flat list) through the SA
+    lookup stage's kernels (csrc/sal.cu) and through its plain version:
+    every output equal, one call of the kernel pair, no bare walk."""
     from bwa_mem_scale_tpu_torch.config import MemOptions
+    from bwa_mem_scale_tpu_torch.ops import sal_cuda
     from bwa_mem_scale_tpu_torch.ops.smem_oh import collect_smems_oh
     dev = _cuda()
     fmi = TFmi.from_host(card_sal[0][3], dev)
@@ -338,12 +341,13 @@ def test_expand_and_lookup_kernel_equal_to_plain(card_sal, monkeypatch):
         fmi, codes, lens, min_seed_len=opt.min_seed_len,
         split_len=opt.split_len, split_width=opt.split_width,
         max_mem_intv=opt.max_mem_intv, emit_depth=24, stack_depth=24)
-    before = smem_cuda.sa_walk_cuda.launches
+    before = sal_cuda.expand_and_lookup_cuda.launches
+    walks = smem_cuda.sa_walk_cuda.launches
     got = tsal.expand_and_lookup(fmi, smems, opt.max_occ, 512)
     torch.cuda.synchronize()
-    assert smem_cuda.sa_walk_cuda.launches == before + 1
-    monkeypatch.setattr(tsal, "sa_lookup", tsal.sa_lookup_plain)
-    want = tsal.expand_and_lookup(fmi, smems, opt.max_occ, 512)
+    assert sal_cuda.expand_and_lookup_cuda.launches == before + 1
+    assert smem_cuda.sa_walk_cuda.launches == walks
+    want = tsal.expand_and_lookup_plain(fmi, smems, opt.max_occ, 512)
     for name, a, b in zip(("rbeg", "seed_idx", "coord_valid", "total",
                            "overflow"), got, want):
         assert torch.equal(a, b), name
