@@ -23,6 +23,12 @@ Two layouts, chosen by ``DeviceFMIndex.from_host``:
   a 5-byte SA, a forward-only reference); the arrays the functions
   return are the same, dtypes included.
 
+``DeviceFMIndex.from_host_cached`` keeps the JAX package's host layout
+of such an index in ``<prefix>.devlayout3.npz`` (``_int64_layout``: the
+same name, keys, dtypes and shapes, so either package reads the file the
+other wrote) and builds the device layout above from it: a warm start
+maps the file and skips the host transforms of the counts and samples.
+
 With a k-gram checkpoint table (``index/kstep.py``, int32 layout only),
 ``cp_kstep`` holds it in the device layout ``kstep_rows`` makes: one
 pair of row fetches extends an interval by two or three bases
@@ -41,6 +47,7 @@ callers mask.
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Optional
 
@@ -48,12 +55,20 @@ import numpy as np
 import torch
 
 from ..index.artifacts import FMIndex, CP_SHIFT, CP_MASK
+from ..utils.npzmap import load_npz_mmap
 
 _M32 = 0xFFFFFFFF
 # the high-word steps a base may have on the int64 layout, and the pad of
 # an unused entry (a block no row reaches)
 HI_STEPS = 8
 NO_STEP = 1 << 62
+# past this many bytes the JAX package's cache packs the reference
+# [n/128, 128] (a 1-D operand past 32-bit indices cannot be gathered on a
+# TPU); the file keeps that shape here too
+REF_2D_LIMIT = (1 << 31) - (1 << 20)
+# SA samples combined on the device a chunk at a time (bounds the int64
+# temporaries at genome scale)
+_SA_CHUNK = 1 << 26
 
 
 def host_tensor(a, dtype, device) -> torch.Tensor:
@@ -92,11 +107,17 @@ def hi_steps(cp_count: np.ndarray) -> np.ndarray:
     high word (count >> 32) of its checkpoint count reaches 1, 2, ...
     (NO_STEP past the last). ValueError where the counts fall along the
     BWT or a base needs more than HI_STEPS steps."""
-    hi = np.asarray(cp_count, np.int64) >> 32
+    return steps_of_high_words(np.asarray(cp_count, np.int64) >> 32)
+
+
+def steps_of_high_words(hi: np.ndarray) -> np.ndarray:
+    """hi_steps from the counts' high words `hi` [nb, 4], of any integer
+    dtype (the cache's uint8 ``cp_hi`` is searched as it is)."""
     out = np.full((4, HI_STEPS), NO_STEP, np.int64)
     if not hi.size:
         return out
-    if (hi < 0).any() or (np.diff(hi, axis=0) < 0).any():
+    if any((hi[:, c] < 0).any() or (hi[1:, c] < hi[:-1, c]).any()
+           for c in range(4)):
         raise ValueError("checkpoint counts fall along the BWT")
     for c in range(4):
         n = int(hi[-1, c])
@@ -200,6 +221,124 @@ class DeviceFMIndex:
             hi_counts=([] if steps is None else
                        [int((s != NO_STEP).sum()) for s in steps]),
             **kstep,
+        )
+
+    @staticmethod
+    def _pack_ref(ref: np.ndarray) -> np.ndarray:
+        """The JAX package's device reference: [n] bytes, zero-padded to a
+        multiple of 128 from 4096 bytes on, and packed [n/128, 128] past
+        REF_2D_LIMIT."""
+        if ref.shape[0] <= REF_2D_LIMIT:
+            if ref.shape[0] >= 4096:
+                pad = (-ref.shape[0]) % 128
+                if pad:
+                    ref = np.concatenate(
+                        [ref, np.zeros(pad, dtype=ref.dtype)])
+            return ref
+        pad = (-ref.shape[0]) % 128
+        if pad:
+            ref = np.concatenate([ref, np.zeros(pad, dtype=ref.dtype)])
+        return ref.reshape(-1, 128)
+
+    @classmethod
+    def _int64_layout(cls, idx: FMIndex) -> dict:
+        """The JAX package's host layout of an int64-position index, the
+        arrays of the .devlayout3.npz cache: ``cp_fused32`` [nb, 8] uint32
+        (the counts' low words | the masks), ``cp_hi`` [nb, 4] uint8 (the
+        counts' high bytes), the SA samples' high byte ``sa_ms`` uint8
+        and low word ``sa_ls`` uint32, and the forward strand ``ref``
+        (``_pack_ref``)."""
+        cnt = np.ascontiguousarray(idx.cp_count, dtype=np.int64)
+        fused32 = np.concatenate(
+            [(cnt & _M32).astype(np.uint32),
+             np.asarray(idx.cp_mask).view(np.uint32).reshape(-1, 4)],
+            axis=1)
+        sa = np.ascontiguousarray(idx.sa_samples, dtype=np.int64)
+        return dict(
+            cp_fused32=fused32,
+            cp_hi=(cnt >> 32).astype(np.uint8),
+            sa_ms=(sa >> 32).astype(np.uint8),
+            sa_ls=(sa & _M32).astype(np.uint32),
+            ref=cls._pack_ref(
+                np.asarray(idx.ref_string)[: idx.bns.l_pac]),
+        )
+
+    @classmethod
+    def from_host_cached(cls, idx: FMIndex, device,
+                         cp2=None) -> "DeviceFMIndex":
+        """from_host, with the host layout of an index whose positions
+        pass int32 kept in ``<source_prefix>.devlayout3.npz`` (written
+        first when missing: a temporary name in the same directory, then
+        renamed) and the device layout built from that file, tensor for
+        tensor equal to ``from_host(force_int64=True)``. An int32 index,
+        or one with no source_prefix (attached to a store), takes
+        from_host; a k-step table on the wide layout raises, as in the
+        JAX package."""
+        prefix = getattr(idx, "source_prefix", None)
+        if idx.pos_fits_int32 or not prefix:
+            return cls.from_host(idx, device, cp2=cp2)
+        if cp2 is not None:
+            raise ValueError("k-step table is int32-path only")
+        path = prefix + ".devlayout3.npz"
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            try:
+                with open(tmp, "wb") as f:
+                    np.savez(f, **cls._int64_layout(idx))
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+        return cls._from_layout(idx, load_npz_mmap(path), path, device)
+
+    @classmethod
+    def _from_layout(cls, idx: FMIndex, z: dict, path: str,
+                     device) -> "DeviceFMIndex":
+        """The int64 device layout from the cache's arrays `z`; a
+        ValueError naming `path` when they do not fit the index."""
+        nb = np.asarray(idx.cp_count).shape[0]
+        ns = len(idx.sa_samples)
+        l_pac = int(idx.bns.l_pac)
+        n_ref = l_pac + (-l_pac) % 128 if l_pac >= 4096 else l_pac
+        want = dict(cp_fused32=((nb, 8), np.uint32),
+                    cp_hi=((nb, 4), np.uint8), sa_ms=((ns,), np.uint8),
+                    sa_ls=((ns,), np.uint32),
+                    ref=((n_ref,) if l_pac <= REF_2D_LIMIT
+                         else (n_ref // 128, 128), np.uint8))
+        for k, (shape, dt) in want.items():
+            if k not in z or z[k].shape != shape or z[k].dtype != dt:
+                got = (f"{z[k].dtype} {z[k].shape}" if k in z
+                       else "missing")
+                raise ValueError(
+                    f"{path}: {k} is {got}, the index needs "
+                    f"{np.dtype(dt)} {shape} (a stale device-layout "
+                    f"cache; remove it to rebuild)")
+        dev = torch.device(device)
+        steps = steps_of_high_words(z["cp_hi"])
+        ms = host_tensor(z["sa_ms"], np.uint8, dev)
+        ls = host_tensor(z["sa_ls"].view(np.int32), np.int32, dev)
+        sa = torch.empty(ns, dtype=torch.int64, device=dev)
+        for a in range(0, ns, _SA_CHUNK):
+            b = min(a + _SA_CHUNK, ns)
+            sa[a:b] = (ms[a:b].long() << 32) | (ls[a:b].long() & _M32)
+        del ms, ls
+        fw = host_tensor(z["ref"].reshape(-1)[:l_pac], np.uint8, dev)
+        ref = torch.empty(2 * l_pac, dtype=torch.uint8, device=dev)
+        ref[:l_pac] = fw
+        ref[l_pac:] = 3 - fw.flip(0)
+        return cls(
+            count=host_tensor(idx.count, np.int64, dev),
+            cp_fused=host_tensor(z["cp_fused32"].view(np.int32), np.int32,
+                                 dev),
+            cp_hi_steps=torch.as_tensor(steps, device=dev),
+            sa_samples=sa,
+            ref=ref,
+            sentinel_index=int(idx.sentinel_index),
+            sa_compx=int(idx.sa_compx),
+            l_pac=l_pac,
+            seq_len=int(idx.seq_len),
+            count_host=[int(v) for v in np.asarray(idx.count)],
+            hi_counts=[int((s != NO_STEP).sum()) for s in steps],
         )
 
 

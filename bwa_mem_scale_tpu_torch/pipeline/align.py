@@ -13,7 +13,10 @@ Counterpart of ``bwa_mem_scale_tpu/pipeline/align.py``. Per batch:
           package; for pairs, its one-call PE stage (insert-size
           stats, mate rescue, pairing, records: ``finalize_pe_rows``),
           or the Python PE path (``pipeline/pe.py``) for a batch the
-          native stage declines.
+          native stage declines. Under ``BWA_TPU_NO_NATIVE_FINALIZE``
+          the JAX package's Python route instead: ``ref/finalize.py``
+          and ``pipeline/finalize.py`` for single reads, the Python PE
+          path for pairs, the Python SAM writer for both.
 
 ``GpuAligner`` carries the surface that ``SeStream`` and the driver
 call: ``dispatch_batch`` / ``fetch_extend`` / ``finalize_stage_*`` for
@@ -441,7 +444,11 @@ class GpuAligner:
     def __init__(self, idx: FMIndex, device, opt: MemOptions = None,
                  cfg: PipelineConfig = None, emf=None, fma=None, ert=None,
                  cp2=None, mesh: Optional[Mesh] = None):
-        if not native_finalize.available():
+        # under BWA_TPU_NO_NATIVE_FINALIZE records take the Python path, as
+        # in the JAX package; without it a library that fails to load or
+        # build stops the run
+        if not native_finalize.switched_off() and \
+                not native_finalize.available():
             raise RuntimeError(
                 "the native finalizer (native/libfinalize.so) is required: "
                 "build it with `make -C native`")
@@ -459,8 +466,9 @@ class GpuAligner:
             self.RETRY_BATCH = 512
             self.RETRY2_BATCH = 16
         # with the k-gram checkpoint table (index/kstep.py), every FM walk of
-        # every tier extends K bases a row fetch
-        self.fmi = DeviceFMIndex.from_host(idx, self.device, cp2=cp2)
+        # every tier extends K bases a row fetch; past int32 positions the
+        # layout comes from the index's .devlayout3.npz cache
+        self.fmi = DeviceFMIndex.from_host_cached(idx, self.device, cp2=cp2)
         self.dbns = DeviceBns.from_host(idx.bns, self.device)
         # the FMA ladder table (ops/fma.py) at the index's position dtype,
         # each sweep lane's start; every tier takes it
@@ -479,7 +487,7 @@ class GpuAligner:
         # device of the mesh (a repeated device shares one)
         self._replicas = {}
         for dev in (mesh.distinct()[1:] if mesh is not None else ()):
-            fmi_d = DeviceFMIndex.from_host(idx, dev, cp2=cp2)
+            fmi_d = DeviceFMIndex.from_host_cached(idx, dev, cp2=cp2)
             self._replicas[dev] = (
                 fmi_d, DeviceBns.from_host(idx.bns, dev),
                 fma.to_device(fmi_d.pos_dtype, dev) if fma is not None
@@ -847,34 +855,45 @@ class GpuAligner:
     # -- host finalize ---------------------------------------------------
     def finalize_stage_a(self, handle, id_offset: int = 0, read_ids=None,
                          sam_ctx=None):
-        """Fetch (if not yet fetched) and run the host record pipeline.
-        With sam_ctx (names/quals/rg_id) the native finalizer composes
-        SAM text; stage_b then returns bytes per read."""
+        """Fetch (if not yet fetched) and run the host record pipeline:
+        the native finalizer, or, under BWA_TPU_NO_NATIVE_FINALIZE and for
+        a batch the native arena declines, the JAX package's Python route
+        (every read's regions, the retry ladder inline, dedup and primary
+        marking, then BatchFinalizer.begin_batch's CIGAR jobs;
+        complete_batch in stage b). With sam_ctx (names/quals/rg_id) the
+        records become SAM text; stage_b then returns bytes per read."""
+        from .finalize import BatchFinalizer
         codes, lens, _, out, pf = self.fetch_extend(handle)
         pf = pf["slot"]
         pm_records = self._perfect_records(pf, codes, lens)
-        nat = self._finalize_native(pf, codes, lens, id_offset, read_ids,
-                                    pm_records, sam_ctx=sam_ctx)
-        if nat is not None:
-            return nat
-        # the native arena declined this batch: Python record path on
-        # the same regions, CIGARs from the native kswg library
-        from .finalize import BatchFinalizer
-        all_regs, overflow = self._regs_from_device(out, codes,
-                                                    prefetched=pf)
+        if native_finalize.available():
+            nat = self._finalize_native(pf, codes, lens, id_offset, read_ids,
+                                        pm_records, sam_ctx=sam_ctx)
+            if nat is not None:
+                return nat
+        with PROFILER.phase("fetch_regs"):
+            all_regs, overflow = self._regs_from_device(out, codes,
+                                                        prefetched=pf)
         if overflow.any():
             with PROFILER.phase("overflow_retry"):
                 all_regs = self._apply_overflow_retry(all_regs, overflow,
                                                       codes, lens)
+        B = codes.shape[0]
         rids = (np.asarray(read_ids, dtype=np.int64) if read_ids is not None
-                else id_offset + np.arange(codes.shape[0], dtype=np.int64))
-        recs = self._records_from_regs(
-            codes, lens, np.ones(codes.shape[0], bool), all_regs, rids)
-        recs.update(pm_records)
-        records = [recs[i] for i in range(codes.shape[0])]
+                else id_offset + np.arange(B, dtype=np.int64))
+        with PROFILER.phase("dedup_primary"):
+            queries, finalized = self._dedup_primary(
+                codes, lens, range(B), all_regs, rids)
+        # the CIGAR DP runs here, in the native library or on the
+        # aligner's device (whose stream its results' copy waits on), so
+        # stage b only assembles the records
+        fin = BatchFinalizer(self.opt, self.idx, self.device)
+        with PROFILER.phase("cigar_begin"):
+            stage = ("py", fin, fin.begin_batch(queries, finalized),
+                     pm_records)
         if sam_ctx is not None:
-            return ("pysam", records, sam_ctx, codes, lens)
-        return ("native", records, {})
+            return ("pysam", stage, sam_ctx, codes, lens)
+        return stage
 
     def _perfect_records(self, pf, codes, lens) -> dict:
         """The device probe's hits as records (mem_perfect2sam), counted
@@ -967,14 +986,13 @@ class GpuAligner:
         return self._records_from_regs(codes, lens, overflow, all_regs,
                                        rids_arr)
 
-    def _records_from_regs(self, codes, lens, which, all_regs, rids_arr):
-        """Dedup/primary/records for the reads marked in `which` given
-        raw region lists. Returns {batch_idx: [Aln, ...]}."""
-        from .finalize import BatchFinalizer
+    def _dedup_primary(self, codes, lens, reads, all_regs, rids_arr):
+        """(queries, finalized regions) of `reads`: each read's regions
+        sorted, deduplicated and patched, primaries marked (the read's id
+        breaks ties), reordered under MEM_F_PRIMARY5."""
         opt, bns, ref = self.opt, self.idx.bns, self.idx.ref_string
-        ov = np.flatnonzero(which).tolist()
         queries, finalized = [], []
-        for i in ov:
+        for i in reads:
             query = codes[i, : lens[i]].astype(np.uint8)
             queries.append(query)
             regs = sort_dedup_patch(opt, bns, ref, query, all_regs[i])
@@ -982,8 +1000,18 @@ class GpuAligner:
             if opt.flag & MEM_F_PRIMARY5:
                 reorder_primary5(opt.T, regs)
             finalized.append(regs)
-        recs = BatchFinalizer(opt, self.idx, self.device).records_for_batch(
-            queries, finalized)
+        return queries, finalized
+
+    def _records_from_regs(self, codes, lens, which, all_regs, rids_arr):
+        """Dedup/primary/records for the reads marked in `which` given
+        raw region lists. Returns {batch_idx: [Aln, ...]}."""
+        from .finalize import BatchFinalizer
+        ov = np.flatnonzero(which).tolist()
+        queries, finalized = self._dedup_primary(codes, lens, ov, all_regs,
+                                                 rids_arr)
+        recs = BatchFinalizer(self.opt, self.idx,
+                              self.device).records_for_batch(queries,
+                                                             finalized)
         return {i: recs[j] for j, i in enumerate(ov)}
 
     def finalize_stage_b(self, stage):
@@ -991,12 +1019,17 @@ class GpuAligner:
             return stage[1]
         if stage[0] == "pysam":
             from ..io.sam import compose_sam_python
-            _, recs, sam_ctx, codes, lens = stage
+            _, inner, sam_ctx, codes, lens = stage
             return [compose_sam_python(self.opt, self.idx.bns,
                                        codes[i, : lens[i]], r, sam_ctx, i)
                     if r is not None else None
-                    for i, r in enumerate(recs)]
-        _, out_records, pm_records = stage
+                    for i, r in enumerate(self.finalize_stage_b(inner))]
+        if stage[0] == "py":
+            _, fin, state, pm_records = stage
+            with PROFILER.phase("cigar_complete"):
+                out_records = fin.complete_batch(state)
+        else:
+            _, out_records, pm_records = stage
         for i, recs in pm_records.items():
             out_records[i] = recs
         return out_records
@@ -1099,9 +1132,11 @@ class GpuAligner:
         native stage declines (its record capacity, CIGAR stride or
         MD/XA/SAM arena too small) takes the Python PE path, as in the
         JAX package."""
-        # BWA_TPU_NO_NATIVE_PE sends every batch down the Python PE path,
-        # the JAX package's switch
-        out = (None if os.environ.get("BWA_TPU_NO_NATIVE_PE")
+        # BWA_TPU_NO_NATIVE_PE (and BWA_TPU_NO_NATIVE_FINALIZE, which
+        # switches the library off) sends every batch down the Python PE
+        # path, the JAX package's switches
+        out = (None if (os.environ.get("BWA_TPU_NO_NATIVE_PE")
+                        or not native_finalize.available())
                else self._pe_post_native(fetched, id_offset, sam_ctx))
         if out is not None:
             return out

@@ -180,8 +180,11 @@ def run_alignment(aligner, fastq_paths: List[str], out,
         write_checkpoint()
 
     def pe_sam_ctx(batch):
-        """Native SAM text unless -C needs FASTQ comments appended."""
-        if getattr(opt, "copy_comment", False):
+        """Native SAM text unless -C needs FASTQ comments appended or the
+        native finalizer is switched off (BWA_TPU_NO_NATIVE_FINALIZE):
+        then the records go through aln_to_sam_line."""
+        if (not native_finalize.available()
+                or getattr(opt, "copy_comment", False)):
             return None
         return dict(names=[r.name.encode() for r in batch.reads],
                     quals=[r.qual.encode() if r.qual else b""

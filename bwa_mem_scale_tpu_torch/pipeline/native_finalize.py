@@ -32,8 +32,14 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 _CP = ctypes.c_char_p
 
 
+def switched_off() -> bool:
+    """BWA_TPU_NO_NATIVE_FINALIZE is set: records and SAM text take the
+    Python path (the JAX package's switch)."""
+    return bool(os.environ.get("BWA_TPU_NO_NATIVE_FINALIZE"))
+
+
 def available() -> bool:
-    if os.environ.get("BWA_TPU_NO_NATIVE_FINALIZE"):
+    if switched_off():
         return False
     try:
         _load()

@@ -38,9 +38,7 @@ Phases, in order; any failure exits non-zero:
               and both chaining kernels at least once a batch, the bare
               SA walk (sa_walk_kernel) never; reads/s, and per-stage
               seconds (the chain stage among them) from a second
-              `mem -v 4` run with synchronised stage timers, and the sal
-              stage's from a third through the earlier stage (the tensor
-              glue around the bare walk).
+              `mem -v 4` run with synchronised stage timers.
   5. slice:   seed_chain_extend on one batch of phase 4 with the kernels
               and with the plain BSW, with the plain SMEM passes 1 and
               2, with the plain pass 3 and SA lookup, and with the plain
@@ -114,7 +112,13 @@ Phases, in order; any failure exits non-zero:
               moved to two 3.1 Gbp genomes (positions past 2^31, reverse
               ones past 2^32, a seed over the strands' junction), each
               against its plain version; the layout's device bytes and
-              hg38's, reckoned.
+              hg38's, reckoned. The device-layout cache: SE `mem` on a
+              copy of phase 4's index whose seq_len is 2^31, cold (it
+              writes big.devlayout3.npz) and warm (it reads it), each SAM
+              body byte-equal to phase 4's and each int64 form launched
+              every batch; each run's index load beside
+              from_host(force_int64=True)'s; the cached layout equal to
+              from_host(force_int64=True) on the card, tensor for tensor.
   9. sweep:   the position-parallel sweep engine with the FMA ladder
               table (csrc/sweep.cu): `smem-table` (K = 11) through the
               CLI on the card, its seconds and the table's device bytes,
@@ -246,6 +250,15 @@ Phases, in order; any failure exits non-zero:
               floor (the longest job's rows x a row step measured in the
               run), kernel and plain times; (e) tools/multichip.py on the
               mesh.
+ 16. finalize: the Python finalize path (BWA_TPU_NO_NATIVE_FINALIZE: the
+              JAX package's Python record path and SAM writer): phase
+              4's reads and phase 7's pairs through `mem`, alone and with
+              BWA_TPU_NO_NATIVE_KSWG (the CIGAR DP on the card); each
+              run meets phase 4's or phase 7's gate, launches each
+              main-path kernel at least once a device batch (passes 1-2
+              twice) and the bare SA walk never, the CIGAR DP kernel
+              exactly when _KSWG is set; reads/s beside the native run's
+              and the SAM lines that differ from it.
 
 Prints the kernel JSON line (all forty kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
@@ -509,6 +522,21 @@ def check_sam(path, emf_hit, pos, is_rev):
         raise SystemExit("mem: fewer than 95% of primaries placed")
 
 
+def main_path_wrappers():
+    """{kernel name: wrapper} of the main path's kernels (phase 4's), the
+    bare SA walk (never launched there) and the CIGAR DP."""
+    from bwa_mem_scale_tpu_torch.ops import (bsw_cuda, chain_cuda, kswg_cuda,
+                                             sal_cuda, smem_cuda)
+    return {"banded_swa_batch": bsw_cuda.banded_swa_batch_cuda,
+            "one_pos_machine": smem_cuda.one_pos_machine_cuda,
+            "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
+            "expand_and_lookup": sal_cuda.expand_and_lookup_cuda,
+            "sa_walk": smem_cuda.sa_walk_cuda,
+            "chain_seeds": chain_cuda.chain_seeds_cuda,
+            "chain_filter": chain_cuda.chain_filter_cuda,
+            "ksw_global_batch": kswg_cuda.ksw_global_batch_cuda}
+
+
 def phase_mem(dev, card, tmp):
     import torch
     from bwa_mem_scale_tpu_torch import cli
@@ -516,13 +544,7 @@ def phase_mem(dev, card, tmp):
     from bwa_mem_scale_tpu_torch.index.perfect import (
         emf_lookup_host, load_perfect_table)
     from bwa_mem_scale_tpu_torch.index.artifacts import load_index
-    from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
-    from bwa_mem_scale_tpu_torch.ops.chain_cuda import (chain_filter_cuda,
-                                                        chain_seeds_cuda)
-    from bwa_mem_scale_tpu_torch.ops.sal_cuda import expand_and_lookup_cuda
-    from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
-        one_pos_machine_cuda, sa_walk_cuda, seed_strategy_machine_cuda)
     codes, lens, pos, is_rev = write_inputs(tmp)
     g, fq = os.path.join(tmp, "g"), os.path.join(tmp, "r.fq")
     t0 = time.perf_counter()
@@ -535,26 +557,16 @@ def phase_mem(dev, card, tmp):
     mem_argv = [g, fq, "-o", os.path.join(tmp, "out.sam"),
                 "--device", "cuda", "--batch-reads", str(BATCH)]
 
-    banded_swa_batch_cuda.launches = 0          # main path starts here
-    one_pos_machine_cuda.launches = 0
-    seed_strategy_machine_cuda.launches = 0
-    expand_and_lookup_cuda.launches = 0
-    sa_walk_cuda.launches = 0
-    chain_seeds_cuda.launches = 0
-    chain_filter_cuda.launches = 0
+    wrappers = main_path_wrappers()
+    for w in wrappers.values():                 # main path starts here
+        w.launches = 0
     PROFILER.totals.clear()
     t0 = time.perf_counter()
     al = cli.mem(mem_argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     index_load = PROFILER.totals["index_load"]
-    launches = {"banded_swa_batch": banded_swa_batch_cuda.launches,
-                "one_pos_machine": one_pos_machine_cuda.launches,
-                "seed_strategy_machine": seed_strategy_machine_cuda.launches,
-                "expand_and_lookup": expand_and_lookup_cuda.launches,
-                "sa_walk": sa_walk_cuda.launches,
-                "chain_seeds": chain_seeds_cuda.launches,
-                "chain_filter": chain_filter_cuda.launches}
+    launches = {n: w.launches for n, w in wrappers.items()}
     # main path ends here
 
     pt = load_perfect_table(g + ".emf101.npz")
@@ -593,17 +605,8 @@ def phase_mem(dev, card, tmp):
     log(f"[mem -v 4] synchronised stage seconds over {al4.batches} batches:"
         f" seed {sec['seed']:.3f}, sal {sec['sal']:.3f}, chain "
         f"{sec['chain']:.3f}, bsw {sec['bsw']:.3f}  [{card}]")
-    with earlier_sal_stage():
-        sec0 = cli.mem(mem_argv + ["-v", "4"]).prof.seconds
-    log(f"[mem -v 4] the sal stage over {al4.batches} batches: "
-        f"{sec['sal']:.4f} s through csrc/sal.cu's kernels, "
-        f"{sec0['sal']:.4f} s through the earlier stage (the tensor glue "
-        f"around the bare walk, sa_walk_kernel); seed {sec0['seed']:.3f}, "
-        f"chain {sec0['chain']:.3f}, bsw {sec0['bsw']:.3f} in that run  "
-        f"[{card}]")
     first = np.flatnonzero(~emf_hit)[:BATCH]
     se = dict(argv=mem_argv, wall=wall, batches=al.batches, seconds=dict(sec),
-              sal_before=sec0["sal"],
               index_load=index_load, emf_hits=al.emf_hits, codes=codes,
               lens=lens, pos=pos, is_rev=is_rev, emf_hit=emf_hit)
     return launches, al, codes[first], lens[first], se
@@ -838,26 +841,6 @@ def sal_launch(dev, card, args, batch="the batch"):
     log_walk(card, f"{what} (N={N} lanes, {n_valid} valid, sa_compx "
              f"{args[0].sa_compx})", r, f"{r['steps']} iterations")
     return r
-
-
-@contextlib.contextmanager
-def earlier_sal_stage():
-    """expand_and_lookup runs the port's earlier SA lookup stage: the
-    plain version's tensor glue around the bare walk (sa_lookup: one
-    sa_walk_kernel launch), as before csrc/sal.cu."""
-    from bwa_mem_scale_tpu_torch.ops import sal
-    real = (sal.expand_and_lookup_cuda, sal.sa_lookup_plain)
-
-    def walk(fmi, pos, valid, stats=None):     # the earlier sa_lookup
-        return (sal.sa_walk_cuda(fmi, pos, valid, stats) if fmi.sa_compx
-                else real[1](fmi, pos, valid, stats))
-
-    sal.expand_and_lookup_cuda = sal.expand_and_lookup_plain
-    sal.sa_lookup_plain = walk
-    try:
-        yield
-    finally:
-        sal.expand_and_lookup_cuda, sal.sa_lookup_plain = real
 
 
 def sal_stage_launch(dev, card, args, kw, batch="the batch"):
@@ -1251,39 +1234,23 @@ def phase_pe(dev, card, tmp):
     from bwa_mem_scale_tpu_torch.index.perfect import (
         emf_lookup_host, load_perfect_table)
     from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
-    from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
-    from bwa_mem_scale_tpu_torch.ops.chain_cuda import (chain_filter_cuda,
-                                                        chain_seeds_cuda)
     from bwa_mem_scale_tpu_torch.ops.emf import FW_MATCHED, RC_MATCHED
-    from bwa_mem_scale_tpu_torch.ops.sal_cuda import expand_and_lookup_cuda
-    from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
-        one_pos_machine_cuda, sa_walk_cuda, seed_strategy_machine_cuda)
     g, sam = os.path.join(tmp, "g"), os.path.join(tmp, "pe.sam")
     idx = load_index(g)
     codes, lens, pos, is_rev = write_pairs(tmp, idx.bns)
     PROFILER.totals.clear()
     PROFILER.counts.clear()
 
-    banded_swa_batch_cuda.launches = 0          # PE path starts here
-    one_pos_machine_cuda.launches = 0
-    seed_strategy_machine_cuda.launches = 0
-    expand_and_lookup_cuda.launches = 0
-    sa_walk_cuda.launches = 0
-    chain_seeds_cuda.launches = 0
-    chain_filter_cuda.launches = 0
+    wrappers = main_path_wrappers()
+    for w in wrappers.values():                 # PE path starts here
+        w.launches = 0
     pe_argv = [g, os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq"),
                "-o", sam, "--device", "cuda", "--batch-reads", str(BATCH)]
     t0 = time.perf_counter()
     al = cli.mem(pe_argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"banded_swa_batch": banded_swa_batch_cuda.launches,
-                "one_pos_machine": one_pos_machine_cuda.launches,
-                "seed_strategy_machine": seed_strategy_machine_cuda.launches,
-                "expand_and_lookup": expand_and_lookup_cuda.launches,
-                "sa_walk": sa_walk_cuda.launches,
-                "chain_seeds": chain_seeds_cuda.launches,
-                "chain_filter": chain_filter_cuda.launches}
+    launches = {n: w.launches for n, w in wrappers.items()}
     # PE path ends here
 
     pt = load_perfect_table(g + ".emf101.npz")
@@ -1353,6 +1320,109 @@ def forced_int64():
         yield
     finally:
         DeviceFMIndex.from_host = real
+
+
+def big_index(tmp, prefix):
+    """A copy of the index at `prefix` whose seq_len alone passes int32
+    (2^31), beside a link to its EMF table: its positions take the int64
+    layout by the index's own count, and `mem` keeps that layout in
+    big.devlayout3.npz. Returns the copy's prefix."""
+    big = os.path.join(tmp, "big")
+    z = np.load(prefix + ".tpuidx.npz")
+    arrs = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(arrs["meta"]).decode())
+    meta["seq_len"] = 1 << 31
+    arrs["meta"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez(big + ".tpuidx.npz", **arrs)
+    os.symlink(prefix + f".emf{READ_LEN}.npz", big + f".emf{READ_LEN}.npz")
+    return big
+
+
+def same_fmi(a, b):
+    """Two DeviceFMIndex objects equal field for field (tensors in dtype,
+    shape and value)."""
+    import dataclasses
+    import torch
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if (x is None or y is None or x.dtype != y.dtype
+                    or x.shape != y.shape or not torch.equal(x, y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def sam_body(path):
+    """A SAM file's lines but its @PG line."""
+    with open(path) as f:
+        return [ln for ln in f if not ln.startswith("@PG")]
+
+
+def phase_cache(dev, card, tmp, se, wrappers):
+    """Phase 8's device-layout cache: `mem` on big_index's copy of phase
+    4's index cold (the cache written) and warm (read), each SAM body
+    byte-equal to phase 4's, each int64 form launched every batch; each
+    run's index load beside from_host(force_int64=True)'s; the warm
+    layout equal to from_host(force_int64=True) on the card."""
+    import torch
+    from bwa_mem_scale_tpu_torch import cli
+    from bwa_mem_scale_tpu_torch.index.artifacts import load_index
+    from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
+    big = big_index(tmp, se["argv"][0])
+    cache = big + ".devlayout3.npz"
+    body4 = sam_body(se["argv"][3])
+    loads, walls = {}, {}
+    for run in ("cold", "warm"):
+        if (run == "cold") == os.path.exists(cache):
+            raise SystemExit(f"int64 cache: {run} run, the cache "
+                             f"{'present' if run == 'cold' else 'missing'}")
+        out = os.path.join(tmp, f"big_{run}.sam")
+        PROFILER.totals.clear()
+        for w in wrappers.values():             # the cached path starts here
+            w.launches = w.launches64 = 0
+        t0 = time.perf_counter()
+        al = cli.mem([big, se["argv"][1], "-o", out, *se["argv"][4:]])
+        torch.cuda.synchronize()
+        walls[run] = time.perf_counter() - t0
+        launches = {n: w.launches64 for n, w in wrappers.items()}
+        # the cached path ends here
+        loads[run] = PROFILER.totals["index_load"]
+        if sam_body(out) != body4:
+            raise SystemExit(f"int64 cache: the {run} SAM differs from "
+                             f"phase 4's")
+        for name, n in launches.items():
+            want = (2 if name == "one_pos_machine" else 1) * al.batches
+            if n < want:
+                raise SystemExit(f"int64 cache: {name}'s int64 form "
+                                 f"launched {n} times over {al.batches} "
+                                 f"batches in the {run} run")
+    idx = load_index(big)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forced = DeviceFMIndex.from_host(idx, dev, force_int64=True)
+    torch.cuda.synchronize()
+    t_forced = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = DeviceFMIndex.from_host_cached(idx, dev)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    if not (same_fmi(warm, forced) and same_fmi(al.fmi, forced)):
+        raise SystemExit("int64 cache: the cached layout differs from "
+                         "from_host(force_int64=True)")
+    log(f"[int64 cache] mem on phase 4's index with seq_len 2^31: SAM "
+        f"bodies cold and warm byte-equal to phase 4's; index load (mem's "
+        f"PROFILER index_load: index, EMF table, aligner) cold "
+        f"{loads['cold']:.3f} s (the cache written, "
+        f"{os.path.getsize(cache)} bytes), warm {loads['warm']:.3f} s; "
+        f"{N_READS / walls['cold']:.1f} / {N_READS / walls['warm']:.1f} "
+        f"reads/s; the layout alone: from_host(force_int64=True) "
+        f"{t_forced:.4f} s, from_host_cached warm {t_warm:.4f} s, equal "
+        f"tensor for tensor on the card  [{card}]")
+    return dict(cold=loads["cold"], warm=loads["warm"], forced=t_forced,
+                warm_layout=t_warm)
 
 
 def int64_wrappers():
@@ -1618,10 +1688,7 @@ def phase_int64(dev, card, tmp, se, al, codes, lens, slice32):
     if al64.fmi.pos_dtype != torch.int64:
         raise SystemExit("int64: the forced run did not take the layout")
 
-    def body(path):
-        with open(path) as f:
-            return [ln for ln in f if not ln.startswith("@PG")]
-    if body(out) != body(se["argv"][3]):
+    if sam_body(out) != sam_body(se["argv"][3]):
         raise SystemExit("int64: the SE SAM differs from phase 4's")
     for name, (n, n64) in launches.items():
         want = (2 if name == "one_pos_machine" else 1) * al64.batches
@@ -1641,6 +1708,7 @@ def phase_int64(dev, card, tmp, se, al, codes, lens, slice32):
         + ", ".join(f"{k} {sec[k]:.3f} ({s32[k]:.3f})"
                     for k in ("seed", "sal", "chain", "bsw"))
         + f"  [{card}]")
+    cache = phase_cache(dev, card, tmp, se, wrappers)
 
     fmi64 = DeviceFMIndex.from_host(al.idx, dev, force_int64=True)
     c = torch.as_tensor(codes, device=dev)
@@ -1675,6 +1743,7 @@ def phase_int64(dev, card, tmp, se, al, codes, lens, slice32):
         + f"; {sum(hg38.values()) / 1e9:.2f} GB of the card's 80 GB")
     log(f"[int64] phase 8 took {time.perf_counter() - t0:.1f} s")
     res["launches"] = {k: v[1] for k, v in launches.items()}
+    res["cache"] = cache
     return res
 
 
@@ -1909,9 +1978,6 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
         f"each sweep `mem` below pays in its index load  [{card}]")
     del dev_table
 
-    def body(p):
-        with open(p) as f:
-            return [ln for ln in f if not ln.startswith("@PG")]
     sw = sweep_wrappers()
     others = {"one_pos_machine": smem_cuda.one_pos_machine_cuda,
               "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
@@ -1959,7 +2025,7 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
     argv = [g, se["argv"][1], "-o", os.path.join(tmp, "sweep.sam"),
             *se["argv"][4:], "--seed-engine", "sweep"]
     al_s, wall, launches = run(argv)
-    if body(argv[3]) != body(se["argv"][3]):
+    if sam_body(argv[3]) != sam_body(se["argv"][3]):
         raise SystemExit("sweep: the SE SAM differs from phase 4's")
     per = {k: float(v) / al_s.batches for k, v in sorted(al_s.stats.items())
            if k.startswith(("sweep", "chase"))}
@@ -1981,7 +2047,7 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
     argv64 = [g, se["argv"][1], "-o", os.path.join(tmp, "sweep64.sam"),
               *se["argv"][4:], "--seed-engine", "sweep"]
     al64, wall64, launches64 = run(argv64, wide=True)
-    if al64.fmi.pos_dtype != torch.int64 or body(argv64[3]) != body(
+    if al64.fmi.pos_dtype != torch.int64 or sam_body(argv64[3]) != sam_body(
             se["argv"][3]):
         raise SystemExit("sweep: the forced int64 SE SAM differs from phase "
                          "4's")
@@ -1992,7 +2058,7 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
     pe_argv = [*pe["argv"][:3], "-o", pe_sam, *pe["argv"][5:],
                "--seed-engine", "sweep"]
     al_p, wall_p, launches_p = run(pe_argv)
-    if body(pe_sam) != body(pe["argv"][4]):
+    if sam_body(pe_sam) != sam_body(pe["argv"][4]):
         raise SystemExit("sweep: the PE SAM differs from phase 7's")
     log(f"[sweep] PE mem --seed-engine sweep: SAM body byte-equal to phase "
         f"7's; {2 * N_PAIRS} reads in {wall_p:.2f} s = "
@@ -2775,9 +2841,6 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
             retried.add(np.asarray(codes[i, :lens[i]], np.int32).tobytes())
         return real_run(self, fn, codes, lens, L)
 
-    def body(p):
-        with open(p) as f:
-            return [ln for ln in f if not ln.startswith("@PG")]
 
     def run(argv, trie_on, wide=False):
         """One `mem` run, its main path's counts: zeroed just before, read
@@ -2828,14 +2891,14 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
         input order (r<i> is read i, p<i> reads 2i and 2i + 1)."""
         def by_read(p):
             out = {}
-            for ln in body(p):
+            for ln in sam_body(p):
                 if not ln.startswith("@"):
                     out.setdefault(ln.split("\t", 1)[0], []).append(ln)
             return out
         x, y = by_read(p_ert), by_read(p_sw)
         diff = sorted(k for k in set(x) | set(y) if x.get(k) != y.get(k))
-        head = [ln for ln in body(p_ert) if ln.startswith("@")]
-        if head != [ln for ln in body(p_sw) if ln.startswith("@")]:
+        head = [ln for ln in sam_body(p_ert) if ln.startswith("@")]
+        if head != [ln for ln in sam_body(p_sw) if ln.startswith("@")]:
             raise SystemExit(f"ert: {tag}: the SAM headers differ")
         causes = []
         for name in diff:
@@ -2893,7 +2956,8 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
     ert64_sam = os.path.join(tmp, "ert64.sam")
     al64, wall64, n64 = run([e, fq, "-o", ert64_sam, *common], True,
                             wide=True)
-    if al64.fmi.pos_dtype != torch.int64 or body(ert64_sam) != body(ert_sam):
+    if (al64.fmi.pos_dtype != torch.int64
+            or sam_body(ert64_sam) != sam_body(ert_sam)):
         raise SystemExit("ert: the forced int64 SE SAM differs from the "
                          "int32 ERT run's")
     log(f"[ert] SE mem with the ERT at the forced int64 layout: SAM body "
@@ -2975,7 +3039,7 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
         st_sam = os.path.join(tmp, "ert_store.sam")
         retried.clear()
         al_st, wall_st, _ = run([e, fq, "-o", st_sam, *common], True)
-        if body(st_sam) != body(ert_sam):
+        if sam_body(st_sam) != sam_body(ert_sam):
             raise SystemExit("ert: mem attached to the store differs from "
                              "the file-loaded ERT run")
         if cli.main(["remove-shm", e]) != 0 or store.attach(e) is not None:
@@ -3164,9 +3228,6 @@ def phase_kstep(dev, card, tmp, se, pe, al):
         prefixes[K] = p
         del fmi_k
 
-    def body(path):
-        with open(path) as f:
-            return [ln for ln in f if not ln.startswith("@PG")]
     ks = kstep_wrappers()
     counted = {**ks, "expand_and_lookup": sal_cuda.expand_and_lookup_cuda,
                "strategy_chase": sweep_cuda.strategy_chase_cuda,
@@ -3218,7 +3279,7 @@ def phase_kstep(dev, card, tmp, se, pe, al):
         argv = [p, se["argv"][1], "-o", os.path.join(tmp, f"k{K}.sam"),
                 *se["argv"][4:]]
         a, wall, n = run(argv, K, False)
-        if body(argv[3]) != body(se["argv"][3]):
+        if sam_body(argv[3]) != sam_body(se["argv"][3]):
             raise SystemExit(f"kstep: the K={K} SE SAM differs from phase "
                              f"4's")
         launches[f"one_pos_machine_k{K}"] = n["one_pos_machine"]
@@ -3244,7 +3305,7 @@ def phase_kstep(dev, card, tmp, se, pe, al):
         pe_sam = os.path.join(tmp, f"k{K}_pe.sam")
         pe_argv = [p, *pe["argv"][1:3], "-o", pe_sam, *pe["argv"][5:]]
         a, wall, n = run(pe_argv, K, False)
-        if body(pe_sam) != body(pe["argv"][4]):
+        if sam_body(pe_sam) != sam_body(pe["argv"][4]):
             raise SystemExit(f"kstep: the K={K} PE SAM differs from phase "
                              f"7's")
         log(f"[kstep] PE mem with the K={K} table: SAM body byte-equal to "
@@ -3254,7 +3315,7 @@ def phase_kstep(dev, card, tmp, se, pe, al):
         sw_argv = [p, se["argv"][1], "-o", os.path.join(tmp, f"k{K}_sw.sam"),
                    *se["argv"][4:], "--seed-engine", "sweep"]
         a, wall, n = run(sw_argv, K, True)
-        if a.dfma is None or body(sw_argv[3]) != body(sweep_sam):
+        if a.dfma is None or sam_body(sw_argv[3]) != sam_body(sweep_sam):
             raise SystemExit(f"kstep: the K={K} sweep SAM differs from "
                              f"phase 9's (or ran without the FMA table)")
         if K == 2:
@@ -3508,9 +3569,6 @@ def phase_readlane(dev, card, tmp, se, pe, al, kst):
                "chain_filter": chain_cuda.chain_filter_cuda,
                "banded_swa_batch": banded_swa_batch_cuda}
 
-    def body(path):
-        with open(path) as f:
-            return [ln for ln in f if not ln.startswith("@PG")]
 
     def run(argv, form, want_sam):
         """One `mem --seed-engine readlane` run, its main path's counts
@@ -3528,7 +3586,7 @@ def phase_readlane(dev, card, tmp, se, pe, al, kst):
         n = {k: (w.launches, w.launches64, getattr(w, "launches_k", 0))
              for k, w in counted.items()}
         # readlane path ends here
-        if body(argv[argv.index("-o") + 1]) != body(want_sam):
+        if sam_body(argv[argv.index("-o") + 1]) != sam_body(want_sam):
             raise SystemExit(f"readlane: the {form} SAM differs from the "
                              f"one-hot engine's")
         for name, per in (("one_pos", 2), ("strategy", 1)):
@@ -4064,6 +4122,77 @@ def phase_mesh(dev, card, tmp, se, pe):
                 kswa=a_pe)
 
 
+# phase 16's switches: the Python finalize path, alone and with the CIGAR
+# DP on the card
+FINALIZE_RUNS = ({"BWA_TPU_NO_NATIVE_FINALIZE": "1"},
+                 {"BWA_TPU_NO_NATIVE_FINALIZE": "1",
+                  "BWA_TPU_NO_NATIVE_KSWG": "1"})
+
+
+def phase_finalize(dev, card, tmp, se, pe):
+    """Phase 16: phase 4's reads and phase 7's pairs through `mem` under
+    BWA_TPU_NO_NATIVE_FINALIZE (the Python record path and SAM writer),
+    alone and with BWA_TPU_NO_NATIVE_KSWG: each run's main path (counts
+    zeroed just before, read just after), phase 4's or phase 7's gate,
+    each main-path kernel launched at least once a device batch (passes
+    1-2 twice), the bare SA walk never, the CIGAR DP kernel exactly when
+    _KSWG is set; reads/s beside the native run's and the SAM lines that
+    differ from it. Returns {run: numbers}."""
+    import torch
+    from bwa_mem_scale_tpu_torch import cli
+    t0 = time.perf_counter()
+    wrappers = main_path_wrappers()
+    res = {}
+    for env in FINALIZE_RUNS:
+        tag = "+_KSWG" if len(env) > 1 else ""
+        for kind, run in (("SE", se), ("PE", pe)):
+            n_in = 1 if kind == "SE" else 2       # FASTQ files
+            out = os.path.join(tmp, f"fin_{kind}{len(env)}.sam")
+            argv = [*run["argv"][:1 + n_in], "-o", out,
+                    *run["argv"][3 + n_in:]]
+            os.environ.update(env)
+            try:
+                for w in wrappers.values():      # the path starts here
+                    w.launches = 0
+                t1 = time.perf_counter()
+                al = cli.mem(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                launches = {n: w.launches for n, w in wrappers.items()}
+                # the path ends here
+            finally:
+                for k in env:
+                    del os.environ[k]
+            if kind == "SE":
+                check_sam(out, se["emf_hit"], se["pos"], se["is_rev"])
+            else:
+                check_pe_sam(out, pe["emf_hit"], pe["pos"], pe["is_rev"])
+            for name, n in launches.items():
+                want = {"one_pos_machine": 2 * al.batches, "sa_walk": 0,
+                        "ksw_global_batch": 1 if tag else 0}.get(
+                    name, al.batches)
+                if n < want or (want == 0 and n):
+                    raise SystemExit(
+                        f"finalize{tag}: {kind} {name} launched {n} times "
+                        f"over {al.batches} device batches")
+            a, b = (sam_body(run["argv"][2 + n_in]), sam_body(out))
+            n_diff = (sum(x != y for x, y in zip(a, b))
+                      + abs(len(a) - len(b)))
+            n_reads = N_READS if kind == "SE" else 2 * N_PAIRS
+            log(f"[finalize{tag}] {kind} mem under "
+                f"{', '.join(env)}: phase {4 if kind == 'SE' else 7}'s gate "
+                f"passed; {n_reads / wall:.1f} reads/s ({wall:.2f} s; the "
+                f"native run, phase {4 if kind == 'SE' else 7}: "
+                f"{n_reads / run['wall']:.1f}); {n_diff} of {len(a)} SAM "
+                f"lines differ from it; launches {launches} over "
+                f"{al.batches} device batches; overflow-retried reads "
+                f"{al.overflow_retried}  [{card}]")
+            res[kind + tag] = dict(wall=wall, n_diff=n_diff,
+                                   launches=launches)
+    log(f"[finalize] phase 16 took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -4228,6 +4357,7 @@ def main():
         kst = phase_kstep(dev, card, tmp, se, pe, al)
         rl = phase_readlane(dev, card, tmp, se, pe, al, kst)
         dp = phase_mesh(dev, card, tmp, se, pe)
+        phase_finalize(dev, card, tmp, se, pe)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s, the "
         f"builds included")
 

@@ -12,7 +12,9 @@ table probed on the device, here the CPU), SE and PE `mem --devices`
 on a CPU mesh and SE `mem --num-hosts 2` (SAM and parts equal to the
 one-device, one-host run), PE `mem` under `BWA_TPU_NO_NATIVE_PE`,
 `BWA_TPU_NO_NATIVE_KSWG` and `BWA_TPU_NO_NATIVE_KSWA` (the device DP
-loops' plain versions; records placed as without them), `load-shm`, a
+loops' plain versions; records placed as without them), SE and PE `mem`
+under `BWA_TPU_NO_NATIVE_FINALIZE` (the Python record path and SAM
+writer; records placed as without it), `load-shm`, a
 `mem` that
 attaches to the staged store (SAM equal to `mem` from the files) and
 `remove-shm`, the import of the
@@ -113,6 +115,16 @@ RUNNER = textwrap.dedent("""
                  "200,20"]) == 0
     for k in SW:
         del os.environ[k]
+    # the Python finalize path: records and SAM text without the native
+    # finalizer, SE and PE
+    os.environ["BWA_TPU_NO_NATIVE_FINALIZE"] = "1"
+    for argv in (["mem", "g", "r.fq", "-o", "fin.sam", "--device", "cpu",
+                  "--batch-reads", "16"],
+                 ["mem", "g", "r1.fq", "r2.fq", "-o", "pe_fin.sam",
+                  "--device", "cpu", "--batch-reads", "16", "-I",
+                  "200,20"]):
+        assert main(argv) == 0, argv
+    del os.environ["BWA_TPU_NO_NATIVE_FINALIZE"]
     # the Python PE path, as taken when the native PE stage declines
     from bwa_mem_scale_tpu_torch.pipeline import native_finalize
     native_finalize.finalize_pe_rows = lambda *a, **k: None
@@ -232,7 +244,8 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
                       "pe_sweep.sam", "shm.sam", "ert.sam", "pe_ert.sam",
                       "kstep.sam", "pe_kstep.sam", "readlane.sam",
                       "pe_readlane.sam", "mesh.sam", "pe_mesh.sam",
-                      "pe_sw.sam", "host0.sam", "host1.sam")}
+                      "pe_sw.sam", "host0.sam", "host1.sam", "fin.sam",
+                      "pe_fin.sam")}
     assert (body["pe.sam"] == body["pe_py.sam"] == body["pe_sweep.sam"]
             == body["pe_ert.sam"] == body["pe_kstep.sam"]
             == body["pe_readlane.sam"] == body["pe_mesh.sam"])
@@ -250,6 +263,9 @@ def test_port_cli_runs_with_jax_blocked(tmp_path):
     # device rescue's score2 may move an XS tag)
     assert ([ln.split("\t")[:9] for ln in body["pe_sw.sam"]]
             == [ln.split("\t")[:9] for ln in body["pe.sam"]])
+    for a, b in (("fin.sam", "out.sam"), ("pe_fin.sam", "pe.sam")):
+        assert ([ln.split("\t")[:9] for ln in body[a]]
+                == [ln.split("\t")[:9] for ln in body[b]]), a
     api = open(tmp_path / "api.sam").read().splitlines()
     assert api == [ln.rstrip("\n") for ln in body["out.sam"]
                    if not ln.startswith("@")]
