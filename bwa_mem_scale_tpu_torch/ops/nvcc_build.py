@@ -94,6 +94,30 @@ def build(source: str, name: str, force: bool = False,
     return path, time.perf_counter() - t0
 
 
+def ptxas_kernels(report: str) -> dict:
+    """{kernel's mangled name: (registers, spill bytes)} from ptxas's -v
+    report (``REPORTS``)."""
+    out, fn = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", ln)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, (None, 0))
+        if fn is None:
+            continue
+        regs, spill = out[fn]
+        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if s:
+            spill = int(s.group(1)) + int(s.group(2))
+        r = re.search(r"Used (\d+) registers", ln)
+        if r:
+            regs = int(r.group(1))
+        out[fn] = (regs, spill)
+    return out
+
+
 class Library:
     """csrc/<source> as lib<name>.so: built at first use, loaded with
     ctypes, its launch functions (each returning a CUDA error code and

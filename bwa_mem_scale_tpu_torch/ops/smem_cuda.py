@@ -349,12 +349,12 @@ class _TwinFmi:
     def row(self, pp: int):
         """(counts, masks as unsigned ints, y) of position pp's row."""
         blk = min(max(pp >> 5, 0), self.cp.shape[0] - 1)
-        r = self.cp[blk]
-        cnt = [int(v) for v in r[:4]]
+        r = self.cp[blk].tolist()
+        cnt = r[:4]
         if self.hi is not None:
             cnt = [(v & 0xFFFFFFFF) | (sum(blk >= b for b in steps) << 32)
                    for v, steps in zip(cnt, self.hi)]
-        return cnt, [int(v) & 0xFFFFFFFF for v in r[4:]], pp & 31
+        return cnt, [v & 0xFFFFFFFF for v in r[4:]], pp & 31
 
     @staticmethod
     def top_bits(y: int) -> int:
@@ -363,7 +363,7 @@ class _TwinFmi:
     def occ4(self, pp: int):
         cnt, msk, y = self.row(pp)
         top = self.top_bits(y)
-        return [c + bin(m & top).count("1") for c, m in zip(cnt, msk)]
+        return [c + (m & top).bit_count() for c, m in zip(cnt, msk)]
 
     def ext(self, k: int, l: int, s: int, c: int):
         a, b = self.occ4(k), self.occ4(k + s)
@@ -420,25 +420,149 @@ class _TwinK:
 WARP = 32                # a warp's lanes: one backward-round chunk
 
 
+class _RowOut:
+    """A task's emissions into its output row ([5, M], a view of a twin's
+    output): an emission past M dropped while the count grows."""
+
+    def __init__(self, row):
+        self.row, self.cnt = row, 0
+
+    def __call__(self, *vals):
+        if self.cnt < self.row.shape[1]:
+            self.row[:, self.cnt] = vals
+        self.cnt += 1
+
+
+def warp_task(fm: _TwinFmi, kt, code, n_len: int, mi: int, x: int,
+              chain_restarts: bool, min_seed_len: int, SD: int, stk, emit,
+              where: str) -> tuple:
+    """csrc/one_pos_task.cuh's one_pos_task in plain Python: one task's
+    walk as one warp runs it (the serial forward walk, K bases a row fetch
+    with `kt` (a ``_TwinK``: 3 with a C3 table, else 2), then each
+    backward round in chunks of WARP simulated lanes with the ballot-form
+    keep/emit rule), over `stk` ([2][SD + 1][4] stack slots) and the
+    read's clipped codes `code(i)`, emitting through `emit(m, n, k, l,
+    s)`. Raises AssertionError, naming `where`, where a round breaks the
+    two orders that rule rests on (along p the new sizes never fall and
+    the entries' ends never rise). Returns (steps, rounds, whether a
+    stack count passed SD)."""
+    count, ext = fm.count, fm.ext
+    ks = 1 if kt is None else (3 if kt.c3 is not None else 2)
+    steps = rounds = wA = 0
+    of = False
+
+    def push(buf, c, vals):
+        nonlocal of
+        stk[buf, min(c, SD)] = vals
+        of |= c + 1 > SD
+        return c + 1
+
+    def read(buf, i):
+        return [int(v) for v in stk[buf, min(max(i, 0), SD - 1)]]
+
+    while True:                                  # start positions
+        xa = code(x) if x < n_len else 4
+        if xa >= 4:
+            x += 1
+            if chain_restarts and x < n_len:
+                continue
+            break
+        ck, cl = count[xa], count[3 - xa]
+        cs, cn = count[xa + 1] - count[xa], x
+        j, nx, cA = x + 1, x + 1, 0
+        go = True
+        while go and j < n_len:                  # forward, serial
+            nx = j + 1
+            cc = [code(j + d) for d in range(ks)]
+            if cc[0] >= 4:
+                break
+            if kt is None:
+                res = [ext(cl, ck, cs, 3 - cc[0])]
+            else:                                # KS bases a fetch
+                res = kt.ext_k(cl, ck, cs, [3 - min(c, 3) for c in cc])
+            rounds += 1
+            for d, (nl, nk, ns) in enumerate(res):
+                if d:                            # mid-stride ends
+                    if j >= n_len:
+                        go = False
+                        break
+                    nx = j + 1
+                    if cc[d] >= 4:
+                        go = False
+                        break
+                steps += 1
+                if ns != cs:
+                    cA = push(wA, cA, (ck, cl, cs, cn))
+                if ns < mi:
+                    nx = j
+                    go = False
+                    break
+                ck, cl, cs, cn = nk, nl, ns, j
+                j += 1
+        if cs >= mi:
+            cA = push(wA, cA, (ck, cl, cs, cn))
+        mA, rev, j = x, True, x - 1
+        while True:                              # backward rounds
+            a = code(j) if j >= 0 else 4
+            if a >= 4 or cA == 0:
+                if cA > 0:
+                    pk, pl, ps, pn = read(wA, cA - 1 if rev else 0)
+                    if pn - mA + 1 >= min_seed_len:
+                        emit(mA, pn, pk, pl, ps)
+                break
+            cB, prev, last = 0, 0, None
+            for c0 in range(0, cA, WARP):        # a chunk: one trip
+                lanes = []                       # (entry, nk, nl, ns)
+                for p in range(c0, min(c0 + WARP, cA)):
+                    e = read(wA, cA - 1 - p if rev else p)
+                    lanes.append((e, *ext(*e[:3], a)))
+                    ns, pn = lanes[-1][3], e[3]
+                    if last is not None and (ns < last[0] or pn > last[1]):
+                        raise AssertionError(
+                            f"{where}, round at j={j}, entry {p}: sizes or "
+                            f"ends out of order")
+                    last = (ns, pn)
+                steps += len(lanes)
+                rounds += 1
+                if c0 == 0:                      # only entry 0 emits
+                    (pk, pl, ps, pn), _, _, ns = lanes[0]
+                    if ns < mi and pn - mA + 1 >= min_seed_len:
+                        emit(mA, pn, pk, pl, ps)
+                ballot = 0
+                for lane, (_, _, _, ns) in enumerate(lanes):
+                    up = prev if lane == 0 else lanes[lane - 1][3]
+                    cur = -1 if c0 + lane == 0 or up < mi else up
+                    ballot |= int(ns >= mi and ns != cur) << lane
+                for lane, (e, nk, nl, ns) in enumerate(lanes):
+                    if ballot >> lane & 1:
+                        i = cB + bin(ballot & ((1 << lane) - 1)).count("1")
+                        stk[wA ^ 1, min(i, SD)] = (nk, nl, ns, e[3])
+                cB += bin(ballot).count("1")
+                prev = lanes[-1][3]
+            of |= cB > SD
+            wA ^= 1
+            cA, mA, rev, j = cB, j, False, j - 1
+        if not chain_restarts:
+            break
+        x = max(nx, x + 1)
+        if x >= n_len:
+            break
+    return steps, rounds, of
+
+
 def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
                  t_x, t_mi, t_valid, chain_restarts: bool,
                  min_seed_len: int, max_out: int, stack_depth: int = None,
                  hi_steps=None, kstep=None):
     """csrc/smem.cu's one_pos_kernel in plain Python on numpy arrays, one
-    task (warp) after another: the serial forward walk (with `kstep`,
-    ``kstep_tables``' k-gram table, the k-step form's: K bases a row
-    fetch, 3 with a C3 table, else 2), then each
-    backward round in chunks of WARP simulated lanes with the kernel's
-    ballot-form keep/emit rule and stack slots. Raises AssertionError
-    where a round breaks the two orders that rule rests on (along p the
-    new sizes never fall and the entries' ends never rise). With
-    `hi_steps` (``twin_tables``) it is the int64 form. Returns
-    (m, n, k, l, s, cnt, steps, rounds) as numpy arrays, k, l and s int64
-    for the int64 form."""
+    task (warp) after another through ``warp_task`` (with `kstep`,
+    ``kstep_tables``' k-gram table, the k-step form's forward walk; with
+    `hi_steps` (``twin_tables``) the int64 form). Raises AssertionError
+    where a round breaks the two orders of the ballot rule. Returns (m, n,
+    k, l, s, cnt, steps, rounds) as numpy arrays, k, l and s int64 for the
+    int64 form."""
     fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
-    count, ext = fm.count, fm.ext
     kt = None if kstep is None else _TwinK(fm, *kstep)
-    ks = 1 if kt is None else (3 if kt.c3 is not None else 2)
     codes = np.asarray(codes)
     B, L = codes.shape
     T = len(t_read)
@@ -452,118 +576,15 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
         rd = min(max(int(t_read[t]), 0), B - 1)
         q = codes[rd]
         n_len = int(lens[rd]) if t_valid[t] else 0
-        mi = int(t_mi[t])
-        cnt = steps = rounds = wA = 0
-        of = False
 
-        def code(i):
+        def code(i, q=q):
             return min(int(q[min(max(i, 0), L - 1)]), 4)
 
-        def push(buf, c, vals):
-            nonlocal of
-            stk[buf, min(c, SD)] = vals
-            of |= c + 1 > SD
-            return c + 1
-
-        def read(buf, i):
-            return [int(v) for v in stk[buf, min(max(i, 0), SD - 1)]]
-
-        def emit(*vals):
-            nonlocal cnt
-            if cnt < M:
-                out[:, t, cnt] = vals
-            cnt += 1
-
-        x = int(t_x[t])
-        while True:                                  # start positions
-            xa = code(x) if x < n_len else 4
-            if xa >= 4:
-                x += 1
-                if chain_restarts and x < n_len:
-                    continue
-                break
-            ck, cl = count[xa], count[3 - xa]
-            cs, cn = count[xa + 1] - count[xa], x
-            j, nx, cA = x + 1, x + 1, 0
-            go = True
-            while go and j < n_len:                  # forward, serial
-                nx = j + 1
-                cc = [code(j + d) for d in range(ks)]
-                if cc[0] >= 4:
-                    break
-                if kt is None:
-                    res = [ext(cl, ck, cs, 3 - cc[0])]
-                else:                                # KS bases a fetch
-                    res = kt.ext_k(cl, ck, cs, [3 - min(c, 3) for c in cc])
-                rounds += 1
-                for d, (nl, nk, ns) in enumerate(res):
-                    if d:                            # mid-stride ends
-                        if j >= n_len:
-                            go = False
-                            break
-                        nx = j + 1
-                        if cc[d] >= 4:
-                            go = False
-                            break
-                    steps += 1
-                    if ns != cs:
-                        cA = push(wA, cA, (ck, cl, cs, cn))
-                    if ns < mi:
-                        nx = j
-                        go = False
-                        break
-                    ck, cl, cs, cn = nk, nl, ns, j
-                    j += 1
-            if cs >= mi:
-                cA = push(wA, cA, (ck, cl, cs, cn))
-            mA, rev, j = x, True, x - 1
-            while True:                              # backward rounds
-                a = code(j) if j >= 0 else 4
-                if a >= 4 or cA == 0:
-                    if cA > 0:
-                        pk, pl, ps, pn = read(wA, cA - 1 if rev else 0)
-                        if pn - mA + 1 >= min_seed_len:
-                            emit(mA, pn, pk, pl, ps)
-                    break
-                cB, prev, last = 0, 0, None
-                for c0 in range(0, cA, WARP):        # a chunk: one trip
-                    lanes = []                       # (entry, nk, nl, ns)
-                    for p in range(c0, min(c0 + WARP, cA)):
-                        e = read(wA, cA - 1 - p if rev else p)
-                        lanes.append((e, *ext(*e[:3], a)))
-                        ns, pn = lanes[-1][3], e[3]
-                        if last is not None and (ns < last[0]
-                                                 or pn > last[1]):
-                            raise AssertionError(
-                                f"one_pos_twin: task {t}, round at j={j}, "
-                                f"entry {p}: sizes or ends out of order")
-                        last = (ns, pn)
-                    steps += len(lanes)
-                    rounds += 1
-                    if c0 == 0:                      # only entry 0 emits
-                        (pk, pl, ps, pn), _, _, ns = lanes[0]
-                        if ns < mi and pn - mA + 1 >= min_seed_len:
-                            emit(mA, pn, pk, pl, ps)
-                    ballot = 0
-                    for lane, (_, _, _, ns) in enumerate(lanes):
-                        up = prev if lane == 0 else lanes[lane - 1][3]
-                        cur = -1 if c0 + lane == 0 or up < mi else up
-                        ballot |= int(ns >= mi and ns != cur) << lane
-                    for lane, (e, nk, nl, ns) in enumerate(lanes):
-                        if ballot >> lane & 1:
-                            i = cB + bin(ballot & ((1 << lane) - 1)).count("1")
-                            stk[wA ^ 1, min(i, SD)] = (nk, nl, ns, e[3])
-                    cB += bin(ballot).count("1")
-                    prev = lanes[-1][3]
-                of |= cB > SD
-                wA ^= 1
-                cA, mA, rev, j = cB, j, False, j - 1
-            if not chain_restarts:
-                break
-            x = max(nx, x + 1)
-            if x >= n_len:
-                break
-        cnt_out[t] = M + 1 if of else cnt
+        row = _RowOut(out[:, t])
+        steps, rounds, of = warp_task(
+            fm, kt, code, n_len, int(t_mi[t]), int(t_x[t]), chain_restarts,
+            min_seed_len, SD, stk, row, f"one_pos_twin: task {t}")
+        cnt_out[t] = M + 1 if of else row.cnt
         steps_out[t], rounds_out[t] = steps, rounds
     return (*_smem_fields(out, hi_steps), cnt_out, steps_out, rounds_out)
 

@@ -9,34 +9,39 @@ replacing a ``jax.lax.while_loop`` of the JAX package's
 - ``readlane_strategy_cuda``: SMEM pass 3 (plain
   ``ops/smem_rl.py::seed_strategy_machine``; JAX
   ``seed_strategy_machine``).
-Each launches one thread a worker lane (``lanes``, or one a task when it
-is None), a lane pulling its next task from an atomic counter. On CUDA
-tensors each launches its kernel once or raises; on CPU tensors each runs
-its plain version (imported at the call). There is no fallback from a
-kernel to its plain version. Each kernel has an int32 and an int64 form
-(``fmi.pos_dtype``) and, with a k-gram table on an int32 index
-(``fmi.kstep`` 2 or 3), a k-step form. Each wrapper keeps a ``launches``
-count (every form), ``launches64`` (the int64 form), ``launches_k`` (the
-k-step forms), and the last call's per-lane ``last_steps`` (occ steps:
-single bases at every K) and ``last_ticks`` (loop iterations). With
-``stats`` it adds the longest lane's steps and ticks under ``stats_key``
-("rl_ticks_p1" and "rl_steps_p1"; "_p2", "_p3" the same), device tensors
-read once by ``tick_report``. ``with_ticks`` (the lockstep's tick counts)
-is the plain machines' alone.
+Each keeps a pool of worker lanes (``lanes``, or one a task when it is
+None) that pull their next task from an atomic counter: passes 1-2 a warp
+a lane (one-warp blocks), pass 3 a thread a lane, ``strategy_lanes_a_warp``
+lanes a block. On CUDA tensors each launches its kernel once or raises;
+on CPU tensors each runs its plain version (imported at the call). There
+is no fallback from a kernel to its plain version. Each kernel has an
+int32 and an int64 form (``fmi.pos_dtype``) and, with a k-gram table on an
+int32 index (``fmi.kstep`` 2 or 3), a k-step form. Each wrapper keeps a
+``launches`` count (every form), ``launches64`` (the int64 form),
+``launches_k`` (the k-step forms), and the last call's per-lane
+``last_steps`` (occ steps: single bases at every K) and ``last_ticks``
+(the loop iterations that make an occ trip: passes 1-2 forward row
+fetches plus backward chunks, pass 3 row fetches). With ``stats`` it adds
+the longest lane's steps and ticks under ``stats_key`` ("rl_ticks_p1" and
+"rl_steps_p1"; "_p2", "_p3" the same), device tensors read once by
+``tick_report``. ``with_ticks`` (the lockstep's tick counts) is the plain
+machines' alone.
 
 The wrappers allocate the outputs (the kernel writes every slot of each
 row a task owns; rows no task owns, past the task count, are zeros), the
-stacks' scratch ``[lanes][2][L + 1]`` entries of 16 bytes (32 at int64),
-the counter and the per-lane counts, and launch on the current stream with
-no host synchronisation. The source is compiled with nvcc into
+counter and the per-lane counts, and, where a warp's codes and stacks
+pass 227 KB, the stacks' scratch ``[lanes][2][L + 1]`` entries of 16
+bytes (32 at int64); they launch on the current stream with no host
+synchronisation. The source is compiled with nvcc into
 ``build/torch_kernels/libreadlane_cuda.so`` at first use
 (``ops/nvcc_build.py``).
 
 ``readlane_twin`` and ``readlane_strategy_twin`` are the kernels' loops in
-plain Python on numpy arrays, a lane's tasks one after another with its
-stacks carried from task to task, under an explicit pull order (the task
-each pull takes goes to the lane named) or, by default, the order the
-lockstep machine's refill gives; each counts what its kernel counts.
+plain Python on numpy arrays, a lane's tasks one after another (passes
+1-2 each as one warp runs it, ``smem_cuda.warp_task``, with its stacks
+carried from task to task) under an explicit pull order (the task each
+pull takes goes to the lane named) or, by default, the lane that finishes
+first by ticks; each counts what its kernel counts.
 """
 
 from __future__ import annotations
@@ -50,18 +55,18 @@ import torch
 from . import nvcc_build
 from .occ import DeviceFMIndex
 from .smem import SmemBuf
-from .smem_cuda import (_FMI, _SUFFIX, _TwinFmi, _TwinK, _check,
+from .smem_cuda import (_FMI, _SUFFIX, _RowOut, _TwinFmi, _TwinK, _check,
                         _codes_int32, _fmi_args, _kstep_args, _smem_fields,
-                        _smem_out)
-from .smem_oh import P_INIT, P_FWD, P_BSCAN, P_BTAIL
+                        _smem_out, warp_task)
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # after the index (and the k-step table): passes 1-2 codes, lens, B, L,
 # five task arrays, N, T, chain_restarts, min_seed_len, M, R, then the
 # stacks, the counter, out, cnt, steps, ticks; pass 3 codes, lens, B, L,
-# T, max_intv, min_seed_len, M, then the counter, out, cnt, steps, ticks
+# T, lanes a warp, max_intv, min_seed_len, M, then the counter, out, cnt,
+# steps, ticks
 _ONE_POS = [_vp, _vp, _ci, _ci] + [_vp] * 5 + [_ci] * 6 + [_vp] * 6
-_P3 = [_vp, _vp] + [_ci] * 6 + [_vp] * 5
+_P3 = [_vp, _vp] + [_ci] * 7 + [_vp] * 5
 LIB = nvcc_build.Library("readlane.cu", "readlane_cuda", {
     **{f"{fn}{_SUFFIX[pd]}": _FMI[pd] + tail for pd in _FMI
        for fn, tail in (("readlane_one_pos_launch", _ONE_POS),
@@ -69,8 +74,23 @@ LIB = nvcc_build.Library("readlane.cu", "readlane_cuda", {
     "readlane_one_pos_launch_k": _FMI[torch.int32]
     + [_vp, _ci, _vp, _vp, _ci] + _ONE_POS,
     "readlane_strategy_launch_k": _FMI[torch.int32] + [_vp, _ci, _vp]
-    + _P3})
+    + _P3},
+    host_fns={"readlane_stacks_in_shared": [_ci],
+              "readlane_stacks_in_shared64": [_ci]})
 build = LIB.build        # compile csrc/readlane.cu; returns the library path
+
+# pass 3's worker lanes a one-warp block (csrc/readlane.cu), and the shared
+# memory a block can take for their codes (227 KB)
+P3_LANES = 8
+SMEM_MAX = 232448
+
+
+def strategy_lanes_a_warp(L: int, lanes: int) -> int:
+    """Pass 3's worker lanes a block for reads of L columns and a pool of
+    `lanes`: P3_LANES, fewer where that many slots of L codes (each
+    rounded up to 16 bytes) pass 227 KB or the pool is smaller; 0 where
+    one slot does not fit."""
+    return min(P3_LANES, SMEM_MAX // ((L + 15) // 16 * 16), lanes)
 
 
 def _form(fn: str, fmi: DeviceFMIndex, ks) -> list:
@@ -128,23 +148,30 @@ def readlane_one_pos_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
     i32 = torch.int32
     pd = fmi.pos_dtype
     out, fields = _smem_out(R, M, pd, dev)
+    cnt = torch.empty((R,), dtype=i32, device=dev)
     if R > N:                     # rows past the task count are nobody's
         out.zero_()
-    cnt = torch.zeros((R,), dtype=i32, device=dev)
-    steps = torch.zeros((T,), dtype=i32, device=dev)
-    ticks = torch.zeros((T,), dtype=i32, device=dev)
+        cnt.zero_()
+    # each lane writes its counts
+    steps = torch.empty((T,), dtype=i32, device=dev)
+    ticks = torch.empty((T,), dtype=i32, device=dev)
     if N and T:
         args = [t.to(i32).contiguous() for t in (t_read, t_x, t_mi)]
         args += [t_valid.to(torch.bool).contiguous(),
                  rows.to(i32).contiguous()]
         c, ln = codes.contiguous(), lens.contiguous()
-        stk = torch.empty((T, 2, L + 1, 4 * pd.itemsize), dtype=torch.uint8,
-                          device=dev)
+        # the stacks in each warp's shared memory, or past 227 KB a
+        # scratch (entries of 16 bytes, 32 at int64)
+        stk = (None if LIB.call("readlane_stacks_in_shared"
+                                + _SUFFIX[pd], L)
+               else torch.empty((T, 2, L + 1, 4 * pd.itemsize),
+                                dtype=torch.uint8, device=dev))
         ctr = torch.zeros((1,), dtype=i32, device=dev)
         LIB.launch(dev, *_form("readlane_one_pos_launch", fmi, fmi.kstep),
                    c.data_ptr(), ln.data_ptr(), B, L,
                    *(a.data_ptr() for a in args), N, T, int(chain_restarts),
-                   min_seed_len, M, R, stk.data_ptr(), ctr.data_ptr(),
+                   min_seed_len, M, R, None if stk is None else stk.data_ptr(),
+                   ctr.data_ptr(),
                    out.data_ptr(), cnt.data_ptr(), steps.data_ptr(),
                    ticks.data_ptr())
         _account(_ONE_POS_FN, fmi, steps, ticks, stats, stats_key)
@@ -190,13 +217,17 @@ def readlane_strategy_cuda(fmi: DeviceFMIndex, codes, lens, max_intv: int,
     i32 = torch.int32
     out, fields = _smem_out(B, max_out, fmi.pos_dtype, dev)
     cnt = torch.empty((B,), dtype=i32, device=dev)
-    steps = torch.zeros((T,), dtype=i32, device=dev)
-    ticks = torch.zeros((T,), dtype=i32, device=dev)
+    steps = torch.empty((T,), dtype=i32, device=dev)
+    ticks = torch.empty((T,), dtype=i32, device=dev)
     if B and T:
         c, ln = codes.contiguous(), lens.contiguous()
         ctr = torch.zeros((1,), dtype=i32, device=dev)
+        rw = strategy_lanes_a_warp(L, T)
+        if rw < 1:
+            raise ValueError(f"{what}: reads of {L} columns do not fit a "
+                             f"block's shared memory")
         LIB.launch(dev, *_form("readlane_strategy_launch", fmi, None),
-                   c.data_ptr(), ln.data_ptr(), B, L, T, int(max_intv),
+                   c.data_ptr(), ln.data_ptr(), B, L, T, rw, int(max_intv),
                    min_seed_len, max_out, ctr.data_ptr(), out.data_ptr(),
                    cnt.data_ptr(), steps.data_ptr(), ticks.data_ptr())
         _account(_STRATEGY_FN, fmi, steps, ticks, stats, "rl_ticks_p3")
@@ -220,7 +251,7 @@ def _schedule(N: int, T: int, run, pull) -> None:
     """Run tasks 0..N-1 on T lanes: `run(lane, task)` returns the task's
     ticks. With `pull` (a lane a task) task i goes to lane pull[i];
     without, a lane takes the next task at the tick it finishes its last,
-    lanes finishing together in lane order (the lockstep's refill)."""
+    lanes finishing together in lane order."""
     if pull is not None:
         for t in range(N):
             run(int(pull[t]), t)
@@ -231,22 +262,9 @@ def _schedule(N: int, T: int, run, pull) -> None:
         heapq.heappush(free, (at + run(lane, t), lane))
 
 
-class _Rows:
-    """The kernels' RowOut on numpy arrays: [5, R, M] fields, a count a
-    row."""
-
-    def __init__(self, R: int, M: int):
-        self.out = np.zeros((5, R, M), np.int64)
-        self.cnt = np.zeros(R, np.int32)
-        self.M = M
-
-    def emit(self, row: int, cnt: int, *vals) -> int:
-        if cnt < self.M:
-            self.out[:, row, cnt] = vals
-        return cnt + 1
-
-
 def _code_of(q, L: int):
+    """The read's code at column i, the column clamped to [0, L - 1] and
+    the code clipped to [0, 4] (the kernels' staged bytes)."""
     def code(i):
         v = int(q[min(max(i, 0), L - 1)])
         return 0 if v < 0 else min(v, 4)
@@ -259,150 +277,45 @@ def readlane_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
                   lanes: int = None, out_rows=None, pull=None,
                   hi_steps=None, kstep=None):
     """csrc/readlane.cu's readlane_one_pos_kernel in plain Python on numpy
-    arrays: each lane's tasks one after another, a tick an iteration, the
-    stacks [2][L + 1] a lane carried from task to task (`hi_steps`: the
-    int64 form; `kstep`: ``smem_cuda.kstep_tables``' k-gram table, the
-    forward walk K bases a fetch). `pull` names the lane of each task in
-    task order; None gives the lockstep's refill order. Returns (m, n, k,
-    l, s, cnt, steps [lanes], ticks [lanes]) as numpy arrays."""
+    arrays: each lane's tasks one after another, each as one warp runs it
+    (``smem_cuda.warp_task``, which asserts the two orders of the ballot
+    rule), the stacks [2][L + 1] a lane carried from task to task
+    (`hi_steps`: the int64 form; `kstep`: ``smem_cuda.kstep_tables``'
+    k-gram table, the forward walk K bases a fetch). `pull` names the lane
+    of each task in task order; None gives each task to the lane that
+    finishes its tasks first by ticks. Returns (m, n, k, l, s, cnt, steps
+    [lanes], ticks [lanes]) as numpy arrays: ticks are the lane's rounds
+    (forward row fetches plus backward chunks)."""
     fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
-    C = fm.count
     kt = None if kstep is None else _TwinK(fm, *kstep)
-    ks = 1 if kt is None else (3 if kt.c3 is not None else 2)
     codes = np.asarray(codes)
     B, L = codes.shape
     N = len(t_read)
     T = int(lanes) if lanes else N
     R = n_rows or (B if out_rows is None else N)
     rows_t = np.asarray(t_read if out_rows is None else out_rows)
-    rows = _Rows(R, max_out)
+    out = np.zeros((5, R, max_out), np.int64)
+    cnt_out = np.zeros(R, np.int32)
     steps_out, ticks_out = np.zeros(T, np.int32), np.zeros(T, np.int32)
     stk = np.zeros((T, 2, L + 1, 4), np.int64)
-    wA = [0] * T
 
     def run(lane: int, t: int) -> int:
         rd = min(max(int(t_read[t]), 0), B - 1)
-        code = _code_of(codes[rd], L)
         n_len = int(lens[rd]) if t_valid[t] else 0
-        mi, row, x = int(t_mi[t]), int(rows_t[t]), int(t_x[t])
-        st = stk[lane]
-        cnt = steps = ticks = 0
-        phase = P_INIT
-        j = nx = cn = cA = cB = mA = p = 0
-        rev = False
-        ck = cl = cs = 0
-        curr_s = -1
-
-        def push(buf, c, vals):
-            st[buf, min(c, L)] = vals
-            return c + 1
-
-        while True:
-            ticks += 1
-            if phase == P_INIT:
-                xa = code(x)
-                nx = x + 1
-                if x < n_len and xa < 4:
-                    ck, cl, cs, cn = C[xa], C[3 - xa], C[xa + 1] - C[xa], x
-                    j, cA, phase = x + 1, 0, P_FWD
-                    continue
-                if chain_restarts and x + 1 < n_len:
-                    x += 1
-                    continue
-                break
-            fwd = phase == P_FWD
-            a = code(j)
-            e = [0, 0, 0, 0]
-            if not fwd:
-                si = cA - 1 - p if rev else p
-                e = [int(v) for v in st[wA[lane], min(max(si, 0), L - 1)]]
-            dead = (phase == P_BSCAN and p == 0
-                    and (j < 0 or a >= 4 or cA == 0))
-            need = ((j < n_len and a < 4) if fwd else
-                    (not dead if phase == P_BSCAN else p < cA))
-            res = [(0, 0, 0)] * ks          # (k, l, s) after d + 1 bases
-            if need:
-                kk, ll, ss = (cl, ck, cs) if fwd else e[:3]
-                c0 = 3 - a if fwd else a
-                if kt is None:
-                    res = [fm.ext(kk, ll, ss, c0)]
-                else:
-                    cc = [c0] + [(3 - min(code(j + d), 3)) if fwd else 0
-                                 for d in range(1, ks)]
-                    res = kt.ext_k(kk, ll, ss, cc)
-            if fwd:
-                ek, el, es, en = pk, pl, ps, pn = ck, cl, cs, cn
-                gate = cont = True
-                for d in range(ks):          # (1-step: d = 0 only)
-                    jd = j + d
-                    run_d = (gate and jd < n_len
-                             and (a if d == 0 else code(jd)) < 4)
-                    sl, sk, ss = res[d]      # swapped back
-                    if run_d:
-                        steps += 1
-                        if ss != ps:
-                            cA = push(wA[lane], cA, (pk, pl, ps, pn))
-                    fail = run_d and ss < mi
-                    cont = run_d and not fail
-                    if gate and jd < n_len:
-                        nx = jd + 1
-                    if fail:
-                        nx = jd
-                    if cont:
-                        ek, el, es, en = sk, sl, ss, jd
-                    pk, pl, ps, pn = sk, sl, ss, jd
-                    gate = cont
-                if not cont and es >= mi:
-                    cA = push(wA[lane], cA, (ek, el, es, en))
-                ck, cl, cs, cn = ek, el, es, en
-                if cont:
-                    j += ks
-                else:
-                    mA, phase, j, rev, p, curr_s, cB = (x, P_BSCAN, x - 1,
-                                                        True, 0, -1, 0)
-                continue
-            if dead:                         # the position's end
-                if cA > 0 and e[3] - mA + 1 >= min_seed_len:
-                    cnt = rows.emit(row, cnt, mA, e[3], *e[:3])
-                if chain_restarts:
-                    x2 = max(nx, x + 1)
-                    if x2 < n_len:
-                        x, phase = x2, P_INIT
-                        continue
-                break
-            if need:
-                steps += 1
-            nk, nl, ns = res[0]
-            if phase == P_BSCAN:
-                die = ns < mi
-                emit_sc = die and e[3] - mA + 1 >= min_seed_len
-                keep = not die and ns != curr_s
-                if emit_sc:
-                    cnt = rows.emit(row, cnt, mA, e[3], *e[:3])
-                if emit_sc or keep:
-                    phase = P_BTAIL
-                p += 1
-                over = not (emit_sc or keep) and p >= cA
-            else:
-                keep = p < cA and ns >= mi and ns != curr_s
-                p += 1
-                over = p >= cA
-            if keep:
-                cB = push(wA[lane] ^ 1, cB, (nk, nl, ns, e[3]))
-                curr_s = ns
-            if over:
-                wA[lane] ^= 1
-                cA, cB, mA, j, rev, p, curr_s, phase = (cB, 0, j, j - 1,
-                                                        False, 0, -1,
-                                                        P_BSCAN)
-        rows.cnt[row] = cnt
+        row = int(rows_t[t])
+        emit = _RowOut(out[:, row])
+        # the depth L: no stack overflows (no latch)
+        steps, rounds, _ = warp_task(
+            fm, kt, _code_of(codes[rd], L), n_len, int(t_mi[t]),
+            int(t_x[t]), chain_restarts, min_seed_len, L, stk[lane], emit,
+            f"readlane_twin: task {t}")
+        cnt_out[row] = emit.cnt
         steps_out[lane] += steps
-        ticks_out[lane] += ticks
-        return ticks
+        ticks_out[lane] += rounds
+        return rounds
 
     _schedule(N, T, run, pull)
-    return (*_smem_fields(rows.out, hi_steps), rows.cnt, steps_out,
-            ticks_out)
+    return (*_smem_fields(out, hi_steps), cnt_out, steps_out, ticks_out)
 
 
 def readlane_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
@@ -410,83 +323,81 @@ def readlane_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
                            lanes: int = None, pull=None, hi_steps=None,
                            kstep=None):
     """csrc/readlane.cu's readlane_strategy_kernel in plain Python on
-    numpy arrays: each lane's reads one after another, a tick an iteration
-    (with `kstep`, two bases a fetch), under `pull` as ``readlane_twin``.
-    Returns (m, n, k, l, s, cnt, steps [lanes], ticks [lanes])."""
+    numpy arrays: each lane's reads one after another through the flat
+    loop of one row fetch an iteration (one base, or with `kstep` two; the
+    `seek` to the next walk folded into the iteration), under `pull` as
+    ``readlane_twin``. Returns (m, n, k, l, s, cnt, steps [lanes], ticks
+    [lanes]): ticks are the lane's iterations, its row fetches."""
     fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
     C = fm.count
     kt = None if kstep is None else _TwinK(fm, *kstep)
     codes = np.asarray(codes)
     B, L = codes.shape
     T = int(lanes) if lanes else B
-    rows = _Rows(B, max_out)
+    out = np.zeros((5, B, max_out), np.int64)
+    cnt_out = np.zeros(B, np.int32)
     steps_out, ticks_out = np.zeros(T, np.int32), np.zeros(T, np.int32)
 
     def run(lane: int, rd: int) -> int:
         code = _code_of(codes[rd], L)
         n_len = int(lens[rd])
-        cnt = steps = ticks = 0
-        x = j = 0
-        ck = cl = cs = 0
-        phase = P_INIT
-        while True:
-            ticks += 1
-            if phase == P_INIT:
-                xa = code(x)
-                if x < n_len and xa < 4:
-                    ck, cl, cs = C[xa], C[3 - xa], C[xa + 1] - C[xa]
-                    j, phase = x + 1, P_FWD
-                    continue
-                if x + 1 < n_len:
+        emit = _RowOut(out[:, rd])
+        steps = ticks = 0
+        st = {}                                  # x, j, a, ck, cl, cs
+
+        def seek(start):
+            """The next walk with an ext to make from `start`; False at
+            the read's end."""
+            x = start
+            while True:
+                while x < n_len and code(x) >= 4:
                     x += 1
-                    continue
-                break
-            a = code(j)
-            j_in = j < n_len
-            r1 = j_in and a < 4
-            if kt is None:
-                nk = nl = ns = 0
-                if r1:
-                    steps += 1
-                    nl, nk, ns = fm.ext(cl, ck, cs, 3 - a)
-                hit = r1 and ns < max_intv and j + 1 - x >= min_seed_len
-                if hit and ns > 0:
-                    cnt = rows.emit(rd, cnt, x, j, nk, nl, ns)
-                nxv = j + 1 if j_in else j
-                end = not r1 or hit
-                if not end:
-                    ck, cl, cs, j = nk, nl, ns, j + 1
-            else:
-                b = code(j + 1)
-                res = [(0, 0, 0)] * 2
-                if r1:
-                    res = kt.ext_k(cl, ck, cs, [3 - a, 3 - min(b, 3)])
-                (nl, nk, ns), (nl2, nk2, ns2) = res
-                hit1 = r1 and ns < max_intv and j + 1 - x >= min_seed_len
-                cont1 = r1 and not hit1
-                j2_in = j + 1 < n_len
-                r2 = cont1 and j2_in and b < 4
-                hit2 = r2 and ns2 < max_intv and j + 2 - x >= min_seed_len
-                cont2 = r2 and not hit2
-                steps += int(r1) + int(r2)
-                if hit1 and ns > 0:
-                    cnt = rows.emit(rd, cnt, x, j, nk, nl, ns)
-                elif hit2 and ns2 > 0:
-                    cnt = rows.emit(rd, cnt, x, j + 1, nk2, nl2, ns2)
-                nxv = ((j + 2 if j2_in else j + 1) if cont1
-                       else (j + 1 if j_in else j))
-                end = not cont2
-                if cont2:
-                    ck, cl, cs, j = nk2, nl2, ns2, j + 2
-            if end:
-                if nxv >= n_len:
+                j = x + 1
+                if j >= n_len:
+                    return False
+                if code(j) < 4:
                     break
-                x, phase = nxv, P_INIT
-        rows.cnt[rd] = cnt
+                x = j + 1
+            xa = code(x)
+            st.update(x=x, j=j, a=code(j), ck=C[xa], cl=C[3 - xa],
+                      cs=C[xa + 1] - C[xa])
+            return True
+
+        def take(nk, nl, ns, an):
+            """One base with its extension made: (True while the walk
+            goes on, whether the read has a walk left)."""
+            nonlocal steps
+            x, j = st["x"], st["j"]
+            steps += 1
+            if ns < max_intv and j + 1 - x >= min_seed_len:
+                if ns > 0:
+                    emit(x, j, nk, nl, ns)
+                return False, seek(j + 1)
+            st.update(ck=nk, cl=nl, cs=ns, a=an, j=j + 1)
+            if j + 1 >= n_len:
+                return False, False
+            if an >= 4:
+                return False, seek(j + 2)
+            return True, True
+
+        live = seek(0)
+        while live:                          # one row fetch an iteration
+            j, a = st["j"], st["a"]
+            an = code(j + 1)
+            ticks += 1
+            if kt is None:
+                nl, nk, ns = fm.ext(st["cl"], st["ck"], st["cs"], 3 - a)
+                _, live = take(nk, nl, ns, an)
+            else:
+                (nl, nk, ns), (nl2, nk2, ns2) = kt.ext_k(
+                    st["cl"], st["ck"], st["cs"], [3 - a, 3 - min(an, 3)])
+                go, live = take(nk, nl, ns, an)
+                if go:
+                    _, live = take(nk2, nl2, ns2, code(j + 2))
+        cnt_out[rd] = emit.cnt
         steps_out[lane] += steps
         ticks_out[lane] += ticks
         return ticks
 
     _schedule(B, T, run, pull)
-    return (*_smem_fields(rows.out, hi_steps), rows.cnt, steps_out,
-            ticks_out)
+    return (*_smem_fields(out, hi_steps), cnt_out, steps_out, ticks_out)

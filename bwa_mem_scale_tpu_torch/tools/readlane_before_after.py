@@ -11,14 +11,15 @@ one (``probe_before_after.load_before``, under the name
 ``build/``. Its wrappers take the same arguments as this checkout's.
 
 Batches (``tools/batches.py``): chip_smoke.py phase 5's (512 reads of
-the 4.6 Mbp cell) and its repeat batch, each through the 1-step form and
-the k-step forms (K = 2 and 3 tables, ``index/kstep.py``), at one lane a
-task as ``collect_smems_rl`` makes its passes at full depth: pass 1 (a
-task a read), pass 2 (the reseed tasks pass 1 gives, budget 2 x 512)
-and pass 3 (max_intv 20, min_seed_len 20). Every version is first held
-equal to the plain lockstep machine on every array and in total steps,
-then timed in turns (before, after, after, before): the device time of a
-wrapper call, its output allocation included
+the 4.6 Mbp cell) and its repeat batch, each through the 1-step form,
+the int64 form (the layout forced) and the k-step forms (K = 2 and 3
+tables, ``index/kstep.py``), as ``collect_smems_rl`` makes its passes at
+full depth: pass 1 (a task a read), pass 2 (the reseed tasks pass 1
+gives, budget 2 x 512) and pass 3 (max_intv 20, min_seed_len 20), each
+at one lane a task and at pools of 256 and 64 lanes. Every version is
+first held equal to the plain lockstep machine on every array and in
+total steps, then timed in turns (before, after, after, before): the
+device time of a wrapper call, its output allocation included
 (``tools/timing.py::device_ms``). Each line carries the card's name and
 power limit.
 """
@@ -43,6 +44,7 @@ from .probe_before_after import in_turns, load_before
 from .timing import card_line
 
 FIELDS = ("m", "n", "k", "l", "s", "cnt")
+LANES = (None, 256, 64)          # the pools: one lane a task, 256, 64
 
 
 def passes(fmi, codes, lens, opt):
@@ -87,34 +89,40 @@ def main(argv=None) -> int:
         idx, codes, lens = make()
         c = torch.as_tensor(codes, device=dev)
         ln = torch.as_tensor(lens, device=dev)
-        for K in (1, 2, 3):
+        for cfg in ("K=1", "int64", "K=2", "K=3"):
+            K = int(cfg[2]) if cfg[0] == "K" else 1
             fmi = DeviceFMIndex.from_host(
-                idx, dev, cp2=build_cp2(idx, K) if K > 1 else None)
+                idx, dev, force_int64=cfg == "int64",
+                cp2=build_cp2(idx, K) if K > 1 else None)
             for what, (kind, a, kw) in passes(fmi, c, ln, opt).items():
                 plain, before, after = wrappers[kind]
                 want = plain(*a, **kw)
                 steps = plain.last_steps
-                for v, fn in (("before", before), ("after", after)):
-                    got = fn(*a, **kw)
-                    torch.cuda.synchronize()
-                    if not all(torch.equal(getattr(got, f),
-                                           getattr(want, f))
-                               for f in FIELDS):
-                        raise SystemExit(f"{label} K={K} {what}: {v} != "
-                                         f"plain")
-                    if int(fn.last_steps.sum()) != int(steps.sum()):
-                        raise SystemExit(f"{label} K={K} {what}: {v}'s "
-                                         f"steps != plain's")
-                ms = in_turns({"before": before, "after": after},
-                              {"call": lambda fn: lambda: fn(*a, **kw)},
-                              dev)
-                print(f"[{what}] {label}, K={K}: {len(after.last_steps)} "
-                      f"lanes, {int(steps.sum())} steps (the longest lane "
-                      f"{int(after.last_steps.max())}), ticks "
-                      f"{int(after.last_ticks.sum())}; equal to plain; "
-                      f"device time before {ms['before']['call']:.5f} ms, "
-                      f"after {ms['after']['call']:.5f} ms (mean of 2 "
-                      f"turns)  [{card}]", flush=True)
+                for lanes in LANES:
+                    kl = dict(kw, lanes=lanes)
+                    for v, fn in (("before", before), ("after", after)):
+                        got = fn(*a, **kl)
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(getattr(got, f),
+                                               getattr(want, f))
+                                   for f in FIELDS):
+                            raise SystemExit(f"{label} {cfg} {what} lanes "
+                                             f"{lanes}: {v} != plain")
+                        if int(fn.last_steps.sum()) != int(steps.sum()):
+                            raise SystemExit(f"{label} {cfg} {what}: {v}'s "
+                                             f"steps != plain's")
+                    ms = in_turns({"before": before, "after": after},
+                                  {"call": lambda fn: lambda: fn(*a, **kl)},
+                                  dev)
+                    print(f"[{what}] {label}, {cfg}, lanes "
+                          f"{len(after.last_steps)}: "
+                          f"{int(steps.sum())} steps (the longest lane "
+                          f"{int(after.last_steps.max())}), ticks "
+                          f"{int(after.last_ticks.sum())} (the longest lane "
+                          f"{int(after.last_ticks.max())}); equal to plain; "
+                          f"device time before {ms['before']['call']:.5f} "
+                          f"ms, after {ms['after']['call']:.5f} ms (mean of "
+                          f"2 turns)  [{card}]", flush=True)
             del fmi
             torch.cuda.empty_cache()
     return 0

@@ -106,8 +106,9 @@ Phases, in order; any failure exits non-zero:
               as made against its plain version (max_abs_err 0) with its
               bound and latency floor, and timed beside the int32 form on
               the same inputs; the SA lookup stage on samples + 2^33,
-              pass 3 on a table whose counts are + 2^32, passes 1-3 and
-              the SA lookup stage with a non-empty high-word step table,
+              pass 3 on a table whose counts are + 2^32, passes 1-3
+              (one-hot and readlane) and the SA lookup stage with a
+              non-empty high-word step table,
               chaining on the batch
               moved to two 3.1 Gbp genomes (positions past 2^31, reverse
               ones past 2^32, a seed over the strands' junction), each
@@ -225,7 +226,9 @@ Phases, in order; any failure exits non-zero:
  14. readlane: the readlane engine (csrc/readlane.cu): SE `mem
               --seed-engine readlane` (SAM byte-equal to phase 4's), its
               `-v 4` table, PE, the forced int64 layout and the k-step
-              tables, then each form against the plain machines.
+              tables, then each form at each pool against the plain
+              machines (and at K = 1 its total ticks against the twins'),
+              with its latency floor from the longest lane's rounds.
  15. mesh:    several devices and hosts, and the device DP loops: (a)
               2,048 of phase 4's reads through align_and_finalize (the
               device EMF probe sharded), 512 of phase 7's pairs through
@@ -373,30 +376,6 @@ def bsw_launch_only(args):
     from bwa_mem_scale_tpu_torch.ops import bsw_cuda
     tensors = [a.contiguous() for a in args[:5]]
     return lambda: bsw_cuda.launch(*tensors, *args[5:12])
-
-
-def ptxas_kernels(report):
-    """{kernel's mangled name: (registers, spill bytes)} from ptxas's -v
-    report."""
-    out, fn = {}, None
-    for ln in report.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?(\w+)", ln)
-        if m:
-            fn = m.group(1)
-            out.setdefault(fn, (None, 0))
-        if fn is None:
-            continue
-        regs, spill = out[fn]
-        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      ln)
-        if s:
-            spill = int(s.group(1)) + int(s.group(2))
-        r = re.search(r"Used (\d+) registers", ln)
-        if r:
-            regs = int(r.group(1))
-        out[fn] = (regs, spill)
-    return out
 
 
 def bsw_pairs(rng, n, ql, tl):
@@ -1547,6 +1526,7 @@ def int64_large_values(dev, card, fmi64, idx, calls):
     import torch
     from bwa_mem_scale_tpu_torch.ops import chain, occ, sal, smem_cuda
     from bwa_mem_scale_tpu_torch.ops import chain_cuda, sal_cuda, smem_oh
+    from bwa_mem_scale_tpu_torch.ops import smem_rl, smem_rl_cuda
 
     def same(what, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -1602,9 +1582,22 @@ def int64_large_values(dev, card, fmi64, idx, calls):
     same("SA lookup with a step table",
          sal_cuda.expand_and_lookup_cuda(fs, smems, *stage, **stage_kw),
          sal.expand_and_lookup_plain(fs, smems, *stage, **stage_kw))
-    log("[int64] passes 1-3 and the SA lookup stage with a step of every "
-        "base past the last row (the decode loop run, one load a step): "
-        "equal to the plain versions")
+    # the readlane kernels (a warp a worker lane rests on the same orders
+    # as one_pos_kernel) on the same tasks at full depth, 64 lanes
+    for n, (args, _) in enumerate(calls["one_pos_machine_cuda"]):
+        a = (fs, *args[1:10])
+        rows = {} if n == 0 else {"out_rows": torch.arange(
+            args[3].shape[0], device=args[3].device)}
+        same(f"readlane pass {n + 1} with a step table",
+             smem_rl_cuda.readlane_one_pos_cuda(*a, lanes=64, **rows),
+             smem_rl.one_pos_machine(*a, **rows))
+    a = (fs, *calls["seed_strategy_machine_cuda"][0][0][1:6])
+    same("readlane pass 3 with a step table",
+         smem_rl_cuda.readlane_strategy_cuda(*a, lanes=64),
+         smem_rl.seed_strategy_machine(*a))
+    log("[int64] passes 1-3 (one-hot and readlane) and the SA lookup stage "
+        "with a step of every base past the last row (the decode loop run, "
+        "one load a step): equal to the plain versions")
 
     (bns, smems, rbeg, seed_idx, valid_c), kw = calls["chain_seeds_cuda"][0]
     kw = {k: v for k, v in kw.items() if k != "stats"}
@@ -3432,7 +3425,22 @@ def readlane_calls(fmi, c, ln, opt, lanes):
     return bufs, calls
 
 
-def readlane_batch(dev, card, batch, cfg, fmi, c, ln, opt, trip):
+def readlane_twin_ticks(name, args, kw):
+    """The total ticks of a readlane launch's twin (ops/smem_rl_cuda.py)
+    on the launch's inputs: wrapper `name`'s positional `args` and keyword
+    `kw` without lanes. The total is the same for every pull order."""
+    from bwa_mem_scale_tpu_torch.ops import smem_cuda, smem_rl_cuda
+    tb = smem_cuda.twin_tables(args[0])
+    host = [a.cpu().numpy() if hasattr(a, "cpu") else a for a in args[1:]]
+    kw = {k: v.cpu().numpy() if hasattr(v, "cpu") else v
+          for k, v in kw.items()}
+    twin = (smem_rl_cuda.readlane_twin if name == "one_pos"
+            else smem_rl_cuda.readlane_strategy_twin)
+    return int(twin(*tb[:3], *host, **kw, hi_steps=tb[3])[7].sum())
+
+
+def readlane_batch(dev, card, batch, cfg, fmi, c, ln, opt, trip,
+                   twin_ticks):
     """Phase 5's batch or the repeat batch through collect_smems_rl on
     `fmi` (a configuration: K = 1, int64, K = 2 or 3) at each pool of
     READLANE_LANES: the SmemBuf equal to collect_smems_oh at full depth;
@@ -3440,10 +3448,16 @@ def readlane_batch(dev, card, batch, cfg, fmi, c, ln, opt, trip):
     same inputs (max_abs_err 0; the plain machine's arrays do not depend
     on the pool, tests/test_torch_smem_rl.py, so it runs once, on one lane
     a task) with equal total steps, and at K = 1 total ticks equal to the
-    lockstep's lane-ticks; its bound (the inputs, 64 bytes and 45
-    operations a step, the outputs), latency floor (the longest lane's
-    steps over the bases a fetch, x `trip` us) and device ms (mean of 2).
-    Returns {(lanes, pass): numbers}."""
+    kernels' twins' on the same tasks (a task's rounds do not depend on the
+    lane that pulls it, so the total is the same for every pull order; the
+    twins run on the first K = 1 configuration of the batch and their
+    totals, kept in `twin_ticks` by pass, hold the int64 form too: its
+    rounds are the int32 form's);
+    its bound (the inputs, 64 bytes and 45 operations a step, the
+    outputs), latency floor (the longest lane's ticks, its dependent occ
+    trips: passes 1-2 forward row fetches plus backward chunks, pass 3 row
+    fetches, x `trip` us) and device ms (mean of 2). Returns {(lanes,
+    pass): numbers}."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import smem_rl, smem_rl_cuda
     from bwa_mem_scale_tpu_torch.ops.smem_oh import collect_smems_oh
@@ -3478,15 +3492,14 @@ def readlane_batch(dev, card, batch, cfg, fmi, c, ln, opt, trip):
                 fn = plains[name]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                want = fn(*args, **one, **(
-                    {"with_ticks": True} if name == "one_pos" else {}))
+                want = fn(*args, **one)
                 torch.cuda.synchronize()
                 plain_ms = (time.perf_counter() - t0) * 1e3
-                want, lane_ticks = want if name == "one_pos" else (want,
-                                                                   None)
+                if fmi.kstep == 1 and p not in twin_ticks:
+                    twin_ticks[p] = readlane_twin_ticks(name, args, one)
                 plain[p] = (args, want, int(fn.last_steps.sum()),
-                            None if lane_ticks is None
-                            else int(lane_ticks[1].sum()), plain_ms)
+                            twin_ticks[p] if fmi.kstep == 1 else None,
+                            plain_ms)
             args0, want, want_steps, want_ticks, plain_ms = plain[p]
             if not all(a is b or not isinstance(a, torch.Tensor)
                        or torch.equal(a, b) for a, b in zip(args, args0)):
@@ -3503,7 +3516,8 @@ def readlane_batch(dev, card, batch, cfg, fmi, c, ln, opt, trip):
                     fmi.kstep == 1 and want_ticks is not None
                     and int(ticks.sum()) != want_ticks):
                 raise SystemExit(f"readlane: {what}: total steps or ticks "
-                                 f"differ from the plain machine's")
+                                 f"differ from the plain machine's or the "
+                                 f"twin's")
             w = wrappers[name]
             ms = [device_ms(lambda: w(*args, **kw), 20, dev)
                   for _ in range(2)]
@@ -3513,27 +3527,27 @@ def readlane_batch(dev, card, batch, cfg, fmi, c, ln, opt, trip):
                                          else n_tasks)
                 nbytes = (4 * (c.numel() + B + 4 * n_tasks) + n_tasks
                           + (8 + 3 * pb) * R * M + 4 * R)
-                per_fetch = fmi.kstep
             else:
                 n_tasks, M = B, args[5]
                 nbytes = 4 * (c.numel() + B) + (8 + 3 * pb) * B * M + 4 * B
-                per_fetch = 2 if fmi.kstep > 1 else 1
             total = int(steps.sum())
             longest = int(steps.max())
+            rounds = int(ticks.max())
             r = dict(err=err, ms=sum(ms) / 2, plain_ms=plain_ms,
                      steps=total, longest=longest,
-                     ticks=int(ticks.sum()), longest_ticks=int(ticks.max()),
+                     ticks=int(ticks.sum()), longest_ticks=rounds,
                      lanes=lanes or n_tasks, tasks=n_tasks,
                      bound=bound(nbytes + SMEM_BYTES_PER_STEP * total,
                                  SMEM_OPS_PER_STEP * total),
-                     floor=-(-longest // per_fetch) * trip * 1e-3)
+                     floor=rounds * trip * 1e-3)
             res[lanes, p] = r
             log(f"[readlane] {what} ({r['tasks']} tasks on {r['lanes']} "
                 f"lanes): equal to the plain machine (max_abs_err {err}), "
                 f"steps {total} (the longest lane {longest}), ticks "
-                f"{r['ticks']} (longest {r['longest_ticks']}); bound "
-                f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, latency floor "
-                f"{r['floor']:.5f} ms (ceil({longest} / {per_fetch}) x "
+                f"{r['ticks']} (longest {rounds}"
+                + ("" if want_ticks is None else ", the twins' total too")
+                + f"); bound {r['bound'][0]:.6f} ms by {r['bound'][1]}, "
+                f"latency floor {r['floor']:.5f} ms ({rounds} trips x "
                 f"{trip:.4f} us); kernel device time {r['ms']:.5f} ms (mean "
                 f"of 2), plain {plain_ms:.2f} ms  [{card}]")
     return res
@@ -3665,10 +3679,11 @@ def phase_readlane(dev, card, tmp, se, pe, al, kst):
                 "int64": DeviceFMIndex.from_host(idx, dev, force_int64=True),
                 **{f"k{K}": DeviceFMIndex.from_host(
                     idx, dev, cp2=kst["cp2"][batch, K]) for K in (2, 3)}}
+        twin_ticks = {}
         for cfg, fmi in fmis.items():
             trip = kst["trips"][1 if cfg == "k3" else 0]
             res[batch, cfg] = readlane_batch(dev, card, batch, cfg, fmi, c,
-                                             ln, al.opt, trip)
+                                             ln, al.opt, trip, twin_ticks)
         del fmis
         torch.cuda.empty_cache()
     p5 = "phase 5's batch"
@@ -4258,7 +4273,7 @@ def main():
         f"shared-memory load, a shuffle, a ballot), equal to its plain "
         f"model: {round_cost.round_us(dev):.5f} us, the chaining floors' "
         f"cost of a round  [{card}]")
-    kernels = {lib: ptxas_kernels(nvcc_build.REPORTS[lib])
+    kernels = {lib: nvcc_build.ptxas_kernels(nvcc_build.REPORTS[lib])
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda",
                            "sweep_cuda", "seedsw_cuda", "emf_cuda",
                            "ert_cuda", "readlane_cuda", "kswg_cuda",
@@ -4293,12 +4308,16 @@ def main():
             ("sweep_cuda", "strategy_chase_kernelI{}",
              "strategy_chase_kernel<{}>"),
             ("ert_cuda", "ert_extend_kernelI{}", "ert_extend_kernel<{}>"),
-            ("readlane_cuda", "readlane_one_pos_kernelILi1E{}",
-             "readlane_one_pos_kernel<{}>"),
-            ("readlane_cuda", "readlane_one_pos_kernelILi2Ei",
-             "readlane_one_pos_kernel<K = 2, int32>"),
-            ("readlane_cuda", "readlane_one_pos_kernelILi3Ei",
-             "readlane_one_pos_kernel<K = 3, int32>"),
+            ("readlane_cuda", "readlane_one_pos_kernelILb1ELi1E{}",
+             "readlane_one_pos_kernel<stacks in shared memory, {}>"),
+            ("readlane_cuda", "readlane_one_pos_kernelILb0ELi1E{}",
+             "readlane_one_pos_kernel<stacks in a device scratch, {}>"),
+            ("readlane_cuda", "readlane_one_pos_kernelILb1ELi2Ei",
+             "readlane_one_pos_kernel<stacks in shared memory, K = 2, "
+             "int32>"),
+            ("readlane_cuda", "readlane_one_pos_kernelILb1ELi3Ei",
+             "readlane_one_pos_kernel<stacks in shared memory, K = 3, "
+             "int32>"),
             ("readlane_cuda", "readlane_strategy_kernelILi1E{}",
              "readlane_strategy_kernel<{}>"),
             ("readlane_cuda", "readlane_strategy_kernelILi2Ei",

@@ -322,14 +322,18 @@ __device__ __forceinline__ void ext_k(const Fmi<int>& f, const Kfmi& g,
 // Copy n int32 codes from src (4-byte aligned) into dst as bytes,
 // threads tid of nthr: the 16-byte aligned body of [src, src + n) as
 // int4 loads, the few words before and after it one by one. A code >= 4
-// is an N to every walk, so it is stored as 4.
+// is an N to every walk, so it is stored as 4; with CLIP_LOW a negative
+// code is stored as 0 (the readlane machines' clip).
+template <bool CLIP_LOW = false>
 __device__ __forceinline__ void stage_codes(const int32_t* src, int n,
                                             int8_t* dst, int tid,
                                             int nthr) {
   const int head = min(n, (int)((16 - ((uintptr_t)src & 15)) & 15) >> 2);
   const int n4 = (n - head) >> 2;
   const int4* body = reinterpret_cast<const int4*>(src + head);
-  auto put = [&](int i, int v) { dst[i] = (int8_t)(v < 4 ? v : 4); };
+  auto put = [&](int i, int v) {
+    dst[i] = (int8_t)(v < 4 ? (CLIP_LOW && v < 0 ? 0 : v) : 4);
+  };
   for (int i = tid; i < n4; i += nthr) {
     const int4 v = __ldg(body + i);
     const int b = head + 4 * i;

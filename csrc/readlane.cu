@@ -1,7 +1,8 @@
 // The readlane seeding engine for Hopper (sm_90a): the read-per-lane SMEM
-// machines of bwa_mem_scale_tpu/ops/smem_rl.py, one thread a worker lane,
-// each walk whole in one launch with no host synchronisation inside.
-// - readlane_one_pos_kernel<KS, P>: SMEM passes 1 and 2
+// machines of bwa_mem_scale_tpu/ops/smem_rl.py over a pool of worker
+// lanes, each walk whole in one launch with no host synchronisation
+// inside.
+// - readlane_one_pos_kernel<STACKS_IN_SHARED, KS, P>: SMEM passes 1 and 2
 //   (getSMEMsOnePosOneThread, src/FMI_search.cpp:1372-1660). Replaces
 //   bwa_mem_scale_tpu/ops/smem_rl.py:55 one_pos_machine (its
 //   jax.lax.while_loop at :596) through ops/smem_rl.py::one_pos_machine.
@@ -9,141 +10,115 @@
 //   (bwtSeedStrategyAllPosOneThread, src/FMI_search.cpp:1662-1730).
 //   Replaces bwa_mem_scale_tpu/ops/smem_rl.py:603 seed_strategy_machine
 //   (its loop at :764) through ops/smem_rl.py::seed_strategy_machine.
-// Every output array equals the lockstep machine's, for any pull order:
-// a task's emissions land in its own output row (out_rows[task] for
-// passes 1-2, the read for pass 3), so which lane runs it, and when, does
-// not show.
 //
-// The worker-lane pool. The JAX machines run `lanes` lanes over a backlog
-// of tasks (passes 1-2: (read, x, min_intv); pass 3: reads): a lane that
-// finishes its task pulls the next unassigned one, kt_for's dynamic
-// scheduling (src/kthread.cpp:41-77). Here a lane is a thread: the wrapper
-// launches `lanes` threads (one a task when lanes is None), and a lane
-// pulls its next task with atomicAdd on a counter the wrapper zeroes. The
-// order of the pulls is not deterministic on the card; the outputs do not
-// depend on it. Each lane's two interval stacks live in a device scratch
-// sized by lanes, not tasks: [lanes][2][L + 1] entries (16 bytes, 32 in
-// the int64 form), at the full depth L that no walk can overflow (slot L
-// takes a push past it, as the lockstep's dropped scatter), so a 64-lane
-// pool of 101 bp reads holds 208 KB of stacks whatever the backlog. A
-// lane's stacks carry from task to task; a walk reads only the slots it
-// wrote.
+// The contract. The JAX machines run `lanes` lanes over a backlog of tasks
+// (passes 1-2: (read, x, min_intv); pass 3: reads): a lane that finishes
+// its task pulls the next unassigned one, kt_for's dynamic scheduling
+// (src/kthread.cpp:41-77). Here too `lanes` worker lanes (one a task when
+// lanes is None) pull tasks with atomicAdd on a counter the wrapper
+// zeroes; the order of the pulls is not deterministic on the card. A
+// task's emissions land in its own output row (out_rows[task] for passes
+// 1-2, the read for pass 3), zeros past its count, an emission past M
+// dropped while the count grows, so every output array equals the plain
+// lockstep machine's whatever the pull order.
 //
-// The tick. Each iteration of a lane's loop is one tick of the JAX
-// machine: INIT (the 1-base interval, no extension), FWD (the forward walk
-// from x), BSCAN (a backward round's scan, its first-hit break) and BTAIL
-// (the round's distinct-s tail), with the reference's double push of the
-// failing forward interval and next_x = j on an interval failure. The
-// four phases diverge inside a warp. The loop keeps the TPU tick's shape:
-// every lane that extends makes exactly one occ step an iteration, from
-// one call site: a FWD lane on its swapped (l, k) interval, a BSCAN or
-// BTAIL lane on its stack entry (the JAX machine's _ext_all4,
-// bwa_mem_scale_tpu/ops/smem_rl.py:47-52). Only the transitions branch,
-// so a warp never issues two dependent row fetches in one iteration for
-// two phases.
-//
-// What bounds it on this card: each lane's chain of dependent L2 row
+// What bounds them on this card: each walk's chain of dependent L2 row
 // trips. An occ step's two checkpoint rows depend on the interval the
-// step before made (0.224 us a dependent row load on the 4.6 Mbp table,
+// step before made (0.158 us a dependent row load on the 4.6 Mbp table,
 // held in L2, on an NVIDIA H100 80GB HBM3 at 700 W: probe B, PERF.md
-// section 6), and a backward tick first loads its stack entry from the
-// scratch. One thread walks a task's steps one after another, its
-// backward rounds' entries included, which the warp form of passes 1-2
-// (csrc/smem.cu one_pos_kernel) runs side by side; so a lane's latency
-// floor is its steps, not its rounds, and a 512-task pass fills 16 warps
-// of the card. With lanes below the task count a lane's chain is the sum
-// of its tasks' steps: a smaller pool lengthens the longest lane. What
-// the design does about it: nothing else rides the chain (the codes are
-// read-only loads of a few lines a read, a step's base is known before
-// its fetch), and the pool keeps every lane busy to the backlog's end.
-// Measured on that card (PERF.md section 6): 0.78-1.06 us a step of the
-// longest lane, five to seven times the trip, with pass 3 (no stacks) at
-// 0.78 us a tick too; so the trips alone do not set the time. One warp
-// an SM (a 512-lane pass is 16 warps on 16 SMs) hides nothing of a tick's
-// dependent chain, and a warp runs the branch of every phase its lanes
-// are in. Each lane reports its `steps` (occ steps made: the work, single bases
-// at every KS) and `ticks` (the iterations, INIT ticks included).
+// section 6); the bytes (64 a step) take a few microseconds at 3.35 TB/s.
+// So the designs keep every other load off that chain and run side by
+// side the steps that do not wait on each other.
 //
-// The k-step forms (KS = 2, 3; int32 layout only, as in JAX) change only
-// the forward walk, as the k-step forms of csrc/smem.cu do: one k-gram row
-// fetch an end takes KS bases (csrc/fmi_step.cuh ext_k), and the steps then run
-// one after another exactly as the 1-step walk's (a push where the size
-// changes, nx, the last interval), stopping where it stops mid-stride.
-// Every extending lane of passes 1-2 calls ext_k, and fetches only the
-// groups of the bases it takes: a backward lane the 1-step group (the row
-// K = 1 reads), a forward lane those of its bases up to the read's end or
-// an N.
-// The JAX machine's backward side entries (the round's next entry beside
-// a backward tick, two in the tail at K = 3) are a TPU tick-packing and
-// are not copied: a backward tick takes one entry, and the output is the
-// same. readlane_strategy_kernel<2, int> takes two bases a fetch (a
-// trigram table's bigram groups).
+// readlane_one_pos_kernel: a warp a worker lane. The wrapper launches
+// `lanes` one-warp blocks, so a 512-task pass runs 512 warps over the 132
+// SMs. Lane 0 pulls a task with atomicAdd and broadcasts it; the warp
+// zeroes the task's output row, stages the read's codes into its shared
+// memory as bytes (16-byte loads, csrc/fmi_step.cuh stage_codes, a
+// negative code clipped to 0 as the lockstep does) and runs the task as
+// csrc/smem.cu's one_pos_kernel runs one (csrc/one_pos_task.cuh, one body
+// for both): the forward walk serially on every lane as one broadcast,
+// each backward round as one trip, 32 entries a chunk, its keep/emit rule
+// resolved by a ballot and __shfl_up_sync on the two orders along a round
+// (csrc/smem.cu's note). Both interval stacks live in the warp's dynamic
+// shared memory at the full depth L that no walk can overflow (a forward
+// walk from x pushes at most len - x entries), 3,264 bytes at L = 101 (6.5
+// KB at int64), carried from task to task (a walk reads only the slots it
+// wrote); where the codes and stacks pass 227 KB (L past ~7,000 at int64,
+// long reads under -x pacbio), they live in a device scratch [lanes][2][L
+// + 1] (STACKS_IN_SHARED false), chosen by shape
+// (readlane_stacks_in_shared). A warp pulls its next task with no
+// block-wide barrier. A lane's latency floor is the sum of its tasks'
+// rounds (forward row fetches plus backward chunks), not their steps.
+// The kernel asks for one block an SM at least (__launch_bounds__(WARP,
+// 1)), so ptxas gives the int64 and K = 3 forms the registers they need:
+// without it they took 64 and the int64 forms spilled 124-152 bytes,
+// 1.10-1.13x the time (PERF.md section 6).
 //
-// The int64 forms (P = long long, the launch functions ending in 64): the
-// intervals, the stack entries' k, l and s and the emitted k, l and s are
-// 64-bit over the int64 layout of ops/occ.py (csrc/fmi_step.cuh).
+// readlane_strategy_kernel: a thread a worker lane, RW lanes a one-warp
+// block (the wrapper's lanes a warp: 8, fewer where RW slots of codes
+// pass 227 KB or the pool is smaller), so the pool spreads over lanes /
+// RW SMs. Each pull stages the read's codes into the lane's own slot of
+// shared memory (16-byte loads), and the start loop and the walk are one
+// flat loop of exactly one ext an iteration, as csrc/smem.cu's
+// seed_strategy_kernel: the restart at a hit or an N (`seek`), the INIT of
+// the JAX tick, is a state update over shared memory inside the
+// iteration, and the end of a read (its row's zeros, the next pull) too.
+// A read's walks are one chain of ~L - 1 dependent steps (a walk ends
+// where the next begins), so a warp a read would not cut the floor.
 //
-// Each kernel writes every slot of each row it owns (zeros past the row's
-// count; an emission past M is dropped and the count still grows) and
-// each lane's steps and ticks, so the wrapper launches nothing but the
-// counter's zeroing.
+// Each lane reports its `steps` (occ steps: single bases at every KS, the
+// work) and `ticks` (its loop iterations that make an occ trip: passes
+// 1-2 forward row fetches plus backward chunks, pass 3 row fetches).
+//
+// The k-step forms (KS = 2, 3; int32 layout only) take KS bases a row
+// fetch on the forward walk through csrc/fmi_step.cuh ext_k, as
+// one_pos_kernel<.., KS, int>; the backward rounds keep their 1-step form
+// (the JAX machine's backward side entries are a TPU tick-packing and are
+// not copied). readlane_strategy_kernel<2, int> takes two bases a row
+// fetch (a trigram table's bigram groups). The int64 forms (P = long
+// long, the launch functions ending in 64) run the int64 layout of
+// ops/occ.py (csrc/fmi_step.cuh).
+//
+// The retired design (a thread a worker lane in 32-thread blocks,
+// the stacks in a [lanes][2][L + 1] device scratch, each code a global
+// load, the INIT/FWD/BSCAN/BTAIL ticks divergent in a warp) took, on
+// phase 5's batch on that card, pass 1 0.43532 ms at one lane a task and
+// 2.58874 ms at 64 lanes, pass 2 0.09821 ms, pass 3 0.07906 ms (PERF.md
+// section 6, with what held it back).
 
 #include "fmi_step.cuh"
+#include "one_pos_task.cuh"
 
 namespace {
 
-constexpr int RL_THREADS = 32;    // one warp a block, a worker lane a thread
-constexpr int P_INIT = 0, P_FWD = 1, P_BSCAN = 2, P_BTAIL = 3;
-
-// an interval-stack entry (k, l, s, n): one 16-byte load in the int32
-// form, 32 bytes in the int64 form
-template <typename P>
-struct __align__(16) RlEnt {
-  P k, l, s;
-  int n;
-};
-
-// a read's code at column i clamped to [0, L - 1], N (4) for any code
-// past 3, 0 for a negative one (the lockstep's clip)
-__device__ __forceinline__ int rl_code(const int32_t* q, int L, int i) {
-  const int v = __ldg(q + (i < 0 ? 0 : (i >= L ? L - 1 : i)));
-  return v < 0 ? 0 : (v > 4 ? 4 : v);
+// zeros into the n words [p, p + n) by one thread: 16-byte stores over
+// the aligned body, the few words before and after it one by one
+__device__ __forceinline__ void zero_words(int32_t* p, int n) {
+  const int head = min(n, (int)((16 - ((uintptr_t)p & 15)) & 15) >> 2);
+  const int n4 = (n - head) >> 2;
+  int4* body = reinterpret_cast<int4*>(p + head);
+  for (int i = 0; i < head; ++i) p[i] = 0;
+  for (int i = 0; i < n4; ++i) body[i] = make_int4(0, 0, 0, 0);
+  for (int i = head + 4 * n4; i < n; ++i) p[i] = 0;
 }
 
-// One output row's writer: [2][R][M] int32 (m, n), then [3][R][M] P (k,
-// l, s).
+// a row's slots from c0 on zeroed by one thread, field by field
 template <typename P>
-struct RowOut {
-  int32_t* out;
-  size_t tm;                         // R x M, one field
-  int M;
+__device__ __forceinline__ void zero_tail(const SmemRows<P>& rows, int row,
+                                          int c0) {
+  const size_t o = (size_t)row * rows.M + c0;
+  const int n = rows.M - c0;
+  P* kls = reinterpret_cast<P*>(rows.out + 2 * rows.tm);
+  zero_words(rows.out + o, n);
+  zero_words(rows.out + rows.tm + o, n);
+  for (int fld = 0; fld < 3; ++fld)
+    zero_words(reinterpret_cast<int32_t*>(kls + fld * rows.tm + o),
+               n * (int)(sizeof(P) / 4));
+}
 
-  __device__ __forceinline__ void put(int row, int c, int m, int n, P k,
-                                      P l, P s) const {
-    P* kls = reinterpret_cast<P*>(out + 2 * tm);
-    const size_t o = (size_t)row * M + c;
-    out[o] = m;
-    out[tm + o] = n;
-    kls[o] = k;
-    kls[tm + o] = l;
-    kls[2 * tm + o] = s;
-  }
-
-  // the row's emission, dropped past M
-  __device__ __forceinline__ void emit(int row, int& cnt, int m, int n, P k,
-                                       P l, P s) const {
-    if (cnt < M) put(row, cnt, m, n, k, l, s);
-    ++cnt;
-  }
-
-  // zeros past the row's count
-  __device__ __forceinline__ void finish(int row, int cnt) const {
-    for (int c = cnt < M ? cnt : M; c < M; ++c) put(row, c, 0, 0, 0, 0, 0);
-  }
-};
-
-template <int KS, typename P>
-__global__ void __launch_bounds__(RL_THREADS)
+template <bool STACKS_IN_SHARED, int KS, typename P>
+__global__ void __launch_bounds__(WARP, 1)
 readlane_one_pos_kernel(Fmi<P> f, Kfmi g,
                         const int32_t* __restrict__ codes,     // [B, L]
                         const int32_t* __restrict__ lens,      // [B]
@@ -153,348 +128,155 @@ readlane_one_pos_kernel(Fmi<P> f, Kfmi g,
                         const int32_t* __restrict__ t_mi,      // [N]
                         const uint8_t* __restrict__ t_valid,   // [N]
                         const int32_t* __restrict__ t_row,     // [N]
-                        int N, int T, int chain_restarts,
-                        int min_seed_len, int M, int R,
-                        RlEnt<P>* __restrict__ stk,      // [T][2][L + 1]
-                        int* __restrict__ next_task,     // 0 at the launch
-                        int32_t* __restrict__ out,       // [R] rows
-                        int32_t* __restrict__ cnt_out,   // [R]
+                        int N, int chain_restarts, int min_seed_len, int M,
+                        int R,
+                        Ent<P>* __restrict__ scratch,  // [T][2][L + 1] or null
+                        int* __restrict__ next_task,   // 0 at the launch
+                        int32_t* __restrict__ out,     // [R] rows
+                        int32_t* __restrict__ cnt_out,     // [R]
                         int32_t* __restrict__ steps_out,   // [T]
                         int32_t* __restrict__ ticks_out) {  // [T]
-  const int lane = blockIdx.x * RL_THREADS + threadIdx.x;
-  if (lane >= T) return;
-  const RowOut<P> rows{out, (size_t)R * M, M};
-  RlEnt<P>* const st = stk + (size_t)lane * 2 * (L + 1);
-  int wA = 0;                        // the A stack's buffer; B is wA ^ 1
+  extern __shared__ int4 smem[];
+  const int w = blockIdx.x;                        // the worker lane
+  const int lane = threadIdx.x;
+  const SmemRows<P> rows{out, (size_t)R * M, M};
+  // the shared memory: [2][L + 1] stack entries, then the codes
+  Ent<P>* stk = STACKS_IN_SHARED ? reinterpret_cast<Ent<P>*>(smem)
+                                 : scratch + (size_t)w * 2 * (L + 1);
+  int8_t* q = STACKS_IN_SHARED
+                  ? reinterpret_cast<int8_t*>(stk + 2 * (L + 1))
+                  : reinterpret_cast<int8_t*>(smem);
   int steps = 0, ticks = 0;
-  // the task
-  const int32_t* q = codes;
-  int row = 0, len = 0, x = 0, cnt = 0, phase = P_INIT;
-  P mi = 0;
-  // the walk: the column, next_x, the forward interval, the stacks'
-  // counts, the A entries' shared m, the scan index and direction, the
-  // distinct-s tracker
-  int j = 0, nx = 0, cn = 0, cntA = 0, cntB = 0, mA = 0, p = 0;
-  bool rev = false;
-  P ck = 0, cl = 0, cs = 0, curr_s = -1;
-  auto code = [&](int i) { return rl_code(q, L, i); };
-  auto push = [&](int buf, int& c, P k, P l, P s, int n) {
-    st[buf * (L + 1) + (c < L ? c : L)] = RlEnt<P>{k, l, s, n};
-    ++c;
-  };
-  auto pull = [&]() -> bool {
-    const int t = atomicAdd(next_task, 1);
-    if (t >= N) return false;
+  for (;;) {
+    int t = 0;
+    if (lane == 0) t = atomicAdd(next_task, 1);
+    t = __shfl_sync(FULL, t, 0);
+    if (t >= N) break;
     int rd = t_read[t];
     rd = rd < 0 ? 0 : (rd >= B ? B - 1 : rd);
-    q = codes + (size_t)rd * L;
-    len = t_valid[t] ? lens[rd] : 0;
-    mi = (P)t_mi[t];
-    row = t_row[t];
-    x = t_x[t];
-    cnt = 0;
-    phase = P_INIT;
-    return true;
-  };
-  bool live = pull();
-  while (live) {                       // one tick an iteration
-    ++ticks;
-    bool fin = false;
-    if (phase == P_INIT) {             // the 1-base interval at x
-      const int xa = code(x);
-      nx = x + 1;
-      if (x < len && xa < 4) {
-        ck = cval(f, xa);
-        cl = cval(f, 3 - xa);
-        cs = cval(f, xa + 1) - ck;
-        cn = x;
-        j = x + 1;
-        cntA = 0;
-        phase = P_FWD;
-      } else if (chain_restarts && x + 1 < len) {
-        ++x;
-      } else {
-        fin = true;
-      }
-    } else {
-      const bool fwd = phase == P_FWD;
-      const int a = code(j);
-      RlEnt<P> e{0, 0, 0, 0};
-      if (!fwd) {
-        const int si = rev ? cntA - 1 - p : p;
-        e = st[wA * (L + 1) + (si < 0 ? 0 : (si >= L ? L - 1 : si))];
-      }
-      const bool dead = phase == P_BSCAN && p == 0
-                        && (j < 0 || a >= 4 || cntA == 0);
-      const bool need = fwd ? (j < len && a < 4)
-                            : (phase == P_BSCAN ? !dead : p < cntA);
-      // the tick's one occ step, from one call site (a, the read's base,
-      // is < 4 wherever need holds)
-      P nk[KS], nl[KS], ns[KS];
-#pragma unroll
-      for (int d = 0; d < KS; ++d) nk[d] = nl[d] = ns[d] = 0;
-      if (need) {
-        const P kk = fwd ? cl : e.k, ll = fwd ? ck : e.l, ss = fwd ? cs : e.s;
-        if constexpr (KS == 1) {
-          ext(f, kk, ll, ss, fwd ? 3 - a : a, nk[0], nl[0], ns[0]);
-        } else {
-          // a backward step fetches the 1-step group alone, a forward one
-          // the groups of its bases up to the read's end or an N
-          int c[KS], live = 1;
-          c[0] = fwd ? 3 - a : a;
-#pragma unroll
-          for (int d = 1; d < KS; ++d) {
-            const int cd = fwd ? code(j + d) : 4;
-            c[d] = fwd ? 3 - (cd < 4 ? cd : 3) : 0;
-            live += live == d && j + d < len && cd < 4;
-          }
-          ext_k<KS>(f, g, kk, ll, ss, c, nk, nl, ns, live);
-        }
-      }
-      if (fwd) {
-        // the forward interval after d + 1 bases: (nl[d], nk[d], ns[d])
-        bool end;
-        if constexpr (KS == 1) {
-          const bool fail = need && ns[0] < mi;
-          if (need) {
-            ++steps;
-            if (ns[0] != cs) push(wA, cntA, ck, cl, cs, cn);
-          }
-          if (j < len) nx = j + 1;
-          if (fail) nx = j;
-          end = !need || fail;
-          if (end) {
-            if (cs >= mi) push(wA, cntA, ck, cl, cs, cn);
-          } else {
-            ck = nl[0];
-            cl = nk[0];
-            cs = ns[0];
-            cn = j;
-            ++j;
-          }
-        } else {
-          // KS steps from one fetch, each as the 1-step walk's
-          P ek = ck, el = cl, es = cs, pk = ck, pl = cl, ps = cs;
-          int en = cn, pn = cn;
-          bool gate = true, cont = false;
-#pragma unroll
-          for (int d = 0; d < KS; ++d) {
-            const int jd = j + d;
-            const bool run = gate && jd < len && (d == 0 ? a : code(jd)) < 4;
-            const P sk = nl[d], sl = nk[d], ss = ns[d];
-            if (run) {
-              ++steps;
-              if (ss != ps) push(wA, cntA, pk, pl, ps, pn);
-            }
-            const bool fail = run && ss < mi;
-            cont = run && !fail;
-            if (gate && jd < len) nx = jd + 1;
-            if (fail) nx = jd;
-            if (cont) {
-              ek = sk;
-              el = sl;
-              es = ss;
-              en = jd;
-            }
-            pk = sk;
-            pl = sl;
-            ps = ss;
-            pn = jd;
-            gate = cont;
-          }
-          end = !cont;
-          if (end && es >= mi) push(wA, cntA, ek, el, es, en);
-          ck = ek;
-          cl = el;
-          cs = es;
-          cn = en;
-          if (cont) j += KS;
-        }
-        if (end) {                     // backward from x - 1, stack top first
-          mA = x;
-          phase = P_BSCAN;
-          j = x - 1;
-          rev = true;
-          p = 0;
-          curr_s = -1;
-          cntB = 0;
-        }
-      } else if (dead) {               // the position's end
-        if (cntA > 0 && e.n - mA + 1 >= min_seed_len)
-          rows.emit(row, cnt, mA, e.n, e.k, e.l, e.s);
-        if (chain_restarts) {
-          const int x2 = nx > x + 1 ? nx : x + 1;
-          if (x2 >= len) {
-            fin = true;
-          } else {
-            x = x2;
-            phase = P_INIT;
-          }
-        } else {
-          fin = true;
-        }
-      } else {
-        bool keep, over;
-        if (need) ++steps;
-        if (phase == P_BSCAN) {        // the first hit ends the scan
-          const bool die = ns[0] < mi;
-          const bool emit_sc = die && e.n - mA + 1 >= min_seed_len;
-          keep = !die && ns[0] != curr_s;
-          if (emit_sc) rows.emit(row, cnt, mA, e.n, e.k, e.l, e.s);
-          if (emit_sc || keep) phase = P_BTAIL;
-          ++p;
-          over = !(emit_sc || keep) && p >= cntA;
-        } else {                       // the tail keeps distinct sizes
-          keep = p < cntA && ns[0] >= mi && ns[0] != curr_s;
-          ++p;
-          over = p >= cntA;
-        }
-        if (keep) {
-          push(wA ^ 1, cntB, nk[0], nl[0], ns[0], e.n);
-          curr_s = ns[0];
-        }
-        if (over) {                    // prev <- curr: the buffers swap
-          wA ^= 1;
-          cntA = cntB;
-          cntB = 0;
-          mA = j;
-          --j;
-          rev = false;
-          p = 0;
-          curr_s = -1;
-          phase = P_BSCAN;
-        }
-      }
-    }
-    if (fin) {                         // the task's row, then the next task
-      rows.finish(row, cnt);
-      cnt_out[row] = cnt;
-      live = pull();
-    }
+    const int len = t_valid[t] ? lens[rd] : 0;
+    const int row = t_row[t];
+    __syncwarp();              // the last task's reads of the codes are done
+    rows.zero(row, lane);
+    if (len > 0)
+      stage_codes<true>(codes + (size_t)rd * L, L, q, lane, WARP);
+    __syncwarp();              // the codes, and the zeros before any emission
+    // the depth L: no stack overflows, so the count needs no latch
+    const TaskCounts c = one_pos_task<KS, P>(
+        f, g, q, L, len, t_x[t], t_mi[t], chain_restarts, min_seed_len, L,
+        stk, rows, row, lane);
+    if (lane == 0) cnt_out[row] = c.cnt;
+    steps += c.steps;
+    ticks += c.rounds;
   }
-  steps_out[lane] = steps;
-  ticks_out[lane] = ticks;
+  if (lane == 0) {
+    steps_out[w] = steps;
+    ticks_out[w] = ticks;
+  }
 }
 
 template <int KS, typename P>
-__global__ void __launch_bounds__(RL_THREADS)
+__global__ void __launch_bounds__(WARP)
 readlane_strategy_kernel(Fmi<P> f, Kfmi g,
                          const int32_t* __restrict__ codes,    // [B, L]
                          const int32_t* __restrict__ lens,     // [B]
-                         int B, int L, int T, int max_intv,
-                         int min_seed_len, int M,
+                         int B, int L, int T,
+                         int RW,              // worker lanes a block
+                         int max_intv, int min_seed_len, int M,
                          int* __restrict__ next_read,    // 0 at the launch
                          int32_t* __restrict__ out,      // [B] rows
                          int32_t* __restrict__ cnt_out,  // [B]
                          int32_t* __restrict__ steps_out,   // [T]
                          int32_t* __restrict__ ticks_out) {  // [T]
-  const int lane = blockIdx.x * RL_THREADS + threadIdx.x;
-  if (lane >= T) return;
-  const RowOut<P> rows{out, (size_t)B * M, M};
+  extern __shared__ int4 smem[];
+  const int w = blockIdx.x * RW + threadIdx.x;    // the worker lane
+  if ((int)threadIdx.x >= RW || w >= T) return;
+  int8_t* q = reinterpret_cast<int8_t*>(smem) + threadIdx.x * codes_bytes(L);
+  const SmemRows<P> rows{out, (size_t)B * M, M};
+  auto code = [&](int i) { return q[i < 0 ? 0 : (i >= L ? L - 1 : i)]; };
   int steps = 0, ticks = 0;
-  const int32_t* q = codes;
-  int rd = 0, len = 0, x = 0, j = 0, cnt = 0, phase = P_INIT;
+  int rd = -1, len = 0, cnt = 0, x = 0, j = 0, a = 4;
   P ck = 0, cl = 0, cs = 0;
-  auto code = [&](int i) { return rl_code(q, L, i); };
-  auto pull = [&]() -> bool {
-    rd = atomicAdd(next_read, 1);
-    if (rd >= B) return false;
-    q = codes + (size_t)rd * L;
-    len = lens[rd];
-    x = 0;
-    cnt = 0;
-    phase = P_INIT;
+  // The next walk with an ext to make, from start `from`: x the first
+  // base at or past it, j = x + 1 a base inside the read (a its code),
+  // (ck, cl, cs) x's C-array interval. A walk whose first column is an N
+  // makes no ext and goes on past that N. False at the read's end.
+  auto seek = [&](int from) -> bool {
+    for (x = from;; x = j + 1) {
+      while (x < len && code(x) >= 4) ++x;
+      j = x + 1;
+      if (j >= len) return false;
+      a = code(j);
+      if (a < 4) break;
+    }
+    const int xa = code(x);
+    ck = cval(f, xa);
+    cl = cval(f, 3 - xa);
+    cs = cval(f, xa + 1) - ck;
     return true;
   };
-  bool live = pull();
-  while (live) {                       // one tick an iteration
+  // The next read with a walk to make: the last read's row finished
+  // (zeros past its count, the count), the next pulled and its codes
+  // staged. False when the backlog is empty.
+  auto next = [&]() -> bool {
+    for (;;) {
+      if (rd >= 0) {
+        zero_tail(rows, rd, cnt < M ? cnt : M);
+        cnt_out[rd] = cnt;
+      }
+      rd = atomicAdd(next_read, 1);
+      if (rd >= B) return false;
+      len = lens[rd];
+      cnt = 0;
+      if (len > 0) stage_codes<true>(codes + (size_t)rd * L, L, q, 0, 1);
+      if (seek(0)) return true;
+    }
+  };
+  bool live = next();
+  // one base of the walk, its extension (nk, nl, ns) made and the next
+  // base an read: at a hit emit when s > 0 and seek on after it; at the
+  // read's end or an N stop or seek; true while the walk goes on
+  auto take = [&](P nk, P nl, P ns, int an) {
+    ++steps;
+    if (ns < max_intv && j + 1 - x >= min_seed_len) {
+      if (ns > 0) {
+        if (cnt < M) rows.put(rd, cnt, x, j, nk, nl, ns);
+        ++cnt;
+      }
+      live = seek(j + 1);                          // go on after the hit
+      return false;
+    }
+    ck = nk;
+    cl = nl;
+    cs = ns;
+    a = an;
+    if (++j >= len) {                              // the read's end
+      live = false;
+      return false;
+    }
+    if (a >= 4) {                                  // go on after the N
+      live = seek(j + 1);
+      return false;
+    }
+    return true;
+  };
+  while (live) {                  // one row fetch (KS bases) an iteration
+    const int an = code(j + 1);                    // read a step ahead
     ++ticks;
-    bool fin = false;
-    if (phase == P_INIT) {
-      const int xa = code(x);
-      if (x < len && xa < 4) {
-        ck = cval(f, xa);
-        cl = cval(f, 3 - xa);
-        cs = cval(f, xa + 1) - ck;
-        j = x + 1;
-        phase = P_FWD;
-      } else if (x + 1 < len) {
-        ++x;
-      } else {
-        fin = true;
-      }
+    if constexpr (KS == 1) {
+      P nk, nl, ns;
+      ext(f, cl, ck, cs, 3 - a, nl, nk, ns);       // the swapped interval
+      take(nk, nl, ns, an);
     } else {
-      // forward from x: stop at the first j whose size falls below
-      // max_intv with at least min_seed_len bases (emitted when s > 0),
-      // at an N or at the read's end; the next walk starts at next_x
-      const int a = code(j);
-      const bool j_in = j < len, r1 = j_in && a < 4;
-      bool end;
-      int nxv;
-      if constexpr (KS == 1) {
-        P nk = 0, nl = 0, ns = 0;
-        if (r1) {
-          ++steps;
-          ext(f, cl, ck, cs, 3 - a, nl, nk, ns);   // the swapped interval
-        }
-        const bool hit = r1 && ns < max_intv && j + 1 - x >= min_seed_len;
-        if (hit && ns > 0) rows.emit(rd, cnt, x, j, nk, nl, ns);
-        nxv = j_in ? j + 1 : j;
-        end = !r1 || hit;
-        if (!end) {
-          ck = nk;
-          cl = nl;
-          cs = ns;
-          ++j;
-        }
-      } else {                         // two bases a row fetch
-        const int b = code(j + 1);
-        P bk[2] = {0, 0}, bl[2] = {0, 0}, bs[2] = {0, 0};
-        if (r1) {
-          // both groups always: fetching the second only where the
-          // read goes on (live) timed 4-6% slower (PERF.md section 6)
-          int ch[2] = {3 - a, 3 - (b < 4 ? b : 3)};
-          ext_k<2>(f, g, cl, ck, cs, ch, bk, bl, bs);
-        }
-        const bool hit1 = r1 && bs[0] < max_intv
-                          && j + 1 - x >= min_seed_len;
-        const bool cont1 = r1 && !hit1;
-        const bool j2_in = j + 1 < len;
-        const bool r2 = cont1 && j2_in && b < 4;
-        const bool hit2 = r2 && bs[1] < max_intv
-                          && j + 2 - x >= min_seed_len;
-        const bool cont2 = r2 && !hit2;
-        steps += (int)r1 + (int)r2;
-        if (hit1 && bs[0] > 0)
-          rows.emit(rd, cnt, x, j, bl[0], bk[0], bs[0]);
-        else if (hit2 && bs[1] > 0)
-          rows.emit(rd, cnt, x, j + 1, bl[1], bk[1], bs[1]);
-        nxv = cont1 ? (j2_in ? j + 2 : j + 1) : (j_in ? j + 1 : j);
-        end = !cont2;
-        if (cont2) {
-          ck = bl[1];
-          cl = bk[1];
-          cs = bs[1];
-          j += 2;
-        }
-      }
-      if (end) {
-        if (nxv >= len) {
-          fin = true;
-        } else {
-          x = nxv;
-          phase = P_INIT;
-        }
-      }
+      int ch[2] = {3 - a, 3 - (an < 4 ? an : 3)}, bk[2], bl[2], bs[2];
+      ext_k<2>(f, g, cl, ck, cs, ch, bk, bl, bs);  // the swapped interval
+      if (take(bl[0], bk[0], bs[0], an)) take(bl[1], bk[1], bs[1],
+                                              code(j + 1));
     }
-    if (fin) {                         // the read's row, then the next read
-      rows.finish(rd, cnt);
-      cnt_out[rd] = cnt;
-      live = pull();
-    }
+    if (!live) live = next();                      // the read's end
   }
-  steps_out[lane] = steps;
-  ticks_out[lane] = ticks;
+  steps_out[w] = steps;
+  ticks_out[w] = ticks;
 }
 
 template <int KS, typename P>
@@ -506,46 +288,69 @@ int one_pos_launch_t(const Fmi<P>& f, const Kfmi& g, const void* codes,
                      void* out, void* cnt, void* steps, void* ticks,
                      void* stream) {
   if (T <= 0) return 0;
+  const bool shared = stacks_in_shared<P>(L, L);
+  const size_t bytes = codes_bytes(L) + (shared ? stacks_bytes<P>(L) : 0);
   if (!fmi_ok(f) || (KS > 1 && !kfmi_ok(g, KS)) || B <= 0 || L <= 0
-      || N < 0 || M < 0 || R < 0 || stk == nullptr || ctr == nullptr)
+      || N < 0 || M < 0 || R < 0 || bytes > SMEM_MAX || ctr == nullptr
+      || (!shared && stk == nullptr))
     return (int)cudaErrorInvalidValue;
-  readlane_one_pos_kernel<KS, P><<<(T + RL_THREADS - 1) / RL_THREADS,
-                                   RL_THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = shared ? readlane_one_pos_kernel<true, KS, P>
+                       : readlane_one_pos_kernel<false, KS, P>;
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<T, WARP, bytes, (cudaStream_t)stream>>>(
       f, g, (const int32_t*)codes, (const int32_t*)lens, B, L,
       (const int32_t*)t_read, (const int32_t*)t_x, (const int32_t*)t_mi,
-      (const uint8_t*)t_valid, (const int32_t*)t_row, N, T, chain_restarts,
-      min_seed_len, M, R, (RlEnt<P>*)stk, (int*)ctr, (int32_t*)out,
+      (const uint8_t*)t_valid, (const int32_t*)t_row, N, chain_restarts,
+      min_seed_len, M, R, (Ent<P>*)stk, (int*)ctr, (int32_t*)out,
       (int32_t*)cnt, (int32_t*)steps, (int32_t*)ticks);
   return (int)cudaGetLastError();
 }
 
 template <int KS, typename P>
 int strategy_launch_t(const Fmi<P>& f, const Kfmi& g, const void* codes,
-                      const void* lens, int B, int L, int T, int max_intv,
-                      int min_seed_len, int M, void* ctr, void* out,
-                      void* cnt, void* steps, void* ticks, void* stream) {
+                      const void* lens, int B, int L, int T, int RW,
+                      int max_intv, int min_seed_len, int M, void* ctr,
+                      void* out, void* cnt, void* steps, void* ticks,
+                      void* stream) {
   if (T <= 0) return 0;
+  const size_t bytes = (size_t)RW * codes_bytes(L);
   if (!fmi_ok(f) || (KS > 1 && !kfmi_ok(g, KS)) || B < 0 || L <= 0 || M < 0
-      || ctr == nullptr)
+      || RW < 1 || RW > WARP || bytes > SMEM_MAX || ctr == nullptr)
     return (int)cudaErrorInvalidValue;
-  readlane_strategy_kernel<KS, P><<<(T + RL_THREADS - 1) / RL_THREADS,
-                                    RL_THREADS, 0, (cudaStream_t)stream>>>(
-      f, g, (const int32_t*)codes, (const int32_t*)lens, B, L, T, max_intv,
-      min_seed_len, M, (int*)ctr, (int32_t*)out, (int32_t*)cnt,
+  const cudaError_t e = allow_smem(readlane_strategy_kernel<KS, P>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  readlane_strategy_kernel<KS, P><<<(T + RW - 1) / RW, RW, bytes,
+                                    (cudaStream_t)stream>>>(
+      f, g, (const int32_t*)codes, (const int32_t*)lens, B, L, T, RW,
+      max_intv, min_seed_len, M, (int*)ctr, (int32_t*)out, (int32_t*)cnt,
       (int32_t*)steps, (int32_t*)ticks);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch readlane_one_pos_kernel on `stream`: T worker lanes (threads,
-// one-warp blocks) over N tasks; returns cudaGetLastError() (0 on
-// success), cudaErrorInvalidValue for arguments it cannot take. The
-// caller allocates every buffer: the stacks `stk` [T][2][L + 1] entries of
-// 16 bytes, the counter `ctr` (one int, zeroed before the launch), out
-// [2][R][M] int32 then [3][R][M] int32 (every row a task owns is written
-// whole), cnt [R], steps and ticks [T]; t_row gives each task's row
-// (distinct rows). Nothing here synchronises.
+// 1 when one warp's codes and stacks at depth L fit its shared memory, so
+// readlane_one_pos_launch takes no scratch; 0 when the stacks go to a
+// device scratch [T][2][L + 1] entries of 16 bytes.
+extern "C" int readlane_stacks_in_shared(int L) {
+  return stacks_in_shared<int>(L, L);
+}
+
+// The same for readlane_one_pos_launch64 (32-byte entries).
+extern "C" int readlane_stacks_in_shared64(int L) {
+  return stacks_in_shared<long long>(L, L);
+}
+
+// Launch readlane_one_pos_kernel on `stream`: T worker lanes (one-warp
+// blocks) over N tasks; returns cudaGetLastError() (0 on success),
+// cudaErrorInvalidValue for arguments it cannot take. The caller
+// allocates every buffer: the stack scratch `stk` [T][2][L + 1] entries of
+// 16 bytes where readlane_stacks_in_shared is 0 (else null), the counter
+// `ctr` (one int, zeroed before the launch), out [2][R][M] int32 then
+// [3][R][M] int32 (every row a task owns is written whole), cnt [R],
+// steps and ticks [T]; t_row gives each task's row (distinct rows).
+// Nothing here synchronises.
 extern "C" int readlane_one_pos_launch(
     const void* cp_fused, int nb, int c0, int c1, int c2, int c3, int c4,
     int sentinel, const void* codes, const void* lens, int B, int L,
@@ -562,8 +367,9 @@ extern "C" int readlane_one_pos_launch(
 
 // readlane_one_pos_launch's int64 form: the index at 64 bits with its
 // high-word step table `hi` and steps h0-h3 a base (csrc/smem.cu's
-// one_pos_launch64); stack entries of 32 bytes; out [2][R][M] int32 then
-// [3][R][M] int64.
+// one_pos_launch64); stack entries of 32 bytes
+// (readlane_stacks_in_shared64); out [2][R][M] int32 then [3][R][M]
+// int64.
 extern "C" int readlane_one_pos_launch64(
     const void* cp_fused, long long nb, long long c0, long long c1,
     long long c2, long long c3, long long c4, long long sentinel,
@@ -609,19 +415,20 @@ extern "C" int readlane_one_pos_launch_k(
   return (int)cudaErrorInvalidValue;
 }
 
-// Launch readlane_strategy_kernel on `stream`: T worker lanes over B
-// reads, read b emitting into row b of out [2][B][M] int32 then [3][B][M]
-// int32; `ctr` one int zeroed before the launch; the return and the
-// caller's duties as readlane_one_pos_launch.
+// Launch readlane_strategy_kernel on `stream`: T worker lanes, rw a
+// one-warp block (1-32, rw slots of L codes within 227 KB), over B reads,
+// read b emitting into row b of out [2][B][M] int32 then [3][B][M] int32;
+// `ctr` one int zeroed before the launch; the return and the caller's
+// duties as readlane_one_pos_launch.
 extern "C" int readlane_strategy_launch(
     const void* cp_fused, int nb, int c0, int c1, int c2, int c3, int c4,
     int sentinel, const void* codes, const void* lens, int B, int L, int T,
-    int max_intv, int min_seed_len, int M, void* ctr, void* out, void* cnt,
-    void* steps, void* ticks, void* stream) {
+    int rw, int max_intv, int min_seed_len, int M, void* ctr, void* out,
+    void* cnt, void* steps, void* ticks, void* stream) {
   return strategy_launch_t<1>(
       make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), Kfmi{}, codes,
-      lens, B, L, T, max_intv, min_seed_len, M, ctr, out, cnt, steps, ticks,
-      stream);
+      lens, B, L, T, rw, max_intv, min_seed_len, M, ctr, out, cnt, steps,
+      ticks, stream);
 }
 
 // readlane_strategy_launch's int64 form (the index as
@@ -630,14 +437,14 @@ extern "C" int readlane_strategy_launch64(
     const void* cp_fused, long long nb, long long c0, long long c1,
     long long c2, long long c3, long long c4, long long sentinel,
     const void* hi, int h0, int h1, int h2, int h3, const void* codes,
-    const void* lens, int B, int L, int T, int max_intv, int min_seed_len,
-    int M, void* ctr, void* out, void* cnt, void* steps, void* ticks,
-    void* stream) {
+    const void* lens, int B, int L, int T, int rw, int max_intv,
+    int min_seed_len, int M, void* ctr, void* out, void* cnt, void* steps,
+    void* ticks, void* stream) {
   return strategy_launch_t<1>(
       make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel, hi, h0, h1, h2,
                h3),
-      Kfmi{}, codes, lens, B, L, T, max_intv, min_seed_len, M, ctr, out, cnt,
-      steps, ticks, stream);
+      Kfmi{}, codes, lens, B, L, T, rw, max_intv, min_seed_len, M, ctr, out,
+      cnt, steps, ticks, stream);
 }
 
 // readlane_strategy_launch's k-step form (int32 layout only): two bases a
@@ -645,11 +452,11 @@ extern "C" int readlane_strategy_launch64(
 extern "C" int readlane_strategy_launch_k(
     const void* cp_fused, int nb, int c0, int c1, int c2, int c3, int c4,
     int sentinel, const void* cpk, int w4, const void* c2k,
-    const void* codes, const void* lens, int B, int L, int T, int max_intv,
-    int min_seed_len, int M, void* ctr, void* out, void* cnt, void* steps,
-    void* ticks, void* stream) {
+    const void* codes, const void* lens, int B, int L, int T, int rw,
+    int max_intv, int min_seed_len, int M, void* ctr, void* out, void* cnt,
+    void* steps, void* ticks, void* stream) {
   return strategy_launch_t<2>(
       make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel),
-      make_kfmi(cpk, nb, w4, c2k, nullptr), codes, lens, B, L, T, max_intv,
-      min_seed_len, M, ctr, out, cnt, steps, ticks, stream);
+      make_kfmi(cpk, nb, w4, c2k, nullptr), codes, lens, B, L, T, rw,
+      max_intv, min_seed_len, M, ctr, out, cnt, steps, ticks, stream);
 }

@@ -93,7 +93,9 @@
 // shape (one_pos_stacks_in_shared). The earlier design ran one thread
 // a task, 32-thread blocks on 16 SMs, the stacks [2][4][SD + 1][T] in
 // device memory and each code a global load: pass 1 0.3581 ms, pass 2
-// 0.0553 ms on the 4.6 Mbp batch (PERF.md section 6).
+// 0.0553 ms on the 4.6 Mbp batch (PERF.md section 6). The task's walk is
+// csrc/one_pos_task.cuh's one_pos_task, which the readlane engine's
+// readlane_one_pos_kernel (csrc/readlane.cu) runs too.
 //
 // ---- seed_strategy_kernel (pass 3)
 // Replaces bwa_mem_scale_tpu/ops/smem_oh.py:619 seed_strategy_machine_oh
@@ -188,44 +190,10 @@
 // long, in one buffer.
 
 #include "fmi_step.cuh"
+#include "one_pos_task.cuh"
 #include "sal_walk.cuh"
 
 namespace {
-
-// An interval-stack entry (k, l, s, n) in x, y, z, w: an int4 in the
-// int32 form, 32 bytes in the int64 form.
-struct __align__(16) Ent64 {
-  long long x, y, z;
-  int w, pad;
-};
-
-template <typename P>
-struct EntOf {
-  using T = int4;
-};
-
-template <>
-struct EntOf<long long> {
-  using T = Ent64;
-};
-
-template <typename P>
-using Ent = typename EntOf<P>::T;
-
-__device__ __forceinline__ int4 make_ent(int k, int l, int s, int n) {
-  return make_int4(k, l, s, n);
-}
-
-__device__ __forceinline__ Ent64 make_ent(long long k, long long l,
-                                          long long s, int n) {
-  return Ent64{k, l, s, n, 0};
-}
-
-// bytes of one warp's two interval stacks of SD + 1 entries
-template <typename P>
-__host__ __device__ __forceinline__ size_t stacks_bytes(int SD) {
-  return 2 * ((size_t)SD + 1) * sizeof(Ent<P>);
-}
 
 template <bool STACKS_IN_SHARED, int KS, typename P>
 __global__ void __launch_bounds__(WARP)
@@ -250,190 +218,23 @@ one_pos_kernel(Fmi<P> f, Kfmi g, const int32_t* __restrict__ codes,  // [B, L]
   rd = rd < 0 ? 0 : (rd >= B ? B - 1 : rd);
   const int len = t_valid[t] ? lens[rd] : 0;
   const int mi = t_mi[t];
-  const size_t tm = (size_t)T * M;                 // one output field
-  P* kls = reinterpret_cast<P*>(out + 2 * tm);
+  const SmemRows<P> rows{out, (size_t)T * M, M};
   // the shared memory: [2][SD + 1] stack entries, then the codes
   Ent<P>* stk = STACKS_IN_SHARED ? reinterpret_cast<Ent<P>*>(smem)
                                  : scratch + (size_t)t * 2 * (SD + 1);
   int8_t* q = STACKS_IN_SHARED
                   ? reinterpret_cast<int8_t*>(stk + 2 * (SD + 1))
                   : reinterpret_cast<int8_t*>(smem);
-  for (int i = lane; i < M; i += WARP) {           // the output rows
-    const size_t o = (size_t)t * M + i;
-    out[o] = 0;
-    out[tm + o] = 0;
-    kls[o] = 0;
-    kls[tm + o] = 0;
-    kls[2 * tm + o] = 0;
-  }
+  rows.zero(t, lane);                              // the output row
   if (len > 0) stage_codes(codes + (size_t)rd * L, L, q, lane, WARP);
   __syncwarp();              // the codes, and the zeros before any emission
-  auto code = [&](int i) { return q[i < 0 ? 0 : (i >= L ? L - 1 : i)]; };
-  auto C = [&](int c) { return cval(f, c); };
-  auto slot = [&](int buf, int i) -> Ent<P>& {
-    return stk[buf * (SD + 1) + i];
-  };
-  auto rslot = [&](int i) { return i < 0 ? 0 : (i >= SD ? SD - 1 : i); };
-
-  // warp-uniform state, every lane alike, but for cnt: lane 0 emits, and
-  // only its count is kept
-  int cnt = 0, steps = 0, rounds = 0, wA = 0;
-  bool of = false;
-  auto push = [&](int buf, int& c, P k, P l, P s, int n) {
-    if (lane == 0) slot(buf, c < SD ? c : SD) = make_ent(k, l, s, n);
-    ++c;
-    of |= c > SD;
-  };
-  auto emit = [&](int m, int n, P k, P l, P s) {             // lane 0
-    if (cnt < M) {
-      const size_t o = (size_t)t * M + cnt;
-      out[o] = m;
-      out[tm + o] = n;
-      kls[o] = k;
-      kls[tm + o] = l;
-      kls[2 * tm + o] = s;
-    }
-    ++cnt;
-  };
-
-  int x = t_x[t];
-  for (;;) {                                       // start positions
-    const int xa = x < len ? code(x) : 4;
-    if (xa >= 4) {
-      if (chain_restarts && ++x < len) continue;
-      break;
-    }
-    __syncwarp();              // the last position's reads are done
-    // forward extension from x: serial, every lane alike; each step's
-    // base is read a step ahead, so the N test waits on no load
-    P ck = C(xa), cl = C(3 - xa), cs = C(xa + 1) - C(xa);
-    int cn = x;
-    int j = x + 1, nx = x + 1, cA = 0, a = code(j);
-    // one base of the walk, its extension (nk, nl, ns) made: push the
-    // interval where the size changes; false where the size falls below
-    // mi (nx = j) and the walk ends
-    auto take = [&](P nk, P nl, P ns) {
-      ++steps;
-      if (ns != cs) push(wA, cA, ck, cl, cs, cn);
-      if (ns < mi) {
-        nx = j;
-        return false;
-      }
-      ck = nk;
-      cl = nl;
-      cs = ns;
-      cn = j;
-      ++j;
-      return true;
-    };
-    if constexpr (KS == 1) {
-      while (j < len) {
-        nx = j + 1;
-        if (a >= 4) break;
-        const int an = code(j + 1);
-        P nk, nl, ns;
-        ext(f, cl, ck, cs, 3 - a, nl, nk, ns);     // the swapped interval
-        ++rounds;
-        if (!take(nk, nl, ns)) break;
-        a = an;
-      }
-    } else {
-      // KS bases a row fetch; a walk that ends mid-stride (an N, the
-      // read's end, a size below mi) stops where the 1-step walk stops,
-      // with the same pushes, nx and last interval
-      bool go = true;
-      while (go && j < len) {
-        nx = j + 1;
-        if (a >= 4) break;
-        int cc[KS], ch[KS], bk[KS], bl[KS], bs[KS];
-#pragma unroll
-        for (int d = 0; d < KS; ++d) {
-          cc[d] = d ? code(j + d) : a;
-          ch[d] = 3 - (cc[d] < 4 ? cc[d] : 3);
-        }
-        const int an = code(j + KS);
-        ext_k<KS>(f, g, cl, ck, cs, ch, bk, bl, bs);  // the swapped one
-        ++rounds;
-#pragma unroll
-        for (int d = 0; d < KS; ++d) {
-          if (d) {
-            if (j >= len) {
-              go = false;
-              break;
-            }
-            nx = j + 1;
-            if (cc[d] >= 4) {
-              go = false;
-              break;
-            }
-          }
-          if (!take(bl[d], bk[d], bs[d])) {
-            go = false;
-            break;
-          }
-        }
-        a = an;
-      }
-    }
-    if (cs >= mi) push(wA, cA, ck, cl, cs, cn);
-
-    // backward rounds: the first reads the A stack from its top
-    int mA = x;
-    bool rev = true;
-    for (j = x - 1, a = code(j);; --j) {
-      __syncwarp();            // the pushes to the A stack are visible
-      if (j < 0 || a >= 4 || cA == 0) {
-        if (cA > 0) {
-          const Ent<P> e = slot(wA, rslot(rev ? cA - 1 : 0));
-          if (lane == 0 && e.w - mA + 1 >= min_seed_len)
-            emit(mA, e.w, e.x, e.y, e.z);
-        }
-        break;
-      }
-      const int an = code(j - 1);                  // the next round's base
-      int cB = 0;
-      P prev = 0;
-      for (int c0 = 0; c0 < cA; c0 += WARP) {      // a chunk: one trip
-        const int p = c0 + lane;
-        const bool act = p < cA;
-        Ent<P> e = make_ent((P)0, (P)0, (P)0, 0);
-        P nk = 0, nl = 0, ns = 0;
-        if (act) {
-          e = slot(wA, rslot(rev ? cA - 1 - p : p));
-          ext(f, e.x, e.y, e.z, a, nk, nl, ns);
-        }
-        steps += min(WARP, cA - c0);
-        ++rounds;
-        // only entry 0 can emit: it dies and is long enough
-        if (p == 0 && ns < mi && e.w - mA + 1 >= min_seed_len)
-          emit(mA, e.w, e.x, e.y, e.z);
-        P up = __shfl_up_sync(FULL, ns, 1);
-        if (lane == 0) up = prev;                  // the last chunk's end
-        const P cur = (p == 0 || up < mi) ? (P)-1 : up;
-        const bool keep = act && ns >= mi && ns != cur;
-        const unsigned kept = __ballot_sync(FULL, keep);
-        if (keep) {
-          const int i = cB + __popc(kept & ((1u << lane) - 1));
-          slot(wA ^ 1, i < SD ? i : SD) = make_ent(nk, nl, ns, e.w);
-        }
-        cB += __popc(kept);
-        if (c0 + WARP < cA) prev = __shfl_sync(FULL, ns, WARP - 1);
-      }
-      of |= cB > SD;
-      wA ^= 1;
-      cA = cB;
-      mA = j;
-      rev = false;
-      a = an;
-    }
-    if (!chain_restarts) break;
-    x = max(nx, x + 1);
-    if (x >= len) break;
-  }
+  const TaskCounts c = one_pos_task<KS, P>(
+      f, g, q, L, len, t_x[t], mi, chain_restarts, min_seed_len, SD, stk,
+      rows, t, lane);
   if (lane == 0) {
-    cnt_out[t] = of ? M + 1 : cnt;
-    steps_out[t] = steps;
-    rounds_out[t] = rounds;
+    cnt_out[t] = c.of ? M + 1 : c.cnt;
+    steps_out[t] = c.steps;
+    rounds_out[t] = c.rounds;
   }
 }
 
@@ -574,11 +375,6 @@ sa_walk_kernel(Fmi<P> f, const P* __restrict__ samples, P n_samples,
   if (valid[t]) res = sa_walk(f, samples, n_samples, compx, pos[t], steps);
   out[t] = res;
   steps_out[t] = steps;
-}
-
-template <typename P>
-bool stacks_in_shared(int L, int SD) {
-  return codes_bytes(L) + stacks_bytes<P>(SD) <= SMEM_MAX;
 }
 
 template <int KS, typename P>

@@ -16,19 +16,21 @@ forced int64 layout and with the bigram and trigram tables.
   array for array and in ``with_ticks``' tick, done_at and phase_ticks:
   the same lockstep machine, refill order included.
 - The kernels' twins (``readlane_twin``, ``readlane_strategy_twin``) equal
-  the plain machines under the lockstep's pull order and two seeded random
+  the plain machines under their own pull order and two seeded random
   ones (one on the int64 layout and the k-gram tables), their total
-  steps equal the plain machines', and at K = 1 each
-  lane's ticks under the lockstep's order equal the JAX done_at.
+  steps equal the plain machines', and each lane's ticks are the sum of
+  its tasks' rounds as csrc/smem.cu's twins count them (pass 3: row
+  fetches). Pass 3's lanes a warp follow the shared memory a block has.
 - The wrappers run the plain machines on CPU tensors and refuse a tensor
   of any other non-CUDA device rather than fall back.
 - ``mem --seed-engine readlane -v 4`` prints the JAX CLI's device stage
   table (its header with B and L, its four rows) beside the port's stage
   seconds.
-On a GPU (``-m cuda``) each kernel form at lanes None, 64 and 7 against
-its plain version (run on one lane a task), K = 1, 2, 3 and int64, with
-total steps equal and K = 1's total ticks equal to the lockstep's
-lane-ticks, on the small batch and on 512 reads of a 1 Mbp genome. The
+On a GPU (``-m cuda``) each kernel form at lanes None, 64 and 7 (pass 3
+also at 1 and 32 lanes a warp) against its plain version (run on one
+lane a task), K = 1, 2, 3 and int64, with total steps equal and K = 1's
+total ticks equal to the twins', on the small batch and on 512 reads of
+a 1 Mbp genome. The
 JAX side is imported inside the fixtures that use it, so the CUDA cases
 also run without JAX:
     PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_smem_rl.py
@@ -236,10 +238,11 @@ def test_pass2_and_pass3_equal_to_jax_with_ticks(side, cfg, lanes):
 
 @pytest.mark.parametrize("cfg", CFGS)
 def test_readlane_twins_equal_to_plain(side, cfg):
-    """The kernels' loops (the twins) under the lockstep's pull order and
-    two seeded random ones: every array equal to the plain machine's,
-    total steps equal, and at K = 1 each lane's ticks under the lockstep's
-    order equal to the lockstep's done_at."""
+    """The kernels' loops (the twins) under their own pull order and two
+    seeded random ones: every array equal to the plain machine's, total
+    steps equal, and each lane's ticks the sum of its tasks' rounds as
+    csrc/smem.cu's warp-a-task kernel counts them (``one_pos_twin`` at
+    full depth; pass 3: ``seed_strategy_twin``'s row fetches a read)."""
     tf = side["tf"][cfg]
     tables = smem_cuda.twin_tables(tf)
     kw = dict(hi_steps=tables[3], kstep=smem_cuda.kstep_tables(tf))
@@ -251,11 +254,12 @@ def test_readlane_twins_equal_to_plain(side, cfg):
                                (False, _pass2_tasks(side, cfg), "own")):
         N = len(tasks[0])
         out_rows = None if rows is None else np.arange(N)
-        want, ticks = trl.one_pos_machine(
+        want = trl.one_pos_machine(
             tf, _t(codes), _t(lens), *(_t(a) for a in tasks), chain, MSL, L,
-            with_ticks=True, lanes=lanes,
-            out_rows=None if out_rows is None else _t(out_rows))
+            lanes=lanes, out_rows=None if out_rows is None else _t(out_rows))
         steps = int(trl.one_pos_machine.last_steps.sum())
+        rounds = smem_cuda.one_pos_twin(*tables[:3], codes, lens, *tasks,
+                                        chain, MSL, L, **kw)[7]
         pulls = (rng.randint(0, lanes, N), rng.randint(0, 2, N))
         if cfg != "k1":                 # K = 1 takes every order
             pulls = pulls[:1]
@@ -265,11 +269,15 @@ def test_readlane_twins_equal_to_plain(side, cfg):
                 lanes=lanes, out_rows=out_rows, pull=pull, **kw)
             _eq(got[:6], want, f"twin, pass {1 if chain else 2}, {cfg}")
             assert int(got[6].sum()) == steps
-            if pull is None and cfg in ("k1", "int64"):
-                np.testing.assert_array_equal(got[7], ticks[1].numpy())
+            assert int(got[7].sum()) == int(rounds.sum())
+            if pull is not None:
+                np.testing.assert_array_equal(
+                    got[7], np.bincount(pull, rounds, lanes).astype(int))
     want = trl.seed_strategy_machine(tf, _t(codes), _t(lens), MAX_INTV,
                                      MSL + 1, L, lanes=lanes)
     steps = int(trl.seed_strategy_machine.last_steps.sum())
+    fetches = smem_cuda.seed_strategy_twin(*tables[:3], codes, lens,
+                                           MAX_INTV, MSL + 1, L, **kw)[7]
     for pull in ((None, rng.randint(0, lanes, B)) if cfg == "k1"
                  else (rng.randint(0, lanes, B),)):
         got = smem_rl_cuda.readlane_strategy_twin(
@@ -277,6 +285,37 @@ def test_readlane_twins_equal_to_plain(side, cfg):
             pull=pull, **kw)
         _eq(got[:6], want, f"strategy twin, {cfg}")
         assert int(got[6].sum()) == steps
+        assert int(got[7].sum()) == int(fetches.sum())
+        if pull is not None:
+            np.testing.assert_array_equal(
+                got[7], np.bincount(pull, fetches, lanes).astype(int))
+
+
+@pytest.mark.parametrize("L,lanes,want", [
+    (101, 512, 8), (101, 64, 8), (101, 7, 7), (40, 3, 3), (151, 256, 8),
+    (30000, 512, 7), (116224, 64, 2), (116225, 64, 1), (232448, 64, 1),
+    (232449, 64, 0)])
+def test_strategy_lanes_a_warp(side, L, lanes, want):
+    """Pass 3's worker lanes a one-warp block: P3_LANES (8) while that
+    many slots of L codes (each rounded up to 16 bytes) fit 227 KB of
+    shared memory, fewer for long reads or a smaller pool, none where one
+    slot does not fit (the wrapper then raises on the card). On the CPU
+    the pool's geometry does not show: pass 3 at `lanes` equals the plain
+    machine at one lane a read."""
+    assert smem_rl_cuda.P3_LANES == 8
+    rw = smem_rl_cuda.strategy_lanes_a_warp(L, lanes)
+    assert rw == want
+    assert rw * ((L + 15) // 16 * 16) <= smem_rl_cuda.SMEM_MAX
+    tf = side["tf"]["k1"]
+    codes, lens = _t(side["codes"]), _t(side["lens"])
+    B = codes.shape[0]
+    got = smem_rl_cuda.readlane_strategy_cuda(
+        tf, codes, lens, MAX_INTV, MSL + 1, codes.shape[1],
+        lanes=min(lanes, B))
+    want_buf = trl.seed_strategy_machine(tf, codes, lens, MAX_INTV, MSL + 1,
+                                         codes.shape[1])
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want_buf, f)), f
 
 
 def test_wrappers_run_plain_on_cpu_and_refuse_other_devices(side):
@@ -392,12 +431,14 @@ def card():
 @pytest.mark.parametrize("cfg", CFGS)
 @pytest.mark.parametrize("batch", ["small", "batch"])
 def test_readlane_kernels_equal_to_plain(card, cfg, batch):
-    """Passes 1, 2 and 3 through each kernel form at lanes None, 64 and 7:
-    every array equal to the plain machine's on the card (run once, on one
-    lane a task: its arrays do not depend on the pool), total steps equal,
-    at K = 1 the total ticks equal to the lockstep's lane-ticks; each
-    launch counted in its form; collect_smems_rl equal to the one-hot
-    engine at full depth."""
+    """Passes 1, 2 and 3 through each kernel form at lanes None, 64 and 7
+    (pass 3 at 64 lanes also at 1 and 32 lanes a warp): every array equal
+    to the plain machine's on the card (run once, on one lane a task: its
+    arrays do not depend on the pool), total steps equal, at K = 1 the
+    total ticks equal to the twins' (a task's rounds do not depend on the
+    lane that runs it, so the total is the same for every pull order);
+    each launch counted in its form; collect_smems_rl equal to the
+    one-hot engine at full depth."""
     b = card[batch]
     fmi, codes, lens = b["fmi"][cfg], b["codes"], b["lens"]
     dev = codes.device
@@ -407,16 +448,28 @@ def test_readlane_kernels_equal_to_plain(card, cfg, batch):
     bidx = torch.arange(B, dtype=torch.int32, device=dev)
     z = torch.zeros_like(bidx)
     p1 = (bidx, z, z + 1, lens > 0)
-    want1, t1 = trl.one_pos_machine(fmi, codes, lens, *p1, True, MSL, L,
-                                    with_ticks=True)
+    want1 = trl.one_pos_machine(fmi, codes, lens, *p1, True, MSL, L)
     s1 = int(trl.one_pos_machine.last_steps.sum())
     tasks = reseed_tasks(want1, 2 * B, SPLIT_LEN, SPLIT_WIDTH)[:4]
     rows = torch.arange(tasks[0].shape[0], device=dev)
-    want2, t2 = trl.one_pos_machine(fmi, codes, lens, *tasks, False, MSL, L,
-                                    with_ticks=True, out_rows=rows)
+    want2 = trl.one_pos_machine(fmi, codes, lens, *tasks, False, MSL, L,
+                                out_rows=rows)
     s2 = int(trl.one_pos_machine.last_steps.sum())
     want3 = trl.seed_strategy_machine(fmi, codes, lens, MAX_INTV, MSL + 1, L)
     s3 = int(trl.seed_strategy_machine.last_steps.sum())
+    t1 = t2 = t3 = None
+    if fmi.kstep == 1:
+        tb = smem_cuda.twin_tables(fmi)
+        c, ln = codes.cpu().numpy(), lens.cpu().numpy()
+
+        def ticks(*args):
+            return int(smem_rl_cuda.readlane_twin(
+                *tb[:3], c, ln, *(a.cpu().numpy() for a in args[:4]),
+                *args[4:], hi_steps=tb[3])[7].sum())
+        t1 = ticks(*p1, True, MSL, L)
+        t2 = ticks(*tasks, False, MSL, L)
+        t3 = int(smem_rl_cuda.readlane_strategy_twin(
+            *tb[:3], c, ln, MAX_INTV, MSL + 1, L, hi_steps=tb[3])[7].sum())
     for lanes in (None, 64, 7):
         for chain, args, out_rows, want, s, t in (
                 (True, p1, None, want1, s1, t1),
@@ -427,15 +480,24 @@ def test_readlane_kernels_equal_to_plain(card, cfg, batch):
             for f in FIELDS:
                 assert torch.equal(getattr(got, f), getattr(want, f)), f
             assert int(one.last_steps.sum()) == s
-            if fmi.kstep == 1:
-                assert int(one.last_ticks.sum()) == int(t[1].sum())
+            if t is not None:
+                assert int(one.last_ticks.sum()) == t
             assert (one.launches - before[0], one.launches64 - before[1],
                     one.launches_k - before[2]) == (
                 1, int(cfg == "int64"), int(cfg in ("k2", "k3")))
-        got = three(fmi, codes, lens, MAX_INTV, MSL + 1, L, lanes=lanes)
-        for f in FIELDS:
-            assert torch.equal(getattr(got, f), getattr(want3, f)), f
-        assert int(three.last_steps.sum()) == s3
+        per_warp = smem_rl_cuda.P3_LANES
+        for rw in ((per_warp, 1, 32) if lanes == 64 else (per_warp,)):
+            smem_rl_cuda.P3_LANES = rw
+            try:
+                got = three(fmi, codes, lens, MAX_INTV, MSL + 1, L,
+                            lanes=lanes)
+            finally:
+                smem_rl_cuda.P3_LANES = per_warp
+            for f in FIELDS:
+                assert torch.equal(getattr(got, f), getattr(want3, f)), f
+            assert int(three.last_steps.sum()) == s3
+            if t3 is not None:
+                assert int(three.last_ticks.sum()) == t3
     full = trl.collect_smems_rl(fmi, codes, lens, lanes=64, **KW)
     oh = collect_smems_oh(fmi, codes, lens, **KW)
     for f in FIELDS:
