@@ -16,8 +16,10 @@ with "ticks" read as "steps": ``ert_steps_p1`` / ``ert_steps_p2``) and
 the total (``ert_total_p1`` / ``ert_total_p2``) as device tensors.
 
 ``ert_extend_twin`` is the kernel's loop in plain Python on numpy arrays,
-one lane after another, a test of the kernel's control flow on the CPU at
-small sizes; it counts what the kernel counts. The source is compiled
+one lane after another (the node steps, then the leaf walk a run of
+matches at a time, 16 reference bytes a word), a test of the kernel's
+control flow on the CPU at small sizes; it counts what the kernel counts
+and each lane's leaf words. The source is compiled
 with nvcc into ``build/torch_kernels/libert_cuda.so`` at first use
 (``ops/nvcc_build.py``).
 """
@@ -109,14 +111,45 @@ ert_extend_all_positions_cuda.last_steps = None  # [2, B, L] int32
 _EXTEND_FN = ert_extend_all_positions_cuda
 
 
+WORD = 16                    # reference bytes a leaf load (csrc/ert.cu)
+
+
+def run_end(ref, q, j: int, rpos: int, limit: int):
+    """csrc/ert.cu's run_end: (the first column c in [j, limit) whose code
+    in q (clipped, padded with N codes after it) is an N or differs from
+    ref[rpos + c - j], else limit; the 16-byte words of ref it read).
+    Words are aligned at multiples of 16 of ref's index, the first one's
+    bytes before rpos masked off; the caller keeps limit <= seq_len - lp,
+    so every word starts before seq_len."""
+    off = rpos & 15
+    a, col, words = rpos - off, j - off, 0
+    while True:
+        words += 1
+        win = np.zeros(WORD, np.int64)
+        win[:len(ref[a:a + WORD])] = ref[a:a + WORD]
+        cw = np.full(WORD, 4, np.int64)      # the N codes before column 0
+        lo = max(col, 0)
+        cw[lo - col:] = q[lo:col + WORD]
+        stop = (win != cw) | (cw == 4)
+        stop[:off] = False
+        if stop.any():
+            return min(col + int(np.argmax(stop)), limit), words
+        col, a, off = col + WORD, a + WORD, 0
+        if col >= limit:
+            return limit, words
+
+
 def ert_extend_twin(rec, root: int, ref, seq_len: int, codes, lens,
                     min_intv, check_initial: bool, p3_max_intv: int = 0,
                     p3_stop: int = 0, wide: bool = False) -> dict:
     """csrc/ert.cu's ert_extend_kernel in plain Python on numpy arrays,
     one lane after another: rec [N + 1, 4, 2] int64 (DeviceErt.rec), the
     root row, ref uint8 (seq_len bounds the leaf walk); `wide` for the
-    int64 form's planes. Returns every output plane of the kernel by name,
-    the node and leaf steps included."""
+    int64 form's planes. The node steps one pair a step, the leaf walk a
+    run of matches at a time through ``run_end`` (16 reference bytes a
+    word), the leaf steps added a run at a time. Returns every output
+    plane of the kernel by name, the node and leaf steps included, and
+    each lane's leaf words (``leaf_words``)."""
     rec = np.asarray(rec)
     ref = np.asarray(ref)
     codes = np.asarray(codes)
@@ -126,18 +159,17 @@ def ert_extend_twin(rec, root: int, ref, seq_len: int, codes, lens,
     out = {f: np.zeros((B, L), np.int32) for f in _I_PLANES}
     out.update({f: np.zeros((B, L), pd) for f in _P_PLANES})
     out.update({f: np.zeros((B, L), bool) for f in _B_PLANES})
-    clip = lambda c: min(max(c, 0), 3)
+    out["leaf_words"] = np.zeros((B, L), np.int64)
     mask = (1 << 24) - 1
+    pad = -(-L // 16) * 16 + 2 * WORD
     for b in range(B):
         n_len, mi = int(lens[b]), int(min_intv[b])
-
-        def code(i):
-            return min(int(codes[b, i]), 4) if i < L else 4
-
+        q = np.full(pad, 4, np.int64)            # the staged codes
+        q[:L] = np.where(codes[b] >= 4, 4, np.maximum(codes[b], 0))
         for p in range(L):
-            c0 = code(p)
+            c0 = int(q[p])
             base_ok = p < n_len and c0 < 4
-            enc, packed = (int(v) for v in rec[root, clip(c0)])
+            enc, packed = (int(v) for v in rec[root, min(c0, 3)])
             s, lop = packed & mask, packed >> 24
             leaf0 = enc <= -2
             k = -enc - 2 if leaf0 else lop
@@ -148,40 +180,69 @@ def ert_extend_twin(rec, root: int, ref, seq_len: int, codes, lens,
             cur = enc if act else -1
             if not act:
                 k = s = 0
-            died = f3s = False
-            f3k = f3ss = f3E = node_steps = leaf_steps = 0
-            t = 1
-            while act:                           # one step a column
-                j = p + t
-                a = code(j)
+            st = dict(died=False, f3s=False, f3k=0, f3ss=0, f3E=0)
+
+            def record(j, ns, kk):
+                if (merge and not st["f3s"] and ns < p3_max_intv
+                        and j - p + 1 >= p3_stop):
+                    st.update(f3s=True, f3E=j, f3k=kk, f3ss=ns)
+
+            node_steps = leaf_steps = words = 0
+            j = p + 1
+            while act and cur >= 0:              # node steps, one a column
+                a = int(q[j])
                 if j >= n_len or a >= 4:
+                    act = False
                     break
-                ac = clip(a)
-                nk, nlp, ncur = k, lp, cur
-                if cur >= 0:                     # a node: its child's pair
-                    n_enc, n_packed = (int(v) for v in rec[cur, ac])
-                    ns = n_packed & mask
-                    if n_enc <= -2:
-                        nk, nlp = -n_enc - 2, (n_packed >> 24) - p
-                    else:
-                        nk = n_packed >> 24
-                    ncur = n_enc if n_enc >= 0 else -1
-                    node_steps += 1
-                else:                            # a leaf: one reference byte
-                    rpos = lp + j
-                    ns = int(0 <= rpos < seq_len and int(ref[rpos]) == ac)
-                    leaf_steps += 1
-                if (merge and not f3s and ns < p3_max_intv
-                        and t + 1 >= p3_stop):
-                    f3s, f3E, f3k, f3ss = True, j, nk, ns
+                n_enc, n_packed = (int(v) for v in rec[cur, a])
+                ns = n_packed & mask
+                nk = -n_enc - 2 if n_enc <= -2 else n_packed >> 24
+                node_steps += 1
+                record(j, ns, nk)
                 if ns < mi:
-                    died = merge
+                    st["died"] = merge
+                    act = False
                     break
-                E, k, s, lp, cur = j + 1, nk, ns, nlp, ncur
-                t += 1
-            for f, v in (("E", E), ("f3_E", f3E), ("node_steps", node_steps),
+                if n_enc <= -2:
+                    lp = (n_packed >> 24) - p
+                E, k, s, cur = j + 1, nk, ns, (n_enc if n_enc >= 0 else -1)
+                j += 1
+            if act and mi > 1:                   # one leaf step ends it
+                a = int(q[j])
+                if j < n_len and a < 4:
+                    rpos = lp + j
+                    ns = int(0 <= rpos < seq_len and int(ref[rpos]) == a)
+                    leaf_steps += 1
+                    record(j, ns, k)
+                    st["died"] = merge
+            elif act:                            # runs of matches
+                while True:
+                    rpos = lp + j
+                    lim = min(n_len, seq_len - lp)
+                    if rpos < 0 or lim <= j:
+                        e = j
+                    else:
+                        e, nw = run_end(ref, q, j, rpos, lim)
+                        words += nw
+                    if e > j:                    # leaf steps of size 1
+                        leaf_steps += e - j
+                        c3 = max(j, p + p3_stop - 1)
+                        if p3_max_intv > 1 and c3 < e:
+                            record(c3, 1, k)
+                        E, s = e, 1
+                    if e >= n_len or q[e] >= 4:
+                        break
+                    leaf_steps += 1              # a step of size 0
+                    record(e, 0, k)
+                    if 0 < mi:
+                        st["died"] = merge
+                        break
+                    E, s, j = e + 1, 0, e + 1
+            for f, v in (("E", E), ("f3_E", st["f3E"]),
+                         ("node_steps", node_steps),
                          ("leaf_steps", leaf_steps), ("k", k), ("s", s),
-                         ("f3_k", f3k), ("f3_ss", f3ss), ("f3_s", f3s),
-                         ("died_s", died), ("valid", base_ok)):
+                         ("f3_k", st["f3k"]), ("f3_ss", st["f3ss"]),
+                         ("f3_s", st["f3s"]), ("died_s", st["died"]),
+                         ("valid", base_ok), ("leaf_words", words)):
                 out[f][b, p] = v
     return out

@@ -12,12 +12,12 @@ from ..models.aligner import (demo_genome, simulate_reads,
                               simulate_reads_with_truth)
 
 
-def se_batch(n_reads: int = 512, read_len: int = 101):
+def se_batch(n_reads: int = 512, read_len: int = 101, sa_compx: int = None):
     """chip_smoke.py phase 4's genome (4.6 Mbp, seed 7) and reads (seed
     8, 1% substitutions, half reverse-complemented), its first n_reads
     reads with a substitution: the reads the EMF table leaves to the
-    device, so phase 5's batch. Returns (the port's index, codes,
-    lens)."""
+    device, so phase 5's batch. Returns (the port's index, at sa_compx
+    when given (0: the full SA, as the ERT needs), codes, lens)."""
     bns = demo_genome(4_600_000, seed=7, n_contigs=1)
     codes, lens, pos, is_rev = simulate_reads_with_truth(
         bns, 4 * n_reads, read_len, seed=8, err_rate=0.01)
@@ -25,7 +25,8 @@ def se_batch(n_reads: int = 512, read_len: int = 101):
     src = np.stack([bns.seq[p: p + read_len] for p in pos]).astype(np.int32)
     src[is_rev] = comp[src[is_rev][:, ::-1]]
     pick = np.flatnonzero((codes != src).any(1))[:n_reads]
-    return build_index(bns), codes[pick], lens[pick]
+    idx = build_index(bns) if sa_compx is None else build_index(bns, sa_compx)
+    return idx, codes[pick], lens[pick]
 
 
 REPEAT_UNIT = 1_000_000        # where repeat_genome's 150 bp unit starts

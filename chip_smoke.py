@@ -199,8 +199,9 @@ Phases, in order; any failure exits non-zero:
               depth_cap_batch`, a lane reaching the depth cap) and (c)
               (a) at the forced int64 layout, each launch with its node
               and leaf steps, bound, latency floor (the longest lane's
-              node steps x one dependent trip in the L2, measured by
-              probe B in the run), device and plain times, the sweep's
+              node steps + leaf words of 16 bytes x one dependent trip in
+              the L2, measured by probe B in the run; the node steps
+              alone beside it), device and plain times, the sweep's
               beside (a); `load-shm` staging the trie's piece, `mem`
               attached to it (SAM equal to the file-loaded run) and
               `remove-shm`.
@@ -251,8 +252,9 @@ Phases, in order; any failure exits non-zero:
               largest rescue call, each against its plain version
               (max_abs_err 0) with its jobs, DP cells, bound, latency
               floor (the longest job's rows x a row step measured in the
-              run), kernel and plain times; (e) tools/multichip.py on the
-              mesh.
+              run; for the CIGAR DP also its rows + traceback steps x a
+              warp's dependent round, tools/round_cost.py), kernel and
+              plain times; (e) tools/multichip.py on the mesh.
  16. finalize: the Python finalize path (BWA_TPU_NO_NATIVE_FINALIZE: the
               JAX package's Python record path and SAM writer): phase
               4's reads and phase 7's pairs through `mem`, alone and with
@@ -2361,7 +2363,8 @@ def dependent_trip_us(dev, rows):
     (HBM_ROWS: past the L2; L2_ROWS: in it): probe B (csrc/probes.cu
     chain8_kernel, one lane) over random rows, each call from another
     start row so that no chain is cached, the marginal time of the extra
-    ticks."""
+    ticks, the two tick counts timed in turns (short, long, long, short:
+    one slow run of either alone once gave a negative trip)."""
     import itertools
     import torch
     from bwa_mem_scale_tpu_torch.ops import probe_kernels as pk
@@ -2371,10 +2374,13 @@ def dependent_trip_us(dev, rows):
     starts = itertools.cycle([s.clone() for s in torch.randint(
         0, rows, (512, 1), dtype=torch.int32, device=dev,
         generator=g)])              # each its own (aligned) allocation
-    t = [device_ms(lambda: pk.probe_b(tab, next(starts), n), 10, dev)
-         for n in HBM_TICKS]
+    t = {n: 0.0 for n in HBM_TICKS}
+    for n in (*HBM_TICKS, *HBM_TICKS[::-1]):
+        t[n] += device_ms(lambda: pk.probe_b(tab, next(starts), n), 10,
+                          dev) / 2
     del tab
-    return (t[1] - t[0]) * 1e3 / (HBM_TICKS[1] - HBM_TICKS[0])
+    lo, hi = HBM_TICKS
+    return (t[hi] - t[lo]) * 1e3 / (hi - lo)
 
 
 def emf_against_plain(args, got, what):
@@ -2688,9 +2694,11 @@ def ert_launch(dev, card, what, args, kw, trips):
     each lane's node and leaf steps equal to the plain version's); its
     bound (16 bytes a node step, 1 a leaf step, the root's four pairs, the
     codes, lengths and minimum intervals read once, the dict's planes
-    written once; ERT_OPS_PER_STEP a step) and latency floor (the longest
-    lane's node steps x one dependent trip in the L2, and for reference x
-    one past it, both measured in this run). Returns the numbers."""
+    written once; ERT_OPS_PER_STEP a step) and latency floors: the longest
+    lane's node steps plus its leaf words (16 leaf steps a word, the leaf
+    walk's loads) x one dependent trip in the L2, and for reference the
+    node steps alone x the L2 trip and x one past it, the trips measured
+    in this run. Returns the numbers."""
     from bwa_mem_scale_tpu_torch.ops import ert as ops_ert, ert_cuda
     kernel = ert_cuda.ert_extend_all_positions_cuda
     got, r = walk_launch(dev, what, kernel, ops_ert.ert_extend_all_positions,
@@ -2698,6 +2706,7 @@ def ert_launch(dev, card, what, args, kw, trips):
     steps = kernel.last_steps.long()
     node, leaf = int(steps[0].sum()), int(steps[1].sum())
     lane = steps.sum(0)
+    trips_lane = steps[0] + (steps[1] + ert_cuda.WORD - 1) // ert_cuda.WORD
     codes = args[2]
     B, L = codes.shape
     pb = got["k"].element_size()
@@ -2706,7 +2715,9 @@ def ert_launch(dev, card, what, args, kw, trips):
               + lane_out * B * L)
     r.update(node=node, leaf=leaf, longest=int(lane.max()),
              longest_node=int(steps[0].max()),
+             longest_trips=int(trips_lane.max()),
              bound=bound(nbytes, ERT_OPS_PER_STEP * (node + leaf)),
+             floor_words=int(trips_lane.max()) * trips[0] * 1e-3,
              floor=int(steps[0].max()) * trips[0] * 1e-3,
              floor_hbm=int(steps[0].max()) * trips[1] * 1e-3, pb=pb)
     log(f"[ert] {what}: equal to the plain version (max_abs_err "
@@ -2714,8 +2725,10 @@ def ert_launch(dev, card, what, args, kw, trips):
         f"leaf steps over {int((lane > 0).sum())} lanes, the longest lane "
         f"{r['longest']} ({r['longest_node']} node steps); bound "
         f"{r['bound'][0]:.6f} ms by {r['bound'][1]}; latency floor "
-        f"{r['floor']:.5f} ms ({r['longest_node']} x {trips[0]:.4f} us, an "
-        f"L2 trip; x {trips[1]:.4f} us, an HBM trip: "
+        f"{r['floor_words']:.5f} ms (the longest lane's node steps + leaf "
+        f"words, {r['longest_trips']} x {trips[0]:.4f} us, an L2 trip); "
+        f"the node steps alone {r['floor']:.5f} ms ({r['longest_node']} x "
+        f"the L2 trip; x {trips[1]:.4f} us, an HBM trip: "
         f"{r['floor_hbm']:.5f} ms); kernel device time {r['ms']:.5f} ms "
         f"(one wrapper call with its allocation, mean of 2), plain "
         f"{r['plain_ms']:.2f} ms  [{card}]")
@@ -3810,9 +3823,9 @@ def recording(mod, attr, calls):
 def row_step_us(dev, kind):
     """One row step of a pair alone, from two lengths (1,024 and 2,048
     rows) of one synthetic job: the difference of the device times over
-    the difference of the rows. kswg: a band of 31 columns (one pass a
-    row) and its traceback; kswa: a 128-column query (its score below
-    minsc: the forward scan alone)."""
+    the difference of the rows. kswg: a band of 31 positions (a strip of
+    one a lane) and its traceback step; kswa: a 128-column query (its
+    score below minsc: the forward scan alone)."""
     import torch
     from bwa_mem_scale_tpu_torch.config import MemOptions
     from bwa_mem_scale_tpu_torch.ops import kswa_cuda, kswg_cuda
@@ -3841,10 +3854,15 @@ def row_step_us(dev, kind):
 
 def kswg_launch(dev, card, args, what):
     """One captured CIGAR-DP call against its plain version, with its
-    jobs, DP cells, bound, latency floor and times."""
+    jobs, DP cells, bound, latency floors and times. Floors: the longest
+    pair's rows x a row step measured here (this design's), and (the
+    longest pair's rows + its traceback steps) x one dependent round of a
+    warp in shared memory (tools/round_cost.py, same run), which no design
+    of the DP goes below."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import kswg_cuda
     from bwa_mem_scale_tpu_torch.ops.kswg import ksw_global_batch
+    from bwa_mem_scale_tpu_torch.tools.round_cost import round_us
     got = kswg_cuda.ksw_global_batch_cuda(*args)
     t0 = time.perf_counter()
     want = ksw_global_batch(*args)
@@ -3862,17 +3880,31 @@ def kswg_launch(dev, card, args, what):
         x.numel() * x.element_size() for x in got)
     b = bound(nbytes, int(cells.sum()) * KSWG_OPS_PER_CELL)
     w_max = int(wp.max())
+    R, S = kswg_cuda.strip(w_max, qs.shape[1], ts.shape[1])
+    rest, zrb, zsb = kswg_cuda.launch_plan(dev, *qs.shape, ts.shape[1],
+                                           w_max)
     ms = device_ms(lambda: kswg_cuda.launch(*args[:5], *args[5:], w_max),
                    10, dev)
     step = row_step_us(dev, "kswg")
     floor_ms = int(tl.max()) * step / 1e3
+    chain = np.clip(tl, 0, ts.shape[1]) + want.n_ops.cpu().numpy()
+    per_round = round_us(dev)
+    floor_round = int(chain.max()) * per_round / 1e3
+    state = ", the segments' state in global memory" if zsb else ""
     log(f"[kswg] {what}: {live} jobs (P={qs.shape[0]}, QL={qs.shape[1]}, "
-        f"TL={ts.shape[1]}), {int(cells.sum())} band cells, bound "
-        f"{b[0]:.5f} ms ({b[1]}); latency floor {floor_ms:.5f} ms (the "
-        f"longest pair's {int(tl.max())} rows x a row step of {step:.4f} "
-        f"us, one 32-column pass and its traceback step, measured); kernel "
-        f"{ms:.5f} ms, plain {plain_ms:.1f} ms; max_abs_err {err}  [{card}]")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b, floor=floor_ms)
+        f"TL={ts.shape[1]}), {int(cells.sum())} band cells, the widest "
+        f"band's strip {R} positions a lane x {S} segment(s), its rows of "
+        f"directions {'in tiles' if zrb else 'in shared memory'} ("
+        f"{rest} bytes past the codes{state}); bound {b[0]:.5f} ms ({b[1]}); "
+        f"latency floor {floor_round:.5f} "
+        f"ms (the longest pair's rows + traceback steps, {int(chain.max())}"
+        f", x {per_round:.4f} us, a warp's dependent round, measured); "
+        f"this design's {floor_ms:.5f} ms (the longest pair's "
+        f"{int(tl.max())} rows x a row step of {step:.4f} us, a 31-position "
+        f"row and its traceback step, measured); kernel {ms:.5f} ms, plain "
+        f"{plain_ms:.1f} ms; max_abs_err {err}  [{card}]")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b, floor=floor_ms,
+                floor_round=floor_round, step_us=step)
 
 
 def kswa_launch(dev, card, args, what):

@@ -17,7 +17,9 @@ depths 80 and 30.
   the depth cap), a read across the fw/rc boundary and one past the
   reverse strand's end (the leaf walk's bound).
 - The kernel's CPU twin (``ert_cuda.ert_extend_twin``) equals the plain
-  version, node and leaf steps included.
+  version, node and leaf steps included, and on exact reads whose leaf
+  walks cross 16-byte words, meet N bases mid-word, reach seq_len and
+  take pass 3's record inside a word, at minimum intervals 0 to 3.
 On a GPU (``-m cuda``) the kernel against its plain version and its twin,
 at both position dtypes. The JAX side is imported inside the tests that
 use it, so the CUDA cases also run on a machine without JAX:
@@ -158,11 +160,33 @@ def test_device_ert_equal_to_jax_child_rec(side, depth):
     assert torch.equal(again.rec, t.rec)
 
 
+def _word_reads(text, l_pac, codes, lens):
+    """The batch with 8 exact 100 bp windows of the genome appended (their
+    lanes reach a single occurrence and walk it across 16-byte words):
+    two with N bases at columns 37 and 70 (mid-word), one whose window
+    starts 60 bases before the reverse strand's end (its leaf walks reach
+    seq_len)."""
+    rng = np.random.RandomState(23)
+    rows = [text[p:p + L].astype(np.int32)
+            for p in rng.randint(0, l_pac - L, 7)]
+    rows[1][[37, 70]] = 4
+    rows[2][[37]] = 4
+    rows.append(np.concatenate([text[2 * l_pac - 60:],
+                                text[:40]]).astype(np.int32))
+    return (np.concatenate([codes, np.stack(rows)]),
+            np.concatenate([lens, np.full(len(rows), L, np.int32)]))
+
+
 def _ext_args(case, params, n_reads):
     """(min_intv [B], keyword arguments) of a descent case: pass 1 merged
     with pass 3, the reseed's per-row minimum intervals (s + 1 of a
-    task), or pass 3's records with no initial check."""
+    task), pass 3's records with no initial check, or (words) pass 1
+    merged with rows' minimum intervals of 0 to 3 (a leaf walk that goes
+    on past a mismatch, stops at one, or ends at its first step)."""
     msl, mmi = params
+    if case == "words":
+        return (np.arange(n_reads) % 4).astype(np.int32), dict(
+            check_initial=True, p3_max_intv=mmi, p3_stop=msl + 1)
     if case == "merged":
         return np.ones(n_reads, np.int32), dict(
             check_initial=True, p3_max_intv=mmi, p3_stop=msl + 1)
@@ -257,12 +281,19 @@ def test_collect_smems_ert_equal_to_jax(side, wide, depth, params):
 
 @pytest.mark.parametrize("depth", DEPTHS)
 @pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
-@pytest.mark.parametrize("case", ["merged", "reseed", "unchecked"])
+@pytest.mark.parametrize("case", ["merged", "reseed", "unchecked", "words"])
 def test_ert_twin_equal_to_plain(side, depth, wide, case):
-    """The kernel's loop in plain Python gives the lockstep's outputs and
-    each lane's node and leaf steps."""
+    """The kernel's loop in plain Python (the leaf walk 16 reference bytes
+    a word) gives the lockstep's outputs and each lane's node and leaf
+    steps; in the words case leaf walks start unaligned, cross words, meet
+    an N mid-word, reach seq_len, die at mi > 1, go on past a mismatch at
+    mi = 0 and take pass 3's record inside a word."""
     codes, lens = side["reads"]
-    mi, kw = _ext_args(case, PARAMS[1], len(lens))
+    if case == "words":
+        codes, lens = _word_reads(side["idx"].ref_string,
+                                  side["idx"].bns.l_pac, codes, lens)
+    mi, kw = _ext_args(case, PARAMS[0] if case == "words" else PARAMS[1],
+                       len(lens))
     tf = side["tfmi"][wide]
     dev = side["tdev", depth]
     got = tops.ert_extend_all_positions(
@@ -279,6 +310,21 @@ def test_ert_twin_equal_to_plain(side, depth, wide, case):
     np.testing.assert_array_equal(twin["node_steps"], steps[0])
     np.testing.assert_array_equal(twin["leaf_steps"], steps[1])
     assert steps[1].sum() > 0 or case == "unchecked"
+    if case == "words":                  # the plain version is JAX's too
+        import jax.numpy as jnp
+        from bwa_mem_scale_tpu.ops import ert as jops
+        _assert_dicts(jops.ert_extend_all_positions(
+            side["jdev", depth], side["jfmi"].ref, jnp.asarray(codes),
+            jnp.asarray(lens), jnp.asarray(mi),
+            pos_dtype=jnp.int64 if wide else jnp.int32,
+            seq_len=2 * side["jfmi"].l_pac, **kw), got)
+        leaf = twin["leaf_steps"]
+        assert twin["leaf_words"].max() >= 5 and (leaf > 16).any()
+        # a record inside a run of matches, and a walk on past a mismatch
+        on_leaf = (leaf > 0) & twin["f3_s"]
+        assert (twin["f3_ss"][on_leaf] == 1).any()
+        past = (mi[:, None] == 0) & (leaf > 0) & (twin["s"] == 0)
+        assert past.any()
 
 
 def test_wrapper_on_cpu_runs_plain(side):
@@ -341,6 +387,7 @@ def card():
     out = dict(codes=torch.as_tensor(codes, device=dev),
                lens=torch.as_tensor(lens, device=dev),
                ref=torch.as_tensor(idx.ref_string, device=dev),
+               text=idx.ref_string,
                seq_len=2 * idx.bns.l_pac)
     for d in DEPTHS:
         e = tert.build_ert(idx.ref_string, idx.sa_samples, K=K, max_depth=d)
@@ -351,12 +398,18 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth", DEPTHS)
 @pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
-@pytest.mark.parametrize("case", ["merged", "reseed", "unchecked"])
+@pytest.mark.parametrize("case", ["merged", "reseed", "unchecked", "words"])
 def test_ert_kernel_equal_to_plain(card, depth, wide, case):
     """ert_extend_kernel against the lockstep on the card and against the
     twin, every output and each lane's node and leaf steps."""
     codes, lens = card["codes"], card["lens"]
-    mi, kw = _ext_args(case, PARAMS[1], len(lens))
+    if case == "words":
+        c, ln = _word_reads(card["text"], card["seq_len"] // 2,
+                            codes.cpu().numpy(), lens.cpu().numpy())
+        codes = torch.as_tensor(c, device=codes.device)
+        lens = torch.as_tensor(ln, device=codes.device)
+    mi, kw = _ext_args(case, PARAMS[0] if case == "words" else PARAMS[1],
+                       len(lens))
     mi = torch.as_tensor(mi, device=codes.device)
     pd = torch.int64 if wide else torch.int32
     fn = ert_cuda.ert_extend_all_positions_cuda
