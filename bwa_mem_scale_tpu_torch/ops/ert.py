@@ -21,8 +21,9 @@ Three things live here:
   ``ert_extend_kernel`` and the CPU path;
 - ``collect_smems_ert``: the JAX package's three passes around it, pass 2
   over the compacted reseed tasks (a fixed budget of 2B) and pass 3 from
-  pass 1's merged records through ``smems_seed_strategy_merged`` (its
-  restart chain is ``csrc/sweep.cu``'s ``strategy_chase_kernel``).
+  pass 1's merged records through ``smems_seed_strategy_merged`` (on
+  the card ``csrc/sweep.cu``'s ``seed_strategy_merged_kernel``, the
+  sweep's).
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@ from one forward extension of every (read, start) lane
 (``extend_all_positions``, optionally started from the FMA ladder table
 of ``ops/fma.py``), pass 2 runs the same extension over the compacted
 reseed tasks, and pass 3 replays its restart chain from the records
-(``smems_seed_strategy_merged``). The two per-lane loops run as the
-kernels of ``csrc/sweep.cu`` through ``ops/sweep_cuda.py`` on CUDA
-tensors; the lockstep versions here (``extend_all_positions``,
+(``smems_seed_strategy_merged``). The extension and the merged stage
+run as the kernels of ``csrc/sweep.cu`` through ``ops/sweep_cuda.py`` on
+CUDA tensors; the versions here (the lockstep ``extend_all_positions``,
+``seed_strategy_merged_plain``: the glue with the lockstep
 ``strategy_chase``) are their plain versions and the CPU path. The glue
 is torch ops in the JAX package's order, so every array equals its. With
 a k-gram checkpoint table on the index the extension takes the JAX
@@ -323,13 +324,13 @@ extend_all_positions.last_steps = None       # [B, P] int32, on its device
 
 def strategy_chase(emit, E3, nxt, f3_k, f3_l, f3_ss, lens, max_out: int,
                    stats: dict = None) -> SmemBuf:
-    """Pass 3's restart chain, lockstep over reads (the plain version of
-    ``csrc/sweep.cu``'s strategy_chase_kernel): from column 0 each read
-    emits (pos, E3, f3_k, f3_l, f3_ss) where `emit` holds and moves to
-    nxt[pos], while pos is inside the read and below P. All [B, P]; the
-    emission past max_out is dropped while the count grows. Keeps each
-    read's chase steps in ``last_steps``; `stats` gets the ticks under
-    ``chase_ticks``."""
+    """Pass 3's restart chain, lockstep over reads (part of the plain
+    version of ``csrc/sweep.cu``'s seed_strategy_merged_kernel): from
+    column 0 each read emits (pos, E3, f3_k, f3_l, f3_ss) where `emit`
+    holds and moves to nxt[pos], while pos is inside the read and below
+    P. All [B, P]; the emission past max_out is dropped while the count
+    grows. Keeps each read's chase steps in ``last_steps``; `stats` gets
+    the ticks under ``chase_ticks``."""
     B, P = emit.shape
     dev = emit.device
     M = max_out
@@ -415,8 +416,26 @@ def smems_seed_strategy_merged(fmi: DeviceFMIndex, codes, lens, ext,
     whose walk died at s = 0 before stop_min_len walks on with an empty
     interval until the stop length, an N or the read's end, none of
     which emits: its end is reckoned here, not walked. Then the restart
-    chain (``sweep_cuda.strategy_chase_cuda``)."""
+    chain. On CUDA tensors the whole stage is one launch
+    (``sweep_cuda.seed_strategy_merged_cuda``); on CPU tensors the plain
+    version, ``seed_strategy_merged_plain``."""
     from . import sweep_cuda
+    if codes.device.type != "cpu":
+        return sweep_cuda.seed_strategy_merged_cuda(
+            fmi, codes, lens, ext, max_intv, stop_min_len, max_out, n_pos,
+            stats)
+    return seed_strategy_merged_plain(fmi, codes, lens, ext, max_intv,
+                                      stop_min_len, max_out, n_pos, stats)
+
+
+def seed_strategy_merged_plain(fmi, codes, lens, ext, max_intv: int,
+                               stop_min_len: int, max_out: int,
+                               n_pos: int = 0,
+                               stats: dict = None) -> SmemBuf:
+    """The merged stage's plain version, on any device: the glue as torch
+    operations in the JAX function's order, then the lockstep
+    ``strategy_chase``, whose per-read steps it keeps in
+    ``last_steps``."""
     B, L = codes.shape
     P = n_pos or L
     dev = codes.device
@@ -443,9 +462,15 @@ def smems_seed_strategy_merged(fmi: DeviceFMIndex, codes, lens, ext,
     nxt = torch.where(base_ok & (fail3 | hit_n), E3 + 1,
                       torch.where(base_ok, lens[:, None], pcol + 1))
     nxt = torch.maximum(nxt, pcol + 1)
-    return sweep_cuda.strategy_chase_cuda(
-        emit_col, E3.to(torch.int32), nxt.to(torch.int32), ext["f3_k"],
-        ext["f3_l"], ext["f3_ss"], lens, max_out, stats=stats)
+    out = strategy_chase(emit_col, E3.to(torch.int32), nxt.to(torch.int32),
+                         ext["f3_k"], ext["f3_l"], ext["f3_ss"], lens,
+                         max_out, stats=stats)
+    seed_strategy_merged_plain.last_steps = getattr(strategy_chase,
+                                                    "last_steps", None)
+    return out
+
+
+seed_strategy_merged_plain.last_steps = None  # [B] int32, on its device
 
 
 def collect_smems_device(fmi: DeviceFMIndex, codes, lens, *,

@@ -1,36 +1,38 @@
-"""The sweep engine's two per-lane loops through the hand-written CUDA
-kernels of csrc/sweep.cu.
+"""The sweep engine's two kernels through the hand-written CUDA of
+csrc/sweep.cu.
 
 Two wrappers, each with the signature of its plain version in
-``ops/smem.py`` and each replacing a ``jax.lax.while_loop`` of the JAX
-package's ``ops/smem.py``:
+``ops/smem.py`` and each replacing code of the JAX package's
+``ops/smem.py``:
 - ``extend_all_positions_cuda``: the forward extension from every (read,
   start column) lane, with the FMA ladder table as each lane's start
   (plain ``extend_all_positions``; JAX ``extend_all_positions`` with
   ``ops/fma.py::fast_forward``), one thread a lane;
-- ``strategy_chase_cuda``: pass 3's restart chain (plain
-  ``strategy_chase``; JAX ``smems_seed_strategy_merged``'s loop), one
-  thread a read.
+- ``seed_strategy_merged_cuda``: pass 3's merged stage, the column glue
+  and the restart chain in one launch (plain
+  ``seed_strategy_merged_plain``; JAX ``smems_seed_strategy_merged``),
+  one warp a read, no torch operation but the outputs' allocations.
 On CUDA tensors each launches its kernel once or raises; on CPU tensors
 each runs its plain version. There is no fallback from a kernel to its
 plain version. Each kernel has an int32 and an int64 form, picked by the
-position dtype (``fmi.pos_dtype``; the records' dtype for the chase), as
-in ``ops/smem_cuda.py``, whose index arguments and output layout these
-wrappers share. Each keeps a ``launches`` count (both forms), a
-``launches64`` count (the int64 form) and the last call's per-lane
-``last_steps`` (forward steps for the sweep, chase iterations for the
-chase). With ``stats`` they add the longest lane's steps
-(``sweep_steps_p1`` / ``sweep_steps_p2`` / ``chase_steps``) and the total
-(``sweep_total_p1`` / ``sweep_total_p2`` / ``chase_total``) as device
-tensors, and for the sweep the longest lane's row fetches
-(``sweep_rounds_p1`` / ``sweep_rounds_p2``, ``last_rounds``). With a
+position dtype (``fmi.pos_dtype``), as in ``ops/smem_cuda.py``, whose
+index arguments and output layout these wrappers share. Each keeps a
+``launches`` count (both forms), a ``launches64`` count (the int64 form)
+and the last call's ``last_steps`` (forward steps a lane for the sweep,
+chase iterations a read for the merged stage). With ``stats`` the sweep
+adds the longest lane's steps (``sweep_steps_p1`` / ``sweep_steps_p2``),
+the total (``sweep_total_p1`` / ``sweep_total_p2``) and the longest
+lane's row fetches (``sweep_rounds_p1`` / ``sweep_rounds_p2``,
+``last_rounds``) as device tensors; the merged stage's kernel adds its
+longest read's chase steps and the total to two device counters of its
+own, ``chase_steps`` and ``chase_total`` (0-d int64 tensors). With a
 k-gram checkpoint table on the index (``fmi.kstep`` > 1, int32 layout)
 the sweep launches its k-step form (``sweep_extend_launch_k``: two bases
 a row fetch, after the FMA start), counted in ``launches_k`` as well.
 
-``sweep_extend_twin`` and ``strategy_chase_twin`` are the kernels' loops
-in plain Python on numpy arrays, tests of the kernels' control flow on
-the CPU at small sizes; each counts what its kernel counts. The source
+``sweep_extend_twin`` and ``seed_strategy_merged_twin`` are the kernels'
+loops in plain Python on numpy arrays, tests of the kernels' control flow
+on the CPU at small sizes; each counts what its kernel counts. The source
 is compiled with nvcc into ``build/torch_kernels/libsweep_cuda.so`` at
 first use (``ops/nvcc_build.py``).
 """
@@ -38,6 +40,7 @@ first use (``ops/nvcc_build.py``).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -50,12 +53,13 @@ from .smem_cuda import (_FMI, _SUFFIX, _TwinFmi, _TwinK, _check,
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _SWEEP = [_vp] * 3 + [_ci] * 7 + [_vp] * 3 + [_ci] * 2 + [_vp] * 3
-_CHASE = [_vp] * 7 + [_ci] * 3 + [_vp] * 3
+_MERGED = [_vp] * 10 + [_ci] * 5 + [_vp] * 6
 LIB = nvcc_build.Library("sweep.cu", "sweep_cuda", {
     **{f"sweep_extend_launch{_SUFFIX[pd]}": _FMI[pd] + _SWEEP
        for pd in _FMI},
     "sweep_extend_launch_k": _FMI[torch.int32] + [_vp, _ci, _vp] + _SWEEP,
-    **{f"strategy_chase_launch{_SUFFIX[pd]}": _CHASE for pd in _FMI}})
+    **{f"seed_strategy_merged_launch{_SUFFIX[pd]}": _MERGED
+       for pd in _FMI}})
 build = LIB.build            # compile csrc/sweep.cu; returns the library path
 
 # the sweep's outputs: its [3][B][P] int32 ([4] in the k-step form, with
@@ -154,49 +158,95 @@ extend_all_positions_cuda.last_rounds = None     # [B, P] int32
 _EXTEND_FN = extend_all_positions_cuda
 
 
-def strategy_chase_cuda(emit, E3, nxt, f3_k, f3_l, f3_ss, lens,
-                        max_out: int, stats: dict = None):
-    """Drop-in for ``smem.strategy_chase`` (an equal SmemBuf): one launch
-    of strategy_chase_kernel on CUDA tensors, the plain version on CPU
-    ones. emit [B, P] bool, E3 and nxt [B, P] int32, the records [B, P]
-    int32 or int64 (the form), lens [B] int32."""
-    from .smem import SmemBuf, strategy_chase
-    if emit.device.type == "cpu":
-        return strategy_chase(emit, E3, nxt, f3_k, f3_l, f3_ss, lens,
-                              max_out, stats)
-    what = "strategy_chase_cuda"
-    dev = emit.device
-    pd = f3_k.dtype
-    ts = (emit, E3, nxt, f3_k, f3_l, f3_ss, lens)
+# the merged stage's running maximum and ticket of each (device, stream):
+# zeroed when first made, left zero by every launch
+_RUN: dict = {}
+_RUN_LOCK = threading.Lock()
+
+
+def _run_words(dev: torch.device) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with _RUN_LOCK:
+        if key not in _RUN:
+            _RUN[key] = torch.zeros((2,), dtype=torch.int64, device=dev)
+        return _RUN[key]
+
+
+def _counter(stats: dict, key: str, dev: torch.device) -> torch.Tensor:
+    """stats[key] as the 0-d int64 counter on dev that the kernel adds to:
+    made the first time (with any earlier value in it)."""
+    v = stats.get(key)
+    if not (isinstance(v, torch.Tensor) and v.device == dev
+            and v.dtype == torch.int64 and v.dim() == 0):
+        c = torch.zeros((), dtype=torch.int64, device=dev)
+        if v is not None:
+            c += v
+        v = stats[key] = c
+    return v
+
+
+def seed_strategy_merged_cuda(fmi, codes, lens, ext, max_intv: int,
+                              stop_min_len: int, max_out: int,
+                              n_pos: int = 0, stats: dict = None):
+    """Drop-in for ``smem.smems_seed_strategy_merged`` (an equal SmemBuf):
+    one launch of seed_strategy_merged_kernel on CUDA tensors, the plain
+    version (``smem.seed_strategy_merged_plain``) on CPU ones. `fmi`
+    gives the C array (``count``, [5] at the records' position dtype);
+    codes [B, L] and lens [B] int32; `ext` the pass-1 sweep's merged
+    records over the first P = n_pos or L columns (died_s, f3_s bool;
+    f3_E, E int32; f3_k, f3_l, f3_ss of the position dtype), each
+    contiguous. No torch operation runs but the outputs'
+    allocations (and, the first time a `stats` dict is given, its two
+    counters)."""
+    from .smem import SmemBuf, seed_strategy_merged_plain
+    if codes.device.type == "cpu":
+        return seed_strategy_merged_plain(fmi, codes, lens, ext, max_intv,
+                                          stop_min_len, max_out, n_pos,
+                                          stats)
+    what = "seed_strategy_merged_cuda"
+    dev = codes.device
+    pd = fmi.count.dtype
+    B, L = codes.shape
+    P = n_pos or L
+    recs = [ext[f] for f in ("died_s", "f3_s", "f3_E", "E", "f3_k", "f3_l",
+                             "f3_ss")]
+    ts = (fmi.count, codes, lens, *recs)
     if dev.type != "cuda" or any(t.device != dev for t in ts):
         raise ValueError(f"{what}: tensors on {dev} and elsewhere")
-    B, P = emit.shape
-    if (emit.dtype != torch.bool or pd not in _SUFFIX
-            or any(t.dtype != torch.int32 for t in (E3, nxt, lens))
-            or any(t.dtype != pd for t in (f3_l, f3_ss))
-            or any(t.shape != (B, P) for t in ts[1:6])
-            or lens.shape != (B,)):
-        raise ValueError(f"{what}: shapes or dtypes differ from the plain "
-                         f"version's")
+    want = (torch.bool, torch.bool, torch.int32, torch.int32, pd, pd, pd)
+    if (pd not in _SUFFIX or fmi.count.shape != (5,)
+            or codes.dtype != torch.int32 or lens.dtype != torch.int32
+            or lens.shape != (B,) or not 0 < P <= L
+            or any(t.dtype != d or t.shape != (B, P)
+                   for t, d in zip(recs, want))
+            or not all(t.is_contiguous() for t in ts)):
+        raise ValueError(f"{what}: shapes, dtypes or layouts differ from "
+                         f"the plain version's")
     out, fields = _smem_out(B, max_out, pd, dev)
-    cnt = torch.empty((B,), dtype=torch.int32, device=dev)
-    steps = torch.empty((B,), dtype=torch.int32, device=dev)
+    cs = torch.empty((2, B), dtype=torch.int32, device=dev)
+    cnt, steps = cs.unbind(0)
     if B:
-        args = [t.contiguous() for t in ts]
-        LIB.launch(dev, f"strategy_chase_launch{_SUFFIX[pd]}",
-                   *(a.data_ptr() for a in args), B, P, max_out,
-                   out.data_ptr(), cnt.data_ptr(), steps.data_ptr())
-        _CHASE_FN.launches += 1
-        _CHASE_FN.launches64 += pd == torch.int64
-        _add_stats(stats, "chase_ticks", steps)
-    _CHASE_FN.last_steps = steps
+        acc = [None] * 3
+        if stats is not None:
+            acc = [_counter(stats, "chase_steps", dev).data_ptr(),
+                   _counter(stats, "chase_total", dev).data_ptr(),
+                   _run_words(dev).data_ptr()]
+        LIB.launch(dev, f"seed_strategy_merged_launch{_SUFFIX[pd]}",
+                   *(t.data_ptr() for t in ts), B, L, P, stop_min_len,
+                   max_out, out.data_ptr(), cnt.data_ptr(),
+                   steps.data_ptr(), *acc)
+        _MERGED_FN.launches += 1
+        _MERGED_FN.launches64 += pd == torch.int64
+    _MERGED_FN.last_steps = steps
     return SmemBuf(*fields, cnt)
 
 
-strategy_chase_cuda.launches = 0
-strategy_chase_cuda.launches64 = 0
-strategy_chase_cuda.last_steps = None            # [B] int32
-_CHASE_FN = strategy_chase_cuda
+# kernel launches since the last reset (main-path proof in chip_smoke.py):
+# all, and the int64 form's; each read's chase steps of the last call
+seed_strategy_merged_cuda.launches = 0
+seed_strategy_merged_cuda.launches64 = 0
+seed_strategy_merged_cuda.last_steps = None      # [B] int32
+_MERGED_FN = seed_strategy_merged_cuda
 
 
 def sweep_extend_twin(count, cp_fused, sentinel_index: int, codes, lens,
@@ -304,29 +354,74 @@ def sweep_extend_twin(count, cp_fused, sentinel_index: int, codes, lens,
     return out
 
 
-def strategy_chase_twin(emit, E3, nxt, f3_k, f3_l, f3_ss, lens,
-                        max_out: int):
-    """csrc/sweep.cu's strategy_chase_kernel in plain Python on numpy
-    arrays, one read after another. Returns (m, n, k, l, s, cnt, steps),
+def seed_strategy_merged_twin(count, codes, lens, ext, stop_min_len: int,
+                              max_out: int, n_pos: int = 0):
+    """csrc/sweep.cu's seed_strategy_merged_kernel in plain Python on
+    numpy arrays, one read (warp) after another: the invalid and
+    zero-count column masks a word each 32 columns, the chase from column
+    0 evaluating the glue only at the columns it visits (first_invalid for
+    a zombie), the emitted columns, then the M slots. `ext` the merged
+    records as numpy arrays [B, P]. Returns (m, n, k, l, s, cnt, steps),
     k, l and s of the records' dtype."""
-    emit = np.asarray(emit)
-    B, P = emit.shape
+    count = np.asarray(count)
+    codes = np.asarray(codes)
+    B, L = codes.shape
+    P = n_pos or L
     M = max_out
+    W = (L + 31) // 32
+    pd = np.asarray(ext["f3_k"]).dtype
+    empty = [count[a + 1] == count[a] for a in range(4)]
     out = np.zeros((5, B, M), np.int64)
     cnt_out = np.zeros(B, np.int32)
     steps_out = np.zeros(B, np.int32)
     for b in range(B):
+        n_len = int(lens[b])
+        inv, zero = [0] * W, [0] * W
+        for col in range(32 * W):
+            c = int(codes[b, col]) if col < L else 4
+            bad = c >= 4 or col >= n_len
+            if bad:
+                inv[col >> 5] |= 1 << (col & 31)
+            elif empty[min(max(c, 0), 3)]:
+                zero[col >> 5] |= 1 << (col & 31)
+
+        def first_invalid(p):
+            i = p >> 5
+            m = inv[i] & (~0 << (p & 31)) & 0xFFFFFFFF
+            while m == 0 and i + 1 < W:
+                i += 1
+                m = inv[i]
+            return min(L, 32 * i + (m & -m).bit_length() - 1) if m else L
+
         pos = cnt = steps = 0
-        while pos < int(lens[b]) and pos < P:
+        em = []
+        while pos < n_len and pos < P:
             steps += 1
-            if emit[b, pos]:
+            base_ok = not (inv[pos >> 5] >> (pos & 31)) & 1
+            f3 = bool(ext["f3_s"][b, pos])
+            died = (bool(ext["died_s"][b, pos])
+                    or bool((zero[pos >> 5] >> (pos & 31)) & 1))
+            zombie = base_ok and died and not f3
+            zfail = False
+            E3 = int(ext["E"][b, pos])
+            if f3:
+                E3 = int(ext["f3_E"][b, pos])
+            elif zombie:
+                limit = first_invalid(pos) - pos
+                zfail = stop_min_len <= limit
+                E3 = pos + (stop_min_len - 1 if zfail else limit)
+            if base_ok and f3 and ext["f3_ss"][b, pos] > 0:
                 if cnt < M:
-                    out[:, b, cnt] = (pos, E3[b, pos], f3_k[b, pos],
-                                      f3_l[b, pos], f3_ss[b, pos])
+                    em.append(pos)
                 cnt += 1
-            n = int(nxt[b, pos])
-            pos = n if n > pos else pos + 1
+            fail3 = f3 or zfail
+            hit_n = base_ok and not fail3 and E3 < n_len
+            nxt = ((E3 + 1 if fail3 or hit_n else n_len) if base_ok
+                   else pos + 1)
+            pos = max(nxt, pos + 1)
+        for j, col in enumerate(em):
+            out[:, b, j] = (col, ext["f3_E"][b, col], ext["f3_k"][b, col],
+                            ext["f3_l"][b, col], ext["f3_ss"][b, col])
         cnt_out[b], steps_out[b] = cnt, steps
-    pd = np.asarray(f3_k).dtype
     return (out[0].astype(np.int32), out[1].astype(np.int32),
             *(o.astype(pd) for o in out[2:]), cnt_out, steps_out)

@@ -115,3 +115,22 @@ def rescue_batch(seed_len: int = 51, n_units: int = 64, copies: int = 4,
     codes = np.stack(reads).astype(np.int32)
     lens = np.full(len(reads), read_len, np.int32)
     return build_index(bns), codes, lens, np.repeat(where, 2)
+
+
+def rescue_pairs(bns, n_pairs: int = 512, read_len: int = 101,
+                 insert: int = 300, insert_sd: int = 30):
+    """chip_smoke.py phase 15's pairs with seedless mates: n_pairs FR
+    pairs from `bns` (seed 19, insert `insert` +- `insert_sd`), read 2
+    reverse-complemented, every fourth read 2 with every tenth base
+    changed: no 19-mer seed, so only mate rescue places it. Returns codes
+    [2 n_pairs, read_len] int32, mates in turn (read 1 of pair i at 2i)."""
+    rng = np.random.RandomState(19)
+    comp = np.array([3, 2, 1, 0, 4], np.uint8)
+    frag = np.maximum(rng.normal(insert, insert_sd, n_pairs)
+                      .astype(np.int64), read_len + 10)
+    start = (rng.rand(n_pairs) * (bns.l_pac - frag)).astype(np.int64)
+    pos = np.stack([start, start + frag - read_len], 1).reshape(-1)
+    codes = bns.seq[pos[:, None] + np.arange(read_len)].astype(np.int32)
+    codes[1::2] = comp[codes[1::2, ::-1]]
+    codes[1::8, 5::10] = (codes[1::8, 5::10] + 1) % 4
+    return codes

@@ -10,7 +10,14 @@ kernel's call replaced by the output it gave on the same inputs, under
 ``torch.profiler``, and prints the outermost aten operations each
 engine's glue issues a batch: each is one launch (or more) and a host
 dispatch on the card, so the count is what the glue costs the host. A
-count, not a time: it is the same on the CPU and on the card.
+count, not a time: it is the same on the CPU and on the card. Pass 3's
+merged stage (``smems_seed_strategy_merged``) is one launch on the card,
+so the sweep and the ERT replay it whole. Then the merged stage alone on
+the sweep's call: its earlier glue (the plain version's torch operations
+with the restart chain replayed, run on the CPU, the port's stage before
+csrc/sweep.cu's seed_strategy_merged_kernel) and the stage as the main
+path calls it (on the card the kernel: the outputs' allocations, the
+launch a ctypes call; on the CPU the plain version with its chase).
 
 Then the SA lookup stage on the one-hot engine's SMEMs of the same batch
 (512 coordinates a read): the earlier stage's glue
@@ -24,6 +31,7 @@ version with its walk.
 from __future__ import annotations
 
 import argparse
+import types
 
 import torch
 
@@ -58,15 +66,33 @@ def _replayed(targets, fn):
     return lambda: with_swaps(replay)
 
 
-def outer_ops(run) -> int:
+def merged_call(mod, run):
+    """The (arguments, keyword arguments but stats) of the one
+    merged-stage call that run() makes through
+    mod.smems_seed_strategy_merged."""
+    real, calls = mod.smems_seed_strategy_merged, []
+    mod.smems_seed_strategy_merged = lambda *a, **k: (
+        calls.append((a, k)) or real(*a, **k))
+    try:
+        run()
+    finally:
+        mod.smems_seed_strategy_merged = real
+    (a, k), = calls
+    return a, {f: v for f, v in k.items() if f != "stats"}
+
+
+def outer_ops(run, names: set = None) -> int:
     """The aten operations run() issues that no other aten operation
-    issued."""
+    issued; their names go into `names` when given."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         run()
-    return sum(1 for e in prof.events() if e.name.startswith("aten::")
-               and (e.cpu_parent is None
-                    or not e.cpu_parent.name.startswith("aten::")))
+    outer = [e.name for e in prof.events() if e.name.startswith("aten::")
+             and (e.cpu_parent is None
+                  or not e.cpu_parent.name.startswith("aten::"))]
+    if names is not None:
+        names.update(outer)
+    return len(outer)
 
 
 def main(argv=None) -> int:
@@ -101,17 +127,35 @@ def main(argv=None) -> int:
                                          stack_depth=24, **kw))
     sweep = _replayed(
         [(sweep_cuda, "extend_all_positions_cuda"),
-         (sweep_cuda, "strategy_chase_cuda")],
+         (smem, "smems_seed_strategy_merged")],
         lambda: smem.collect_smems_device(fmi, c, ln, fma=table, **kw))
     trie = _replayed(
         [(ert_cuda, "ert_extend_all_positions_cuda"),
-         (sweep_cuda, "strategy_chase_cuda")],
+         (ert, "smems_seed_strategy_merged")],
         lambda: ert.collect_smems_ert(dert, fmi.ref, c, ln,
                                       pos_dtype=fmi.pos_dtype,
                                       seq_len=2 * fmi.l_pac, **kw))
     print(f"glue operations a batch (B=512, L=101, outermost aten ops, the "
-          f"kernels' calls replayed): one-hot {outer_ops(onehot)}, sweep "
-          f"{outer_ops(sweep)}, ERT {outer_ops(trie)}")
+          f"kernels' calls and the merged stage replayed): one-hot "
+          f"{outer_ops(onehot)}, sweep {outer_ops(sweep)}, ERT "
+          f"{outer_ops(trie)}")
+    a, k = merged_call(smem, lambda: smem.collect_smems_device(
+        fmi, c, ln, fma=table, **kw))
+    real = smem.smems_seed_strategy_merged
+    cpu = lambda x: {f: v.cpu() for f, v in x.items()} if isinstance(
+        x, dict) else x.cpu() if isinstance(x, torch.Tensor) else x
+    cpu_args = (types.SimpleNamespace(count=a[0].count.cpu()),
+                *(cpu(x) for x in a[1:]))
+    glue = outer_ops(_replayed([(smem, "strategy_chase")],
+                               lambda: real(*cpu_args, **k)))
+    names = set()
+    stage = outer_ops(lambda: real(*a, **k), names)
+    how = ("the kernel of csrc/sweep.cu: " + ", ".join(sorted(names))
+           if dev.type == "cuda" else "the plain version, its restart "
+           "chain included, on the CPU")
+    print(f"merged stage operations a batch (the sweep's call, outermost "
+          f"aten ops): the earlier glue (the plain version, its chase "
+          f"replayed) {glue}; smems_seed_strategy_merged {stage} ({how})")
     smems = smem_oh.collect_smems_oh(fmi, c, ln, emit_depth=24,
                                      stack_depth=24, **kw)
     earlier = _replayed([(sal, "sa_lookup_plain")],

@@ -132,12 +132,16 @@ Phases, in order; any failure exits non-zero:
               sweep` byte-equal to phase 7's; phase 5's batch and the
               repeat batch through collect_smems_device with and without
               the table, at both layouts: SmemBuf equal to the plain
-              versions', each launch as made (two sweeps, one chase)
-              against its plain version (records and SmemBuf, max_abs_err
-              0, per-lane steps), with its total and longest-lane steps,
-              bound (64 bytes and 45 operations an FM step), latency floor
-              (the longest lane's steps x 0.224 us), device and plain
-              times; the engines' seeding kernels side by side.
+              versions', each launch as made (two sweeps, one merged
+              stage) against its plain version (records and SmemBuf,
+              max_abs_err 0, per-lane or per-read steps), with its total
+              and longest-lane steps, bound (the sweep: 64 bytes and 45
+              operations an FM step; the merged stage: its codes, the
+              visited columns' records and its outputs), latency floor
+              (the sweep: the longest lane's steps x 0.224 us; the merged
+              stage: an L2 trip + the longest read's steps x a warp's
+              round, both measured), device and plain times; the
+              engines' seeding kernels side by side.
  10. longread: the long-read regime (the seed-SW filter of
               mem_flt_chained_seeds, ops/seedsw.py, csrc/seedsw.cu) on
               phase 4's genome, index and EMF table: SE `mem --device cuda`
@@ -185,9 +189,10 @@ Phases, in order; any failure exits non-zero:
               and `ert-index` (K = 12, depth 320; nodes, build seconds,
               the device record's MiB); SE `mem --device cuda` with the
               trie auto-loaded: phase 4's checks, the descent kernel
-              launched twice a device batch and the chase and the SA
-              lookup stage (its walk a gather of the full SA) once, no
-              other seeding kernel, the SAM body equal to `mem --seed-engine
+              launched twice a device batch and the merged stage and the
+              SA lookup stage (its walk a gather of the full SA) once, no
+              other seeding kernel, the SAM body equal to `mem
+              --seed-engine
               sweep` on the same index and EMF table without the trie
               (a differing read only with its cause: the depth cap, the
               24-bit count's saturation, a retry tier), the same at the
@@ -201,8 +206,9 @@ Phases, in order; any failure exits non-zero:
               and leaf steps, bound, latency floor (the longest lane's
               node steps + leaf words of 16 bytes x one dependent trip in
               the L2, measured by probe B in the run; the node steps
-              alone beside it), device and plain times, the sweep's
-              beside (a); `load-shm` staging the trie's piece, `mem`
+              alone beside it), device and plain times, and each
+              batch's merged-stage launch against its plain version (as
+              phase 9's), the sweep's beside (a); `load-shm` staging the trie's piece, `mem`
               attached to it (SAM equal to the file-loaded run) and
               `remove-shm`.
 
@@ -251,9 +257,11 @@ Phases, in order; any failure exits non-zero:
               (800-2,500 bp), the rescue SW kernel (csrc/kswa.cu) on its
               largest rescue call, each against its plain version
               (max_abs_err 0) with its jobs, DP cells, bound, latency
-              floor (the longest job's rows x a row step measured in the
-              run; for the CIGAR DP also its rows + traceback steps x a
-              warp's dependent round, tools/round_cost.py), kernel and
+              floor (the CIGAR DP: the longest job's rows x a row step
+              measured in the run, and its rows + traceback steps x a
+              warp's dependent round, tools/round_cost.py; the rescue SW:
+              the longest job's wavefront steps, both scans, x a step
+              measured in the run), kernel and
               plain times; (e) tools/multichip.py on the mesh.
  16. finalize: the Python finalize path (BWA_TPU_NO_NATIVE_FINALIZE: the
               JAX package's Python record path and SAM writer): phase
@@ -1816,12 +1824,51 @@ def phase_probes(dev, card):
 SWEEP_KERNELS = (
     ("sweep_extend", "extend_all_positions_cuda",
      "bwa_mem_scale_tpu/ops/smem.py:109"),
-    ("strategy_chase", "strategy_chase_cuda",
+    ("seed_strategy_merged", "seed_strategy_merged_cuda",
      "bwa_mem_scale_tpu/ops/smem.py:468"))
-# a chase step: emit's byte and nxt's word (and at an emission the
-# record: E3 and k, l, s); the bounds tests 2, the emit test 1, the width
-# test 1, the next position's load, compare and select 3, the counts 2
-CHASE_OPS_PER_STEP = 9
+# the merged stage (csrc/sweep.cu seed_strategy_merged_kernel): a column
+# of the read staged into the two masks 6 (the compare, the clamp, the
+# count bit, two ballots' share); a visited column's glue 25 (the bounds
+# 2, base_ok 3, died 3, zombie 2, E3 4, emit 3, fail3 and hit_n 3, nxt 3,
+# the counts 2)
+MERGED_OPS_PER_COL = 6
+MERGED_OPS_PER_STEP = 25
+
+
+def merged_launch(dev, card, what, kernel, args, kw, trip_us, round_us):
+    """One merged-stage launch as made, through walk_launch against the
+    plain version on the same inputs (every field and each read's steps);
+    its bound: the codes, lengths and C array read once, each visited
+    column's records (died_s, f3_s, f3_E, E, f3_ss) and each kept
+    emission's f3_k and f3_l, the five [B, M] planes, cnt and steps
+    written once; MERGED_OPS_PER_COL a column staged and
+    MERGED_OPS_PER_STEP a visited column; its latency floor: one trip for
+    the staged data (trip_us, probe B in the L2) and then the longest
+    read's steps x a warp's dependent round (round_us,
+    tools/round_cost.py), both measured in this run. Returns the
+    numbers."""
+    from bwa_mem_scale_tpu_torch.ops import smem
+    kw = {k: v for k, v in kw.items() if k != "stats"}
+    got, r = walk_launch(dev, what, kernel, smem.seed_strategy_merged_plain,
+                         args, 1, kw)
+    codes, M = args[1], args[6]
+    B, L = codes.shape
+    pb = got.k.element_size()
+    kept = int(got.cnt.clamp(max=M).sum())
+    nbytes = (4 * (B * L + B) + 5 * pb + (10 + pb) * r["steps"]
+              + 2 * pb * kept + (8 + 3 * pb) * B * M + 8 * B)
+    r["bound"] = bound(nbytes, MERGED_OPS_PER_COL * B * L
+                       + MERGED_OPS_PER_STEP * r["steps"])
+    r["floor"] = (trip_us + r["longest"] * round_us) * 1e-3
+    log(f"[merged] {what}: equal to the plain version (max_abs_err "
+        f"{r['err']}), each read's steps too; {r['steps']} chase steps over "
+        f"{B} reads, the longest read {r['longest']}, {kept} emissions "
+        f"kept; bound {r['bound'][0]:.6f} ms by {r['bound'][1]}; latency "
+        f"floor {r['floor']:.5f} ms (one L2 trip {trip_us:.4f} us + "
+        f"{r['longest']} x a warp's round {round_us:.4f} us, measured); "
+        f"kernel device time {r['ms']:.5f} ms (one call with its "
+        f"allocations, mean of 2), plain {r['plain_ms']:.2f} ms  [{card}]")
+    return r
 
 
 def sweep_wrappers():
@@ -1846,19 +1893,19 @@ def sweep_kernel_launch(dev, card, what, kernel, plain, args, kw, nbytes,
     return r
 
 
-def sweep_batch(dev, card, fmi, table, c, ln, batch):
+def sweep_batch(dev, card, fmi, table, c, ln, batch, trips):
     """collect_smems_device on one batch with the kernels, every launch
     recorded, equal to the whole call with the plain versions swapped in;
-    then each launch as made (two sweeps, one chase) against its plain
-    version with its steps, bound, floor and times. Returns the three
-    launches' numbers."""
+    then each launch as made (two sweeps, one merged stage) against its
+    plain version with its steps, bound, floor and times; trips: (an L2
+    trip, a warp's round) in us. Returns the three launches' numbers."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import smem, sweep_cuda
     kw = dict(min_seed_len=19, split_len=28, split_width=10,
               max_mem_intv=20)
     real = {attr: getattr(sweep_cuda, attr) for _, attr, _ in SWEEP_KERNELS}
     plain = {"extend_all_positions_cuda": smem.extend_all_positions,
-             "strategy_chase_cuda": smem.strategy_chase}
+             "seed_strategy_merged_cuda": smem.seed_strategy_merged_plain}
     calls = {attr: [] for attr in real}
 
     def recorder(attr, fn):
@@ -1909,19 +1956,12 @@ def sweep_batch(dev, card, fmi, table, c, ln, batch):
         res.append(sweep_kernel_launch(
             dev, card, what, real["extend_all_positions_cuda"],
             smem.extend_all_positions, args, k, nbytes, SMEM_OPS_PER_STEP))
-    args, k = calls["strategy_chase_cuda"][0]
-    B, P, M = args[0].shape[0], args[0].shape[1], args[7]
-
-    def nbytes(steps, got):
-        # lens; emit's byte and nxt's word a step, the record (E3, k, l, s)
-        # an emission kept; the SmemBuf rows and counts written
-        kept = int(got.cnt.clamp(max=M).sum())
-        return (4 * B + 5 * steps + (4 + 3 * pb) * kept
-                + (8 + 3 * pb) * B * M + 4 * B)
-    res.append(sweep_kernel_launch(
-        dev, card, f"{batch}, chase launch (B={B}, P={P}, max_out={M})",
-        real["strategy_chase_cuda"], smem.strategy_chase, args, k, nbytes,
-        CHASE_OPS_PER_STEP))
+    args, k = calls["seed_strategy_merged_cuda"][0]
+    B, P = args[3]["E"].shape
+    res.append(merged_launch(
+        dev, card, f"{batch}, merged-stage launch (B={B}, "
+        f"L={args[1].shape[1]}, P={P}, max_out={args[6]})",
+        real["seed_strategy_merged_cuda"], args, k, *trips))
     return res
 
 
@@ -1939,6 +1979,7 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.fma import build_fma_table
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
+    from bwa_mem_scale_tpu_torch.tools import round_cost
     from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
     from bwa_mem_scale_tpu_torch.utils.profiling import PROFILER
     t0 = time.perf_counter()
@@ -2070,6 +2111,10 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
     fmi_4 = {False: al.fmi,
              True: DeviceFMIndex.from_host(al.idx, dev, force_int64=True)}
     res = {}
+    trips = (dependent_trip_us(dev, L2_ROWS), round_cost.round_us(dev))
+    log(f"[sweep] the merged stage's floor: one dependent trip in the L2 "
+        f"(probe B, {L2_ROWS} rows) {trips[0]:.4f} us, a warp's dependent "
+        f"round (tools/round_cost.py) {trips[1]:.4f} us  [{card}]")
     for wide in (False, True):
         pd = torch.int64 if wide else torch.int32
         for batch, fmi, table, cc, ll in (
@@ -2081,7 +2126,7 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
                 label = (f"{batch}, {'with' if use else 'without'} the "
                          f"table{', int64 form' if wide else ''}")
                 r = sweep_batch(dev, card, fmi, table.to_device(pd, dev)
-                                if use else None, cc, ll, label)
+                                if use else None, cc, ll, label, trips)
                 res[wide, batch, use] = r
                 torch.cuda.empty_cache()
     p5 = "phase 5's batch"
@@ -2089,7 +2134,7 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
     oh = [*slice32["one_pos_machine"], slice32["seed_strategy_machine"]]
     log(f"[sweep] engines on phase 5's batch, seeding kernels' device ms: "
         f"sweep with the table {one[0]['ms']:.5f} + {one[1]['ms']:.5f} + "
-        f"chase {one[2]['ms']:.5f} = "
+        f"merged stage {one[2]['ms']:.5f} = "
         f"{sum(r['ms'] for r in one):.5f} ({sum(r['steps'] for r in one)} "
         f"steps); without the table {sum(r['ms'] for r in bare):.5f} "
         f"({sum(r['steps'] for r in bare)} steps); one-hot passes 1-3 "
@@ -2099,8 +2144,9 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
     log(f"[sweep] phase 9 took {time.perf_counter() - t0:.1f} s")
     wide = res[True, p5, True]
     return {"launches": launches, "launches64": launches64,
-            "sweep_extend": one[0], "strategy_chase": one[2],
-            "sweep_extend_int64": wide[0], "strategy_chase_int64": wide[2]}
+            "sweep_extend": one[0], "seed_strategy_merged": one[2],
+            "sweep_extend_int64": wide[0],
+            "seed_strategy_merged_int64": wide[2], "trips": trips}
 
 
 # phase 10, the long-read regime: (reads, shortest, longest) of run (a),
@@ -2683,10 +2729,10 @@ def reads_of(run):
 
 def ert_wrappers():
     """{kernel name: wrapper} of the ERT engine's kernels: the descent and
-    the chase it shares with the sweep."""
+    the merged stage it shares with the sweep."""
     from bwa_mem_scale_tpu_torch.ops import ert_cuda, sweep_cuda
     return {"ert_extend": ert_cuda.ert_extend_all_positions_cuda,
-            "strategy_chase": sweep_cuda.strategy_chase_cuda}
+            "seed_strategy_merged": sweep_cuda.seed_strategy_merged_cuda}
 
 
 def ert_launch(dev, card, what, args, kw, trips):
@@ -2735,11 +2781,13 @@ def ert_launch(dev, card, what, args, kw, trips):
     return r
 
 
-def ert_batch(dev, card, dert, fmi, c, ln, batch, trips):
-    """collect_smems_ert on one batch with the kernels, every descent
-    launch recorded, equal to the whole call with the plain versions
-    swapped in; then each descent launch as made (passes 1 and 2) against
-    its plain version. Returns the two launches' numbers."""
+def ert_batch(dev, card, dert, fmi, c, ln, batch, trips, rnd):
+    """collect_smems_ert on one batch with the kernels, every descent and
+    merged-stage launch recorded, equal to the whole call with the plain
+    versions swapped in; then each descent launch as made (passes 1 and
+    2) and the merged-stage launch against its plain version; trips: the
+    L2 and HBM trips, rnd a warp's round (us). Returns the two descent
+    launches' numbers and the merged stage's."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import ert as ops_ert, ert_cuda
     from bwa_mem_scale_tpu_torch.ops import smem, sweep_cuda
@@ -2748,43 +2796,53 @@ def ert_batch(dev, card, dert, fmi, c, ln, batch, trips):
               seq_len=2 * fmi.l_pac)
     name = "ert_extend_all_positions_cuda"
     real = ert_cuda.ert_extend_all_positions_cuda
-    calls = []
+    real_merged = sweep_cuda.seed_strategy_merged_cuda
+    calls, merged = [], []
 
     def record(*args, **k):
         calls.append((args, k))
         return real(*args, **k)
 
+    def record_merged(*args, **k):
+        merged.append((args, k))
+        return real_merged(*args, **k)
+
     outs = []
-    for ext, chase in ((record, sweep_cuda.strategy_chase_cuda),
+    for ext, stage in ((record, record_merged),
                        (ops_ert.ert_extend_all_positions,
-                        smem.strategy_chase)):
-        real_chase = sweep_cuda.strategy_chase_cuda
+                        smem.seed_strategy_merged_plain)):
         setattr(ert_cuda, name, ext)
-        sweep_cuda.strategy_chase_cuda = chase
+        sweep_cuda.seed_strategy_merged_cuda = stage
         try:
             outs.append(ops_ert.collect_smems_ert(dert, fmi.ref, c, ln, **kw))
         finally:
             setattr(ert_cuda, name, real)
-            sweep_cuda.strategy_chase_cuda = real_chase
+            sweep_cuda.seed_strategy_merged_cuda = real_merged
     torch.cuda.synchronize()
     bad = [f for f, a, b in zip(outs[0]._fields, *outs)
            if not torch.equal(a, b)]
-    if bad or len(calls) != 2:
+    if bad or len(calls) != 2 or len(merged) != 1:
         raise SystemExit(f"ert: {batch}: collect_smems_ert differs kernels "
                          f"vs plain in {bad} or made {len(calls)} descent "
-                         f"calls")
+                         f"and {len(merged)} merged-stage calls")
     got = outs[0]
     log(f"[ert] {batch}: collect_smems_ert SmemBuf equal with the kernels "
         f"and with the plain versions ({int(got.cnt.sum())} SMEMs, "
         f"{int((got.cnt == got.m.shape[1]).sum())} reads saturated)")
     res = []
+    form = "int64" if fmi.pos_dtype == torch.int64 else "int32"
     for n, (args, k) in enumerate(calls):
         B, L = args[2].shape
-        form = "int64" if fmi.pos_dtype == torch.int64 else "int32"
         what = (f"{batch}, descent launch {n + 1}/2 (pass {n + 1}: B={B}, "
                 f"L={L}, {form} form)")
         res.append(ert_launch(dev, card, what, args, k, trips))
-    return res
+    (args, k), = merged
+    B, L = args[1].shape
+    stage = merged_launch(
+        dev, card, f"{batch}, the ERT's merged-stage launch (B={B}, L={L}, "
+        f"max_out={args[6]}, {form} form)", real_merged, args, k, trips[0],
+        rnd)
+    return res, stage
 
 
 def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
@@ -2792,9 +2850,9 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
     (`index -s 0`), `perfect-index -l 101` and `ert-index` (K = 12, depth
     320) through the CLI; SE `mem` with the trie auto-loaded (its main
     path: counts zeroed just before, read just after): phase 4's checks,
-    the descent launched twice a device batch and the chase once, its SAM
-    body equal to `mem --seed-engine sweep` on the same index and EMF table
-    without the trie (differing reads only with a cause: the depth cap,
+    the descent launched twice a device batch and the merged stage once,
+    its SAM body equal to `mem --seed-engine sweep` on the same index and
+    EMF table without the trie (differing reads only with a cause: the depth cap,
     the count's saturation, a retry tier), and the same at the forced
     int64 layout (the int64 form's main path); PE likewise against the
     sweep; `-v 4` stage seconds of both engines; the descent against its
@@ -2875,7 +2933,8 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
             raise SystemExit(f"ert: {argv[0]}: the trie {'not ' * trie_on}"
                              f"loaded, or the engine {a.cfg.seed_engine}")
         # (the full SA makes the SA lookup stage's walk one gather)
-        want = {"ert_extend": 2, "strategy_chase": 1, "expand_and_lookup": 1,
+        want = {"ert_extend": 2, "seed_strategy_merged": 1,
+                "expand_and_lookup": 1,
                 "chain_seeds": 1, "chain_filter": 1, "banded_swa_batch": 1}
         if not trie_on:
             want.update(ert_extend=0, sweep_extend=2)
@@ -2997,8 +3056,9 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
                                        dev)
     c = torch.as_tensor(codes, device=dev)
     ln = torch.as_tensor(lens, device=dev)
-    res_a = ert_batch(dev, card, dert, fmi_e, c, ln, "(a) phase 5's batch",
-                      trips)
+    rnd = sweep["trips"][1]                   # a warp's round, phase 9
+    res_a, mg_a = ert_batch(dev, card, dert, fmi_e, c, ln,
+                            "(a) phase 5's batch", trips, rnd)
     t0 = time.perf_counter()
     idx_b, codes_b, lens_b = depth_cap_batch(BATCH, 400)
     trie_b = build_ert(idx_b.ref_string, idx_b.sa_samples, K=ERT_K,
@@ -3009,26 +3069,26 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
     log(f"[ert] depth-cap batch: 2 Mbp repeat genome at sa_compx 0, its trie "
         f"{trie_b.n_nodes} nodes, built in {time.perf_counter() - t0:.1f} s "
         f"(host)")
-    res_b = ert_batch(dev, card, dert_b, fmi_b,
-                      torch.as_tensor(codes_b, device=dev),
-                      torch.as_tensor(lens_b, device=dev),
-                      "(b) depth-cap batch (512 x 400 bp)", trips)
+    res_b, _ = ert_batch(dev, card, dert_b, fmi_b,
+                            torch.as_tensor(codes_b, device=dev),
+                            torch.as_tensor(lens_b, device=dev),
+                            "(b) depth-cap batch (512 x 400 bp)", trips, rnd)
     if res_b[0]["longest_node"] < ERT_DEPTH - 1:
         raise SystemExit(f"ert: no lane of the depth-cap batch took "
                          f"{ERT_DEPTH - 1} node steps (longest "
                          f"{res_b[0]['longest_node']})")
     del dert_b, fmi_b
     fmi_64 = DeviceFMIndex.from_host(idx, dev, force_int64=True)
-    res_c = ert_batch(dev, card, dert, fmi_64, c, ln,
-                      "(c) phase 5's batch, int64", trips)
-    sw = sweep["sweep_extend"], sweep["strategy_chase"]
+    res_c, mg_c = ert_batch(dev, card, dert, fmi_64, c, ln,
+                            "(c) phase 5's batch, int64", trips, rnd)
+    sw = sweep["sweep_extend"], sweep["seed_strategy_merged"]
     log(f"[ert] engines on phase 5's batch, seeding kernels' device ms: ERT "
-        f"{res_a[0]['ms']:.5f} + {res_a[1]['ms']:.5f} (+ the chase) "
-        f"({res_a[0]['node'] + res_a[1]['node']} node, "
+        f"{res_a[0]['ms']:.5f} + {res_a[1]['ms']:.5f} + merged stage "
+        f"{mg_a['ms']:.5f} ({res_a[0]['node'] + res_a[1]['node']} node, "
         f"{res_a[0]['leaf'] + res_a[1]['leaf']} leaf steps); the sweep with "
-        f"the K=11 table (phase 9) {sw[0]['ms']:.5f} (pass 1) + chase "
-        f"{sw[1]['ms']:.5f}; int64 ERT {res_c[0]['ms']:.5f} + "
-        f"{res_c[1]['ms']:.5f}  [{card}]")
+        f"the K=11 table (phase 9) {sw[0]['ms']:.5f} (pass 1) + merged "
+        f"stage {sw[1]['ms']:.5f}; int64 ERT {res_c[0]['ms']:.5f} + "
+        f"{res_c[1]['ms']:.5f} + {mg_c['ms']:.5f}  [{card}]")
 
     # the store: load-shm stages the trie's piece, mem attaches
     sdir = os.path.join(tmp, "store12")
@@ -3236,7 +3296,7 @@ def phase_kstep(dev, card, tmp, se, pe, al):
 
     ks = kstep_wrappers()
     counted = {**ks, "expand_and_lookup": sal_cuda.expand_and_lookup_cuda,
-               "strategy_chase": sweep_cuda.strategy_chase_cuda,
+               "seed_strategy_merged": sweep_cuda.seed_strategy_merged_cuda,
                "chain_seeds": chain_cuda.chain_seeds_cuda,
                "chain_filter": chain_cuda.chain_filter_cuda,
                "banded_swa_batch": banded_swa_batch_cuda}
@@ -3259,7 +3319,7 @@ def phase_kstep(dev, card, tmp, se, pe, al):
         # k-step path ends here
         if a.fmi.kstep != K:
             raise SystemExit(f"kstep: mem did not load the K={K} table")
-        walks = ({"sweep_extend": 2, "strategy_chase": 1} if sweep else
+        walks = ({"sweep_extend": 2, "seed_strategy_merged": 1} if sweep else
                  {"one_pos_machine": 2, "seed_strategy_machine": 1})
         for name, per in walks.items():
             all_, kform = n[name]
@@ -3741,17 +3801,11 @@ SWITCHES = ("BWA_TPU_NO_NATIVE_PE", "BWA_TPU_NO_NATIVE_KSWG",
 def write_rescue_pairs(tmp, bns):
     """RESCUE_PAIRS FR pairs as write_pairs makes them (r1.fq, r2.fq in
     `tmp`), every fourth read 2 with every tenth base changed: no 19-mer
-    seed, so only mate rescue places it."""
+    seed, so only mate rescue places it (tools/batches.py::
+    rescue_pairs)."""
     from bwa_mem_scale_tpu_torch.index.bntseq import decode_bases
-    rng = np.random.RandomState(19)
-    comp = np.array([3, 2, 1, 0, 4], np.uint8)
-    frag = np.maximum(rng.normal(INSERT, INSERT_SD, RESCUE_PAIRS)
-                      .astype(np.int64), READ_LEN + 10)
-    start = (rng.rand(RESCUE_PAIRS) * (bns.l_pac - frag)).astype(np.int64)
-    pos = np.stack([start, start + frag - READ_LEN], 1).reshape(-1)
-    codes = bns.seq[pos[:, None] + np.arange(READ_LEN)].astype(np.int32)
-    codes[1::2] = comp[codes[1::2, ::-1]]
-    codes[1::8, 5::10] = (codes[1::8, 5::10] + 1) % 4
+    from bwa_mem_scale_tpu_torch.tools.batches import rescue_pairs
+    codes = rescue_pairs(bns, RESCUE_PAIRS, READ_LEN, INSERT, INSERT_SD)
     for mate in (0, 1):
         with open(os.path.join(tmp, f"r{mate + 1}.fq"), "w") as f:
             for i in range(mate, 2 * RESCUE_PAIRS, 2):
@@ -3825,7 +3879,8 @@ def row_step_us(dev, kind):
     rows) of one synthetic job: the difference of the device times over
     the difference of the rows. kswg: a band of 31 positions (a strip of
     one a lane) and its traceback step; kswa: a 128-column query (its
-    score below minsc: the forward scan alone)."""
+    score reaching minsc: the reverse scan the same at both lengths),
+    whose rows add a wavefront step each ROWS."""
     import torch
     from bwa_mem_scale_tpu_torch.config import MemOptions
     from bwa_mem_scale_tpu_torch.ops import kswa_cuda, kswg_cuda
@@ -3909,11 +3964,14 @@ def kswg_launch(dev, card, args, what):
 
 def kswa_launch(dev, card, args, what):
     """One captured rescue-SW call against its plain version, with its
-    jobs, DP cells, bound, latency floor and times."""
+    jobs, DP cells, bound, latency floor and times. Floor: the longest
+    job's wavefront steps (both scans: rows + the pipeline's depth each,
+    the kernel's count) x a step measured here (row_step_us)."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import kswa_cuda
     from bwa_mem_scale_tpu_torch.ops.kswa import ksw_align_batch
     got = kswa_cuda.ksw_align_batch_cuda(*args)
+    steps = kswa_cuda.ksw_align_batch_cuda.last_steps
     t0 = time.perf_counter()
     want = ksw_align_batch(*args)
     torch.cuda.synchronize()
@@ -3935,15 +3993,21 @@ def kswa_launch(dev, card, args, what):
         q.shape[0]
     b = bound(nbytes, int(cells) * KSWA_OPS_PER_CELL)
     ms = device_ms(lambda: kswa_cuda.launch(*args), 10, dev)
-    rows = tl + rev_rows
-    step = row_step_us(dev, "kswa")
-    floor_ms = int(rows.max()) * step / 1e3
-    log(f"[kswa] {what}: {q.shape[0]} jobs (L={q.shape[1]}, T={t.shape[1]}),"
-        f" {int(cells)} DP cells, bound {b[0]:.5f} ms ({b[1]}); latency "
-        f"floor {floor_ms:.5f} ms (the longest job's {int(rows.max())} rows,"
-        f" both scans, x a row step of {step:.4f} us, measured); kernel "
-        f"{ms:.5f} ms, plain {plain_ms:.1f} ms; max_abs_err {err}  [{card}]")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b, floor=floor_ms)
+    longest = int(steps.max())
+    row_us = row_step_us(dev, "kswa")
+    step = row_us * kswa_cuda.ROWS          # a step: ROWS rows a lane
+    floor_ms = longest * step / 1e3
+    log(f"[kswa] {what}: {q.shape[0]} jobs (L={q.shape[1]}, T={t.shape[1]}, "
+        f"K={kswa_cuda.k_for(q.shape[1])} columns a lane), {int(cells)} DP "
+        f"cells, the longest job {int((tl + rev_rows).max())} rows (both "
+        f"scans) and {longest} wavefront steps; bound {b[0]:.5f} ms "
+        f"({b[1]}); latency floor {floor_ms:.5f} ms (the longest job's "
+        f"{longest} steps x a wavefront step of {step:.4f} us, "
+        f"{kswa_cuda.ROWS} rows of {row_us:.4f} us, measured); "
+        f"kernel {ms:.5f} ms, plain {plain_ms:.1f} ms; max_abs_err {err}  "
+        f"[{card}]")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b, floor=floor_ms,
+                steps=longest, step_us=step, row_us=row_us)
 
 
 def phase_mesh(dev, card, tmp, se, pe):
@@ -4337,8 +4401,8 @@ def main():
              "sweep_extend_kernel<{}>"),
             ("sweep_cuda", "sweep_extend_kernelILi2Ei",
              "sweep_extend_kernel<K = 2, int32>"),
-            ("sweep_cuda", "strategy_chase_kernelI{}",
-             "strategy_chase_kernel<{}>"),
+            ("sweep_cuda", "seed_strategy_merged_kernelI{}",
+             "seed_strategy_merged_kernel<{}>"),
             ("ert_cuda", "ert_extend_kernelI{}", "ert_extend_kernel<{}>"),
             ("readlane_cuda", "readlane_one_pos_kernelILb1ELi1E{}",
              "readlane_one_pos_kernel<stacks in shared memory, {}>"),

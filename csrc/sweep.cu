@@ -1,24 +1,26 @@
-// The position-parallel sweep seeding engine for Hopper (sm_90a): its two
-// per-lane, data-dependent loops, each whole in one launch with no host
-// synchronisation inside.
+// The position-parallel sweep seeding engine for Hopper (sm_90a): its
+// per-lane forward extension and pass 3's merged stage, each whole in one
+// launch with no host synchronisation inside.
 // - sweep_extend_kernel: the forward extension from every (read, start
 //   column) lane, optionally started from the FMA ladder table;
-// - strategy_chase_kernel: pass 3's restart chain over those records.
-// Each replaces a jax.lax.while_loop of bwa_mem_scale_tpu/ops/smem.py,
-// through the port's lockstep counterparts in ops/smem.py (a host
-// synchronisation every 8 ticks, tens of small PyTorch launches a tick).
-// Every output equals the lockstep's, bit for bit.
+// - seed_strategy_merged_kernel: pass 3 from those records, its column
+//   glue and its restart chain together.
+// Each replaces code of bwa_mem_scale_tpu/ops/smem.py, through the port's
+// plain versions in ops/smem.py (lockstep loops with a host
+// synchronisation every 8 ticks, tens of small PyTorch launches a tick,
+// and the merged stage's glue as torch operations). Every output equals
+// the plain version's, bit for bit.
 //
-// What bounds them on this card: chains of dependent loads, as for every
-// FM walk of the port (csrc/smem.cu's note). A lane's steps depend on one
-// another (each step's checkpoint rows come from the previous interval),
-// 0.224 us a dependent row load on the 4.6 Mbp table in L2 on an NVIDIA
-// H100 80GB HBM3 at 700 W (probe B, PERF.md section 6). The sweep does
-// many more steps than the one-hot machine (each start column walks to
-// the first mismatch after it), but its lanes are independent: there is
-// no interval stack and no restart chain inside the walk, so the longest
-// lane (at most L - K steps) sets the floor and the rest run side by
-// side. The bytes a launch moves (64 a step) take microseconds at 3.35
+// What bounds the sweep on this card: chains of dependent loads, as for
+// every FM walk of the port (csrc/smem.cu's note). A lane's steps depend
+// on one another (each step's checkpoint rows come from the previous
+// interval), 0.224 us a dependent row load on the 4.6 Mbp table in L2 on
+// an NVIDIA H100 80GB HBM3 at 700 W (probe B, PERF.md section 6). The
+// sweep does many more steps than the one-hot machine (each start column
+// walks to the first mismatch after it), but its lanes are independent:
+// there is no interval stack and no restart chain inside the walk, so the
+// longest lane (at most L - K steps) sets the floor and the rest run side
+// by side. The bytes a launch moves (64 a step) take microseconds at 3.35
 // TB/s. So the design keeps every other load off the chain: the read's
 // codes are staged into shared memory once a block, and each lane's FMA
 // start is one read of its K-mer's ladder row.
@@ -59,20 +61,48 @@
 // (k, l, s, fail_k, fail_l, fail_ss, f3_k, f3_l, f3_ss) and [4][B][NP]
 // bytes (fail_s, f3_s, died_s, valid), every slot written.
 //
-// ---- strategy_chase_kernel
-// Replaces bwa_mem_scale_tpu/ops/smem.py:468 smems_seed_strategy_merged's
-// restart chain (loop :527), through ops/smem.py::strategy_chase: each
-// read chases nxt from column 0 while pos < len and pos < NP, emitting
-// (pos, E3, f3_k, f3_l, f3_ss) where `emit` holds; an emission past M is
-// dropped and the count still grows. One thread a read (a read's chain is
-// one dependent walk of a few steps), one warp a block: the warp first
-// zeroes its 32 reads' SmemBuf rows together (one contiguous stretch a
-// field, neighbouring lanes on neighbouring words), then each lane chases
-// its read and writes its emissions. The first form had each lane write
-// its own row, zeros past its count, one word a store at 32 rows apart:
-// 0.0214 ms on phase 5's batch for a walk of at most 5 steps (PERF.md
-// section 6). nxt > pos always (the glue makes it so); a step to nxt <=
-// pos would still move on by one, so no input can hang the kernel.
+// ---- seed_strategy_merged_kernel
+// Replaces bwa_mem_scale_tpu/ops/smem.py:468 smems_seed_strategy_merged
+// whole: its column glue (:479-505: first_inv by a cummin, limit, s1 from
+// the C array, died / zombie / zfail, E3, emit_col, nxt) and its restart
+// chain (the loop at :527), through ops/smem.py::
+// smems_seed_strategy_merged, whose body on CPU tensors is the plain
+// version (the glue as torch operations, then ops/smem.py::strategy_chase).
+// A warp a read, MERGED_WARPS warps a block (fewer where a long read's
+// shared memory needs it), no barrier between warps:
+// 1. The warp stages the C array (five values; bit a of `empty` says base
+//    a occurs nowhere, s1 == 0) and two masks of the read's columns, one
+//    32-bit word each 32 columns by __ballot_sync: invalid (a code >= 4,
+//    or at or past len, or past L) and zero-count (a valid base that
+//    occurs nowhere). first_inv(p), the cummin's value, is the first set
+//    bit at or after p: __ffs on the masked word, then the next words.
+// 2. From column 0, while pos < len and pos < P, the warp evaluates at
+//    the column it visits what the glue evaluates there (base_ok from the
+//    mask, died, f3, zombie, limit only for a zombie, zfail, E3, emit_col,
+//    fail3, hit_n, nxt with max(nxt, pos + 1)) and moves to nxt. It loads
+//    that column's five records from device memory, all at once. Each emission keeps its column in shared memory; the
+//    count grows past M, and an emission past M is dropped.
+// 3. The warp writes the read's M slots of the five fields, each slot
+//    once, lanes on neighbouring slots: slot j < min(cnt, M) gets (col,
+//    f3_E, f3_k, f3_l, f3_ss) of its column (E3 is f3_E where a column
+//    emits), every later slot zero. Then cnt and steps (the lockstep's
+//    count of chase iterations).
+// With stats, each block adds its reads' longest and total steps to two
+// device counters (chase_steps, chase_total) through a running maximum
+// and a self-resetting ticket: the grid's last block adds the launch's
+// longest, so no operation is needed outside the launch.
+// What bounds it: the bytes (the codes read once, each visited column's
+// records, the five [B, M] planes and cnt / steps written once) over 3.35
+// TB/s are about a microsecond at phase 9's batch; above that sits a
+// latency floor of one device-memory trip for the read's data and then
+// the longest read's chase steps, each at least a warp's dependent round
+// (tools/round_cost.py). Each step here waits on a trip for its column's
+// records, but a chase is a few steps (5 on phase 5's batch) and reads no
+// column it does not visit. A form that first staged the read's P
+// columns' records in shared memory (a round a step) took the same time
+// at int32 and more at int64 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+// section 6), and was dropped. The shared memory (the masks and
+// min(M, P) emitted columns a warp) fits any read below ~55,000 columns.
 //
 // ---- the int64 forms
 // Each kernel is a template on its position type P (int, long long), and
@@ -85,7 +115,7 @@
 namespace {
 
 constexpr int SWEEP_BLOCK = 256;     // the most threads a sweep block takes
-constexpr int CHASE_BLOCK = 32;      // reads (threads) a chase block
+constexpr int MERGED_WARPS = 8;      // reads (warps) a merged-stage block
 
 template <int KS, typename P>
 __global__ void __launch_bounds__(SWEEP_BLOCK)
@@ -218,55 +248,152 @@ sweep_extend_kernel(Fmi<P> f, Kfmi g,
   }
 }
 
+// The first invalid column at or after p (L when there is none): the
+// read's invalid mask, W words, bits past L set.
+__device__ __forceinline__ int first_invalid(const uint32_t* inv, int W,
+                                             int L, int p) {
+  int i = p >> 5;
+  uint32_t m = inv[i] & (~0u << (p & 31));
+  while (m == 0 && ++i < W) m = inv[i];
+  return m ? min(L, i * WARP + __ffs(m) - 1) : L;
+}
+
+// 32-bit words of shared memory a warp of the merged stage takes: the two
+// column masks and the emitted columns
+__host__ __device__ __forceinline__ size_t merged_words(int L, int NP,
+                                                       int M) {
+  const size_t W = ((size_t)L + WARP - 1) / WARP;
+  const size_t n = 2 * W + (size_t)(M < NP ? M : NP);
+  return (n + 3) & ~(size_t)3;                 // 16-byte aligned
+}
+
 template <typename P>
-__global__ void __launch_bounds__(CHASE_BLOCK)
-strategy_chase_kernel(const uint8_t* __restrict__ emit,   // [B, NP]
-                      const int32_t* __restrict__ E3,     // [B, NP]
-                      const int32_t* __restrict__ nxt,    // [B, NP]
-                      const P* __restrict__ f3k,          // [B, NP]
-                      const P* __restrict__ f3l,
-                      const P* __restrict__ f3ss,
-                      const int32_t* __restrict__ lens,   // [B]
-                      int B, int NP, int M,
-                      int32_t* __restrict__ out,   // [2][B][M] m n, then
-                                                   // [3][B][M] P: k l s
-                      int32_t* __restrict__ cnt_out,      // [B]
-                      int32_t* __restrict__ steps_out) {  // [B]
-  const int b0 = blockIdx.x * CHASE_BLOCK;
-  const int b = b0 + threadIdx.x;
-  const int nr = min(CHASE_BLOCK, B - b0);
-  const size_t bm = (size_t)B * M;                 // one output field
-  P* kls = reinterpret_cast<P*>(out + 2 * bm);
-  for (int i = threadIdx.x; i < nr * M; i += CHASE_BLOCK) {  // the rows
-    const size_t o = (size_t)b0 * M + i;
-    out[o] = 0;
-    out[bm + o] = 0;
-    kls[o] = 0;
-    kls[bm + o] = 0;
-    kls[2 * bm + o] = 0;
-  }
-  __syncthreads();               // the zeros before any emission
-  if (b >= B) return;
-  const size_t row = (size_t)b * NP, orow = (size_t)b * M;
-  const int len = lens[b];
-  int pos = 0, cnt = 0, steps = 0;
-  while (pos < len && pos < NP) {
-    ++steps;
-    if (emit[row + pos]) {
-      if (cnt < M) {
-        out[orow + cnt] = pos;
-        out[bm + orow + cnt] = E3[row + pos];
-        kls[orow + cnt] = f3k[row + pos];
-        kls[bm + orow + cnt] = f3l[row + pos];
-        kls[2 * bm + orow + cnt] = f3ss[row + pos];
+__global__ void __launch_bounds__(MERGED_WARPS * WARP)
+seed_strategy_merged_kernel(const P* __restrict__ count,       // [5]
+                            const int32_t* __restrict__ codes,  // [B, L]
+                            const int32_t* __restrict__ lens,   // [B]
+                            const uint8_t* __restrict__ died_s,  // [B, NP]
+                            const uint8_t* __restrict__ f3_s,
+                            const int32_t* __restrict__ f3_E,
+                            const int32_t* __restrict__ Ecol,
+                            const P* __restrict__ f3k,
+                            const P* __restrict__ f3l,
+                            const P* __restrict__ f3ss,
+                            int B, int L, int NP, int stop_min_len, int M,
+                            int32_t* __restrict__ out,  // [2][B][M] m n,
+                                                        // [3][B][M] P k l s
+                            int32_t* __restrict__ cnt_out,    // [B]
+                            int32_t* __restrict__ steps_out,  // [B]
+                            unsigned long long* __restrict__ acc_steps,
+                            unsigned long long* __restrict__ acc_total,
+                            unsigned long long* __restrict__ run) {
+  extern __shared__ int4 smem[];
+  const int lane = threadIdx.x & (WARP - 1), w = threadIdx.x / WARP;
+  const int b = blockIdx.x * (blockDim.x / WARP) + w;
+  const int W = (L + WARP - 1) / WARP;
+  int steps = 0;
+  if (b < B) {
+    uint32_t* inv = reinterpret_cast<uint32_t*>(smem)
+                    + merged_words(L, NP, M) * w;
+    uint32_t* zero = inv + W;
+    int32_t* em = reinterpret_cast<int32_t*>(zero + W);   // [min(M, NP)]
+    // bit a: base a occurs nowhere (s1 = C[a + 1] - C[a] = 0)
+    const P cv = lane < 5 ? count[lane] : (P)0;
+    const P cn = __shfl_down_sync(FULL, cv, 1);
+    const unsigned empty = __ballot_sync(FULL, lane < 4 && cn == cv);
+    const int len = lens[b];
+    const int32_t* crow = codes + (size_t)b * L;
+#pragma unroll 4
+    for (int i = 0; i < W; ++i) {
+      const int col = i * WARP + lane;
+      const int c = col < L ? crow[col] : 4;
+      const bool bad = c >= 4 || col >= len;
+      const int a = c < 0 ? 0 : (c > 3 ? 3 : c);
+      const unsigned mi = __ballot_sync(FULL, bad);
+      const unsigned mz = __ballot_sync(FULL, !bad && ((empty >> a) & 1));
+      if (lane == 0) {
+        inv[i] = mi;
+        zero[i] = mz;
       }
-      ++cnt;
     }
-    const int n = nxt[row + pos];
-    pos = n > pos ? n : pos + 1;
+    const size_t row = (size_t)b * NP;
+    __syncwarp();
+    int pos = 0, cnt = 0;
+    while (pos < len && pos < NP) {            // warp-uniform
+      ++steps;
+      const size_t o = row + pos;
+      const int fl =
+          (died_s[o] ? 1 : 0) | (f3_s[o] ? 2 : 0) | (f3ss[o] > 0 ? 4 : 0);
+      const int e3f = f3_E[o];
+      const int e0 = Ecol[o];
+      const bool base_ok = !((inv[pos >> 5] >> (pos & 31)) & 1);
+      const bool f3 = fl & 2;
+      const bool died = (fl & 1) || ((zero[pos >> 5] >> (pos & 31)) & 1);
+      const bool zombie = base_ok && died && !f3;
+      bool zfail = false;
+      int E3 = e0;
+      if (f3) {
+        E3 = e3f;
+      } else if (zombie) {                     // its end reckoned, not walked
+        const int limit = first_invalid(inv, W, L, pos) - pos;
+        zfail = stop_min_len <= limit;
+        E3 = pos + (zfail ? stop_min_len - 1 : limit);
+      }
+      if (base_ok && f3 && (fl & 4)) {         // emit_col
+        if (cnt < M && lane == 0) em[cnt] = pos;
+        ++cnt;
+      }
+      const bool fail3 = f3 || zfail;
+      const bool hit_n = base_ok && !fail3 && E3 < len;
+      const int nxt = base_ok ? ((fail3 || hit_n) ? E3 + 1 : len) : pos + 1;
+      pos = max(nxt, pos + 1);
+    }
+    __syncwarp();
+    const int kept = min(cnt, M);
+    const size_t bm = (size_t)B * M, orow = (size_t)b * M;
+    P* kls = reinterpret_cast<P*>(out + 2 * bm);
+    for (int j = lane; j < M; j += WARP) {     // each slot once
+      int m = 0, n = 0;
+      P k = 0, l = 0, s = 0;
+      if (j < kept) {
+        const int col = em[j];
+        const size_t o = row + col;
+        m = col;
+        n = f3_E[o];
+        k = f3k[o];
+        l = f3l[o];
+        s = f3ss[o];
+      }
+      out[orow + j] = m;
+      out[bm + orow + j] = n;
+      kls[orow + j] = k;
+      kls[bm + orow + j] = l;
+      kls[2 * bm + orow + j] = s;
+    }
+    if (lane == 0) {
+      cnt_out[b] = cnt;
+      steps_out[b] = steps;
+    }
   }
-  cnt_out[b] = cnt;
-  steps_out[b] = steps;
+  if (acc_steps != nullptr) {                  // the stats, grid-uniform
+    __shared__ unsigned long long bmax, bsum;
+    if (threadIdx.x == 0) bmax = bsum = 0;
+    __syncthreads();
+    if (lane == 0 && b < B) {
+      atomicMax(&bmax, (unsigned long long)steps);
+      atomicAdd(&bsum, (unsigned long long)steps);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      atomicMax(run, bmax);
+      atomicAdd(acc_total, bsum);
+      __threadfence();
+      // run[1]'s low word: blocks done, back to 0 after the last
+      const unsigned t = atomicInc(reinterpret_cast<unsigned*>(run + 1),
+                                   gridDim.x - 1);
+      if (t == gridDim.x - 1) atomicAdd(acc_steps, atomicExch(run, 0ull));
+    }
+  }
 }
 
 // threads a sweep block: NP rounded up to a warp, at most SWEEP_BLOCK
@@ -302,19 +429,31 @@ int sweep_extend_launch_t(const Fmi<P>& f, const Kfmi& g, const void* codes,
 }
 
 template <typename P>
-int strategy_chase_launch_t(const void* emit, const void* E3,
-                            const void* nxt, const void* f3k,
-                            const void* f3l, const void* f3ss,
-                            const void* lens, int B, int NP, int M,
-                            void* out, void* cnt, void* steps,
-                            void* stream) {
+int seed_strategy_merged_launch_t(
+    const void* count, const void* codes, const void* lens,
+    const void* died_s, const void* f3_s, const void* f3_E, const void* E,
+    const void* f3k, const void* f3l, const void* f3ss, int B, int L,
+    int NP, int stop_min_len, int M, void* out, void* cnt, void* steps,
+    void* acc_steps, void* acc_total, void* run, void* stream) {
   if (B <= 0) return 0;
-  if (NP <= 0 || M < 0) return (int)cudaErrorInvalidValue;
-  strategy_chase_kernel<P><<<(B + CHASE_BLOCK - 1) / CHASE_BLOCK,
-                             CHASE_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)emit, (const int32_t*)E3, (const int32_t*)nxt,
-      (const P*)f3k, (const P*)f3l, (const P*)f3ss, (const int32_t*)lens, B,
-      NP, M, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps);
+  if (L <= 0 || NP <= 0 || NP > L || M < 0
+      || (acc_steps != nullptr && (acc_total == nullptr || run == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const size_t per = 4 * merged_words(L, NP, M);
+  if (per > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int wpb = per * MERGED_WARPS <= SMEM_MAX ? MERGED_WARPS
+                                                 : (int)(SMEM_MAX / per);
+  const size_t bytes = per * wpb;
+  auto kernel = seed_strategy_merged_kernel<P>;
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(B + wpb - 1) / wpb, wpb * WARP, bytes, (cudaStream_t)stream>>>(
+      (const P*)count, (const int32_t*)codes, (const int32_t*)lens,
+      (const uint8_t*)died_s, (const uint8_t*)f3_s, (const int32_t*)f3_E,
+      (const int32_t*)E, (const P*)f3k, (const P*)f3l, (const P*)f3ss, B, L,
+      NP, stop_min_len, M, (int32_t*)out, (int32_t*)cnt, (int32_t*)steps,
+      (unsigned long long*)acc_steps, (unsigned long long*)acc_total,
+      (unsigned long long*)run);
   return (int)cudaGetLastError();
 }
 
@@ -381,27 +520,33 @@ extern "C" int sweep_extend_launch64(
       out_b, stream);
 }
 
-// Launch strategy_chase_kernel on `stream` over B reads; out [2][B][M]
-// int32 then [3][B][M] of the records' type (int32 here, int64 in
-// strategy_chase_launch64); the return and the caller's duties as
+// Launch seed_strategy_merged_kernel on `stream` over B reads (a warp
+// each): count [5] and the records f3k, f3l, f3ss [B, NP] of the position
+// type (int32 here, int64 in seed_strategy_merged_launch64), codes [B, L]
+// and lens [B] int32, died_s and f3_s [B, NP] bytes, f3_E and E [B, NP]
+// int32; out [2][B][M] int32 then [3][B][M] of the position type, cnt
+// and steps [B] int32. With acc_steps, acc_total (one uint64 each) and run (two uint64, zero when first used,
+// left zero by every launch) the launch adds its longest and total steps
+// to the two counters; all three null for none. The return and the caller's duties as
 // sweep_extend_launch.
-extern "C" int strategy_chase_launch(const void* emit, const void* E3,
-                                     const void* nxt, const void* f3k,
-                                     const void* f3l, const void* f3ss,
-                                     const void* lens, int B, int NP, int M,
-                                     void* out, void* cnt, void* steps,
-                                     void* stream) {
-  return strategy_chase_launch_t<int>(emit, E3, nxt, f3k, f3l, f3ss, lens,
-                                      B, NP, M, out, cnt, steps, stream);
+extern "C" int seed_strategy_merged_launch(
+    const void* count, const void* codes, const void* lens,
+    const void* died_s, const void* f3_s, const void* f3_E, const void* E,
+    const void* f3k, const void* f3l, const void* f3ss, int B, int L,
+    int NP, int stop_min_len, int M, void* out, void* cnt, void* steps,
+    void* acc_steps, void* acc_total, void* run, void* stream) {
+  return seed_strategy_merged_launch_t<int>(
+      count, codes, lens, died_s, f3_s, f3_E, E, f3k, f3l, f3ss, B, L, NP,
+      stop_min_len, M, out, cnt, steps, acc_steps, acc_total, run, stream);
 }
 
-extern "C" int strategy_chase_launch64(const void* emit, const void* E3,
-                                       const void* nxt, const void* f3k,
-                                       const void* f3l, const void* f3ss,
-                                       const void* lens, int B, int NP,
-                                       int M, void* out, void* cnt,
-                                       void* steps, void* stream) {
-  return strategy_chase_launch_t<long long>(emit, E3, nxt, f3k, f3l, f3ss,
-                                            lens, B, NP, M, out, cnt, steps,
-                                            stream);
+extern "C" int seed_strategy_merged_launch64(
+    const void* count, const void* codes, const void* lens,
+    const void* died_s, const void* f3_s, const void* f3_E, const void* E,
+    const void* f3k, const void* f3l, const void* f3ss, int B, int L,
+    int NP, int stop_min_len, int M, void* out, void* cnt, void* steps,
+    void* acc_steps, void* acc_total, void* run, void* stream) {
+  return seed_strategy_merged_launch_t<long long>(
+      count, codes, lens, died_s, f3_s, f3_E, E, f3k, f3l, f3ss, B, L, NP,
+      stop_min_len, M, out, cnt, steps, acc_steps, acc_total, run, stream);
 }

@@ -20,6 +20,8 @@ depths 80 and 30.
   version, node and leaf steps included, and on exact reads whose leaf
   walks cross 16-byte words, meet N bases mid-word, reach seq_len and
   take pass 3's record inside a word, at minimum intervals 0 to 3.
+- The merged stage's twin (``sweep_cuda.seed_strategy_merged_twin``) on
+  the ERT's records equals the plain ``smems_seed_strategy_merged``.
 On a GPU (``-m cuda``) the kernel against its plain version and its twin,
 at both position dtypes. The JAX side is imported inside the tests that
 use it, so the CUDA cases also run on a machine without JAX:
@@ -325,6 +327,40 @@ def test_ert_twin_equal_to_plain(side, depth, wide, case):
         assert (twin["f3_ss"][on_leaf] == 1).any()
         past = (mi[:, None] == 0) & (leaf > 0) & (twin["s"] == 0)
         assert past.any()
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+def test_merged_twin_equal_to_plain_on_ert_records(side, depth, wide):
+    """csrc/sweep.cu's merged-stage twin on the ERT's pass-1 records (l
+    zero, the C array from the trie) equal to the plain
+    smems_seed_strategy_merged as collect_smems_ert calls it, every field
+    and each read's steps, at the width L and at a width (4) some reads
+    pass."""
+    from bwa_mem_scale_tpu_torch.ops import smem as tsmem, sweep_cuda
+    codes, lens = side["reads"]
+    msl, mmi = PARAMS[1]
+    tf = side["tfmi"][wide]
+    dev = side["tdev", depth]
+    mi, kw = _ext_args("merged", PARAMS[1], len(lens))
+    ext = tops.ert_extend_all_positions(
+        dev, tf.ref, torch.as_tensor(codes), torch.as_tensor(lens),
+        torch.as_tensor(mi), pos_dtype=tf.pos_dtype, seq_len=2 * tf.l_pac,
+        **kw)
+    fmi = tops._ErtAsFmi(dev, tf.pos_dtype)
+    for M in (L, 4):
+        want = tsmem.smems_seed_strategy_merged(
+            fmi, torch.as_tensor(codes), torch.as_tensor(lens), ext, mmi,
+            msl + 1, M)
+        twin = sweep_cuda.seed_strategy_merged_twin(
+            fmi.count.numpy(), codes, lens,
+            {k: v.numpy() for k, v in ext.items()}, msl + 1, M)
+        for f, a, b in zip(want._fields, want, twin):
+            assert a.numpy().dtype == b.dtype, f
+            np.testing.assert_array_equal(a.numpy(), b, f)
+        np.testing.assert_array_equal(
+            tsmem.strategy_chase.last_steps.numpy(), twin[6])
+    assert (want.cnt > 4).any() and not want.l.any()
 
 
 def test_wrapper_on_cpu_runs_plain(side):

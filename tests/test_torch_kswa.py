@@ -9,8 +9,9 @@
 - the plain version against the scalar oracle ``ref/ksw_align.py``
   (score2 included: the oracle keeps the same documented divergence from
   the reference);
-- the kernel's CPU twin (``kswa_cuda.kswa_twin``) equal to the plain
-  version;
+- the kernel's CPU twin (``kswa_cuda.kswa_twin``, the wavefront step by
+  step) equal to the plain version, also on a tie for qe across two
+  lanes, a reverse stop within the scan's last 31 rows and K = 16;
 - PE ``mem`` under the two variables: the port's CLI SAM body byte-equal
   to the JAX package's under the same variables, rescue through the
   device path; without the variable the native library runs;
@@ -125,8 +126,57 @@ def test_twin_equal_to_plain(shape):
                                     MAX_MAT)
     for k, v in want.items():
         np.testing.assert_array_equal(getattr(got, k), v, err_msg=k)
-    # the reverse scan stops at the score: never more rows than both scans
-    assert (rows <= np.minimum(tl, t.shape[1]) * 2).all()
+    # each scan its rows and the pipeline's depth at most (the reverse one
+    # stops past the row that reaches the score)
+    assert (rows <= (np.minimum(tl, t.shape[1]) + 31) * 2).all()
+
+
+def _case(name):
+    """(q, ql, t, tl) of a job set the wavefront's edges meet: two columns
+    in different lanes tie for qe on the best row (qe the first); the
+    reverse scan's stopping row within its last 31 rows (tb small);
+    K = 16 with every query 512 columns."""
+    rng = np.random.RandomState(23)
+    if name == "qe-tie":            # L = 96: K = 3, lanes 8 and 24 tie
+        q = rng.randint(0, 4, (4, 96)).astype(np.int32)
+        t = rng.randint(0, 4, (4, 256)).astype(np.int32)
+        for j in range(4):
+            q[j, 50:75] = q[j, :25]
+            t[j, 40 * j:40 * j + 25] = q[j, :25]
+            # neither copy's match extends: the bases around differ
+            q[j, [25, 75]] = (t[j, 40 * j + 25] + 1) % 4
+            if j:
+                q[j, 49] = (t[j, 40 * j - 1] + 1) % 4
+        return q, np.full(4, 96, np.int32), t, np.full(4, 256, np.int32)
+    if name == "reverse-stop":      # the match starts at target column 5
+        q = rng.randint(0, 4, (4, 64)).astype(np.int32)
+        t = rng.randint(0, 4, (4, 128)).astype(np.int32)
+        for j in range(4):
+            t[j, 2 + j:2 + j + 40] = q[j, 10:50]
+        return q, np.full(4, 64, np.int32), t, np.full(4, 128, np.int32)
+    q, ql, t, tl = _jobs(29, 6, 512, 768)
+    return q, np.full(6, 512, np.int32), t, tl
+
+
+@pytest.mark.parametrize("name", ["qe-tie", "reverse-stop", "K16"])
+def test_twin_equal_to_plain_edges(name):
+    """The twin equal to the plain version where the wavefront's edges
+    are: the tie's qe, the reverse stop near the scan's end, all 32 lanes
+    of K = 16 live."""
+    q, ql, t, tl = _case(name)
+    want = _port(q, ql, t, tl)
+    got, steps = kswa_cuda.kswa_twin(q, ql, t, tl, OPT.mat, OPT.o_del,
+                                     OPT.e_del, OPT.o_ins, OPT.e_ins, MINSC,
+                                     MAX_MAT)
+    for k, v in want.items():
+        np.testing.assert_array_equal(getattr(got, k), v, err_msg=k)
+    if name == "qe-tie":
+        assert (want["qe"] == 24).all() and (want["score"] == 25).all()
+    elif name == "reverse-stop":
+        assert ((want["tb"] <= 5) & (want["qb"] == 10)).all()
+        assert (want["te"] - want["tb"] >= want["te"] + 1 - 31).all()
+    else:
+        assert kswa_cuda.k_for(q.shape[1]) == 16 and (want["tb"] >= 0).any()
 
 
 def test_twin_equal_to_plain_on_rescue_jobs(pe):
@@ -199,9 +249,35 @@ def test_kernel_equal_to_twin_and_plain(shape):
     for k in want._fields:
         assert torch.equal(getattr(got, k), getattr(want, k)), k
     if shape[0] <= 64:
-        tw, _ = kswa_cuda.kswa_twin(q, ql, t, tl, OPT.mat, OPT.o_del,
-                                    OPT.e_del, OPT.o_ins, OPT.e_ins, MINSC,
-                                    MAX_MAT)
+        tw, steps = kswa_cuda.kswa_twin(q, ql, t, tl, OPT.mat, OPT.o_del,
+                                        OPT.e_del, OPT.o_ins, OPT.e_ins,
+                                        MINSC, MAX_MAT)
         for k in want._fields:
             np.testing.assert_array_equal(getattr(got, k).cpu().numpy(),
                                           getattr(tw, k), err_msg=k)
+        np.testing.assert_array_equal(
+            kswa_cuda.ksw_align_batch_cuda.last_steps.cpu().numpy(), steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qe-tie", "reverse-stop", "K16"])
+def test_kernel_edges_equal_to_twin(name):
+    """The kernel on the wavefront's edge cases: every output and each
+    job's steps equal to the twin's, the outputs to the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    q, ql, t, tl = _case(name)
+    args = [torch.as_tensor(x, device="cuda") for x in (q, ql, t, tl)]
+    got = kswa_cuda.ksw_align_batch_cuda(*args, OPT.mat, OPT.o_del,
+                                         OPT.e_del, OPT.o_ins, OPT.e_ins,
+                                         MINSC, MAX_MAT)
+    tw, steps = kswa_cuda.kswa_twin(q, ql, t, tl, OPT.mat, OPT.o_del,
+                                    OPT.e_del, OPT.o_ins, OPT.e_ins, MINSC,
+                                    MAX_MAT)
+    want = _port(q, ql, t, tl)
+    for k in want:
+        np.testing.assert_array_equal(getattr(got, k).cpu().numpy(),
+                                      want[k], err_msg=k)
+        np.testing.assert_array_equal(getattr(tw, k), want[k], err_msg=k)
+    np.testing.assert_array_equal(
+        kswa_cuda.ksw_align_batch_cuda.last_steps.cpu().numpy(), steps)

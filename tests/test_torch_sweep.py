@@ -12,8 +12,11 @@ ladder table (``bwa_mem_scale_tpu_torch.ops.smem`` / ``ops.fma`` against
 - ``collect_smems_device`` equals the JAX one in all fields, also where
   a small batch's reseed budget (2B tasks) saturates ``cnt`` and where
   the buffer width cuts the records.
+- The plain merged stage (``smems_seed_strategy_merged``) equals the
+  JAX one.
 - The kernels' CPU twins (``sweep_cuda.sweep_extend_twin``,
-  ``strategy_chase_twin``) equal the plain versions, steps included.
+  ``seed_strategy_merged_twin``) equal the plain versions, steps
+  included.
 - The CLIs: ``smem-table`` writes the JAX CLI's arrays; ``mem
   --seed-engine sweep`` SE and PE write the JAX CLI's SAM bodies with the
   same table; ``mem`` with a table and no engine named writes the JAX
@@ -250,9 +253,9 @@ def test_sweep_twin_equal_to_plain(side, wide, use_fma, case):
     assert steps.sum() > 0
 
 
-def _chase_inputs(side, wide, use_fma, params=PARAMS[0]):
-    """The restart chain's inputs as smems_seed_strategy_merged makes
-    them, recorded at its call."""
+def _merged_inputs(side, wide, use_fma, params=PARAMS[0]):
+    """smems_seed_strategy_merged's inputs on the pass-1 sweep's merged
+    records: (index, codes, lens, ext, P)."""
     codes, lens = (torch.as_tensor(a) for a in side["reads"])
     _, tt = _tables(side, wide, use_fma)
     fmi = side["tfmi"][wide]
@@ -262,36 +265,68 @@ def _chase_inputs(side, wide, use_fma, params=PARAMS[0]):
                                      torch.ones(len(lens), dtype=torch.int32),
                                      True, False, fma=tt, p3_max_intv=mmi,
                                      p3_stop=msl + 1, n_pos=P)
-    calls = []
-    real = sweep_cuda.strategy_chase_cuda
-
-    def record(*a, **kw):
-        calls.append(a)
-        return real(*a, **kw)
-    sweep_cuda.strategy_chase_cuda = record
-    try:
-        tsmem.smems_seed_strategy_merged(fmi, codes, lens, ext, mmi, msl + 1,
-                                         12, n_pos=P)
-    finally:
-        sweep_cuda.strategy_chase_cuda = real
-    return calls[0]
+    return fmi, codes, lens, ext, P
 
 
-@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
-@pytest.mark.parametrize("use_fma", [False, True], ids=["plain", "fma"])
-def test_chase_twin_equal_to_plain(side, wide, use_fma):
-    """strategy_chase_twin equal to the lockstep chase, each read's steps
-    too, at a width (12) some reads pass."""
-    args = _chase_inputs(side, wide, use_fma)
-    want = tsmem.strategy_chase(*args)
-    twin = sweep_cuda.strategy_chase_twin(*(a.numpy() for a in args[:7]),
-                                          args[7])
+def assert_merged_twin(fmi, codes, lens, ext, P, msl, mmi, M):
+    """seed_strategy_merged_twin equal to the plain merged stage, every
+    field and each read's steps (the lockstep chase's); returns the plain
+    SmemBuf."""
+    want = tsmem.smems_seed_strategy_merged(fmi, codes, lens, ext, mmi,
+                                            msl + 1, M, n_pos=P)
+    twin = sweep_cuda.seed_strategy_merged_twin(
+        fmi.count.numpy(), codes.numpy(), lens.numpy(),
+        {k: v.numpy() for k, v in ext.items()}, msl + 1, M, P)
     for f, a, b in zip(want._fields, want, twin):
         assert a.numpy().dtype == b.dtype, f
         np.testing.assert_array_equal(a.numpy(), b, f)
     np.testing.assert_array_equal(tsmem.strategy_chase.last_steps.numpy(),
                                   twin[6])
-    assert (want.cnt > 0).any()
+    return want
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("use_fma", [False, True], ids=["plain", "fma"])
+def test_chase_twin_equal_to_plain(side, wide, use_fma):
+    """The merged stage's twin (seed_strategy_merged_twin: the glue at the
+    visited columns and the chase) equal to the plain
+    smems_seed_strategy_merged, each read's steps too, at the width 12
+    and at a width (4) some reads pass."""
+    fmi, codes, lens, ext, P = _merged_inputs(side, wide, use_fma)
+    for M in (12, 4):
+        want = assert_merged_twin(fmi, codes, lens, ext, P, *PARAMS[0], M)
+        assert (want.cnt > 0).any()
+    assert (want.cnt > 4).any()
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("params", PARAMS, ids=["10-20", "3-4"])
+def test_merged_plain_equal_to_jax(side, wide, params):
+    """The plain smems_seed_strategy_merged equal to the JAX function on
+    the same seeded reads and the same merged records (the JAX sweep's),
+    every field and dtype, at a width (12) some reads pass."""
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.ops import smem as jsmem
+    codes, lens = side["reads"]
+    msl, mmi = params
+    P = L - msl + 1
+    kw = dict(p3_max_intv=mmi, p3_stop=msl + 1, n_pos=P)
+    jfmi = side["jfmi"][wide]
+    jext = jsmem.extend_all_positions(
+        jfmi, jnp.asarray(codes), jnp.asarray(lens),
+        jnp.ones(len(lens), jnp.int32), True, False, **kw)
+    want = jsmem.smems_seed_strategy_merged(
+        jfmi, jnp.asarray(codes), jnp.asarray(lens), jext, mmi, msl + 1, 12,
+        n_pos=P)
+    ext = {k: torch.as_tensor(np.asarray(v)) for k, v in jext.items()}
+    got = tsmem.smems_seed_strategy_merged(
+        side["tfmi"][wide], torch.as_tensor(codes), torch.as_tensor(lens),
+        ext, mmi, msl + 1, 12, n_pos=P)
+    for f in got._fields:
+        w = np.asarray(getattr(want, f))
+        assert getattr(got, f).numpy().dtype == w.dtype, f
+        np.testing.assert_array_equal(w, getattr(got, f).numpy(), f)
+    assert int(got.cnt.sum()) > 0
 
 
 def test_wrappers_on_cpu_run_plain(side):
@@ -301,19 +336,20 @@ def test_wrappers_on_cpu_run_plain(side):
     fmi = side["tfmi"][False]
     mi = torch.ones(len(lens), dtype=torch.int32)
     before = (sweep_cuda.extend_all_positions_cuda.launches,
-              sweep_cuda.strategy_chase_cuda.launches)
+              sweep_cuda.seed_strategy_merged_cuda.launches)
     st = {}
     got = sweep_cuda.extend_all_positions_cuda(fmi, codes, lens, mi, True,
                                                True, stats=st)
     want = tsmem.extend_all_positions(fmi, codes, lens, mi, True, True)
     assert set(got) == set(want)
     assert all(torch.equal(got[k], want[k]) for k in want)
-    args = _chase_inputs(side, False, True)
-    a = sweep_cuda.strategy_chase_cuda(*args, stats=st)
-    b = tsmem.strategy_chase(*args)
+    fmi, codes, lens, ext, P = _merged_inputs(side, False, True)
+    args = (fmi, codes, lens, ext, 20, 11, 12, P)
+    a = sweep_cuda.seed_strategy_merged_cuda(*args, stats=st)
+    b = tsmem.smems_seed_strategy_merged(*args)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert (sweep_cuda.extend_all_positions_cuda.launches,
-            sweep_cuda.strategy_chase_cuda.launches) == before
+            sweep_cuda.seed_strategy_merged_cuda.launches) == before
     assert st["sweep_ticks"] > 0 and st["chase_ticks"] > 0
 
 
@@ -625,40 +661,68 @@ def test_sweep_kernel_equal_to_plain(card, wide, use_fma, batch, case):
 def test_collect_and_chase_kernels_equal_to_plain(card, wide, use_fma,
                                                   batch):
     """collect_smems_device with both kernels on the card equal to the
-    plain path on the CPU, every field; its chase launch as made against
-    the lockstep chase, each read's steps too."""
+    plain path on the CPU, every field; its merged-stage launch as made
+    against the plain stage on the CPU and (the small batch) the twin,
+    each read's steps too; its stats counters and its torch operations
+    (the outputs' allocations only)."""
+    from bwa_mem_scale_tpu_torch.tools.glue_ops import outer_ops
     c = card[batch, wide]
     msl = 10 if batch == "small" else 19
     kw = dict(min_seed_len=msl, split_len=int(msl * 1.5 + .499),
               split_width=10, max_mem_intv=20)
     tt = c["table"] if use_fma else None
     calls = []
-    real = sweep_cuda.strategy_chase_cuda
+    real = sweep_cuda.seed_strategy_merged_cuda
 
     def record(*a, **k):
         calls.append(a)
         return real(*a, **k)
     before = (sweep_cuda.extend_all_positions_cuda.launches,
               real.launches)
-    sweep_cuda.strategy_chase_cuda = record
+    sweep_cuda.seed_strategy_merged_cuda = record
     try:
         got = tsmem.collect_smems_device(c["fmi"], c["codes"], c["lens"],
                                          fma=tt, **kw)
     finally:
-        sweep_cuda.strategy_chase_cuda = real
+        sweep_cuda.seed_strategy_merged_cuda = real
     torch.cuda.synchronize()
     assert (sweep_cuda.extend_all_positions_cuda.launches,
             real.launches) == (before[0] + 2, before[1] + 1)
     want = _plain_collect(c, tt, kw)
     for f in got._fields:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
-    args = calls[0]
-    k = real(*args)
+    fmi, codes, lens, ext, mmi, stop, M, P = calls[0][:8]
+    cpu_ext = {k: v.cpu() for k, v in ext.items()}
+    p = tsmem.smems_seed_strategy_merged(
+        _CpuCount(fmi.count.cpu()), codes.cpu(), lens.cpu(), cpu_ext, mmi,
+        stop, M, P)
+    p_steps = tsmem.strategy_chase.last_steps
+    st = {}
+    k = real(*calls[0][:8], stats=st)
     steps = real.last_steps.cpu()
-    p = tsmem.strategy_chase(*(a.cpu() for a in args[:7]), args[7])
     for f, a, b in zip(p._fields, k, p):
         assert torch.equal(a.cpu(), b), f
-    assert torch.equal(steps, tsmem.strategy_chase.last_steps)
+    assert torch.equal(steps, p_steps)
+    real(*calls[0][:8], stats=st)
+    assert int(st["chase_steps"]) == 2 * int(steps.max())
+    assert int(st["chase_total"]) == 2 * int(steps.sum())
+    names = set()
+    outer_ops(lambda: real(*calls[0][:8], stats=st), names)
+    assert names <= {"aten::empty", "aten::unbind", "aten::select",
+                     "aten::slice", "aten::view"}, names
+    if batch == "small":
+        twin = sweep_cuda.seed_strategy_merged_twin(
+            fmi.count.cpu().numpy(), codes.cpu().numpy(),
+            lens.cpu().numpy(), {k: v.numpy() for k, v in cpu_ext.items()},
+            stop, M, P)
+        np.testing.assert_array_equal(twin[6], p_steps.numpy())
+
+
+class _CpuCount:
+    """What the merged stage reads of an index: its C array."""
+
+    def __init__(self, count):
+        self.count = count
 
 
 def _plain_collect(c, tt, kw):
