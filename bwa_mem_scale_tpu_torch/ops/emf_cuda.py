@@ -8,6 +8,12 @@ included, is what the kernel replaces). On CUDA tensors it launches
 runs the plain version. There is no fallback from the kernel to the
 plain version. The launch synchronises nothing.
 
+``emf_lookup_twin`` is the kernel's rounds in plain Python on numpy
+arrays, a test of its control flow on the CPU: it returns the same four
+arrays and counts each read's dependent global trips (the read, a probe
+round, the windows, two a group of rescue entries), from which
+chip_smoke.py's phase 11 takes the latency floor.
+
 The source is compiled with nvcc into
 ``build/torch_kernels/libemf_cuda.so`` at first use
 (``ops/nvcc_build.py``) and bound with ctypes.
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import nvcc_build
@@ -97,3 +104,108 @@ def emf_lookup_cuda(emf: DeviceEmf, ref, codes, lens) -> dict:
 # calls) keeps the count
 emf_lookup_cuda.launches = 0
 _LOOKUP_FN = emf_lookup_cuda
+
+
+def emf_lookup_twin(emf: DeviceEmf, ref, codes, lens) -> dict:
+    """csrc/emf.cu's emf_lookup_kernel in plain Python, one read (warp)
+    after another, in its rounds: trip 1 the read (has_n, the seed's
+    orientation and hash), then probe rounds of 32 slots (each slot's
+    fields at once) to the first candidate or empty slot, then both
+    windows at the candidate in one trip (the rescue list's offsets
+    beside them), then for a rescue groups of G entries (8 lanes an entry
+    up to 113 columns, so 4 a group), two trips a group: the entries,
+    then their windows. Returns code, slot, loc and n_loc as the kernel
+    writes them, and trips [B] int64, each read's dependent trips."""
+    from ..index.perfect import hash_words, pack_words
+    tab = {f: getattr(emf, f).cpu().numpy() for f, _ in _TABLE}
+    ref = ref.cpu().numpy() if isinstance(ref, torch.Tensor) else ref
+    codes = np.asarray(codes.cpu() if isinstance(codes, torch.Tensor)
+                       else codes).astype(np.int64)
+    lens = np.asarray(lens.cpu() if isinstance(lens, torch.Tensor)
+                      else lens).astype(np.int64)
+    B, L = codes.shape
+    S, l_pac, P = emf.seed_len, emf.l_pac, emf.max_probe
+    l2, mask, n_locs = 2 * l_pac, emf.ncap - 1, tab["ml_locs"].shape[0]
+    clip3 = lambda c: min(max(int(c), 0), 3)
+    q = np.clip(codes, -1, 5)                 # the staged bytes
+    fw = np.clip(q[:, :S], 0, 3)
+    rc = 3 - fw[:, ::-1]
+    neq = fw != rc
+    first = neq.argmax(1)
+    fwle = np.where(neq.any(1), fw[np.arange(B), first] < rc[np.arange(B),
+                                                               first], True)
+    canon = np.where(fwle[:, None], fw, rc).astype(np.uint8)
+    hs = hash_words(pack_words(canon), S)
+    out = {k: np.zeros(B, dt) for k, dt in (
+        ("code", np.int32), ("slot", np.int32), ("loc", np.int64),
+        ("n_loc", np.int32), ("trips", np.int64))}
+    for b in range(B):
+        ln = int(lens[b])
+        n = min(max(ln, 0), L)
+        trips = 1                             # the read
+        has_n = bool((codes[b, :n] >= 4).any())
+        too_short = ln < S
+        h = int(hs[b])
+        fpq = h >> 32
+        slot, has_cand, loc = h & mask, False, 0
+        for r0 in range(0, P, 32):            # a probe round
+            trips += 1
+            js = range(r0, min(r0 + 32, P))
+            ss = [(h + j) & mask for j in js]
+            empty = [int(tab["loc"][s]) < 0 for s in ss]
+            stop = empty.index(True) if True in empty else len(ss)
+            cand = [i for i in range(stop) if
+                    int(tab["fp"][ss[i]]) & 0xFFFFFFFF == fpq]
+            if cand:
+                has_cand, slot = True, ss[cand[0]]
+                loc = int(tab["loc"][slot])
+                break
+            if stop < len(ss):
+                break
+
+        def matches(start, rev):
+            for i in range(n):
+                p = min(max(start + i, 0), l2 - 1)
+                k = min(max(ln - 1 - i, 0), L - 1)
+                want = 3 - clip3(q[b, k]) if rev else int(q[b, i])
+                if int(ref[p]) != want:
+                    return False
+            return True
+
+        fwm = rcm = False
+        if has_cand:
+            trips += 1                        # both windows
+            pos_rc = loc - (ln - S)
+            fwm = loc + ln <= l_pac and matches(loc, False)
+            rcm = pos_rc >= 0 and matches(pos_rc, True)
+            mli = int(tab["mlidx"][slot])
+            if (ln > S and not has_n and not too_short and mli >= 0
+                    and not fwm and not rcm):
+                lo = int(tab["ml_off"][mli])
+                hi = int(tab["ml_off"][mli + 1])
+                nfw_end = lo + int(tab["ml_nfw"][mli])
+                is_rev0 = (int(tab["fwless"][slot]) != 0) != bool(fwle[b])
+                cpw = (n + 30) >> 4
+                G = 32 // (8 if cpw <= 8 else 16 if cpw <= 16 else 32)
+                for e0 in range(lo, hi, G):
+                    trips += 2                # the entries, their windows
+                    hit = None
+                    for c in range(e0, min(e0 + G, hi)):
+                        lc = int(tab["ml_locs"][min(max(c, 0), n_locs - 1)])
+                        isrev = is_rev0 if c < nfw_end else not is_rev0
+                        posr = lc - (ln - S)
+                        okb = posr >= 0 if isrev else lc + ln <= l_pac
+                        if okb and matches(posr if isrev else lc, isrev):
+                            hit = (lc, isrev)
+                            break
+                    if hit is not None:
+                        loc = hit[0]
+                        rcm, fwm = hit[1], not hit[1]
+                        break
+        out["code"][b] = (0 if too_short else 1 if has_n else 3 if fwm
+                          else 4 if rcm else 2)
+        out["slot"][b] = slot
+        out["loc"][b] = loc if fwm or rcm else -1
+        out["n_loc"][b] = int(tab["cnt"][slot]) if has_cand else 0
+        out["trips"][b] = trips
+    return out

@@ -6,11 +6,13 @@ Counterpart of ``bwa_mem_scale_tpu/ops/smem.py``. The sweep
 E(p) of each start column p: pass 1 and pass 3's failure records come
 from one forward extension of every (read, start) lane
 (``extend_all_positions``, optionally started from the FMA ladder table
-of ``ops/fma.py``), pass 2 runs the same extension over the compacted
-reseed tasks, and pass 3 replays its restart chain from the records
-(``smems_seed_strategy_merged``). The extension and the merged stage
-run as the kernels of ``csrc/sweep.cu`` through ``ops/sweep_cuda.py`` on
-CUDA tensors; the versions here (the lockstep ``extend_all_positions``,
+of ``ops/fma.py``) and its emission, pass 2 runs the same extension over
+the compacted reseed tasks, and pass 3 replays its restart chain from
+the records (``smems_seed_strategy_merged``). Each pass (its extension
+with its emission) and the merged stage run as the kernels of
+``csrc/sweep.cu`` through ``ops/sweep_cuda.py`` on CUDA tensors; the
+versions here (``sweep_pass_plain``: the lockstep
+``extend_all_positions``, ``_left_max_mask`` and ``_emit_compact``;
 ``seed_strategy_merged_plain``: the glue with the lockstep
 ``strategy_chase``) are their plain versions and the CPU path. The glue
 is torch ops in the JAX package's order, so every array equals its. With
@@ -375,6 +377,57 @@ def _left_max_mask(E, P: int, min_seed_len: int):
     return pcol, ((pcol == 0) | (E_prev < E)) & ((E - pcol) >= min_seed_len)
 
 
+def sweep_pass_plain(fmi: DeviceFMIndex, codes, lens, min_seed_len: int,
+                     max_out: int, fma=None, tasks=None,
+                     p3_max_intv: int = 0, p3_stop: int = 0, n_pos: int = 0,
+                     stats: dict = None, stats_key: str = "sweep_ticks_p1"):
+    """One sweep pass and its emission, on any device (the plain version
+    of ``csrc/sweep.cu``'s sweep_extend_kernel in its pass forms, through
+    ``sweep_cuda.sweep_pass_cuda``). Pass 1 (`tasks` None): the sweep from
+    every column p < n_pos with min_intv 1 (merged with pass 3 where
+    p3_max_intv and p3_stop > 0), every left-maximal match of at least
+    min_seed_len bases into its read's slots. Pass 2: `tasks` = (t_read,
+    t_x, t_mi, t_valid) of ``reseed_tasks``, the sweep over each task's
+    read at min_intv t_mi, the matches that also cover t_x into the
+    task's read's slots in task order, then column order. Returns
+    (SmemBuf [B, max_out], the pass-1 merged records pass 3's stage reads,
+    or {})."""
+    B, L = codes.shape
+    P = n_pos or L
+    dev = codes.device
+    empty = SmemBuf.empty(B, max_out, dev, fmi.pos_dtype)
+    if tasks is None:
+        ext = extend_all_positions(
+            fmi, codes, lens, torch.ones((B,), dtype=torch.int32, device=dev),
+            check_initial=True, want_fail=False, fma=fma,
+            p3_max_intv=p3_max_intv, p3_stop=p3_stop, n_pos=P, stats=stats,
+            stats_key=stats_key)
+        E = ext["E"]
+        pcol, mask = _left_max_mask(E, P, min_seed_len)
+        out = _emit_compact(mask, pcol.expand(B, P), E - 1, ext["k"],
+                            ext["l"], ext["s"], empty)
+        merged = p3_max_intv > 0 and p3_stop > 0
+        return out, ({f: ext[f] for f in MERGED_RECORDS} if merged else {})
+    t_read, t_x, t_mi, t_valid = tasks
+    T = t_read.shape[0]
+    codes_t = torch.where(t_valid[:, None], codes[t_read], 4)
+    lens_t = torch.where(t_valid, lens[t_read], 0)
+    ext = extend_all_positions(
+        fmi, codes_t.to(torch.int32), lens_t.to(torch.int32),
+        t_mi.to(torch.int32), check_initial=True, want_fail=False, fma=fma,
+        n_pos=P, stats=stats, stats_key=stats_key)
+    E = ext["E"]
+    pcol, mask = _left_max_mask(E, P, min_seed_len)
+    mask = (mask & t_valid[:, None] & (pcol <= t_x[:, None])
+            & (E > t_x[:, None]))
+    return _emit_compact(mask, pcol.expand(T, P), E - 1, ext["k"], ext["l"],
+                         ext["s"], empty, rows=t_read), {}
+
+
+# the pass-1 sweep's records that pass 3's merged stage reads
+MERGED_RECORDS = ("E", "f3_E", "f3_k", "f3_l", "f3_ss", "f3_s", "died_s")
+
+
 def smems_reseed(fmi: DeviceFMIndex, codes, lens, pass1: SmemBuf,
                  split_len: int, split_width: int, min_seed_len: int,
                  max_out: int, max_tasks: int = 0, fma=None,
@@ -382,30 +435,19 @@ def smems_reseed(fmi: DeviceFMIndex, codes, lens, pass1: SmemBuf,
     """Pass 2: the re-seed at the midpoints of long low-occurrence pass-1
     SMEMs. Each becomes a (read, x, min_intv = s + 1) task; the first
     max_tasks (default 2B) run through the sweep, which emits the
-    valid-maximal matches covering x. Returns (SmemBuf, the reads that
-    lost a task to the budget)."""
+    valid-maximal matches covering x (``sweep_cuda.sweep_pass_cuda``: one
+    launch on CUDA tensors, ``sweep_pass_plain`` on CPU ones). Returns
+    (SmemBuf, the reads that lost a task to the budget)."""
     from . import sweep_cuda
     B, L = codes.shape
     # ~1.5 reseed candidates a read is typical at 1-3% error; 2 a read
     # keeps drops (and the overflow retries they cause) rare
     T = max_tasks or 2 * B
-    t_read, t_x, t_mi, t_valid, overflow = reseed_tasks(
-        pass1, T, split_len, split_width)
-    codes_t = torch.where(t_valid[:, None], codes[t_read], 4)
-    lens_t = torch.where(t_valid, lens[t_read], 0)
-    P = n_pos or L
-    ext = sweep_cuda.extend_all_positions_cuda(
-        fmi, codes_t.to(torch.int32), lens_t.to(torch.int32),
-        t_mi.to(torch.int32), check_initial=True, want_fail=False, fma=fma,
-        n_pos=P, stats=stats, stats_key="sweep_ticks_p2")
-    E = ext["E"]
-    pcol, mask = _left_max_mask(E, P, min_seed_len)
-    mask = (mask & t_valid[:, None] & (pcol <= t_x[:, None])
-            & (E > t_x[:, None]))
-    out = _emit_compact(mask, pcol.expand(T, P), E - 1, ext["k"], ext["l"],
-                        ext["s"], SmemBuf.empty(B, max_out, codes.device,
-                                                fmi.pos_dtype), rows=t_read)
-    return out, overflow
+    tasks = reseed_tasks(pass1, T, split_len, split_width)
+    out, _ = sweep_cuda.sweep_pass_cuda(
+        fmi, codes, lens, min_seed_len, max_out, fma=fma, tasks=tasks[:4],
+        n_pos=n_pos or L, stats=stats, stats_key="sweep_ticks_p2")
+    return out, tasks[4]
 
 
 def smems_seed_strategy_merged(fmi: DeviceFMIndex, codes, lens, ext,
@@ -492,17 +534,12 @@ def collect_smems_device(fmi: DeviceFMIndex, codes, lens, *,
     # no SMEM can start past L - min_seed_len: skip those sweep lanes
     P = int(np.clip(L - min_seed_len + 1, 1, L))
     lens = lens.to(torch.int32)
-    ones = torch.ones((B,), dtype=torch.int32, device=dev)
     merge = max_mem_intv > 0
-    ext = sweep_cuda.extend_all_positions_cuda(
-        fmi, codes, lens, ones, check_initial=True, want_fail=False,
-        fma=fma, p3_max_intv=max_mem_intv if merge else 0,
+    p1, ext = sweep_cuda.sweep_pass_cuda(
+        fmi, codes, lens, min_seed_len, M, fma=fma,
+        p3_max_intv=max_mem_intv if merge else 0,
         p3_stop=(min_seed_len + 1) if merge else 0, n_pos=P, stats=stats,
         stats_key="sweep_ticks_p1")
-    E = ext["E"]
-    pcol, mask = _left_max_mask(E, P, min_seed_len)
-    p1 = _emit_compact(mask, pcol.expand(B, P), E - 1, ext["k"], ext["l"],
-                       ext["s"], SmemBuf.empty(B, M, dev, fmi.pos_dtype))
     p2, reseed_of = smems_reseed(fmi, codes, lens, p1, split_len,
                                  split_width, min_seed_len, M, fma=fma,
                                  n_pos=P, stats=stats)

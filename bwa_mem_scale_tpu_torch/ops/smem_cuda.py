@@ -345,10 +345,12 @@ class _TwinFmi:
         self.sentinel = int(sentinel_index)
         self.hi = (None if hi_steps is None else
                    [[int(v) for v in row] for row in np.asarray(hi_steps)])
+        self.seen = set()            # the rows (blocks) read so far
 
     def row(self, pp: int):
         """(counts, masks as unsigned ints, y) of position pp's row."""
         blk = min(max(pp >> 5, 0), self.cp.shape[0] - 1)
+        self.seen.add(blk)
         r = self.cp[blk].tolist()
         cnt = r[:4]
         if self.hi is not None:
@@ -394,6 +396,7 @@ class _TwinK:
 
     def occ(self, pp: int, g: int):
         blk = min(max(pp >> 5, 0), self.cp.shape[0] - 1)
+        self.fm.seen.add((blk, g))   # a 32-byte group of the k-gram row
         row = self.cp[blk, 8 * g: 8 * g + 8]
         top = _TwinFmi.top_bits(pp & 31)
         return [int(row[i]) + bin(int(row[4 + i]) & 0xFFFFFFFF & top

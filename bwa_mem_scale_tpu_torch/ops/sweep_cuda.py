@@ -1,13 +1,21 @@
-"""The sweep engine's two kernels through the hand-written CUDA of
+"""The sweep engine's kernels through the hand-written CUDA of
 csrc/sweep.cu.
 
 Two wrappers, each with the signature of its plain version in
 ``ops/smem.py`` and each replacing code of the JAX package's
 ``ops/smem.py``:
-- ``extend_all_positions_cuda``: the forward extension from every (read,
-  start column) lane, with the FMA ladder table as each lane's start
-  (plain ``extend_all_positions``; JAX ``extend_all_positions`` with
-  ``ops/fma.py::fast_forward``), one thread a lane;
+- ``sweep_pass_cuda``: pass 1 or pass 2 of the sweep in one launch of
+  sweep_extend_kernel's pass form: the forward extension from every
+  (read, start column) lane (pass 2: every reseed task's lanes, the
+  task list read in the launch), each lane started from the FMA ladder
+  table in at most two dependent trips, then the left-maximal mask and
+  each read's SMEM slots ranked and written in the launch (plain
+  ``sweep_pass_plain``: ``extend_all_positions``, ``_left_max_mask`` and
+  ``_emit_compact``; JAX ``extend_all_positions`` with
+  ``ops/fma.py::fast_forward`` and the emission of
+  ``collect_smems_device`` / ``smems_reseed``). Pass 2 takes its tasks
+  in ``smem.reseed_tasks``' order (the valid ones first, sorted by
+  read), which the kernel assumes and does not check;
 - ``seed_strategy_merged_cuda``: pass 3's merged stage, the column glue
   and the restart chain in one launch (plain
   ``seed_strategy_merged_plain``; JAX ``smems_seed_strategy_merged``),
@@ -17,24 +25,29 @@ each runs its plain version. There is no fallback from a kernel to its
 plain version. Each kernel has an int32 and an int64 form, picked by the
 position dtype (``fmi.pos_dtype``), as in ``ops/smem_cuda.py``, whose
 index arguments and output layout these wrappers share. Each keeps a
-``launches`` count (both forms), a ``launches64`` count (the int64 form)
-and the last call's ``last_steps`` (forward steps a lane for the sweep,
-chase iterations a read for the merged stage). With ``stats`` the sweep
-adds the longest lane's steps (``sweep_steps_p1`` / ``sweep_steps_p2``),
-the total (``sweep_total_p1`` / ``sweep_total_p2``) and the longest
-lane's row fetches (``sweep_rounds_p1`` / ``sweep_rounds_p2``,
-``last_rounds``) as device tensors; the merged stage's kernel adds its
-longest read's chase steps and the total to two device counters of its
-own, ``chase_steps`` and ``chase_total`` (0-d int64 tensors). With a
-k-gram checkpoint table on the index (``fmi.kstep`` > 1, int32 layout)
-the sweep launches its k-step form (``sweep_extend_launch_k``: two bases
-a row fetch, after the FMA start), counted in ``launches_k`` as well.
+``launches`` count (all forms), a ``launches64`` count (the int64 form)
+and, with a k-gram checkpoint table on the index (``fmi.kstep`` > 1,
+int32 layout), the sweep's k-step forms (two bases a row fetch, after
+the FMA start) in ``launches_k``. With ``stats`` the pass launch adds
+its longest lane's steps, the total and the longest lane's row fetches
+to device counters itself (pass 1: ``sweep_steps_p1``,
+``sweep_total_p1``, ``sweep_rounds_p1`` over every lane; pass 2:
+``sweep_walked_steps_p2``, ``sweep_walked_total_p2``,
+``sweep_walked_rounds_p2`` over the lanes it walks, each task's columns
+up to its t_x), as the merged stage's kernel adds ``chase_steps`` and
+``chase_total`` (0-d int64 tensors); no torch operation runs for them.
+Each lane's steps are written only where asked (``keep_steps`` on the
+pass wrapper, ``last_steps`` / ``last_rounds``); the merged stage keeps
+each read's chase steps.
 
 ``sweep_extend_twin`` and ``seed_strategy_merged_twin`` are the kernels'
 loops in plain Python on numpy arrays, tests of the kernels' control flow
-on the CPU at small sizes; each counts what its kernel counts. The source
-is compiled with nvcc into ``build/torch_kernels/libsweep_cuda.so`` at
-first use (``ops/nvcc_build.py``).
+on the CPU at small sizes; each counts what its kernel counts, the sweep
+twin also each lane's dependent trips before its first step and the
+distinct checkpoint rows and ladder sectors a launch reads (its bytes
+bound). The source is compiled with nvcc into
+``build/torch_kernels/libsweep_cuda.so`` at first use
+(``ops/nvcc_build.py``).
 """
 
 from __future__ import annotations
@@ -52,23 +65,15 @@ from .smem_cuda import (_FMI, _SUFFIX, _TwinFmi, _TwinK, _check,
                         _smem_out)
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-_SWEEP = [_vp] * 3 + [_ci] * 7 + [_vp] * 3 + [_ci] * 2 + [_vp] * 3
+_PASS = [_vp] * 6 + [_ci] * 8 + [_vp] * 3 + [_ci] * 2 + [_vp] * 11
 _MERGED = [_vp] * 10 + [_ci] * 5 + [_vp] * 6
+_KSTEP = [_vp, _ci, _vp]
 LIB = nvcc_build.Library("sweep.cu", "sweep_cuda", {
-    **{f"sweep_extend_launch{_SUFFIX[pd]}": _FMI[pd] + _SWEEP
-       for pd in _FMI},
-    "sweep_extend_launch_k": _FMI[torch.int32] + [_vp, _ci, _vp] + _SWEEP,
+    **{f"sweep_pass_launch{_SUFFIX[pd]}": _FMI[pd] + _PASS for pd in _FMI},
+    "sweep_pass_launch_k": _FMI[torch.int32] + _KSTEP + _PASS,
     **{f"seed_strategy_merged_launch{_SUFFIX[pd]}": _MERGED
        for pd in _FMI}})
 build = LIB.build            # compile csrc/sweep.cu; returns the library path
-
-# the sweep's outputs: its [3][B][P] int32 ([4] in the k-step form, with
-# each lane's row fetches), [9][B][P] position and [4][B][P] byte planes,
-# in order
-_I_PLANES = ("E", "f3_E", "steps", "rounds")
-_P_PLANES = ("k", "l", "s", "fail_k", "fail_l", "fail_ss", "f3_k", "f3_l",
-             "f3_ss")
-_B_PLANES = ("fail_s", "f3_s", "died_s", "valid")
 
 
 def _add_stats(stats, key: str, steps: torch.Tensor,
@@ -86,89 +91,152 @@ def _add_stats(stats, key: str, steps: torch.Tensor,
         stats[k] = stats.get(k, 0) + v
 
 
-def extend_all_positions_cuda(fmi: DeviceFMIndex, codes, lens, min_intv,
-                              check_initial: bool, want_fail: bool,
-                              stop_min_len: int = 0, fma=None,
-                              p3_max_intv: int = 0, p3_stop: int = 0,
-                              n_pos: int = 0, stats: dict = None,
-                              stats_key: str = "sweep_ticks") -> dict:
-    """Drop-in for ``smem.extend_all_positions`` (equal arrays): one launch
-    of sweep_extend_kernel on CUDA tensors, the plain version on CPU ones.
-    codes [B, L] and lens [B] int32, min_intv [B] (held as int32, as the
-    JAX package holds the reseed's), `fma` a DeviceFmaTable at fmi's
-    position dtype on fmi's device, or None."""
-    from .smem import extend_all_positions, sweep_keys, sweep_window
+# the pass-1 records that pass 3's merged stage reads, as the launch
+# writes them: int32 (E, f3_E), position (f3_k, f3_l, f3_ss), bool (f3_s,
+# died_s) planes
+_REC_PLANES = (("E", "f3_E"), ("f3_k", "f3_l", "f3_ss"), ("f3_s", "died_s"))
+
+
+def sweep_pass_cuda(fmi: DeviceFMIndex, codes, lens, min_seed_len: int,
+                    max_out: int, fma=None, tasks=None, p3_max_intv: int = 0,
+                    p3_stop: int = 0, n_pos: int = 0, stats: dict = None,
+                    stats_key: str = "sweep_ticks_p1"):
+    """``smem.sweep_pass_plain``'s function (an equal SmemBuf and equal
+    records): one launch of sweep_extend_kernel's pass form on CUDA
+    tensors, the plain version on CPU ones. Pass 1 (`tasks` None): every
+    read's left-maximal matches of at least min_seed_len bases, merged
+    with pass 3 where p3_max_intv and p3_stop > 0 (then also the records
+    pass 3's stage reads); pass 2: `tasks` = (t_read, t_x, t_mi, t_valid)
+    as ``smem.reseed_tasks`` orders them, the valid tasks first and sorted
+    by read: the kernel finds each read's tasks by a search that assumes
+    this order and does not check it (another order gives wrong slots);
+    the matches covering each task's column. Returns (SmemBuf [B,
+    max_out], the records: a dict of [B, P] tensors, empty but for merged
+    pass 1). codes [B, L] and lens [B] int32, `fma` a DeviceFmaTable at
+    fmi's position dtype, or None. With `stats` the kernel adds its
+    longest and total steps and its longest row fetches to three device
+    counters (`stats_key` with "ticks" read as "steps", "total" and
+    "rounds"; pass 2 as "walked_steps", "walked_total" and
+    "walked_rounds": the lanes up to each task's column, which the kernel
+    walks, while the plain version's lockstep runs every lane); no other
+    torch operation runs for them. With ``keep_steps`` set on the wrapper
+    the launch also writes each lane's steps (and row fetches) into
+    ``last_steps`` (``last_rounds``)."""
+    from .smem import SmemBuf, sweep_pass_plain, sweep_window
     if codes.device.type == "cpu":
-        return extend_all_positions(
-            fmi, codes, lens, min_intv, check_initial, want_fail,
-            stop_min_len, fma, p3_max_intv, p3_stop, n_pos, stats,
-            stats_key)
-    what = "extend_all_positions_cuda"
-    merge_p3, K_eff = sweep_window(fma, stop_min_len, p3_max_intv, p3_stop)
+        return sweep_pass_plain(fmi, codes, lens, min_seed_len, max_out,
+                                fma, tasks, p3_max_intv, p3_stop, n_pos,
+                                stats, stats_key)
+    what = "sweep_pass_cuda"
+    if tasks is not None:            # pass 2 keeps no pass-3 records
+        p3_max_intv = p3_stop = 0
+    merge, K_eff = sweep_window(fma, 0, p3_max_intv, p3_stop)
     lad = ()
     if K_eff:
         lad = (fma.ladder_k, fma.ladder_l, fma.ladder_s)
         if any(t.dtype != fmi.pos_dtype or not t.is_contiguous()
-               for t in lad):
-            raise ValueError(f"{what}: the FMA ladders must be contiguous "
-                             f"and of the index's position dtype")
-    dev = _check(what, fmi, codes, lens, min_intv, *lad)
+               or t.data_ptr() % 16 for t in lad):
+            raise ValueError(f"{what}: the FMA ladders must be contiguous, "
+                             f"16-byte aligned and of the index's position "
+                             f"dtype")
+    dev = _check(what, fmi, codes, lens, *lad, *(tasks or ()))
     _codes_int32(what, codes, lens)
     B, L = codes.shape
     P = n_pos or L
-    if lens.shape != (B,) or min_intv.shape != (B,) or not 0 < P <= L:
+    if lens.shape != (B,) or not 0 < P <= L:
         raise ValueError(f"{what}: read counts differ or n_pos {P} is "
                          f"outside [1, {L}]")
+    i32, pd = torch.int32, fmi.pos_dtype
+    task_ptrs, T = [None] * 4, 0
+    if tasks is not None:
+        t_read, t_x, t_mi, t_valid = tasks
+        T = t_read.shape[0]
+        if any(t.shape != (T,) for t in tasks) or t_valid.dtype != torch.bool:
+            raise ValueError(f"{what}: the task arrays differ in shape, or "
+                             f"t_valid is not bool")
+        # reseed_tasks' dtypes: no conversion on the main path
+        tl = [t_read.to(torch.int64).contiguous(), t_x.to(i32).contiguous(),
+              t_mi.to(pd).contiguous(),
+              t_valid.contiguous().view(torch.uint8)]
+        task_ptrs = [t.data_ptr() for t in tl]
+    out, fields = _smem_out(B, max_out, pd, dev)
+    cnt = torch.empty((B,), dtype=i32, device=dev)
+    recs = [None] * 3
+    if merge:
+        recs = [torch.empty((len(n), B, P), dtype=dt, device=dev)
+                for n, dt in zip(_REC_PLANES, (i32, pd, torch.uint8))]
     kstep = fmi.kstep > 1
-    out_i = torch.empty((4 if kstep else 3, B, P), dtype=torch.int32,
-                        device=dev)
-    out_p = torch.empty((9, B, P), dtype=fmi.pos_dtype, device=dev)
-    out_b = torch.empty((4, B, P), dtype=torch.uint8, device=dev)
+    steps = rounds = None
+    if _PASS_FN.keep_steps:
+        rows = T if tasks is not None else B
+        steps = torch.zeros((rows, P), dtype=i32, device=dev)
+        rounds = (torch.zeros((rows, P), dtype=i32, device=dev) if kstep
+                  else steps)
+    acc = [None] * 4
+    if stats is not None and B:
+        words = ("steps", "total", "rounds")
+        if tasks is not None:
+            words = tuple(f"walked_{w}" for w in words)
+        acc = [_counter(stats, stats_key.replace("ticks", w), dev).data_ptr()
+               for w in words]
+        acc.append(_run_words(dev, 4).data_ptr())
     if B:
-        c, ln = codes.contiguous(), lens.contiguous()
-        mi = min_intv.to(torch.int32).contiguous()
-        ptrs = [t.data_ptr() for t in lad] or [None] * 3
-        form = (["sweep_extend_launch_k", *_fmi_args(fmi),
+        form = (["sweep_pass_launch_k", *_fmi_args(fmi),
                  *_kstep_args(fmi, None)] if kstep else
-                [_form("sweep_extend_launch", fmi), *_fmi_args(fmi)])
-        LIB.launch(dev, *form, c.data_ptr(), ln.data_ptr(), mi.data_ptr(), B,
-                   L, P, int(check_initial), stop_min_len, p3_max_intv,
-                   p3_stop, *ptrs, fma.K if K_eff else 0, K_eff,
-                   out_i.data_ptr(), out_p.data_ptr(), out_b.data_ptr())
-        _count(_EXTEND_FN, fmi, kstep)
-    planes = {**dict(zip(_I_PLANES, out_i)), **dict(zip(_P_PLANES, out_p)),
-              **{f: v.view(torch.bool) for f, v in zip(_B_PLANES, out_b)}}
-    # a row fetch a step at K = 1
-    planes.setdefault("rounds", planes["steps"])
-    if B:
-        _add_stats(stats, stats_key, planes["steps"], planes["rounds"])
-    _EXTEND_FN.last_steps = planes["steps"]
-    _EXTEND_FN.last_rounds = planes["rounds"]
-    return {f: planes[f] for f in sweep_keys(want_fail, merge_p3)}
+                [_form("sweep_pass_launch", fmi), *_fmi_args(fmi)])
+        ptrs = [t.data_ptr() for t in lad] or [None] * 3
+        ptr = lambda t: None if t is None else t.data_ptr()
+        c, ln = codes.contiguous(), lens.contiguous()
+        LIB.launch(dev, *form, c.data_ptr(), ln.data_ptr(), *task_ptrs, T,
+                   B, L, P, min_seed_len, max_out, p3_max_intv, p3_stop,
+                   *ptrs, fma.K if K_eff else 0, K_eff, out.data_ptr(),
+                   cnt.data_ptr(),
+                   *(ptr(r) for r in recs), ptr(steps),
+                   ptr(rounds) if kstep else None, *acc)
+        _count(_PASS_FN, fmi, kstep)
+    _PASS_FN.last_steps, _PASS_FN.last_rounds = steps, rounds
+    ext = {}
+    if merge:
+        for names, r in zip(_REC_PLANES, recs):
+            ext.update(zip(names, r.view(torch.bool) if r.dtype ==
+                           torch.uint8 else r))
+    return SmemBuf(*fields, cnt), ext
+
+
+def walked_steps(steps: torch.Tensor, tasks=None) -> torch.Tensor:
+    """The plain version's per-lane steps [rows, P] as the pass launch
+    walks its lanes: pass 2 (`tasks`) leaves each lane past its task's
+    column unwalked (steps 0); pass 1 walks every lane."""
+    if tasks is None:
+        return steps
+    pcol = torch.arange(steps.shape[1], device=steps.device)[None, :]
+    return torch.where(pcol <= tasks[1].to(steps.device)[:, None], steps, 0)
 
 
 # kernel launches since the last reset (main-path proof in chip_smoke.py):
-# all, and the int64 form's; the per-lane forward steps of the last call
-extend_all_positions_cuda.launches = 0
-extend_all_positions_cuda.launches64 = 0
-extend_all_positions_cuda.launches_k = 0
-extend_all_positions_cuda.last_steps = None      # [B, P] int32
-extend_all_positions_cuda.last_rounds = None     # [B, P] int32
-# the wrapper itself, for its counts: a caller may swap the module's name
-_EXTEND_FN = extend_all_positions_cuda
+# all, the int64 form's and the k-step form's; with keep_steps (off on
+# the main path) each lane's steps and row fetches of the last call
+sweep_pass_cuda.launches = 0
+sweep_pass_cuda.launches64 = 0
+sweep_pass_cuda.launches_k = 0
+sweep_pass_cuda.keep_steps = False
+sweep_pass_cuda.last_steps = None       # [B | T, P] int32, or None
+sweep_pass_cuda.last_rounds = None
+_PASS_FN = sweep_pass_cuda
 
 
-# the merged stage's running maximum and ticket of each (device, stream):
-# zeroed when first made, left zero by every launch
+# each kernel's running maxima and ticket on each (device, stream): the
+# merged stage's two words, the sweep's four; zeroed when first made, left
+# zero by every launch
 _RUN: dict = {}
 _RUN_LOCK = threading.Lock()
 
 
-def _run_words(dev: torch.device) -> torch.Tensor:
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+def _run_words(dev: torch.device, n: int = 2) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, n)
     with _RUN_LOCK:
         if key not in _RUN:
-            _RUN[key] = torch.zeros((2,), dtype=torch.int64, device=dev)
+            _RUN[key] = torch.zeros((n,), dtype=torch.int64, device=dev)
         return _RUN[key]
 
 
@@ -249,19 +317,40 @@ seed_strategy_merged_cuda.last_steps = None      # [B] int32
 _MERGED_FN = seed_strategy_merged_cuda
 
 
+# the twin's per-lane planes, int32, position and bool
+_I_PLANES = ("E", "f3_E", "steps", "rounds")
+_P_PLANES = ("k", "l", "s", "fail_k", "fail_l", "fail_ss", "f3_k", "f3_l",
+             "f3_ss")
+_B_PLANES = ("fail_s", "f3_s", "died_s", "valid")
+
+
 def sweep_extend_twin(count, cp_fused, sentinel_index: int, codes, lens,
                       min_intv, check_initial: bool, stop_min_len: int = 0,
                       p3_max_intv: int = 0, p3_stop: int = 0, n_pos: int = 0,
                       ladders=None, K_eff: int = 0, hi_steps=None,
-                      kstep=None) -> dict:
+                      kstep=None, emit=None, tasks=None) -> dict:
     """csrc/sweep.cu's sweep_extend_kernel in plain Python on numpy
     arrays, one lane after another: the FMA start from the lane's ladder
-    row (`ladders` = (k, l, s) [4^K, K] with K_eff >= 2, else none), then
-    one forward step a column (two a row fetch with `kstep`,
-    ``smem_cuda.kstep_tables``' k-gram table) until an N, the read's end
-    or a size failure. With `hi_steps` (``smem_cuda.twin_tables``) the
-    int64 form. Returns every output plane of the kernel by name, steps
-    and rounds (row fetches) included."""
+    row (`ladders` = (k, l, s) [4^K, K] with K_eff >= 2, else none): the
+    row's first `cap` sizes in one trip (with check_initial), then k and l
+    at j* - 1 in a second; then one forward step a column (two a row
+    fetch with `kstep`, ``smem_cuda.kstep_tables``' k-gram table) until an
+    N, the read's end or a size failure. With `hi_steps`
+    (``smem_cuda.twin_tables``) the int64 form. Returns every output plane
+    of the plain ``extend_all_positions`` by name over the lanes' rows
+    (the kernel writes only those its passes read; `check_initial` False
+    and `stop_min_len`, which its passes do not take, follow the plain
+    version), steps and rounds (row fetches) included, ``start_trips`` (each lane's dependent ladder
+    trips before its first FM step), ``rows`` (the distinct 32-byte
+    checkpoint rows, k-step groups, the steps read) and
+    ``ladder_sectors`` (the distinct 32-byte ladder sectors the starts
+    read). With `emit` = (min_seed_len, max_out) the pass forms'
+    emission too, under ``smem``: (m, n, k, l, s, cnt) of each read, the
+    left-maximal matches ranked in lane order into the read's slots.
+    With `tasks` = (t_read, t_x, t_mi, t_valid) pass 2: a row of lanes a
+    task over its read (none for an invalid task, and none past t_x: the
+    kernel does not walk them; `min_intv` unused), the matches covering
+    t_x, a read's tasks in task order."""
     fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
     kt = None if kstep is None else _TwinK(fm, *kstep)
     C = fm.count
@@ -270,25 +359,36 @@ def sweep_extend_twin(count, cp_fused, sentinel_index: int, codes, lens,
     P = n_pos or L
     merge = p3_max_intv > 0 and p3_stop > 0
     pd = np.int32 if hi_steps is None else np.int64
-    out = {f: np.zeros((B, P), np.int32) for f in _I_PLANES}
-    out.update({f: np.zeros((B, P), pd) for f in _P_PLANES})
-    out.update({f: np.zeros((B, P), bool) for f in _B_PLANES})
+    if tasks is None:
+        lane_rows = [(b, int(lens[b]), int(min_intv[b])) for b in range(B)]
+    else:
+        t_read, t_x, t_mi, t_valid = (np.asarray(a) for a in tasks)
+        lane_rows = [(int(t_read[t]), int(lens[t_read[t]]) if t_valid[t]
+                      else 0, int(t_mi[t])) for t in range(len(t_read))]
+    R = len(lane_rows)
+    out = {f: np.zeros((R, P), np.int32) for f in _I_PLANES}
+    out.update({f: np.zeros((R, P), pd) for f in _P_PLANES})
+    out.update({f: np.zeros((R, P), bool) for f in _B_PLANES})
+    out["start_trips"] = np.zeros((R, P), np.int32)
     clip = lambda c: min(max(c, 0), 3)
+    sectors = set()
     if K_eff:
         lk, ll, ls = (np.asarray(a) for a in ladders)
         K = lk.shape[1]
-    for b in range(B):
-        n_len, mi = int(lens[b]), int(min_intv[b])
+        pb = lk.dtype.itemsize
+    for r, (b, n_len, mi) in enumerate(lane_rows):
 
         def code(i):
             return min(int(codes[b, i]), 4) if i < L else 4
 
         for p in range(P):
+            if tasks is not None and p > int(t_x[r]):
+                continue                 # past the task's column: not walked
             c0 = code(p)
             base_ok = p < n_len and c0 < 4
             k = l = s = 0
             died = fs = f3s = False
-            fk = fl = fss = f3k = f3l = f3ss = f3E = steps = 0
+            fk = fl = fss = f3k = f3l = f3ss = f3E = steps = trips = 0
             if K_eff:                            # the K-mer's ladder row
                 cap, lead, km = 0, True, 0
                 for i in range(K):
@@ -297,13 +397,24 @@ def sweep_extend_twin(count, cp_fused, sentinel_index: int, codes, lens,
                         lead = lead and 0 <= c < 4 and p + i < n_len
                         cap += lead
                     km = 4 * km + clip(c)
+                row = km * K
                 jstar = cap
                 if check_initial:
+                    # trip 1: the row's first cap sizes, all at once
+                    sv = [int(ls[km, i]) for i in range(cap)]
+                    sectors.update((2, (row + i) * pb // 32)
+                                   for i in range(cap))
+                    trips += cap > 0
                     jstar = 0
-                    while jstar < cap and int(ls[km, jstar]) >= mi:
+                    while jstar < cap and sv[jstar] >= mi:
                         jstar += 1
-                if jstar:
+                if jstar:                        # trip 2: k and l at j* - 1
                     k, l, s = (int(a[km, jstar - 1]) for a in (lk, ll, ls))
+                    at = (row + jstar - 1) * pb // 32
+                    sectors.update((0, at), (1, at))
+                    if not check_initial:
+                        sectors.add((2, at))
+                    trips += 1
                 E = p + jstar
                 act = jstar == K_eff and p + K_eff < n_len
                 died = merge and jstar < cap
@@ -344,14 +455,47 @@ def sweep_extend_twin(count, cp_fused, sentinel_index: int, codes, lens,
                     E, k, l, s = j + d + 1, nk, nl, ns
                     t += 1
             for f, v in (("E", E), ("f3_E", f3E), ("steps", steps),
-                         ("rounds", rounds),
+                         ("rounds", rounds), ("start_trips", trips),
                          ("k", k), ("l", l), ("s", s), ("fail_k", fk),
                          ("fail_l", fl), ("fail_ss", fss), ("f3_k", f3k),
                          ("f3_l", f3l), ("f3_ss", f3ss), ("fail_s", fs),
                          ("f3_s", f3s), ("died_s", died),
                          ("valid", base_ok)):
-                out[f][b, p] = v
+                out[f][r, p] = v
+    out["rows"] = len(fm.seen)
+    out["ladder_sectors"] = len(sectors)
+    if emit is not None:
+        out["smem"] = _twin_emit(out, lane_rows, B, P, *emit,
+                                 None if tasks is None else tasks[1], pd)
     return out
+
+
+def _twin_emit(out, lane_rows, B: int, P: int, min_seed_len: int, M: int,
+               t_x, pd):
+    """The pass forms' emission of sweep_extend_twin: each read's lanes in
+    the kernel's order (its rows, then columns), a lane emitting where p
+    = 0 or the lane before it has a smaller E, E - p >= min_seed_len and
+    (pass 2) p <= t_x < E; slot r of the read is its r-th emission, those
+    past M dropped while cnt counts them. Returns (m, n, k, l, s, cnt)."""
+    sm = [np.zeros((B, M), np.int32), np.zeros((B, M), np.int32),
+          *(np.zeros((B, M), pd) for _ in range(3))]
+    cnt = np.zeros(B, np.int32)
+    E = out["E"]
+    for r, (b, n_len, _) in enumerate(lane_rows):
+        if t_x is not None and not n_len:
+            continue                             # an invalid task
+        for p in range(P):
+            e = int(E[r, p])
+            em = (p == 0 or E[r, p - 1] < e) and e - p >= min_seed_len
+            if t_x is not None:
+                em = em and p <= t_x[r] < e
+            if em:
+                if cnt[b] < M:
+                    for a, v in zip(sm, (p, e - 1, out["k"][r, p],
+                                         out["l"][r, p], out["s"][r, p])):
+                        a[b, cnt[b]] = v
+                cnt[b] += 1
+    return (*sm, cnt)
 
 
 def seed_strategy_merged_twin(count, codes, lens, ext, stop_min_len: int,

@@ -556,7 +556,10 @@ class GpuAligner:
 
     def tick_report(self, file=sys.stderr):
         """Lockstep-loop ticks per main batch (each exit test of those
-        loops is one host synchronisation on a GPU)."""
+        loops is one host synchronisation on a GPU), or the kernels'
+        counters under their own names: steps, totals and rounds; the
+        sweep's pass 2 as sweep_walked_*_p2, over the lanes its kernel
+        walks (each task's columns up to its t_x), not every lane."""
         if not self.batches:
             return
         per = {k: v / self.batches for k, v in sorted(self.stats.items())}

@@ -12,11 +12,13 @@ engine's glue issues a batch: each is one launch (or more) and a host
 dispatch on the card, so the count is what the glue costs the host. A
 count, not a time: it is the same on the CPU and on the card. Pass 3's
 merged stage (``smems_seed_strategy_merged``) is one launch on the card,
-so the sweep and the ERT replay it whole. Then the merged stage alone on
-the sweep's call: its earlier glue (the plain version's torch operations
-with the restart chain replayed, run on the CPU, the port's stage before
-csrc/sweep.cu's seed_strategy_merged_kernel) and the stage as the main
-path calls it (on the card the kernel: the outputs' allocations, the
+so the sweep and the ERT replay it whole; so are the sweep's passes 1
+and 2 (``sweep_cuda.sweep_pass_cuda``: the extension and its emission
+in one launch each), which the sweep replays whole too. Then the merged
+stage alone on the sweep's call: its earlier glue (the plain version's
+torch operations with the restart chain replayed, run on the CPU, the
+port's stage before csrc/sweep.cu's seed_strategy_merged_kernel) and the
+stage as the main path calls it (on the card the kernel: the outputs' allocations, the
 launch a ctypes call; on the CPU the plain version with its chase).
 
 Then the SA lookup stage on the one-hot engine's SMEMs of the same batch
@@ -126,7 +128,7 @@ def main(argv=None) -> int:
         lambda: smem_oh.collect_smems_oh(fmi, c, ln, emit_depth=24,
                                          stack_depth=24, **kw))
     sweep = _replayed(
-        [(sweep_cuda, "extend_all_positions_cuda"),
+        [(sweep_cuda, "sweep_pass_cuda"),
          (smem, "smems_seed_strategy_merged")],
         lambda: smem.collect_smems_device(fmi, c, ln, fma=table, **kw))
     trie = _replayed(

@@ -55,9 +55,9 @@ Phases, in order; any failure exits non-zero:
               counts them), with its steps, bound (from the steps),
               rounds (passes 1-2: the dependent occ round trips of each
               task; a pass-3 or SA-walk step is one; the stage's five
-              arrays, every slot, and its steps equal to the bare walk's
-              on the plain version's rows, the bare walk held and timed
-              there too, and at each retry tier's coordinate capacity and
+              arrays, every slot, and its steps equal to the plain
+              version's, the bare walk held and timed on the plain
+              version's rows, and at each retry tier's coordinate capacity and
               on the repeat batch), latency floor (the
               longest task's rounds x 0.224 us), the kernel's device time
               and the plain version's; its two chaining launches, as
@@ -132,16 +132,21 @@ Phases, in order; any failure exits non-zero:
               sweep` byte-equal to phase 7's; phase 5's batch and the
               repeat batch through collect_smems_device with and without
               the table, at both layouts: SmemBuf equal to the plain
-              versions', each launch as made (two sweeps, one merged
-              stage) against its plain version (records and SmemBuf,
-              max_abs_err 0, per-lane or per-read steps), with its total
-              and longest-lane steps, bound (the sweep: 64 bytes and 45
-              operations an FM step; the merged stage: its codes, the
-              visited columns' records and its outputs), latency floor
-              (the sweep: the longest lane's steps x 0.224 us; the merged
-              stage: an L2 trip + the longest read's steps x a warp's
-              round, both measured), device and plain times; the
-              engines' seeding kernels side by side.
+              versions', each launch as made (two sweep passes, each
+              its extension and its emission in one launch, and one
+              merged stage) against its plain version (records and
+              SmemBuf, max_abs_err 0, per-lane or per-read steps), with
+              its total and longest-lane steps, bound (the sweep, where
+              its twin runs (every int32 run, and phase 5's batch with
+              the table at int64): the distinct 32-byte checkpoint rows
+              and ladder sectors the twin counts, read once, the codes,
+              the task list and the outputs, and 45 operations an FM
+              step; the merged stage: its codes, the visited columns'
+              records and its outputs), latency floor (the sweep: the
+              longest lane's row fetches x an L2 trip + one HBM trip;
+              the merged stage: an L2 trip + the longest read's steps x
+              a warp's round; all measured), device and plain times;
+              the engines' seeding kernels side by side.
  10. longread: the long-read regime (the seed-SW filter of
               mem_flt_chained_seeds, ops/seedsw.py, csrc/seedsw.cu) on
               phase 4's genome, index and EMF table: SE `mem --device cuda`
@@ -172,8 +177,10 @@ Phases, in order; any failure exits non-zero:
               once a batch and the SE kernels at least once; the API's
               reads/s, one batch's kernel device ms, plain ms, the host
               probe's ms, bound, latency floor (the longest read's
-              dependent trips x one dependent HBM trip, probe B on a 512
-              MiB table in this run) and the table's device bytes; (b) a
+              dependent trips, counted by the kernel's twin
+              emf_lookup_twin, x one dependent HBM trip, probe B on a
+              512 MiB table in this run) and the table's device bytes;
+              (b) a
               1 Mbp genome whose 64 units (60 bp, 4 copies each) share a
               prefix longer than the seed (a table at -l 51): 512 exact
               reads, each kernel output equal to the plain version's,
@@ -223,13 +230,16 @@ Phases, in order; any failure exits non-zero:
               (byte-equal to phase 9's, every sweep launch a k-step
               form); phase 5's batch and the repeat batch through each
               k-step launch as made (passes 1-2 and pass 3 one-hot, the
-              sweep's two extensions with the FMA table) at both tables,
+              sweep's two passes with the FMA table) at both tables,
               each equal to its plain version (max_abs_err 0, steps too)
               and to the K = 1 form on the same inputs, with its rounds
-              beside K = 1's, bound (64 bytes a base step), latency floor
-              (the longest lane's rounds x probe B's L2 trip for the
-              bigram table, its HBM trip for the trigram one, both
-              measured in the run) and device ms beside the K = 1 form's.
+              beside K = 1's, bound (one-hot: 64 bytes a base step; the
+              sweep's pass 1 on phase 5's batch at K = 2: the twin's
+              distinct rows and ladder sectors, as phase 9), latency
+              floor (the longest lane's rounds x probe B's L2 trip for
+              the bigram table, its HBM trip for the trigram one, both
+              measured in the run; the sweep adds one HBM trip for its
+              start) and device ms beside the K = 1 form's.
  14. readlane: the readlane engine (csrc/readlane.cu): SE `mem
               --seed-engine readlane` (SAM byte-equal to phase 4's), its
               `-v 4` table, PE, the forced int64 layout and the k-step
@@ -834,11 +844,14 @@ def sal_launch(dev, card, args, batch="the batch"):
 
 def sal_stage_launch(dev, card, args, kw, batch="the batch"):
     """A call of the SA lookup stage's kernel pair (csrc/sal.cu), as made,
-    against expand_and_lookup_plain on all five outputs, every slot; the
-    bare walk (sal_launch) on the plain version's own list of walked rows
-    (the flat list, or the [B, C] grid), its per-lane steps equal to the
-    pair's; the bound: the SMEM records read once (cnt, s of every SMEM
-    below its read's count, and k of every SMEM that owns a walked slot:
+    against expand_and_lookup_plain on all five outputs, every slot, and
+    on its per-lane steps; the bare walk (sal_launch) held against its
+    plain version on the plain version's own list of walked rows (the
+    flat list, or the [B, C] grid), whose count is the bound's walked
+    slots (the two walks' per-lane steps are compared by
+    tools/sal_before_after.py, not here); the bound: the SMEM records
+    read once (cnt, s of every SMEM below its read's count, and k of
+    every SMEM that owns a walked slot:
     a valid slot, on the flat path one among the list's first K), the
     five outputs written once (rbeg at the positions' 4 or 8 bytes, seed_idx 4 and
     coord_valid 1 a slot, total 4 and overflow 1 a read), a 32-byte row
@@ -853,7 +866,6 @@ def sal_stage_launch(dev, card, args, kw, batch="the batch"):
     from bwa_mem_scale_tpu_torch.ops import sal
     from bwa_mem_scale_tpu_torch.ops.sal_cuda import (expand_and_lookup_cuda,
                                                       flat_size)
-    from bwa_mem_scale_tpu_torch.ops.smem_cuda import sa_walk_cuda
     what = f"SA lookup stage (csrc/sal.cu), {batch}"
     got, r = walk_launch(dev, what, expand_and_lookup_cuda,
                          sal.expand_and_lookup_plain, args, 1, kw)
@@ -870,9 +882,6 @@ def sal_stage_launch(dev, card, args, kw, batch="the batch"):
     fmi, pos, valid = walked[0]
     if fmi.sa_compx:
         r["walk"] = sal_launch(dev, card, (fmi, pos, valid), batch)
-        if not torch.equal(sa_walk_cuda.last_steps, steps):
-            raise SystemExit(f"slice: {what}: per-lane steps differ from the "
-                             f"bare walk's on the same rows")
     r["wall_ms"] = time_ms(lambda: expand_and_lookup_cuda(
         *args, **{k: v for k, v in kw.items() if k != "stats"}), 20, dev)
     smems, C = args[1], args[3]
@@ -1822,8 +1831,7 @@ def phase_probes(dev, card):
 # the sweep engine's kernels (phase 9, csrc/sweep.cu): name, wrapper
 # attribute of ops/sweep_cuda.py, and the JAX loop each replaces
 SWEEP_KERNELS = (
-    ("sweep_extend", "extend_all_positions_cuda",
-     "bwa_mem_scale_tpu/ops/smem.py:109"),
+    ("sweep_extend", "sweep_pass_cuda", "bwa_mem_scale_tpu/ops/smem.py:109"),
     ("seed_strategy_merged", "seed_strategy_merged_cuda",
      "bwa_mem_scale_tpu/ops/smem.py:468"))
 # the merged stage (csrc/sweep.cu seed_strategy_merged_kernel): a column
@@ -1878,33 +1886,119 @@ def sweep_wrappers():
             for name, attr, _ in SWEEP_KERNELS}
 
 
-def sweep_kernel_launch(dev, card, what, kernel, plain, args, kw, nbytes,
-                        ops_per_step):
-    """One sweep-engine launch as made, through walk_launch (each output
-    and each lane's steps equal to the plain version's, the latency floor
-    from the longest lane's steps); its bound from nbytes(total steps,
-    the output) and ops_per_step a step."""
+def sweep_pass_launch(dev, card, what, args, kw, trips, twin=False):
+    """One sweep pass launch as made (sweep_pass_cuda: the extension and
+    the emission in one launch) against the plain version
+    (sweep_pass_plain) on the same inputs: every SmemBuf field, the merged
+    records and each lane's steps equal; its device time (mean of 2,
+    around the plain version's). Latency floor: the longest lane's row
+    fetches (its steps at K = 1) x the L2 trip + one HBM trip (the FMA
+    start), `trips` = (L2 trip, HBM trip) in us, measured in this run.
+    With `twin`, sweep_extend_twin on the same inputs (equal SmemBuf and
+    steps) counts what the bound needs: the distinct 32-byte checkpoint
+    rows the steps read and the ladder sectors the starts read, once
+    each, beside the codes and lengths (and the task list) read once and
+    the outputs written once, over 3.35 TB/s; SMEM_OPS_PER_STEP operations
+    a step; and each lane's dependent trips before its first step.
+    Returns the numbers."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import smem, smem_cuda, sweep_cuda
+    kernel = sweep_cuda.sweep_pass_cuda
     kw = {k: v for k, v in kw.items() if k != "stats"}
-    got, r = walk_launch(dev, what, kernel, plain, args, 1, kw)
-    r["bound"] = bound(nbytes(r["steps"], got), ops_per_step * r["steps"])
-    lanes = int((kernel.last_steps > 0).sum())
-    log_walk(card, what, r, f"{r['steps']} steps over {lanes} lanes",
-             tag="sweep")
+    kernel.keep_steps = True
+    try:
+        got, recs = kernel(*args, **kw)
+    finally:
+        kernel.keep_steps = False
+    steps, rounds = kernel.last_steps.long(), kernel.last_rounds.long()
+    want, wrecs = smem.sweep_pass_plain(*args, **kw)
+    plain_steps = sweep_cuda.walked_steps(
+        smem.extend_all_positions.last_steps, kw.get("tasks")).long()
+    torch.cuda.synchronize()
+    if set(recs) != set(wrecs):
+        raise SystemExit(f"sweep: {what}: records {sorted(recs)} != "
+                         f"{sorted(wrecs)}")
+    pairs = list(zip(got, want)) + [(recs[f], wrecs[f]) for f in wrecs]
+    err = max(float((a.double() - b.double()).abs().max()) if a.numel()
+              else 0.0 for a, b in pairs)
+    if err or not all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in pairs):
+        raise SystemExit(f"sweep: {what} != plain (max_abs_err {err})")
+    if not torch.equal(steps, plain_steps):
+        raise SystemExit(f"sweep: {what}: per-lane steps differ from the "
+                         f"plain version's (its lanes the launch walks)")
+    ms = [device_ms(lambda: kernel(*args, **kw), 20, dev)]
+    plain_ms = time_ms(lambda: smem.sweep_pass_plain(*args, **kw), 1, dev)
+    ms.append(device_ms(lambda: kernel(*args, **kw), 20, dev))
+    r = dict(err=err, ms=sum(ms) / 2, plain_ms=plain_ms,
+             steps=int(steps.sum()), longest=int(steps.max()),
+             rounds=int(rounds.sum()), longest_rounds=int(rounds.max()),
+             bound=None)
+    r["floor"] = (r["longest_rounds"] * trips[0] + trips[1]) * 1e-3
+    fmi, codes, lens, msl, M = args[:5]
+    B, P = codes.shape[0], kw["n_pos"]
+    tasks = kw.get("tasks")
+    detail = ""
+    if twin:
+        table = kw.get("fma")
+        merged, K_eff = smem.sweep_window(table, 0, kw.get("p3_max_intv", 0),
+                                          kw.get("p3_stop", 0))
+        merged = merged and tasks is None
+        tabs = smem_cuda.twin_tables(fmi)
+        np_ = lambda t: t.cpu().numpy()
+        tw = sweep_cuda.sweep_extend_twin(
+            *tabs[:3], np_(codes), np_(lens), np.ones(B, np.int32), True, 0,
+            kw.get("p3_max_intv", 0), kw.get("p3_stop", 0), P,
+            ladders=None if not K_eff else tuple(
+                np_(t) for t in (table.ladder_k, table.ladder_l,
+                                 table.ladder_s)),
+            K_eff=K_eff, hi_steps=tabs[3], kstep=smem_cuda.kstep_tables(fmi),
+            emit=(msl, M),
+            tasks=None if tasks is None else tuple(np_(t) for t in tasks))
+        if not (np.array_equal(tw["steps"], np_(steps))
+                and all(np.array_equal(np_(a), b)
+                        for a, b in zip(got, tw["smem"]))):
+            raise SystemExit(f"sweep: {what}: the twin's SMEMs or steps "
+                             f"differ from the launch's")
+        pb = fmi.pos_dtype.itemsize
+        T = 0 if tasks is None else tasks[0].shape[0]
+        nbytes = (32 * tw["rows"] + 32 * tw["ladder_sectors"]
+                  + 4 * (codes.numel() + B) + 13 * T
+                  + (8 + 3 * pb) * B * M + 4 * B
+                  + ((10 + 3 * pb) * B * P if merged else 0))
+        r["bound"] = bound(nbytes, SMEM_OPS_PER_STEP * r["steps"])
+        r.update(rows=tw["rows"], sectors=tw["ladder_sectors"],
+                 start_trips=int(tw["start_trips"].max()))
+        detail = (f"; the twin: {tw['rows']} distinct checkpoint rows, "
+                  f"{tw['ladder_sectors']} ladder sectors, at most "
+                  f"{r['start_trips']} dependent trips before a lane's "
+                  f"first step, equal SMEMs and steps; bound "
+                  f"{r['bound'][0]:.6f} ms by {r['bound'][1]}")
+    log(f"[sweep] {what}: equal to the plain version (max_abs_err "
+        f"{r['err']}), every SmemBuf field, {len(recs)} record planes and "
+        f"each lane's steps; {r['steps']} steps (the longest lane "
+        f"{r['longest']}) in {r['rounds']} row fetches (the longest "
+        f"{r['longest_rounds']}); {int(got.cnt.sum())} SMEMs{detail}; "
+        f"latency floor {r['floor']:.5f} ms ({r['longest_rounds']} x "
+        f"{trips[0]:.4f} us + {trips[1]:.4f} us); kernel device time "
+        f"{r['ms']:.5f} ms (mean of 2), plain {r['plain_ms']:.2f} ms  "
+        f"[{card}]")
     return r
 
 
-def sweep_batch(dev, card, fmi, table, c, ln, batch, trips):
+def sweep_batch(dev, card, fmi, table, c, ln, batch, trips, twin=False):
     """collect_smems_device on one batch with the kernels, every launch
     recorded, equal to the whole call with the plain versions swapped in;
-    then each launch as made (two sweeps, one merged stage) against its
-    plain version with its steps, bound, floor and times; trips: (an L2
-    trip, a warp's round) in us. Returns the three launches' numbers."""
+    then each launch as made (two sweep passes, one merged stage) against
+    its plain version with its steps, floor and times (with `twin`, the
+    passes' bounds from the twin); trips: (an L2 trip, a warp's round, an
+    HBM trip) in us. Returns the three launches' numbers."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import smem, sweep_cuda
     kw = dict(min_seed_len=19, split_len=28, split_width=10,
               max_mem_intv=20)
     real = {attr: getattr(sweep_cuda, attr) for _, attr, _ in SWEEP_KERNELS}
-    plain = {"extend_all_positions_cuda": smem.extend_all_positions,
+    plain = {"sweep_pass_cuda": smem.sweep_pass_plain,
              "seed_strategy_merged_cuda": smem.seed_strategy_merged_plain}
     calls = {attr: [] for attr in real}
 
@@ -1937,31 +2031,21 @@ def sweep_batch(dev, card, fmi, table, c, ln, batch, trips):
     log(f"[sweep] {batch}: collect_smems_device SmemBuf equal with the "
         f"kernels and with the plain versions ({int(got.cnt.sum())} SMEMs, "
         f"{int((got.cnt == got.m.shape[1]).sum())} reads saturated)")
-    pb = fmi.pos_dtype.itemsize
     K_eff = 0 if table is None else min(table.K, kw["min_seed_len"])
     res = []
-    for n, (args, k) in enumerate(calls["extend_all_positions_cuda"]):
+    for n, (args, k) in enumerate(calls["sweep_pass_cuda"]):
         codes, B, P = args[1], args[1].shape[0], k["n_pos"]
-        merged = k.get("p3_max_intv", 0) > 0
-        # inputs (codes, lens, min_intv; the ladder entries a lane reads:
-        # its row's sizes and k, l), 64 bytes a step, the returned planes
-        # (E, k, l, s, valid; merged: f3_s, f3_E, f3_k/l/ss, died_s)
-        lane_out = 5 + 3 * pb + (6 + 3 * pb if merged else 0)
-
-        def nbytes(steps, _, B=B, P=P, codes=codes, lane_out=lane_out):
-            return (4 * (codes.numel() + 2 * B) + (K_eff + 2) * pb * B * P
-                    + SMEM_BYTES_PER_STEP * steps + lane_out * B * P)
         what = (f"{batch}, sweep launch {n + 1}/2 (pass {n + 1}: B={B}, "
-                f"L={codes.shape[1]}, P={P}, FMA K_eff {K_eff})")
-        res.append(sweep_kernel_launch(
-            dev, card, what, real["extend_all_positions_cuda"],
-            smem.extend_all_positions, args, k, nbytes, SMEM_OPS_PER_STEP))
+                f"L={codes.shape[1]}, P={P}, M={args[4]}, FMA K_eff "
+                f"{K_eff})")
+        res.append(sweep_pass_launch(dev, card, what, args, k,
+                                     (trips[0], trips[2]), twin))
     args, k = calls["seed_strategy_merged_cuda"][0]
     B, P = args[3]["E"].shape
     res.append(merged_launch(
         dev, card, f"{batch}, merged-stage launch (B={B}, "
         f"L={args[1].shape[1]}, P={P}, max_out={args[6]})",
-        real["seed_strategy_merged_cuda"], args, k, *trips))
+        real["seed_strategy_merged_cuda"], args, k, *trips[:2]))
     return res
 
 
@@ -2110,11 +2194,13 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
     fma_r = build_fma_table(fmi_r[False], K=fma.K)
     fmi_4 = {False: al.fmi,
              True: DeviceFMIndex.from_host(al.idx, dev, force_int64=True)}
-    res = {}
-    trips = (dependent_trip_us(dev, L2_ROWS), round_cost.round_us(dev))
-    log(f"[sweep] the merged stage's floor: one dependent trip in the L2 "
-        f"(probe B, {L2_ROWS} rows) {trips[0]:.4f} us, a warp's dependent "
-        f"round (tools/round_cost.py) {trips[1]:.4f} us  [{card}]")
+    res, p5 = {}, "phase 5's batch"
+    trips = (dependent_trip_us(dev, L2_ROWS), round_cost.round_us(dev),
+             dependent_trip_us(dev, HBM_ROWS))
+    log(f"[sweep] the floors: one dependent trip in the L2 (probe B, "
+        f"{L2_ROWS} rows) {trips[0]:.4f} us, a warp's dependent round "
+        f"(tools/round_cost.py) {trips[1]:.4f} us, one dependent HBM trip "
+        f"(probe B, {HBM_ROWS} rows) {trips[2]:.4f} us  [{card}]")
     for wide in (False, True):
         pd = torch.int64 if wide else torch.int32
         for batch, fmi, table, cc, ll in (
@@ -2126,10 +2212,10 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
                 label = (f"{batch}, {'with' if use else 'without'} the "
                          f"table{', int64 form' if wide else ''}")
                 r = sweep_batch(dev, card, fmi, table.to_device(pd, dev)
-                                if use else None, cc, ll, label, trips)
+                                if use else None, cc, ll, label, trips,
+                                twin=not wide or (use and batch == p5))
                 res[wide, batch, use] = r
                 torch.cuda.empty_cache()
-    p5 = "phase 5's batch"
     one, bare = res[False, p5, True], res[False, p5, False]
     oh = [*slice32["one_pos_machine"], slice32["seed_strategy_machine"]]
     log(f"[sweep] engines on phase 5's batch, seeding kernels' device ms: "
@@ -2451,13 +2537,19 @@ def emf_against_plain(args, got, what):
 
 
 def emf_launch(dev, card, args, want, st, trip_us, what):
-    """One EMF launch's work, bound and latency floor from the plain
-    version's counts, and its times: the kernel's device ms (mean of 2,
-    around the plain version's) and the plain version's."""
+    """One EMF launch's work and bound from the plain version's counts,
+    its latency floor from the kernel's twin (emf_lookup_twin, equal to
+    the plain version's outputs: the longest read's dependent trips x one
+    HBM trip, measured in this run), and its times: the kernel's device
+    ms (mean of 2, around the plain version's) and the plain version's."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import emf_cuda
     from bwa_mem_scale_tpu_torch.ops.emf import emf_lookup
     demf, ref, c, ln = args
+    tw = emf_cuda.emf_lookup_twin(*args)
+    if not all(np.array_equal(tw[k], want[k].cpu().numpy()) for k in want):
+        raise SystemExit(f"emf: {what}: the twin differs from the plain "
+                         f"version")
     B, L = c.shape
     n = ln.long().clamp(0, L)
     cand = want["n_loc"] > 0
@@ -2473,7 +2565,7 @@ def emf_launch(dev, card, args, want, st, trip_us, what):
     words = (demf.seed_len + 31) // 32
     ops = (EMF_OPS_PER_WORD * words * B + EMF_OPS_PER_SLOT * slots
            + EMF_OPS_PER_COL * ref_bytes)
-    trips = int(st["trips"].max())
+    trips = int(tw["trips"].max())
     r = dict(bound=bound(nbytes, ops), trips=trips,
              floor=trips * trip_us * 1e-3, slots=slots, cands=cands,
              rescued=int(rescued.sum()), ref_bytes=ref_bytes, B=B, L=L,
@@ -2488,7 +2580,9 @@ def emf_launch(dev, card, args, want, st, trip_us, what):
         f"reference bytes checked, {r['rescued']} reads through the rescue "
         f"({cands} list entries); bound {r['bound'][0]:.6f} ms by "
         f"{r['bound'][1]}; latency floor {r['floor']:.5f} ms (the longest "
-        f"read's {trips} dependent trips x {trip_us:.4f} us); kernel device "
+        f"read's {trips} dependent trips by the twin, "
+        f"{int(tw['trips'][tw['code'] != 2].max(initial=0))} for a read "
+        f"it places, x {trip_us:.4f} us); kernel device "
         f"time {r['ms']:.5f} ms (mean of 2), plain {r['plain_ms']:.3f} ms  "
         f"[{card}]")
     return r
@@ -3144,7 +3238,7 @@ def kstep_wrappers():
     from bwa_mem_scale_tpu_torch.ops import smem_cuda, sweep_cuda
     return {"one_pos_machine": smem_cuda.one_pos_machine_cuda,
             "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
-            "sweep_extend": sweep_cuda.extend_all_positions_cuda}
+            "sweep_extend": sweep_cuda.sweep_pass_cuda}
 
 
 def kstep_calls(fmi, dbns, c, ln, opt, cfg, fma):
@@ -3157,7 +3251,7 @@ def kstep_calls(fmi, dbns, c, ln, opt, cfg, fma):
     mods = {"one_pos_machine": (smem_oh, "one_pos_machine_cuda"),
             "seed_strategy_machine": (smem_oh,
                                       "seed_strategy_machine_cuda"),
-            "sweep_extend": (sweep_cuda, "extend_all_positions_cuda")}
+            "sweep_extend": (sweep_cuda, "sweep_pass_cuda")}
     calls = {name: [] for name in mods}
     real = {name: getattr(mod, attr) for name, (mod, attr) in mods.items()}
 
@@ -3179,22 +3273,27 @@ def kstep_calls(fmi, dbns, c, ln, opt, cfg, fma):
     return calls
 
 
-def kstep_launch(dev, card, what, name, args, kw, fmi1, trip):
+def kstep_launch(dev, card, what, name, args, kw, fmi1, trip, hbm=0.0,
+                 twin=False):
     """One k-step launch as made, through walk_launch (every output and
-    each lane's steps equal to the plain version's on the same table);
-    then the K = 1 form on the same inputs (fmi1): equal outputs and
-    steps, its rounds and device time beside. Bound: the inputs, 64 bytes
-    a base step (two 32-byte groups an end; a walk that ends mid-stride
-    loads a group more) and 45 operations a step, the outputs; floor: the
-    longest lane's rounds x `trip` (us). Returns the numbers."""
+    each lane's steps equal to the plain version's on the same table; the
+    sweep's passes through sweep_pass_launch, its floor with one HBM trip
+    `hbm` for the FMA start, its bound from the twin with `twin`); then
+    the K = 1 form on the same inputs (fmi1): equal outputs and steps,
+    its rounds and device time beside. Bound (passes 1-3): the inputs, 64
+    bytes a base step (two 32-byte groups an end; a walk that ends
+    mid-stride loads a group more) and 45 operations a step, the
+    outputs; floor: the longest lane's rounds x `trip` (us). Returns the
+    numbers."""
     import torch
-    from bwa_mem_scale_tpu_torch.ops import smem, smem_oh
+    from bwa_mem_scale_tpu_torch.ops import smem_oh
     kernel = kstep_wrappers()[name]
+    if name == "sweep_extend":
+        return kstep_sweep(dev, card, what, args, kw, fmi1, (trip, hbm),
+                           twin)
     plain = {"one_pos_machine": smem_oh.one_pos_machine,
-             "seed_strategy_machine": smem_oh.seed_strategy_machine,
-             "sweep_extend": smem.extend_all_positions}[name]
-    n_args = {"one_pos_machine": 11, "seed_strategy_machine": 6,
-              "sweep_extend": 4}[name]
+             "seed_strategy_machine": smem_oh.seed_strategy_machine}[name]
+    n_args = {"one_pos_machine": 11, "seed_strategy_machine": 6}[name]
     args = args[:n_args]
     kw = {k: v for k, v in kw.items() if k != "stats"}
     before = kernel.launches_k
@@ -3206,8 +3305,7 @@ def kstep_launch(dev, card, what, name, args, kw, fmi1, trip):
     steps1 = kernel.last_steps.long()
     rounds1 = kernel.last_rounds.long()
     torch.cuda.synchronize()
-    pairs = ([(got[k], one[k]) for k in got] if isinstance(got, dict)
-             else list(zip(got, one)))
+    pairs = list(zip(got, one))
     if not all(torch.equal(a, b) for a, b in pairs) or r["steps"] != int(
             steps1.sum()):
         raise SystemExit(f"kstep: {what}: differs from the K = 1 form")
@@ -3221,17 +3319,8 @@ def kstep_launch(dev, card, what, name, args, kw, fmi1, trip):
         T, M = args[3].shape[0], args[9]
         nbytes = (4 * (codes.numel() + B + 3 * T) + T + (8 + 3 * pb) * T * M
                   + 4 * T)
-    elif name == "seed_strategy_machine":
-        nbytes = 4 * (codes.numel() + B) + (8 + 3 * pb) * B * args[5] + 4 * B
     else:
-        P = kw.get("n_pos") or codes.shape[1]
-        table = kw.get("fma")
-        K_eff = smem.sweep_window(table, kw.get("stop_min_len", 0),
-                                  kw.get("p3_max_intv", 0),
-                                  kw.get("p3_stop", 0))[1]
-        merged = kw.get("p3_max_intv", 0) > 0
-        nbytes = (4 * (codes.numel() + 2 * B) + (K_eff + 2) * pb * B * P
-                  + (5 + 3 * pb + (6 + 3 * pb if merged else 0)) * B * P)
+        nbytes = 4 * (codes.numel() + B) + (8 + 3 * pb) * B * args[5] + 4 * B
     r["bound"] = bound(nbytes + SMEM_BYTES_PER_STEP * r["steps"],
                        SMEM_OPS_PER_STEP * r["steps"])
     log(f"[kstep] {what}: equal to the plain version (max_abs_err "
@@ -3243,6 +3332,43 @@ def kstep_launch(dev, card, what, name, args, kw, fmi1, trip):
         f"({r['longest_rounds']} x {trip:.4f} us); kernel device time "
         f"{r['ms']:.5f} ms (mean of 2) against the K = 1 form's "
         f"{r['ms1']:.5f}, plain {r['plain_ms']:.2f} ms  [{card}]")
+    return r
+
+
+def kstep_sweep(dev, card, what, args, kw, fmi1, trips, twin):
+    """A k-step sweep pass as made, through sweep_pass_launch (every
+    SmemBuf field, record and lane's steps equal to the plain version's;
+    `trips` = (L2 trip, HBM trip)); then the K = 1 form on the same inputs
+    (fmi1): equal outputs and steps, its row fetches and device time
+    beside. Returns the numbers."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import sweep_cuda
+    kernel = sweep_cuda.sweep_pass_cuda
+    args = args[:5]
+    kw = {k: v for k, v in kw.items() if k not in ("stats", "stats_key")}
+    before = kernel.launches_k
+    r = sweep_pass_launch(dev, card, what, args, kw, trips, twin)
+    if kernel.launches_k == before:
+        raise SystemExit(f"kstep: {what}: no k-step form launched")
+    kernel.keep_steps = True
+    try:
+        got, recs = kernel(*args, **kw)
+        one, recs1 = kernel(fmi1, *args[1:], **kw)
+    finally:
+        kernel.keep_steps = False
+    steps1, rounds1 = kernel.last_steps.long(), kernel.last_rounds.long()
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(got, one))
+            and all(torch.equal(recs[f], recs1[f]) for f in recs)
+            and r["steps"] == int(steps1.sum())):
+        raise SystemExit(f"kstep: {what}: differs from the K = 1 form")
+    r["ms1"] = device_ms(lambda: kernel(fmi1, *args[1:], **kw), 20, dev)
+    r.update(rounds1=int(rounds1.sum()), longest_rounds1=int(rounds1.max()))
+    log(f"[kstep] {what}: equal to the K = 1 form, steps too; "
+        f"{r['rounds']} row fetches (the longest {r['longest_rounds']}) "
+        f"against K = 1's {r['rounds1']} ({r['longest_rounds1']}); kernel "
+        f"device time {r['ms']:.5f} ms against the K = 1 form's "
+        f"{r['ms1']:.5f}  [{card}]")
     return r
 
 
@@ -3405,7 +3531,7 @@ def phase_kstep(dev, card, tmp, se, pe, al):
                ("repeat batch", idx_r,
                 chain.DeviceBns.from_host(idx_r.bns, dev), codes_r, lens_r,
                 None))
-    res, cp2s = {}, {}
+    res, cp2s, p5 = {}, {}, "phase 5's batch"
     for batch, idx, dbns, cc, ll, table in batches:
         c = torch.as_tensor(cc, device=dev)
         ln = torch.as_tensor(ll, device=dev)
@@ -3426,13 +3552,14 @@ def phase_kstep(dev, card, tmp, se, pe, al):
                                 f"{n + 1}/{len(made)}"
                                 + (", FMA K=11" if fma_k is not None
                                    else ""))
-                        r = kstep_launch(dev, card, what, name, args, kw,
-                                         fmi1, trip)
+                        r = kstep_launch(
+                            dev, card, what, name, args, kw, fmi1, trip,
+                            trips[1], twin=(batch == p5 and K == 2 and n == 0
+                                            and fma_k is not None))
                         res.setdefault((batch, K, name, fma_k is not None),
                                        []).append(r)
             del fmi
             torch.cuda.empty_cache()
-    p5 = "phase 5's batch"
     # the batches, their k-gram tables and the trips, for phase 14
     out = {"launches": launches, "batches": batches, "cp2": cp2s,
            "trips": trips}
@@ -4397,10 +4524,12 @@ def main():
             ("sal_cuda", "sal_walk_kernelI{}", "sal_walk_kernel<{}>"),
             ("chain_cuda", "chain_seeds_kernelI{}", "chain_seeds_kernel<{}>"),
             ("chain_cuda", "chain_filter_kernelI{}", "chain_filter_kernel<{}>"),
-            ("sweep_cuda", "sweep_extend_kernelILi1E{}",
-             "sweep_extend_kernel<{}>"),
-            ("sweep_cuda", "sweep_extend_kernelILi2Ei",
-             "sweep_extend_kernel<K = 2, int32>"),
+            ("sweep_cuda", "sweep_extend_kernelILi1E{}Li1E",
+             "sweep_extend_kernel<{}, pass 1>"),
+            ("sweep_cuda", "sweep_extend_kernelILi1E{}Li2E",
+             "sweep_extend_kernel<{}, pass 2>"),
+            ("sweep_cuda", "sweep_extend_kernelILi2EiLi1E",
+             "sweep_extend_kernel<K = 2, int32, pass 1>"),
             ("sweep_cuda", "seed_strategy_merged_kernelI{}",
              "seed_strategy_merged_kernel<{}>"),
             ("ert_cuda", "ert_extend_kernelI{}", "ert_extend_kernel<{}>"),

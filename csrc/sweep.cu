@@ -1,65 +1,102 @@
 // The position-parallel sweep seeding engine for Hopper (sm_90a): its
-// per-lane forward extension and pass 3's merged stage, each whole in one
-// launch with no host synchronisation inside.
+// per-lane forward extension with passes 1 and 2's emission, and pass 3's
+// merged stage, each whole in one launch with no host synchronisation
+// inside.
 // - sweep_extend_kernel: the forward extension from every (read, start
-//   column) lane, optionally started from the FMA ladder table;
+//   column) lane, optionally started from the FMA ladder table; in its
+//   pass forms it also ranks and writes each read's SMEM slots;
 // - seed_strategy_merged_kernel: pass 3 from those records, its column
 //   glue and its restart chain together.
 // Each replaces code of bwa_mem_scale_tpu/ops/smem.py, through the port's
 // plain versions in ops/smem.py (lockstep loops with a host
 // synchronisation every 8 ticks, tens of small PyTorch launches a tick,
-// and the merged stage's glue as torch operations). Every output equals
-// the plain version's, bit for bit.
-//
-// What bounds the sweep on this card: chains of dependent loads, as for
-// every FM walk of the port (csrc/smem.cu's note). A lane's steps depend
-// on one another (each step's checkpoint rows come from the previous
-// interval), 0.224 us a dependent row load on the 4.6 Mbp table in L2 on
-// an NVIDIA H100 80GB HBM3 at 700 W (probe B, PERF.md section 6). The
-// sweep does many more steps than the one-hot machine (each start column
-// walks to the first mismatch after it), but its lanes are independent:
-// there is no interval stack and no restart chain inside the walk, so the
-// longest lane (at most L - K steps) sets the floor and the rest run side
-// by side. The bytes a launch moves (64 a step) take microseconds at 3.35
-// TB/s. So the design keeps every other load off the chain: the read's
-// codes are staged into shared memory once a block, and each lane's FMA
-// start is one read of its K-mer's ladder row.
+// the emission and the merged stage's glue as torch operations). Every
+// output equals the plain version's, bit for bit.
 //
 // ---- sweep_extend_kernel
 // Replaces bwa_mem_scale_tpu/ops/smem.py:109 extend_all_positions (its
 // loop at :295, body :196) with ops/fma.py:128 fast_forward as each
-// lane's start, through ops/smem.py::extend_all_positions. Lane (b, p), p
-// < NP: without the table, from the 1-bp interval of column p (with
-// check_initial it must hold >= mi[b] occurrences); with it, the first
-// K_eff steps from row km of the ladders, km the K-mer at p (N bases and
+// lane's start, and the emission that :542 collect_smems_device (pass 1)
+// and :362 smems_reseed (pass 2) run after it, through ops/smem.py::
+// sweep_pass_plain (extend_all_positions with check_initial, then the
+// emission).
+// Lane (row, p), p < NP: without the table, from the 1-bp interval of
+// column p, which must hold >= mi occurrences; with it, the first K_eff
+// steps from row km of the ladders, km the K-mer at p (N bases and
 // columns past L clipped to 3): j* is the leading ladder entries >= mi
-// (check_initial) among the first `cap` columns that are bases inside the
-// read, E = p + j*, the interval the ladder's entry j* - 1, and the lane
-// goes on only if j* = K_eff and p + K_eff < len; a lane with j* < cap
-// stopped on a size (died_s). Then one forward step a column j = p + off
-// + t (off = K_eff - 1, or 0): an N or the read's end retires the lane
-// with no record; a size below mi (with stop_min_len, only once j - p + 1
-// >= stop_min_len) retires it with the failing interval recorded
-// (fail_*, and died_s when merged); otherwise E = j + 1. Merged with pass
-// 3 (p3_max_intv, p3_stop > 0), the first step with off + t + 1 >=
-// p3_stop whose size falls below p3_max_intv is recorded (f3_*), whether
-// the lane goes on or not. The lockstep advances every lane by one shared
-// t; here each lane runs its own t, which gives each lane the same j and
-// the same records, since no lane's state reads another's. The k-step
-// form (KS = 2, int32 layout only; the JAX loop's `body2`, :236-290, with
-// a k-gram table, csrc/fmi_step.cuh ext_k) takes two columns a row fetch
-// after the FMA start: the second only where the first keeps the lane,
-// every record (fail, f3, died, E) evaluated at the depth where it falls;
-// a fourth int plane holds each lane's row fetches.
-// Design: one block a read (row), its codes staged into dynamic shared
-// memory as bytes (stage_codes), one thread a start column, min(256,
-// NP rounded up to 32) threads a block striding over the columns. A
+// among the first `cap` columns that are bases inside the read, E = p +
+// j*, the interval the ladder's entry j* - 1, and the lane goes on only
+// if j* = K_eff and p + K_eff < len; a lane with j* < cap stopped on a
+// size (died_s). Then one forward step a column j = p + off + t (off =
+// K_eff - 1, or 0): an N or the read's end retires the lane with no
+// record; a size below mi retires it (died_s when merged); otherwise E =
+// j + 1. Merged with pass 3 (p3_max_intv, p3_stop > 0), the first step with
+// off + t + 1 >= p3_stop whose size falls below p3_max_intv is recorded
+// (f3_*), whether the lane goes on or not. The lockstep advances every
+// lane by one shared t; here each lane runs its own t, which gives each
+// lane the same j and the same records, since no lane's state reads
+// another's. The k-step form (KS = 2, int32 layout only; the JAX loop's
+// `body2`, :236-290, with a k-gram table, csrc/fmi_step.cuh ext_k) takes
+// two columns a row fetch after the FMA start: the second only where the
+// first keeps the lane, every record evaluated at the depth where it
+// falls.
+// The FMA start in at most two dependent trips: the lane issues the
+// first `cap` sizes of its ladder row as independent 16-byte loads of the
+// aligned chunks that hold them, all before any is used (unrolled to K <=
+// 15), takes j* from the values in registers, and only then loads k and
+// l at j* - 1. No ladder load waits on another's value but those at j* -
+// 1; on the main path each trip misses the L2 (the ladders are 554 MB at
+// K = 11).
+// Two forms of the launch (MODE), one for each pass:
+// - 1, pass 1: a block a read; after each chunk's walks the block keeps
+//   the chunk's E in shared memory (and the last E of the chunk before),
+//   takes the left-maximal mask of ops/smem.py::_left_max_mask (p = 0 or
+//   E(p - 1) < E(p), and E(p) - p >= min_seed_len), ranks the emitting
+//   columns by a block scan in column order and writes slot r of the
+//   read (m = p, n = E - 1, k, l, s) from the lane's registers; after the
+//   last chunk the slots from min(cnt, M) on are zeroed, each slot
+//   written once, and cnt counts every emission (one past M dropped).
+//   Merged, it also writes the records pass 3's stage reads (E, f3_E,
+//   f3_k, f3_l, f3_ss, f3_s, died_s) and nothing else;
+// - 2, pass 2: a block a read over its reseed tasks. The tasks must be
+//   sorted by read (ops/smem.py::reseed_tasks: the valid ones first, in
+//   read order; not checked here: another order gives wrong slots), so
+//   the block finds its range by two searches of the
+//   key t_valid ? t_read : B, 4 blockDim.x samples a round (one round at
+//   T = 2B), its loads in flight beside the codes' staging. A block a
+//   read, not a block a task with a look-back over blocks (csrc/sal.cu's
+//   scan): a read's slots are then ranked by one block scan with no
+//   traffic between blocks, the read's codes are staged once for all
+//   its tasks (no codes[t_read] gather), and a read's tasks run side by
+//   side. The lanes are task-major, which is _emit_compact(rows=t_read)'s
+//   slot order, each task's columns up to its t_x only: a lane past t_x
+//   can neither emit nor decide an emitting lane's left-maximality, which
+//   reads the lane before it, so it is not walked (steps 0). A group of
+//   up to blockDim.x tasks loads its t_x and t_mi at once and compacts
+//   its lanes by a block scan of the widths. The mask adds p <= t_x and
+//   E > t_x of the lane's task; mi is t_mi.
+// With per-lane step planes given (a test's or a tool's request) the
+// launch writes each lane's steps (and row fetches at KS = 2) too. With
+// stats, each block adds its lanes' longest steps, total steps and
+// longest row fetches to three device counters through running maxima
+// and a self-resetting ticket, as seed_strategy_merged_kernel does, so no
+// operation is needed outside the launch.
+// Design: one block a read, its codes staged into dynamic shared memory
+// as bytes (stage_codes), one thread a lane, min(256, the read's lanes
+// rounded up to 32) threads a block striding over the lanes in chunks. A
 // warp's lanes are 32 neighbouring columns: lanes before a mismatch stop
 // near it, lanes after it run on, so a warp runs as long as its longest
-// lane (the divergence the per-lane steps show; a later redesign can pack
-// lanes by length). Outputs [3][B][NP] int (E, f3_E, steps), [9][B][NP] P
-// (k, l, s, fail_k, fail_l, fail_ss, f3_k, f3_l, f3_ss) and [4][B][NP]
-// bytes (fail_s, f3_s, died_s, valid), every slot written.
+// lane (issue slots, not the chain, while every warp is resident).
+// What bounds it on this card: the longest lane's chain. A lane's steps
+// depend on one another (each step's two checkpoint rows come from the
+// previous interval): on a table in the L2 (the 4.6 Mbp genome's 9.2 MB)
+// one L2 trip a step (probe B, measured in the run), after the start's
+// trips past the L2 (at most two). Latency floor: the longest lane's
+// steps x the L2 trip + one HBM trip. Bytes bound, each byte counted
+// once: the distinct checkpoint rows the launch's steps touch (32 bytes
+// each, counted by the twin, ops/sweep_cuda.py::sweep_extend_twin), the
+// ladder sectors the starts touch, the codes and lengths (and the task
+// list), the outputs; over 3.35 TB/s.
 //
 // ---- seed_strategy_merged_kernel
 // Replaces bwa_mem_scale_tpu/ops/smem.py:468 smems_seed_strategy_merged
@@ -115,136 +152,386 @@
 namespace {
 
 constexpr int SWEEP_BLOCK = 256;     // the most threads a sweep block takes
+constexpr int KMAX = 15;             // the longest ladder row (K)
 constexpr int MERGED_WARPS = 8;      // reads (warps) a merged-stage block
 
+enum { PASS1 = 1, PASS2 = 2 };
+
+// What a launch reads and writes beside the index (every pointer of a
+// form it does not use null): out [2][B][M] int32 m, n then [3][B][M] P
+// k, l, s, cnt [B]; pass 1 merged: rec_i [2][B][NP] E, f3_E, rec_p
+// [3][B][NP] f3_k, f3_l, f3_ss, rec_b [2][B][NP] f3_s, died_s; the lanes'
+// steps and row fetches [rows][NP] where given.
+struct SweepArgs {
+  const int32_t* codes;       // [B, L]
+  const int32_t* lens;        // [B]
+  const long long* t_read;    // [T] (pass 2)
+  const int32_t* t_x;
+  const void* t_mi;           // [T] of P
+  const uint8_t* t_valid;
+  const void* lad_k;          // [4^K, K] of P, or null
+  const void* lad_l;
+  const void* lad_s;
+  int32_t* out;
+  int32_t* cnt;
+  int32_t* rec_i;
+  void* rec_p;
+  uint8_t* rec_b;
+  int32_t* steps;             // [rows][NP] or null
+  int32_t* rounds;
+  unsigned long long* acc_steps;    // the longest lanes' steps, summed
+  unsigned long long* acc_total;    // every lane's steps
+  unsigned long long* acc_rounds;   // the longest lanes' row fetches
+  unsigned long long* run;    // [4]: two running maxima, ticket, 0
+  int B, L, NP, T, p3_max_intv, p3_stop, K, K_eff, min_seed_len, M;
+};
+
+// one lane's walk and what it records
+template <typename P>
+struct Lane {
+  P k, l, s, f3k, f3l, f3ss;
+  int E, f3E, steps, rounds;
+  bool f3s, died;
+};
+
+// j*, the leading sizes >= mi among the first cap (<= KMAX) of a ladder
+// row starting at p, and the size at j* - 1 (s, left as it is for j* =
+// 0): the row's sizes as 16-byte loads of the aligned chunks that hold
+// them (the ladders' base is 16-byte aligned), all issued before any is
+// used. A quarter (int32) or half (int64) of the load instructions of one
+// load an entry, whose 32 lanes each touch a random row.
+template <typename P>
+__device__ __forceinline__ int row_lead(const P* p, int cap, P mi, P& s) {
+  constexpr int EPC = 16 / sizeof(P);                 // entries a chunk
+  constexpr int NCH = (KMAX + EPC - 1) / EPC + 1;     // chunks at most
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  const int4* c = reinterpret_cast<const int4*>(at & ~(uintptr_t)15);
+  const int skip = (int)((at & 15) / sizeof(P));
+  int4 q[NCH];
+#pragma unroll
+  for (int j = 0; j < NCH; ++j)
+    q[j] = j * EPC < skip + cap ? __ldg(c + j) : make_int4(0, 0, 0, 0);
+  // entry e of the chunks, e a constant after unrolling
+  auto elem = [&](int e) -> P {
+    const int4& x = q[e / EPC];
+    if constexpr (EPC == 4) {
+      const int r = e % 4;
+      return (P)(r == 0 ? x.x : r == 1 ? x.y : r == 2 ? x.z : x.w);
+    } else {
+      const bool hi = e % 2;
+      const unsigned lo32 = (unsigned)(hi ? x.z : x.x);
+      const unsigned hi32 = (unsigned)(hi ? x.w : x.y);
+      return (P)(((unsigned long long)hi32 << 32) | lo32);
+    }
+  };
+  int jstar = 0;
+  bool lead = true;
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) {
+    P x = 0;
+#pragma unroll
+    for (int sk = 0; sk < EPC; ++sk)
+      if (sk == skip) x = elem(sk + i);
+    lead = lead && i < cap && x >= mi;
+    if (lead) s = x;
+    jstar += lead;
+  }
+  return jstar;
+}
+
 template <int KS, typename P>
-__global__ void __launch_bounds__(SWEEP_BLOCK)
-sweep_extend_kernel(Fmi<P> f, Kfmi g,
-                    const int32_t* __restrict__ codes,         // [B, L]
-                    const int32_t* __restrict__ lens,           // [B]
-                    const int32_t* __restrict__ mis,            // [B]
-                    int B, int L, int NP, int check_initial,
-                    int stop_min_len, int p3_max_intv, int p3_stop,
-                    const P* __restrict__ lad_k,   // [4^K, K] or null
-                    const P* __restrict__ lad_l,
-                    const P* __restrict__ lad_s, int K, int K_eff,
-                    int32_t* __restrict__ out_i,   // [3 | 4][B][NP]
-                    P* __restrict__ out_p,         // [9][B][NP]
-                    uint8_t* __restrict__ out_b) {  // [4][B][NP]
-  extern __shared__ int4 smem[];
-  int8_t* q = reinterpret_cast<int8_t*>(smem);     // the read's codes
-  const int b = blockIdx.x;
-  const int len = lens[b];
-  const P mi = (P)mis[b];
-  const bool merge = p3_max_intv > 0 && p3_stop > 0;
-  stage_codes(codes + (size_t)b * L, L, q, threadIdx.x, blockDim.x);
-  __syncthreads();
+__device__ __forceinline__ void sweep_lane(const Fmi<P>& f, const Kfmi& g,
+                                           const SweepArgs& a,
+                                           const int8_t* q, int len, P mi,
+                                           int p, Lane<P>& o) {
+  const P* lad_k = static_cast<const P*>(a.lad_k);
+  const P* lad_l = static_cast<const P*>(a.lad_l);
+  const P* lad_s = static_cast<const P*>(a.lad_s);
+  const int L = a.L, K = a.K, K_eff = a.K_eff;
+  const bool merge = a.p3_max_intv > 0 && a.p3_stop > 0;
   auto code = [&](int i) { return i < L ? (int)q[i] : 4; };
   auto clip = [](int c) { return c < 0 ? 0 : (c > 3 ? 3 : c); };
-  const size_t plane = (size_t)B * NP;
-  for (int p = threadIdx.x; p < NP; p += blockDim.x) {
-    const int c0 = code(p);
-    const bool base_ok = p < len && c0 < 4;
-    P k = 0, l = 0, s = 0;
-    int E, off, steps = 0;
-    bool act, died = false;
-    if (K_eff) {                     // the FMA start: the K-mer's row
-      int cap = 0;
-      bool lead = true;
-      size_t km = 0;
-      for (int i = 0; i < K; ++i) {
-        const int c = code(p + i);
-        if (i < K_eff) {
-          lead = lead && c >= 0 && c < 4 && p + i < len;
-          cap += lead;
-        }
-        km = 4 * km + clip(c);
+  P k = 0, l = 0, s = 0;
+  int E, off;
+  bool act, died = false;
+  if (K_eff) {                       // the FMA start: the K-mer's row
+    int cap = 0;
+    bool lead = true;
+    size_t km = 0;
+    for (int i = 0; i < K; ++i) {
+      const int c = code(p + i);
+      if (i < K_eff) {
+        lead = lead && c >= 0 && c < 4 && p + i < len;
+        cap += lead;
       }
-      const size_t row = km * K;
-      int jstar = cap;
-      if (check_initial) {
-        jstar = 0;
-        while (jstar < cap && __ldg(lad_s + row + jstar) >= mi) ++jstar;
-      }
-      if (jstar > 0) {
-        k = __ldg(lad_k + row + jstar - 1);
-        l = __ldg(lad_l + row + jstar - 1);
-        s = __ldg(lad_s + row + jstar - 1);
-      }
-      E = p + jstar;
-      act = jstar == K_eff && p + K_eff < len;
-      died = merge && jstar < cap;
-      off = K_eff - 1;
-    } else {                         // the 1-bp interval of column p
-      const int a0 = clip(c0);
-      k = cval(f, a0);
-      l = cval(f, 3 - a0);
-      s = cval(f, a0 + 1) - k;
-      act = base_ok && (!check_initial || s >= mi);
-      if (!act) k = l = s = 0;
-      E = act ? p + 1 : p;
-      off = 0;
+      km = 4 * km + clip(c);
     }
-    bool fs = false, f3s = false;
-    P fk = 0, fl = 0, fss = 0, f3k = 0, f3l = 0, f3ss = 0;
-    int f3E = 0, t = 1, rounds = 0;
-    // the step at column j (the lane's t-th), its extension (nk, nl, ns)
-    // made: the pass-3 record, then a size failure (false: the lane
-    // retires) or the match grown to j + 1
-    auto take = [&](int j, P nk, P nl, P ns) {
-      ++steps;
-      if (merge && !f3s && ns < (P)p3_max_intv && off + t + 1 >= p3_stop) {
-        f3s = true;
-        f3E = j;
-        f3k = nk;
-        f3l = nl;
-        f3ss = ns;
-      }
-      if (ns < mi && (stop_min_len <= 0 || j - p + 1 >= stop_min_len)) {
-        fs = true;                               // a size failure
-        fk = nk;
-        fl = nl;
-        fss = ns;
-        died = died || merge;
-        return false;
-      }
-      E = j + 1;
-      k = nk;
-      l = nl;
-      s = ns;
-      ++t;
-      return true;
-    };
-    while (act) {                    // KS forward steps a row fetch
-      const int j = p + off + t;
-      const int a = code(j);
-      if (j >= len || a >= 4) break;           // an N or the read's end
-      ++rounds;
-      if constexpr (KS == 1) {
-        P nk, nl, ns;
-        ext(f, l, k, s, 3 - clip(a), nl, nk, ns);  // the swapped interval
-        act = take(j, nk, nl, ns);
-      } else {
-        // a walk that ends after the first base keeps its records
-        const int b2 = code(j + 1);
-        int ch[2] = {3 - a, 3 - clip(b2)}, bk[2], bl[2], bs[2];
-        ext_k<2>(f, g, l, k, s, ch, bk, bl, bs);   // the swapped interval
-        act = take(j, bl[0], bk[0], bs[0]) && j + 1 < len && b2 < 4
-              && take(j + 1, bl[1], bk[1], bs[1]);
-      }
+    const size_t row = km * K;
+    const int jstar = row_lead(lad_s + row, cap, mi, s);  // trip 1: sizes
+    if (jstar > 0) {                 // trip 2: k and l at j* - 1
+      k = __ldg(lad_k + row + jstar - 1);
+      l = __ldg(lad_l + row + jstar - 1);
     }
-    const size_t o = (size_t)b * NP + p;
-    out_i[o] = E;
-    out_i[plane + o] = f3E;
-    out_i[2 * plane + o] = steps;
-    if constexpr (KS > 1) out_i[3 * plane + o] = rounds;
-    const P vals[9] = {k, l, s, fk, fl, fss, f3k, f3l, f3ss};
+    E = p + jstar;
+    act = jstar == K_eff && p + K_eff < len;
+    died = merge && jstar < cap;
+    off = K_eff - 1;
+  } else {                           // the 1-bp interval of column p
+    const int c0 = code(p), a0 = clip(c0);
+    k = cval(f, a0);
+    l = cval(f, 3 - a0);
+    s = cval(f, a0 + 1) - k;
+    act = p < len && c0 < 4 && s >= mi;
+    if (!act) k = l = s = 0;
+    E = act ? p + 1 : p;
+    off = 0;
+  }
+  bool f3s = false;
+  P f3k = 0, f3l = 0, f3ss = 0;
+  int f3E = 0, t = 1, rounds = 0, steps = 0;
+  // the step at column j (the lane's t-th), its extension (nk, nl, ns)
+  // made: the pass-3 record, then a size below mi (false: the lane
+  // retires) or the match grown to j + 1
+  auto take = [&](int j, P nk, P nl, P ns) {
+    ++steps;
+    if (merge && !f3s && ns < (P)a.p3_max_intv && off + t + 1 >= a.p3_stop) {
+      f3s = true;
+      f3E = j;
+      f3k = nk;
+      f3l = nl;
+      f3ss = ns;
+    }
+    if (ns < mi) {                             // a size failure
+      died = died || merge;
+      return false;
+    }
+    E = j + 1;
+    k = nk;
+    l = nl;
+    s = ns;
+    ++t;
+    return true;
+  };
+  while (act) {                      // KS forward steps a row fetch
+    const int j = p + off + t;
+    const int c = code(j);
+    if (j >= len || c >= 4) break;             // an N or the read's end
+    ++rounds;
+    if constexpr (KS == 1) {
+      P nk, nl, ns;
+      ext(f, l, k, s, 3 - clip(c), nl, nk, ns);  // the swapped interval
+      act = take(j, nk, nl, ns);
+    } else {
+      // a walk that ends after the first base keeps its records
+      const int b2 = code(j + 1);
+      int ch[2] = {3 - c, 3 - clip(b2)}, bk[2], bl[2], bs[2];
+      ext_k<2>(f, g, l, k, s, ch, bk, bl, bs);   // the swapped interval
+      act = take(j, bl[0], bk[0], bs[0]) && j + 1 < len && b2 < 4
+            && take(j + 1, bl[1], bk[1], bs[1]);
+    }
+  }
+  o = Lane<P>{k, l, s, f3k, f3l, f3ss, E, f3E, steps, rounds, f3s, died};
+}
+
+// Read b's tasks [t0, t1): the first tasks whose key (t_valid ? t_read :
+// B, sorted) is >= b and >= b + 1. Both searches sample 4 blockDim.x
+// keys a round, all loads of a round issued at once; each round narrows
+// the range 4 blockDim.x-fold (one round at T = 2B = 1,024 with 256
+// threads), not the ~log2(T) dependent trips of a binary search.
+// Block-uniform.
+__device__ __forceinline__ void task_range(const SweepArgs& a, int b,
+                                           int& t0, int& t1) {
+  constexpr int U = 4;                          // samples a thread
+  int lo[2] = {0, 0}, hi[2] = {a.T, a.T};
+  const int ns_max = U * blockDim.x;
+  while (lo[0] < hi[0] || lo[1] < hi[1]) {
+    int step[2], key[2][U], c[2] = {0, 0};
 #pragma unroll
-    for (int i = 0; i < 9; ++i) out_p[i * plane + o] = vals[i];
-    out_b[o] = fs;
-    out_b[plane + o] = f3s;
-    out_b[2 * plane + o] = died;
-    out_b[3 * plane + o] = base_ok;
+    for (int r = 0; r < 2; ++r) {
+      const int n = hi[r] - lo[r];
+      step[r] = n > 0 ? (n + ns_max - 1) / ns_max : 1;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = lo[r] + (U * (int)threadIdx.x + u) * step[r];
+        key[r][u] = t < hi[r] ? (a.t_valid[t] ? (int)a.t_read[t] : a.B)
+                              : a.B + 1;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        c[r] += __syncthreads_count(key[r][u] < b + r);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = hi[r] - lo[r], ns = (n + step[r] - 1) / step[r];
+      if (n <= 0) continue;
+      const int nlo = c[r] ? lo[r] + (c[r] - 1) * step[r] + 1 : lo[r];
+      hi[r] = c[r] < ns ? lo[r] + c[r] * step[r] : hi[r];
+      lo[r] = nlo;
+    }
+  }
+  t0 = lo[0];
+  t1 = lo[1];
+}
+
+template <int KS, typename P, int MODE>
+__global__ void __launch_bounds__(SWEEP_BLOCK)
+sweep_extend_kernel(Fmi<P> f, Kfmi g, SweepArgs a) {
+  extern __shared__ int4 smem[];
+  int8_t* q = reinterpret_cast<int8_t*>(smem);     // the read's codes
+  __shared__ int Es[SWEEP_BLOCK];                  // the chunk's E
+  __shared__ int wsum[SWEEP_BLOCK / WARP];         // a warp's sums
+  __shared__ int pre[SWEEP_BLOCK];   // pass 2: a task group's lane offsets
+  __shared__ int tx[SWEEP_BLOCK];    // and each task's t_x
+  __shared__ P tm[SWEEP_BLOCK];      // and t_mi
+  __shared__ unsigned long long bst[3];            // the block's stats
+  const int b = blockIdx.x;
+  const int NP = a.NP, L = a.L, M = a.M;
+  const int lane = threadIdx.x & (WARP - 1), w = threadIdx.x / WARP;
+  // the read's codes (their loads in flight beside pass 2's search)
+  stage_codes(a.codes + (size_t)b * L, L, q, threadIdx.x, blockDim.x);
+  int t0 = b, nt = 1;
+  if constexpr (MODE == PASS2) {
+    int t1;
+    task_range(a, b, t0, t1);
+    nt = t1 - t0;
+  }
+  const int len = a.lens[b];
+  const bool merge = a.p3_max_intv > 0 && a.p3_stop > 0;
+  if (a.acc_steps != nullptr && threadIdx.x < 3) bst[threadIdx.x] = 0;
+  __syncthreads();
+  const size_t plane = (size_t)a.B * NP;
+  int base = 0, carry = 0;       // emissions so far; E of the lane before
+  unsigned long long mx = 0, sum = 0, mr = 0;
+  // The block's lanes, task-major: every column of the row (pass 1), or
+  // pass 2's tasks of the read in groups of blockDim.x, each task's
+  // columns up to its t_x only (a lane past it can neither emit nor
+  // decide an emitting lane's left-maximality), compacted by a prefix of
+  // the widths, so that a read with many tasks takes few chunks.
+  for (int g0 = 0; g0 < nt; g0 += blockDim.x) {   // block-uniform
+    const int gn = min(nt - g0, (int)blockDim.x);
+    int nl = NP;
+    if constexpr (MODE == PASS2) {
+      int wdt = 0;
+      if ((int)threadIdx.x < gn) {   // the group's t_x and t_mi at once
+        const int t = t0 + g0 + threadIdx.x;
+        const int x = a.t_x[t];
+        tm[threadIdx.x] = static_cast<const P*>(a.t_mi)[t];
+        tx[threadIdx.x] = x;
+        wdt = x < 0 ? 0 : (x + 1 < NP ? x + 1 : NP);
+      }
+      int v = wdt;                   // a block-wide exclusive scan
+#pragma unroll
+      for (int d = 1; d < WARP; d <<= 1) {
+        const int u = __shfl_up_sync(FULL, v, d);
+        if (lane >= d) v += u;
+      }
+      if (lane == WARP - 1) wsum[w] = v;
+      __syncthreads();
+      int off = 0;
+      nl = 0;
+      for (int i = 0; i < (int)(blockDim.x / WARP); ++i) {
+        off += i < w ? wsum[i] : 0;
+        nl += wsum[i];
+      }
+      pre[threadIdx.x] = off + v - wdt;
+      __syncthreads();
+    }
+    for (int c0 = 0; c0 < nl; c0 += blockDim.x) {  // block-uniform
+      const int n = c0 + threadIdx.x;
+      const bool on = n < nl;
+      int ti = 0;                    // the lane's task in the group
+      if (MODE == PASS2 && on) {
+        int lo = 0, hi = gn - 1;     // the last task whose lanes start <= n
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (pre[mid] <= n) lo = mid; else hi = mid - 1;
+        }
+        ti = lo;
+      }
+      const int p = MODE == PASS2 ? n - pre[ti] : n;
+      const int t = t0 + g0 + ti;
+      Lane<P> o;
+      o.E = 0;
+      if (on) {
+        const P mi = MODE == PASS2 ? tm[ti] : (P)1;
+        sweep_lane<KS, P>(f, g, a, q, len, mi, p, o);
+        mx = max(mx, (unsigned long long)o.steps);
+        sum += o.steps;
+        mr = max(mr, (unsigned long long)o.rounds);
+        const size_t at = (size_t)(MODE == PASS2 ? t : b) * NP + p;
+        if (a.steps != nullptr) a.steps[at] = o.steps;
+        if (a.rounds != nullptr) a.rounds[at] = o.rounds;
+        if (MODE == PASS1 && merge) {  // what pass 3's stage reads
+          P* rp = static_cast<P*>(a.rec_p);
+          a.rec_i[at] = o.E;
+          a.rec_i[plane + at] = o.f3E;
+          rp[at] = o.f3k;
+          rp[plane + at] = o.f3l;
+          rp[2 * plane + at] = o.f3ss;
+          a.rec_b[at] = o.f3s;
+          a.rec_b[plane + at] = o.died;
+        }
+      }
+      Es[threadIdx.x] = o.E;
+      __syncthreads();
+      const int prev = threadIdx.x ? Es[threadIdx.x - 1] : carry;
+      bool em = on && (p == 0 || prev < o.E) && o.E - p >= a.min_seed_len;
+      if (MODE == PASS2) em = em && o.E > tx[ti];
+      const unsigned bal = __ballot_sync(FULL, em);
+      if (lane == 0) wsum[w] = __popc(bal);
+      __syncthreads();
+      int r = base, total = 0;
+      for (int i = 0; i < (int)(blockDim.x / WARP); ++i) {
+        r += i < w ? wsum[i] : 0;
+        total += wsum[i];
+      }
+      r += __popc(bal & ((1u << lane) - 1));
+      if (em && r < M) {           // slot r of the read, once
+        const size_t bm = (size_t)a.B * M, at = (size_t)b * M + r;
+        P* kls = reinterpret_cast<P*>(a.out + 2 * bm);
+        a.out[at] = p;
+        a.out[bm + at] = o.E - 1;
+        kls[at] = o.k;
+        kls[bm + at] = o.l;
+        kls[2 * bm + at] = o.s;
+      }
+      carry = Es[blockDim.x - 1];
+      base += total;
+      __syncthreads();             // before Es, wsum, pre, tx, tm reused
+    }
+  }
+  // the slots past the emissions
+  const size_t bm = (size_t)a.B * M;
+  P* kls = reinterpret_cast<P*>(a.out + 2 * bm);
+  for (int j = min(base, M) + threadIdx.x; j < M; j += blockDim.x) {
+    const size_t at = (size_t)b * M + j;
+    a.out[at] = 0;
+    a.out[bm + at] = 0;
+    kls[at] = 0;
+    kls[bm + at] = 0;
+    kls[2 * bm + at] = 0;
+  }
+  if (threadIdx.x == 0) a.cnt[b] = base;
+  if (a.acc_steps != nullptr) {      // the stats, grid-uniform
+    atomicMax(&bst[0], mx);
+    atomicAdd(&bst[1], sum);
+    atomicMax(&bst[2], mr);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      atomicMax(a.run, bst[0]);
+      atomicMax(a.run + 1, bst[2]);
+      atomicAdd(a.acc_total, bst[1]);
+      __threadfence();
+      // run[2]'s low word: blocks done, back to 0 after the last
+      const unsigned t = atomicInc(reinterpret_cast<unsigned*>(a.run + 2),
+                                   gridDim.x - 1);
+      if (t == gridDim.x - 1) {
+        atomicAdd(a.acc_steps, atomicExch(a.run, 0ull));
+        atomicAdd(a.acc_rounds, atomicExch(a.run + 1, 0ull));
+      }
+    }
   }
 }
 
@@ -396,36 +683,67 @@ seed_strategy_merged_kernel(const P* __restrict__ count,       // [5]
   }
 }
 
-// threads a sweep block: NP rounded up to a warp, at most SWEEP_BLOCK
-int sweep_threads(int NP) {
-  const int t = (NP + WARP - 1) / WARP * WARP;
+
+// threads a sweep block: a block's lanes rounded up to a warp, at most
+// SWEEP_BLOCK
+int sweep_threads(int lanes) {
+  const int t = (lanes + WARP - 1) / WARP * WARP;
   return t < SWEEP_BLOCK ? t : SWEEP_BLOCK;
 }
 
-template <int KS, typename P>
-int sweep_extend_launch_t(const Fmi<P>& f, const Kfmi& g, const void* codes,
-                          const void* lens, const void* mis, int B, int L,
-                          int NP, int check_initial, int stop_min_len,
-                          int p3_max_intv, int p3_stop, const void* lad_k,
-                          const void* lad_l, const void* lad_s, int K,
-                          int K_eff, void* out_i, void* out_p, void* out_b,
-                          void* stream) {
-  if (B <= 0 || NP <= 0) return 0;
-  const size_t bytes = codes_bytes(L);
-  const bool fma_ok = K_eff == 0
-      || (K_eff >= 2 && K_eff <= K && K <= 15 && lad_k && lad_l && lad_s);
-  if (!fmi_ok(f) || (KS > 1 && !kfmi_ok(g, KS)) || L <= 0 || NP > L
-      || bytes > SMEM_MAX || !fma_ok)
+template <int KS, typename P, int MODE>
+int sweep_launch_t(const Fmi<P>& f, const Kfmi& g, const SweepArgs& a,
+                   void* stream) {
+  if (a.B <= 0 || a.NP <= 0) return 0;
+  const size_t bytes = codes_bytes(a.L);
+  const bool fma_ok = a.K_eff == 0
+      || (a.K_eff >= 2 && a.K_eff <= a.K && a.K <= KMAX && a.lad_k
+          && a.lad_l && a.lad_s);
+  const bool outs_ok = a.out && a.cnt && a.M >= 0
+      && (a.p3_max_intv <= 0 || a.p3_stop <= 0
+          || (a.rec_i && a.rec_p && a.rec_b));
+  const bool tasks_ok = MODE != PASS2
+      || (a.T >= 0 && a.t_read && a.t_x && a.t_mi && a.t_valid);
+  if (!fmi_ok(f) || (KS > 1 && !kfmi_ok(g, KS)) || a.L <= 0 || a.NP > a.L
+      || bytes > SMEM_MAX || !fma_ok || !outs_ok || !tasks_ok
+      || (a.acc_steps && !(a.acc_total && a.acc_rounds && a.run)))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(sweep_extend_kernel<KS, P>, bytes);
+  auto kernel = sweep_extend_kernel<KS, P, MODE>;
+  const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
-  sweep_extend_kernel<KS, P><<<B, sweep_threads(NP), bytes,
-                               (cudaStream_t)stream>>>(
-      f, g, (const int32_t*)codes, (const int32_t*)lens, (const int32_t*)mis,
-      B, L, NP, check_initial, stop_min_len, p3_max_intv, p3_stop,
-      (const P*)lad_k, (const P*)lad_l, (const P*)lad_s, K, K_eff,
-      (int32_t*)out_i, (P*)out_p, (uint8_t*)out_b);
+  // pass 2: a read's tasks side by side, however many
+  kernel<<<a.B, MODE == PASS2 ? SWEEP_BLOCK : sweep_threads(a.NP), bytes,
+           (cudaStream_t)stream>>>(f, g, a);
   return (int)cudaGetLastError();
+}
+
+// A pass's arguments (the launch functions below say which is which).
+SweepArgs pass_args(const void* codes, const void* lens,
+                    const void* t_read, const void* t_x, const void* t_mi,
+                    const void* t_valid, int T, int B, int L, int NP,
+                    int min_seed_len, int M, int p3_max_intv, int p3_stop,
+                    const void* lad_k, const void* lad_l, const void* lad_s,
+                    int K, int K_eff, void* out, void* cnt, void* rec_i,
+                    void* rec_p, void* rec_b, void* steps, void* rounds,
+                    void* acc_steps, void* acc_total, void* acc_rounds,
+                    void* run) {
+  return SweepArgs{(const int32_t*)codes, (const int32_t*)lens,
+                   (const long long*)t_read, (const int32_t*)t_x, t_mi,
+                   (const uint8_t*)t_valid, lad_k, lad_l, lad_s,
+                   (int32_t*)out, (int32_t*)cnt, (int32_t*)rec_i, rec_p,
+                   (uint8_t*)rec_b, (int32_t*)steps, (int32_t*)rounds,
+                   (unsigned long long*)acc_steps,
+                   (unsigned long long*)acc_total,
+                   (unsigned long long*)acc_rounds, (unsigned long long*)run,
+                   B, L, NP, T, p3_max_intv, p3_stop, K, K_eff,
+                   min_seed_len, M};
+}
+
+template <int KS, typename P>
+int pass_launch_t(const Fmi<P>& f, const Kfmi& g, const SweepArgs& a,
+                  void* stream) {
+  return a.t_read ? sweep_launch_t<KS, P, PASS2>(f, g, a, stream)
+                  : sweep_launch_t<KS, P, PASS1>(f, g, a, stream);
 }
 
 template <typename P>
@@ -457,67 +775,98 @@ int seed_strategy_merged_launch_t(
   return (int)cudaGetLastError();
 }
 
+
 }  // namespace
 
-// Launch sweep_extend_kernel on `stream` over B rows (one block each) and
-// their first NP start columns; returns cudaGetLastError() (0 on
-// success), cudaErrorInvalidValue for a shape it cannot take. K_eff = 0
-// runs without the ladder table (its pointers may be null), else 2 <=
-// K_eff <= K <= 15. The caller allocates every buffer (the kernel writes
-// every output slot) and checks shapes and types; nothing here
-// synchronises.
-extern "C" int sweep_extend_launch(const void* cp_fused, int nb, int c0,
-                                   int c1, int c2, int c3, int c4,
-                                   int sentinel, const void* codes,
-                                   const void* lens, const void* mis, int B,
-                                   int L, int NP, int check_initial,
-                                   int stop_min_len, int p3_max_intv,
-                                   int p3_stop, const void* lad_k,
-                                   const void* lad_l, const void* lad_s,
-                                   int K, int K_eff, void* out_i,
-                                   void* out_p, void* out_b, void* stream) {
-  return sweep_extend_launch_t<1>(
-      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), Kfmi{}, codes,
-      lens, mis, B, L, NP, check_initial, stop_min_len, p3_max_intv, p3_stop,
-      lad_k, lad_l, lad_s, K, K_eff, out_i, out_p, out_b, stream);
+// Launch a pass form of sweep_extend_kernel on `stream`: B reads (a block
+// each) of codes [B, L] and lens [B] int32, their first NP start columns;
+// returns cudaGetLastError() (0 on success), cudaErrorInvalidValue for a
+// shape it cannot take. K_eff = 0 runs without the ladder table (its
+// pointers may be null), else 2 <= K_eff <= K <= 15 and the ladders
+// 16-byte aligned. Pass 1 (t_read null): min_intv 1; merged with pass 3
+// where p3_max_intv, p3_stop > 0, its records into rec_i [2][B][NP]
+// int32 (E, f3_E), rec_p [3][B][NP] of the position type (f3_k, f3_l,
+// f3_ss) and rec_b [2][B][NP] bytes (f3_s, died_s). Pass 2: the tasks
+// t_read [T] int64, t_x [T] int32, t_mi [T] of the position type and
+// t_valid [T] bytes, the valid ones first and sorted by read (not
+// checked). Both: the SMEMs of each read whose match is left-maximal and
+// at least min_seed_len long (pass 2: and covering its task's t_x) into
+// out ([2][B][M] int32 m, n, then [3][B][M] of the position type k, l,
+// s; every slot written) and cnt [B] int32. With steps (and at KS = 2
+// rounds), [B][NP] (pass 1) or [T][NP] (pass 2, zeroed by the caller: an
+// invalid task's row and a lane past its task's t_x are not written)
+// int32, each lane's steps (row fetches). With acc_steps, acc_total and
+// acc_rounds (one uint64 each: the launches' longest steps, total steps,
+// longest row fetches) and run (four uint64, zero when first used, left
+// zero by every launch) the launch adds its stats to the three; all four
+// null for none. The caller allocates every buffer and checks shapes and
+// types; nothing here synchronises.
+extern "C" int sweep_pass_launch(
+    const void* cp_fused, int nb, int c0, int c1, int c2, int c3, int c4,
+    int sentinel, const void* codes, const void* lens, const void* t_read,
+    const void* t_x, const void* t_mi, const void* t_valid, int T, int B,
+    int L, int NP, int min_seed_len, int M, int p3_max_intv, int p3_stop,
+    const void* lad_k, const void* lad_l, const void* lad_s, int K,
+    int K_eff, void* out, void* cnt, void* rec_i, void* rec_p, void* rec_b,
+    void* steps, void* rounds, void* acc_steps, void* acc_total,
+    void* acc_rounds, void* run, void* stream) {
+  return pass_launch_t<1, int>(
+      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel), Kfmi{},
+      pass_args(codes, lens, t_read, t_x, t_mi, t_valid, T, B, L, NP,
+                min_seed_len, M, p3_max_intv, p3_stop, lad_k, lad_l, lad_s,
+                K, K_eff, out, cnt, rec_i, rec_p, rec_b, steps, rounds,
+                acc_steps, acc_total, acc_rounds, run),
+      stream);
 }
 
-// sweep_extend_launch's k-step form (int32 layout only): two bases a row
+// sweep_pass_launch's k-step form (int32 layout only): two bases a row
 // fetch from the k-gram table `cpk` ([nb][w4] int4, ops/occ.py::
 // kstep_rows; a trigram table's bigram groups) with its C2 [16] table on
-// the device, after the FMA start where K_eff > 0; out_i [4][B][NP] (E,
-// f3_E, steps, and each lane's row fetches).
-extern "C" int sweep_extend_launch_k(
+// the device, after the FMA start where K_eff > 0.
+extern "C" int sweep_pass_launch_k(
     const void* cp_fused, int nb, int c0, int c1, int c2, int c3, int c4,
     int sentinel, const void* cpk, int w4, const void* c2k,
-    const void* codes, const void* lens, const void* mis, int B, int L,
-    int NP, int check_initial, int stop_min_len, int p3_max_intv,
-    int p3_stop, const void* lad_k, const void* lad_l, const void* lad_s,
-    int K, int K_eff, void* out_i, void* out_p, void* out_b, void* stream) {
-  return sweep_extend_launch_t<2>(
+    const void* codes, const void* lens, const void* t_read,
+    const void* t_x, const void* t_mi, const void* t_valid, int T, int B,
+    int L, int NP, int min_seed_len, int M, int p3_max_intv, int p3_stop,
+    const void* lad_k, const void* lad_l, const void* lad_s, int K,
+    int K_eff, void* out, void* cnt, void* rec_i, void* rec_p, void* rec_b,
+    void* steps, void* rounds, void* acc_steps, void* acc_total,
+    void* acc_rounds, void* run, void* stream) {
+  return pass_launch_t<2, int>(
       make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel),
-      make_kfmi(cpk, nb, w4, c2k, nullptr), codes, lens, mis, B, L, NP,
-      check_initial, stop_min_len, p3_max_intv, p3_stop, lad_k, lad_l, lad_s,
-      K, K_eff, out_i, out_p, out_b, stream);
+      make_kfmi(cpk, nb, w4, c2k, nullptr),
+      pass_args(codes, lens, t_read, t_x, t_mi, t_valid, T, B, L, NP,
+                min_seed_len, M, p3_max_intv, p3_stop, lad_k, lad_l, lad_s,
+                K, K_eff, out, cnt, rec_i, rec_p, rec_b, steps, rounds,
+                acc_steps, acc_total, acc_rounds, run),
+      stream);
 }
 
-// sweep_extend_launch's int64 form: the index at 64 bits with its
+// sweep_pass_launch's int64 form: the index at 64 bits with its
 // high-word step table `hi` and steps h0-h3 a base (csrc/smem.cu's
-// one_pos_launch64), int64 ladders, out_p [9][B][NP] int64.
-extern "C" int sweep_extend_launch64(
+// one_pos_launch64), int64 ladders, the k, l, s slots and the records
+// rec_p at int64.
+extern "C" int sweep_pass_launch64(
     const void* cp_fused, long long nb, long long c0, long long c1,
     long long c2, long long c3, long long c4, long long sentinel,
     const void* hi, int h0, int h1, int h2, int h3, const void* codes,
-    const void* lens, const void* mis, int B, int L, int NP,
-    int check_initial, int stop_min_len, int p3_max_intv, int p3_stop,
-    const void* lad_k, const void* lad_l, const void* lad_s, int K,
-    int K_eff, void* out_i, void* out_p, void* out_b, void* stream) {
-  return sweep_extend_launch_t<1>(
+    const void* lens, const void* t_read, const void* t_x, const void* t_mi,
+    const void* t_valid, int T, int B, int L, int NP, int min_seed_len,
+    int M, int p3_max_intv, int p3_stop, const void* lad_k,
+    const void* lad_l, const void* lad_s, int K, int K_eff, void* out,
+    void* cnt, void* rec_i, void* rec_p, void* rec_b, void* steps,
+    void* rounds, void* acc_steps, void* acc_total, void* acc_rounds,
+    void* run, void* stream) {
+  return pass_launch_t<1, long long>(
       make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel, hi, h0, h1, h2,
                h3),
-      Kfmi{}, codes, lens, mis, B, L, NP, check_initial, stop_min_len,
-      p3_max_intv, p3_stop, lad_k, lad_l, lad_s, K, K_eff, out_i, out_p,
-      out_b, stream);
+      Kfmi{},
+      pass_args(codes, lens, t_read, t_x, t_mi, t_valid, T, B, L, NP,
+                min_seed_len, M, p3_max_intv, p3_stop, lad_k, lad_l, lad_s,
+                K, K_eff, out, cnt, rec_i, rec_p, rec_b, steps, rounds,
+                acc_steps, acc_total, acc_rounds, run),
+      stream);
 }
 
 // Launch seed_strategy_merged_kernel on `stream` over B reads (a warp
@@ -525,10 +874,11 @@ extern "C" int sweep_extend_launch64(
 // type (int32 here, int64 in seed_strategy_merged_launch64), codes [B, L]
 // and lens [B] int32, died_s and f3_s [B, NP] bytes, f3_E and E [B, NP]
 // int32; out [2][B][M] int32 then [3][B][M] of the position type, cnt
-// and steps [B] int32. With acc_steps, acc_total (one uint64 each) and run (two uint64, zero when first used,
-// left zero by every launch) the launch adds its longest and total steps
-// to the two counters; all three null for none. The return and the caller's duties as
-// sweep_extend_launch.
+// and steps [B] int32. With acc_steps, acc_total (one uint64 each) and
+// run (two uint64, zero when first used, left zero by every launch) the
+// launch adds its longest and total steps to the two counters; all three
+// null for none. The return and the caller's duties as
+// sweep_pass_launch's.
 extern "C" int seed_strategy_merged_launch(
     const void* count, const void* codes, const void* lens,
     const void* died_s, const void* f3_s, const void* f3_E, const void* E,

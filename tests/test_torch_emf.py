@@ -11,6 +11,9 @@ on the CPU:
   reference layouts (``force_int64``);
 - ``ops/emf_cuda.py``: the wrapper on CPU tensors is the plain version
   (no launch counted), and it raises on a device it has no kernel for;
+  the kernel's twin (``emf_lookup_twin``) equals the plain version on
+  every setup, in at most three dependent trips a read that takes no
+  rescue;
 - ``GpuAligner``'s ``emf_filter``, ``align_batch`` (regions),
   ``align_and_finalize`` (records) and ``align_reads_to_sam`` (lines)
   against ``TpuAligner``'s, with and without an EMF table, at capacities
@@ -247,6 +250,32 @@ def test_emf_lookup_equal_to_jax(setups, name, layout):
         # location fails the extension
         assert code[:4].tolist() == [3, 3, 4, 4]
         assert got["loc"][:4].tolist() == [1000, 5000, 1000, 5000]
+
+
+@pytest.mark.parametrize("layout", ["int32", "int64"])
+@pytest.mark.parametrize("name", SETUPS)
+def test_emf_twin_equal_to_plain(setups, name, layout):
+    """emf_lookup_twin (the kernel's rounds: the read, the probe, both
+    windows in one trip, the rescue two trips a group of entries) equal
+    to the plain emf_lookup in all four arrays; a read that takes no
+    rescue makes at most three dependent trips, one through the list
+    more."""
+    s = setups[name]
+    fmi = TFmi.from_host(s["tidx"], "cpu", force_int64=layout == "int64")
+    demf = temf.DeviceEmf.from_host(_port_table(s["pt"]), "cpu")
+    c = torch.as_tensor(s["codes"], dtype=torch.int32)
+    n = torch.as_tensor(s["lens"], dtype=torch.int32)
+    st = {}
+    want = temf.emf_lookup(demf, fmi.ref, c, n, stats=st)
+    twin = emf_cuda.emf_lookup_twin(demf, fmi.ref, c, n)
+    for k in want:
+        assert twin[k].dtype == want[k].numpy().dtype, k
+        np.testing.assert_array_equal(twin[k], want[k].numpy(), k)
+    rescued = st["cands"].numpy() > 0
+    assert (twin["trips"][~rescued] <= 3).all()
+    assert (twin["trips"][rescued] >= 5).all()
+    if name == "rescue":
+        assert rescued.any()
 
 
 def test_emf_lookup_stats_count_the_rescue(setups):

@@ -21,10 +21,13 @@ N bases, ragged lengths, plus a tandem repeat).
   rounds.
 - ``extend_all_positions`` with the table, with and without the FMA
   ladders, merged with pass 3 and not, equals the JAX function; the
-  twin ``sweep_cuda.sweep_extend_twin`` equals it, steps included.
+  twin ``sweep_cuda.sweep_extend_twin`` equals it, steps included, and
+  in its pass forms equals ``sweep_pass_plain`` at K = 2.
 On a GPU (``-m cuda``) each k-step kernel against its plain version and
 the K = 1 kernel's output on the port's own index, the twin's steps and
-rounds on the small batch, and a 512-read batch on a 1 Mbp genome. The
+rounds on the small batch, a 512-read batch on a 1 Mbp genome and (the
+sweep's pass 2, which emits only repeats) 512 reads of a genome with
+repeats. The
 JAX side is imported inside the tests that use it, so the CUDA cases also
 run on a machine without JAX:
     PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_kstep.py
@@ -380,6 +383,28 @@ def test_extend_all_positions_kstep_equal_to_jax(side, case, K, use_fma):
     assert twin["rounds"].sum() < twin["steps"].sum()
 
 
+@pytest.mark.parametrize("use_fma", [False, True], ids=["plain", "fma"])
+@pytest.mark.parametrize("pass2", [False, True], ids=["pass1", "pass2"])
+@pytest.mark.parametrize("M", [48, 1], ids=["wide", "past-M"])
+def test_pass_twin_kstep_equal_to_plain(side, use_fma, pass2, M):
+    """The sweep's pass forms at K = 2 (two bases a row fetch after the FMA
+    start): the twin with the bigram table equal to the plain passes of
+    collect_smems_device and smems_reseed, every field, cnt, the merged
+    records and each lane's steps, in fewer rounds than steps; each
+    lane's start in at most two trips."""
+    from test_torch_sweep import pass_twin_case
+    from bwa_mem_scale_tpu_torch.ops.fma import build_fma_table
+    codes, lens = (torch.as_tensor(a) for a in side["reads"])
+    tf = side["tf"][2]
+    tfma = (build_fma_table(side["tf"][1], K=5).to_device(torch.int32, "cpu")
+            if use_fma else None)
+    want, twin = pass_twin_case(tf, codes, lens, tfma, MSL, 20, M, pass2,
+                                kstep=smem_cuda.kstep_tables(tf))
+    assert twin["rounds"].sum() < twin["steps"].sum()
+    if M == 1:
+        assert (want.cnt > M).any()
+
+
 def test_wrappers_on_cpu_run_plain(side):
     """On CPU tensors the wrappers run the plain k-step versions: no
     launch counted, equal arrays."""
@@ -387,7 +412,7 @@ def test_wrappers_on_cpu_run_plain(side):
     tf = side["tf"][3]
     counts = lambda: [(w.launches, w.launches_k) for w in (
         smem_cuda.one_pos_machine_cuda, smem_cuda.seed_strategy_machine_cuda,
-        sweep_cuda.extend_all_positions_cuda)]
+        sweep_cuda.sweep_pass_cuda)]
     before = counts()
     B = codes.shape[0]
     zi = torch.zeros((B,), dtype=torch.int32)
@@ -396,9 +421,12 @@ def test_wrappers_on_cpu_run_plain(side):
     b = one_pos_machine(tf, codes, lens, *p1, True, MSL, 48)
     c = smem_cuda.seed_strategy_machine_cuda(tf, codes, lens, 20, 11, 48)
     d = seed_strategy_machine(tf, codes, lens, 20, 11, 48)
+    e, _ = sweep_cuda.sweep_pass_cuda(tf, codes, lens, MSL, 48, n_pos=39)
+    g, _ = tsmem.sweep_pass_plain(tf, codes, lens, MSL, 48, n_pos=39)
     for f in FIELDS:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
         assert torch.equal(getattr(c, f), getattr(d, f)), f
+        assert torch.equal(getattr(e, f), getattr(g, f)), f
     assert counts() == before
 
 
@@ -414,23 +442,28 @@ def _cuda():
 def card():
     """The port's own index of a 9 kbp genome with this file's reads and
     of a 1 Mbp genome with 512 reads of 101 bp (1% errors), each with its
-    bigram and trigram tables and a K = 6 FMA table (no JAX on the
-    card)."""
+    bigram and trigram tables, and of ``tools/batches.py::repeat_batch``'s
+    2 Mbp genome with repeats and its 512 reads, with its bigram table;
+    each with a K = 6 FMA table (no JAX on the card)."""
     dev = _cuda()
     from bwa_mem_scale_tpu_torch.index.build import build_index
     from bwa_mem_scale_tpu_torch.models.aligner import (demo_genome,
                                                        simulate_reads)
     from bwa_mem_scale_tpu_torch.ops.fma import build_fma_table
+    from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
     out = {}
-    for name, n, reads in (("small", 9000, None), ("batch", 1_000_000, 512)):
-        idx = build_index(demo_genome(n, seed=13, n_contigs=1))
-        if reads is None:
-            codes, lens = _reads(idx.bns.seq)
+    for name in ("small", "batch", "repeat"):
+        if name == "repeat":
+            idx, codes, lens = repeat_batch()
         else:
-            codes, lens = simulate_reads(idx.bns, reads, 101, seed=8,
-                                         err_rate=0.01)
+            idx = build_index(demo_genome(
+                9000 if name == "small" else 1_000_000, seed=13,
+                n_contigs=1))
+            codes, lens = (_reads(idx.bns.seq) if name == "small" else
+                           simulate_reads(idx.bns, 512, 101, seed=8,
+                                          err_rate=0.01))
         fmis = {1: TFmi.from_host(idx, dev)}
-        for K in (2, 3):
+        for K in ((2,) if name == "repeat" else (2, 3)):
             fmis[K] = TFmi.from_host(idx, dev, cp2=tk.build_cp2(idx, K))
         out[name] = dict(fmi=fmis, codes=torch.as_tensor(codes, device=dev),
                          lens=torch.as_tensor(lens, device=dev),
@@ -515,8 +548,12 @@ def test_seed_strategy_kstep_kernel_equal_to_plain(card, K, batch):
         np.testing.assert_array_equal(tw[7], rounds.numpy())
 
 
-KERNEL_SWEEP = [(c, b) for c in ("merged", "split-p3", "reseed")
-                for b in ("small", "batch")]
+# pass 2 emits only matches that occur more often than the SMEM they
+# reseed: on the 1 Mbp random genome there are none, so its large case
+# runs on the repeat batch
+KERNEL_SWEEP = [("merged", "small"), ("merged", "batch"),
+                ("unmerged", "small"), ("unmerged", "batch"),
+                ("reseed", "small"), ("reseed", "repeat")]
 
 
 @pytest.mark.cuda
@@ -524,39 +561,42 @@ KERNEL_SWEEP = [(c, b) for c in ("merged", "split-p3", "reseed")
 @pytest.mark.parametrize("case,batch", KERNEL_SWEEP,
                          ids=[f"{c}-{b}" for c, b in KERNEL_SWEEP])
 def test_sweep_kstep_kernel_equal_to_plain(card, use_fma, case, batch):
-    """sweep_extend_kernel's 2-step form (bigram table) against the plain
-    version and the K = 1 kernel, every record and each lane's steps; on
-    the small batch its steps and rounds equal the twin's."""
+    """sweep_extend_kernel's 2-step form (bigram table) in its pass forms
+    (pass 1 merged with pass 3 and not, pass 2 over reseed_tasks' list;
+    the emission in the launch) against the plain version and the K = 1
+    kernel: every SmemBuf field, record and lane's steps, in fewer row
+    fetches than steps; every case emits; on the small batch each lane's
+    steps and row fetches equal the twin's."""
+    from test_torch_sweep import card_pass_case
     c = card[batch]
     codes, lens, f = c["codes"], c["lens"], c["fmi"][2]
-    mi, kw = _sweep_args(case, codes.shape[0])
-    mi = torch.as_tensor(mi, device=codes.device)
     table = c["fma"] if use_fma else None
-    wrap = sweep_cuda.extend_all_positions_cuda
+    msl = 19 if batch == "repeat" else MSL
+    wrap = sweep_cuda.sweep_pass_cuda
     before = wrap.launches_k
-    got = wrap(f, codes, lens, mi, fma=table, **kw)
-    torch.cuda.synchronize()
+    got, steps, rounds, kw = card_pass_case(
+        f, codes, lens, table, msl, 0 if case == "unmerged" else 20, 48,
+        case == "reseed")
     assert wrap.launches_k == before + 1
-    steps, rounds = wrap.last_steps.cpu(), wrap.last_rounds.cpu()
-    one = wrap(c["fmi"][1], codes, lens, mi, fma=table, **kw)
-    assert torch.equal(steps, wrap.last_steps.cpu())
-    want = tsmem.extend_all_positions(f, codes, lens, mi, fma=table, **kw)
-    for k in want:
-        assert torch.equal(got[k], want[k]), k
-        assert torch.equal(got[k], one[k]), k
-    assert rounds.sum() < steps.sum()
+    one, _ = wrap(c["fmi"][1], codes, lens, msl, 48, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+    assert rounds.sum() < steps.sum() and int(got.cnt.sum()) > 0
     if batch == "small":
-        _, K_eff = tsmem.sweep_window(table, kw.get("stop_min_len", 0),
-                                      kw.get("p3_max_intv", 0),
-                                      kw.get("p3_stop", 0))
+        tasks = kw.get("tasks")
+        p3 = (kw.get("p3_max_intv", 0), kw.get("p3_stop", 0))
+        _, K_eff = tsmem.sweep_window(table, 0, *p3)
         lad = (None if not K_eff else tuple(
             t.cpu().numpy() for t in (table.ladder_k, table.ladder_l,
                                       table.ladder_s)))
         tw = sweep_cuda.sweep_extend_twin(
             *smem_cuda.twin_tables(f)[:3], codes.cpu().numpy(),
-            lens.cpu().numpy(), mi.cpu().numpy(), kw["check_initial"],
-            kw.get("stop_min_len", 0), kw.get("p3_max_intv", 0),
-            kw.get("p3_stop", 0), ladders=lad, K_eff=K_eff,
-            kstep=smem_cuda.kstep_tables(f))
+            lens.cpu().numpy(), np.ones(len(lens), np.int32), True, 0, *p3,
+            kw["n_pos"], ladders=lad, K_eff=K_eff,
+            kstep=smem_cuda.kstep_tables(f), emit=(msl, 48),
+            tasks=None if tasks is None else tuple(
+                t.cpu().numpy() for t in tasks))
         np.testing.assert_array_equal(tw["steps"], steps.numpy())
         np.testing.assert_array_equal(tw["rounds"], rounds.numpy())
+        for fd, a, b in zip(got._fields, got, tw["smem"]):
+            np.testing.assert_array_equal(a.cpu().numpy(), b, fd)

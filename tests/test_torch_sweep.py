@@ -16,13 +16,17 @@ ladder table (``bwa_mem_scale_tpu_torch.ops.smem`` / ``ops.fma`` against
   JAX one.
 - The kernels' CPU twins (``sweep_cuda.sweep_extend_twin``,
   ``seed_strategy_merged_twin``) equal the plain versions, steps
-  included.
+  included; the sweep twin in its pass forms (passes 1 and 2 with their
+  emission, int32 and int64, with and without the table, reads past the
+  slot width) equals ``sweep_pass_plain``, each lane's start in at most
+  two dependent trips.
 - The CLIs: ``smem-table`` writes the JAX CLI's arrays; ``mem
   --seed-engine sweep`` SE and PE write the JAX CLI's SAM bodies with the
   same table; ``mem`` with a table and no engine named writes the JAX
   CLI's SAM body and note.
 On a GPU (``-m cuda``) each kernel against its plain version and its twin
-on the same cases and on a 512-read batch, at both layouts. The JAX side
+on the same cases, on a 512-read batch and (pass 2, which emits only
+repeats) on 512 reads of a genome with repeats, at both layouts. The JAX side
 is imported inside the tests that use it, so the CUDA cases also run on a
 machine without JAX:
     PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_sweep.py
@@ -253,6 +257,72 @@ def test_sweep_twin_equal_to_plain(side, wide, use_fma, case):
     assert steps.sum() > 0
 
 
+def pass_twin_case(fmi, codes, lens, table, msl, mmi, M, pass2,
+                   kstep=None):
+    """sweep_pass_plain (the plain pass 1 of collect_smems_device, merged
+    with pass 3, or smems_reseed's pass 2 over its tasks) and the kernel's
+    twin on the same inputs: every SmemBuf field, cnt, the merged records
+    and each lane's steps equal, each lane's start in at most two
+    dependent trips. Returns (the plain SmemBuf, the twin's dict)."""
+    P = codes.shape[1] - msl + 1
+    kw = dict(p3_max_intv=mmi, p3_stop=msl + 1)
+    want, recs = tsmem.sweep_pass_plain(fmi, codes, lens, msl, M, fma=table,
+                                        n_pos=P, **kw)
+    tasks = None
+    if pass2:                # the tasks of pass 1's SMEMs at full width
+        p1, _ = tsmem.sweep_pass_plain(fmi, codes, lens, msl, P, fma=table,
+                                       n_pos=P, **kw)
+        tasks = tsmem.reseed_tasks(p1, 2 * codes.shape[0],
+                                   int(msl * 1.5 + .499), 10)[:4]
+        want, recs = tsmem.sweep_pass_plain(fmi, codes, lens, msl, M,
+                                            fma=table, tasks=tasks, n_pos=P)
+        kw = {}
+    steps = sweep_cuda.walked_steps(tsmem.extend_all_positions.last_steps,
+                                    tasks).numpy()
+    _, K_eff = tsmem.sweep_window(table, 0, kw.get("p3_max_intv", 0),
+                                  kw.get("p3_stop", 0))
+    tabs = smem_cuda.twin_tables(fmi)
+    lad = (None if not K_eff else tuple(
+        t.numpy() for t in (table.ladder_k, table.ladder_l, table.ladder_s)))
+    twin = sweep_cuda.sweep_extend_twin(
+        *tabs[:3], codes.numpy(), lens.numpy(),
+        np.ones(codes.shape[0], np.int32), True, 0,
+        kw.get("p3_max_intv", 0), kw.get("p3_stop", 0), P, ladders=lad,
+        K_eff=K_eff, hi_steps=tabs[3], kstep=kstep, emit=(msl, M),
+        tasks=None if tasks is None else tuple(t.numpy() for t in tasks))
+    for f, a, b in zip(want._fields, want, twin["smem"]):
+        assert a.numpy().dtype == b.dtype, f
+        np.testing.assert_array_equal(a.numpy(), b, f)
+    assert set(recs) == (set() if pass2 else set(tsmem.MERGED_RECORDS))
+    for f, v in recs.items():
+        assert twin[f].dtype == v.numpy().dtype, f
+        np.testing.assert_array_equal(twin[f], v.numpy(), f)
+    np.testing.assert_array_equal(twin["steps"], steps)
+    assert twin["start_trips"].max() <= 2
+    if K_eff:
+        assert twin["start_trips"].max() == 2 and twin["ladder_sectors"] > 0
+    assert twin["rows"] > 0 and int(want.cnt.sum()) > 0
+    return want, twin
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("use_fma", [False, True], ids=["plain", "fma"])
+@pytest.mark.parametrize("pass2", [False, True], ids=["pass1", "pass2"])
+@pytest.mark.parametrize("M", [60, 1], ids=["wide", "past-M"])
+def test_pass_twin_equal_to_plain(side, wide, use_fma, pass2, M):
+    """sweep_extend_twin in its pass forms (the FMA start in at most two
+    trips, then the emission into each read's slots) equal to the plain
+    passes of collect_smems_device and smems_reseed, every field, cnt,
+    the merged records and each lane's steps; at M = 1 reads emit past
+    their slots, which drop while cnt counts them."""
+    codes, lens = (torch.as_tensor(a) for a in side["reads"])
+    _, tt = _tables(side, wide, use_fma)
+    want, _ = pass_twin_case(side["tfmi"][wide], codes, lens, tt,
+                             *PARAMS[0], M, pass2)
+    if M == 1:
+        assert (want.cnt > M).any()
+
+
 def _merged_inputs(side, wide, use_fma, params=PARAMS[0]):
     """smems_seed_strategy_merged's inputs on the pass-1 sweep's merged
     records: (index, codes, lens, ext, P)."""
@@ -330,27 +400,37 @@ def test_merged_plain_equal_to_jax(side, wide, params):
 
 
 def test_wrappers_on_cpu_run_plain(side):
-    """On CPU tensors each wrapper runs its plain version: equal outputs,
-    no launch counted, the lockstep's ticks in stats."""
-    codes, lens = (torch.as_tensor(a) for a in side["reads"])
-    fmi = side["tfmi"][False]
-    mi = torch.ones(len(lens), dtype=torch.int32)
-    before = (sweep_cuda.extend_all_positions_cuda.launches,
+    """On CPU tensors each wrapper runs its plain version: equal outputs
+    (pass 1, pass 2 over its tasks, the merged stage), no launch counted,
+    the lockstep's ticks in stats."""
+    before = (sweep_cuda.sweep_pass_cuda.launches,
               sweep_cuda.seed_strategy_merged_cuda.launches)
     st = {}
-    got = sweep_cuda.extend_all_positions_cuda(fmi, codes, lens, mi, True,
-                                               True, stats=st)
-    want = tsmem.extend_all_positions(fmi, codes, lens, mi, True, True)
-    assert set(got) == set(want)
-    assert all(torch.equal(got[k], want[k]) for k in want)
     fmi, codes, lens, ext, P = _merged_inputs(side, False, True)
     args = (fmi, codes, lens, ext, 20, 11, 12, P)
     a = sweep_cuda.seed_strategy_merged_cuda(*args, stats=st)
     b = tsmem.smems_seed_strategy_merged(*args)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert (sweep_cuda.extend_all_positions_cuda.launches,
+    _, tt = _tables(side, False, True)
+    a, ra = sweep_cuda.sweep_pass_cuda(fmi, codes, lens, 10, 12, fma=tt,
+                                       p3_max_intv=20, p3_stop=11, n_pos=P,
+                                       stats=st)
+    b, rb = tsmem.sweep_pass_plain(fmi, codes, lens, 10, 12, fma=tt,
+                                   p3_max_intv=20, p3_stop=11, n_pos=P)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert set(ra) == set(rb) and all(torch.equal(ra[k], rb[k]) for k in rb)
+    tasks = tsmem.reseed_tasks(a, 2 * len(lens), 15, 10)[:4]
+    a, ra = sweep_cuda.sweep_pass_cuda(fmi, codes, lens, 10, 12, fma=tt,
+                                       tasks=tasks, n_pos=P, stats=st,
+                                       stats_key="sweep_ticks_p2")
+    b, rb = tsmem.sweep_pass_plain(fmi, codes, lens, 10, 12, fma=tt,
+                                   tasks=tasks, n_pos=P)
+    assert all(torch.equal(x, y) for x, y in zip(a, b)) and ra == rb == {}
+    assert int(a.cnt.sum()) > 0
+    assert (sweep_cuda.sweep_pass_cuda.launches,
             sweep_cuda.seed_strategy_merged_cuda.launches) == before
-    assert st["sweep_ticks"] > 0 and st["chase_ticks"] > 0
+    assert st["chase_ticks"] > 0
+    assert st["sweep_ticks_p1"] > 0 and st["sweep_ticks_p2"] > 0
 
 
 def test_seed_chain_extend_sweep_runs_default_config(side, small_index):
@@ -579,21 +659,27 @@ def _cuda():
 
 @pytest.fixture(scope="module")
 def card():
-    """The port's own index of a 20 kbp genome with this file's reads and
-    of a 1 Mbp genome with 512 reads of 101 bp (1% errors), the K = 6
-    tables of both, at both layouts (no JAX on the card)."""
+    """The port's own index of a 20 kbp genome with this file's reads, of
+    a 1 Mbp genome with 512 reads of 101 bp (1% errors) and of
+    ``tools/batches.py::repeat_batch``'s 2 Mbp genome with repeats and its
+    512 reads, the K = 6 tables of each, at both layouts (no JAX on the
+    card)."""
     dev = _cuda()
     from bwa_mem_scale_tpu_torch.index.build import build_index
     from bwa_mem_scale_tpu_torch.models.aligner import (demo_genome,
                                                        simulate_reads)
+    from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
     out = {}
-    for name, n, reads in (("small", 20000, None), ("batch", 1_000_000, 512)):
-        idx = build_index(demo_genome(n, seed=42, n_contigs=1))
-        if reads is None:
-            codes, lens = _reads(idx.bns.seq)
+    for name in ("small", "batch", "repeat"):
+        if name == "repeat":
+            idx, codes, lens = repeat_batch()
         else:
-            codes, lens = simulate_reads(idx.bns, reads, 101, seed=8,
-                                         err_rate=0.01)
+            idx = build_index(demo_genome(
+                20000 if name == "small" else 1_000_000, seed=42,
+                n_contigs=1))
+            codes, lens = (_reads(idx.bns.seq) if name == "small" else
+                           simulate_reads(idx.bns, 512, 101, seed=8,
+                                          err_rate=0.01))
         table = tfma.build_fma_table(TFmi.from_host(idx, dev), K=6)
         for wide in (False, True):
             fmi = TFmi.from_host(idx, dev, force_int64=wide)
@@ -604,8 +690,47 @@ def card():
     return out
 
 
-CARD_CASES = [(n, c) for n in ("small", "batch")
-              for c in ("merged", "split-p3", "reseed")]
+# pass 2 emits only matches that occur more often than the SMEM they
+# reseed: on the 1 Mbp random genome there are none, so its large case
+# runs on the repeat batch
+CARD_CASES = [("small", "merged"), ("small", "unmerged"),
+              ("small", "reseed"), ("batch", "merged"),
+              ("batch", "unmerged"), ("repeat", "reseed")]
+
+
+def card_pass_case(fmi, codes, lens, table, msl, mmi, M, pass2):
+    """One pass launch (sweep_pass_cuda, each lane's steps kept) against
+    sweep_pass_plain on the same CUDA tensors: every SmemBuf field, the
+    merged records and each lane's steps (and row fetches) equal. Returns
+    (the launch's SmemBuf, its steps, its rounds, the pass's arguments)."""
+    P = codes.shape[1] - msl + 1
+    kw = dict(fma=table, n_pos=P, p3_max_intv=mmi, p3_stop=msl + 1)
+    if pass2:
+        p1, _ = tsmem.sweep_pass_plain(fmi, codes, lens, msl, P, **kw)
+        kw = dict(fma=table, n_pos=P, tasks=tsmem.reseed_tasks(
+            p1, 2 * codes.shape[0], int(msl * 1.5 + .499), 10)[:4])
+    wrap = sweep_cuda.sweep_pass_cuda
+    before = (wrap.launches, wrap.launches64)
+    wrap.keep_steps = True
+    try:
+        got, recs = wrap(fmi, codes, lens, msl, M, **kw)
+    finally:
+        wrap.keep_steps = False
+    torch.cuda.synchronize()
+    wide = fmi.pos_dtype == I64
+    assert (wrap.launches, wrap.launches64) == (before[0] + 1,
+                                                before[1] + wide)
+    steps, rounds = wrap.last_steps.cpu(), wrap.last_rounds.cpu()
+    want, wrecs = tsmem.sweep_pass_plain(fmi, codes, lens, msl, M, **kw)
+    for f, a, b in zip(want._fields, got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert set(recs) == set(wrecs)
+    for f in wrecs:
+        assert recs[f].dtype == wrecs[f].dtype, f
+        assert torch.equal(recs[f], wrecs[f]), f
+    assert torch.equal(steps, sweep_cuda.walked_steps(
+        tsmem.extend_all_positions.last_steps, kw.get("tasks")).cpu())
+    return got, steps, rounds, kw
 
 
 @pytest.mark.cuda
@@ -614,44 +739,35 @@ CARD_CASES = [(n, c) for n in ("small", "batch")
 @pytest.mark.parametrize("batch,case", CARD_CASES,
                          ids=[f"{n}-{c}" for n, c in CARD_CASES])
 def test_sweep_kernel_equal_to_plain(card, wide, use_fma, batch, case):
-    """sweep_extend_kernel against the lockstep on the card, every output
-    and each lane's steps; on the small batch also against the twin."""
+    """sweep_extend_kernel's pass forms against the plain version on the
+    card: pass 1 merged with pass 3 and not (max_mem_intv 0), and pass 2
+    (the reseed) over reseed_tasks' list, the emission in the launch at a
+    width some reads pass; every output and each lane's steps; every case
+    emits; on the small batch also against the twin."""
     c = card[batch, wide]
     codes, lens = c["codes"], c["lens"]
-    L_ = codes.shape[1]
-    mi, kw = _sweep_args(case, PARAMS[0] if batch == "small" else (19, 20),
-                         len(lens))
-    mi = torch.as_tensor(mi, device=codes.device)
-    P = L_ - (10 if batch == "small" else 19) + 1
+    msl = 10 if batch == "small" else 19
     tt = c["table"] if use_fma else None
-    before = sweep_cuda.extend_all_positions_cuda.launches64
-    got = sweep_cuda.extend_all_positions_cuda(c["fmi"], codes, lens, mi,
-                                               fma=tt, n_pos=P, **kw)
-    torch.cuda.synchronize()
-    assert sweep_cuda.extend_all_positions_cuda.launches64 == before + wide
-    steps = sweep_cuda.extend_all_positions_cuda.last_steps.cpu()
-    want = tsmem.extend_all_positions(c["fmi"], codes, lens, mi, fma=tt,
-                                      n_pos=P, **kw)
-    assert set(got) == set(want)
-    for k in want:
-        assert got[k].dtype == want[k].dtype, k
-        assert torch.equal(got[k], want[k]), k
-    assert torch.equal(steps, tsmem.extend_all_positions.last_steps.cpu())
-    assert int(steps.sum()) > 0
+    got, steps, _, kw = card_pass_case(c["fmi"], codes, lens, tt, msl,
+                                       0 if case == "unmerged" else 20, 8,
+                                       case == "reseed")
+    assert int(steps.sum()) > 0 and int(got.cnt.sum()) > 0
     if batch == "small":
-        _, K_eff = tsmem.sweep_window(tt, kw.get("stop_min_len", 0),
-                                      kw.get("p3_max_intv", 0),
-                                      kw.get("p3_stop", 0))
-        tabs = smem_cuda.twin_tables(c["fmi"])
+        tasks = kw.get("tasks")
+        p3 = (kw.get("p3_max_intv", 0), kw.get("p3_stop", 0))
+        _, K_eff = tsmem.sweep_window(tt, 0, *p3)
         lad = (None if not K_eff else tuple(
-            t.cpu().numpy() for t in (tt.ladder_k, tt.ladder_l,
-                                      tt.ladder_s)))
+            t.cpu().numpy() for t in (tt.ladder_k, tt.ladder_l, tt.ladder_s)))
+        tabs = smem_cuda.twin_tables(c["fmi"])
         twin = sweep_cuda.sweep_extend_twin(
             *tabs[:3], codes.cpu().numpy(), lens.cpu().numpy(),
-            mi.cpu().numpy(), kw["check_initial"], kw.get("stop_min_len", 0),
-            kw.get("p3_max_intv", 0), kw.get("p3_stop", 0), P, ladders=lad,
-            K_eff=K_eff, hi_steps=tabs[3])
+            np.ones(len(lens), np.int32), True, 0, *p3, kw["n_pos"],
+            ladders=lad, K_eff=K_eff, hi_steps=tabs[3], emit=(msl, 8),
+            tasks=None if tasks is None else tuple(
+                t.cpu().numpy() for t in tasks))
         np.testing.assert_array_equal(twin["steps"], steps.numpy())
+        for f, a, b in zip(got._fields, got, twin["smem"]):
+            np.testing.assert_array_equal(a.cpu().numpy(), b, f)
 
 
 @pytest.mark.cuda
@@ -677,8 +793,7 @@ def test_collect_and_chase_kernels_equal_to_plain(card, wide, use_fma,
     def record(*a, **k):
         calls.append(a)
         return real(*a, **k)
-    before = (sweep_cuda.extend_all_positions_cuda.launches,
-              real.launches)
+    before = (sweep_cuda.sweep_pass_cuda.launches, real.launches)
     sweep_cuda.seed_strategy_merged_cuda = record
     try:
         got = tsmem.collect_smems_device(c["fmi"], c["codes"], c["lens"],
@@ -686,7 +801,7 @@ def test_collect_and_chase_kernels_equal_to_plain(card, wide, use_fma,
     finally:
         sweep_cuda.seed_strategy_merged_cuda = real
     torch.cuda.synchronize()
-    assert (sweep_cuda.extend_all_positions_cuda.launches,
+    assert (sweep_cuda.sweep_pass_cuda.launches,
             real.launches) == (before[0] + 2, before[1] + 1)
     want = _plain_collect(c, tt, kw)
     for f in got._fields:
