@@ -25,11 +25,13 @@ int64 form) and the last call's per-lane ``last_steps`` (the ext calls);
 ``last_rounds`` (the dependent occ round trips on each task's path).
 
 With a k-gram checkpoint table on the index (``fmi.kstep`` 2 or 3, int32
-layout only) the wrappers launch the k-step forms (``one_pos_launch_k``:
-the forward walk K bases a row fetch; ``seed_strategy_launch_k``: two
-bases a fetch, a trigram table's bigram part) and count them in
-``launches_k`` as well; steps still count single bases, rounds the row
-fetches.
+layout only) the wrappers launch the k-step forms, which read that table
+alone (``_kform_args``: the C array, the sentinel and the table, no
+``cp_fused``): ``one_pos_launch_k`` (the forward walk K bases a row
+fetch, a backward round that fits one chunk K rounds a fetch) and
+``seed_strategy_launch_k`` (two bases a fetch, a trigram table's bigram
+groups), counted in ``launches_k`` as well; steps still count single bases,
+rounds the row fetches.
 
 Each kernel returns its plain version's arrays exactly, lanes that
 overflowed their stacks or their emission depth included. The source is
@@ -54,6 +56,7 @@ counts.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -69,6 +72,7 @@ _FMI = {torch.int32: [_vp] + [_ci] * 7,
         torch.int64: [_vp] + [_ll] * 7 + [_vp] + [_ci] * 4}
 _ONE_POS = [_vp, _vp, _ci, _ci] + [_vp] * 4 + [_ci] * 5 + [_vp] * 5
 _P3 = [_vp, _vp] + [_ci] * 6 + [_vp] * 3
+_KFORM = [_ci] * 6 + [_vp, _ci, _ci, _vp, _vp, _ci]
 _SAL = {torch.int32: [_vp, _ci, _ci, _vp, _vp, _ci] + [_vp] * 2,
         torch.int64: [_vp, _ll, _ci, _vp, _vp, _ci] + [_vp] * 2}
 _SUFFIX = {torch.int32: "", torch.int64: "64"}
@@ -78,12 +82,11 @@ LIB = nvcc_build.Library("smem.cu", "smem_cuda", {
        for fn, tail in (("one_pos_launch", _ONE_POS),
                         ("seed_strategy_launch", _P3),
                         ("sa_walk_launch", _SAL[pd]))},
-    # the k-step forms: the int32 index, then the k-gram table, its row
-    # width in int4s and its C2 (and C3) tables (and K for passes 1-2)
-    **{"one_pos_launch_k": _FMI[torch.int32] + [_vp, _ci, _vp, _vp, _ci]
-       + _ONE_POS,
-       "seed_strategy_launch_k": _FMI[torch.int32] + [_vp, _ci, _vp] + _P3
-       + [_vp]}},
+    # the k-step forms: the C array and the sentinel, the k-gram table,
+    # its rows and width in int4s, its C2 and C3 tables and K (_kform_args);
+    # pass 3 also each read's rounds
+    **{"one_pos_launch_k": _KFORM + _ONE_POS,
+       "seed_strategy_launch_k": _KFORM + _P3 + [_vp]}},
     host_fns={"one_pos_stacks_in_shared": [_ci, _ci],
               "one_pos_stacks_in_shared64": [_ci, _ci]})
 build = LIB.build            # compile csrc/smem.cu; returns the library path
@@ -100,15 +103,15 @@ def _fmi_args(fmi: DeviceFMIndex) -> list:
     return args
 
 
-def _kstep_args(fmi: DeviceFMIndex, ks: int) -> list:
-    """The k-step forms' table arguments, after _fmi_args: the k-gram
-    rows, their width in int4s and the C2 table, then at ks = 3 the C3
-    table (null at 2) and ks (passes 1-2 only, ks None)."""
+def _kform_args(fmi: DeviceFMIndex) -> list:
+    """The index arguments of the k-step forms of passes 1-3, which read
+    the k-gram table alone: the C array and the sentinel, the k-gram rows,
+    their count and width in int4s, the C2 and C3 tables (C3 null at K =
+    2) and K."""
     t = fmi.cp_kstep
-    args = [t.data_ptr(), t.shape[1] // 4, fmi.count2.data_ptr()]
-    if ks is not None:
-        args += [fmi.count3.data_ptr() if ks == 3 else None, ks]
-    return args
+    return [*fmi.count_host, fmi.sentinel_index, t.data_ptr(), t.shape[0],
+            t.shape[1] // 4, fmi.count2.data_ptr(),
+            None if fmi.count3 is None else fmi.count3.data_ptr(), fmi.kstep]
 
 
 def _form(fn: str, fmi: DeviceFMIndex) -> str:
@@ -199,8 +202,8 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
                else torch.empty((T, 2, SD + 1, 4 * fmi.pos_dtype.itemsize),
                                 dtype=torch.uint8, device=dev))
         ks = fmi.kstep
-        form = (["one_pos_launch_k", *_fmi_args(fmi), *_kstep_args(fmi, ks)]
-                if ks > 1 else [_form("one_pos_launch", fmi), *_fmi_args(fmi)])
+        form = (["one_pos_launch_k", *_kform_args(fmi)] if ks > 1 else
+                [_form("one_pos_launch", fmi), *_fmi_args(fmi)])
         LIB.launch(dev, *form, args[0].data_ptr(), args[1].data_ptr(), B, L,
                    *(a.data_ptr() for a in args[2:]), T, int(chain_restarts),
                    min_seed_len, max_out, SD,
@@ -253,8 +256,7 @@ def seed_strategy_machine_cuda(fmi: DeviceFMIndex, codes, lens,
     rounds = torch.empty((B,), dtype=i32, device=dev) if kstep else steps
     if B:
         c, ln = codes.contiguous(), lens.contiguous()
-        form = (["seed_strategy_launch_k", *_fmi_args(fmi),
-                 *_kstep_args(fmi, None)] if kstep else
+        form = (["seed_strategy_launch_k", *_kform_args(fmi)] if kstep else
                 [_form("seed_strategy_launch", fmi), *_fmi_args(fmi)])
         LIB.launch(dev, *form, c.data_ptr(), ln.data_ptr(), B, L,
                    int(max_intv), min_seed_len, max_out, 0, out.data_ptr(),
@@ -384,15 +386,17 @@ def kstep_tables(fmi: DeviceFMIndex):
 
 
 class _TwinK:
-    """csrc/fmi_step.cuh's ext_k on numpy arrays: KS = len(c) bases from
-    the 32-byte groups of one k-gram row at each end (the 1-step row, the
-    first base's bigram group, the pair's trigram group)."""
+    """csrc/fmi_step.cuh's ext_k / ext_kt on numpy arrays: KS = len(c)
+    bases from the 32-byte groups of one k-gram row at each end (the
+    1-step row, the first base's bigram group, the pair's trigram
+    group)."""
 
     def __init__(self, fm: _TwinFmi, cp_kstep, count2, count3=None):
         self.fm = fm
         self.cp = np.asarray(cp_kstep, np.int64)
         self.c2 = [int(v) for v in count2]
         self.c3 = None if count3 is None else [int(v) for v in count3]
+        self.ks = 2 if count3 is None else 3
 
     def occ(self, pp: int, g: int):
         blk = min(max(pp >> 5, 0), self.cp.shape[0] - 1)
@@ -402,8 +406,13 @@ class _TwinK:
         return [int(row[i]) + bin(int(row[4 + i]) & 0xFFFFFFFF & top
                                   ).count("1") for i in range(4)]
 
-    def ext_k(self, k: int, l: int, s: int, c: list) -> list:
-        grp = [0, 1 + c[0], 5 + 4 * c[0] + c[1]][:len(c)]
+    def ext_k(self, k: int, l: int, s: int, c: list, live: int = None
+              ) -> list:
+        """The intervals after 1, ..., live bases of c (all of them by
+        default), the groups of the first `live` steps read."""
+        live = len(c) if live is None else live
+        grp = ([0, 1 + c[0], 5 + 4 * c[0] + c[1]][:len(c)] if len(c) > 1
+               else [0])
         base = [self.fm.count[c[0]]]
         if len(c) > 1:
             base.append(self.c2[4 * c[0] + c[1]])
@@ -411,7 +420,7 @@ class _TwinK:
             base.append(self.c3[16 * c[0] + 4 * c[1] + c[2]])
         ends = (k, k + s)                    # every group at these two
         out = []
-        for d, cd in enumerate(c):
+        for d, cd in enumerate(c[:live]):
             a, b = (self.occ(pp, grp[d]) for pp in ends)
             s4 = [b[i] - a[i] for i in range(4)]
             sent = int(k <= self.fm.sentinel < k + s)
@@ -438,19 +447,29 @@ class _RowOut:
 
 def warp_task(fm: _TwinFmi, kt, code, n_len: int, mi: int, x: int,
               chain_restarts: bool, min_seed_len: int, SD: int, stk, emit,
-              where: str) -> tuple:
+              where: str, events=None) -> tuple:
     """csrc/one_pos_task.cuh's one_pos_task in plain Python: one task's
-    walk as one warp runs it (the serial forward walk, K bases a row fetch
-    with `kt` (a ``_TwinK``: 3 with a C3 table, else 2), then each
-    backward round in chunks of WARP simulated lanes with the ballot-form
-    keep/emit rule), over `stk` ([2][SD + 1][4] stack slots) and the
-    read's clipped codes `code(i)`, emitting through `emit(m, n, k, l,
-    s)`. Raises AssertionError, naming `where`, where a round breaks the
+    walk as one warp runs it, over `stk` ([2][SD + 1][4] stack slots) and
+    the read's clipped codes `code(i)`, emitting through `emit(m, n, k, l,
+    s)`: the serial forward walk, then each backward round in chunks of
+    WARP simulated lanes with the ballot-form keep/emit rule. With `kt` (a
+    ``_TwinK``: K = 3 with a C3 table, else 2) every occ step reads the
+    k-gram table: the forward walk K bases a fetch, and a backward round
+    whose entries fit one chunk (and the stack) K rounds a fetch, the rule
+    applied K times over the lanes each sub-round keeps. Raises
+    AssertionError, naming `where`, where a round or sub-round breaks the
     two orders that rule rests on (along p the new sizes never fall and
-    the entries' ends never rise). Returns (steps, rounds, whether a
-    stack count passed SD)."""
-    count, ext = fm.count, fm.ext
-    ks = 1 if kt is None else (3 if kt.c3 is not None else 2)
+    the entries' ends never rise). `events` (a Counter) counts the k-step
+    rounds' shapes: "chunked" (a round taken 1-step), "fused", the
+    k-step rounds that end at the read's "start" or an "N", and
+    "sentinel" (a sub-round after the first whose entries hold the
+    sentinel row). Returns (steps, rounds, whether a stack count passed
+    SD)."""
+    count = fm.count
+    events = collections.Counter() if events is None else events
+    ks = 1 if kt is None else kt.ks
+    ext = fm.ext if kt is None else (
+        lambda k, l, s, c: kt.ext_k(k, l, s, [c])[0])
     steps = rounds = wA = 0
     of = False
 
@@ -462,6 +481,53 @@ def warp_task(fm: _TwinFmi, kt, code, n_len: int, mi: int, x: int,
 
     def read(buf, i):
         return [int(v) for v in stk[buf, min(max(i, 0), SD - 1)]]
+
+    def in_order(pairs, at):
+        """The two orders along a round's entries: (new size, end)."""
+        for p in range(1, len(pairs)):
+            if pairs[p][0] < pairs[p - 1][0] or pairs[p][1] > pairs[p - 1][1]:
+                raise AssertionError(f"{where}, round at j={at}, entry {p}: "
+                                     f"sizes or ends out of order")
+
+    def fused_round(j, cA, mA, rev):
+        """K backward rounds from one fetch (the kernel's k-step round):
+        (the entries the last sub-round kept, as stack slots, or None where
+        the backward rounds end)."""
+        nonlocal steps, rounds
+        ents = [read(wA, cA - 1 - p if rev else p) for p in range(cA)]
+        cc = [code(j)] + [code(j - d) if j - d >= 0 else 4
+                          for d in range(1, ks)]
+        live = 1                             # the bases before an end
+        while live < ks and cc[live] < 4:
+            live += 1
+        ch = [c if c < 4 else 0 for c in cc]
+        res = [kt.ext_k(*e[:3], ch, live) for e in ents]
+        rounds += 1
+        inn = list(range(cA))                # the sub-round's lanes
+        cur = [tuple(e[:3]) for e in ents]   # each lane's interval
+        m = mA
+        events["fused"] += 1
+        for d in range(ks):
+            if d and inn and d >= live:
+                events["start" if j - d < 0 else "N"] += 1
+            if d and (d >= live or not inn):     # the walk's end
+                if inn and ents[inn[0]][3] - m + 1 >= min_seed_len:
+                    emit(m, ents[inn[0]][3], *cur[inn[0]])
+                return None
+            steps += len(inn)
+            events["sentinel"] += d > 0 and any(
+                cur[p][0] <= fm.sentinel < cur[p][0] + cur[p][2] for p in inn)
+            ns = [res[p][d][2] for p in inn]
+            in_order([(v, ents[p][3]) for v, p in zip(ns, inn)], j - d)
+            p0 = inn[0]                          # only it emits
+            if ns[0] < mi and ents[p0][3] - m + 1 >= min_seed_len:
+                emit(m, ents[p0][3], *cur[p0])
+            kept = [p for i, p in enumerate(inn) if ns[i] >= mi and ns[i]
+                    != (-1 if i == 0 or ns[i - 1] < mi else ns[i - 1])]
+            for p in inn:
+                cur[p] = res[p][d]
+            inn, m = kept, j - d
+        return [(*cur[p], ents[p][3]) for p in inn]
 
     while True:                                  # start positions
         xa = code(x) if x < n_len else 4
@@ -482,7 +548,11 @@ def warp_task(fm: _TwinFmi, kt, code, n_len: int, mi: int, x: int,
             if kt is None:
                 res = [ext(cl, ck, cs, 3 - cc[0])]
             else:                                # KS bases a fetch
-                res = kt.ext_k(cl, ck, cs, [3 - min(c, 3) for c in cc])
+                live = 1
+                while live < ks and j + live < n_len and cc[live] < 4:
+                    live += 1
+                res = kt.ext_k(cl, ck, cs, [3 - min(c, 3) for c in cc],
+                               live)
             rounds += 1
             for d, (nl, nk, ns) in enumerate(res):
                 if d:                            # mid-stride ends
@@ -513,6 +583,16 @@ def warp_task(fm: _TwinFmi, kt, code, n_len: int, mi: int, x: int,
                     if pn - mA + 1 >= min_seed_len:
                         emit(mA, pn, pk, pl, ps)
                 break
+            if kt is not None and cA <= min(WARP, SD):
+                kept = fused_round(j, cA, mA, rev)
+                if kept is None:
+                    break
+                for i, vals in enumerate(kept):
+                    stk[wA ^ 1, i] = vals
+                wA ^= 1
+                cA, mA, rev, j = len(kept), j - (ks - 1), False, j - ks
+                continue
+            events["chunked"] += kt is not None
             cB, prev, last = 0, 0, None
             for c0 in range(0, cA, WARP):        # a chunk: one trip
                 lanes = []                       # (entry, nk, nl, ns)
@@ -556,14 +636,16 @@ def warp_task(fm: _TwinFmi, kt, code, n_len: int, mi: int, x: int,
 def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
                  t_x, t_mi, t_valid, chain_restarts: bool,
                  min_seed_len: int, max_out: int, stack_depth: int = None,
-                 hi_steps=None, kstep=None):
+                 hi_steps=None, kstep=None, events=None):
     """csrc/smem.cu's one_pos_kernel in plain Python on numpy arrays, one
     task (warp) after another through ``warp_task`` (with `kstep`,
-    ``kstep_tables``' k-gram table, the k-step form's forward walk; with
-    `hi_steps` (``twin_tables``) the int64 form). Raises AssertionError
-    where a round breaks the two orders of the ballot rule. Returns (m, n,
-    k, l, s, cnt, steps, rounds) as numpy arrays, k, l and s int64 for the
-    int64 form."""
+    ``kstep_tables``' k-gram table, the k-step form, which reads that
+    table alone; with `hi_steps` (``twin_tables``) the int64 form). Raises
+    AssertionError where a round breaks the two orders of the ballot rule.
+    Returns (m, n, k, l, s, cnt, steps, rounds) as numpy arrays, k, l and
+    s int64 for the int64 form; ``last_reads`` keeps the set of 32-byte
+    rows (1-step table) or (row, group) k-gram groups the call read.
+    `events`: ``warp_task``'s, summed over the tasks."""
     fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
     kt = None if kstep is None else _TwinK(fm, *kstep)
     codes = np.asarray(codes)
@@ -586,10 +668,14 @@ def one_pos_twin(count, cp_fused, sentinel_index: int, codes, lens, t_read,
         row = _RowOut(out[:, t])
         steps, rounds, of = warp_task(
             fm, kt, code, n_len, int(t_mi[t]), int(t_x[t]), chain_restarts,
-            min_seed_len, SD, stk, row, f"one_pos_twin: task {t}")
+            min_seed_len, SD, stk, row, f"one_pos_twin: task {t}", events)
         cnt_out[t] = M + 1 if of else row.cnt
         steps_out[t], rounds_out[t] = steps, rounds
+    one_pos_twin.last_reads = fm.seen
     return (*_smem_fields(out, hi_steps), cnt_out, steps_out, rounds_out)
+
+
+one_pos_twin.last_reads = None
 
 
 def _smem_fields(out, hi_steps) -> tuple:
@@ -605,10 +691,11 @@ def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
                        hi_steps=None, kstep=None):
     """csrc/smem.cu's seed_strategy_kernel in plain Python on numpy
     arrays, one read after another: the same flat loop of one row fetch
-    an iteration (one base, or with `kstep`, ``kstep_tables``' k-gram
-    table, two), its `seek` to the next walk and its clamps (the int64
-    form with `hi_steps`). Returns (m, n, k, l, s, cnt, steps, rounds) as
-    numpy arrays."""
+    an iteration, its `seek` to the next walk and its clamps (the int64
+    form with `hi_steps`). With `kstep` (``kstep_tables``' k-gram table)
+    two bases a fetch, a trigram table's bigram groups. Returns (m, n, k,
+    l, s, cnt, steps, rounds) as numpy arrays; ``last_reads`` keeps the
+    set of rows (K = 1) or (row, group) k-gram groups it read."""
     fm = _TwinFmi(count, cp_fused, sentinel_index, hi_steps)
     kt = None if kstep is None else _TwinK(fm, *kstep)
     C = fm.count
@@ -680,7 +767,11 @@ def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
         cnt_out[t] = cnt
         steps_out[t] = steps
         rounds_out[t] = rounds
+    seed_strategy_twin.last_reads = fm.seen
     return (*_smem_fields(out, hi_steps), cnt_out, steps_out, rounds_out)
+
+
+seed_strategy_twin.last_reads = None
 
 
 def _twin_walk(fm: _TwinFmi, samples, sa_compx: int, sp: int) -> tuple:

@@ -55,12 +55,12 @@ import torch
 from . import nvcc_build
 from .occ import DeviceFMIndex
 from .smem import SmemBuf
-from .smem_cuda import (_FMI, _SUFFIX, _RowOut, _TwinFmi, _TwinK, _check,
-                        _codes_int32, _fmi_args, _kstep_args, _smem_fields,
-                        _smem_out, warp_task)
+from .smem_cuda import (_FMI, _KFORM, _SUFFIX, _RowOut, _TwinFmi, _TwinK,
+                        _check, _codes_int32, _fmi_args, _kform_args,
+                        _smem_fields, _smem_out, warp_task)
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-# after the index (and the k-step table): passes 1-2 codes, lens, B, L,
+# after the index (_fmi_args, or the k-step forms' _kform_args): passes 1-2 codes, lens, B, L,
 # five task arrays, N, T, chain_restarts, min_seed_len, M, R, then the
 # stacks, the counter, out, cnt, steps, ticks; pass 3 codes, lens, B, L,
 # T, lanes a warp, max_intv, min_seed_len, M, then the counter, out, cnt,
@@ -71,10 +71,9 @@ LIB = nvcc_build.Library("readlane.cu", "readlane_cuda", {
     **{f"{fn}{_SUFFIX[pd]}": _FMI[pd] + tail for pd in _FMI
        for fn, tail in (("readlane_one_pos_launch", _ONE_POS),
                         ("readlane_strategy_launch", _P3))},
-    "readlane_one_pos_launch_k": _FMI[torch.int32]
-    + [_vp, _ci, _vp, _vp, _ci] + _ONE_POS,
-    "readlane_strategy_launch_k": _FMI[torch.int32] + [_vp, _ci, _vp]
-    + _P3},
+    # the k-step forms: the k-gram table alone (smem_cuda._kform_args)
+    "readlane_one_pos_launch_k": _KFORM + _ONE_POS,
+    "readlane_strategy_launch_k": _KFORM + _P3},
     host_fns={"readlane_stacks_in_shared": [_ci],
               "readlane_stacks_in_shared64": [_ci]})
 build = LIB.build        # compile csrc/readlane.cu; returns the library path
@@ -93,12 +92,12 @@ def strategy_lanes_a_warp(L: int, lanes: int) -> int:
     return min(P3_LANES, SMEM_MAX // ((L + 15) // 16 * 16), lanes)
 
 
-def _form(fn: str, fmi: DeviceFMIndex, ks) -> list:
+def _form(fn: str, fmi: DeviceFMIndex) -> list:
     """The launch function and index arguments of `fn`'s form for fmi:
-    int32 or int64, or with a k-gram table the k-step form (ks: passes
-    1-2's K, None for pass 3)."""
+    int32 or int64, or with a k-gram table the k-step form, which reads
+    that table alone (``_kform_args``)."""
     if fmi.kstep > 1:
-        return [f"{fn}_k", *_fmi_args(fmi), *_kstep_args(fmi, ks)]
+        return [f"{fn}_k", *_kform_args(fmi)]
     return [fn + _SUFFIX[fmi.pos_dtype], *_fmi_args(fmi)]
 
 
@@ -167,7 +166,7 @@ def readlane_one_pos_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
                else torch.empty((T, 2, L + 1, 4 * pd.itemsize),
                                 dtype=torch.uint8, device=dev))
         ctr = torch.zeros((1,), dtype=i32, device=dev)
-        LIB.launch(dev, *_form("readlane_one_pos_launch", fmi, fmi.kstep),
+        LIB.launch(dev, *_form("readlane_one_pos_launch", fmi),
                    c.data_ptr(), ln.data_ptr(), B, L,
                    *(a.data_ptr() for a in args), N, T, int(chain_restarts),
                    min_seed_len, M, R, None if stk is None else stk.data_ptr(),
@@ -226,7 +225,7 @@ def readlane_strategy_cuda(fmi: DeviceFMIndex, codes, lens, max_intv: int,
         if rw < 1:
             raise ValueError(f"{what}: reads of {L} columns do not fit a "
                              f"block's shared memory")
-        LIB.launch(dev, *_form("readlane_strategy_launch", fmi, None),
+        LIB.launch(dev, *_form("readlane_strategy_launch", fmi),
                    c.data_ptr(), ln.data_ptr(), B, L, T, rw, int(max_intv),
                    min_seed_len, max_out, ctr.data_ptr(), out.data_ptr(),
                    cnt.data_ptr(), steps.data_ptr(), ticks.data_ptr())

@@ -61,8 +61,7 @@ import torch
 from . import nvcc_build
 from .occ import DeviceFMIndex
 from .smem_cuda import (_FMI, _SUFFIX, _TwinFmi, _TwinK, _check,
-                        _codes_int32, _count, _fmi_args, _form, _kstep_args,
-                        _smem_out)
+                        _codes_int32, _count, _fmi_args, _form, _smem_out)
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _PASS = [_vp] * 6 + [_ci] * 8 + [_vp] * 3 + [_ci] * 2 + [_vp] * 11
@@ -74,6 +73,13 @@ LIB = nvcc_build.Library("sweep.cu", "sweep_cuda", {
     **{f"seed_strategy_merged_launch{_SUFFIX[pd]}": _MERGED
        for pd in _FMI}})
 build = LIB.build            # compile csrc/sweep.cu; returns the library path
+
+
+def _kstep_args(fmi: DeviceFMIndex) -> list:
+    """The k-step form's table arguments, after _fmi_args (_KSTEP): the
+    k-gram rows, their width in int4s and the C2 table."""
+    t = fmi.cp_kstep
+    return [t.data_ptr(), t.shape[1] // 4, fmi.count2.data_ptr()]
 
 
 def _add_stats(stats, key: str, steps: torch.Tensor,
@@ -182,7 +188,7 @@ def sweep_pass_cuda(fmi: DeviceFMIndex, codes, lens, min_seed_len: int,
         acc.append(_run_words(dev, 4).data_ptr())
     if B:
         form = (["sweep_pass_launch_k", *_fmi_args(fmi),
-                 *_kstep_args(fmi, None)] if kstep else
+                 *_kstep_args(fmi)] if kstep else
                 [_form("sweep_pass_launch", fmi), *_fmi_args(fmi)])
         ptrs = [t.data_ptr() for t in lad] or [None] * 3
         ptr = lambda t: None if t is None else t.data_ptr()

@@ -219,7 +219,8 @@ Phases, in order; any failure exits non-zero:
               attached to it (SAM equal to the file-loaded run) and
               `remove-shm`.
 
- 13. kstep:   the k-step fold (index/kstep.py, csrc/fmi_step.cuh ext_k):
+ 13. kstep:   the k-step fold (index/kstep.py, csrc/fmi_step.cuh ext_kt;
+              passes 1-3 read the k-gram table alone):
               `kstep-table -k 2` and `-k 3` through the CLI on phase 4's
               index (seconds, the tables' device bytes against nb x 160
               and nb x 672 reckoned); SE `mem` with each table (SAM body
@@ -228,18 +229,26 @@ Phases, in order; any failure exits non-zero:
               seconds beside phase 4's), PE (byte-equal to phase 7's) and
               SE `--seed-engine sweep` with the K=11 FMA table
               (byte-equal to phase 9's, every sweep launch a k-step
-              form); phase 5's batch and the repeat batch through each
-              k-step launch as made (passes 1-2 and pass 3 one-hot, the
-              sweep's two passes with the FMA table) at both tables,
-              each equal to its plain version (max_abs_err 0, steps too)
-              and to the K = 1 form on the same inputs, with its rounds
-              beside K = 1's, bound (one-hot: 64 bytes a base step; the
-              sweep's pass 1 on phase 5's batch at K = 2: the twin's
-              distinct rows and ladder sectors, as phase 9), latency
-              floor (the longest lane's rounds x probe B's L2 trip for
-              the bigram table, its HBM trip for the trigram one, both
-              measured in the run; the sweep adds one HBM trip for its
-              start) and device ms beside the K = 1 form's.
+              form); at both tables, on phase 5's batch
+              collect_smems_oh at the tiers' depths (24, 48, the read
+              length) with the kernels against the plain passes, and on
+              it and the repeat batch each k-step launch as made
+              (passes 1-2 and pass 3 one-hot, the sweep's two passes
+              with the FMA table), each
+              equal to its plain version (max_abs_err 0, steps too) and
+              to the K = 1 form on the same inputs, with its rounds
+              beside K = 1's, bound (passes 1-3 on phase 5's batch: the
+              twin's distinct 32-byte k-gram groups, the twin's steps and
+              rounds equal to the launch's; the repeat batch's 64 bytes a
+              step; the sweep's pass 1 on phase 5's batch at K = 2: the
+              twin's distinct rows and ladder sectors, as phase 9),
+              latency floor (the longest lane's rounds x one dependent
+              load over the batch's k-gram table's footprint, probe B,
+              the median of 5 turns measured in the run, stopping where
+              it reads below the trip over the 1-step table by more than
+              the turns' spread and 5%;
+              the sweep adds one HBM trip for its start) and device ms
+              beside the K = 1 form's.
  14. readlane: the readlane engine (csrc/readlane.cu): SE `mem
               --seed-engine readlane` (SAM byte-equal to phase 4's), its
               `-v 4` table, PE, the forced int64 layout and the k-step
@@ -305,6 +314,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+from bwa_mem_scale_tpu_torch.tools.round_cost import (  # noqa: E402
+    TRIP_TICKS, dependent_trip_us, trip_turns)
 from bwa_mem_scale_tpu_torch.tools.timing import (  # noqa: E402
     card_line, device_ms, time_ms)
 
@@ -1118,42 +1129,53 @@ def repeat_slice(dev, card, al):
     return smem, p3, seeds, flt
 
 
+def tier_against_plain(fmi, c, ln, opt, depth, rf):
+    """collect_smems_oh at a retry tier's depth (24, 48 or None) and
+    reseed factor with the kernels and with the plain passes 1-2 and 3
+    swapped in: the kernels' SmemBuf, equal to the plain one, or
+    SystemExit."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import smem_oh
+    tier = dict(min_seed_len=opt.min_seed_len, split_len=opt.split_len,
+                split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
+                emit_depth=depth, stack_depth=depth, reseed_factor=rf)
+    real = (smem_oh.one_pos_machine_cuda, smem_oh.seed_strategy_machine_cuda)
+    got = smem_oh.collect_smems_oh(fmi, c, ln, **tier)
+    smem_oh.one_pos_machine_cuda = smem_oh.one_pos_machine
+    smem_oh.seed_strategy_machine_cuda = smem_oh.seed_strategy_machine
+    try:
+        want = smem_oh.collect_smems_oh(fmi, c, ln, **tier)
+    finally:
+        (smem_oh.one_pos_machine_cuda,
+         smem_oh.seed_strategy_machine_cuda) = real
+    torch.cuda.synchronize()
+    bad = [f for f, a, b in zip(got._fields, got, want)
+           if not torch.equal(a, b)]
+    if bad:
+        raise SystemExit(f"slice: collect_smems_oh at depth {depth} "
+                         f"differs kernels vs plain: {bad}")
+    return got
+
+
 def smem_tiers(dev, card, al, c, ln):
     """collect_smems_oh at the retry tiers' depths with the kernels and
     with the plain passes 1-2 and 3 swapped in: SmemBuf equal; on each
     tier's SMEMs the SA lookup stage at the tier's coordinate capacity
     (512, 1,024, 16,384) against its plain version (sal_stage_launch).
     Then the whole collection of the batch timed with the kernels."""
-    import torch
     from bwa_mem_scale_tpu_torch.ops import smem_oh
     opt = al.opt
-    kw = dict(min_seed_len=opt.min_seed_len, split_len=opt.split_len,
-              split_width=opt.split_width, max_mem_intv=opt.max_mem_intv)
-    real = (smem_oh.one_pos_machine_cuda, smem_oh.seed_strategy_machine_cuda)
     for depth, rf, coords in ((24, 2, 512), (48, 8, 1024),
                               (None, 256, 16384)):
-        tier = dict(kw, emit_depth=depth, stack_depth=depth,
-                    reseed_factor=rf)
-        got = smem_oh.collect_smems_oh(al.fmi, c, ln, **tier)
-        smem_oh.one_pos_machine_cuda = smem_oh.one_pos_machine
-        smem_oh.seed_strategy_machine_cuda = smem_oh.seed_strategy_machine
-        try:
-            want = smem_oh.collect_smems_oh(al.fmi, c, ln, **tier)
-        finally:
-            (smem_oh.one_pos_machine_cuda,
-             smem_oh.seed_strategy_machine_cuda) = real
-        torch.cuda.synchronize()
-        bad = [f for f, a, b in zip(got._fields, got, want)
-               if not torch.equal(a, b)]
-        if bad:
-            raise SystemExit(f"slice: collect_smems_oh at depth {depth} "
-                             f"differs kernels vs plain: {bad}")
+        got = tier_against_plain(al.fmi, c, ln, opt, depth, rf)
         log(f"[slice] collect_smems_oh at depth {depth}, reseed factor "
             f"{rf}: SmemBuf equal kernels vs plain passes 1-2 and 3 "
             f"({int(got.cnt.clamp(max=got.m.shape[1]).sum())} SMEMs)")
         sal_stage_launch(dev, card, (al.fmi, got, opt.max_occ, coords), {},
                          batch=f"the batch at the tier of depth {depth}")
-    tier = dict(kw, emit_depth=24, stack_depth=24, reseed_factor=2)
+    tier = dict(min_seed_len=opt.min_seed_len, split_len=opt.split_len,
+                split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
+                emit_depth=24, stack_depth=24, reseed_factor=2)
     whole = time_ms(lambda: smem_oh.collect_smems_oh(al.fmi, c, ln, **tier),
                     2, dev)
     log(f"[slice] seeding one batch: collect_smems_oh {whole:.2f} ms with "
@@ -2481,38 +2503,13 @@ def phase_longread(dev, card, tmp):
 
 # phase 11, the device EMF probe: the rescue batch's seed length; probe
 # B's table for one dependent trip past the 50 MB L2 (2^24 rows of 32
-# bytes, 512 MiB), and the ticks of its two runs
+# bytes, 512 MiB; tools/round_cost.py::dependent_trip_us)
 RESCUE_SEED = 51
-HBM_ROWS, HBM_TICKS = 1 << 24, (64, 320)
+HBM_ROWS = 1 << 24
 # integer operations of the probe (csrc/emf.cu): a 32-base word's packing
 # and hash 20, a probed slot's index, tests and ballots 8, a checked
 # window column's load, compare and clamp 6
 EMF_OPS_PER_WORD, EMF_OPS_PER_SLOT, EMF_OPS_PER_COL = 20, 8, 6
-
-
-def dependent_trip_us(dev, rows):
-    """One dependent load's latency on a table of `rows` rows of 32 bytes
-    (HBM_ROWS: past the L2; L2_ROWS: in it): probe B (csrc/probes.cu
-    chain8_kernel, one lane) over random rows, each call from another
-    start row so that no chain is cached, the marginal time of the extra
-    ticks, the two tick counts timed in turns (short, long, long, short:
-    one slow run of either alone once gave a negative trip)."""
-    import itertools
-    import torch
-    from bwa_mem_scale_tpu_torch.ops import probe_kernels as pk
-    g = torch.Generator(device=dev).manual_seed(5)
-    tab = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, 8),
-                        dtype=torch.int32, device=dev, generator=g)
-    starts = itertools.cycle([s.clone() for s in torch.randint(
-        0, rows, (512, 1), dtype=torch.int32, device=dev,
-        generator=g)])              # each its own (aligned) allocation
-    t = {n: 0.0 for n in HBM_TICKS}
-    for n in (*HBM_TICKS, *HBM_TICKS[::-1]):
-        t[n] += device_ms(lambda: pk.probe_b(tab, next(starts), n), 10,
-                          dev) / 2
-    del tab
-    lo, hi = HBM_TICKS
-    return (t[hi] - t[lo]) * 1e3 / (hi - lo)
 
 
 def emf_against_plain(args, got, what):
@@ -2634,7 +2631,7 @@ def phase_emf(dev, card, tmp, se):
     emf_path = f"{g}.emf{READ_LEN}.npz"
     trip_us = dependent_trip_us(dev, HBM_ROWS)
     log(f"[emf] one dependent HBM trip (probe B, one lane over "
-        f"{HBM_ROWS} rows of 32 bytes, {HBM_TICKS[1] - HBM_TICKS[0]} "
+        f"{HBM_ROWS} rows of 32 bytes, {TRIP_TICKS[1] - TRIP_TICKS[0]} "
         f"extra ticks): {trip_us:.4f} us  [{card}]")
 
     # (a) the in-process API on phase 4's reads
@@ -3218,7 +3215,7 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
                                      err=max(r["err"] for r in res_c))}
 
 
-# phase 13, the k-step fold (csrc/fmi_step.cuh ext_k): its forms, each
+# phase 13, the k-step fold (csrc/fmi_step.cuh ext_kt): its forms, each
 # (kernel name in the JSON line, wrapper name, K, source, the TPU loop)
 KSTEP_FORMS = (
     ("one_pos_machine_k2", "one_pos_machine", 2, "csrc/smem.cu",
@@ -3231,6 +3228,9 @@ KSTEP_FORMS = (
      "bwa_mem_scale_tpu/ops/smem.py:109"))
 # a block's k-gram row in bytes (index/kstep.py: 40 or 168 int32)
 KSTEP_ROW_BYTES = {2: 160, 3: 672}
+# how far a dependent trip over a larger table may read below one over
+# the 1-step table (beside the turns' spread): both in the L2, one latency
+TRIP_SAME = 0.05
 
 
 def kstep_wrappers():
@@ -3280,13 +3280,15 @@ def kstep_launch(dev, card, what, name, args, kw, fmi1, trip, hbm=0.0,
     sweep's passes through sweep_pass_launch, its floor with one HBM trip
     `hbm` for the FMA start, its bound from the twin with `twin`); then
     the K = 1 form on the same inputs (fmi1): equal outputs and steps,
-    its rounds and device time beside. Bound (passes 1-3): the inputs, 64
-    bytes a base step (two 32-byte groups an end; a walk that ends
-    mid-stride loads a group more) and 45 operations a step, the
-    outputs; floor: the longest lane's rounds x `trip` (us). Returns the
-    numbers."""
+    its rounds and device time beside. Passes 1-3: floor the longest
+    lane's rounds x `trip` (us), one dependent load on the k-gram table's
+    footprint; bound the inputs, the outputs and 45 operations a step,
+    with `twin` the kernel's twin on the same inputs (each lane's steps
+    and rounds equal to the launch's) counting the distinct 32-byte
+    k-gram groups the walks read, once each; without, 64 bytes a step.
+    Returns the numbers."""
     import torch
-    from bwa_mem_scale_tpu_torch.ops import smem_oh
+    from bwa_mem_scale_tpu_torch.ops import smem_cuda, smem_oh
     kernel = kstep_wrappers()[name]
     if name == "sweep_extend":
         return kstep_sweep(dev, card, what, args, kw, fmi1, (trip, hbm),
@@ -3300,6 +3302,7 @@ def kstep_launch(dev, card, what, name, args, kw, fmi1, trip, hbm=0.0,
     got, r = walk_launch(dev, what, kernel, plain, args, 1, kw)
     if kernel.launches_k == before:
         raise SystemExit(f"kstep: {what}: no k-step form launched")
+    steps, rounds = kernel.last_steps.cpu(), kernel.last_rounds.cpu()
     args1 = (fmi1, *args[1:])
     one = kernel(*args1, **kw)
     steps1 = kernel.last_steps.long()
@@ -3312,26 +3315,46 @@ def kstep_launch(dev, card, what, name, args, kw, fmi1, trip, hbm=0.0,
     r["ms1"] = device_ms(lambda: kernel(*args1, **kw), 20, dev)
     r.update(rounds1=int(rounds1.sum()), longest_rounds1=int(rounds1.max()),
              floor=r["longest_rounds"] * trip * 1e-3)
-    codes = args[1]
+    fmi, codes = args[0], args[1]
     B = codes.shape[0]
-    pb = args[0].pos_dtype.itemsize
+    pb = fmi.pos_dtype.itemsize
     if name == "one_pos_machine":
         T, M = args[3].shape[0], args[9]
         nbytes = (4 * (codes.numel() + B + 3 * T) + T + (8 + 3 * pb) * T * M
                   + 4 * T)
     else:
         nbytes = 4 * (codes.numel() + B) + (8 + 3 * pb) * B * args[5] + 4 * B
-    r["bound"] = bound(nbytes + SMEM_BYTES_PER_STEP * r["steps"],
-                       SMEM_OPS_PER_STEP * r["steps"])
+    reads = "64 bytes a step"
+    if twin:
+        host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+                for a in args[1:]]
+        fn = (smem_cuda.one_pos_twin if name == "one_pos_machine"
+              else smem_cuda.seed_strategy_twin)
+        tw = fn(*smem_cuda.twin_tables(fmi)[:3], *host,
+                kstep=smem_cuda.kstep_tables(fmi))
+        groups = fn.last_reads
+        if not (np.array_equal(tw[6], steps.numpy())
+                and np.array_equal(tw[7], rounds.numpy())
+                and all(isinstance(g, tuple) for g in groups)):
+            raise SystemExit(f"kstep: {what}: the twin's steps or rounds "
+                             f"differ from the launch's, or it read a "
+                             f"1-step row")
+        nbytes += 32 * len(groups)
+        r["groups"] = len(groups)
+        reads = (f"{len(groups)} distinct 32-byte k-gram groups (the twin, "
+                 f"its steps and rounds equal)")
+    else:
+        nbytes += SMEM_BYTES_PER_STEP * r["steps"]
+    r["bound"] = bound(nbytes, SMEM_OPS_PER_STEP * r["steps"])
     log(f"[kstep] {what}: equal to the plain version (max_abs_err "
         f"{r['err']}) and to the K = 1 form, steps too; {r['steps']} steps "
         f"(the longest lane {r['longest']}) in {r['rounds']} rounds (the "
         f"longest {r['longest_rounds']}) against K = 1's {r['rounds1']} "
         f"({r['longest_rounds1']}); bound {r['bound'][0]:.6f} ms by "
-        f"{r['bound'][1]}, latency floor {r['floor']:.5f} ms "
-        f"({r['longest_rounds']} x {trip:.4f} us); kernel device time "
-        f"{r['ms']:.5f} ms (mean of 2) against the K = 1 form's "
-        f"{r['ms1']:.5f}, plain {r['plain_ms']:.2f} ms  [{card}]")
+        f"{r['bound'][1]} (reads: {reads}), latency floor "
+        f"{r['floor']:.5f} ms ({r['longest_rounds']} x {trip:.4f} us); "
+        f"kernel device time {r['ms']:.5f} ms (mean of 2) against the K = 1 "
+        f"form's {r['ms1']:.5f}, plain {r['plain_ms']:.2f} ms  [{card}]")
     return r
 
 
@@ -3379,16 +3402,19 @@ def phase_kstep(dev, card, tmp, se, pe, al):
     before, read just after): SAM body byte-equal to phase 4's, every
     passes 1-2 and pass-3 launch a k-step form; PE byte-equal to phase
     7's; SE `--seed-engine sweep` byte-equal to phase 9's, every sweep
-    launch a k-step form; `-v 4` stage seconds; then phase 5's batch and
-    the repeat batch through each k-step launch as made, at both tables,
-    against its plain version and the K = 1 form. Returns {form: numbers,
+    launch a k-step form; `-v 4` stage seconds; then at both tables on
+    phase 5's batch collect_smems_oh at the tiers' depths against the
+    plain passes, and on it and the repeat batch each k-step launch as
+    made against its plain version and the K = 1 form. Returns {form: numbers,
     "launches": {form: main-path launches}, "batches": the two batches,
-    "cp2": {(batch, K): k-gram table}, "trips": (L2 trip, HBM trip)}."""
+    "cp2": {(batch, K): k-gram table}, "trips": {batch: {configuration
+    ("k1", "int64", "k2", "k3"): a dependent load's us on its table's
+    footprint}}, "hbm": one dependent HBM trip's us}."""
     import torch
     from bwa_mem_scale_tpu_torch import cli
     from bwa_mem_scale_tpu_torch.index.kstep import build_cp2
     from bwa_mem_scale_tpu_torch.ops import (chain, chain_cuda, sal_cuda,
-                                             smem_cuda, sweep_cuda)
+                                             sweep_cuda)
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.fma import build_fma_table
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
@@ -3517,12 +3543,17 @@ def phase_kstep(dev, card, tmp, se, pe, al):
             f"{N_READS / wall:.1f} reads/s; launches {n}  [{card}]")
 
     # each k-step launch of phase 5's batch and the repeat batch, as made,
-    # at both tables, beside the K = 1 form on the same inputs
-    trips = (dependent_trip_us(dev, L2_ROWS),
-             dependent_trip_us(dev, HBM_ROWS))
-    log(f"[kstep] one dependent trip (probe B, one lane): {trips[0]:.4f} us "
-        f"over {L2_ROWS} rows of 32 bytes (in the L2), {trips[1]:.4f} us "
-        f"over {HBM_ROWS} (past it)  [{card}]")
+    # at both tables, beside the K = 1 form on the same inputs; the floors
+    # from one dependent load on each table's own footprint (the median of
+    # its turns), which may not read below the smaller 1-step table's by
+    # more than the turns' spread and TRIP_SAME (two footprints that both
+    # fit the L2 read one latency)
+    l2s = trip_turns(dev, L2_ROWS)
+    l2, hbm = float(np.median(l2s)), dependent_trip_us(dev, HBM_ROWS)
+    log(f"[kstep] one dependent trip (probe B, one lane, median of "
+        f"{len(l2s)} turns): {l2:.4f} us over {L2_ROWS} rows of 32 bytes "
+        f"(the 1-step table; turns {', '.join(f'{t:.4f}' for t in l2s)}), "
+        f"{hbm:.4f} us over {HBM_ROWS} (past the L2)  [{card}]")
     first = np.flatnonzero(~se["emf_hit"])[:BATCH]
     idx_r, codes_r, lens_r = repeat_batch(BATCH, READ_LEN)
     fma = cli.find_fma(g)
@@ -3532,6 +3563,7 @@ def phase_kstep(dev, card, tmp, se, pe, al):
                 chain.DeviceBns.from_host(idx_r.bns, dev), codes_r, lens_r,
                 None))
     res, cp2s, p5 = {}, {}, "phase 5's batch"
+    trips = {}
     for batch, idx, dbns, cc, ll, table in batches:
         c = torch.as_tensor(cc, device=dev)
         ln = torch.as_tensor(ll, device=dev)
@@ -3539,10 +3571,37 @@ def phase_kstep(dev, card, tmp, se, pe, al):
         if table is None:
             table = build_fma_table(fmi1, K=11)
         dtab = table.to_device(torch.int32, dev)
+        trips[batch] = {"k1": l2, "int64": l2}
         for K in (2, 3):
             cp2s[batch, K] = build_cp2(idx, K)
             fmi = DeviceFMIndex.from_host(idx, dev, cp2=cp2s[batch, K])
-            trip = trips[0] if K == 2 else trips[1]
+            rows = fmi.cp_kstep.numel() * 4 // 32
+            tt = trip_turns(dev, rows)
+            trip = trips[batch][f"k{K}"] = float(np.median(tt))
+            turns = ", ".join(f"{t:.4f}" for t in tt)
+            spread = max(max(tt) - min(tt), max(l2s) - min(l2s))
+            if trip < l2 * (1 - TRIP_SAME) - spread:
+                raise SystemExit(f"kstep: {batch}, K={K}: a dependent trip "
+                                 f"over {rows * 32 / 1e6:.1f} MB (turns "
+                                 f"{turns} us) reads below the 1-step "
+                                 f"table's {l2:.4f} us over "
+                                 f"{L2_ROWS * 32 / 1e6:.1f} MB by more than "
+                                 f"the turns' spread and {TRIP_SAME:.0%}")
+            log(f"[kstep] {batch}, K={K}: one dependent trip over the "
+                f"k-gram table's footprint ({rows} rows of 32 bytes, "
+                f"{rows * 32 / 1e6:.1f} MB): {trip:.4f} us (median; turns "
+                f"{turns})  [{card}]")
+            for depth, rf in ((24, 2), (48, 8), (None, 256)) * (batch == p5):
+                before = [w.launches_k for w in ks.values()]
+                got = tier_against_plain(fmi, c, ln, al.opt, depth, rf)
+                if any(w.launches_k == n
+                       for w, n in zip(ks.values(), before[:2])):
+                    raise SystemExit(f"kstep: {batch}, K={K}, depth {depth}:"
+                                     f" no k-step form launched")
+                log(f"[kstep] {batch}, K={K}: collect_smems_oh at depth "
+                    f"{depth}, reseed factor {rf}: SmemBuf equal kernels "
+                    f"(k-step forms) vs plain passes 1-2 and 3 "
+                    f"({int(got.cnt.clamp(max=got.m.shape[1]).sum())} SMEMs)")
             for fma_k in (None, dtab):
                 calls = kstep_calls(fmi, dbns, c, ln, al.opt, al.cfg,
                                     fma_k)
@@ -3552,17 +3611,19 @@ def phase_kstep(dev, card, tmp, se, pe, al):
                                 f"{n + 1}/{len(made)}"
                                 + (", FMA K=11" if fma_k is not None
                                    else ""))
+                        sweep_twin = (batch == p5 and K == 2 and n == 0
+                                      and fma_k is not None)
                         r = kstep_launch(
                             dev, card, what, name, args, kw, fmi1, trip,
-                            trips[1], twin=(batch == p5 and K == 2 and n == 0
-                                            and fma_k is not None))
+                            hbm, twin=sweep_twin or (
+                                batch == p5 and name != "sweep_extend"))
                         res.setdefault((batch, K, name, fma_k is not None),
                                        []).append(r)
             del fmi
             torch.cuda.empty_cache()
     # the batches, their k-gram tables and the trips, for phase 14
     out = {"launches": launches, "batches": batches, "cp2": cp2s,
-           "trips": trips}
+           "trips": trips, "hbm": hbm}
     for form, name, K, _, _ in KSTEP_FORMS:
         rs = res[p5, K, name, name == "sweep_extend"]
         out[form] = dict(rs[0], err=max(r["err"] for key, v in res.items()
@@ -3881,7 +3942,7 @@ def phase_readlane(dev, card, tmp, se, pe, al, kst):
                     idx, dev, cp2=kst["cp2"][batch, K]) for K in (2, 3)}}
         twin_ticks = {}
         for cfg, fmi in fmis.items():
-            trip = kst["trips"][1 if cfg == "k3" else 0]
+            trip = kst["trips"][batch][cfg]
             res[batch, cfg] = readlane_batch(dev, card, batch, cfg, fmi, c,
                                              ln, al.opt, trip, twin_ticks)
         del fmis
@@ -4505,16 +4566,16 @@ def main():
     # and int64 (P = long long, x) forms; the FM walks' 1-step forms (KS =
     # 1, mangled Li1E) and their k-step forms (int32 only)
     for lib, kernel, label in (
-            ("smem_cuda", "one_pos_kernelILb1ELi1E{}", "one_pos_kernel<"
+            ("smem_cuda", "one_pos_kernelILb1E{}E", "one_pos_kernel<"
              "stacks in shared memory, {}>"),
-            ("smem_cuda", "one_pos_kernelILb0ELi1E{}", "one_pos_kernel<"
+            ("smem_cuda", "one_pos_kernelILb0E{}E", "one_pos_kernel<"
              "stacks in a device scratch, {}>"),
-            ("smem_cuda", "one_pos_kernelILb1ELi2Ei", "one_pos_kernel<"
-             "stacks in shared memory, K = 2, int32>"),
-            ("smem_cuda", "one_pos_kernelILb1ELi3Ei", "one_pos_kernel<"
-             "stacks in shared memory, K = 3, int32>"),
-            ("smem_cuda", "one_pos_kernelILb0ELi3Ei", "one_pos_kernel<"
-             "stacks in a device scratch, K = 3, int32>"),
+            ("smem_cuda", "one_pos_k_kernelILb1ELi2E", "one_pos_k_kernel<"
+             "stacks in shared memory, K = 2>"),
+            ("smem_cuda", "one_pos_k_kernelILb1ELi3E", "one_pos_k_kernel<"
+             "stacks in shared memory, K = 3>"),
+            ("smem_cuda", "one_pos_k_kernelILb0ELi3E", "one_pos_k_kernel<"
+             "stacks in a device scratch, K = 3>"),
             ("smem_cuda", "seed_strategy_kernelILi1E{}",
              "seed_strategy_kernel<{}>"),
             ("smem_cuda", "seed_strategy_kernelILi2Ei",

@@ -15,7 +15,7 @@
 // launch arguments. Each row index is clamped to [0, nb - 1], as the
 // lockstep's gathers clamp theirs.
 //
-// The k-step (ext_k, int32 layout only): with a k-gram checkpoint table
+// The k-step (ext_kt, int32 layout only): with a k-gram checkpoint table
 // (index/kstep.py; ops/occ.py::kstep_rows lays it out on the device) one
 // pair of row fetches extends an interval by KS = 2 or 3 bases
 // (ops/occ.py::_two_steps). A row of the table is 32-byte groups: the
@@ -23,14 +23,16 @@
 // the bigram counts and masks of (c1, 0..3), then at KS = 3 for each pair
 // p = 4 c1 + c2 the trigram counts and masks of (p, 0..3). Each step reads
 // one group an end, two 16-byte read-only loads, all issued before any is
-// used: 4 loads an end at KS = 2, 6 at KS = 3, the bases being the read's
-// and known before the fetch. Step d takes its C value (C, then C2[c1 c2],
-// then C3[c1 c2 c3], device tables of 16 and 64 ints, loaded beside the
-// rows), its group's occ at the interval's start, the group's sizes for
-// the l update above its base, and its own sentinel correction on the
-// interval before it (the second on (k1, s1), not on (k, s)): pairs whose
-// second step crosses the text start belong to no bigram class, and the
-// embedded 1-step counts keep those walks exact.
+// used: 4 loads an end at KS = 2, 6 at KS = 3, the bases known before the
+// fetch (the read's). A 1-step on the table is ext_kt<1> (group 0), so a
+// launch that holds the table reads no other. Step d takes its C value
+// (C, then C2[c1 c2], then C3[c1 c2 c3]: ext_kt takes them from the
+// caller, who keeps C2 and C3 in registers (WarpC) or shared memory; ext_k
+// loads them and calls ext_kt), its group's occ at the interval's start,
+// the group's sizes for the l update above its base, and its own sentinel
+// correction on the interval before it (the second on (k1, s1), not on
+// (k, s)): pairs whose second step crosses the text start belong to no
+// bigram class, and the embedded 1-step counts keep those walks exact.
 
 #pragma once
 
@@ -266,22 +268,23 @@ __device__ __forceinline__ int4 occ_group(const int4& cnt, const int4& msk,
 // The backward extension of (k, l, s) by bases c[0], ..., c[KS - 1] (each
 // in [0, 3]) from one k-gram row at k and one at k + s: (nk, nl, ns)[d]
 // is the interval after d + 1 bases, equal to d + 1 chained ext calls.
-// Only the first `live` steps' groups are fetched (1 <= live <= KS): a
-// caller that takes fewer bases (a backward step, a read's last bases)
-// says how many, and reads no result past them.
+// base[d] is step d's C value (C[c1], C2[c1 c2], C3[c1 c2 c3]), which the
+// caller keeps off the chain (a warp's registers, WarpC); `sentinel` is
+// the index's. Only the first `live` steps' groups are fetched (1 <= live
+// <= KS): a caller that takes fewer bases (a backward step, a read's last
+// bases) says how many, and reads no result past them.
 template <int KS>
-__device__ __forceinline__ void ext_k(const Fmi<int>& f, const Kfmi& g,
-                                      int k, int l, int s,
-                                      const int (&c)[KS], int (&nk)[KS],
-                                      int (&nl)[KS], int (&ns)[KS],
-                                      int live = KS) {
+__device__ __forceinline__ void ext_kt(const Kfmi& g, int sentinel, int k,
+                                       int l, int s, const int (&c)[KS],
+                                       const int (&base)[KS], int (&nk)[KS],
+                                       int (&nl)[KS], int (&ns)[KS],
+                                       int live = KS) {
   auto row = [&](int pp) {
     const int r = pp >> 5;
     return g.cp + (size_t)(r < 0 ? 0 : (r >= g.nb ? g.nb - 1 : r)) * g.w4;
   };
   const int4* ra = row(k);
   const int4* rb = row(k + s);
-  // the groups each step reads: the 1-step row, c1's, the pair's
   int grp[KS];
   grp[0] = 0;
   if constexpr (KS > 1) grp[1] = 1 + c[0];
@@ -296,12 +299,6 @@ __device__ __forceinline__ void ext_k(const Fmi<int>& f, const Kfmi& g,
     bc[d] = on ? __ldg(rb + 2 * grp[d]) : z;
     bm[d] = on ? __ldg(rb + 2 * grp[d] + 1) : z;
   }
-  int base[KS];
-  base[0] = cval(f, c[0]);
-  if constexpr (KS > 1)
-    base[1] = live > 1 ? __ldg(g.c2 + 4 * c[0] + c[1]) : 0;
-  if constexpr (KS > 2)
-    base[KS - 1] = live > 2 ? __ldg(g.c3 + 16 * c[0] + 4 * c[1] + c[2]) : 0;
   const unsigned ta = top_bits(k & 31), tb = top_bits((k + s) & 31);
 #pragma unroll
   for (int d = 0; d < KS; ++d) {
@@ -309,7 +306,7 @@ __device__ __forceinline__ void ext_k(const Fmi<int>& f, const Kfmi& g,
     const int4 b = occ_group(bc[d], bm[d], tb);
     const int s0 = b.x - a.x, s1 = b.y - a.y, s2 = b.z - a.z, s3 = b.w - a.w;
     const int e = c[d];
-    const int sent = (k <= f.sentinel) & (k + s > f.sentinel);
+    const int sent = (k <= sentinel) & (k + s > sentinel);
     nl[d] = l + sent + (e < 3 ? s3 : 0) + (e < 2 ? s2 : 0) + (e < 1 ? s1 : 0);
     nk[d] = base[d] + sel4(a, e);
     ns[d] = sel4(s0, s1, s2, s3, e);
@@ -317,6 +314,56 @@ __device__ __forceinline__ void ext_k(const Fmi<int>& f, const Kfmi& g,
     l = nl[d];
     s = ns[d];
   }
+}
+
+// ext_kt with the C values loaded beside the rows (C2 and C3 from the
+// table's arrays on the device), for a caller that keeps no WarpC.
+template <int KS>
+__device__ __forceinline__ void ext_k(const Fmi<int>& f, const Kfmi& g,
+                                      int k, int l, int s,
+                                      const int (&c)[KS], int (&nk)[KS],
+                                      int (&nl)[KS], int (&ns)[KS],
+                                      int live = KS) {
+  int base[KS];
+  base[0] = cval(f, c[0]);
+  if constexpr (KS > 1)
+    base[1] = live > 1 ? __ldg(g.c2 + 4 * c[0] + c[1]) : 0;
+  if constexpr (KS > 2)
+    base[KS - 1] = live > 2 ? __ldg(g.c3 + 16 * c[0] + 4 * c[1] + c[2]) : 0;
+  ext_kt<KS>(g, f.sentinel, k, l, s, c, base, nk, nl, ns, live);
+}
+
+// C2 and C3 in a warp's registers, loaded once a launch: lane i holds
+// C2[i & 15], C3[i] and C3[32 + i] (C3's zeros at KS = 2). A step's C
+// value comes by a shuffle, off the chain of row fetches; the index must
+// be the same on every lane, and every lane must take part.
+struct WarpC {
+  int c2, c3a, c3b;
+
+  __device__ __forceinline__ int C2(int i) const {
+    return __shfl_sync(FULL, c2, i);
+  }
+  __device__ __forceinline__ int C3(int i) const {
+    const int lo = __shfl_sync(FULL, c3a, i & 31);
+    const int hi = __shfl_sync(FULL, c3b, i & 31);
+    return i < 32 ? lo : hi;
+  }
+};
+
+__device__ __forceinline__ WarpC warp_c(const Kfmi& g, int lane) {
+  if (g.cp == nullptr) return WarpC{0, 0, 0};
+  const bool c3 = g.c3 != nullptr;
+  return WarpC{__ldg(g.c2 + (lane & 15)), c3 ? __ldg(g.c3 + lane) : 0,
+               c3 ? __ldg(g.c3 + 32 + lane) : 0};
+}
+
+// the C values of KS steps over bases c (each in [0, 3]), every lane alike
+template <int KS>
+__device__ __forceinline__ void kbases(const Fmi<int>& f, const WarpC& w,
+                                       const int (&c)[KS], int (&base)[KS]) {
+  base[0] = cval(f, c[0]);
+  if constexpr (KS > 1) base[1] = w.C2(4 * c[0] + c[1]);
+  if constexpr (KS > 2) base[2] = w.C3(16 * c[0] + 4 * c[1] + c[2]);
 }
 
 // Copy n int32 codes from src (4-byte aligned) into dst as bytes,
@@ -374,6 +421,12 @@ Fmi<long long> make_fmi(const void* cp, long long nb, long long c0,
                         int h0, int h1, int h2, int h3) {
   return Fmi<long long>{(const int4*)cp, nb, c0, c1, c2, c3, c4, sentinel,
                         (const long long*)hi, h0, h1, h2, h3};
+}
+
+// The index of a k-step launch that reads the k-gram table alone: the C
+// array and the sentinel, no 1-step rows (nb 1 for fmi_ok, cp null).
+Fmi<int> c_only(int c0, int c1, int c2, int c3, int c4, int sentinel) {
+  return Fmi<int>{nullptr, 1, c0, c1, c2, c3, c4, sentinel};
 }
 
 // the k-gram table of a launch at KS bases a fetch

@@ -3,8 +3,10 @@
 // (a warp a task) and csrc/readlane.cu's readlane_one_pos_kernel (a warp a
 // worker lane pulling tasks): the serial forward walk, then each backward
 // round 32 entries a chunk by the ballot rule, as csrc/smem.cu's note on
-// one_pos_kernel sets out. ops/nvcc_build.py hashes a source together with
-// the headers it includes, so a change here rebuilds both libraries.
+// one_pos_kernel sets out; in the k-step forms KS backward rounds a fetch
+// where a round's entries fit one chunk (csrc/smem.cu's note on them).
+// ops/nvcc_build.py hashes a source together with the headers it
+// includes, so a change here rebuilds both libraries.
 
 #pragma once
 
@@ -90,12 +92,15 @@ struct TaskCounts {
 // its length len, start x, minimum interval mi) by the warp's lanes,
 // every lane alike but for the emissions, which lane 0 makes into row
 // `row` of `rows`; the stacks `stk` are [2][SD + 1] entries. The caller
-// zeroes the row and syncs the warp after staging the codes.
+// zeroes the row and syncs the warp after staging the codes. The k-step
+// forms (KS > 1, P int) read the k-gram table `g` alone, their C2 and C3
+// values from `wc` (warp_c, once a launch).
 template <int KS, typename P>
 __device__ __forceinline__ TaskCounts one_pos_task(
-    const Fmi<P>& f, const Kfmi& g, const int8_t* q, int L, int len,
-    int x, int mi, int chain_restarts, int min_seed_len, int SD,
-    Ent<P>* stk, const SmemRows<P>& rows, int row, int lane) {
+    const Fmi<P>& f, const Kfmi& g, const WarpC& wc, const int8_t* q,
+    int L, int len, int x, int mi, int chain_restarts, int min_seed_len,
+    int SD, Ent<P>* stk, const SmemRows<P>& rows, int row, int lane) {
+  static_assert(KS == 1 || sizeof(P) == 4, "k-step forms: int32 only");
   const int M = rows.M;
   auto code = [&](int i) { return q[i < 0 ? 0 : (i >= L ? L - 1 : i)]; };
   auto C = [&](int c) { return cval(f, c); };
@@ -103,6 +108,20 @@ __device__ __forceinline__ TaskCounts one_pos_task(
     return stk[buf * (SD + 1) + i];
   };
   auto rslot = [&](int i) { return i < 0 ? 0 : (i >= SD ? SD - 1 : i); };
+  // the 1-step ext of a chunked backward round: cp_fused's row, or in a
+  // k-step form group 0 of the k-gram row (the same counts and masks)
+  auto ext1 = [&](P k, P l, P s, int c, P& nk, P& nl, P& ns) {
+    if constexpr (KS == 1) {
+      ext(f, k, l, s, c, nk, nl, ns);
+    } else {
+      const int cc[1] = {c}, base[1] = {cval(f, c)};
+      int rk[1], rl[1], rs[1];
+      ext_kt<1>(g, f.sentinel, k, l, s, cc, base, rk, rl, rs);
+      nk = rk[0];
+      nl = rl[0];
+      ns = rs[0];
+    }
+  };
 
   // warp-uniform state, every lane alike, but for cnt: lane 0 emits, and
   // only its count is kept
@@ -166,14 +185,17 @@ __device__ __forceinline__ TaskCounts one_pos_task(
       while (go && j < len) {
         nx = j + 1;
         if (a >= 4) break;
-        int cc[KS], ch[KS], bk[KS], bl[KS], bs[KS];
+        int cc[KS], ch[KS], base[KS], bk[KS], bl[KS], bs[KS];
+        int live = 1;                  // the bases before an N or the end
 #pragma unroll
         for (int d = 0; d < KS; ++d) {
           cc[d] = d ? code(j + d) : a;
           ch[d] = 3 - (cc[d] < 4 ? cc[d] : 3);
+          if (d && live == d && j + d < len && cc[d] < 4) live = d + 1;
         }
         const int an = code(j + KS);
-        ext_k<KS>(f, g, cl, ck, cs, ch, bk, bl, bs);  // the swapped one
+        kbases<KS>(f, wc, ch, base);
+        ext_kt<KS>(g, f.sentinel, cl, ck, cs, ch, base, bk, bl, bs, live);
         ++rounds;
 #pragma unroll
         for (int d = 0; d < KS; ++d) {
@@ -201,7 +223,7 @@ __device__ __forceinline__ TaskCounts one_pos_task(
     // backward rounds: the first reads the A stack from its top
     int mA = x;
     bool rev = true;
-    for (j = x - 1, a = code(j);; --j) {
+    for (j = x - 1, a = code(j);;) {
       __syncwarp();            // the pushes to the A stack are visible
       if (j < 0 || a >= 4 || cA == 0) {
         if (cA > 0) {
@@ -210,6 +232,83 @@ __device__ __forceinline__ TaskCounts one_pos_task(
             emit(mA, e.w, e.x, e.y, e.z);
         }
         break;
+      }
+      if constexpr (KS > 1) {
+        if (cA <= WARP && cA <= SD) {
+          // KS rounds a fetch: lane p extends entry p by the bases at j,
+          // j - 1, ... from one k-gram row an end, and the keep/emit rule
+          // runs KS times in registers, each sub-round over the lanes the
+          // one before kept, in lane order (the same orders hold: the same
+          // base extends nested intervals into nested ones)
+          const bool act = lane < cA;
+          const Ent<P> e = act ? slot(wA, rev ? cA - 1 - lane : lane)
+                               : make_ent((P)0, (P)0, (P)0, 0);
+          int cc[KS], ch[KS], base[KS], rk[KS] = {}, rl[KS] = {}, rs[KS] = {};
+          int live = 1;        // the bases before the read's start or an N
+#pragma unroll
+          for (int d = 0; d < KS; ++d) {
+            cc[d] = d ? (j - d >= 0 ? code(j - d) : 4) : a;
+            ch[d] = cc[d] < 4 ? cc[d] : 0;
+            if (d && live == d && cc[d] < 4) live = d + 1;
+          }
+          kbases<KS>(f, wc, ch, base);
+          if (act)
+            ext_kt<KS>(g, f.sentinel, e.x, e.y, e.z, ch, base, rk, rl, rs,
+                       live);
+          ++rounds;
+          unsigned in = __ballot_sync(FULL, act);  // the sub-round's entries
+          P pk = e.x, pl = e.y, ps = e.z;          // each one's interval
+          int m = mA;                              // and its match start
+          // lane 0 emits lane src's entry at m when it is long enough
+          auto emit_lane = [&](int src) {
+            const P k0 = __shfl_sync(FULL, pk, src);
+            const P l0 = __shfl_sync(FULL, pl, src);
+            const P s0 = __shfl_sync(FULL, ps, src);
+            const int n0 = __shfl_sync(FULL, e.w, src);
+            if (lane == 0 && n0 - m + 1 >= min_seed_len)
+              emit(m, n0, k0, l0, s0);
+          };
+          bool done = false;
+#pragma unroll
+          for (int d = 0; d < KS; ++d) {
+            if (d && (d >= live || in == 0)) {
+              // the read's start, an N, or no entry left: the first entry
+              // emits when long enough, and the backward rounds end
+              if (in) emit_lane(__ffs(in) - 1);
+              done = true;
+              break;
+            }
+            const P ns = rs[d];
+            const bool mine = (in >> lane) & 1;
+            const unsigned below = in & ((1u << lane) - 1);
+            steps += __popc(in);
+            // only the first entry can emit: it dies and is long enough
+            const unsigned em = __ballot_sync(
+                FULL, mine && below == 0 && ns < mi
+                          && e.w - m + 1 >= min_seed_len);
+            if (em) emit_lane(__ffs(em) - 1);
+            // the entry before is the kept lane below
+            const P up = __shfl_sync(FULL, ns, below ? 31 - __clz(below)
+                                                     : lane);
+            const P cur = (below == 0 || up < mi) ? (P)-1 : up;
+            in = __ballot_sync(FULL, mine && ns >= mi && ns != cur);
+            pk = rk[d];
+            pl = rl[d];
+            ps = rs[d];
+            m = j - d;
+          }
+          if (done) break;
+          if ((in >> lane) & 1)          // the last sub-round's kept entries
+            slot(wA ^ 1, __popc(in & ((1u << lane) - 1))) =
+                make_ent(pk, pl, ps, e.w);
+          wA ^= 1;
+          cA = __popc(in);
+          mA = j - (KS - 1);
+          rev = false;
+          j -= KS;
+          a = code(j);
+          continue;
+        }
       }
       const int an = code(j - 1);                  // the next round's base
       int cB = 0;
@@ -221,7 +320,7 @@ __device__ __forceinline__ TaskCounts one_pos_task(
         P nk = 0, nl = 0, ns = 0;
         if (act) {
           e = slot(wA, rslot(rev ? cA - 1 - p : p));
-          ext(f, e.x, e.y, e.z, a, nk, nl, ns);
+          ext1(e.x, e.y, e.z, a, nk, nl, ns);
         }
         steps += min(WARP, cA - c0);
         ++rounds;
@@ -245,6 +344,7 @@ __device__ __forceinline__ TaskCounts one_pos_task(
       cA = cB;
       mA = j;
       rev = false;
+      --j;
       a = an;
     }
     if (!chain_restarts) break;

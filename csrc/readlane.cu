@@ -71,12 +71,13 @@
 // work) and `ticks` (its loop iterations that make an occ trip: passes
 // 1-2 forward row fetches plus backward chunks, pass 3 row fetches).
 //
-// The k-step forms (KS = 2, 3; int32 layout only) take KS bases a row
-// fetch on the forward walk through csrc/fmi_step.cuh ext_k, as
-// one_pos_kernel<.., KS, int>; the backward rounds keep their 1-step form
-// (the JAX machine's backward side entries are a TPU tick-packing and are
-// not copied). readlane_strategy_kernel<2, int> takes two bases a row
-// fetch (a trigram table's bigram groups). The int64 forms (P = long
+// The k-step forms (KS = 2, 3; int32 layout only):
+// readlane_one_pos_kernel<.., KS, int> runs one_pos_task's k-step form,
+// as one_pos_k_kernel<.., KS> does (csrc/smem.cu's note): the k-gram
+// table alone, KS bases a fetch forward, and KS backward rounds a fetch
+// where a round fits one chunk. readlane_strategy_kernel<2, int> takes
+// two bases a row fetch (a trigram table's bigram groups) through
+// csrc/fmi_step.cuh ext_k, from the k-gram table alone too. The int64 forms (P = long
 // long, the launch functions ending in 64) run the int64 layout of
 // ops/occ.py (csrc/fmi_step.cuh).
 //
@@ -146,6 +147,7 @@ readlane_one_pos_kernel(Fmi<P> f, Kfmi g,
   int8_t* q = STACKS_IN_SHARED
                   ? reinterpret_cast<int8_t*>(stk + 2 * (L + 1))
                   : reinterpret_cast<int8_t*>(smem);
+  const WarpC wc = KS > 1 ? warp_c(g, lane) : WarpC{0, 0, 0};
   int steps = 0, ticks = 0;
   for (;;) {
     int t = 0;
@@ -163,8 +165,8 @@ readlane_one_pos_kernel(Fmi<P> f, Kfmi g,
     __syncwarp();              // the codes, and the zeros before any emission
     // the depth L: no stack overflows, so the count needs no latch
     const TaskCounts c = one_pos_task<KS, P>(
-        f, g, q, L, len, t_x[t], t_mi[t], chain_restarts, min_seed_len, L,
-        stk, rows, row, lane);
+        f, g, wc, q, L, len, t_x[t], t_mi[t], chain_restarts, min_seed_len,
+        L, stk, rows, row, lane);
     if (lane == 0) cnt_out[row] = c.cnt;
     steps += c.steps;
     ticks += c.rounds;
@@ -387,20 +389,21 @@ extern "C" int readlane_one_pos_launch64(
       stream);
 }
 
-// readlane_one_pos_launch's k-step forms (int32 layout only): the k-gram
-// table `cpk` ([nb][w4] int4, w4 = 10 or 42) with its C2 [16] and C3
-// [64] tables (`c3k` null at ks = 2), the forward walk ks = 2 or 3 bases
-// a row fetch; the rest as readlane_one_pos_launch.
+// readlane_one_pos_launch's k-step forms (int32 layout only): the C array
+// and the sentinel, then the k-gram table `cpk` ([nb][w4] int4, w4 = 10
+// or 42) with its C2 [16] and C3 [64] tables (`c3k` null at ks = 2), ks =
+// 2 or 3 bases a row fetch, every occ step from the k-gram rows; the rest
+// as readlane_one_pos_launch.
 extern "C" int readlane_one_pos_launch_k(
-    const void* cp_fused, int nb, int c0, int c1, int c2, int c3, int c4,
-    int sentinel, const void* cpk, int w4, const void* c2k,
-    const void* c3k, int ks, const void* codes, const void* lens, int B,
+    int c0, int c1, int c2, int c3, int c4, int sentinel, const void* cpk,
+    int nb, int w4, const void* c2k, const void* c3k, int ks,
+    const void* codes, const void* lens, int B,
     int L, const void* t_read, const void* t_x, const void* t_mi,
     const void* t_valid, const void* t_row, int N, int T,
     int chain_restarts, int min_seed_len, int M, int R, void* stk,
     void* ctr, void* out, void* cnt, void* steps, void* ticks,
     void* stream) {
-  const Fmi<int> f = make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel);
+  const Fmi<int> f = c_only(c0, c1, c2, c3, c4, sentinel);
   const Kfmi g = make_kfmi(cpk, nb, w4, c2k, c3k);
   if (ks == 2)
     return one_pos_launch_t<2>(f, g, codes, lens, B, L, t_read, t_x, t_mi,
@@ -447,16 +450,18 @@ extern "C" int readlane_strategy_launch64(
       cnt, steps, ticks, stream);
 }
 
-// readlane_strategy_launch's k-step form (int32 layout only): two bases a
-// row fetch from the k-gram table (a trigram table's bigram groups).
+// readlane_strategy_launch's k-step form (int32 layout only), the index as
+// readlane_one_pos_launch_k's (checked against ks): two bases a row fetch
+// from the k-gram table (a trigram table's bigram groups), no 1-step rows.
 extern "C" int readlane_strategy_launch_k(
-    const void* cp_fused, int nb, int c0, int c1, int c2, int c3, int c4,
-    int sentinel, const void* cpk, int w4, const void* c2k,
+    int c0, int c1, int c2, int c3, int c4, int sentinel, const void* cpk,
+    int nb, int w4, const void* c2k, const void* c3k, int ks,
     const void* codes, const void* lens, int B, int L, int T, int rw,
     int max_intv, int min_seed_len, int M, void* ctr, void* out, void* cnt,
     void* steps, void* ticks, void* stream) {
+  const Kfmi g = make_kfmi(cpk, nb, w4, c2k, c3k);
+  if (!kfmi_ok(g, ks)) return (int)cudaErrorInvalidValue;
   return strategy_launch_t<2>(
-      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel),
-      make_kfmi(cpk, nb, w4, c2k, nullptr), codes, lens, B, L, T, rw,
+      c_only(c0, c1, c2, c3, c4, sentinel), g, codes, lens, B, L, T, rw,
       max_intv, min_seed_len, M, ctr, out, cnt, steps, ticks, stream);
 }

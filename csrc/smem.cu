@@ -140,24 +140,53 @@
 // Replace the JAX machines' `use2` branches (bwa_mem_scale_tpu/ops/
 // smem_oh.py:200-203, :262-306, :328-377 in one_pos_machine_oh; :664-692
 // in seed_strategy_machine_oh) through the same plain versions. With a
-// k-gram checkpoint table (index/kstep.py, csrc/fmi_step.cuh ext_k) one
-// pair of row fetches takes KS bases. one_pos_kernel<.., KS, int> takes
-// KS bases a round in its forward walk only: the bases are the read's,
-// known before the fetch, so the K groups of each end load side by side
-// (4 16-byte loads an end at KS = 2, 6 at 3), and the steps of the round
-// then run one after another exactly as the 1-step walk's (a push where
-// the size changes, nx, the last interval), stopping where it stops when
-// the walk ends mid-stride (an N, the read's end, a size below mi). The
-// backward rounds keep their 1-step form: a round's entries already run
-// side by side, one a lane (the JAX machine's side steps exist because it
-// runs one lane a task). seed_strategy_kernel<2, int> takes two bases a
-// row fetch (a trigram table's bigram groups), the second only where the
-// first neither hits nor ends the walk. Steps count single bases, the
-// same at every KS; rounds count row fetches (pass 3 reports them in
-// its k-step form). What bounds them is unchanged: the chain of dependent
-// fetches, which they shorten; a round waits on K groups an end instead
-// of one row, and the trigram table (21 B a position) is past the L2 on
-// the 4.6 Mbp genome (PERF.md section 6, PR 17).
+// k-gram checkpoint table (index/kstep.py; csrc/fmi_step.cuh ext_kt) one
+// pair of row fetches takes KS bases. A k-step launch reads that table
+// alone: every occ step, forward or backward, reads a 32-byte group of a
+// k-gram row (group 0 for a 1-step, the first base's bigram group, the
+// pair's trigram group), and the index it takes is the C array and the
+// sentinel (c_only): no cp_fused row shares the L2 with the k-gram rows.
+// - one_pos_k_kernel<.., KS>: the forward walk takes KS bases a
+//   fetch, the groups of both ends loaded side by side, then the steps
+//   one after another as the 1-step walk's (a push where the size
+//   changes, nx, the last interval), stopping where it stops when the
+//   walk ends mid-stride. A backward round whose entries fit one chunk
+//   (cA <= 32, and no stack overflowed: cA <= SD) takes KS rounds a
+//   fetch: lane p extends entry p by the bases at j, j - 1, ... from one
+//   k-gram row an end (every group loaded: a load that waited on where
+//   the read's start or an N cuts the round would wait on the codes),
+//   and the ballot keep/emit rule above runs KS times in registers, each
+//   sub-round over the lanes the one before kept, in lane order: the
+//   entry before a lane is the kept lane below it (31 - clz of the mask below, its size by a
+//   shuffle), the first kept lane alone can emit (its emission goes to
+//   lane 0 by shuffles), and only the last sub-round's kept entries are
+//   pushed. The two orders hold at each sub-round, because the same base
+//   extends nested intervals into nested ones; ops/smem_cuda.py's twin
+//   asserts them there. Where cA > 32 or the stack overflowed the round
+//   keeps the chunked 1-step form, on group 0; the two are chosen by
+//   shape, warp-uniform, and neither is a fallback on failure. C2 and C3
+//   sit in the warp's registers (warp_c), a step's C value one shuffle
+//   off the chain of fetches.
+// - seed_strategy_kernel<2, int>: pass 3, a thread a read, two bases a
+//   row fetch, the second only where the first neither hits nor ends the
+//   walk, on a trigram table from its bigram groups; the k-gram table
+//   alone. Three bases a fetch on a trigram table took 35 rounds for the
+//   longest read against 50 and was slower, 0.02963 ms against 0.02546
+//   on phase 5's batch, in turns (a dependent load over that table's
+//   footprint costs 0.3443 us against 0.2284 over the bigram table's).
+//   A read spread over a group of 4 or 8 lanes (the round's 16-byte
+//   pieces round the group, the shares of the occ added by shuffles)
+//   issued a quarter or an eighth of the load instructions and was
+//   slower too: 0.03089 and 0.03012 ms against 0.02531 at K = 2 (0.03461
+//   with the groups' own shuffle masks, for which ptxas tests the warp's
+//   convergence before each shuffle; a thread a read in that kernel, its
+//   loads predicated on the bases left before a hit, 0.03815). PERF.md
+//   section 6.
+// Steps count single bases, the same at every KS; rounds count row
+// fetches. What bounds them is the chain of dependent fetches, which
+// they shorten; a fetch waits on K groups an end instead of one row, on
+// a table of 160 (K = 2) or 672 (K = 3) bytes a row of 32 positions
+// (PERF.md section 6).
 //
 // ---- the int64 forms
 // Each kernel is a template on its position type P: int for an index of
@@ -195,22 +224,17 @@
 
 namespace {
 
+// one_pos_kernel's body: task blockIdx.x by the block's one warp
 template <bool STACKS_IN_SHARED, int KS, typename P>
-__global__ void __launch_bounds__(WARP)
-one_pos_kernel(Fmi<P> f, Kfmi g, const int32_t* __restrict__ codes,  // [B, L]
-               const int32_t* __restrict__ lens,           // [B]
-               int B, int L,
-               const int32_t* __restrict__ t_read,         // [T]
-               const int32_t* __restrict__ t_x,            // [T]
-               const int32_t* __restrict__ t_mi,           // [T]
-               const uint8_t* __restrict__ t_valid,        // [T]
-               int T, int chain_restarts, int min_seed_len, int M, int SD,
-               Ent<P>* __restrict__ scratch,    // [T][2][SD + 1] or null
-               int32_t* __restrict__ out,       // [2][T][M] m n, then
-                                                // [3][T][M] P: k l s
-               int32_t* __restrict__ cnt_out,   // [T]
-               int32_t* __restrict__ steps_out,    // [T]
-               int32_t* __restrict__ rounds_out) {  // [T]
+__device__ __forceinline__ void one_pos_block(
+    const Fmi<P>& f, const Kfmi& g, const int32_t* __restrict__ codes,
+    const int32_t* __restrict__ lens, int B, int L,
+    const int32_t* __restrict__ t_read, const int32_t* __restrict__ t_x,
+    const int32_t* __restrict__ t_mi, const uint8_t* __restrict__ t_valid,
+    int T, int chain_restarts, int min_seed_len, int M, int SD,
+    Ent<P>* __restrict__ scratch, int32_t* __restrict__ out,
+    int32_t* __restrict__ cnt_out, int32_t* __restrict__ steps_out,
+    int32_t* __restrict__ rounds_out) {
   extern __shared__ int4 smem[];
   const int t = blockIdx.x;                        // one warp a task
   const int lane = threadIdx.x;
@@ -227,16 +251,64 @@ one_pos_kernel(Fmi<P> f, Kfmi g, const int32_t* __restrict__ codes,  // [B, L]
                   : reinterpret_cast<int8_t*>(smem);
   rows.zero(t, lane);                              // the output row
   if (len > 0) stage_codes(codes + (size_t)rd * L, L, q, lane, WARP);
+  const WarpC wc = KS > 1 ? warp_c(g, lane) : WarpC{0, 0, 0};
   __syncwarp();              // the codes, and the zeros before any emission
   const TaskCounts c = one_pos_task<KS, P>(
-      f, g, q, L, len, t_x[t], mi, chain_restarts, min_seed_len, SD, stk,
-      rows, t, lane);
+      f, g, wc, q, L, len, t_x[t], mi, chain_restarts, min_seed_len, SD,
+      stk, rows, t, lane);
   if (lane == 0) {
     cnt_out[t] = c.of ? M + 1 : c.cnt;
     steps_out[t] = c.steps;
     rounds_out[t] = c.rounds;
   }
 }
+
+// passes 1-2, the 1-step forms
+template <bool STACKS_IN_SHARED, typename P>
+__global__ void __launch_bounds__(WARP)
+one_pos_kernel(Fmi<P> f, Kfmi g, const int32_t* __restrict__ codes,  // [B, L]
+               const int32_t* __restrict__ lens,           // [B]
+               int B, int L,
+               const int32_t* __restrict__ t_read,         // [T]
+               const int32_t* __restrict__ t_x,            // [T]
+               const int32_t* __restrict__ t_mi,           // [T]
+               const uint8_t* __restrict__ t_valid,        // [T]
+               int T, int chain_restarts, int min_seed_len, int M, int SD,
+               Ent<P>* __restrict__ scratch,    // [T][2][SD + 1] or null
+               int32_t* __restrict__ out,       // [2][T][M] m n, then
+                                                // [3][T][M] P: k l s
+               int32_t* __restrict__ cnt_out,   // [T]
+               int32_t* __restrict__ steps_out,    // [T]
+               int32_t* __restrict__ rounds_out) {  // [T]
+  one_pos_block<STACKS_IN_SHARED, 1, P>(
+      f, g, codes, lens, B, L, t_read, t_x, t_mi, t_valid, T,
+      chain_restarts, min_seed_len, M, SD, scratch, out, cnt_out, steps_out,
+      rounds_out);
+}
+
+// the k-step forms, the same arguments at P = int: one block an SM at
+// least (as readlane_one_pos_kernel), so that ptxas gives the state of
+// KS sub-rounds the registers it needs rather than the ~64 it gives a
+// one-warp kernel by default
+template <bool STACKS_IN_SHARED, int KS>
+__global__ void __launch_bounds__(WARP, 1)
+one_pos_k_kernel(Fmi<int> f, Kfmi g, const int32_t* __restrict__ codes,
+                 const int32_t* __restrict__ lens, int B, int L,
+                 const int32_t* __restrict__ t_read,
+                 const int32_t* __restrict__ t_x,
+                 const int32_t* __restrict__ t_mi,
+                 const uint8_t* __restrict__ t_valid, int T,
+                 int chain_restarts, int min_seed_len, int M, int SD,
+                 Ent<int>* __restrict__ scratch, int32_t* __restrict__ out,
+                 int32_t* __restrict__ cnt_out,
+                 int32_t* __restrict__ steps_out,
+                 int32_t* __restrict__ rounds_out) {
+  one_pos_block<STACKS_IN_SHARED, KS, int>(
+      f, g, codes, lens, B, L, t_read, t_x, t_mi, t_valid, T,
+      chain_restarts, min_seed_len, M, SD, scratch, out, cnt_out, steps_out,
+      rounds_out);
+}
+
 
 constexpr int P3_THREADS = 32;       // one warp a block, a read a lane
 
@@ -390,8 +462,12 @@ int one_pos_launch_t(const Fmi<P>& f, const Kfmi& g, const void* codes,
   if (!fmi_ok(f) || (KS > 1 && !kfmi_ok(g, KS)) || B <= 0 || L <= 0
       || M < 0 || SD <= 0 || bytes > SMEM_MAX || (!shared && stk == nullptr))
     return (int)cudaErrorInvalidValue;
-  auto kernel = shared ? one_pos_kernel<true, KS, P>
-                       : one_pos_kernel<false, KS, P>;
+  auto kernel = [&] {
+    if constexpr (KS > 1)
+      return shared ? one_pos_k_kernel<true, KS> : one_pos_k_kernel<false, KS>;
+    else
+      return shared ? one_pos_kernel<true, P> : one_pos_kernel<false, P>;
+  }();
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
   kernel<<<T, WARP, bytes, (cudaStream_t)stream>>>(
@@ -529,22 +605,23 @@ extern "C" int seed_strategy_launch64(
       out, cnt, steps, nullptr, stream);
 }
 
-// one_pos_launch's k-step forms (int32 layout only): the k-gram table
-// `cpk` ([nb][w4] int4 in ops/occ.py::kstep_rows' layout, w4 = 10 or 42)
-// with its C2 [16] and C3 [64] tables on the device (`c3k` null at
-// ks = 2), the forward walk ks = 2 or 3 bases a row fetch; the rest as
-// one_pos_launch.
-extern "C" int one_pos_launch_k(const void* cp_fused, int nb, int c0, int c1,
-                                int c2, int c3, int c4, int sentinel,
-                                const void* cpk, int w4, const void* c2k,
-                                const void* c3k, int ks, const void* codes,
-                                const void* lens, int B, int L,
-                                const void* t_read, const void* t_x,
-                                const void* t_mi, const void* t_valid, int T,
+// one_pos_launch's k-step forms (int32 layout only): the C array and the
+// sentinel, then the k-gram table `cpk` ([nb][w4] int4 in
+// ops/occ.py::kstep_rows' layout, w4 = 10 or 42) with its C2 [16] and C3
+// [64] tables on the device (`c3k` null at ks = 2), ks = 2 or 3 bases a
+// row fetch; the rest as one_pos_launch. No 1-step table: every occ step
+// reads the k-gram rows.
+extern "C" int one_pos_launch_k(int c0, int c1, int c2, int c3, int c4,
+                                int sentinel, const void* cpk, int nb,
+                                int w4, const void* c2k, const void* c3k,
+                                int ks, const void* codes, const void* lens,
+                                int B, int L, const void* t_read,
+                                const void* t_x, const void* t_mi,
+                                const void* t_valid, int T,
                                 int chain_restarts, int min_seed_len, int M,
                                 int SD, void* stk, void* out, void* cnt,
                                 void* steps, void* rounds, void* stream) {
-  const Fmi<int> f = make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel);
+  const Fmi<int> f = c_only(c0, c1, c2, c3, c4, sentinel);
   const Kfmi g = make_kfmi(cpk, nb, w4, c2k, c3k);
   if (ks == 2)
     return one_pos_launch_t<2>(f, g, codes, lens, B, L, t_read, t_x, t_mi,
@@ -557,18 +634,19 @@ extern "C" int one_pos_launch_k(const void* cp_fused, int nb, int c0, int c1,
   return (int)cudaErrorInvalidValue;
 }
 
-// seed_strategy_launch's k-step form (int32 layout only): two bases a row
-// fetch from the k-gram table (one_pos_launch_k's arguments; a trigram
-// table's bigram groups); `rounds` [B] gets each read's row fetches.
+// seed_strategy_launch's k-step form (int32 layout only), the table as
+// one_pos_launch_k's (checked against ks): two bases a row fetch from
+// either table's bigram groups; `rounds` [B] gets each read's row fetches.
 extern "C" int seed_strategy_launch_k(
-    const void* cp_fused, int nb, int c0, int c1, int c2, int c3, int c4,
-    int sentinel, const void* cpk, int w4, const void* c2k,
+    int c0, int c1, int c2, int c3, int c4, int sentinel, const void* cpk,
+    int nb, int w4, const void* c2k, const void* c3k, int ks,
     const void* codes, const void* lens, int B, int L, int max_intv,
     int min_seed_len, int M, int reads_per_block, void* out, void* cnt,
     void* steps, void* rounds, void* stream) {
+  const Kfmi g = make_kfmi(cpk, nb, w4, c2k, c3k);
+  if (!kfmi_ok(g, ks)) return (int)cudaErrorInvalidValue;
   return seed_strategy_launch_t<2>(
-      make_fmi(cp_fused, nb, c0, c1, c2, c3, c4, sentinel),
-      make_kfmi(cpk, nb, w4, c2k, nullptr), codes, lens, B, L, max_intv,
+      c_only(c0, c1, c2, c3, c4, sentinel), g, codes, lens, B, L, max_intv,
       min_seed_len, M, reads_per_block, out, cnt, steps, rounds, stream);
 }
 

@@ -19,15 +19,23 @@ N bases, ragged lengths, plus a tandem repeat).
   kernels' twins (``smem_cuda.one_pos_twin`` / ``seed_strategy_twin``
   with ``kstep=``) equal the plain versions, steps included, in fewer
   rounds.
+- passes 1-2 where the k-step backward rounds meet their edges (the
+  planted-prefix genome's rounds past 32 entries at depth 48 and L, the
+  edge reads' k-steps ending at the read's start and at an N, intervals
+  holding the sentinel row inside a step, stacks overflowed at depth 4):
+  the lockstep, the JAX machine and the twin equal, the shapes counted by
+  the twin's ``events``; and each k-step twin reads the k-gram table
+  alone (no ``cp_fused`` row).
 - ``extend_all_positions`` with the table, with and without the FMA
   ladders, merged with pass 3 and not, equals the JAX function; the
   twin ``sweep_cuda.sweep_extend_twin`` equals it, steps included, and
   in its pass forms equals ``sweep_pass_plain`` at K = 2.
 On a GPU (``-m cuda``) each k-step kernel against its plain version and
 the K = 1 kernel's output on the port's own index, the twin's steps and
-rounds on the small batch, a 512-read batch on a 1 Mbp genome and (the
+rounds on the small batch, the edge reads and the planted-prefix reads
+(at the depths above), a 512-read batch on a 1 Mbp genome and (the
 sweep's pass 2, which emits only repeats) 512 reads of a genome with
-repeats. The
+repeats; each launch emits. The
 JAX side is imported inside the tests that use it, so the CUDA cases also
 run on a machine without JAX:
     PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_kstep.py
@@ -318,6 +326,156 @@ def test_seed_strategy_kstep_equal_to_jax(side, K):
     assert int(got.cnt.sum()) > 0
 
 
+# ---- the k-step rounds' shapes -------------------------------------------
+
+@pytest.fixture(scope="module")
+def prefix_k():
+    """test_torch_smem.py's planted-prefix genome (a read whose backward
+    rounds pass 32 entries) with both packages' K = 1, 2, 3 indexes and
+    its reads."""
+    from test_torch_smem import _prefix_genome, _prefix_reads
+    from bwa_mem_scale_tpu.index.bntseq import BntSeq, Annotation
+    from bwa_mem_scale_tpu.index.build import build_index
+    from bwa_mem_scale_tpu.index import kstep as jk
+    from bwa_mem_scale_tpu.ops.occ import DeviceFMIndex as JFmi
+    bns, read = _prefix_genome(BntSeq, Annotation)
+    idx = build_index(bns)
+    return dict(
+        jf={K: JFmi.from_host(idx, cp2=jk.build_cp2(idx, K)) for K in (2, 3)},
+        tf={1: TFmi.from_host(idx, "cpu"),
+            **{K: TFmi.from_host(idx, "cpu", cp2=tk.build_cp2(idx, K))
+               for K in (2, 3)}},
+        reads=_prefix_reads(idx.bns.seq, read))
+
+
+def _edge_reads(side):
+    """The file's reads, then a read whose last 38 bases are the genome's
+    first (its backward intervals from column 10 hold the sentinel row),
+    a read with N bases at 20 and 33 and an exact genome read; pass-2
+    tasks from columns 10-14, 21-26 and 1-4 of those three."""
+    codes, lens = side["reads"]
+    seq = side["idx"].bns.seq.astype(np.int32)
+    rng = np.random.RandomState(41)
+    head = np.concatenate([rng.randint(0, 4, 10), seq[:38]])
+    withn = seq[500:548].copy()
+    withn[[20, 33]] = 4
+    codes = np.concatenate([codes, head[None], withn[None],
+                            seq[None, 2000:2048]]).astype(np.int32)
+    lens = np.concatenate([lens, [48, 48, 48]]).astype(np.int32)
+    B = len(lens)
+    x = list(range(10, 15)) + list(range(21, 27)) + list(range(1, 5))
+    rd = [B - 3] * 5 + [B - 2] * 6 + [B - 1] * 4
+    as_t = lambda v: torch.tensor(v, dtype=torch.int32)
+    tasks = (as_t(rd), as_t(x), as_t([1] * len(x)),
+             torch.ones(len(x), dtype=torch.bool))
+    return codes, lens, tasks
+
+
+# (genome, stack depth): the planted-prefix genome at depth 48 and the
+# read length (rounds past 32 entries take the chunked 1-step round on
+# the k-gram row's group 0), and the small genome's edge reads at full
+# depth (backward k-steps ending at the read's start and at an N, and
+# sentinel-holding intervals inside a step) and at depth 4 (overflowed
+# stacks take the chunked round)
+KSTEP_SHAPES = [("prefix", 48), ("prefix", None), ("edges", None),
+                ("edges", 4)]
+
+
+@pytest.mark.parametrize("K", [2, 3])
+@pytest.mark.parametrize("genome,sd", KSTEP_SHAPES,
+                         ids=[f"{g}-d{d or 'L'}" for g, d in KSTEP_SHAPES])
+def test_one_pos_twin_kstep_shapes(side, prefix_k, K, genome, sd):
+    """Passes 1-2 at the K-table where the k-step backward rounds meet
+    their edges: the plain lockstep equals the JAX machine with the same
+    table and the K = 1 output; the kernel's twin (K backward rounds a
+    fetch where a round fits one chunk, the rule applied K times) equals
+    it in every field, cnt and steps, asserting the two orders at each
+    sub-round, in fewer rounds than K = 1's twin; and the shapes the case
+    is for occur."""
+    import collections
+    import jax.numpy as jnp
+    from bwa_mem_scale_tpu.ops.smem import SmemBuf as JBuf
+    from bwa_mem_scale_tpu.ops.smem_oh import one_pos_machine_oh
+    fx = prefix_k if genome == "prefix" else side
+    tf, t1, jf = fx["tf"][K], fx["tf"][1], fx["jf"][K]
+    if genome == "prefix":
+        codes, lens = fx["reads"]
+        calls = [(True, None)]
+        msl = 19
+    else:
+        codes, lens, tasks2 = _edge_reads(side)
+        calls = [(True, None), (False, tasks2)]
+        msl = MSL
+    M = 48
+    ct, lt = torch.as_tensor(codes), torch.as_tensor(lens)
+    events = collections.Counter()
+    rounds = {}
+    for chain, tasks in calls:
+        if tasks is None:
+            B = len(lens)
+            zi = torch.zeros((B,), dtype=torch.int32)
+            tasks = (torch.arange(B, dtype=torch.int32), zi, zi + 1, lt > 0)
+        got = one_pos_machine(tf, ct, lt, *tasks, chain, msl, M, sd)
+        steps = one_pos_machine.last_steps
+        one = one_pos_machine(t1, ct, lt, *tasks, chain, msl, M, sd)
+        want = one_pos_machine_oh(
+            jf, jnp.asarray(codes), jnp.asarray(lens),
+            *(jnp.asarray(t.numpy()) for t in tasks), chain, msl, M,
+            JBuf.empty(tasks[0].shape[0], M, jnp.int32), stack_depth=sd)
+        tw = {}
+        for kk, f in ((K, tf), (1, t1)):
+            tw[kk] = smem_cuda.one_pos_twin(
+                f.count.numpy(), f.cp_fused.numpy(), f.sentinel_index, codes,
+                lens, *(t.numpy() for t in tasks), chain, msl, M, sd,
+                kstep=smem_cuda.kstep_tables(f),
+                events=events if kk == K else None)
+        for i, f in enumerate(FIELDS):
+            np.testing.assert_array_equal(np.asarray(getattr(want, f)),
+                                          getattr(got, f).numpy(), f)
+            assert torch.equal(getattr(got, f), getattr(one, f)), f
+            np.testing.assert_array_equal(tw[K][i], getattr(got, f).numpy(),
+                                          f)
+        np.testing.assert_array_equal(tw[K][6], steps.numpy())
+        rounds[chain] = (tw[K][7], tw[1][7])
+        assert int(got.cnt.sum()) > 0
+        if sd == 4:
+            assert (got.cnt.numpy() == M + 1).any()
+    for r, r1 in rounds.values():
+        assert (r <= r1).all() and r.sum() < r1.sum()
+    assert events["fused"] > 0
+    if genome == "prefix" or sd == 4:
+        assert events["chunked"] > 0
+    else:
+        assert min(events[e] for e in ("start", "N", "sentinel")) > 0
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_kstep_twins_read_one_table(side, K):
+    """A k-step twin reads the k-gram table alone: passes 1-2 (forward,
+    fused and chunked backward rounds) and pass 3 read (row, group)
+    k-gram groups and no 1-step (cp_fused) row; the K = 1 twins read
+    1-step rows only."""
+    codes, lens, _ = _edge_reads(side)
+    B = len(lens)
+    zi = np.zeros(B, np.int32)
+    p1 = (np.arange(B, dtype=np.int32), zi, zi + 1, lens > 0)
+    for kk in (K, 1):
+        f = side["tf"][kk]
+        tabs = (f.count.numpy(), f.cp_fused.numpy(), f.sentinel_index)
+        kst = smem_cuda.kstep_tables(f)
+        for sd in (None, 4):
+            smem_cuda.one_pos_twin(*tabs, codes, lens, *p1, True, MSL, 48,
+                                   sd, kstep=kst)
+            reads = smem_cuda.one_pos_twin.last_reads
+            assert reads and all(isinstance(r, tuple) == (kk > 1)
+                                 for r in reads)
+        smem_cuda.seed_strategy_twin(*tabs, codes, lens, 20, MSL + 1, 48,
+                                     kstep=kst)
+        reads = smem_cuda.seed_strategy_twin.last_reads
+        assert reads and all(isinstance(r, tuple) == (kk > 1)
+                             for r in reads)
+
+
 # (case, K, FMA): the sweep merged with pass 3 (with and without the
 # ladders, and on a trigram table's bigram part), the split pass 3 with its
 # stop length, the reseed's per-row minimum intervals
@@ -440,33 +598,47 @@ def _cuda():
 
 @pytest.fixture(scope="module")
 def card():
-    """The port's own index of a 9 kbp genome with this file's reads and
-    of a 1 Mbp genome with 512 reads of 101 bp (1% errors), each with its
-    bigram and trigram tables, and of ``tools/batches.py::repeat_batch``'s
-    2 Mbp genome with repeats and its 512 reads, with its bigram table;
-    each with a K = 6 FMA table (no JAX on the card)."""
+    """The port's own index of a 9 kbp genome with this file's reads (and
+    with its edge reads and their pass-2 tasks, ``_edge_reads``), of a 1
+    Mbp genome with 512 reads of 101 bp (1% errors) and of
+    test_torch_smem.py's planted-prefix genome with its reads, each with
+    its bigram and trigram tables, and of ``tools/batches.py::
+    repeat_batch``'s 2 Mbp genome with repeats and its 512 reads, with its
+    bigram table; each with a K = 6 FMA table (no JAX on the card)."""
     dev = _cuda()
+    from test_torch_smem import _prefix_genome, _prefix_reads
+    from bwa_mem_scale_tpu_torch.index.bntseq import BntSeq, Annotation
     from bwa_mem_scale_tpu_torch.index.build import build_index
     from bwa_mem_scale_tpu_torch.models.aligner import (demo_genome,
                                                        simulate_reads)
     from bwa_mem_scale_tpu_torch.ops.fma import build_fma_table
     from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
     out = {}
-    for name in ("small", "batch", "repeat"):
+    for name in ("small", "batch", "prefix", "edges", "repeat"):
+        tasks2 = None
         if name == "repeat":
             idx, codes, lens = repeat_batch()
+        elif name == "prefix":
+            bns, read = _prefix_genome(BntSeq, Annotation)
+            idx = build_index(bns)
+            codes, lens = _prefix_reads(idx.bns.seq, read)
         else:
             idx = build_index(demo_genome(
-                9000 if name == "small" else 1_000_000, seed=13,
+                9000 if name != "batch" else 1_000_000, seed=13,
                 n_contigs=1))
-            codes, lens = (_reads(idx.bns.seq) if name == "small" else
-                           simulate_reads(idx.bns, 512, 101, seed=8,
-                                          err_rate=0.01))
+            codes, lens = (simulate_reads(idx.bns, 512, 101, seed=8,
+                                          err_rate=0.01)
+                           if name == "batch" else _reads(idx.bns.seq))
+            if name == "edges":
+                codes, lens, tasks2 = _edge_reads(
+                    dict(idx=idx, reads=(codes, lens)))
         fmis = {1: TFmi.from_host(idx, dev)}
         for K in ((2,) if name == "repeat" else (2, 3)):
             fmis[K] = TFmi.from_host(idx, dev, cp2=tk.build_cp2(idx, K))
         out[name] = dict(fmi=fmis, codes=torch.as_tensor(codes, device=dev),
                          lens=torch.as_tensor(lens, device=dev),
+                         tasks2=None if tasks2 is None else [
+                             t.to(dev) for t in tasks2],
                          fma=build_fma_table(fmis[1], K=6).to_device(
                              torch.int32, dev))
     return out
@@ -477,14 +649,25 @@ def _eq(a, b):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+# (batch, stack depth): this file's reads, the 512-read batch, the
+# planted-prefix reads at depth 48 and the read length (backward rounds
+# past 32 entries), the edge reads at the read length (k-steps ending at
+# the read's start and at an N, sentinel-holding intervals inside a step)
+# and at depth 4 (overflowed stacks)
+KERNEL_ONE_POS = [("small", None), ("batch", None), ("prefix", 48),
+                  ("prefix", None), ("edges", None), ("edges", 4)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [2, 3])
-@pytest.mark.parametrize("batch", ["small", "batch"])
+@pytest.mark.parametrize("batch,sd", KERNEL_ONE_POS,
+                         ids=[f"{b}-d{d or 'L'}" for b, d in KERNEL_ONE_POS])
 @pytest.mark.parametrize("chain", [True, False], ids=["pass1", "pass2"])
-def test_one_pos_kstep_kernel_equal_to_plain(card, K, batch, chain):
+def test_one_pos_kstep_kernel_equal_to_plain(card, K, batch, sd, chain):
     """one_pos_kernel's K-step form against the plain version and the K =
     1 kernel: every array and each task's steps; its rounds fewer than K =
-    1's, and on the small batch equal to the twin's."""
+    1's; the launch emits; and, except on the 512-read batch, its steps
+    and rounds equal the twin's."""
     c = card[batch]
     codes, lens = c["codes"], c["lens"]
     f = c["fmi"][K]
@@ -492,41 +675,43 @@ def test_one_pos_kstep_kernel_equal_to_plain(card, K, batch, chain):
     zi = torch.zeros((B,), dtype=torch.int32, device=codes.device)
     tasks = (torch.arange(B, dtype=torch.int32, device=codes.device), zi,
              zi + 1, lens > 0)
-    M, sd = 48, None
+    M, msl = 48, 19 if batch == "prefix" else MSL
     if not chain:
-        b1 = one_pos_machine(c["fmi"][1], codes, lens, *tasks, True, MSL, M,
+        b1 = one_pos_machine(c["fmi"][1], codes, lens, *tasks, True, msl, M,
                              sd)
-        tasks = reseed_tasks(b1, 2 * B, 15, 10)[:4]
+        tasks = c["tasks2"] or reseed_tasks(b1, 2 * B, 15, 10)[:4]
     wrap = smem_cuda.one_pos_machine_cuda
     before = (wrap.launches, wrap.launches_k)
-    got = wrap(f, codes, lens, *tasks, chain, MSL, M, sd)
+    got = wrap(f, codes, lens, *tasks, chain, msl, M, sd)
     torch.cuda.synchronize()
     assert (wrap.launches, wrap.launches_k) == (before[0] + 1, before[1] + 1)
     steps, rounds = wrap.last_steps.cpu(), wrap.last_rounds.cpu()
-    one = wrap(c["fmi"][1], codes, lens, *tasks, chain, MSL, M, sd)
+    one = wrap(c["fmi"][1], codes, lens, *tasks, chain, msl, M, sd)
     rounds1 = wrap.last_rounds.cpu()
     assert torch.equal(steps, wrap.last_steps.cpu())
     _eq(got, one)
-    plain = one_pos_machine(f, codes, lens, *tasks, chain, MSL, M, sd)
+    plain = one_pos_machine(f, codes, lens, *tasks, chain, msl, M, sd)
     _eq(got, plain)
     assert torch.equal(steps, one_pos_machine.last_steps.cpu())
     assert (rounds <= rounds1).all() and rounds.sum() < rounds1.sum()
-    if batch == "small":
+    assert int(got.cnt.sum()) > 0
+    if batch != "batch":
         tw = smem_cuda.one_pos_twin(
             *smem_cuda.twin_tables(f)[:3], codes.cpu().numpy(),
             lens.cpu().numpy(), *(t.cpu().numpy() for t in tasks), chain,
-            MSL, M, sd, kstep=smem_cuda.kstep_tables(f))
+            msl, M, sd, kstep=smem_cuda.kstep_tables(f))
         np.testing.assert_array_equal(tw[6], steps.numpy())
         np.testing.assert_array_equal(tw[7], rounds.numpy())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [2, 3])
-@pytest.mark.parametrize("batch", ["small", "batch"])
+@pytest.mark.parametrize("batch", ["small", "batch", "prefix", "edges"])
 def test_seed_strategy_kstep_kernel_equal_to_plain(card, K, batch):
     """seed_strategy_kernel's 2-step form against the plain version and
-    the K = 1 kernel; on the small batch its steps and rounds equal the
-    twin's."""
+    the K = 1 kernel;
+    the launch emits; except on the 512-read batch its steps and rounds
+    equal the twin's."""
     c = card[batch]
     codes, lens, f = c["codes"], c["lens"], c["fmi"][K]
     args = (20, MSL + 1, 48)
@@ -539,8 +724,9 @@ def test_seed_strategy_kstep_kernel_equal_to_plain(card, K, batch):
     _eq(got, wrap(c["fmi"][1], codes, lens, *args))
     assert torch.equal(steps, wrap.last_steps.cpu())
     _eq(got, seed_strategy_machine(f, codes, lens, *args))
-    assert rounds.sum() < steps.sum()
-    if batch == "small":
+    assert (2 * rounds >= steps).all() and rounds.sum() < steps.sum()
+    assert int(got.cnt.sum()) > 0
+    if batch != "batch":
         tw = smem_cuda.seed_strategy_twin(
             *smem_cuda.twin_tables(f)[:3], codes.cpu().numpy(),
             lens.cpu().numpy(), *args, kstep=smem_cuda.kstep_tables(f))
@@ -553,7 +739,8 @@ def test_seed_strategy_kstep_kernel_equal_to_plain(card, K, batch):
 # runs on the repeat batch
 KERNEL_SWEEP = [("merged", "small"), ("merged", "batch"),
                 ("unmerged", "small"), ("unmerged", "batch"),
-                ("reseed", "small"), ("reseed", "repeat")]
+                ("reseed", "small"), ("reseed", "repeat"),
+                ("merged", "edges"), ("reseed", "prefix")]
 
 
 @pytest.mark.cuda
@@ -571,7 +758,7 @@ def test_sweep_kstep_kernel_equal_to_plain(card, use_fma, case, batch):
     c = card[batch]
     codes, lens, f = c["codes"], c["lens"], c["fmi"][2]
     table = c["fma"] if use_fma else None
-    msl = 19 if batch == "repeat" else MSL
+    msl = 19 if batch in ("repeat", "prefix") else MSL
     wrap = sweep_cuda.sweep_pass_cuda
     before = wrap.launches_k
     got, steps, rounds, kw = card_pass_case(
