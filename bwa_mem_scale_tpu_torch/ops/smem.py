@@ -127,6 +127,59 @@ def reseed_tasks(p1: SmemBuf, T: int, split_len: int, split_width: int):
     return t_read, t_x, t_mi, t_valid, reseed_of
 
 
+def reseed_task_list(p1: SmemBuf, T: int, split_len: int, split_width: int):
+    """``reseed_tasks`` and each read's first task and task count [B]
+    int32 (its tasks are first .. first + count - 1): the plain version of
+    ``smem_cuda.reseed_tasks_cuda``."""
+    t_read, t_x, t_mi, t_valid, reseed_of = reseed_tasks(p1, T, split_len,
+                                                         split_width)
+    B = p1.m.shape[0]
+    i32 = torch.int32
+    count = torch.zeros((B + 1,), dtype=i32, device=p1.m.device).index_add_(
+        0, torch.where(t_valid, t_read, B), torch.ones_like(t_x))[:B]
+    first = torch.cumsum(count, 0, dtype=i32) - count
+    return t_read, t_x, t_mi, t_valid, reseed_of, first, count
+
+
+def merge_smems_plain(p1: SmemBuf, p2t: SmemBuf, p3, t_read, t_valid,
+                      first, count, reseed_of, pass_of: bool) -> SmemBuf:
+    """The seeding engines' glue after their walks (the plain version of
+    ``smem_cuda.merge_smems_cuda``, with its signature): pass 2's task
+    rows p2t [T, M] into their reads' rows by t_read and t_valid
+    (``_emit_compact``; the kernel's first and count go unread here), the
+    concat of pass 1, pass 2 and pass 3 (None: two passes), the stable
+    per-read sort on (m << 16) | n with the invalid slots last, and the
+    counts: the width where the read overflowed the task list (reseed_of)
+    or, with pass_of (the one-hot engine), where pass 1, one of its
+    pass-2 tasks or pass 3 reached M."""
+    dev = p1.m.device
+    B, M = p1.m.shape
+    t_read = t_read.long()
+    tmask = ((torch.arange(M, device=dev)[None, :] < p2t.cnt[:, None])
+             & t_valid[:, None])
+    p2 = _emit_compact(tmask, p2t.m, p2t.n, p2t.k, p2t.l, p2t.s,
+                       SmemBuf.empty(B, M, dev, p1.k.dtype), rows=t_read)
+    parts = [p1, p2] + ([] if p3 is None else [p3])
+    of = reseed_of
+    if pass_of:
+        p2_of = torch.zeros((B + 1,), dtype=torch.int32, device=dev)
+        p2_of = p2_of.scatter_reduce(
+            0, torch.where(t_valid, t_read, B),
+            ((p2t.cnt >= M) & t_valid).to(torch.int32), "amax")[:B] > 0
+        of = of | (p1.cnt >= M) | p2_of
+        if p3 is not None:
+            of = of | (p3.cnt >= M)
+    comb = concat_smems(*parts)
+    valid = torch.cat([torch.arange(M, device=dev)[None, :] < b.cnt[:, None]
+                       for b in parts], dim=1)
+    key = torch.where(valid, (comb.m << 16) | comb.n, 1 << 30)
+    _, perm = torch.sort(key, dim=1, stable=True)
+    g = lambda a: a.gather(1, perm)
+    cnt = torch.where(of, comb.m.shape[1], comb.cnt)
+    return SmemBuf(g(comb.m), g(comb.n), g(comb.k), g(comb.l), g(comb.s),
+                   cnt.to(torch.int32))
+
+
 # ---- the position-parallel sweep ------------------------------------------
 
 # the lockstep machines (here and in ops/smem_oh.py) test their exit (a

@@ -161,6 +161,37 @@ def _codes_int32(what: str, codes, lens) -> None:
         raise ValueError(f"{what}: codes and lens must be int32")
 
 
+def add_walk_stats(stats: dict, stats_key: str, steps, rounds) -> None:
+    """Add a walk launch's longest lane's steps and rounds ([lanes] device
+    tensors; rounds None: not counted) to `stats` under `stats_key` with
+    "ticks" read as "steps" and "rounds"; into a DeferredStats, keep them
+    unreduced."""
+    if isinstance(stats, DeferredStats):
+        stats.pending.append((stats_key, steps, rounds))
+        return
+    for what, per_lane in (("steps", steps), ("rounds", rounds)):
+        if per_lane is not None:
+            key = stats_key.replace("ticks", what)
+            stats[key] = stats.get(key, 0) + per_lane.max()
+
+
+class DeferredStats(dict):
+    """A stats dict for one call whose walk launches' counts wait: the
+    wrappers leave each launch's per-lane steps and rounds in ``pending``
+    (no reduction between the call's launches); ``fold`` adds all of it
+    to the caller's stats."""
+
+    def __init__(self):
+        super().__init__()
+        self.pending = []
+
+    def fold(self, stats: dict) -> None:
+        for key, v in self.items():
+            stats[key] = stats.get(key, 0) + v
+        for key, steps, rounds in self.pending:
+            add_walk_stats(stats, key, steps, rounds)
+
+
 def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
                          t_mi, t_valid, chain_restarts: bool,
                          min_seed_len: int, max_out: int,
@@ -211,9 +242,7 @@ def one_pos_machine_cuda(fmi: DeviceFMIndex, codes, lens, t_read, t_x,
                    cnt.data_ptr(), steps.data_ptr(), rounds.data_ptr())
         _count(one_pos_machine_cuda, fmi, ks > 1)
         if stats is not None:
-            for what, per_task in (("steps", steps), ("rounds", rounds)):
-                key = stats_key.replace("ticks", what)
-                stats[key] = stats.get(key, 0) + per_task.max()
+            add_walk_stats(stats, stats_key, steps, rounds)
     one_pos_machine_cuda.last_steps = steps
     one_pos_machine_cuda.last_rounds = rounds
     return SmemBuf(*fields, cnt)
@@ -264,9 +293,7 @@ def seed_strategy_machine_cuda(fmi: DeviceFMIndex, codes, lens,
                    *([rounds.data_ptr()] if kstep else []))
         _count(seed_strategy_machine_cuda, fmi, kstep)
         if stats is not None:
-            for what, per_read in (("steps", steps), ("rounds", rounds)):
-                key = f"seed_{what}_p3"
-                stats[key] = stats.get(key, 0) + per_read.max()
+            add_walk_stats(stats, "seed_ticks_p3", steps, rounds)
     seed_strategy_machine_cuda.last_steps = steps
     seed_strategy_machine_cuda.last_rounds = rounds
     return SmemBuf(*fields, cnt)
@@ -277,6 +304,149 @@ seed_strategy_machine_cuda.launches64 = 0
 seed_strategy_machine_cuda.launches_k = 0
 seed_strategy_machine_cuda.last_steps = None     # [B] int32, on its device
 seed_strategy_machine_cuda.last_rounds = None    # [B] int32, on its device
+
+
+# ---- the one-hot stage's glue (csrc/smem_glue.cu) ---------------------------
+
+_SMEM6 = [_vp] * 6                  # an SmemBuf: m, n, k, l, s, cnt
+GLUE = nvcc_build.Library("smem_glue.cu", "smem_glue_cuda", {
+    **{f"reseed_tasks_launch{sfx}": [_vp] * 4 + [_ci] * 4 + [_ll] + [_vp] * 7
+       for sfx in _SUFFIX.values()},
+    **{f"merge_smems_launch{sfx}": _SMEM6 * 3 + [_vp] * 3 + [_ci] * 4
+       + [_vp] + _SMEM6 for sfx in _SUFFIX.values()}})
+build_glue = GLUE.build      # compile csrc/smem_glue.cu; returns the path
+
+MERGE_WARPS = 8              # merge_smems_kernel's warps a block
+# the shared memory a block may take (227 KB); monkeypatch it small to
+# give merge_smems_kernel its device scratch at ordinary widths
+MERGE_SMEM_BUDGET = 232448
+MERGE_M_MAX = 46340          # M x M < 2^31: a pass-2 entry's source index
+TASK_THREADS = 1024          # reseed_tasks_kernel's one block: a chunk
+KEY_INVALID = 1 << 30        # an invalid slot's sort key
+
+
+def merge_plan(M: int, parts: int, budget: int = None) -> tuple:
+    """(warps a block, whether the staging sits in shared memory) of
+    merge_smems_kernel for rows of M slots a pass and `parts` passes: W =
+    parts x M staged pairs of 8 bytes a warp, 8 warps a block while they
+    fit `budget` (default MERGE_SMEM_BUDGET), fewer past it, and past one
+    warp's share a device scratch [B][W] with 8 warps. Raises ValueError
+    for M past MERGE_M_MAX, a width no pipeline makes."""
+    if M > MERGE_M_MAX:
+        raise ValueError(f"merge_smems_cuda: {M} slots a pass (at most "
+                         f"{MERGE_M_MAX})")
+    per = parts * M * 8
+    budget = MERGE_SMEM_BUDGET if budget is None else budget
+    if per > budget:
+        return MERGE_WARPS, False
+    return min(MERGE_WARPS, budget // per), True
+
+
+def _glue_check(what: str, *bufs) -> torch.device:
+    """The device of bufs[0] (SmemBufs, or None): CUDA, shared by every
+    field; m, n and cnt int32, k, l and s of one position dtype; or
+    ValueError."""
+    dev = bufs[0].m.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    pd = bufs[0].k.dtype
+    for b in bufs:
+        if b is None:
+            continue
+        if any(f.device != dev for f in b):
+            raise ValueError(f"{what}: tensors on different devices")
+        if (any(f.dtype != torch.int32 for f in (b.m, b.n, b.cnt))
+                or any(f.dtype != pd for f in (b.k, b.l, b.s))
+                or pd not in _SUFFIX):
+            raise ValueError(f"{what}: m, n and cnt must be int32, k, l and "
+                             f"s of one position dtype (int32 or int64)")
+    return dev
+
+
+def reseed_tasks_cuda(p1: SmemBuf, T: int, split_len: int,
+                      split_width: int):
+    """Pass 2's task list from pass 1's SmemBuf [B, M]: (t_read, t_x,
+    t_mi, t_valid [T], reseed_of [B], each read's first task and task
+    count [B]), the values of the plain version ``smem.reseed_task_list``
+    (the CPU path). On CUDA tensors one launch of csrc/smem_glue.cu's
+    reseed_tasks_kernel (t_read, t_x and t_mi int32, t_valid and
+    reseed_of bool, in two allocations) or ValueError; no
+    synchronisation."""
+    if p1.m.device.type == "cpu":
+        from .smem import reseed_task_list
+        return reseed_task_list(p1, T, split_len, split_width)
+    dev = _glue_check("reseed_tasks_cuda", p1)
+    B, M = p1.m.shape
+    if B == 0 or M == 0 or B * M >= 1 << 31 or T < 0:
+        raise ValueError(f"reseed_tasks_cuda: {B} reads of {M} slots, "
+                         f"{T} tasks")
+    ints = torch.empty((3 * T + 2 * B,), dtype=torch.int32, device=dev)
+    t_read, t_x, t_mi, first, count = ints.split([T, T, T, B, B])
+    flags = torch.empty((T + B,), dtype=torch.bool, device=dev)
+    t_valid, reseed_of = flags.split([T, B])
+    pd = p1.k.dtype
+    src = [f.contiguous() for f in (p1.m, p1.n, p1.s, p1.cnt)]
+    GLUE.launch(dev, "reseed_tasks_launch" + _SUFFIX[pd],
+                *(f.data_ptr() for f in src), B, M, T, split_len,
+                split_width, *(t.data_ptr() for t in (
+                    t_read, t_x, t_mi, t_valid, reseed_of, first, count)))
+    reseed_tasks_cuda.launches += 1
+    reseed_tasks_cuda.launches64 += pd == torch.int64
+    return t_read, t_x, t_mi, t_valid, reseed_of, first, count
+
+
+reseed_tasks_cuda.launches = 0
+reseed_tasks_cuda.launches64 = 0
+
+
+def merge_smems_cuda(p1: SmemBuf, p2t: SmemBuf, p3, t_read, t_valid, first,
+                     count, reseed_of, pass_of: bool) -> SmemBuf:
+    """The SmemBuf [B, W] of the plain version ``smem.merge_smems_plain``
+    (the CPU path, which reads t_read and t_valid) from pass 1 [B, M],
+    pass 2's task rows p2t [T, M], pass 3 [B, M] or None (W = 3 M or 2 M)
+    and the task list (the kernel reads each read's first task and task
+    count, as ``reseed_tasks_cuda`` gives them, and reseed_of). On CUDA
+    tensors one launch of csrc/smem_glue.cu's merge_smems_kernel (the
+    staging planned by ``merge_plan``; its scratch allocated where the
+    plan says) or ValueError; no synchronisation."""
+    if p1.m.device.type == "cpu":
+        from .smem import merge_smems_plain
+        return merge_smems_plain(p1, p2t, p3, t_read, t_valid, first, count,
+                                 reseed_of, pass_of)
+    dev = _glue_check("merge_smems_cuda", p1, p2t, p3)
+    B, M = p1.m.shape
+    pd = p1.k.dtype
+    parts = 2 if p3 is None else 3
+    if (p2t.m.shape[1] != M or p2t.k.dtype != pd
+            or (p3 is not None and (p3.m.shape != (B, M) or p3.k.dtype != pd))
+            or any(t.shape != (B,) or t.device != dev
+                   for t in (first, count, reseed_of))
+            or first.dtype != torch.int32 or count.dtype != torch.int32
+            or reseed_of.dtype != torch.bool or B == 0 or M == 0):
+        raise ValueError("merge_smems_cuda: shapes, dtypes or devices of "
+                         "the passes and the task list differ")
+    warps, shared = merge_plan(M, parts)
+    W = parts * M
+    out, fields = _smem_out(B, W, pd, dev)
+    cnt = torch.empty((B,), dtype=torch.int32, device=dev)
+    scratch = (None if shared else
+               torch.empty((B, W, 2), dtype=torch.int32, device=dev))
+    src = [f.contiguous() for buf in (p1, p2t, p3) if buf is not None
+           for f in buf] + [t.contiguous() for t in (first, count, reseed_of)]
+    ptrs = [f.data_ptr() for f in src]
+    if p3 is None:
+        ptrs[12:12] = [None] * 6
+    GLUE.launch(dev, "merge_smems_launch" + _SUFFIX[pd], *ptrs, B, M,
+                int(pass_of), warps,
+                None if scratch is None else scratch.data_ptr(),
+                *(f.data_ptr() for f in fields), cnt.data_ptr())
+    merge_smems_cuda.launches += 1
+    merge_smems_cuda.launches64 += pd == torch.int64
+    return SmemBuf(*fields, cnt)
+
+
+merge_smems_cuda.launches = 0
+merge_smems_cuda.launches64 = 0
 
 
 def sa_walk_cuda(fmi: DeviceFMIndex, pos: torch.Tensor,
@@ -772,6 +942,162 @@ def seed_strategy_twin(count, cp_fused, sentinel_index: int, codes, lens,
 
 
 seed_strategy_twin.last_reads = None
+
+
+def reseed_tasks_twin(m, n, s, cnt, T: int, split_len: int,
+                      split_width: int):
+    """csrc/smem_glue.cu's reseed_tasks_kernel in plain Python on pass 1's
+    m, n, s [B, M] and cnt [B] (numpy arrays): the block's chunks of
+    TASK_THREADS reads, a thread a read counting its candidates, the
+    block's exclusive scan of the counts plus the carry of the earlier
+    chunks, each thread writing its tasks from its rank up to T; then the
+    list's tail. Asserts that every output slot is written once. Returns
+    (t_read, t_x, t_mi int32 [T], t_valid [T], reseed_of [B] bool, first,
+    count int32 [B])."""
+    m, n, s, cnt = (np.asarray(a) for a in (m, n, s, cnt))
+    B, M = m.shape
+    t_read, t_x, t_mi = (np.zeros(T, np.int32) for _ in range(3))
+    t_valid, reseed_of = np.zeros(T, bool), np.zeros(B, bool)
+    first, count = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    writes, read_writes = np.zeros(T, np.int64), np.zeros(B, np.int64)
+
+    def cand(b, j):
+        return (int(n[b, j]) + 1 - int(m[b, j]) >= split_len
+                and int(s[b, j]) <= split_width)
+
+    carry = 0
+    for base in range(0, B, TASK_THREADS):
+        reads = range(base, min(base + TASK_THREADS, B))
+        k = [min(max(int(cnt[b]), 0), M) for b in reads]
+        c = [sum(cand(b, j) for j in range(kb)) for b, kb in zip(reads, k)]
+        excl = np.concatenate([[0], np.cumsum(c)])       # the block's scan
+        for i, b in enumerate(reads):
+            r0 = carry + int(excl[i])
+            kept = max(0, min(c[i], T - r0))
+            first[b], count[b], reseed_of[b] = min(r0, T), kept, c[i] > kept
+            read_writes[b] += 1
+            r = r0
+            for j in range(k[i]):
+                if r >= r0 + kept:
+                    break
+                if cand(b, j):
+                    t_read[r], t_valid[r] = b, True
+                    t_x[r] = (int(n[b, j]) + 1 + int(m[b, j])) >> 1
+                    t_mi[r] = int(s[b, j]) + 1
+                    writes[r] += 1
+                    r += 1
+        carry += int(excl[-1])
+    x0 = (int(n[0, 0]) + 1 + int(m[0, 0])) >> 1
+    for r in range(min(carry, T), T):                    # the list's tail
+        t_read[r], t_x[r], t_mi[r], t_valid[r] = 0, x0, 1, False
+        writes[r] += 1
+    assert (writes == 1).all() and (read_writes == 1).all(), \
+        "reseed_tasks_twin: a slot not written once"
+    return t_read, t_x, t_mi, t_valid, reseed_of, first, count
+
+
+def _sort_key(m: int, n: int) -> int:
+    """(m << 16) | n as int32, wrapping as the kernel's and torch's do."""
+    v = ((int(m) << 16) | (int(n) & 0xFFFFFFFF)) & 0xFFFFFFFF
+    return v - (1 << 32) if v >> 31 else v
+
+
+def merge_smems_twin(p1, p2t, p3, first, count, reseed_of, pass_of: bool,
+                     budget: int = None):
+    """csrc/smem_glue.cu's merge_smems_kernel in plain Python, a read (a
+    warp) after another: p1 and p3 (or None) as (m, n, k, l, s, cnt) of
+    [B, M] and [B] arrays, p2t the same of [T, M] and [T], first / count /
+    reseed_of [B] as reseed_tasks_twin gives them. The read's valid
+    entries staged in concat order as (key, source) pairs, pass 2's
+    placed by a scan over its tasks in chunks of WARP and dropped from
+    position M on; each valid entry ranked against the staged keys; the
+    invalid slots after them in concat order (the exact rule for them
+    where a key reaches 1 << 30); cnt. Keeps merge_plan's (warps, in
+    shared memory) for the shapes and `budget` in ``last_plan``, and
+    asserts that every output slot is written once. Returns (m, n, k, l,
+    s, cnt) as numpy arrays, k, l and s of p1's k dtype."""
+    p1, p2t = [np.asarray(a) for a in p1], [np.asarray(a) for a in p2t]
+    p3 = None if p3 is None else [np.asarray(a) for a in p3]
+    first, count, reseed_of = (np.asarray(a) for a in (first, count,
+                                                        reseed_of))
+    B, M = p1[0].shape
+    parts = 2 if p3 is None else 3
+    W = parts * M
+    merge_smems_twin.last_plan = merge_plan(M, parts, budget)
+    out = [np.zeros((B, W), p1[i].dtype) for i in range(5)]
+    cnt_out = np.zeros(B, np.int32)
+    writes = np.zeros((B, W), np.int64)
+    for b in range(B):
+        c1raw = int(p1[5][b])
+        c3raw = 0 if p3 is None else int(p3[5][b])
+        c1, c3 = min(max(c1raw, 0), M), min(max(c3raw, 0), M)
+        f, nt = int(first[b]), int(count[b])
+        st = {j: (_sort_key(p1[0][b, j], p1[1][b, j]), j) for j in range(c1)}
+        p2cnt, of2 = 0, False
+        for t0 in range(0, nt, WARP):                    # a chunk of tasks
+            raw = [int(p2t[5][f + t]) for t in range(t0, min(t0 + WARP, nt))]
+            ct = [min(max(v, 0), M) for v in raw]
+            of2 |= any(v >= M for v in raw)
+            off = p2cnt + np.concatenate([[0], np.cumsum(ct)])
+            p2cnt += sum(ct)
+            for i, cti in enumerate(ct):
+                o = int(off[i])
+                if o >= M:
+                    break
+                t = f + t0 + i
+                for c in range(min(cti, M - o)):
+                    assert c1 + o + c not in st
+                    st[c1 + o + c] = (_sort_key(p2t[0][t, c], p2t[1][t, c]),
+                                      (t0 + i) * M + c)
+        c2 = min(p2cnt, M)
+        for j in range(c3):
+            st[c1 + c2 + j] = (_sort_key(p3[0][b, j], p3[1][b, j]), j)
+        V = c1 + c2 + c3
+        assert sorted(st) == list(range(V)), "merge_smems_twin: staging"
+        keys = [st[i][0] for i in range(V)]
+        big = any(kv >= KEY_INVALID for kv in keys)
+        cp = [c1, c2, c3]
+
+        def put(r, src, row):
+            for i, o in enumerate(out):
+                o[b, r] = 0 if src is None else src[i][row]
+            writes[b, r] += 1
+
+        for i in range(V):                               # the valid entries
+            kv, y = st[i]
+            r = sum(kq < kv or (kq == kv and q < i)
+                    for q, kq in enumerate(keys))
+            part = 0 if i < c1 else 1 if i < c1 + c2 else 2
+            if big and kv >= KEY_INVALID:
+                r += W - V if kv > KEY_INVALID else sum(M - cp[p]
+                                                        for p in range(part))
+            if part == 1:
+                put(r, p2t, (f + y // M, y % M))
+            else:
+                put(r, p3 if part else p1, (b, y))
+        lt = sum(kq < KEY_INVALID for kq in keys) if big else V
+        for x in range(W - V):                           # the invalid slots
+            p, o = 0, x
+            while o >= M - cp[p]:
+                o -= M - cp[p]
+                p += 1
+            o += cp[p]
+            r = lt + x
+            if big:
+                idx = p * M + o
+                for q, kq in enumerate(keys):
+                    pq = 0 if q < c1 else 1 if q < c1 + c2 else 2
+                    oq = q - (c1 if pq else 0) - (c2 if pq > 1 else 0)
+                    r += kq == KEY_INVALID and pq * M + oq < idx
+            put(r, None if p == 1 else p3 if p else p1, (b, o))
+        of = bool(reseed_of[b]) or (pass_of and (
+            c1raw >= M or of2 or (p3 is not None and c3raw >= M)))
+        cnt_out[b] = W if of else c1raw + p2cnt + c3raw
+    assert (writes == 1).all(), "merge_smems_twin: a slot not written once"
+    return (*out, cnt_out)
+
+
+merge_smems_twin.last_plan = None
 
 
 def _twin_walk(fm: _TwinFmi, samples, sa_compx: int, sp: int) -> tuple:

@@ -62,9 +62,9 @@ import torch
 
 from .occ import (DeviceFMIndex, backward_ext_all4,
                   backward_ext_steps_and_1, forward_ext2)
-from .smem import (SmemBuf, concat_smems, _emit_compact, reseed_tasks,
-                   run_lockstep)
-from .smem_cuda import (one_pos_machine_cuda,
+from .smem import SmemBuf, run_lockstep
+from .smem_cuda import (DeferredStats, merge_smems_cuda,
+                        one_pos_machine_cuda, reseed_tasks_cuda,
                         seed_strategy_machine_cuda)
 
 P_INIT = 0
@@ -614,8 +614,6 @@ def seed_strategy_machine(fmi: DeviceFMIndex, codes, lens, max_intv: int,
     return buf
 
 
-
-
 def collect_smems_oh(fmi: DeviceFMIndex, codes, lens, *,
                      min_seed_len: int, split_len: int,
                      split_width: int, max_mem_intv: int,
@@ -627,7 +625,12 @@ def collect_smems_oh(fmi: DeviceFMIndex, codes, lens, *,
     low-occurrence SMEMs from their midpoints, and the seed strategy;
     then a stable per-read sort on (m << 16) | n.
 
-    codes [B, L] int32, lens [B] int32, both on fmi's device."""
+    codes [B, L] int32, lens [B] int32, both on fmi's device. On CUDA
+    tensors five launches (four with max_mem_intv 0) and no tensor
+    operation between them but their outputs' allocations: pass 1, the
+    task list (``reseed_tasks_cuda``), pass 2, pass 3, the merge
+    (``merge_smems_cuda``); the walks' steps and rounds go into `stats`
+    after the last. On CPU tensors the plain versions."""
     dev = codes.device
     B, L = codes.shape
     M = max_out or L
@@ -635,38 +638,23 @@ def collect_smems_oh(fmi: DeviceFMIndex, codes, lens, *,
     T = reseed_factor * B
     bidx = torch.arange(B, dtype=torch.int32, device=dev)
     zi = torch.zeros((B,), dtype=torch.int32, device=dev)
-
+    # on the card the walks' counts are reduced after the last launch
+    st = (stats if stats is None or dev.type == "cpu"
+          else DeferredStats())
     p1 = one_pos_machine_cuda(fmi, codes, lens, bidx, zi, zi + 1, lens > 0,
-                              True, min_seed_len, Me, stack_depth, stats,
+                              True, min_seed_len, Me, stack_depth, st,
                               "seed_ticks_p1")
-    p1_of = p1.cnt >= Me
-    t_read, t_x, t_mi, t_valid, reseed_of = reseed_tasks(
+    t_read, t_x, t_mi, t_valid, reseed_of, first, count = reseed_tasks_cuda(
         p1, T, split_len, split_width)
     p2t = one_pos_machine_cuda(fmi, codes, lens, t_read, t_x, t_mi,
                                t_valid, False, min_seed_len, Me,
-                               stack_depth, stats, "seed_ticks_p2")
-    p2_of = torch.zeros((B + 1,), dtype=torch.int32, device=dev)
-    p2_of = p2_of.scatter_reduce(
-        0, torch.where(t_valid, t_read, B),
-        ((p2t.cnt >= Me) & t_valid).to(torch.int32), "amax")[:B] > 0
-    tmask = ((torch.arange(Me, device=dev)[None, :] < p2t.cnt[:, None])
-             & t_valid[:, None])
-    p2 = _emit_compact(tmask, p2t.m, p2t.n, p2t.k, p2t.l, p2t.s,
-                       SmemBuf.empty(B, Me, dev, fmi.pos_dtype), rows=t_read)
-
-    parts = [p1, p2]
-    pass_of = p1_of | p2_of | reseed_of
+                               stack_depth, st, "seed_ticks_p2")
+    p3 = None
     if max_mem_intv > 0:
         p3 = seed_strategy_machine_cuda(fmi, codes, lens, max_mem_intv,
-                                        min_seed_len + 1, Me, stats)
-        parts.append(p3)
-        pass_of = pass_of | (p3.cnt >= Me)
-    comb = concat_smems(*parts)
-    valid = torch.cat([torch.arange(b.m.shape[1], device=dev)[None, :]
-                       < b.cnt[:, None] for b in parts], dim=1)
-    key = torch.where(valid, (comb.m << 16) | comb.n, 1 << 30)
-    _, perm = torch.sort(key, dim=1, stable=True)
-    g = lambda a: a.gather(1, perm)
-    cnt = torch.where(pass_of, comb.m.shape[1], comb.cnt)
-    return SmemBuf(g(comb.m), g(comb.n), g(comb.k), g(comb.l), g(comb.s),
-                   cnt.to(torch.int32))
+                                        min_seed_len + 1, Me, st)
+    out = merge_smems_cuda(p1, p2t, p3, t_read, t_valid, first, count,
+                           reseed_of, True)
+    if st is not stats:
+        st.fold(stats)
+    return out

@@ -36,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from .occ import DeviceFMIndex
-from .smem import SmemBuf, concat_smems, _emit_compact, reseed_tasks
+from .smem import SmemBuf
+from .smem_cuda import merge_smems_cuda, reseed_tasks_cuda
 from .smem_oh import lockstep_one_pos, lockstep_strategy
 from .smem_rl_cuda import readlane_one_pos_cuda, readlane_strategy_cuda
 
@@ -97,37 +98,28 @@ def collect_smems_rl(fmi: DeviceFMIndex, codes, lens, *,
     strategy; then a stable per-read sort on (m << 16) | n. Equal to
     ``collect_smems_oh`` at full depth. codes [B, L] int32, lens [B]
     int32, on fmi's device; each pass through the kernel wrappers (the
-    machines here on CPU tensors)."""
+    machines here on CPU tensors), the task list and the merge through
+    the one-hot engine's (``reseed_tasks_cuda``, ``merge_smems_cuda``
+    without its pass overflow: only the task list's saturates)."""
     dev = codes.device
     B, L = codes.shape
     M = max_out or L
+    T = 2 * B
     bidx = torch.arange(B, dtype=torch.int32, device=dev)
     zi = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rows = torch.arange(T, dtype=torch.int32, device=dev)
     p1 = readlane_one_pos_cuda(fmi, codes, lens, bidx, zi, zi + 1, lens > 0,
                                True, min_seed_len, M, lanes=lanes,
                                stats=stats, stats_key="rl_ticks_p1")
-    T = 2 * B
-    t_read, t_x, t_mi, t_valid, reseed_of = reseed_tasks(
+    t_read, t_x, t_mi, t_valid, reseed_of, first, count = reseed_tasks_cuda(
         p1, T, split_len, split_width)
     p2t = readlane_one_pos_cuda(
         fmi, codes, lens, t_read, t_x, t_mi, t_valid, False, min_seed_len,
-        M, lanes=lanes, out_rows=torch.arange(T, device=dev), stats=stats,
-        stats_key="rl_ticks_p2")
-    tmask = ((torch.arange(M, device=dev)[None, :] < p2t.cnt[:, None])
-             & t_valid[:, None])
-    p2 = _emit_compact(tmask, p2t.m, p2t.n, p2t.k, p2t.l, p2t.s,
-                       SmemBuf.empty(B, M, dev, fmi.pos_dtype), rows=t_read)
-    parts = [p1, p2]
+        M, lanes=lanes, out_rows=rows, stats=stats, stats_key="rl_ticks_p2")
+    p3 = None
     if max_mem_intv > 0:
-        parts.append(readlane_strategy_cuda(
-            fmi, codes, lens, max_mem_intv, min_seed_len + 1, M,
-            lanes=lanes, stats=stats))
-    comb = concat_smems(*parts)
-    valid = torch.cat([torch.arange(b.m.shape[1], device=dev)[None, :]
-                       < b.cnt[:, None] for b in parts], dim=1)
-    key = torch.where(valid, (comb.m << 16) | comb.n, 1 << 30)
-    _, perm = torch.sort(key, dim=1, stable=True)
-    g = lambda a: a.gather(1, perm)
-    cnt = torch.where(reseed_of, comb.m.shape[1], comb.cnt)
-    return SmemBuf(g(comb.m), g(comb.n), g(comb.k), g(comb.l), g(comb.s),
-                   cnt.to(torch.int32))
+        p3 = readlane_strategy_cuda(fmi, codes, lens, max_mem_intv,
+                                    min_seed_len + 1, M, lanes=lanes,
+                                    stats=stats)
+    return merge_smems_cuda(p1, p2t, p3, t_read, t_valid, first, count,
+                            reseed_of, False)

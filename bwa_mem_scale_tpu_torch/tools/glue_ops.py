@@ -2,15 +2,24 @@
 
     python -m bwa_mem_scale_tpu_torch.tools.glue_ops [--device cpu]
 
-Runs ``collect_smems_oh`` (the one-hot engine), ``collect_smems_device``
-(the sweep, with an FMA table of K = 11) and ``collect_smems_ert`` (the
-ERT descent, K = 12, on the same genome's full-SA index) once on 512
+Runs ``collect_smems_oh`` (the one-hot engine), ``collect_smems_rl``
+(the readlane engine, 64 worker lanes), ``collect_smems_device`` (the
+sweep, with an FMA table of K = 11) and ``collect_smems_ert`` (the ERT
+descent, K = 12, on the same genome's full-SA index) once on 512
 simulated reads of 101 bp from a 1 Mbp genome with every seeding
 kernel's call replaced by the output it gave on the same inputs, under
 ``torch.profiler``, and prints the outermost aten operations each
 engine's glue issues a batch: each is one launch (or more) and a host
 dispatch on the card, so the count is what the glue costs the host. A
-count, not a time: it is the same on the CPU and on the card. Pass 3's
+count, not a time: it is the same on the CPU and on the card. The
+one-hot and readlane engines' task list and merge are the kernels of
+csrc/smem_glue.cu (``smem_cuda.reseed_tasks_cuda``,
+``merge_smems_cuda``), replayed too; beside each, its earlier glue: the
+same call with their plain versions (``smem.reseed_task_list``,
+``merge_smems_plain``, the torch operations the engines issued before
+csrc/smem_glue.cu) in their places, the walks replayed. On the card, the
+one-hot stage as the main path calls it, nothing replayed (the wrappers'
+allocations). Pass 3's
 merged stage (``smems_seed_strategy_merged``) is one launch on the card,
 so the sweep and the ERT replay it whole; so are the sweep's passes 1
 and 2 (``sweep_cuda.sweep_pass_cuda``: the extension and its emission
@@ -33,6 +42,7 @@ version with its walk.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import types
 
 import torch
@@ -66,6 +76,20 @@ def _replayed(targets, fn):
 
     with_swaps(record)
     return lambda: with_swaps(replay)
+
+
+@contextlib.contextmanager
+def _plain_glue(mod):
+    """mod's task list and merge wrappers replaced by their plain
+    versions, the engines' glue before csrc/smem_glue.cu."""
+    from ..ops.smem import merge_smems_plain, reseed_task_list
+    real = (mod.reseed_tasks_cuda, mod.merge_smems_cuda)
+    mod.reseed_tasks_cuda, mod.merge_smems_cuda = (reseed_task_list,
+                                                   merge_smems_plain)
+    try:
+        yield
+    finally:
+        mod.reseed_tasks_cuda, mod.merge_smems_cuda = real
 
 
 def merged_call(mod, run):
@@ -105,7 +129,7 @@ def main(argv=None) -> int:
     from ..index.build import build_index
     from ..models.aligner import demo_genome, simulate_reads
     from ..index.ert import build_ert
-    from ..ops import ert, ert_cuda, sal, smem, smem_oh, sweep_cuda
+    from ..ops import ert, ert_cuda, sal, smem, smem_oh, smem_rl, sweep_cuda
     from ..ops.fma import build_fma_table
     from ..ops.occ import DeviceFMIndex
     dev = resolve_device(args.device)
@@ -122,11 +146,21 @@ def main(argv=None) -> int:
     dert = ert.DeviceErt.from_host(build_ert(full.ref_string,
                                              full.sa_samples),
                                    full.sa_samples, full.count, dev)
-    onehot = _replayed(
-        [(smem_oh, "one_pos_machine_cuda"),
-         (smem_oh, "seed_strategy_machine_cuda")],
-        lambda: smem_oh.collect_smems_oh(fmi, c, ln, emit_depth=24,
-                                         stack_depth=24, **kw))
+    glue = ["reseed_tasks_cuda", "merge_smems_cuda"]
+    run_oh = lambda: smem_oh.collect_smems_oh(fmi, c, ln, emit_depth=24,
+                                              stack_depth=24, **kw)
+    run_rl = lambda: smem_rl.collect_smems_rl(fmi, c, ln, lanes=64, **kw)
+    walks = {smem_oh: ["one_pos_machine_cuda", "seed_strategy_machine_cuda"],
+             smem_rl: ["readlane_one_pos_cuda", "readlane_strategy_cuda"]}
+    counts = {}
+    for mod, run in ((smem_oh, run_oh), (smem_rl, run_rl)):
+        now = outer_ops(_replayed([(mod, n) for n in walks[mod] + glue],
+                                  run))
+        with _plain_glue(mod):
+            earlier = outer_ops(_replayed([(mod, n) for n in walks[mod]],
+                                          run))
+        counts[mod] = (earlier, now)
+    onehot, readlane = counts[smem_oh], counts[smem_rl]
     sweep = _replayed(
         [(sweep_cuda, "sweep_pass_cuda"),
          (smem, "smems_seed_strategy_merged")],
@@ -139,8 +173,16 @@ def main(argv=None) -> int:
                                       seq_len=2 * fmi.l_pac, **kw))
     print(f"glue operations a batch (B=512, L=101, outermost aten ops, the "
           f"kernels' calls and the merged stage replayed): one-hot "
-          f"{outer_ops(onehot)}, sweep {outer_ops(sweep)}, ERT "
+          f"{onehot[1]} (the earlier glue {onehot[0]}), readlane "
+          f"{readlane[1]} ({readlane[0]}), sweep {outer_ops(sweep)}, ERT "
           f"{outer_ops(trie)}")
+    if dev.type == "cuda":
+        names = set()
+        n = outer_ops(run_oh, names)
+        print(f"one-hot stage operations a batch as the main path calls it "
+              f"(collect_smems_oh, nothing replayed: five launches, the "
+              f"rest the wrappers' allocations): {n} "
+              f"({', '.join(sorted(names))})")
     a, k = merged_call(smem, lambda: smem.collect_smems_device(
         fmi, c, ln, fma=table, **kw))
     real = smem.smems_seed_strategy_merged

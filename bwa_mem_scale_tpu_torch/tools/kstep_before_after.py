@@ -143,10 +143,11 @@ print(json.dumps({"wall": wall, "index_load": load,
 MEM_READS, MEM_LEN, MEM_BATCH = 10_000, 101, 512
 
 
-def mem_inputs(root: str) -> tuple[dict, str]:
+def mem_inputs(root: str,
+               tables=("none", "K=2", "K=3")) -> tuple[dict, str]:
     """chip_smoke.py phase 4's genome and reads under `root`, indexed by
-    this checkout's CLI: ({table: prefix} for "none", "K=2", "K=3"; the
-    FASTQ)."""
+    this checkout's CLI: ({table: prefix} for each of `tables` ("none",
+    "K=2", "K=3"); the FASTQ)."""
     from ..index.bntseq import decode_bases
     from ..models.aligner import demo_genome, simulate_reads_with_truth
     os.makedirs(root, exist_ok=True)
@@ -168,7 +169,7 @@ def mem_inputs(root: str) -> tuple[dict, str]:
                  ["perfect-index", g, "-l", str(MEM_LEN)]):
         if cli.main(argv) != 0:
             raise SystemExit(f"cli {argv[0]} failed")
-    for K in (2, 3):
+    for K in (K for K in (2, 3) if f"K={K}" in tables):
         p = prefixes[f"K={K}"] = os.path.join(root, f"k{K}")
         for ext in (".tpuidx.npz", f".emf{MEM_LEN}.npz"):
             if not os.path.exists(p + ext):
@@ -183,10 +184,12 @@ def sam_body(path: str) -> str:
         return "".join(ln for ln in f if not ln.startswith("@"))
 
 
-def mem_turns(before: str, runs: int, card: str) -> None:
-    """SE `mem` with each table, each checkout RUNS times, in turns."""
+def mem_turns(before: str, runs: int, card: str,
+              tables=("none", "K=2", "K=3")) -> None:
+    """SE `mem` with each of `tables`, each checkout RUNS times, in
+    turns."""
     root = os.path.join(nvcc_build.REPO, "build", "kstep_mem")
-    prefixes, fq = mem_inputs(root)
+    prefixes, fq = mem_inputs(root, tables)
     homes = {"before": os.path.abspath(before), "after": nvcc_build.REPO}
     got, want = {}, None
     for r in range(runs):

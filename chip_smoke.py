@@ -13,13 +13,14 @@ Phases, in order; any failure exits non-zero:
               seed-SW scorer), csrc/emf.cu (the EMF probe), csrc/ert.cu
               (the ERT descent), csrc/readlane.cu (the readlane
               engine), csrc/kswg.cu (the CIGAR DP), csrc/kswa.cu (the
-              rescue SW), csrc/sal.cu (the SA lookup stage) and
-              csrc/round_probe.cu (a warp's dependent round) from
-              source, one nvcc each, all at once; prints ptxas's
-              registers and spills for each FM walk, sweep, ERT, chaining,
-              seed-SW and BSW kernel (for the BSW kernel one line an instantiation,
-              failing on a spill at K = 4 or 5 columns a lane) and the
-              measured cost of a round.
+              rescue SW), csrc/sal.cu (the SA lookup stage),
+              csrc/smem_glue.cu (the one-hot seeding stage's task list
+              and merge) and csrc/round_probe.cu (a warp's dependent
+              round) from source, one nvcc each, all at once; prints
+              ptxas's registers and spills for each FM walk, glue, sweep,
+              ERT, chaining, seed-SW and BSW kernel (for the BSW kernel
+              one line an instantiation, failing on a spill at K = 4 or
+              5 columns a lane) and the measured cost of a round.
   3. kernel:  the CUDA kernel against the plain PyTorch BSW on the card
               at main-path shapes (4096 pairs, query 101, target 309,
               band 100 and 200), all six outputs bit-equal; the live
@@ -34,26 +35,35 @@ Phases, in order; any failure exits non-zero:
               primaries of reads the EMF table did not resolve within
               5 bp of the true position and strand, the BSW kernel
               launched, the SMEM passes 1-2 kernel at least twice a
-              device batch and the pass-3, SA lookup stage (csrc/sal.cu)
-              and both chaining kernels at least once a batch, the bare
-              SA walk (sa_walk_kernel) never; reads/s, and per-stage
-              seconds (the chain stage among them) from a second
-              `mem -v 4` run with synchronised stage timers.
+              device batch and the pass-3, both glue (csrc/smem_glue.cu),
+              SA lookup stage (csrc/sal.cu) and both chaining kernels at
+              least once a batch, the bare SA walk (sa_walk_kernel)
+              never; reads/s, and per-stage seconds (the chain stage
+              among them) from a second `mem -v 4` run with synchronised
+              stage timers.
   5. slice:   seed_chain_extend on one batch of phase 4 with the kernels
               and with the plain BSW, with the plain SMEM passes 1 and
-              2, with the plain pass 3 and SA lookup, and with the plain
-              chaining: packed and meta equal; collect_smems_oh with the
-              kernels and with the
-              plain passes at the three retry-tier depths (24, 48, the
-              read length): SmemBuf equal; the four BSW calls of the
+              2, with the plain seeding glue, with the plain pass 3 and
+              SA lookup, and with the plain chaining: packed and meta
+              equal; collect_smems_oh with the kernels and with the
+              plain passes and glue at the three retry-tier depths (24,
+              48, the read length; reseed factors 2, 8, 256): SmemBuf
+              equal; the batch's two glue launches (the task list, the
+              merge; csrc/smem_glue.cu), as made and at each tier and on
+              the repeat batch, each equal to its plain version with its
+              bound (the bytes it moves, each input once: glue_work),
+              launch floor (the kernel on the first read alone) and
+              device time; the four BSW calls of the
               batch captured, each with its live pairs, rows, cells,
               bound, the kernel's device time and the wrapper's wall
               time; the batch's two SMEM passes 1-2 launches, its pass-3
               launch and its SA lookup stage call, as made, each equal to
               its
               plain version (per-lane steps too, where the plain version
-              counts them), with its steps, bound (from the steps),
-              rounds (passes 1-2: the dependent occ round trips of each
+              counts them), with its steps, bound (passes 1-3: the
+              distinct 32-byte rows their twins count, the twins' steps
+              and rounds equal to the launch's; 64 bytes a step on the
+              repeat batch and at int64), rounds (passes 1-2: the dependent occ round trips of each
               task; a pass-3 or SA-walk step is one; the stage's five
               arrays, every slot, and its steps equal to the plain
               version's, the bare walk held and timed on the plain
@@ -103,9 +113,9 @@ Phases, in order; any failure exits non-zero:
               phase 4's; phase 5's batch and the repeat batch through
               seed_chain_extend at the int64 layout (packed and meta equal
               to the int32 layout's at the same depth), each int64 launch
-              as made against its plain version (max_abs_err 0) with its
-              bound and latency floor, and timed beside the int32 form on
-              the same inputs; the SA lookup stage on samples + 2^33,
+              (the glue's two included) as made against its plain
+              version (max_abs_err 0) with its bound and latency floor,
+              and timed beside the int32 form on the same inputs; the SA lookup stage on samples + 2^33,
               pass 3 on a table whose counts are + 2^32, passes 1-3
               (one-hot and readlane) and the SA lookup stage with a
               non-empty high-word step table,
@@ -248,13 +258,18 @@ Phases, in order; any failure exits non-zero:
               it reads below the trip over the 1-step table by more than
               the turns' spread and 5%;
               the sweep adds one HBM trip for its start) and device ms
-              beside the K = 1 form's.
+              (the K = 1 form's time beside it is
+              tools/kstep_before_after.py's); the tiers' glue launches
+              held as phase 5's.
  14. readlane: the readlane engine (csrc/readlane.cu): SE `mem
               --seed-engine readlane` (SAM byte-equal to phase 4's), its
               `-v 4` table, PE, the forced int64 layout and the k-step
               tables, then each form at each pool against the plain
               machines (and at K = 1 its total ticks against the twins'),
-              with its latency floor from the longest lane's rounds.
+              with its latency floor from the longest lane's rounds; the
+              SmemBuf at each pool equal to the same call with the plain
+              glue (the task list and merge kernels are the one-hot
+              engine's).
  15. mesh:    several devices and hosts, and the device DP loops: (a)
               2,048 of phase 4's reads through align_and_finalize (the
               device EMF probe sharded), 512 of phase 7's pairs through
@@ -292,7 +307,7 @@ Phases, in order; any failure exits non-zero:
               exactly when _KSWG is set; reads/s beside the native run's
               and the SAM lines that differ from it.
 
-Prints the kernel JSON line (all forty kernels, each with its bound: the
+Prints the kernel JSON line (all forty-four kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -544,7 +559,9 @@ def main_path_wrappers():
             "sa_walk": smem_cuda.sa_walk_cuda,
             "chain_seeds": chain_cuda.chain_seeds_cuda,
             "chain_filter": chain_cuda.chain_filter_cuda,
-            "ksw_global_batch": kswg_cuda.ksw_global_batch_cuda}
+            "ksw_global_batch": kswg_cuda.ksw_global_batch_cuda,
+            "reseed_tasks": smem_cuda.reseed_tasks_cuda,
+            "merge_smems": smem_cuda.merge_smems_cuda}
 
 
 def phase_mem(dev, card, tmp):
@@ -592,7 +609,8 @@ def phase_mem(dev, card, tmp):
                          f"{al.batches} device batches, fewer than two a "
                          f"batch")
     for name in ("seed_strategy_machine", "expand_and_lookup",
-                 "chain_seeds", "chain_filter"):
+                 "chain_seeds", "chain_filter", "reseed_tasks",
+                 "merge_smems"):
         if launches[name] < al.batches:
             raise SystemExit(f"mem: the {name} kernel launched "
                              f"{launches[name]} times over {al.batches} "
@@ -613,8 +631,8 @@ def phase_mem(dev, card, tmp):
     al4 = cli.mem(mem_argv + ["-v", "4"])
     sec = al4.prof.seconds
     log(f"[mem -v 4] synchronised stage seconds over {al4.batches} batches:"
-        f" seed {sec['seed']:.3f}, sal {sec['sal']:.3f}, chain "
-        f"{sec['chain']:.3f}, bsw {sec['bsw']:.3f}  [{card}]")
+        f" seed {sec['seed']:.4f}, sal {sec['sal']:.4f}, chain "
+        f"{sec['chain']:.4f}, bsw {sec['bsw']:.4f}  [{card}]")
     first = np.flatnonzero(~emf_hit)[:BATCH]
     se = dict(argv=mem_argv, wall=wall, batches=al.batches, seconds=dict(sec),
               index_load=index_load, emf_hits=al.emf_hits, codes=codes,
@@ -636,7 +654,9 @@ def phase_slice(dev, card, al, codes, lens):
                 smem_oh.seed_strategy_machine_cuda,
             (sal, "expand_and_lookup_cuda"): sal.expand_and_lookup_cuda,
             (align, "chain_seeds_cuda"): align.chain_seeds_cuda,
-            (align, "chain_filter_cuda"): align.chain_filter_cuda}
+            (align, "chain_filter_cuda"): align.chain_filter_cuda,
+            (smem_oh, "reseed_tasks_cuda"): smem_oh.reseed_tasks_cuda,
+            (smem_oh, "merge_smems_cuda"): smem_oh.merge_smems_cuda}
     calls = {name: [] for _, name in real}
 
     def recorder(name, fn):            # the batch's calls, as made
@@ -645,11 +665,14 @@ def phase_slice(dev, card, al, codes, lens):
             return fn(*args, **kw)
         return record
 
-    _, k12, k3, kwalk, kseeds, kflt = real    # its keys, in order
+    _, k12, k3, kwalk, kseeds, kflt, kts, kmerge = real  # its keys, in order
+    plain = glue_plain()
     runs = (("auto", "auto", {k: recorder(k[1], fn)
                               for k, fn in real.items()}),
             ("plain", "plain", {}),
             ("plain_seed", "auto", {k12: smem_oh.one_pos_machine}),
+            ("plain_glue", "auto", {kts: plain["reseed_tasks_cuda"],
+                                    kmerge: plain["merge_smems_cuda"]}),
             ("plain_walks", "auto", {k3: smem_oh.seed_strategy_machine,
                                      kwalk: sal.expand_and_lookup_plain}),
             ("plain_chain", "auto", {kseeds: chain.chain_seeds_device,
@@ -670,6 +693,7 @@ def phase_slice(dev, card, al, codes, lens):
                 setattr(mod, name, fn)
         outs[run] = (out, time.perf_counter() - t0)
     for run, what in (("plain", "BSW"), ("plain_seed", "SMEM passes 1-2"),
+                      ("plain_glue", "seeding glue"),
                       ("plain_walks", "pass 3 and SA lookup"),
                       ("plain_chain", "chaining")):
         for key in ("packed", "meta"):
@@ -679,11 +703,12 @@ def phase_slice(dev, card, al, codes, lens):
     n_valid = int(outs["auto"][0]["valid"].sum())
     log(f"[slice] seed_chain_extend on {len(codes)} reads ({n_valid} "
         f"pairs): packed and meta equal with the kernels and with the "
-        f"plain BSW, the plain SMEM passes 1-2, the plain pass 3 and SA "
-        f"lookup, and the plain chaining; whole call "
+        f"plain BSW, the plain SMEM passes 1-2, the plain seeding glue, the "
+        f"plain pass 3 and SA lookup, and the plain chaining; whole call "
         f"{outs['auto'][1]:.3f} s"
         f" with the kernels, {outs['plain'][1]:.3f} s with the plain BSW, "
         f"{outs['plain_seed'][1]:.3f} s with the plain SMEM passes 1-2, "
+        f"{outs['plain_glue'][1]:.3f} s with the plain seeding glue, "
         f"{outs['plain_walks'][1]:.3f} s with the plain pass 3 and SA "
         f"lookup, {outs['plain_chain'][1]:.3f} s with the plain chaining  "
         f"[{card}]")
@@ -708,20 +733,25 @@ def phase_slice(dev, card, al, codes, lens):
                        ("seed_strategy_machine_cuda", 1),
                        ("expand_and_lookup_cuda", 1),
                        ("chain_seeds_cuda", 1),
-                       ("chain_filter_cuda", 1)):
+                       ("chain_filter_cuda", 1),
+                       ("reseed_tasks_cuda", 1), ("merge_smems_cuda", 1)):
         if len(calls[name]) != want:
             raise SystemExit(f"slice: {len(calls[name])} {name} launches, "
                              f"expected {want}")
-    smem = [smem_launch(dev, card, n, args)
+    smem = [smem_launch(dev, card, n, args, twin=True)
             for n, (args, _) in enumerate(calls["one_pos_machine_cuda"])]
     p3 = seed_strategy_launch(dev, card,
-                              calls["seed_strategy_machine_cuda"][0][0])
+                              calls["seed_strategy_machine_cuda"][0][0],
+                              twin=True)
     walk = sal_stage_launch(dev, card, *calls["expand_and_lookup_cuda"][0])
     seeds = chain_seeds_launch(dev, card, *calls["chain_seeds_cuda"][0])
     flt = chain_filter_launch(dev, card, *calls["chain_filter_cuda"][0])
+    glue = {name: glue_launch(dev, card, "phase 5's batch, as made", attr,
+                              calls[attr][0][0])
+            for name, attr, _ in GLUE_KERNELS}
     smem_tiers(dev, card, al, c, ln)
     repeat_slice(dev, card, al)
-    return path, smem, p3, walk, seeds, flt
+    return path, smem, p3, walk, seeds, flt, glue
 
 
 def walk_launch(dev, what, kernel, plain, args, plain_reps, kw=None):
@@ -781,13 +811,33 @@ def log_walk(card, what, r, detail, tag="slice"):
         f"{r['plain_ms']:.2f} ms  [{card}]")
 
 
-def smem_launch(dev, card, n, args, batch="the batch"):
+def twin_rows(kernel, twin, args) -> int:
+    """The distinct 32-byte checkpoint rows a K = 1 launch's walks read:
+    the kernel's twin (ops/smem_cuda.py) on the launch's host inputs, its
+    per-lane steps (and rounds, where it counts them) equal to the
+    launch's (kernel.last_steps / last_rounds), or SystemExit."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import smem_cuda
+    steps = kernel.last_steps.cpu().numpy()
+    rounds = kernel.last_rounds.cpu().numpy()
+    host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+            for a in args[1:]]
+    tw = twin(*smem_cuda.twin_tables(args[0])[:3], *host)
+    if not (np.array_equal(tw[6], steps) and np.array_equal(tw[7], rounds)):
+        raise SystemExit(f"slice: {twin.__name__}'s steps or rounds differ "
+                         f"from the launch's")
+    return len(twin.last_reads)
+
+
+def smem_launch(dev, card, n, args, batch="the batch", twin=False):
     """One SMEM passes 1-2 launch against the plain machine, with its
-    bound: the inputs, 64 bytes and 45 operations a step, the outputs (m
-    and n 4 bytes, k, l and s the positions' 4 or 8; not the per-lane
-    steps and rounds, which only instrument the run); its latency floor
-    from the longest task's rounds."""
-    from bwa_mem_scale_tpu_torch.ops.smem_cuda import one_pos_machine_cuda
+    bound: the inputs, the outputs (m and n 4 bytes, k, l and s the
+    positions' 4 or 8; not the per-lane steps and rounds, which only
+    instrument the run), 45 operations a step and, with `twin`, the
+    distinct 32-byte rows its twin reads (twin_rows), else 64 bytes a
+    step; its latency floor from the longest task's rounds."""
+    from bwa_mem_scale_tpu_torch.ops.smem_cuda import (one_pos_machine_cuda,
+                                                       one_pos_twin)
     from bwa_mem_scale_tpu_torch.ops.smem_oh import one_pos_machine
     args = args[:11]                           # without stats
     what = f"smem launch {n + 1}/2, {batch}"
@@ -796,24 +846,31 @@ def smem_launch(dev, card, n, args, batch="the batch"):
     codes, T, M = args[1], args[3].shape[0], args[9]
     pb = args[0].pos_dtype.itemsize
     nbytes = (4 * (codes.numel() + codes.shape[0] + 3 * T) + T
-              + SMEM_BYTES_PER_STEP * r["steps"] + (8 + 3 * pb) * T * M
-              + 4 * T)
+              + (8 + 3 * pb) * T * M + 4 * T)
+    reads = f"{r['steps']} steps"
+    if twin:
+        r["rows"] = twin_rows(one_pos_machine_cuda, one_pos_twin, args)
+        nbytes += 32 * r["rows"]
+        reads += (f", {r['rows']} distinct 32-byte rows (the twin, its "
+                  f"steps and rounds equal)")
+    else:
+        nbytes += SMEM_BYTES_PER_STEP * r["steps"]
     r["bound"] = bound(nbytes, SMEM_OPS_PER_STEP * r["steps"])
     log_walk(card, f"{what} (pass {n + 1}: T={T}, {int(args[6].sum())} "
              f"valid tasks, B={codes.shape[0]}, L={codes.shape[1]}, "
-             f"max_out={M}, stack depth {args[10]})", r,
-             f"{r['steps']} steps")
+             f"max_out={M}, stack depth {args[10]})", r, reads)
     return r
 
 
-def seed_strategy_launch(dev, card, args, batch="the batch"):
+def seed_strategy_launch(dev, card, args, batch="the batch", twin=False):
     """A pass-3 launch against the plain machine, with its bound: the
-    inputs, 64 bytes and 45 operations a step (the same occ step as
-    passes 1-2), the outputs (k, l and s at the positions' width; not the
-    per-lane steps); one ext an iteration, so its rounds are its
+    inputs, the outputs (k, l and s at the positions' width; not the
+    per-lane steps), 45 operations a step (the same occ step as passes
+    1-2) and, with `twin`, the distinct 32-byte rows its twin reads, else
+    64 bytes a step; one ext an iteration, so its rounds are its
     steps."""
     from bwa_mem_scale_tpu_torch.ops.smem_cuda import (
-        seed_strategy_machine_cuda)
+        seed_strategy_machine_cuda, seed_strategy_twin)
     from bwa_mem_scale_tpu_torch.ops.smem_oh import seed_strategy_machine
     args = args[:6]                            # without stats
     what = f"pass-3 launch, {batch}"
@@ -822,12 +879,18 @@ def seed_strategy_launch(dev, card, args, batch="the batch"):
     codes, M = args[1], args[5]
     B = codes.shape[0]
     pb = args[0].pos_dtype.itemsize
-    nbytes = (4 * (codes.numel() + B) + SMEM_BYTES_PER_STEP * r["steps"]
-              + (8 + 3 * pb) * B * M + 4 * B)
+    nbytes = 4 * (codes.numel() + B) + (8 + 3 * pb) * B * M + 4 * B
+    reads = f"{int(got.cnt.sum())} seeds, {r['steps']} steps (rounds)"
+    if twin:
+        r["rows"] = twin_rows(seed_strategy_machine_cuda, seed_strategy_twin,
+                              args)
+        nbytes += 32 * r["rows"]
+        reads += f", {r['rows']} distinct 32-byte rows (the twin)"
+    else:
+        nbytes += SMEM_BYTES_PER_STEP * r["steps"]
     r["bound"] = bound(nbytes, SMEM_OPS_PER_STEP * r["steps"])
     log_walk(card, f"{what} (B={B}, L={codes.shape[1]}, max_intv="
-             f"{args[3]}, min_seed_len={args[4]}, max_out={M})", r,
-             f"{int(got.cnt.sum())} seeds, {r['steps']} steps (rounds)")
+             f"{args[3]}, min_seed_len={args[4]}, max_out={M})", r, reads)
     return r
 
 
@@ -1105,6 +1168,7 @@ def repeat_slice(dev, card, al):
                                batch="repeat batch")
     flt = chain_filter_launch(dev, card, *calls["chain_filter_cuda"][0],
                               batch="repeat batch")
+    tier_against_plain(fmi, c, ln, al.opt, 24, 2, dev, card, "repeat batch")
     (ch, *rest), kw = calls["chain_filter_cuda"][0]
     kw = dict(kw, stats=None, min_chain_weight=20, mask_level=0.3,
               drop_ratio=0.3, max_chain_extend=2)
@@ -1129,47 +1193,205 @@ def repeat_slice(dev, card, al):
     return smem, p3, seeds, flt
 
 
-def tier_against_plain(fmi, c, ln, opt, depth, rf):
+# the one-hot stage's glue kernels (csrc/smem_glue.cu): the name in the
+# JSON line, the wrapper's name in ops/smem_cuda.py, the JAX glue each
+# replaces
+GLUE_KERNELS = (
+    ("reseed_tasks", "reseed_tasks_cuda",
+     "bwa_mem_scale_tpu/ops/smem_oh.py:772"),
+    ("merge_smems", "merge_smems_cuda",
+     "bwa_mem_scale_tpu/ops/smem_oh.py:794"))
+# each glue kernel's largest max_abs_err over every launch held
+GLUE_ERR = {name: 0.0 for name, _, _ in GLUE_KERNELS}
+
+
+def glue_plain():
+    """{glue wrapper's name: its plain version (the same signature)}."""
+    from bwa_mem_scale_tpu_torch.ops.smem import (merge_smems_plain,
+                                                  reseed_task_list)
+    return {"reseed_tasks_cuda": reseed_task_list,
+            "merge_smems_cuda": merge_smems_plain}
+
+
+def glue_calls(run, mods):
+    """run() with the glue wrappers recorded where each module of `mods`
+    calls them: (run's result, [(wrapper's name, args, output)] in call
+    order)."""
+    from bwa_mem_scale_tpu_torch.ops import smem_cuda
+    real = {attr: getattr(smem_cuda, attr) for _, attr, _ in GLUE_KERNELS}
+    made = []
+
+    def recorder(attr):
+        def record(*args):
+            out = real[attr](*args)
+            made.append((attr, args, out))
+            return out
+        return record
+    saved = [(mod, attr, getattr(mod, attr)) for mod in mods for attr in real]
+    for mod, attr, _ in saved:
+        setattr(mod, attr, recorder(attr))
+    try:
+        result = run()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return result, made
+
+
+@contextlib.contextmanager
+def plain_glue(mod):
+    """mod's glue wrappers replaced by their plain versions."""
+    saved = {attr: getattr(mod, attr) for attr in glue_plain()}
+    for attr, fn in glue_plain().items():
+        setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        for attr, fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+def glue_work(attr, args):
+    """(bytes, integer operations) the glue function needs on these
+    inputs, each input read once and each output written once. The task
+    list: each read's count and its live slots' m, n and s; the tasks
+    (three int32 and a flag) and each read's flag, first task and count;
+    8 operations a live slot (the candidate tests, the midpoint) and 24 a
+    read (its share of the scans). The merge: pass 1's and pass 3's whole
+    rows and counts (every slot is copied), pass 2's kept entries and its
+    valid tasks' counts, the spans and flags, the output rows and counts;
+    3 operations a comparison of the rank (V^2 for V valid entries) and 4
+    a slot written."""
+    import torch
+    if attr == "reseed_tasks_cuda":
+        p1, T = args[:2]
+        B, M = p1.m.shape
+        live = int(p1.cnt.clamp(0, M).sum())
+        return (4 * B + (8 + p1.s.element_size()) * live + 13 * T + 9 * B,
+                8 * live + 24 * B)
+    p1, p2t, p3, t_read, t_valid, _, _, _, _ = args
+    B, M = p1.m.shape
+    parts = 2 if p3 is None else 3
+    slot = 8 + 3 * p1.k.element_size()
+    c2 = torch.zeros((B,), dtype=torch.int64, device=p1.m.device)
+    c2 = c2.index_add_(0, t_read.long()[t_valid],
+                       p2t.cnt.clamp(0, M)[t_valid].long()).clamp(max=M)
+    v = p1.cnt.clamp(0, M) + c2
+    if p3 is not None:
+        v = v + p3.cnt.clamp(0, M)
+    nbytes = ((parts - 1) * (slot * B * M + 4 * B) + slot * int(c2.sum())
+              + 4 * int(t_valid.sum()) + 9 * B + slot * B * parts * M
+              + 4 * B)
+    return nbytes, int((3 * v.long() ** 2).sum()) + 4 * B * parts * M
+
+
+def glue_launch(dev, card, what, attr, args, got=None):
+    """One glue launch as made (`got` its output; None: launched here)
+    against its plain version on the same inputs: every output equal
+    (max_abs_err 0; the task list's int32 fields against the plain
+    version's int64 read and position-typed minimum interval), with its
+    bound (glue_work), its launch floor (the same kernel on the batch's
+    first read alone: a launch and one read's work, measured), its device
+    time (mean of 2, around the plain version's) and the plain version's
+    time. Returns the numbers."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import smem_cuda
+    from bwa_mem_scale_tpu_torch.ops.smem import SmemBuf
+    kernel, plain = getattr(smem_cuda, attr), glue_plain()[attr]
+    if got is None:
+        got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want))
+    err = max(float((a.double() - b.double()).abs().max()) if a.numel()
+              else 0.0 for a, b in pairs)
+    if err or not all(torch.equal(a.to(b.dtype), b) for a, b in pairs):
+        raise SystemExit(f"glue: {what}: {attr} != plain (max_abs_err "
+                         f"{err})")
+    name = next(n for n, a, _ in GLUE_KERNELS if a == attr)
+    GLUE_ERR[name] = max(GLUE_ERR[name], err)
+    head = lambda b: SmemBuf(*(f[:1] for f in b))
+    if attr == "reseed_tasks_cuda":
+        one = (head(args[0]), 2, *args[2:])
+    else:
+        p1, p2t, p3, t_read, t_valid, first, count, of, pass_of = args
+        n = int(count[0])                  # the first read's tasks: 0 .. n-1
+        one = (head(p1), SmemBuf(*(f[:n] for f in p2t)),
+               None if p3 is None else head(p3), t_read[:n], t_valid[:n],
+               first[:1], count[:1], of[:1], pass_of)
+    ms = [device_ms(lambda: kernel(*args), 20, dev)]
+    plain_ms = time_ms(lambda: plain(*args), 2, dev)
+    ms.append(device_ms(lambda: kernel(*args), 20, dev))
+    floor = device_ms(lambda: kernel(*one), 20, dev)
+    nbytes, ops = glue_work(attr, args)
+    r = dict(err=err, ms=sum(ms) / 2, plain_ms=plain_ms, floor=floor,
+             bound=bound(nbytes, ops), bytes=nbytes, ops=ops)
+    B, M = args[0].m.shape
+    log(f"[glue] {what}, {name} (B={B}, M={M}"
+        + (f", T={args[1]}" if name == "reseed_tasks" else
+           f", W={got.m.shape[1]}, pass overflow {bool(args[8])}")
+        + f"): equal to the plain version (max_abs_err {err}); bound "
+        f"{r['bound'][0]:.6f} ms by {r['bound'][1]} ({nbytes} bytes, {ops} "
+        f"operations), launch floor {floor:.5f} ms (the first read alone); "
+        f"kernel device time {r['ms']:.5f} ms (mean of 2), plain "
+        f"{plain_ms:.3f} ms  [{card}]")
+    return r
+
+
+def tier_against_plain(fmi, c, ln, opt, depth, rf, dev, card, batch):
     """collect_smems_oh at a retry tier's depth (24, 48 or None) and
-    reseed factor with the kernels and with the plain passes 1-2 and 3
-    swapped in: the kernels' SmemBuf, equal to the plain one, or
-    SystemExit."""
+    reseed factor with the kernels and with the plain passes 1-3 and the
+    plain glue swapped in: the kernels' SmemBuf equal to the plain one,
+    the task list and the merge launched once each, each held as made
+    against its plain version (glue_launch). Returns (the SmemBuf,
+    {glue wrapper's name: numbers}), or SystemExit."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import smem_oh
     tier = dict(min_seed_len=opt.min_seed_len, split_len=opt.split_len,
                 split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
                 emit_depth=depth, stack_depth=depth, reseed_factor=rf)
-    real = (smem_oh.one_pos_machine_cuda, smem_oh.seed_strategy_machine_cuda)
-    got = smem_oh.collect_smems_oh(fmi, c, ln, **tier)
-    smem_oh.one_pos_machine_cuda = smem_oh.one_pos_machine
-    smem_oh.seed_strategy_machine_cuda = smem_oh.seed_strategy_machine
+    got, made = glue_calls(
+        lambda: smem_oh.collect_smems_oh(fmi, c, ln, **tier), [smem_oh])
+    plain = {"one_pos_machine_cuda": smem_oh.one_pos_machine,
+             "seed_strategy_machine_cuda": smem_oh.seed_strategy_machine,
+             **glue_plain()}
+    real = {n: getattr(smem_oh, n) for n in plain}
+    for n, fn in plain.items():
+        setattr(smem_oh, n, fn)
     try:
         want = smem_oh.collect_smems_oh(fmi, c, ln, **tier)
     finally:
-        (smem_oh.one_pos_machine_cuda,
-         smem_oh.seed_strategy_machine_cuda) = real
+        for n, fn in real.items():
+            setattr(smem_oh, n, fn)
     torch.cuda.synchronize()
     bad = [f for f, a, b in zip(got._fields, got, want)
            if not torch.equal(a, b)]
     if bad:
         raise SystemExit(f"slice: collect_smems_oh at depth {depth} "
                          f"differs kernels vs plain: {bad}")
-    return got
+    if [a for a, _, _ in made] != ["reseed_tasks_cuda", "merge_smems_cuda"]:
+        raise SystemExit(f"slice: collect_smems_oh at depth {depth} made "
+                         f"the glue launches {[a for a, _, _ in made]}")
+    return got, {attr: glue_launch(dev, card, f"{batch}, depth {depth}, "
+                                   f"reseed factor {rf}", attr, args, out)
+                 for attr, args, out in made}
 
 
 def smem_tiers(dev, card, al, c, ln):
     """collect_smems_oh at the retry tiers' depths with the kernels and
-    with the plain passes 1-2 and 3 swapped in: SmemBuf equal; on each
-    tier's SMEMs the SA lookup stage at the tier's coordinate capacity
-    (512, 1,024, 16,384) against its plain version (sal_stage_launch).
-    Then the whole collection of the batch timed with the kernels."""
+    with the plain passes 1-3 and glue swapped in: SmemBuf equal, each
+    glue launch held; on each tier's SMEMs the SA lookup stage at the
+    tier's coordinate capacity (512, 1,024, 16,384) against its plain
+    version (sal_stage_launch). Then the whole collection of the batch
+    timed with the kernels."""
     from bwa_mem_scale_tpu_torch.ops import smem_oh
     opt = al.opt
     for depth, rf, coords in ((24, 2, 512), (48, 8, 1024),
                               (None, 256, 16384)):
-        got = tier_against_plain(al.fmi, c, ln, opt, depth, rf)
+        got, _ = tier_against_plain(al.fmi, c, ln, opt, depth, rf, dev,
+                                    card, "phase 5's batch")
         log(f"[slice] collect_smems_oh at depth {depth}, reseed factor "
-            f"{rf}: SmemBuf equal kernels vs plain passes 1-2 and 3 "
+            f"{rf}: SmemBuf equal kernels vs plain passes 1-3 and glue "
             f"({int(got.cnt.clamp(max=got.m.shape[1]).sum())} SMEMs)")
         sal_stage_launch(dev, card, (al.fmi, got, opt.max_occ, coords), {},
                          batch=f"the batch at the tier of depth {depth}")
@@ -1280,7 +1502,8 @@ def phase_pe(dev, card, tmp):
     if launches["banded_swa_batch"] <= 0:
         raise SystemExit("pe: the BSW kernel was never launched")
     for name in ("one_pos_machine", "seed_strategy_machine",
-                 "expand_and_lookup", "chain_seeds", "chain_filter"):
+                 "expand_and_lookup", "chain_seeds", "chain_filter",
+                 "reseed_tasks", "merge_smems"):
         if launches[name] < al.batches:
             raise SystemExit(f"pe: the {name} kernel launched "
                              f"{launches[name]} times over {al.batches} "
@@ -1320,7 +1543,11 @@ INT64_FORMS = (
      "bwa_mem_scale_tpu/ops/smem_oh.py:619"),
     ("expand_and_lookup", "csrc/sal.cu", "bwa_mem_scale_tpu/ops/sal.py:23"),
     ("chain_seeds", "csrc/chain.cu", "bwa_mem_scale_tpu/ops/chain.py:78"),
-    ("chain_filter", "csrc/chain.cu", "bwa_mem_scale_tpu/ops/chain.py:299"))
+    ("chain_filter", "csrc/chain.cu", "bwa_mem_scale_tpu/ops/chain.py:299"),
+    ("reseed_tasks", "csrc/smem_glue.cu",
+     "bwa_mem_scale_tpu/ops/smem_oh.py:772"),
+    ("merge_smems", "csrc/smem_glue.cu",
+     "bwa_mem_scale_tpu/ops/smem_oh.py:794"))
 # hg38 for the memory reckoning: 3.1e9 forward bases (GRCh38's primary
 # assembly), the index's SA sampled 1 in 2^3 (`index`'s default sa_compx)
 HG38_L_PAC = 3_100_000_000
@@ -1446,14 +1673,16 @@ def phase_cache(dev, card, tmp, se, wrappers):
 
 
 def int64_wrappers():
-    """{kernel name: wrapper} of the five main-path kernels with an int64
+    """{kernel name: wrapper} of the seven main-path kernels with an int64
     form."""
     from bwa_mem_scale_tpu_torch.ops import chain_cuda, sal_cuda, smem_cuda
     return {"one_pos_machine": smem_cuda.one_pos_machine_cuda,
             "seed_strategy_machine": smem_cuda.seed_strategy_machine_cuda,
             "expand_and_lookup": sal_cuda.expand_and_lookup_cuda,
             "chain_seeds": chain_cuda.chain_seeds_cuda,
-            "chain_filter": chain_cuda.chain_filter_cuda}
+            "chain_filter": chain_cuda.chain_filter_cuda,
+            "reseed_tasks": smem_cuda.reseed_tasks_cuda,
+            "merge_smems": smem_cuda.merge_smems_cuda}
 
 
 def as_int32(v, fmi32):
@@ -1490,7 +1719,9 @@ def int64_batch(dev, card, al, fmi64, fmi32, dbns, c, ln, batch):
                 smem_oh.seed_strategy_machine_cuda,
             (sal, "expand_and_lookup_cuda"): sal.expand_and_lookup_cuda,
             (align, "chain_seeds_cuda"): align.chain_seeds_cuda,
-            (align, "chain_filter_cuda"): align.chain_filter_cuda}
+            (align, "chain_filter_cuda"): align.chain_filter_cuda,
+            (smem_oh, "reseed_tasks_cuda"): smem_oh.reseed_tasks_cuda,
+            (smem_oh, "merge_smems_cuda"): smem_oh.merge_smems_cuda}
     calls = {name: [] for _, name in real}
 
     def recorder(name, fn):
@@ -1518,7 +1749,8 @@ def int64_batch(dev, card, al, fmi64, fmi32, dbns, c, ln, batch):
                              f"layout's")
     want = {"one_pos_machine_cuda": 2, "seed_strategy_machine_cuda": 1,
             "expand_and_lookup_cuda": 1, "chain_seeds_cuda": 1,
-            "chain_filter_cuda": 1}
+            "chain_filter_cuda": 1, "reseed_tasks_cuda": 1,
+            "merge_smems_cuda": 1}
     if any(len(calls[k]) != n for k, n in want.items()):
         raise SystemExit(f"int64: {batch} calls "
                          f"{ {k: len(v) for k, v in calls.items()} }")
@@ -1534,7 +1766,9 @@ def int64_batch(dev, card, al, fmi64, fmi32, dbns, c, ln, batch):
            "chain_seeds": chain_seeds_launch(
                dev, card, *calls["chain_seeds_cuda"][0], batch=label),
            "chain_filter": chain_filter_launch(
-               dev, card, *calls["chain_filter_cuda"][0], batch=label)}
+               dev, card, *calls["chain_filter_cuda"][0], batch=label),
+           **{name: glue_launch(dev, card, label, attr, calls[attr][0][0])
+              for name, attr, _ in GLUE_KERNELS}}
     n_args = {"one_pos_machine": 11, "seed_strategy_machine": 6}
     for name, wrapper in int64_wrappers().items():
         for n, (args, kw) in enumerate(calls[wrapper.__name__]):
@@ -2126,7 +2360,9 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
               "expand_and_lookup": sal_cuda.expand_and_lookup_cuda,
               "chain_seeds": chain_cuda.chain_seeds_cuda,
               "chain_filter": chain_cuda.chain_filter_cuda,
-              "banded_swa_batch": banded_swa_batch_cuda}
+              "banded_swa_batch": banded_swa_batch_cuda,
+              "reseed_tasks": smem_cuda.reseed_tasks_cuda,
+              "merge_smems": smem_cuda.merge_smems_cuda}
     counted = {**sw, **others}
 
     def run(argv, wide=False):
@@ -2153,7 +2389,8 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
             if got < want or (wide and n[name][0] != n[name][1]):
                 raise SystemExit(f"sweep: {name} launched {n[name]} times "
                                  f"(all, int64) over {a.batches} batches")
-        for name in ("one_pos_machine", "seed_strategy_machine"):
+        for name in ("one_pos_machine", "seed_strategy_machine",
+                     "reseed_tasks", "merge_smems"):
             if n[name][0]:
                 raise SystemExit(f"sweep: the one-hot {name} kernel ran "
                                  f"{n[name][0]} times on the sweep path")
@@ -3280,7 +3517,7 @@ def kstep_launch(dev, card, what, name, args, kw, fmi1, trip, hbm=0.0,
     sweep's passes through sweep_pass_launch, its floor with one HBM trip
     `hbm` for the FMA start, its bound from the twin with `twin`); then
     the K = 1 form on the same inputs (fmi1): equal outputs and steps,
-    its rounds and device time beside. Passes 1-3: floor the longest
+    its rounds beside. Passes 1-3: floor the longest
     lane's rounds x `trip` (us), one dependent load on the k-gram table's
     footprint; bound the inputs, the outputs and 45 operations a step,
     with `twin` the kernel's twin on the same inputs (each lane's steps
@@ -3312,7 +3549,6 @@ def kstep_launch(dev, card, what, name, args, kw, fmi1, trip, hbm=0.0,
     if not all(torch.equal(a, b) for a, b in pairs) or r["steps"] != int(
             steps1.sum()):
         raise SystemExit(f"kstep: {what}: differs from the K = 1 form")
-    r["ms1"] = device_ms(lambda: kernel(*args1, **kw), 20, dev)
     r.update(rounds1=int(rounds1.sum()), longest_rounds1=int(rounds1.max()),
              floor=r["longest_rounds"] * trip * 1e-3)
     fmi, codes = args[0], args[1]
@@ -3353,8 +3589,9 @@ def kstep_launch(dev, card, what, name, args, kw, fmi1, trip, hbm=0.0,
         f"({r['longest_rounds1']}); bound {r['bound'][0]:.6f} ms by "
         f"{r['bound'][1]} (reads: {reads}), latency floor "
         f"{r['floor']:.5f} ms ({r['longest_rounds']} x {trip:.4f} us); "
-        f"kernel device time {r['ms']:.5f} ms (mean of 2) against the K = 1 "
-        f"form's {r['ms1']:.5f}, plain {r['plain_ms']:.2f} ms  [{card}]")
+        f"kernel device time {r['ms']:.5f} ms (mean of 2; the K = 1 form's "
+        f"beside it: tools/kstep_before_after.py), plain "
+        f"{r['plain_ms']:.2f} ms  [{card}]")
     return r
 
 
@@ -3362,8 +3599,8 @@ def kstep_sweep(dev, card, what, args, kw, fmi1, trips, twin):
     """A k-step sweep pass as made, through sweep_pass_launch (every
     SmemBuf field, record and lane's steps equal to the plain version's;
     `trips` = (L2 trip, HBM trip)); then the K = 1 form on the same inputs
-    (fmi1): equal outputs and steps, its row fetches and device time
-    beside. Returns the numbers."""
+    (fmi1): equal outputs and steps, its row fetches beside. Returns the
+    numbers."""
     import torch
     from bwa_mem_scale_tpu_torch.ops import sweep_cuda
     kernel = sweep_cuda.sweep_pass_cuda
@@ -3385,13 +3622,11 @@ def kstep_sweep(dev, card, what, args, kw, fmi1, trips, twin):
             and all(torch.equal(recs[f], recs1[f]) for f in recs)
             and r["steps"] == int(steps1.sum())):
         raise SystemExit(f"kstep: {what}: differs from the K = 1 form")
-    r["ms1"] = device_ms(lambda: kernel(fmi1, *args[1:], **kw), 20, dev)
     r.update(rounds1=int(rounds1.sum()), longest_rounds1=int(rounds1.max()))
     log(f"[kstep] {what}: equal to the K = 1 form, steps too; "
         f"{r['rounds']} row fetches (the longest {r['longest_rounds']}) "
         f"against K = 1's {r['rounds1']} ({r['longest_rounds1']}); kernel "
-        f"device time {r['ms']:.5f} ms against the K = 1 form's "
-        f"{r['ms1']:.5f}  [{card}]")
+        f"device time {r['ms']:.5f} ms  [{card}]")
     return r
 
 
@@ -3543,7 +3778,8 @@ def phase_kstep(dev, card, tmp, se, pe, al):
             f"{N_READS / wall:.1f} reads/s; launches {n}  [{card}]")
 
     # each k-step launch of phase 5's batch and the repeat batch, as made,
-    # at both tables, beside the K = 1 form on the same inputs; the floors
+    # at both tables, held against the K = 1 form on the same inputs; the
+    # floors
     # from one dependent load on each table's own footprint (the median of
     # its turns), which may not read below the smaller 1-step table's by
     # more than the turns' spread and TRIP_SAME (two footprints that both
@@ -3593,14 +3829,15 @@ def phase_kstep(dev, card, tmp, se, pe, al):
                 f"{turns})  [{card}]")
             for depth, rf in ((24, 2), (48, 8), (None, 256)) * (batch == p5):
                 before = [w.launches_k for w in ks.values()]
-                got = tier_against_plain(fmi, c, ln, al.opt, depth, rf)
+                got, _ = tier_against_plain(fmi, c, ln, al.opt, depth, rf,
+                                            dev, card, f"{batch}, K={K}")
                 if any(w.launches_k == n
                        for w, n in zip(ks.values(), before[:2])):
                     raise SystemExit(f"kstep: {batch}, K={K}, depth {depth}:"
                                      f" no k-step form launched")
                 log(f"[kstep] {batch}, K={K}: collect_smems_oh at depth "
                     f"{depth}, reseed factor {rf}: SmemBuf equal kernels "
-                    f"(k-step forms) vs plain passes 1-2 and 3 "
+                    f"(k-step forms) vs plain passes 1-3 and glue "
                     f"({int(got.cnt.clamp(max=got.m.shape[1]).sum())} SMEMs)")
             for fma_k in (None, dtab):
                 calls = kstep_calls(fmi, dbns, c, ln, al.opt, al.cfg,
@@ -3704,9 +3941,9 @@ def readlane_batch(dev, card, batch, cfg, fmi, c, ln, opt, trip,
                    twin_ticks):
     """Phase 5's batch or the repeat batch through collect_smems_rl on
     `fmi` (a configuration: K = 1, int64, K = 2 or 3) at each pool of
-    READLANE_LANES: the SmemBuf equal to collect_smems_oh at full depth;
-    each of the three launches as made equal to its plain machine on the
-    same inputs (max_abs_err 0; the plain machine's arrays do not depend
+    READLANE_LANES: the SmemBuf equal to collect_smems_oh at full depth
+    and to the same call with the plain glue (plain_glue); each of the
+    three launches as made equal to its plain machine on the same inputs (max_abs_err 0; the plain machine's arrays do not depend
     on the pool, tests/test_torch_smem_rl.py, so it runs once, on one lane
     a task) with equal total steps, and at K = 1 total ticks equal to the
     kernels' twins' on the same tasks (a task's rounds do not depend on the
@@ -3742,6 +3979,17 @@ def readlane_batch(dev, card, batch, cfg, fmi, c, ln, opt, trip,
             raise SystemExit(f"readlane: {batch}, {cfg}, lanes {lanes}: "
                              f"collect_smems_rl differs from "
                              f"collect_smems_oh at full depth")
+        with plain_glue(smem_rl):
+            glue_want = smem_rl.collect_smems_rl(
+                fmi, c, ln, min_seed_len=opt.min_seed_len,
+                split_len=opt.split_len, split_width=opt.split_width,
+                max_mem_intv=opt.max_mem_intv, lanes=lanes)
+        torch.cuda.synchronize()
+        if not all(torch.equal(getattr(bufs, f), getattr(glue_want, f))
+                   for f in fields):
+            raise SystemExit(f"readlane: {batch}, {cfg}, lanes {lanes}: "
+                             f"collect_smems_rl differs from the same call "
+                             f"with the plain glue")
         if [name for name, *_ in calls] != ["one_pos", "one_pos",
                                             "strategy"]:
             raise SystemExit(f"readlane: {batch}: launches {calls}")
@@ -4012,7 +4260,9 @@ def mesh_sites():
             (sal, "expand_and_lookup_cuda"): "expand_and_lookup",
             (align, "chain_seeds_cuda"): "chain_seeds",
             (align, "chain_filter_cuda"): "chain_filter",
-            (align, "emf_lookup_cuda"): "emf_lookup"}
+            (align, "emf_lookup_cuda"): "emf_lookup",
+            (smem_oh, "reseed_tasks_cuda"): "reseed_tasks",
+            (smem_oh, "merge_smems_cuda"): "merge_smems"}
 
 
 @contextlib.contextmanager
@@ -4510,7 +4760,7 @@ def main():
     from bwa_mem_scale_tpu_torch.ops import ert_cuda, smem_rl_cuda
     from bwa_mem_scale_tpu_torch.ops import kswa_cuda, kswg_cuda, sal_cuda
     from bwa_mem_scale_tpu_torch.tools import round_cost
-    with ThreadPoolExecutor(13) as ex:          # one nvcc a source, at once
+    with ThreadPoolExecutor(14) as ex:          # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
                   ex.submit(probe_kernels.build, force=True, verbose=True),
                   ex.submit(smem_cuda.build, force=True),
@@ -4523,7 +4773,8 @@ def main():
                   ex.submit(smem_rl_cuda.build, force=True),
                   ex.submit(kswg_cuda.build, force=True),
                   ex.submit(kswa_cuda.build, force=True),
-                  ex.submit(sal_cuda.build, force=True)]
+                  ex.submit(sal_cuda.build, force=True),
+                  ex.submit(smem_cuda.build_glue, force=True)]
         probes_seconds = builds[1].result()[1]
         for b in builds:
             b.result()
@@ -4552,7 +4803,9 @@ def main():
         f"{os.path.relpath(kswa_cuda.LIB.path, REPO)} in "
         f"{kswa_cuda.LIB.build_seconds:.2f} s; csrc/sal.cu -> "
         f"{os.path.relpath(sal_cuda.LIB.path, REPO)} in "
-        f"{sal_cuda.LIB.build_seconds:.2f} s (in parallel)")
+        f"{sal_cuda.LIB.build_seconds:.2f} s; csrc/smem_glue.cu -> "
+        f"{os.path.relpath(smem_cuda.GLUE.path, REPO)} in "
+        f"{smem_cuda.GLUE.build_seconds:.2f} s (in parallel)")
     log(f"[build] one warp's dependent round (tools/round_cost.py: a "
         f"shared-memory load, a shuffle, a ballot), equal to its plain "
         f"model: {round_cost.round_us(dev):.5f} us, the chaining floors' "
@@ -4561,7 +4814,7 @@ def main():
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda",
                            "sweep_cuda", "seedsw_cuda", "emf_cuda",
                            "ert_cuda", "readlane_cuda", "kswg_cuda",
-                           "kswa_cuda", "sal_cuda")}
+                           "kswa_cuda", "sal_cuda", "smem_glue_cuda")}
     # each FM-walk and chaining kernel in its int32 (P = int, mangled i)
     # and int64 (P = long long, x) forms; the FM walks' 1-step forms (KS =
     # 1, mangled Li1E) and their k-step forms (int32 only)
@@ -4581,6 +4834,10 @@ def main():
             ("smem_cuda", "seed_strategy_kernelILi2Ei",
              "seed_strategy_kernel<K = 2, int32>"),
             ("smem_cuda", "sa_walk_kernelI{}", "sa_walk_kernel<{}>"),
+            ("smem_glue_cuda", "reseed_tasks_kernelI{}",
+             "reseed_tasks_kernel<{}>"),
+            ("smem_glue_cuda", "merge_smems_kernelI{}",
+             "merge_smems_kernel<{}>"),
             ("sal_cuda", "sal_count_kernelI{}", "sal_count_kernel<{}>"),
             ("sal_cuda", "sal_walk_kernelI{}", "sal_walk_kernel<{}>"),
             ("chain_cuda", "chain_seeds_kernelI{}", "chain_seeds_kernel<{}>"),
@@ -4644,15 +4901,16 @@ def main():
     k = phase_kernel(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches, al, codes, lens, se = phase_mem(dev, card, tmp)
-        _, smem, p3, walk, seeds, flt = phase_slice(dev, card, al, codes,
-                                                    lens)
+        _, smem, p3, walk, seeds, flt, glue = phase_slice(dev, card, al,
+                                                          codes, lens)
         probes = phase_probes(dev, card)
         _, pe = phase_pe(dev, card, tmp)
         wide = phase_int64(dev, card, tmp, se, al, codes, lens,
                            {"one_pos_machine": smem[0],
                             "seed_strategy_machine": p3,
                             "expand_and_lookup": walk,
-                            "chain_seeds": seeds, "chain_filter": flt})
+                            "chain_seeds": seeds, "chain_filter": flt,
+                            **glue})
         sweep = phase_sweep(dev, card, tmp, se, pe, al, codes, lens,
                             {"one_pos_machine": smem,
                              "seed_strategy_machine": p3})
@@ -4700,6 +4958,13 @@ def main():
         for name, replaces, r in (
             ("chain_seeds", "bwa_mem_scale_tpu/ops/chain.py:78", seeds),
             ("chain_filter", "bwa_mem_scale_tpu/ops/chain.py:299", flt))] + [{
+        "name": name, "route": "cuda", "source": "csrc/smem_glue.cu",
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": GLUE_ERR[name], "ms": glue[name]["ms"],
+        "plain_ms": glue[name]["plain_ms"],
+        "bound_ms": glue[name]["bound"][0],
+        "bound_by": glue[name]["bound"][1], "library_ms": None}
+        for name, _, replaces in GLUE_KERNELS] + [{
         "name": f"{name}_int64", "route": "cuda", "source": source,
         "replaces": replaces, "launches": wide["launches"][name],
         "max_abs_err": wide[name]["err"], "ms": wide[name]["ms"],

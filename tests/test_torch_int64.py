@@ -47,9 +47,8 @@ from bwa_mem_scale_tpu_torch.ops import chain_cuda, smem_cuda
 from bwa_mem_scale_tpu_torch.ops import occ as tocc
 from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex as TFmi
 from bwa_mem_scale_tpu_torch.ops.sal import sa_lookup_plain
-from bwa_mem_scale_tpu_torch.ops.smem import SmemBuf
+from bwa_mem_scale_tpu_torch.ops.smem import SmemBuf, reseed_tasks
 from bwa_mem_scale_tpu_torch.ops.smem_oh import (one_pos_machine,
-                                                 reseed_tasks,
                                                  seed_strategy_machine)
 
 # one intra-op thread a process: the suite runs several test workers on

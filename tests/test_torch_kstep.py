@@ -50,8 +50,8 @@ from bwa_mem_scale_tpu_torch.ops import occ as tocc
 from bwa_mem_scale_tpu_torch.ops import smem as tsmem
 from bwa_mem_scale_tpu_torch.ops import smem_cuda, sweep_cuda
 from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex as TFmi
+from bwa_mem_scale_tpu_torch.ops.smem import reseed_tasks
 from bwa_mem_scale_tpu_torch.ops.smem_oh import (one_pos_machine,
-                                                 reseed_tasks,
                                                  seed_strategy_machine)
 
 # one intra-op thread a process: the suite runs several test workers on

@@ -37,10 +37,9 @@ import torch
 from bwa_mem_scale_tpu_torch.config import MemOptions as TOpt
 from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex as TFmi
 from bwa_mem_scale_tpu_torch.ops.smem_oh import (
-    collect_smems_oh as t_collect, one_pos_machine, reseed_tasks,
-    seed_strategy_machine)
+    collect_smems_oh as t_collect, one_pos_machine, seed_strategy_machine)
 from bwa_mem_scale_tpu_torch.ops import smem_cuda
-from bwa_mem_scale_tpu_torch.ops.smem import compact_indices
+from bwa_mem_scale_tpu_torch.ops.smem import compact_indices, reseed_tasks
 
 # one intra-op thread a process: the suite runs several test workers on
 # the CPU at once, and a thread a core each oversubscribes the cores
@@ -601,11 +600,15 @@ def test_one_pos_kernel_stacks_in_scratch(card_genome, case):
                                                  (None, 256)])
 def test_collect_smems_kernel_equal_to_plain(card_genome, monkeypatch,
                                              depth, reseed_factor):
-    """collect_smems_oh with the kernels for passes 1-2 and pass 3 against
-    the same function with the plain machines swapped in, at the three
-    tier depths on the 512-read batch: equal SmemBuf, two launches of
-    the passes 1-2 kernel and one of the pass-3 kernel."""
+    """collect_smems_oh with the kernels for passes 1-2 and pass 3 and the
+    glue's two (the task list, the merge) against the same function with
+    the plain machines and the plain glue swapped in, at the three tier
+    depths on the 512-read batch: equal SmemBuf, two launches of the
+    passes 1-2 kernel, one of the pass-3 kernel and one of each glue
+    kernel."""
     from bwa_mem_scale_tpu_torch.ops import smem_oh
+    from bwa_mem_scale_tpu_torch.ops.smem import (merge_smems_plain,
+                                                  reseed_task_list)
     dev = _cuda()
     _, _, idx, big, _, _ = card_genome
     fmi = TFmi.from_host(idx, dev)
@@ -617,11 +620,14 @@ def test_collect_smems_kernel_equal_to_plain(card_genome, monkeypatch,
               reseed_factor=reseed_factor)
     before = smem_cuda.one_pos_machine_cuda.launches
     before3 = smem_cuda.seed_strategy_machine_cuda.launches
+    glue = (smem_cuda.reseed_tasks_cuda, smem_cuda.merge_smems_cuda)
+    before_glue = [w.launches for w in glue]
     stats = {}
     got = t_collect(fmi, codes, lens, stats=stats, **kw)
     torch.cuda.synchronize()
     assert smem_cuda.one_pos_machine_cuda.launches == before + 2
     assert smem_cuda.seed_strategy_machine_cuda.launches == before3 + 1
+    assert [w.launches - n for w, n in zip(glue, before_glue)] == [1, 1]
     assert int(stats["seed_steps_p1"]) > 0
     assert 0 < int(stats["seed_rounds_p1"]) <= int(stats["seed_steps_p1"])
     assert int(stats["seed_rounds_p2"]) <= int(stats["seed_steps_p2"])
@@ -629,6 +635,8 @@ def test_collect_smems_kernel_equal_to_plain(card_genome, monkeypatch,
     monkeypatch.setattr(smem_oh, "one_pos_machine_cuda", one_pos_machine)
     monkeypatch.setattr(smem_oh, "seed_strategy_machine_cuda",
                         seed_strategy_machine)
+    monkeypatch.setattr(smem_oh, "reseed_tasks_cuda", reseed_task_list)
+    monkeypatch.setattr(smem_oh, "merge_smems_cuda", merge_smems_plain)
     want = t_collect(fmi, codes, lens, **kw)
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
