@@ -228,3 +228,14 @@ def banded_swa_batch(qs, q_lens, ts, t_lens, h0, w: int, o_del: int,
             stats["bsw_rows_per_pair"] = pair_rows
     return BswBatchResult(score=max_sc, qle=max_j + 1, tle=max_i + 1,
                           gtle=max_ie + 1, gscore=gscore, max_off=max_off)
+
+
+def banded_swa_rows(qs, lens, ts, h0, w: int, o_del: int, e_del: int,
+                    o_ins: int, e_ins: int, zdrop: int, mat,
+                    end_bonus: int = 0, stats: dict = None) -> torch.Tensor:
+    """``banded_swa_batch`` in the extension's form: lens [2, P] (query
+    and target lengths) in, the six results as one [6, P] int32 tensor
+    out (the plain version of ``ops/bsw_cuda.py::bsw_rows``)."""
+    return torch.stack(list(banded_swa_batch(
+        qs, lens[0], ts, lens[1], h0, w, o_del, e_del, o_ins, e_ins, zdrop,
+        mat, end_bonus, stats=stats)))

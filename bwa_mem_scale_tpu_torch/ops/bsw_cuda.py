@@ -23,7 +23,11 @@ clamped in the kernel) and computes each pair's band itself, so the
 wrapper checks the arrays and the lengths, allocates the [6, P] output
 and launches on the current stream. The length check costs one host
 synchronisation: a length past its row count would make the kernel read
-out of bounds, and must raise before the launch.
+out of bounds, and must raise before the launch. ``seed_chain_extend``
+calls ``bsw_rows`` instead: the launch alone, on lengths that the
+extension's kernels (csrc/extend.cu) have tested against the rows on the
+device, clamped and flagged (``fetch_extend`` raises on the flag with
+the same message), so the extension runs with no host synchronisation.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import ctypes
 import torch
 
 from . import nvcc_build
-from .bsw import BswBatchResult, banded_swa_batch, scoring
+from .bsw import (BswBatchResult, banded_swa_batch,
+                  banded_swa_rows, scoring)
 
 # columns a lane: the instantiations of csrc/bsw.cu's bsw_launch
 K_VALUES = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 24)
@@ -64,16 +69,31 @@ def _check(name, t, ndim, device):
                          f"{t.device}")
 
 
-def launch(qs, q_lens, ts, t_lens, h0, w: int, o_del: int, e_del: int,
-           o_ins: int, e_ins: int, zdrop: int, mat, end_bonus: int = 0
-           ) -> BswBatchResult:
-    """One launch on contiguous int32 CUDA tensors whose lengths lie
-    within their rows, as ``banded_swa_batch_cuda`` checks them; no host
-    synchronisation."""
-    P, QL = qs.shape
+def bsw_rows(qs, lens, ts, h0, w: int, o_del: int, e_del: int, o_ins: int,
+             e_ins: int, zdrop: int, mat, end_bonus: int = 0,
+             stats: dict = None) -> torch.Tensor:
+    """BSW's [6, P] int32 rows (score, qle, tle, gtle, gscore, max_off)
+    for qs [P, QL], ts [P, TL], lens [2, P] (the query and target
+    lengths) and h0 [P], all int32: the extension's form
+    (``seed_chain_extend``). On CUDA tensors the launch alone, with no
+    length check and no synchronisation: the extension's kernels
+    (csrc/extend.cu) test the lengths against the rows on the device,
+    clamp them and flag the batch. On CPU tensors the plain version
+    (``ops/bsw.py::banded_swa_rows``, which fills `stats`)."""
+    if qs.device.type == "cpu":
+        return banded_swa_rows(qs, lens, ts, h0, w, o_del, e_del, o_ins,
+                               e_ins, zdrop, mat, end_bonus, stats=stats)
+    dev = qs.device
+    for name, t, nd in (("qs", qs, 2), ("ts", ts, 2), ("lens", lens, 2),
+                        ("h0", h0, 1)):
+        _check(name, t, nd, dev)
+    P = qs.shape[0]
+    if (ts.shape[0] != P or lens.shape != (2, P) or h0.shape[0] != P
+            or not all(t.is_contiguous() for t in (qs, ts, lens, h0))):
+        raise ValueError("bsw_rows: shapes differ or are not contiguous")
+    QL = qs.shape[1]
     k = lane_columns(QL)
     sc = scoring(mat)
-    dev = qs.device
     out = torch.empty((6, P), dtype=torch.int32, device=dev)
     scratch = None
     if k == TILED:
@@ -81,13 +101,13 @@ def launch(qs, q_lens, ts, t_lens, h0, w: int, o_del: int, e_del: int,
                               dtype=torch.int32, device=dev)
     if P:
         LIB.launch(dev, "bsw_launch", qs.data_ptr(), ts.data_ptr(),
-                   q_lens.data_ptr(), t_lens.data_ptr(), h0.data_ptr(),
+                   lens.data_ptr(), lens.data_ptr() + 4 * P, h0.data_ptr(),
                    out.data_ptr(), P, QL, ts.shape[1], k, w, o_del, e_del,
                    o_ins, e_ins, zdrop, sc["sc_match"], sc["sc_mis"],
                    sc["sc_n"], sc["mx"], end_bonus,
                    None if scratch is None else scratch.data_ptr())
         banded_swa_batch_cuda.launches += 1
-    return BswBatchResult(*out.unbind(0))
+    return out
 
 
 def banded_swa_batch_cuda(qs, q_lens, ts, t_lens, h0, w: int, o_del: int,
@@ -114,9 +134,10 @@ def banded_swa_batch_cuda(qs, q_lens, ts, t_lens, h0, w: int, o_del: int,
     if bool(((q_lens > QL) | (t_lens > ts.shape[1])).any()):
         raise ValueError("banded_swa_batch_cuda: a length exceeds its "
                          "row count")
-    return launch(qs.contiguous(), q_lens.contiguous(), ts.contiguous(),
-                  t_lens.contiguous(), h0.contiguous(), w, o_del, e_del,
-                  o_ins, e_ins, zdrop, mat, end_bonus)
+    return BswBatchResult(*bsw_rows(
+        qs.contiguous(), torch.stack([q_lens, t_lens]), ts.contiguous(),
+        h0.contiguous(), w, o_del, e_del, o_ins, e_ins, zdrop,
+        mat, end_bonus).unbind(0))
 
 
 # kernel launches since the last reset (main-path proof in chip_smoke.py)

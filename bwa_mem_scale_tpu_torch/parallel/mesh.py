@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import MemOptions
+from ..ops.extend import ExtendOut
 
 _LOCAL = threading.local()
 
@@ -161,6 +162,7 @@ def globalize(out: dict, shard: int, n_local: int) -> dict:
     """A shard's seed_chain_extend output with pair-space read indices made
     global (the plain field and column 1 of the packed matrix), and
     scalars grown a shard axis, as the JAX package's local_step does."""
+    flag = getattr(out, "len_flag", None)
     out = dict(out)
     off = shard * n_local
     out["read"] = torch.where(out["valid"].bool(), out["read"] + off,
@@ -168,13 +170,22 @@ def globalize(out: dict, shard: int, n_local: int) -> dict:
     pk = out["packed"].clone()
     pk[:, 1] = torch.where(pk[:, 0] == 1, pk[:, 1] + off, -1)
     out["packed"] = pk
-    return {k: (v[None] if v.dim() == 0 else v) for k, v in out.items()}
+    res = ExtendOut({k: (v[None] if v.dim() == 0 else v)
+                     for k, v in out.items()})
+    res.len_flag = flag
+    return res
 
 
 def concat(outs: list, device: torch.device) -> dict:
-    """Per-shard dicts of tensors joined along axis 0 on `device`."""
-    return {k: torch.cat([o[k].to(device) for o in outs])
-            for k in outs[0]}
+    """Per-shard dicts of tensors joined along axis 0 on `device` (the
+    shards' BSW length flags joined too)."""
+    res = ExtendOut({k: torch.cat([o[k].to(device) for o in outs])
+                     for k in outs[0]})
+    flags = [o.len_flag for o in outs
+             if getattr(o, "len_flag", None) is not None]
+    if flags:
+        res.len_flag = torch.cat([f.to(device) for f in flags])
+    return res
 
 
 def sharded_align_fn(mesh: Mesh, opt: MemOptions, cfg, L: int,

@@ -6,8 +6,8 @@ Counterpart of ``bwa_mem_scale_tpu/pipeline/align.py``. Per batch:
   device: SMEM seeding -> SA lookup -> chaining -> chain filter ->
           (batches holding long reads) the seed-SW filter ->
           left/right banded extension with band-doubling retries
-          (``seed_chain_extend``, eager PyTorch; BSW and the seed-SW
-          scorer in CUDA kernels)
+          (``seed_chain_extend``; each stage's kernels of csrc/, the
+          extension's glue csrc/extend.cu around BSW's four launches)
   host:   the native finalizer (dedup/patch, primary marking, CIGAR,
           SAM text; ``native/finalize.cpp``), shared with the JAX
           package; for pairs, its one-call PE stage (insert-size
@@ -29,7 +29,8 @@ passes the residency gate (``EMF_DEVICE_BYTES``); the SE stream and the
 PE path probe it on the host. JAX's jitted programs become cached
 configurations: the retry tiers are ``seed_chain_extend`` bound to
 larger capacities. ``fetch_extend`` is the device sync point (``.cpu()``
-of ``packed``, ``meta`` and the probe's outputs). With ``mesh=``
+of ``packed``, ``meta`` and the probe's outputs; then the BSW length
+check's device flag, ``ExtendOut.len_flag``, raises). With ``mesh=``
 (``parallel/mesh.py``) every device stage of a batch (the EMF probe,
 seeding to extension, the retry tiers) runs read-sharded over the mesh's
 devices, each holding a replica of the index and its tables; the host
@@ -60,31 +61,26 @@ from ..ref.finalize import (sort_dedup_patch, mark_primary,
                                     reorder_primary5)
 from ..utils.profiling import PROFILER
 from ..device import synchronize
-from ..ops.bsw import banded_swa_batch
-from ..ops.bsw_cuda import banded_swa_batch_cuda
+from ..ops.bsw import banded_swa_rows
+from ..ops.bsw_cuda import bsw_rows
 from ..ops.chain import DeviceBns
 from ..ops.chain_cuda import chain_filter_cuda, chain_seeds_cuda
 from ..ops.emf import DeviceEmf, FW_MATCHED, RC_MATCHED
 from ..ops.emf_cuda import emf_lookup_cuda
+from ..ops.extend import ExtendOut, raise_len_flag
+from ..ops.extend_cuda import (ext_band_cuda, ext_pairs_cuda, ext_select_cuda,
+                               ext_stage_cuda)
 from ..ops.ert import DeviceErt, collect_smems_ert
 from ..ops.occ import DeviceFMIndex
 from ..ops.sal import expand_and_lookup
 from ..ops.seedsw import seed_sw_filter
-from ..ops.smem import SmemBuf, collect_smems_device, compact_indices
+from ..ops.smem import SmemBuf, collect_smems_device
 from ..ops.smem_oh import collect_smems_oh
 from ..ops.smem_rl import collect_smems_rl
-from ..ops.window import take_windows, ref_windows
 from ..parallel.mesh import (Mesh, concat as mesh_concat,
                              globalize as mesh_globalize, pad_to_multiple,
                              sharded_emf_fn, split_rows)
 from .perfect import perfect_regs, perfect_sam_records
-
-
-def _cal_max_gap(qlen, a, o_del, e_del, o_ins, e_ins, w):
-    tdiv = partial(torch.div, rounding_mode="trunc")
-    l_del = tdiv(qlen * a - o_del, e_del) + 1
-    l_ins = tdiv(qlen * a - o_ins, e_ins) + 1
-    return torch.clamp(torch.maximum(l_del, l_ins), min=1, max=w << 1)
 
 
 @dataclasses.dataclass
@@ -209,25 +205,38 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
     ``ops/ert.DeviceErt`` of the same text) the ERT descent seeds instead,
     whatever the engine, as in the JAX package. `stats` collects loop tick
     counts."""
-    B = codes.shape[0]
-    dev = codes.device
-    i32, i64 = torch.int32, torch.int64
-    lens = lens.to(i32)
+    lens = lens.to(torch.int32)
     with _stage(prof, "seed"):
         bufs = collect_seeds(fmi, codes, lens, L, opt=opt, cfg=cfg, fma=fma,
                              ert=ert, stats=stats)
     with _stage(prof, "sal"):
         rbeg, seed_idx, coord_valid, total, coord_of = expand_and_lookup(
             fmi, bufs, opt.max_occ, cfg.max_coords, stats=stats)
-    # SMEM buffer at capacity: possible overflow -> retry at larger shape
-    smem_of = bufs.cnt >= bufs.m.shape[1]
     with _stage(prof, "chain"):
         ch, (order, kept, _, frac_rep) = chain_and_filter(
             dbns, bufs, rbeg, seed_idx, coord_valid, lens, opt=opt, cfg=cfg,
             stats=stats)
+    return extend_chains(fmi, dbns, codes, lens, L, bufs, total, coord_of,
+                         ch, order, kept, frac_rep, opt=opt, cfg=cfg,
+                         prof=prof, stats=stats)
 
-    C, S, R = cfg.max_chains, cfg.max_seeds_per_chain, cfg.max_regs
-    sidx = torch.arange(S, dtype=i32, device=dev)[None, None, :]
+
+def extend_chains(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens, L: int,
+                  bufs: SmemBuf, total, coord_of, ch, order, kept, frac_rep,
+                  *, opt: MemOptions, cfg: PipelineConfig,
+                  prof: Optional[StageProfile] = None,
+                  stats: Optional[dict] = None) -> ExtendOut:
+    """Extension of one batch from the chain filter's outputs to
+    ``seed_chain_extend``'s dict: (long reads) the seed-SW filter, the
+    candidates and rmax, pair compaction, window staging, and the left
+    and right band-doubling retries around four BSW calls. On CUDA
+    tensors eleven launches (csrc/extend.cu's seven, BSW's four; the
+    wrappers of ops/extend_cuda.py, called by this module's names, which a
+    caller may swap for their plain versions) with no tensor operation
+    between them but the outputs' allocations and no host
+    synchronisation: the BSW length check is a device flag
+    (``ExtendOut.len_flag``) that fetch_extend raises on."""
+    R, PX = cfg.max_regs, cfg.max_pairs
     if needs_seed_sw_filter(opt, L):
         # the long-read regime (mem_flt_chained_seeds): a batch wide
         # enough to hold a read the filter applies to; each read's own
@@ -235,201 +244,73 @@ def seed_chain_extend(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens,
         with _stage(prof, "seedsw"):
             seed_live, seed_score, sw_of = seed_sw_filter(
                 fmi, dbns, codes, lens, ch, order, kept, opt,
-                max_sw=cfg.max_pairs, stats=stats)
-    else:
-        seed_live = sidx < ch.n_seeds[:, :, None]      # [B, C, S] by slot
-        seed_score = ch.seed_score
-        sw_of = torch.zeros((B,), dtype=torch.bool, device=dev)
-
-    # ---- (chain, seed) candidates in processing order: seeds of
-    # earlier kept chains first, then best score first (ties: larger
-    # seed index) within a chain
-    kept_chain = kept > 0                              # [B, C] sorted pos
-    o3 = order.long()[:, :, None].expand(B, C, S)
-    live_by_pos = seed_live.gather(1, o3)
-    score_by_pos = seed_score.gather(1, o3)
-    svalid = live_by_pos & kept_chain[:, :, None]
-    seed_key = torch.where(svalid, (score_by_pos << 16) | sidx, -1)
-    # valid keys are distinct, so a key's descending-sort position is
-    # the count of strictly larger keys (invalid ones tie but are masked)
-    key_order = torch.argsort(seed_key, dim=2, descending=True)
-    seed_rank = torch.empty_like(seed_key).scatter_(
-        2, key_order, sidx.expand(B, C, S).contiguous())  # [B, C, S]
-    nlive = svalid.sum(2, dtype=i32)
-    base = torch.cumsum(nlive, 1, dtype=i32) - nlive
-    dense = torch.where(svalid, base[:, :, None] + seed_rank, 1 << 30)
-    n_cand = nlive.sum(1, dtype=i32)
-    reg_overflow = n_cand > R
-    # sel encodes (data slot, seed idx) as slot*S + sidx
-    slotflat = (order[:, :, None] * S + sidx).reshape(B, C * S)
-    tgt = dense.reshape(B, C * S).clamp(max=R).long()
-    sel_ss = torch.zeros((B, R + 1), dtype=i32, device=dev)
-    sel_ss.scatter_(1, tgt, slotflat)
-    sel_ss = sel_ss[:, :R]
-    sel_valid = torch.arange(R, device=dev)[None, :] < n_cand[:, None]
-    sel_slot = sel_ss // S
-    ss = sel_ss.long()
-    g_qbeg = ch.seed_qbeg.reshape(B, C * S).gather(1, ss)
-    g_rbeg = ch.seed_rbeg.reshape(B, C * S).gather(1, ss)
-    g_len = ch.seed_len.reshape(B, C * S).gather(1, ss)
-    g_rid = ch.rid.gather(1, sel_slot.long())
-
-    # ---- per-chain reference span rmax (by slot)
-    a_, w_ = opt.a, opt.w
-    l_pac = dbns.l_pac
-    cs_qbeg = ch.seed_qbeg.to(i64)
-    cs_len = ch.seed_len.to(i64)
-    cs_rbeg = ch.seed_rbeg.to(i64)
-    gap_l = _cal_max_gap(cs_qbeg, a_, opt.o_del, opt.e_del, opt.o_ins,
-                         opt.e_ins, w_)
-    flank_r = lens.to(i64)[:, None, None] - cs_qbeg - cs_len
-    gap_r = _cal_max_gap(flank_r, a_, opt.o_del, opt.e_del, opt.o_ins,
-                         opt.e_ins, w_)
-    l_pac2 = 2 * l_pac
-    rmax0 = torch.where(seed_live, cs_rbeg - (cs_qbeg + gap_l),
-                        l_pac2).min(2).values.clamp(min=0)
-    rmax1 = torch.where(seed_live, cs_rbeg + cs_len + flank_r + gap_r,
-                        0).max(2).values.clamp(max=l_pac2)
-    # first live seed (slot 0 when none is live)
-    first_i = torch.argmax(seed_live.to(i32), dim=2, keepdim=True)
-    first_rbeg = cs_rbeg.gather(2, first_i)[..., 0]
-    bridging = (rmax0 < l_pac) & (l_pac < rmax1)
-    rmax1 = torch.where(bridging & (first_rbeg < l_pac), l_pac, rmax1)
-    rmax0 = torch.where(bridging & (first_rbeg >= l_pac), l_pac, rmax0)
-    # clamp to the contig of the first seed (bns_fetch_seq_v2)
-    mid_f, mid_rev = dbns.depos(first_rbeg)
-    mrid = dbns.pos2rid(mid_f).clamp(min=0).long()
-    n_off = torch.cat([dbns.offsets,
-                       torch.tensor([l_pac], dtype=i64, device=dev)])
-    far_beg = dbns.offsets[mrid]
-    far_end = n_off[mrid + 1]
-    rmax0 = torch.maximum(rmax0, torch.where(mid_rev, l_pac2 - far_end,
-                                             far_beg))
-    rmax1 = torch.minimum(rmax1, torch.where(mid_rev, l_pac2 - far_beg,
-                                             far_end))
-    rm0 = rmax0.gather(1, sel_slot.long())             # [B, R]
-    rm1 = rmax1.gather(1, sel_slot.long())
-
-    # ---- compact candidates to pair space (read-major, rank order)
-    PX = cfg.max_pairs
-    flatv = sel_valid.reshape(B * R)
-    pidx, p_valid = compact_indices(flatv, PX)
-    pair_overflow = flatv.sum() > PX
-    pair_rank = torch.cumsum(flatv.to(i32), 0) - 1
-    read_pair_of = (flatv & (pair_rank >= PX)).reshape(B, R).any(1)
-    pidx = pidx.long()
-    p_read = pidx // R
-    topair = lambda x: x.reshape(B * R)[pidx]
-    p_qbeg = topair(g_qbeg)
-    p_rbeg = topair(g_rbeg).to(i64)
-    p_len = topair(g_len)
-    p_rid = topair(g_rid)
-    p_slot = topair(sel_slot).long()
-    p_rm0 = topair(rm0)
-    p_rm1 = topair(rm1)
-    p_lens = torch.where(p_valid, lens[p_read], 0)
-
-    # ---- extension pair sequences [PX, ...]
-    TL = L + 2 * w_ + cfg.target_pad
-    p_codes = codes[p_read]                            # [PX, L]
-    # left: query reversed prefix, target reversed ref[rm0:rbeg]
-    ql_len = torch.where(p_valid, p_qbeg, 0)
-    q_l = take_windows(p_codes, p_qbeg - 1, L, reverse=True)
-    tl_len = torch.where(p_valid, p_rbeg - p_rm0, 0).to(i32)
-    t_l = ref_windows(fmi.ref, p_rbeg - 1, TL, l_pac, reverse=True)
-    # right: query suffix from qe, target ref[rbeg+len : rm1]
-    p_qe = p_qbeg + p_len
-    qr_len = torch.where(p_valid, p_lens - p_qe, 0)
-    q_r = take_windows(p_codes, p_qe, L)
-    re0 = p_rbeg + p_len.to(i64)
-    tr_len = torch.where(p_valid, p_rm1 - re0, 0).to(i32)
-    t_r = ref_windows(fmi.ref, re0, TL, l_pac)
-    do_left = p_valid & (p_qbeg > 0)
-    do_right = p_valid & (p_qe < p_lens)
-    h0_l = (p_len * a_).to(i32)
-
-    bsw = banded_swa_batch if cfg.bsw_engine == "plain" \
-        else banded_swa_batch_cuda
-
-    def run_bsw(q, qlen, t, tlen, h0, wv):
-        return bsw(q.to(i32), qlen.to(i32), t, tlen.to(i32), h0.to(i32),
-                   wv, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
-                   opt.zdrop, opt.mat, stats=stats)
-
-    def pick(r1, r2, which2):
-        return type(r1)(*(torch.where(which2, b, a) for a, b in zip(r1, r2)))
-
-    accept = (w_ >> 1) + (w_ >> 2)
+                max_sw=PX, stats=stats)
+    else:               # each chain's first n_seeds slots, in the kernels
+        seed_live, seed_score, sw_of = None, ch.seed_score, None
+    sel = ext_select_cuda(ch, order, kept, seed_live, seed_score, lens, dbns,
+                          opt, R)
+    pr = ext_pairs_cuda(sel, PX, bufs.cnt, bufs.m.shape[1], coord_of,
+                        ch.overflow, sw_of, frac_rep)
+    TL = L + 2 * opt.w + cfg.target_pad
+    st = ext_stage_cuda(pr, sel, ch, codes, lens, fmi.ref, dbns.l_pac, TL,
+                        opt)
+    plain_bsw = cfg.bsw_engine == "plain"
+    bsw = banded_swa_rows if plain_bsw else bsw_rows
+    w_ = opt.w
+    pen = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.zdrop, opt.mat)
+    band = partial(ext_band_cuda, ch=ch, seed_live=seed_live, opt=opt)
     with _stage(prof, "bsw"):
         # left extension with band-doubling retry
-        resL1 = run_bsw(q_l, torch.where(do_left, ql_len, 0), t_l,
-                        torch.where(do_left, tl_len, 0), h0_l, w_)
-        need2 = do_left & ~(resL1.max_off < accept)
-        resL2 = run_bsw(q_l, torch.where(need2, ql_len, 0), t_l,
-                        torch.where(need2, tl_len, 0), h0_l, w_ << 1)
-        resL = pick(resL1, resL2, need2)
-        wL = torch.where(need2, w_ << 1, w_)
-        score_l = torch.where(do_left, resL.score, p_len * a_)
-        gs_ok_l = (resL.gscore <= 0) | (resL.gscore
-                                        <= score_l - opt.pen_clip5)
-        qb = torch.where(do_left & gs_ok_l, p_qbeg - resL.qle, 0)
-        qb = torch.where(do_left, qb, 0)
-        rb = torch.where(do_left,
-                         torch.where(gs_ok_l, p_rbeg - resL.tle,
-                                     p_rbeg - resL.gtle), p_rbeg)
-        truesc = torch.where(do_left,
-                             torch.where(gs_ok_l, score_l, resL.gscore),
-                             p_len * a_)
-        a_w = torch.where(do_left, torch.clamp(wL, min=w_), w_)
-
+        l1 = bsw(st.q_l, st.bl, st.t_l, st.h0, w_, *pen, stats=stats)
+        bl2 = band(0, st, pr, l1, None, None)
+        l2 = bsw(st.q_l, bl2, st.t_l, st.h0, w_ << 1, *pen, stats=stats)
+        left = band(1, st, pr, l1, l2, None)
         # right extension (h0 = left score)
-        resR1 = run_bsw(q_r, torch.where(do_right, qr_len, 0), t_r,
-                        torch.where(do_right, tr_len, 0), score_l, w_)
-        accR1 = (resR1.score == score_l) | (resR1.max_off < accept)
-        needR2 = do_right & ~accR1
-        resR2 = run_bsw(q_r, torch.where(needR2, qr_len, 0), t_r,
-                        torch.where(needR2, tr_len, 0), score_l, w_ << 1)
-        resR = pick(resR1, resR2, needR2)
-        wR = torch.where(needR2, w_ << 1, w_)
-    score_f = torch.where(do_right, resR.score, score_l)
-    gs_ok_r = (resR.gscore <= 0) | (resR.gscore <= score_f - opt.pen_clip3)
-    qe_f = torch.where(do_right & gs_ok_r, p_qe + resR.qle, p_lens)
-    re_f = torch.where(do_right,
-                       re0 + torch.where(gs_ok_r, resR.tle,
-                                         resR.gtle).to(i64), re0)
-    truesc = truesc + torch.where(
-        do_right, torch.where(gs_ok_r, score_f, resR.gscore) - score_l, 0)
-    a_w = torch.where(do_right, torch.maximum(a_w, wR), a_w)
+        r1 = bsw(st.q_r, left.bl, st.t_r, left.score, w_, *pen, stats=stats)
+        bl4 = band(2, st, pr, r1, None, left)
+        r2 = bsw(st.q_r, bl4, st.t_r, left.score, w_ << 1, *pen,
+                 stats=stats)
+    fin = band(3, st, pr, r1, r2, left)
+    out = ExtendOut(
+        valid=pr.valid, read=pr.read, qb=left.qb, qe=fin.qe, rb=left.rb,
+        re=fin.re, score=fin.score, truesc=fin.truesc, w=fin.w,
+        seedcov=fin.seedcov, rid=st.rid, seedlen0=st.slen, frac_rep=frac_rep,
+        packed=fin.packed, meta=pr.meta, read_overflow=pr.read_overflow,
+        smem_cnt=bufs.cnt, coord_total=total, chain_overflow=ch.overflow,
+        reg_overflow=sel.reg_overflow, pair_overflow=pr.pair_overflow)
+    # the check banded_swa_batch_cuda makes: only the kernel's route
+    if not plain_bsw and codes.device.type == "cuda":
+        out.len_flag = pr.flag
+    return out
 
-    # ---- seed coverage over the final region (pair space)
-    ch_q = ch.seed_qbeg[p_read, p_slot]                # [PX, S]
-    ch_r = ch.seed_rbeg[p_read, p_slot].to(i64)
-    ch_l = ch.seed_len[p_read, p_slot]
-    inside = (seed_live[p_read, p_slot]
-              & (ch_q >= qb[:, None]) & (ch_q + ch_l <= qe_f[:, None])
-              & (ch_r >= rb[:, None]) & (ch_r + ch_l <= re_f[:, None]))
-    seedcov = torch.where(inside, ch_l, 0).sum(1, dtype=i64)
 
-    # one int32 matrix with every per-pair field the host needs (int64
-    # reference positions split into 31-bit halves)
-    packed = torch.stack(
-        [p_valid.to(i32), p_read.to(i32), qb.to(i32), qe_f.to(i32),
-         score_f.to(i32), truesc.to(i32), a_w.to(i32), seedcov.to(i32),
-         p_rid.to(i32), p_len.to(i32),
-         (rb & 0x7FFFFFFF).to(i32), (rb >> 31).to(i32),
-         (re_f & 0x7FFFFFFF).to(i32), (re_f >> 31).to(i32)], dim=1)
-    # any capacity that truncated this read's work: the host reruns it
-    read_overflow = (smem_of | coord_of | ch.overflow | reg_overflow
-                     | read_pair_of | sw_of)
-    meta = torch.stack([frac_rep.to(torch.float32),
-                        read_overflow.to(torch.float32)], dim=1)
-    return dict(
-        valid=p_valid, read=p_read.to(i32), qb=qb, qe=qe_f, rb=rb, re=re_f,
-        score=score_f, truesc=truesc, w=a_w, seedcov=seedcov, rid=p_rid,
-        seedlen0=p_len, frac_rep=frac_rep, packed=packed, meta=meta,
-        read_overflow=read_overflow, smem_cnt=bufs.cnt, coord_total=total,
-        chain_overflow=ch.overflow, reg_overflow=reg_overflow,
-        pair_overflow=pair_overflow)
+def tier_config(c: PipelineConfig, tier: int, batch: int) -> PipelineConfig:
+    """The capacities of an overflow-retry tier (the JAX package's tier
+    formulas) for batches of `batch` reads: tier 1 from the main path's
+    config `c`, tier 2 from tier 1's."""
+    if tier == 1:
+        big = PipelineConfig(
+            max_smem_out=4 * (c.max_smem_out or 128),
+            max_coords=max(1024, 2 * c.max_coords),
+            max_chains=max(256, 4 * c.max_chains),
+            max_seeds_per_chain=max(64, 2 * c.max_seeds_per_chain),
+            max_regs=max(512, 4 * c.max_regs),
+            max_pairs=0, target_pad=c.target_pad,
+            seed_engine=c.seed_engine, bsw_engine=c.bsw_engine,
+            seed_emit_depth=48, seed_stack_depth=48, reseed_factor=8)
+        big.max_pairs = min(batch * big.max_regs, 128 * batch)
+        return big
+    big = PipelineConfig(
+        max_smem_out=2 * c.max_smem_out,
+        max_coords=16 * c.max_coords,
+        max_chains=4 * c.max_chains,
+        max_seeds_per_chain=4 * c.max_seeds_per_chain,
+        max_regs=4 * c.max_regs, max_pairs=0,
+        target_pad=c.target_pad, seed_engine=c.seed_engine,
+        bsw_engine=c.bsw_engine, seed_emit_depth=None,
+        seed_stack_depth=None, reseed_factor=256)
+    big.max_pairs = batch * big.max_regs
+    return big
 
 
 class GpuAligner:
@@ -714,12 +595,15 @@ class GpuAligner:
             slot["pm_cs"] = torch.stack(
                 [pm["code"].long(), pm["slot"].long(), pm["loc"]],
                 dim=1).cpu().numpy()
+        raise_len_flag(out)          # BSW's length check, on the device
         return (codes, lens, pm, out, {"slot": slot})
 
     def _run_device(self, fn, codes, lens, L):
         _, out = self._device_step(fn, codes, lens, L)
-        return out, {"packed": out["packed"].cpu().numpy(),
-                     "meta": out["meta"].cpu().numpy()}
+        pf = {"packed": out["packed"].cpu().numpy(),
+              "meta": out["meta"].cpu().numpy()}
+        raise_len_flag(out)
+        return out, pf
 
     def _regs_from_device(self, out, codes: np.ndarray, prefetched=None):
         """(all_regs, overflow): raw regions per read from the fetched
@@ -756,40 +640,18 @@ class GpuAligner:
         """Tier 1: seed_chain_extend bound to multiplied capacities (the
         JAX package's tier formulas)."""
         if self._retry_fn is None:
-            c = self.cfg
-            cfg_big = PipelineConfig(
-                max_smem_out=4 * (c.max_smem_out or 128),
-                max_coords=max(1024, 2 * c.max_coords),
-                max_chains=max(256, 4 * c.max_chains),
-                max_seeds_per_chain=max(64, 2 * c.max_seeds_per_chain),
-                max_regs=max(512, 4 * c.max_regs),
-                max_pairs=0, target_pad=c.target_pad,
-                seed_engine=c.seed_engine, bsw_engine=c.bsw_engine,
-                seed_emit_depth=48, seed_stack_depth=48, reseed_factor=8)
-            cfg_big.max_pairs = min(self.RETRY_BATCH * cfg_big.max_regs,
-                                    128 * self.RETRY_BATCH)
-            self._retry_cfg = cfg_big
+            self._retry_cfg = tier_config(self.cfg, 1, self.RETRY_BATCH)
             self._retry_fn = partial(seed_chain_extend, opt=self.opt,
-                                     cfg=cfg_big)
+                                     cfg=self._retry_cfg)
         return self._retry_fn
 
     def _retry2_jit(self):
         """Tier 2: full seeding depth and 16x coordinates."""
         if self._retry2_fn is None:
-            c1 = self._retry_cfg
-            cfg2 = PipelineConfig(
-                max_smem_out=2 * c1.max_smem_out,
-                max_coords=16 * c1.max_coords,
-                max_chains=4 * c1.max_chains,
-                max_seeds_per_chain=4 * c1.max_seeds_per_chain,
-                max_regs=4 * c1.max_regs, max_pairs=0,
-                target_pad=c1.target_pad, seed_engine=c1.seed_engine,
-                bsw_engine=c1.bsw_engine, seed_emit_depth=None,
-                seed_stack_depth=None, reseed_factor=256)
-            cfg2.max_pairs = self.RETRY2_BATCH * cfg2.max_regs
-            self._retry2_cfg = cfg2
+            self._retry2_cfg = tier_config(self._retry_cfg, 2,
+                                           self.RETRY2_BATCH)
             self._retry2_fn = partial(seed_chain_extend, opt=self.opt,
-                                      cfg=cfg2)
+                                      cfg=self._retry2_cfg)
         return self._retry2_fn
 
     def _oracle_raw_regs(self, query: np.ndarray):

@@ -1,7 +1,8 @@
 """Seeded read batches for measurements on the card: one batch of the
 4.6 Mbp single-end cell, one from a genome with repeats, one of long
-exact reads from its repeats (the ERT's depth cap), and one whose reads
-reach the EMF probe's multi-location rescue."""
+exact reads from its repeats (the ERT's depth cap), one whose reads
+reach the EMF probe's multi-location rescue, and one of phase 10's long
+reads."""
 
 from __future__ import annotations
 
@@ -134,3 +135,24 @@ def rescue_pairs(bns, n_pairs: int = 512, read_len: int = 101,
     codes[1::2] = comp[codes[1::2, ::-1]]
     codes[1::8, 5::10] = (codes[1::8, 5::10] + 1) % 4
     return codes
+
+
+def long_batch(n_reads: int = 512, lo: int = 800, hi: int = 2500,
+               seed: int = 10):
+    """chip_smoke.py phase 4's genome and n_reads reads of lo-hi bp
+    (uniform), 1% substitutions, every second one reverse-complemented,
+    padded with N to hi: a batch of phase 10's long reads (the seed-SW
+    filter's regime at default options). Returns (the port's index,
+    codes [n_reads, hi], lens)."""
+    bns = demo_genome(4_600_000, seed=7, n_contigs=1)
+    rng = np.random.RandomState(seed)
+    comp = np.array([3, 2, 1, 0, 4], np.int32)
+    lens = rng.randint(lo, hi + 1, n_reads).astype(np.int32)
+    codes = np.full((n_reads, hi), 4, np.int32)
+    for i, n in enumerate(lens):
+        p = rng.randint(0, bns.l_pac - n)
+        s = bns.seq[p: p + n].astype(np.int32)
+        m = rng.rand(n) < 0.01
+        s[m] = (s[m] + rng.randint(1, 4, m.sum())) % 4
+        codes[i, :n] = comp[s[::-1]] if i % 2 else s
+    return build_index(bns), codes, lens

@@ -103,8 +103,11 @@ def main(argv=None) -> int:
                 "after": bsw_cuda.banded_swa_batch_cuda}
     for w in (opt.w, opt.w << 1):
         want = banded_swa_batch(*arrs, w, *pen)
+        qs, q_lens, ts, t_lens, h0 = arrs
+        lens = torch.stack([q_lens, t_lens])
         launch = {"before": before_launch(old, arrs, w, pen),
-                  "after": lambda: bsw_cuda.launch(*arrs, w, *pen)}
+                  "after": lambda: bsw_cuda.bsw_rows(qs, lens, ts, h0, w,
+                                                     *pen)}
         times = {v: dict(ms=[], wall_ms=[]) for v in wrappers}
         for v, fn in wrappers.items():
             got = fn(*arrs, w, *pen)

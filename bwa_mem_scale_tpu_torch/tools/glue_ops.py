@@ -1,6 +1,6 @@
 """Count the PyTorch operations of each seeding engine's glue on one batch.
 
-    python -m bwa_mem_scale_tpu_torch.tools.glue_ops [--device cpu]
+    python -m bwa_mem_scale_tpu_torch.tools.glue_ops [--device cpu] [--before DIR]
 
 Runs ``collect_smems_oh`` (the one-hot engine), ``collect_smems_rl``
 (the readlane engine, 64 worker lanes), ``collect_smems_device`` (the
@@ -37,6 +37,15 @@ before csrc/sal.cu) and ``expand_and_lookup`` as the main path calls it:
 on the card the two kernels of csrc/sal.cu (the outputs' allocations;
 the launches are ctypes calls, no aten operation), on the CPU the plain
 version with its walk.
+
+Then the extension (``align.extend_chains``: from the chain filter's
+outputs to the dict) on the one-hot engine's call of the same batch at
+the default PipelineConfig: with csrc/extend.cu's seven launches and
+BSW's four replayed; with the plain versions of ``ops/extend.py`` (the
+port's earlier glue) in the kernels' places and BSW replayed; and on the
+card as the main path calls it, nothing replayed. With ``--before DIR``
+(an earlier checkout, ``git archive``), also that checkout's
+seed_chain_extend with its seeding, SA lookup, chaining and BSW replayed.
 """
 
 from __future__ import annotations
@@ -124,6 +133,10 @@ def outer_ops(run, names: set = None) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="glue_ops")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--before", metavar="DIR",
+                   help="an earlier checkout (git archive of "
+                        "bwa_mem_scale_tpu_torch and csrc): its extension's "
+                        "operations too")
     args = p.parse_args(argv)
     from ..device import resolve_device
     from ..index.build import build_index
@@ -212,7 +225,94 @@ def main(argv=None) -> int:
           f"aten ops): the earlier stage's glue (expand_and_lookup_plain, "
           f"its walk replayed) {outer_ops(earlier)}; expand_and_lookup "
           f"{stage} ({how})")
+    extension_ops(fmi, c, ln, idx, dev, args.before)
     return 0
+
+
+EXT_WRAPPERS = ("ext_select_cuda", "ext_pairs_cuda", "ext_stage_cuda",
+                "ext_band_cuda")
+
+
+@contextlib.contextmanager
+def _plain_ext(align):
+    """align's extension wrappers replaced by their plain versions
+    (ops/extend.py: the port's extension glue before csrc/extend.cu)."""
+    from ..ops import extend
+    real = {n: getattr(align, n) for n in EXT_WRAPPERS}
+    for n in EXT_WRAPPERS:
+        setattr(align, n, getattr(extend, n[:-len("_cuda")]))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(align, n, fn)
+
+
+def before_extension_ops(root: str, idx, c, ln, dev) -> int:
+    """The outermost aten operations of an earlier checkout's
+    seed_chain_extend on the batch with its seeding, SA lookup, chaining
+    and BSW calls replayed: its extension's glue."""
+    import importlib
+    from .probe_before_after import load_before
+    load_before(root)
+    old = importlib.import_module("probe_before.pipeline.align")
+    occ = importlib.import_module("probe_before.ops.occ")
+    chain = importlib.import_module("probe_before.ops.chain")
+    cfg = old.PipelineConfig(seed_engine="onehot")
+    fmi = occ.DeviceFMIndex.from_host(idx, dev)
+    dbns = chain.DeviceBns.from_host(idx.bns, dev)
+    from ..config import MemOptions
+    run = lambda: old.seed_chain_extend(fmi, dbns, c, ln, c.shape[1],
+                                        opt=MemOptions(), cfg=cfg)
+    return outer_ops(_replayed(
+        [(old, n) for n in ("collect_seeds", "expand_and_lookup",
+                            "chain_and_filter", "banded_swa_batch_cuda")],
+        run))
+
+
+def extension_ops(fmi, c, ln, idx, dev, before=None) -> None:
+    """The extension's operations a batch (``align.extend_chains``, from
+    the chain filter's outputs to the dict) on the batch's call of
+    seed_chain_extend at the default PipelineConfig (C 64, S 32, R 64,
+    PX 4,096): with its seven kernels and four BSW calls replayed; with
+    the plain versions in the kernels' places (the port's earlier glue)
+    and BSW replayed; and on the card as the main path calls it, nothing
+    replayed."""
+    from ..config import MemOptions
+    from ..ops.chain import DeviceBns
+    from ..pipeline import align
+    dbns = DeviceBns.from_host(idx.bns, dev)
+    real, seen = align.extend_chains, []
+    align.extend_chains = lambda *a, **k: seen.append((a, k)) or real(*a,
+                                                                      **k)
+    try:
+        out = align.seed_chain_extend(
+            fmi, dbns, c, ln, c.shape[1], opt=MemOptions(),
+            cfg=align.PipelineConfig(seed_engine="onehot"))
+    finally:
+        align.extend_chains = real
+    (a, k), = seen
+    run = lambda: real(*a, **k)
+    bsw = "bsw_rows"
+    now = outer_ops(_replayed([(align, n) for n in EXT_WRAPPERS + (bsw,)],
+                              run))
+    with _plain_ext(align):
+        earlier = outer_ops(_replayed([(align, bsw)], run))
+    print(f"extension operations a batch (B=512, L=101, C=64, S=32, R=64, "
+          f"PX=4,096, {int(out['valid'].sum())} pairs valid; outermost aten "
+          f"ops of align.extend_chains): the kernels and BSW replayed {now}; "
+          f"the earlier glue (the plain versions of ops/extend.py in the "
+          f"kernels' places, BSW replayed) {earlier}"
+          + ("" if before is None else
+             f"; the earlier checkout's seed_chain_extend, its seeding, SA "
+             f"lookup, chaining and BSW replayed, "
+             f"{before_extension_ops(before, idx, c, ln, dev)}"))
+    if dev.type == "cuda":
+        names = set()
+        n = outer_ops(run, names)
+        print(f"extension operations a batch as the main path calls it "
+              f"(nothing replayed: eleven launches, the rest the wrappers' "
+              f"allocations and views): {n} ({', '.join(sorted(names))})")
 
 
 if __name__ == "__main__":

@@ -34,7 +34,6 @@ from __future__ import annotations
 import argparse
 import importlib
 import sys
-import time
 
 import torch
 
@@ -48,7 +47,7 @@ from ..pipeline import align
 from .batches import repeat_batch, se_batch
 from .glue_ops import outer_ops
 from .probe_before_after import load_before
-from .timing import card_line, device_ms
+from .timing import card_line, device_ms, wall_ms
 
 NAMES = ("rbeg", "seed_idx", "coord_valid", "total", "overflow")
 
@@ -82,17 +81,6 @@ def tiled(call, reads: int) -> tuple:
     reps = reads // smems.m.shape[0]
     return (fmi, SmemBuf(*(f.repeat(reps, *[1] * (f.dim() - 1))
                            for f in smems)), *rest), kw
-
-
-def wall_ms(fn, reps: int = 20) -> float:
-    """Mean host milliseconds of fn() then a device synchronisation."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def main(argv=None) -> int:

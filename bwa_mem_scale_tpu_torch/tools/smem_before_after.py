@@ -61,8 +61,7 @@ from ..ops.smem_oh import one_pos_machine, seed_strategy_machine
 from .batches import repeat_batch, se_batch
 from .glue_ops import outer_ops
 from .probe_before_after import in_turns, load_before
-from .sal_before_after import wall_ms
-from .timing import card_line, device_ms
+from .timing import card_line, device_ms, wall_ms
 
 DEPTH = 24                       # the main path's stack and emission depth
 STEP_US = 0.224                  # probe B's dependent L2 row load

@@ -67,3 +67,17 @@ def device_ms(fn, reps: int, dev: torch.device) -> float:
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / reps
+
+
+
+def wall_ms(fn, reps: int = 20) -> float:
+    """Mean host milliseconds of fn() then a device synchronisation: the
+    host wall of a synchronised call, which device time misses where a
+    call's cost is host dispatch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps

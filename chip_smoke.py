@@ -15,10 +15,11 @@ Phases, in order; any failure exits non-zero:
               engine), csrc/kswg.cu (the CIGAR DP), csrc/kswa.cu (the
               rescue SW), csrc/sal.cu (the SA lookup stage),
               csrc/smem_glue.cu (the one-hot seeding stage's task list
-              and merge) and csrc/round_probe.cu (a warp's dependent
-              round) from source, one nvcc each, all at once; prints
-              ptxas's registers and spills for each FM walk, glue, sweep,
-              ERT, chaining, seed-SW and BSW kernel (for the BSW kernel
+              and merge), csrc/extend.cu (the extension stage's glue) and
+              csrc/round_probe.cu (a warp's dependent round) from source,
+              one nvcc each, all at once; prints ptxas's registers and
+              spills for each FM walk, glue, extension, sweep, ERT,
+              chaining, seed-SW and BSW kernel (for the BSW kernel
               one line an instantiation, failing on a spill at K = 4 or
               5 columns a lane) and the measured cost of a round.
   3. kernel:  the CUDA kernel against the plain PyTorch BSW on the card
@@ -36,16 +37,26 @@ Phases, in order; any failure exits non-zero:
               5 bp of the true position and strand, the BSW kernel
               launched, the SMEM passes 1-2 kernel at least twice a
               device batch and the pass-3, both glue (csrc/smem_glue.cu),
-              SA lookup stage (csrc/sal.cu) and both chaining kernels at
-              least once a batch, the bare SA walk (sa_walk_kernel)
-              never; reads/s, and per-stage seconds (the chain stage
+              SA lookup stage (csrc/sal.cu), both chaining and the
+              extension's select, pairs and stage kernels (csrc/extend.cu)
+              at least once a batch, its band kernel and BSW four times,
+              the bare SA walk (sa_walk_kernel) never; reads/s, and per-stage seconds (the chain stage
               among them) from a second `mem -v 4` run with synchronised
               stage timers.
   5. slice:   seed_chain_extend on one batch of phase 4 with the kernels
               and with the plain BSW, with the plain SMEM passes 1 and
               2, with the plain seeding glue, with the plain pass 3 and
-              SA lookup, and with the plain chaining: packed and meta
-              equal; collect_smems_oh with the kernels and with the
+              SA lookup, with the plain chaining, and with the plain
+              extension glue (ops/extend.py): packed and meta equal; the
+              batch's seven extension launches (csrc/extend.cu), made by
+              a further call outside the timed ones, each equal to its plain version (max_abs_err 0) with its
+              device time, plain time, bound (the bytes these inputs
+              need) and launch floor (one read or one pair); the
+              extension alone (align.extend_chains) timed, run under
+              torch.cuda.set_sync_debug_mode("error"), and the BSW length
+              check raising through fetch_extend on an over-long target;
+              the extension launches at the retry tiers' capacities (64
+              and 8 reads) and on the repeat batch held the same way; collect_smems_oh with the kernels and with the
               plain passes and glue at the three retry-tier depths (24,
               48, the read length; reseed factors 2, 8, 256): SmemBuf
               equal; the batch's two glue launches (the task list, the
@@ -104,7 +115,10 @@ Phases, in order; any failure exits non-zero:
               >= 90% of pairs with both mates mapped flagged proper, the
               median |TLEN| of proper pairs within 5% of 300; reads/s and
               the host PE stage's seconds beside the device stages'; the
-              stage seconds of a second run with `-v 4`.
+              stage seconds of a second run with `-v 4`; after the timed
+              run, one batch of mates through the run's aligner once more
+              (hold_route), each extension launch held against its plain
+              version.
   8. int64:   the int64-position layout (ops/occ.py), forced as the tests
               force it: phase 4's SE `mem` again, its SAM body byte-equal
               to phase 4's, each FM-walk and chaining kernel's int64 form
@@ -112,7 +126,10 @@ Phases, in order; any failure exits non-zero:
               and no int32 form, reads/s and `-v 4` stage seconds beside
               phase 4's; phase 5's batch and the repeat batch through
               seed_chain_extend at the int64 layout (packed and meta equal
-              to the int32 layout's at the same depth), each int64 launch
+              to the int32 layout's at the same depth; after the timed
+              run, one batch through its aligner once more, each extension
+              launch, int64 forms, held against its plain version), each
+              int64 launch
               (the glue's two included) as made against its plain
               version (max_abs_err 0) with its bound and latency floor,
               and timed beside the int32 form on the same inputs; the SA lookup stage on samples + 2^33,
@@ -130,6 +147,9 @@ Phases, in order; any failure exits non-zero:
               every batch; each run's index load beside
               from_host(force_int64=True)'s; the cached layout equal to
               from_host(force_int64=True) on the card, tensor for tensor.
+  (Phases 9, 12, 13 and 14 also hold the extension launches of each of
+  their `mem` routes against their plain versions, as phase 8 does: one
+  batch through the run's aligner after its timed run, hold_route.)
   9. sweep:   the position-parallel sweep engine with the FMA ladder
               table (csrc/sweep.cu): `smem-table` (K = 11) through the
               CLI on the card, its seconds and the table's device bytes,
@@ -175,7 +195,9 @@ Phases, in order; any failure exits non-zero:
               DP cells, longest job, bound, latency floor (the longest
               job alone), device and plain times; the batch's peak
               device memory and its four BSW calls (past 767 columns,
-              the tiled instantiation) equal to the plain BSW.
+              the tiled instantiation) equal to the plain BSW, and its
+              extension launches (on the filter's seed_live and
+              seed_score) each equal to its plain version.
  11. emf:     the device EMF probe (csrc/emf.cu) behind the in-process
               single-end API, and the in-memory index store: (a) phase
               4's 10,000 reads through GpuAligner(..., emf=table)
@@ -278,7 +300,9 @@ Phases, in order; any failure exits non-zero:
               card) and on one device: records equal, each main-path
               kernel and the EMF probe launched on every shard (counts by
               shard printed), wall times printed (host clock, no scaling
-              claimed); (b) SE `mem --num-hosts 2 --host-id 0/1
+              claimed), then one batch through the mesh's aligner, each
+              shard's extension launches held against their plain
+              versions; (b) SE `mem --num-hosts 2 --host-id 0/1
               --coordinator localhost:<port>` as two processes: the parts'
               union byte-equal to phase 4's SAM body; `mem --devices 2`
               failing with the JAX CLI's message on one card (byte-equal
@@ -307,7 +331,7 @@ Phases, in order; any failure exits non-zero:
               exactly when _KSWG is set; reads/s beside the native run's
               and the SAM lines that differ from it.
 
-Prints the kernel JSON line (all forty-four kernels, each with its bound: the
+Prints the kernel JSON line (all forty-eight kernels, each with its bound: the
 larger of its bytes over the HBM rate and its integer operations over
 the INT32 rate, and the time of one PyTorch call computing the same
 function where there is one), then as its last line
@@ -417,11 +441,15 @@ def bsw_work(args):
 
 
 def bsw_launch_only(args):
-    """A thunk of the kernel's launch alone on `args` (contiguous int32
-    CUDA tensors with lengths in range): no length check, no sync."""
+    """A thunk of the kernel's launch alone on `args` (int32 CUDA tensors
+    with lengths in range) through bsw_rows, the lengths stacked once: no
+    length check, no sync."""
+    import torch
     from bwa_mem_scale_tpu_torch.ops import bsw_cuda
-    tensors = [a.contiguous() for a in args[:5]]
-    return lambda: bsw_cuda.launch(*tensors, *args[5:12])
+    qs, q_lens, ts, t_lens, h0 = args[:5]
+    rows = (qs.contiguous(), torch.stack([q_lens, t_lens]), ts.contiguous(),
+            h0.contiguous())
+    return lambda: bsw_cuda.bsw_rows(*rows, *args[5:12])
 
 
 def bsw_pairs(rng, n, ql, tl):
@@ -550,7 +578,8 @@ def check_sam(path, emf_hit, pos, is_rev):
 def main_path_wrappers():
     """{kernel name: wrapper} of the main path's kernels (phase 4's), the
     bare SA walk (never launched there) and the CIGAR DP."""
-    from bwa_mem_scale_tpu_torch.ops import (bsw_cuda, chain_cuda, kswg_cuda,
+    from bwa_mem_scale_tpu_torch.ops import (bsw_cuda, chain_cuda,
+                                             extend_cuda, kswg_cuda,
                                              sal_cuda, smem_cuda)
     return {"banded_swa_batch": bsw_cuda.banded_swa_batch_cuda,
             "one_pos_machine": smem_cuda.one_pos_machine_cuda,
@@ -561,7 +590,20 @@ def main_path_wrappers():
             "chain_filter": chain_cuda.chain_filter_cuda,
             "ksw_global_batch": kswg_cuda.ksw_global_batch_cuda,
             "reseed_tasks": smem_cuda.reseed_tasks_cuda,
-            "merge_smems": smem_cuda.merge_smems_cuda}
+            "merge_smems": smem_cuda.merge_smems_cuda,
+            **{name: getattr(extend_cuda, attr)
+               for name, attr, _ in EXT_KERNELS}}
+
+
+def ext_launch_check(what, launches, batches):
+    """SystemExit unless the extension kernels launched once a device
+    batch each (ext_band four times) and BSW four times."""
+    for name, per in (("ext_select", 1), ("ext_pairs", 1), ("ext_stage", 1),
+                      ("ext_band", 4), ("banded_swa_batch", 4)):
+        if launches[name] < per * batches:
+            raise SystemExit(f"{what}: the {name} kernel launched "
+                             f"{launches[name]} times over {batches} device "
+                             f"batches, fewer than {per} a batch")
 
 
 def phase_mem(dev, card, tmp):
@@ -618,6 +660,7 @@ def phase_mem(dev, card, tmp):
     if launches["sa_walk"]:
         raise SystemExit(f"mem: the bare SA walk launched "
                          f"{launches['sa_walk']} times on the mem path")
+    ext_launch_check("mem", launches, al.batches)
     log(f"[mem] {N_READS} reads in {wall:.2f} s = {N_READS / wall:.1f} "
         f"reads/s end to end (mem call incl. index load)  [{card}]")
     log(f"[mem] kernel launches {launches}; EMF hits {al.emf_hits}/"
@@ -643,12 +686,13 @@ def phase_mem(dev, card, tmp):
 def phase_slice(dev, card, al, codes, lens):
     import dataclasses
     import torch
-    from bwa_mem_scale_tpu_torch.ops import chain, sal, smem_oh
+    from bwa_mem_scale_tpu_torch.ops import chain, extend, sal, smem_oh
+    from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.pipeline import align
     c = torch.as_tensor(codes, device=dev)
     ln = torch.as_tensor(lens, device=dev)
     # the wrappers of the path, by the module attribute the path calls
-    real = {(align, "banded_swa_batch_cuda"): align.banded_swa_batch_cuda,
+    real = {(align, "bsw_rows"): align.bsw_rows,
             (smem_oh, "one_pos_machine_cuda"): smem_oh.one_pos_machine_cuda,
             (smem_oh, "seed_strategy_machine_cuda"):
                 smem_oh.seed_strategy_machine_cuda,
@@ -656,7 +700,9 @@ def phase_slice(dev, card, al, codes, lens):
             (align, "chain_seeds_cuda"): align.chain_seeds_cuda,
             (align, "chain_filter_cuda"): align.chain_filter_cuda,
             (smem_oh, "reseed_tasks_cuda"): smem_oh.reseed_tasks_cuda,
-            (smem_oh, "merge_smems_cuda"): smem_oh.merge_smems_cuda}
+            (smem_oh, "merge_smems_cuda"): smem_oh.merge_smems_cuda,
+            **{(align, attr): getattr(align, attr)
+               for _, attr, _ in EXT_KERNELS}}
     calls = {name: [] for _, name in real}
 
     def recorder(name, fn):            # the batch's calls, as made
@@ -665,7 +711,11 @@ def phase_slice(dev, card, al, codes, lens):
             return fn(*args, **kw)
         return record
 
-    _, k12, k3, kwalk, kseeds, kflt, kts, kmerge = real  # its keys, in order
+    key = {name: (mod, name) for mod, name in real}
+    k12, k3 = key["one_pos_machine_cuda"], key["seed_strategy_machine_cuda"]
+    kwalk, kts = key["expand_and_lookup_cuda"], key["reseed_tasks_cuda"]
+    kseeds, kflt = key["chain_seeds_cuda"], key["chain_filter_cuda"]
+    kmerge = key["merge_smems_cuda"]
     plain = glue_plain()
     runs = (("auto", "auto", {k: recorder(k[1], fn)
                               for k, fn in real.items()}),
@@ -676,7 +726,9 @@ def phase_slice(dev, card, al, codes, lens):
             ("plain_walks", "auto", {k3: smem_oh.seed_strategy_machine,
                                      kwalk: sal.expand_and_lookup_plain}),
             ("plain_chain", "auto", {kseeds: chain.chain_seeds_device,
-                                     kflt: chain.chain_filter_frac_rep}))
+                                     kflt: chain.chain_filter_frac_rep}),
+            ("plain_ext", "auto", {key[attr]: getattr(extend, name)
+                                   for name, attr, _ in EXT_KERNELS}))
     outs = {}
     for run, bsw_eng, swaps in runs:
         cfg = dataclasses.replace(al.cfg, bsw_engine=bsw_eng)
@@ -692,10 +744,14 @@ def phase_slice(dev, card, al, codes, lens):
             for (mod, name), fn in real.items():
                 setattr(mod, name, fn)
         outs[run] = (out, time.perf_counter() - t0)
+    with ext_recorded() as ext_made:    # untimed: each extension launch
+        align.seed_chain_extend(al.fmi, al.dbns, c, ln, READ_LEN, opt=al.opt,
+                                cfg=al.cfg)
     for run, what in (("plain", "BSW"), ("plain_seed", "SMEM passes 1-2"),
                       ("plain_glue", "seeding glue"),
                       ("plain_walks", "pass 3 and SA lookup"),
-                      ("plain_chain", "chaining")):
+                      ("plain_chain", "chaining"),
+                      ("plain_ext", "extension glue (ops/extend.py)")):
         for key in ("packed", "meta"):
             if not torch.equal(outs["auto"][0][key], outs[run][0][key]):
                 raise SystemExit(f"slice: {key} differs kernel vs plain "
@@ -704,19 +760,23 @@ def phase_slice(dev, card, al, codes, lens):
     log(f"[slice] seed_chain_extend on {len(codes)} reads ({n_valid} "
         f"pairs): packed and meta equal with the kernels and with the "
         f"plain BSW, the plain SMEM passes 1-2, the plain seeding glue, the "
-        f"plain pass 3 and SA lookup, and the plain chaining; whole call "
+        f"plain pass 3 and SA lookup, the plain chaining and the plain "
+        f"extension glue; whole call "
         f"{outs['auto'][1]:.3f} s"
         f" with the kernels, {outs['plain'][1]:.3f} s with the plain BSW, "
         f"{outs['plain_seed'][1]:.3f} s with the plain SMEM passes 1-2, "
         f"{outs['plain_glue'][1]:.3f} s with the plain seeding glue, "
         f"{outs['plain_walks'][1]:.3f} s with the plain pass 3 and SA "
-        f"lookup, {outs['plain_chain'][1]:.3f} s with the plain chaining  "
+        f"lookup, {outs['plain_chain'][1]:.3f} s with the plain chaining, "
+        f"{outs['plain_ext'][1]:.3f} s with the plain extension glue  "
         f"[{card}]")
-    bsw_calls = [a for a, _ in calls["banded_swa_batch_cuda"]]
+    # the BSW calls as made ([2, P] lengths) in the wrapper's form
+    bsw_calls = [(q, ls[0], t, ls[1], h0, *rest)
+                 for (q, ls, t, h0, *rest), _ in calls["bsw_rows"]]
     if len(bsw_calls) != 4:
         raise SystemExit(f"slice: {len(bsw_calls)} BSW calls, expected 4")
     path = []
-    bsw = real[(align, "banded_swa_batch_cuda")]
+    bsw = banded_swa_batch_cuda
     for n, args in enumerate(bsw_calls):
         wk = bsw_work(args)
         ms = device_ms(bsw_launch_only(args), 20, dev)
@@ -734,7 +794,9 @@ def phase_slice(dev, card, al, codes, lens):
                        ("expand_and_lookup_cuda", 1),
                        ("chain_seeds_cuda", 1),
                        ("chain_filter_cuda", 1),
-                       ("reseed_tasks_cuda", 1), ("merge_smems_cuda", 1)):
+                       ("reseed_tasks_cuda", 1), ("merge_smems_cuda", 1),
+                       ("ext_select_cuda", 1), ("ext_pairs_cuda", 1),
+                       ("ext_stage_cuda", 1), ("ext_band_cuda", 4)):
         if len(calls[name]) != want:
             raise SystemExit(f"slice: {len(calls[name])} {name} launches, "
                              f"expected {want}")
@@ -749,9 +811,13 @@ def phase_slice(dev, card, al, codes, lens):
     glue = {name: glue_launch(dev, card, "phase 5's batch, as made", attr,
                               calls[attr][0][0])
             for name, attr, _ in GLUE_KERNELS}
+    hold_ext(ext_made, "phase 5's batch", card)
+    ext = ext_time(ext_made, dev, card, "phase 5's batch")
+    ext["whole"] = ext_whole(dev, card, al, c, ln)
+    ext_tiers(dev, card, al, c, ln)
     smem_tiers(dev, card, al, c, ln)
     repeat_slice(dev, card, al)
-    return path, smem, p3, walk, seeds, flt, glue
+    return path, smem, p3, walk, seeds, flt, glue, ext
 
 
 def walk_launch(dev, what, kernel, plain, args, plain_reps, kw=None):
@@ -1138,15 +1204,20 @@ def repeat_slice(dev, card, al):
         for (mod, name), fn in swaps.items():
             setattr(mod, name, fn)
         try:
-            outs.append(align.seed_chain_extend(fmi, dbns, c, ln, READ_LEN,
-                                                opt=al.opt, cfg=al.cfg))
+            with (ext_recorded() if not outs
+                  else contextlib.nullcontext()) as made:
+                outs.append(align.seed_chain_extend(
+                    fmi, dbns, c, ln, READ_LEN, opt=al.opt, cfg=al.cfg))
         finally:
             for (mod, name), fn in real.items():
                 setattr(mod, name, fn)
+        if len(outs) == 1:
+            ext_made = made
     for key in ("packed", "meta"):
         if not torch.equal(outs[0][key], outs[1][key]):
             raise SystemExit(f"slice: repeat batch {key} differs kernel vs "
                              f"plain chaining")
+    hold_ext(ext_made, "repeat batch", card)
     log(f"[slice] repeat batch ({len(codes)} reads on a 2 Mbp genome with "
         f"repeats; made, indexed and seeded in "
         f"{time.perf_counter() - t0:.1f} s): seed_chain_extend packed and "
@@ -1337,6 +1408,234 @@ def glue_launch(dev, card, what, attr, args, got=None):
         f"{plain_ms:.3f} ms  [{card}]")
     return r
 
+# the extension stage's kernels (csrc/extend.cu): the name in the JSON
+# line, the wrapper's name in ops/extend_cuda.py (pipeline/align.py calls
+# it by that name), the JAX lines each replaces
+EXT_KERNELS = (
+    ("ext_select", "ext_select_cuda",
+     "bwa_mem_scale_tpu/pipeline/align.py:202"),
+    ("ext_pairs", "ext_pairs_cuda",
+     "bwa_mem_scale_tpu/pipeline/align.py:331"),
+    ("ext_stage", "ext_stage_cuda",
+     "bwa_mem_scale_tpu/pipeline/align.py:359"),
+    ("ext_band", "ext_band_cuda",
+     "bwa_mem_scale_tpu/pipeline/align.py:410"))
+# each extension kernel's largest max_abs_err over every launch held
+EXT_ERR = {name: 0.0 for name, _, _ in EXT_KERNELS}
+
+
+@contextlib.contextmanager
+def ext_recorded():
+    """align's extension wrappers recording each launch as the path makes
+    it: yields [(wrapper's name, positional arguments, output, mesh
+    shard)]."""
+    import inspect
+    import threading
+    from bwa_mem_scale_tpu_torch.ops import extend_cuda
+    from bwa_mem_scale_tpu_torch.parallel.mesh import current_shard
+    from bwa_mem_scale_tpu_torch.pipeline import align
+    made, lock = [], threading.Lock()
+    real = {a: getattr(align, a) for _, a, _ in EXT_KERNELS}
+
+    def recorder(a):
+        sig = inspect.signature(getattr(extend_cuda, a))
+
+        def call(*args, **kw):
+            out = real[a](*args, **kw)
+            with lock:
+                made.append((a, sig.bind(*args, **kw).args, out,
+                             current_shard()))
+            return out
+        return call
+    for a in real:
+        setattr(align, a, recorder(a))
+    try:
+        yield made
+    finally:
+        for a, fn in real.items():
+            setattr(align, a, fn)
+
+
+def ext_fresh_flag(attr, args):
+    """args with the pairs' BSW length flag cloned (the stage and the band
+    phases OR into it in place)."""
+    args = list(args)
+    i = {"ext_stage_cuda": 0, "ext_band_cuda": 2}.get(attr)
+    if i is not None:
+        args[i] = args[i]._replace(flag=args[i].flag.clone())
+    return args
+
+
+def ext_err(got, want):
+    """(max_abs_err, every output equal in dtype, shape and value) of two
+    outputs of an extension kernel (a tensor or a tuple of them)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err, same = 0.0, len(got) == len(want)
+    for a, b in zip(got, want):
+        same = same and a.dtype == b.dtype and a.shape == b.shape
+        if same and a.numel():
+            err = max(err, float((a.double() - b.double()).abs().max()))
+    return err, same
+
+
+def hold_ext(made, what, card):
+    """Each recorded extension launch (ext_recorded) against its plain
+    version on the same inputs: every output at max_abs_err 0, or
+    SystemExit. Returns {kernel name: launches held}."""
+    import collections
+    import torch
+    from bwa_mem_scale_tpu_torch.ops import extend
+    held = collections.Counter()
+    for attr, args, out, _ in made:
+        name = attr[:-len("_cuda")]
+        want = getattr(extend, name)(*ext_fresh_flag(attr, args))
+        err, same = ext_err(out, want)
+        if err or not same:
+            raise SystemExit(f"ext: {what}: a {name} launch != plain "
+                             f"(max_abs_err {err}, dtypes and shapes "
+                             f"{'equal' if same else 'differ'})")
+        EXT_ERR[name] = max(EXT_ERR[name], err)
+        held[name] += 1
+    torch.cuda.synchronize()
+    log(f"[ext] {what}: {sum(held.values())} extension launches as made, "
+        f"each equal to its plain version (max_abs_err 0): {dict(held)}  "
+        f"[{card}]")
+    return held
+
+
+def hold_route(al, codes, lens, what, card):
+    """The extension launches of one batch of `al`'s route (its engine,
+    position layout and mesh), made after the route's timed run, which
+    keeps only the wrappers' counts: the batch's device stages once more
+    (GpuAligner._device_step: no count, stat or batch of the aligner
+    moves), each extension launch recorded and held against its plain
+    version (hold_ext), on a mesh shard by shard."""
+    import torch
+    from bwa_mem_scale_tpu_torch.ops.extend import raise_len_flag
+    codes = np.ascontiguousarray(codes[:BATCH], dtype=np.int32)
+    lens = np.ascontiguousarray(lens[:BATCH], dtype=np.int32)
+    L = int(codes.shape[1])
+    with ext_recorded() as made:
+        _, out = al._device_step(al._extend, codes, lens, L,
+                                 probe=al._probes_on_device(L))
+        torch.cuda.synchronize()
+    raise_len_flag(out)
+    if al.mesh is None:
+        return hold_ext(made, what, card)
+    for sh in range(al.mesh.size):
+        mine = [m for m in made if m[3] == sh]
+        if not mine:
+            raise SystemExit(f"ext: {what}: shard {sh} made no extension "
+                             f"launch")
+        hold_ext(mine, f"{what}, shard {sh}", card)
+
+
+def ext_time(made, dev, card, what):
+    """Each extension kernel's launches of one seed_chain_extend call as
+    made, timed alone (device ms, mean over its launches: ext_band's four
+    phases), beside its plain version (host clock, synchronised), its
+    bound (tools/extend_before_after.py::ext_work: each distinct input
+    byte read once, each output written once, the work these inputs need) and its launch
+    floor (the kernel on one read or one pair). Returns {name: numbers}."""
+    from bwa_mem_scale_tpu_torch.ops import extend, extend_cuda
+    from bwa_mem_scale_tpu_torch.tools.extend_before_after import (
+        ext_work, one_item)
+    res = {}
+    for name, attr, _ in EXT_KERNELS:
+        calls = [args for a, args, _, _ in made if a == attr]
+        k, p = getattr(extend_cuda, attr), getattr(extend, name)
+        ms = [device_ms(lambda a=a: k(*a), 20, dev) for a in calls]
+        plain = [time_ms(lambda a=a: p(*ext_fresh_flag(attr, a)), 2, dev)
+                 for a in calls]
+        ones = [one_item(attr, a) for a in calls]
+        floor = [device_ms(lambda a=a: k(*a), 20, dev) for a in ones]
+        work = [ext_work(attr, a) for a in calls]
+        nbytes = sum(w[0] for w in work) / len(work)
+        ops = sum(w[1] for w in work) / len(work)
+        mean = lambda x: sum(x) / len(x)
+        r = res[name] = dict(ms=mean(ms), plain_ms=mean(plain),
+                             floor=mean(floor), bound=bound(nbytes, ops),
+                             launches=len(calls))
+        log(f"[ext] {what}, {name}: {len(calls)} launch"
+            f"{'es' if len(calls) > 1 else ''} a call; kernel device time "
+            f"{r['ms']:.5f} ms a launch ("
+            + ", ".join(f"{x:.5f}" for x in ms)
+            + f"), plain {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound'][0]:.6f} ms by {r['bound'][1]} ({nbytes:.0f} bytes,"
+            f" {ops:.0f} operations), launch floor {r['floor']:.5f} ms (one "
+            f"{'read' if name in ('ext_select', 'ext_pairs') else 'pair'})  "
+            f"[{card}]")
+    return res
+
+
+def ext_whole(dev, card, al, c, ln):
+    """Phase 5's batch: the extension alone (align.extend_chains, from the
+    chain filter's outputs to the dict) timed on the card (device ms and
+    a synchronised call's host wall), run once more under
+    torch.cuda.set_sync_debug_mode("error") (no host synchronisation), and
+    the BSW length check raising through fetch_extend on targets shorter
+    than their lengths (target_pad set so that TL is 8)."""
+    import dataclasses
+    import torch
+    from bwa_mem_scale_tpu_torch.pipeline import align
+    from bwa_mem_scale_tpu_torch.tools.timing import wall_ms
+    real, seen = align.extend_chains, []
+    align.extend_chains = lambda *a, **k: seen.append((a, k)) or real(*a,
+                                                                      **k)
+    try:
+        want = align.seed_chain_extend(al.fmi, al.dbns, c, ln, READ_LEN,
+                                       opt=al.opt, cfg=al.cfg)
+    finally:
+        align.extend_chains = real
+    (a, k), = seen
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = real(*a, **k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    bad = [key for key, v in want.items() if not torch.equal(got[key], v)]
+    if bad:
+        raise SystemExit(f"ext: the extension under the sync debug mode "
+                         f"differs in {bad}")
+    ms = device_ms(lambda: real(*a, **k), 20, dev)
+    wall = wall_ms(lambda: real(*a, **k))
+    short = dataclasses.replace(al.cfg,
+                                target_pad=8 - READ_LEN - 2 * al.opt.w)
+    out = align.seed_chain_extend(al.fmi, al.dbns, c, ln, READ_LEN,
+                                  opt=al.opt, cfg=short)
+    try:
+        al.fetch_extend((c.cpu().numpy(), ln.cpu().numpy(), None, out))
+    except ValueError as e:
+        if "exceeds its row count" not in str(e):
+            raise
+    else:
+        raise SystemExit("ext: an over-long BSW length did not raise")
+    log(f"[ext] phase 5's batch: the extension alone (extend_chains: "
+        f"eleven launches) {ms:.5f} ms device, {wall:.5f} ms host wall of a "
+        f"synchronised call; no host synchronisation under "
+        f"set_sync_debug_mode('error'); an over-long BSW length (TL 8) "
+        f"raised through fetch_extend with the check's message  [{card}]")
+    return dict(ms=ms, wall=wall)
+
+
+def ext_tiers(dev, card, al, c, ln):
+    """seed_chain_extend on phase 5's batch at the retry tiers'
+    capacities (tier 1 on its first 64 reads, tier 2 on its first 8:
+    align.tier_config, as GpuAligner sizes them), each extension launch
+    held against its plain version."""
+    from bwa_mem_scale_tpu_torch.pipeline import align
+    t1 = align.tier_config(al.cfg, 1, 64)
+    for tier, n, cfg in ((1, 64, t1), (2, 8, align.tier_config(t1, 2, 8))):
+        with ext_recorded() as made:
+            align.seed_chain_extend(al.fmi, al.dbns, c[:n], ln[:n], READ_LEN,
+                                    opt=al.opt, cfg=cfg)
+        hold_ext(made, f"phase 5's batch at tier {tier} ({n} reads, C "
+                 f"{cfg.max_chains}, S {cfg.max_seeds_per_chain}, R "
+                 f"{cfg.max_regs}, PX {cfg.max_pairs})", card)
+
 
 def tier_against_plain(fmi, c, ln, opt, depth, rf, dev, card, batch):
     """collect_smems_oh at a retry tier's depth (24, 48 or None) and
@@ -1382,9 +1681,8 @@ def smem_tiers(dev, card, al, c, ln):
     with the plain passes 1-3 and glue swapped in: SmemBuf equal, each
     glue launch held; on each tier's SMEMs the SA lookup stage at the
     tier's coordinate capacity (512, 1,024, 16,384) against its plain
-    version (sal_stage_launch). Then the whole collection of the batch
-    timed with the kernels."""
-    from bwa_mem_scale_tpu_torch.ops import smem_oh
+    version (sal_stage_launch). (The whole collection's time, with the
+    parent's in turns, is tools/smem_before_after.py --stage's.)"""
     opt = al.opt
     for depth, rf, coords in ((24, 2, 512), (48, 8, 1024),
                               (None, 256, 16384)):
@@ -1395,13 +1693,6 @@ def smem_tiers(dev, card, al, c, ln):
             f"({int(got.cnt.clamp(max=got.m.shape[1]).sum())} SMEMs)")
         sal_stage_launch(dev, card, (al.fmi, got, opt.max_occ, coords), {},
                          batch=f"the batch at the tier of depth {depth}")
-    tier = dict(min_seed_len=opt.min_seed_len, split_len=opt.split_len,
-                split_width=opt.split_width, max_mem_intv=opt.max_mem_intv,
-                emit_depth=24, stack_depth=24, reseed_factor=2)
-    whole = time_ms(lambda: smem_oh.collect_smems_oh(al.fmi, c, ln, **tier),
-                    2, dev)
-    log(f"[slice] seeding one batch: collect_smems_oh {whole:.2f} ms with "
-        f"the kernels (host clock, synchronised)  [{card}]")
 
 
 def write_pairs(tmp, bns):
@@ -1484,10 +1775,10 @@ def phase_pe(dev, card, tmp):
     PROFILER.counts.clear()
 
     wrappers = main_path_wrappers()
-    for w in wrappers.values():                 # PE path starts here
-        w.launches = 0
     pe_argv = [g, os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq"),
                "-o", sam, "--device", "cuda", "--batch-reads", str(BATCH)]
+    for w in wrappers.values():                 # PE path starts here
+        w.launches = 0
     t0 = time.perf_counter()
     al = cli.mem(pe_argv)
     torch.cuda.synchronize()
@@ -1511,6 +1802,9 @@ def phase_pe(dev, card, tmp):
     if launches["sa_walk"]:
         raise SystemExit(f"pe: the bare SA walk launched "
                          f"{launches['sa_walk']} times on the PE path")
+    ext_launch_check("pe", launches, al.batches)
+    hold_route(al, codes, lens, "phase 7's PE route (one batch of mates)",
+               card)
     n = 2 * N_PAIRS
     sec = PROFILER.totals
     log(f"[pe] {n} reads ({N_PAIRS} pairs) in {wall:.2f} s = "
@@ -1935,22 +2229,27 @@ def phase_int64(dev, card, tmp, se, al, codes, lens, slice32):
     the forced run's launches."""
     import torch
     from bwa_mem_scale_tpu_torch import cli
-    from bwa_mem_scale_tpu_torch.ops import chain
+    from bwa_mem_scale_tpu_torch.ops import chain, extend_cuda
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex, HI_STEPS
     from bwa_mem_scale_tpu_torch.tools.batches import repeat_batch
     t0 = time.perf_counter()
     wrappers = int64_wrappers()
     out = os.path.join(tmp, "out64.sam")
     argv = [*se["argv"][:2], "-o", out, *se["argv"][4:]]
+    # the extension kernels with an int64 form (ext_pairs has none)
+    ext64 = {name: getattr(extend_cuda, attr)
+             for name, attr, _ in EXT_KERNELS if name != "ext_pairs"}
     with forced_int64():
-        for w in wrappers.values():             # int64 path starts here
-            w.launches = w.launches64 = 0
+        for w in (*wrappers.values(), *ext64.values()):
+            w.launches = w.launches64 = 0       # int64 path starts here
         t1 = time.perf_counter()
         al64 = cli.mem(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = {n: (w.launches, w.launches64)
                     for n, w in wrappers.items()}
+        ext_launches = {n: (w.launches, w.launches64)
+                        for n, w in ext64.items()}
         # int64 path ends here
         al4 = cli.mem(argv + ["-v", "4"])
     if al64.fmi.pos_dtype != torch.int64:
@@ -1958,17 +2257,20 @@ def phase_int64(dev, card, tmp, se, al, codes, lens, slice32):
 
     if sam_body(out) != sam_body(se["argv"][3]):
         raise SystemExit("int64: the SE SAM differs from phase 4's")
-    for name, (n, n64) in launches.items():
-        want = (2 if name == "one_pos_machine" else 1) * al64.batches
+    for name, (n, n64) in (*launches.items(), *ext_launches.items()):
+        want = ({"one_pos_machine": 2, "ext_band": 4}.get(name, 1)
+                * al64.batches)
         if n64 < want or n != n64:
             raise SystemExit(f"int64: {name} launched {n} times, {n64} in "
                              f"its int64 form, over {al64.batches} batches")
+    hold_route(al64, codes, lens, "phase 8's forced int64 SE route", card)
     n_reads = N_READS
     log(f"[int64] SE mem at the forced layout: SAM body byte-equal to phase "
         f"4's; {n_reads} reads in {wall:.2f} s = {n_reads / wall:.1f} "
         f"reads/s (phase 4: {se['wall']:.2f} s = "
         f"{n_reads / se['wall']:.1f}); int64-form launches "
-        f"{ {k: v[1] for k, v in launches.items()} } over {al64.batches} "
+        f"{ {k: v[1] for k, v in (*launches.items(), *ext_launches.items())} }"
+        f" over {al64.batches} "
         f"device batches; overflow-retried reads {al64.overflow_retried}  "
         f"[{card}]")
     sec, s32 = al4.prof.seconds, se["seconds"]
@@ -2379,6 +2681,8 @@ def phase_sweep(dev, card, tmp, se, pe, al, codes, lens, slice32):
             wall = time.perf_counter() - t1
             n = {k: (w.launches, w.launches64) for k, w in counted.items()}
             # sweep path ends here
+        hold_route(a, codes, lens, f"phase 9's mem --seed-engine sweep"
+                   f"{' (int64)' if wide else ''}", card)
         a.index_load = PROFILER.totals["index_load"]
         if a.cfg.seed_engine != "sweep" or a.dfma is None:
             raise SystemExit("sweep: mem did not take the sweep with the "
@@ -2684,7 +2988,7 @@ def phase_longread(dev, card, tmp):
         codes[i, :len(s)] = s
     L = codes.shape[1]
     real = seedsw_cuda.local_sw_score_cuda
-    real_bsw = align.banded_swa_batch_cuda
+    real_bsw = align.bsw_rows
     captured, bsw_calls = [], []
 
     def record(*args):
@@ -2696,29 +3000,34 @@ def phase_longread(dev, card, tmp):
         return real_bsw(*args, **kw)
 
     seedsw_cuda.local_sw_score_cuda = record
-    align.banded_swa_batch_cuda = record_bsw
+    align.bsw_rows = record_bsw
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    c_dev = torch.as_tensor(codes, device=dev)
+    l_dev = torch.as_tensor(lens, device=dev)
     try:
-        align.seed_chain_extend(al.fmi, al.dbns, torch.as_tensor(
-            codes, device=dev), torch.as_tensor(lens, device=dev), L,
-            opt=al.opt, cfg=al.cfg)
+        align.seed_chain_extend(al.fmi, al.dbns, c_dev, l_dev, L, opt=al.opt,
+                                cfg=al.cfg)
         torch.cuda.synchronize()
     finally:
         seedsw_cuda.local_sw_score_cuda = real
-        align.banded_swa_batch_cuda = real_bsw
+        align.bsw_rows = real_bsw
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with ext_recorded() as ext_made:    # a second call, past the peak's
+        align.seed_chain_extend(al.fmi, al.dbns, c_dev, l_dev, L, opt=al.opt,
+                                cfg=al.cfg)
     if len(captured) != 1:
         raise SystemExit(f"longread: {len(captured)} seed-SW calls in one "
                          f"batch, expected 1")
     # the batch's BSW calls at its width (the column-tiled instantiation
     # past 767 columns, with its per-pair scratch) against the plain BSW
     from bwa_mem_scale_tpu_torch.ops import bsw_cuda
-    from bwa_mem_scale_tpu_torch.ops.bsw import banded_swa_batch
+    from bwa_mem_scale_tpu_torch.ops.bsw import (BswBatchResult,
+                                                 banded_swa_rows)
     for i, args in enumerate(bsw_calls):
-        got, want = real_bsw(*args), banded_swa_batch(*args)
+        got, want = real_bsw(*args), banded_swa_rows(*args)
         torch.cuda.synchronize()
-        bad = [f for f, x, y in zip(got._fields, got, want)
+        bad = [f for f, x, y in zip(BswBatchResult._fields, got, want)
                if not torch.equal(x, y)]
         if bad:
             raise SystemExit(f"longread: BSW call {i} of the batch != plain "
@@ -2732,6 +3041,8 @@ def phase_longread(dev, card, tmp):
         f"{'the tiled instantiation, scratch' if tiled else 'scratch'} "
         f"{scratch / 2 ** 20 if tiled else 0:.0f} MiB a call) each equal to "
         f"the plain BSW  [{card}]")
+    hold_ext(ext_made, "phase 10's long-read batch (the seed-SW filter's "
+             "seed_live and seed_score)", card)
     r = seedsw_launch(dev, card, captured[0])
     r["launches"] = runs["a"]["launches"] + runs["b"]["launches"]
     log(f"[longread] phase 10 took {time.perf_counter() - t_phase:.1f} s")
@@ -3192,6 +3503,7 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
     from bwa_mem_scale_tpu_torch.index.artifacts import load_index
     from bwa_mem_scale_tpu_torch.index.ert import build_ert
     from bwa_mem_scale_tpu_torch.ops import ert as ops_ert
+    from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.ops.occ import DeviceFMIndex
     from bwa_mem_scale_tpu_torch.pipeline import align
     from bwa_mem_scale_tpu_torch.tools.batches import depth_cap_batch
@@ -3224,7 +3536,7 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
         f"{os.path.getsize(f'{e}.ert{ERT_K}.npz') / 2 ** 20:.1f} MiB")
 
     counted = {**ert_wrappers(), **sweep_wrappers(), **int64_wrappers(),
-               "banded_swa_batch": align.banded_swa_batch_cuda}
+               "banded_swa_batch": banded_swa_batch_cuda}
     retried = set()
     real_run = align.GpuAligner._run_device
 
@@ -3256,6 +3568,9 @@ def phase_ert(dev, card, tmp, se, pe, sweep, codes, lens):
                 # ERT path ends here
         finally:
             align.GpuAligner._run_device = real_run
+        hold_route(a, codes, lens, f"phase 12's mem (trie "
+                   f"{'on' if trie_on else 'off'}{', int64' if wide else ''})",
+                   card)
         a.index_load = PROFILER.totals["index_load"]
         if (a.dert is not None) != trie_on or a.cfg.seed_engine != "sweep":
             raise SystemExit(f"ert: {argv[0]}: the trie {'not ' * trie_on}"
@@ -3704,6 +4019,9 @@ def phase_kstep(dev, card, tmp, se, pe, al):
         n = {k: (w.launches, getattr(w, "launches_k", 0))
              for k, w in counted.items()}
         # k-step path ends here
+        miss = ~se["emf_hit"]
+        hold_route(a, se["codes"][miss], se["lens"][miss], f"phase 13's "
+                   f"mem (K = {K}{', sweep' if sweep else ''})", card)
         if a.fmi.kstep != K:
             raise SystemExit(f"kstep: mem did not load the K={K} table")
         walks = ({"sweep_extend": 2, "seed_strategy_merged": 1} if sweep else
@@ -4109,6 +4427,9 @@ def phase_readlane(dev, card, tmp, se, pe, al, kst):
         n = {k: (w.launches, w.launches64, getattr(w, "launches_k", 0))
              for k, w in counted.items()}
         # readlane path ends here
+        miss = ~se["emf_hit"]
+        hold_route(a, se["codes"][miss], se["lens"][miss],
+                   f"phase 14's readlane mem ({form})", card)
         if sam_body(argv[argv.index("-o") + 1]) != sam_body(want_sam):
             raise SystemExit(f"readlane: the {form} SAM differs from the "
                              f"one-hot engine's")
@@ -4254,7 +4575,7 @@ def mesh_sites():
     {(module, attribute): kernel name}."""
     from bwa_mem_scale_tpu_torch.ops import sal, smem_oh
     from bwa_mem_scale_tpu_torch.pipeline import align
-    return {(align, "banded_swa_batch_cuda"): "banded_swa_batch",
+    return {(align, "bsw_rows"): "banded_swa_batch",
             (smem_oh, "one_pos_machine_cuda"): "one_pos_machine",
             (smem_oh, "seed_strategy_machine_cuda"): "seed_strategy_machine",
             (sal, "expand_and_lookup_cuda"): "expand_and_lookup",
@@ -4262,7 +4583,8 @@ def mesh_sites():
             (align, "chain_filter_cuda"): "chain_filter",
             (align, "emf_lookup_cuda"): "emf_lookup",
             (smem_oh, "reseed_tasks_cuda"): "reseed_tasks",
-            (smem_oh, "merge_smems_cuda"): "merge_smems"}
+            (smem_oh, "merge_smems_cuda"): "merge_smems",
+            **{(align, attr): name for name, attr, _ in EXT_KERNELS}}
 
 
 @contextlib.contextmanager
@@ -4508,6 +4830,8 @@ def phase_mesh(dev, card, tmp, se, pe):
             shard_calls = dict(counts)       # the mesh's path ends here
         outs[key] = (rec_key(recs), rec_key(pe_recs), mates,
                      rec_key([got[i] for i in range(MESH_STREAM)]))
+        if key == "mesh":
+            hold_route(al, se_c, se_l, "phase 15's mesh", card)
     for i, what in enumerate(("SE align_and_finalize", "PE "
                               "align_pairs_and_finalize", "PE mates",
                               "SeStream")):
@@ -4759,8 +5083,9 @@ def main():
     from bwa_mem_scale_tpu_torch.ops import emf_cuda, seedsw_cuda, sweep_cuda
     from bwa_mem_scale_tpu_torch.ops import ert_cuda, smem_rl_cuda
     from bwa_mem_scale_tpu_torch.ops import kswa_cuda, kswg_cuda, sal_cuda
+    from bwa_mem_scale_tpu_torch.ops import extend_cuda
     from bwa_mem_scale_tpu_torch.tools import round_cost
-    with ThreadPoolExecutor(14) as ex:          # one nvcc a source, at once
+    with ThreadPoolExecutor(15) as ex:          # one nvcc a source, at once
         builds = [ex.submit(bsw_cuda.build, force=True),
                   ex.submit(probe_kernels.build, force=True, verbose=True),
                   ex.submit(smem_cuda.build, force=True),
@@ -4774,7 +5099,8 @@ def main():
                   ex.submit(kswg_cuda.build, force=True),
                   ex.submit(kswa_cuda.build, force=True),
                   ex.submit(sal_cuda.build, force=True),
-                  ex.submit(smem_cuda.build_glue, force=True)]
+                  ex.submit(smem_cuda.build_glue, force=True),
+                  ex.submit(extend_cuda.build, force=True)]
         probes_seconds = builds[1].result()[1]
         for b in builds:
             b.result()
@@ -4805,7 +5131,9 @@ def main():
         f"{os.path.relpath(sal_cuda.LIB.path, REPO)} in "
         f"{sal_cuda.LIB.build_seconds:.2f} s; csrc/smem_glue.cu -> "
         f"{os.path.relpath(smem_cuda.GLUE.path, REPO)} in "
-        f"{smem_cuda.GLUE.build_seconds:.2f} s (in parallel)")
+        f"{smem_cuda.GLUE.build_seconds:.2f} s; csrc/extend.cu -> "
+        f"{os.path.relpath(extend_cuda.LIB.path, REPO)} in "
+        f"{extend_cuda.LIB.build_seconds:.2f} s (in parallel)")
     log(f"[build] one warp's dependent round (tools/round_cost.py: a "
         f"shared-memory load, a shuffle, a ballot), equal to its plain "
         f"model: {round_cost.round_us(dev):.5f} us, the chaining floors' "
@@ -4814,7 +5142,8 @@ def main():
                for lib in ("smem_cuda", "bsw_cuda", "chain_cuda",
                            "sweep_cuda", "seedsw_cuda", "emf_cuda",
                            "ert_cuda", "readlane_cuda", "kswg_cuda",
-                           "kswa_cuda", "sal_cuda", "smem_glue_cuda")}
+                           "kswa_cuda", "sal_cuda", "smem_glue_cuda",
+                           "extend_cuda")}
     # each FM-walk and chaining kernel in its int32 (P = int, mangled i)
     # and int64 (P = long long, x) forms; the FM walks' 1-step forms (KS =
     # 1, mangled Li1E) and their k-step forms (int32 only)
@@ -4838,6 +5167,13 @@ def main():
              "reseed_tasks_kernel<{}>"),
             ("smem_glue_cuda", "merge_smems_kernelI{}",
              "merge_smems_kernel<{}>"),
+            ("extend_cuda", "ext_select_kernelI{}", "ext_select_kernel<{}>"),
+            ("extend_cuda", "ext_pairs_kernel", "ext_pairs_kernel"),
+            ("extend_cuda", "ext_stage_kernelI{}", "ext_stage_kernel<{}>"),
+            ("extend_cuda", "ext_band_kernelILi1E{}",
+             "ext_band_kernel<1, {}>"),
+            ("extend_cuda", "ext_band_kernelILi3E{}",
+             "ext_band_kernel<3, {}>"),
             ("sal_cuda", "sal_count_kernelI{}", "sal_count_kernel<{}>"),
             ("sal_cuda", "sal_walk_kernelI{}", "sal_walk_kernel<{}>"),
             ("chain_cuda", "chain_seeds_kernelI{}", "chain_seeds_kernel<{}>"),
@@ -4901,8 +5237,8 @@ def main():
     k = phase_kernel(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches, al, codes, lens, se = phase_mem(dev, card, tmp)
-        _, smem, p3, walk, seeds, flt, glue = phase_slice(dev, card, al,
-                                                          codes, lens)
+        _, smem, p3, walk, seeds, flt, glue, ext = phase_slice(
+            dev, card, al, codes, lens)
         probes = phase_probes(dev, card)
         _, pe = phase_pe(dev, card, tmp)
         wide = phase_int64(dev, card, tmp, se, al, codes, lens,
@@ -4965,6 +5301,12 @@ def main():
         "bound_ms": glue[name]["bound"][0],
         "bound_by": glue[name]["bound"][1], "library_ms": None}
         for name, _, replaces in GLUE_KERNELS] + [{
+        "name": name, "route": "cuda", "source": "csrc/extend.cu",
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": EXT_ERR[name], "ms": ext[name]["ms"],
+        "plain_ms": ext[name]["plain_ms"], "bound_ms": ext[name]["bound"][0],
+        "bound_by": ext[name]["bound"][1], "library_ms": None}
+        for name, _, replaces in EXT_KERNELS] + [{
         "name": f"{name}_int64", "route": "cuda", "source": source,
         "replaces": replaces, "launches": wide["launches"][name],
         "max_abs_err": wide[name]["err"], "ms": wide[name]["ms"],

@@ -24,7 +24,8 @@
 // flat rank is a scan over reads. Design: one block of 1,024 threads
 // loops over the reads in chunks of 1,024, a thread a read: it counts
 // its candidates, the block scans the counts (a warp-shuffle scan in
-// each warp, then one warp scans the 32 warp totals in shared memory)
+// each warp, then one warp scans the 32 warp totals in shared memory;
+// csrc/block_scan.cuh, shared with csrc/extend.cu)
 // and carries the chunk's total to the next chunk, and each thread
 // writes its own tasks at its rank. No block waits on another's result,
 // so nothing rests on the order in which blocks are dispatched (the
@@ -76,7 +77,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"
+
 namespace {
+
+using scan::warp_inclusive;
 
 constexpr int WARP = 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -107,14 +112,6 @@ struct SmemOut {
   int32_t* cnt;
 };
 
-__device__ __forceinline__ int warp_inclusive(int v, int lane) {
-  for (int d = 1; d < WARP; d <<= 1) {
-    const int u = __shfl_up_sync(FULL, v, d);
-    if (lane >= d) v += u;
-  }
-  return v;
-}
-
 template <typename P>
 __device__ __forceinline__ bool is_cand(const SmemIn<P>& p, long long i,
                                         int split_len, long long split_width) {
@@ -129,7 +126,7 @@ __global__ void __launch_bounds__(TASK_THREADS) reseed_tasks_kernel(
     uint8_t* __restrict__ reseed_of, int32_t* __restrict__ first,
     int32_t* __restrict__ count) {
   __shared__ int warp_inc[TASK_THREADS / WARP];
-  const int tid = threadIdx.x, lane = tid & (WARP - 1), w = tid / WARP;
+  const int tid = threadIdx.x;
   int carry = 0;                 // the candidates of the earlier chunks
   for (int base = 0; base < B; base += TASK_THREADS) {
     const int b = base + tid;
@@ -140,13 +137,10 @@ __global__ void __launch_bounds__(TASK_THREADS) reseed_tasks_kernel(
       for (int j = 0; j < k; ++j)
         c += is_cand(p1, row + j, split_len, split_width);
     }
-    const int inc = warp_inclusive(c, lane);
-    if (lane == WARP - 1) warp_inc[w] = inc;
-    __syncthreads();
-    if (w == 0) warp_inc[lane] = warp_inclusive(warp_inc[lane], lane);
-    __syncthreads();
+    int chunk;
+    const int inc = scan::block_inclusive(c, warp_inc, &chunk);
     if (b < B) {
-      const int r0 = carry + (w ? warp_inc[w - 1] : 0) + inc - c;
+      const int r0 = carry + inc - c;
       const int kept = max(0, min(c, T - r0));
       first[b] = min(r0, T);
       count[b] = kept;
@@ -161,8 +155,7 @@ __global__ void __launch_bounds__(TASK_THREADS) reseed_tasks_kernel(
         ++r;
       }
     }
-    carry += warp_inc[TASK_THREADS / WARP - 1];
-    __syncthreads();             // warp_inc is read above, rewritten next
+    carry += chunk;
   }
   // the list's tail: the plain version's invalid tasks (order 0)
   const int32_t x0 = (p1.n[0] + 1 + p1.m[0]) >> 1;

@@ -955,7 +955,10 @@ def test_chain_int64_kernels_repeat_batch():
 def test_seed_chain_extend_int64_on_card_equal_to_int32(card):
     """seed_chain_extend on the card at the forced layout against the int32
     layout on the 512-read batch at the CLI's capacities: packed and meta
-    equal; every int64 form launched, none of the int32 forms."""
+    equal; every int64 form launched, none of the int32 forms; each call
+    launches the extension's select, pairs and stage kernels once, its
+    band kernel four times and BSW four times."""
+    from bwa_mem_scale_tpu_torch.ops import extend_cuda
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.pipeline.align import (GpuAligner,
                                                         seed_chain_extend)
@@ -963,10 +966,16 @@ def test_seed_chain_extend_int64_on_card_equal_to_int32(card):
     from bwa_mem_scale_tpu_torch.ops.sal_cuda import expand_and_lookup_cuda
     wrappers = (smem_cuda.one_pos_machine_cuda,
                 smem_cuda.seed_strategy_machine_cuda, expand_and_lookup_cuda,
-                chain_cuda.chain_seeds_cuda, chain_cuda.chain_filter_cuda)
+                chain_cuda.chain_seeds_cuda, chain_cuda.chain_filter_cuda,
+                extend_cuda.ext_select_cuda, extend_cuda.ext_stage_cuda,
+                extend_cuda.ext_band_cuda)
+    ext = (extend_cuda.ext_select_cuda, extend_cuda.ext_pairs_cuda,
+           extend_cuda.ext_stage_cuda, extend_cuda.ext_band_cuda,
+           banded_swa_batch_cuda)
     outs = []
     for fmi in (card["f32"], card["f64"]):
         before = [(w.launches, w.launches64) for w in wrappers]
+        ext_before = [w.launches for w in ext]
         outs.append(seed_chain_extend(fmi, al.dbns, card["codes"],
                                       card["lens"], L, opt=al.opt,
                                       cfg=al.cfg))
@@ -975,6 +984,7 @@ def test_seed_chain_extend_int64_on_card_equal_to_int32(card):
                 for w, (a, b) in zip(wrappers, before)]
         wide = fmi.pos_dtype == I64
         assert all(n > 0 and n64 == (n if wide else 0) for n, n64 in grew)
-    assert banded_swa_batch_cuda.launches > 0
+        assert [w.launches - n for w, n in zip(ext, ext_before)] == [
+            1, 1, 1, 4, 4]
     for key in ("packed", "meta"):
         assert torch.equal(outs[0][key], outs[1][key]), key
