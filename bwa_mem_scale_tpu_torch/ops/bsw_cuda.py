@@ -23,11 +23,14 @@ clamped in the kernel) and computes each pair's band itself, so the
 wrapper checks the arrays and the lengths, allocates the [6, P] output
 and launches on the current stream. The length check costs one host
 synchronisation: a length past its row count would make the kernel read
-out of bounds, and must raise before the launch. ``seed_chain_extend``
-calls ``bsw_rows`` instead: the launch alone, on lengths that the
-extension's kernels (csrc/extend.cu) have tested against the rows on the
+out of bounds, and must raise before the launch. ``bsw_rows`` is the
+launch alone. ``seed_chain_extend`` launches the kernel's body
+(``csrc/bsw_warp.cuh``) from ``ops/extend_cuda.py::ext_bsw_band_cuda``
+instead, with the extension's band phase as each warp's epilogue, on
+lengths that the extension's kernels have tested against the rows on the
 device, clamped and flagged (``fetch_extend`` raises on the flag with
-the same message), so the extension runs with no host synchronisation.
+the same message), so the extension runs with no host synchronisation;
+those launches count in ``banded_swa_batch_cuda.launches`` too.
 """
 
 from __future__ import annotations
@@ -74,11 +77,9 @@ def bsw_rows(qs, lens, ts, h0, w: int, o_del: int, e_del: int, o_ins: int,
              stats: dict = None) -> torch.Tensor:
     """BSW's [6, P] int32 rows (score, qle, tle, gtle, gscore, max_off)
     for qs [P, QL], ts [P, TL], lens [2, P] (the query and target
-    lengths) and h0 [P], all int32: the extension's form
-    (``seed_chain_extend``). On CUDA tensors the launch alone, with no
-    length check and no synchronisation: the extension's kernels
-    (csrc/extend.cu) test the lengths against the rows on the device,
-    clamp them and flag the batch. On CPU tensors the plain version
+    lengths) and h0 [P], all int32. On CUDA tensors the launch alone,
+    with no length check and no synchronisation: the caller has checked
+    the lengths against the rows. On CPU tensors the plain version
     (``ops/bsw.py::banded_swa_rows``, which fills `stats`)."""
     if qs.device.type == "cpu":
         return banded_swa_rows(qs, lens, ts, h0, w, o_del, e_del, o_ins,

@@ -22,7 +22,12 @@ reference on the card:
 - ``ext_band(phase, ...)``: phase 0 the left round-2 lengths, phase 1 the
   left pick and the right round-1 lengths, phase 2 the right round-2
   lengths, phase 3 the right pick, seed coverage, ``packed`` and the
-  per-pair fields of the dict.
+  per-pair fields of the dict;
+- ``ext_bsw_band(phase, ...)``: the BSW round that phase `phase` follows
+  (``ops/bsw.py::banded_swa_rows`` on the round's windows, lengths, h0
+  and band, ``bsw_inputs``), then ``ext_band`` on its rows: the plain
+  version of csrc/extend.cu's bsw_band_kernel, which runs both in one
+  launch.
 
 BSW's output enters as its ``[6, P]`` rows (score, qle, tle, gtle,
 gscore, max_off). Each length a BSW call takes is checked against its
@@ -41,6 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .bsw import banded_swa_rows
 from .smem import compact_indices
 from .window import ref_windows, take_windows
 
@@ -379,3 +385,30 @@ def ext_band(phase: int, st: Stage, pr: Pairs, r1, r2, left: Left, ch,
          (re_f & 0x7FFFFFFF).to(i32), (re_f >> 31).to(i32)], dim=1)
     return Final(qe_f.to(i32), score_f.to(i32), truesc.to(i32), re_f, a_w,
                  seedcov, packed)
+
+
+def bsw_inputs(phase: int, st: Stage, lens, left: Left, opt):
+    """(qs, lens, ts, h0, w) of the BSW round that band phase `phase`
+    follows: the left windows and h0 (the seed's score) in phases 0 and 1,
+    the right windows and h0 = score_l in phases 2 and 3; the band w in
+    the first round of a side, 2 w in its second. `lens` is the round's
+    [2, PX] lengths (the stage's bl, then phase 0's, phase 1's bl, then
+    phase 2's)."""
+    if phase < 2:
+        return st.q_l, lens, st.t_l, st.h0, opt.w << phase
+    return st.q_r, lens, st.t_r, left.score, opt.w << (phase - 2)
+
+
+def ext_bsw_band(phase: int, st: Stage, pr: Pairs, lens, r1, left: Left,
+                 ch, seed_live, opt, stats: dict = None):
+    """(the BSW round's [6, PX] rows, ``ext_band``'s output) of band
+    phase `phase`: BSW on ``bsw_inputs``, then the phase on its rows, r1
+    the round-1 rows in phases 1 and 3 (None in 0 and 2, whose own round
+    is round 1). `stats` collects BSW's counts."""
+    q, ln, t, h0, w = bsw_inputs(phase, st, lens, left, opt)
+    rows = banded_swa_rows(q, ln, t, h0, w, opt.o_del, opt.e_del, opt.o_ins,
+                           opt.e_ins, opt.zdrop, opt.mat, stats=stats)
+    if phase in (0, 2):
+        return rows, ext_band(phase, st, pr, rows, None, left, ch,
+                              seed_live, opt)
+    return rows, ext_band(phase, st, pr, r1, rows, left, ch, seed_live, opt)

@@ -5,37 +5,43 @@ Four wrappers, each with the signature of its plain version in
 ``ops/extend.py`` (the port's earlier torch glue):
 
 - ``ext_select_cuda`` (plain ``ext_select``): ``ext_select_kernel``, a
-  block a read: the candidates in processing order, their count,
+  block a read (``select_warps``: 8, 16 or 32 warps, as many as keep the
+  batch in one wave): the candidates in processing order, their count,
   ``reg_overflow`` and each chain's rmax;
 - ``ext_pairs_cuda`` (``ext_pairs``): ``ext_pairs_kernel``, one block
   looping over the reads in chunks: pair compaction, the overflow flags,
   ``meta``, and the BSW length flag zeroed;
 - ``ext_stage_cuda`` (``ext_stage``): ``ext_stage_kernel``, a warp a
   pair: the pair fields, lengths and the four windows;
-- ``ext_band_cuda`` (``ext_band``): ``ext_band_kernel<PHASE>``, a thread a
-  pair: the band-doubling picks around the four BSW calls, seed coverage
-  and ``packed``.
+- ``ext_bsw_band_cuda`` (``ext_bsw_band``): ``bsw_band_kernel``, a warp a
+  pair: one BSW round (csrc/bsw_warp.cuh, the body of csrc/bsw.cu's
+  kernel, at the same K columns a lane or tiled) and, in the same warp
+  after the pair's results are stored, the band-doubling phase that
+  follows it: the picks, the next round's lengths, and in phase 3 the
+  seed coverage and ``packed``.
 
 On CUDA tensors each launches its kernel once or raises; on CPU tensors
 each runs its plain version. There is no fallback from a kernel to its
-plain version. Each kernel is instantiated for both position layouts
-(the chains' rbeg int32 or int64). Each wrapper keeps a ``launches``
-count (``ext_band_cuda`` over its four phases) and a ``launches64``
-count (the int64 form). The wrappers allocate every output with
-``torch.empty`` (each kernel writes every element) and launch on the
-current stream with no host synchronisation: a call of
-``seed_chain_extend`` on CUDA tensors is then eleven launches (these
-seven and BSW's four) with no tensor operation between them but the
+plain version. Each kernel reads both position layouts (the chains' rbeg
+int32 or int64). Each wrapper keeps a ``launches`` count (``ext_bsw_band``
+over its four phases) and a ``launches64`` count (the int64 layout);
+``ext_bsw_band_cuda`` also adds each launch to BSW's count
+(``bsw_cuda.banded_swa_batch_cuda.launches``, every launch of BSW's warp
+body). The wrappers allocate every output with ``torch.empty`` (each
+kernel writes every element) and launch on the current stream with no
+host synchronisation: a call of ``seed_chain_extend`` on CUDA tensors is
+then seven launches with no tensor operation between them but the
 outputs' allocations. The source is compiled with nvcc into
 ``build/torch_kernels/libextend_cuda.so`` at first use
 (``ops/nvcc_build.py``) and bound with ctypes; every pointer and integer
 of a launch goes in one int64 array (the order csrc/extend.cu reads).
 
-``ext_select_twin``, ``ext_pairs_twin``, ``ext_stage_twin`` and
-``ext_band_twin`` are the kernels' loops in plain Python on numpy arrays
-(block, warp or thread; chain by chain; rank by counting), tests of the
-kernels' control flow on the CPU at small sizes. Like the kernels (and
-unlike the plain versions) they clamp a BSW length that passes its row.
+``ext_select_twin``, ``ext_pairs_twin``, ``ext_stage_twin``,
+``ext_band_twin`` (the band epilogue) and ``ext_bsw_band_twin`` are the
+kernels' loops in plain Python on numpy arrays (block, warp or lane;
+chain by chain; rank by counting), tests of the kernels' control flow on
+the CPU at small sizes. Like the kernels (and unlike the plain versions)
+they clamp a BSW length that passes its row.
 """
 
 from __future__ import annotations
@@ -45,9 +51,10 @@ import ctypes
 import numpy as np
 import torch
 
-from . import nvcc_build
-from .extend import (Final, Left, Pairs, Sel, Stage, ext_band, ext_pairs,
-                     ext_select, ext_stage)
+from . import bsw_cuda, nvcc_build
+from .bsw import banded_swa_rows, scoring
+from .extend import (Final, Left, Pairs, Sel, Stage, bsw_inputs,
+                     ext_bsw_band, ext_pairs, ext_select, ext_stage)
 
 _ARR = ctypes.POINTER(ctypes.c_longlong)
 _ci = ctypes.c_int
@@ -55,10 +62,11 @@ LIB = nvcc_build.Library("extend.cu", "extend_cuda", {
     "ext_select_launch": [_ARR, _ci],
     "ext_pairs_launch": [_ARR],
     "ext_stage_launch": [_ARR, _ci],
-    "ext_band_launch": [_ci, _ARR, _ci]})
+    "ext_bsw_band_launch": [_ARR]})
 build = LIB.build            # compile csrc/extend.cu; returns the path
 
-SELECT_WARPS = 16            # ext_select_kernel's warps a read
+SELECT_ITEMS = 2             # ext_select_kernel: (slot, chunk) loads a round
+SELECT_KEYS = 8192           # C x S keys it stages in shared memory
 PAIR_THREADS = 1024          # ext_pairs_kernel's one block: a chunk
 STAGE_ROWS = 12              # the stage's int32 rows (csrc/extend.cu)
 LEFT_ROWS = 6                # phase 1's int32 rows
@@ -125,7 +133,7 @@ def _rows_ptr(what: str, dev, rows) -> int:
         if (r.dtype != torch.int32 or r.device != dev
                 or not r.is_contiguous()
                 or r.data_ptr() != base + at * n * r.element_size()):
-            raise ValueError(f"ext_band_cuda: {what} must be consecutive "
+            raise ValueError(f"ext_bsw_band_cuda: {what} must be consecutive "
                              f"int32 rows of one buffer, as the kernels "
                              f"write them")
         at += r.shape[0] if r.dim() == 2 else 1
@@ -142,10 +150,20 @@ def _left_rows(left: Left, dev) -> int:
                                             left.truesc, left.w, left.bl])
 
 
+def select_warps(B: int, n_sm: int) -> int:
+    """ext_select_kernel's warps a read: the most of 32, 16 and 8 that
+    keep B blocks in one wave of `n_sm` SMs (a block an SM at 32 warps, 2
+    at 16, 4 at 8: 64 registers a thread), else 8."""
+    for warps, per_sm in ((32, 1), (16, 2), (8, 4)):
+        if B <= per_sm * n_sm:
+            return warps
+    return 8
+
+
 def ext_select_cuda(ch, order, kept, seed_live, seed_score, lens, dbns, opt,
                     R: int) -> Sel:
     """``ext_select``'s Sel: on CUDA tensors one launch of
-    ext_select_kernel (16 warps a read), or ValueError."""
+    ext_select_kernel (``select_warps`` warps a read), or ValueError."""
     dev = ch.seed_qbeg.device
     if dev.type == "cpu":
         return ext_select(ch, order, kept, seed_live, seed_score, lens, dbns,
@@ -158,6 +176,8 @@ def ext_select_cuda(ch, order, kept, seed_live, seed_score, lens, dbns, opt,
                                          torch.int64))
     B, C, S = ch.seed_qbeg.shape
     pos64 = _pos64(ch)
+    warps = select_warps(
+        B, torch.cuda.get_device_properties(dev).multi_processor_count)
     n_cand = torch.empty((B,), dtype=torch.int32, device=dev)
     sel = torch.empty((B, R), dtype=torch.int32, device=dev)
     reg_of = torch.empty((B,), dtype=torch.bool, device=dev)
@@ -166,7 +186,7 @@ def ext_select_cuda(ch, order, kept, seed_live, seed_score, lens, dbns, opt,
     LIB.launch(dev, "ext_select_launch", _args(
         *_chain_args(ch, seed_live), *_opt_args(opt, dbns.l_pac), B, order,
         kept, seed_score, lens, dbns.offsets, dbns.offsets.numel(), R,
-        n_cand, sel, reg_of, rmax0, rmax1), pos64)
+        n_cand, sel, reg_of, rmax0, rmax1, warps), pos64)
     ext_select_cuda.launches += 1
     ext_select_cuda.launches64 += pos64
     return Sel(n_cand, sel, reg_of, rmax0, rmax1)
@@ -251,30 +271,45 @@ ext_stage_cuda.launches = 0
 ext_stage_cuda.launches64 = 0
 
 
-def ext_band_cuda(phase: int, st: Stage, pr: Pairs, r1, r2, left: Left, ch,
-                  seed_live, opt):
-    """``ext_band``'s output for `phase`: on CUDA tensors one launch of
-    ext_band_kernel<phase> (a thread a pair) on BSW's [6, PX] rows r1
-    (and r2 in phases 1 and 3), or ValueError. Phases 0-2 OR their
-    length check into pr.flag."""
+def ext_bsw_band_cuda(phase: int, st: Stage, pr: Pairs, lens, r1,
+                      left: Left, ch, seed_live, opt, stats: dict = None):
+    """``ext_bsw_band``'s (BSW's [6, PX] rows, the phase's output): on
+    CUDA tensors one launch of bsw_band_kernel (a warp a pair: the BSW
+    round on ``bsw_inputs`` at BSW's K columns a lane, tiled past
+    ``bsw_cuda.MAX_QL``, then band phase `phase`; r1 the round-1 rows in
+    phases 1 and 3), or ValueError. Phases 0-2 OR their length check into
+    pr.flag. `stats` is filled on CPU tensors only (BSW's counts)."""
     dev = pr.read.device
     if dev.type == "cpu":
-        return ext_band(phase, st, pr, r1, r2, left, ch, seed_live, opt)
+        return ext_bsw_band(phase, st, pr, lens, r1, left, ch, seed_live,
+                            opt, stats=stats)
     if phase not in (0, 1, 2, 3):
-        raise ValueError(f"ext_band_cuda: phase {phase}")
+        raise ValueError(f"ext_bsw_band_cuda: phase {phase}")
     i32 = torch.int32
-    _chain_check("ext_band_cuda", dev, ch, seed_live)
-    _check("ext_band_cuda", dev, ("r1", r1, i32), ("r2", r2, i32),
+    q, lens, t, h0, w = bsw_inputs(phase, st, lens, left, opt)
+    _chain_check("ext_bsw_band_cuda", dev, ch, seed_live)
+    _check("ext_bsw_band_cuda", dev, ("r1", r1, i32),
            ("rbeg", st.rbeg, torch.int64), ("valid", pr.valid, torch.bool),
-           ("read", pr.read, i32), ("flag", pr.flag, i32))
+           ("read", pr.read, i32), ("flag", pr.flag, i32), ("qs", q, i32),
+           ("ts", t, i32), ("lens", lens, i32), ("h0", h0, i32))
     PX = pr.read.shape[0]
-    L, TL = st.q_l.shape[1], st.t_l.shape[1]
+    L, TL = q.shape[1], t.shape[1]
+    if lens.shape != (2, PX) or (phase in (1, 3)) != (r1 is not None):
+        raise ValueError("ext_bsw_band_cuda: the lengths are not [2, PX], "
+                         "or r1 is not given exactly in phases 1 and 3")
     pos64 = _pos64(ch)
     st_ptr = _stage_rows(st, dev)
     lf_ptr = rb_in = None
     if phase >= 2:
         lf_ptr = _left_rows(left, dev)
         rb_in = left.rb
+    k = bsw_cuda.lane_columns(L)
+    sc = scoring(opt.mat)
+    rows = torch.empty((6, PX), dtype=i32, device=dev)
+    scratch = None
+    if k == bsw_cuda.TILED:
+        scratch = torch.empty((PX, 2, -(-(L + 1) // bsw_cuda.TILE)
+                               * bsw_cuda.TILE), dtype=i32, device=dev)
     bl = lf = rb = fi = fl = packed = None
     if phase in (0, 2):
         bl = torch.empty((2, PX), dtype=i32, device=dev)
@@ -285,27 +320,31 @@ def ext_band_cuda(phase: int, st: Stage, pr: Pairs, r1, r2, left: Left, ch,
         fi = torch.empty((3, PX), dtype=i32, device=dev)
         fl = torch.empty((3, PX), dtype=torch.int64, device=dev)
         packed = torch.empty((PX, 14), dtype=i32, device=dev)
-    LIB.launch(dev, "ext_band_launch", phase, _args(
-        *_chain_args(ch, seed_live), *_opt_args(opt, 0), st_ptr, st.rbeg,
-        pr.valid, pr.read, r1, r2, lf_ptr, rb_in, L, TL, PX, bl, lf, rb, fi,
-        fl, packed, pr.flag), pos64)
-    ext_band_cuda.launches += 1
-    ext_band_cuda.launches64 += pos64
+    LIB.launch(dev, "ext_bsw_band_launch", _args(
+        *_chain_args(ch, seed_live), *_opt_args(opt, 0), phase, pos64,
+        st_ptr, st.rbeg, pr.valid, pr.read, r1, lf_ptr, rb_in, L, TL, PX,
+        bl, lf, rb, fi, fl, packed, pr.flag, q, t, lens, h0, rows, k, w,
+        opt.zdrop, sc["sc_match"], sc["sc_mis"], sc["sc_n"], sc["mx"], 0,
+        scratch))
+    ext_bsw_band_cuda.launches += 1
+    ext_bsw_band_cuda.launches64 += pos64
+    bsw_cuda.banded_swa_batch_cuda.launches += 1
     if phase in (0, 2):
-        return bl
+        return rows, bl
     if phase == 1:
-        q = lf.unbind(0)
-        return Left(*q[:4], lf[4:6], rb)
+        m = lf.unbind(0)
+        return rows, Left(*m[:4], lf[4:6], rb)
     qe, score, truesc = fi.unbind(0)
-    re, w, seedcov = fl.unbind(0)
-    return Final(qe, score, truesc, re, w, seedcov, packed)
+    re, w_, seedcov = fl.unbind(0)
+    return rows, Final(qe, score, truesc, re, w_, seedcov, packed)
 
 
-ext_band_cuda.launches = 0
-ext_band_cuda.launches64 = 0
+ext_bsw_band_cuda.launches = 0
+ext_bsw_band_cuda.launches64 = 0
 
 
-WRAPPERS = (ext_select_cuda, ext_pairs_cuda, ext_stage_cuda, ext_band_cuda)
+WRAPPERS = (ext_select_cuda, ext_pairs_cuda, ext_stage_cuda,
+            ext_bsw_band_cuda)
 
 
 # ---- the kernels' loops on the CPU ------------------------------------------
@@ -319,97 +358,224 @@ def _live(n_seeds, live, cs_b, cs_c, s) -> bool:
         else s < int(n_seeds[cs_b, cs_c])
 
 
-def _max_gap(q: int, opt) -> int:
-    def tdiv(x, y):                     # C's truncating division
-        q = abs(x) // abs(y)
-        return q if (x >= 0) == (y > 0) else -q
-    l_del = tdiv(q * opt.a - opt.o_del, opt.e_del) + 1
-    l_ins = tdiv(q * opt.a - opt.o_ins, opt.e_ins) + 1
-    return min(max(max(l_del, l_ins), 1), opt.w << 1)
-
-
 def _i32(v: int) -> int:
     """v wrapped to a signed 32-bit value (the kernels' int)."""
     return (v + (1 << 31)) % (1 << 32) - (1 << 31)
 
 
+def _tdiv(x, y):
+    """C's truncating division on int64 arrays."""
+    q = np.abs(x) // np.abs(y)
+    return np.where((x >= 0) == (y > 0), q, -q)
+
+
+def _max_gaps(q, opt):
+    """_cal_max_gap on an int64 array (C's truncating division)."""
+    l_del = _tdiv(q * opt.a - opt.o_del, opt.e_del) + 1
+    l_ins = _tdiv(q * opt.a - opt.o_ins, opt.e_ins) + 1
+    return np.minimum(np.maximum(np.maximum(l_del, l_ins), 1), opt.w << 1)
+
+
+def contig_search(offsets, pf: int):
+    """The warp's 32-way search of ext_select_kernel for the first offset
+    above pf: lane l probes ub + (l + 1) st - 1, st from the first power of
+    32 whose 32 strides cover the offsets down to 1. Returns (ub, the
+    largest probe at or below pf, the least above it, rounds); the probes
+    are offsets[ub - 1] and offsets[ub] where those exist."""
+    n = len(offsets)
+    top = 1
+    while top * 32 < n:
+        top *= 32
+    ub, below, above, rounds, st = 0, None, None, 0, top
+    lanes = np.arange(32, dtype=np.int64)
+    while st > 0:
+        idx = ub + (lanes + 1) * st - 1
+        ok = idx < n
+        v = np.where(ok, offsets[np.minimum(idx, n - 1)], 0)
+        le = ok & (v <= pf)
+        k = int(le.sum())
+        assert le[:k].all(), "the probes at or below pf are not a prefix"
+        if k:
+            below = int(v[k - 1])
+        if k < 32 and ok[k]:
+            above = int(v[k])
+        ub += k * st
+        st //= 32
+        rounds += 1
+    return ub, below, above, rounds
+
+
 def ext_select_twin(ch, order, kept, seed_live, seed_score, lens, dbns, opt,
-                    R: int) -> Sel:
-    """ext_select_kernel's loops: a block a read; phase A a warp a chain
-    slot (its lanes' seeds), phase B one warp's scan in chunks of 32,
-    phase C a warp a kept chain, its seeds ranked by counting, phase D
-    the tail."""
+                    R: int, warps: int = 8) -> Sel:
+    """ext_select_kernel's loops, a block of `warps` warps a read. Phase
+    A: each warp's slots w, w + warps, ..., 32 at a time: their seed
+    counts, a chain with no seed written at once (where the offsets lie
+    in [0, 2 l_pac]); the others as items (slot, chunk of 32 seeds, up to
+    the chain's last seed), SELECT_ITEMS items a load round, every load
+    of a round before any is used; a chain reduced at its last chunk (one
+    with no live seed written at once), the first live seed's rbeg from
+    the lane that loaded it (lane 0's seed 0 where none is live), the
+    contig by the 32-way search (``contig_search``, held to numpy's
+    searchsorted), its offsets from the probes. Phase B: each thread's
+    run of positions, scanned. Phase C: each kept chain with a live seed,
+    its keys (staged where C x S <= SELECT_KEYS, up to its n_seeds
+    without a seed-SW mask; else the chain's own), each live seed ranked
+    by counting. Phase D: the tail. ``ext_select_twin.last_rounds`` keeps
+    each chain's search rounds [B, C] (0: none)."""
     qb, ln, rbg = _np(ch.seed_qbeg), _np(ch.seed_len), _np(ch.seed_rbeg)
     ns, live = _np(ch.n_seeds), _np(seed_live)
     order, kept, score = _np(order), _np(kept), _np(seed_score)
-    lens, offsets = _np(lens), _np(dbns.offsets)
+    lens, offsets = _np(lens), _np(dbns.offsets).astype(np.int64)
     B, C, S = qb.shape
     l_pac = dbns.l_pac
     l_pac2 = 2 * l_pac
+    n_seqs = len(offsets)
+    off0 = int(offsets[0])
+    off1 = int(offsets[1]) if n_seqs > 1 else l_pac
+    dead_known = off0 >= 0 and int(offsets[-1]) <= l_pac2 and l_pac >= 0
+    nt = 32 * warps
+    staged = C * S <= SELECT_KEYS
     n_cand = np.zeros(B, np.int32)
     sel = np.full((B, R), -7, np.int32)         # every slot must be written
     reg_of = np.zeros(B, bool)
     rmax0 = np.zeros((B, C), np.int64)
     rmax1 = np.zeros((B, C), np.int64)
+    rounds = np.zeros((B, C), np.int32)
+    nch = -(-S // 32)
+    slots = -(-C // warps)
+    lanes = np.arange(32)
+    big, small = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+
+    def walk(n):                                # chunks a chain walks
+        return nch if live is not None else \
+            -(-min(n, S) // 32) if n > 0 else 1
     for b in range(B):
-        live_of = [0] * C
-        for c in range(C):                      # A: a warp a slot
-            v0, v1, nl, first = None, None, 0, S
-            for s in range(S):
-                if _live(ns, live, b, c, s):
-                    q, l, r = int(qb[b, c, s]), int(ln[b, c, s]), \
-                        int(rbg[b, c, s])
-                    flank = int(lens[b]) - q - l
-                    a0 = r - (q + _max_gap(q, opt))
-                    a1 = r + l + flank + _max_gap(flank, opt)
-                    nl += 1
-                    first = min(first, s)
-                else:
-                    a0, a1 = l_pac2, 0
-                v0 = a0 if v0 is None else min(v0, a0)
-                v1 = a1 if v1 is None else max(v1, a1)
-            m0, m1 = max(v0, 0), min(v1, l_pac2)
-            fr = int(rbg[b, c, 0 if first == S else first])
-            bridging = m0 < l_pac < m1
-            if bridging and fr < l_pac:
-                m1 = l_pac
-            if bridging and fr >= l_pac:
-                m0 = l_pac
-            rev = fr >= l_pac
-            pf = l_pac2 - 1 - fr if rev else fr
-            lo = int(np.searchsorted(offsets, pf, side="right"))
-            rid = 0 if pf >= l_pac else max(lo - 1, 0)
-            fb = int(offsets[rid])
-            fe = int(offsets[rid + 1]) if rid + 1 < len(offsets) else l_pac
-            rmax0[b, c] = max(m0, l_pac2 - fe if rev else fb)
-            rmax1[b, c] = min(m1, l_pac2 - fb if rev else fe)
-            live_of[c] = nl
-        base, carry = [0] * C, 0                # B: chunks of 32
-        for p0 in range(0, C, 32):
-            vals = [live_of[int(order[b, p])] if kept[b, p] > 0 else 0
-                    for p in range(p0, min(p0 + 32, C))]
-            inc = np.cumsum(vals)
-            for i, p in enumerate(range(p0, p0 + len(vals))):
-                base[p] = carry + int(inc[i]) - vals[i]
-            carry += int(inc[-1])
-        n_cand[b] = carry
-        reg_of[b] = carry > R
+        live_of = np.full(C, -1, np.int64)
+        keys = np.full((C, S), -7, np.int64)
+        rlen = int(lens[b])
+        for w in range(warps):                  # A
+            for win in range(0, slots, 32):
+                todo = []
+                for j in range(32):
+                    c = w + (win + j) * warps
+                    if win + j >= slots or c >= C:
+                        continue
+                    n = 0 if live is not None else int(ns[b, c])
+                    if live is not None or n > 0 or not dead_known:
+                        todo.append(c)
+                    else:
+                        rmax0[b, c], rmax1[b, c], live_of[c] = l_pac2, 0, 0
+                items = [(c, k) for c in todo
+                         for k in range(walk(int(ns[b, c])))]
+                for i0 in range(0, len(items), SELECT_ITEMS):
+                    loaded = []                 # the round's loads
+                    for c, k in items[i0:i0 + SELECT_ITEMS]:
+                        n = int(ns[b, c])
+                        s = k * 32 + lanes
+                        si = np.minimum(s, S - 1)
+                        inn = (s < S) & ((live is not None) | (s < n))
+                        lv = inn & (live[b, c, si] if live is not None
+                                    else True)
+                        loaded.append((c, k, n, s, si, lv,
+                                       qb[b, c, si].astype(np.int64),
+                                       ln[b, c, si].astype(np.int64),
+                                       rbg[b, c, si].astype(np.int64),
+                                       score[b, c, si].astype(np.int64)))
+                    for c, k, n, s, si, lv, q, l, r, sc in loaded:
+                        if k == 0:
+                            v0 = np.full(32, big, np.int64)
+                            v1 = np.full(32, small, np.int64)
+                            nl = np.zeros(32, np.int64)
+                            fm = np.full(32, S, np.int64)
+                            frb = np.zeros(32, np.int64)
+                        inn = s < S
+                        flank = rlen - q - l
+                        a0 = np.where(lv, r - (q + _max_gaps(q, opt)),
+                                      l_pac2)
+                        a1 = np.where(lv, r + l + flank
+                                      + _max_gaps(flank, opt), 0)
+                        v0 = np.where(inn, np.minimum(v0, a0), v0)
+                        v1 = np.where(inn, np.maximum(v1, a1), v1)
+                        nl += lv
+                        take = inn & (fm == S)
+                        frb = np.where(take & (lv | (s == 0)), r, frb)
+                        fm = np.where(take & lv, s, fm)
+                        if staged:
+                            key = (sc << 16) | s
+                            key = (key + (1 << 31)) % (1 << 32) - (1 << 31)
+                            keys[c, si[inn]] = np.where(lv, key, -1)[inn]
+                        if k < walk(n) - 1:
+                            continue
+                        if live is None and n < S:   # the seeds not walked
+                            v0 = np.minimum(v0, l_pac2)
+                            v1 = np.maximum(v1, 0)
+                        if int(nl.sum()) == 0 and dead_known:
+                            rmax0[b, c], rmax1[b, c], live_of[c] = \
+                                l_pac2, 0, 0
+                            continue
+                        first = int(fm.min())
+                        fr = int(frb[0 if first == S else first & 31])
+                        m0, m1 = max(int(v0.min()), 0), min(int(v1.max()),
+                                                            l_pac2)
+                        rev = fr >= l_pac
+                        pf = l_pac2 - 1 - fr if rev else fr
+                        ub, below, above, rounds[b, c] = contig_search(
+                            offsets, pf)
+                        assert ub == int(np.searchsorted(offsets, pf,
+                                                         side="right"))
+                        bridging = m0 < l_pac < m1
+                        if bridging and not rev:
+                            m1 = l_pac
+                        if bridging and rev:
+                            m0 = l_pac
+                        if pf >= l_pac or ub <= 1:
+                            fb, fe = off0, off1
+                        else:
+                            fb = below
+                            fe = above if ub < n_seqs else l_pac
+                        rmax0[b, c] = max(m0, l_pac2 - fe if rev else fb)
+                        rmax1[b, c] = min(m1, l_pac2 - fb if rev else fe)
+                        live_of[c] = int(nl.sum())
+        assert (live_of >= 0).all(), "a chain slot left without its row"
+        ordp = np.where(kept[b] > 0, order[b], -1)
+        per_pos = np.where(ordp >= 0, live_of[np.maximum(ordp, 0)], 0)
+        run = -(-C // nt)                       # B: a thread's positions
+        sums = [int(per_pos[t * run:(t + 1) * run].sum()) for t in range(nt)]
+        base = np.zeros(C, np.int64)
+        at = 0
+        for t in range(nt):                     # the block's scan
+            for p in range(t * run, min((t + 1) * run, C)):
+                base[p] = at
+                at += int(per_pos[p])
+            assert at == sum(sums[:t + 1])
+        total = at
+        n_cand[b] = total
+        reg_of[b] = total > R
         for p in range(C):                      # C: a warp a kept chain
-            if kept[b, p] <= 0 or base[p] >= R:
+            slot = int(ordp[p])
+            if slot < 0 or base[p] >= R or live_of[slot] == 0:
                 continue
-            slot = int(order[b, p])
-            keys = [_i32((int(score[b, slot, s]) << 16) | s)
-                    if _live(ns, live, b, slot, s) else -1
-                    for s in range(S)]
-            for s in range(S):
-                if not _live(ns, live, b, slot, s):
+            lim = S
+            if staged:
+                if live is None:
+                    lim = min(int(ns[b, slot]), S)
+                kk = keys[slot, :lim]
+                assert (kk != -7).all(), "a key left unstaged"
+            else:
+                kk = np.array([_i32((int(score[b, slot, s]) << 16) | s)
+                               if _live(ns, live, b, slot, s) else -1
+                               for s in range(S)])
+            for s in range(lim):
+                if kk[s] == -1:
                     continue
-                rank = sum(k > keys[s] for k in keys)
+                rank = int((kk > kk[s]).sum()) + (S - lim
+                                                  if kk[s] < -1 else 0)
                 if base[p] + rank < R:
                     assert sel[b, base[p] + rank] == -7, "written twice"
                     sel[b, base[p] + rank] = slot * S + s
-        sel[b, min(carry, R):] = 0              # D
+        sel[b, min(total, R):] = 0              # D
     assert (sel != -7).all(), "a candidate slot left unwritten"
+    ext_select_twin.last_rounds = rounds
     dev = ch.seed_qbeg.device
     t = lambda a: torch.as_tensor(a, device=dev)
     return Sel(t(n_cand), t(sel), t(reg_of), t(rmax0), t(rmax1))
@@ -532,9 +698,11 @@ def ext_stage_twin(pr: Pairs, sel: Sel, ch, codes, lens, ref, l_pac: int,
 
 def ext_band_twin(phase: int, st: Stage, pr: Pairs, r1, r2, left: Left, ch,
                   seed_live, opt):
-    """ext_band_kernel<phase>'s body, a thread a pair: the picks, the
-    lengths clamped and flagged past their rows, and in phase 3 the
-    seed coverage as a loop over the pair's chain's S seeds."""
+    """bsw_band_kernel's epilogue (band phase `phase`), warp p on pair p
+    after its BSW round: the round's own results (r1 in phases 0 and 2,
+    r2 in 1 and 3: the warp's registers), the picks, the lengths clamped
+    and flagged past their rows, and in phase 3 the seed coverage over the
+    lanes (lane l the seeds l, l + 32, ...), a warp sum."""
     p_valid, p_read = _np(pr.valid), _np(pr.read)
     qbeg, slen, plens = _np(st.qbeg), _np(st.slen), _np(st.plens)
     ql, tl, qr, tr = _np(st.lens)
@@ -604,14 +772,15 @@ def ext_band_twin(phase: int, st: Stage, pr: Pairs, r1, r2, left: Left, ch,
         a_w = max(int(lw[p]), wr) if do_right else int(lw[p])
         qb, rb = int(lqb[p]), int(lrb[p])
         b, c = int(p_read[p]), int(slot[p])
-        cov = 0
-        for s in range(cq.shape[2]):
+        lanes = [0] * 32
+        for s in range(cq.shape[2]):            # lane s % 32's seeds
             if not _live(ns, live, b, c, s):
                 continue
             sq, sln, sr = int(cq[b, c, s]), int(cl[b, c, s]), int(cr[b, c, s])
             if sq >= qb and sq + sln <= qe_f and sr >= rb and \
                     sr + sln <= re_f:
-                cov += sln
+                lanes[s % 32] += sln
+        cov = sum(lanes)                        # the warp sum
         fi[:, p] = (qe_f, score_f, truesc)
         fl[:, p] = (re_f, a_w, cov)
         packed[p] = (int(valid), b, qb, qe_f, score_f, truesc, _i32(a_w),
@@ -628,3 +797,18 @@ def ext_band_twin(phase: int, st: Stage, pr: Pairs, r1, r2, left: Left, ch,
         return Left(*m[:4], m[4:6], t(rb_o))
     m, n = t(fi), t(fl)
     return Final(m[0], m[1], m[2], n[0], n[1], n[2], t(packed))
+
+
+def ext_bsw_band_twin(phase: int, st: Stage, pr: Pairs, lens, r1,
+                      left: Left, ch, seed_live, opt, stats: dict = None):
+    """bsw_band_kernel's launch: the BSW round (its row step's twin is
+    tests/test_torch_bsw.py's; here the plain rows), then each warp's
+    epilogue (``ext_band_twin``) on the round's rows as its registers."""
+    q, ln, t, h0, w = bsw_inputs(phase, st, lens, left, opt)
+    rows = banded_swa_rows(q, ln, t, h0, w, opt.o_del, opt.e_del, opt.o_ins,
+                           opt.e_ins, opt.zdrop, opt.mat, stats=stats)
+    if phase in (0, 2):
+        return rows, ext_band_twin(phase, st, pr, rows, None, left, ch,
+                                   seed_live, opt)
+    return rows, ext_band_twin(phase, st, pr, r1, rows, left, ch, seed_live,
+                               opt)

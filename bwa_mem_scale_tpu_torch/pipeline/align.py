@@ -61,15 +61,14 @@ from ..ref.finalize import (sort_dedup_patch, mark_primary,
                                     reorder_primary5)
 from ..utils.profiling import PROFILER
 from ..device import synchronize
-from ..ops.bsw import banded_swa_rows
-from ..ops.bsw_cuda import bsw_rows
 from ..ops.chain import DeviceBns
 from ..ops.chain_cuda import chain_filter_cuda, chain_seeds_cuda
 from ..ops.emf import DeviceEmf, FW_MATCHED, RC_MATCHED
 from ..ops.emf_cuda import emf_lookup_cuda
 from ..ops.extend import ExtendOut, raise_len_flag
-from ..ops.extend_cuda import (ext_band_cuda, ext_pairs_cuda, ext_select_cuda,
-                               ext_stage_cuda)
+from ..ops.extend import ext_bsw_band
+from ..ops.extend_cuda import (ext_bsw_band_cuda, ext_pairs_cuda,
+                               ext_select_cuda, ext_stage_cuda)
 from ..ops.ert import DeviceErt, collect_smems_ert
 from ..ops.occ import DeviceFMIndex
 from ..ops.sal import expand_and_lookup
@@ -228,14 +227,17 @@ def extend_chains(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens, L: int,
                   stats: Optional[dict] = None) -> ExtendOut:
     """Extension of one batch from the chain filter's outputs to
     ``seed_chain_extend``'s dict: (long reads) the seed-SW filter, the
-    candidates and rmax, pair compaction, window staging, and the left
-    and right band-doubling retries around four BSW calls. On CUDA
-    tensors eleven launches (csrc/extend.cu's seven, BSW's four; the
-    wrappers of ops/extend_cuda.py, called by this module's names, which a
-    caller may swap for their plain versions) with no tensor operation
-    between them but the outputs' allocations and no host
+    candidates and rmax, pair compaction, window staging, and the four BSW
+    rounds, each with the band-doubling phase that follows it (the left
+    and right retries). On CUDA tensors seven launches (csrc/extend.cu's:
+    select, pairs, stage, then each BSW round with its band phase inside
+    it; the wrappers of ops/extend_cuda.py, called by this module's names,
+    which a caller may swap for their plain versions) with no tensor
+    operation between them but the outputs' allocations and no host
     synchronisation: the BSW length check is a device flag
-    (``ExtendOut.len_flag``) that fetch_extend raises on."""
+    (``ExtendOut.len_flag``) that fetch_extend raises on. With
+    cfg.bsw_engine "plain" the rounds are the plain BSW and the plain
+    band phases (``ext_bsw_band``)."""
     R, PX = cfg.max_regs, cfg.max_pairs
     if needs_seed_sw_filter(opt, L):
         # the long-read regime (mem_flt_chained_seeds): a batch wide
@@ -255,22 +257,15 @@ def extend_chains(fmi: DeviceFMIndex, dbns: DeviceBns, codes, lens, L: int,
     st = ext_stage_cuda(pr, sel, ch, codes, lens, fmi.ref, dbns.l_pac, TL,
                         opt)
     plain_bsw = cfg.bsw_engine == "plain"
-    bsw = banded_swa_rows if plain_bsw else bsw_rows
-    w_ = opt.w
-    pen = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.zdrop, opt.mat)
-    band = partial(ext_band_cuda, ch=ch, seed_live=seed_live, opt=opt)
+    rnd = partial(ext_bsw_band if plain_bsw else ext_bsw_band_cuda, st=st,
+                  pr=pr, ch=ch, seed_live=seed_live, opt=opt, stats=stats)
     with _stage(prof, "bsw"):
         # left extension with band-doubling retry
-        l1 = bsw(st.q_l, st.bl, st.t_l, st.h0, w_, *pen, stats=stats)
-        bl2 = band(0, st, pr, l1, None, None)
-        l2 = bsw(st.q_l, bl2, st.t_l, st.h0, w_ << 1, *pen, stats=stats)
-        left = band(1, st, pr, l1, l2, None)
+        l1, bl2 = rnd(0, lens=st.bl, r1=None, left=None)
+        _, left = rnd(1, lens=bl2, r1=l1, left=None)
         # right extension (h0 = left score)
-        r1 = bsw(st.q_r, left.bl, st.t_r, left.score, w_, *pen, stats=stats)
-        bl4 = band(2, st, pr, r1, None, left)
-        r2 = bsw(st.q_r, bl4, st.t_r, left.score, w_ << 1, *pen,
-                 stats=stats)
-    fin = band(3, st, pr, r1, r2, left)
+        r1, bl4 = rnd(2, lens=left.bl, r1=None, left=left)
+        _, fin = rnd(3, lens=bl4, r1=r1, left=left)
     out = ExtendOut(
         valid=pr.valid, read=pr.read, qb=left.qb, qe=fin.qe, rb=left.rb,
         re=fin.re, score=fin.score, truesc=fin.truesc, w=fin.w,

@@ -14,21 +14,28 @@ its kernels into its own ``build/``. Each checkout's
 and chaining (``align.collect_seeds``, ``expand_and_lookup``,
 ``chain_and_filter``) are replaced by their recorded outputs, so that a
 call is the extension alone: from the chain filter's outputs to the
-returned dict, the four BSW calls included. This checkout's is eleven
-launches (csrc/extend.cu's seven, BSW's four); an earlier one's may be
-torch operations with four host synchronisations (the BSW wrapper's
-length check). Both dicts are first held equal, key by key. Then, in
-turns (before, after, after, before; means of 2): the device time of a
-call (``timing.device_ms``: the stream held while the call is queued; a
-call that synchronises inside is timed through its stalls), the device's
-busy time in the call (the sum of its kernels' times, from
-torch.profiler), the host wall of one synchronised call
-(``timing.wall_ms``) and the outermost aten operations a call issues
+returned dict, the four BSW rounds included. This checkout's is seven
+launches (csrc/extend.cu's: select, pairs, stage and four BSW rounds
+with the band phases inside); an earlier one's may be eleven (the band
+phases launched after each BSW call) or torch operations with four host
+synchronisations (the BSW wrapper's length check). Both dicts are first
+held equal, key by key. Then, in turns (before, after, after, before;
+means of 2): the device time of a call (``timing.device_ms``: the stream
+held while the call is queued; a call that synchronises inside is timed
+through its stalls), the device's busy time in the call (the sum of its
+kernels' times, from torch.profiler), the host wall of one synchronised
+call (``timing.wall_ms``) and the outermost aten operations a call issues
 (``glue_ops.outer_ops``). Beside them, this checkout's launches as the
 call makes them, each alone: device ms, the bytes bound (``ext_work``:
 each distinct input byte read once, each output written once, the work
-these inputs need), the launch floor (the kernel on one read or one pair) and the
-launches a call.
+these inputs need), the launch floor (the kernel on one read or one
+pair) and the launches a call; and, where the earlier checkout has them
+(its band phases as ``ext_band_cuda`` launches), each in turns against
+it on the same inputs: ext_select_cuda on the batch and on its first read,
+and each fused BSW round against the earlier BSW launch (``bsw_rows``)
+followed by its ``ext_band_cuda`` phase. First, ptxas's registers and
+spills of csrc/bsw.cu's kernels in both checkouts, and of this
+checkout's fused rounds.
 
 Batches (``tools/batches.py``): chip_smoke.py phase 5's (512 reads of the
 4.6 Mbp cell) at the main path's capacities, its first 64 at tier 1's
@@ -49,6 +56,7 @@ import contextlib
 import dataclasses
 import importlib
 import inspect
+import re
 import sys
 import types
 from functools import partial
@@ -59,7 +67,9 @@ from ..config import MemOptions
 from ..device import resolve_device
 from ..ops import extend_cuda
 from ..ops.bsw_cuda import banded_swa_batch_cuda
-from ..ops.extend import Left, Sel, Stage, live_seeds
+from ..ops import bsw_cuda, nvcc_build
+from ..ops.bsw import banded_swa_batch
+from ..ops.extend import Left, Sel, Stage, bsw_inputs, live_seeds
 from ..pipeline import align
 from .batches import long_batch, repeat_batch, se_batch
 from .glue_ops import outer_ops
@@ -70,7 +80,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 STAGES = ("collect_seeds", "expand_and_lookup", "chain_and_filter")
 KERNELS = ("ext_select_cuda", "ext_pairs_cuda", "ext_stage_cuda",
-           "ext_band_cuda")
+           "ext_bsw_band_cuda")
+BSW_OPS_PER_CELL = 20        # chip_smoke.py's count a band cell
 
 
 def bound(nbytes, ops):
@@ -109,9 +120,12 @@ def ext_work(name: str, args) -> tuple:
     distinct chain's rid and rmax, each distinct read's length and codes;
     the union of the rows' reference windows (the invalid rows share read
     0's candidate 0's); the rows and windows written (int32); 8
-    operations a window element. ext_band: a pair's stage rows and BSW
-    rows read, its outputs; in phase 3 each distinct (read, slot) chain's
-    live flags and live seeds (6 operations a live seed a row)."""
+    operations a window element. ext_bsw_band: BSW's (the live pairs'
+    query and target codes, each pair's lengths and h0 read, its rows
+    written, BSW_OPS_PER_CELL a band cell the plain BSW walks), a pair's
+    stage rows and the earlier round's rows read, its outputs; in phase 3
+    each distinct (read, slot) chain's live flags and live seeds (6
+    operations a live seed a row)."""
     if name == "ext_select_cuda":
         ch, order, kept, seed_live, seed_score, lens, dbns, opt, R = args
         B, C, S = ch.seed_qbeg.shape
@@ -145,11 +159,18 @@ def ext_work(name: str, args) -> tuple:
                   + (4 + 4 * L) * _distinct(read) + ref_bytes
                   + PX * (48 + 8) + 4 * PX * (2 * L + 2 * TL))
         return nbytes, 30 * PX + 8 * PX * (2 * L + 2 * TL)
-    phase, st, pr, r1, r2, left, ch, seed_live, opt = args
+    phase, st, pr, lens, r1, left, ch, seed_live, opt = args[:9]
     PX = pr.read.shape[0]
-    read = {0: 4, 1: 48, 2: 12, 3: 48 + 24 + 8}[phase]
+    q, ln, t, h0, w = bsw_inputs(phase, st, lens, left, opt)
+    stats = {}
+    banded_swa_batch(q, ln[0], t, ln[1], h0, w, opt.o_del, opt.e_del,
+                     opt.o_ins, opt.e_ins, opt.zdrop, opt.mat, stats=stats)
+    read = {0: 4, 1: 24, 2: 12, 3: 24 + 24 + 8}[phase]
     write = {0: 8, 1: 32, 2: 8, 3: 12 + 24 + 56}[phase]
-    nbytes, ops = PX * (1 + 4 + 20 + 8 + read + write), 20 * PX
+    live = (ln[0] > 0) & (ln[1] > 0)            # the pairs BSW walks
+    nbytes = (PX * (1 + 4 + 20 + 8 + read + write)
+              + 4 * (int((ln[0] + ln[1])[live].sum()) + 3 * PX + 6 * PX))
+    ops = 20 * PX + BSW_OPS_PER_CELL * stats.get("bsw_cells", 0)
     if phase == 3:
         _, C, S = ch.seed_qbeg.shape
         P = ch.seed_rbeg.element_size()
@@ -181,7 +202,7 @@ def _cols(x, k=1):
 
 def one_item(name, args):
     """`args` cut to one read (ext_select, ext_pairs) or one pair
-    (ext_stage, ext_band): the launch floor's inputs."""
+    (ext_stage, ext_bsw_band): the launch floor's inputs."""
     if name == "ext_select_cuda":
         ch, order, kept, seed_live, seed_score, lens, dbns, opt, R = args
         return (type(ch)(*(f[:1] for f in ch)), order[:1], kept[:1],
@@ -196,7 +217,7 @@ def one_item(name, args):
         pr = args[0]
         return (pr._replace(read=pr.read[:1], cand=pr.cand[:1],
                             valid=pr.valid[:1]), *args[1:])
-    phase, st, pr, r1, r2, left, ch, seed_live, opt = args
+    phase, st, pr, lens, r1, left, ch, seed_live, opt = args[:9]
     m = torch.cat([t.reshape(-1, t.shape[-1])[:, :1] for t in (
         st.qbeg, st.slen, st.rid, st.slot, st.plens, st.lens, st.bl,
         st.h0)]).contiguous()
@@ -208,7 +229,7 @@ def one_item(name, args):
             left.qb, left.score, left.truesc, left.w, left.bl)]).contiguous()
         left1 = Left(*n[:4], n[4:6], left.rb[:1])
     return (phase, st1, pr._replace(read=pr.read[:1], valid=pr.valid[:1]),
-            _cols(r1), None if r2 is None else _cols(r2), left1, ch,
+            _cols(lens), None if r1 is None else _cols(r1), left1, ch,
             seed_live, opt)
 
 
@@ -221,7 +242,9 @@ def kernel_calls(run) -> list:
 
     def rec(n):
         def call(*a, **k):
-            made.append((n, inspect.signature(real[n]).bind(*a, **k).args))
+            b = inspect.signature(real[n]).bind(*a, **k)
+            b.arguments.pop("stats", None)
+            made.append((n, b.args))
             return real[n](*a, **k)
         return call
     for n in KERNELS:
@@ -354,7 +377,7 @@ def run_case(case, old, card, dev) -> None:
     for n, calls in per.items():
         wrapper = getattr(extend_cuda, n)
         for a in calls:
-            what = n if n != "ext_band_cuda" else f"{n} phase {a[0]}"
+            what = n if n != "ext_bsw_band_cuda" else f"{n} phase {a[0]}"
             t = device_ms(lambda: wrapper(*a), 20, dev)
             one = one_item(n, a)
             floor = device_ms(lambda: wrapper(*one), 20, dev)
@@ -365,6 +388,103 @@ def run_case(case, old, card, dev) -> None:
                   f"floor {floor:.5f} ms (one "
                   f"{'read' if n in KERNELS[:2] else 'pair'}), launches a "
                   f"call {len(calls)}  [{card}]", flush=True)
+    if hasattr(sys.modules.get("probe_before.ops.extend_cuda"),
+               "ext_band_cuda"):
+        kernel_turns(name, made, card, dev)
+
+
+def _turns(fns, dev) -> dict:
+    """{version: device ms, mean of 2}, in turns: before, after, after,
+    before."""
+    ms = {v: 0.0 for v in fns}
+    for v in ("before", "after", "after", "before"):
+        ms[v] += device_ms(fns[v], 20, dev) / 2
+    return ms
+
+
+def _flat(x):
+    return [t for v in x for t in _flat(v)] if isinstance(x, tuple) else [x]
+
+
+def kernel_turns(name, made, card, dev) -> None:
+    """The case's ext_select launch (the batch and its first read) and
+    each fused BSW round in turns against an earlier checkout whose
+    band phases are kernels of their own (``ext_band_cuda``): its
+    ext_select_cuda, and its BSW launch (bsw_rows) followed by its
+    ext_band_cuda phase, on the same inputs, each output held equal
+    first."""
+    old_ext = importlib.import_module("probe_before.ops.extend_cuda")
+    old_bsw = importlib.import_module("probe_before.ops.bsw_cuda")
+    for n, a in made:
+        if n == "ext_select_cuda":
+            for what, x in (("the batch", a), ("one read", one_item(n, a))):
+                fns = {"before": lambda x=x: old_ext.ext_select_cuda(*x),
+                       "after": lambda x=x: extend_cuda.ext_select_cuda(*x)}
+                got, want = fns["after"](), fns["before"]()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise SystemExit(f"{name}: ext_select differs after vs "
+                                     f"before")
+                t = _turns(fns, dev)
+                print(f"[ext] {name}: ext_select_cuda, {what}, in turns: "
+                      f"{t['after']:.5f} ms [before {t['before']:.5f}]  "
+                      f"[{card}]", flush=True)
+        if n != "ext_bsw_band_cuda":
+            continue
+        phase, st, pr, lens, r1, left, ch, seed_live, opt = a[:9]
+        q, ln, t_, h0, w = bsw_inputs(phase, st, lens, left, opt)
+        pen = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.zdrop,
+               opt.mat)
+
+        def before(phase=phase, st=st, pr=pr, r1=r1, left=left, ch=ch,
+                   seed_live=seed_live, opt=opt, q=q, ln=ln, t_=t_, h0=h0,
+                   w=w):
+            rows = old_bsw.bsw_rows(q, ln, t_, h0, w, *pen)
+            if phase in (0, 2):
+                return rows, old_ext.ext_band_cuda(phase, st, pr, rows, None,
+                                                   left, ch, seed_live, opt)
+            return rows, old_ext.ext_band_cuda(phase, st, pr, r1, rows, left,
+                                               ch, seed_live, opt)
+        fns = {"before": before,
+               "after": lambda a=a: extend_cuda.ext_bsw_band_cuda(*a)}
+        got, want = _flat(fns["after"]()), _flat(fns["before"]())
+        if len(got) != len(want) or not all(
+                torch.equal(g, x) for g, x in zip(got, want)):
+            raise SystemExit(f"{name}: fused BSW round {phase} differs from "
+                             f"the earlier BSW launch and band phase")
+        tm = _turns(fns, dev)
+        print(f"[ext] {name}: BSW round {phase} with its band phase, in "
+              f"turns: one launch {tm['after']:.5f} ms [before: BSW then "
+              f"ext_band_kernel<{phase}>, {tm['before']:.5f}]  [{card}]",
+              flush=True)
+
+
+def ptxas_turn(card) -> None:
+    """ptxas's registers and spills of csrc/bsw.cu's kernels as each
+    checkout builds them (both built here), and of this checkout's fused
+    rounds (csrc/extend.cu's bsw_band_kernel) and ext_select_kernel."""
+    old_nvcc = importlib.import_module("probe_before.ops.nvcc_build")
+    old_bsw = importlib.import_module("probe_before.ops.bsw_cuda")
+    old_bsw.build(force=True)
+    bsw_cuda.build(force=True)
+    extend_cuda.build(force=True)
+    # by the kernel's name and template arguments (the mangled parameter
+    # types differ between the checkouts)
+    name = re.compile(r"\d+((?:bsw|ext)_[a-z_]+?kernel)"
+                      r"(I(?:Li\d+ELb[01]E|[ix]E))?")
+    kern = lambda rep, keep: {
+        "".join(g or "" for g in name.search(k).groups()): v
+        for k, v in nvcc_build.ptxas_kernels(rep).items()
+        if any(x in k for x in keep)}
+    before = kern(old_nvcc.REPORTS["bsw_cuda"], ("bsw_",))
+    after = kern(nvcc_build.REPORTS["bsw_cuda"], ("bsw_",))
+    fused = kern(nvcc_build.REPORTS["extend_cuda"],
+                 ("bsw_band", "ext_select"))
+    print(f"[ptxas] csrc/bsw.cu, (registers, spill bytes) by kernel: "
+          f"{sorted(after.items())} [before {sorted(before.items())}]; "
+          f"{'equal' if after == before else 'DIFFERENT'}  [{card}]",
+          flush=True)
+    print(f"[ptxas] csrc/extend.cu: {sorted(fused.items())}  [{card}]",
+          flush=True)
 
 
 def prefix_turns(old_root: str, card: str, dev, turns: int = 3) -> None:
@@ -422,6 +542,7 @@ def main(argv=None) -> int:
         prefix_turns(args.before, card, dev)
         return 0
     old = importlib.import_module("probe_before.pipeline.align")
+    ptxas_turn(card)
     for case in cases():
         run_case(case, old, card, dev)
     return 0

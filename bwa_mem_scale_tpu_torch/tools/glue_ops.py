@@ -230,7 +230,7 @@ def main(argv=None) -> int:
 
 
 EXT_WRAPPERS = ("ext_select_cuda", "ext_pairs_cuda", "ext_stage_cuda",
-                "ext_band_cuda")
+                "ext_bsw_band_cuda")
 
 
 @contextlib.contextmanager
@@ -264,9 +264,11 @@ def before_extension_ops(root: str, idx, c, ln, dev) -> int:
     from ..config import MemOptions
     run = lambda: old.seed_chain_extend(fmi, dbns, c, ln, c.shape[1],
                                         opt=MemOptions(), cfg=cfg)
+    # BSW by the name the checkout's align calls it
     return outer_ops(_replayed(
         [(old, n) for n in ("collect_seeds", "expand_and_lookup",
-                            "chain_and_filter", "banded_swa_batch_cuda")],
+                            "chain_and_filter", "bsw_rows",
+                            "banded_swa_batch_cuda") if hasattr(old, n)],
         run))
 
 
@@ -274,11 +276,13 @@ def extension_ops(fmi, c, ln, idx, dev, before=None) -> None:
     """The extension's operations a batch (``align.extend_chains``, from
     the chain filter's outputs to the dict) on the batch's call of
     seed_chain_extend at the default PipelineConfig (C 64, S 32, R 64,
-    PX 4,096): with its seven kernels and four BSW calls replayed; with
-    the plain versions in the kernels' places (the port's earlier glue)
-    and BSW replayed; and on the card as the main path calls it, nothing
-    replayed."""
+    PX 4,096): with its seven launches replayed (select, pairs, stage and
+    the four BSW rounds with their band phases); with the plain versions
+    in the kernels' places (the port's earlier glue) and the plain BSW
+    inside them replayed; and on the card as the main path calls it,
+    nothing replayed."""
     from ..config import MemOptions
+    from ..ops import extend
     from ..ops.chain import DeviceBns
     from ..pipeline import align
     dbns = DeviceBns.from_host(idx.bns, dev)
@@ -293,14 +297,12 @@ def extension_ops(fmi, c, ln, idx, dev, before=None) -> None:
         align.extend_chains = real
     (a, k), = seen
     run = lambda: real(*a, **k)
-    bsw = "bsw_rows"
-    now = outer_ops(_replayed([(align, n) for n in EXT_WRAPPERS + (bsw,)],
-                              run))
+    now = outer_ops(_replayed([(align, n) for n in EXT_WRAPPERS], run))
     with _plain_ext(align):
-        earlier = outer_ops(_replayed([(align, bsw)], run))
+        earlier = outer_ops(_replayed([(extend, "banded_swa_rows")], run))
     print(f"extension operations a batch (B=512, L=101, C=64, S=32, R=64, "
           f"PX=4,096, {int(out['valid'].sum())} pairs valid; outermost aten "
-          f"ops of align.extend_chains): the kernels and BSW replayed {now}; "
+          f"ops of align.extend_chains): the seven launches replayed {now}; "
           f"the earlier glue (the plain versions of ops/extend.py in the "
           f"kernels' places, BSW replayed) {earlier}"
           + ("" if before is None else
@@ -311,7 +313,7 @@ def extension_ops(fmi, c, ln, idx, dev, before=None) -> None:
         names = set()
         n = outer_ops(run, names)
         print(f"extension operations a batch as the main path calls it "
-              f"(nothing replayed: eleven launches, the rest the wrappers' "
+              f"(nothing replayed: seven launches, the rest the wrappers' "
               f"allocations and views): {n} ({', '.join(sorted(names))})")
 
 

@@ -19,9 +19,11 @@ Phases, in order; any failure exits non-zero:
               csrc/round_probe.cu (a warp's dependent round) from source,
               one nvcc each, all at once; prints ptxas's registers and
               spills for each FM walk, glue, extension, sweep, ERT,
-              chaining, seed-SW and BSW kernel (for the BSW kernel
-              one line an instantiation, failing on a spill at K = 4 or
-              5 columns a lane) and the measured cost of a round.
+              chaining, seed-SW and BSW kernel (for the BSW kernel and
+              its fused form with the extension's band epilogue,
+              bsw_band_kernel, one line an instantiation, failing on a
+              spill at K = 4 or 5 columns a lane) and the measured cost
+              of a round.
   3. kernel:  the CUDA kernel against the plain PyTorch BSW on the card
               at main-path shapes (4096 pairs, query 101, target 309,
               band 100 and 200), all six outputs bit-equal; the live
@@ -39,21 +41,26 @@ Phases, in order; any failure exits non-zero:
               device batch and the pass-3, both glue (csrc/smem_glue.cu),
               SA lookup stage (csrc/sal.cu), both chaining and the
               extension's select, pairs and stage kernels (csrc/extend.cu)
-              at least once a batch, its band kernel and BSW four times,
+              at least once a batch, its fused BSW round (BSW with the
+              band phase inside, counted as BSW's too) four times,
               the bare SA walk (sa_walk_kernel) never; reads/s, and per-stage seconds (the chain stage
               among them) from a second `mem -v 4` run with synchronised
               stage timers.
   5. slice:   seed_chain_extend on one batch of phase 4 with the kernels
-              and with the plain BSW, with the plain SMEM passes 1 and
+              and with the plain SMEM passes 1 and
               2, with the plain seeding glue, with the plain pass 3 and
               SA lookup, with the plain chaining, and with the plain
               extension glue (ops/extend.py): packed and meta equal; the
-              batch's seven extension launches (csrc/extend.cu), made by
-              a further call outside the timed ones, each equal to its plain version (max_abs_err 0) with its
-              device time, plain time, bound (the bytes these inputs
-              need) and launch floor (one read or one pair); the
-              extension alone (align.extend_chains) timed, run under
-              torch.cuda.set_sync_debug_mode("error"), and the BSW length
+              batch's seven extension launches (csrc/extend.cu: select,
+              pairs, stage and the four fused BSW rounds), made by a
+              further call outside the timed ones, each equal to its
+              plain version (max_abs_err 0; a fused round against the
+              plain BSW and the plain band phase) with its device time,
+              plain time, bound (the bytes these inputs need; a fused
+              round adds BSW's) and launch floor (one read or one
+              pair); the extension alone (align.extend_chains) timed,
+              run under torch.cuda.set_sync_debug_mode("error"), and the
+              BSW length
               check raising through fetch_extend on an over-long target;
               the extension launches at the retry tiers' capacities (64
               and 8 reads) and on the repeat batch held the same way; collect_smems_oh with the kernels and with the
@@ -65,9 +72,10 @@ Phases, in order; any failure exits non-zero:
               bound (the bytes it moves, each input once: glue_work),
               launch floor (the kernel on the first read alone) and
               device time; the four BSW calls of the
-              batch captured, each with its live pairs, rows, cells,
-              bound, the kernel's device time and the wrapper's wall
-              time; the batch's two SMEM passes 1-2 launches, its pass-3
+              batch (the fused rounds' BSW inputs), each with its live
+              pairs, rows, cells, bound, the standalone kernel's device
+              time and the wrapper's wall time; the batch's two SMEM
+              passes 1-2 launches, its pass-3
               launch and its SA lookup stage call, as made, each equal to
               its
               plain version (per-lane steps too, where the plain version
@@ -452,6 +460,25 @@ def bsw_launch_only(args):
     return lambda: bsw_cuda.bsw_rows(*rows, *args[5:12])
 
 
+def bsw_calls_of(rounds):
+    """The BSW calls inside the extension's fused rounds
+    (ext_bsw_band_cuda's [(args, kwargs)] as made), each in
+    banded_swa_batch's form: qs, q_lens, ts, t_lens, h0, w, the gap
+    penalties, zdrop and mat (ops/extend.py::bsw_inputs)."""
+    import inspect
+    from bwa_mem_scale_tpu_torch.ops import extend, extend_cuda
+    sig = inspect.signature(extend_cuda.ext_bsw_band_cuda)
+    out = []
+    for args, kw in rounds:
+        a = sig.bind(*args, **kw).arguments
+        opt = a["opt"]
+        q, lens, t, h0, w = extend.bsw_inputs(a["phase"], a["st"], a["lens"],
+                                              a["left"], opt)
+        out.append((q, lens[0], t, lens[1], h0, w, opt.o_del, opt.e_del,
+                    opt.o_ins, opt.e_ins, opt.zdrop, opt.mat))
+    return out
+
+
 def bsw_pairs(rng, n, ql, tl):
     """Near-matches, random pairs, dead lanes, N bases, z-drop rows."""
     qs = rng.randint(0, 4, (n, ql)).astype(np.int32)
@@ -597,9 +624,9 @@ def main_path_wrappers():
 
 def ext_launch_check(what, launches, batches):
     """SystemExit unless the extension kernels launched once a device
-    batch each (ext_band four times) and BSW four times."""
+    batch each (the fused BSW round four times) and BSW four times."""
     for name, per in (("ext_select", 1), ("ext_pairs", 1), ("ext_stage", 1),
-                      ("ext_band", 4), ("banded_swa_batch", 4)):
+                      ("ext_bsw_band", 4), ("banded_swa_batch", 4)):
         if launches[name] < per * batches:
             raise SystemExit(f"{what}: the {name} kernel launched "
                              f"{launches[name]} times over {batches} device "
@@ -692,8 +719,7 @@ def phase_slice(dev, card, al, codes, lens):
     c = torch.as_tensor(codes, device=dev)
     ln = torch.as_tensor(lens, device=dev)
     # the wrappers of the path, by the module attribute the path calls
-    real = {(align, "bsw_rows"): align.bsw_rows,
-            (smem_oh, "one_pos_machine_cuda"): smem_oh.one_pos_machine_cuda,
+    real = {(smem_oh, "one_pos_machine_cuda"): smem_oh.one_pos_machine_cuda,
             (smem_oh, "seed_strategy_machine_cuda"):
                 smem_oh.seed_strategy_machine_cuda,
             (sal, "expand_and_lookup_cuda"): sal.expand_and_lookup_cuda,
@@ -719,7 +745,6 @@ def phase_slice(dev, card, al, codes, lens):
     plain = glue_plain()
     runs = (("auto", "auto", {k: recorder(k[1], fn)
                               for k, fn in real.items()}),
-            ("plain", "plain", {}),
             ("plain_seed", "auto", {k12: smem_oh.one_pos_machine}),
             ("plain_glue", "auto", {kts: plain["reseed_tasks_cuda"],
                                     kmerge: plain["merge_smems_cuda"]}),
@@ -747,7 +772,7 @@ def phase_slice(dev, card, al, codes, lens):
     with ext_recorded() as ext_made:    # untimed: each extension launch
         align.seed_chain_extend(al.fmi, al.dbns, c, ln, READ_LEN, opt=al.opt,
                                 cfg=al.cfg)
-    for run, what in (("plain", "BSW"), ("plain_seed", "SMEM passes 1-2"),
+    for run, what in (("plain_seed", "SMEM passes 1-2"),
                       ("plain_glue", "seeding glue"),
                       ("plain_walks", "pass 3 and SA lookup"),
                       ("plain_chain", "chaining"),
@@ -759,20 +784,18 @@ def phase_slice(dev, card, al, codes, lens):
     n_valid = int(outs["auto"][0]["valid"].sum())
     log(f"[slice] seed_chain_extend on {len(codes)} reads ({n_valid} "
         f"pairs): packed and meta equal with the kernels and with the "
-        f"plain BSW, the plain SMEM passes 1-2, the plain seeding glue, the "
-        f"plain pass 3 and SA lookup, the plain chaining and the plain "
-        f"extension glue; whole call "
-        f"{outs['auto'][1]:.3f} s"
-        f" with the kernels, {outs['plain'][1]:.3f} s with the plain BSW, "
+        f"plain SMEM passes 1-2, the plain seeding glue, the plain pass 3 "
+        f"and SA lookup, the plain chaining and the plain extension glue "
+        f"(BSW's rounds included); whole call {outs['auto'][1]:.3f} s with "
+        f"the kernels, "
         f"{outs['plain_seed'][1]:.3f} s with the plain SMEM passes 1-2, "
         f"{outs['plain_glue'][1]:.3f} s with the plain seeding glue, "
         f"{outs['plain_walks'][1]:.3f} s with the plain pass 3 and SA "
         f"lookup, {outs['plain_chain'][1]:.3f} s with the plain chaining, "
         f"{outs['plain_ext'][1]:.3f} s with the plain extension glue  "
         f"[{card}]")
-    # the BSW calls as made ([2, P] lengths) in the wrapper's form
-    bsw_calls = [(q, ls[0], t, ls[1], h0, *rest)
-                 for (q, ls, t, h0, *rest), _ in calls["bsw_rows"]]
+    # the BSW calls as the fused rounds made them, in the wrapper's form
+    bsw_calls = bsw_calls_of(calls["ext_bsw_band_cuda"])
     if len(bsw_calls) != 4:
         raise SystemExit(f"slice: {len(bsw_calls)} BSW calls, expected 4")
     path = []
@@ -796,7 +819,7 @@ def phase_slice(dev, card, al, codes, lens):
                        ("chain_filter_cuda", 1),
                        ("reseed_tasks_cuda", 1), ("merge_smems_cuda", 1),
                        ("ext_select_cuda", 1), ("ext_pairs_cuda", 1),
-                       ("ext_stage_cuda", 1), ("ext_band_cuda", 4)):
+                       ("ext_stage_cuda", 1), ("ext_bsw_band_cuda", 4)):
         if len(calls[name]) != want:
             raise SystemExit(f"slice: {len(calls[name])} {name} launches, "
                              f"expected {want}")
@@ -1418,7 +1441,7 @@ EXT_KERNELS = (
      "bwa_mem_scale_tpu/pipeline/align.py:331"),
     ("ext_stage", "ext_stage_cuda",
      "bwa_mem_scale_tpu/pipeline/align.py:359"),
-    ("ext_band", "ext_band_cuda",
+    ("ext_bsw_band", "ext_bsw_band_cuda",
      "bwa_mem_scale_tpu/pipeline/align.py:410"))
 # each extension kernel's largest max_abs_err over every launch held
 EXT_ERR = {name: 0.0 for name, _, _ in EXT_KERNELS}
@@ -1442,9 +1465,10 @@ def ext_recorded():
 
         def call(*args, **kw):
             out = real[a](*args, **kw)
+            bound = sig.bind(*args, **kw)
+            bound.arguments.pop("stats", None)   # the run's, not the launch's
             with lock:
-                made.append((a, sig.bind(*args, **kw).args, out,
-                             current_shard()))
+                made.append((a, bound.args, out, current_shard()))
             return out
         return call
     for a in real:
@@ -1460,7 +1484,7 @@ def ext_fresh_flag(attr, args):
     """args with the pairs' BSW length flag cloned (the stage and the band
     phases OR into it in place)."""
     args = list(args)
-    i = {"ext_stage_cuda": 0, "ext_band_cuda": 2}.get(attr)
+    i = {"ext_stage_cuda": 0, "ext_bsw_band_cuda": 2}.get(attr)
     if i is not None:
         args[i] = args[i]._replace(flag=args[i].flag.clone())
     return args
@@ -1468,9 +1492,10 @@ def ext_fresh_flag(attr, args):
 
 def ext_err(got, want):
     """(max_abs_err, every output equal in dtype, shape and value) of two
-    outputs of an extension kernel (a tensor or a tuple of them)."""
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
+    outputs of an extension kernel (a tensor or nested tuples of them)."""
+    flat = lambda x: ([t for v in x for t in flat(v)]
+                      if isinstance(x, tuple) else [x])
+    got, want = flat(got), flat(want)
     err, same = 0.0, len(got) == len(want)
     for a, b in zip(got, want):
         same = same and a.dtype == b.dtype and a.shape == b.shape
@@ -1533,8 +1558,8 @@ def hold_route(al, codes, lens, what, card):
 
 def ext_time(made, dev, card, what):
     """Each extension kernel's launches of one seed_chain_extend call as
-    made, timed alone (device ms, mean over its launches: ext_band's four
-    phases), beside its plain version (host clock, synchronised), its
+    made, timed alone (device ms, mean over its launches: the fused BSW
+    round's four phases), beside its plain version (host clock, synchronised), its
     bound (tools/extend_before_after.py::ext_work: each distinct input
     byte read once, each output written once, the work these inputs need) and its launch
     floor (the kernel on one read or one pair). Returns {name: numbers}."""
@@ -1614,7 +1639,7 @@ def ext_whole(dev, card, al, c, ln):
     else:
         raise SystemExit("ext: an over-long BSW length did not raise")
     log(f"[ext] phase 5's batch: the extension alone (extend_chains: "
-        f"eleven launches) {ms:.5f} ms device, {wall:.5f} ms host wall of a "
+        f"seven launches) {ms:.5f} ms device, {wall:.5f} ms host wall of a "
         f"synchronised call; no host synchronisation under "
         f"set_sync_debug_mode('error'); an over-long BSW length (TL 8) "
         f"raised through fetch_extend with the check's message  [{card}]")
@@ -2258,7 +2283,7 @@ def phase_int64(dev, card, tmp, se, al, codes, lens, slice32):
     if sam_body(out) != sam_body(se["argv"][3]):
         raise SystemExit("int64: the SE SAM differs from phase 4's")
     for name, (n, n64) in (*launches.items(), *ext_launches.items()):
-        want = ({"one_pos_machine": 2, "ext_band": 4}.get(name, 1)
+        want = ({"one_pos_machine": 2, "ext_bsw_band": 4}.get(name, 1)
                 * al64.batches)
         if n64 < want or n != n64:
             raise SystemExit(f"int64: {name} launched {n} times, {n64} in "
@@ -2988,19 +3013,13 @@ def phase_longread(dev, card, tmp):
         codes[i, :len(s)] = s
     L = codes.shape[1]
     real = seedsw_cuda.local_sw_score_cuda
-    real_bsw = align.bsw_rows
-    captured, bsw_calls = [], []
+    captured = []
 
     def record(*args):
         captured.append(args)
         return real(*args)
 
-    def record_bsw(*args, **kw):
-        bsw_calls.append(args)
-        return real_bsw(*args, **kw)
-
     seedsw_cuda.local_sw_score_cuda = record
-    align.bsw_rows = record_bsw
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     c_dev = torch.as_tensor(codes, device=dev)
@@ -3011,7 +3030,6 @@ def phase_longread(dev, card, tmp):
         torch.cuda.synchronize()
     finally:
         seedsw_cuda.local_sw_score_cuda = real
-        align.bsw_rows = real_bsw
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with ext_recorded() as ext_made:    # a second call, past the peak's
         align.seed_chain_extend(al.fmi, al.dbns, c_dev, l_dev, L, opt=al.opt,
@@ -3020,12 +3038,17 @@ def phase_longread(dev, card, tmp):
         raise SystemExit(f"longread: {len(captured)} seed-SW calls in one "
                          f"batch, expected 1")
     # the batch's BSW calls at its width (the column-tiled instantiation
-    # past 767 columns, with its per-pair scratch) against the plain BSW
+    # past 767 columns, with its per-pair scratch), the fused rounds'
+    # inputs, through the standalone kernel against the plain BSW (the
+    # fused rounds themselves are held below, hold_ext)
     from bwa_mem_scale_tpu_torch.ops import bsw_cuda
     from bwa_mem_scale_tpu_torch.ops.bsw import (BswBatchResult,
-                                                 banded_swa_rows)
+                                                 banded_swa_batch)
+    bsw_calls = bsw_calls_of([(args, {}) for a, args, _, _ in ext_made
+                              if a == "ext_bsw_band_cuda"])
     for i, args in enumerate(bsw_calls):
-        got, want = real_bsw(*args), banded_swa_rows(*args)
+        got = bsw_cuda.banded_swa_batch_cuda(*args)
+        want = banded_swa_batch(*args)
         torch.cuda.synchronize()
         bad = [f for f, x, y in zip(BswBatchResult._fields, got, want)
                if not torch.equal(x, y)]
@@ -4575,8 +4598,7 @@ def mesh_sites():
     {(module, attribute): kernel name}."""
     from bwa_mem_scale_tpu_torch.ops import sal, smem_oh
     from bwa_mem_scale_tpu_torch.pipeline import align
-    return {(align, "bsw_rows"): "banded_swa_batch",
-            (smem_oh, "one_pos_machine_cuda"): "one_pos_machine",
+    return {(smem_oh, "one_pos_machine_cuda"): "one_pos_machine",
             (smem_oh, "seed_strategy_machine_cuda"): "seed_strategy_machine",
             (sal, "expand_and_lookup_cuda"): "expand_and_lookup",
             (align, "chain_seeds_cuda"): "chain_seeds",
@@ -5170,10 +5192,7 @@ def main():
             ("extend_cuda", "ext_select_kernelI{}", "ext_select_kernel<{}>"),
             ("extend_cuda", "ext_pairs_kernel", "ext_pairs_kernel"),
             ("extend_cuda", "ext_stage_kernelI{}", "ext_stage_kernel<{}>"),
-            ("extend_cuda", "ext_band_kernelILi1E{}",
-             "ext_band_kernel<1, {}>"),
-            ("extend_cuda", "ext_band_kernelILi3E{}",
-             "ext_band_kernel<3, {}>"),
+            ("extend_cuda", "bsw_band_tiled_kernel", "bsw_band_tiled_kernel"),
             ("sal_cuda", "sal_count_kernelI{}", "sal_count_kernel<{}>"),
             ("sal_cuda", "sal_walk_kernelI{}", "sal_walk_kernel<{}>"),
             ("chain_cuda", "chain_seeds_kernelI{}", "chain_seeds_kernel<{}>"),
@@ -5222,7 +5241,19 @@ def main():
     log("[build] bsw_warp_kernel<K, shared>: " + "; ".join(
         f"K={k}{' (shared memory)' if sh else ''} {r} registers, {s} "
         f"bytes spilled" for (k, sh), (r, s) in sorted(regs.items())))
-    if any(s for (k, _), (_, s) in regs.items() if k in (4, 5)):
+    # the same body with the extension's band epilogue (csrc/extend.cu)
+    fused = {(int(k.group(1)), k.group(2) == "1"): v
+             for fn, v in kernels["extend_cuda"].items()
+             if (k := re.search(r"bsw_band_kernelILi(\d+)ELb([01])E", fn))}
+    if sorted(fused) != sorted(regs):
+        raise SystemExit(f"build: ptxas reported bsw_band_kernel for "
+                         f"{sorted(fused)}, expected {sorted(regs)}")
+    log("[build] bsw_band_kernel<K, shared> (BSW with the band epilogue): "
+        + "; ".join(f"K={k}{' (shared memory)' if sh else ''} {r} "
+                    f"registers, {s} bytes spilled"
+                    for (k, sh), (r, s) in sorted(fused.items())))
+    if any(s for (k, _), (_, s) in (*regs.items(), *fused.items())
+           if k in (4, 5)):
         raise SystemExit("build: the BSW kernel spills at K = 4 or 5")
     kswa_regs = {int(k.group(1)): v
                  for fn, v in kernels["kswa_cuda"].items()

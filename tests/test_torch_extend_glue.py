@@ -13,16 +13,22 @@
   layout; and the long-read ``seed_sw_filter`` path (-W 10, 100-320 bp
   reads), which feeds ``ext_select`` its own seed_live and seed_score.
 - Each kernel's CPU twin (``ext_*_twin``: the kernel's own loop, block,
-  warp or thread, chain by chain, rank by counting) against its plain
-  version on every call the seven cases make; the pair compaction's twin
-  over several chunks; the plain versions' BSW length flag.
+  warp, lane or thread, chain by chain, rank by counting; the fused BSW
+  round's twin the plain BSW rows, then each warp's band epilogue with
+  the coverage over its lanes) against its plain version on every call
+  the seven cases make; the candidate selection's twin (its load groups,
+  the carried rbeg, the warp's 32-way contig search) at the default and
+  tier-2 widths on a 48-contig genome (two search rounds), chains
+  bridging l_pac, chains with no live seed and int64 positions; the pair
+  compaction's twin over several chunks; the plain versions' BSW length
+  flag.
 - The wrappers run the plain versions on CPU tensors.
 On a GPU (``-m cuda``): each kernel launch of ``seed_chain_extend``
 against its plain version on the same inputs, at both layouts and at tier
-2's widths, with the launch counts (one each, ext_band four times, BSW
-four); the extension under ``torch.cuda.set_sync_debug_mode("error")``;
-and the BSW length check raising through ``fetch_extend`` on an
-over-long target. The JAX side is imported inside the tests that use it,
+2's widths, with the launch counts (one each, the fused BSW round four
+times, BSW four); the extension under
+``torch.cuda.set_sync_debug_mode("error")``; and the BSW length check
+raising through ``fetch_extend`` on an over-long target. The JAX side is imported inside the tests that use it,
 so the CUDA cases also run without JAX:
     PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_extend_glue.py
 """
@@ -53,15 +59,15 @@ TIER2 = dict(max_coords=512, max_chains=1024, max_seeds_per_chain=256,
 COMP = np.array([3, 2, 1, 0, 4], np.uint8)
 CONTIG = 20_000
 WRAPPERS = ("ext_select_cuda", "ext_pairs_cuda", "ext_stage_cuda",
-            "ext_band_cuda")
+            "ext_bsw_band_cuda")
 TWINS = {"ext_select_cuda": extend_cuda.ext_select_twin,
          "ext_pairs_cuda": extend_cuda.ext_pairs_twin,
          "ext_stage_cuda": extend_cuda.ext_stage_twin,
-         "ext_band_cuda": extend_cuda.ext_band_twin}
+         "ext_bsw_band_cuda": extend_cuda.ext_bsw_band_twin}
 PLAINS = {"ext_select_cuda": extend.ext_select,
           "ext_pairs_cuda": extend.ext_pairs,
           "ext_stage_cuda": extend.ext_stage,
-          "ext_band_cuda": extend.ext_band}
+          "ext_bsw_band_cuda": extend.ext_bsw_band}
 # name: (capacities, reads, read length, forced int64, -W 10 long reads)
 CASES = {
     "caps-edges": (CAPS, 40, 101, False, False),
@@ -183,9 +189,15 @@ def _run(side, name):
     return side["runs"][name]
 
 
+def _flat(x):
+    """The tensors of an output, nested tuples flattened in order."""
+    if isinstance(x, tuple):
+        return [t for v in x for t in _flat(v)]
+    return [x]
+
+
 def _same(got, want, what):
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
+    got, want = _flat(got), _flat(want)
     assert len(got) == len(want), what
     for i, (a, b) in enumerate(zip(got, want)):
         assert a.dtype == b.dtype and a.shape == b.shape, (what, i)
@@ -252,12 +264,85 @@ def test_cases_reach_the_paths(side):
 def test_twins_equal_to_plain(side, name):
     """Each kernel's twin against its plain version on every call the
     case's seed_chain_extend made: ext_select, ext_pairs and ext_stage
-    once, ext_band four times."""
+    once, the fused BSW round four times (phases 0-3)."""
     r = _run(side, name)
     assert [len(r["calls"][n]) for n in WRAPPERS] == [1, 1, 1, 4]
     for n in WRAPPERS:
         for a, k in r["calls"][n]:
             _same(TWINS[n](*a, **k), PLAINS[n](*a, **k), n)
+
+
+def _select_inputs(C, S, wide, with_live, seed):
+    """ext_select's inputs on four reads of 48 contigs (two rounds of the
+    32-way search): chains spread over both strands, some near l_pac
+    (bridging it) and near contig edges, some with no live seed; the
+    contigs of 2^27 bp at int64 (positions past 2^32), of 5,000 at
+    int32; with_live, the seed-SW filter's [B, C, S] mask."""
+    from bwa_mem_scale_tpu_torch.ops.chain import Chains, DeviceBns
+    rng = np.random.RandomState(seed)
+    B, n_ctg = 4, 48
+    ctg = (1 << 27) if wide else 5000
+    l_pac = n_ctg * ctg
+    offsets = np.arange(n_ctg, dtype=np.int64) * ctg
+    lens = rng.randint(60, 102, B).astype(np.int32)
+    n_seeds = rng.randint(0, S + 1, (B, C)).astype(np.int32)
+    n_seeds[:, ::7] = 0                          # chains with no live seed
+    anchor = rng.randint(0, 2 * l_pac - 200, (B, C)).astype(np.int64)
+    anchor[:, 1::5] = l_pac - rng.randint(-60, 60, (B, len(range(1, C, 5))))
+    edge = offsets[rng.randint(1, n_ctg, (B, len(range(2, C, 5))))]
+    anchor[:, 2::5] = edge + rng.randint(-60, 60, edge.shape)
+    anchor[:, 3::5] = 2 * l_pac - 1 - anchor[:, 2::5][:, :anchor[:, 3::5]
+                                                       .shape[1]]
+    qbeg = rng.randint(0, 80, (B, C, S)).astype(np.int32)
+    slen = rng.randint(19, 40, (B, C, S)).astype(np.int32)
+    rbeg = anchor[:, :, None] + qbeg + rng.randint(-30, 30, (B, C, S))
+    rbeg = np.clip(rbeg, 0, 2 * l_pac - 1)
+    score = rng.randint(0, 400, (B, C, S)).astype(np.int32)
+    order = np.stack([rng.permutation(C) for _ in range(B)]).astype(np.int32)
+    kept = rng.randint(0, 3, (B, C)).astype(np.int32)
+    live = None
+    if with_live:
+        live = torch.as_tensor(rng.rand(B, C, S) < 0.7)
+        live[:, ::9] = False
+    t = torch.as_tensor
+    pd = np.int64 if wide else np.int32
+    z = torch.zeros((B, C), dtype=torch.int32)
+    ch = Chains(z, z, t(np.full(B, C, np.int32)), z, t(n_seeds), t(qbeg),
+                t(rbeg.astype(pd)), t(slen), t(score),
+                torch.zeros(B, dtype=torch.bool))
+    dbns = DeviceBns(t(offsets), torch.zeros(n_ctg, dtype=torch.bool), l_pac)
+    return (ch, t(order), t(kept), live, t(score), t(lens), dbns, TOpt())
+
+
+@pytest.mark.parametrize("with_live", [False, True])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("widths", [(64, 32, 64, 8), (1024, 256, 2048, 32)])
+def test_select_twin_shapes(widths, wide, with_live):
+    """ext_select_kernel's twin (its load groups, the rbeg carried from
+    the loading lane, the warp's 32-way contig search) against the plain
+    ext_select at the default widths (C 64, S 32, R 64, 8 warps) and tier
+    2's (1,024, 256, 2,048, 32 warps), int32 and int64 positions, with
+    and without a seed-SW mask: every output equal; 48 contigs take the
+    search two rounds; the inputs reach chains bridging l_pac, chains
+    clamped at an inner contig's edge, chains with no live seed and a read
+    over R."""
+    C, S, R, warps = widths
+    args = _select_inputs(C, S, wide, with_live, seed=C + 2 * wide
+                          + with_live)
+    want = extend.ext_select(*args, R)
+    _same(extend_cuda.ext_select_twin(*args, R, warps=warps), want, widths)
+    assert int(extend_cuda.ext_select_twin.last_rounds.max()) == 2
+    ch, dbns = args[0], args[6]
+    live = extend.live_seeds(ch, args[3])
+    l_pac = dbns.l_pac
+    none = ~live.any(2)
+    assert none.any()
+    some = ~none
+    assert ((want.rmax0 == l_pac) | (want.rmax1 == l_pac))[some].any()
+    inner = torch.cat([dbns.offsets[1:], 2 * l_pac - dbns.offsets[1:]])
+    assert (torch.isin(want.rmax0, inner) | torch.isin(want.rmax1, inner))[
+        some].any()
+    assert want.reg_overflow.any() or R == 2048
 
 
 @pytest.mark.parametrize("threads", [8, 1024])
@@ -333,9 +418,10 @@ def card_index():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CASES))
 def test_kernels_equal_to_plain_on_card(card_index, name):
-    """seed_chain_extend on the card: one launch of each kernel (ext_band
-    four, BSW four), each held against its plain version on the same
-    inputs (max_abs_err 0), and the dict equal to the CPU route's."""
+    """seed_chain_extend on the card: one launch of each kernel (the
+    fused BSW round four, counted as BSW's too), each held against its
+    plain version on the same inputs (max_abs_err 0), and the dict equal
+    to the CPU route's."""
     dev = _cuda()
     wr = extend_cuda.WRAPPERS
     for w in wr + (banded_swa_batch_cuda,):
@@ -359,7 +445,7 @@ def test_kernels_equal_to_plain_on_card(card_index, name):
 @pytest.mark.cuda
 def test_extend_has_no_host_sync_on_card(card_index):
     """extend_chains (the chain filter's outputs to the dict) under
-    torch.cuda.set_sync_debug_mode("error"): eleven launches, no raise."""
+    torch.cuda.set_sync_debug_mode("error"): seven launches, no raise."""
     dev = _cuda()
     real = talign.extend_chains
     args = []

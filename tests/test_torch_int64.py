@@ -956,8 +956,8 @@ def test_seed_chain_extend_int64_on_card_equal_to_int32(card):
     """seed_chain_extend on the card at the forced layout against the int32
     layout on the 512-read batch at the CLI's capacities: packed and meta
     equal; every int64 form launched, none of the int32 forms; each call
-    launches the extension's select, pairs and stage kernels once, its
-    band kernel four times and BSW four times."""
+    launches the extension's select, pairs and stage kernels once and its
+    fused BSW round four times (each counted as BSW's too)."""
     from bwa_mem_scale_tpu_torch.ops import extend_cuda
     from bwa_mem_scale_tpu_torch.ops.bsw_cuda import banded_swa_batch_cuda
     from bwa_mem_scale_tpu_torch.pipeline.align import (GpuAligner,
@@ -968,9 +968,9 @@ def test_seed_chain_extend_int64_on_card_equal_to_int32(card):
                 smem_cuda.seed_strategy_machine_cuda, expand_and_lookup_cuda,
                 chain_cuda.chain_seeds_cuda, chain_cuda.chain_filter_cuda,
                 extend_cuda.ext_select_cuda, extend_cuda.ext_stage_cuda,
-                extend_cuda.ext_band_cuda)
+                extend_cuda.ext_bsw_band_cuda)
     ext = (extend_cuda.ext_select_cuda, extend_cuda.ext_pairs_cuda,
-           extend_cuda.ext_stage_cuda, extend_cuda.ext_band_cuda,
+           extend_cuda.ext_stage_cuda, extend_cuda.ext_bsw_band_cuda,
            banded_swa_batch_cuda)
     outs = []
     for fmi in (card["f32"], card["f64"]):
